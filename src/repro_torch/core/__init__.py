@@ -1,0 +1,24 @@
+"""F-IVM core: factorized incremental view maintenance over rings."""
+from .contraction import BatchedDelta, contract_dense, lift_relation, marginalize_dense
+from .delta import propagate_coo
+from .ivm import IVMEngine
+from .materialize import choose_materialized, views_on_path
+from .plan import PlanCache, TriggerPlan, compile_trigger, execute_trigger
+from .query import Query
+from .relations import COOUpdate, DenseRelation
+from .rings import DegreeMRing, MulTerm, Ring, ScalarRing, count_ring, sum_ring
+from .storage import (StorageSpec, ViewStorage, apply_storage_plan, as_dense,
+                      make_base_relation, plan_storage, view_nbytes)
+from .variable_orders import VariableOrder, VONode, chain, heuristic_order
+from .view_tree import ViewNode, build_view_tree, evaluate_view
+
+__all__ = [
+    "BatchedDelta", "COOUpdate", "DegreeMRing", "DenseRelation", "IVMEngine",
+    "MulTerm", "PlanCache", "Query", "Ring", "ScalarRing", "StorageSpec",
+    "TriggerPlan", "VONode", "VariableOrder", "ViewNode", "ViewStorage",
+    "apply_storage_plan", "as_dense", "build_view_tree", "chain",
+    "choose_materialized", "compile_trigger", "contract_dense", "count_ring",
+    "evaluate_view", "execute_trigger", "heuristic_order", "lift_relation",
+    "make_base_relation", "marginalize_dense", "plan_storage",
+    "propagate_coo", "sum_ring", "view_nbytes", "views_on_path",
+]

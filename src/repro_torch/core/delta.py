@@ -1,0 +1,54 @@
+"""Delta propagation (Sec. 4; PyTorch port of ``repro.core.delta``).
+
+For an update δR, the delta tree replaces the views on the leaf-to-root path
+with delta views (Fig. 4):
+
+    δ(V1 ⊎ V2) = δV1 ⊎ δV2
+    δ(V1 ⊗ V2) = (δV1 ⊗ V2) ⊎ (V1 ⊗ δV2) ⊎ (δV1 ⊗ δV2)
+    δ(⊕_X V)   = ⊕_X δV
+
+Only one child changes per path node, so the product rule degenerates to
+δV ⊗ (materialized siblings).  Deltas are carried as BatchedDelta (COO over
+update-bound variables × dense over sibling-contributed ones).  This module
+is a thin plan interpreter: ``IVMEngine`` fetches plans from its cache; the
+function here compiles ad hoc (tests / exploratory use).
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+from . import plan as plan_mod
+from .plan import PropagationResult
+from .query import Query
+from .relations import COOUpdate
+from .view_tree import ViewNode
+
+__all__ = ["PropagationResult", "propagate_coo"]
+
+
+class _PathEngine:
+    """Minimal engine facade for compiling a standalone path plan."""
+
+    def __init__(self, tree, query, views, device):
+        self.tree = tree
+        self.query = query
+        self.views = views
+        self.strategy = "fivm"
+        self.base = {}
+        self.device = device
+
+
+def propagate_coo(
+    tree: ViewNode,
+    materialized: Mapping[str, object],
+    query: Query,
+    rel: str,
+    upd: COOUpdate,
+) -> PropagationResult:
+    """Propagate a COO batch update along the delta tree, updating every
+    materialized view on the path (in place where the layout allows: the
+    views passed in must not be used again; use ``result.updated``)."""
+    eng = _PathEngine(tree, query, materialized, upd.keys.device)
+    plan = plan_mod.compile_trigger(eng, rel,
+                                    ("coo", tuple(upd.schema), upd.batch))
+    return plan_mod.run_coo_ops(plan.ops, materialized, query, upd)

@@ -1,0 +1,182 @@
+"""The IVM engine: triggers + maintenance strategies (Sec. 4, Sec. 8;
+PyTorch port of ``repro.core.ivm``).
+
+Strategies:
+  * ``fivm``    — F-IVM: one view tree, μ-chosen materialization, factorized
+                  delta propagation (the paper's contribution).
+  * ``fivm_1``  — first-order F-IVM: only the root is materialized; deltas
+                  recompute sibling subtrees from base relations on the fly.
+  * ``dbt``     — DBToaster-like fully-recursive higher-order IVM: every
+                  view in the tree is materialized regardless of μ.
+  * ``reeval``  — full recomputation from stored base relations per update.
+
+``repro_torch.core.plan.compile_trigger`` compiles each (relation, update
+signature) into a cached :class:`TriggerPlan` and the engine replays it
+eagerly.  The engine owns its state: views and base relations are copied
+out of the caller's database at build and updated in place afterwards.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import torch
+
+from ..device import resolve_device
+from . import plan as plan_mod
+from . import storage as storage_mod
+from .materialize import choose_materialized
+from .query import Query
+from .relations import COOUpdate, DenseRelation
+from .variable_orders import VariableOrder, heuristic_order
+from .view_tree import ViewNode, build_view_tree, evaluate_view
+
+STRATEGIES = ("fivm", "fivm_1", "dbt", "reeval")
+
+
+@dataclasses.dataclass
+class IVMEngine:
+    query: Query
+    tree: ViewNode
+    materialized_names: set[str]
+    views: dict[str, DenseRelation]
+    base: dict[str, DenseRelation]
+    strategy: str
+    updatable: tuple[str, ...]
+    device: torch.device
+    #: per-view storage decisions (repro_torch.core.storage.plan_storage)
+    storage_plan: dict = dataclasses.field(default_factory=dict)
+    #: compiled trigger plans, keyed per (relation, update signature,
+    #: backend override)
+    plans: plan_mod.PlanCache = dataclasses.field(
+        default_factory=plan_mod.PlanCache)
+
+    # ------------------------------------------------------------------ build
+    @classmethod
+    def build(
+        cls,
+        query: Query,
+        database: Mapping[str, DenseRelation],
+        updatable: tuple[str, ...] | None = None,
+        var_order: VariableOrder | None = None,
+        strategy: str = "fivm",
+        use_indicators: bool = False,
+        fuse_chains: bool = True,
+        storage: str | None = None,
+        device="cuda",
+    ) -> "IVMEngine":
+        """Build an engine on ``device`` (the database moves there if it
+        is elsewhere).  ``storage`` is None or ``"dense"`` in this slice.
+
+        The caller's database is never written: every materialized view and
+        stored base relation is the engine's own copy (views alias the
+        database relations they are evaluated from, and triggers update
+        views in place)."""
+        dev = resolve_device(device)
+        if strategy not in STRATEGIES:
+            raise ValueError(f"unknown strategy {strategy!r}; one of {STRATEGIES}")
+        if use_indicators:
+            raise NotImplementedError(
+                "indicator projections are not ported yet (ROADMAP Queue 1 "
+                "item 5, core/indicators.py)")
+        updatable = tuple(updatable if updatable is not None else query.relations)
+        vo = var_order or heuristic_order(query)
+        tree = build_view_tree(query, vo, fuse_chains=fuse_chains)
+
+        if strategy == "fivm":
+            mat = choose_materialized(tree, updatable)
+        elif strategy == "dbt":
+            mat = {n.name for n in tree.walk()}
+        else:  # fivm_1, reeval
+            mat = {tree.name} | {n.name for n in tree.walk() if n.is_leaf}
+
+        database = {r: DenseRelation(rel.schema, rel.ring,
+                                     {c: v.to(dev) for c, v in rel.payload.items()})
+                    for r, rel in database.items()}
+        store: dict[str, DenseRelation] = {}
+        evaluate_view(tree, database, query, store=store)
+        views = {name: store[name].owned() for name in mat}
+        plan = storage_mod.plan_storage(views, mode=storage)
+        views = storage_mod.apply_storage_plan(views, plan)
+        # base relations are stored only where maintenance reads them back:
+        # 1-IVM and reevaluation recompute from base
+        base = {r: rel.owned() for r, rel in database.items()
+                if strategy in ("fivm_1", "reeval")}
+        return cls(
+            query=query,
+            tree=tree,
+            materialized_names=mat,
+            views=views,
+            base=base,
+            strategy=strategy,
+            updatable=updatable,
+            device=dev,
+            storage_plan=plan,
+        )
+
+    # ---------------------------------------------------------------- result
+    def result(self) -> DenseRelation:
+        """The root view, densely materialized."""
+        return storage_mod.as_dense(self.views[self.tree.name])
+
+    def num_materialized(self) -> int:
+        return len(self.materialized_names)
+
+    def memory_bytes(self) -> int:
+        """View-state bytes under the actual storage backends."""
+        return sum(storage_mod.view_nbytes(v) for v in self.views.values())
+
+    # ----------------------------------------------------------------- plans
+    def trigger_plan(self, rel: str, upd) -> plan_mod.TriggerPlan:
+        """The cached maintenance plan for an update like ``upd``."""
+        return self.plans.lookup(self, rel, upd)
+
+    def precompile(self, batch: int = 1) -> dict[str, plan_mod.TriggerPlan]:
+        """Compile (and cache) the COO trigger plan of every updatable
+        relation at the given batch size; returns them by relation."""
+        return {
+            rel: self.plans.lookup_sig(
+                self, rel, ("coo", tuple(self.query.relations[rel]), batch))
+            for rel in self.updatable
+        }
+
+    # ---------------------------------------------------------------- update
+    def apply_update(self, rel: str, upd: COOUpdate) -> None:
+        """Eager (per-call) update of the engine's state."""
+        self.views, self.base = self.functional_update(
+            self.views, self.base, rel, upd)
+
+    def make_trigger(self, rel: str):
+        """The maintenance trigger for updates to ``rel``:
+        ``trigger(state, upd) -> state`` with ``state = (views, base)``.
+        It runs eagerly (there is no compilation step) and consumes the
+        state it is given, like :meth:`functional_update`."""
+
+        def trigger(state, upd):
+            views, base = state
+            return self.functional_update(views, base, rel, upd)
+
+        return trigger
+
+    @property
+    def state(self):
+        return (self.views, self.base)
+
+    def functional_update(self, views, base, rel: str, upd: COOUpdate):
+        """Returns new ``(views, base)`` after ``upd``: fetches the cached
+        :class:`TriggerPlan` for ``(rel, upd signature)`` and replays it.
+        Tensors of ``views`` and ``base`` are updated in place where their
+        layout allows, so the state passed in must not be used again."""
+        if rel not in self.updatable:
+            raise ValueError(f"{rel} not declared updatable")
+        plan = self.plans.lookup(self, rel, upd)
+        return plan_mod.execute_trigger(self, plan, views, base, upd)
+
+    def shard_state(self, shard_plan) -> None:
+        """Sharded placement is not ported yet."""
+        raise NotImplementedError("sharding is not ported yet (ROADMAP "
+                                  "Queue 1 item 14)")
+
+    def _bump_base(self, rel: DenseRelation, upd: COOUpdate) -> DenseRelation:
+        """Base-relation ⊎ through the ring scatter dispatch layer."""
+        return rel.scatter_add(upd.keys, upd.payload)

@@ -1,0 +1,694 @@
+"""Trigger-plan IR: delta propagation as a compiled artifact (PyTorch port
+of ``repro.core.plan``, unfused).
+
+F-IVM maintenance reduces to a *fixed* hierarchy of view updates per
+trigger.  This module makes the trigger an explicit object:
+
+* a small typed IR (:class:`LeafDelta`, :class:`Gather`, :class:`Lift`,
+  :class:`JoinContract`, :class:`Marginalize`, :class:`Emit`,
+  :class:`ScatterAccum`, :class:`BaseBump`, :class:`Reevaluate`), each op
+  carrying schema, storage class and backend annotations;
+* a compiler :func:`compile_trigger` that runs once per (relation,
+  update signature, backend override) and is cached on the engine
+  (:class:`PlanCache`);
+* one planning pass: the densify cost model (:func:`should_densify`) and
+  the scatter-backend resolution read the same symbolic path analysis;
+* an interpreter (:func:`execute_trigger`) that replays a plan with the
+  delta-algebra calls of ``contraction.BatchedDelta``.
+
+The symbolic state tracked during compilation mirrors ``BatchedDelta``
+(COO schema, dense schema, effective batch incl. collapse, pending deferred
+gather), so every runtime decision of the delta algebra is known at compile
+time.  Not in this slice: factorized updates, indicator sections, the
+fusion pass (``FusedChain``), sparse storage and the plan verifier.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Mapping, Sequence
+
+import torch
+
+from .contraction import BatchedDelta
+from .materialize import views_on_path
+from .query import Query
+from .relations import COOUpdate, DenseRelation
+from .storage import payload_width
+from .view_tree import ViewNode, evaluate_view
+
+_FACTORIZED_TODO = ("factorized updates are not ported yet (ROADMAP Queue 1 "
+                    "items 2 and 6); send COOUpdate batches")
+
+
+# ---------------------------------------------------------------------------
+# The op vocabulary.  Frozen dataclasses: hashable (interning) and printable
+# in a stable text form.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class PlanOp:
+    def label(self) -> str:  # pragma: no cover - overridden
+        return type(self).__name__
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafDelta(PlanOp):
+    """Build the leaf delta: COO rows, or one densified delta relation."""
+
+    rel: str
+    schema: tuple
+    batch: int
+    densify: bool
+
+    def label(self):
+        if self.densify:
+            form = f"densified[{','.join(self.schema)}]"
+        else:
+            form = f"rows[{','.join(self.schema)}; B={self.batch}]"
+        return f"Leaf {form}"
+
+
+@dataclasses.dataclass(frozen=True)
+class Gather(PlanOp):
+    """Deferred sibling gather: the join stays symbolic (pending_gather)
+    and fuses into the eventual scatter / a later forced materialize."""
+
+    view: str
+    vars: tuple
+    storage: str  # "dense"
+    forces: bool = False  # materializes a previously pending gather first
+
+    def label(self):
+        f = " !force" if self.forces else ""
+        return f"Gather[{self.view} {self.storage}]{f}"
+
+
+@dataclasses.dataclass(frozen=True)
+class JoinContract(PlanOp):
+    """Eager join with a materialized sibling (einsum per bilinear term)."""
+
+    view: str
+    vars: tuple
+    storage: str
+    grows: tuple = ()  # fresh dense axes grown by this join
+    forces: bool = False
+
+    def label(self):
+        tags = []
+        if self.grows:
+            tags.append(f"+[{','.join(self.grows)}]")
+        if self.forces:
+            tags.append("!force")
+        t = (" " + " ".join(tags)) if tags else ""
+        return f"Join[{self.view} {self.storage}]{t}"
+
+
+@dataclasses.dataclass(frozen=True)
+class Lift(PlanOp):
+    """Gather the lift relation g_var at the delta's keys (identity lifts
+    compile to *no* Lift op)."""
+
+    var: str
+    spec: tuple
+
+    def label(self):
+        return f"Lift[{self.var} {'.'.join(str(s) for s in self.spec)}]"
+
+
+@dataclasses.dataclass(frozen=True)
+class Marginalize(PlanOp):
+    var: str
+    axis: str  # "coo" | "dense"
+    collapses: bool = False  # batch collapse fires after this ⊕
+    forces: bool = False
+
+    def label(self):
+        tags = []
+        if self.collapses:
+            tags.append("collapse")
+        if self.forces:
+            tags.append("!force")
+        t = (" " + " ".join(tags)) if tags else ""
+        return f"Marg[{self.var} {self.axis}]{t}"
+
+
+@dataclasses.dataclass(frozen=True)
+class Emit(PlanOp):
+    """Record the current delta as this view's delta (PropagationResult)."""
+
+    view: str
+
+    def label(self):
+        return f"Emit[{self.view}]"
+
+
+@dataclasses.dataclass(frozen=True)
+class ScatterAccum(PlanOp):
+    """view ⊎ δ into the materialized view."""
+
+    view: str
+    storage: str
+    backend: str | None = None  # scatter kernel backend (plan-time resolved)
+    fused: bool = False  # a pending gather fuses into this scatter
+    mixed: bool = False  # delta carries dense axes (mixed apply)
+
+    def label(self):
+        tags = [self.storage]
+        if self.backend is not None:
+            tags.append(self.backend)
+        if self.fused:
+            tags.append("fused")
+        if self.mixed:
+            tags.append("mixed")
+        return f"Scatter[{self.view} {' '.join(tags)}]"
+
+
+@dataclasses.dataclass(frozen=True)
+class BaseBump(PlanOp):
+    rel: str
+    backend: str | None = None
+
+    def label(self):
+        b = f" {self.backend}" if self.backend is not None else ""
+        return f"BaseBump[{self.rel}{b}]"
+
+
+@dataclasses.dataclass(frozen=True)
+class Reevaluate(PlanOp):
+    """Evaluate the view tree bottom-up from stored base relations."""
+
+    scope: str  # "root" (reeval) | "store" (1-IVM sibling recompute)
+
+    def label(self):
+        return f"Reevaluate[{self.scope}]"
+
+
+# ---------------------------------------------------------------------------
+# TriggerPlan
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TriggerPlan:
+    """A compiled maintenance trigger: the fixed op sequence for one
+    (relation, update signature)."""
+
+    rel: str
+    kind: str  # "coo" | "first_order" | "reeval"
+    strategy: str
+    schema: tuple
+    batch: int
+    densify: bool
+    ops: tuple
+    write_views: frozenset
+    write_base: frozenset
+    cost: int  # modeled element count of the chosen delta walk
+
+    def read_views(self) -> frozenset:
+        """View names this plan reads by key through sibling joins."""
+        return frozenset(op.view for op in self.ops
+                         if isinstance(op, (Gather, JoinContract)))
+
+    def pretty(self) -> str:
+        """Stable text form."""
+        head = (f"trigger {self.rel} kind={self.kind} strategy={self.strategy}"
+                f" schema=[{','.join(self.schema)}] batch={self.batch}"
+                f" densify={'yes' if self.densify else 'no'}"
+                f" cost={self.cost}")
+        lines = [head] + [f"  {op.label()}" for op in self.ops]
+        lines.append("  writes: views=[%s] base=[%s]" % (
+            ",".join(sorted(self.write_views)),
+            ",".join(sorted(self.write_base))))
+        return "\n".join(lines)
+
+
+def set_fusion(mode: str | None) -> None:
+    """Plan-level fusion (``FusedChain``) is not ported yet: every engine
+    runs unfused plans, so only ``None`` and ``"off"`` are accepted."""
+    if mode not in (None, "off"):
+        raise NotImplementedError("plan fusion is not ported yet (ROADMAP "
+                                  "Queue 1 item 12)")
+
+
+# ---------------------------------------------------------------------------
+# Unified cost model
+# ---------------------------------------------------------------------------
+def path_costs(path: Sequence[ViewNode], upd_schema: Sequence[str],
+               batch: int, query: Query):
+    """(cost_row, cost_dense, grew_dense): modeled element counts of the two
+    delta representations along the path.
+
+    * **Row (COO) propagation** streams ``[B, D_dense...]`` slices: each
+      node costs ``B_eff · ∏ dense-axis domains`` where dense axes are the
+      sibling variables the update doesn't bind, and ``B_eff`` drops to 1
+      once the COO schema empties (batch collapse).
+    * **Dense-delta propagation** materializes one relation over the
+      delta's variable set: the leaf pays the full update-schema domain
+      product, each node the domain product of the current delta schema.
+    """
+    B = batch
+    bound = set(upd_schema)
+
+    def extent(vars_):
+        return _domain_extent(query, vars_)
+
+    coo = set(upd_schema)
+    row_dense: set[str] = set()
+    dense_vars = set(upd_schema)
+    cost_row = B
+    cost_dense = extent(upd_schema)
+    grew_dense = False
+    child = path[0]
+    for node in path[1:]:
+        for sib in node.children:
+            if sib is child:
+                continue
+            sch = set(sib.schema)
+            row_dense |= sch - bound
+            dense_vars |= sch
+        grew_dense = grew_dense or bool(row_dense)
+        b_eff = B if coo else 1
+        cost_row += b_eff * extent(row_dense)
+        cost_dense += extent(dense_vars)
+        for v in node.marg_vars:
+            coo.discard(v)
+            row_dense.discard(v)
+            dense_vars.discard(v)
+        child = node
+    return cost_row, cost_dense, grew_dense
+
+
+def should_densify(path: Sequence[ViewNode], upd_schema: Sequence[str],
+                   batch: int, query: Query) -> bool:
+    """Densify when the dense walk is strictly cheaper.  Updates that bind
+    every sibling variable never grow dense axes, so the row walk wins
+    regardless of batch size."""
+    cost_row, cost_dense, grew_dense = path_costs(path, upd_schema, batch,
+                                                  query)
+    if not grew_dense:
+        return False
+    return cost_dense < cost_row
+
+
+# ---------------------------------------------------------------------------
+# Compile-time helpers
+# ---------------------------------------------------------------------------
+def _domain_extent(query: Query, vars_) -> int:
+    e = 1
+    for v in vars_:
+        e *= int(query.domains[v])
+    return e
+
+
+def _resolve_scatter_backend(num_segments: int, batch: int, width: int,
+                             device) -> str:
+    from ..kernels import scatter_ops
+
+    return scatter_ops.resolve_backend(num_segments, batch, width, None,
+                                       device=device)
+
+
+@dataclasses.dataclass
+class _SymDelta:
+    """Compile-time mirror of ``BatchedDelta``'s state machine: the exact
+    fields its join/marginalize/apply decisions read."""
+
+    coo: tuple
+    dense: tuple
+    b: int
+    pending: bool
+    ring: Any
+
+    def defer_ok(self, view_vars) -> bool:
+        if self.pending or self.dense:
+            return False
+        if self.ring.mul_terms is None or not self.ring.commutative:
+            return False
+        return bool(view_vars) and all(v in self.coo for v in view_vars)
+
+
+def _scatter_op(query: Query, name: str, view, st: _SymDelta,
+                device) -> ScatterAccum:
+    """Annotate a ⊎ site with the kernel backend the dispatch layer will
+    resolve for its primary scatter."""
+    d = payload_width(st.ring)
+    if st.coo and not st.dense:
+        S = 1
+        for v in view.schema:
+            S *= int(view.domain_of(v))
+        backend = _resolve_scatter_backend(S, st.b, d, device)
+        return ScatterAccum(name, "dense", backend=backend, fused=st.pending)
+    if st.coo:  # mixed COO×dense apply
+        S = _domain_extent(query, st.coo)
+        dd = d * _domain_extent(query, st.dense)
+        backend = _resolve_scatter_backend(S, st.b, dd, device)
+        return ScatterAccum(name, "dense", backend=backend, mixed=True)
+    # dense-axes-only delta: plain elementwise add, no scatter involved
+    return ScatterAccum(name, "dense", backend=None, mixed=bool(st.dense))
+
+
+# ---------------------------------------------------------------------------
+# The compiler
+# ---------------------------------------------------------------------------
+def _emit_join(ops: list, st: _SymDelta, name: str, view_vars,
+               intern) -> None:
+    """Emit the op for ``delta.join_dense(view)`` and advance the symbolic
+    state, mirroring contraction.BatchedDelta.join_dense exactly."""
+    if st.defer_ok(view_vars):
+        ops.append(intern(Gather(name, tuple(view_vars), "dense")))
+        st.pending = True
+        return
+    forces = st.pending
+    st.pending = False  # join_dense forces before any eager path
+    if st.defer_ok(view_vars):  # re-dispatch after force (second sibling)
+        ops.append(intern(Gather(name, tuple(view_vars), "dense",
+                                 forces=forces)))
+        st.pending = True
+        return
+    shared_coo = [v for v in view_vars if v in st.coo]
+    v_rest = [v for v in view_vars if v not in shared_coo]
+    grows = tuple(v for v in v_rest if v not in st.dense)
+    st.dense = tuple(st.dense) + grows
+    ops.append(intern(JoinContract(name, tuple(view_vars), "dense",
+                                   grows=grows, forces=forces)))
+
+
+def _emit_marginalize(ops: list, st: _SymDelta, query: Query, var: str,
+                      intern) -> None:
+    """Emit Lift?/Marginalize for ``delta.marginalize(var, lift_or_none)``,
+    mirroring the identity-lift skip and the batch-collapse rule."""
+    if query.lift_spec(var) != ("one",):
+        ops.append(intern(Lift(var, tuple(query.lift_spec(var)))))
+    if var in st.coo:
+        forces = st.pending and st.b > 1 and len(st.coo) == 1
+        if forces:
+            st.pending = False
+        st.coo = tuple(v for v in st.coo if v != var)
+        collapses = (not st.coo) and st.b > 1
+        if collapses:
+            st.b = 1
+        ops.append(intern(Marginalize(var, "coo", collapses=collapses,
+                                      forces=forces)))
+    else:
+        st.dense = tuple(v for v in st.dense if v != var)
+        ops.append(intern(Marginalize(var, "dense")))
+
+
+def _compile_path_ops(tree: ViewNode, query: Query, rel: str,
+                      upd_schema, batch: int, views: Mapping, densify: bool,
+                      intern, device, apply_views: bool = True):
+    """Compile the leaf-to-root delta path into ops.  ``views`` maps the
+    materialized view names to their storage objects.  ``apply_views=False``
+    skips ScatterAccum ops (1-IVM applies only at the root)."""
+    ring = query.ring
+    path = views_on_path(tree, rel)
+    ops: list = []
+    if densify:
+        st = _SymDelta(coo=(), dense=tuple(upd_schema), b=1, pending=False,
+                       ring=ring)
+    else:
+        st = _SymDelta(coo=tuple(upd_schema), dense=(), b=batch,
+                       pending=False, ring=ring)
+    ops.append(intern(LeafDelta(rel, tuple(upd_schema), batch, densify)))
+    write_views: set[str] = set()
+
+    def scatter(name):
+        if apply_views and name in views:
+            ops.append(intern(_scatter_op(query, name, views[name], st,
+                                          device)))
+            write_views.add(name)
+
+    leaf = path[0]
+    ops.append(intern(Emit(leaf.name)))
+    scatter(leaf.name)
+    child = leaf
+    for node in path[1:]:
+        for sib in node.children:
+            if sib is child:
+                continue
+            if sib.name not in views:
+                raise ValueError(f"sibling {sib.name} of the delta path must "
+                                 f"be materialized (μ guarantees this for "
+                                 f"updatable {rel})")
+            _emit_join(ops, st, sib.name, sib.schema, intern)
+        for v in node.marg_vars:
+            _emit_marginalize(ops, st, query, v, intern)
+        ops.append(intern(Emit(node.name)))
+        scatter(node.name)
+        child = node
+    return tuple(ops), write_views
+
+
+def compile_trigger(engine, rel: str, upd_sig, intern=None,
+                    views=None) -> TriggerPlan:
+    """Compile the maintenance trigger for COO updates to ``rel``.
+
+    ``upd_sig`` is ``("coo", schema, batch)``.  The result is a pure
+    metadata object: compiling never touches device state.
+    """
+    intern = intern or (lambda op: op)
+    kind, schema = upd_sig[0], tuple(upd_sig[1])
+    if kind != "coo":
+        raise NotImplementedError(_FACTORIZED_TODO)
+    batch = upd_sig[2]
+    query, tree, strategy = engine.query, engine.tree, engine.strategy
+    views = engine.views if views is None else views
+    root = tree.name
+
+    if strategy == "reeval":
+        ops = (intern(BaseBump(rel, _active_override())),
+               intern(Reevaluate("root")))
+        return TriggerPlan(
+            rel=rel, kind="reeval", strategy=strategy, schema=schema,
+            batch=batch, densify=False, ops=ops,
+            write_views=frozenset({root}), write_base=frozenset({rel}),
+            cost=0)
+
+    path = views_on_path(tree, rel)
+    densify = should_densify(path, schema, batch, query)
+    cost_row, cost_dense, _ = path_costs(path, schema, batch, query)
+    cost = cost_dense if densify else cost_row
+
+    if strategy == "fivm_1":
+        # 1-IVM: recompute sibling views from base, run the delta path over
+        # the recomputed store (all views present), apply only at the root.
+        store_views = {n.name: views.get(n.name, _DenseProxy(n, query))
+                       for n in tree.walk()}
+        path_ops, _ = _compile_path_ops(
+            tree, query, rel, schema, batch, store_views, densify,
+            intern, engine.device, apply_views=False)
+        ops = (intern(Reevaluate("store")),) + path_ops + (
+            _scatter_op(query, root, views[root],
+                        _SymDelta(coo=(), dense=(), b=1, pending=False,
+                                  ring=query.ring), engine.device),
+            intern(BaseBump(rel, _active_override())))
+        return TriggerPlan(
+            rel=rel, kind="first_order", strategy=strategy, schema=schema,
+            batch=batch, densify=densify, ops=ops,
+            write_views=frozenset({root}), write_base=frozenset({rel}),
+            cost=cost)
+
+    # fivm / dbt: higher-order propagation along the delta tree
+    ops, write_views = _compile_path_ops(
+        tree, query, rel, schema, batch, views, densify, intern,
+        engine.device)
+    plan = TriggerPlan(
+        rel=rel, kind=kind, strategy=strategy, schema=schema, batch=batch,
+        densify=densify, ops=ops, write_views=frozenset(write_views),
+        write_base=frozenset({rel}) & frozenset(engine.base), cost=cost)
+    # views update in place: a trigger that read a view it had already
+    # written would see the new payload where the reference's functional
+    # replay reads the old one.  Sibling joins are off the delta path, so
+    # this never holds for the main path; keep it an invariant.
+    if plan.read_views() & plan.write_views:
+        raise AssertionError(f"trigger for {rel} reads views it writes: "
+                             f"{sorted(plan.read_views() & plan.write_views)}")
+    return plan
+
+
+def _active_override() -> str | None:
+    from ..kernels import scatter_ops
+
+    return scatter_ops.active_override()
+
+
+class _DenseProxy:
+    """Compile-time stand-in for a 1-IVM recomputed store view (always
+    dense: ``evaluate_view`` materializes densely)."""
+
+    def __init__(self, node: ViewNode, query: Query):
+        self.schema = tuple(node.schema)
+        self._query = query
+
+    def domain_of(self, var: str) -> int:
+        return int(self._query.domains[var])
+
+
+# ---------------------------------------------------------------------------
+# The plan cache
+# ---------------------------------------------------------------------------
+class PlanCache:
+    """Per-engine trigger-plan cache with op interning.
+
+    Keys: (rel, update signature, scatter-backend override).  ``hits`` /
+    ``miss_new`` / ``miss_invalidated`` / ``compile_seconds`` are the cache
+    telemetry: ``miss_new`` counts first compiles of a (rel, signature)
+    trigger, ``miss_invalidated`` recompiles forced by an override change."""
+
+    def __init__(self):
+        self.plans: dict = {}
+        self.hits = 0
+        self.miss_new = 0
+        self.miss_invalidated = 0
+        self.compile_seconds = 0.0
+        self._interned: dict = {}
+        self._seen: set = set()
+
+    @property
+    def misses(self) -> int:
+        return self.miss_new + self.miss_invalidated
+
+    def intern(self, op: PlanOp) -> PlanOp:
+        return self._interned.setdefault(op, op)
+
+    def lookup_sig(self, engine, rel: str, upd_sig) -> TriggerPlan:
+        key = (rel, upd_sig, _active_override())
+        plan = self.plans.get(key)
+        if plan is not None:
+            self.hits += 1
+            return plan
+        trigger = (rel, upd_sig)
+        if trigger in self._seen:
+            self.miss_invalidated += 1
+        else:
+            self.miss_new += 1
+            self._seen.add(trigger)
+        t0 = time.perf_counter()
+        plan = compile_trigger(engine, rel, upd_sig, intern=self.intern)
+        self.compile_seconds += time.perf_counter() - t0
+        self.plans[key] = plan
+        return plan
+
+    def lookup(self, engine, rel: str, upd) -> TriggerPlan:
+        if not isinstance(upd, COOUpdate):
+            raise NotImplementedError(_FACTORIZED_TODO)
+        return self.lookup_sig(engine, rel,
+                               ("coo", tuple(upd.schema), upd.batch))
+
+    def stats(self) -> dict:
+        total = self.hits + self.misses
+        n = len(self.plans)
+        return dict(
+            plans=n,
+            hits=self.hits,
+            misses=self.misses,
+            miss_new=self.miss_new,
+            miss_invalidated=self.miss_invalidated,
+            hit_rate=round(self.hits / total, 4) if total else 0.0,
+            compile_ms_total=round(1e3 * self.compile_seconds, 3),
+            compile_ms_per_plan=round(1e3 * self.compile_seconds / n, 3)
+            if n else 0.0,
+            interned_ops=len(self._interned),
+        )
+
+
+# ---------------------------------------------------------------------------
+# Interpreters
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class PropagationResult:
+    """Deltas per affected view name (leaf-to-root order) + updated views."""
+
+    deltas: dict
+    updated: dict
+
+
+def run_coo_ops(ops, views: Mapping, query: Query,
+                upd: COOUpdate) -> PropagationResult:
+    """Replay a compiled COO path section: exactly the delta-algebra calls
+    of the interpretive walk; backend hints thread into the scatters."""
+    ring = query.ring
+    deltas: dict = {}
+    updated: dict = {}
+    delta = None
+    pending_lift = None
+    for op in ops:
+        if isinstance(op, LeafDelta):
+            delta = (densified_delta(query, op.rel, upd) if op.densify
+                     else BatchedDelta.from_coo(ring, upd))
+        elif isinstance(op, (Gather, JoinContract)):
+            delta = delta.join_dense(views[op.view])
+        elif isinstance(op, Lift):
+            pending_lift = query.lift_rel(op.var, upd.keys.device)
+        elif isinstance(op, Marginalize):
+            delta = delta.marginalize(op.var, pending_lift)
+            pending_lift = None
+        elif isinstance(op, Emit):
+            deltas[op.view] = delta
+        elif isinstance(op, ScatterAccum):
+            updated[op.view] = delta.apply_to(views[op.view],
+                                              backend=op.backend)
+        else:  # pragma: no cover
+            raise TypeError(op)
+    return PropagationResult(deltas, updated)
+
+
+def reevaluate_store(engine, base) -> dict:
+    """The ``Reevaluate`` op: evaluate the view tree bottom-up from ``base``
+    relations, returning every node's view."""
+    store: dict = {}
+    evaluate_view(engine.tree, base, engine.query, store=store)
+    return store
+
+
+def execute_trigger(engine, plan: TriggerPlan, views, base, upd):
+    """Run a compiled trigger; returns new ``(views, base)``.  View and
+    base tensors are updated in place where their layout allows, so the
+    state passed in must not be used again."""
+    query = engine.query
+    views = dict(views)
+    base = dict(base)
+
+    if plan.kind == "reeval":
+        base[plan.rel] = engine._bump_base(base[plan.rel], upd)
+        store = reevaluate_store(engine, base)
+        views[engine.tree.name] = store[engine.tree.name]
+        return views, base
+
+    if plan.kind == "first_order":
+        store = reevaluate_store(engine, base)
+        path_ops = tuple(op for op in plan.ops
+                         if not isinstance(op, (Reevaluate, BaseBump,
+                                                ScatterAccum)))
+        res = run_coo_ops(path_ops, store, query, upd)
+        root = engine.tree.name
+        views[root] = res.deltas[root].apply_to(views[root])
+        base[plan.rel] = engine._bump_base(base[plan.rel], upd)
+        return views, base
+
+    # fivm / dbt
+    res = run_coo_ops(plan.ops, views, query, upd)
+    views.update(res.updated)
+    if plan.write_base:
+        base[plan.rel] = engine._bump_base(base[plan.rel], upd)
+    return views, base
+
+
+# ---------------------------------------------------------------------------
+# Delta-construction helpers
+# ---------------------------------------------------------------------------
+def densified_delta(query: Query, rel: str, upd: COOUpdate) -> BatchedDelta:
+    """Scatter the COO batch into a dense delta relation over the update
+    schema, carried as a BatchedDelta with batch=1 and no COO vars."""
+    ring = query.ring
+    doms = tuple(query.domains[v] for v in upd.schema)
+    dense = DenseRelation.from_coo(upd.schema, ring, doms, upd.keys,
+                                   upd.payload)
+    payload = {c: dense.payload[c][None] for c in ring.components}
+    return BatchedDelta(
+        coo_schema=(),
+        dense_schema=tuple(upd.schema),
+        keys=torch.zeros((1, 0), dtype=torch.int32, device=upd.keys.device),
+        ring=ring,
+        payload=payload,
+        dense_domains=doms,
+    )
+

@@ -1,0 +1,165 @@
+"""Relation representations (PyTorch port of ``repro.core.relations``).
+
+Every attribute's active domain is dictionary-encoded to ``0..D-1`` and a
+relation over schema ``(X1..Xk)`` is a *dense ring tensor* of shape
+``[D1..Dk, *payload_shape]``.  Updates arrive as COO batches (keys +
+payloads).
+
+  DenseRelation      device-resident materialized view / base relation
+  COOUpdate          batch of (key tuple -> payload) update rows
+
+``DenseRelation`` is the dense implementation of the ``ViewStorage``
+protocol (``repro_torch.core.storage``).  App code builds base relations
+through ``storage.make_base_relation``.
+
+Unlike the reference's immutable arrays, ⊎ here writes into the view it is
+given (``scatter_add``): the engine owns every view and base relation it
+updates (``IVMEngine.build`` copies them out of the caller's database).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+from .rings import Payload, Ring
+
+
+def host_payload(payload: Payload) -> dict:
+    """Copy a ring payload to host numpy (the one blocking device→host
+    transfer point for reporting and tests)."""
+    return {c: v.detach().cpu().numpy() for c, v in payload.items()}
+
+
+@dataclasses.dataclass
+class DenseRelation:
+    """Dense dictionary-encoded relation: payload[comp] has shape
+    ``[*domains(schema), *comp_shape]``."""
+
+    schema: tuple[str, ...]
+    ring: Ring
+    payload: Payload
+
+    @property
+    def domains(self) -> tuple[int, ...]:
+        comp, shp = next(iter(self.ring.components.items()))
+        arr = self.payload[comp]
+        nk = arr.dim() - len(shp)
+        return tuple(arr.shape[:nk])
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.payload.values())).device
+
+    def domain_of(self, var: str) -> int:
+        return self.domains[self.schema.index(var)]
+
+    def num_keys(self) -> torch.Tensor:
+        """Number of keys with non-zero payload, as a device scalar."""
+        return (~self.ring.is_zero(self.payload)).sum()
+
+    def num_keys_sync(self) -> int:
+        """Host-synced :meth:`num_keys` (tests / reporting)."""
+        return int(self.num_keys())
+
+    def payload_sync(self) -> dict:
+        """Host copy of the payload (see :func:`host_payload`)."""
+        return host_payload(self.payload)
+
+    def nbytes(self) -> int:
+        return sum(arr.numel() * arr.element_size()
+                   for arr in self.payload.values())
+
+    def owned(self) -> "DenseRelation":
+        """A copy whose payload components are column slices of one new
+        contiguous ``[S, d]`` plane — the layout the ⊎ kernels update in
+        place without concatenating the components first."""
+        from .storage import flatten_payload, unflatten_payload
+
+        plane = flatten_payload(self.ring, self.payload, self.domains)
+        return DenseRelation(self.schema, self.ring, unflatten_payload(
+            self.ring, plane.clone(), self.domains))
+
+    @classmethod
+    def zeros(cls, schema, ring, domains, device="cuda"):
+        return cls(tuple(schema), ring, ring.zeros(tuple(domains), device=device))
+
+    @classmethod
+    def from_coo(cls, schema, ring, domains, keys, payload):
+        """Scatter-add a COO batch into a fresh dense relation on the keys'
+        device."""
+        rel = cls.zeros(schema, ring, domains, device=keys.device)
+        return rel.scatter_add(keys, payload)
+
+    def scatter_add(self, keys: torch.Tensor, payload: Payload,
+                    backend: str | None = None) -> "DenseRelation":
+        """keys: [B, k] int32; payload leaves: [B, *comp].
+
+        ⊎ routes through the ring scatter dispatch layer
+        (``repro_torch.kernels.scatter_ops``).  Accumulates into this
+        relation's tensors where their layout allows; always use the
+        returned relation."""
+        k = len(self.schema)
+        if keys.dim() != 2 or keys.shape[1] != k:
+            raise ValueError(f"keys {tuple(keys.shape)} do not match schema "
+                             f"{self.schema}")
+        from ..kernels import scatter_ops
+
+        new = scatter_ops.scatter_add_payload(
+            self.payload, self.domains, keys, payload, self.ring,
+            backend=backend)
+        return DenseRelation(self.schema, self.ring, new)
+
+    def gather(self, keys: torch.Tensor) -> Payload:
+        """keys: [B, k] -> payload leaves [B, *comp]."""
+        idx = tuple(keys[:, i].long() for i in range(len(self.schema)))
+        return {comp: self.payload[comp][idx] for comp in self.ring.components}
+
+    def add(self, other) -> "DenseRelation":
+        assert self.schema == other.schema
+        return DenseRelation(
+            self.schema, self.ring, self.ring.add(self.payload, other.payload)
+        )
+
+    def marginalize(self, var: str, lift_rel=None) -> "DenseRelation":
+        """⊕_var with optional lifting (ViewStorage protocol surface)."""
+        from .contraction import marginalize_dense
+
+        return marginalize_dense(self, var, lift_rel)
+
+    def contract(self, other, marg: Sequence[str] = (),
+                 out_order=None) -> "DenseRelation":
+        """⊕_marg self ⊗ other (ViewStorage protocol surface)."""
+        from .contraction import contract_dense
+
+        return contract_dense(self, other, marg=marg, out_order=out_order)
+
+    def to_dense(self) -> "DenseRelation":
+        return self
+
+    def transpose(self, new_schema: Sequence[str]) -> "DenseRelation":
+        perm = [self.schema.index(v) for v in new_schema]
+        nk = len(self.schema)
+        new = {}
+        for comp in self.ring.components:
+            arr = self.payload[comp]
+            new[comp] = arr.permute(perm + list(range(nk, arr.dim())))
+        return DenseRelation(tuple(new_schema), self.ring, new)
+
+
+@dataclasses.dataclass
+class COOUpdate:
+    """A batch of update rows: ``keys[b] -> payload[b]``.
+
+    Duplicate keys are allowed (payloads add up); zero payload rows are
+    padding (adding ring-0 is a no-op).
+    """
+
+    schema: tuple[str, ...]
+    keys: torch.Tensor  # [B, k] int32
+    payload: Payload  # leaves [B, *comp]
+
+    @property
+    def batch(self) -> int:
+        return int(self.keys.shape[0])

@@ -1,0 +1,111 @@
+"""Synthetic databases and update streams for the port's benchmarks.
+
+Copies of the retailer snowflake and housing star definitions and of
+``synth_db`` / ``update_stream`` from ``benchmarks/common.py``: the same
+numpy calls in the same order, so one seed gives the same arrays as the
+reference.  Tensors are made on ``device``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.relations import COOUpdate, DenseRelation
+from ..core.variable_orders import chain
+from ..device import resolve_device
+
+# ---------------------------------------------------------------------------
+# Retailer-like snowflake (scaled-down dictionary domains)
+# ---------------------------------------------------------------------------
+RETAILER_RELATIONS = {
+    "Inventory": ("locn", "dateid", "ksn", "units"),
+    "Item": ("ksn", "cat", "price"),
+    "Weather": ("locn", "dateid", "temp"),
+    "Location": ("locn", "zip", "rgn"),
+    "Census": ("zip", "pop"),
+}
+RETAILER_DOMS = dict(locn=24, dateid=24, ksn=32, units=8, cat=6, price=8,
+                     temp=8, zip=12, rgn=4, pop=8)
+RETAILER_DOMS_BIG = dict(locn=96, dateid=96, ksn=128, units=8, cat=6, price=8,
+                         temp=8, zip=32, rgn=4, pop=8)
+
+
+def retailer_vo():
+    """Paper Sec. 8.1: join variables ordered locn { dateid { ksn }, zip };
+    each relation's own variables hang below its lowest join variable."""
+    return chain(
+        ["locn", "dateid", "ksn"],
+        {"locn": [["zip"]],
+         "zip": [["rgn"], ["pop"]],
+         "dateid": [["temp"]],
+         "ksn": [["units"], ["cat", "price"]]},
+    )
+
+
+# ---------------------------------------------------------------------------
+# Housing-like star schema (join on postcode)
+# ---------------------------------------------------------------------------
+HOUSING_RELATIONS = {
+    "House": ("pc", "h1", "h2"),
+    "Shop": ("pc", "s1"),
+    "Institution": ("pc", "i1"),
+    "Restaurant": ("pc", "r1"),
+    "Demographics": ("pc", "d1"),
+    "Transport": ("pc", "t1"),
+}
+HOUSING_DOMS = dict(pc=4096, h1=8, h2=8, s1=8, i1=8, r1=8, d1=8, t1=8)
+
+
+def housing_vo():
+    return chain(["pc"], {"pc": [["h1", "h2"], ["s1"], ["i1"], ["r1"],
+                                 ["d1"], ["t1"]]})
+
+
+# ---------------------------------------------------------------------------
+# Database + update-stream synthesis
+# ---------------------------------------------------------------------------
+def synth_db(relations, doms, ring, rng, density=0.3, scale=1.0,
+             device="cuda"):
+    """0/1 multiplicity tables per relation (in ``c`` for the degree-m
+    ring), drawn from ``rng``."""
+    dev = resolve_device(device)
+    db = {}
+    for name, sch in relations.items():
+        shape = tuple(doms[v] for v in sch)
+        mult = (rng.random(size=shape) < density * scale).astype(np.float32)
+        if set(ring.components) == {"v"}:
+            db[name] = DenseRelation(tuple(sch), ring,
+                                     {"v": torch.as_tensor(mult, device=dev)})
+        else:  # degree-m ring: multiplicity in c
+            payload = ring.ones(shape, device=dev)
+            payload["c"] = torch.as_tensor(mult, device=dev)
+            db[name] = DenseRelation(tuple(sch), ring, payload)
+    return db
+
+
+def update_stream(relations, doms, ring, rng, batch: int, n_batches: int,
+                  key_pools=None, device="cuda"):
+    """Round-robin batched inserts/deletes over all relations (Sec. 8.1).
+
+    ``key_pools`` optionally maps a variable to the array of values its
+    update keys are drawn from.  Returns ``[(relation, COOUpdate), ...]``."""
+    dev = resolve_device(device)
+    names = list(relations)
+    out = []
+    for i in range(n_batches):
+        rel = names[i % len(names)]
+        sch = relations[rel]
+        keys = np.stack(
+            [rng.choice(key_pools[v], size=batch)
+             if key_pools and v in key_pools
+             else rng.integers(0, doms[v], size=batch) for v in sch],
+            axis=1).astype(np.int32)
+        vals = rng.choice([-1.0, 1.0, 1.0, 1.0], size=batch).astype(np.float32)
+        if set(ring.components) == {"v"}:
+            payload = {"v": torch.as_tensor(vals, device=dev)}
+        else:
+            payload = {**ring.zeros((batch,), device=dev),
+                       "c": torch.as_tensor(vals, device=dev)}
+        out.append((rel, COOUpdate(tuple(sch), torch.as_tensor(keys, device=dev),
+                                   payload)))
+    return out

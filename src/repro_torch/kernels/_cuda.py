@@ -1,0 +1,151 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Each source in ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), under ``build/kernels/`` at the repository root.  The file
+name carries a hash of the sources and flags, so an edited source rebuilds
+and concurrent processes never load a half-written library.  Nothing is
+built at import: a kernel builds at its first launch, or all at once
+through :func:`build_all`.
+
+Every C entry returns ``cudaGetLastError()``; :meth:`CudaKernel.launch`
+raises on a non-zero code.  There is no fallback: a kernel that cannot build
+or launch is an error.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: ctypes argument kinds of the C entries
+PTR, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+def find_nvcc() -> str:
+    """Path of the CUDA compiler: ``nvcc`` on PATH, else under CUDA_HOME
+    (default ``/usr/local/cuda``)."""
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                       "port's kernels are built from source with it")
+
+
+class CudaKernel:
+    """One hand-written kernel: its source, its C entry, and the number of
+    times it has been launched (``launches``; reset it to 0 to count a run)."""
+
+    def __init__(self, source: str, entry: str, argtypes):
+        self.source = source
+        self.entry = entry
+        self.argtypes = list(argtypes) + [PTR]  # trailing arg: the stream
+        self.launches = 0
+        self._fn = None
+        self._errstr = None
+
+    @property
+    def name(self) -> str:
+        return Path(self.source).stem
+
+    def library_path(self) -> Path:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for f in sorted(CSRC.glob("*.cuh")) + [CSRC / self.source]:
+            h.update(f.read_bytes())
+        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
+
+    def start_build(self):
+        """Start ``nvcc`` for this kernel unless its library exists; returns
+        ``(process, tmp_path, log_path)`` or None."""
+        out = self.library_path()
+        if out.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = out.with_suffix(".log")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / self.source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        return proc, tmp, log
+
+    def _function(self):
+        if self._fn is None:
+            build_all([self])
+            lib = ctypes.CDLL(str(self.library_path()))
+            fn = getattr(lib, self.entry)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{self.entry}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._fn, self._errstr = fn, err
+        return self._fn
+
+    def launch(self, *args) -> None:
+        """Call the C entry with ``args`` and the stream (last); raise on a
+        non-zero CUDA error code."""
+        rc = self._function()(*args)
+        if rc != 0:
+            raise RuntimeError(f"{self.entry} failed: CUDA error {rc} "
+                               f"({self._errstr(rc).decode()})")
+        self.launches += 1
+
+
+def build_all(kernels) -> float:
+    """Build every kernel whose library is missing, all ``nvcc`` processes
+    at once; returns the seconds taken.  Raises with the compiler's output
+    when a build fails."""
+    t0 = time.perf_counter()
+    jobs = [(k, job) for k in kernels if (job := k.start_build()) is not None]
+    failures = []
+    for k, (proc, tmp, log) in jobs:
+        text, _ = proc.communicate()
+        log.write_text(text)
+        if proc.returncode != 0:
+            failures.append(f"{k.source}: nvcc exit {proc.returncode}\n{text}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, k.library_path())
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return time.perf_counter() - t0
+
+
+def stream_handle(t) -> int:
+    """The raw ``cudaStream_t`` of the current stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_card(t) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return True
+
+
+def check_tensor(name: str, t, dtype, shape: tuple, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (what the kernels take)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

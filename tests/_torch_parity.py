@@ -1,0 +1,67 @@
+"""Shared harness of the port-vs-reference engine tests.
+
+Builds a reference ``repro`` engine and a ``repro_torch`` engine (on the
+CPU) from the same numpy arrays, replays the same update stream through
+both, and compares every materialized view after every update.
+"""
+import os
+import sys
+
+import numpy as np
+
+# benchmarks/common.py holds the reference's schemas and synthesizers
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+#: every oracle value below this is exact in float32, whatever the order
+#: of the adds: the precondition of the bitwise comparisons
+EXACT_LIMIT = 2 ** 24
+
+
+def db_to_numpy(db) -> dict:
+    """Reference database -> ``{rel: (schema, {comp: array})}``."""
+    return {n: (r.schema, {c: np.asarray(v) for c, v in r.payload.items()})
+            for n, r in db.items()}
+
+
+def port_update(upd, ring):
+    from repro_torch import convert
+
+    return convert.update_from_numpy(
+        upd.schema, np.asarray(upd.keys),
+        {c: np.asarray(v) for c, v in upd.payload.items()}, ring, device="cpu")
+
+
+def assert_views_equal(ref_eng, port_eng, where=""):
+    from repro_torch import convert
+
+    got_views = convert.state_to_numpy(port_eng)["views"]
+    assert set(ref_eng.views) == set(got_views)
+    for name, rv in ref_eng.views.items():
+        assert tuple(port_eng.views[name].schema) == tuple(rv.schema), name
+        for comp, arr in rv.payload.items():
+            want = np.asarray(arr)
+            got = got_views[name][comp]
+            assert np.abs(want).max(initial=0) < EXACT_LIMIT, (name, comp)
+            np.testing.assert_array_equal(got, want, err_msg=f"{where} {name}.{comp}")
+
+
+def run_parity(ref_query, port_query, ref_db, stream, var_order_ref,
+               var_order_port, strategy):
+    """Build both engines, replay ``stream`` (reference updates), compare
+    after every update; returns (reference engine, port engine)."""
+    from repro.core import IVMEngine as RefEngine
+    from repro_torch import convert
+    from repro_torch.core import IVMEngine
+
+    port_db = convert.database_from_numpy(db_to_numpy(ref_db), port_query.ring,
+                                          device="cpu")
+    ref_eng = RefEngine.build(ref_query, ref_db, var_order=var_order_ref,
+                              strategy=strategy, storage="dense")
+    port_eng = IVMEngine.build(port_query, port_db, var_order=var_order_port,
+                               strategy=strategy, storage="dense", device="cpu")
+    assert_views_equal(ref_eng, port_eng, "build")
+    for i, (rel, upd) in enumerate(stream):
+        ref_eng.apply_update(rel, upd)
+        port_eng.apply_update(rel, port_update(upd, port_query.ring))
+        assert_views_equal(ref_eng, port_eng, f"update {i} ({rel})")
+    return ref_eng, port_eng

@@ -1,0 +1,134 @@
+"""The CUDA ⊎ kernels ≡ their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one (marker
+``cuda``).  The file imports no JAX, so it runs on a card host that has
+only PyTorch: ``PYTHONPATH=src python -m pytest tests/test_torch_cuda.py``.
+Integer-valued float32 data keeps the atomics' order irrelevant, so
+equality is bitwise.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import IVMEngine, Query, sum_ring  # noqa: E402
+from repro_torch.core.apps import regression  # noqa: E402
+from repro_torch.data import synth  # noqa: E402
+from repro_torch.kernels import ref, ring_scatter, scatter_ops  # noqa: E402
+from repro_torch.kernels import segment_ring_sum as tsegsum  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+def _ints(rng, shape, lo=-4, hi=5):
+    return rng.integers(lo, hi, size=shape).astype(np.float32)
+
+
+def _ids(rng, S, B, n_pad=3, n_over=2):
+    """Ids with duplicates, padding (-1) and out-of-range (>= S) rows."""
+    ids = rng.integers(0, S, size=B).astype(np.int32)
+    ids[:n_pad] = -1
+    ids[n_pad:n_pad + n_over] = S + rng.integers(0, 3, size=n_over)
+    return rng.permutation(ids)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _cuda_case(rng, S, B, d, dev):
+    view = torch.tensor(_ints(rng, (S, d)), device=dev)
+    ids = torch.tensor(_ids(rng, S, B), device=dev)
+    vals = torch.tensor(_ints(rng, (B, d)), device=dev)
+    return view, ids, vals
+
+
+@pytest.mark.parametrize("S,d", [(1, 1), (37, 7), (6144, 111), (1 << 20, 1)])
+def test_cuda_scatter_add_matches_plain(cuda_device, S, d):
+    rng = np.random.default_rng(S + d)
+    view, ids, vals = _cuda_case(rng, S, 333, d, cuda_device)
+    n = ring_scatter.SCATTER_ADD.launches
+    got = ring_scatter.scatter_add(view.clone(), ids, vals)
+    assert ring_scatter.SCATTER_ADD.launches == n + 1
+    assert torch.equal(got, ref.scatter_add_ref(view.clone(), ids, vals))
+
+
+@pytest.mark.parametrize("S,d", [(1, 1), (50, 7), (1000, 111)])
+def test_cuda_segment_ring_sum_matches_plain(cuda_device, S, d):
+    rng = np.random.default_rng(S + d)
+    _, ids, vals = _cuda_case(rng, S, 517, d, cuda_device)
+    got = tsegsum.segment_ring_sum(vals, ids, S)
+    assert torch.equal(got, ref.segment_ring_sum_ref(vals, ids, S))
+
+
+@pytest.mark.parametrize("S,Sg", [(96, 32), (96, 9216), (9216, 128)])
+def test_cuda_gather_mul_scatter_matches_plain(cuda_device, S, Sg):
+    rng = np.random.default_rng(S + Sg)
+    view, out_ids, _ = _cuda_case(rng, S, 1000, 1, cuda_device)
+    src = torch.tensor(_ints(rng, (Sg, 1)), device=cuda_device)
+    in_ids = torch.tensor(rng.integers(-1, Sg + 1, size=1000).astype(np.int32),
+                          device=cuda_device)
+    scale = torch.tensor(_ints(rng, (1000,), -2, 3), device=cuda_device)
+    got = ring_scatter.gather_mul_scatter(view.clone(), out_ids, src, in_ids, scale)
+    want = ref.gather_mul_scatter_ref(view.clone(), out_ids, src, in_ids, scale)
+    assert torch.equal(got, want)
+
+
+def test_cuda_wrapper_rejects_cpu_operands(cuda_device):
+    view = torch.zeros((4, 1), device=cuda_device)
+    with pytest.raises(ValueError):
+        ring_scatter.scatter_add(view, torch.zeros((2,), dtype=torch.int32),
+                                 torch.zeros((2, 1), device=cuda_device))
+
+
+def test_cuda_sum_ring_payload_dispatch(cuda_device):
+    """auto on the card resolves per S and takes the kernels either way."""
+    rng = np.random.default_rng(9)
+    ring = sum_ring()
+    for S in (100, 20000):
+        view = {"v": torch.tensor(_ints(rng, (S,)), device=cuda_device)}
+        keys = torch.tensor(rng.integers(0, S, size=(64, 1)).astype(np.int32),
+                            device=cuda_device)
+        vals = {"v": torch.tensor(_ints(rng, (64,)), device=cuda_device)}
+        want = view["v"].clone().index_put_((keys[:, 0].long(),), vals["v"],
+                                            accumulate=True)
+        got = scatter_ops.scatter_add_payload(view, (S,), keys, vals, ring)
+        assert torch.equal(got["v"], want)
+
+
+@pytest.mark.parametrize("ring", ["sum", "cofactor"])
+def test_cuda_engine_matches_cpu_engine(cuda_device, ring):
+    """The retailer stream through the engine on the card (kernels) ≡ the
+    same stream through the engine on the CPU (plain versions)."""
+    doms, rels = synth.RETAILER_DOMS, synth.RETAILER_RELATIONS
+    if ring == "sum":
+        q = Query(relations=rels, free_vars=(), ring=sum_ring(), domains=doms,
+                  lifts={"units": ("value",)})
+    else:
+        q = regression.cofactor_query(rels, doms)
+    # sizes that keep every value below 2**24 (exact float32 sums); the
+    # largest view (18432 keys) still takes the compact path
+    density, batch = (0.05, 64) if ring == "sum" else (0.03, 32)
+    engines, kernels = {}, (ring_scatter.SCATTER_ADD, tsegsum.SEGMENT_RING_SUM,
+                            ring_scatter.GATHER_MUL_SCATTER)
+    before = [k.launches for k in kernels]
+    for dev in ("cpu", cuda_device):
+        rng = np.random.default_rng(7)
+        db = synth.synth_db(rels, doms, q.ring, rng, density=density, device=dev)
+        eng = IVMEngine.build(q, db, var_order=synth.retailer_vo(),
+                              storage="dense", device=dev)
+        for rel, upd in synth.update_stream(rels, doms, q.ring, rng, batch, 10,
+                                            device=dev):
+            eng.apply_update(rel, upd)
+        engines[str(dev)] = eng
+    cpu, gpu = engines["cpu"], engines[str(cuda_device)]
+    for name, view in cpu.views.items():
+        for c, t in view.payload.items():
+            assert t.abs().max() < 2 ** 24, (name, c)
+            assert torch.equal(gpu.views[name].payload[c].cpu(), t), (name, c)
+    used = [k.launches - b for k, b in zip(kernels, before)]
+    assert used[0] > 0 and used[1] > 0
+    assert (used[2] > 0) == (ring == "sum")

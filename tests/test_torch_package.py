@@ -1,0 +1,108 @@
+"""Package rules of the PyTorch port.
+
+* No module of ``repro_torch``, nor ``chip_smoke.py``, imports ``jax`` or
+  the JAX package ``repro`` (checked statically with ``ast``).
+* Entry points default to ``device="cuda"`` and raise on a host without
+  CUDA unless the caller passes ``device="cpu"``.
+* What the slice does not port yet raises ``NotImplementedError``.
+* On a CUDA host the kernel toolchain (``nvcc``) is present: the test fails,
+  not skips, where it is missing.
+"""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import IVMEngine, Query, sum_ring  # noqa: E402
+from repro_torch.core import plan, storage  # noqa: E402
+from repro_torch.data import synth  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_port_never_imports_jax_or_the_reference(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+
+
+def test_port_files_found():
+    names = {p.name for p in PORT_FILES}
+    assert {"ivm.py", "plan.py", "scatter_ops.py", "chip_smoke.py"} <= names
+
+
+def _small_engine(**kw):
+    doms = synth.RETAILER_DOMS
+    q = Query(relations=synth.RETAILER_RELATIONS, free_vars=(), ring=sum_ring(),
+              domains=doms, lifts={"units": ("value",)})
+    db = synth.synth_db(synth.RETAILER_RELATIONS, doms, q.ring,
+                        np.random.default_rng(0), device="cpu")
+    return IVMEngine.build(q, db, var_order=synth.retailer_vo(), **kw), q, db
+
+
+def test_entry_points_without_device_raise_on_a_host_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA, so the default device works")
+    rng = np.random.default_rng(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synth.synth_db(synth.RETAILER_RELATIONS, synth.RETAILER_DOMS,
+                       sum_ring(), rng)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sum_ring().zeros((3,))
+    _, q, db = _small_engine(device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        IVMEngine.build(q, db, var_order=synth.retailer_vo())
+
+
+@pytest.mark.parametrize("what", ["auto", "sparse", "sparse_override",
+                                  "indicators", "factorized", "sharding",
+                                  "fusion"])
+def test_unported_features_raise(what):
+    if what == "fusion":
+        plan.set_fusion("off")
+        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+            plan.set_fusion("on")
+        return
+    if what in ("auto", "sparse"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+            _small_engine(device="cpu", storage=what)
+        return
+    if what == "sparse_override":
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+            storage.plan_storage({}, overrides={"V0@locn": "sparse"})
+        return
+    if what == "indicators":
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+            _small_engine(device="cpu", use_indicators=True)
+        return
+    eng, _, _ = _small_engine(device="cpu", storage="dense")
+    if what == "factorized":
+        with pytest.raises(NotImplementedError, match="Queue 1 items 2 and 6"):
+            eng.apply_update("Item", object())
+    else:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+            eng.shard_state(None)
+
+
+@pytest.mark.cuda
+def test_cuda_host_has_the_kernel_toolchain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import _cuda
+
+    # raises, and so fails the test, where nvcc is missing
+    assert pathlib.Path(_cuda.find_nvcc()).exists()
