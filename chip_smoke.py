@@ -8,15 +8,22 @@ Run from the repository root with one card visible:
 Phases (any failed check raises, and the script exits non-zero):
 
 1. Device: the card's name and power limit from nvidia-smi, then a build of
-   every CUDA kernel of the path from ``src/repro_torch/kernels/csrc``.
+   all five CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, all started together).
 2. Kernels: each kernel against its plain PyTorch version on integer-valued
    float32 at the shapes the main path gives it (bitwise), timed with CUDA
-   events beside its plain version, a one-call PyTorch yardstick
-   (``library_ms``, never used by the port) and its bound.
-3. Main path: the retailer sum-aggregate stream and the degree-m cofactor
-   stream (m = 10) at ``RETAILER_DOMS_BIG``, 20 batches of 1000 tuples
-   through ``IVMEngine.apply_update`` (fivm, dense), each checked against a
-   float64 re-evaluation, with every kernel's launch count on the path.
+   events and the profiler beside its plain version, a one-call PyTorch
+   yardstick (``library_ms``, never used by the port) and its bound.
+3. Paths, each through ``IVMEngine.apply_update`` (fivm, dense) at
+   ``RETAILER_DOMS_BIG`` with batches of 1000 tuples, checked against a
+   float64 re-evaluation, with every kernel's launch count reset before
+   and read after it:
+   - the retailer sum-aggregate and degree-m cofactor (m = 10) streams with
+     plan fusion off (``scatter_add``, ``segment_ring_sum``,
+     ``gather_mul_scatter``), 20 batches each;
+   - the same two streams with fusion ``auto`` (on, on the card), where
+     every fused chain is one ``fused_chain`` launch, 20 batches each;
+   - a short sum stream under the ``scatter_dedup`` ⊎ backend.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel with its numbers.  Imports nothing of JAX or the JAX package.
@@ -24,6 +31,7 @@ every kernel with its numbers.  Imports nothing of JAX or the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -134,7 +142,8 @@ def kernel_phase(rng) -> dict:
     from repro_torch.kernels.ring_scatter import gather_mul_scatter, scatter_add
     from repro_torch.kernels.segment_ring_sum import segment_ring_sum
 
-    rows = {"scatter_add": [], "segment_ring_sum": [], "gather_mul_scatter": []}
+    rows = {"scatter_add": [], "segment_ring_sum": [], "gather_mul_scatter": [],
+            "scatter_dedup": [], "fused_chain": []}
     B = BATCH
 
     for S in (256, 6144, 1_179_648):
@@ -232,7 +241,134 @@ def kernel_phase(rng) -> dict:
             bound_ms=bms, bound_by=by)
         rows["gather_mul_scatter"].append(row)
         log({"kernel": "gather_mul_scatter", **row})
+
+    scatter_dedup_rows(rng, rows["scatter_dedup"])
+    fused_chain_rows(rng, rows["fused_chain"])
     return rows
+
+
+def scatter_dedup_rows(rng, out: list) -> None:
+    """``scatter_dedup`` at the view sizes of the retailer triggers, S = 1
+    (a collapsed-to-scalar view: every row one id) up to 1,179,648."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ring_scatter import scatter_add, scatter_dedup_ref
+
+    B = BATCH
+    for S in (1, 96, 9216, 1_179_648):
+        for d in (1, 111):
+            view = ints(rng, (S, d))
+            vals = ints(rng, (B, d))
+            ids_np = rng.integers(0, S, size=B)
+            pad_np = ids_np.copy()
+            pad_np[:8], pad_np[8:16] = -1, S + 3
+            pad = ids_tensor(pad_np)
+            got = scatter_add(view.clone(), pad, vals, dedup=True)
+            err = check_equal(f"scatter_dedup S={S} d={d}", got,
+                              scatter_dedup_ref(view.clone(), pad, vals))
+            check_equal(f"scatter_dedup S={S} d={d} vs scatter_add", got,
+                        ref.scatter_add_ref(view.clone(), pad, vals))
+            ids = ids_tensor(ids_np)
+            ids64 = ids.long()
+            work = view.clone()
+            u = len(np.unique(ids_np))
+            bms, by = bound_ms(B * 4 + B * d * 4 + 2 * u * d * 4, B * d)
+
+            def run():
+                scatter_add(work, ids, vals, dedup=True)
+
+            row = dict(
+                shape=dict(S=S, d=d, B=B), max_abs_err=err,
+                kernel_ms=time_ms(run),
+                device_ms=kernel_device_ms(run, "scatter_dedup_kernel"),
+                plain_ms=time_ms(lambda: scatter_dedup_ref(work, ids, vals)),
+                library_ms=time_ms(lambda: work.index_add_(0, ids64, vals)),
+                bound_ms=bms, bound_by=by)
+            out.append(row)
+            log({"kernel": "scatter_dedup", **row})
+            del view, work
+
+
+#: fused chains of the retailer Inventory trigger at RETAILER_DOMS_BIG:
+#: (target rows S, gathered sibling-view rows or None, lift rows).  The
+#: sum ring's chains have one source each (a gather, else the units lift);
+#: the cofactor ring's lift every marginalized variable, so its gathering
+#: chains have two.
+MAIN_CHAINS = ((1_179_648, None, 8), (9216, 128, 128), (96, 9216, 96),
+               (1, 96, 96))
+
+
+def fused_chain_rows(rng, out: list) -> None:
+    """``fused_chain`` at the main path's chains, scalar and degree-10 rings:
+    duplicate out ids, padding rows (out id -1 with a ring-zero value, gather
+    ids out of range), the 9216-row source and a collapsed-to-scalar target
+    (S = 1), each checked with and without the per-row product output."""
+    import torch
+    from repro_torch.kernels.ring_fused import (fused_apply, fused_apply_ref,
+                                                spec_width)
+
+    B = BATCH
+    for spec in (("scalar",), ("degree", 10)):
+        d = spec_width(spec)
+        m = 0 if spec[0] == "scalar" else spec[1]
+        for S, gathered, lift in MAIN_CHAINS:
+            if spec[0] == "scalar":
+                src_rows = (gathered or lift,)
+            else:
+                src_rows = (lift,) if gathered is None else (gathered, lift)
+            view = ints(rng, (S, d))
+            vals = ints(rng, (B, d), -2, 3)
+            out_np = rng.integers(0, S, size=B)
+            sources, in_nps = [], []
+            for Sg in src_rows:
+                in_np = rng.integers(0, Sg, size=B)
+                in_nps.append(in_np)
+                sources.append((ints(rng, (Sg, d), -2, 3), ids_tensor(in_np)))
+            # padding rows: out id -1, ring-zero value, gather ids -1 / >= Sg
+            pad_out, pad_vals = out_np.copy(), vals.clone()
+            pad_out[:8] = -1
+            pad_vals[:8] = 0.0
+            pad_sources = []
+            for (plane, _), in_np in zip(sources, in_nps):
+                pad_in = in_np.copy()
+                pad_in[:4], pad_in[4:8] = -1, plane.shape[0] + 5
+                pad_sources.append((plane, ids_tensor(pad_in)))
+            prods = [torch.empty_like(vals) for _ in range(2)]
+            label = f"fused_chain {spec} S={S} sources={src_rows}"
+            got = fused_apply(view.clone(), ids_tensor(pad_out), pad_vals,
+                              pad_sources, spec, product_out=prods[0])
+            want = fused_apply_ref(view.clone(), ids_tensor(pad_out), pad_vals,
+                                   pad_sources, spec, product_out=prods[1])
+            err = check_equal(label, got, want)
+            check_equal(label + " product", prods[0], prods[1])
+            out_ids = ids_tensor(out_np)
+            work = view.clone()
+            # bound: values, out ids and every source's ids read once, each
+            # distinct gathered row once, touched view rows read and written;
+            # per source and row 1 + 3m + 7m² flops (d for the scalar ring)
+            # and one add per element for the ⊎
+            u_out = len(np.unique(out_np))
+            u_src = sum(len(np.unique(x)) for x in in_nps)
+            nbytes = (B * d * 4 + B * 4 * (1 + len(sources)) + u_src * d * 4
+                      + 2 * u_out * d * 4)
+            flops_row = d if m == 0 else 1 + 3 * m + 7 * m * m
+            bms, by = bound_ms(nbytes, len(sources) * B * flops_row + B * d)
+
+            def run():
+                fused_apply(work, out_ids, vals, sources, spec)
+
+            row = dict(
+                shape=dict(S=S, Sg=list(src_rows), d=d, B=B), max_abs_err=err,
+                kernel_ms=time_ms(run),
+                device_ms=kernel_device_ms(run, "fused_chain_kernel"),
+                plain_ms=time_ms(lambda: fused_apply_ref(
+                    work, out_ids, vals, sources, spec)),
+                # no single PyTorch call gathers, multiplies in the ring and
+                # scatters
+                library_ms=None,
+                bound_ms=bms, bound_by=by)
+            out.append(row)
+            log({"kernel": "fused_chain", **row})
+            del view, work
 
 
 # ---------------------------------------------------------------------------
@@ -268,11 +404,39 @@ def compare_views(label: str, eng, store) -> dict:
 
 
 def stream_phase(label, query, query64, db, doms, rng, kernels, expected,
+                 fusion="off", backend=None, n_batches=N_BATCHES,
                  device="cuda", batch=BATCH):
-    """Build a fivm engine, time the update stream through it, read the
-    kernels' launch counts, and hold the result to a float64 oracle."""
+    """Build a fivm engine under the given plan-fusion mode and ⊎ backend,
+    time the update stream through it, read the kernels' launch counts,
+    and hold the result to a float64 oracle."""
+    from repro_torch.core import plan
+    from repro_torch.kernels import scatter_ops
+
+    with plan.use_fusion(fusion), scatter_ops.use_backend(backend):
+        out = _stream_phase(label, query, query64, db, doms, rng, kernels,
+                            expected, n_batches, device, batch)
+    log(out)
+    return out
+
+
+def _chain_report(eng) -> dict:
+    """Fused chains in the engine's plans, and those that gather a plane of
+    more than 4096 rows (the reference's MAX_FUSED_PLANE, a TPU VMEM bound
+    under which it keeps such a chain unfused)."""
+    from repro_torch.core import plan
+
+    chains = [op for p in eng.plans.plans.values() for op in p.ops
+              if isinstance(op, plan.FusedChain)]
+    big = sorted({f"{c.writes[0]}<-{v}" for c in chains for v in c.reads
+                  if math.prod(eng.views[v].domains) > 4096})
+    return dict(fused_chains=len(chains), beyond_tpu_plane_bound=big,
+                smem_bytes=sorted({c.smem_bytes for c in chains}))
+
+
+def _stream_phase(label, query, query64, db, doms, rng, kernels, expected,
+                  n_batches, device, batch):
     import torch
-    from repro_torch.core import DenseRelation, IVMEngine, evaluate_view
+    from repro_torch.core import DenseRelation, IVMEngine, evaluate_view, plan
     from repro_torch.data.synth import RETAILER_RELATIONS, retailer_vo, update_stream
 
     on_card = torch.device(device).type == "cuda"
@@ -286,7 +450,7 @@ def stream_phase(label, query, query64, db, doms, rng, kernels, expected,
     sync()
     build_s = time.perf_counter() - t0
     stream = update_stream(RETAILER_RELATIONS, doms, query.ring, rng, batch,
-                           N_BATCHES, device=device)
+                           n_batches, device=device)
     sync()
     for k in kernels:
         k.launches = 0
@@ -299,6 +463,11 @@ def stream_phase(label, query, query64, db, doms, rng, kernels, expected,
     missing = [n for n in expected if launches[n] == 0]
     if missing:
         raise AssertionError(f"{label}: the main path never launched {missing}")
+    fusion = plan.fusion_mode(eng.device)
+    chains = _chain_report(eng)
+    if (fusion == "on") != (chains["fused_chains"] > 0):
+        raise AssertionError(f"{label}: fusion {fusion} but "
+                             f"{chains['fused_chains']} fused chains")
 
     # oracle: the same updates into a float64 copy of the database with the
     # plain scatter, then one evaluation of the query
@@ -316,14 +485,14 @@ def stream_phase(label, query, query64, db, doms, rng, kernels, expected,
     del eng, db64, store
     profile = profile_stream(query, db, stream, batch, device) if on_card else None
     out = dict(
-        stream=label, domains=doms, batch=batch, n_batches=N_BATCHES,
-        build_s=build_s, run_s=run_s,
-        tuples_per_s=batch * N_BATCHES / run_s,
+        stream=label, fusion=fusion, domains=doms, batch=batch,
+        n_batches=n_batches, build_s=build_s, run_s=run_s,
+        tuples_per_s=batch * n_batches / run_s,
         memory_bytes=memory_bytes,
         max_memory_allocated=torch.cuda.max_memory_allocated() if on_card else None,
-        launches=launches, plan_cache=plan_stats, oracle=check,
-        profile=profile)
-    log(out)
+        launches=launches,
+        launches_per_batch={k: n / n_batches for k, n in launches.items()},
+        plan_cache=plan_stats, chains=chains, oracle=check, profile=profile)
     del stream
     if on_card:
         torch.cuda.empty_cache()
@@ -352,9 +521,11 @@ def profile_stream(query, db, stream, batch, device) -> dict:
         by_name[e.name] = (tot + e.time_range.elapsed_us() / 1e3, n + 1)
     busy_ms = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    n_events = sum(n for _, n in by_name.values())
     return dict(wall_ms=1e3 * wall, device_busy_ms=busy_ms,
                 idle_share=1.0 - busy_ms / (1e3 * wall),
-                device_events=sum(n for _, n in by_name.values()),
+                device_events=n_events,
+                device_events_per_batch=n_events / len(stream),
                 top=[[name[:90], ms, n] for name, (ms, n) in top])
 
 
@@ -369,7 +540,9 @@ def main() -> int:
     from repro_torch.core.rings import DegreeMRing
     from repro_torch.data import synth
     from repro_torch.kernels import _cuda
-    from repro_torch.kernels.ring_scatter import GATHER_MUL_SCATTER, SCATTER_ADD
+    from repro_torch.kernels.ring_fused import FUSED_CHAIN
+    from repro_torch.kernels.ring_scatter import (GATHER_MUL_SCATTER, SCATTER_ADD,
+                                                  SCATTER_DEDUP)
     from repro_torch.kernels.segment_ring_sum import SEGMENT_RING_SUM
 
     # float32 products in full precision (no TF32), as the reference
@@ -383,7 +556,8 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
     log(smi.splitlines()[0])
 
-    kernels = [SCATTER_ADD, SEGMENT_RING_SUM, GATHER_MUL_SCATTER]
+    kernels = [SCATTER_ADD, SEGMENT_RING_SUM, GATHER_MUL_SCATTER, SCATTER_DEDUP,
+               FUSED_CHAIN]
     build_s = _cuda.build_all(kernels)
     log({"build_s": build_s, "libraries": [k.library_path().name for k in kernels]})
     for k in kernels:
@@ -399,7 +573,8 @@ def main() -> int:
     doms = synth.RETAILER_DOMS_BIG
     rels = synth.RETAILER_RELATIONS
     streams = []
-    # sum aggregates: SUM(units) over the join
+    # sum aggregates: SUM(units) over the join; the unfused path, the fused
+    # path (auto: on, on the card) and a short stream under scatter_dedup
     q = Query(relations=rels, free_vars=(), ring=sum_ring(), domains=doms,
               lifts={"units": ("value",)})
     q64 = Query(relations=rels, free_vars=(), ring=sum_ring(torch.float64),
@@ -409,11 +584,19 @@ def main() -> int:
     streams.append(stream_phase("retailer_sum", q, q64, db, doms, rng, kernels,
                                 ("scatter_add", "segment_ring_sum",
                                  "gather_mul_scatter")))
+    streams.append(stream_phase("retailer_sum_fused", q, q64, db, doms,
+                                np.random.default_rng(SEED + 1), kernels,
+                                ("fused_chain",), fusion="auto"))
+    streams.append(stream_phase("retailer_sum_scatter_dedup", q, q64, db, doms,
+                                np.random.default_rng(SEED + 2), kernels,
+                                ("scatter_dedup",), backend="scatter_dedup",
+                                n_batches=5))
     del db
     torch.cuda.empty_cache()
 
-    # degree-m cofactor ring, m = 10 (d = 111): the scalar gather-⊗-⊎ is
-    # not on this path (wider rings gather, multiply, then scatter)
+    # degree-m cofactor ring, m = 10 (d = 111): unfused, the scalar
+    # gather-⊗-⊎ is not on this path (wider rings gather, multiply, then
+    # scatter); fused, every Gather→Lift→⊎ chain is one fused_chain launch
     cq = regression.cofactor_query(rels, doms)
     cq64 = regression.cofactor_query(rels, doms, dtype=torch.float64)
     if cq.ring != DegreeMRing(10):
@@ -423,7 +606,14 @@ def main() -> int:
     streams.append(stream_phase("retailer_cofactor_m10", cq, cq64, db, doms,
                                 rng, kernels,
                                 ("scatter_add", "segment_ring_sum")))
+    streams.append(stream_phase("retailer_cofactor_m10_fused", cq, cq64, db,
+                                doms, np.random.default_rng(SEED + 1), kernels,
+                                ("fused_chain",), fusion="auto"))
     del db
+    launched = {k.name: sum(st["launches"][k.name] for st in streams)
+                for k in kernels}
+    if not all(launched.values()):
+        raise AssertionError(f"a kernel launched on no path: {launched}")
 
     sources = {
         "scatter_add": ("src/repro_torch/kernels/csrc/scatter_add.cu",
@@ -435,13 +625,19 @@ def main() -> int:
         "gather_mul_scatter": ("src/repro_torch/kernels/csrc/gather_mul_scatter.cu",
                                "src/repro/kernels/ring_scatter.py:170",
                                dict(S=96, Sg=9216, d=1, B=BATCH)),
+        "scatter_dedup": ("src/repro_torch/kernels/csrc/scatter_dedup.cu",
+                          "src/repro/kernels/ring_scatter.py:91",
+                          dict(S=1_179_648, d=111, B=BATCH)),
+        "fused_chain": ("src/repro_torch/kernels/csrc/fused_chain.cu",
+                        "src/repro/kernels/ring_fused.py:191",
+                        dict(S=96, Sg=[9216, 96], d=111, B=BATCH)),
     }
     summary = []
     for name, (source, replaces, shape) in sources.items():
         row = next(r for r in rows[name] if r["shape"] == shape)
         summary.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(s["launches"][name] for s in streams),
+            launches=launched[name],
             max_abs_err=max(r["max_abs_err"] for r in rows[name]),
             ms=row["kernel_ms"], device_ms=row["device_ms"],
             plain_ms=row["plain_ms"],

@@ -139,7 +139,9 @@ def marginalize_dense(
     if lift_rel is None:
         i = rel.schema.index(var)
         out_schema = tuple(v for v in rel.schema if v != var)
-        out = {c: rel.payload[c].sum(dim=i) for c in rel.ring.components}
+        # dtype kept: torch sums int32 into int64, the reference keeps int32
+        out = {c: rel.payload[c].sum(dim=i, dtype=rel.payload[c].dtype)
+               for c in rel.ring.components}
         return DenseRelation(out_schema, rel.ring, out)
     return contract_dense(rel, lift_rel, marg=(var,))
 
@@ -257,7 +259,7 @@ class BatchedDelta:
             if not new_coo and self.batch > 1:
                 # batch collapse: with no COO vars left the rows are
                 # indistinguishable — sum them into one row now
-                payload = {c: p.sum(dim=0, keepdim=True)
+                payload = {c: p.sum(dim=0, keepdim=True, dtype=p.dtype)
                            for c, p in payload.items()}
                 keys = keys[:1]
             return dataclasses.replace(
@@ -270,7 +272,8 @@ class BatchedDelta:
         i = self.dense_schema.index(var)
         axis = 1 + i  # after batch
         if lift_rel is None:
-            payload = {c: self.payload[c].sum(dim=axis)
+            payload = {c: self.payload[c].sum(dim=axis,
+                                              dtype=self.payload[c].dtype)
                        for c in self.ring.components}
         else:
             payload = _contract_axis(self.ring, self.payload, lift_rel.payload,
@@ -426,7 +429,7 @@ class BatchedDelta:
                 idx = tuple(self.key_col(v).long() for v in self.coo_schema)
                 arrp = arrp.index_put_(idx, dp, accumulate=True)
             else:
-                arrp = arrp + dp.sum(dim=0)
+                arrp = arrp + dp.sum(dim=0, dtype=dp.dtype)
             new_payload[comp] = arrp.permute(inv)
         return DenseRelation(view.schema, ring, new_payload)
 

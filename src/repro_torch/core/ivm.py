@@ -12,8 +12,12 @@ Strategies:
 
 ``repro_torch.core.plan.compile_trigger`` compiles each (relation, update
 signature) into a cached :class:`TriggerPlan` and the engine replays it
-eagerly.  The engine owns its state: views and base relations are copied
-out of the caller's database at build and updated in place afterwards.
+eagerly.  Under plan fusion (``plan.fusion_mode(engine.device)``: ``auto``
+is on for an engine on the card) COO plans of ``fivm``/``dbt`` run their
+Gather→Lift→⊎ chains as ``FusedChain`` ops, one kernel launch each;
+first-order and reevaluation plans stay unfused.  The engine owns its
+state: views and base relations are copied out of the caller's database at
+build and updated in place afterwards.
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ class IVMEngine:
     #: per-view storage decisions (repro_torch.core.storage.plan_storage)
     storage_plan: dict = dataclasses.field(default_factory=dict)
     #: compiled trigger plans, keyed per (relation, update signature,
-    #: backend override)
+    #: backend override, fusion mode)
     plans: plan_mod.PlanCache = dataclasses.field(
         default_factory=plan_mod.PlanCache)
 

@@ -1,5 +1,5 @@
 """Trigger-plan IR: delta propagation as a compiled artifact (PyTorch port
-of ``repro.core.plan``, unfused).
+of ``repro.core.plan``).
 
 F-IVM maintenance reduces to a *fixed* hierarchy of view updates per
 trigger.  This module makes the trigger an explicit object:
@@ -13,18 +13,26 @@ trigger.  This module makes the trigger an explicit object:
   (:class:`PlanCache`);
 * one planning pass: the densify cost model (:func:`should_densify`) and
   the scatter-backend resolution read the same symbolic path analysis;
+* a plan-level fusion pass (:func:`fuse_trigger_ops`) that collapses
+  Gather→Lift→(Marginalize)→Emit→ScatterAccum runs into :class:`FusedChain`
+  ops, each one launch of the ``fused_chain`` kernel on the card
+  (``repro_torch.kernels.ring_fused``), under the fusion switch
+  (:func:`fusion_mode`, ``REPRO_TORCH_PLAN_FUSION``);
 * an interpreter (:func:`execute_trigger`) that replays a plan with the
   delta-algebra calls of ``contraction.BatchedDelta``.
 
 The symbolic state tracked during compilation mirrors ``BatchedDelta``
 (COO schema, dense schema, effective batch incl. collapse, pending deferred
 gather), so every runtime decision of the delta algebra is known at compile
-time.  Not in this slice: factorized updates, indicator sections, the
-fusion pass (``FusedChain``), sparse storage and the plan verifier.
+time.  Not in this slice: factorized updates, indicator sections, sparse
+storage and the plan verifier.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import os
 import time
 from typing import Any, Mapping, Sequence
 
@@ -34,7 +42,8 @@ from .contraction import BatchedDelta
 from .materialize import views_on_path
 from .query import Query
 from .relations import COOUpdate, DenseRelation
-from .storage import payload_width
+from .storage import (_SPARSE_TODO, flatten_payload, linear_ids,
+                      payload_width, unflatten_payload)
 from .view_tree import ViewNode, evaluate_view
 
 _FACTORIZED_TODO = ("factorized updates are not ported yet (ROADMAP Queue 1 "
@@ -183,6 +192,43 @@ class Reevaluate(PlanOp):
         return f"Reevaluate[{self.scope}]"
 
 
+@dataclasses.dataclass(frozen=True)
+class FusedChain(PlanOp):
+    """A Gather→Lift→(Marginalize)→Emit→ScatterAccum subsequence fused into
+    one launch of the ``fused_chain`` kernel (``repro_torch.kernels.
+    ring_fused``): every gathered payload row and lifted ring component
+    meets the running product in shared memory, the ring product is one
+    flat formula, and the terminal ⊎ dedups keys per tile before its
+    atomics.  Legality is decided at plan time (:func:`fuse_trigger_ops`);
+    ``reads``/``writes`` keep the chain transparent to the structural
+    passes, ``smem_bytes`` is the kernel block's shared memory
+    (``ring_fused.chain_smem_bytes``), and ``carries`` says whether a later
+    op of the plan reads the chain's end delta (the kernel then writes the
+    per-row product; otherwise the product never leaves the kernel)."""
+
+    ops: tuple  # the fused op subsequence, in original plan order
+    reads: tuple  # view names gathered inside the chain (lifts excluded)
+    writes: tuple  # view names ⊎-written by the chain's terminal scatter
+    smem_bytes: int
+    spec: tuple  # fused ring spec, e.g. ("degree", 2) | ("scalar",)
+    carries: bool = False
+
+    def label(self):
+        return (f"Fused[{len(self.ops)} ops → {','.join(self.writes)}"
+                f" ring={'.'.join(str(s) for s in self.spec)}"
+                f" smem={self.smem_bytes}B]")
+
+
+def iter_flat_ops(ops):
+    """Iterate an op sequence with FusedChain subsequences expanded — the
+    view every structural pass that predates fusion sees."""
+    for op in ops:
+        if isinstance(op, FusedChain):
+            yield from op.ops
+        else:
+            yield op
+
+
 # ---------------------------------------------------------------------------
 # TriggerPlan
 # ---------------------------------------------------------------------------
@@ -202,30 +248,82 @@ class TriggerPlan:
     write_base: frozenset
     cost: int  # modeled element count of the chosen delta walk
 
+    def write_sets(self):
+        return self.write_views, self.write_base
+
     def read_views(self) -> frozenset:
-        """View names this plan reads by key through sibling joins."""
-        return frozenset(op.view for op in self.ops
+        """View names this plan reads by key through sibling joins (inside
+        fused chains too)."""
+        return frozenset(op.view for op in iter_flat_ops(self.ops)
                          if isinstance(op, (Gather, JoinContract)))
 
     def pretty(self) -> str:
-        """Stable text form."""
+        """Stable text form (a fused chain's inner ops indented under it)."""
         head = (f"trigger {self.rel} kind={self.kind} strategy={self.strategy}"
                 f" schema=[{','.join(self.schema)}] batch={self.batch}"
                 f" densify={'yes' if self.densify else 'no'}"
                 f" cost={self.cost}")
-        lines = [head] + [f"  {op.label()}" for op in self.ops]
+        lines = [head]
+        for op in self.ops:
+            lines.append(f"  {op.label()}")
+            if isinstance(op, FusedChain):
+                lines.extend(f"    {inner.label()}" for inner in op.ops)
         lines.append("  writes: views=[%s] base=[%s]" % (
             ",".join(sorted(self.write_views)),
             ",".join(sorted(self.write_base))))
         return "\n".join(lines)
 
 
+# ---------------------------------------------------------------------------
+# Plan-level fusion mode
+# ---------------------------------------------------------------------------
+FUSION_ENV_VAR = "REPRO_TORCH_PLAN_FUSION"
+
+FUSION_MODES = ("on", "off", "auto")
+
+_fusion_override: str | None = None
+
+
+def _check_fusion_mode(mode: str | None) -> None:
+    if mode is not None and mode not in FUSION_MODES:
+        raise ValueError(f"unknown fusion mode {mode!r}; one of {FUSION_MODES}")
+
+
 def set_fusion(mode: str | None) -> None:
-    """Plan-level fusion (``FusedChain``) is not ported yet: every engine
-    runs unfused plans, so only ``None`` and ``"off"`` are accepted."""
-    if mode not in (None, "off"):
-        raise NotImplementedError("plan fusion is not ported yet (ROADMAP "
-                                  "Queue 1 item 12)")
+    """Process-wide fusion-mode override (None restores env/auto)."""
+    global _fusion_override
+    _check_fusion_mode(mode)
+    _fusion_override = mode
+
+
+@contextlib.contextmanager
+def use_fusion(mode: str | None):
+    """Scoped fusion override (tests and fused-vs-unfused runs)."""
+    global _fusion_override
+    prev = _fusion_override
+    set_fusion(mode)
+    try:
+        yield
+    finally:
+        _fusion_override = prev
+
+
+def active_fusion_override() -> str | None:
+    """The forced fusion mode (``use_fusion`` scope / ``set_fusion`` /
+    ``REPRO_TORCH_PLAN_FUSION``), or None."""
+    return _fusion_override or os.environ.get(FUSION_ENV_VAR) or None
+
+
+def fusion_mode(device) -> str:
+    """Resolved fusion mode for an engine on ``device``: override / env >
+    ``auto``.  ``auto`` fuses on the card, where a chain is one kernel
+    launch instead of one per op, and keeps the CPU on the op-by-op path
+    (whose plan texts equal the reference's)."""
+    mode = active_fusion_override() or "auto"
+    _check_fusion_mode(mode)
+    if mode != "auto":
+        return mode
+    return "on" if torch.device(device).type == "cuda" else "off"
 
 
 # ---------------------------------------------------------------------------
@@ -523,15 +621,138 @@ class _DenseProxy:
 
 
 # ---------------------------------------------------------------------------
+# The plan-level fusion pass
+# ---------------------------------------------------------------------------
+def _try_fuse_chain(ops, start: int, coo: tuple, views: Mapping,
+                    written, spec, width: int):
+    """Try to grow a fused chain from ``ops[start]`` to the first terminal
+    ScatterAccum.  Returns ``(FusedChain, coo_after)`` or None when an op on
+    the way is outside the fused vocabulary or the chain is outside the
+    kernel's H100 model (more than ``MAX_SOURCES`` sources, or a block's
+    shared memory above ``SMEM_PER_BLOCK``).  Source planes stay in device
+    memory, so their rows are not bounded."""
+    from ..kernels import ring_fused
+
+    cur = list(coo)
+    reads: list[str] = []
+    n_src = 0
+    collapsed = False
+    for j in range(start, len(ops)):
+        op = ops[j]
+        if isinstance(op, Gather):
+            # views this plan already wrote stay unfused (read-after-write
+            # inside one trigger must see the op-by-op ordering)
+            if collapsed or op.view in written or op.view not in views:
+                return None
+            reads.append(op.view)
+            n_src += 1
+        elif isinstance(op, Lift):
+            if collapsed:
+                return None
+            n_src += 1
+        elif isinstance(op, Marginalize):
+            # only COO marginalization stays a key-column drop (+ lift
+            # source) inside the chain; dense-axis contraction falls back
+            if op.axis != "coo" or op.var not in cur:
+                return None
+            cur.remove(op.var)
+            collapsed = collapsed or op.collapses
+        elif isinstance(op, Emit):
+            pass
+        elif isinstance(op, ScatterAccum):
+            # terminal ⊎: a dense scatter fits the kernel; a mixed
+            # (dense-axes) apply does not.  A chain with no gather/lift
+            # source is just a scatter: no fusion win.
+            if op.mixed or n_src == 0 or n_src > ring_fused.MAX_SOURCES:
+                return None
+            smem = ring_fused.chain_smem_bytes(width)
+            if smem > ring_fused.SMEM_PER_BLOCK:
+                return None
+            chain = FusedChain(ops=tuple(ops[start:j + 1]), reads=tuple(reads),
+                               writes=(op.view,), smem_bytes=smem, spec=spec,
+                               carries=j + 1 < len(ops))
+            return chain, tuple(cur)
+        else:  # LeafDelta / JoinContract / BaseBump / ... : not fusable
+            return None
+    return None
+
+
+def fuse_trigger_ops(plan: TriggerPlan, query: Query,
+                     views: Mapping) -> TriggerPlan:
+    """The plan-level fusion pass: collapse maximal
+    Gather→Lift→(Marginalize)→Emit→ScatterAccum subsequences of a COO
+    trigger plan into :class:`FusedChain` ops.
+
+    Legality is decided here, at plan time, by the reference's rules:
+    commutative-bilinear float32 ring (``ring_fused.fused_ring_spec``),
+    pure-COO delta state at the chain boundary (no dense axes, no carried
+    pending gather), a terminal non-mixed scatter, and no gather of a view
+    the plan already wrote; only the size bound is the H100 model of
+    :func:`_try_fuse_chain`.  Everything else stays op by op.  First-order
+    and reevaluation plans, and densified deltas, never fuse."""
+    if plan.kind != "coo" or plan.densify:
+        return plan
+    from ..kernels import ring_fused
+
+    spec = ring_fused.fused_ring_spec(query.ring)
+    if spec is None:
+        return plan
+    width = payload_width(query.ring)
+    ops = list(plan.ops)
+    out: list = []
+    # symbolic mirror of the runtime delta state at each op boundary:
+    # chains start only where the delta is pure-COO with no pending gather
+    coo: tuple = ()
+    pending = False
+    dense = False
+    written: set[str] = set()
+    i = 0
+    while i < len(ops):
+        fused = None
+        if not pending and not dense and coo:
+            fused = _try_fuse_chain(ops, i, coo, views, written, spec, width)
+        if fused is not None:
+            chain, coo = fused
+            out.append(chain)
+            written.add(chain.writes[0])
+            pending = False
+            i += len(chain.ops)
+            continue
+        op = ops[i]
+        if isinstance(op, LeafDelta):
+            coo = () if op.densify else tuple(op.schema)
+            dense = bool(op.densify)
+            pending = False
+        elif isinstance(op, Gather):
+            pending = True
+        elif isinstance(op, JoinContract):
+            pending = False
+            dense = dense or bool(op.grows)
+        elif isinstance(op, Marginalize):
+            if op.forces:
+                pending = False
+            if op.axis == "coo":
+                coo = tuple(v for v in coo if v != op.var)
+        elif isinstance(op, ScatterAccum):
+            written.add(op.view)
+        out.append(op)
+        i += 1
+    if not any(isinstance(op, FusedChain) for op in out):
+        return plan
+    return dataclasses.replace(plan, ops=tuple(out))
+
+
+# ---------------------------------------------------------------------------
 # The plan cache
 # ---------------------------------------------------------------------------
 class PlanCache:
     """Per-engine trigger-plan cache with op interning.
 
-    Keys: (rel, update signature, scatter-backend override).  ``hits`` /
-    ``miss_new`` / ``miss_invalidated`` / ``compile_seconds`` are the cache
-    telemetry: ``miss_new`` counts first compiles of a (rel, signature)
-    trigger, ``miss_invalidated`` recompiles forced by an override change."""
+    Keys: (rel, update signature, scatter-backend override, fusion mode).
+    ``hits`` / ``miss_new`` / ``miss_invalidated`` / ``compile_seconds`` are
+    the cache telemetry: ``miss_new`` counts first compiles of a (rel,
+    signature) trigger, ``miss_invalidated`` recompiles forced by an
+    override or fusion-mode change."""
 
     def __init__(self):
         self.plans: dict = {}
@@ -540,6 +761,7 @@ class PlanCache:
         self.miss_invalidated = 0
         self.compile_seconds = 0.0
         self._interned: dict = {}
+        self._write_sets: dict = {}
         self._seen: set = set()
 
     @property
@@ -550,7 +772,8 @@ class PlanCache:
         return self._interned.setdefault(op, op)
 
     def lookup_sig(self, engine, rel: str, upd_sig) -> TriggerPlan:
-        key = (rel, upd_sig, _active_override())
+        fusion = fusion_mode(engine.device)
+        key = (rel, upd_sig, _active_override(), fusion)
         plan = self.plans.get(key)
         if plan is not None:
             self.hits += 1
@@ -563,6 +786,8 @@ class PlanCache:
             self._seen.add(trigger)
         t0 = time.perf_counter()
         plan = compile_trigger(engine, rel, upd_sig, intern=self.intern)
+        if fusion == "on":
+            plan = fuse_trigger_ops(plan, engine.query, engine.views)
         self.compile_seconds += time.perf_counter() - t0
         self.plans[key] = plan
         return plan
@@ -572,6 +797,17 @@ class PlanCache:
             raise NotImplementedError(_FACTORIZED_TODO)
         return self.lookup_sig(engine, rel,
                                ("coo", tuple(upd.schema), upd.batch))
+
+    def write_sets(self, engine, rel: str):
+        """``(write_views, write_base)`` of any COO trigger for ``rel``
+        (independent of the batch size), memoized under the plan cache's
+        environment key (backend override, fusion mode), so a fusion flip
+        re-derives them from a fresh plan."""
+        key = (rel, _active_override(), fusion_mode(engine.device))
+        if key not in self._write_sets:
+            sig = ("coo", tuple(engine.query.relations[rel]), 1)
+            self._write_sets[key] = self.lookup_sig(engine, rel, sig).write_sets()
+        return self._write_sets[key]
 
     def stats(self) -> dict:
         total = self.hits + self.misses
@@ -595,10 +831,18 @@ class PlanCache:
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class PropagationResult:
-    """Deltas per affected view name (leaf-to-root order) + updated views."""
+    """Deltas per affected view name (leaf-to-root order) + updated views.
+
+    A delta emitted inside a fused chain is a zero-argument callable that
+    materializes it on demand (no ``fivm``/``dbt`` trigger reads them);
+    :meth:`delta` resolves either form."""
 
     deltas: dict
     updated: dict
+
+    def delta(self, name: str) -> BatchedDelta:
+        d = self.deltas[name]
+        return d() if callable(d) else d
 
 
 def run_coo_ops(ops, views: Mapping, query: Query,
@@ -626,9 +870,104 @@ def run_coo_ops(ops, views: Mapping, query: Query,
         elif isinstance(op, ScatterAccum):
             updated[op.view] = delta.apply_to(views[op.view],
                                               backend=op.backend)
+        elif isinstance(op, FusedChain):
+            delta = _run_fused_chain(op, delta, views, query, deltas, updated)
         else:  # pragma: no cover
             raise TypeError(op)
     return PropagationResult(deltas, updated)
+
+
+def _chain_delta(ring, product, keys, coo, collapsed) -> BatchedDelta:
+    """A chain's delta from its per-row product ``[B, d]``: batch collapse
+    sums the rows (in torch) into one."""
+    if collapsed:
+        product = product.sum(dim=0, keepdim=True)
+        keys = keys[:1]
+    return BatchedDelta(
+        coo_schema=tuple(coo), dense_schema=(), keys=keys, ring=ring,
+        payload=unflatten_payload(ring, product, (keys.shape[0],)),
+        dense_domains=())
+
+
+def _run_fused_chain(chain: FusedChain, delta: BatchedDelta, views: Mapping,
+                     query: Query, deltas: dict, updated: dict):
+    """Interpret a :class:`FusedChain` over dense views.
+
+    Gather and lift sources accumulate as flat ``(plane [Sg, d], ids [B])``
+    pairs; the terminal ScatterAccum runs the whole product and ⊎ as one
+    ``ring_fused.fused_apply`` (one ``fused_chain`` launch on the card, the
+    plain version on the CPU), in place into the view's owned plane.  When
+    ``chain.carries``, the kernel also writes the per-row product and the
+    chain's end delta is returned for the ops after it; otherwise it
+    returns None.  Emits inside the chain are recorded lazily.  Plan-time
+    legality (:func:`fuse_trigger_ops`) guarantees the entry state:
+    pure-COO delta, no pending gather, fused-ring payload."""
+    from ..kernels import ring_fused
+
+    ring = query.ring
+    spec = chain.spec
+    if delta.pending_gather is not None or delta.dense_schema:
+        raise AssertionError("fused chain entered with non-pure-COO delta")
+    coo = list(delta.coo_schema)
+    keys = delta.keys
+    B = delta.batch
+    dev = keys.device
+    vals = flatten_payload(ring, delta.payload, (B,))
+    sources: list = []
+    lift_rel = None
+    collapsed = False
+    carried = None
+
+    def view_keys(schema):
+        return torch.stack([keys[:, coo.index(v)] for v in schema], dim=1)
+
+    def lazy(srcs, k, cols, coll):
+        return _chain_delta(ring, ring_fused.chain_product(vals, srcs, spec),
+                            k, cols, coll)
+
+    for op in chain.ops:
+        if isinstance(op, Gather):
+            view = views[op.view]
+            if not isinstance(view, DenseRelation):
+                raise NotImplementedError(_SPARSE_TODO)
+            plane = flatten_payload(ring, view.payload, view.domains)
+            ids = linear_ids(view_keys(view.schema), view.domains)
+            sources.append((plane, ids))
+        elif isinstance(op, Lift):
+            lift_rel = query.lift_rel(op.var, dev)
+        elif isinstance(op, Marginalize):
+            i = coo.index(op.var)
+            if lift_rel is not None:
+                dom = lift_rel.domains[0]
+                sources.append((flatten_payload(ring, lift_rel.payload, (dom,)),
+                                keys[:, i].contiguous()))
+                lift_rel = None
+            keys = torch.cat([keys[:, :i], keys[:, i + 1:]], dim=1)
+            coo.pop(i)
+            collapsed = collapsed or op.collapses
+        elif isinstance(op, Emit):
+            deltas[op.view] = functools.partial(lazy, tuple(sources), keys,
+                                                tuple(coo), collapsed)
+        elif isinstance(op, ScatterAccum):
+            view = views[op.view]
+            if not isinstance(view, DenseRelation):
+                raise NotImplementedError(_SPARSE_TODO)
+            if view.schema:
+                ids = linear_ids(view_keys(view.schema), view.domains)
+            else:  # collapsed-to-scalar view: every row hits slot 0
+                ids = torch.zeros((B,), dtype=torch.int32, device=dev)
+            plane = flatten_payload(ring, view.payload, view.domains)
+            product = (torch.empty_like(vals) if chain.carries else None)
+            out = ring_fused.fused_apply(plane, ids, vals, sources, spec,
+                                         backend=op.backend,
+                                         product_out=product)
+            updated[op.view] = DenseRelation(
+                view.schema, ring, unflatten_payload(ring, out, view.domains))
+            if product is not None:
+                carried = _chain_delta(ring, product, keys, coo, collapsed)
+        else:  # pragma: no cover
+            raise TypeError(op)
+    return carried
 
 
 def reevaluate_store(engine, base) -> dict:

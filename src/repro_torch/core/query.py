@@ -56,7 +56,9 @@ class Query:
         """The lift relation g_var over var's dictionary, on ``device``."""
         key = (var, str(torch.device(device)))
         if key not in self._lift_cache:
+            # owned: one [D, d] plane, which a fused chain gathers from
+            # without concatenating the components
             self._lift_cache[key] = lift_relation(
                 self.ring, var, self.values_of(var, device), self.lift_spec(var)
-            )
+            ).owned()
         return self._lift_cache[key]

@@ -19,6 +19,72 @@ inline unsigned int grid_for(long long n) {
   return static_cast<unsigned int>(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
 }
 
+// Blocks for `tiles` batch tiles of one block each, walked with a grid
+// stride (capped as grid_for).
+inline unsigned int grid_for_tiles(long long tiles) {
+  const long long cap = 132LL * 32;
+  return static_cast<unsigned int>(tiles < cap ? (tiles > 0 ? tiles : 1) : cap);
+}
+
+// Dynamic shared memory above the default 48 KB must be opted into per
+// kernel (up to 227 KB a block on an H100).
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// In-tile key dedup, the counterpart of repro/kernels/ring_scatter.py::
+// tile_dedup, in two steps over one tile of n rows in shared memory.
+//
+// tile_dedup_leaders: lead[r] is the first row of the tile whose id equals
+// ids[r] (r itself for a first occurrence), or -1 where ids[r] is padding
+// (< 0) or out of range (>= S).  Call from every thread of the block;
+// synchronise before reading lead.
+__device__ inline void tile_dedup_leaders(const int* ids, int* lead, int n,
+                                          long long S) {
+  for (int r = threadIdx.x; r < n; r += blockDim.x) {
+    const int id = ids[r];
+    int l = -1;
+    if (id >= 0 && id < S) {
+      l = r;
+      for (int q = 0; q < r; ++q) {
+        if (ids[q] == id) {
+          l = q;
+          break;
+        }
+      }
+    }
+    lead[r] = l;
+  }
+}
+
+// tile_dedup_scatter: view[ids[r], c] += Σ of vals[q, c] over the rows q
+// whose leader is r, for every first occurrence r and column c.  Each
+// duplicate row adds into its leader's row of `vals` (the tile in shared
+// memory, updated in place) with a shared-memory atomic; then each leader
+// issues one global atomic add per column, so a tile costs one atomic per
+// (distinct id, column) in device memory.  Both atomics add in no fixed
+// order: exact for integer-valued payloads, as the reference's 0/1 matmul.
+// Call from every thread of the block, after tile_dedup_leaders and a
+// barrier.
+__device__ inline void tile_dedup_scatter(float* view, int d, const int* ids,
+                                          const int* lead, float* vals, int n) {
+  for (int e = threadIdx.x; e < n * d; e += blockDim.x) {
+    const int r = e / d;
+    const int l = lead[r];
+    if (l >= 0 && l != r) atomicAdd(vals + l * d + (e - r * d), vals[e]);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < n * d; e += blockDim.x) {
+    const int r = e / d;
+    if (lead[r] == r) {
+      atomicAdd(view + static_cast<long long>(ids[r]) * d + (e - r * d), vals[e]);
+    }
+  }
+}
+
 }  // namespace repro
 
 // Every library exports <prefix>_error_string so that its Python wrapper

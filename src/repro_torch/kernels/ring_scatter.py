@@ -1,11 +1,13 @@
-"""⊎ kernels on the card: scatter-add and the fused gather-⊗-⊎.
+"""⊎ kernels on the card: scatter-add, its tile-dedup variant and the
+fused gather-⊗-⊎.
 
-Wrappers for ``csrc/scatter_add.cu`` and ``csrc/gather_mul_scatter.cu``,
-the Hopper counterparts of ``repro/kernels/ring_scatter.py``'s
-``scatter_add_onehot`` and ``gather_mul_scatter``.  Both accumulate in
-place into an ``[S, d]`` float32 view and return it.  A CPU tensor takes
-the plain version (``ref``); a CUDA tensor launches the kernel on the
-current stream, without synchronising, or raises.
+Wrappers for ``csrc/scatter_add.cu``, ``csrc/scatter_dedup.cu`` and
+``csrc/gather_mul_scatter.cu``, the Hopper counterparts of
+``repro/kernels/ring_scatter.py``'s ``scatter_add_onehot`` (without and
+with ``dedup=True``) and ``gather_mul_scatter``.  All accumulate in place
+into an ``[S, d]`` float32 view and return it.  A CPU tensor takes the
+plain version (``ref``, :func:`scatter_dedup_ref`); a CUDA tensor launches
+the kernel on the current stream, without synchronising, or raises.
 
 Key linearization, payload flattening and the backend choice live in
 ``scatter_ops``; these wrappers see only flat planes.
@@ -19,23 +21,87 @@ from ._cuda import I32, I64, PTR, CudaKernel, check_tensor, on_card, stream_hand
 
 SCATTER_ADD = CudaKernel("scatter_add.cu", "repro_scatter_add",
                          [PTR, PTR, PTR, I64, I32, I64])
+SCATTER_DEDUP = CudaKernel("scatter_dedup.cu", "repro_scatter_dedup",
+                           [PTR, PTR, PTR, I64, I32, I64, I32])
 GATHER_MUL_SCATTER = CudaKernel(
     "gather_mul_scatter.cu", "repro_gather_mul_scatter",
     [PTR, PTR, PTR, PTR, PTR, I64, I64, I32, I64])
 
 
+#: batch rows per tile of the tile-dedup kernels hold at most this many
+#: payload elements (tile_rows · d), within [8, 32] rows
+TILE_ELEMS = 1024
+
+
+def tile_rows(d: int) -> int:
+    """Batch rows per tile (one block each) of ``scatter_dedup`` and
+    ``fused_chain`` at payload width ``d``: the largest power of two in
+    [8, 32] with ``rows · d <= TILE_ELEMS`` (32 rows for scalar rings, 8 at
+    the degree-10 width 111, so that a batch of 1000 rows spreads over 125
+    blocks of the card's 132 SMs).  A tile's dedup finds each row's first
+    occurrence by a scan of the rows before it, so tiles stay short."""
+    rows = 8
+    while rows < 32 and 2 * rows * max(int(d), 1) <= TILE_ELEMS:
+        rows *= 2
+    return rows
+
+
+def tile_dedup(ids: torch.Tensor, vals: torch.Tensor):
+    """Per-tile key dedup (plain version of ``csrc/common.cuh``'s
+    ``tile_dedup_*``; the reference's ``ring_scatter.tile_dedup``).
+
+    ``ids`` ``[..., n]``, ``vals`` ``[..., n, d]``, one tile per leading
+    index.  Returns ``(mids, sums)``: ``sums[i]`` is the sum of the tile's
+    rows whose id equals ``ids[i]`` where row i is that id's first
+    occurrence, and ``mids`` masks every later duplicate and every padding
+    id (< 0) to -1.  The duplicate sum is a 0/1 matmul, as in the
+    reference, so integer-valued float32 payloads dedup exactly."""
+    n = ids.shape[-1]
+    eq = ids[..., :, None] == ids[..., None, :]
+    earlier = torch.ones((n, n), dtype=torch.bool, device=ids.device).tril(-1)
+    # row i is its id's first occurrence iff no earlier row matches
+    first = ~(eq & earlier).any(dim=-1)
+    sums = (eq & first[..., :, None]).to(vals.dtype) @ vals
+    mids = torch.where(first & (ids >= 0), ids, torch.full_like(ids, -1))
+    return mids, sums
+
+
+def scatter_dedup_ref(view: torch.Tensor, seg_ids: torch.Tensor,
+                      values: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``scatter_dedup``: :func:`tile_dedup` over tiles of
+    ``tile_rows(d)`` batch rows, then the plain scatter of each tile's
+    first occurrences.  In place; returns ``view``."""
+    d = view.shape[1]
+    B = seg_ids.shape[0]
+    T = tile_rows(d)
+    pad = -B % T
+    ids = torch.cat([seg_ids, seg_ids.new_full((pad,), -1)]).reshape(-1, T)
+    vals = torch.cat([values, values.new_zeros((pad, d))]).reshape(-1, T, d)
+    mids, sums = tile_dedup(ids, vals)
+    return ref.scatter_add_ref(view, mids.reshape(-1), sums.reshape(-1, d))
+
+
 def scatter_add(view: torch.Tensor, seg_ids: torch.Tensor,
-                values: torch.Tensor) -> torch.Tensor:
+                values: torch.Tensor, dedup: bool = False) -> torch.Tensor:
     """view [S, d] += values [B, d] at seg_ids [B] (int32), in place;
-    ids < 0 or >= S drop.  Returns ``view``."""
+    ids < 0 or >= S drop.  ``dedup`` sums each tile's duplicate ids before
+    the ⊎ (the ``scatter_dedup`` kernel).  Returns ``view``."""
     S, d = view.shape
     B = seg_ids.shape[0]
     check_tensor("view", view, torch.float32, (S, d), view.device)
     check_tensor("seg_ids", seg_ids, torch.int32, (B,), view.device)
     check_tensor("values", values, torch.float32, (B, d), view.device)
     if not on_card(view):
+        if dedup:
+            return scatter_dedup_ref(view, seg_ids, values)
         return ref.scatter_add_ref(view, seg_ids, values)
-    if B * d:
+    if B * d == 0:
+        return view
+    if dedup:
+        SCATTER_DEDUP.launch(view.data_ptr(), seg_ids.data_ptr(),
+                             values.data_ptr(), S, d, B, tile_rows(d),
+                             stream_handle(view))
+    else:
         SCATTER_ADD.launch(view.data_ptr(), seg_ids.data_ptr(),
                            values.data_ptr(), S, d, B, stream_handle(view))
     return view

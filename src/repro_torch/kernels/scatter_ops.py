@@ -12,11 +12,14 @@ and ``BatchedDelta.apply_to``.  The layer owns what the kernels don't:
   duplicates over local ranks with ``segment_ring_sum``, then scatter at
   most B unique rows: the work scales with the batch, not the domain.
 * **Backend choice** — ``torch`` (the plain versions), ``scatter`` (the
-  scatter kernels), ``compact`` or ``auto``.  An explicit argument wins,
-  then ``use_backend``/``set_backend``, then the environment variable
-  ``REPRO_TORCH_SCATTER_BACKEND``, then ``auto``: ``torch`` for CPU
-  tensors; for CUDA tensors ``scatter`` while S <= max(4096, 8·B), else
-  ``compact``.
+  scatter kernels), ``scatter_dedup`` (the scatter with in-tile key dedup,
+  the counterpart of the reference's ``onehot_dedup``; the fused gather
+  keeps ``gather_mul_scatter``), ``compact`` or ``auto``.  An explicit
+  argument wins, then ``use_backend``/``set_backend``, then the
+  environment variable ``REPRO_TORCH_SCATTER_BACKEND``, then ``auto``:
+  ``torch`` for CPU tensors; for CUDA tensors ``scatter`` while
+  S <= max(4096, 8·B), else ``compact``.  ``auto`` never picks
+  ``scatter_dedup``, as the reference's never picks ``onehot_dedup``.
 
 The ⊎ accumulates into the view's own storage where the layout allows (the
 engine owns its views); callers always use the returned payload.
@@ -36,7 +39,7 @@ from .segment_ring_sum import segment_ring_sum
 
 ENV_VAR = "REPRO_TORCH_SCATTER_BACKEND"
 
-BACKENDS = ("auto", "torch", "scatter", "compact")
+BACKENDS = ("auto", "torch", "scatter", "scatter_dedup", "compact")
 
 #: S up to this (or 8·B) takes ``scatter``, above it ``compact``.  The value
 #: is the reference's TPU-era onehot/compact crossover, not yet measured on
@@ -114,7 +117,8 @@ def scatter_add_flat(view, seg_ids, values, backend: str | None = None):
         return ref.scatter_add_ref(view, seg_ids, values)
     if backend == "compact":
         return _compact_scatter(view, seg_ids, values)
-    return scatter_add(view, seg_ids, values)
+    return scatter_add(view, seg_ids, values,
+                       dedup=(backend == "scatter_dedup"))
 
 
 def _compact_scatter(view, seg_ids, values):

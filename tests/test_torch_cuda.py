@@ -1,4 +1,4 @@
-"""The CUDA ⊎ kernels ≡ their plain PyTorch versions, on the card.
+"""The CUDA kernels ≡ their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and skips without one (marker
 ``cuda``).  The file imports no JAX, so it runs on a card host that has
@@ -12,9 +12,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import IVMEngine, Query, sum_ring  # noqa: E402
+from repro_torch.core import plan as tplan  # noqa: E402
 from repro_torch.core.apps import regression  # noqa: E402
 from repro_torch.data import synth  # noqa: E402
-from repro_torch.kernels import ref, ring_scatter, scatter_ops  # noqa: E402
+from repro_torch.kernels import ref, ring_fused, ring_scatter, scatter_ops  # noqa: E402
 from repro_torch.kernels import segment_ring_sum as tsegsum  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -99,10 +100,10 @@ def test_cuda_sum_ring_payload_dispatch(cuda_device):
         assert torch.equal(got["v"], want)
 
 
-@pytest.mark.parametrize("ring", ["sum", "cofactor"])
-def test_cuda_engine_matches_cpu_engine(cuda_device, ring):
-    """The retailer stream through the engine on the card (kernels) ≡ the
-    same stream through the engine on the CPU (plain versions)."""
+def _engine_pair(cuda_device, ring, kernels):
+    """The retailer stream through the engine on the card (kernels) and on
+    the CPU (plain versions) under the current fusion and backend
+    settings; returns the launches of ``kernels`` on the card."""
     doms, rels = synth.RETAILER_DOMS, synth.RETAILER_RELATIONS
     if ring == "sum":
         q = Query(relations=rels, free_vars=(), ring=sum_ring(), domains=doms,
@@ -112,8 +113,7 @@ def test_cuda_engine_matches_cpu_engine(cuda_device, ring):
     # sizes that keep every value below 2**24 (exact float32 sums); the
     # largest view (18432 keys) still takes the compact path
     density, batch = (0.05, 64) if ring == "sum" else (0.03, 32)
-    engines, kernels = {}, (ring_scatter.SCATTER_ADD, tsegsum.SEGMENT_RING_SUM,
-                            ring_scatter.GATHER_MUL_SCATTER)
+    engines = {}
     before = [k.launches for k in kernels]
     for dev in ("cpu", cuda_device):
         rng = np.random.default_rng(7)
@@ -129,6 +129,73 @@ def test_cuda_engine_matches_cpu_engine(cuda_device, ring):
         for c, t in view.payload.items():
             assert t.abs().max() < 2 ** 24, (name, c)
             assert torch.equal(gpu.views[name].payload[c].cpu(), t), (name, c)
-    used = [k.launches - b for k, b in zip(kernels, before)]
+    return [k.launches - b for k, b in zip(kernels, before)]
+
+
+@pytest.mark.parametrize("ring", ["sum", "cofactor"])
+def test_cuda_engine_matches_cpu_engine(cuda_device, ring):
+    """Unfused plans: the ⊎ kernels on the card ≡ the plain versions."""
+    kernels = (ring_scatter.SCATTER_ADD, tsegsum.SEGMENT_RING_SUM,
+               ring_scatter.GATHER_MUL_SCATTER)
+    with tplan.use_fusion("off"):
+        used = _engine_pair(cuda_device, ring, kernels)
     assert used[0] > 0 and used[1] > 0
     assert (used[2] > 0) == (ring == "sum")
+
+
+@pytest.mark.parametrize("ring", ["sum", "cofactor"])
+@pytest.mark.parametrize("backend", [None, "scatter_dedup"])
+def test_cuda_fused_engine_matches_cpu_engine(cuda_device, ring, backend):
+    """Fused plans on both devices: every chain is one ``fused_chain``
+    launch on the card; under ``scatter_dedup`` the unfused ⊎ sites take
+    the tile-dedup kernel."""
+    kernels = (ring_fused.FUSED_CHAIN, ring_scatter.SCATTER_DEDUP)
+    with tplan.use_fusion("on"), scatter_ops.use_backend(backend):
+        used = _engine_pair(cuda_device, ring, kernels)
+    assert used[0] > 0
+    assert (used[1] > 0) == (backend == "scatter_dedup")
+
+
+@pytest.mark.parametrize("d", [1, 111])
+@pytest.mark.parametrize("S", [1, 96, 9216])
+def test_cuda_scatter_dedup_matches_plain(cuda_device, S, d):
+    rng = np.random.default_rng(S + d)
+    view, ids, vals = _cuda_case(rng, S, 1000, d, cuda_device)
+    n = ring_scatter.SCATTER_DEDUP.launches
+    got = ring_scatter.scatter_add(view.clone(), ids, vals, dedup=True)
+    assert ring_scatter.SCATTER_DEDUP.launches == n + 1
+    assert torch.equal(got, ring_scatter.scatter_dedup_ref(view.clone(), ids, vals))
+    assert torch.equal(got, ref.scatter_add_ref(view.clone(), ids, vals))
+
+
+@pytest.mark.parametrize("spec", [("scalar",), ("degree", 10)],
+                         ids=lambda s: ".".join(map(str, s)))
+@pytest.mark.parametrize("n_src", [1, 2, 4])
+@pytest.mark.parametrize("S", [1, 96])
+def test_cuda_fused_chain_matches_plain(cuda_device, spec, n_src, S):
+    """Duplicate and padding out ids, out-of-range gather ids (clamped), a
+    9216-row source and, at S = 1, a collapsed-to-scalar target."""
+    rng = np.random.default_rng(S * 10 + n_src)
+    d = ring_fused.spec_width(spec)
+    B = 1000
+    view, out_ids, vals = _cuda_case(rng, S, B, d, cuda_device)
+    sources = []
+    for Sg in (9216, 128, 32, 1)[:n_src]:
+        plane = torch.tensor(_ints(rng, (Sg, d), -2, 3), device=cuda_device)
+        ids = torch.tensor(rng.integers(-2, Sg + 2, size=B).astype(np.int32),
+                           device=cuda_device)
+        sources.append((plane, ids))
+    prods = [torch.empty((B, d), device=cuda_device) for _ in range(2)]
+    n = ring_fused.FUSED_CHAIN.launches
+    got = ring_fused.fused_apply(view.clone(), out_ids, vals, sources, spec,
+                                 product_out=prods[0])
+    assert ring_fused.FUSED_CHAIN.launches == n + 1
+    want = ring_fused.fused_apply_ref(view.clone(), out_ids, vals, sources,
+                                      spec, product_out=prods[1])
+    assert torch.equal(prods[0], prods[1])
+    assert torch.equal(got, want)
+    with scatter_ops.use_backend("torch"):  # the documented switch
+        plain = ring_fused.fused_apply(view.clone(), out_ids, vals, sources,
+                                       spec)
+    assert ring_fused.FUSED_CHAIN.launches == n + 1
+    assert torch.equal(plain, want)

@@ -137,6 +137,39 @@ def test_trigger_plans_match_reference(strategy):
     assert port_eng.plans.stats()["plans"] == 5
 
 
+def test_count_ring_stream_keeps_reference_dtypes():
+    """A count-ring (int32) engine: after a stream its views have the
+    reference's dtypes and values.  The port's int32 ``Ring.mul`` product
+    (the reference's comes back float32) stays inside the trigger."""
+    import jax.numpy as jnp
+    from repro.core import COOUpdate as RefCOOUpdate
+    from repro.core import DenseRelation as RefDenseRelation
+    from repro.core import count_ring as ref_count_ring
+    from repro_torch.core import count_ring
+
+    rng = np.random.default_rng(5)
+    rq = RefQuery(relations=bc.RETAILER_RELATIONS, free_vars=(),
+                  ring=ref_count_ring(), domains=bc.RETAILER_DOMS)
+    tq = Query(relations=synth.RETAILER_RELATIONS, free_vars=(),
+               ring=count_ring(), domains=synth.RETAILER_DOMS)
+
+    def as_int(p):
+        return {c: jnp.asarray(v, jnp.int32) for c, v in p.items()}
+
+    db = {n: RefDenseRelation(r.schema, rq.ring, as_int(r.payload))
+          for n, r in bc.synth_db(bc.RETAILER_RELATIONS, bc.RETAILER_DOMS,
+                                  rq.ring, rng, density=0.05).items()}
+    stream = [(rel, RefCOOUpdate(u.schema, u.keys, as_int(u.payload)))
+              for rel, u in bc.update_stream(bc.RETAILER_RELATIONS,
+                                             bc.RETAILER_DOMS, rq.ring, rng,
+                                             16, 5)]
+    ref_eng, port_eng = P.run_parity(rq, tq, db, stream, bc.retailer_vo(),
+                                     synth.retailer_vo(), "fivm")
+    for name, view in ref_eng.views.items():
+        assert port_eng.views[name].payload["v"].dtype == torch.int32, name
+        assert np.asarray(view.payload["v"]).dtype == np.int32, name
+
+
 def test_callers_database_is_never_written():
     """Views are updated in place, so the engine must own copies of the
     database relations its views and base relations start from."""

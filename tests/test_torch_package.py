@@ -4,7 +4,8 @@
   the JAX package ``repro`` (checked statically with ``ast``).
 * Entry points default to ``device="cuda"`` and raise on a host without
   CUDA unless the caller passes ``device="cpu"``.
-* What the slice does not port yet raises ``NotImplementedError``.
+* What the slice does not port yet raises ``NotImplementedError``
+  (sparse storage also under plan fusion).
 * On a CUDA host the kernel toolchain (``nvcc``) is present: the test fails,
   not skips, where it is missing.
 """
@@ -73,9 +74,10 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda():
                                   "fusion"])
 def test_unported_features_raise(what):
     if what == "fusion":
-        plan.set_fusion("off")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            plan.set_fusion("on")
+        # fusion is ported; fused sparse storage is not
+        with plan.use_fusion("on"):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+                _small_engine(device="cpu", storage="sparse")
         return
     if what in ("auto", "sparse"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
