@@ -8,12 +8,15 @@ Run from the repository root with one card visible:
 Phases (any failed check raises, and the script exits non-zero):
 
 1. Device: the card's name and power limit from nvidia-smi, then a build of
-   all five CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   all nine CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together).
 2. Kernels: each kernel against its plain PyTorch version on integer-valued
-   float32 at the shapes the main path gives it (bitwise), timed with CUDA
-   events and the profiler beside its plain version, a one-call PyTorch
-   yardstick (``library_ms``, never used by the port) and its bound.
+   float32 at the shapes the main path gives it (bitwise; ``cofactor_update``
+   and ``matvec`` also with values of 12 significant bits, which a product
+   in TF32 or bf16 would round; ``ring_mul`` and ``outer_accumulate`` also on
+   normal data), timed with CUDA events and
+   the profiler beside its plain version, a one-call PyTorch yardstick
+   (``library_ms``, never used by the port) and its bound.
 3. Paths, each through ``IVMEngine.apply_update`` (fivm, dense) at
    ``RETAILER_DOMS_BIG`` with batches of 1000 tuples, checked against a
    float64 re-evaluation, with every kernel's launch count reset before
@@ -24,6 +27,17 @@ Phases (any failed check raises, and the script exits non-zero):
    - the same two streams with fusion ``auto`` (on, on the card), where
      every fused chain is one ``fused_chain`` launch, 20 batches each;
    - a short sum stream under the ``scatter_dedup`` ⊎ backend.
+4. The kernel-ops layer's paths, counts reset before and read after each:
+   - B, the ring product on engine state: ``ops.ring_mul`` of the largest
+     view (1,179,648 keys, degree 10) of the two cofactor engines above,
+     bitwise against ``DegreeMRing.mul`` and against a float64 product
+     (``ring_mul``);
+   - A, streaming statistics: ``RunningCofactor`` (m = 32) fed 20 batches
+     of 65,536 rows, the last retracted, its derived statistics and a ridge
+     solve against float64 (``cofactor_update``);
+   - C, rank-1 matrix-chain deltas: 16 ``ops.rank1_chain_update`` calls on
+     V = A1 A2 A3 at n = 8192 against float64 (``matvec``,
+     ``outer_accumulate``).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel with its numbers.  Imports nothing of JAX or the JAX package.
@@ -244,7 +258,152 @@ def kernel_phase(rng) -> dict:
 
     scatter_dedup_rows(rng, rows["scatter_dedup"])
     fused_chain_rows(rng, rows["fused_chain"])
+    rows.update(cofactor_update=[], ring_mul=[], matvec=[], outer_accumulate=[])
+    ops_kernel_rows(rng, rows)
     return rows
+
+
+def normal(rng, shape):
+    import torch
+
+    return torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                        device="cuda")
+
+
+def wide_values(rng, n: int):
+    """n odd integers of 12 significant bits (±2049..±3001): exact in
+    float32, rounded by TF32, bf16 or fp16."""
+    import torch
+
+    vals = rng.integers(1024, 1501, size=n) * 2 + 1
+    return torch.tensor((vals * rng.choice([-1, 1], size=n)).astype(np.float32),
+                        device="cuda")
+
+
+def widen(rng, x, w) -> None:
+    """Put one ``wide_values`` entry into each column of x [B, m] (row
+    j·(B // m) of column j, weight 1), so that every s[j] and every row
+    and column of Q takes a product that reduced precision would round.
+    The sums stay exact in float32 for B <= 262,144 and |x| <= 4 elsewhere:
+    Q[j, j] <= 3001² + 16·B < 2**24."""
+    import torch
+
+    B, m = x.shape
+    cols = torch.arange(m, device="cuda")
+    x[cols * (B // m), cols] = wide_values(rng, m)
+    w[cols * (B // m)] = 1.0
+
+
+def ops_kernel_rows(rng, rows: dict) -> None:
+    """The kernel-ops layer's four kernels at the JAX package's benchmark
+    shapes (``benchmarks/bench_kernels.py``), at the shapes paths A to C
+    give them and at sizes where the card does real work: bitwise against
+    the plain versions on integer-valued data, part of it with 12
+    significant bits (``cofactor_update``, ``matvec``: a product in TF32 or
+    bf16 fails), and for ``ring_mul`` and ``outer_accumulate`` on normal
+    data too (both round every operation once, in the plain version's
+    order)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cofactor_update import cofactor_update
+    from repro_torch.kernels.rank1_chain import matvec, outer_accumulate
+    from repro_torch.kernels.ring_mul import ring_mul
+
+    # cofactor_update: the benchmark's 4096 x 32, path A's batch and 262,144
+    # rows at the widest m of the kernel tests (130)
+    for B, m in ((4096, 32), (STATS_B, STATS_M), (262_144, 130)):
+        err = 0.0
+        for kind in ("ints", "wide"):
+            x, w = ints(rng, (B, m)), ints(rng, (B,), -1, 2)
+            if kind == "wide":
+                widen(rng, x, w)
+            c, s, Q = ref.cofactor_update_ref(x, w)
+            got = cofactor_update(x, w)
+            err = max([err] + [check_equal(f"cofactor_update B={B} m={m} {kind} {n}",
+                                           g, r)
+                               for n, g, r in zip("csQ", got, (c.reshape(1), s, Q))])
+        xw = x * w[:, None]
+        # reads x and w once, writes (c, s, Q); Q is symmetric, so m(m+1)/2
+        # dot products of B terms (B·m(m+1) flops), B·m multiplies for the
+        # weighting and B·m + B adds for s and c
+        bms, by = bound_ms(4 * (B * m + B + m * m + m + 1),
+                           B * m * (m + 1) + 2 * B * m + B)
+        row = dict(
+            shape=dict(B=B, m=m), max_abs_err=err,
+            kernel_ms=time_ms(lambda: cofactor_update(x, w)),
+            device_ms=kernel_device_ms(lambda: cofactor_update(x, w), "cofactor_"),
+            plain_ms=time_ms(lambda: ref.cofactor_update_ref(x, w)),
+            # the Q product alone, on rows scaled beforehand
+            library_ms=time_ms(lambda: torch.mm(xw.T, x)),
+            bound_ms=bms, bound_by=by)
+        rows["cofactor_update"].append(row)
+        log({"kernel": "cofactor_update", **row})
+        del x, w, xw
+
+    # ring_mul: the benchmark's 256 keys at m = 32, and the retailer
+    # cofactor engine's largest view at RETAILER_DOMS_BIG (1,179,648 keys,
+    # m = 10)
+    for K, m in ((256, 32), (1_179_648, 10)):
+        err = 0.0
+        for kind in ("ints", "normal"):
+            mk = ints if kind == "ints" else normal
+            args = [mk(rng, sh) for sh in ((K,), (K, m), (K, m, m))]
+            args += [mk(rng, sh) for sh in ((K,), (K, m), (K, m, m))]
+            got = ring_mul(*args)
+            err = max([err] + [check_equal(f"ring_mul K={K} m={m} {kind} {n}", g, r)
+                               for n, g, r in zip("csQ", got, ref.ring_mul_ref(*args))])
+            del got
+        d = 1 + m + m * m
+        bms, by = bound_ms(3 * K * d * 4, K * (1 + 3 * m + 7 * m * m))
+        row = dict(
+            shape=dict(K=K, m=m), max_abs_err=err,
+            kernel_ms=time_ms(lambda: ring_mul(*args)),
+            device_ms=kernel_device_ms(lambda: ring_mul(*args), "ring_mul_kernel"),
+            plain_ms=time_ms(lambda: ref.ring_mul_ref(*args)),
+            # no single PyTorch call forms the degree-m product
+            library_ms=None,
+            bound_ms=bms, bound_by=by)
+        rows["ring_mul"].append(row)
+        log({"kernel": "ring_mul", **row})
+        del args
+
+    # matvec, both layouts (A x and vᵀ A3 read as A3.T), and
+    # outer_accumulate: the benchmark's n = 1024 and n = 8192
+    for n in (1024, 8192):
+        A, x = ints(rng, (n, n)), ints(rng, (n,))
+        x[::n // 64] = wide_values(rng, 64)
+        for variant, mat in (("rows", A), ("cols", A.T)):
+            err = check_equal(f"matvec n={n} {variant}", matvec(mat, x),
+                              ref.matvec_ref(mat, x))
+            bms, by = bound_ms(4 * (n * n + 2 * n), 2 * n * n)
+            row = dict(
+                shape=dict(n=n, variant=variant), max_abs_err=err,
+                kernel_ms=time_ms(lambda: matvec(mat, x)),
+                device_ms=kernel_device_ms(lambda: matvec(mat, x), "matvec_"),
+                plain_ms=time_ms(lambda: ref.matvec_ref(mat, x)),
+                library_ms=time_ms(lambda: torch.mv(mat, x)),
+                bound_ms=bms, bound_by=by)
+            rows["matvec"].append(row)
+            log({"kernel": "matvec", **row})
+        err = 0.0
+        for kind in ("ints", "normal"):
+            mk = ints if kind == "ints" else normal
+            V, u, v = mk(rng, (n, n)), mk(rng, (n,)), mk(rng, (n,))
+            got = outer_accumulate(V, u, v)
+            err = max(err, check_equal(f"outer_accumulate n={n} {kind}", got,
+                                       ref.outer_accumulate_ref(V, u, v)))
+        bms, by = bound_ms(4 * (2 * n * n + 2 * n), 2 * n * n)
+        row = dict(
+            shape=dict(n=n), max_abs_err=err,
+            kernel_ms=time_ms(lambda: outer_accumulate(V, u, v)),
+            device_ms=kernel_device_ms(lambda: outer_accumulate(V, u, v),
+                                       "outer_acc"),
+            plain_ms=time_ms(lambda: ref.outer_accumulate_ref(V, u, v)),
+            library_ms=time_ms(lambda: torch.addr(V, u, v)),
+            bound_ms=bms, bound_by=by)
+        rows["outer_accumulate"].append(row)
+        log({"kernel": "outer_accumulate", **row})
+        del A, V, got
 
 
 def scatter_dedup_rows(rng, out: list) -> None:
@@ -405,16 +564,18 @@ def compare_views(label: str, eng, store) -> dict:
 
 def stream_phase(label, query, query64, db, doms, rng, kernels, expected,
                  fusion="off", backend=None, n_batches=N_BATCHES,
-                 device="cuda", batch=BATCH):
+                 device="cuda", batch=BATCH, keep=None):
     """Build a fivm engine under the given plan-fusion mode and ⊎ backend,
     time the update stream through it, read the kernels' launch counts,
-    and hold the result to a float64 oracle."""
+    and hold the result to a float64 oracle.  With ``keep`` (a list), the
+    payload of the engine's largest view is appended to it as
+    ``(name, {component: tensor with the keys flattened})``."""
     from repro_torch.core import plan
     from repro_torch.kernels import scatter_ops
 
     with plan.use_fusion(fusion), scatter_ops.use_backend(backend):
         out = _stream_phase(label, query, query64, db, doms, rng, kernels,
-                            expected, n_batches, device, batch)
+                            expected, n_batches, device, batch, keep)
     log(out)
     return out
 
@@ -434,7 +595,7 @@ def _chain_report(eng) -> dict:
 
 
 def _stream_phase(label, query, query64, db, doms, rng, kernels, expected,
-                  n_batches, device, batch):
+                  n_batches, device, batch, keep):
     import torch
     from repro_torch.core import DenseRelation, IVMEngine, evaluate_view, plan
     from repro_torch.data.synth import RETAILER_RELATIONS, retailer_vo, update_stream
@@ -482,6 +643,13 @@ def _stream_phase(label, query, query64, db, doms, rng, kernels, expected,
     evaluate_view(eng.tree, db64, query64, store=store)
     check = compare_views(label, eng, store)
     memory_bytes, plan_stats = eng.memory_bytes(), eng.plans.stats()
+    if keep is not None:
+        # the engine's own storage (column slices of its [S, d] plane)
+        name = max(eng.views, key=lambda v: math.prod(eng.views[v].domains))
+        rel = eng.views[name]
+        K = math.prod(rel.domains)
+        keep.append((name, {c: t.reshape(K, *t.shape[len(rel.domains):])
+                            for c, t in rel.payload.items()}))
     del eng, db64, store
     profile = profile_stream(query, db, stream, batch, device) if on_card else None
     out = dict(
@@ -529,6 +697,208 @@ def profile_stream(query, db, stream, batch, device) -> dict:
                 top=[[name[:90], ms, n] for name, (ms, n) in top])
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: the kernel-ops layer's paths
+# ---------------------------------------------------------------------------
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|, in float64."""
+    want = want.double()
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got.double() - want).abs().max()) if want.numel() else 0.0
+    return err / scale if scale else err
+
+
+def reset(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def read_launches(label, kernels, expected: dict) -> dict:
+    """The counts since the last reset; raises unless each kernel of
+    ``expected`` launched exactly that many times."""
+    launches = {k.name: k.launches for k in kernels}
+    wrong = {n: launches[n] for n, want in expected.items() if launches[n] != want}
+    if wrong:
+        raise AssertionError(f"{label}: launches {wrong}, expected {expected}")
+    return launches
+
+
+def check_within(label: str, errors: dict, limits: dict) -> None:
+    bad = {k: (errors[k], limits[k]) for k in errors if not errors[k] <= limits[k]}
+    if bad:
+        raise AssertionError(f"{label}: (error, limit) {bad}")
+
+
+#: path A: 20 batches of 65,536 standard-normal rows over 32 features
+STATS_M, STATS_B, STATS_BATCHES = 32, 65_536, 20
+
+
+def stats_path(kernels) -> dict:
+    """Path A, streaming statistics (paper §7.2): ``RunningCofactor`` on the
+    card fed 20 batches, the last retracted (weights -1); mean, variance,
+    correlation, drift against the state after 10 batches and a ridge
+    solve, each against the same formulas over a float64 recomputation of
+    (c, s, Q) from the rows kept.
+
+    Tolerances: c is an exact count.  s, Q, the mean, variance,
+    correlation and θ within RTOL of their largest magnitude: float32 sums
+    of 1.2M terms in chunks, then 21 adds into the running state, each
+    rounding at ~6e-8 of the state's magnitude.  The drift score is the
+    Frobenius norm of a difference of two correlation matrices, so its
+    error is at most the Frobenius norms of their two measured errors plus
+    the norm's own rounding (m² adds at 2⁻²⁴)."""
+    import torch
+    from repro_torch.data.stats import RunningCofactor, solve_ridge
+
+    m, B, n = STATS_M, STATS_B, STATS_BATCHES
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    X = torch.randn((n, B, m), generator=gen, device="cuda")
+    minus = -torch.ones(B, device="cuda")
+    torch.cuda.synchronize()
+    reset(kernels)
+    t0 = time.perf_counter()
+    st = RunningCofactor.init(m)
+    for i in range(n):
+        st = st.update(X[i])
+        if i == n // 2 - 1:
+            base = st
+    st = st.update(X[n - 1], weights=minus)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches("stats path", kernels, {"cofactor_update": n + 1})
+
+    def oracle(rows):
+        X64 = rows.reshape(-1, m).double()
+        return RunningCofactor(torch.tensor(float(X64.shape[0]), device="cuda",
+                                            dtype=torch.float64),
+                               X64.sum(0), X64.T @ X64)
+
+    want, want_base = oracle(X[:n - 1]), oracle(X[:n // 2])
+    features = list(range(1, m))
+    corr, corr64 = st.correlation(), want.correlation()
+    dcorr = float(torch.linalg.norm(corr.double() - corr64))
+    dbase = float(torch.linalg.norm(base.correlation().double()
+                                    - want_base.correlation()))
+    drift, drift64 = float(st.drift_score(base)), float(want.drift_score(want_base))
+    errors = dict(
+        c=abs(float(st.c) - float(want.c)), s=rel_err(st.s, want.s),
+        Q=rel_err(st.Q, want.Q), mean=rel_err(st.mean(), want.mean()),
+        variance=rel_err(st.variance(), want.variance()),
+        correlation=rel_err(corr, corr64),
+        drift=abs(drift - drift64),
+        ridge=rel_err(solve_ridge(st, 0, features), solve_ridge(want, 0, features)))
+    limits = dict(c=0.0, s=RTOL, Q=RTOL, mean=RTOL, variance=RTOL,
+                  correlation=RTOL, ridge=RTOL,
+                  drift=dcorr + dbase + m * m * 2.0 ** -24 * drift64)
+    out = dict(path="stats", m=m, batch=B, batches=n, retracted_batches=1,
+               run_s=run_s, rows_per_s=(n + 1) * B / run_s,
+               launches=launches, drift_score=drift, drift_score_f64=drift64,
+               errors=errors, limits=limits)
+    log(out)
+    check_within("stats path", errors, limits)
+    del X
+    return out
+
+
+def ring_product_path(kept, kernels) -> dict:
+    """Path B, the ring product on engine state: the degree-10 payloads of
+    the largest view of the unfused and the fused retailer cofactor
+    streams, multiplied by ``ops.ring_mul`` straight from the engines'
+    [S, d] planes (the kernel reads the strided components; nothing is
+    copied).  Equal bit for bit to ``DegreeMRing.mul`` of the same payloads,
+    and within RTOL of a float64 product."""
+    import torch
+    from repro_torch.core.rings import DegreeMRing
+    from repro_torch.kernels import ops
+
+    (name_a, a), (name_b, b) = kept
+    if name_a != name_b:
+        raise AssertionError(f"largest views differ: {name_a} {name_b}")
+    K, m = a["s"].shape
+    args = (a["c"], a["s"], a["Q"], b["c"], b["s"], b["Q"])
+    torch.cuda.synchronize()
+    reset(kernels)
+    t0 = time.perf_counter()
+    got = ops.ring_mul(*args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches("ring product path", kernels, {"ring_mul": 1})
+    ring = DegreeMRing(m)
+    want = ring.mul(a, b)
+    for comp, g in zip(("c", "s", "Q"), got):
+        check_equal(f"ring product path {comp} vs DegreeMRing.mul", g, want[comp])
+    del want
+    ring64 = DegreeMRing(m, dtype=torch.float64)
+    want64 = ring64.mul({c: t.double() for c, t in a.items()},
+                        {c: t.double() for c, t in b.items()})
+    errors = {comp: rel_err(g, want64[comp]) for comp, g in zip(("c", "s", "Q"), got)}
+    del want64, got
+    out = dict(path="ring_product", view=name_a, K=K, m=m,
+               operands_strided=not a["s"].is_contiguous(), run_s=run_s,
+               kernel_ms=time_ms(lambda: ops.ring_mul(*args), reps=10),
+               launches=launches, errors=errors)
+    log(out)
+    check_within("ring product path", errors, dict.fromkeys(errors, RTOL))
+    return out
+
+
+#: path C: the matrix chain A1·A2·A3 at n = 8192 and 16 rank-1 updates
+#: (the largest rank of benchmarks/bench_matrix_chain.py)
+CHAIN_N, CHAIN_UPDATES = 8192, 16
+
+
+def chain_path(kernels) -> dict:
+    """Path C, rank-1 matrix-chain deltas (paper Example 7.1): V = A1 A2 A3
+    in float32 (``torch.matmul``, outside any kernel, as the reference
+    leaves it to XLA), then 16 updates δA2 = u vᵀ through
+    ``ops.rank1_chain_update``.  V is held to float64 A1 (A2 + Σ u vᵀ) A3
+    within RTOL of its largest magnitude, and the change V - V0 to the
+    float64 Σ (A1 u)(vᵀ A3) within RTOL of its own.  Beside it, the float32
+    dense recompute A1 (u vᵀ) A3 that a factorized update avoids."""
+    import torch
+    from repro_torch.kernels import ops
+
+    n, r = CHAIN_N, CHAIN_UPDATES
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    A1, A2, A3 = (torch.randn((n, n), generator=gen, device="cuda") for _ in range(3))
+    U = torch.randn((r, n), generator=gen, device="cuda")
+    W = torch.randn((r, n), generator=gen, device="cuda")
+    V0 = A1 @ A2 @ A3
+    V = V0
+    torch.cuda.synchronize()
+    reset(kernels)
+    t0 = time.perf_counter()
+    for i in range(r):
+        V = ops.rank1_chain_update(A1, U[i], W[i], A3, V)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches("chain path", kernels,
+                             {"matvec": 2 * r, "outer_accumulate": r})
+    update_ms = time_ms(lambda: ops.rank1_chain_update(A1, U[0], W[0], A3, V),
+                        reps=20)
+    dense_ms = time_ms(lambda: A1 @ torch.outer(U[0], W[0]) @ A3, reps=3, warmup=1)
+    # float64 oracles, one product at a time to bound memory
+    A1d, A3d = A1.double(), A3.double()
+    delta64 = (A1d @ U.double().T) @ (W.double() @ A3d)
+    delta_err = rel_err(V.double() - V0.double(), delta64)
+    del delta64
+    mid = A2.double() + U.double().T @ W.double()
+    V64 = (A1d @ mid) @ A3d
+    del mid, A1d, A3d
+    errors = dict(V=rel_err(V, V64), delta=delta_err)
+    del V64
+    # bytes: A1 and A3 read once, V read and the new V written
+    bms, by = bound_ms(4 * (4 * n * n + 4 * n), 2 * 2 * n * n + 2 * n * n)
+    out = dict(path="matrix_chain", n=n, updates=r, run_s=run_s,
+               us_per_update=1e6 * run_s / r, update_ms=update_ms,
+               update_bound_ms=bms, update_bound_by=by,
+               dense_recompute_ms=dense_ms, launches=launches, errors=errors)
+    log(out)
+    check_within("chain path", errors, dict.fromkeys(errors, RTOL))
+    del A1, A2, A3, V, V0, U, W
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -540,7 +910,10 @@ def main() -> int:
     from repro_torch.core.rings import DegreeMRing
     from repro_torch.data import synth
     from repro_torch.kernels import _cuda
+    from repro_torch.kernels.cofactor_update import COFACTOR_UPDATE
+    from repro_torch.kernels.rank1_chain import MATVEC, OUTER_ACCUMULATE
     from repro_torch.kernels.ring_fused import FUSED_CHAIN
+    from repro_torch.kernels.ring_mul import RING_MUL
     from repro_torch.kernels.ring_scatter import (GATHER_MUL_SCATTER, SCATTER_ADD,
                                                   SCATTER_DEDUP)
     from repro_torch.kernels.segment_ring_sum import SEGMENT_RING_SUM
@@ -557,7 +930,7 @@ def main() -> int:
     log(smi.splitlines()[0])
 
     kernels = [SCATTER_ADD, SEGMENT_RING_SUM, GATHER_MUL_SCATTER, SCATTER_DEDUP,
-               FUSED_CHAIN]
+               FUSED_CHAIN, COFACTOR_UPDATE, RING_MUL, MATVEC, OUTER_ACCUMULATE]
     build_s = _cuda.build_all(kernels)
     log({"build_s": build_s, "libraries": [k.library_path().name for k in kernels]})
     for k in kernels:
@@ -603,14 +976,24 @@ def main() -> int:
         raise AssertionError(f"unexpected cofactor ring {cq.ring.name}")
     rng = np.random.default_rng(SEED)
     db = synth.synth_db(rels, doms, cq.ring, rng, device="cuda")
+    kept: list = []  # the largest view of each cofactor engine, for path B
     streams.append(stream_phase("retailer_cofactor_m10", cq, cq64, db, doms,
                                 rng, kernels,
-                                ("scatter_add", "segment_ring_sum")))
+                                ("scatter_add", "segment_ring_sum"), keep=kept))
     streams.append(stream_phase("retailer_cofactor_m10_fused", cq, cq64, db,
                                 doms, np.random.default_rng(SEED + 1), kernels,
-                                ("fused_chain",), fusion="auto"))
+                                ("fused_chain",), fusion="auto", keep=kept))
     del db
-    launched = {k.name: sum(st["launches"][k.name] for st in streams)
+    torch.cuda.empty_cache()
+
+    # the kernel-ops layer: the ring product on engine state (B), streaming
+    # statistics (A) and rank-1 matrix-chain deltas (C)
+    paths = [ring_product_path(kept, kernels)]
+    del kept
+    torch.cuda.empty_cache()
+    paths.append(stats_path(kernels))
+    paths.append(chain_path(kernels))
+    launched = {k.name: sum(run["launches"][k.name] for run in streams + paths)
                 for k in kernels}
     if not all(launched.values()):
         raise AssertionError(f"a kernel launched on no path: {launched}")
@@ -631,6 +1014,18 @@ def main() -> int:
         "fused_chain": ("src/repro_torch/kernels/csrc/fused_chain.cu",
                         "src/repro/kernels/ring_fused.py:191",
                         dict(S=96, Sg=[9216, 96], d=111, B=BATCH)),
+        "cofactor_update": ("src/repro_torch/kernels/csrc/cofactor_update.cu",
+                            "src/repro/kernels/cofactor_update.py:59",
+                            dict(B=STATS_B, m=STATS_M)),
+        "ring_mul": ("src/repro_torch/kernels/csrc/ring_mul.cu",
+                     "src/repro/kernels/ring_mul.py:52",
+                     dict(K=1_179_648, m=10)),
+        "matvec": ("src/repro_torch/kernels/csrc/matvec.cu",
+                   "src/repro/kernels/rank1_chain.py:37",
+                   dict(n=CHAIN_N, variant="rows")),
+        "outer_accumulate": ("src/repro_torch/kernels/csrc/outer_accumulate.cu",
+                             "src/repro/kernels/rank1_chain.py:66",
+                             dict(n=CHAIN_N)),
     }
     summary = []
     for name, (source, replaces, shape) in sources.items():

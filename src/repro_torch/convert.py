@@ -46,3 +46,19 @@ def state_to_numpy(engine) -> dict:
         "views": {n: host_payload(v.payload) for n, v in engine.views.items()},
         "base": {n: host_payload(v.payload) for n, v in engine.base.items()},
     }
+
+
+def running_cofactor_from_numpy(c, s, Q, device="cuda"):
+    """A ``data.stats.RunningCofactor`` on ``device`` from numpy (c, s, Q),
+    each keeping its dtype (c may be 0-d or of shape [1])."""
+    from .data.stats import RunningCofactor
+
+    dev = resolve_device(device)
+    return RunningCofactor(torch.tensor(np.asarray(c), device=dev).reshape(()),
+                           torch.tensor(np.asarray(s), device=dev),
+                           torch.tensor(np.asarray(Q), device=dev))
+
+
+def running_cofactor_to_numpy(stats) -> tuple:
+    """(c, s, Q) of a ``RunningCofactor`` as numpy arrays on the host."""
+    return tuple(t.detach().cpu().numpy() for t in (stats.c, stats.s, stats.Q))

@@ -104,7 +104,11 @@ class CudaKernel:
 def build_all(kernels) -> float:
     """Build every kernel whose library is missing, all ``nvcc`` processes
     at once; returns the seconds taken.  Raises with the compiler's output
-    when a build fails."""
+    when a build fails, and before any build when two kernels share a
+    source (their builds would write one temporary file)."""
+    sources = [k.source for k in kernels]
+    if len(set(sources)) != len(sources):
+        raise ValueError(f"kernels share a source: {sorted(sources)}")
     t0 = time.perf_counter()
     jobs = [(k, job) for k in kernels if (job := k.start_build()) is not None]
     failures = []

@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the ⊎ kernels (the ground truth in tests).
+"""Plain PyTorch versions of the port's kernels (the ground truth in tests).
 
-Each is the function its CUDA kernel computes, built on ``index_add_``.
-The kernel wrappers (``ring_scatter``, ``segment_ring_sum``) take these for
-tensors on the CPU; on the card they are what the kernels are held against.
-Rows whose id is < 0 or >= S drop.
+The ⊎ kernels (``ring_scatter``, ``segment_ring_sum``) are built on
+``index_add_``; rows whose id is < 0 or >= S drop.  The kernel-ops layer
+(``ops``: cofactor statistics, the degree-m product, the rank-1 chain) is
+plain tensor arithmetic.  Each wrapper takes its plain version for tensors
+on the CPU; on the card the kernels are held against these.
 """
 from __future__ import annotations
 
@@ -37,3 +38,49 @@ def gather_mul_scatter_ref(view: torch.Tensor, out_ids: torch.Tensor,
     rows = in_ids.clamp(0, src.shape[0] - 1).long()
     return scatter_add_ref(view, out_ids, src.index_select(0, rows)
                            * scale[:, None])
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of the kernel-ops layer (``kernels/ops.py``): cofactor
+# statistics, the batched degree-m product and the rank-1 chain pieces.
+# Inputs are cast to float32, as the reference's ``.astype(jnp.float32)``.
+# ---------------------------------------------------------------------------
+def cofactor_update_ref(x: torch.Tensor, w: torch.Tensor):
+    """(c, s, Q) = (Σw, Σ w·x, Xᵀ diag(w) X) of x [B, m], w [B] in float32;
+    c is a 0-d tensor, as the reference's."""
+    xf, wf = x.to(torch.float32), w.to(torch.float32)
+    xw = xf * wf[:, None]
+    return wf.sum(), xw.sum(dim=0), xw.T @ xf
+
+
+def ring_mul_ref(ca, sa, Qa, cb, sb, Qb):
+    """Degree-m ring product batched over K keys (Def. 7.2), in
+    ``Ring.mul``'s term order ``((cb·Qa + ca·Qb) + sa sbᵀ) + sb saᵀ``; the
+    outer products are elementwise products, so every term is rounded once
+    and the result is independent of how the device would contract it."""
+    ca, sa, Qa, cb, sb, Qb = (t.to(torch.float32) for t in (ca, sa, Qa, cb, sb, Qb))
+    c = ca * cb
+    s = cb[:, None] * sa + ca[:, None] * sb
+    Q = (cb[:, None, None] * Qa + ca[:, None, None] * Qb
+         + sa[:, :, None] * sb[:, None, :] + sb[:, :, None] * sa[:, None, :])
+    return c, s, Q
+
+
+def matvec_ref(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = A x in float32; A [n, k] (any strides), x [k]."""
+    return A.to(torch.float32) @ x.to(torch.float32)
+
+
+def outer_accumulate_ref(V: torch.Tensor, u: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """V + u vᵀ into a new float32 tensor (one multiply, then one add)."""
+    return V.to(torch.float32) + torch.outer(u.to(torch.float32),
+                                             v.to(torch.float32))
+
+
+def rank1_chain_ref(A1, u, v, A3, V) -> torch.Tensor:
+    """V + (A1 u)(vᵀ A3): the factorized delta of the chain A1·δA2·A3 with
+    δA2 = u vᵀ (Example 7.1); nothing bigger than V is formed."""
+    u2 = matvec_ref(A1, u)
+    v2 = v.to(torch.float32) @ A3.to(torch.float32)
+    return outer_accumulate_ref(V, u2, v2)

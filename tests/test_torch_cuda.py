@@ -199,3 +199,123 @@ def test_cuda_fused_chain_matches_plain(cuda_device, spec, n_src, S):
                                        spec)
     assert ring_fused.FUSED_CHAIN.launches == n + 1
     assert torch.equal(plain, want)
+
+
+# ---------------------------------------------------------------------------
+# The kernel-ops layer: cofactor_update, ring_mul, matvec, outer_accumulate
+# ---------------------------------------------------------------------------
+def _on(dev, *arrays):
+    return [torch.tensor(a, device=dev) for a in arrays]
+
+
+@pytest.mark.parametrize("B,m", [(1, 1), (33, 130), (4096, 32), (70001, 7), (0, 5)])
+def test_cuda_cofactor_update_matches_plain(cuda_device, B, m):
+    from repro_torch.kernels import cofactor_update as tcof
+
+    rng = np.random.default_rng(B + m)
+    x, w = _on(cuda_device, _ints(rng, (B, m)), _ints(rng, (B,), -1, 2))
+    n = tcof.COFACTOR_UPDATE.launches
+    got = tcof.cofactor_update(x, w)
+    assert tcof.COFACTOR_UPDATE.launches == n + 1
+    c, s, Q = ref.cofactor_update_ref(x, w)
+    for g, want in zip(got, (c.reshape(1), s, Q)):
+        assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("B,m", [(65_536, 32), (4099, 130)])
+def test_cuda_cofactor_update_is_full_float32(cuda_device, B, m):
+    """One entry of each column is an odd integer of 12 significant bits,
+    which TF32 or bf16 would round; every sum stays below 2**24, so the
+    float32 statistics are exact and equal the float64 ones."""
+    from repro_torch.kernels import cofactor_update as tcof
+
+    rng = np.random.default_rng(B * m)
+    x, w = _ints(rng, (B, m)), _ints(rng, (B,), -1, 2)
+    rows = np.arange(m) * (B // m)
+    x[rows, np.arange(m)] = (rng.integers(1024, 1501, size=m) * 2 + 1) * \
+        rng.choice([-1, 1], size=m)
+    w[rows] = 1.0
+    x64, w64 = x.astype(np.float64), w.astype(np.float64)
+    got = tcof.cofactor_update(*_on(cuda_device, x, w))
+    want = (w64.sum(keepdims=True), w64 @ x64, (x64 * w64[:, None]).T @ x64)
+    for g, r in zip(got, want):
+        assert np.array_equal(g.cpu().numpy().astype(np.float64), r)
+
+
+@pytest.mark.parametrize("kind", ["ints", "normal"])
+@pytest.mark.parametrize("K,m", [(1, 1), (9, 33), (1000, 10)])
+def test_cuda_ring_mul_matches_plain_and_ring_mul(cuda_device, K, m, kind):
+    """Bitwise on any data, also on the column slices of payload planes."""
+    from repro_torch.core.rings import DegreeMRing
+    from repro_torch.kernels import ring_mul as tring_mul
+
+    rng = np.random.default_rng(K + m)
+    d = 1 + m + m * m
+    mk = (lambda s: _ints(rng, s)) if kind == "ints" else (
+        lambda s: rng.standard_normal(s).astype(np.float32))
+    planes = _on(cuda_device, mk((K, d)), mk((K, d)))
+    ops_ = [(p[:, 0], p[:, 1:1 + m], p[:, 1 + m:].reshape(K, m, m)) for p in planes]
+    n = tring_mul.RING_MUL.launches
+    got = tring_mul.ring_mul(*ops_[0], *ops_[1])
+    assert tring_mul.RING_MUL.launches == n + 1
+    contiguous = [t.contiguous() for o in ops_ for t in o]
+    for g, want in zip(got, ref.ring_mul_ref(*contiguous)):
+        assert torch.equal(g, want)
+    a, b = ({"c": o[0], "s": o[1], "Q": o[2]} for o in ops_)
+    prod = DegreeMRing(m).mul(a, b)
+    for g, comp in zip(got, ("c", "s", "Q")):
+        assert torch.equal(g, prod[comp])
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (130, 70), (1001, 333), (1024, 1024)])
+def test_cuda_matvec_matches_plain_both_layouts(cuda_device, n, k):
+    from repro_torch.kernels import rank1_chain
+
+    rng = np.random.default_rng(n + k)
+    A, x = _on(cuda_device, _ints(rng, (n, k)), _ints(rng, (k,)))
+    want = ref.matvec_ref(A, x)
+    At = A.T.contiguous().T  # the same matrix, column-major
+    before = rank1_chain.MATVEC.launches
+    for layout in (A, At):
+        assert torch.equal(rank1_chain.matvec(layout, x), want)
+    assert rank1_chain.MATVEC.launches == before + 2
+
+
+@pytest.mark.parametrize("kind", ["ints", "normal"])
+@pytest.mark.parametrize("n,m", [(1, 1), (7, 130), (1024, 1024), (333, 1001)])
+def test_cuda_outer_accumulate_matches_plain(cuda_device, n, m, kind):
+    from repro_torch.kernels import rank1_chain
+
+    rng = np.random.default_rng(n * m)
+    mk = (lambda s: _ints(rng, s)) if kind == "ints" else (
+        lambda s: rng.standard_normal(s).astype(np.float32))
+    V, u, v = _on(cuda_device, mk((n, m)), mk((n,)), mk((m,)))
+    got = rank1_chain.outer_accumulate(V, u, v)
+    assert torch.equal(got, ref.outer_accumulate_ref(V, u, v))
+    assert torch.equal(got, V + torch.outer(u, v))
+
+
+def test_cuda_rank1_chain_update_and_running_cofactor(cuda_device):
+    """The ops layer and RunningCofactor on the card ≡ on the CPU."""
+    from repro_torch.data.stats import RunningCofactor
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(21)
+    arrays = [_ints(rng, s) for s in ((300, 300), (300,), (300,), (300, 300),
+                                      (300, 300))]
+    on_card = _on(cuda_device, *arrays)
+    got = ops.rank1_chain_update(*on_card)
+    assert torch.equal(got, ref.rank1_chain_ref(*on_card))
+    assert torch.equal(got.cpu(), ops.rank1_chain_update(*map(torch.tensor, arrays)))
+    batches = [_ints(np.random.default_rng(i), (500, 9)) for i in range(3)]
+    states = []
+    for dev in ("cpu", cuda_device):
+        st = RunningCofactor.init(9, device=dev)
+        for x in batches:
+            st = st.update(torch.tensor(x, device=dev))
+        st = st.update(torch.tensor(batches[-1], device=dev),
+                       weights=-torch.ones(500, device=dev))
+        states.append(st)
+    cpu, gpu = states
+    for a, b in ((cpu.c, gpu.c), (cpu.s, gpu.s), (cpu.Q, gpu.Q)):
+        assert torch.equal(a, b.cpu())
