@@ -8,15 +8,16 @@ Run from the repository root with one card visible:
 Phases (any failed check raises, and the script exits non-zero):
 
 1. Device: the card's name and power limit from nvidia-smi, then a build of
-   all nine CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   all ten CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together).
 2. Kernels: each kernel against its plain PyTorch version on integer-valued
    float32 at the shapes the main path gives it (bitwise; ``cofactor_update``
    and ``matvec`` also with values of 12 significant bits, which a product
    in TF32 or bf16 would round; ``ring_mul`` and ``outer_accumulate`` also on
-   normal data), timed with CUDA events and
-   the profiler beside its plain version, a one-call PyTorch yardstick
-   (``library_ms``, never used by the port) and its bound.
+   normal data; ``flash_attention`` in bf16 and float32 against its plain
+   version in float64), timed with CUDA events and the profiler beside its
+   plain version, a one-call PyTorch yardstick (``library_ms``, never used
+   by the port) and its bound.
 3. Paths, each through ``IVMEngine.apply_update`` (fivm, dense) at
    ``RETAILER_DOMS_BIG`` with batches of 1000 tuples, checked against a
    float64 re-evaluation, with every kernel's launch count reset before
@@ -38,6 +39,13 @@ Phases (any failed check raises, and the script exits non-zero):
    - C, rank-1 matrix-chain deltas: 16 ``ops.rank1_chain_update`` calls on
      V = A1 A2 A3 at n = 8192 against float64 (``matvec``,
      ``outer_accumulate``).
+5. Path D, LM serving: llama3.2-1b at full width and depth, weights drawn
+   from a seeded ``torch.Generator`` on the card, 4 prompts of 1024 tokens
+   (``flash_attention`` in every prefill layer).  (i) In float32, the
+   prefill and two decode steps against a float64 forward written here;
+   (ii) in bf16, ``Server.generate`` of 32 tokens, timed, with the first
+   decode step held to a bf16 prefill over the extended prompt and the
+   decode loop profiled.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel with its numbers.  Imports nothing of JAX or the JAX package.
@@ -56,6 +64,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 BATCH = 1000
 N_BATCHES = 20
 SEED = 0
@@ -108,6 +117,21 @@ def device_events(fn, calls: int):
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA], wall
 
 
+def _busy(events, wall) -> dict:
+    """Device busy time against host wall time (the device's idle share),
+    device events and the heaviest kernels of a profiled run."""
+    by_name: dict = {}
+    for e in events:
+        tot, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy_ms = sum(t for t, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(wall_ms=1e3 * wall, device_busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / (1e3 * wall),
+                device_events=sum(n for _, n in by_name.values()),
+                top=[[name[:90], ms, n] for name, (ms, n) in top])
+
+
 def kernel_device_ms(fn, kernel: str, calls: int = 20):
     """Mean device time of the CUDA kernel named ``kernel`` per call of
     ``fn`` (the kernel alone, without launch gaps); None when the profiler
@@ -119,8 +143,9 @@ def kernel_device_ms(fn, kernel: str, calls: int = 20):
     return sum(e.time_range.elapsed_us() for e in mine) / 1e3 / calls
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound_ms(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S
+             ) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -260,6 +285,8 @@ def kernel_phase(rng) -> dict:
     fused_chain_rows(rng, rows["fused_chain"])
     rows.update(cofactor_update=[], ring_mul=[], matvec=[], outer_accumulate=[])
     ops_kernel_rows(rng, rows)
+    rows["flash_attention"] = []
+    flash_attention_rows(rng, rows["flash_attention"])
     return rows
 
 
@@ -404,6 +431,64 @@ def ops_kernel_rows(rng, rows: dict) -> None:
         rows["outer_accumulate"].append(row)
         log({"kernel": "outer_accumulate", **row})
         del A, V, got
+
+
+#: flash_attention checks (B, H, Hkv, T, D): the LM path's own prefill shape
+#: (llama3.2-1b, 4 prompts of 1024 tokens), an unaligned T at the widest
+#: head dim, and a small GQA shape of the reference's kernel tests
+FLASH_SHAPES = ((4, 32, 8, 1024, 64), (1, 4, 1, 1000, 128), (2, 4, 2, 64, 16))
+#: float32 kernel against float64: within this share of the largest output
+#: (the float32 scores, exp and sums of T terms round at ~6e-8 each)
+FLASH_F32_RTOL = 1e-5
+
+
+def flash_attention_rows(rng, out: list) -> None:
+    """``flash_attention`` (causal) at FLASH_SHAPES in bf16 and float32, each
+    against the plain version in float64 on the same inputs.  float32:
+    within FLASH_F32_RTOL of the largest output.  bf16: the kernel computes
+    in float32 from exact bf16 inputs and rounds once to bf16 (half an ulp,
+    at most 2⁻⁹ of the value), so every element is within 2⁻⁸·|ref| +
+    1e-6·max|ref| of the float64 result."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    for B, H, Hkv, T, D in FLASH_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            q = normal(rng, (B, H, T, D)).to(dt)
+            k, v = (normal(rng, (B, Hkv, T, D)).to(dt) for _ in range(2))
+            got = flash_attention(q, k, v)
+            want = ref.flash_attention_ref(q.double(), k.double(), v.double())
+            err = (got.double() - want).abs()
+            scale = float(want.abs().max())
+            label = f"flash_attention {(B, H, Hkv, T, D)} {dt}"
+            if dt == torch.float32:
+                if not float(err.max()) <= FLASH_F32_RTOL * scale:
+                    raise AssertionError(f"{label}: max abs err {float(err.max())} "
+                                         f"> {FLASH_F32_RTOL} x {scale}")
+            elif not bool((err <= 2.0 ** -8 * want.abs() + 1e-6 * scale).all()):
+                raise AssertionError(f"{label}: beyond one bf16 rounding of the "
+                                     f"float64 result (max abs err {float(err.max())})")
+            del want
+            # q, k, v read once and o written once; the causal half of QKᵀ
+            # and PV, 2·B·H·T²·D flops, at the dtype's peak rate
+            bms, by = bound_ms(q.element_size() * (2 * B * H * T * D + 2 * B * Hkv * T * D),
+                               2 * B * H * T * T * D,
+                               BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S)
+            row = dict(
+                shape=dict(B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=str(dt).split(".")[1]),
+                max_abs_err=float(err.max()), rel_err=float(err.max()) / scale,
+                kernel_ms=time_ms(lambda: flash_attention(q, k, v)),
+                device_ms=kernel_device_ms(lambda: flash_attention(q, k, v),
+                                           "flash_attention_kernel"),
+                plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=10),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)),
+                bound_ms=bms, bound_by=by)
+            out.append(row)
+            log({"kernel": "flash_attention", **row})
+            del q, k, v, got, err
 
 
 def scatter_dedup_rows(rng, out: list) -> None:
@@ -682,19 +767,9 @@ def profile_stream(query, db, stream, batch, device) -> dict:
     def step():
         eng.apply_update(*next(updates))
 
-    events, wall = device_events(step, len(stream))
-    by_name: dict = {}
-    for e in events:
-        tot, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (tot + e.time_range.elapsed_us() / 1e3, n + 1)
-    busy_ms = sum(t for t, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    n_events = sum(n for _, n in by_name.values())
-    return dict(wall_ms=1e3 * wall, device_busy_ms=busy_ms,
-                idle_share=1.0 - busy_ms / (1e3 * wall),
-                device_events=n_events,
-                device_events_per_batch=n_events / len(stream),
-                top=[[name[:90], ms, n] for name, (ms, n) in top])
+    out = _busy(*device_events(step, len(stream)))
+    out["device_events_per_batch"] = out["device_events"] / len(stream)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -899,6 +974,181 @@ def chain_path(kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: path D, LM serving
+# ---------------------------------------------------------------------------
+#: llama3.2-1b at full width and depth: 4 prompts of 1024 tokens, 32 new
+#: tokens into a cache of 1056
+LM_ARCH, LM_B, LM_T, LM_NEW = "llama3_2_1b", 4, 1024, 32
+#: float32 logits against the float64 forward, of their largest magnitude:
+#: float32 rounds at ~6e-8 per operation and the deepest sums are 8192
+#: terms, so a correct forward stays near 1e-6; a wrong mask, RoPE pairing
+#: or head grouping moves the logits by far more than 1e-4
+LM_F32_RTOL = 1e-4
+#: bf16 first decode step against a bf16 prefill over the extended prompt,
+#: of the largest logit.  The two round in different places (decode rounds
+#: the softmax probabilities to bf16, the flash kernel keeps them in float32;
+#: GEMMs of 4 and 4100 rows), each activation to 2⁻⁹ of its value per
+#: rounding, through 16 layers.  Measured 3.5e-3 on an H100; the limit is
+#: 2⁻⁶ (1.6e-2), while a decode that reads a wrong slot or position moves
+#: the logits by a large share of their magnitude
+LM_BF16_RTOL = 2.0 ** -6
+
+
+def lm_oracle_logits(cfg, params, tokens, n_last: int):
+    """Float64 logits [B, n_last, Vp] at the last ``n_last`` positions of
+    tokens [B, S]: a plain forward over the port's state dict (embedding,
+    RMSNorm, interleaved RoPE with the model's float32 angles, masked
+    softmax attention with the KV heads repeated, SwiGLU, tied logits), one
+    prompt at a time so that a layer's scores stay [H, S, S]."""
+    import torch
+    import torch.nn.functional as F
+
+    if cfg.qkv_bias or not cfg.tie_embeddings:
+        raise ValueError(f"the oracle covers untied-bias-free llama configs, not {cfg.name}")
+    sd = {n: t.double() for n, t in params.state_dict().items()}
+    S, hd, G = tokens.shape[1], cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    freqs = 1.0 / cfg.rope_theta ** (
+        torch.arange(0, hd, 2, dtype=torch.float32, device="cuda") / hd)
+    ang = (torch.arange(S, dtype=torch.float32, device="cuda")[:, None] * freqs).double()
+    cos, sin = ang.cos()[:, None], ang.sin()[:, None]            # [S, 1, hd/2]
+    mask = torch.ones((S, S), dtype=torch.bool, device="cuda").tril()
+
+    def norm(x, g):
+        return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + cfg.rms_eps) * g
+
+    def rope(x):  # [S, heads, hd]: pairs (2i, 2i + 1) rotate
+        x1, x2 = x[..., 0::2], x[..., 1::2]
+        return torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1).flatten(-2)
+
+    out = []
+    for b in range(tokens.shape[0]):
+        x = sd["embed"][tokens[b]]                                  # [S, d]
+        for i in range(cfg.n_layers):
+            w = {n[len(f"layers.{i}."):]: t for n, t in sd.items()
+                 if n.startswith(f"layers.{i}.")}
+            h = norm(x, w["ln1"])
+            q = rope(torch.einsum("sd,dhk->shk", h, w["attn.wq"]))
+            k = rope(torch.einsum("sd,dhk->shk", h, w["attn.wk"])).repeat_interleave(G, 1)
+            v = torch.einsum("sd,dhk->shk", h, w["attn.wv"]).repeat_interleave(G, 1)
+            a = (torch.einsum("qhk,thk->hqt", q, k) / math.sqrt(hd)).masked_fill(
+                ~mask, float("-inf")).softmax(-1)
+            o = torch.einsum("hqt,thk->qhk", a, v)
+            x = x + torch.einsum("qhk,hkd->qd", o, w["attn.wo"])
+            h = norm(x, w["ln2"])
+            x = x + (F.silu(h @ w["mlp.w_gate"]) * (h @ w["mlp.w_up"])) @ w["mlp.w_down"]
+        out.append(norm(x[-n_last:], sd["final_norm"]) @ sd["embed"].T)
+    return torch.stack(out)
+
+
+def lm_serve_path(kernels) -> dict:
+    """Path D, LM serving on llama3.2-1b at full width and depth, weights
+    from ``torch.Generator`` seed 0 on the card, prompts drawn with numpy
+    seed 0.  (i) float32 (the same config with float32 parameters and
+    activations): prefill and two decode steps, each fed the argmax token,
+    against ``lm_oracle_logits`` over the extended sequence (causal, so
+    position T - 1 + i of one forward is the i-th step's logits), within
+    LM_F32_RTOL.  (ii) bf16: ``Server.generate`` of LM_NEW tokens after a
+    short warm-up, timed; the flash kernel must launch once per layer; then
+    the first decode step against a bf16 prefill over the extended prompt
+    (finite, within LM_BF16_RTOL), and the device's share of busy time over
+    16 decode steps and one prefill under the profiler."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import registry
+    from repro_torch.serve_lm import Server
+
+    cfg = get_config(LM_ARCH)
+    n_layers = cfg.n_layers
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_B, LM_T)).astype(np.int32)
+    prompt_t = torch.as_tensor(prompts, device="cuda").long()
+
+    # (i) float32 against the float64 forward
+    cfg32 = dataclasses.replace(cfg, act_dtype="float32", param_dtype="float32")
+    api = registry.build(cfg32)
+    with torch.inference_mode():
+        params = api.init(seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        reset(kernels)
+        logits, cache = api.prefill(params, {"tokens": prompts}, cache_len=LM_T + 2)
+        steps, toks = [logits], [logits.argmax(-1)]
+        for i in range(2):
+            logits, cache = api.decode_step(params, toks[-1], LM_T + i, cache)
+            steps.append(logits)
+            toks.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        launches_f32 = read_launches("lm float32 path", kernels,
+                                     {"flash_attention": n_layers})
+        seq = torch.cat([prompt_t, toks[0][:, None], toks[1][:, None]], dim=1)
+        want = lm_oracle_logits(cfg32, params, seq, n_last=3)
+        f32_errors = {name: rel_err(got, want[:, j]) for j, (name, got) in
+                      enumerate(zip(("prefill", "decode_1", "decode_2"), steps))}
+        del params, cache, want, steps
+    torch.cuda.empty_cache()
+    log({"path": "lm_serve_float32", "errors": f32_errors, "limit": LM_F32_RTOL,
+         "launches": launches_f32})
+    check_within("lm float32 path", f32_errors, dict.fromkeys(f32_errors, LM_F32_RTOL))
+
+    # (ii) bf16 through Server.generate
+    server = Server(cfg, cache_len=LM_T + LM_NEW, seed=SEED, device="cuda")
+    server.generate({"tokens": prompts[:, :64]}, 2)  # warm-up: handles, loads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    res = server.generate({"tokens": prompts}, LM_NEW)
+    launches = read_launches("lm serve path", kernels, {"flash_attention": n_layers})
+    peak = torch.cuda.max_memory_allocated()
+    api16, p16 = server.api, server.params
+    with torch.inference_mode():
+        logits0, cache = api16.prefill(p16, {"tokens": prompts}, cache_len=LM_T + LM_NEW)
+        tok = logits0.argmax(-1)
+        logits1, cache = api16.decode_step(p16, tok, LM_T, cache)
+        ref1, _ = api16.prefill(p16, {"tokens": torch.cat([prompt_t, tok[:, None]], 1)},
+                                cache_len=LM_T + LM_NEW)
+        finite = all(bool(torch.isfinite(t).all()) for t in (logits0, logits1, ref1))
+        bf16_err = rel_err(logits1, ref1)
+        first_tokens_equal = bool(np.array_equal(tok.cpu().numpy(), res.tokens[:, 0]))
+        state = {"tok": logits1.argmax(-1), "pos": LM_T + 1, "cache": cache}
+
+        def decode_step():
+            lg, state["cache"] = api16.decode_step(p16, state["tok"], state["pos"],
+                                                   state["cache"])
+            state["tok"] = lg.argmax(-1)
+            state["pos"] += 1
+
+        def prefill():
+            api16.prefill(p16, {"tokens": prompts}, cache_len=LM_T + LM_NEW)
+
+        profiles = {name: _busy(*device_events(fn, calls))
+                    for name, fn, calls in (("decode", decode_step, 16),
+                                            ("prefill", prefill, 1))}
+        del cache, state
+    out = dict(
+        path="lm_serve", arch=cfg.name, n_params=server.api.n_params(), batch=LM_B,
+        prompt_len=LM_T, new_tokens=LM_NEW, cache_len=LM_T + LM_NEW,
+        prefill_ms=1e3 * res.prefill_s,
+        decode_ms_per_step=1e3 * res.decode_s / (LM_NEW - 1),
+        decode_tokens_per_s=LM_B * (LM_NEW - 1) / res.decode_s,
+        generate_tokens_per_s=res.tokens_per_s,
+        launches=launches, launches_float32=launches_f32,
+        max_memory_allocated=peak, float32_errors=f32_errors,
+        bf16_decode_vs_prefill=bf16_err, bf16_limit=LM_BF16_RTOL,
+        logits_finite=finite, first_tokens_equal=first_tokens_equal,
+        profile=profiles)
+    log(out)
+    check_within("lm bf16 path", {"decode_vs_prefill": bf16_err},
+                 {"decode_vs_prefill": LM_BF16_RTOL})
+    if not finite or not first_tokens_equal:
+        raise AssertionError(f"lm bf16 path: finite {finite}, "
+                             f"first tokens equal {first_tokens_equal}")
+    del server
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -911,6 +1161,7 @@ def main() -> int:
     from repro_torch.data import synth
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.cofactor_update import COFACTOR_UPDATE
+    from repro_torch.kernels.flash_attention import FLASH_ATTENTION
     from repro_torch.kernels.rank1_chain import MATVEC, OUTER_ACCUMULATE
     from repro_torch.kernels.ring_fused import FUSED_CHAIN
     from repro_torch.kernels.ring_mul import RING_MUL
@@ -930,7 +1181,8 @@ def main() -> int:
     log(smi.splitlines()[0])
 
     kernels = [SCATTER_ADD, SEGMENT_RING_SUM, GATHER_MUL_SCATTER, SCATTER_DEDUP,
-               FUSED_CHAIN, COFACTOR_UPDATE, RING_MUL, MATVEC, OUTER_ACCUMULATE]
+               FUSED_CHAIN, COFACTOR_UPDATE, RING_MUL, MATVEC, OUTER_ACCUMULATE,
+               FLASH_ATTENTION]
     build_s = _cuda.build_all(kernels)
     log({"build_s": build_s, "libraries": [k.library_path().name for k in kernels]})
     for k in kernels:
@@ -993,6 +1245,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.append(stats_path(kernels))
     paths.append(chain_path(kernels))
+    torch.cuda.empty_cache()
+    # the LM scaffold's serving path: flash_attention in every prefill layer
+    paths.append(lm_serve_path(kernels))
     launched = {k.name: sum(run["launches"][k.name] for run in streams + paths)
                 for k in kernels}
     if not all(launched.values()):
@@ -1026,6 +1281,9 @@ def main() -> int:
         "outer_accumulate": ("src/repro_torch/kernels/csrc/outer_accumulate.cu",
                              "src/repro/kernels/rank1_chain.py:66",
                              dict(n=CHAIN_N)),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:69",
+                            dict(B=LM_B, H=32, Hkv=8, T=LM_T, D=64, dtype="bfloat16")),
     }
     summary = []
     for name, (source, replaces, shape) in sources.items():

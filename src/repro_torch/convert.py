@@ -4,7 +4,10 @@ The port and the reference meet in numpy: a test makes its inputs with
 numpy (or reads them out of the reference with ``np.asarray``) and builds
 both engines from the same arrays.
 
-``db_np`` is ``{relation: (schema, {component: np.ndarray})}``.
+``db_np`` is ``{relation: (schema, {component: np.ndarray})}``.  An LM's
+parameters cross as the reference's pytree: nested dicts of numpy arrays,
+block parameters stacked over layer periods (``"layers"/"sub0"/"attn"/"wq"``
+is [n_periods, d, H, hd]).
 """
 from __future__ import annotations
 
@@ -62,3 +65,36 @@ def running_cofactor_from_numpy(c, s, Q, device="cuda"):
 def running_cofactor_to_numpy(stats) -> tuple:
     """(c, s, Q) of a ``RunningCofactor`` as numpy arrays on the host."""
     return tuple(t.detach().cpu().numpy() for t in (stats.c, stats.s, stats.Q))
+
+
+def _tensor_from_numpy(arr, device) -> torch.Tensor:
+    """A tensor on ``device`` with the array's dtype; bfloat16 arrays (which
+    numpy holds as an extension dtype) go through float32, exactly."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32), device=device).to(torch.bfloat16)
+    return torch.tensor(arr, device=device)
+
+
+def lm_params_from_numpy(cfg, tree: Mapping, device="cuda"):
+    """The port's parameter module (``models.layers.Params``) on ``device``
+    from the reference's parameter pytree with numpy (or array-like) leaves;
+    each leaf keeps its dtype."""
+    from .models import layers, lm
+
+    dev = resolve_device(device)
+    return lm.params_from_tree(
+        cfg, layers.map_tree(lambda a: _tensor_from_numpy(a, dev), tree))
+
+
+def lm_params_to_numpy(cfg, params) -> dict:
+    """The reference's parameter pytree (numpy leaves, block parameters
+    stacked over periods) of the port's parameter module; bfloat16 leaves
+    come back as float32 (exact), numpy having no bfloat16."""
+    from .models import layers, lm
+
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return layers.map_tree(host, lm.params_to_tree(cfg, params))

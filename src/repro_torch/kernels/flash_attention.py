@@ -1,0 +1,60 @@
+"""Causal flash attention on the card.
+
+Wrapper for ``csrc/flash_attention.cu``, the Hopper counterpart of
+``repro/kernels/flash_attention.py::flash_attention``: online-softmax
+attention of q [B, H, T, D] over k, v [B, Hkv, Tk, D], with scale 1/√D,
+masked scores at -1e30, running max, denominator and accumulator in
+float32, the denominator floored at 1e-30 and one rounding of the output
+to q's dtype (float32 or bfloat16; D ∈ {8, 16, 32, 64, 128}).  GQA is by
+index: q-head h reads kv-head h // (H / Hkv), so K and V are never
+repeated in memory.  Any T works; causal attention needs T == Tk (query i
+sees keys 0..i).  A CPU tensor takes the plain version (``ref``), cast to
+q's dtype; any other dtype or device raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from ._cuda import I32, PTR, CudaKernel, on_card, stream_handle
+
+FLASH_ATTENTION = CudaKernel("flash_attention.cu", "repro_flash_attention",
+                             [PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32, I32,
+                              I32, I32])
+
+#: head dims the kernel is compiled for
+HEAD_DIMS = (8, 16, 32, 64, 128)
+#: dtype codes of the C entry
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """q [B, H, T, D], k/v [B, Hkv, Tk, D] -> [B, H, T, D] in q's dtype."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"expected q [B,H,T,D], k and v [B,Hkv,Tk,D]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, T, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or H % Hkv:
+        raise ValueError(f"k and v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if causal and T != Tk:
+        raise ValueError(f"causal attention needs T == Tk, got {T} and {Tk}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} is not one of {HEAD_DIMS}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, q is "
+                             f"{q.dtype} on {q.device}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q has dtype {q.dtype}, expected float32 or bfloat16")
+    if not on_card(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal).to(q.dtype)
+    if B * H > 65535:
+        raise ValueError(f"B·H = {B * H} exceeds the grid's 65,535")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(q)
+    if o.numel():
+        FLASH_ATTENTION.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               o.data_ptr(), B, H, Hkv, T, Tk, D,
+                               DTYPES[q.dtype], int(causal), stream_handle(q))
+    return o

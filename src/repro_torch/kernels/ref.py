@@ -2,9 +2,9 @@
 
 The ⊎ kernels (``ring_scatter``, ``segment_ring_sum``) are built on
 ``index_add_``; rows whose id is < 0 or >= S drop.  The kernel-ops layer
-(``ops``: cofactor statistics, the degree-m product, the rank-1 chain) is
-plain tensor arithmetic.  Each wrapper takes its plain version for tensors
-on the CPU; on the card the kernels are held against these.
+(``ops``: cofactor statistics, the degree-m product, the rank-1 chain, flash
+attention) is plain tensor arithmetic.  Each wrapper takes its plain version
+for tensors on the CPU; on the card the kernels are held against these.
 """
 from __future__ import annotations
 
@@ -84,3 +84,24 @@ def rank1_chain_ref(A1, u, v, A3, V) -> torch.Tensor:
     u2 = matvec_ref(A1, u)
     v2 = v.to(torch.float32) @ A3.to(torch.float32)
     return outer_accumulate_ref(V, u2, v2)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, scale=None):
+    """Plain attention: q [B, H, T, D], k/v [B, Hkv, Tk, D] (KV heads are
+    repeated, q-head h reading kv-head h // (H / Hkv)) -> [B, H, T, D] in
+    float32, or in float64 for float64 inputs.  Scores are masked with -1e30
+    by the causal mask aligned at the last query (``tril(ones, Tk - T)``)."""
+    B, H, T, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    if Hkv != H:
+        k = k.repeat_interleave(H // Hkv, dim=1)
+        v = v.repeat_interleave(H // Hkv, dim=1)
+    if scale is None:  # computed in the working dtype, as the reference's
+        scale = 1.0 / torch.sqrt(torch.tensor(float(D), dtype=dt, device=q.device))
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(dt), k.to(dt)) * scale
+    if causal:
+        mask = torch.ones((T, Tk), dtype=torch.bool, device=q.device).tril(Tk - T)
+        logits = torch.where(mask, logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.to(dt))

@@ -1,0 +1,76 @@
+"""Transformer-block composition (port of ``repro.models.blocks``) for the
+dense GQA family: attention mixer + dense SwiGLU MLP, pre-norm residual.
+
+MoE, Mamba, mLSTM and sLSTM blocks and MLA attention raise
+``NotImplementedError`` (ROADMAP Queue 1 item 20).
+"""
+from __future__ import annotations
+
+from . import attention as attn
+from .layers import P, rms_norm, swiglu
+
+
+def _check_kind(cfg, kind: str) -> None:
+    if kind != "attn":
+        raise attn.unported(f"the {kind} block")
+    if cfg.attn_kind != "gqa":
+        raise attn.unported(f"{cfg.attn_kind} attention")
+
+
+def mlp_specs(cfg) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w_gate": P((d, f), ("embed", "mlp")),
+        "w_up": P((d, f), ("embed", "mlp")),
+        "w_down": P((f, d), ("mlp", "embed")),
+    }
+
+
+def block_specs(cfg, kind: str, idx_in_period: int) -> dict:
+    """Spec tree for one layer of the given kind."""
+    _check_kind(cfg, kind)
+    if cfg.is_moe_layer(idx_in_period):
+        raise attn.unported("the MoE MLP")
+    d = cfg.d_model
+    s: dict = {"ln1": P((d,), ("embed",), init="ones"), "attn": attn.gqa_specs(cfg)}
+    if cfg.d_ff:
+        s["ln2"] = P((d,), ("embed",), init="ones")
+        s["mlp"] = mlp_specs(cfg)
+    return s
+
+
+def apply_mlp_part(cfg, bp, x):
+    """Post-mixer MLP with pre-norm residual.  x [B,S,d] (or [B,d])."""
+    if "mlp" not in bp:
+        return x
+    h = rms_norm(x, bp["ln2"], cfg.rms_eps)
+    mlp = bp["mlp"]
+    return x + swiglu(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
+
+
+def apply_block(cfg, kind: str, bp, x, positions, *, return_kv=False):
+    """Full-sequence (causal) application.  Returns (x, {"k", "v"} or None)."""
+    _check_kind(cfg, kind)
+    h = rms_norm(x, bp["ln1"], cfg.rms_eps)
+    out = attn.gqa_forward(cfg, bp["attn"], h, positions, return_kv=return_kv)
+    new_state = None
+    if return_kv:
+        y, (k, v) = out
+        new_state = {"k": k, "v": v}
+    else:
+        y = out
+    return apply_mlp_part(cfg, bp, x + y), new_state
+
+
+def decode_block(cfg, kind: str, bp, x, pos: int, *, state):
+    """One-token decode.  x [B,d]; ``state`` (the layer's cache) is written
+    in place; returns (x, state)."""
+    _check_kind(cfg, kind)
+    h = rms_norm(x, bp["ln1"], cfg.rms_eps)
+    y, state = attn.gqa_decode(cfg, bp["attn"], h, state, pos)
+    return apply_mlp_part(cfg, bp, x + y), state
+
+
+def block_init_cache(cfg, kind: str, batch: int, seq: int, dtype, device="cuda"):
+    _check_kind(cfg, kind)
+    return attn.gqa_init_cache(cfg, batch, seq, dtype, device)

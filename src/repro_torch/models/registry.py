@@ -1,0 +1,70 @@
+"""Model registry (port of ``repro.models.registry``): one API over the
+architectures the port builds, the dense GQA family (llama3.2-1b,
+llama3.2-3b, qwen2-1.5b, granite-3-2b).
+
+``build(cfg)`` raises ``NotImplementedError`` for encoder-decoder, MoE, MLA,
+SSM, vision and hybrid configs, and ``ModelAPI.loss`` raises for every
+config: training is not ported yet (ROADMAP Queue 1 item 20).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..device import resolve_device
+from . import lm
+from .attention import UNPORTED
+from .layers import count_params
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    cfg: ArchConfig
+    specs: Any                     # param spec tree (P leaves), reference layout
+    init: Callable                 # (seed=0, device="cuda", dtype=None, generator=None) -> params
+    prefill: Callable              # (params, batch, cache_len=None) -> (logits, cache)
+    decode_step: Callable          # (params, token, pos, cache) -> (logits, cache)
+    init_cache: Callable           # (batch, seq, dtype, device="cuda") -> cache
+
+    def n_params(self) -> int:
+        return count_params(self.specs)
+
+    def loss(self, params, batch):
+        raise NotImplementedError(f"lm_loss and training are not ported yet ({UNPORTED})")
+
+
+def _unsupported(cfg: ArchConfig) -> str | None:
+    for what, yes in (("encoder-decoder", cfg.enc_dec), ("MoE", cfg.moe is not None),
+                      ("MLA", cfg.attn_kind == "mla"), ("SSM", cfg.ssm is not None),
+                      (f"{cfg.frontend} front-end", cfg.frontend is not None),
+                      ("hybrid", cfg.family == "hybrid")):
+        if yes:
+            return what
+    return None
+
+
+def build(cfg: ArchConfig) -> ModelAPI:
+    what = _unsupported(cfg)
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} models are not ported yet; the port builds the "
+            f"dense GQA family only ({UNPORTED})")
+    specs = lm.lm_specs(cfg)
+
+    def init(seed: int = 0, device="cuda", dtype=None, generator=None):
+        if generator is None:
+            generator = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        return lm.lm_init(cfg, generator, dtype)
+
+    return ModelAPI(
+        cfg=cfg,
+        specs=specs,
+        init=init,
+        prefill=lambda p, b, cache_len=None: lm.lm_prefill(cfg, p, b, cache_len),
+        decode_step=lambda p, t, pos, c: lm.lm_decode(cfg, p, t, pos, c),
+        init_cache=lambda batch, seq, dtype, device="cuda": lm.lm_init_cache(
+            cfg, batch, seq, dtype, resolve_device(device)),
+    )

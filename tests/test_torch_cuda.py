@@ -319,3 +319,74 @@ def test_cuda_rank1_chain_update_and_running_cofactor(cuda_device):
     cpu, gpu = states
     for a, b in ((cpu.c, gpu.c), (cpu.s, gpu.s), (cpu.Q, gpu.Q)):
         assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,T,D,causal", [
+    (1, 4, 1, 1000, 128, True), (2, 4, 2, 77, 16, True), (1, 2, 1, 5, 8, True),
+    (2, 8, 8, 130, 32, False), (1, 32, 8, 257, 64, True)])
+def test_cuda_flash_attention_matches_plain(cuda_device, B, H, Hkv, T, D, causal,
+                                            dtype):
+    """The flash kernel against its plain version in float64 on the same
+    inputs, at unaligned T: float32 within 1e-5 of the largest output;
+    bf16 within one bf16 rounding of the float64 result (the kernel computes
+    in float32 from exact bf16 inputs and rounds its output once)."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(T + D)
+    q, k, v = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                            device=cuda_device).to(dt)
+               for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+    n = tflash.FLASH_ATTENTION.launches
+    got = tflash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tflash.FLASH_ATTENTION.launches == n + 1
+    assert got.dtype == dt and got.shape == q.shape
+    want = ref.flash_attention_ref(q.double(), k.double(), v.double(), causal=causal)
+    err = (got.double() - want).abs()
+    scale = float(want.abs().max())
+    if dt == torch.float32:
+        assert float(err.max()) <= 1e-5 * scale
+    else:
+        assert bool((err <= 2.0 ** -8 * want.abs() + 1e-6 * scale).all())
+
+
+def test_cuda_model_attention_launches_the_kernel(cuda_device):
+    """``models.attention.flash_attention`` on CUDA tensors is the kernel:
+    one launch, the wrapper's output bit for bit."""
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.models import attention
+
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                            device=cuda_device)
+               for s in ((2, 4, 40, 16), (2, 2, 40, 16), (2, 2, 40, 16)))
+    n = tflash.FLASH_ATTENTION.launches
+    got = attention.flash_attention(q, k, v)
+    assert tflash.FLASH_ATTENTION.launches == n + 1
+    assert torch.equal(got, tflash.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "qwen2_1_5b"])
+def test_cuda_lm_prefill_and_decode_match_cpu(cuda_device, arch):
+    """The reduced model on the card (flash kernel in each prefill layer)
+    against the same weights on the CPU (the plain branches): float32 logits
+    and caches within 1e-5 of their largest magnitude."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import registry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    api = registry.build(cfg)
+    params = api.init(seed=0, device="cpu")
+    on_card = api.init(seed=0, device="cpu").to(cuda_device)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 34))
+    outs = []
+    for p in (params, on_card):
+        logits, cache = api.prefill(p, {"tokens": toks[:, :33]}, 40)
+        logits2, cache = api.decode_step(p, toks[:, 33], 33, cache)
+        outs.append([logits, logits2, cache["sub0"]["k"], cache["sub0"]["v"]])
+    for a, b in zip(*outs):
+        scale = float(a.abs().max())
+        assert float((b.cpu() - a).abs().max()) <= 1e-5 * scale

@@ -5,7 +5,8 @@
 * Entry points default to ``device="cuda"`` and raise on a host without
   CUDA unless the caller passes ``device="cpu"``.
 * What the slice does not port yet raises ``NotImplementedError``
-  (sparse storage also under plan fusion).
+  (sparse storage also under plan fusion; every LM family but dense GQA,
+  and the training loss).
 * On a CUDA host the kernel toolchain (``nvcc``) is present: the test fails,
   not skips, where it is missing.
 """
@@ -44,7 +45,7 @@ def test_port_never_imports_jax_or_the_reference(path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"ivm.py", "plan.py", "scatter_ops.py", "ops.py", "stats.py",
-            "chip_smoke.py"} <= names
+            "lm.py", "attention.py", "serve_lm.py", "chip_smoke.py"} <= names
 
 
 def _small_engine(**kw):
@@ -68,6 +69,43 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda():
     _, q, db = _small_engine(device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         IVMEngine.build(q, db, var_order=synth.retailer_vo())
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v3_671b", "moonshot_v1_16b_a3b",
+                                  "jamba_v0_1_52b", "xlstm_1_3b", "paligemma_3b",
+                                  "seamless_m4t_large_v2"])
+def test_unported_lm_families_raise(arch):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import registry
+
+    for cfg in (get_config(arch), get_config(arch).reduced()):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 20"):
+            registry.build(cfg)
+
+
+def test_lm_loss_is_not_ported():
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import registry
+
+    cfg = get_config("llama3_2_1b").reduced()
+    api = registry.build(cfg)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 20"):
+        api.loss(None, {"tokens": np.zeros((1, 4), np.int32)})
+
+
+def test_server_without_device_raises_on_a_host_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA, so the default device works")
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import registry
+    from repro_torch.serve_lm import Server
+
+    cfg = get_config("llama3_2_1b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Server(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        registry.build(cfg).init(seed=0)
+    assert Server(cfg, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("what", ["auto", "sparse", "sparse_override",
