@@ -8,16 +8,20 @@ Run from the repository root with one card visible:
 Phases (any failed check raises, and the script exits non-zero):
 
 1. Device: the card's name and power limit from nvidia-smi, then a build of
-   all ten CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   all eleven CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together).
 2. Kernels: each kernel against its plain PyTorch version on integer-valued
    float32 at the shapes the main path gives it (bitwise; ``cofactor_update``
    and ``matvec`` also with values of 12 significant bits, which a product
    in TF32 or bf16 would round; ``ring_mul`` and ``outer_accumulate`` also on
-   normal data; ``flash_attention`` in bf16 and float32 against its plain
-   version in float64), timed with CUDA events and the profiler beside its
-   plain version, a one-call PyTorch yardstick (``library_ms``, never used
-   by the port) and its bound.
+   normal data; ``segment_ring_sum`` also bitwise from run to run on normal
+   data and at one device event a call; ``flash_attention`` in bf16 and
+   float32 against its plain version in float64, by the kernel the dispatch
+   takes: ``flash_attention_wgmma`` for bf16 at D = 64 and 128, where the
+   SIMT ``flash_attention`` is checked and timed beside it), timed with
+   CUDA events and the profiler beside its plain version, a one-call
+   PyTorch yardstick (``library_ms``, never used by the port) and its
+   bound.
 3. Paths, each through ``IVMEngine.apply_update`` (fivm, dense) at
    ``RETAILER_DOMS_BIG`` with batches of 1000 tuples, checked against a
    float64 re-evaluation, with every kernel's launch count reset before
@@ -41,11 +45,12 @@ Phases (any failed check raises, and the script exits non-zero):
      ``outer_accumulate``).
 5. Path D, LM serving: llama3.2-1b at full width and depth, weights drawn
    from a seeded ``torch.Generator`` on the card, 4 prompts of 1024 tokens
-   (``flash_attention`` in every prefill layer).  (i) In float32, the
-   prefill and two decode steps against a float64 forward written here;
-   (ii) in bf16, ``Server.generate`` of 32 tokens, timed, with the first
-   decode step held to a bf16 prefill over the extended prompt and the
-   decode loop profiled.
+   (flash attention in every prefill layer).  (i) In float32 (the SIMT
+   ``flash_attention``), the prefill and two decode steps against a float64
+   forward written here; (ii) in bf16 (``flash_attention_wgmma``),
+   ``Server.generate`` of 32 tokens, timed, with the first decode step held
+   to a bf16 prefill over the extended prompt and the decode loop
+   profiled.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel with its numbers.  Imports nothing of JAX or the JAX package.
@@ -98,6 +103,17 @@ def time_ms(fn, reps: int = REPS, warmup: int = 5) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def time_in_turns(fns: dict) -> dict:
+    """``time_ms`` of each function in ``fns``, measured twice in turns
+    (each in order, then each in reverse order), averaged: drift of the
+    host or the card over the measurement falls on all of them alike."""
+    times: dict = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            times[name].append(time_ms(fns[name]))
+    return {name: statistics.mean(t) for name, t in times.items()}
 
 
 def device_events(fn, calls: int):
@@ -219,27 +235,44 @@ def kernel_phase(rng) -> dict:
             log({"kernel": "scatter_add", **row})
             del view, work
 
-    for d in (1, 111):
-        # local ranks of a batch's keys, as the compact path passes them
-        keys = rng.integers(0, 6144, size=B)
+    # the compact ⊎ path's shapes (S = B, local ranks of the batch's keys),
+    # and B = S = 65,536, past where streaming all ids in every block pays
+    for Bs, d in ((B, 1), (B, 111), (65_536, 111)):
+        keys = rng.integers(0, max(6144, 4 * Bs), size=Bs)
         rank_np = np.unique(keys, return_inverse=True)[1]
-        vals = ints(rng, (B, d))
+        vals = ints(rng, (Bs, d))
         ids = ids_tensor(rank_np)
         pad = ids.clone()
         pad[:8] = -1
-        err = check_equal(f"segment_ring_sum d={d}",
-                          segment_ring_sum(vals, pad, B),
-                          ref.segment_ring_sum_ref(vals, pad, B))
+        pad[8:16] = Bs + 3
+        err = check_equal(f"segment_ring_sum B={Bs} d={d}",
+                          segment_ring_sum(vals, pad, Bs),
+                          ref.segment_ring_sum_ref(vals, pad, Bs))
+        # normal data: the same bits on every run (no atomics, row order)
+        nvals = normal(rng, (Bs, d))
+        first = segment_ring_sum(nvals, ids, Bs)
+        for _ in range(3):
+            if not torch.equal(segment_ring_sum(nvals, ids, Bs), first):
+                raise AssertionError(f"segment_ring_sum B={Bs} d={d}: two runs "
+                                     f"on the same normal data differ")
+        events, _ = device_events(lambda: segment_ring_sum(vals, ids, Bs), 20)
+        if len(events) != 20:
+            raise AssertionError(f"segment_ring_sum B={Bs} d={d}: "
+                                 f"{len(events) / 20} device events a call, expected 1")
         ids64 = ids.long()
-        bms, by = bound_ms(B * 4 + B * d * 4 + B * d * 4, B * d)
+        bms, by = bound_ms(Bs * 4 + Bs * d * 4 + Bs * d * 4, Bs * d)
+        # kernel and library in turns: at B = 1000 both are host-bound
+        turns = time_in_turns({
+            "kernel": lambda: segment_ring_sum(vals, ids, Bs),
+            "library": lambda: torch.zeros((Bs, d), device="cuda").index_add_(
+                0, ids64, vals)})
         row = dict(
-            shape=dict(S=B, d=d, B=B), max_abs_err=err,
-            kernel_ms=time_ms(lambda: segment_ring_sum(vals, ids, B)),
-            device_ms=kernel_device_ms(lambda: segment_ring_sum(vals, ids, B),
+            shape=dict(S=Bs, d=d, B=Bs), max_abs_err=err, device_events_per_call=1,
+            kernel_ms=turns["kernel"],
+            device_ms=kernel_device_ms(lambda: segment_ring_sum(vals, ids, Bs),
                                        "segment_ring_sum_kernel"),
-            plain_ms=time_ms(lambda: ref.segment_ring_sum_ref(vals, ids, B)),
-            library_ms=time_ms(lambda: torch.zeros(
-                (B, d), device="cuda").index_add_(0, ids64, vals)),
+            plain_ms=time_ms(lambda: ref.segment_ring_sum_ref(vals, ids, Bs)),
+            library_ms=turns["library"],
             bound_ms=bms, bound_by=by)
         rows["segment_ring_sum"].append(row)
         log({"kernel": "segment_ring_sum", **row})
@@ -285,8 +318,8 @@ def kernel_phase(rng) -> dict:
     fused_chain_rows(rng, rows["fused_chain"])
     rows.update(cofactor_update=[], ring_mul=[], matvec=[], outer_accumulate=[])
     ops_kernel_rows(rng, rows)
-    rows["flash_attention"] = []
-    flash_attention_rows(rng, rows["flash_attention"])
+    rows.update(flash_attention=[], flash_attention_wgmma=[])
+    flash_attention_rows(rng, rows)
     return rows
 
 
@@ -435,60 +468,94 @@ def ops_kernel_rows(rng, rows: dict) -> None:
 
 #: flash_attention checks (B, H, Hkv, T, D): the LM path's own prefill shape
 #: (llama3.2-1b, 4 prompts of 1024 tokens), an unaligned T at the widest
-#: head dim, and a small GQA shape of the reference's kernel tests
-FLASH_SHAPES = ((4, 32, 8, 1024, 64), (1, 4, 1, 1000, 128), (2, 4, 2, 64, 16))
+#: head dim, the widest head dim under GQA at T = 257, and a small GQA shape
+#: of the reference's kernel tests
+FLASH_SHAPES = ((4, 32, 8, 1024, 64), (1, 4, 1, 1000, 128), (1, 8, 2, 257, 128),
+                (2, 4, 2, 64, 16))
 #: float32 kernel against float64: within this share of the largest output
 #: (the float32 scores, exp and sums of T terms round at ~6e-8 each)
 FLASH_F32_RTOL = 1e-5
+#: the CUDA kernel function of each flash variant, as the profiler names it
+FLASH_KERNEL_NAMES = {"wgmma": "flash_attention_wgmma_kernel",
+                      "simt": "flash_attention_kernel"}
 
 
-def flash_attention_rows(rng, out: list) -> None:
+def flash_attention_rows(rng, rows: dict) -> None:
     """``flash_attention`` (causal) at FLASH_SHAPES in bf16 and float32, each
-    against the plain version in float64 on the same inputs.  float32:
-    within FLASH_F32_RTOL of the largest output.  bf16: the kernel computes
-    in float32 from exact bf16 inputs and rounds once to bf16 (half an ulp,
-    at most 2⁻⁹ of the value), so every element is within 2⁻⁸·|ref| +
-    1e-6·max|ref| of the float64 result."""
+    against the plain version in float64 on the same inputs, into
+    ``rows[kernel name]`` by the variant the wrapper's dispatch takes.
+    float32: within FLASH_F32_RTOL of the largest output.  bf16: the kernels
+    compute in float32 (the wgmma kernel with P as three bf16 terms that
+    sum to it exactly) from exact bf16 inputs and round once to bf16 (half
+    an ulp, at most 2⁻⁹ of the value), so every element is within
+    2⁻⁸·|ref| + 1e-6·max|ref| of the float64 result.  Where the wrapper takes the wgmma
+    kernel, the SIMT kernel is checked and timed on the same inputs too,
+    and the kernel, the SIMT kernel and SDPA are timed in turns."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as tflash
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
+
+    def check(label, got, want, dt):
+        err = (got.double() - want).abs()
+        scale = float(want.abs().max())
+        if dt == torch.float32:
+            if not float(err.max()) <= FLASH_F32_RTOL * scale:
+                raise AssertionError(f"{label}: max abs err {float(err.max())} "
+                                     f"> {FLASH_F32_RTOL} x {scale}")
+        elif not bool((err <= 2.0 ** -8 * want.abs() + 1e-6 * scale).all()):
+            raise AssertionError(f"{label}: beyond one bf16 rounding of the "
+                                 f"float64 result (max abs err {float(err.max())})")
+        return float(err.max()), float(err.max()) / scale
 
     for B, H, Hkv, T, D in FLASH_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
             q = normal(rng, (B, H, T, D)).to(dt)
             k, v = (normal(rng, (B, Hkv, T, D)).to(dt) for _ in range(2))
-            got = flash_attention(q, k, v)
+            kind = tflash.variant(dt, D)
+            name = tflash.KERNELS[kind].name
+            label = f"{name} {(B, H, Hkv, T, D)} {dt}"
             want = ref.flash_attention_ref(q.double(), k.double(), v.double())
-            err = (got.double() - want).abs()
-            scale = float(want.abs().max())
-            label = f"flash_attention {(B, H, Hkv, T, D)} {dt}"
-            if dt == torch.float32:
-                if not float(err.max()) <= FLASH_F32_RTOL * scale:
-                    raise AssertionError(f"{label}: max abs err {float(err.max())} "
-                                         f"> {FLASH_F32_RTOL} x {scale}")
-            elif not bool((err <= 2.0 ** -8 * want.abs() + 1e-6 * scale).all()):
-                raise AssertionError(f"{label}: beyond one bf16 rounding of the "
-                                     f"float64 result (max abs err {float(err.max())})")
+            err, rel = check(label, tflash.flash_attention(q, k, v), want, dt)
+            extra = {}
+            if kind == "wgmma":
+                simt_err, _ = check(f"flash_attention (simt) {(B, H, Hkv, T, D)} {dt}",
+                                    tflash.launch("simt", q, k, v), want, dt)
+                extra["simt_max_abs_err"] = simt_err
             del want
             # q, k, v read once and o written once; the causal half of QKᵀ
             # and PV, 2·B·H·T²·D flops, at the dtype's peak rate
             bms, by = bound_ms(q.element_size() * (2 * B * H * T * D + 2 * B * Hkv * T * D),
                                2 * B * H * T * T * D,
                                BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S)
+
+            def kernel():
+                tflash.flash_attention(q, k, v)
+
+            def library():
+                F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+            def simt():
+                tflash.launch("simt", q, k, v)
+
+            fns = {"kernel": kernel, "library": library}
+            if kind == "wgmma":
+                fns["simt"] = simt
+            times = time_in_turns(fns)
             row = dict(
                 shape=dict(B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=str(dt).split(".")[1]),
-                max_abs_err=float(err.max()), rel_err=float(err.max()) / scale,
-                kernel_ms=time_ms(lambda: flash_attention(q, k, v)),
-                device_ms=kernel_device_ms(lambda: flash_attention(q, k, v),
-                                           "flash_attention_kernel"),
+                variant=kind, max_abs_err=err, rel_err=rel,
+                kernel_ms=times["kernel"],
+                device_ms=kernel_device_ms(kernel, FLASH_KERNEL_NAMES[kind]),
                 plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=10),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True)),
-                bound_ms=bms, bound_by=by)
-            out.append(row)
-            log({"kernel": "flash_attention", **row})
-            del q, k, v, got, err
+                library_ms=times["library"],
+                bound_ms=bms, bound_by=by, **extra)
+            if kind == "wgmma":
+                row.update(simt_ms=times["simt"],
+                           simt_device_ms=kernel_device_ms(simt, FLASH_KERNEL_NAMES["simt"]))
+            rows[name].append(row)
+            log({"kernel": name, **row})
+            del q, k, v
 
 
 def scatter_dedup_rows(rng, out: list) -> None:
@@ -1081,7 +1148,8 @@ def lm_serve_path(kernels) -> dict:
             toks.append(logits.argmax(-1))
         torch.cuda.synchronize()
         launches_f32 = read_launches("lm float32 path", kernels,
-                                     {"flash_attention": n_layers})
+                                     {"flash_attention": n_layers,
+                                      "flash_attention_wgmma": 0})
         seq = torch.cat([prompt_t, toks[0][:, None], toks[1][:, None]], dim=1)
         want = lm_oracle_logits(cfg32, params, seq, n_last=3)
         f32_errors = {name: rel_err(got, want[:, j]) for j, (name, got) in
@@ -1099,7 +1167,8 @@ def lm_serve_path(kernels) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset(kernels)
     res = server.generate({"tokens": prompts}, LM_NEW)
-    launches = read_launches("lm serve path", kernels, {"flash_attention": n_layers})
+    launches = read_launches("lm serve path", kernels,
+                             {"flash_attention_wgmma": n_layers, "flash_attention": 0})
     peak = torch.cuda.max_memory_allocated()
     api16, p16 = server.api, server.params
     with torch.inference_mode():
@@ -1161,7 +1230,8 @@ def main() -> int:
     from repro_torch.data import synth
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.cofactor_update import COFACTOR_UPDATE
-    from repro_torch.kernels.flash_attention import FLASH_ATTENTION
+    from repro_torch.kernels.flash_attention import (FLASH_ATTENTION,
+                                                     FLASH_ATTENTION_WGMMA)
     from repro_torch.kernels.rank1_chain import MATVEC, OUTER_ACCUMULATE
     from repro_torch.kernels.ring_fused import FUSED_CHAIN
     from repro_torch.kernels.ring_mul import RING_MUL
@@ -1182,7 +1252,7 @@ def main() -> int:
 
     kernels = [SCATTER_ADD, SEGMENT_RING_SUM, GATHER_MUL_SCATTER, SCATTER_DEDUP,
                FUSED_CHAIN, COFACTOR_UPDATE, RING_MUL, MATVEC, OUTER_ACCUMULATE,
-               FLASH_ATTENTION]
+               FLASH_ATTENTION, FLASH_ATTENTION_WGMMA]
     build_s = _cuda.build_all(kernels)
     log({"build_s": build_s, "libraries": [k.library_path().name for k in kernels]})
     for k in kernels:
@@ -1248,8 +1318,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the LM scaffold's serving path: flash_attention in every prefill layer
     paths.append(lm_serve_path(kernels))
-    launched = {k.name: sum(run["launches"][k.name] for run in streams + paths)
-                for k in kernels}
+    # path D's float32 check is the SIMT flash kernel's path
+    runs = [run["launches"] for run in streams + paths] + [
+        run["launches_float32"] for run in paths if "launches_float32" in run]
+    launched = {k.name: sum(r[k.name] for r in runs) for k in kernels}
     if not all(launched.values()):
         raise AssertionError(f"a kernel launched on no path: {launched}")
 
@@ -1283,7 +1355,11 @@ def main() -> int:
                              dict(n=CHAIN_N)),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:69",
-                            dict(B=LM_B, H=32, Hkv=8, T=LM_T, D=64, dtype="bfloat16")),
+                            dict(B=LM_B, H=32, Hkv=8, T=LM_T, D=64, dtype="float32")),
+        "flash_attention_wgmma": ("src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+                                  "src/repro/kernels/flash_attention.py:69",
+                                  dict(B=LM_B, H=32, Hkv=8, T=LM_T, D=64,
+                                       dtype="bfloat16")),
     }
     summary = []
     for name, (source, replaces, shape) in sources.items():

@@ -94,7 +94,7 @@ class CudaKernel:
     def launch(self, *args) -> None:
         """Call the C entry with ``args`` and the stream (last); raise on a
         non-zero CUDA error code."""
-        rc = self._function()(*args)
+        rc = (self._fn or self._function())(*args)
         if rc != 0:
             raise RuntimeError(f"{self.entry} failed: CUDA error {rc} "
                                f"({self._errstr(rc).decode()})")
@@ -126,18 +126,25 @@ def build_all(kernels) -> float:
 
 
 def stream_handle(t) -> int:
-    """The raw ``cudaStream_t`` of the current stream on ``t``'s device."""
+    """The raw ``cudaStream_t`` of the current stream on ``t``'s device.
+
+    Read with the call PyTorch's own generated kernels use
+    (``torch._C._cuda_getCurrentRawStream``), not through
+    ``torch.cuda.current_stream(device)``, which builds a Stream object and
+    costs many times as much host time: for a small kernel the launch's
+    host time is the call's time."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def on_card(t) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (run the plain version); any other device raises."""
-    if t.device.type == "cpu":
+    kind = t.device.type
+    if kind == "cpu":
         return False
-    if t.device.type != "cuda":
+    if kind != "cuda":
         raise ValueError(f"no kernel for device {t.device}")
     return True
 

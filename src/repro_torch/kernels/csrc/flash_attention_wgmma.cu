@@ -1,0 +1,552 @@
+// Causal flash attention on Hopper's tensor cores: o = softmax(q kᵀ / √D,
+// causal) v for q, o [B, H, T, D] and k, v [B, Hkv, Tk, D] in bfloat16,
+// D ∈ {64, 128}.
+//
+// Replaces: src/repro/kernels/flash_attention.py::flash_attention (Pallas
+// body _kernel), the prefill attention of every layer of the dense GQA
+// models, for bf16 at the head dims of every config the port builds.
+// float32, and bf16 at D ∈ {8, 16, 32}, stay on flash_attention.cu.  It
+// computes what the Pallas kernel computes: scores scaled by 1/√D and
+// masked at -1e30, a running max and denominator in float32, the
+// probabilities kept in float32 for the PV product (exactly, below), the
+// denominator floored at 1e-30 and one rounding of the output to bf16.  GQA
+// is by index (q-head h reads kv-head h / (H / Hkv)).
+//
+// Bound: operations.  At the LM path's prefill (B 4, H 32, T 1024, D 64)
+// the causal half of QKᵀ and PV is 17.2 GFLOP, plus 17.2 GFLOP for PV's
+// second and third terms (below), against 42 MB of q, k, v and o.
+//
+// Design.  One block of three warpgroups per (b·H + h, pair of tiles of 128
+// query rows): the x-th heaviest causal tile and the x-th lightest, so every
+// block does the same work and a block's start-up is paid once per pair.
+// Warpgroup 0 is the producer: it gives its registers up (setmaxnreg) and
+// one thread issues TMA loads, both Q tiles at once and K/V tiles of 128
+// keys into a ring of stages that runs on from the first tile to the
+// second, each stage signalled by an mbarrier with its byte count; the
+// consumers free a stage through a second mbarrier.  Warpgroups 1 and 2
+// each own 64 query rows:
+// - S = Q Kᵀ with wgmma m64n128k16 from shared memory, both operands
+//   K-major, float32 accumulators.  Products of bf16 are exact in float32,
+//   so S is the Pallas kernel's float32 dot up to summation order.
+// - Online softmax in registers: each row lies on the 4 threads of a quad
+//   (the accumulator layout), so row max and sum take two shuffles.  The
+//   running max is kept in raw scores and each probability is one FFMA
+//   and exp2f: P = 2^(s·c − m·c) with c = log₂e / √D.
+// - P stays float32: it is split in registers into three bf16 terms by
+//   truncation, P_1 = P with the low 16 bits of its float32 cleared, P_2
+//   the same of P − P_1 and P_3 = P − P_1 − P_2.  A float32 has 24
+//   significant bits and each term takes 8 of them, so each difference is
+//   exact and P_1 + P_2 + P_3 = P for P ≥ 2⁻¹⁰⁰ (below, bits under
+//   float32's normal range, < 2⁻¹²⁶, are lost).  PV is three register-A wgmmas
+//   (m64nDk16, V the MN-major operand, transpose bit set) into the same
+//   float32 accumulator.  Two terms would leave up to 2⁻¹⁶·P (2⁻¹⁷·P
+//   rounded), which on a row over few keys puts an output near zero
+//   outside one bf16 rounding of the float64 result
+//   (tests/test_torch_flash_wgmma.py).  The split triples PV's tensor-core
+//   work (2× the kernel's flops).
+// The accumulator layout of S is the register-A fragment layout of PV, so
+// P never touches shared memory.  K/V are 3-D TMA tensors (D, Tk, B·Hkv):
+// a tile past a head's last key is zero-filled, not read from the next
+// head, and the keys past Tk and past the diagonal are masked in the last
+// tile, the only one that has any; tiles wholly above the diagonal are not
+// visited.  Rows past T load as zeros and are not stored, so any T works.
+// (On the diagonal tile the first warpgroup's rows see none of the last 64
+// keys; skipping that half by a branch around the wgmmas measured slower,
+// as ptxas then serialises them.)
+// Shared memory is 128-byte swizzled (TMA and wgmma descriptors agree),
+// in 64-column panels (two at D = 128); 160 KB at D = 64 (4 stages), 192 KB
+// at D = 128 (2 stages), so one block holds an SM and setmaxnreg's pool is
+// its own.  Softmax and the tensor cores do not overlap within a
+// warpgroup; the two consumer warpgroups overlap each other.
+//
+// The tensor maps are encoded on the host for each call through
+// cuTensorMapEncodeTiled, found with cudaGetDriverEntryPoint, so the
+// library links no libcuda.
+#include <cuda.h>
+#include <cuda_bf16.h>
+
+#include <cmath>
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBlockQ = 128;     // query rows of a block, 64 per consumer
+constexpr int kBlockK = 128;     // keys of a K/V tile
+constexpr int kPanel = 64;       // bf16 columns of one 128-byte swizzled panel
+constexpr int kRowBytes = 128;   // bytes of one row of a panel
+constexpr int kThreadsWG = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kTerms = 3;        // bf16 terms of P in the PV product
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Cfg {
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kPanels = D / kPanel;
+  static constexpr int kQBytes = kBlockQ * D * 2;     // one Q tile
+  static constexpr int kTileBytes = kBlockK * D * 2;  // one K or V tile
+  static constexpr int kKOff = 2 * kQBytes;           // after the two Q tiles
+  static constexpr int kVOff = kKOff + kStages * kTileBytes;
+  static constexpr int kBarOff = kVOff + kStages * kTileBytes;
+  // barriers: full[kStages], empty[kStages], q[2]; then slack to align the
+  // dynamic shared memory to 1024 bytes (the swizzle's repeat)
+  static constexpr size_t kBytes = kBarOff + (2 * kStages + 2) * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.  A
+// phase still open after 2³⁴ cycles (seconds) means a lost transfer: trap,
+// so that the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// One TMA box of a 3-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand (layout type 1): start
+// address, leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin registers that an asynchronous wgmma reads or writes: the compiler
+// may not move their uses across this point.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N][4]) {
+#pragma unroll
+  for (int a = 0; a < M; ++a)
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[a][i][j])::"memory");
+}
+
+// d[64] (+)= A[64 x 16] · B[16 x 128], A and B K-major in shared memory;
+// accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[32] += A[64 x 16] · B[16 x 64], A in registers (bf16 pairs), B MN-major
+// in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64] += A[64 x 16] · B[16 x 128], A in registers (bf16 pairs), B MN-major
+// in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 64) {
+    wgmma_rs_n64(o, a, db);
+  } else {
+    wgmma_rs_n128(o, a, db);
+  }
+}
+
+// The high halves of two float32 bit patterns as a bf16 pair (lo, hi): the
+// two values truncated to bf16.
+__device__ __forceinline__ uint32_t bf16x2_high(uint32_t lo, uint32_t hi) {
+  return __byte_perm(lo, hi, 0x7632);
+}
+
+// K/V tiles that q tile qt visits: all of them, or causally those up to the
+// diagonal.
+__device__ __forceinline__ int kv_tiles(int qt, int Tq, int Tk, int causal) {
+  const int n = (Tk + kBlockK - 1) / kBlockK;
+  return causal ? min(n, (min((qt + 1) * kBlockQ, Tq) - 1) / kBlockK + 1) : n;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsWG, 1)
+    flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                                 const __grid_constant__ CUtensorMap kmap,
+                                 const __grid_constant__ CUtensorMap vmap,
+                                 __nv_bfloat16* __restrict__ o, int H, int Hkv, int Tq,
+                                 int Tk, float scale_log2, int causal) {
+  // scale_log2 = log₂e / √D: P = exp2(s·scale_log2 − m·scale_log2)
+  using C = Cfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base, sk = base + C::kKOff, sv = base + C::kVOff;
+  const uint32_t bars = base + C::kBarOff;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (C::kStages + s); };
+  auto qbar = [&](int pass) { return bars + 8u * (2 * C::kStages + pass); };
+
+  // The block's q tiles: the x-th heaviest and the x-th lightest, so that
+  // causally every block visits n + 1 K/V tiles (n q tiles a head), and K/V
+  // stream through one ring across both.
+  const int n_qt = (Tq + kBlockQ - 1) / kBlockQ;
+  const int qt_heavy = n_qt - 1 - blockIdx.x;
+  const int qt_light = blockIdx.x;
+  const int n_pass = qt_light < qt_heavy ? 2 : 1;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kvh = b * Hkv + h / (H / Hkv);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2 * 128);  // every consumer thread releases a stage
+    }
+    mbar_init(qbar(0), 1);
+    mbar_init(qbar(1), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread loads both Q tiles, then keeps the K/V ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      for (int pass = 0; pass < n_pass; ++pass) {
+        const int q0 = (pass == 0 ? qt_heavy : qt_light) * kBlockQ;
+        mbar_expect_tx(qbar(pass), C::kQBytes);
+        for (int p = 0; p < C::kPanels; ++p)
+          tma_load_3d(sq + pass * C::kQBytes + p * kBlockQ * kRowBytes, &qmap, qbar(pass),
+                      p * kPanel, q0, bh);
+      }
+      int it = 0;  // K/V tiles loaded so far, over both passes
+      for (int pass = 0; pass < n_pass; ++pass) {
+        const int n_tiles = kv_tiles(pass == 0 ? qt_heavy : qt_light, Tq, Tk, causal);
+        for (int t = 0; t < n_tiles; ++t, ++it) {
+          const int s = it % C::kStages;
+          mbar_wait(empty(s), ((it / C::kStages) & 1) ^ 1);
+          mbar_expect_tx(full(s), 2 * C::kTileBytes);
+          for (int p = 0; p < C::kPanels; ++p) {
+            const uint32_t off = s * C::kTileBytes + p * kBlockK * kRowBytes;
+            tma_load_3d(sk + off, &kmap, full(s), p * kPanel, t * kBlockK, kvh);
+            tma_load_3d(sv + off, &vmap, full(s), p * kPanel, t * kBlockK, kvh);
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = threadIdx.x / 128 - 1;  // consumer: query rows 64·cw ..
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int c2 = 2 * (lane % 4);  // first column of each 8-column group
+    // Accumulator layout (m64nN, float32): element i of a thread lies in
+    // row r0 + 8·((i >> 1) & 1), column 8·(i / 4) + c2 + (i & 1).
+    float acc[D / 2], sc[kBlockK / 2];
+#pragma unroll
+    for (int i = 0; i < kBlockK / 2; ++i) sc[i] = 0.f;
+    int it = 0;  // K/V tiles consumed so far, over both passes
+
+    for (int pass = 0; pass < n_pass; ++pass) {
+      const int q0 = (pass == 0 ? qt_heavy : qt_light) * kBlockQ;
+      const int n_tiles = kv_tiles(q0 / kBlockQ, Tq, Tk, causal);
+      const int r0 = q0 + 64 * cw + 16 * warp + lane / 4;  // rows r0 and r0 + 8
+      const uint32_t sq_wg = sq + pass * C::kQBytes + cw * 64 * kRowBytes;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      float m[2] = {kNegInf, kNegInf};
+      float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
+
+      mbar_wait(qbar(pass), 0);
+      for (int t = 0; t < n_tiles; ++t, ++it) {
+        const int s = it % C::kStages;
+        mbar_wait(full(s), (it / C::kStages) & 1);
+
+        // S = Q Kᵀ: D / 16 steps of 16 columns (32 bytes) along each panel
+        fence_regs(sc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;
+          const uint64_t da =
+              smem_desc(sq_wg + (kk / 4) * kBlockQ * kRowBytes + off, 16, 1024);
+          const uint64_t db = smem_desc(
+              sk + s * C::kTileBytes + (kk / 4) * kBlockK * kRowBytes + off, 16, 1024);
+          wgmma_ss_n128(sc, da, db, kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+
+        // online softmax over the tile; masked scores are -1e30
+        if (t == n_tiles - 1) {  // the only tile with masked keys
+          const int k0 = t * kBlockK;
+#pragma unroll
+          for (int i = 0; i < kBlockK / 2; ++i) {
+            const int key = k0 + 8 * (i / 4) + c2 + (i & 1);
+            if (key >= Tk || (causal && key > r0 + 8 * ((i >> 1) & 1))) sc[i] = kNegInf;
+          }
+        }
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int i = 0; i < kBlockK / 2; ++i)
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+        float alpha[2], mc[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          alpha[r] = exp2f((m[r] - mx[r]) * scale_log2);
+          m[r] = mx[r];
+          mc[r] = mx[r] * scale_log2;
+          l[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+        // P in three bf16 terms, already in PV's register-A fragment layout:
+        // fragment j of k-step kk holds elements 8kk + 2j, 8kk + 2j + 1
+        uint32_t pt[kTerms][kBlockK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBlockK / 16; ++kk) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int i = 8 * kk + 2 * j;
+            float r0v = exp2f(fmaf(sc[i], scale_log2, -mc[j & 1]));
+            float r1v = exp2f(fmaf(sc[i + 1], scale_log2, -mc[j & 1]));
+            l[j & 1] += r0v + r1v;
+#pragma unroll
+            for (int a = 0; a < kTerms; ++a) {
+              const uint32_t b0 = __float_as_uint(r0v), b1 = __float_as_uint(r1v);
+              pt[a][kk][j] = bf16x2_high(b0, b1);
+              r0v -= __uint_as_float(b0 & 0xffff0000u);  // exact
+              r1v -= __uint_as_float(b1 & 0xffff0000u);
+            }
+          }
+        }
+
+        // O += Σ P_a V: 16 keys (two 1024-byte swizzle atoms) a step; the
+        // leading byte offset steps between the 64-column panels of V
+        fence_regs(acc);
+        fence_regs(pt);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBlockK / 16; ++kk) {
+          const uint64_t db = smem_desc(sv + s * C::kTileBytes + kk * 16 * kRowBytes,
+                                        kBlockK * kRowBytes, 1024);
+#pragma unroll
+          for (int a = 0; a < kTerms; ++a) wgmma_pv<D>(acc, pt[a][kk], db);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+        mbar_arrive(empty(s));
+      }
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        l[r] = fmaxf(l[r], 1e-30f);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        if (row < Tq) {
+          __nv_bfloat16* orow = o + (static_cast<long long>(bh) * Tq + row) * D;
+#pragma unroll
+          for (int g = 0; g < D / 8; ++g) {
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * g + c2) = __floats2bfloat162_rn(
+                acc[4 * g + 2 * r] / l[r], acc[4 * g + 2 * r + 1] / l[r]);
+          }
+        }
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda (looked up at run time), or null.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The bf16 tensor [n, rows, D] at ptr as a 3-D TMA map (D, rows, n) with
+// 64 x box_rows boxes, 128-byte swizzle and zero fill past the edges.
+bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D, int rows,
+              int n, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint32_t box[3] = {kPanel, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+                   int Hkv, int Tq, int Tk, int causal, cudaStream_t stream) {
+  auto kernel = flash_attention_wgmma_kernel<D>;
+  const size_t bytes = Cfg<D>::kBytes;
+  cudaError_t err = repro::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap qmap, kmap, vmap;
+  if (!make_map(&qmap, encode, q, D, Tq, B * H, kBlockQ) ||
+      !make_map(&kmap, encode, k, D, Tk, B * Hkv, kBlockK) ||
+      !make_map(&vmap, encode, v, D, Tk, B * Hkv, kBlockK))
+    return cudaErrorInvalidValue;
+  // the reference's 1.0 / (D ** 0.5), a double rounded to float, in log₂ units
+  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
+  const dim3 grid(((Tq + kBlockQ - 1) / kBlockQ + 1) / 2, B * H);  // two q tiles a block
+  kernel<<<grid, kThreadsWG, bytes, stream>>>(qmap, kmap, vmap,
+                                              static_cast<__nv_bfloat16*>(o), H, Hkv, Tq,
+                                              Tk, scale * kLog2e, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// o [B, H, Tq, D] = attention of q [B, H, Tq, D] over k, v [B, Hkv, Tk, D],
+// all contiguous bfloat16, D ∈ {64, 128}; causal: query i sees keys 0..i
+// (Tq == Tk).  With no keys (Tk == 0) the output is zero, as 0 / 1e-30.
+extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
+                                           void* o, int B, int H, int Hkv, int Tq, int Tk,
+                                           int D, int causal, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (Tk == 0) {
+    cudaMemsetAsync(o, 0, static_cast<size_t>(B) * H * Tq * D * 2, stream);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaError_t err;
+  switch (D) {
+    case 64: err = launch<64>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream); break;
+    case 128: err = launch<128>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+REPRO_DEFINE_ERROR_STRING(repro_flash_attention_wgmma)

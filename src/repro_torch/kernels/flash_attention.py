@@ -1,6 +1,6 @@
 """Causal flash attention on the card.
 
-Wrapper for ``csrc/flash_attention.cu``, the Hopper counterpart of
+Wrapper for the Hopper counterparts of
 ``repro/kernels/flash_attention.py::flash_attention``: online-softmax
 attention of q [B, H, T, D] over k, v [B, Hkv, Tk, D], with scale 1/√D,
 masked scores at -1e30, running max, denominator and accumulator in
@@ -10,6 +10,14 @@ index: q-head h reads kv-head h // (H / Hkv), so K and V are never
 repeated in memory.  Any T works; causal attention needs T == Tk (query i
 sees keys 0..i).  A CPU tensor takes the plain version (``ref``), cast to
 q's dtype; any other dtype or device raises.
+
+Two kernels, chosen by :func:`variant` from the dtype and head dim alone:
+
+* ``csrc/flash_attention_wgmma.cu`` for bf16 at D ∈ {64, 128}, the head
+  dims of every dense GQA config the port builds: tensor cores (wgmma) fed
+  by TMA, with P split into two bf16 terms for PV;
+* ``csrc/flash_attention.cu`` (float32 CUDA-core FMAs) for float32, the
+  path's precision check, and for bf16 at D ∈ {8, 16, 32}.
 """
 from __future__ import annotations
 
@@ -21,11 +29,30 @@ from ._cuda import I32, PTR, CudaKernel, on_card, stream_handle
 FLASH_ATTENTION = CudaKernel("flash_attention.cu", "repro_flash_attention",
                              [PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32, I32,
                               I32, I32])
+FLASH_ATTENTION_WGMMA = CudaKernel("flash_attention_wgmma.cu",
+                                   "repro_flash_attention_wgmma",
+                                   [PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32,
+                                    I32, I32])
 
-#: head dims the kernel is compiled for
+#: head dims the kernels are compiled for
 HEAD_DIMS = (8, 16, 32, 64, 128)
-#: dtype codes of the C entry
+#: head dims of the tensor-core kernel (bf16 only)
+WGMMA_HEAD_DIMS = (64, 128)
+#: dtype codes of the SIMT kernel's C entry
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that takes (dtype, head_dim) on the card: ``"wgmma"``
+    (``FLASH_ATTENTION_WGMMA``) for bf16 with D ∈ {64, 128}, else
+    ``"simt"`` (``FLASH_ATTENTION``)."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+#: the kernel object of each variant
+KERNELS = {"wgmma": FLASH_ATTENTION_WGMMA, "simt": FLASH_ATTENTION}
 
 
 def flash_attention(q, k, v, causal: bool = True):
@@ -51,10 +78,28 @@ def flash_attention(q, k, v, causal: bool = True):
         return ref.flash_attention_ref(q, k, v, causal=causal).to(q.dtype)
     if B * H > 65535:
         raise ValueError(f"B·H = {B * H} exceeds the grid's 65,535")
+    return launch(variant(q.dtype, D), q, k, v, causal)
+
+
+def launch(kind: str, q, k, v, causal: bool = True):
+    """Launch the ``kind`` kernel (a key of KERNELS) on CUDA tensors that
+    ``flash_attention`` has checked.  The wrapper passes ``variant``'s
+    choice; ``chip_smoke.py`` also passes ``"simt"`` for bf16 at D = 64 or
+    128, to time the two kernels on the same inputs."""
+    if kind == "wgmma" and variant(q.dtype, q.shape[3]) != "wgmma":
+        raise ValueError(f"the wgmma kernel takes bf16 at D ∈ {WGMMA_HEAD_DIMS}, "
+                         f"not {q.dtype} at D = {q.shape[3]}")
+    B, H, T, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
-    if o.numel():
-        FLASH_ATTENTION.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               o.data_ptr(), B, H, Hkv, T, Tk, D,
-                               DTYPES[q.dtype], int(causal), stream_handle(q))
+    if not o.numel():
+        return o
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv, T,
+            Tk, D)
+    if kind == "wgmma":
+        FLASH_ATTENTION_WGMMA.launch(*args, int(causal), stream_handle(q))
+    else:
+        FLASH_ATTENTION.launch(*args, DTYPES[q.dtype], int(causal),
+                               stream_handle(q))
     return o

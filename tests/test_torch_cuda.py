@@ -65,6 +65,28 @@ def test_cuda_segment_ring_sum_matches_plain(cuda_device, S, d):
     assert torch.equal(got, ref.segment_ring_sum_ref(vals, ids, S))
 
 
+@pytest.mark.parametrize("B,S,d", [(1000, 1000, 111), (1000, 1000, 1),
+                                   (65536, 65536, 111), (4099, 300, 7)])
+def test_cuda_segment_ring_sum_is_one_launch_and_deterministic(cuda_device, B, S, d):
+    """One kernel launch a call, and the same bits on every run on normal
+    data (each segment's rows are added in ascending row order, no
+    atomics); within float32 summation error of the plain version."""
+    rng = np.random.default_rng(B + S + d)
+    vals = torch.tensor(rng.standard_normal((B, d)).astype(np.float32),
+                        device=cuda_device)
+    ids = torch.tensor(_ids(rng, S, B), device=cuda_device)
+    n = tsegsum.SEGMENT_RING_SUM.launches
+    first = tsegsum.segment_ring_sum(vals, ids, S)
+    assert tsegsum.SEGMENT_RING_SUM.launches == n + 1
+    for _ in range(3):
+        assert torch.equal(tsegsum.segment_ring_sum(vals, ids, S), first)
+    zeros = torch.zeros((S, d), dtype=torch.float64, device=cuda_device)
+    want = ref.scatter_add_ref(zeros.clone(), ids, vals.double())
+    abs_sum = ref.scatter_add_ref(zeros, ids, vals.double().abs())
+    # each of at most B adds rounds at 2⁻²⁴ of the running magnitude
+    assert bool(((first.double() - want).abs() <= B * 2.0 ** -24 * abs_sum).all())
+
+
 @pytest.mark.parametrize("S,Sg", [(96, 32), (96, 9216), (9216, 128)])
 def test_cuda_gather_mul_scatter_matches_plain(cuda_device, S, Sg):
     rng = np.random.default_rng(S + Sg)
@@ -321,16 +343,28 @@ def test_cuda_rank1_chain_update_and_running_cofactor(cuda_device):
         assert torch.equal(a, b.cpu())
 
 
+#: the bf16 tensor-core kernel's head dims at T = 77, 257 and 1000, causal
+#: and not, with GQA groups 1, 4 and 8 (H = 8 over Hkv = 8, 2, 1)
+WGMMA_FLASH_SHAPES = [
+    (1, 8, 8, 77, 64, True), (1, 8, 2, 77, 64, False), (1, 8, 1, 257, 64, True),
+    (1, 8, 8, 257, 64, False), (1, 8, 2, 1000, 64, True), (1, 8, 1, 1000, 64, False),
+    (1, 8, 8, 77, 128, True), (1, 8, 2, 77, 128, False), (1, 8, 1, 257, 128, True),
+    (1, 8, 8, 257, 128, False), (1, 8, 2, 1000, 128, True),
+    (1, 8, 1, 1000, 128, False)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,H,Hkv,T,D,causal", [
     (1, 4, 1, 1000, 128, True), (2, 4, 2, 77, 16, True), (1, 2, 1, 5, 8, True),
-    (2, 8, 8, 130, 32, False), (1, 32, 8, 257, 64, True)])
+    (2, 8, 8, 130, 32, False), (1, 32, 8, 257, 64, True)] + WGMMA_FLASH_SHAPES)
 def test_cuda_flash_attention_matches_plain(cuda_device, B, H, Hkv, T, D, causal,
                                             dtype):
-    """The flash kernel against its plain version in float64 on the same
-    inputs, at unaligned T: float32 within 1e-5 of the largest output;
-    bf16 within one bf16 rounding of the float64 result (the kernel computes
-    in float32 from exact bf16 inputs and rounds its output once)."""
+    """The flash kernel that ``variant`` names against the plain version in
+    float64 on the same inputs, at unaligned T: float32 within 1e-5 of the
+    largest output; bf16 within one bf16 rounding of the float64 result
+    (the kernels compute in float32, or with P in three bf16 terms, from
+    exact bf16 inputs and round their output once).  That kernel launches
+    once, the other not at all."""
     from repro_torch.kernels import flash_attention as tflash
 
     dt = getattr(torch, dtype)
@@ -338,10 +372,13 @@ def test_cuda_flash_attention_matches_plain(cuda_device, B, H, Hkv, T, D, causal
     q, k, v = (torch.tensor(rng.standard_normal(s).astype(np.float32),
                             device=cuda_device).to(dt)
                for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, D)))
-    n = tflash.FLASH_ATTENTION.launches
+    before = {name: kern.launches for name, kern in tflash.KERNELS.items()}
     got = tflash.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert tflash.FLASH_ATTENTION.launches == n + 1
+    named = tflash.variant(dt, D)
+    assert {name: kern.launches - before[name]
+            for name, kern in tflash.KERNELS.items()} == {
+                name: int(name == named) for name in tflash.KERNELS}
     assert got.dtype == dt and got.shape == q.shape
     want = ref.flash_attention_ref(q.double(), k.double(), v.double(), causal=causal)
     err = (got.double() - want).abs()

@@ -201,6 +201,20 @@ def test_segment_ring_sum_casts_as_the_reference():
     assert_same(got, want)
 
 
+@pytest.mark.parametrize("B,S,d", [(37, 13, 5), (9, 40, 1), (130, 7, 111)])
+def test_segment_ring_sum_drops_out_of_range_like_pallas_interpret(B, S, d):
+    """B ≠ S, with ids < 0 and >= S (which drop), against the Pallas kernel
+    in interpret mode."""
+    rng = np.random.default_rng(B * S + d)
+    v = _data(rng, (B, d), "ints")
+    ids = rng.integers(0, S, size=(B,)).astype(np.int32)
+    ids[:3] = -1
+    ids[3:5] = S + rng.integers(0, 4, size=2)
+    ids = rng.permutation(ids)
+    want = rops.segment_ring_sum(v, ids, S, backend="interpret")
+    assert_same(ops.segment_ring_sum(*_cpu(v, ids), S), want)
+
+
 # ---------------------------------------------------------------------------
 # matvec and rank1_chain_update
 # ---------------------------------------------------------------------------
