@@ -14,8 +14,12 @@ Phases (any failed check raises, and the script exits non-zero):
    float32 at the shapes the main path gives it (bitwise; ``cofactor_update``
    and ``matvec`` also with values of 12 significant bits, which a product
    in TF32 or bf16 would round; ``ring_mul`` and ``outer_accumulate`` also on
-   normal data; ``segment_ring_sum`` also bitwise from run to run on normal
-   data and at one device event a call; ``flash_attention`` in bf16 and
+   normal data; ``segment_ring_sum`` and ``cofactor_update`` also bitwise
+   from run to run on normal data and at one device event a call,
+   ``cofactor_update`` also on two streams at once and at m = 300 and 1001,
+   where it walks pairs of bands; ``scatter_add`` also at
+   a kernel-phase batch of 65,536 rows, with the wrapper's host µs a call
+   beside ``index_add_``'s; ``flash_attention`` in bf16 and
    float32 against its plain version in float64, by the kernel the dispatch
    takes: ``flash_attention_wgmma`` for bf16 at D = 64 and 128, where the
    SIMT ``flash_attention`` is checked and timed beside it), timed with
@@ -159,6 +163,13 @@ def kernel_device_ms(fn, kernel: str, calls: int = 20):
     return sum(e.time_range.elapsed_us() for e in mine) / 1e3 / calls
 
 
+def all_device_ms(fn, calls: int = 20) -> float:
+    """Mean device time of every kernel and copy ``fn`` runs, per call (a
+    library call may take more than one kernel)."""
+    events, _ = device_events(fn, calls)
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / calls
+
+
 def bound_ms(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S
              ) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
@@ -214,19 +225,10 @@ def kernel_phase(rng) -> dict:
                 scatter_add(view.clone(), ids_tensor(pad_np), vals),
                 ref.scatter_add_ref(view.clone(), ids_tensor(pad_np), vals))
             ids = ids_tensor(ids_np)
-            ids64 = ids.long()
+            row = scatter_add_row(S, d, B, ids_np, ids, vals, view, err)
             work = view.clone()
-            u = len(np.unique(ids_np))
-            bms, by = bound_ms(B * 4 + B * d * 4 + 2 * u * d * 4, B * d)
-            row = dict(
-                shape=dict(S=S, d=d, B=B), max_abs_err=err,
-                kernel_ms=time_ms(lambda: scatter_add(work, ids, vals)),
-                device_ms=kernel_device_ms(lambda: scatter_add(work, ids, vals),
-                                           "scatter_add_kernel"),
-                plain_ms=time_ms(lambda: ref.scatter_add_ref(work, ids, vals)),
-                library_ms=time_ms(lambda: work.index_add_(0, ids64, vals)),
-                bound_ms=bms, bound_by=by,
-                # the two ⊎ paths the dispatch chooses between at this shape
+            # the two ⊎ paths the dispatch chooses between at this shape
+            row.update(
                 path_scatter_ms=time_ms(lambda: scatter_ops.scatter_add_flat(
                     work, ids, vals, backend="scatter")),
                 path_compact_ms=time_ms(lambda: scatter_ops.scatter_add_flat(
@@ -234,6 +236,21 @@ def kernel_phase(rng) -> dict:
             rows["scatter_add"].append(row)
             log({"kernel": "scatter_add", **row})
             del view, work
+
+    # a kernel-phase batch, where the device time is no longer the launch
+    # floor: B = 65,536 rows of d = 111 (29 MB of values) into the path view
+    S, d, Bk = 1_179_648, 111, 65_536
+    view, vals = ints(rng, (S, d)), ints(rng, (Bk, d))
+    ids_np = rng.integers(0, S, size=Bk)
+    pad_np = ids_np.copy()
+    pad_np[:8], pad_np[8:16] = -1, S + 3
+    err = check_equal(f"scatter_add S={S} d={d} B={Bk}",
+                      scatter_add(view.clone(), ids_tensor(pad_np), vals),
+                      ref.scatter_add_ref(view.clone(), ids_tensor(pad_np), vals))
+    row = scatter_add_row(S, d, Bk, ids_np, ids_tensor(ids_np), vals, view, err)
+    rows["scatter_add"].append(row)
+    log({"kernel": "scatter_add", **row})
+    del view, vals
 
     # the compact ⊎ path's shapes (S = B, local ranks of the batch's keys),
     # and B = S = 65,536, past where streaming all ids in every block pays
@@ -323,6 +340,50 @@ def kernel_phase(rng) -> dict:
     return rows
 
 
+def host_us(fn, calls: int = 2000) -> float:
+    """Host time of one ``fn()`` call in µs: ``calls`` calls enqueued back
+    to back, timed on the host clock before the closing synchronise (the
+    wrapper's own cost, where the device keeps up)."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls
+
+
+def scatter_add_row(S, d, B, ids_np, ids, vals, view, err) -> dict:
+    """``scatter_add``'s numbers at one shape: the kernel and ``index_add_``
+    timed in turns (events ms) and under the profiler (device ms), the
+    wrapper's host µs a call, the plain version and the bytes bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ring_scatter import scatter_add
+
+    ids64 = ids.long()
+    work = view.clone()
+    u = len(np.unique(ids_np))
+    bms, by = bound_ms(B * 4 + B * d * 4 + 2 * u * d * 4, B * d)
+    turns = time_in_turns({
+        "kernel": lambda: scatter_add(work, ids, vals),
+        "library": lambda: work.index_add_(0, ids64, vals)})
+    return dict(
+        shape=dict(S=S, d=d, B=B), max_abs_err=err,
+        kernel_ms=turns["kernel"],
+        device_ms=kernel_device_ms(lambda: scatter_add(work, ids, vals),
+                                   "scatter_add_kernel"),
+        host_us=host_us(lambda: scatter_add(work, ids, vals)),
+        plain_ms=time_ms(lambda: ref.scatter_add_ref(work, ids, vals)),
+        library_ms=turns["library"],
+        library_device_ms=all_device_ms(lambda: work.index_add_(0, ids64, vals)),
+        library_host_us=host_us(lambda: work.index_add_(0, ids64, vals)),
+        bound_ms=bms, bound_by=by)
+
+
 def normal(rng, shape):
     import torch
 
@@ -354,6 +415,60 @@ def widen(rng, x, w) -> None:
     w[cols * (B // m)] = 1.0
 
 
+def check_cofactor_repeats(rng, B: int, m: int) -> None:
+    """``cofactor_update`` on normal data gives the same bits on every call
+    (fixed summation order, no atomics on the data), and agrees with a
+    float64 sum within float32 summation error."""
+    import torch
+    from repro_torch.kernels.cofactor_update import cofactor_update
+
+    x, w = normal(rng, (B, m)), normal(rng, (B,))
+    first = [t.clone() for t in cofactor_update(x, w)]
+    for _ in range(3):
+        again = cofactor_update(x, w)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"cofactor_update B={B} m={m}: two calls on the "
+                                 f"same normal data differ")
+    x64, w64 = x.double(), w.double()
+    xw64 = x64 * w64[:, None]
+    want = (w64.sum().reshape(1), xw64.sum(0), xw64.T @ x64)
+    mags = (w64.abs().sum().reshape(1), xw64.abs().sum(0), xw64.abs().T @ x64.abs())
+    for name, g, r, mag in zip("csQ", first, want, mags):
+        # each of at most B + 2 adds rounds at 2⁻²⁴ of a partial sum
+        if not bool(((g.double() - r).abs() <= (B + 2) * 2.0 ** -24 * mag).all()):
+            raise AssertionError(f"cofactor_update B={B} m={m} normal {name}: "
+                                 f"beyond float32 summation error")
+
+
+def check_cofactor_two_streams(rng) -> None:
+    """Calls on two streams at once, 20 rounds, each result equal to the
+    same call alone: each stream's scratch (and ticket counters) is its
+    own."""
+    import torch
+    from repro_torch.kernels import cofactor_update as tcof
+
+    B, m = STATS_B, STATS_M
+    xs = [normal(rng, (B, m)) for _ in range(2)]
+    w = normal(rng, (B,))
+    alone = [tcof.cofactor_update(x, w)[2].clone() for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(20):
+        for x, st in zip(xs, streams):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                outs.append(tcof.cofactor_update(x, w)[2])
+    torch.cuda.synchronize()
+    for k, got in enumerate(outs):
+        if not torch.equal(got, alone[k % 2]):
+            raise AssertionError("cofactor_update on two streams at once differs "
+                                 "from the same call alone")
+    keys = {key for key in tcof._scratch if key[0] == torch.cuda.current_device()}
+    if len(keys) < 3:  # the default stream and the two
+        raise AssertionError(f"cofactor_update: streams share a scratch ({keys})")
+
+
 def ops_kernel_rows(rng, rows: dict) -> None:
     """The kernel-ops layer's four kernels at the JAX package's benchmark
     shapes (``benchmarks/bench_kernels.py``), at the shapes paths A to C
@@ -382,23 +497,54 @@ def ops_kernel_rows(rng, rows: dict) -> None:
             err = max([err] + [check_equal(f"cofactor_update B={B} m={m} {kind} {n}",
                                            g, r)
                                for n, g, r in zip("csQ", got, (c.reshape(1), s, Q))])
+        check_cofactor_repeats(rng, B, m)
+        events, _ = device_events(lambda: cofactor_update(x, w), 20)
+        if len(events) != 20:
+            raise AssertionError(f"cofactor_update B={B} m={m}: "
+                                 f"{len(events) / 20} device events a call, expected 1")
         xw = x * w[:, None]
         # reads x and w once, writes (c, s, Q); Q is symmetric, so m(m+1)/2
         # dot products of B terms (B·m(m+1) flops), B·m multiplies for the
         # weighting and B·m + B adds for s and c
         bms, by = bound_ms(4 * (B * m + B + m * m + m + 1),
                            B * m * (m + 1) + 2 * B * m + B)
+        # the Q product alone, on rows scaled beforehand
+        turns = time_in_turns({"kernel": lambda: cofactor_update(x, w),
+                               "library": lambda: torch.mm(xw.T, x)})
         row = dict(
-            shape=dict(B=B, m=m), max_abs_err=err,
-            kernel_ms=time_ms(lambda: cofactor_update(x, w)),
+            shape=dict(B=B, m=m), max_abs_err=err, device_events_per_call=1,
+            kernel_ms=turns["kernel"],
             device_ms=kernel_device_ms(lambda: cofactor_update(x, w), "cofactor_"),
             plain_ms=time_ms(lambda: ref.cofactor_update_ref(x, w)),
-            # the Q product alone, on rows scaled beforehand
-            library_ms=time_ms(lambda: torch.mm(xw.T, x)),
+            library_ms=turns["library"],
+            library_device_ms=all_device_ms(lambda: torch.mm(xw.T, x)),
             bound_ms=bms, bound_by=by)
         rows["cofactor_update"].append(row)
         log({"kernel": "cofactor_update", **row})
         del x, w, xw
+    # the banded kernel (m >= 192: passes over pairs of bands), bitwise on
+    # both kinds of data and repeatable, with its device time beside
+    # torch.mm's; checks, not rows of the kernels line, whose shapes are
+    # the paths'
+    for B, m in ((1001, 300), (2049, 1001), (65_536, 300)):
+        for kind in ("ints", "wide"):
+            x, w = ints(rng, (B, m)), ints(rng, (B,), -1, 2)
+            if kind == "wide":
+                widen(rng, x, w)
+            c, s, Q = ref.cofactor_update_ref(x, w)
+            got = cofactor_update(x, w)
+            for n, g, r in zip("csQ", got, (c.reshape(1), s, Q)):
+                check_equal(f"cofactor_update B={B} m={m} {kind} {n}", g, r)
+        check_cofactor_repeats(rng, B, m)
+        xw = x * w[:, None]
+        bms, by = bound_ms(4 * (B * m + B + m * m + m + 1),
+                           B * m * (m + 1) + 2 * B * m + B)
+        log({"check": "cofactor_update banded", "B": B, "m": m, "ok": True,
+             "device_ms": kernel_device_ms(lambda: cofactor_update(x, w), "cofactor_", 5),
+             "library_device_ms": all_device_ms(lambda: torch.mm(xw.T, x), 5),
+             "bound_ms": bms, "bound_by": by})
+        del x, w, xw
+    check_cofactor_two_streams(rng)
 
     # ring_mul: the benchmark's 256 keys at m = 32, and the retailer
     # cofactor engine's largest view at RETAILER_DOMS_BIG (1,179,648 keys,

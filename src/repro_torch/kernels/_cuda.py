@@ -53,6 +53,7 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
         self._errstr = None
+        self._lib = None
 
     @property
     def name(self) -> str:
@@ -78,10 +79,16 @@ class CudaKernel:
                                 stderr=subprocess.STDOUT, text=True)
         return proc, tmp, log
 
+    def library(self):
+        """The kernel's loaded library (built at first use)."""
+        if self._lib is None:
+            build_all([self])
+            self._lib = ctypes.CDLL(str(self.library_path()))
+        return self._lib
+
     def _function(self):
         if self._fn is None:
-            build_all([self])
-            lib = ctypes.CDLL(str(self.library_path()))
+            lib = self.library()
             fn = getattr(lib, self.entry)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
@@ -151,12 +158,14 @@ def on_card(t) -> bool:
 
 def check_tensor(name: str, t, dtype, shape: tuple, device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``device`` (what the kernels take)."""
+    ``device`` (what the kernels take).  ``shape`` (a tuple or
+    ``torch.Size``) is compared with ``t.shape`` as it is and ``dtype`` by
+    identity, so a passing check builds nothing."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
+    if t.dtype is not dtype:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if t.shape != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

@@ -6,6 +6,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace repro {
 
 constexpr int kThreads = 256;
@@ -24,6 +26,45 @@ inline unsigned int grid_for(long long n) {
 inline unsigned int grid_for_tiles(long long tiles) {
   const long long cap = 132LL * 32;
   return static_cast<unsigned int>(tiles < cap ? (tiles > 0 ? tiles : 1) : cap);
+}
+
+// Shared-memory barriers (mbarrier) that asynchronous copies complete on.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.  A
+// phase still open after 2³⁴ cycles (seconds) means a lost transfer: trap,
+// so that the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 34)) __trap();
+  }
 }
 
 // Dynamic shared memory above the default 48 KB must be opted into per

@@ -5,18 +5,25 @@
 // body _scatter_kernel).  The TPU kernel builds one-hot [B, S] blocks in
 // VMEM and contracts them on the MXU because a TPU has no fast scatter.  On
 // Hopper that form would spend S·B·d multiply-adds on B·d payload values;
-// the card has float32 atomics that resolve in L2, so each payload element
-// becomes one atomic add into its view row.
+// the card has float32 reductions that resolve in L2, so each payload row
+// becomes adds into its view row.
 //
 // Bound: bytes.  A call reads B·d·4 bytes of values and B·4 bytes of ids,
 // and reads and writes back the touched view rows (U·d·4 each way for U
 // distinct ids); it does one add per element, far below the card's rate.
-// Design: one thread per (row b, column j), neighbouring threads on
-// neighbouring columns, so both the value reads and the view-row updates
-// coalesce; the view stays where it is in device memory and is never
-// copied.  Rows whose id is < 0 or >= S are padding and drop.  Duplicate
-// ids of one batch meet in the atomics in no fixed order: the sum is exact
-// for integer-valued payloads and within float32 rounding otherwise.
+// Design: one warp per batch row, with a grid stride over rows.  Lane 0
+// reads the row's id and shuffles it to the warp, so no element pays an
+// index division.  The view row's 16-byte aligned interior takes Hopper's
+// vector reductions (atomicAdd on float4, red.global.add.v4.f32, sm_90),
+// one per four columns; the scalar head before it and tail after it take
+// scalar reductions (at d = 111 where the row starts within 16 bytes
+// depends on its id).  The view stays where it is in device memory and is
+// never copied.  Rows whose id is < 0 or >= S are padding and drop.
+// Duplicate ids of one batch meet in the reductions in no fixed order: the
+// sum is exact for integer-valued payloads and within float32 rounding
+// otherwise.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
@@ -24,15 +31,29 @@ namespace {
 __global__ void scatter_add_kernel(float* __restrict__ view,
                                    const int* __restrict__ ids,
                                    const float* __restrict__ vals,
-                                   long long S, int d, long long n) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       t < n; t += stride) {
-    const long long b = t / d;
-    const int id = __ldg(ids + b);
-    if (id >= 0 && id < S) {
-      atomicAdd(view + static_cast<long long>(id) * d + (t - b * d), __ldg(vals + t));
+                                   long long S, int d, long long B) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
+  for (long long b = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+       b < B; b += warps) {
+    int id = lane == 0 ? __ldg(ids + b) : 0;
+    id = __shfl_sync(0xffffffffu, id, 0);
+    if (id < 0 || id >= S) continue;  // the same for the whole warp
+    float* row = view + static_cast<long long>(id) * d;
+    const float* src = vals + b * d;
+    // floats up to the row's first 16-byte boundary, then whole float4s
+    const int to_boundary = static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15) >> 2);
+    const int head = to_boundary < d ? to_boundary : d;
+    const int vectors = (d - head) >> 2;
+    const int tail = head + 4 * vectors;
+    if (lane < head) atomicAdd(row + lane, __ldg(src + lane));
+    for (int v = lane; v < vectors; v += 32) {
+      const int k = head + 4 * v;
+      atomicAdd(reinterpret_cast<float4*>(row + k),
+                make_float4(__ldg(src + k), __ldg(src + k + 1), __ldg(src + k + 2),
+                            __ldg(src + k + 3)));
     }
+    if (tail + lane < d) atomicAdd(row + tail + lane, __ldg(src + tail + lane));
   }
 }
 
@@ -42,10 +63,9 @@ __global__ void scatter_add_kernel(float* __restrict__ view,
 extern "C" int repro_scatter_add(float* view, const int* ids, const float* vals,
                                  long long S, int d, long long B,
                                  cudaStream_t stream) {
-  const long long n = B * static_cast<long long>(d);
-  if (n > 0) {
-    scatter_add_kernel<<<repro::grid_for(n), repro::kThreads, 0, stream>>>(
-        view, ids, vals, S, d, n);
+  if (B > 0 && d > 0) {
+    scatter_add_kernel<<<repro::grid_for(32 * B), repro::kThreads, 0, stream>>>(
+        view, ids, vals, S, d, B);
   }
   return static_cast<int>(cudaGetLastError());
 }

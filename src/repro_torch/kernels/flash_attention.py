@@ -15,7 +15,8 @@ Two kernels, chosen by :func:`variant` from the dtype and head dim alone:
 
 * ``csrc/flash_attention_wgmma.cu`` for bf16 at D ∈ {64, 128}, the head
   dims of every dense GQA config the port builds: tensor cores (wgmma) fed
-  by TMA, with P split into two bf16 terms for PV;
+  by TMA, with P split into three bf16 terms for PV (they sum to the
+  float32 P exactly);
 * ``csrc/flash_attention.cu`` (float32 CUDA-core FMAs) for float32, the
   path's precision check, and for bf16 at D ∈ {8, 16, 32}.
 """

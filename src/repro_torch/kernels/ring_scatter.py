@@ -81,6 +81,18 @@ def scatter_dedup_ref(view: torch.Tensor, seg_ids: torch.Tensor,
     return ref.scatter_add_ref(view, mids.reshape(-1), sums.reshape(-1, d))
 
 
+def row_split(d: int, offset: int) -> tuple[int, int, int]:
+    """(head, vectors, tail) of the ``scatter_add`` kernel's split of one
+    view row of ``d`` floats that starts ``offset`` floats past a 16-byte
+    boundary: ``head`` scalar adds up to the boundary, ``vectors`` adds of
+    four floats (Hopper's vector reduction, 16-byte aligned), ``tail``
+    scalar adds after them.  At d = 111 the offset, and so the split,
+    depends on the row's id."""
+    head = min(d, -offset % 4)
+    vectors = (d - head) // 4
+    return head, vectors, d - head - 4 * vectors
+
+
 def scatter_add(view: torch.Tensor, seg_ids: torch.Tensor,
                 values: torch.Tensor, dedup: bool = False) -> torch.Tensor:
     """view [S, d] += values [B, d] at seg_ids [B] (int32), in place;

@@ -16,6 +16,21 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 #: of the adds: the precondition of the bitwise comparisons
 EXACT_LIMIT = 2 ** 24
 
+#: torch's intra-op threads in the port's tests.  The suite runs under
+#: several xdist workers; torch's default (a thread for every core) in one
+#: worker would compete with all the others, the reference's timing guards
+#: among them (tests/test_verifier.py).
+TORCH_THREADS = 1
+
+
+def cap_torch_threads() -> None:
+    """Hold torch to TORCH_THREADS intra-op threads (every port test file
+    calls this when it is imported)."""
+    import torch
+
+    if torch.get_num_threads() > TORCH_THREADS:
+        torch.set_num_threads(TORCH_THREADS)
+
 
 def db_to_numpy(db) -> dict:
     """Reference database -> ``{rel: (schema, {comp: array})}``."""

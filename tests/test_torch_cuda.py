@@ -11,6 +11,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_parity  # noqa: E402
+
+_torch_parity.cap_torch_threads()
+
 from repro_torch.core import IVMEngine, Query, sum_ring  # noqa: E402
 from repro_torch.core import plan as tplan  # noqa: E402
 from repro_torch.core.apps import regression  # noqa: E402
@@ -98,6 +102,25 @@ def test_cuda_gather_mul_scatter_matches_plain(cuda_device, S, Sg):
     got = ring_scatter.gather_mul_scatter(view.clone(), out_ids, src, in_ids, scale)
     want = ref.gather_mul_scatter_ref(view.clone(), out_ids, src, in_ids, scale)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("S,d,B", [(1_179_648, 111, 65_536), (300, 111, 2000),
+                                   (50, 3, 700)])
+def test_cuda_scatter_add_row_split_matches_plain(cuda_device, S, d, B, offset):
+    """The warp-per-row kernel with its scalar head, float4 reductions and
+    scalar tail, on views that start 0-3 floats past a 16-byte boundary (so
+    every id residue meets every split), at a kernel-phase batch too."""
+    rng = np.random.default_rng(S + d + B + offset)
+    base = torch.tensor(_ints(rng, (S * d + offset,)), device=cuda_device)
+    want = base.clone()
+    ids = torch.tensor(_ids(rng, S, B), device=cuda_device)
+    vals = torch.tensor(_ints(rng, (B, d)), device=cuda_device)
+    n = ring_scatter.SCATTER_ADD.launches
+    ring_scatter.scatter_add(base[offset:].view(S, d), ids, vals)
+    assert ring_scatter.SCATTER_ADD.launches == n + 1
+    ref.scatter_add_ref(want[offset:].view(S, d), ids, vals)
+    assert torch.equal(base, want)
 
 
 def test_cuda_wrapper_rejects_cpu_operands(cuda_device):
@@ -230,7 +253,9 @@ def _on(dev, *arrays):
     return [torch.tensor(a, device=dev) for a in arrays]
 
 
-@pytest.mark.parametrize("B,m", [(1, 1), (33, 130), (4096, 32), (70001, 7), (0, 5)])
+@pytest.mark.parametrize("B,m", [(1, 1), (33, 130), (4096, 32), (70001, 7), (0, 5),
+                                 (65_536, 32), (262_144, 130), (300, 300), (1001, 300),
+                                 (2049, 1001)])
 def test_cuda_cofactor_update_matches_plain(cuda_device, B, m):
     from repro_torch.kernels import cofactor_update as tcof
 
@@ -244,7 +269,7 @@ def test_cuda_cofactor_update_matches_plain(cuda_device, B, m):
         assert torch.equal(g, want)
 
 
-@pytest.mark.parametrize("B,m", [(65_536, 32), (4099, 130)])
+@pytest.mark.parametrize("B,m", [(65_536, 32), (4099, 130), (4099, 300)])
 def test_cuda_cofactor_update_is_full_float32(cuda_device, B, m):
     """One entry of each column is an odd integer of 12 significant bits,
     which TF32 or bf16 would round; every sum stays below 2**24, so the
@@ -262,6 +287,80 @@ def test_cuda_cofactor_update_is_full_float32(cuda_device, B, m):
     want = (w64.sum(keepdims=True), w64 @ x64, (x64 * w64[:, None]).T @ x64)
     for g, r in zip(got, want):
         assert np.array_equal(g.cpu().numpy().astype(np.float64), r)
+
+
+@pytest.mark.parametrize("B,m", [(4096, 32), (65_536, 32), (4099, 130), (262_144, 130),
+                                 (1001, 256), (1001, 300), (65_536, 300)])
+def test_cuda_cofactor_update_is_one_launch_and_deterministic(cuda_device, B, m):
+    """One device event a call, the same bits on every call on normal data
+    (fixed summation order), within float32 summation error of a float64
+    sum, and Q exactly symmetric (mirrored)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import cofactor_update as tcof
+
+    rng = np.random.default_rng(B + m)
+    x, w = _on(cuda_device, rng.standard_normal((B, m)).astype(np.float32),
+               rng.standard_normal(B).astype(np.float32))
+    first = [t.clone() for t in tcof.cofactor_update(x, w)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        agains = [tcof.cofactor_update(x, w) for _ in range(3)]
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(events) == 3 and all("cofactor_" in e.name for e in events)
+    for again in agains:
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert torch.equal(first[2], first[2].T)
+    x64, w64 = x.double(), w.double()
+    xw64 = x64 * w64[:, None]
+    want = (w64.sum().reshape(1), xw64.sum(0), xw64.T @ x64)
+    mags = (w64.abs().sum().reshape(1), xw64.abs().sum(0), xw64.abs().T @ x64.abs())
+    for g, r, mag in zip(first, want, mags):
+        assert bool(((g.double() - r).abs() <= (B + 2) * 2.0 ** -24 * mag).all())
+
+
+def test_cuda_cofactor_update_on_two_streams(cuda_device):
+    """Calls on two streams at once each equal the same call alone: each
+    stream has its own scratch and ticket counters."""
+    from repro_torch.kernels import cofactor_update as tcof
+
+    rng = np.random.default_rng(2)
+    xs = _on(cuda_device, *(rng.standard_normal((65_536, 32)).astype(np.float32)
+                            for _ in range(2)))
+    w = torch.ones(65_536, device=cuda_device)
+    alone = [tcof.cofactor_update(x, w)[2].clone() for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for _ in range(10):
+        for x, st in zip(xs, streams):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                outs.append(tcof.cofactor_update(x, w)[2])
+    torch.cuda.synchronize()
+    assert all(torch.equal(got, alone[k % 2]) for k, got in enumerate(outs))
+
+
+def test_cuda_cofactor_update_scratch_stays_bounded_under_stream_churn(cuda_device):
+    """A call on each of many streams, one after another, each equal to the
+    call alone, keeps the scratch of at most SCRATCH_STREAMS streams."""
+    from repro_torch.kernels import cofactor_update as tcof
+
+    rng = np.random.default_rng(3)
+    x, w = _on(cuda_device, _ints(rng, (4096, 32)), _ints(rng, (4096,), -1, 2))
+    want = [t.clone() for t in tcof.cofactor_update(x, w)]
+    outs = []
+    for _ in range(40):
+        st = torch.cuda.Stream()
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append(tcof.cofactor_update(x, w))
+        keys = [k for k in tcof._scratch if k[0] == x.device.index]
+        assert len(keys) <= tcof.SCRATCH_STREAMS
+    torch.cuda.synchronize()
+    for got in outs:
+        assert all(torch.equal(g, r) for g, r in zip(got, want))
 
 
 @pytest.mark.parametrize("kind", ["ints", "normal"])

@@ -11,9 +11,12 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-pytest.importorskip("jax")
 
 import _torch_parity as P  # noqa: E402
+
+P.cap_torch_threads()
+pytest.importorskip("jax")
+
 from benchmarks import common as bc  # noqa: E402
 from repro.core import IVMEngine as RefEngine  # noqa: E402
 from repro.core import Query as RefQuery  # noqa: E402

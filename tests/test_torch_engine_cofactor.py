@@ -9,9 +9,12 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-jnp = pytest.importorskip("jax.numpy")
 
 import _torch_parity as P  # noqa: E402
+
+P.cap_torch_threads()
+jnp = pytest.importorskip("jax.numpy")
+
 from benchmarks import common as bc  # noqa: E402
 from repro.core.apps import regression as ref_regression  # noqa: E402
 from repro_torch.core.apps import regression  # noqa: E402

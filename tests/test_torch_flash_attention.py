@@ -24,6 +24,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import _torch_parity  # noqa: E402
+
+_torch_parity.cap_torch_threads()
 jnp = pytest.importorskip("jax.numpy")
 
 from repro.kernels import ops as rops  # noqa: E402
@@ -136,6 +140,19 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(what):
         q, k, v = (t.to("meta") for t in (q, k, v))
     with pytest.raises((ValueError, TypeError)):
         tflash.flash_attention(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("T,Tk", [(16, 8), (8, 16)])
+def test_causal_attention_with_unequal_lengths_raises(T, Tk):
+    """The reference aligns a causal mask with T != Tk at the last query in
+    its plain version and at the first in its Pallas kernel; the port takes
+    neither and refuses the call on every device."""
+    q = torch.tensor(_qkv(1, 1, 2, 1, T, 16)[0])
+    _, k, v = map(torch.tensor, _qkv(1, 1, 2, 1, Tk, 16))
+    with pytest.raises(ValueError, match="causal attention needs T == Tk"):
+        tflash.flash_attention(q, k, v, causal=True)
+    out = tflash.flash_attention(q, k, v, causal=False)
+    assert out.shape == q.shape
 
 
 @pytest.mark.parametrize("kw", [{"window": 8}, {"prefix_len": 4}])

@@ -17,9 +17,12 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-jnp = pytest.importorskip("jax.numpy")
 
 import _torch_parity as P  # noqa: E402
+
+P.cap_torch_threads()
+jnp = pytest.importorskip("jax.numpy")
+
 from benchmarks import common as bc  # noqa: E402
 from repro.core import IVMEngine as RefEngine  # noqa: E402
 from repro.core import Query as RefQuery  # noqa: E402

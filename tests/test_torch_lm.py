@@ -21,6 +21,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import _torch_parity  # noqa: E402
+
+_torch_parity.cap_torch_threads()
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 

@@ -20,6 +20,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import _torch_parity  # noqa: E402
+
+_torch_parity.cap_torch_threads()
 jnp = pytest.importorskip("jax.numpy")
 
 from repro.kernels import ops as rops  # noqa: E402
@@ -317,16 +321,24 @@ def test_every_kernel_has_its_own_source(monkeypatch):
 @pytest.mark.parametrize("rows,width", [(0, 3), (1, 1), (33, 130), (4096, 32),
                                         (262_144, 130), (8192, 8192), (100_001, 7)])
 def test_kernel_splits_cover_every_row_within_one_wave(rows, width):
-    """The chunking the wrappers hand the cofactor and column-matvec
-    kernels: every row in exactly one chunk, no chunk empty, and the
-    cofactor grid within its one wave of blocks."""
+    """The partitions the wrappers hand the column-matvec and cofactor
+    kernels: for matvec every row in exactly one chunk, no chunk empty; for
+    cofactor_update every whole quad of rows in exactly one block, in order,
+    the last rows (fewer than four) left to the last cluster, and the grid
+    whole clusters within the cap it is given (here MAX_BLOCKS, two blocks
+    an SM) over all its passes, unless a pass alone needs a cluster.  The
+    card's own one-wave cap (``repro_cofactor_max_clusters``, through
+    ``max_blocks``) is checked on the card only."""
     from repro_torch.kernels import cofactor_update as tcof
     from repro_torch.kernels import rank1_chain
 
-    for splits, chunk in (tcof.cofactor_splits(rows, width),
-                          rank1_chain.column_splits(rows, width)):
-        assert 1 <= splits <= 65535 and splits * chunk >= rows
-        assert rows == 0 or (splits - 1) * chunk < rows
-    splits, _ = tcof.cofactor_splits(rows, width)
-    tiles = (-(-width // tcof.TILE)) ** 2
-    assert splits == 1 or splits * tiles <= tcof.TARGET_BLOCKS
+    splits, chunk = rank1_chain.column_splits(rows, width)
+    assert 1 <= splits <= 65535 and splits * chunk >= rows
+    assert rows == 0 or (splits - 1) * chunk < rows
+    plan = tcof.cofactor_plan(rows, width, tcof.MAX_BLOCKS)
+    assert plan.blocks % tcof.CLUSTER == 0
+    assert plan.blocks * plan.passes <= max(tcof.MAX_BLOCKS, tcof.CLUSTER * plan.passes)
+    ranges = [tcof.block_rows(rows, plan.blocks, b) for b in range(plan.blocks)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == rows - rows % 4
+    assert all(hi == lo for (_, hi), (lo, _) in zip(ranges, ranges[1:]))
+    assert all(lo % 4 == 0 and lo <= hi for lo, hi in ranges)

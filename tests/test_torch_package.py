@@ -18,6 +18,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_parity  # noqa: E402
+
+_torch_parity.cap_torch_threads()
+
 from repro_torch.core import IVMEngine, Query, sum_ring  # noqa: E402
 from repro_torch.core import plan, storage  # noqa: E402
 from repro_torch.data import synth  # noqa: E402

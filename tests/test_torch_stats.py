@@ -20,6 +20,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import _torch_parity  # noqa: E402
+
+_torch_parity.cap_torch_threads()
 jnp = pytest.importorskip("jax.numpy")
 
 from repro.data import stats as rstats  # noqa: E402

@@ -3,9 +3,12 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import _torch_parity  # noqa: E402  (also puts the repository root on sys.path)
+
+_torch_parity.cap_torch_threads()
 pytest.importorskip("jax")
 
-import _torch_parity  # noqa: E402,F401  (puts the repository root on sys.path)
 from benchmarks import common as bc  # noqa: E402
 from repro.core import DegreeMRing as RefDegreeMRing  # noqa: E402
 from repro.core import sum_ring as ref_sum_ring  # noqa: E402
