@@ -8,7 +8,7 @@ Run from the repository root with one card visible:
 Phases (any failed check raises, and the script exits non-zero):
 
 1. Device: the card's name and power limit from nvidia-smi, then a build of
-   all eleven CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   all twelve CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together).
 2. Kernels: each kernel against its plain PyTorch version on integer-valued
    float32 at the shapes the main path gives it (bitwise; ``cofactor_update``
@@ -17,15 +17,19 @@ Phases (any failed check raises, and the script exits non-zero):
    normal data; ``segment_ring_sum`` and ``cofactor_update`` also bitwise
    from run to run on normal data and at one device event a call,
    ``cofactor_update`` also on two streams at once and at m = 300 and 1001,
-   where it walks pairs of bands; ``scatter_add`` also at
+   where it walks pairs of bands; ``matvec`` also bitwise from run to run
+   on normal data and at one device event a call in both layouts, timed in
+   turns with ``torch.mv``; ``scatter_add`` also at
    a kernel-phase batch of 65,536 rows, with the wrapper's host µs a call
    beside ``index_add_``'s; ``flash_attention`` in bf16 and
    float32 against its plain version in float64, by the kernel the dispatch
-   takes: ``flash_attention_wgmma`` for bf16 at D = 64 and 128, where the
-   SIMT ``flash_attention`` is checked and timed beside it), timed with
+   takes: ``flash_attention_wgmma`` for bf16 and ``flash_attention_tf32``
+   for float32 at D = 64 and 128, where the SIMT ``flash_attention`` is
+   checked and timed beside it), timed with
    CUDA events and the profiler beside its plain version, a one-call
    PyTorch yardstick (``library_ms``, never used by the port) and its
-   bound.
+   bound (float32 flash rows also ``tc_bound_ms``, as three TF32 products
+   on the tensor cores).
 3. Paths, each through ``IVMEngine.apply_update`` (fivm, dense) at
    ``RETAILER_DOMS_BIG`` with batches of 1000 tuples, checked against a
    float64 re-evaluation, with every kernel's launch count reset before
@@ -49,9 +53,11 @@ Phases (any failed check raises, and the script exits non-zero):
      ``outer_accumulate``).
 5. Path D, LM serving: llama3.2-1b at full width and depth, weights drawn
    from a seeded ``torch.Generator`` on the card, 4 prompts of 1024 tokens
-   (flash attention in every prefill layer).  (i) In float32 (the SIMT
-   ``flash_attention``), the prefill and two decode steps against a float64
-   forward written here; (ii) in bf16 (``flash_attention_wgmma``),
+   (flash attention in every prefill layer).  (i) In float32
+   (``flash_attention_tf32``), the prefill and two decode steps against a
+   float64 forward written here, then the same for the reduced config, 2
+   prompts of 64 tokens at head dim 16 (the SIMT ``flash_attention``);
+   (ii) in bf16 (``flash_attention_wgmma``),
    ``Server.generate`` of 32 tokens, timed, with the first decode step held
    to a bf16 prefill over the extended prompt and the decode loop
    profiled.
@@ -92,6 +98,19 @@ def log(obj) -> None:
     print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
 
 
+class Laps:
+    """Logs the host seconds each phase of the script takes, so that the
+    time the script grows by shows where it went."""
+
+    def __init__(self):
+        self.last = time.perf_counter()
+
+    def lap(self, phase: str) -> None:
+        now = time.perf_counter()
+        log({"phase": phase, "seconds": now - self.last})
+        self.last = now
+
+
 def time_ms(fn, reps: int = REPS, warmup: int = 5) -> float:
     """Median device time of one ``fn()`` call over ``reps`` calls, each
     between its own pair of CUDA events, after ``warmup`` calls."""
@@ -120,21 +139,36 @@ def time_in_turns(fns: dict) -> dict:
     return {name: statistics.mean(t) for name, t in times.items()}
 
 
+#: the marker kernel that opens and closes each profiled window
+#: (``torch.cuda._sleep``), and its length in cycles
+MARKER, MARKER_CYCLES = "spin_kernel", 1000
+
+
 def device_events(fn, calls: int):
     """Device-side events (kernels, copies) of ``calls`` calls of ``fn``
-    under torch.profiler, and the host wall seconds of those calls."""
+    under torch.profiler, and the host wall seconds of those calls.  A
+    marker kernel, run and waited for, opens the window and another closes
+    it, and both are dropped from the list: on the H100 the profiler was
+    seen to leave out one kernel at the edge of a window (19 of 20 launches
+    listed; with the markers every launch, and one of the two markers),
+    and at times every kernel of a window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(MARKER_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA], wall
+        torch.cuda._sleep(MARKER_CYCLES)
+        torch.cuda.synchronize()
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and MARKER not in e.name], wall
 
 
 def _busy(events, wall) -> dict:
@@ -152,13 +186,53 @@ def _busy(events, wall) -> dict:
                 top=[[name[:90], ms, n] for name, (ms, n) in top])
 
 
+#: profiled windows a launch count or a kernel's device time may take: the
+#: profiler at times lists no kernel, or not all, of a window (see
+#: ``device_events``; two windows in a row listed none in one run), and
+#: then the window is profiled again
+WINDOWS = 5
+
+
+def listed_launches(fn, kernel: str, calls: int, label: str):
+    """The device events of the first of up to WINDOWS profiled windows of
+    ``calls`` calls of ``fn`` that lists ``calls`` kernels whose names hold
+    ``kernel`` (else of the last window), and the windows it took; logs the
+    counts when it took more than one."""
+    counts = []
+    for _ in range(WINDOWS):
+        events, _ = device_events(fn, calls)
+        counts.append(sum(kernel in e.name for e in events))
+        if counts[-1] == calls:
+            break
+    if len(counts) > 1:
+        log({"profiler_windows": label, "kernels_listed": counts, "calls": calls})
+    return events, len(counts)
+
+
+def check_one_launch(label: str, fn, kernel: str, wrapper, calls: int = 20) -> float:
+    """Raise unless ``calls`` calls of ``fn`` launch the kernel object
+    ``wrapper`` ``calls`` times in every window (its count) and a window
+    lists nothing on the device but ``calls`` kernels whose names hold
+    ``kernel``.  Returns the device events a call (1.0)."""
+    before = wrapper.launches
+    events, windows = listed_launches(fn, kernel, calls, label)
+    launched = wrapper.launches - before
+    if launched != calls * windows or len(events) != calls or \
+            not all(kernel in e.name for e in events):
+        names = sorted({e.name[:60] for e in events})
+        raise AssertionError(f"{label}: {launched} launches in {windows} windows and "
+                             f"{len(events)} device events {names} for {calls} calls a "
+                             f"window, expected one {kernel} kernel a call")
+    return len(events) / calls
+
+
 def kernel_device_ms(fn, kernel: str, calls: int = 20):
     """Mean device time of the CUDA kernel named ``kernel`` per call of
-    ``fn`` (the kernel alone, without launch gaps); None when the profiler
-    saw no such kernel."""
-    events, _ = device_events(fn, calls)
+    ``fn`` (the kernel alone, without launch gaps), from a window that
+    lists it ``calls`` times (``listed_launches``); None when none did."""
+    events, _ = listed_launches(fn, kernel, calls, f"device ms of {kernel}")
     mine = [e for e in events if kernel in e.name]
-    if not mine:
+    if len(mine) != calls:
         return None
     return sum(e.time_range.elapsed_us() for e in mine) / 1e3 / calls
 
@@ -202,11 +276,11 @@ def check_equal(name: str, got, want) -> float:
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def kernel_phase(rng) -> dict:
+def kernel_phase(rng, laps: Laps) -> dict:
     import torch
     from repro_torch.kernels import ref, scatter_ops
     from repro_torch.kernels.ring_scatter import gather_mul_scatter, scatter_add
-    from repro_torch.kernels.segment_ring_sum import segment_ring_sum
+    from repro_torch.kernels.segment_ring_sum import SEGMENT_RING_SUM, segment_ring_sum
 
     rows = {"scatter_add": [], "segment_ring_sum": [], "gather_mul_scatter": [],
             "scatter_dedup": [], "fused_chain": []}
@@ -272,10 +346,9 @@ def kernel_phase(rng) -> dict:
             if not torch.equal(segment_ring_sum(nvals, ids, Bs), first):
                 raise AssertionError(f"segment_ring_sum B={Bs} d={d}: two runs "
                                      f"on the same normal data differ")
-        events, _ = device_events(lambda: segment_ring_sum(vals, ids, Bs), 20)
-        if len(events) != 20:
-            raise AssertionError(f"segment_ring_sum B={Bs} d={d}: "
-                                 f"{len(events) / 20} device events a call, expected 1")
+        events_a_call = check_one_launch(f"segment_ring_sum B={Bs} d={d}",
+                                         lambda: segment_ring_sum(vals, ids, Bs),
+                                         "segment_ring_sum", SEGMENT_RING_SUM)
         ids64 = ids.long()
         bms, by = bound_ms(Bs * 4 + Bs * d * 4 + Bs * d * 4, Bs * d)
         # kernel and library in turns: at B = 1000 both are host-bound
@@ -284,7 +357,8 @@ def kernel_phase(rng) -> dict:
             "library": lambda: torch.zeros((Bs, d), device="cuda").index_add_(
                 0, ids64, vals)})
         row = dict(
-            shape=dict(S=Bs, d=d, B=Bs), max_abs_err=err, device_events_per_call=1,
+            shape=dict(S=Bs, d=d, B=Bs), max_abs_err=err,
+            device_events_per_call=events_a_call,
             kernel_ms=turns["kernel"],
             device_ms=kernel_device_ms(lambda: segment_ring_sum(vals, ids, Bs),
                                        "segment_ring_sum_kernel"),
@@ -331,12 +405,16 @@ def kernel_phase(rng) -> dict:
         rows["gather_mul_scatter"].append(row)
         log({"kernel": "gather_mul_scatter", **row})
 
+    laps.lap("kernels: scatter_add, segment_ring_sum, gather_mul_scatter")
     scatter_dedup_rows(rng, rows["scatter_dedup"])
     fused_chain_rows(rng, rows["fused_chain"])
+    laps.lap("kernels: scatter_dedup, fused_chain")
     rows.update(cofactor_update=[], ring_mul=[], matvec=[], outer_accumulate=[])
     ops_kernel_rows(rng, rows)
-    rows.update(flash_attention=[], flash_attention_wgmma=[])
+    laps.lap("kernels: cofactor_update, ring_mul, matvec, outer_accumulate")
+    rows.update(flash_attention=[], flash_attention_wgmma=[], flash_attention_tf32=[])
     flash_attention_rows(rng, rows)
+    laps.lap("kernels: flash attention")
     return rows
 
 
@@ -480,8 +558,8 @@ def ops_kernel_rows(rng, rows: dict) -> None:
     order)."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.cofactor_update import cofactor_update
-    from repro_torch.kernels.rank1_chain import matvec, outer_accumulate
+    from repro_torch.kernels.cofactor_update import COFACTOR_UPDATE, cofactor_update
+    from repro_torch.kernels.rank1_chain import MATVEC, matvec, outer_accumulate
     from repro_torch.kernels.ring_mul import ring_mul
 
     # cofactor_update: the benchmark's 4096 x 32, path A's batch and 262,144
@@ -498,10 +576,9 @@ def ops_kernel_rows(rng, rows: dict) -> None:
                                            g, r)
                                for n, g, r in zip("csQ", got, (c.reshape(1), s, Q))])
         check_cofactor_repeats(rng, B, m)
-        events, _ = device_events(lambda: cofactor_update(x, w), 20)
-        if len(events) != 20:
-            raise AssertionError(f"cofactor_update B={B} m={m}: "
-                                 f"{len(events) / 20} device events a call, expected 1")
+        events_a_call = check_one_launch(f"cofactor_update B={B} m={m}",
+                                         lambda: cofactor_update(x, w), "cofactor_",
+                                         COFACTOR_UPDATE)
         xw = x * w[:, None]
         # reads x and w once, writes (c, s, Q); Q is symmetric, so m(m+1)/2
         # dot products of B terms (B·m(m+1) flops), B·m multiplies for the
@@ -512,7 +589,7 @@ def ops_kernel_rows(rng, rows: dict) -> None:
         turns = time_in_turns({"kernel": lambda: cofactor_update(x, w),
                                "library": lambda: torch.mm(xw.T, x)})
         row = dict(
-            shape=dict(B=B, m=m), max_abs_err=err, device_events_per_call=1,
+            shape=dict(B=B, m=m), max_abs_err=err, device_events_per_call=events_a_call,
             kernel_ms=turns["kernel"],
             device_ms=kernel_device_ms(lambda: cofactor_update(x, w), "cofactor_"),
             plain_ms=time_ms(lambda: ref.cofactor_update_ref(x, w)),
@@ -578,19 +655,30 @@ def ops_kernel_rows(rng, rows: dict) -> None:
     for n in (1024, 8192):
         A, x = ints(rng, (n, n)), ints(rng, (n,))
         x[::n // 64] = wide_values(rng, 64)
-        for variant, mat in (("rows", A), ("cols", A.T)):
+        An, xn = normal(rng, (n, n)), normal(rng, (n,))
+        for variant, mat, matn in (("rows", A, An), ("cols", A.T, An.T)):
             err = check_equal(f"matvec n={n} {variant}", matvec(mat, x),
                               ref.matvec_ref(mat, x))
+            # one launch, one device event, and the same bits every call
+            events_a_call = check_one_launch(f"matvec n={n} {variant}",
+                                             lambda: matvec(matn, xn), "matvec_", MATVEC)
+            if not torch.equal(matvec(matn, xn), matvec(matn, xn)):
+                raise AssertionError(f"matvec n={n} {variant}: bits differ between calls")
             bms, by = bound_ms(4 * (n * n + 2 * n), 2 * n * n)
+            turns = time_in_turns({"kernel": lambda: matvec(matn, xn),
+                                   "library": lambda: torch.mv(matn, xn)})
             row = dict(
                 shape=dict(n=n, variant=variant), max_abs_err=err,
-                kernel_ms=time_ms(lambda: matvec(mat, x)),
-                device_ms=kernel_device_ms(lambda: matvec(mat, x), "matvec_"),
-                plain_ms=time_ms(lambda: ref.matvec_ref(mat, x)),
-                library_ms=time_ms(lambda: torch.mv(mat, x)),
+                device_events_per_call=events_a_call,
+                kernel_ms=turns["kernel"],
+                device_ms=kernel_device_ms(lambda: matvec(matn, xn), "matvec_"),
+                plain_ms=time_ms(lambda: ref.matvec_ref(matn, xn)),
+                library_ms=turns["library"],
+                library_device_ms=all_device_ms(lambda: torch.mv(matn, xn)),
                 bound_ms=bms, bound_by=by)
             rows["matvec"].append(row)
             log({"kernel": "matvec", **row})
+        del An, xn
         err = 0.0
         for kind in ("ints", "normal"):
             mk = ints if kind == "ints" else normal
@@ -619,11 +707,16 @@ def ops_kernel_rows(rng, rows: dict) -> None:
 FLASH_SHAPES = ((4, 32, 8, 1024, 64), (1, 4, 1, 1000, 128), (1, 8, 2, 257, 128),
                 (2, 4, 2, 64, 16))
 #: float32 kernel against float64: within this share of the largest output
-#: (the float32 scores, exp and sums of T terms round at ~6e-8 each)
+#: (the float32 scores, exp and sums of T terms round at ~6e-8 each; the
+#: TF32 kernel's three-term products leave about 2⁻²¹ of each product)
 FLASH_F32_RTOL = 1e-5
 #: the CUDA kernel function of each flash variant, as the profiler names it
 FLASH_KERNEL_NAMES = {"wgmma": "flash_attention_wgmma_kernel",
+                      "tf32": "flash_attention_tf32_kernel",
                       "simt": "flash_attention_kernel"}
+#: H100 SXM dense TF32 tensor-core rate (data sheet): the float32 flash
+#: rows' tc_bound_ms, three TF32 products a float32 one
+TF32_OPS_PER_S = 495e12
 
 
 def flash_attention_rows(rng, rows: dict) -> None:
@@ -634,9 +727,12 @@ def flash_attention_rows(rng, rows: dict) -> None:
     compute in float32 (the wgmma kernel with P as three bf16 terms that
     sum to it exactly) from exact bf16 inputs and round once to bf16 (half
     an ulp, at most 2⁻⁹ of the value), so every element is within
-    2⁻⁸·|ref| + 1e-6·max|ref| of the float64 result.  Where the wrapper takes the wgmma
-    kernel, the SIMT kernel is checked and timed on the same inputs too,
-    and the kernel, the SIMT kernel and SDPA are timed in turns."""
+    2⁻⁸·|ref| + 1e-6·max|ref| of the float64 result.  Where the wrapper takes a
+    tensor-core kernel (wgmma for bf16, tf32 for float32, at D 64/128), the
+    SIMT kernel is checked and timed on the same inputs too, and the
+    kernel, the SIMT kernel and SDPA are timed in turns.  float32 rows also
+    carry ``tc_bound_ms``: the flops as three TF32 products at the tensor
+    cores' rate (``bound_ms`` keeps the CUDA-core float32 rate)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as tflash
@@ -664,16 +760,19 @@ def flash_attention_rows(rng, rows: dict) -> None:
             want = ref.flash_attention_ref(q.double(), k.double(), v.double())
             err, rel = check(label, tflash.flash_attention(q, k, v), want, dt)
             extra = {}
-            if kind == "wgmma":
+            if kind != "simt":
                 simt_err, _ = check(f"flash_attention (simt) {(B, H, Hkv, T, D)} {dt}",
                                     tflash.launch("simt", q, k, v), want, dt)
                 extra["simt_max_abs_err"] = simt_err
             del want
             # q, k, v read once and o written once; the causal half of QKᵀ
             # and PV, 2·B·H·T²·D flops, at the dtype's peak rate
-            bms, by = bound_ms(q.element_size() * (2 * B * H * T * D + 2 * B * Hkv * T * D),
-                               2 * B * H * T * T * D,
+            nbytes = q.element_size() * (2 * B * H * T * D + 2 * B * Hkv * T * D)
+            bms, by = bound_ms(nbytes, 2 * B * H * T * T * D,
                                BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S)
+            if dt == torch.float32:
+                extra["tc_bound_ms"] = bound_ms(nbytes, 3 * 2 * B * H * T * T * D,
+                                                TF32_OPS_PER_S)[0]
 
             def kernel():
                 tflash.flash_attention(q, k, v)
@@ -685,7 +784,7 @@ def flash_attention_rows(rng, rows: dict) -> None:
                 tflash.launch("simt", q, k, v)
 
             fns = {"kernel": kernel, "library": library}
-            if kind == "wgmma":
+            if kind != "simt":
                 fns["simt"] = simt
             times = time_in_turns(fns)
             row = dict(
@@ -696,7 +795,7 @@ def flash_attention_rows(rng, rows: dict) -> None:
                 plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=10),
                 library_ms=times["library"],
                 bound_ms=bms, bound_by=by, **extra)
-            if kind == "wgmma":
+            if kind != "simt":
                 row.update(simt_ms=times["simt"],
                            simt_device_ms=kernel_device_ms(simt, FLASH_KERNEL_NAMES["simt"]))
             rows[name].append(row)
@@ -1254,14 +1353,58 @@ def lm_oracle_logits(cfg, params, tokens, n_last: int):
     return torch.stack(out)
 
 
+def lm_float32_leg(cfg, prompts, kernels, expected: dict, label: str):
+    """Prefill and two decode steps of ``cfg`` in float32 (weights from
+    ``torch.Generator`` seed 0 on the card), each fed the argmax token,
+    against ``lm_oracle_logits`` over the extended sequence (causal, so
+    position T - 1 + i of one forward is the i-th step's logits), within
+    LM_F32_RTOL; the flash kernels must launch as ``expected``.  Returns
+    (errors, launches)."""
+    import torch
+    from repro_torch.models import registry
+
+    T = prompts.shape[1]
+    api = registry.build(cfg)
+    with torch.inference_mode():
+        params = api.init(seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        reset(kernels)
+        logits, cache = api.prefill(params, {"tokens": prompts}, cache_len=T + 2)
+        steps, toks = [logits], [logits.argmax(-1)]
+        for i in range(2):
+            logits, cache = api.decode_step(params, toks[-1], T + i, cache)
+            steps.append(logits)
+            toks.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        launches = read_launches(label, kernels, expected)
+        seq = torch.cat([torch.as_tensor(prompts, device="cuda").long(), toks[0][:, None],
+                         toks[1][:, None]], dim=1)
+        want = lm_oracle_logits(cfg, params, seq, n_last=3)
+        errors = {name: rel_err(got, want[:, j]) for j, (name, got) in
+                  enumerate(zip(("prefill", "decode_1", "decode_2"), steps))}
+        del params, cache, want, steps
+    torch.cuda.empty_cache()
+    log({"path": label, "arch": cfg.name, "errors": errors, "limit": LM_F32_RTOL,
+         "launches": launches})
+    check_within(label, errors, dict.fromkeys(errors, LM_F32_RTOL))
+    return errors, launches
+
+
+#: path D's reduced float32 leg: the reduced llama3.2-1b (2 layers, head dim
+#: 16, 4 heads over 2 KV heads), 2 prompts of 64 tokens, the shape of the
+#: SIMT flash kernel, which no full-width model takes any more
+LM_REDUCED_B, LM_REDUCED_T = 2, 64
+
+
 def lm_serve_path(kernels) -> dict:
     """Path D, LM serving on llama3.2-1b at full width and depth, weights
     from ``torch.Generator`` seed 0 on the card, prompts drawn with numpy
     seed 0.  (i) float32 (the same config with float32 parameters and
-    activations): prefill and two decode steps, each fed the argmax token,
-    against ``lm_oracle_logits`` over the extended sequence (causal, so
-    position T - 1 + i of one forward is the i-th step's logits), within
-    LM_F32_RTOL.  (ii) bf16: ``Server.generate`` of LM_NEW tokens after a
+    activations): prefill and two decode steps against the float64 forward
+    (``lm_float32_leg``), 16 ``flash_attention_tf32`` launches; then the
+    reduced config in float32 the same way, where head dim 16 takes the
+    SIMT ``flash_attention`` (one launch a layer).  (ii) bf16:
+    ``Server.generate`` of LM_NEW tokens after a
     short warm-up, timed; the flash kernel must launch once per layer; then
     the first decode step against a bf16 prefill over the extended prompt
     (finite, within LM_BF16_RTOL), and the device's share of busy time over
@@ -1270,7 +1413,6 @@ def lm_serve_path(kernels) -> dict:
 
     import torch
     from repro_torch.configs.base import get_config
-    from repro_torch.models import registry
     from repro_torch.serve_lm import Server
 
     cfg = get_config(LM_ARCH)
@@ -1279,32 +1421,19 @@ def lm_serve_path(kernels) -> dict:
         0, cfg.vocab_size, (LM_B, LM_T)).astype(np.int32)
     prompt_t = torch.as_tensor(prompts, device="cuda").long()
 
-    # (i) float32 against the float64 forward
+    # (i) float32 against the float64 forward: the full model (the TF32
+    # tensor-core flash kernel), then the reduced one (the SIMT kernel)
     cfg32 = dataclasses.replace(cfg, act_dtype="float32", param_dtype="float32")
-    api = registry.build(cfg32)
-    with torch.inference_mode():
-        params = api.init(seed=SEED, device="cuda")
-        torch.cuda.synchronize()
-        reset(kernels)
-        logits, cache = api.prefill(params, {"tokens": prompts}, cache_len=LM_T + 2)
-        steps, toks = [logits], [logits.argmax(-1)]
-        for i in range(2):
-            logits, cache = api.decode_step(params, toks[-1], LM_T + i, cache)
-            steps.append(logits)
-            toks.append(logits.argmax(-1))
-        torch.cuda.synchronize()
-        launches_f32 = read_launches("lm float32 path", kernels,
-                                     {"flash_attention": n_layers,
-                                      "flash_attention_wgmma": 0})
-        seq = torch.cat([prompt_t, toks[0][:, None], toks[1][:, None]], dim=1)
-        want = lm_oracle_logits(cfg32, params, seq, n_last=3)
-        f32_errors = {name: rel_err(got, want[:, j]) for j, (name, got) in
-                      enumerate(zip(("prefill", "decode_1", "decode_2"), steps))}
-        del params, cache, want, steps
-    torch.cuda.empty_cache()
-    log({"path": "lm_serve_float32", "errors": f32_errors, "limit": LM_F32_RTOL,
-         "launches": launches_f32})
-    check_within("lm float32 path", f32_errors, dict.fromkeys(f32_errors, LM_F32_RTOL))
+    f32_errors, launches_f32 = lm_float32_leg(
+        cfg32, prompts, kernels, {"flash_attention_tf32": n_layers, "flash_attention": 0,
+                                  "flash_attention_wgmma": 0}, "lm_serve_float32")
+    small = get_config(LM_ARCH).reduced()
+    small_prompts = np.random.default_rng(SEED).integers(
+        0, small.vocab_size, (LM_REDUCED_B, LM_REDUCED_T)).astype(np.int32)
+    small_errors, launches_small = lm_float32_leg(
+        small, small_prompts, kernels, {"flash_attention": small.n_layers,
+                                        "flash_attention_tf32": 0, "flash_attention_wgmma": 0},
+        "lm_serve_float32_reduced")
 
     # (ii) bf16 through Server.generate
     server = Server(cfg, cache_len=LM_T + LM_NEW, seed=SEED, device="cuda")
@@ -1314,7 +1443,8 @@ def lm_serve_path(kernels) -> dict:
     reset(kernels)
     res = server.generate({"tokens": prompts}, LM_NEW)
     launches = read_launches("lm serve path", kernels,
-                             {"flash_attention_wgmma": n_layers, "flash_attention": 0})
+                             {"flash_attention_wgmma": n_layers, "flash_attention": 0,
+                              "flash_attention_tf32": 0})
     peak = torch.cuda.max_memory_allocated()
     api16, p16 = server.api, server.params
     with torch.inference_mode():
@@ -1349,7 +1479,9 @@ def lm_serve_path(kernels) -> dict:
         decode_tokens_per_s=LM_B * (LM_NEW - 1) / res.decode_s,
         generate_tokens_per_s=res.tokens_per_s,
         launches=launches, launches_float32=launches_f32,
+        launches_float32_reduced=launches_small,
         max_memory_allocated=peak, float32_errors=f32_errors,
+        float32_reduced_errors=small_errors,
         bf16_decode_vs_prefill=bf16_err, bf16_limit=LM_BF16_RTOL,
         logits_finite=finite, first_tokens_equal=first_tokens_equal,
         profile=profiles)
@@ -1377,6 +1509,7 @@ def main() -> int:
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.cofactor_update import COFACTOR_UPDATE
     from repro_torch.kernels.flash_attention import (FLASH_ATTENTION,
+                                                     FLASH_ATTENTION_TF32,
                                                      FLASH_ATTENTION_WGMMA)
     from repro_torch.kernels.rank1_chain import MATVEC, OUTER_ACCUMULATE
     from repro_torch.kernels.ring_fused import FUSED_CHAIN
@@ -1398,7 +1531,8 @@ def main() -> int:
 
     kernels = [SCATTER_ADD, SEGMENT_RING_SUM, GATHER_MUL_SCATTER, SCATTER_DEDUP,
                FUSED_CHAIN, COFACTOR_UPDATE, RING_MUL, MATVEC, OUTER_ACCUMULATE,
-               FLASH_ATTENTION, FLASH_ATTENTION_WGMMA]
+               FLASH_ATTENTION, FLASH_ATTENTION_WGMMA, FLASH_ATTENTION_TF32]
+    laps = Laps()
     build_s = _cuda.build_all(kernels)
     log({"build_s": build_s, "libraries": [k.library_path().name for k in kernels]})
     for k in kernels:
@@ -1409,7 +1543,8 @@ def main() -> int:
                     log(f"{k.name}: {line.strip()}")
 
     rng = np.random.default_rng(SEED)
-    rows = kernel_phase(rng)
+    laps.lap("build")
+    rows = kernel_phase(rng, laps)
 
     doms = synth.RETAILER_DOMS_BIG
     rels = synth.RETAILER_RELATIONS
@@ -1456,6 +1591,7 @@ def main() -> int:
 
     # the kernel-ops layer: the ring product on engine state (B), streaming
     # statistics (A) and rank-1 matrix-chain deltas (C)
+    laps.lap("streams")
     paths = [ring_product_path(kept, kernels)]
     del kept
     torch.cuda.empty_cache()
@@ -1463,10 +1599,13 @@ def main() -> int:
     paths.append(chain_path(kernels))
     torch.cuda.empty_cache()
     # the LM scaffold's serving path: flash_attention in every prefill layer
+    laps.lap("paths A-C")
     paths.append(lm_serve_path(kernels))
-    # path D's float32 check is the SIMT flash kernel's path
+    laps.lap("path D")
+    # path D's float32 legs are the TF32 and SIMT flash kernels' paths
     runs = [run["launches"] for run in streams + paths] + [
-        run["launches_float32"] for run in paths if "launches_float32" in run]
+        run[key] for run in paths for key in ("launches_float32", "launches_float32_reduced")
+        if key in run]
     launched = {k.name: sum(r[k.name] for r in runs) for k in kernels}
     if not all(launched.values()):
         raise AssertionError(f"a kernel launched on no path: {launched}")
@@ -1501,11 +1640,15 @@ def main() -> int:
                              dict(n=CHAIN_N)),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:69",
-                            dict(B=LM_B, H=32, Hkv=8, T=LM_T, D=64, dtype="float32")),
+                            dict(B=LM_REDUCED_B, H=4, Hkv=2, T=LM_REDUCED_T, D=16,
+                                 dtype="float32")),
         "flash_attention_wgmma": ("src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
                                   "src/repro/kernels/flash_attention.py:69",
                                   dict(B=LM_B, H=32, Hkv=8, T=LM_T, D=64,
                                        dtype="bfloat16")),
+        "flash_attention_tf32": ("src/repro_torch/kernels/csrc/flash_attention_tf32.cu",
+                                 "src/repro/kernels/flash_attention.py:69",
+                                 dict(B=LM_B, H=32, Hkv=8, T=LM_T, D=64, dtype="float32")),
     }
     summary = []
     for name, (source, replaces, shape) in sources.items():
@@ -1517,7 +1660,8 @@ def main() -> int:
             ms=row["kernel_ms"], device_ms=row["device_ms"],
             plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"], shape=shape))
+            library_ms=row["library_ms"], shape=shape,
+            **({"tc_bound_ms": row["tc_bound_ms"]} if "tc_bound_ms" in row else {})))
     log({"kernels": summary})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

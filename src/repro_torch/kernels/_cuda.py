@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import time
+from collections import OrderedDict
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -169,3 +170,40 @@ def check_tensor(name: str, t, dtype, shape: tuple, device) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+class ScratchCache(OrderedDict):
+    """Scratch of the kernels that sum across blocks in one launch, per
+    (device index, stream handle): a buffer of int32 ticket counters (which
+    the last block to arrive resets, so they are zeroed only when the
+    buffer is allocated) and one of float32 partials, least recently used
+    first.  At most ``streams`` streams a device keep theirs."""
+
+    def __init__(self, streams: int):
+        super().__init__()
+        self.streams = streams
+
+    def take(self, device, stream: int, counter_words: int, partial_floats: int):
+        """(counters, partials) on ``device`` for ``stream``, at least as
+        large as asked.  Each buffer is allocated while ``stream`` is
+        current, so the caching allocator hands its memory out again only
+        in that stream's order: dropping one (grown, or the least recently
+        used stream past ``streams``) cannot free memory a queued call
+        still uses."""
+        import torch
+
+        key = (device.index, stream)
+        if self and next(reversed(self)) == key:  # the same stream again
+            counters, partials = self[key]
+            if counters.numel() >= counter_words and partials.numel() >= partial_floats:
+                return counters, partials
+        counters, partials = self.pop(key, (None, None))
+        if counters is None or counters.numel() < counter_words:
+            counters = torch.zeros(max(1, counter_words), dtype=torch.int32, device=device)
+        if partials is None or partials.numel() < partial_floats:
+            partials = torch.empty(max(1, partial_floats), dtype=torch.float32, device=device)
+        self[key] = (counters, partials)  # the most recently used, last
+        same = [k for k in self if k[0] == device.index]
+        if len(same) > self.streams:
+            del self[same[0]]
+        return counters, partials

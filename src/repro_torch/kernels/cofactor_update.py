@@ -32,13 +32,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
 
 from . import ref
-from ._cuda import I32, I64, PTR, CudaKernel, check_tensor, on_card, stream_handle
+from ._cuda import (I32, I64, PTR, CudaKernel, ScratchCache, check_tensor, on_card,
+                    stream_handle)
 
 COFACTOR_UPDATE = CudaKernel("cofactor_update.cu", "repro_cofactor_update",
                              [PTR, PTR, I64, I32, I32, I32, I32, I32, I32, PTR, PTR, PTR])
@@ -180,29 +180,15 @@ def max_blocks(device_index: int, m: int) -> int:
     return min(MAX_BLOCKS, clusters.value * CLUSTER)
 
 
-#: (device index, stream handle) -> (counters, partials), least recently
-#: used first
-_scratch: OrderedDict = OrderedDict()
+#: (device index, stream handle) -> (counters, partials)
+_scratch = ScratchCache(SCRATCH_STREAMS)
 
 
 def _scratch_for(device: torch.device, stream: int, plan: Plan):
     """The kernel's counters (int32, zeroed when allocated) and partials
     (float32) on ``device`` for ``stream``, at least as large as ``plan``
-    needs.  Each buffer is allocated while ``stream`` is current, so the
-    caching allocator hands its memory out again only in that stream's
-    order: dropping one (grown, or the least recently used stream past
-    SCRATCH_STREAMS) cannot free memory a queued call still uses."""
-    key = (device.index, stream)
-    counters, partials = _scratch.pop(key, (None, None))
-    if counters is None or counters.numel() < plan.counter_words:
-        counters = torch.zeros(plan.counter_words, dtype=torch.int32, device=device)
-    if partials is None or partials.numel() < plan.partial_floats:
-        partials = torch.empty(plan.partial_floats, dtype=torch.float32, device=device)
-    _scratch[key] = (counters, partials)  # the most recently used, last
-    same = [k for k in _scratch if k[0] == device.index]
-    if len(same) > SCRATCH_STREAMS:
-        del _scratch[same[0]]
-    return counters, partials
+    needs (``ScratchCache.take``)."""
+    return _scratch.take(device, stream, plan.counter_words, plan.partial_floats)
 
 
 def cofactor_update(x: torch.Tensor, w: torch.Tensor):

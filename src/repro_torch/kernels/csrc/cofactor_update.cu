@@ -165,17 +165,6 @@ __device__ __forceinline__ int swz(int c) {
   return TI == 8 ? c ^ (((c >> 5) & 1) << 2) : c;
 }
 
-// One TMA bulk copy of `bytes` (a multiple of 16, 16-byte aligned ends)
-// from global memory into this block's shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(repro::smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 // Floats of one thread's tile in the block's tile buffer (padded so that
 // neighbouring threads' float4 stores fall on distinct banks).
 template <int TI>
@@ -268,8 +257,8 @@ cofactor_update_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int slot = s % kStages;
     const uint32_t bar = repro::smem_u32(bars + slot);
     repro::mbar_expect_tx(bar, xbytes + wbytes);
-    if (xbytes) bulk_load(xs0 + slot * R * m, x + r0 * m, xbytes, bar);
-    bulk_load(ws0 + slot * R, w + r0, wbytes, bar);
+    if (xbytes) repro::bulk_load(xs0 + slot * R * m, x + r0 * m, xbytes, bar);
+    repro::bulk_load(ws0 + slot * R, w + r0, wbytes, bar);
   };
   if (!BAND) {
     if (tid == 0) {

@@ -67,6 +67,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// One TMA bulk copy of `bytes` (a multiple of 16, 16-byte aligned ends)
+// from global memory into this block's shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // Dynamic shared memory above the default 48 KB must be opted into per
 // kernel (up to 227 KB a block on an H100).
 template <typename Kernel>

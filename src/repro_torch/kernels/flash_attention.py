@@ -11,14 +11,19 @@ repeated in memory.  Any T works; causal attention needs T == Tk (query i
 sees keys 0..i).  A CPU tensor takes the plain version (``ref``), cast to
 q's dtype; any other dtype or device raises.
 
-Two kernels, chosen by :func:`variant` from the dtype and head dim alone:
+Three kernels, chosen by :func:`variant` from the dtype and head dim alone:
 
 * ``csrc/flash_attention_wgmma.cu`` for bf16 at D ∈ {64, 128}, the head
   dims of every dense GQA config the port builds: tensor cores (wgmma) fed
   by TMA, with P split into three bf16 terms for PV (they sum to the
   float32 P exactly);
-* ``csrc/flash_attention.cu`` (float32 CUDA-core FMAs) for float32, the
-  path's precision check, and for bf16 at D ∈ {8, 16, 32}.
+* ``csrc/flash_attention_tf32.cu`` for float32 at D ∈ {64, 128}, the
+  path's precision check: TF32 tensor cores (wgmma) fed by TMA, each
+  product taken as three TF32 terms (a_hi·b_hi + a_hi·b_lo + a_lo·b_hi),
+  float32 accuracy; k and v at an offset that is not 16-byte aligned are
+  copied once for its tensor maps;
+* ``csrc/flash_attention.cu`` (float32 CUDA-core FMAs) for every dtype at
+  D ∈ {8, 16, 32}.
 """
 from __future__ import annotations
 
@@ -34,26 +39,35 @@ FLASH_ATTENTION_WGMMA = CudaKernel("flash_attention_wgmma.cu",
                                    "repro_flash_attention_wgmma",
                                    [PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32,
                                     I32, I32])
+FLASH_ATTENTION_TF32 = CudaKernel("flash_attention_tf32.cu",
+                                  "repro_flash_attention_tf32",
+                                  [PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32,
+                                   I32, I32])
 
 #: head dims the kernels are compiled for
 HEAD_DIMS = (8, 16, 32, 64, 128)
-#: head dims of the tensor-core kernel (bf16 only)
+#: head dims of the tensor-core kernels (wgmma: bf16, tf32: float32)
 WGMMA_HEAD_DIMS = (64, 128)
 #: dtype codes of the SIMT kernel's C entry
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel that takes (dtype, head_dim) on the card: ``"wgmma"``
-    (``FLASH_ATTENTION_WGMMA``) for bf16 with D ∈ {64, 128}, else
-    ``"simt"`` (``FLASH_ATTENTION``)."""
-    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
-        return "wgmma"
+    """The kernel that takes (dtype, head_dim) on the card: at D ∈ {64,
+    128} ``"wgmma"`` (``FLASH_ATTENTION_WGMMA``) for bf16 and ``"tf32"``
+    (``FLASH_ATTENTION_TF32``) for float32, else ``"simt"``
+    (``FLASH_ATTENTION``)."""
+    if head_dim in WGMMA_HEAD_DIMS:
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        if dtype == torch.float32:
+            return "tf32"
     return "simt"
 
 
 #: the kernel object of each variant
-KERNELS = {"wgmma": FLASH_ATTENTION_WGMMA, "simt": FLASH_ATTENTION}
+KERNELS = {"wgmma": FLASH_ATTENTION_WGMMA, "tf32": FLASH_ATTENTION_TF32,
+           "simt": FLASH_ATTENTION}
 
 
 def flash_attention(q, k, v, causal: bool = True):
@@ -85,21 +99,23 @@ def flash_attention(q, k, v, causal: bool = True):
 def launch(kind: str, q, k, v, causal: bool = True):
     """Launch the ``kind`` kernel (a key of KERNELS) on CUDA tensors that
     ``flash_attention`` has checked.  The wrapper passes ``variant``'s
-    choice; ``chip_smoke.py`` also passes ``"simt"`` for bf16 at D = 64 or
-    128, to time the two kernels on the same inputs."""
-    if kind == "wgmma" and variant(q.dtype, q.shape[3]) != "wgmma":
-        raise ValueError(f"the wgmma kernel takes bf16 at D ∈ {WGMMA_HEAD_DIMS}, "
-                         f"not {q.dtype} at D = {q.shape[3]}")
+    choice; ``chip_smoke.py`` also passes ``"simt"`` at D = 64 or 128, to
+    time the kernels on the same inputs."""
+    if kind != "simt" and variant(q.dtype, q.shape[3]) != kind:
+        raise ValueError(f"the {kind} kernel does not take {q.dtype} at "
+                         f"D = {q.shape[3]}")
     B, H, T, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if kind == "tf32":  # the tensor maps need 16-byte aligned k and v
+        k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (k, v))
     o = torch.empty_like(q)
     if not o.numel():
         return o
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv, T,
             Tk, D)
-    if kind == "wgmma":
-        FLASH_ATTENTION_WGMMA.launch(*args, int(causal), stream_handle(q))
+    if kind in ("wgmma", "tf32"):
+        KERNELS[kind].launch(*args, int(causal), stream_handle(q))
     else:
         FLASH_ATTENTION.launch(*args, DTYPES[q.dtype], int(causal),
                                stream_handle(q))

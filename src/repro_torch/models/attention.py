@@ -2,9 +2,9 @@
 
 * ``flash_attention`` is the counterpart of the reference's
   ``flash_attention_jnp``.  On CUDA tensors it launches a hand-written
-  kernel (``kernels/csrc/flash_attention_wgmma.cu`` for bf16 at head dim 64
-  or 128, ``kernels/csrc/flash_attention.cu`` otherwise), and nothing
-  else.  On CPU
+  kernel (at head dim 64 or 128 ``kernels/csrc/flash_attention_wgmma.cu``
+  for bf16 and ``kernels/csrc/flash_attention_tf32.cu`` for float32,
+  ``kernels/csrc/flash_attention.cu`` otherwise), and nothing else.  On CPU
   tensors it runs the plain versions of the reference's two branches: plain
   masked attention for short or unaligned sequences, and the chunked online
   softmax over (block_q, block_k) tiles above 4096²/16 scores.

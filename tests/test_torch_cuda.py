@@ -25,6 +25,32 @@ from repro_torch.kernels import segment_ring_sum as tsegsum  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 
+def _listed_kernels(fn, calls: int, windows: int = 5):
+    """The device kernels the profiler lists for ``calls`` calls of ``fn``,
+    from the first of up to ``windows`` windows that lists ``calls`` of
+    them (else the last), and the windows profiled.  A marker kernel, waited for, opens and closes
+    each window and is not listed: the profiler was seen to leave out a
+    kernel at a window's edge, and at times every kernel of a window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for window in range(1, windows + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name]
+        if len(events) >= calls:
+            break
+    return events, window
+
+
 def _ints(rng, shape, lo=-4, hi=5):
     return rng.integers(lo, hi, size=shape).astype(np.float32)
 
@@ -295,20 +321,14 @@ def test_cuda_cofactor_update_is_one_launch_and_deterministic(cuda_device, B, m)
     """One device event a call, the same bits on every call on normal data
     (fixed summation order), within float32 summation error of a float64
     sum, and Q exactly symmetric (mirrored)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels import cofactor_update as tcof
 
     rng = np.random.default_rng(B + m)
     x, w = _on(cuda_device, rng.standard_normal((B, m)).astype(np.float32),
                rng.standard_normal(B).astype(np.float32))
     first = [t.clone() for t in tcof.cofactor_update(x, w)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        agains = [tcof.cofactor_update(x, w) for _ in range(3)]
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    agains = []
+    events, _ = _listed_kernels(lambda: agains.append(tcof.cofactor_update(x, w)), 3)
     assert len(events) == 3 and all("cofactor_" in e.name for e in events)
     for again in agains:
         assert all(torch.equal(a, b) for a, b in zip(first, again))
@@ -388,7 +408,9 @@ def test_cuda_ring_mul_matches_plain_and_ring_mul(cuda_device, K, m, kind):
         assert torch.equal(g, prod[comp])
 
 
-@pytest.mark.parametrize("n,k", [(1, 1), (130, 70), (1001, 333), (1024, 1024)])
+@pytest.mark.parametrize("n,k", [(1, 1), (130, 70), (1001, 333), (1024, 1024), (8192, 8192),
+                                 (1001, 332), (300, 20000), (20000, 300), (5, 8196),
+                                 (4, 100_000)])
 def test_cuda_matvec_matches_plain_both_layouts(cuda_device, n, k):
     from repro_torch.kernels import rank1_chain
 
@@ -400,6 +422,87 @@ def test_cuda_matvec_matches_plain_both_layouts(cuda_device, n, k):
     for layout in (A, At):
         assert torch.equal(rank1_chain.matvec(layout, x), want)
     assert rank1_chain.MATVEC.launches == before + 2
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["rows", "cols"])
+@pytest.mark.parametrize("rows,cols", [(1024, 1024), (1001, 332), (300, 2052), (3, 8196),
+                                       (2, 16_404), (37, 4)])
+def test_cuda_matvec_is_its_emulated_order_and_repeatable(cuda_device, rows, cols,
+                                                          transposed):
+    """On normal data the kernel of each layout (TMA rows, cols) equals, bit
+    for bit, the numpy emulation of its summation order
+    (tests/_matvec_order.py) and itself from call to call."""
+    from _matvec_order import matvec_order
+    from repro_torch.kernels import rank1_chain
+
+    rng = np.random.default_rng(rows + cols)
+    A = rng.standard_normal((rows, cols)).astype(np.float32)
+    x = rng.standard_normal(rows if transposed else cols).astype(np.float32)
+    At, xt = _on(cuda_device, A, x)
+    mat = At.T if transposed else At
+    sms = rank1_chain.sm_count(At.device.index)
+    assert rank1_chain.matvec_plan(rows, cols, transposed, True, sms).kernel == \
+        ("simt" if transposed else "tma")
+    first = rank1_chain.matvec(mat, xt)
+    assert all(torch.equal(rank1_chain.matvec(mat, xt), first) for _ in range(3))
+    assert np.array_equal(first.cpu().numpy(), matvec_order(A, x, transposed, sms))
+
+
+@pytest.mark.parametrize("n", [1024, 8192])
+def test_cuda_matvec_is_one_launch_in_both_layouts(cuda_device, n):
+    """One kernel a call in each layout, no second pass and nothing
+    allocated on the device but the output."""
+    from repro_torch.kernels import rank1_chain
+
+    rng = np.random.default_rng(n)
+    A, x = _on(cuda_device, rng.standard_normal((n, n)).astype(np.float32),
+               rng.standard_normal(n).astype(np.float32))
+    for mat, name in ((A, "matvec_rows_tma"), (A.T, "matvec_cols")):
+        rank1_chain.matvec(mat, x)
+        before = rank1_chain.MATVEC.launches
+        events, windows = _listed_kernels(lambda: rank1_chain.matvec(mat, x), 10)
+        assert rank1_chain.MATVEC.launches == before + 10 * windows
+        assert len(events) == 10 and all(name in e.name for e in events)
+
+
+def test_cuda_matvec_on_two_streams(cuda_device):
+    """Cols-layout calls on two streams at once each equal the call alone:
+    each stream has its own ticket counters and partials."""
+    from repro_torch.kernels import rank1_chain
+
+    rng = np.random.default_rng(6)
+    mats = _on(cuda_device, *(rng.standard_normal((4096, 4096)).astype(np.float32)
+                              for _ in range(2)))
+    x = torch.tensor(rng.standard_normal(4096).astype(np.float32), device=cuda_device)
+    alone = [rank1_chain.matvec(M.T, x).clone() for M in mats]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for _ in range(10):
+        for M, st in zip(mats, streams):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                outs.append(rank1_chain.matvec(M.T, x))
+    torch.cuda.synchronize()
+    assert all(torch.equal(got, alone[i % 2]) for i, got in enumerate(outs))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_cuda_matvec_unaligned_layouts_take_the_simt_kernels(cuda_device, offset):
+    """A view at an offset that is not 16-byte aligned takes the SIMT
+    kernels, in both layouts, and is still exact on integer data."""
+    from repro_torch.kernels import rank1_chain
+
+    rng = np.random.default_rng(offset)
+    n, k = 300, 512
+    base = torch.tensor(_ints(rng, (n * k + offset,)), device=cuda_device)
+    A = base[offset:].view(n, k)
+    x = torch.tensor(_ints(rng, (k,)), device=cuda_device)
+    v = torch.tensor(_ints(rng, (n,)), device=cuda_device)
+    for mat, vec in ((A, x), (A.T, v)):
+        t, rows, cols, aligned = rank1_chain.layout(mat, vec)
+        assert not aligned
+        assert rank1_chain.matvec_plan(rows, cols, t, aligned, 132).kernel == "simt"
+        assert torch.equal(rank1_chain.matvec(mat, vec), ref.matvec_ref(mat, vec))
 
 
 @pytest.mark.parametrize("kind", ["ints", "normal"])
@@ -486,6 +589,78 @@ def test_cuda_flash_attention_matches_plain(cuda_device, B, H, Hkv, T, D, causal
         assert float(err.max()) <= 1e-5 * scale
     else:
         assert bool((err <= 2.0 ** -8 * want.abs() + 1e-6 * scale).all())
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,D", [(4, 32, 8, 1024, 64), (1, 4, 1, 1000, 128),
+                                          (1, 8, 2, 257, 128), (3, 6, 3, 100, 64)])
+def test_cuda_flash_tf32_at_path_shapes(cuda_device, B, H, Hkv, T, D):
+    """The TF32 kernel at chip_smoke.py's float32 shapes and an unaligned
+    GQA one, k and v also at an offset that is not 16-byte aligned (copied
+    once for the tensor maps): within 1e-5 of the largest output of the
+    float64 plain version, one launch each."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    rng = np.random.default_rng(B * T + D)
+    q = torch.tensor(rng.standard_normal((B, H, T, D)).astype(np.float32), device=cuda_device)
+    kv = torch.tensor(rng.standard_normal(2 * B * Hkv * T * D + 1).astype(np.float32),
+                      device=cuda_device)
+    want = None
+    for off in (0, 1):
+        k = kv[off:off + B * Hkv * T * D].view(B, Hkv, T, D)
+        v = kv[off + B * Hkv * T * D:off + 2 * B * Hkv * T * D].view(B, Hkv, T, D)
+        n = tflash.FLASH_ATTENTION_TF32.launches
+        got = tflash.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert tflash.FLASH_ATTENTION_TF32.launches == n + 1
+        want = ref.flash_attention_ref(q.double(), k.double(), v.double())
+        scale = float(want.abs().max())
+        assert float((got.double() - want).abs().max()) <= 1e-5 * scale
+
+
+def test_cuda_model_attention_launches_the_tf32_kernel(cuda_device):
+    """``models.attention.flash_attention`` on float32 CUDA tensors at head
+    dim 64 is the TF32 kernel: one launch, the wrapper's output bit for bit."""
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.models import attention
+
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.tensor(rng.standard_normal(s).astype(np.float32), device=cuda_device)
+               for s in ((2, 4, 70, 64), (2, 2, 70, 64), (2, 2, 70, 64)))
+    before = {name: kern.launches for name, kern in tflash.KERNELS.items()}
+    got = attention.flash_attention(q, k, v)
+    assert {name: kern.launches - before[name] for name, kern in tflash.KERNELS.items()} == {
+        "wgmma": 0, "tf32": 1, "simt": 0}
+    assert torch.equal(got, tflash.flash_attention(q, k, v))
+
+
+def test_cuda_reduced_lm_float32_takes_the_simt_kernel(cuda_device):
+    """The reduced llama3.2-1b in float32 on the card (head dim 16: the
+    SIMT kernel, once a layer in the prefill, the TF32 kernel never) against
+    the same weights on the CPU: logits of the prefill and two decode steps
+    within 1e-5 of their largest magnitude."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.models import registry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama3_2_1b").reduced()
+    api = registry.build(cfg)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 66))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        params = api.init(seed=0, device="cpu").to(dev)
+        before = {name: kern.launches for name, kern in tflash.KERNELS.items()}
+        logits, cache = api.prefill(params, {"tokens": toks[:, :64]}, 66)
+        steps = [logits]
+        for i in range(2):
+            logits, cache = api.decode_step(params, toks[:, 64 + i], 64 + i, cache)
+            steps.append(logits)
+        launches = {name: kern.launches - before[name] for name, kern in tflash.KERNELS.items()}
+        outs.append(steps)
+    assert launches == {"wgmma": 0, "tf32": 0, "simt": cfg.n_layers}
+    for a, b in zip(*outs):
+        scale = float(a.abs().max())
+        assert float((b.cpu() - a).abs().max()) <= 1e-5 * scale
 
 
 def test_cuda_model_attention_launches_the_kernel(cuda_device):

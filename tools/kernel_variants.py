@@ -1,0 +1,208 @@
+#!/usr/bin/env python3
+"""Where the TMA ``matvec`` and ``flash_attention_tf32`` spend their time.
+
+Builds each kernel's source as it is and in variants that cut out or
+change one part of it, and times them in turns on the card (CUDA events,
+the median of 20 calls, each in order and then in reverse order, averaged).
+A variant is the shipped source compiled with ``-DREPRO_VARIANT=<n>``: the
+kernels name their variants (``kVariant``) and are built with 0 in the
+library.  Only the shipped kernel and the variants marked "checked" compute
+the right result; the others show what a part costs.  Prints one JSON line
+a shape:
+
+``matvec`` at 8192 x 8192, rows layout (the TMA kernel), with the
+wrapper's plan:
+
+* ``shipped``;
+* ``no_reads``: the stages' reads (the dot products) cut out: the ring,
+  its bulk copies and barriers alone, the design's own ceiling.
+
+``flash_attention_tf32`` at the LM path's prefill (4, 32, 8, 1024, 64),
+causal, and at a non-causal (1, 8, 1, 1000, 64), float32, each with its
+error against the float64 plain version (largest |err| over the largest
+|output|):
+
+* ``shipped``;
+* ``no_split``: the producer does not split the tiles;
+* ``no_compute``: the consumers release each tile unread (TMA and the
+  split alone);
+* ``no_pv``: S and the softmax, no PV products;
+* ``ring_2_2`` (checked): two raw stages and two split slots at D = 64;
+* ``o_in_tensor_cores`` (checked at D = 64): PV added into one tensor-core
+  accumulator over every tile of a row, instead of a fresh one a tile.
+
+Run on a card from the repository root:
+
+    python3 tools/kernel_variants.py
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+MATVEC_SRC = "matvec.cu"
+FLASH_SRC = "flash_attention_tf32.cu"
+
+#: name -> (source, REPRO_VARIANT, checked): the numbers are the kernels'
+#: own kVariant constants
+VARIANTS = {
+    "no_reads": (MATVEC_SRC, 1, False),
+    "no_split": (FLASH_SRC, 1, False),
+    "no_compute": (FLASH_SRC, 2, False),
+    "no_pv": (FLASH_SRC, 3, False),
+    "ring_2_2": (FLASH_SRC, 4, True),
+    "o_in_tensor_cores": (FLASH_SRC, 5, True),
+}
+#: flash shapes (B, H, Hkv, T, D, causal)
+FLASH_SHAPES = ((4, 32, 8, 1024, 64, True), (1, 8, 1, 1000, 64, False))
+
+
+def build_all(names) -> dict:
+    """Compile the variants (all nvcc processes at once) into
+    build/kernels/variants/; returns name -> loaded library."""
+    from repro_torch.kernels import _cuda
+
+    out = _cuda.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in names:
+        source, number, _ = VARIANTS[name]
+        cmd = [_cuda.find_nvcc(), *_cuda.NVCC_FLAGS, f"-DREPRO_VARIANT={number}",
+               "-I", str(_cuda.CSRC), "-o", str(out / f"{name}.so"), str(_cuda.CSRC / source)]
+        jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+    libs = {}
+    for name, proc in jobs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n{text}")
+        spills = [line.strip() for line in text.splitlines() if "spill" in line]
+        print(json.dumps({"variant": name, "ptxas": spills}), flush=True)
+        libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
+    return libs
+
+
+def time_ms(fn, reps: int = 20) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    for s, e in zip(starts, ends):
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def in_turns(fns: dict) -> dict:
+    times: dict = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            times[name].append(time_ms(fns[name]))
+    return {name: statistics.mean(t) for name, t in times.items()}
+
+
+def matvec_rows(libs) -> None:
+    import torch
+    from repro_torch.kernels import rank1_chain, ref
+
+    P, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    n = 8192
+    rng = np.random.default_rng(0)
+    A = torch.tensor(rng.standard_normal((n, n)).astype(np.float32), device="cuda")
+    x = torch.tensor(rng.standard_normal(n).astype(np.float32), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = rank1_chain.sm_count(0)
+    fn = libs["no_reads"].repro_matvec
+    fn.argtypes = [P, P, I64, I64, I32, I32, I32, I64, P, P, P, P]
+    y = torch.empty(n, device="cuda")
+    t, rows, cols, aligned = rank1_chain.layout(A, x)
+    plan = rank1_chain.matvec_plan(rows, cols, t, aligned, sms)
+    assert plan.kernel == "tma", plan
+
+    def cut():
+        rc = fn(A.data_ptr(), x.data_ptr(), n, n, 0, 1, plan.blocks, 0, None, None,
+                y.data_ptr(), stream)
+        if rc:
+            raise RuntimeError(f"no_reads: CUDA error {rc}")
+
+    bound = 1e3 * 4 * (n * n + 2 * n) / 3.35e12
+    err = float((rank1_chain.matvec(A, x).double() - ref.matvec_ref(A, x).double())
+                .abs().max())
+    times = in_turns({"shipped": lambda: rank1_chain.matvec(A, x), "no_reads": cut,
+                      "torch_mv": lambda: torch.mv(A, x)})
+    print(json.dumps({"kernel": "matvec", "n": n, "layout": "rows", "ms": times,
+                      "bound_ms": bound, "shipped_max_abs_err": err}), flush=True)
+
+
+def flash_rows(libs) -> None:
+    import torch
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ref
+
+    P, I32 = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    for B, H, Hkv, T, D, causal in FLASH_SHAPES:
+        rng = np.random.default_rng(T + D)
+        q, k, v = (torch.tensor(rng.standard_normal(s).astype(np.float32), device="cuda")
+                   for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+        want = ref.flash_attention_ref(q.double(), k.double(), v.double(), causal=causal)
+        scale = float(want.abs().max())
+        outs = {"shipped": lambda: tflash.flash_attention(q, k, v, causal=causal)}
+        bufs = {}
+        for name, lib in libs.items():
+            if VARIANTS[name][0] != FLASH_SRC:
+                continue
+            fn = lib.repro_flash_attention_tf32
+            fn.argtypes = [P, P, P, P, I32, I32, I32, I32, I32, I32, I32, P]
+            bufs[name] = torch.empty_like(q)
+
+            def call(fn=fn, o=bufs[name], name=name):
+                rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv,
+                        T, T, D, int(causal), stream)
+                if rc:
+                    raise RuntimeError(f"{name}: CUDA error {rc}")
+                return o
+            outs[name] = call
+        errors = {}
+        for name, fn in outs.items():
+            got = fn()
+            torch.cuda.synchronize()
+            errors[name] = float((got.double() - want).abs().max()) / scale
+        times = in_turns(outs)
+        print(json.dumps({"kernel": "flash_attention_tf32", "shape": [B, H, Hkv, T, D],
+                          "causal": causal, "ms": times, "rel_err": errors,
+                          "checked": ["shipped"] + [n for n in bufs if VARIANTS[n][2]]}),
+              flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_variants: no CUDA device is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    libs = build_all(VARIANTS)
+    matvec_rows(libs)
+    flash_rows(libs)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
