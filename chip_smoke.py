@@ -21,9 +21,11 @@ Phases (any failed check raises, and the script exits non-zero):
    on normal data and at one device event a call in both layouts, timed in
    turns with ``torch.mv``; ``scatter_add`` also at
    a kernel-phase batch of 65,536 rows, with the wrapper's host µs a call
-   beside ``index_add_``'s; ``flash_attention`` in bf16 and
-   float32 against its plain version in float64, by the kernel the dispatch
-   takes: ``flash_attention_wgmma`` for bf16 and ``flash_attention_tf32``
+   beside ``index_add_``'s; ``scatter_dedup`` timed in turns with
+   ``scatter_add`` and ``index_add_``, and ``fused_chain``, each with its
+   wrapper's host µs and at one device event a call; ``flash_attention``
+   in bf16 and float32 against its plain version in float64, by the kernel
+   the dispatch takes: ``flash_attention_wgmma`` for bf16 and ``flash_attention_tf32``
    for float32 at D = 64 and 128, where the SIMT ``flash_attention`` is
    checked and timed beside it), timed with
    CUDA events and the profiler beside its plain version, a one-call
@@ -805,9 +807,13 @@ def flash_attention_rows(rng, rows: dict) -> None:
 
 def scatter_dedup_rows(rng, out: list) -> None:
     """``scatter_dedup`` at the view sizes of the retailer triggers, S = 1
-    (a collapsed-to-scalar view: every row one id) up to 1,179,648."""
+    (a collapsed-to-scalar view: every row one id) up to 1,179,648: the
+    kernel, ``scatter_add`` and ``index_add_`` timed in turns (events ms),
+    the kernel's and ``index_add_``'s device ms, the wrappers' host µs a
+    call, one device event a call."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ring_scatter import scatter_add, scatter_dedup_ref
+    from repro_torch.kernels.ring_scatter import (SCATTER_DEDUP, scatter_add,
+                                                  scatter_dedup_ref)
 
     B = BATCH
     for S in (1, 96, 9216, 1_179_648):
@@ -832,12 +838,25 @@ def scatter_dedup_rows(rng, out: list) -> None:
             def run():
                 scatter_add(work, ids, vals, dedup=True)
 
+            def library():
+                work.index_add_(0, ids64, vals)
+
+            events = check_one_launch(f"scatter_dedup S={S} d={d}", run,
+                                      "scatter_dedup", SCATTER_DEDUP)
+            turns = time_in_turns({"kernel": run,
+                                   "scatter_add": lambda: scatter_add(work, ids, vals),
+                                   "library": library})
             row = dict(
                 shape=dict(S=S, d=d, B=B), max_abs_err=err,
-                kernel_ms=time_ms(run),
+                device_events_per_call=events,
+                kernel_ms=turns["kernel"],
                 device_ms=kernel_device_ms(run, "scatter_dedup_kernel"),
+                host_us=host_us(run),
+                scatter_add_ms=turns["scatter_add"],
                 plain_ms=time_ms(lambda: scatter_dedup_ref(work, ids, vals)),
-                library_ms=time_ms(lambda: work.index_add_(0, ids64, vals)),
+                library_ms=turns["library"],
+                library_device_ms=all_device_ms(library),
+                library_host_us=host_us(library),
                 bound_ms=bms, bound_by=by)
             out.append(row)
             log({"kernel": "scatter_dedup", **row})
@@ -859,8 +878,8 @@ def fused_chain_rows(rng, out: list) -> None:
     ids out of range), the 9216-row source and a collapsed-to-scalar target
     (S = 1), each checked with and without the per-row product output."""
     import torch
-    from repro_torch.kernels.ring_fused import (fused_apply, fused_apply_ref,
-                                                spec_width)
+    from repro_torch.kernels.ring_fused import (FUSED_CHAIN, fused_apply,
+                                                fused_apply_ref, spec_width)
 
     B = BATCH
     for spec in (("scalar",), ("degree", 10)):
@@ -914,8 +933,11 @@ def fused_chain_rows(rng, out: list) -> None:
 
             row = dict(
                 shape=dict(S=S, Sg=list(src_rows), d=d, B=B), max_abs_err=err,
+                device_events_per_call=check_one_launch(label, run, "fused_chain",
+                                                        FUSED_CHAIN),
                 kernel_ms=time_ms(run),
                 device_ms=kernel_device_ms(run, "fused_chain_kernel"),
+                host_us=host_us(run),
                 plain_ms=time_ms(lambda: fused_apply_ref(
                     work, out_ids, vals, sources, spec)),
                 # no single PyTorch call gathers, multiplies in the ring and
@@ -1661,7 +1683,7 @@ def main() -> int:
             plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=shape,
-            **({"tc_bound_ms": row["tc_bound_ms"]} if "tc_bound_ms" in row else {})))
+            **{k: row[k] for k in ("tc_bound_ms", "host_us") if k in row}))
     log({"kernels": summary})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

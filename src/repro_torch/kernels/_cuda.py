@@ -157,19 +157,25 @@ def on_card(t) -> bool:
     return True
 
 
-def check_tensor(name: str, t, dtype, shape: tuple, device) -> None:
+def check_tensor(name: str, t, dtype, shape: tuple, device, index=None) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device`` (what the kernels take).  ``shape`` (a tuple or
     ``torch.Size``) is compared with ``t.shape`` as it is and ``dtype`` by
-    identity, so a passing check builds nothing."""
+    identity, and ``index`` (of one of several operands of one name) joins
+    the name only in a message, so a passing check builds nothing."""
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
+        raise ValueError(f"{_label(name, index)} is on {t.device}, expected {device}")
     if t.dtype is not dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        raise TypeError(f"{_label(name, index)} has dtype {t.dtype}, expected {dtype}")
     if t.shape != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{_label(name, index)} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+        raise ValueError(f"{_label(name, index)} must be contiguous")
+
+
+def _label(name: str, index) -> str:
+    return name if index is None else f"{name} {index}"
 
 
 class ScratchCache(OrderedDict):

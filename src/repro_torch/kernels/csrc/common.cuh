@@ -87,55 +87,77 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// In-tile key dedup, the counterpart of repro/kernels/ring_scatter.py::
-// tile_dedup, in two steps over one tile of n rows in shared memory.
-//
-// tile_dedup_leaders: lead[r] is the first row of the tile whose id equals
-// ids[r] (r itself for a first occurrence), or -1 where ids[r] is padding
-// (< 0) or out of range (>= S).  Call from every thread of the block;
-// synchronise before reading lead.
-__device__ inline void tile_dedup_leaders(const int* ids, int* lead, int n,
-                                          long long S) {
-  for (int r = threadIdx.x; r < n; r += blockDim.x) {
-    const int id = ids[r];
-    int l = -1;
-    if (id >= 0 && id < S) {
-      l = r;
-      for (int q = 0; q < r; ++q) {
-        if (ids[q] == id) {
-          l = q;
-          break;
-        }
-      }
-    }
-    lead[r] = l;
+// ⊎ of one payload row into one view row, with Hopper's vector reductions
+// (atomicAdd on float4, red.global.add.v4.f32, sm_90).  The row splits into
+// reduction groups of at most four columns: group 0 is the `head`, the
+// columns before the row's first 16-byte boundary (where the row starts
+// depends on its id when d is not a multiple of 4); groups 1 .. vectors are
+// the whole float4s after it; group vectors + 1 is the tail.  A warp's lane
+// takes groups lane, lane + 32, ...
+struct RowSplit {
+  int head;     // columns before the first 16-byte boundary (< 4)
+  int vectors;  // float4s after it
+  int d;
+
+  __device__ __forceinline__ int groups() const { return vectors + 2; }
+  __device__ __forceinline__ int start(int g) const { return g == 0 ? 0 : head + 4 * (g - 1); }
+  __device__ __forceinline__ int width(int g) const {
+    return g == 0 ? head : (g <= vectors ? 4 : d - head - 4 * vectors);
+  }
+};
+
+__device__ __forceinline__ RowSplit row_split(const float* row, int d) {
+  const int to_boundary =
+      static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15) >> 2);
+  const int head = to_boundary < d ? to_boundary : d;
+  return RowSplit{head, (d - head) >> 2, d};
+}
+
+// row[start(g) + t] += x[t] for the width(g) columns of group g: one vector
+// reduction for a float4 group, scalar ones for the head and the tail.
+__device__ __forceinline__ void reduce_group(float* row, const RowSplit& s, int g,
+                                             const float (&x)[4]) {
+  const int c0 = s.start(g);
+  if (g >= 1 && g <= s.vectors) {
+    atomicAdd(reinterpret_cast<float4*>(row + c0), make_float4(x[0], x[1], x[2], x[3]));
+    return;
+  }
+  const int n = s.width(g);
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    if (t < n) atomicAdd(row + c0 + t, x[t]);
   }
 }
 
-// tile_dedup_scatter: view[ids[r], c] += Σ of vals[q, c] over the rows q
-// whose leader is r, for every first occurrence r and column c.  Each
-// duplicate row adds into its leader's row of `vals` (the tile in shared
-// memory, updated in place) with a shared-memory atomic; then each leader
-// issues one global atomic add per column, so a tile costs one atomic per
-// (distinct id, column) in device memory.  Both atomics add in no fixed
-// order: exact for integer-valued payloads, as the reference's 0/1 matmul.
-// Call from every thread of the block, after tile_dedup_leaders and a
-// barrier.
-__device__ inline void tile_dedup_scatter(float* view, int d, const int* ids,
-                                          const int* lead, float* vals, int n) {
-  for (int e = threadIdx.x; e < n * d; e += blockDim.x) {
-    const int r = e / d;
-    const int l = lead[r];
-    if (l >= 0 && l != r) atomicAdd(vals + l * d + (e - r * d), vals[e]);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < n * d; e += blockDim.x) {
-    const int r = e / d;
-    if (lead[r] == r) {
-      atomicAdd(view + static_cast<long long>(ids[r]) * d + (e - r * d), vals[e]);
-    }
-  }
+// In-tile key dedup, the counterpart of repro/kernels/ring_scatter.py::
+// tile_dedup.  A tile's rows sit on the lanes of one warp (row r on lane r,
+// or a warp's row index r); `key` is the row's id where it is in range and
+// -1 - lane otherwise (padding and rows past the batch drop, and each such
+// key is its lane's alone).  The group of a row is the mask of the tile's
+// rows with its key (__match_any_sync); its leader, the group's lowest row.
+constexpr unsigned kFullMask = 0xffffffffu;
+
+__device__ __forceinline__ int dedup_key(int id, long long S, bool live, int lane) {
+  return live && id >= 0 && id < S ? id : -1 - lane;
 }
+
+// The group's sum at its leader lane: x of the leader, then each other
+// member's x in ascending lane order, each add rounded to nearest (the
+// order of tests/_dedup_order.py); at any other lane of a group a partial
+// sum, not used.  Call from the whole warp.
+__device__ __forceinline__ float warp_group_sum(float x, unsigned group, int lane) {
+  if (!__any_sync(kFullMask, __popc(group) > 1)) return x;
+  float s = x;
+  for (int src = 0; src < 32; ++src) {
+    const float y = __shfl_sync(kFullMask, x, src);
+    if (src > lane && ((group >> src) & 1u)) s = __fadd_rn(s, y);
+  }
+  return s;
+}
+
+// Keeps v alive without a memory operation (the variants that cut a part
+// out, so that the compiler keeps the rest).
+__device__ __forceinline__ void keep(float v) { asm volatile("" ::"f"(v)); }
 
 }  // namespace repro
 

@@ -14,16 +14,13 @@
 // Design: one warp per batch row, with a grid stride over rows.  Lane 0
 // reads the row's id and shuffles it to the warp, so no element pays an
 // index division.  The view row's 16-byte aligned interior takes Hopper's
-// vector reductions (atomicAdd on float4, red.global.add.v4.f32, sm_90),
-// one per four columns; the scalar head before it and tail after it take
-// scalar reductions (at d = 111 where the row starts within 16 bytes
-// depends on its id).  The view stays where it is in device memory and is
-// never copied.  Rows whose id is < 0 or >= S are padding and drop.
-// Duplicate ids of one batch meet in the reductions in no fixed order: the
-// sum is exact for integer-valued payloads and within float32 rounding
-// otherwise.
-#include <cstdint>
-
+// vector reductions, one per four columns; the scalar head before it and
+// tail after it take scalar reductions (repro::RowSplit, common.cuh; at
+// d = 111 where the row starts within 16 bytes depends on its id).  The
+// view stays where it is in device memory and is never copied.  Rows whose
+// id is < 0 or >= S are padding and drop.  Duplicate ids of one batch meet
+// in the reductions in no fixed order: the sum is exact for integer-valued
+// payloads and within float32 rounding otherwise.
 #include "common.cuh"
 
 namespace {
@@ -41,19 +38,14 @@ __global__ void scatter_add_kernel(float* __restrict__ view,
     if (id < 0 || id >= S) continue;  // the same for the whole warp
     float* row = view + static_cast<long long>(id) * d;
     const float* src = vals + b * d;
-    // floats up to the row's first 16-byte boundary, then whole float4s
-    const int to_boundary = static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15) >> 2);
-    const int head = to_boundary < d ? to_boundary : d;
-    const int vectors = (d - head) >> 2;
-    const int tail = head + 4 * vectors;
-    if (lane < head) atomicAdd(row + lane, __ldg(src + lane));
-    for (int v = lane; v < vectors; v += 32) {
-      const int k = head + 4 * v;
-      atomicAdd(reinterpret_cast<float4*>(row + k),
-                make_float4(__ldg(src + k), __ldg(src + k + 1), __ldg(src + k + 2),
-                            __ldg(src + k + 3)));
+    const repro::RowSplit split = repro::row_split(row, d);
+    for (int g = lane; g < split.groups(); g += 32) {
+      const int c0 = split.start(g), n = split.width(g);
+      float x[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) x[t] = t < n ? __ldg(src + c0 + t) : 0.0f;
+      repro::reduce_group(row, split, g, x);
     }
-    if (tail + lane < d) atomicAdd(row + tail + lane, __ldg(src + tail + lane));
   }
 }
 

@@ -23,8 +23,11 @@ reads source rows from device memory, so source rows are not bounded.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from . import scatter_ops
 from ._cuda import I32, I64, PTR, CudaKernel, check_tensor, on_card, stream_handle
 from .ref import scatter_add_ref
 from .ring_scatter import tile_rows
@@ -36,6 +39,9 @@ SMEM_PER_BLOCK = 232_448
 #: (plane, ids) pairs the kernel's argument struct takes; a chain with more
 #: sources stays unfused at plan time
 MAX_SOURCES = 4
+
+#: warps of one ``fused_chain`` block at widths above 1 (kWarps)
+CHAIN_WARPS = 8
 
 FUSED_CHAIN = CudaKernel(
     "fused_chain.cu", "repro_fused_chain",
@@ -115,14 +121,28 @@ def ring_mul_flat(a: torch.Tensor, b: torch.Tensor, spec) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Plan-time H100 model
 # ---------------------------------------------------------------------------
+def ring_degree(width: int) -> int:
+    """The degree m of a degree-m ring payload of ``width`` = 1 + m + m²
+    columns; 0 for any other width (the scalar ring's 1)."""
+    m = (math.isqrt(4 * int(width) - 3) - 1) // 2 if width >= 3 else 0
+    return m if 1 + m + m * m == width else 0
+
+
 def chain_smem_bytes(width: int) -> int:
     """Shared memory (bytes) of one ``fused_chain`` block at payload width
-    ``width``: the value, gathered-row and product tiles (3 · tile_rows · d
-    floats) and the out ids and dedup leaders (2 · tile_rows ints), exactly
-    what the kernel's launch requests.  Deterministic in the width; a chain
-    fuses only while it is at most :data:`SMEM_PER_BLOCK`."""
-    t = tile_rows(width)
-    return 4 * (3 * t * int(width) + 2 * t)
+    ``width``, exactly what the kernel's launch requests: none at width 1
+    (a thread a row, the dedup by shuffles); otherwise the tile of grouped
+    rows' products (``tile_rows · width`` floats) and, for the degree-m
+    ring, each of the block's :data:`CHAIN_WARPS` warps' (c, s) slots of
+    both factors of every source (2 · :data:`MAX_SOURCES` · (m + 1)
+    floats).  Deterministic in the width; a chain fuses only while it is at
+    most :data:`SMEM_PER_BLOCK` (up to degree 80, width 6481)."""
+    width = int(width)
+    if width <= 1:
+        return 0
+    m = ring_degree(width)
+    slots = CHAIN_WARPS * 2 * MAX_SOURCES * (m + 1) if m else 0
+    return 4 * (tile_rows(width) * width + slots)
 
 
 # ---------------------------------------------------------------------------
@@ -157,13 +177,16 @@ def resolve_backend(hint: str | None, device) -> str:
     tensor, ``fused_torch`` (the plain version) for a CPU tensor or where
     the ⊎ backend is forced to ``torch`` (the plan's ScatterAccum hint or
     ``REPRO_TORCH_SCATTER_BACKEND=torch``)."""
-    from .scatter_ops import active_override
-
-    if torch.device(device).type != "cuda":
+    kind = device.type if isinstance(device, torch.device) else torch.device(device).type
+    if kind != "cuda":
         return "fused_torch"
-    if (hint or active_override()) == "torch":
+    if (hint or scatter_ops.active_override()) == "torch":
         return "fused_torch"
     return "fused_cuda"
+
+
+_NO_SOURCES = (None,) * MAX_SOURCES
+_NO_ROWS = (0,) * MAX_SOURCES
 
 
 def fused_apply(view_plane: torch.Tensor, out_ids: torch.Tensor,
@@ -182,17 +205,18 @@ def fused_apply(view_plane: torch.Tensor, out_ids: torch.Tensor,
     S, d = view_plane.shape
     B = out_ids.shape[0]
     dev = view_plane.device
-    if len(sources) > MAX_SOURCES:
-        raise ValueError(f"{len(sources)} sources; the kernel takes at most "
-                         f"{MAX_SOURCES}")
+    n = len(sources)
+    if n > MAX_SOURCES:
+        raise ValueError(f"{n} sources; the kernel takes at most {MAX_SOURCES}")
     check_tensor("view_plane", view_plane, torch.float32, (S, d), dev)
     check_tensor("out_ids", out_ids, torch.int32, (B,), dev)
     check_tensor("vals", vals, torch.float32, (B, d), dev)
     for i, (plane, ids) in enumerate(sources):
-        if plane.shape[0] == 0 and B:
+        rows = plane.shape[0]
+        if rows == 0 and B:
             raise ValueError(f"gather source {i} has no rows")
-        check_tensor(f"plane {i}", plane, torch.float32, (plane.shape[0], d), dev)
-        check_tensor(f"ids {i}", ids, torch.int32, (B,), dev)
+        check_tensor("plane", plane, torch.float32, (rows, d), dev, index=i)
+        check_tensor("ids", ids, torch.int32, (B,), dev, index=i)
     if product_out is not None:
         check_tensor("product_out", product_out, torch.float32, (B, d), dev)
     if not on_card(view_plane) or resolve_backend(backend, dev) == "fused_torch":
@@ -202,14 +226,12 @@ def fused_apply(view_plane: torch.Tensor, out_ids: torch.Tensor,
         raise ValueError(f"ring spec {spec} is wider than the plane ({d})")
     if B * d == 0:
         return view_plane
-    m = 0 if spec[0] == "scalar" else int(spec[1])
-    pad = MAX_SOURCES - len(sources)
-    planes = [p.data_ptr() for p, _ in sources] + [None] * pad
-    ids = [i.data_ptr() for _, i in sources] + [None] * pad
-    rows = [p.shape[0] for p, _ in sources] + [0] * pad
     FUSED_CHAIN.launch(
         view_plane.data_ptr(), out_ids.data_ptr(), vals.data_ptr(),
         None if product_out is None else product_out.data_ptr(),
-        S, d, B, m, len(sources), *planes, *ids, *rows, tile_rows(d),
-        stream_handle(view_plane))
+        S, d, B, 0 if spec[0] == "scalar" else int(spec[1]), n,
+        *[p.data_ptr() for p, _ in sources], *_NO_SOURCES[n:],
+        *[i.data_ptr() for _, i in sources], *_NO_SOURCES[n:],
+        *[p.shape[0] for p, _ in sources], *_NO_ROWS[n:],
+        tile_rows(d), stream_handle(view_plane))
     return view_plane

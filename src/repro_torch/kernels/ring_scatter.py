@@ -14,6 +14,8 @@ Key linearization, payload flattening and the backend choice live in
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import ref
@@ -29,17 +31,22 @@ GATHER_MUL_SCATTER = CudaKernel(
 
 
 #: batch rows per tile of the tile-dedup kernels hold at most this many
-#: payload elements (tile_rows · d), within [8, 32] rows
+#: payload elements (tile_rows · d), within [8, 32] rows: a tile's ids fit
+#: on the lanes of one warp
 TILE_ELEMS = 1024
 
 
+@functools.cache
 def tile_rows(d: int) -> int:
-    """Batch rows per tile (one block each) of ``scatter_dedup`` and
-    ``fused_chain`` at payload width ``d``: the largest power of two in
-    [8, 32] with ``rows · d <= TILE_ELEMS`` (32 rows for scalar rings, 8 at
-    the degree-10 width 111, so that a batch of 1000 rows spreads over 125
-    blocks of the card's 132 SMs).  A tile's dedup finds each row's first
-    occurrence by a scan of the rows before it, so tiles stay short."""
+    """Batch rows per dedup tile of ``scatter_dedup`` and ``fused_chain`` at
+    payload width ``d``: the largest power of two in [8, 32] with
+    ``rows · d <= TILE_ELEMS`` (32 rows for scalar rings, 8 at the degree-10
+    width 111).  A tile's ids sit on the lanes of one warp, which finds
+    their duplicates with one ``__match_any_sync``; at d = 1 the warp's 32
+    threads are the tile's rows, wider a warp takes a row.  ``fused_chain``
+    stages a tile's grouped rows in shared memory (``tile_rows · d``
+    floats), so wide rows keep tiles short.  Cached: the wrappers call it
+    on every launch."""
     rows = 8
     while rows < 32 and 2 * rows * max(int(d), 1) <= TILE_ELEMS:
         rows *= 2
@@ -47,8 +54,9 @@ def tile_rows(d: int) -> int:
 
 
 def tile_dedup(ids: torch.Tensor, vals: torch.Tensor):
-    """Per-tile key dedup (plain version of ``csrc/common.cuh``'s
-    ``tile_dedup_*``; the reference's ``ring_scatter.tile_dedup``).
+    """Per-tile key dedup (plain version of the dedup of
+    ``csrc/scatter_dedup.cu`` and ``csrc/fused_chain.cu``; the reference's
+    ``ring_scatter.tile_dedup``).
 
     ``ids`` ``[..., n]``, ``vals`` ``[..., n, d]``, one tile per leading
     index.  Returns ``(mids, sums)``: ``sums[i]`` is the sum of the tile's
@@ -82,12 +90,12 @@ def scatter_dedup_ref(view: torch.Tensor, seg_ids: torch.Tensor,
 
 
 def row_split(d: int, offset: int) -> tuple[int, int, int]:
-    """(head, vectors, tail) of the ``scatter_add`` kernel's split of one
-    view row of ``d`` floats that starts ``offset`` floats past a 16-byte
-    boundary: ``head`` scalar adds up to the boundary, ``vectors`` adds of
-    four floats (Hopper's vector reduction, 16-byte aligned), ``tail``
-    scalar adds after them.  At d = 111 the offset, and so the split,
-    depends on the row's id."""
+    """(head, vectors, tail) of the ⊎ kernels' split of one view row of
+    ``d`` floats that starts ``offset`` floats past a 16-byte boundary
+    (``repro::RowSplit``, ``csrc/common.cuh``): ``head`` scalar adds up to
+    the boundary, ``vectors`` adds of four floats (Hopper's vector
+    reduction, 16-byte aligned), ``tail`` scalar adds after them.  At
+    d = 111 the offset, and so the split, depends on the row's id."""
     head = min(d, -offset % 4)
     vectors = (d - head) // 4
     return head, vectors, d - head - 4 * vectors

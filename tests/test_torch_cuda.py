@@ -272,6 +272,70 @@ def test_cuda_fused_chain_matches_plain(cuda_device, spec, n_src, S):
     assert torch.equal(plain, want)
 
 
+def _tile_local_ids(rng, B, T, single):
+    """Out ids (and S) whose duplicates fall within one tile of T rows:
+    tile t draws from ids 4t .. 4t + 3 (or, ``single``, every row id 0 of
+    S = 1, one tile), with padding (-1) and out-of-range (>= S) rows."""
+    if single:
+        S = 1
+        ids = np.zeros(B, np.int32)
+    else:
+        S = 4 * (-(-B // T)) + 3
+        ids = (4 * (np.arange(B) // T) + rng.integers(0, 4, size=B)).astype(np.int32)
+    ids[rng.permutation(B)[:3]] = -1
+    ids[rng.permutation(B)[:2]] = S + 1
+    return S, ids
+
+
+def _normal(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("single", [False, True], ids=["tiles", "S1"])
+@pytest.mark.parametrize("d", [1, 3, 7, 43, 111, 931])
+def test_cuda_scatter_dedup_matches_its_order(cuda_device, d, single):
+    """Normal data, ids repeating only within a tile: the kernel's sums are
+    bitwise tests/_dedup_order.py's (leader first, then ascending rows)."""
+    import _dedup_order
+
+    rng = np.random.default_rng(d + single)
+    T = ring_scatter.tile_rows(d)
+    B = T if single else 997
+    S, ids = _tile_local_ids(rng, B, T, single)
+    view, vals = _normal(rng, (S, d)), _normal(rng, (B, d))
+    want = _dedup_order.scatter_dedup_order(view, ids, vals)
+    got = ring_scatter.scatter_add(*_on(cuda_device, view, ids, vals), dedup=True)
+    assert torch.equal(got.cpu(), torch.tensor(want))
+
+
+@pytest.mark.parametrize("single", [False, True], ids=["tiles", "S1"])
+@pytest.mark.parametrize("n_src", [1, 2, 4])
+@pytest.mark.parametrize("m", [0, 1, 2, 6, 10, 30, 80])
+def test_cuda_fused_chain_matches_its_order(cuda_device, m, n_src, single):
+    """Normal data, out ids repeating only within a tile, gather ids out of
+    range (clamped): the view and ``product_out`` are bitwise
+    tests/_dedup_order.py's, scalar ring and degrees 1 to 80 (d = 6481, the
+    widest the plan fuses)."""
+    import _dedup_order
+
+    rng = np.random.default_rng(100 * m + 10 * n_src + single)
+    spec = ("scalar",) if m == 0 else ("degree", m)
+    d = ring_fused.spec_width(spec)
+    T = ring_scatter.tile_rows(d)
+    B = T if single else 1000
+    S, out_ids = _tile_local_ids(rng, B, T, single)
+    view, vals = _normal(rng, (S, d)), _normal(rng, (B, d))
+    sources = [(_normal(rng, (Sg, d)), rng.integers(-2, Sg + 2, size=B).astype(np.int32))
+               for Sg in (9216 if d <= 111 else 300, 128, 32, 1)[:n_src]]
+    want, want_prod = _dedup_order.fused_apply_order(view, out_ids, vals, sources, spec)
+    prod = torch.empty((B, d), device=cuda_device)
+    got = ring_fused.fused_apply(
+        *_on(cuda_device, view, out_ids, vals),
+        [tuple(_on(cuda_device, p, i)) for p, i in sources], spec, product_out=prod)
+    assert torch.equal(prod.cpu(), torch.tensor(want_prod))
+    assert torch.equal(got.cpu(), torch.tensor(want))
+
+
 # ---------------------------------------------------------------------------
 # The kernel-ops layer: cofactor_update, ring_mul, matvec, outer_accumulate
 # ---------------------------------------------------------------------------

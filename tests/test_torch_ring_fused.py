@@ -166,18 +166,24 @@ def test_fused_apply_checks_its_operands():
 
 def test_chain_smem_model():
     """The H100 model: deterministic in the width, within a block's shared
-    memory at the degree-10 width, tiles of 8 rows there."""
+    memory at the degree-10 width, tiles of 8 rows there; exactly the
+    launch's request (no shared memory at width 1, a thread a row; else the
+    tile of grouped rows and 8 warps' (c, s) slots for 4 sources)."""
     assert ring_fused.chain_smem_bytes(111) == ring_fused.chain_smem_bytes(111)
     assert ring_scatter.tile_rows(111) == 8
     assert ring_scatter.tile_rows(1) == 32
     assert ring_scatter.tile_rows(931) == 8
-    assert ring_fused.chain_smem_bytes(111) == 4 * (3 * 8 * 111 + 2 * 8)
+    assert ring_fused.chain_smem_bytes(111) == 4 * (8 * 111 + 8 * 2 * 4 * 11)
+    assert ring_fused.chain_smem_bytes(1) == 0
     assert ring_fused.chain_smem_bytes(1) < ring_fused.chain_smem_bytes(111) \
         <= ring_fused.SMEM_PER_BLOCK
-    # degree 30 (d = 931): 8-row tiles inside one block; degree 50
-    # (d = 2551) is past it, so such a chain stays unfused
+    # degree 30 (d = 931): 8-row tiles inside one block; degree 80
+    # (d = 6481) is the widest that fits, degree 81 (d = 6643) is past it,
+    # so such a chain stays unfused
+    assert ring_fused.chain_smem_bytes(931) == 4 * (8 * 931 + 8 * 2 * 4 * 31)
     assert ring_fused.chain_smem_bytes(931) <= ring_fused.SMEM_PER_BLOCK
-    assert ring_fused.chain_smem_bytes(1 + 50 + 2500) > ring_fused.SMEM_PER_BLOCK
+    assert ring_fused.chain_smem_bytes(1 + 80 + 6400) <= ring_fused.SMEM_PER_BLOCK
+    assert ring_fused.chain_smem_bytes(1 + 81 + 6561) > ring_fused.SMEM_PER_BLOCK
 
 
 def test_resolve_backend():

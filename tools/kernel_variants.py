@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the TMA ``matvec`` and ``flash_attention_tf32`` spend their time.
+"""Where ``matvec``, ``flash_attention_tf32``, ``scatter_dedup`` and
+``fused_chain`` spend their time.
 
 Builds each kernel's source as it is and in variants that cut out or
 change one part of it, and times them in turns on the card (CUDA events,
@@ -31,9 +32,24 @@ error against the float64 plain version (largest |err| over the largest
 * ``o_in_tensor_cores`` (checked at D = 64): PV added into one tensor-core
   accumulator over every tile of a row, instead of a fresh one a tile.
 
-Run on a card from the repository root:
+``scatter_dedup`` at (S 1,179,648, d 111, B 1000) and ``fused_chain`` at
+the degree-10 chain (S 96, sources of 9216 and 96 rows, d 111, B 1000),
+integer-valued data with duplicate ids, each variant called through the
+wrapper's C entry: device ms from the profiler (the kernel alone: at
+B = 1000 the events ms of a call is host time), in turns:
 
-    python3 tools/kernel_variants.py
+* ``shipped`` (and ``scatter_add`` at the same shape, the same ⊎ without
+  the dedup);
+* ``dedup_no_dedup`` / ``chain_no_dedup``: every in-range row its own
+  group (no in-tile dedup);
+* ``dedup_no_reductions`` / ``chain_no_reductions``: no global atomics;
+* ``chain_no_gathers``: no gather-id or source-row loads;
+* ``chain_no_product``: the ring product of each source skipped.
+
+Run on a card from the repository root (all sections, or the ones
+named: ``matvec``, ``flash``, ``dedup``):
+
+    python3 tools/kernel_variants.py [section ...]
 """
 from __future__ import annotations
 
@@ -48,9 +64,12 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))  # chip_smoke's profiler helpers
 
 MATVEC_SRC = "matvec.cu"
 FLASH_SRC = "flash_attention_tf32.cu"
+DEDUP_SRC = "scatter_dedup.cu"
+CHAIN_SRC = "fused_chain.cu"
 
 #: name -> (source, REPRO_VARIANT, checked): the numbers are the kernels'
 #: own kVariant constants
@@ -61,6 +80,12 @@ VARIANTS = {
     "no_pv": (FLASH_SRC, 3, False),
     "ring_2_2": (FLASH_SRC, 4, True),
     "o_in_tensor_cores": (FLASH_SRC, 5, True),
+    "dedup_no_dedup": (DEDUP_SRC, 1, False),
+    "dedup_no_reductions": (DEDUP_SRC, 2, False),
+    "chain_no_gathers": (CHAIN_SRC, 1, False),
+    "chain_no_product": (CHAIN_SRC, 2, False),
+    "chain_no_dedup": (CHAIN_SRC, 3, False),
+    "chain_no_reductions": (CHAIN_SRC, 4, False),
 }
 #: flash shapes (B, H, Hkv, T, D, causal)
 FLASH_SHAPES = ((4, 32, 8, 1024, 64, True), (1, 8, 1, 1000, 64, False))
@@ -188,6 +213,83 @@ def flash_rows(libs) -> None:
               flush=True)
 
 
+def device_in_turns(fns: dict, kernel: str, others: dict | None = None) -> dict:
+    """Device ms a call of the kernel named ``kernel`` (the profiler's,
+    ``chip_smoke.kernel_device_ms``; ``others`` names another kernel for
+    some of the functions) for each function, each in order and then in
+    reverse order, averaged."""
+    from chip_smoke import kernel_device_ms
+
+    others = others or {}
+    times: dict = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            times[name].append(kernel_device_ms(fns[name], others.get(name, kernel)))
+    return {name: (None if None in t else statistics.mean(t)) for name, t in times.items()}
+
+
+def _c_call(lib, kernel, args, name):
+    """A call of ``kernel``'s C entry in the variant library ``lib`` with
+    ``args`` (the wrapper's own, stream last)."""
+    fn = getattr(lib, kernel.entry)
+    fn.argtypes = kernel.argtypes
+
+    def call():
+        rc = fn(*args)
+        if rc:
+            raise RuntimeError(f"{name}: CUDA error {rc}")
+    return call
+
+
+def dedup_rows(libs) -> None:
+    """``scatter_dedup`` and ``fused_chain`` at the main path's summary
+    shapes, shipped and cut, device ms in turns."""
+    import torch
+    from repro_torch.kernels import ring_fused, ring_scatter
+
+    rng = np.random.default_rng(0)
+    B = 1000
+
+    def ints(shape, lo=-4, hi=5):
+        return torch.tensor(rng.integers(lo, hi, size=shape).astype(np.float32),
+                            device="cuda")
+
+    def ids(n, hi):
+        return torch.tensor(rng.integers(0, hi, size=n).astype(np.int32), device="cuda")
+
+    stream = torch.cuda.current_stream().cuda_stream
+    S, d = 1_179_648, 111
+    view, vals, seg = ints((S, d)), ints((B, d)), ids(B, S)
+    args = (view.data_ptr(), seg.data_ptr(), vals.data_ptr(), S, d, B,
+            ring_scatter.tile_rows(d), stream)
+    fns = {"shipped": lambda: ring_scatter.scatter_add(view, seg, vals, dedup=True),
+           "scatter_add": lambda: ring_scatter.scatter_add(view, seg, vals)}
+    for name, lib in libs.items():
+        if VARIANTS[name][0] == DEDUP_SRC:
+            fns[name] = _c_call(lib, ring_scatter.SCATTER_DEDUP, args, name)
+    times = device_in_turns(fns, "scatter_dedup_kernel",
+                            {"scatter_add": "scatter_add_kernel"})
+    print(json.dumps({"kernel": "scatter_dedup", "shape": dict(S=S, d=d, B=B),
+                      "device_ms": times}), flush=True)
+    del view
+
+    S, spec, rows = 96, ("degree", 10), (9216, 96)
+    view, vals, out = ints((S, d)), ints((B, d), -2, 3), ids(B, S)
+    sources = [(ints((r, d), -2, 3), ids(B, r)) for r in rows]
+    pad = ring_fused.MAX_SOURCES - len(sources)
+    args = (view.data_ptr(), out.data_ptr(), vals.data_ptr(), None, S, d, B, 10,
+            len(sources), *[p.data_ptr() for p, _ in sources], *[None] * pad,
+            *[i.data_ptr() for _, i in sources], *[None] * pad, *rows, *[0] * pad,
+            ring_scatter.tile_rows(d), stream)
+    fns = {"shipped": lambda: ring_fused.fused_apply(view, out, vals, sources, spec)}
+    for name, lib in libs.items():
+        if VARIANTS[name][0] == CHAIN_SRC:
+            fns[name] = _c_call(lib, ring_fused.FUSED_CHAIN, args, name)
+    print(json.dumps({"kernel": "fused_chain", "shape": dict(S=S, Sg=list(rows), d=d, B=B),
+                      "device_ms": device_in_turns(fns, "fused_chain_kernel")}),
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -198,9 +300,18 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    libs = build_all(VARIANTS)
-    matvec_rows(libs)
-    flash_rows(libs)
+    sections = {"matvec": (matvec_rows, (MATVEC_SRC,)),
+                "flash": (flash_rows, (FLASH_SRC,)),
+                "dedup": (dedup_rows, (DEDUP_SRC, CHAIN_SRC))}
+    chosen = sys.argv[1:] or list(sections)
+    unknown = set(chosen) - set(sections)
+    if unknown:
+        raise SystemExit(f"kernel_variants: unknown sections {sorted(unknown)}; "
+                         f"one of {sorted(sections)}")
+    sources = {src for name in chosen for src in sections[name][1]}
+    libs = build_all([v for v, (src, _, _) in VARIANTS.items() if src in sources])
+    for name in chosen:
+        sections[name][0](libs)
     return 0
 
 
