@@ -23,15 +23,20 @@ Phases (any failed check raises, and the script exits non-zero):
    a kernel-phase batch of 65,536 rows, with the wrapper's host µs a call
    beside ``index_add_``'s; ``scatter_dedup`` timed in turns with
    ``scatter_add`` and ``index_add_``, and ``fused_chain``, each with its
-   wrapper's host µs and at one device event a call; ``flash_attention``
-   in bf16 and float32 against its plain version in float64, by the kernel
-   the dispatch takes: ``flash_attention_wgmma`` for bf16 and ``flash_attention_tf32``
-   for float32 at D = 64 and 128, where the SIMT ``flash_attention`` is
-   checked and timed beside it), timed with
+   wrapper's host µs and at one device event a call; ``gather_mul_scatter``
+   at d = 1 and 111, with its wrapper's host µs, at one device event a
+   call and bitwise from run to run on normal data whose out ids repeat
+   only within a tile; ``flash_attention`` in bf16 and float32 against its
+   plain version in float64, by the kernel the dispatch takes:
+   ``flash_attention_wgmma`` for bf16 and ``flash_attention_tf32`` for
+   float32 at D = 64 and 128, ``flash_attention``'s mma kernel at D = 16
+   and 32, each with the SIMT kernel of ``flash_attention`` checked and
+   timed beside it), timed with
    CUDA events and the profiler beside its plain version, a one-call
    PyTorch yardstick (``library_ms``, never used by the port) and its
    bound (float32 flash rows also ``tc_bound_ms``, as three TF32 products
-   on the tensor cores).
+   on the tensor cores; rows at D <= 32 also ``exp_bound_ms``, the
+   exponentials at the MUFU rate).
 3. Paths, each through ``IVMEngine.apply_update`` (fivm, dense) at
    ``RETAILER_DOMS_BIG`` with batches of 1000 tuples, checked against a
    float64 re-evaluation, with every kernel's launch count reset before
@@ -58,7 +63,7 @@ Phases (any failed check raises, and the script exits non-zero):
    (flash attention in every prefill layer).  (i) In float32
    (``flash_attention_tf32``), the prefill and two decode steps against a
    float64 forward written here, then the same for the reduced config, 2
-   prompts of 64 tokens at head dim 16 (the SIMT ``flash_attention``);
+   prompts of 64 tokens at head dim 16 (``flash_attention``'s mma kernel);
    (ii) in bf16 (``flash_attention_wgmma``),
    ``Server.generate`` of 32 tokens, timed, with the first decode step held
    to a bf16 prefill over the extended prompt and the decode loop
@@ -281,7 +286,7 @@ def check_equal(name: str, got, want) -> float:
 def kernel_phase(rng, laps: Laps) -> dict:
     import torch
     from repro_torch.kernels import ref, scatter_ops
-    from repro_torch.kernels.ring_scatter import gather_mul_scatter, scatter_add
+    from repro_torch.kernels.ring_scatter import scatter_add
     from repro_torch.kernels.segment_ring_sum import SEGMENT_RING_SUM, segment_ring_sum
 
     rows = {"scatter_add": [], "segment_ring_sum": [], "gather_mul_scatter": [],
@@ -370,42 +375,8 @@ def kernel_phase(rng, laps: Laps) -> dict:
         rows["segment_ring_sum"].append(row)
         log({"kernel": "segment_ring_sum", **row})
 
-    for S, Sg in ((96, 32), (96, 9216), (9216, 128)):
-        d = 1
-        view = ints(rng, (S, d))
-        src = ints(rng, (Sg, d))
-        out_np = rng.integers(0, S, size=B)
-        in_np = rng.integers(0, Sg, size=B)
-        scale = ints(rng, (B,), -1, 2)
-        # padding: out_id -1 drops; in_id -1 clamps to row 0 under scale 0
-        out_pad, in_pad, scale_pad = out_np.copy(), in_np.copy(), scale.clone()
-        out_pad[:8] = -1
-        in_pad[8:16] = -1
-        scale_pad[8:16] = 0.0
-        err = check_equal(
-            f"gather_mul_scatter S={S} Sg={Sg}",
-            gather_mul_scatter(view.clone(), ids_tensor(out_pad), src,
-                               ids_tensor(in_pad), scale_pad),
-            ref.gather_mul_scatter_ref(view.clone(), ids_tensor(out_pad), src,
-                                       ids_tensor(in_pad), scale_pad))
-        out_ids, in_ids = ids_tensor(out_np), ids_tensor(in_np)
-        work = view.clone()
-        u_in, u_out = len(np.unique(in_np)), len(np.unique(out_np))
-        bms, by = bound_ms(3 * B * 4 + u_in * d * 4 + 2 * u_out * d * 4,
-                           2 * B * d)
-        row = dict(
-            shape=dict(S=S, Sg=Sg, d=d, B=B), max_abs_err=err,
-            kernel_ms=time_ms(lambda: gather_mul_scatter(
-                work, out_ids, src, in_ids, scale)),
-            device_ms=kernel_device_ms(lambda: gather_mul_scatter(
-                work, out_ids, src, in_ids, scale), "gather_mul_scatter_kernel"),
-            plain_ms=time_ms(lambda: ref.gather_mul_scatter_ref(
-                work, out_ids, src, in_ids, scale)),
-            # no single PyTorch call gathers, scales and scatters
-            library_ms=None,
-            bound_ms=bms, bound_by=by)
-        rows["gather_mul_scatter"].append(row)
-        log({"kernel": "gather_mul_scatter", **row})
+    for S, Sg, d in GMS_SHAPES:
+        rows["gather_mul_scatter"].append(gather_mul_scatter_row(rng, S, Sg, d))
 
     laps.lap("kernels: scatter_add, segment_ring_sum, gather_mul_scatter")
     scatter_dedup_rows(rng, rows["scatter_dedup"])
@@ -418,6 +389,85 @@ def kernel_phase(rng, laps: Laps) -> dict:
     flash_attention_rows(rng, rows)
     laps.lap("kernels: flash attention")
     return rows
+
+
+#: gather_mul_scatter shapes (S, Sg, d): the unfused sum stream's fused
+#: gather-⊗-⊎ sites at RETAILER_DOMS_BIG (the summary shape is (96, 9216,
+#: 1)), and the same gather at the degree-10 ring's width
+GMS_SHAPES = ((96, 32, 1), (96, 9216, 1), (9216, 128, 1), (96, 9216, 111))
+
+
+def tile_local_ids(rng, B: int, T: int):
+    """(S, out ids) whose duplicates fall within one tile of T rows: tile t
+    draws from ids 4t .. 4t + 3; 8 rows are padding (-1)."""
+    ids = 4 * (np.arange(B) // T) + rng.integers(0, 4, size=B)
+    ids[rng.permutation(B)[:8]] = -1
+    return 4 * (-(-B // T)), ids
+
+
+def gather_mul_scatter_row(rng, S: int, Sg: int, d: int) -> dict:
+    """``gather_mul_scatter`` at one shape: bitwise against its plain
+    version on integer data with padding rows (out id -1; gather id -1
+    under scale 0, clamped); bitwise from run to run on normal data whose
+    out ids repeat only within a tile (a fixed order in the tile, one add a
+    tile's id into the view); one device event a call; events ms, device
+    ms, the wrapper's host µs a call, the plain version and the bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ring_scatter import (GATHER_MUL_SCATTER,
+                                                  gather_mul_scatter, tile_rows)
+
+    B = BATCH
+    view = ints(rng, (S, d))
+    src = ints(rng, (Sg, d))
+    out_np = rng.integers(0, S, size=B)
+    in_np = rng.integers(0, Sg, size=B)
+    scale = ints(rng, (B,), -1, 2)
+    # padding: out_id -1 drops; in_id -1 clamps to row 0 under scale 0
+    out_pad, in_pad, scale_pad = out_np.copy(), in_np.copy(), scale.clone()
+    out_pad[:8] = -1
+    in_pad[8:16] = -1
+    scale_pad[8:16] = 0.0
+    label = f"gather_mul_scatter S={S} Sg={Sg} d={d}"
+    err = check_equal(
+        label,
+        gather_mul_scatter(view.clone(), ids_tensor(out_pad), src,
+                           ids_tensor(in_pad), scale_pad),
+        ref.gather_mul_scatter_ref(view.clone(), ids_tensor(out_pad), src,
+                                   ids_tensor(in_pad), scale_pad))
+    # normal data, out ids repeating only within a tile: the same bits on
+    # every run
+    St, tile_ids = tile_local_ids(rng, B, tile_rows(d))
+    nview, nsrc, nscale = normal(rng, (St, d)), normal(rng, (Sg, d)), normal(rng, (B,))
+    t_out, t_in = ids_tensor(tile_ids), ids_tensor(rng.integers(-2, Sg + 2, size=B))
+    first = gather_mul_scatter(nview.clone(), t_out, nsrc, t_in, nscale)
+    for _ in range(3):
+        if not torch.equal(gather_mul_scatter(nview.clone(), t_out, nsrc, t_in, nscale),
+                           first):
+            raise AssertionError(f"{label}: two runs on the same normal data differ")
+    del nview, nsrc, first
+    out_ids, in_ids = ids_tensor(out_np), ids_tensor(in_np)
+    work = view.clone()
+
+    def run():
+        gather_mul_scatter(work, out_ids, src, in_ids, scale)
+
+    u_in, u_out = len(np.unique(in_np)), len(np.unique(out_np))
+    bms, by = bound_ms(3 * B * 4 + u_in * d * 4 + 2 * u_out * d * 4, 2 * B * d)
+    row = dict(
+        shape=dict(S=S, Sg=Sg, d=d, B=B), max_abs_err=err,
+        device_events_per_call=check_one_launch(label, run, "gather_mul_scatter_kernel",
+                                                GATHER_MUL_SCATTER),
+        kernel_ms=time_ms(run),
+        device_ms=kernel_device_ms(run, "gather_mul_scatter_kernel"),
+        host_us=host_us(run),
+        plain_ms=time_ms(lambda: ref.gather_mul_scatter_ref(
+            work, out_ids, src, in_ids, scale)),
+        # no single PyTorch call gathers, scales and scatters
+        library_ms=None,
+        bound_ms=bms, bound_by=by)
+    log({"kernel": "gather_mul_scatter", **row})
+    return row
 
 
 def host_us(fn, calls: int = 2000) -> float:
@@ -704,10 +754,11 @@ def ops_kernel_rows(rng, rows: dict) -> None:
 
 #: flash_attention checks (B, H, Hkv, T, D): the LM path's own prefill shape
 #: (llama3.2-1b, 4 prompts of 1024 tokens), an unaligned T at the widest
-#: head dim, the widest head dim under GQA at T = 257, and a small GQA shape
-#: of the reference's kernel tests
+#: head dim, the widest head dim under GQA at T = 257, path D's reduced leg
+#: (head dim 16), and the path shape at head dim 32, where the small-head-dim
+#: kernel fills the card
 FLASH_SHAPES = ((4, 32, 8, 1024, 64), (1, 4, 1, 1000, 128), (1, 8, 2, 257, 128),
-                (2, 4, 2, 64, 16))
+                (2, 4, 2, 64, 16), (4, 32, 8, 1024, 32))
 #: float32 kernel against float64: within this share of the largest output
 #: (the float32 scores, exp and sums of T terms round at ~6e-8 each; the
 #: TF32 kernel's three-term products leave about 2⁻²¹ of each product)
@@ -715,10 +766,22 @@ FLASH_F32_RTOL = 1e-5
 #: the CUDA kernel function of each flash variant, as the profiler names it
 FLASH_KERNEL_NAMES = {"wgmma": "flash_attention_wgmma_kernel",
                       "tf32": "flash_attention_tf32_kernel",
+                      "mma": "flash_attention_mma_kernel",
                       "simt": "flash_attention_kernel"}
 #: H100 SXM dense TF32 tensor-core rate (data sheet): the float32 flash
 #: rows' tc_bound_ms, three TF32 products a float32 one
 TF32_OPS_PER_S = 495e12
+#: exponentials (MUFU.EX2) an SM issues a clock on Hopper; times the SMs and
+#: the card's maximum SM clock, the rate of the rows' exp_bound_ms
+EXP_PER_CLOCK_SM = 16
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, check=True).stdout
+    return 1e6 * float(out.splitlines()[0])
 
 
 def flash_attention_rows(rng, rows: dict) -> None:
@@ -730,11 +793,14 @@ def flash_attention_rows(rng, rows: dict) -> None:
     sum to it exactly) from exact bf16 inputs and round once to bf16 (half
     an ulp, at most 2⁻⁹ of the value), so every element is within
     2⁻⁸·|ref| + 1e-6·max|ref| of the float64 result.  Where the wrapper takes a
-    tensor-core kernel (wgmma for bf16, tf32 for float32, at D 64/128), the
-    SIMT kernel is checked and timed on the same inputs too, and the
-    kernel, the SIMT kernel and SDPA are timed in turns.  float32 rows also
-    carry ``tc_bound_ms``: the flops as three TF32 products at the tensor
-    cores' rate (``bound_ms`` keeps the CUDA-core float32 rate)."""
+    tensor-core kernel (wgmma for bf16, tf32 for float32, at D 64/128; mma at
+    D 8/16/32), the SIMT kernel is checked and timed on the same inputs
+    too, and the kernel, the SIMT kernel and SDPA are timed in turns.
+    float32 rows also carry ``tc_bound_ms``: the flops as three TF32
+    products at the tensor cores' rate (``bound_ms`` keeps the CUDA-core
+    float32 rate).  Rows at D <= 32 carry ``exp_bound_ms``: the causal
+    half's B·H·T(T + 1)/2 exponentials at EXP_PER_CLOCK_SM a clock on every
+    SM at the maximum SM clock."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as tflash
@@ -752,6 +818,8 @@ def flash_attention_rows(rng, rows: dict) -> None:
                                  f"float64 result (max abs err {float(err.max())})")
         return float(err.max()), float(err.max()) / scale
 
+    exp_rate = EXP_PER_CLOCK_SM * torch.cuda.get_device_properties(0).multi_processor_count \
+        * sm_clock_hz()
     for B, H, Hkv, T, D in FLASH_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
             q = normal(rng, (B, H, T, D)).to(dt)
@@ -761,11 +829,11 @@ def flash_attention_rows(rng, rows: dict) -> None:
             label = f"{name} {(B, H, Hkv, T, D)} {dt}"
             want = ref.flash_attention_ref(q.double(), k.double(), v.double())
             err, rel = check(label, tflash.flash_attention(q, k, v), want, dt)
-            extra = {}
-            if kind != "simt":
-                simt_err, _ = check(f"flash_attention (simt) {(B, H, Hkv, T, D)} {dt}",
-                                    tflash.launch("simt", q, k, v), want, dt)
-                extra["simt_max_abs_err"] = simt_err
+            simt_err, _ = check(f"flash_attention (simt) {(B, H, Hkv, T, D)} {dt}",
+                                tflash.launch("simt", q, k, v), want, dt)
+            extra = {"simt_max_abs_err": simt_err}
+            if D <= 32:
+                extra["exp_bound_ms"] = 1e3 * B * H * T * (T + 1) / 2 / exp_rate
             del want
             # q, k, v read once and o written once; the causal half of QKᵀ
             # and PV, 2·B·H·T²·D flops, at the dtype's peak rate
@@ -785,10 +853,7 @@ def flash_attention_rows(rng, rows: dict) -> None:
             def simt():
                 tflash.launch("simt", q, k, v)
 
-            fns = {"kernel": kernel, "library": library}
-            if kind != "simt":
-                fns["simt"] = simt
-            times = time_in_turns(fns)
+            times = time_in_turns({"kernel": kernel, "library": library, "simt": simt})
             row = dict(
                 shape=dict(B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=str(dt).split(".")[1]),
                 variant=kind, max_abs_err=err, rel_err=rel,
@@ -796,10 +861,8 @@ def flash_attention_rows(rng, rows: dict) -> None:
                 device_ms=kernel_device_ms(kernel, FLASH_KERNEL_NAMES[kind]),
                 plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=10),
                 library_ms=times["library"],
-                bound_ms=bms, bound_by=by, **extra)
-            if kind != "simt":
-                row.update(simt_ms=times["simt"],
-                           simt_device_ms=kernel_device_ms(simt, FLASH_KERNEL_NAMES["simt"]))
+                bound_ms=bms, bound_by=by, simt_ms=times["simt"],
+                simt_device_ms=kernel_device_ms(simt, FLASH_KERNEL_NAMES["simt"]), **extra)
             rows[name].append(row)
             log({"kernel": name, **row})
             del q, k, v
@@ -1414,7 +1477,7 @@ def lm_float32_leg(cfg, prompts, kernels, expected: dict, label: str):
 
 #: path D's reduced float32 leg: the reduced llama3.2-1b (2 layers, head dim
 #: 16, 4 heads over 2 KV heads), 2 prompts of 64 tokens, the shape of the
-#: SIMT flash kernel, which no full-width model takes any more
+#: small-head-dim flash kernel (mma), which no full-width model takes
 LM_REDUCED_B, LM_REDUCED_T = 2, 64
 
 
@@ -1424,8 +1487,8 @@ def lm_serve_path(kernels) -> dict:
     seed 0.  (i) float32 (the same config with float32 parameters and
     activations): prefill and two decode steps against the float64 forward
     (``lm_float32_leg``), 16 ``flash_attention_tf32`` launches; then the
-    reduced config in float32 the same way, where head dim 16 takes the
-    SIMT ``flash_attention`` (one launch a layer).  (ii) bf16:
+    reduced config in float32 the same way, where head dim 16 takes
+    ``flash_attention``'s mma kernel (one launch a layer).  (ii) bf16:
     ``Server.generate`` of LM_NEW tokens after a
     short warm-up, timed; the flash kernel must launch once per layer; then
     the first decode step against a bf16 prefill over the extended prompt
@@ -1444,7 +1507,7 @@ def lm_serve_path(kernels) -> dict:
     prompt_t = torch.as_tensor(prompts, device="cuda").long()
 
     # (i) float32 against the float64 forward: the full model (the TF32
-    # tensor-core flash kernel), then the reduced one (the SIMT kernel)
+    # tensor-core flash kernel), then the reduced one (the mma kernel)
     cfg32 = dataclasses.replace(cfg, act_dtype="float32", param_dtype="float32")
     f32_errors, launches_f32 = lm_float32_leg(
         cfg32, prompts, kernels, {"flash_attention_tf32": n_layers, "flash_attention": 0,
@@ -1624,7 +1687,7 @@ def main() -> int:
     laps.lap("paths A-C")
     paths.append(lm_serve_path(kernels))
     laps.lap("path D")
-    # path D's float32 legs are the TF32 and SIMT flash kernels' paths
+    # path D's float32 legs are the TF32 and mma flash kernels' paths
     runs = [run["launches"] for run in streams + paths] + [
         run[key] for run in paths for key in ("launches_float32", "launches_float32_reduced")
         if key in run]
@@ -1683,7 +1746,8 @@ def main() -> int:
             plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=shape,
-            **{k: row[k] for k in ("tc_bound_ms", "host_us") if k in row}))
+            **{k: row[k] for k in ("variant", "tc_bound_ms", "exp_bound_ms", "host_us",
+                                   "simt_device_ms") if k in row}))
     log({"kernels": summary})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -141,6 +141,14 @@ __device__ __forceinline__ int dedup_key(int id, long long S, bool live, int lan
   return live && id >= 0 && id < S ? id : -1 - lane;
 }
 
+// The mask of the tile's rows whose key is `id` (one row's in-range id, so
+// >= 0): one vote.  A warp that takes one row (d >= 2) needs only its row's
+// group, and a vote's result arrives long before __match_any_sync's
+// (gather_mul_scatter.cu, tools/kernel_variants.py).
+__device__ __forceinline__ unsigned row_group(int key, int id) {
+  return __ballot_sync(kFullMask, key == id);
+}
+
 // The group's sum at its leader lane: x of the leader, then each other
 // member's x in ascending lane order, each add rounded to nearest (the
 // order of tests/_dedup_order.py); at any other lane of a group a partial
@@ -153,6 +161,69 @@ __device__ __forceinline__ float warp_group_sum(float x, unsigned group, int lan
     if (src > lane && ((group >> src) & 1u)) s = __fadd_rn(s, y);
   }
   return s;
+}
+
+// x rounded to TF32 (10 mantissa bits, nearest, ties away), as a float32
+// bit pattern with the low 13 bits clear.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + (about 2⁻²² |x|): hi = rna(x), lo = rna(x − hi).  The float32
+// flash kernels take each product as three TF32 terms, a_hi·b_hi + a_hi·b_lo
+// + a_lo·b_hi (tests/test_torch_flash_tf32.py).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// The high halves of two float32 bit patterns as a bf16 pair (lo, hi): the
+// two values truncated to bf16.  The bf16 flash kernels split P into three
+// such terms, which sum to it exactly (tests/test_torch_flash_wgmma.py).
+__device__ __forceinline__ uint32_t bf16x2_high(uint32_t lo, uint32_t hi) {
+  return __byte_perm(lo, hi, 0x7632);
+}
+
+// One row of a dedup group as add_group_rows reads it: its first column
+// and the factor it is scaled by (unused where unscaled).
+struct GroupRow {
+  const float* row;
+  float scale;
+};
+
+// x[t] = x[t] + row_of(r)[c0 + t] for each tile row r of `rows_mask`, in
+// ascending row order, t < n, each add rounded to nearest (__fadd_rn); with
+// kScaled each term is __fmul_rn(row[c0 + t], scale) first.  Up to eight
+// rows' loads are issued before their adds.  The tile-dedup kernels'
+// leader adds its group's other rows with it (tests/_dedup_order.py).
+template <bool kScaled, typename RowOf>
+__device__ __forceinline__ void add_group_rows(unsigned rows_mask, int c0, int n,
+                                               float (&x)[4], RowOf row_of) {
+  for (unsigned rest = rows_mask; rest;) {
+    float y[8][4];
+    float f[8];
+    int k = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const bool has = rest != 0;
+      GroupRow g{nullptr, 1.0f};
+      if (has) g = row_of(__ffs(rest) - 1);
+      f[j] = g.scale;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) y[j][t] = has && t < n ? __ldg(g.row + c0 + t) : 0.0f;
+      k += has;
+      rest &= rest - 1;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (j < k) x[t] = __fadd_rn(x[t], kScaled ? __fmul_rn(y[j][t], f[j]) : y[j][t]);
+      }
+    }
+  }
 }
 
 // Keeps v alive without a memory operation (the variants that cut a part

@@ -169,19 +169,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[M][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[a][j])::"memory");
 }
 
-// x rounded to TF32 (10 mantissa bits, nearest, ties away), as a float32
-// bit pattern with the low 13 bits clear.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo + (about 2⁻²² |x|): hi = rna(x), lo = rna(x − hi).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
+using repro::split_tf32;
 
 // d[16] (+)= A[64 x 8] · B[8 x 32]: A tf32 in registers, B K-major in shared
 // memory; accumulate = 0 overwrites d.

@@ -219,11 +219,7 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[
   }
 }
 
-// The high halves of two float32 bit patterns as a bf16 pair (lo, hi): the
-// two values truncated to bf16.
-__device__ __forceinline__ uint32_t bf16x2_high(uint32_t lo, uint32_t hi) {
-  return __byte_perm(lo, hi, 0x7632);
-}
+using repro::bf16x2_high;
 
 // K/V tiles that q tile qt visits: all of them, or causally those up to the
 // diagonal.

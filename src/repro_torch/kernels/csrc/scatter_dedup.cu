@@ -16,9 +16,10 @@
 // that holds them whatever the view row's split, load_window); the
 // row's group is the mask of the tile's rows with its id.  A warp whose row
 // is not its group's lowest row, or whose id is padding (< 0 or >= S), is
-// done.  The group's lowest row adds the group's other rows (up to eight
-// rows' loads in flight a lane; a second round trip only where the tile
-// repeats the id) column by column in ascending row order (__fadd_rn) and
+// done.  The group's lowest row adds the group's other rows
+// (repro::add_group_rows, common.cuh, shared with gather_mul_scatter.cu: up
+// to eight rows' loads in flight a lane; a second round trip only where the
+// tile repeats the id) column by column in ascending row order (__fadd_rn) and
 // issues one reduction per group of the view row (repro::reduce_group,
 // common.cuh: float4 reductions on its 16-byte aligned interior, scalar
 // ones on the head and the tail), so a tile's distinct id costs one pass
@@ -49,36 +50,6 @@ constexpr int kNoReductions = 2;  // no global atomics
 
 __device__ __forceinline__ unsigned match(int key, int lane) {
   return kVariant == kNoDedup ? 1u << lane : __match_any_sync(repro::kFullMask, key);
-}
-
-// x[t] += rows[r·d + c0 + t] for each row r of `rows_mask`, in ascending
-// row order, t < n, each add rounded to nearest.  Up to eight rows' loads
-// are issued before their adds.
-__device__ __forceinline__ void add_group_rows(const float* __restrict__ rows, int d,
-                                               unsigned rows_mask, int c0, int n,
-                                               float (&x)[4]) {
-  for (unsigned rest = rows_mask; rest;) {
-    float y[8][4];
-    int k = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bool has = rest != 0;
-      const long long r = __ffs(rest) - 1;
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        y[j][t] = has && t < n ? __ldg(rows + r * d + c0 + t) : 0.0f;
-      }
-      k += has;
-      rest &= rest - 1;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        if (j < k) x[t] = __fadd_rn(x[t], y[j][t]);
-      }
-    }
-  }
 }
 
 // The columns of a lane's first reduction group (group lane, repro::
@@ -157,7 +128,11 @@ __global__ void scatter_dedup_kernel(float* __restrict__ view,
 #pragma unroll
         for (int t = 0; t < 4; ++t) x[t] = t < n ? __ldg(own + c0 + t) : 0.0f;
       }
-      if (others) add_group_rows(rows, d, others, c0, n, x);
+      if (others) {
+        repro::add_group_rows<false>(others, c0, n, x, [&](int f) {
+          return repro::GroupRow{rows + static_cast<long long>(f) * d, 1.0f};
+        });
+      }
       if (kVariant == kNoReductions) {
         for (int t = 0; t < 4; ++t) repro::keep(x[t]);
       } else {

@@ -20,10 +20,17 @@ Three kernels, chosen by :func:`variant` from the dtype and head dim alone:
 * ``csrc/flash_attention_tf32.cu`` for float32 at D ∈ {64, 128}, the
   path's precision check: TF32 tensor cores (wgmma) fed by TMA, each
   product taken as three TF32 terms (a_hi·b_hi + a_hi·b_lo + a_lo·b_hi),
-  float32 accuracy; k and v at an offset that is not 16-byte aligned are
-  copied once for its tensor maps;
-* ``csrc/flash_attention.cu`` (float32 CUDA-core FMAs) for every dtype at
-  D ∈ {8, 16, 32}.
+  float32 accuracy;
+* ``csrc/flash_attention.cu``'s mma kernel for every dtype at D ∈ {8, 16,
+  32} (the reduced configs): warp-level tensor cores (``mma.sync``) fed by
+  ``cp.async``, with the same three-term products (bf16: P in three bf16
+  terms; float32: three TF32 terms).
+
+The same library also holds the first, SIMT kernel (float32 CUDA-core
+FMAs, every head dim), which :func:`launch` runs only when asked for by
+name (``"simt"``): ``chip_smoke.py`` times it beside the others.  The
+tensor-core kernels read 16-byte aligned q, k and v (TMA, ``cp.async``);
+one at an offset that is not is copied once.
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ from ._cuda import I32, PTR, CudaKernel, on_card, stream_handle
 
 FLASH_ATTENTION = CudaKernel("flash_attention.cu", "repro_flash_attention",
                              [PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32, I32,
-                              I32, I32])
+                              I32, I32, I32])
 FLASH_ATTENTION_WGMMA = CudaKernel("flash_attention_wgmma.cu",
                                    "repro_flash_attention_wgmma",
                                    [PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32,
@@ -46,28 +53,28 @@ FLASH_ATTENTION_TF32 = CudaKernel("flash_attention_tf32.cu",
 
 #: head dims the kernels are compiled for
 HEAD_DIMS = (8, 16, 32, 64, 128)
-#: head dims of the tensor-core kernels (wgmma: bf16, tf32: float32)
+#: head dims of the wgmma kernels (wgmma: bf16, tf32: float32)
 WGMMA_HEAD_DIMS = (64, 128)
-#: dtype codes of the SIMT kernel's C entry
+#: dtype codes of ``csrc/flash_attention.cu``'s C entry
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that takes (dtype, head_dim) on the card: at D ∈ {64,
     128} ``"wgmma"`` (``FLASH_ATTENTION_WGMMA``) for bf16 and ``"tf32"``
-    (``FLASH_ATTENTION_TF32``) for float32, else ``"simt"``
-    (``FLASH_ATTENTION``)."""
+    (``FLASH_ATTENTION_TF32``) for float32, else ``"mma"``
+    (``FLASH_ATTENTION``'s mma kernel)."""
     if head_dim in WGMMA_HEAD_DIMS:
         if dtype == torch.bfloat16:
             return "wgmma"
         if dtype == torch.float32:
             return "tf32"
-    return "simt"
+    return "mma"
 
 
 #: the kernel object of each variant
 KERNELS = {"wgmma": FLASH_ATTENTION_WGMMA, "tf32": FLASH_ATTENTION_TF32,
-           "simt": FLASH_ATTENTION}
+           "mma": FLASH_ATTENTION}
 
 
 def flash_attention(q, k, v, causal: bool = True):
@@ -97,18 +104,19 @@ def flash_attention(q, k, v, causal: bool = True):
 
 
 def launch(kind: str, q, k, v, causal: bool = True):
-    """Launch the ``kind`` kernel (a key of KERNELS) on CUDA tensors that
-    ``flash_attention`` has checked.  The wrapper passes ``variant``'s
-    choice; ``chip_smoke.py`` also passes ``"simt"`` at D = 64 or 128, to
-    time the kernels on the same inputs."""
+    """Launch the ``kind`` kernel (a key of KERNELS, or ``"simt"``) on CUDA
+    tensors that ``flash_attention`` has checked.  The wrapper passes
+    ``variant``'s choice; ``chip_smoke.py`` also passes ``"simt"`` (the
+    SIMT kernel of ``FLASH_ATTENTION``, at any head dim), to time the
+    kernels on the same inputs."""
     if kind != "simt" and variant(q.dtype, q.shape[3]) != kind:
         raise ValueError(f"the {kind} kernel does not take {q.dtype} at "
                          f"D = {q.shape[3]}")
     B, H, T, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if kind == "tf32":  # the tensor maps need 16-byte aligned k and v
-        k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (k, v))
+    if kind != "simt":  # TMA and cp.async read 16-byte aligned rows
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     o = torch.empty_like(q)
     if not o.numel():
         return o
@@ -118,5 +126,5 @@ def launch(kind: str, q, k, v, causal: bool = True):
         KERNELS[kind].launch(*args, int(causal), stream_handle(q))
     else:
         FLASH_ATTENTION.launch(*args, DTYPES[q.dtype], int(causal),
-                               stream_handle(q))
+                               int(kind == "simt"), stream_handle(q))
     return o

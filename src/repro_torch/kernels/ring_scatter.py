@@ -27,7 +27,7 @@ SCATTER_DEDUP = CudaKernel("scatter_dedup.cu", "repro_scatter_dedup",
                            [PTR, PTR, PTR, I64, I32, I64, I32])
 GATHER_MUL_SCATTER = CudaKernel(
     "gather_mul_scatter.cu", "repro_gather_mul_scatter",
-    [PTR, PTR, PTR, PTR, PTR, I64, I64, I32, I64])
+    [PTR, PTR, PTR, PTR, PTR, I64, I64, I32, I64, I32])
 
 
 #: batch rows per tile of the tile-dedup kernels hold at most this many
@@ -38,7 +38,8 @@ TILE_ELEMS = 1024
 
 @functools.cache
 def tile_rows(d: int) -> int:
-    """Batch rows per dedup tile of ``scatter_dedup`` and ``fused_chain`` at
+    """Batch rows per dedup tile of ``scatter_dedup``, ``fused_chain`` and
+    ``gather_mul_scatter`` at
     payload width ``d``: the largest power of two in [8, 32] with
     ``rows · d <= TILE_ELEMS`` (32 rows for scalar rings, 8 at the degree-10
     width 111).  A tile's ids sit on the lanes of one warp, which finds
@@ -55,7 +56,8 @@ def tile_rows(d: int) -> int:
 
 def tile_dedup(ids: torch.Tensor, vals: torch.Tensor):
     """Per-tile key dedup (plain version of the dedup of
-    ``csrc/scatter_dedup.cu`` and ``csrc/fused_chain.cu``; the reference's
+    ``csrc/scatter_dedup.cu``, ``csrc/fused_chain.cu`` and
+    ``csrc/gather_mul_scatter.cu``; the reference's
     ``ring_scatter.tile_dedup``).
 
     ``ids`` ``[..., n]``, ``vals`` ``[..., n, d]``, one tile per leading
@@ -132,22 +134,24 @@ def gather_mul_scatter(view: torch.Tensor, out_ids: torch.Tensor,
                        scale: torch.Tensor) -> torch.Tensor:
     """view [S, d] += scale[b] · src [Sg, d] row in_ids[b], at out_ids[b],
     in place.  out_ids < 0 or >= S drop; in_ids clamp into [0, Sg - 1].
-    Returns ``view``."""
+    The kernel sums each tile's duplicate out ids (``tile_rows(d)`` rows)
+    before the ⊎, in a fixed order.  Returns ``view``."""
     S, d = view.shape
     Sg = src.shape[0]
     B = out_ids.shape[0]
     if Sg == 0 and B:
         raise ValueError("gather source has no rows")
-    check_tensor("view", view, torch.float32, (S, d), view.device)
-    check_tensor("out_ids", out_ids, torch.int32, (B,), view.device)
-    check_tensor("src", src, torch.float32, (Sg, d), view.device)
-    check_tensor("in_ids", in_ids, torch.int32, (B,), view.device)
-    check_tensor("scale", scale, torch.float32, (B,), view.device)
+    dev = view.device
+    check_tensor("view", view, torch.float32, (S, d), dev)
+    check_tensor("out_ids", out_ids, torch.int32, (B,), dev)
+    check_tensor("src", src, torch.float32, (Sg, d), dev)
+    check_tensor("in_ids", in_ids, torch.int32, (B,), dev)
+    check_tensor("scale", scale, torch.float32, (B,), dev)
     if not on_card(view):
         return ref.gather_mul_scatter_ref(view, out_ids, src, in_ids, scale)
     if B * d:
         GATHER_MUL_SCATTER.launch(
             view.data_ptr(), out_ids.data_ptr(), src.data_ptr(),
-            in_ids.data_ptr(), scale.data_ptr(), S, Sg, d, B,
+            in_ids.data_ptr(), scale.data_ptr(), S, Sg, d, B, tile_rows(d),
             stream_handle(view))
     return view

@@ -153,10 +153,21 @@ def gather_mul_scatter_flat(view, out_ids, src, in_ids, scale,
     S, d = view.shape
     backend = resolve_backend(S, out_ids.shape[0], d, backend,
                               device=view.device)
-    out_ids = out_ids.to(torch.int32).contiguous()
-    in_ids = in_ids.to(torch.int32).contiguous()
-    scale = scale.contiguous()
-    src = src.contiguous()
+    return _gather_mul_scatter(view, out_ids, src, in_ids, scale, backend)
+
+
+def _int32(ids):
+    """``ids`` as a contiguous int32 tensor: itself when it is one already
+    (a ``.to`` that changes nothing still costs host microseconds)."""
+    if ids.dtype is torch.int32 and ids.is_contiguous():
+        return ids
+    return ids.to(torch.int32).contiguous()
+
+
+def _gather_mul_scatter(view, out_ids, src, in_ids, scale, backend: str):
+    """:func:`gather_mul_scatter_flat` under a resolved ``backend``."""
+    out_ids, in_ids = _int32(out_ids), _int32(in_ids)
+    scale, src = scale.contiguous(), src.contiguous()
     if backend == "torch":
         return ref.gather_mul_scatter_ref(view, out_ids, src, in_ids, scale)
     if backend == "compact":
@@ -218,8 +229,8 @@ def gather_mul_scatter_payload(view_payload, domains, keys, src_plane,
                                                     accumulate=True)}
     ids = linear_ids(keys, domains)
     flat_view = flatten_payload(ring, view_payload, domains)
-    out = gather_mul_scatter_flat(flat_view, ids, src_plane, in_ids, scale,
-                                  backend=resolved)
+    out = _gather_mul_scatter(flat_view, ids, src_plane, in_ids, scale,
+                              resolved)
     return {comp: out.reshape(domains)}
 
 

@@ -1,7 +1,8 @@
 """The tile-dedup kernels' grouping and summation order in numpy float32:
-``scatter_dedup`` and ``fused_chain``.
+``scatter_dedup``, ``fused_chain`` and ``gather_mul_scatter``.
 
-``csrc/scatter_dedup.cu`` and ``csrc/fused_chain.cu`` run only on the card.
+``csrc/scatter_dedup.cu``, ``csrc/fused_chain.cu`` and
+``csrc/gather_mul_scatter.cu`` run only on the card.
 These functions repeat their arithmetic, operation for operation, on the
 CPU: every product and sum is one float32 rounding (the kernels use
 ``__fmul_rn`` and ``__fadd_rn``, no contraction), taken in the kernels'
@@ -11,9 +12,9 @@ leader is its lowest row.  The leader's row comes first, the others are
 added in ascending row order, and the sum is added once into the view.
 Tiles are taken in order here; on the card they meet in the reductions in
 no fixed order, so the kernels equal this bit for bit where an id repeats
-only within a tile.  Used by ``tests/test_torch_dedup_hopper.py`` (against
-the plain versions and the JAX package) and ``tests/test_torch_cuda.py``
-(bitwise against the kernels).
+only within a tile.  Used by ``tests/test_torch_dedup_hopper.py`` and
+``tests/test_torch_gms_hopper.py`` (against the plain versions and the JAX
+package) and ``tests/test_torch_cuda.py`` (bitwise against the kernels).
 """
 import numpy as np
 
@@ -50,6 +51,18 @@ def scatter_dedup_order(view: np.ndarray, ids: np.ndarray, vals: np.ndarray,
             s = s + vals[f]
         view[ids[leader]] = view[ids[leader]] + s
     return view
+
+
+def gather_mul_scatter_order(view: np.ndarray, out_ids: np.ndarray,
+                             src: np.ndarray, in_ids: np.ndarray,
+                             scale: np.ndarray) -> np.ndarray:
+    """view [S, d] ⊎= scale[b] · src[clip(in_ids[b])] at out_ids as
+    ``gather_mul_scatter`` sums it: each row's product rounded once
+    (``__fmul_rn``), then ``scatter_dedup_order`` over tiles of
+    ``tile_rows(d)``.  A new array."""
+    rows = np.clip(in_ids, 0, src.shape[0] - 1)
+    prod = src[rows].astype(np.float32) * scale.astype(np.float32)[:, None]
+    return scatter_dedup_order(view, out_ids, prod)
 
 
 def q_coords(m: int, d: int, head: int) -> np.ndarray:

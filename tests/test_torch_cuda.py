@@ -336,6 +336,59 @@ def test_cuda_fused_chain_matches_its_order(cuda_device, m, n_src, single):
     assert torch.equal(got.cpu(), torch.tensor(want))
 
 
+@pytest.mark.parametrize("d", [3, 43, 111, 931])
+@pytest.mark.parametrize("S,Sg", [(1, 96), (96, 9216), (9216, 128)])
+def test_cuda_gather_mul_scatter_wide_matches_plain(cuda_device, S, Sg, d):
+    """The warp-a-row kernel (d >= 2) on integer data: duplicate and padding
+    out ids, gather ids out of range (clamped), S = 1; bitwise equal to the
+    plain version, one launch."""
+    rng = np.random.default_rng(S + Sg + d)
+    view, out_ids, _ = _cuda_case(rng, S, 1000, d, cuda_device)
+    src = torch.tensor(_ints(rng, (Sg, d)), device=cuda_device)
+    in_ids = torch.tensor(rng.integers(-2, Sg + 2, size=1000).astype(np.int32),
+                          device=cuda_device)
+    scale = torch.tensor(_ints(rng, (1000,), -2, 3), device=cuda_device)
+    n = ring_scatter.GATHER_MUL_SCATTER.launches
+    got = ring_scatter.gather_mul_scatter(view.clone(), out_ids, src, in_ids, scale)
+    assert ring_scatter.GATHER_MUL_SCATTER.launches == n + 1
+    want = ref.gather_mul_scatter_ref(view.clone(), out_ids, src, in_ids, scale)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("single", [False, True], ids=["tiles", "S1"])
+@pytest.mark.parametrize("d", [1, 3, 7, 43, 111, 931])
+def test_cuda_gather_mul_scatter_matches_its_order(cuda_device, d, single):
+    """Normal data, out ids repeating only within a tile, gather ids out of
+    range (clamped): the view is bitwise tests/_dedup_order.py's
+    ``gather_mul_scatter_order`` (each product rounded once, the leader
+    first, then ascending rows), the same bits on every run, and one device
+    event a call."""
+    import _dedup_order
+
+    rng = np.random.default_rng(10 * d + single)
+    T = ring_scatter.tile_rows(d)
+    B = T if single else 1000
+    S, out_ids = _tile_local_ids(rng, B, T, single)
+    Sg = 300
+    view, src = _normal(rng, (S, d)), _normal(rng, (Sg, d))
+    in_ids = rng.integers(-2, Sg + 2, size=B).astype(np.int32)
+    scale = _normal(rng, (B,))
+    want = _dedup_order.gather_mul_scatter_order(view, out_ids, src, in_ids, scale)
+    dview, douts, dsrc, dins, dscale = _on(cuda_device, view, out_ids, src, in_ids, scale)
+    first = ring_scatter.gather_mul_scatter(dview.clone(), douts, dsrc, dins, dscale)
+    assert torch.equal(first.cpu(), torch.tensor(want))
+    for _ in range(3):
+        again = ring_scatter.gather_mul_scatter(dview.clone(), douts, dsrc, dins, dscale)
+        assert torch.equal(again, first)
+    work = dview.clone()
+    n = ring_scatter.GATHER_MUL_SCATTER.launches
+    events, windows = _listed_kernels(
+        lambda: ring_scatter.gather_mul_scatter(work, douts, dsrc, dins, dscale), 10)
+    assert ring_scatter.GATHER_MUL_SCATTER.launches == n + 10 * windows
+    assert len(events) == 10
+    assert all("gather_mul_scatter_kernel" in e.name for e in events)
+
+
 # ---------------------------------------------------------------------------
 # The kernel-ops layer: cofactor_update, ring_mul, matvec, outer_accumulate
 # ---------------------------------------------------------------------------
@@ -681,6 +734,41 @@ def test_cuda_flash_tf32_at_path_shapes(cuda_device, B, H, Hkv, T, D):
         assert float((got.double() - want).abs().max()) <= 1e-5 * scale
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [8, 16, 32])
+@pytest.mark.parametrize("B,H,Hkv,T,Tk,causal", [
+    (2, 4, 2, 64, 64, True), (1, 8, 2, 257, 257, True), (1, 4, 1, 1000, 1000, True),
+    (2, 6, 3, 100, 333, False), (1, 8, 8, 257, 64, False)])
+def test_cuda_flash_mma_matches_float64(cuda_device, B, H, Hkv, T, Tk, causal, D, dtype):
+    """The mma kernel (the dispatch at D 8/16/32) and the SIMT kernel of the
+    same library on the same inputs, causal at T = 64, 257 and 1000 and
+    non-causal with T != Tk, GQA groups 1 to 4, against the plain version
+    in float64: float32 within 1e-5 of the largest output; bf16 within one
+    bf16 rounding of the float64 result.  One launch each."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(T + Tk + D)
+    q, k, v = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                            device=cuda_device).to(dt)
+               for s in ((B, H, T, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D)))
+    assert tflash.variant(dt, D) == "mma"
+    want = ref.flash_attention_ref(q.double(), k.double(), v.double(), causal=causal)
+    scale = float(want.abs().max())
+    for kind in ("mma", "simt"):
+        n = tflash.FLASH_ATTENTION.launches
+        got = (tflash.flash_attention(q, k, v, causal=causal) if kind == "mma"
+               else tflash.launch("simt", q, k, v, causal=causal))
+        torch.cuda.synchronize()
+        assert tflash.FLASH_ATTENTION.launches == n + 1
+        assert got.dtype == dt and got.shape == q.shape
+        err = (got.double() - want).abs()
+        if dt == torch.float32:
+            assert float(err.max()) <= 1e-5 * scale, (kind, float(err.max()), scale)
+        else:
+            assert bool((err <= 2.0 ** -8 * want.abs() + 1e-6 * scale).all()), kind
+
+
 def test_cuda_model_attention_launches_the_tf32_kernel(cuda_device):
     """``models.attention.flash_attention`` on float32 CUDA tensors at head
     dim 64 is the TF32 kernel: one launch, the wrapper's output bit for bit."""
@@ -693,12 +781,13 @@ def test_cuda_model_attention_launches_the_tf32_kernel(cuda_device):
     before = {name: kern.launches for name, kern in tflash.KERNELS.items()}
     got = attention.flash_attention(q, k, v)
     assert {name: kern.launches - before[name] for name, kern in tflash.KERNELS.items()} == {
-        "wgmma": 0, "tf32": 1, "simt": 0}
+        "wgmma": 0, "tf32": 1, "mma": 0}
     assert torch.equal(got, tflash.flash_attention(q, k, v))
 
 
 def test_cuda_reduced_lm_float32_takes_the_simt_kernel(cuda_device):
     """The reduced llama3.2-1b in float32 on the card (head dim 16: the
+    mma kernel of ``flash_attention.cu``, the library that also holds the
     SIMT kernel, once a layer in the prefill, the TF32 kernel never) against
     the same weights on the CPU: logits of the prefill and two decode steps
     within 1e-5 of their largest magnitude."""
@@ -721,7 +810,7 @@ def test_cuda_reduced_lm_float32_takes_the_simt_kernel(cuda_device):
             steps.append(logits)
         launches = {name: kern.launches - before[name] for name, kern in tflash.KERNELS.items()}
         outs.append(steps)
-    assert launches == {"wgmma": 0, "tf32": 0, "simt": cfg.n_layers}
+    assert launches == {"wgmma": 0, "tf32": 0, "mma": cfg.n_layers}
     for a, b in zip(*outs):
         scale = float(a.abs().max())
         assert float((b.cpu() - a).abs().max()) <= 1e-5 * scale

@@ -49,16 +49,16 @@ SHAPES = [(1, 4, 1, 77, 64, True), (1, 2, 2, 257, 128, True),
 
 @pytest.mark.parametrize("dtype,D,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 8, "simt"), (torch.bfloat16, 16, "simt"),
-    (torch.bfloat16, 32, "simt"), (torch.float32, 64, "tf32"),
-    (torch.float32, 128, "tf32"), (torch.float32, 16, "simt"),
-    (torch.float32, 8, "simt"), (torch.float32, 32, "simt")])
+    (torch.bfloat16, 8, "mma"), (torch.bfloat16, 16, "mma"),
+    (torch.bfloat16, 32, "mma"), (torch.float32, 64, "tf32"),
+    (torch.float32, 128, "tf32"), (torch.float32, 16, "mma"),
+    (torch.float32, 8, "mma"), (torch.float32, 32, "mma")])
 def test_variant_names_the_kernel(dtype, D, want):
     assert tflash.variant(dtype, D) == want
     kernel = tflash.KERNELS[want]
     assert kernel.source == {"wgmma": "flash_attention_wgmma.cu",
                              "tf32": "flash_attention_tf32.cu",
-                             "simt": "flash_attention.cu"}[want]
+                             "mma": "flash_attention.cu"}[want]
 
 
 def _bf16_qkv(seed, B, H, Hkv, T, D):

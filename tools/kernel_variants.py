@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where ``matvec``, ``flash_attention_tf32``, ``scatter_dedup`` and
-``fused_chain`` spend their time.
+"""Where ``matvec``, ``flash_attention_tf32``, ``scatter_dedup``,
+``fused_chain``, ``gather_mul_scatter`` and ``flash_attention``'s mma kernel
+spend their time.
 
 Builds each kernel's source as it is and in variants that cut out or
 change one part of it, and times them in turns on the card (CUDA events,
@@ -46,8 +47,31 @@ B = 1000 the events ms of a call is host time), in turns:
 * ``chain_no_gathers``: no gather-id or source-row loads;
 * ``chain_no_product``: the ring product of each source skipped.
 
+``gather_mul_scatter`` at the summary shape (S 96, Sg 9216, d 1, B 1000),
+at d = 111 with the same S and Sg, and at (S 9216, Sg 128, d 111), where
+out ids rarely repeat within a tile; integer-valued data, device ms from
+the profiler in turns:
+
+* ``shipped``;
+* ``gms_no_dedup``: every in-range row its own group;
+* ``gms_no_reductions``: no global atomics;
+* ``gms_no_gather``: no source loads (the scale alone);
+* ``gms_match_any`` (checked): at d >= 2 the row's group found by
+  ``__match_any_sync``, not by one vote.
+
+``flash_attention``'s mma kernel at (4, 32, 8, 1024, 32), causal, in bf16
+and float32, and at path D's reduced leg (2, 4, 2, 64, 16) in float32,
+device ms from the profiler in turns, each with its error against the
+float64 plain version:
+
+* ``shipped``, and ``simt`` (the SIMT kernel of the same library);
+* ``mma_no_pv``: S and the softmax, no PV;
+* ``mma_no_softmax``: P = S, no max and no exponentials;
+* ``mma_no_compute``: the K/V tiles staged, nothing computed;
+* ``mma_one_term``: one term a product (TF32 hi·hi, bf16 P_1).
+
 Run on a card from the repository root (all sections, or the ones
-named: ``matvec``, ``flash``, ``dedup``):
+named: ``matvec``, ``flash``, ``dedup``, ``gms``, ``mma``):
 
     python3 tools/kernel_variants.py [section ...]
 """
@@ -70,6 +94,8 @@ MATVEC_SRC = "matvec.cu"
 FLASH_SRC = "flash_attention_tf32.cu"
 DEDUP_SRC = "scatter_dedup.cu"
 CHAIN_SRC = "fused_chain.cu"
+GMS_SRC = "gather_mul_scatter.cu"
+MMA_SRC = "flash_attention.cu"
 
 #: name -> (source, REPRO_VARIANT, checked): the numbers are the kernels'
 #: own kVariant constants
@@ -86,6 +112,14 @@ VARIANTS = {
     "chain_no_product": (CHAIN_SRC, 2, False),
     "chain_no_dedup": (CHAIN_SRC, 3, False),
     "chain_no_reductions": (CHAIN_SRC, 4, False),
+    "gms_no_dedup": (GMS_SRC, 1, False),
+    "gms_no_reductions": (GMS_SRC, 2, False),
+    "gms_no_gather": (GMS_SRC, 3, False),
+    "gms_match_any": (GMS_SRC, 4, True),
+    "mma_no_pv": (MMA_SRC, 1, False),
+    "mma_no_softmax": (MMA_SRC, 2, False),
+    "mma_no_compute": (MMA_SRC, 3, False),
+    "mma_one_term": (MMA_SRC, 4, False),
 }
 #: flash shapes (B, H, Hkv, T, D, causal)
 FLASH_SHAPES = ((4, 32, 8, 1024, 64, True), (1, 8, 1, 1000, 64, False))
@@ -290,6 +324,78 @@ def dedup_rows(libs) -> None:
           flush=True)
 
 
+def gms_rows(libs) -> None:
+    """``gather_mul_scatter`` at the summary shape and at d = 111, shipped
+    and cut or changed, device ms in turns."""
+    import torch
+    from repro_torch.kernels import ring_scatter
+
+    rng = np.random.default_rng(0)
+    B = 1000
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def t(a):
+        return torch.tensor(a, device="cuda")
+
+    for S, Sg, d in ((96, 9216, 1), (96, 9216, 111), (9216, 128, 111)):
+        view = t(rng.integers(-4, 5, size=(S, d)).astype(np.float32))
+        src = t(rng.integers(-4, 5, size=(Sg, d)).astype(np.float32))
+        out_ids = t(rng.integers(0, S, size=B).astype(np.int32))
+        in_ids = t(rng.integers(0, Sg, size=B).astype(np.int32))
+        scale = t(rng.integers(-1, 2, size=B).astype(np.float32))
+        args = (view.data_ptr(), out_ids.data_ptr(), src.data_ptr(), in_ids.data_ptr(),
+                scale.data_ptr(), S, Sg, d, B, ring_scatter.tile_rows(d), stream)
+        fns = {"shipped": lambda: ring_scatter.gather_mul_scatter(view, out_ids, src,
+                                                                  in_ids, scale)}
+        for name, lib in libs.items():
+            if VARIANTS[name][0] == GMS_SRC:
+                fns[name] = _c_call(lib, ring_scatter.GATHER_MUL_SCATTER, args, name)
+        print(json.dumps({"kernel": "gather_mul_scatter",
+                          "shape": dict(S=S, Sg=Sg, d=d, B=B),
+                          "device_ms": device_in_turns(fns, "gather_mul_scatter_kernel")}),
+              flush=True)
+
+
+def mma_rows(libs) -> None:
+    """``flash_attention``'s mma kernel, shipped, cut and beside the SIMT
+    kernel, device ms in turns and errors against float64."""
+    import torch
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ref
+
+    stream = torch.cuda.current_stream().cuda_stream
+    for B, H, Hkv, T, D, dt in ((4, 32, 8, 1024, 32, torch.bfloat16),
+                                (4, 32, 8, 1024, 32, torch.float32),
+                                (2, 4, 2, 64, 16, torch.float32)):
+        rng = np.random.default_rng(T + D)
+        q, k, v = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                                device="cuda").to(dt)
+                   for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+        want = ref.flash_attention_ref(q.double(), k.double(), v.double())
+        scale = float(want.abs().max())
+        outs = {"shipped": lambda: tflash.flash_attention(q, k, v),
+                "simt": lambda: tflash.launch("simt", q, k, v)}
+        for name, lib in libs.items():
+            if VARIANTS[name][0] != MMA_SRC:
+                continue
+            o = torch.empty_like(q)
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv, T, T,
+                    D, tflash.DTYPES[dt], 1, 0, stream)
+            call = _c_call(lib, tflash.FLASH_ATTENTION, args, name)
+            outs[name] = lambda call=call, o=o: (call(), o)[1]
+        errors = {}
+        for name, fn in outs.items():
+            got = fn()
+            torch.cuda.synchronize()
+            errors[name] = float((got.double() - want).abs().max()) / scale
+        del want
+        times = device_in_turns(outs, "flash_attention_mma_kernel",
+                                {"simt": "flash_attention_kernel"})
+        print(json.dumps({"kernel": "flash_attention (mma)", "shape": [B, H, Hkv, T, D],
+                          "dtype": str(dt).split(".")[1], "device_ms": times,
+                          "rel_err": errors, "checked": ["shipped", "simt"]}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -302,7 +408,9 @@ def main() -> int:
     print(smi.splitlines()[0], flush=True)
     sections = {"matvec": (matvec_rows, (MATVEC_SRC,)),
                 "flash": (flash_rows, (FLASH_SRC,)),
-                "dedup": (dedup_rows, (DEDUP_SRC, CHAIN_SRC))}
+                "dedup": (dedup_rows, (DEDUP_SRC, CHAIN_SRC)),
+                "gms": (gms_rows, (GMS_SRC,)),
+                "mma": (mma_rows, (MMA_SRC,))}
     chosen = sys.argv[1:] or list(sections)
     unknown = set(chosen) - set(sections)
     if unknown:
