@@ -46,7 +46,15 @@ Phases (any failed check raises, and the script exits non-zero):
      ``gather_mul_scatter``), 20 batches each;
    - the same two streams with fusion ``auto`` (on, on the card), where
      every fused chain is one ``fused_chain`` launch, 20 batches each;
-   - a short sum stream under the ``scatter_dedup`` ⊎ backend.
+   - a short sum stream under the ``scatter_dedup`` ⊎ backend;
+   - beside the unfused and fused sum streams and the fused cofactor
+     stream, an executor leg: the same stream through
+     ``StreamExecutor`` (rounds mode, a period of 5, 4 rounds, each round
+     one CUDA graph) on a fresh engine, a capture run and two replay-only
+     runs (one under ``set_sync_debug_mode("error")``, one profiled),
+     with capture seconds, host µs a replay, launches a batch (replays
+     included), device busy against wall and peak bytes, held to the
+     oracle after the stream three times.
 4. The kernel-ops layer's paths, counts reset before and read after each:
    - B, the ring product on engine state: ``ops.ring_mul`` of the largest
      view (1,179,648 keys, degree 10) of the two cofactor engines above,
@@ -1046,20 +1054,23 @@ def compare_views(label: str, eng, store) -> dict:
 
 def stream_phase(label, query, query64, db, doms, rng, kernels, expected,
                  fusion="off", backend=None, n_batches=N_BATCHES,
-                 device="cuda", batch=BATCH, keep=None):
+                 device="cuda", batch=BATCH, keep=None, executor=False):
     """Build a fivm engine under the given plan-fusion mode and ⊎ backend,
     time the update stream through it, read the kernels' launch counts,
     and hold the result to a float64 oracle.  With ``keep`` (a list), the
     payload of the engine's largest view is appended to it as
-    ``(name, {component: tensor with the keys flattened})``."""
+    ``(name, {component: tensor with the keys flattened})``.  With
+    ``executor``, the same stream then runs through the stream executor
+    (:func:`executor_leg`).  Returns the legs' result lines."""
     from repro_torch.core import plan
     from repro_torch.kernels import scatter_ops
 
     with plan.use_fusion(fusion), scatter_ops.use_backend(backend):
-        out = _stream_phase(label, query, query64, db, doms, rng, kernels,
-                            expected, n_batches, device, batch, keep)
-    log(out)
-    return out
+        outs = _stream_phase(label, query, query64, db, doms, rng, kernels,
+                             expected, n_batches, device, batch, keep, executor)
+    for out in outs:
+        log(out)
+    return outs
 
 
 def _chain_report(eng) -> dict:
@@ -1077,9 +1088,9 @@ def _chain_report(eng) -> dict:
 
 
 def _stream_phase(label, query, query64, db, doms, rng, kernels, expected,
-                  n_batches, device, batch, keep):
+                  n_batches, device, batch, keep, executor):
     import torch
-    from repro_torch.core import DenseRelation, IVMEngine, evaluate_view, plan
+    from repro_torch.core import IVMEngine, plan
     from repro_torch.data.synth import RETAILER_RELATIONS, retailer_vo, update_stream
 
     on_card = torch.device(device).type == "cuda"
@@ -1102,6 +1113,7 @@ def _stream_phase(label, query, query64, db, doms, rng, kernels, expected,
         eng.apply_update(rel, upd)
     sync()
     run_s = time.perf_counter() - t0
+    run_peak = torch.cuda.max_memory_allocated() if on_card else None
     launches = {k.name: k.launches for k in kernels}
     missing = [n for n in expected if launches[n] == 0]
     if missing:
@@ -1112,18 +1124,7 @@ def _stream_phase(label, query, query64, db, doms, rng, kernels, expected,
         raise AssertionError(f"{label}: fusion {fusion} but "
                              f"{chains['fused_chains']} fused chains")
 
-    # oracle: the same updates into a float64 copy of the database with the
-    # plain scatter, then one evaluation of the query
-    db64 = {r: DenseRelation(rel.schema, query64.ring,
-                             {c: v.double() for c, v in rel.payload.items()})
-            for r, rel in db.items()}
-    for rel, upd in stream:
-        db64[rel] = db64[rel].scatter_add(
-            upd.keys, {c: v.double() for c, v in upd.payload.items()},
-            backend="torch")
-    store: dict = {}
-    evaluate_view(eng.tree, db64, query64, store=store)
-    check = compare_views(label, eng, store)
+    check = compare_views(label, eng, oracle_store(eng, db, stream, query64, 1))
     memory_bytes, plan_stats = eng.memory_bytes(), eng.plans.stats()
     if keep is not None:
         # the engine's own storage (column slices of its [S, d] plane)
@@ -1132,27 +1133,162 @@ def _stream_phase(label, query, query64, db, doms, rng, kernels, expected,
         K = math.prod(rel.domains)
         keep.append((name, {c: t.reshape(K, *t.shape[len(rel.domains):])
                             for c, t in rel.payload.items()}))
-    del eng, db64, store
-    profile = profile_stream(query, db, stream, batch, device) if on_card else None
+    del eng
+    profile = (profile_stream(query, db, stream, batch, device, counts=executor)
+               if on_card else None)
     out = dict(
         stream=label, fusion=fusion, domains=doms, batch=batch,
         n_batches=n_batches, build_s=build_s, run_s=run_s,
         tuples_per_s=batch * n_batches / run_s,
         memory_bytes=memory_bytes,
         max_memory_allocated=torch.cuda.max_memory_allocated() if on_card else None,
-        launches=launches,
+        max_memory_allocated_run=run_peak, launches=launches,
         launches_per_batch={k: n / n_batches for k, n in launches.items()},
         plan_cache=plan_stats, chains=chains, oracle=check, profile=profile)
+    outs = [out]
+    if executor:
+        outs.append(executor_leg(label + "_executor", query, query64, db, doms,
+                                 stream, kernels, expected, out, device, batch))
     del stream
     if on_card:
         torch.cuda.empty_cache()
+    return outs
+
+
+def oracle_store(eng, db, stream, query64, times: int) -> dict:
+    """Every view of ``eng``'s tree over a float64 copy of ``db`` into which
+    ``stream`` was scattered ``times`` times with the plain scatter."""
+    from repro_torch.core import DenseRelation, evaluate_view
+
+    db64 = {r: DenseRelation(rel.schema, query64.ring,
+                             {c: v.double() for c, v in rel.payload.items()})
+            for r, rel in db.items()}
+    for _ in range(times):
+        for rel, upd in stream:
+            db64[rel] = db64[rel].scatter_add(
+                upd.keys, {c: v.double() for c, v in upd.payload.items()},
+                backend="torch")
+    store: dict = {}
+    evaluate_view(eng.tree, db64, query64, store=store)
+    return store
+
+
+def executor_leg(label, query, query64, db, doms, stream, kernels, expected,
+                 eager, device, batch) -> dict:
+    """The stream of an eager leg through the stream executor
+    (``core/stream.py``: rounds mode, each round one CUDA graph) on a fresh
+    engine, three runs:
+
+    1. the capture run on a copy of the engine's state: the first round
+       eagerly, then its capture, then a replay a round (timed, with its
+       launch counts, capture seconds and host µs a replay);
+    2. a replay-only run on the same state, donated, under
+       ``torch.cuda.set_sync_debug_mode("error")``, of a second stream of
+       the same signature (other data, from ``SEED + 1``), which replays
+       the first stream's graphs on its own inputs (timed, launch counts);
+    3. the first stream again, replay-only, profiled: device busy against
+       wall, device events.
+
+    The views, after the first, the second and the first stream again, are
+    held to the float64 oracle; the eager leg's numbers stand beside the executor's (its peak
+    bytes as of the end of its run, before its oracle).  Peak bytes here
+    are read before the oracle too, allocated and reserved (the graphs'
+    pool included)."""
+    import torch
+    from repro_torch.core import IVMEngine, StreamExecutor, prepare_stream
+    from repro_torch.data.synth import RETAILER_RELATIONS, retailer_vo, update_stream
+
+    n_batches = len(stream)
+    second = update_stream(RETAILER_RELATIONS, doms, query.ring,
+                           np.random.default_rng(SEED + 1), batch, n_batches,
+                           device=device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = IVMEngine.build(query, db, var_order=retailer_vo(), strategy="fivm",
+                          storage="dense", device=device)
+    eng.precompile(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prepared = prepare_stream(eng, stream)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    prepared2 = prepare_stream(eng, second)
+    if prepared2.signature != prepared.signature:
+        raise AssertionError(f"{label}: the second stream's signature differs")
+    ex = StreamExecutor(eng)
+    runs = {}
+    for run in ("capture", "replay"):
+        reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if run == "capture":
+            ex.run(prepared)
+        else:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                ex.run(prepared2, donate_input=True)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = dict(ex.last_run_stats)
+        launches = {k.name: k.launches for k in kernels}
+        missing = [n for n in expected if launches[n] == 0]
+        if missing or not stats["replays"] or (run == "replay" and stats["eager_steps"]):
+            raise AssertionError(f"{label} {run} run: stats {stats}, never "
+                                 f"launched {missing}")
+        runs[run] = dict(run_s=wall, tuples_per_s=batch * n_batches / wall,
+                         host_us_per_replay=1e6 * stats["replay_host_s"] / stats["replays"],
+                         launches=launches,
+                         launches_per_batch={k: n / n_batches for k, n in launches.items()},
+                         **stats)
+    reset(kernels)
+    events, wall = device_events(lambda: ex.run(prepared, donate_input=True), 1)
+    profile = _busy(events, wall)
+    profile["device_events_per_batch"] = profile["device_events"] / n_batches
+    # device events of this run beside the eager leg's, by name, where the
+    # counts a batch differ
+    mine, theirs = event_counts(events), eager["profile"].pop("event_counts")
+    profile["events_per_batch_vs_eager"] = {
+        name: [mine.get(name, 0) / n_batches, theirs.get(name, 0) / n_batches]
+        for name in sorted(set(mine) | set(theirs))
+        if mine.get(name, 0) != theirs.get(name, 0)}
+    peak = dict(max_memory_allocated=torch.cuda.max_memory_allocated(),
+                max_memory_reserved=torch.cuda.max_memory_reserved())
+    check = compare_views(label, eng, oracle_store(eng, db, stream + second + stream,
+                                                   query64, 1))
+    ex.release()
+    del second, prepared2
+    del eng, ex
+    torch.cuda.empty_cache()
+    return dict(
+        stream=label, mode=prepared.mode, pattern=len(prepared.pattern),
+        rounds=prepared.n_steps, batch=batch, n_batches=n_batches,
+        prepare_s=prepare_s, capture_s=runs["capture"]["capture_s"],
+        capture_run=runs["capture"], replay_run=runs["replay"],
+        replays=runs["capture"]["replays"] + runs["replay"]["replays"],
+        launches={k.name: runs["capture"]["launches"][k.name]
+                  + runs["replay"]["launches"][k.name] for k in kernels},
+        profile=profile, **peak, oracle=check,
+        eager=dict(tuples_per_s=eager["tuples_per_s"],
+                   launches_per_batch=eager["launches_per_batch"],
+                   max_memory_allocated_run=eager["max_memory_allocated_run"],
+                   profile=eager["profile"]))
+
+
+def event_counts(events) -> dict:
+    """Device events by name (cut to 60 characters)."""
+    out: dict = {}
+    for e in events:
+        out[e.name[:60]] = out.get(e.name[:60], 0) + 1
     return out
 
 
-def profile_stream(query, db, stream, batch, device) -> dict:
+def profile_stream(query, db, stream, batch, device, counts=False) -> dict:
     """Where the stream's time goes: the same updates through a fresh engine
     under torch.profiler — device busy time against host wall time (the
-    device's idle share) and the device time of the heaviest kernels."""
+    device's idle share) and the device time of the heaviest kernels; with
+    ``counts``, also every device event's count by name."""
     from repro_torch.core import IVMEngine
     from repro_torch.data.synth import retailer_vo
 
@@ -1164,8 +1300,11 @@ def profile_stream(query, db, stream, batch, device) -> dict:
     def step():
         eng.apply_update(*next(updates))
 
-    out = _busy(*device_events(step, len(stream)))
+    events, wall = device_events(step, len(stream))
+    out = _busy(events, wall)
     out["device_events_per_batch"] = out["device_events"] / len(stream)
+    if counts:
+        out["event_counts"] = event_counts(events)
     return out
 
 
@@ -1642,13 +1781,13 @@ def main() -> int:
                 domains=doms, lifts={"units": ("value",)})
     rng = np.random.default_rng(SEED)
     db = synth.synth_db(rels, doms, q.ring, rng, device="cuda")
-    streams.append(stream_phase("retailer_sum", q, q64, db, doms, rng, kernels,
+    streams.extend(stream_phase("retailer_sum", q, q64, db, doms, rng, kernels,
                                 ("scatter_add", "segment_ring_sum",
-                                 "gather_mul_scatter")))
-    streams.append(stream_phase("retailer_sum_fused", q, q64, db, doms,
+                                 "gather_mul_scatter"), executor=True))
+    streams.extend(stream_phase("retailer_sum_fused", q, q64, db, doms,
                                 np.random.default_rng(SEED + 1), kernels,
-                                ("fused_chain",), fusion="auto"))
-    streams.append(stream_phase("retailer_sum_scatter_dedup", q, q64, db, doms,
+                                ("fused_chain",), fusion="auto", executor=True))
+    streams.extend(stream_phase("retailer_sum_scatter_dedup", q, q64, db, doms,
                                 np.random.default_rng(SEED + 2), kernels,
                                 ("scatter_dedup",), backend="scatter_dedup",
                                 n_batches=5))
@@ -1665,12 +1804,13 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     db = synth.synth_db(rels, doms, cq.ring, rng, device="cuda")
     kept: list = []  # the largest view of each cofactor engine, for path B
-    streams.append(stream_phase("retailer_cofactor_m10", cq, cq64, db, doms,
+    streams.extend(stream_phase("retailer_cofactor_m10", cq, cq64, db, doms,
                                 rng, kernels,
                                 ("scatter_add", "segment_ring_sum"), keep=kept))
-    streams.append(stream_phase("retailer_cofactor_m10_fused", cq, cq64, db,
+    streams.extend(stream_phase("retailer_cofactor_m10_fused", cq, cq64, db,
                                 doms, np.random.default_rng(SEED + 1), kernels,
-                                ("fused_chain",), fusion="auto", keep=kept))
+                                ("fused_chain",), fusion="auto", keep=kept,
+                                executor=True))
     del db
     torch.cuda.empty_cache()
 

@@ -9,16 +9,22 @@ from .relations import COOUpdate, DenseRelation
 from .rings import DegreeMRing, MulTerm, Ring, ScalarRing, count_ring, sum_ring
 from .storage import (StorageSpec, ViewStorage, apply_storage_plan, as_dense,
                       make_base_relation, plan_storage, view_nbytes)
+from .stream import (MAX_ROUNDS_PERIOD, PreparedStream, StreamCapacityError,
+                     StreamExecutor, capacity_segments, check_stream_capacity,
+                     prepare_stream, split_segments)
 from .variable_orders import VariableOrder, VONode, chain, heuristic_order
 from .view_tree import ViewNode, build_view_tree, evaluate_view
 
 __all__ = [
     "BatchedDelta", "COOUpdate", "DegreeMRing", "DenseRelation", "IVMEngine",
-    "MulTerm", "PlanCache", "Query", "Ring", "ScalarRing", "StorageSpec",
-    "TriggerPlan", "VONode", "VariableOrder", "ViewNode", "ViewStorage",
-    "apply_storage_plan", "as_dense", "build_view_tree", "chain",
+    "MAX_ROUNDS_PERIOD", "MulTerm", "PlanCache", "PreparedStream", "Query",
+    "Ring", "ScalarRing", "StorageSpec", "StreamCapacityError",
+    "StreamExecutor", "TriggerPlan", "VONode", "VariableOrder", "ViewNode",
+    "ViewStorage", "apply_storage_plan", "as_dense", "build_view_tree",
+    "capacity_segments", "chain", "check_stream_capacity",
     "choose_materialized", "compile_trigger", "contract_dense", "count_ring",
     "evaluate_view", "execute_trigger", "heuristic_order", "lift_relation",
     "make_base_relation", "marginalize_dense", "plan_storage",
-    "propagate_coo", "sum_ring", "view_nbytes", "views_on_path",
+    "prepare_stream", "propagate_coo", "split_segments", "sum_ring",
+    "view_nbytes", "views_on_path",
 ]

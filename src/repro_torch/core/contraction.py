@@ -213,14 +213,18 @@ class BatchedDelta:
         return bool(view.schema) and all(v in self.coo_schema
                                          for v in view.schema)
 
-    def _gather_plan(self, view) -> tuple[torch.Tensor, torch.Tensor]:
+    def _gather_plan(self, view, src_plane=None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
         """(src_plane [Sg, d], in_ids [B]) for a deferred gather of
-        ``view`` at the delta's COO coordinates."""
+        ``view`` at the delta's COO coordinates; ``src_plane``, when
+        given, is the view's flattened plane computed ahead (a stream
+        step's memo)."""
         from . import storage
 
         keys = torch.stack([self.key_col(v) for v in view.schema], dim=1)
-        src_plane = storage.flatten_payload(self.ring, view.payload,
-                                            view.domains)
+        if src_plane is None:
+            src_plane = storage.flatten_payload(self.ring, view.payload,
+                                                view.domains)
         return src_plane, storage.linear_ids(keys, view.domains)
 
     def _force(self) -> "BatchedDelta":
@@ -253,8 +257,9 @@ class BatchedDelta:
             if lift_rel is not None:
                 g = lift_rel.gather(self.keys[:, i : i + 1])  # [B, *comp]
                 payload = _mul_broadcast(self.ring, payload, g, self.dense_schema)
-            keep = [j for j in range(self.keys.shape[1]) if j != i]
-            keys = self.keys[:, keep]
+            # column slices, not a list index: indexing with a Python list
+            # copies the list to the device (a synchronising host copy)
+            keys = torch.cat([self.keys[:, :i], self.keys[:, i + 1:]], dim=1)
             new_coo = tuple(v for v in self.coo_schema if v != var)
             if not new_coo and self.batch > 1:
                 # batch collapse: with no COO vars left the rows are
@@ -287,16 +292,17 @@ class BatchedDelta:
         )
 
     # -- join with a materialized sibling view ------------------------------
-    def join_dense(self, view) -> "BatchedDelta":
+    def join_dense(self, view, src_plane=None) -> "BatchedDelta":
         """δ ⊗ V: coo-shared vars of V are gathered at the delta's coords;
         dense-shared vars align elementwise; fresh vars of V become new
-        dense axes."""
+        dense axes.  ``src_plane`` (V's flattened plane, computed ahead)
+        serves a deferred gather."""
         ring = self.ring
         if self._defer_ok(view):
-            return dataclasses.replace(self,
-                                       pending_gather=self._gather_plan(view))
+            return dataclasses.replace(
+                self, pending_gather=self._gather_plan(view, src_plane))
         if self.pending_gather is not None:
-            return self._force().join_dense(view)
+            return self._force().join_dense(view, src_plane)
         shared_coo = [v for v in view.schema if v in self.coo_schema]
 
         # Gather view slices at coo coordinates -> leading batch axis.

@@ -150,6 +150,22 @@ class IVMEngine:
         self.views, self.base = self.functional_update(
             self.views, self.base, rel, upd)
 
+    def trigger_body(self, rel: str, plan: plan_mod.TriggerPlan | None = None):
+        """The maintenance trigger for updates to ``rel`` as the stream
+        executor replays it: ``body(state, upd, memo=None) -> state`` with
+        ``state = (views, base)``, its output checked by
+        :func:`canonical_state`.  ``plan`` pins the compiled trigger plan
+        (the executor embeds one a schedule position); without it the
+        engine's plan cache resolves it per update signature.  ``memo``
+        carries a stream step's shared sibling planes."""
+
+        def body(state, upd, memo=None):
+            views, base = state
+            return canonical_state(self.functional_update(
+                views, base, rel, upd, plan=plan, memo=memo))
+
+        return body
+
     def make_trigger(self, rel: str):
         """The maintenance trigger for updates to ``rel``:
         ``trigger(state, upd) -> state`` with ``state = (views, base)``.
@@ -166,15 +182,23 @@ class IVMEngine:
     def state(self):
         return (self.views, self.base)
 
-    def functional_update(self, views, base, rel: str, upd: COOUpdate):
-        """Returns new ``(views, base)`` after ``upd``: fetches the cached
-        :class:`TriggerPlan` for ``(rel, upd signature)`` and replays it.
-        Tensors of ``views`` and ``base`` are updated in place where their
-        layout allows, so the state passed in must not be used again."""
+    def set_state(self, state) -> None:
+        self.views, self.base = state
+
+    def functional_update(self, views, base, rel: str, upd: COOUpdate,
+                          plan: plan_mod.TriggerPlan | None = None,
+                          memo=None):
+        """Returns new ``(views, base)`` after ``upd``: replays ``plan``, by
+        default the cached :class:`TriggerPlan` for ``(rel, upd
+        signature)``.  Tensors of ``views`` and ``base`` are updated in
+        place where their layout allows, so the state passed in must not
+        be used again."""
         if rel not in self.updatable:
             raise ValueError(f"{rel} not declared updatable")
-        plan = self.plans.lookup(self, rel, upd)
-        return plan_mod.execute_trigger(self, plan, views, base, upd)
+        if plan is None:
+            plan = self.plans.lookup(self, rel, upd)
+        return plan_mod.execute_trigger(self, plan, views, base, upd,
+                                        memo=memo)
 
     def shard_state(self, shard_plan) -> None:
         """Sharded placement is not ported yet."""
@@ -184,3 +208,19 @@ class IVMEngine:
     def _bump_base(self, rel: DenseRelation, upd: COOUpdate) -> DenseRelation:
         """Base-relation ⊎ through the ring scatter dispatch layer."""
         return rel.scatter_add(upd.keys, upd.payload)
+
+
+def canonical_state(state):
+    """Check that every leaf of a ``(views, base)`` state has its ring's
+    dtype, and return the state unchanged.  The reference strips JAX weak
+    types here so that one scan carry serves every trigger; torch has none,
+    and the stream executor needs only that a trigger keeps each leaf's
+    dtype, since it copies a replaced leaf back into the state's own
+    storage."""
+    for part in state:
+        for name, rel in part.items():
+            for c, leaf in rel.payload.items():
+                if leaf.dtype != rel.ring.dtype:
+                    raise TypeError(f"{name}.{c} is {leaf.dtype}, its ring "
+                                    f"{rel.ring.name} is {rel.ring.dtype}")
+    return state

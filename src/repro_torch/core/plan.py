@@ -552,7 +552,7 @@ def compile_trigger(engine, rel: str, upd_sig, intern=None,
     root = tree.name
 
     if strategy == "reeval":
-        ops = (intern(BaseBump(rel, _active_override())),
+        ops = (intern(BaseBump(rel, active_backend_override())),
                intern(Reevaluate("root")))
         return TriggerPlan(
             rel=rel, kind="reeval", strategy=strategy, schema=schema,
@@ -577,7 +577,7 @@ def compile_trigger(engine, rel: str, upd_sig, intern=None,
             _scatter_op(query, root, views[root],
                         _SymDelta(coo=(), dense=(), b=1, pending=False,
                                   ring=query.ring), engine.device),
-            intern(BaseBump(rel, _active_override())))
+            intern(BaseBump(rel, active_backend_override())))
         return TriggerPlan(
             rel=rel, kind="first_order", strategy=strategy, schema=schema,
             batch=batch, densify=densify, ops=ops,
@@ -602,7 +602,9 @@ def compile_trigger(engine, rel: str, upd_sig, intern=None,
     return plan
 
 
-def _active_override() -> str | None:
+def active_backend_override() -> str | None:
+    """The forced scatter backend (``use_backend`` / env), if any: part of
+    the plan-cache key, so an override change never replays a stale plan."""
     from ..kernels import scatter_ops
 
     return scatter_ops.active_override()
@@ -745,6 +747,18 @@ def fuse_trigger_ops(plan: TriggerPlan, query: Query,
 # ---------------------------------------------------------------------------
 # The plan cache
 # ---------------------------------------------------------------------------
+def storage_signature(views: Mapping) -> tuple:
+    """Hashable storage-layout fingerprint of ``views``: a plan is valid
+    only for the layout it was compiled against.  Every view is dense in
+    this slice; sparse tables (Queue 1 item 11) will add their capacity."""
+    sig = []
+    for name in sorted(views):
+        if not isinstance(views[name], DenseRelation):
+            raise NotImplementedError(_SPARSE_TODO)
+        sig.append((name, "d", 0))
+    return tuple(sig)
+
+
 class PlanCache:
     """Per-engine trigger-plan cache with op interning.
 
@@ -773,7 +787,7 @@ class PlanCache:
 
     def lookup_sig(self, engine, rel: str, upd_sig) -> TriggerPlan:
         fusion = fusion_mode(engine.device)
-        key = (rel, upd_sig, _active_override(), fusion)
+        key = (rel, upd_sig, active_backend_override(), fusion)
         plan = self.plans.get(key)
         if plan is not None:
             self.hits += 1
@@ -803,7 +817,7 @@ class PlanCache:
         (independent of the batch size), memoized under the plan cache's
         environment key (backend override, fusion mode), so a fusion flip
         re-derives them from a fresh plan."""
-        key = (rel, _active_override(), fusion_mode(engine.device))
+        key = (rel, active_backend_override(), fusion_mode(engine.device))
         if key not in self._write_sets:
             sig = ("coo", tuple(engine.query.relations[rel]), 1)
             self._write_sets[key] = self.lookup_sig(engine, rel, sig).write_sets()
@@ -845,10 +859,12 @@ class PropagationResult:
         return d() if callable(d) else d
 
 
-def run_coo_ops(ops, views: Mapping, query: Query,
-                upd: COOUpdate) -> PropagationResult:
+def run_coo_ops(ops, views: Mapping, query: Query, upd: COOUpdate,
+                memo: Mapping | None = None) -> PropagationResult:
     """Replay a compiled COO path section: exactly the delta-algebra calls
-    of the interpretive walk; backend hints thread into the scatters."""
+    of the interpretive walk; backend hints thread into the scatters, and
+    memoized sibling planes (``memo``, :func:`build_prep_memo`)
+    short-circuit the prepare step."""
     ring = query.ring
     deltas: dict = {}
     updated: dict = {}
@@ -858,7 +874,10 @@ def run_coo_ops(ops, views: Mapping, query: Query,
         if isinstance(op, LeafDelta):
             delta = (densified_delta(query, op.rel, upd) if op.densify
                      else BatchedDelta.from_coo(ring, upd))
-        elif isinstance(op, (Gather, JoinContract)):
+        elif isinstance(op, Gather):
+            plane = memo.get(("plane", op.view)) if memo else None
+            delta = delta.join_dense(views[op.view], src_plane=plane)
+        elif isinstance(op, JoinContract):
             delta = delta.join_dense(views[op.view])
         elif isinstance(op, Lift):
             pending_lift = query.lift_rel(op.var, upd.keys.device)
@@ -871,7 +890,8 @@ def run_coo_ops(ops, views: Mapping, query: Query,
             updated[op.view] = delta.apply_to(views[op.view],
                                               backend=op.backend)
         elif isinstance(op, FusedChain):
-            delta = _run_fused_chain(op, delta, views, query, deltas, updated)
+            delta = _run_fused_chain(op, delta, views, query, memo, deltas,
+                                     updated)
         else:  # pragma: no cover
             raise TypeError(op)
     return PropagationResult(deltas, updated)
@@ -890,7 +910,7 @@ def _chain_delta(ring, product, keys, coo, collapsed) -> BatchedDelta:
 
 
 def _run_fused_chain(chain: FusedChain, delta: BatchedDelta, views: Mapping,
-                     query: Query, deltas: dict, updated: dict):
+                     query: Query, memo, deltas: dict, updated: dict):
     """Interpret a :class:`FusedChain` over dense views.
 
     Gather and lift sources accumulate as flat ``(plane [Sg, d], ids [B])``
@@ -930,7 +950,9 @@ def _run_fused_chain(chain: FusedChain, delta: BatchedDelta, views: Mapping,
             view = views[op.view]
             if not isinstance(view, DenseRelation):
                 raise NotImplementedError(_SPARSE_TODO)
-            plane = flatten_payload(ring, view.payload, view.domains)
+            plane = memo.get(("plane", op.view)) if memo else None
+            if plane is None:
+                plane = flatten_payload(ring, view.payload, view.domains)
             ids = linear_ids(view_keys(view.schema), view.domains)
             sources.append((plane, ids))
         elif isinstance(op, Lift):
@@ -978,10 +1000,14 @@ def reevaluate_store(engine, base) -> dict:
     return store
 
 
-def execute_trigger(engine, plan: TriggerPlan, views, base, upd):
-    """Run a compiled trigger; returns new ``(views, base)``.  View and
-    base tensors are updated in place where their layout allows, so the
-    state passed in must not be used again."""
+def execute_trigger(engine, plan: TriggerPlan, views, base, upd,
+                    memo: Mapping | None = None):
+    """Run a compiled trigger: the one execution entry of eager
+    ``apply_update`` and of every stream-executor dispatch mode.  Returns
+    new ``(views, base)``.  View and base tensors are updated in place
+    where their layout allows, so the state passed in must not be used
+    again.  ``memo`` carries a stream step's shared sibling planes
+    (:func:`build_prep_memo`)."""
     query = engine.query
     views = dict(views)
     base = dict(base)
@@ -1004,7 +1030,7 @@ def execute_trigger(engine, plan: TriggerPlan, views, base, upd):
         return views, base
 
     # fivm / dbt
-    res = run_coo_ops(plan.ops, views, query, upd)
+    res = run_coo_ops(plan.ops, views, query, upd, memo=memo)
     views.update(res.updated)
     if plan.write_base:
         base[plan.rel] = engine._bump_base(base[plan.rel], upd)
@@ -1031,3 +1057,52 @@ def densified_delta(query: Query, rel: str, upd: COOUpdate) -> BatchedDelta:
         dense_domains=doms,
     )
 
+
+# ---------------------------------------------------------------------------
+# Write-set → state-leaf mask, and plan-level CSE across a stream step
+# ---------------------------------------------------------------------------
+def state_leaves(state) -> list:
+    """The payload tensors of a ``(views, base)`` state in a fixed order:
+    views, then base relations, each by name, each relation's components
+    by name (the order in which JAX flattens the reference's state)."""
+    return [part[name].payload[c] for part in state for name in sorted(part)
+            for c in sorted(part[name].payload)]
+
+
+def state_write_mask(state, write_views, write_base) -> tuple:
+    """Per-state-leaf mask (:func:`state_leaves` order): True iff the leaf
+    belongs to an entry some plan's write set names.  The plans are the
+    authority on what a trigger may replace."""
+    views, base = state
+    return tuple(name in names
+                 for part, names in ((views, write_views), (base, write_base))
+                 for name in sorted(part) for _ in part[name].payload)
+
+
+def shared_prep_ops(plans: Sequence[TriggerPlan]) -> tuple:
+    """Sibling-view prepare steps shared by >= 2 plans of one stream step
+    whose source view no plan of the step writes: their gather planes are
+    computed once a step instead of once a position.  Only ``fivm``/``dbt``
+    COO plans gather from state views; fused chains count through their
+    inner gathers (the memo keys are the same).  The reference also shares
+    the densified form of a sparse sibling (``("dense", view)``); that
+    comes with sparse storage (ROADMAP Queue 1 item 11)."""
+    plans = [p for p in plans if p.kind == "coo"]
+    write_union: set[str] = set()
+    for p in plans:
+        write_union |= set(p.write_views)
+    counts: dict = {}
+    for p in plans:
+        for key in {("plane", op.view) for op in iter_flat_ops(p.ops)
+                    if isinstance(op, Gather)}:
+            counts[key] = counts.get(key, 0) + 1
+    return tuple(sorted(k for k, n in counts.items()
+                        if n >= 2 and k[1] not in write_union))
+
+
+def build_prep_memo(shared: tuple, views: Mapping) -> dict:
+    """Materialize the shared prepare steps against the current views."""
+    return {(form, name): flatten_payload(views[name].ring,
+                                          views[name].payload,
+                                          views[name].domains)
+            for form, name in shared}

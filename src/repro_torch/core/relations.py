@@ -163,3 +163,17 @@ class COOUpdate:
     @property
     def batch(self) -> int:
         return int(self.keys.shape[0])
+
+    def pad_to(self, ring: Ring, batch: int) -> "COOUpdate":
+        """This batch padded to ``batch`` rows: key 0 and a ring-zero
+        payload, which ⊎ adds as an exact no-op."""
+        b = self.batch
+        if b == batch:
+            return self
+        if b > batch:
+            raise ValueError(f"cannot pad a batch of {b} rows to {batch}")
+        keys = torch.cat([self.keys,
+                          self.keys.new_zeros((batch - b, self.keys.shape[1]))])
+        pad = ring.zeros((batch - b,), device=self.keys.device)
+        payload = {c: torch.cat([v, pad[c]]) for c, v in self.payload.items()}
+        return COOUpdate(self.schema, keys, payload)

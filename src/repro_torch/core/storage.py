@@ -38,20 +38,24 @@ def comp_width(shp) -> int:
 
 
 def linear_ids(keys: torch.Tensor, domains) -> torch.Tensor:
-    """Row-major flat int32 segment ids for keys [B, k] over domains (D1..Dk)."""
+    """Row-major flat int32 segment ids for keys [B, k] over domains (D1..Dk).
+
+    The ids are a sum of key columns times Python-int strides, in int32:
+    no stride tensor is built from host data, so the call never copies
+    from host memory (a blocking copy on the card, and illegal under CUDA
+    graph capture)."""
     if keys.dim() != 2 or keys.shape[1] != len(domains):
         raise ValueError(f"keys {tuple(keys.shape)} vs domains {domains}")
     if keys.shape[1] == 0:
         return torch.zeros((keys.shape[0],), dtype=torch.int32,
                            device=keys.device)
+    keys = keys.to(torch.int32)
+    ids = keys[:, -1].to(torch.int32, copy=True)
     stride = 1
-    strides = []
-    for d in reversed(domains):
-        strides.append(stride)
-        stride *= int(d)
-    strides = torch.tensor(strides[::-1], dtype=torch.int32, device=keys.device)
-    return (keys.to(torch.int32) * strides[None, :]).sum(dim=1,
-                                                         dtype=torch.int32)
+    for j in range(keys.shape[1] - 2, -1, -1):
+        stride *= int(domains[j + 1])
+        ids.add_(keys[:, j], alpha=stride)
+    return ids
 
 
 def unlinearize_ids(ids: torch.Tensor, domains) -> torch.Tensor:

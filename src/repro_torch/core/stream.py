@@ -1,0 +1,562 @@
+"""Fused update-stream executor (PyTorch port of ``repro.core.stream``).
+
+The eager engine replays each trigger op by op from Python, and on the card
+the device idles while the host dispatches.  This module runs a whole
+multi-relation stream through a few CUDA graphs instead:
+
+  1. **Bucketing** — updates are grouped by schedule position and padded to
+     a per-position bucket size.  Padding rows carry key ``0`` and ring-zero
+     payloads, which ⊎ adds as an exact no-op.
+  2. **Stacking** — keys and payloads are stacked into ``[n_steps, B, ...]``
+     tensors on the engine's device, once a stream.
+  3. **Dispatch** — three shapes, picked by schedule structure, as in the
+     reference:
+
+     * ``scan``   — single-relation streams: one trigger a step.
+     * ``rounds`` — (near-)periodic mixed schedules: a step is one round,
+       one trigger per pattern position in order, with the sibling planes
+       that several positions gather built once a round
+       (``plan.shared_prep_ops``).  A trailing partial round runs once
+       after the rounds, eagerly.
+     * ``switch`` — aperiodic mixed schedules: a step is one relation's
+       trigger; the host walks the schedule, which it knows at prepare
+       time.
+
+Every step runs the same compiled :class:`repro_torch.core.plan.TriggerPlan`
+objects the eager path executes, fetched at prepare time from the engine's
+plan cache.
+
+**On the card** the unit of capture is one step body: the scan step, the
+rounds round, or one relation's trigger in switch mode.  A body reads its
+inputs as ``xs[counter]`` through a device-resident step counter, which it
+then advances, so a replay copies nothing from the host and never
+synchronises.  The state is updated in place at fixed addresses: where a
+trigger returns a tensor that is not its leaf's own storage (reevaluation,
+first-order and densified views), the body copies it back into the leaf,
+and a trigger may replace only the leaves its plan's write set names
+(``plan.state_write_mask``).  Warm-up: the first step of each body runs
+eagerly on the real state, which builds what allocates or copies on first
+use (lift relations, kernel libraries, cuBLAS handles); the body is then
+captured, and every later step of it is a replay.  The graphs of one
+signature share one memory pool.  They read the program's own input
+buffers, into which each run copies its stream's stacked inputs on the
+device, so any stream of the signature replays them; and they write the
+state leaves they were captured against.  So a run on other state tensors
+captures anew: the default run (``donate_input=False``) copies the state
+and therefore warms up and captures on every call, while a run on the same
+state (``donate_input=True`` on the engine's own state after an
+``update_engine`` run) only replays.  A failed capture or replay raises; it
+never falls back to eager execution.  Each wrapper's launch count sees
+replays (``kernels._cuda.CapturedLaunches``).
+
+**On the CPU** the same bodies, counter included, run eagerly step by step.
+
+Not ported: sharded executors (ROADMAP Queue 1 item 14), checkpointed and
+resumed streams (item 15), integrity (item 16), the serving registry
+(item 17), and the pipelined capacity segments that only those features and
+sparse views reach (item 11).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Sequence
+
+import torch
+from torch.utils import _pytree as pytree
+
+from ..kernels import _cuda
+from . import plan as plan_mod
+from .ivm import IVMEngine
+from .relations import COOUpdate, DenseRelation
+from .storage import _SPARSE_TODO
+
+#: longest schedule period run as a rounds body; longer periods take
+#: switch dispatch
+MAX_ROUNDS_PERIOD = 16
+
+
+@dataclasses.dataclass
+class PreparedStream:
+    """A bucketed, stacked, device-resident update stream."""
+
+    mode: str  # "scan" | "rounds" | "switch"
+    rel_order: tuple[str, ...]  # distinct relations in first-seen order
+    schemas: tuple[tuple[str, ...], ...]  # per-rel_order COO schemas
+    pattern: tuple[str, ...]  # per-position relations ("rounds": one round)
+    #: stacked inputs, leading dim n_steps: ``(keys, payload)`` (scan and
+    #: switch, switch keys padded to the widest schema) or a tuple of them
+    #: per pattern position (rounds)
+    xs: Any
+    n_steps: int
+    buckets: tuple[int, ...]  # padded batch size per pattern position
+    n_tuples: int  # true (unpadded) tuple count across the stream
+    tail: Any = ()  # per-position (keys, payload) of the trailing partial round
+    tail_len: int = 0
+    #: embedded trigger plans: per pattern position (scan/rounds) or per
+    #: rel_order entry (switch)
+    plans: tuple = ()
+    #: storage layout the plans were compiled against
+    storage_sig: tuple = ()
+    #: scatter-backend override active at prepare time
+    backend_sig: str | None = None
+    #: plan-fusion mode active at prepare time
+    fusion_sig: str | None = None
+    #: switch mode: the rel_order index of each step
+    schedule: tuple = ()
+
+    @property
+    def signature(self):
+        """Cache key of the executor's programs: the shapes and plans a
+        step body is built for.  The stacked inputs, the tail and the switch
+        schedule are read from the stream each run is given."""
+        return (self.mode, self.rel_order, self.schemas, self.pattern,
+                self.n_steps, self.buckets, self.tail_len, self.storage_sig,
+                self.backend_sig, self.fusion_sig)
+
+
+def _schedule_period(sched: Sequence[str]) -> int | None:
+    """Smallest period p <= MAX_ROUNDS_PERIOD with sched[i] == sched[i - p]
+    for every i >= p; None if the schedule is aperiodic.  A period must
+    repeat (>= 2 full rounds); p == 1 (one relation) always counts.  Rotated
+    round-robin streams and streams ending in a partial round canonicalize
+    to (pattern, full rounds, tail)."""
+    T = len(sched)
+    for p in range(1, min(MAX_ROUNDS_PERIOD, T) + 1):
+        if p > 1 and T // p < 2:
+            break
+        if all(sched[i] == sched[i - p] for i in range(p, T)):
+            return p
+    return None
+
+
+class StreamCapacityError(RuntimeError):
+    """A stream prepared as one program could overflow a sparse view's hash
+    table.  Dense views, the only storage of this slice, hold their whole
+    key product and never overflow."""
+
+
+def _dense_only(views) -> None:
+    if any(not isinstance(v, DenseRelation) for v in views.values()):
+        raise NotImplementedError(_SPARSE_TODO)
+
+
+def check_stream_capacity(engine: IVMEngine, stream, views=None) -> None:
+    """Worst-case insert-budget audit of a stream run as one program;
+    raises :class:`StreamCapacityError` when a sparse view could cross its
+    load-factor bound.  ``views`` is the state the stream will run against
+    (default: the engine's).  Every view is dense in this slice, so the
+    audit passes."""
+    _dense_only(engine.views if views is None else views)
+
+
+def capacity_segments(engine: IVMEngine, stream):
+    """Split a raw stream so no sparse view's worst-case insert budget
+    crosses the load-factor bound inside one segment: ``[(sub_stream,
+    grow_caps), ...]``.  With dense views only, one segment that grows
+    nothing."""
+    _dense_only(engine.views)
+    return [(list(stream), {})]
+
+
+def split_segments(segments, max_updates: int | None):
+    """Subdivide capacity segments so no segment spans more than
+    ``max_updates`` stream updates; the pre-segment rehash (``grow_caps``)
+    stays attached to the first chunk."""
+    if max_updates is None:
+        return segments
+    out = []
+    for sub, grow in segments:
+        for lo in range(0, len(sub), max_updates):
+            out.append((sub[lo:lo + max_updates], grow if lo == 0 else {}))
+    return out
+
+
+def prepare_stream(engine: IVMEngine, stream: Sequence[tuple[str, COOUpdate]],
+                   check_capacity: bool = True) -> PreparedStream:
+    """Bucket, pad and stack a ``[(rel, COOUpdate), ...]`` stream on the
+    engine's device, and fetch the trigger plan of every schedule position
+    from the engine's plan cache.  ``check_capacity`` runs
+    :func:`check_stream_capacity` first."""
+    stream = list(stream)
+    if not stream:
+        raise ValueError("empty update stream")
+    if check_capacity:
+        check_stream_capacity(engine, stream)
+    ring = engine.query.ring
+    dev = engine.device
+    sched = [rel for rel, _ in stream]
+    rel_order = tuple(dict.fromkeys(sched))
+    schemas: dict[str, tuple[str, ...]] = {}
+    for rel, upd in stream:
+        if not isinstance(upd, COOUpdate):
+            raise TypeError("the stream executor takes COO streams; "
+                            "factorized updates go through apply_update")
+        sch = tuple(upd.schema)
+        if schemas.setdefault(rel, sch) != sch:
+            raise ValueError(f"inconsistent update schemas for {rel}")
+    n_tuples = sum(upd.batch for _, upd in stream)
+    comps = tuple(ring.components)
+    sigs = dict(storage_sig=plan_mod.storage_signature(engine.views),
+                backend_sig=plan_mod.active_backend_override(),
+                fusion_sig=plan_mod.fusion_mode(dev))
+
+    def plan_for(rel: str, bucket: int):
+        return engine.plans.lookup_sig(engine, rel,
+                                       ("coo", schemas[rel], bucket))
+
+    def stack(upds: list[COOUpdate], bucket: int):
+        padded = [u.pad_to(ring, bucket) for u in upds]
+        keys = torch.stack([u.keys for u in padded]).to(dev)
+        payload = {c: torch.stack([u.payload[c] for u in padded]).to(dev)
+                   for c in comps}
+        return keys, payload
+
+    period = _schedule_period(sched)
+    if period is not None:
+        pattern = tuple(sched[:period])
+        cols = [[u for _, u in stream[j::period]] for j in range(period)]
+        n_full = len(stream) // period
+        tail_len = len(stream) % period
+        buckets = tuple(max(u.batch for u in col) for col in cols)
+        xs = tuple(stack(col[:n_full], b) for col, b in zip(cols, buckets))
+        tail = tuple(
+            (u.keys.to(dev), {c: u.payload[c].to(dev) for c in comps})
+            for u in (cols[j][n_full].pad_to(ring, buckets[j])
+                      for j in range(tail_len)))
+        return PreparedStream(
+            mode="scan" if period == 1 else "rounds",
+            rel_order=rel_order,
+            schemas=tuple(schemas[r] for r in rel_order),
+            pattern=pattern,
+            xs=xs[0] if period == 1 else xs,
+            n_steps=n_full,
+            buckets=buckets,
+            n_tuples=n_tuples,
+            tail=tail,
+            tail_len=tail_len,
+            plans=tuple(plan_for(r, b) for r, b in zip(pattern, buckets)),
+            **sigs)
+
+    # aperiodic: one bucket and key width for every step
+    bucket = max(upd.batch for _, upd in stream)
+    k_max = max(len(schemas[r]) for r in rel_order)
+    padded = [u.pad_to(ring, bucket) for _, u in stream]
+    keys = torch.stack([
+        torch.cat([u.keys, u.keys.new_zeros((bucket, k_max - u.keys.shape[1]))],
+                  dim=1)
+        for u in padded]).to(dev)  # [T, B, k_max]
+    payload = {c: torch.stack([u.payload[c] for u in padded]).to(dev)
+               for c in comps}
+    return PreparedStream(
+        mode="switch",
+        rel_order=rel_order,
+        schemas=tuple(schemas[r] for r in rel_order),
+        pattern=(),
+        xs=(keys, payload),
+        n_steps=len(stream),
+        buckets=(bucket,),
+        n_tuples=n_tuples,
+        plans=tuple(plan_for(r, bucket) for r in rel_order),
+        schedule=tuple(rel_order.index(r) for r in sched),
+        **sigs)
+
+
+# ---------------------------------------------------------------------------
+# Step bodies and their runners
+# ---------------------------------------------------------------------------
+def _same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                      and a.stride() == b.stride())
+
+
+def _owned_state(state):
+    """A copy of a ``(views, base)`` state, each relation one new [S, d]
+    plane (the layout the ⊎ kernels update in place)."""
+    return tuple({name: rel.owned() for name, rel in part.items()}
+                 for part in state)
+
+
+def _settle(fixed, new, mask):
+    """Bring the trigger output ``new`` back into the leaves of ``fixed``:
+    copy every leaf that is not ``fixed``'s own storage into it.  A trigger
+    may replace only the leaves ``mask`` (``plan.state_write_mask``) names.
+    Returns ``fixed``."""
+    for old, leaf, may in zip(plan_mod.state_leaves(fixed),
+                              plan_mod.state_leaves(new), mask):
+        if _same_storage(old, leaf):
+            continue
+        if not may:
+            raise AssertionError("a trigger replaced a state leaf that its "
+                                 "plan's write set does not name")
+        old.copy_(leaf)
+    return fixed
+
+
+class _Program:
+    """The step bodies of one prepared signature.
+
+    ``bodies[u](state, counter)`` applies one step of body ``u`` to the
+    state in place, reading its inputs at ``self.xs[counter]``, and
+    advances the counter.  A program serves every stream of its signature:
+    :meth:`run` takes the stacked inputs, the tail and the switch schedule
+    from the stream it is given.  It walks the steps eagerly (the CPU);
+    :class:`_GraphProgram` captures and replays them (the card)."""
+
+    def __init__(self, executor: "StreamExecutor", prepared: PreparedStream):
+        engine = executor.engine
+        schema_of = dict(zip(prepared.rel_order, prepared.schemas))
+        wv: set[str] = set()
+        wb: set[str] = set()
+        for p in prepared.plans:
+            v, b = p.write_sets()
+            wv |= set(v)
+            wb |= set(b)
+        mask = plan_mod.state_write_mask(engine.state, wv, wb)
+        self.mode = prepared.mode
+        #: stacked inputs the bodies read, ``prepared.xs``'s structure
+        self.xs = None
+
+        def at(counter):
+            return pytree.tree_map(lambda a: a.index_select(0, counter)[0],
+                                   self.xs)
+
+        if prepared.mode in ("scan", "rounds"):
+            pattern = prepared.pattern
+            triggers = [engine.trigger_body(rel, plan)
+                        for rel, plan in zip(pattern, prepared.plans)]
+            shared = (plan_mod.shared_prep_ops(prepared.plans)
+                      if prepared.mode == "rounds" else ())
+            executor.last_shared_ops = shared
+
+            def apply(state, rel, trigger, keys, payload, memo=None):
+                new = trigger(state, COOUpdate(schema_of[rel], keys, payload),
+                              memo)
+                _settle(state, new, mask)
+
+            def step(state, counter):
+                x = at(counter)
+                cols = (x,) if prepared.mode == "scan" else x
+                memo = (plan_mod.build_prep_memo(shared, state[0])
+                        if shared else None)
+                for rel, trigger, (keys, payload) in zip(pattern, triggers,
+                                                         cols):
+                    apply(state, rel, trigger, keys, payload, memo)
+                counter.add_(1)
+
+            def tail(state, items):
+                for rel, trigger, (keys, payload) in zip(pattern, triggers,
+                                                         items):
+                    apply(state, rel, trigger, keys, payload)
+
+            self.bodies = [step]
+            self.tail = tail
+            return
+
+        def switch_body(rel, plan):
+            trigger = engine.trigger_body(rel, plan)
+            k = len(schema_of[rel])
+
+            def step(state, counter):
+                keys, payload = at(counter)
+                new = trigger(state, COOUpdate(schema_of[rel], keys[:, :k],
+                                               payload))
+                _settle(state, new, mask)
+                counter.add_(1)
+
+            return step
+
+        self.bodies = [switch_body(rel, plan)
+                       for rel, plan in zip(prepared.rel_order, prepared.plans)]
+        self.tail = lambda state, items: None
+
+    def steps(self, prepared: PreparedStream) -> list:
+        """The body of each step of ``prepared``."""
+        if self.mode == "switch":
+            return list(prepared.schedule)
+        return [0] * prepared.n_steps
+
+    def run(self, state, prepared: PreparedStream, stats: dict):
+        self.xs = prepared.xs
+        counter = torch.zeros((1,), dtype=torch.long,
+                              device=pytree.tree_leaves(prepared.xs)[0].device)
+        steps = self.steps(prepared)
+        try:
+            for u in steps:
+                self.bodies[u](state, counter)
+        finally:
+            self.xs = None
+        stats["eager_steps"] = len(steps)
+        self.tail(state, prepared.tail)
+        return state
+
+
+class _GraphProgram(_Program):
+    """:class:`_Program` on the card: each body's first step of a run on
+    new state tensors runs eagerly (the warm-up), then the body is captured
+    as a CUDA graph, and every later step replays it.  The graphs read the
+    program's own input buffers, into which every run copies its stream's
+    stacked inputs on the device, so a later stream of the same signature
+    replays the same graphs."""
+
+    def __init__(self, executor, prepared):
+        super().__init__(executor, prepared)
+        self._bound = None  # the state leaves the graphs write
+        self._graphs: list = []  # per body: (CUDAGraph, CapturedLaunches)
+        self._counter = None
+        self._pool = None
+
+    def release(self) -> None:
+        """Drop the graphs, their input buffers and their memory pool."""
+        self._bound = self.xs = None
+        self._graphs = []
+        self._counter = self._pool = None
+
+    def _capture(self, u: int, state):
+        graph = torch.cuda.CUDAGraph()
+        launches = _cuda.CapturedLaunches()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                self.bodies[u](state, self._counter)
+        finally:
+            launches.close()
+        return graph, launches
+
+    def run(self, state, prepared: PreparedStream, stats: dict):
+        bound = plan_mod.state_leaves(state)
+        if self._bound is None or len(bound) != len(self._bound) or any(
+                x is not y for x, y in zip(bound, self._bound)):
+            self.release()
+            self._bound = bound
+            self._graphs = [None] * len(self.bodies)
+            self.xs = pytree.tree_map(torch.empty_like, prepared.xs)
+            self._counter = torch.zeros((1,), dtype=torch.long,
+                                        device=bound[0].device)
+            self._pool = torch.cuda.graph_pool_handle()
+        else:
+            self._counter.zero_()
+        pytree.tree_map(lambda dst, src: dst.copy_(src), self.xs, prepared.xs)
+        eager = replays = 0
+        capture_s = replay_s = 0.0
+        for u in self.steps(prepared):
+            entry = self._graphs[u]
+            if entry is None:
+                self.bodies[u](state, self._counter)
+                eager += 1
+                t0 = time.perf_counter()
+                self._graphs[u] = self._capture(u, state)
+                capture_s += time.perf_counter() - t0
+                continue
+            t0 = time.perf_counter()
+            entry[0].replay()
+            entry[1].replayed()
+            replay_s += time.perf_counter() - t0
+            replays += 1
+        self.tail(state, prepared.tail)
+        stats.update(eager_steps=eager, replays=replays,
+                     graphs=sum(g is not None for g in self._graphs),
+                     capture_s=capture_s, replay_host_s=replay_s)
+        return state
+
+
+class StreamExecutor:
+    """Runs prepared update streams against one engine.
+
+    Programs are cached per :attr:`PreparedStream.signature`; on the card a
+    program keeps the CUDA graphs of its last run (see the module
+    docstring), which :meth:`release` drops.  :attr:`last_run_stats` holds
+    the last run's steps, eager steps, graph replays, graphs, and host
+    seconds of capture and replay."""
+
+    def __init__(self, engine: IVMEngine, shard=None, checkpoint=None,
+                 integrity=None, stragglers=None, registry=None):
+        for arg, value, what, item in (
+                ("shard", shard, "sharded execution", 14),
+                ("checkpoint", checkpoint, "durable streams", 15),
+                ("integrity", integrity, "stream integrity", 16),
+                ("stragglers", stragglers, "straggler monitoring", 15),
+                ("registry", registry, "the serving plane", 17)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"StreamExecutor({arg}=...): {what} is not ported yet "
+                    f"(ROADMAP Queue 1 item {item})")
+        self.engine = engine
+        self._compiled: dict[Any, _Program] = {}
+        #: shared prep-op keys of the last rounds build (CSE telemetry)
+        self.last_shared_ops: tuple = ()
+        self.last_run_stats: dict = {}
+
+    def _build(self, prepared: PreparedStream) -> _Program:
+        if self.engine.device.type == "cuda":
+            return _GraphProgram(self, prepared)
+        return _Program(self, prepared)
+
+    def compiled(self, prepared: PreparedStream) -> _Program:
+        entry = self._compiled.get(prepared.signature)
+        if entry is None:
+            entry = self._compiled[prepared.signature] = self._build(prepared)
+        return entry
+
+    def release(self) -> None:
+        """Drop every cached program, and with them their CUDA graphs and
+        graph memory."""
+        self._compiled.clear()
+
+    def run(self, stream_or_prepared, state=None, update_engine: bool = True,
+            donate_input: bool = False, pipeline: bool = True):
+        """Apply the whole stream; returns the new ``(views, base)`` state.
+
+        Unless ``donate_input=True`` the input state is copied first and
+        the copy is updated in place.  A raw stream run against the
+        engine's own state (``state=None``) is split into capacity segments
+        first (one segment with dense views); an explicit-state raw run is
+        audited against the caller's state.  With ``update_engine=False``
+        the engine's views and base are restored afterwards, also when the
+        run raises.  ``pipeline`` does nothing: it is kept only to match
+        the reference's signature, and belongs to the segmented path, which
+        is not ported."""
+        if state is None and donate_input and not update_engine:
+            raise ValueError("donating the engine's own state without "
+                             "updating the engine would leave it holding "
+                             "the stream's result")
+        saved = None if update_engine else (dict(self.engine.views),
+                                            dict(self.engine.base))
+        try:
+            prepared = stream_or_prepared
+            if not isinstance(prepared, PreparedStream):
+                stream = list(prepared)
+                if state is None:
+                    segments = capacity_segments(self.engine, stream)
+                    if len(segments) > 1 or segments[0][1]:
+                        return self._run_segmented(segments, pipeline)
+                else:
+                    check_stream_capacity(self.engine, stream, views=state[0])
+                prepared = prepare_stream(self.engine, stream,
+                                          check_capacity=False)
+            if state is None:
+                state = self.engine.state
+            if not donate_input:
+                state = _owned_state(state)
+            stats = dict(mode=prepared.mode, steps=prepared.n_steps,
+                         tail=prepared.tail_len)
+            new_state = self.compiled(prepared).run(state, prepared, stats)
+            self.last_run_stats = stats
+            if update_engine:
+                self.engine.set_state(new_state)
+            return new_state
+        finally:
+            if saved is not None:
+                self.engine.set_state(saved)
+
+    def _run_segmented(self, segments, pipeline: bool = True):
+        """The pipelined capacity-segment loop: only sparse views (Queue 1
+        item 11), checkpoints (15), integrity (16) and the serving registry
+        (17) reach it."""
+        raise NotImplementedError(
+            "pipelined capacity segments are not ported yet (ROADMAP Queue 1 "
+            "items 11, 14-17)")
+
+    def resume(self, stream, checkpoint=None, pipeline: bool = True):
+        """Replay-from-offset recovery from a stream checkpoint."""
+        raise NotImplementedError("stream checkpoints and resume are not "
+                                  "ported yet (ROADMAP Queue 1 item 15)")

@@ -31,6 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: ctypes argument kinds of the C entries
 PTR, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
+#: every :class:`CudaKernel`, in the order the modules made them
+KERNELS: list = []
+
 
 def find_nvcc() -> str:
     """Path of the CUDA compiler: ``nvcc`` on PATH, else under CUDA_HOME
@@ -55,6 +58,7 @@ class CudaKernel:
         self._fn = None
         self._errstr = None
         self._lib = None
+        KERNELS.append(self)
 
     @property
     def name(self) -> str:
@@ -131,6 +135,29 @@ def build_all(kernels) -> float:
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return time.perf_counter() - t0
+
+
+class CapturedLaunches:
+    """The kernel launches one CUDA graph holds.  Made just before the
+    graph's capture and closed just after it: the wrappers' calls during
+    the capture record their kernels into the graph and launch nothing, so
+    :meth:`close` takes them back out of each kernel's ``launches``, and
+    :meth:`replayed` adds them once for every replay of the graph.  The
+    counts then see every launch the device runs, replays included."""
+
+    def __init__(self):
+        self._before = {k: k.launches for k in KERNELS}
+        self.counts: dict = {}
+
+    def close(self) -> None:
+        self.counts = {k: k.launches - n for k, n in self._before.items()
+                       if k.launches != n}
+        for k, n in self.counts.items():
+            k.launches -= n
+
+    def replayed(self) -> None:
+        for k, n in self.counts.items():
+            k.launches += n
 
 
 def stream_handle(t) -> int:

@@ -15,7 +15,7 @@ import _torch_parity  # noqa: E402
 
 _torch_parity.cap_torch_threads()
 
-from repro_torch.core import IVMEngine, Query, sum_ring  # noqa: E402
+from repro_torch.core import COOUpdate, IVMEngine, Query, sum_ring  # noqa: E402
 from repro_torch.core import plan as tplan  # noqa: E402
 from repro_torch.core.apps import regression  # noqa: E402
 from repro_torch.data import synth  # noqa: E402
@@ -854,3 +854,233 @@ def test_cuda_lm_prefill_and_decode_match_cpu(cuda_device, arch):
     for a, b in zip(*outs):
         scale = float(a.abs().max())
         assert float((b.cpu() - a).abs().max()) <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: the stream path's kernels captured and replayed, and the
+# stream executor (core/stream.py) against the eager engine
+# ---------------------------------------------------------------------------
+def _graph_case(kernel, rng, dev):
+    """(call, state): ``call(state)`` runs the kernel's wrapper once at a
+    main-path shape on integer data, in place into ``state`` (the view) or
+    into a new output it returns."""
+    B = 1000
+
+    def t(a):
+        return torch.tensor(a, device=dev)
+
+    if kernel == "segment_ring_sum":
+        S, d = 1000, 111
+        ids, vals = t(_ids(rng, S, B)), t(_ints(rng, (B, d)))
+        return (lambda _: tsegsum.segment_ring_sum(vals, ids, S)), None
+    if kernel in ("scatter_add", "scatter_dedup"):
+        view, ids, vals = _cuda_case(rng, 4096, B, 111, dev)
+        dedup = kernel == "scatter_dedup"
+        return (lambda v: ring_scatter.scatter_add(v, ids, vals, dedup=dedup)), view
+    if kernel == "gather_mul_scatter":
+        view, out_ids, _ = _cuda_case(rng, 96, B, 1, dev)
+        src = t(_ints(rng, (9216, 1)))
+        in_ids = t(rng.integers(0, 9216, size=B).astype(np.int32))
+        scale = t(_ints(rng, (B,), -2, 3))
+        return (lambda v: ring_scatter.gather_mul_scatter(v, out_ids, src, in_ids,
+                                                          scale)), view
+    spec, d = ("degree", 10), 111
+    view, out_ids, vals = _cuda_case(rng, 96, B, d, dev)
+    vals = t(_ints(rng, (B, d), -1, 2))
+    sources = [(t(_ints(rng, (rows, d), -1, 2)),
+                t(rng.integers(0, rows, size=B).astype(np.int32))) for rows in (9216, 96)]
+    return (lambda v: ring_fused.fused_apply(v, out_ids, vals, sources, spec)), view
+
+
+@pytest.mark.parametrize("kernel", ["scatter_add", "scatter_dedup", "segment_ring_sum",
+                                    "gather_mul_scatter", "fused_chain"])
+def test_cuda_stream_kernels_replay_in_a_graph(cuda_device, kernel):
+    """Each kernel of the stream path, its wrapper captured in a CUDA graph,
+    runs at replay (not at capture) and equals its eager call; its launch
+    count sees each replay once (``_cuda.CapturedLaunches``)."""
+    from repro_torch.kernels import _cuda
+
+    call, view = _graph_case(kernel, np.random.default_rng(len(kernel)), cuda_device)
+    wrapper = next(k for k in _cuda.KERNELS if k.name == kernel)
+    eager = call(None if view is None else view.clone())  # also loads the library
+    twice = None if view is None else call(call(view.clone()))
+    work = None if view is None else view.clone()
+    graph = torch.cuda.CUDAGraph()
+    launches = _cuda.CapturedLaunches()
+    with torch.cuda.graph(graph):
+        out = call(work)
+    launches.close()
+    assert launches.counts == {wrapper: 1}
+    if view is not None:
+        assert torch.equal(work, view)  # the capture ran nothing
+    n = wrapper.launches
+    graph.replay()
+    launches.replayed()
+    assert torch.equal(out, eager)
+    graph.replay()
+    launches.replayed()
+    assert torch.equal(out, eager if view is None else twice)
+    assert wrapper.launches == n + 2
+
+
+_GRAPH_SCHEDULES = {
+    "scan": ["Inventory"] * 4,
+    "rounds": list(synth.RETAILER_RELATIONS) * 3,
+    "rounds_tail": list(synth.RETAILER_RELATIONS) * 3 + ["Inventory", "Item"],
+    "switch": ["Inventory", "Item", "Weather", "Item", "Census", "Location",
+               "Inventory", "Inventory", "Census"],
+}
+
+
+def _retailer_stream(ring, schedule, batch, rng, dev):
+    out = []
+    for rel in schedule:
+        sch = synth.RETAILER_RELATIONS[rel]
+        keys = np.stack([rng.integers(0, synth.RETAILER_DOMS[v], size=batch)
+                         for v in sch], axis=1).astype(np.int32)
+        vals = rng.choice([-1.0, 1.0], size=batch).astype(np.float32)
+        payload = ({"v": torch.tensor(vals, device=dev)} if set(ring.components) == {"v"}
+                   else {**ring.zeros((batch,), device=dev),
+                         "c": torch.tensor(vals, device=dev)})
+        out.append((rel, COOUpdate(sch, torch.tensor(keys, device=dev), payload)))
+    return out
+
+
+def _counts():
+    from repro_torch.kernels import _cuda
+
+    return {k.name: k.launches for k in _cuda.KERNELS}
+
+
+def _since(before):
+    return {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+
+
+@pytest.mark.parametrize("fusion", ["off", "on"])
+@pytest.mark.parametrize("mode", list(_GRAPH_SCHEDULES))
+def test_cuda_executor_matches_eager_engine(cuda_device, mode, fusion):
+    """The executor on the card (each step body a CUDA graph) ≡ the eager
+    engine, bitwise on integer data: a capture run (warm-up step, capture,
+    replays), then a replay-only run on the same state under
+    ``set_sync_debug_mode("error")`` that keeps every state leaf at its
+    address.  Launch counts, replays included, equal the eager engine's."""
+    from repro_torch.core import StreamExecutor, prepare_stream
+
+    rng = np.random.default_rng(3)
+    q = Query(relations=synth.RETAILER_RELATIONS, free_vars=(), ring=sum_ring(),
+              domains=synth.RETAILER_DOMS, lifts={"units": ("value",)})
+    # sparse enough that every view stays below 2**24: float32 sums are then
+    # exact whatever order the atomics add in
+    db = synth.synth_db(synth.RETAILER_RELATIONS, synth.RETAILER_DOMS, q.ring, rng,
+                        density=0.05, device=cuda_device)
+    stream = _retailer_stream(q.ring, _GRAPH_SCHEDULES[mode], 64, rng, cuda_device)
+    with tplan.use_fusion(fusion):
+        eager, graphed = (IVMEngine.build(q, db, var_order=synth.retailer_vo(),
+                                          device=cuda_device) for _ in range(2))
+        prepared = prepare_stream(graphed, stream)
+        ex = StreamExecutor(graphed)
+        before = _counts()
+        for rel, upd in stream:
+            eager.apply_update(rel, upd)
+        want_launches = _since(before)
+        before = _counts()
+        ex.run(prepared)
+        assert _since(before) == want_launches
+        st = ex.last_run_stats
+        assert st["replays"] > 0 and st["replays"] + st["eager_steps"] == prepared.n_steps
+        ptrs = [t.data_ptr() for t in tplan.state_leaves(graphed.state)]
+        for name, v in eager.views.items():
+            assert torch.equal(graphed.views[name].payload["v"], v.payload["v"]), name
+        for rel, upd in stream:
+            eager.apply_update(rel, upd)
+        before = _counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ex.run(prepared, donate_input=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert _since(before) == want_launches
+        assert ex.last_run_stats["eager_steps"] == 0
+    assert [t.data_ptr() for t in tplan.state_leaves(graphed.state)] == ptrs
+    for name, v in eager.views.items():
+        assert float(v.payload["v"].abs().max()) < _torch_parity.EXACT_LIMIT, name
+        assert torch.equal(graphed.views[name].payload["v"], v.payload["v"]), name
+    ex.release()
+
+
+#: a second schedule of the first one's signature: in switch mode the same
+#: relations, first seen in the same order, in another aperiodic order
+_SECOND_GRAPH_SCHEDULES = {
+    **_GRAPH_SCHEDULES,
+    "switch": ["Inventory", "Item", "Weather", "Census", "Location", "Item",
+               "Inventory", "Census", "Inventory"],
+}
+
+
+@pytest.mark.parametrize("mode", list(_GRAPH_SCHEDULES))
+def test_cuda_executor_runs_two_streams_of_one_signature(cuda_device, mode):
+    """A second stream of the first one's signature (in switch mode, in
+    another order) through the same executor replays the first one's
+    graphs on its own inputs, under ``set_sync_debug_mode("error")``; a
+    raw stream on a copied state then captures anew.  ≡ the eager engine
+    bitwise on integer data."""
+    from repro_torch.core import StreamExecutor, prepare_stream
+
+    rng = np.random.default_rng(5)
+    q = Query(relations=synth.RETAILER_RELATIONS, free_vars=(), ring=sum_ring(),
+              domains=synth.RETAILER_DOMS, lifts={"units": ("value",)})
+    db = synth.synth_db(synth.RETAILER_RELATIONS, synth.RETAILER_DOMS, q.ring, rng,
+                        density=0.05, device=cuda_device)
+    first = _retailer_stream(q.ring, _GRAPH_SCHEDULES[mode], 64, rng, cuda_device)
+    second = _retailer_stream(q.ring, _SECOND_GRAPH_SCHEDULES[mode], 64, rng,
+                              cuda_device)
+    eager, graphed = (IVMEngine.build(q, db, var_order=synth.retailer_vo(),
+                                      device=cuda_device) for _ in range(2))
+    p1, p2 = prepare_stream(graphed, first), prepare_stream(graphed, second)
+    assert p1.signature == p2.signature
+    ex = StreamExecutor(graphed)
+    ex.run(p1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ex.run(p2, donate_input=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    st = ex.last_run_stats
+    assert st["eager_steps"] == 0 and st["replays"] == p2.n_steps
+    ex.run(first)
+    assert ex.last_run_stats["eager_steps"] > 0 and len(ex._compiled) == 1
+    for rel, upd in first + second + first:
+        eager.apply_update(rel, upd)
+    for name, v in eager.views.items():
+        assert float(v.payload["v"].abs().max()) < _torch_parity.EXACT_LIMIT, name
+        assert torch.equal(graphed.views[name].payload["v"], v.payload["v"]), name
+    ex.release()
+
+
+@pytest.mark.parametrize("fusion", ["off", "on"])
+@pytest.mark.parametrize("ring", ["sum", "cofactor"])
+def test_cuda_eager_trigger_path_does_not_synchronise(cuda_device, ring, fusion):
+    """After one warm-up round (lift relations, kernel libraries, cuBLAS),
+    a round of eager triggers makes no synchronising call."""
+    rng = np.random.default_rng(4)
+    q = (Query(relations=synth.RETAILER_RELATIONS, free_vars=(), ring=sum_ring(),
+               domains=synth.RETAILER_DOMS, lifts={"units": ("value",)})
+         if ring == "sum" else
+         regression.cofactor_query(synth.RETAILER_RELATIONS, synth.RETAILER_DOMS))
+    db = synth.synth_db(synth.RETAILER_RELATIONS, synth.RETAILER_DOMS, q.ring, rng,
+                        device=cuda_device)
+    stream = _retailer_stream(q.ring, list(synth.RETAILER_RELATIONS) * 2, 64, rng,
+                              cuda_device)
+    with tplan.use_fusion(fusion):
+        eng = IVMEngine.build(q, db, var_order=synth.retailer_vo(), device=cuda_device)
+        for rel, upd in stream[:5]:
+            eng.apply_update(rel, upd)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for rel, upd in stream[5:]:
+                eng.apply_update(rel, upd)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
