@@ -8,7 +8,7 @@ Run from the repository root with one card visible:
 Phases (any failed check raises, and the script exits non-zero):
 
 1. Device: the card's name and power limit from nvidia-smi, then a build of
-   all twelve CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   all fourteen CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together).
 2. Kernels: each kernel against its plain PyTorch version on integer-valued
    float32 at the shapes the main path gives it (bitwise; ``cofactor_update``
@@ -36,8 +36,14 @@ Phases (any failed check raises, and the script exits non-zero):
    PyTorch yardstick (``library_ms``, never used by the port) and its
    bound (float32 flash rows also ``tc_bound_ms``, as three TF32 products
    on the tensor cores; rows at D <= 32 also ``exp_bound_ms``, the
-   exponentials at the MUFU rate).
-3. Paths, each through ``IVMEngine.apply_update`` (fivm, dense) at
+   exponentials at the MUFU rate).  The hash kernels of sparse view storage,
+   ``hash_probe`` and ``hash_insert``, bitwise against the reference's
+   loops written in torch (their plain versions) at S3's table (8,192
+   slots, 3,072 keys, 1,000 ids), at a table that fills up and at a rehash
+   into 2^17 slots; bound: ids and chain words at the measured mean chain
+   length, results written.
+3. Paths, each through ``IVMEngine.apply_update`` (fivm, ``auto`` storage,
+   which keeps every retailer view dense; checked) at
    ``RETAILER_DOMS_BIG`` with batches of 1000 tuples, checked against a
    float64 re-evaluation, with every kernel's launch count reset before
    and read after it:
@@ -55,6 +61,23 @@ Phases (any failed check raises, and the script exits non-zero):
      with capture seconds, host µs a replay, launches a batch (replays
      included), device busy against wall and peak bytes, held to the
      oracle after the stream three times.
+   Then sparse view storage, the housing star at ``HOUSING_DOMS_BIG``
+   (pc = 65,536) with ``auto`` storage (``HOUSING_LEGS``), each leg eager
+   (growth included), profiled, and through the stream executor, against
+   the float64 oracle, with view bytes sparse and dense, peak bytes,
+   tuples/s and launches a batch:
+   - S1, the reference's scenario: the sum ring, 512 active postcodes,
+     10 batches of 64, fusion off and ``auto``; the plan must be the
+     reference's (six tables of 2,048 slots, ``V7@pc`` dense) and every
+     view bitwise equal to a dense-storage engine's;
+   - S2, growth: 20 batches of 1000 from 4,096 postcodes; the eager tables
+     grow through ``grow_if_loaded``, the executor's through capacity
+     segments with a rehash between them, capacities reported before and
+     after, views bitwise equal;
+   - S3, full width: the degree-8 cofactor ring (d = 73), 3,072 active
+     postcodes, 20 batches of 1000; the executor captures, then replays a
+     second stream of the signature with 0 eager steps under
+     ``set_sync_debug_mode("error")``.
 4. The kernel-ops layer's paths, counts reset before and read after each:
    - B, the ring product on engine state: ``ops.ring_mul`` of the largest
      view (1,179,648 keys, degree 10) of the two cofactor engines above,
@@ -1025,10 +1048,11 @@ def fused_chain_rows(rng, out: list) -> None:
 # ---------------------------------------------------------------------------
 def compare_views(label: str, eng, store) -> dict:
     import torch
+    from repro_torch.core.storage import as_dense
 
     worst = {"bitwise_views": 0, "tolerance_views": 0, "max_rel_err": 0.0}
     for name in sorted(eng.materialized_names):
-        got_rel = eng.views[name]
+        got_rel = as_dense(eng.views[name])
         want_rel = store[name].transpose(got_rel.schema)
         for comp in got_rel.ring.components:
             got = got_rel.payload[comp].double()
@@ -1099,10 +1123,13 @@ def _stream_phase(label, query, query64, db, doms, rng, kernels, expected,
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = IVMEngine.build(query, db, var_order=retailer_vo(), strategy="fivm",
-                          storage="dense", device=device)
+                          device=device)
     eng.precompile(batch)
     sync()
     build_s = time.perf_counter() - t0
+    if any(s.kind != "dense" for s in eng.storage_plan.values()):
+        raise AssertionError(f"{label}: auto storage made a retailer view sparse: "
+                             f"{eng.storage_plan}")
     stream = update_stream(RETAILER_RELATIONS, doms, query.ring, rng, batch,
                            n_batches, device=device)
     sync()
@@ -1205,7 +1232,7 @@ def executor_leg(label, query, query64, db, doms, stream, kernels, expected,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     eng = IVMEngine.build(query, db, var_order=retailer_vo(), strategy="fivm",
-                          storage="dense", device=device)
+                          device=device)
     eng.precompile(batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1293,7 +1320,7 @@ def profile_stream(query, db, stream, batch, device, counts=False) -> dict:
     from repro_torch.data.synth import retailer_vo
 
     eng = IVMEngine.build(query, db, var_order=retailer_vo(), strategy="fivm",
-                          storage="dense", device=device)
+                          device=device)
     eng.precompile(batch)
     updates = iter(stream)
 
@@ -1720,6 +1747,371 @@ def lm_serve_path(kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Sparse view storage: the hash kernels and the housing legs
+# ---------------------------------------------------------------------------
+#: the housing legs: (label, ring, active postcodes, pool of postcodes,
+#: batch, batches, fusion modes).  S1 is the reference's own sparse
+#: scenario (bench_stream.py's housing leg); S2 draws from 4,096 postcodes,
+#: so the tables must grow; S3 is the degree-8 cofactor ring at full width
+#: (d = 73), 3,072 active postcodes (fill 4.7 %).
+HOUSING_LEGS = (("S1_housing_sum", "sum", 512, 512, 64, 10, ("off", "auto")),
+                ("S2_housing_sum_growth", "sum", 512, 4096, BATCH, N_BATCHES, ("auto",)),
+                ("S3_housing_cofactor", "cofactor", 3072, 3072, BATCH, N_BATCHES, ("auto",)))
+#: the hash kernels' shapes: a table of S3's planned capacity holding its
+#: active keys, and a batch of distinct ids (S3's batches, in rank order)
+HASH_C, HASH_KEYS, HASH_B = 8192, 3072, BATCH
+
+
+def chain_lengths(slot, ids, C: int) -> float:
+    """Mean table words a probe of ``ids`` read to reach ``slot`` (its
+    distance from the id's hash slot, plus one)."""
+    from repro_torch.kernels import hash_table
+
+    valid = ids >= 0
+    dist = (slot - hash_table.hash_ids(ids.clamp(min=0), C)) & (C - 1)
+    return float((dist[valid].double() + 1).mean()) if bool(valid.any()) else 0.0
+
+
+def hash_rows(rng, rows: dict) -> None:
+    """``hash_probe`` and ``hash_insert`` against their plain versions (the
+    reference's loops in torch, run on the same card tensors), bitwise, at
+    the S3 shape: a table of 8,192 slots holding 3,072 keys, 1,000 distinct
+    ids (half of them present), then at a full table (rows that never
+    place) and a rehash into 2^17 slots.  Timed with CUDA events and the
+    profiler; bound: the ids and the chain words read at the measured mean
+    chain length, the results written (and the table words an insert
+    writes: its new ids, not its hits), at the card's memory rate."""
+    import torch
+    from repro_torch.kernels import hash_table
+
+    def case(C, n_keys, B, present):
+        keys = rng.choice(1 << 22, size=n_keys + B, replace=False).astype(np.int32)
+        table = torch.full((C,), -1, dtype=torch.int32, device="cuda")
+        hash_table.insert_ref(table, ids_tensor(keys[:n_keys]))
+        ids = np.concatenate([rng.choice(keys[:n_keys], size=present, replace=False),
+                              keys[n_keys:n_keys + B - present]]) if n_keys else keys[:B]
+        return table, ids_tensor(rng.permutation(ids))
+
+    for C, n_keys, B, present in ((HASH_C, HASH_KEYS, HASH_B, HASH_B // 2),
+                                  (64, 40, 40, 10), (1 << 17, 0, 1 << 16, 0)):
+        table, ids = case(C, n_keys, B, present)
+        shape = dict(C=C, keys=n_keys, B=B)
+        # insert: the kernel and its plain version on copies of one table
+        want_t = table.clone()
+        want = hash_table.insert_ref(want_t, ids)
+        got_t = table.clone()
+        got = hash_table.hash_insert(got_t, ids)
+        torch.cuda.synchronize()
+        for name, g, w in (("table", got_t, want_t), ("slot", got[0], want[0]),
+                           ("placed", got[1], want[1])):
+            if not torch.equal(g, w):
+                raise AssertionError(f"hash_insert {shape}: {name} differs from "
+                                     f"the plain version")
+        n_placed = int(want[1].sum())
+        # the table words the insert writes: placed rows whose id was not
+        # there yet (a hit resolves without a write)
+        n_written = int((want_t != table).sum())
+        ins_len = chain_lengths(want[0].masked_fill(~want[1], 0),
+                                ids.masked_fill(~want[1], -1), C)
+        # probe: the filled table, the batch and as many absent ids
+        queries = torch.cat([ids, ids_tensor(rng.integers(0, 1 << 22, size=B))])
+        pw = hash_table.probe_ref(want_t, queries)
+        pg = hash_table.hash_probe(want_t, queries)
+        for name, g, w in (("slot", pg[0], pw[0]), ("found", pg[1], pw[1])):
+            if not torch.equal(g, w):
+                raise AssertionError(f"hash_probe {shape}: {name} differs from "
+                                     f"the plain version")
+        probe_len = chain_lengths(pw[0], queries, C)
+        nq = queries.shape[0]
+        work = table.clone()
+
+        def insert():  # on a fresh copy of the table each call
+            work.copy_(table)
+            return hash_table.hash_insert(work, ids)
+
+        def insert_plain():
+            work.copy_(table)
+            return hash_table.insert_ref(work, ids)
+
+        bms, by = bound_ms(B * 4 + B * ins_len * 4 + B * 5 + n_written * 4, 0)
+        row = dict(shape=shape, max_abs_err=0.0, placed=n_placed, written=n_written,
+                   mean_chain=ins_len, kernel_ms=time_ms(insert),
+                   device_ms=kernel_device_ms(insert, "hash_insert_kernel"),
+                   plain_ms=time_ms(insert_plain, reps=5, warmup=1),
+                   library_ms=None, bound_ms=bms, bound_by=by,
+                   note="ms and plain_ms include a copy of the table a call")
+        rows["hash_insert"].append(row)
+        log({"kernel": "hash_insert", **row})
+        bms, by = bound_ms(nq * 4 + nq * probe_len * 4 + nq * 5, 0)
+        row = dict(shape=dict(shape, B=nq), max_abs_err=0.0, mean_chain=probe_len,
+                   found=int(pw[1].sum()),
+                   kernel_ms=time_ms(lambda: hash_table.hash_probe(want_t, queries)),
+                   device_ms=kernel_device_ms(lambda: hash_table.hash_probe(want_t, queries),
+                                              "hash_probe_kernel"),
+                   plain_ms=time_ms(lambda: hash_table.probe_ref(want_t, queries),
+                                    reps=5, warmup=1),
+                   library_ms=None, bound_ms=bms, bound_by=by)
+        rows["hash_probe"].append(row)
+        log({"kernel": "hash_probe", **row})
+        del work
+
+
+def housing_query(ring: str, doms, dtype=None):
+    import torch
+    from repro_torch.core import Query, sum_ring
+    from repro_torch.core.apps import regression
+    from repro_torch.data.synth import HOUSING_RELATIONS
+
+    dtype = dtype or torch.float32
+    if ring == "sum":
+        return Query(relations=HOUSING_RELATIONS, free_vars=(), ring=sum_ring(dtype),
+                     domains=doms, lifts={"h2": ("value",)})
+    return regression.cofactor_query(HOUSING_RELATIONS, doms, dtype=dtype)
+
+
+def dense_bytes(eng) -> int:
+    """The bytes the engine's views would hold stored densely."""
+    import torch
+    from repro_torch.core.storage import payload_width
+
+    return sum(math.prod(v.domains) * payload_width(v.ring)
+               * torch.empty((), dtype=v.ring.dtype).element_size()
+               for v in eng.views.values())
+
+
+def capacities(eng) -> dict:
+    from repro_torch.core.storage import SparseRelation
+
+    return {n: v.capacity for n, v in sorted(eng.views.items())
+            if isinstance(v, SparseRelation)}
+
+
+def housing_phase(kernels, laps) -> list:
+    """The housing star at ``HOUSING_DOMS_BIG`` (pc = 65,536) with ``auto``
+    storage, legs S1-S3 (``HOUSING_LEGS``), each with its kernels' launch
+    counts reset before and read after each run."""
+    import torch
+    from repro_torch.core import plan
+    from repro_torch.data.synth import HOUSING_DOMS_BIG, HOUSING_RELATIONS, synth_low_fill_db
+
+    out = []
+    for label, ring, n_active, pool_n, batch, n_batches, fusions in HOUSING_LEGS:
+        q, q64 = housing_query(ring, HOUSING_DOMS_BIG), housing_query(
+            ring, HOUSING_DOMS_BIG, torch.float64)
+        db, active = synth_low_fill_db(HOUSING_RELATIONS, HOUSING_DOMS_BIG, q.ring,
+                                       np.random.default_rng(SEED), "pc", n_active,
+                                       device="cuda")
+        inactive = np.setdiff1d(np.arange(HOUSING_DOMS_BIG["pc"]), active)
+        pool = np.sort(np.concatenate([
+            active, np.random.default_rng(SEED + 2).choice(
+                inactive, size=pool_n - n_active, replace=False)]))
+        for fusion in fusions:
+            with plan.use_fusion(fusion):
+                leg = housing_leg(f"{label}_fusion_{fusion}", label[:2], q, q64, db,
+                                  pool, n_active, batch, n_batches, kernels)
+            log(leg)
+            out.append(leg)
+            laps.lap(f"housing {label} fusion {fusion}")
+        del db
+        torch.cuda.empty_cache()
+    return out
+
+
+def housing_stream(q, pool, batch, n_batches, seed):
+    from repro_torch.data.synth import HOUSING_DOMS_BIG, HOUSING_RELATIONS, update_stream
+
+    return update_stream(HOUSING_RELATIONS, HOUSING_DOMS_BIG, q.ring,
+                         np.random.default_rng(seed), batch, n_batches,
+                         key_pools={"pc": pool}, device="cuda")
+
+
+def housing_leg(label, leg, q, q64, db, pool, n_active, batch, n_batches,
+                kernels) -> dict:
+    """One housing leg: the eager engine (``apply_update``, growth
+    included), its launches, its rate, its profile, then the stream
+    executor on a fresh engine, each held to the float64 oracle."""
+    import torch
+    from repro_torch.core import IVMEngine, plan
+    from repro_torch.core.storage import as_dense, next_pow2
+    from repro_torch.data.synth import housing_vo
+
+    stream = housing_stream(q, pool, batch, n_batches, SEED + 1)
+
+    def build(**kw):
+        eng = IVMEngine.build(q, db, var_order=housing_vo(), strategy="fivm",
+                              device="cuda", **kw)
+        eng.precompile(batch)
+        return eng
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    storage_plan = {n: [s.kind, s.capacity] for n, s in sorted(eng.storage_plan.items())}
+    n_sparse = sum(s.kind == "sparse" for s in eng.storage_plan.values())
+    caps_before = capacities(eng)
+    # the reference's plan: six tables of next_pow2(2 · active + 1) slots
+    # (2,048 at S1's 512 postcodes, 8,192 at S3's 3,072), the root dense
+    if (n_sparse != 6 or set(caps_before.values()) != {next_pow2(2 * n_active + 1)}
+            or eng.storage_plan["V7@pc"].kind != "dense"):
+        raise AssertionError(f"{label}: not the reference's plan: {storage_plan}")
+    sparse_bytes, dense_b = eng.memory_bytes(), dense_bytes(eng)
+    reset(kernels)
+    t0 = time.perf_counter()
+    for rel, upd in stream:
+        eng.apply_update(rel, upd)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    missing = [n for n in ("hash_probe", "hash_insert") if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"{label}: the sparse path never launched {missing}")
+    eager_caps = capacities(eng)
+    if leg == "S2" and not all(eager_caps[n] > caps_before[n] for n in caps_before):
+        raise AssertionError(f"{label}: the eager tables did not grow: "
+                             f"{caps_before} -> {eager_caps}")
+    oracle = oracle_store(eng, db, stream, q64, 1)
+    check = compare_views(label, eng, oracle)
+    if leg != "S3":  # integer data: every view bitwise, and equal to dense storage
+        dense = build(storage="dense")
+        for rel, upd in stream:
+            dense.apply_update(rel, upd)
+        for name, v in dense.views.items():
+            got = as_dense(eng.views[name])
+            for c, t in v.payload.items():
+                if not torch.equal(got.payload[c], t):
+                    raise AssertionError(f"{label} {name}.{c}: sparse storage "
+                                         f"differs from dense storage")
+        del dense
+    eager_views = {n: as_dense(v) for n, v in eng.views.items()}
+    del eng
+    torch.cuda.empty_cache()
+    # where the eager stream's time goes
+    prof_eng = build()
+    updates = iter(stream)
+    events, wall = device_events(lambda: prof_eng.apply_update(*next(updates)), len(stream))
+    profile = _busy(events, wall)
+    del prof_eng
+    torch.cuda.empty_cache()
+    executor = housing_executor(label, leg, build, stream, q, q64, db, pool, batch,
+                                n_batches, kernels, eager_views)
+    return dict(
+        stream=label, fusion=plan.fusion_mode("cuda"), batch=batch, n_batches=n_batches,
+        n_active=n_active, pool=int(len(pool)),
+        storage_plan=storage_plan, sparse_views=n_sparse,
+        view_bytes_sparse=sparse_bytes, view_bytes_dense=dense_b,
+        capacities_before=caps_before, capacities_after_eager=eager_caps,
+        build_s=build_s, run_s=run_s, tuples_per_s=batch * n_batches / run_s,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=launches,
+        launches_per_batch={k: n / n_batches for k, n in launches.items() if n},
+        oracle=check, profile=profile, executor=executor)
+
+
+def housing_executor(label, leg, build, stream, q, q64, db, pool, batch, n_batches,
+                     kernels, eager_views) -> dict:
+    """The leg's stream through the stream executor on a fresh engine.
+    S1 and S3: a capture run of the prepared stream, then a replay-only
+    run (``donate_input=True``) of a second stream of the same signature
+    under ``set_sync_debug_mode("error")``, then the oracle over both.
+    S2: the raw stream, split into capacity segments with a rehash between
+    them; its tables must grow, and its views equal the eager engine's."""
+    import torch
+    from repro_torch.core import StreamExecutor, prepare_stream
+    from repro_torch.core.storage import as_dense
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = build()
+    caps_before = capacities(eng)
+    ex = StreamExecutor(eng)
+    out = dict(capacities_before=caps_before)
+    if leg == "S2":
+        reset(kernels)
+        t0 = time.perf_counter()
+        ex.run(stream)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        segs = ex.last_segment_stats
+        caps = capacities(eng)
+        if len(segs) < 2 or not all(caps[n] > caps_before[n] for n in caps_before):
+            raise AssertionError(f"{label} executor: no growth: {len(segs)} segments, "
+                                 f"{caps_before} -> {caps}")
+        for name, v in eager_views.items():
+            got = as_dense(eng.views[name])
+            for c, t in v.payload.items():
+                if not torch.equal(got.payload[c], t):
+                    raise AssertionError(f"{label} executor {name}.{c}: differs "
+                                         f"from the eager engine")
+        launches = {k.name: k.launches for k in kernels}
+        out.update(segments=len(segs), capacities_after=caps, launches=launches,
+                   grown_at=[[s["segment"], s["grow"]] for s in segs if s["grow"]],
+                   replays=sum(s["run"].get("replays", 0) for s in segs),
+                   eager_steps=sum(s["run"].get("eager_steps", 0) for s in segs),
+                   admit_s=sum(s["admit_s"] for s in segs),
+                   run_s=wall, tuples_per_s=batch * n_batches / wall,
+                   launches_per_batch={k: n / n_batches for k, n in launches.items() if n},
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   oracle=compare_views(label + "_executor", eng,
+                                        oracle_store(eng, db, stream, q64, 1)))
+        ex.release()
+        del eng, ex
+        torch.cuda.empty_cache()
+        return out
+    second = housing_stream(q, pool, batch, n_batches, SEED + 3)
+    t0 = time.perf_counter()
+    prepared = prepare_stream(eng, stream)
+    prepare_s = time.perf_counter() - t0
+    prepared2 = prepare_stream(eng, second)
+    if prepared2.signature != prepared.signature:
+        raise AssertionError(f"{label}: the second stream's signature differs")
+    runs = {}
+    for run in ("capture", "replay"):
+        reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if run == "capture":
+            ex.run(prepared)
+        else:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                ex.run(prepared2, donate_input=True)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = dict(ex.last_run_stats)
+        launches = {k.name: k.launches for k in kernels}
+        if (not stats["replays"] or (run == "replay" and stats["eager_steps"])
+                or not launches["hash_insert"] or not launches["hash_probe"]):
+            raise AssertionError(f"{label} executor {run} run: stats {stats}, "
+                                 f"launches {launches}")
+        runs[run] = dict(run_s=wall, tuples_per_s=batch * n_batches / wall,
+                         launches=launches,
+                         launches_per_batch={k: n / n_batches
+                                             for k, n in launches.items() if n},
+                         **stats)
+    reset(kernels)
+    events, wall = device_events(lambda: ex.run(prepared, donate_input=True), 1)
+    profile = _busy(events, wall)
+    out.update(mode=prepared.mode, prepare_s=prepare_s, capture_run=runs["capture"],
+               replay_run=runs["replay"], profile=profile,
+               launches={k.name: runs["capture"]["launches"][k.name]
+                         + runs["replay"]["launches"][k.name] for k in kernels},
+               capacities_after=capacities(eng),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               max_memory_reserved=torch.cuda.max_memory_reserved(),
+               oracle=compare_views(label + "_executor", eng, oracle_store(
+                   eng, db, stream + second + stream, q64, 1)))
+    ex.release()
+    del eng, ex, prepared2, second
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1732,6 +2124,7 @@ def main() -> int:
     from repro_torch.data import synth
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.cofactor_update import COFACTOR_UPDATE
+    from repro_torch.kernels.hash_table import HASH_INSERT, HASH_PROBE
     from repro_torch.kernels.flash_attention import (FLASH_ATTENTION,
                                                      FLASH_ATTENTION_TF32,
                                                      FLASH_ATTENTION_WGMMA)
@@ -1755,7 +2148,8 @@ def main() -> int:
 
     kernels = [SCATTER_ADD, SEGMENT_RING_SUM, GATHER_MUL_SCATTER, SCATTER_DEDUP,
                FUSED_CHAIN, COFACTOR_UPDATE, RING_MUL, MATVEC, OUTER_ACCUMULATE,
-               FLASH_ATTENTION, FLASH_ATTENTION_WGMMA, FLASH_ATTENTION_TF32]
+               FLASH_ATTENTION, FLASH_ATTENTION_WGMMA, FLASH_ATTENTION_TF32,
+               HASH_PROBE, HASH_INSERT]
     laps = Laps()
     build_s = _cuda.build_all(kernels)
     log({"build_s": build_s, "libraries": [k.library_path().name for k in kernels]})
@@ -1769,6 +2163,9 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     laps.lap("build")
     rows = kernel_phase(rng, laps)
+    rows.update(hash_probe=[], hash_insert=[])
+    hash_rows(rng, rows)
+    laps.lap("kernels: hash_probe, hash_insert")
 
     doms = synth.RETAILER_DOMS_BIG
     rels = synth.RETAILER_RELATIONS
@@ -1814,9 +2211,11 @@ def main() -> int:
     del db
     torch.cuda.empty_cache()
 
+    laps.lap("streams")
+    # sparse view storage: the housing star at pc = 65,536, legs S1-S3
+    housing = housing_phase(kernels, laps)
     # the kernel-ops layer: the ring product on engine state (B), streaming
     # statistics (A) and rank-1 matrix-chain deltas (C)
-    laps.lap("streams")
     paths = [ring_product_path(kept, kernels)]
     del kept
     torch.cuda.empty_cache()
@@ -1828,7 +2227,10 @@ def main() -> int:
     paths.append(lm_serve_path(kernels))
     laps.lap("path D")
     # path D's float32 legs are the TF32 and mma flash kernels' paths
-    runs = [run["launches"] for run in streams + paths] + [
+    # the housing legs' executor runs (capture and replay-only, or the
+    # capacity segments) count beside their eager runs
+    runs = [run["launches"] for run in streams + housing + paths] + [
+        run["executor"]["launches"] for run in housing] + [
         run[key] for run in paths for key in ("launches_float32", "launches_float32_reduced")
         if key in run]
     launched = {k.name: sum(r[k.name] for r in runs) for k in kernels}
@@ -1874,6 +2276,12 @@ def main() -> int:
         "flash_attention_tf32": ("src/repro_torch/kernels/csrc/flash_attention_tf32.cu",
                                  "src/repro/kernels/flash_attention.py:69",
                                  dict(B=LM_B, H=32, Hkv=8, T=LM_T, D=64, dtype="float32")),
+        "hash_probe": ("src/repro_torch/kernels/csrc/hash_probe.cu",
+                       "src/repro/core/storage.py:210",
+                       dict(C=HASH_C, keys=HASH_KEYS, B=2 * HASH_B)),
+        "hash_insert": ("src/repro_torch/kernels/csrc/hash_insert.cu",
+                        "src/repro/core/storage.py:271",
+                        dict(C=HASH_C, keys=HASH_KEYS, B=HASH_B)),
     }
     summary = []
     for name, (source, replaces, shape) in sources.items():

@@ -7,8 +7,9 @@ from .plan import PlanCache, TriggerPlan, compile_trigger, execute_trigger
 from .query import Query
 from .relations import COOUpdate, DenseRelation
 from .rings import DegreeMRing, MulTerm, Ring, ScalarRing, count_ring, sum_ring
-from .storage import (StorageSpec, ViewStorage, apply_storage_plan, as_dense,
-                      make_base_relation, plan_storage, view_nbytes)
+from .storage import (SparseRelation, StorageSpec, ViewStorage,
+                      apply_storage_plan, as_dense, make_base_relation,
+                      plan_storage, view_nbytes)
 from .stream import (MAX_ROUNDS_PERIOD, PreparedStream, StreamCapacityError,
                      StreamExecutor, capacity_segments, check_stream_capacity,
                      prepare_stream, split_segments)
@@ -18,7 +19,7 @@ from .view_tree import ViewNode, build_view_tree, evaluate_view
 __all__ = [
     "BatchedDelta", "COOUpdate", "DegreeMRing", "DenseRelation", "IVMEngine",
     "MAX_ROUNDS_PERIOD", "MulTerm", "PlanCache", "PreparedStream", "Query",
-    "Ring", "ScalarRing", "StorageSpec", "StreamCapacityError",
+    "Ring", "ScalarRing", "SparseRelation", "StorageSpec", "StreamCapacityError",
     "StreamExecutor", "TriggerPlan", "VONode", "VariableOrder", "ViewNode",
     "ViewStorage", "apply_storage_plan", "as_dense", "build_view_tree",
     "capacity_segments", "chain", "check_stream_capacity",

@@ -163,8 +163,10 @@ class BatchedDelta:
     [Sg, d], in_ids [B])``: for bilinear commutative rings, ``join_dense``
     against a view fully bound by the delta's COO vars is a per-row
     gather-multiply, so it stays symbolic — the source plane is the view's
-    flattened ``[Sg, d]`` component plane — and fuses with the eventual
-    scatter in ``apply_to``.  Scalar rings take the gather-⊗-⊎ kernel;
+    flattened ``[Sg, d]`` component plane (a sparse view resolves its hash
+    slots at defer time and gathers from its plane with the zero row C that
+    missed probes index) — and fuses with the eventual scatter in
+    ``apply_to``.  Scalar rings take the gather-⊗-⊎ kernel;
     wider rings gather the plane once and run the ring's bilinear product
     row-wise before the scatter.  Non-commutative rings never defer, and
     any operation that needs the materialized payload forces it first
@@ -222,6 +224,11 @@ class BatchedDelta:
         from . import storage
 
         keys = torch.stack([self.key_col(v) for v in view.schema], dim=1)
+        if isinstance(view, storage.SparseRelation):
+            slots, found = view.lookup(keys)
+            if src_plane is None:
+                src_plane = view.gather_plane()  # [C + 1, d], zero row at C
+            return src_plane, torch.where(found, slots, view.capacity)
         if src_plane is None:
             src_plane = storage.flatten_payload(self.ring, view.payload,
                                                 view.domains)
@@ -296,13 +303,27 @@ class BatchedDelta:
         """δ ⊗ V: coo-shared vars of V are gathered at the delta's coords;
         dense-shared vars align elementwise; fresh vars of V become new
         dense axes.  ``src_plane`` (V's flattened plane, computed ahead)
-        serves a deferred gather."""
+        serves a deferred gather.  A sparse ``view`` resolves to a gather
+        (deferred where possible) and densifies only when the join would
+        grow dense axes from it."""
         ring = self.ring
         if self._defer_ok(view):
             return dataclasses.replace(
                 self, pending_gather=self._gather_plan(view, src_plane))
         if self.pending_gather is not None:
             return self._force().join_dense(view, src_plane)
+        from .storage import SparseRelation
+
+        if isinstance(view, SparseRelation):
+            if view.schema and all(v in self.coo_schema for v in view.schema):
+                # per-row gather-multiply (a second sibling after a forced
+                # pending gather, or a delta carrying dense axes)
+                keys = torch.stack([self.key_col(v) for v in view.schema],
+                                   dim=1)
+                payload = _mul_broadcast(ring, self.payload, view.gather(keys),
+                                         self.dense_schema)
+                return dataclasses.replace(self, payload=payload)
+            view = view.to_dense()  # the join grows dense axes: materialize
         shared_coo = [v for v in view.schema if v in self.coo_schema]
 
         # Gather view slices at coo coordinates -> leading batch axis.
@@ -371,6 +392,10 @@ class BatchedDelta:
         if set(view.schema) != set(self.coo_schema) | set(self.dense_schema):
             raise ValueError(f"delta over {self.coo_schema}+{self.dense_schema} "
                              f"does not match view {view.schema}")
+        from .storage import SparseRelation
+
+        if isinstance(view, SparseRelation):
+            return self._apply_sparse(view, backend)
         coo_axes = [view.schema.index(v) for v in self.coo_schema]
         dense_axes = [view.schema.index(v) for v in self.dense_schema]
         from ..kernels import scatter_ops
@@ -482,6 +507,46 @@ class BatchedDelta:
             new_payload[comp] = plane.reshape(pshape).permute(inv)
             off += w
         return DenseRelation(view.schema, ring, new_payload)
+
+    def _apply_sparse(self, view, backend: str | None):
+        """⊎ into a hashed-COO view: hash-slot resolution + the same flat
+        kernel scatters, in place.  A mixed COO×dense delta enumerates its
+        dense grid into COO rows first (built on the device from ``arange``:
+        no host data)."""
+        ring = self.ring
+        if not view.schema:
+            raise ValueError("scalar-keyed views are always dense")
+        if not self.dense_schema:
+            keys = torch.stack([self.key_col(v) for v in view.schema], dim=1)
+            if self.pending_gather is not None and self._is_scalar_ring():
+                # fused: insert slots, then one gather-⊗-⊎ over the plane
+                src_plane, in_ids = self.pending_gather
+                comp = next(iter(ring.components))
+                return view.gather_mul_scatter(keys, src_plane, in_ids,
+                                               self.payload[comp],
+                                               backend=backend)
+            slf = self._force()  # non-scalar pending: gather, then scatter
+            return view.scatter_add(keys, slf.payload, backend=backend)
+        slf = self._force()
+        B = slf.batch
+        P = 1
+        for d in slf.dense_domains:
+            P *= int(d)
+        dev = slf.keys.device
+        grid = torch.stack(torch.meshgrid(
+            *[torch.arange(int(d), dtype=torch.int32, device=dev)
+              for d in slf.dense_domains], indexing="ij"), dim=-1).reshape(
+                  P, len(slf.dense_schema))
+        cols = []
+        for v in view.schema:
+            if v in slf.coo_schema:
+                cols.append(slf.key_col(v)[:, None].expand(B, P).reshape(-1))
+            else:
+                cols.append(grid[:, slf.dense_schema.index(v)].repeat(B))
+        keys = torch.stack(cols, dim=1)
+        payload = {c: slf.payload[c].reshape(B * P, *shp)
+                   for c, shp in ring.components.items()}
+        return view.scatter_add(keys, payload, backend=backend)
 
 
 def _mul_broadcast(ring: Ring, payload: Payload, g: Payload, dense_schema) -> Payload:

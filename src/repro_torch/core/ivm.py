@@ -17,7 +17,11 @@ is on for an engine on the card) COO plans of ``fivm``/``dbt`` run their
 Gather→Lift→⊎ chains as ``FusedChain`` ops, one kernel launch each;
 first-order and reevaluation plans stay unfused.  The engine owns its
 state: views and base relations are copied out of the caller's database at
-build and updated in place afterwards.
+build and updated in place afterwards.  View storage is planned per view at
+build (``storage``: ``auto`` by default, see
+``repro_torch.core.storage.plan_storage``): large low-fill views are kept as
+hashed-COO tables, which the eager path grows before a batch that could
+fill them.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ class IVMEngine:
     query: Query
     tree: ViewNode
     materialized_names: set[str]
-    views: dict[str, DenseRelation]
+    views: dict
     base: dict[str, DenseRelation]
     strategy: str
     updatable: tuple[str, ...]
@@ -67,10 +71,18 @@ class IVMEngine:
         use_indicators: bool = False,
         fuse_chains: bool = True,
         storage: str | None = None,
+        storage_overrides: Mapping[str, str] | None = None,
+        storage_opts: Mapping | None = None,
         device="cuda",
     ) -> "IVMEngine":
         """Build an engine on ``device`` (the database moves there if it
-        is elsewhere).  ``storage`` is None or ``"dense"`` in this slice.
+        is elsewhere).  ``storage`` selects the view-storage mode
+        (``"auto" | "dense" | "sparse"``; default: ``REPRO_TORCH_VIEW_STORAGE``,
+        else ``auto``, where the planner picks dense or sparse per view from
+        the domain product × fill model).  ``storage_overrides`` forces a
+        backend per view name; ``storage_opts`` are extra
+        :func:`repro_torch.core.storage.plan_storage` keywords (headroom,
+        thresholds, capacities).
 
         The caller's database is never written: every materialized view and
         stored base relation is the engine's own copy (views alias the
@@ -100,7 +112,10 @@ class IVMEngine:
         store: dict[str, DenseRelation] = {}
         evaluate_view(tree, database, query, store=store)
         views = {name: store[name].owned() for name in mat}
-        plan = storage_mod.plan_storage(views, mode=storage)
+        plan = storage_mod.plan_storage(
+            views, tree=tree, updatable=updatable, strategy=strategy,
+            mode=storage, overrides=storage_overrides,
+            **dict(storage_opts or {}))
         views = storage_mod.apply_storage_plan(views, plan)
         # base relations are stored only where maintenance reads them back:
         # 1-IVM and reevaluation recompute from base
@@ -120,14 +135,19 @@ class IVMEngine:
 
     # ---------------------------------------------------------------- result
     def result(self) -> DenseRelation:
-        """The root view, densely materialized."""
+        """The root view, densely materialized (a sparse root densifies)."""
         return storage_mod.as_dense(self.views[self.tree.name])
+
+    def result_storage(self):
+        """The root view under its planned storage backend."""
+        return self.views[self.tree.name]
 
     def num_materialized(self) -> int:
         return len(self.materialized_names)
 
     def memory_bytes(self) -> int:
-        """View-state bytes under the actual storage backends."""
+        """View-state bytes under the actual storage backends (a sparse view
+        counts its key table and payload plane, not the dense extent)."""
         return sum(storage_mod.view_nbytes(v) for v in self.views.values())
 
     # ----------------------------------------------------------------- plans
@@ -146,9 +166,40 @@ class IVMEngine:
 
     # ---------------------------------------------------------------- update
     def apply_update(self, rel: str, upd: COOUpdate) -> None:
-        """Eager (per-call) update of the engine's state."""
+        """Eager (per-call) update of the engine's state.  Sparse views in
+        the trigger's write set first rehash to 2× capacity (repeatedly)
+        when this batch could cross the load-factor bound: growth reads
+        each such view's occupancy on the host (one synchronise a touched
+        sparse view), so it lives only here — the trigger itself, and the
+        stream executor's graphs, keep capacities fixed."""
+        if rel not in self.updatable:
+            raise ValueError(f"{rel} not declared updatable")
+        if any(isinstance(v, storage_mod.SparseRelation)
+               for v in self.views.values()):
+            touched, _ = self.plans.write_sets(self, rel)
+            self.views = {
+                name: (storage_mod.grow_if_loaded(
+                           v, self._insert_budget(v, rel, upd))
+                       if name in touched else v)
+                for name, v in self.views.items()
+            }
         self.views, self.base = self.functional_update(
             self.views, self.base, rel, upd)
+
+    def _insert_budget(self, view, rel: str, upd: COOUpdate) -> int:
+        """Worst-case distinct keys one update can insert into ``view``:
+        B rows × the domain product of view variables the update does not
+        bind (a mixed COO×dense apply enumerates that grid);
+        ``grow_if_loaded`` clamps it to the view's domain product."""
+        if not isinstance(view, storage_mod.SparseRelation):
+            return 0
+        if not isinstance(upd, COOUpdate):
+            raise NotImplementedError(plan_mod._FACTORIZED_TODO)
+        extra = 1
+        for v in view.schema:
+            if v not in upd.schema:
+                extra *= int(self.query.domains[v])
+        return upd.batch * extra
 
     def trigger_body(self, rel: str, plan: plan_mod.TriggerPlan | None = None):
         """The maintenance trigger for updates to ``rel`` as the stream

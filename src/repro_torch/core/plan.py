@@ -24,8 +24,11 @@ trigger.  This module makes the trigger an explicit object:
 The symbolic state tracked during compilation mirrors ``BatchedDelta``
 (COO schema, dense schema, effective batch incl. collapse, pending deferred
 gather), so every runtime decision of the delta algebra is known at compile
-time.  Not in this slice: factorized updates, indicator sections, sparse
-storage and the plan verifier.
+time.  Each Gather / JoinContract / ScatterAccum carries the storage class
+of its view (``dense`` or ``sparse``, the hashed-COO tables of
+``repro_torch.core.storage``), and the plan cache keys plans by the storage
+layout (kinds and table capacities), so a rehash recompiles.  Not in this
+slice: factorized updates, indicator sections and the plan verifier.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ from .contraction import BatchedDelta
 from .materialize import views_on_path
 from .query import Query
 from .relations import COOUpdate, DenseRelation
-from .storage import (_SPARSE_TODO, flatten_payload, linear_ids,
+from .storage import (SparseRelation, as_dense, flatten_payload, linear_ids,
                       payload_width, unflatten_payload)
 from .view_tree import ViewNode, evaluate_view
 
@@ -84,7 +87,7 @@ class Gather(PlanOp):
 
     view: str
     vars: tuple
-    storage: str  # "dense"
+    storage: str  # "dense" | "sparse"
     forces: bool = False  # materializes a previously pending gather first
 
     def label(self):
@@ -100,10 +103,16 @@ class JoinContract(PlanOp):
     vars: tuple
     storage: str
     grows: tuple = ()  # fresh dense axes grown by this join
+    densifies: bool = False  # sparse sibling materializes to dense first
+    gathers: bool = False  # fully-bound per-row gather-multiply path
     forces: bool = False
 
     def label(self):
         tags = []
+        if self.densifies:
+            tags.append("densify")
+        if self.gathers:
+            tags.append("gather")
         if self.grows:
             tags.append(f"+[{','.join(self.grows)}]")
         if self.forces:
@@ -386,9 +395,48 @@ def should_densify(path: Sequence[ViewNode], upd_schema: Sequence[str],
     return cost_dense < cost_row
 
 
+def storage_hostility(tree: ViewNode, updatable) -> set[str]:
+    """Names of views whose delta interactions are not purely
+    gather/scatter shaped — the storage planner's sparse-hostile set.
+
+    Derived from the same symbolic path walk the trigger compiler uses: a
+    sibling joined while some of its variables are not COO-bound forces a
+    densify (or grows dense delta axes), and a view whose ⊎ arrives with
+    dense axes takes the mixed (grid-enumerating) apply.  Sparse storage
+    stays correct for these views, but the ``auto`` planner keeps them
+    dense.  (Indicator projections are not ported: no node carries one.)"""
+    hostile: set[str] = set()
+    for rel in updatable:
+        path = views_on_path(tree, rel)
+        child = path[0]
+        coo = set(child.schema)
+        dense: set[str] = set()
+        for node in path[1:]:
+            for sib in node.children:
+                if sib is child:
+                    continue
+                sch = set(sib.schema)
+                if not sch <= coo:
+                    hostile.add(sib.name)
+                    dense |= sch - coo
+            if dense:
+                hostile.add(f"W:{node.name}")
+            for v in node.marg_vars:
+                coo.discard(v)
+                dense.discard(v)
+            if dense:
+                hostile.add(node.name)
+            child = node
+    return hostile
+
+
 # ---------------------------------------------------------------------------
 # Compile-time helpers
 # ---------------------------------------------------------------------------
+def _storage_kind(view) -> str:
+    return "sparse" if isinstance(view, SparseRelation) else "dense"
+
+
 def _domain_extent(query: Query, vars_) -> int:
     e = 1
     for v in vars_:
@@ -425,48 +473,61 @@ class _SymDelta:
 
 def _scatter_op(query: Query, name: str, view, st: _SymDelta,
                 device) -> ScatterAccum:
-    """Annotate a ⊎ site with the kernel backend the dispatch layer will
-    resolve for its primary scatter."""
+    """Annotate a ⊎ site: storage class and the kernel backend the
+    dispatch layer will resolve for its primary scatter (a sparse view's
+    segments are its table slots)."""
+    kind = _storage_kind(view)
     d = payload_width(st.ring)
+    if kind == "sparse":
+        backend = _resolve_scatter_backend(view.capacity, st.b, d, device)
+        return ScatterAccum(name, kind, backend=backend, fused=st.pending,
+                            mixed=bool(st.dense))
     if st.coo and not st.dense:
         S = 1
         for v in view.schema:
             S *= int(view.domain_of(v))
         backend = _resolve_scatter_backend(S, st.b, d, device)
-        return ScatterAccum(name, "dense", backend=backend, fused=st.pending)
+        return ScatterAccum(name, kind, backend=backend, fused=st.pending)
     if st.coo:  # mixed COO×dense apply
         S = _domain_extent(query, st.coo)
         dd = d * _domain_extent(query, st.dense)
         backend = _resolve_scatter_backend(S, st.b, dd, device)
-        return ScatterAccum(name, "dense", backend=backend, mixed=True)
+        return ScatterAccum(name, kind, backend=backend, mixed=True)
     # dense-axes-only delta: plain elementwise add, no scatter involved
-    return ScatterAccum(name, "dense", backend=None, mixed=bool(st.dense))
+    return ScatterAccum(name, kind, backend=None, mixed=bool(st.dense))
 
 
 # ---------------------------------------------------------------------------
 # The compiler
 # ---------------------------------------------------------------------------
-def _emit_join(ops: list, st: _SymDelta, name: str, view_vars,
+def _emit_join(ops: list, st: _SymDelta, name: str, view, view_vars,
                intern) -> None:
     """Emit the op for ``delta.join_dense(view)`` and advance the symbolic
     state, mirroring contraction.BatchedDelta.join_dense exactly."""
+    kind = _storage_kind(view)
     if st.defer_ok(view_vars):
-        ops.append(intern(Gather(name, tuple(view_vars), "dense")))
+        ops.append(intern(Gather(name, tuple(view_vars), kind)))
         st.pending = True
         return
     forces = st.pending
     st.pending = False  # join_dense forces before any eager path
     if st.defer_ok(view_vars):  # re-dispatch after force (second sibling)
-        ops.append(intern(Gather(name, tuple(view_vars), "dense",
+        ops.append(intern(Gather(name, tuple(view_vars), kind,
                                  forces=forces)))
         st.pending = True
+        return
+    fully_bound = bool(view_vars) and all(v in st.coo for v in view_vars)
+    if kind == "sparse" and fully_bound:
+        ops.append(intern(JoinContract(name, tuple(view_vars), kind,
+                                       gathers=True, forces=forces)))
         return
     shared_coo = [v for v in view_vars if v in st.coo]
     v_rest = [v for v in view_vars if v not in shared_coo]
     grows = tuple(v for v in v_rest if v not in st.dense)
     st.dense = tuple(st.dense) + grows
-    ops.append(intern(JoinContract(name, tuple(view_vars), "dense",
-                                   grows=grows, forces=forces)))
+    ops.append(intern(JoinContract(name, tuple(view_vars), kind, grows=grows,
+                                   densifies=kind == "sparse",
+                                   forces=forces)))
 
 
 def _emit_marginalize(ops: list, st: _SymDelta, query: Query, var: str,
@@ -526,7 +587,8 @@ def _compile_path_ops(tree: ViewNode, query: Query, rel: str,
                 raise ValueError(f"sibling {sib.name} of the delta path must "
                                  f"be materialized (μ guarantees this for "
                                  f"updatable {rel})")
-            _emit_join(ops, st, sib.name, sib.schema, intern)
+            _emit_join(ops, st, sib.name, views[sib.name], sib.schema,
+                       intern)
         for v in node.marg_vars:
             _emit_marginalize(ops, st, query, v, intern)
         ops.append(intern(Emit(node.name)))
@@ -729,7 +791,7 @@ def fuse_trigger_ops(plan: TriggerPlan, query: Query,
             pending = True
         elif isinstance(op, JoinContract):
             pending = False
-            dense = dense or bool(op.grows)
+            dense = dense or bool(op.grows) or op.densifies
         elif isinstance(op, Marginalize):
             if op.forces:
                 pending = False
@@ -749,24 +811,22 @@ def fuse_trigger_ops(plan: TriggerPlan, query: Query,
 # ---------------------------------------------------------------------------
 def storage_signature(views: Mapping) -> tuple:
     """Hashable storage-layout fingerprint of ``views``: a plan is valid
-    only for the layout it was compiled against.  Every view is dense in
-    this slice; sparse tables (Queue 1 item 11) will add their capacity."""
-    sig = []
-    for name in sorted(views):
-        if not isinstance(views[name], DenseRelation):
-            raise NotImplementedError(_SPARSE_TODO)
-        sig.append((name, "d", 0))
-    return tuple(sig)
+    only for the (backend kind, capacity) layout it was compiled against,
+    so a rehash between stream segments recompiles."""
+    return tuple((name, "s", views[name].capacity)
+                 if isinstance(views[name], SparseRelation) else (name, "d", 0)
+                 for name in sorted(views))
 
 
 class PlanCache:
     """Per-engine trigger-plan cache with op interning.
 
-    Keys: (rel, update signature, scatter-backend override, fusion mode).
+    Keys: (rel, update signature, storage layout, scatter-backend override,
+    fusion mode).
     ``hits`` / ``miss_new`` / ``miss_invalidated`` / ``compile_seconds`` are
     the cache telemetry: ``miss_new`` counts first compiles of a (rel,
     signature) trigger, ``miss_invalidated`` recompiles forced by an
-    override or fusion-mode change."""
+    layout, override or fusion-mode change."""
 
     def __init__(self):
         self.plans: dict = {}
@@ -785,9 +845,12 @@ class PlanCache:
     def intern(self, op: PlanOp) -> PlanOp:
         return self._interned.setdefault(op, op)
 
-    def lookup_sig(self, engine, rel: str, upd_sig) -> TriggerPlan:
+    def lookup_sig(self, engine, rel: str, upd_sig,
+                   views=None) -> TriggerPlan:
+        views = engine.views if views is None else views
         fusion = fusion_mode(engine.device)
-        key = (rel, upd_sig, active_backend_override(), fusion)
+        key = (rel, upd_sig, storage_signature(views),
+               active_backend_override(), fusion)
         plan = self.plans.get(key)
         if plan is not None:
             self.hits += 1
@@ -799,9 +862,10 @@ class PlanCache:
             self.miss_new += 1
             self._seen.add(trigger)
         t0 = time.perf_counter()
-        plan = compile_trigger(engine, rel, upd_sig, intern=self.intern)
+        plan = compile_trigger(engine, rel, upd_sig, intern=self.intern,
+                               views=views)
         if fusion == "on":
-            plan = fuse_trigger_ops(plan, engine.query, engine.views)
+            plan = fuse_trigger_ops(plan, engine.query, views)
         self.compile_seconds += time.perf_counter() - t0
         self.plans[key] = plan
         return plan
@@ -878,7 +942,10 @@ def run_coo_ops(ops, views: Mapping, query: Query, upd: COOUpdate,
             plane = memo.get(("plane", op.view)) if memo else None
             delta = delta.join_dense(views[op.view], src_plane=plane)
         elif isinstance(op, JoinContract):
-            delta = delta.join_dense(views[op.view])
+            view = views[op.view]
+            if op.densifies and memo:
+                view = memo.get(("dense", op.view), view)
+            delta = delta.join_dense(view)
         elif isinstance(op, Lift):
             pending_lift = query.lift_rel(op.var, upd.keys.device)
         elif isinstance(op, Marginalize):
@@ -911,12 +978,14 @@ def _chain_delta(ring, product, keys, coo, collapsed) -> BatchedDelta:
 
 def _run_fused_chain(chain: FusedChain, delta: BatchedDelta, views: Mapping,
                      query: Query, memo, deltas: dict, updated: dict):
-    """Interpret a :class:`FusedChain` over dense views.
+    """Interpret a :class:`FusedChain`.
 
     Gather and lift sources accumulate as flat ``(plane [Sg, d], ids [B])``
-    pairs; the terminal ScatterAccum runs the whole product and ⊎ as one
+    pairs (a sparse view's plane with its zero row C, which a missed probe
+    reads); the terminal ScatterAccum runs the whole product and ⊎ as one
     ``ring_fused.fused_apply`` (one ``fused_chain`` launch on the card, the
-    plain version on the CPU), in place into the view's owned plane.  When
+    plain version on the CPU), in place into the view's owned plane (a
+    sparse view's slots claimed first by ``fused_slot_targets``).  When
     ``chain.carries``, the kernel also writes the per-row product and the
     chain's end delta is returned for the ops after it; otherwise it
     returns None.  Emits inside the chain are recorded lazily.  Plan-time
@@ -948,12 +1017,17 @@ def _run_fused_chain(chain: FusedChain, delta: BatchedDelta, views: Mapping,
     for op in chain.ops:
         if isinstance(op, Gather):
             view = views[op.view]
-            if not isinstance(view, DenseRelation):
-                raise NotImplementedError(_SPARSE_TODO)
+            kv = view_keys(view.schema)
             plane = memo.get(("plane", op.view)) if memo else None
-            if plane is None:
-                plane = flatten_payload(ring, view.payload, view.domains)
-            ids = linear_ids(view_keys(view.schema), view.domains)
+            if isinstance(view, SparseRelation):
+                slots, found = view.lookup(kv)
+                if plane is None:
+                    plane = view.gather_plane()
+                ids = torch.where(found, slots, view.capacity)
+            else:
+                if plane is None:
+                    plane = flatten_payload(ring, view.payload, view.domains)
+                ids = linear_ids(kv, view.domains)
             sources.append((plane, ids))
         elif isinstance(op, Lift):
             lift_rel = query.lift_rel(op.var, dev)
@@ -972,19 +1046,25 @@ def _run_fused_chain(chain: FusedChain, delta: BatchedDelta, views: Mapping,
                                                 tuple(coo), collapsed)
         elif isinstance(op, ScatterAccum):
             view = views[op.view]
-            if not isinstance(view, DenseRelation):
-                raise NotImplementedError(_SPARSE_TODO)
-            if view.schema:
-                ids = linear_ids(view_keys(view.schema), view.domains)
-            else:  # collapsed-to-scalar view: every row hits slot 0
-                ids = torch.zeros((B,), dtype=torch.int32, device=dev)
-            plane = flatten_payload(ring, view.payload, view.domains)
             product = (torch.empty_like(vals) if chain.carries else None)
-            out = ring_fused.fused_apply(plane, ids, vals, sources, spec,
-                                         backend=op.backend,
-                                         product_out=product)
-            updated[op.view] = DenseRelation(
-                view.schema, ring, unflatten_payload(ring, out, view.domains))
+            if isinstance(view, SparseRelation):
+                table, ids = view.fused_slot_targets(view_keys(view.schema))
+                out = ring_fused.fused_apply(view.rows, ids, vals, sources,
+                                             spec, backend=op.backend,
+                                             product_out=product)
+                updated[op.view] = view.replace_plane(table, out)
+            else:
+                if view.schema:
+                    ids = linear_ids(view_keys(view.schema), view.domains)
+                else:  # collapsed-to-scalar view: every row hits slot 0
+                    ids = torch.zeros((B,), dtype=torch.int32, device=dev)
+                plane = flatten_payload(ring, view.payload, view.domains)
+                out = ring_fused.fused_apply(plane, ids, vals, sources, spec,
+                                             backend=op.backend,
+                                             product_out=product)
+                updated[op.view] = DenseRelation(
+                    view.schema, ring,
+                    unflatten_payload(ring, out, view.domains))
             if product is not None:
                 carried = _chain_delta(ring, product, keys, coo, collapsed)
         else:  # pragma: no cover
@@ -1061,12 +1141,21 @@ def densified_delta(query: Query, rel: str, upd: COOUpdate) -> BatchedDelta:
 # ---------------------------------------------------------------------------
 # Write-set → state-leaf mask, and plan-level CSE across a stream step
 # ---------------------------------------------------------------------------
+def relation_leaves(rel) -> list:
+    """The tensors that hold a relation's state: a dense relation's payload
+    components by name; a sparse view's key table, then its payload plane
+    (both written in place by a trigger that ⊎s into it)."""
+    if isinstance(rel, SparseRelation):
+        return [rel.table, rel.plane]
+    return [rel.payload[c] for c in sorted(rel.payload)]
+
+
 def state_leaves(state) -> list:
-    """The payload tensors of a ``(views, base)`` state in a fixed order:
-    views, then base relations, each by name, each relation's components
-    by name (the order in which JAX flattens the reference's state)."""
-    return [part[name].payload[c] for part in state for name in sorted(part)
-            for c in sorted(part[name].payload)]
+    """The state tensors of a ``(views, base)`` state in a fixed order:
+    views, then base relations, each by name, each relation's leaves in
+    :func:`relation_leaves` order."""
+    return [leaf for part in state for name in sorted(part)
+            for leaf in relation_leaves(part[name])]
 
 
 def state_write_mask(state, write_views, write_base) -> tuple:
@@ -1076,25 +1165,31 @@ def state_write_mask(state, write_views, write_base) -> tuple:
     views, base = state
     return tuple(name in names
                  for part, names in ((views, write_views), (base, write_base))
-                 for name in sorted(part) for _ in part[name].payload)
+                 for name in sorted(part)
+                 for _ in relation_leaves(part[name]))
 
 
 def shared_prep_ops(plans: Sequence[TriggerPlan]) -> tuple:
     """Sibling-view prepare steps shared by >= 2 plans of one stream step
-    whose source view no plan of the step writes: their gather planes are
-    computed once a step instead of once a position.  Only ``fivm``/``dbt``
-    COO plans gather from state views; fused chains count through their
-    inner gathers (the memo keys are the same).  The reference also shares
-    the densified form of a sparse sibling (``("dense", view)``); that
-    comes with sparse storage (ROADMAP Queue 1 item 11)."""
+    whose source view no plan of the step writes: their gather planes
+    (``("plane", view)``) and the densified forms of sparse siblings
+    (``("dense", view)``) are computed once a step instead of once a
+    position.  Only ``fivm``/``dbt`` COO plans gather from state views;
+    fused chains count through their inner gathers (the memo keys are the
+    same)."""
     plans = [p for p in plans if p.kind == "coo"]
     write_union: set[str] = set()
     for p in plans:
         write_union |= set(p.write_views)
     counts: dict = {}
     for p in plans:
-        for key in {("plane", op.view) for op in iter_flat_ops(p.ops)
-                    if isinstance(op, Gather)}:
+        keys = set()
+        for op in iter_flat_ops(p.ops):
+            if isinstance(op, Gather):
+                keys.add(("plane", op.view))
+            elif isinstance(op, JoinContract) and op.densifies:
+                keys.add(("dense", op.view))
+        for key in keys:
             counts[key] = counts.get(key, 0) + 1
     return tuple(sorted(k for k, n in counts.items()
                         if n >= 2 and k[1] not in write_union))
@@ -1102,7 +1197,13 @@ def shared_prep_ops(plans: Sequence[TriggerPlan]) -> tuple:
 
 def build_prep_memo(shared: tuple, views: Mapping) -> dict:
     """Materialize the shared prepare steps against the current views."""
-    return {(form, name): flatten_payload(views[name].ring,
-                                          views[name].payload,
-                                          views[name].domains)
-            for form, name in shared}
+    memo: dict = {}
+    for form, name in shared:
+        v = views[name]
+        if form == "dense":
+            memo[(form, name)] = as_dense(v)
+        elif isinstance(v, SparseRelation):
+            memo[(form, name)] = v.gather_plane()
+        else:
+            memo[(form, name)] = flatten_payload(v.ring, v.payload, v.domains)
+    return memo

@@ -1,4 +1,4 @@
-"""View storage, dense part (PyTorch port of ``repro.core.storage``).
+"""View storage (PyTorch port of ``repro.core.storage``).
 
 * :class:`ViewStorage` — the protocol every storage backend implements (the
   surface the delta engine, the contraction planner and the kernel dispatch
@@ -6,24 +6,50 @@
 * key-space shim — multi-column key linearization and the payload ↔ flat
   ``[S, d]`` plane conversion, the shared language of storage and the ⊎
   kernels.
-* storage planner — this slice stores every view densely.  Hashed-COO
-  sparse views (``SparseRelation``, the ``auto`` and ``sparse`` modes) are
-  ROADMAP Queue 1 item 11 and raise ``NotImplementedError`` here.
+* :class:`SparseRelation` — hashed-COO backend: an open-addressed int32
+  table of linearized keys beside a ``[C + 1, d]`` payload plane whose last
+  row stays zero (the row a missed probe reads).  Slots are resolved by the
+  hash kernels (``repro_torch.kernels.hash_table``: ``hash_probe`` and
+  ``hash_insert``, one launch each and no host synchronise, so a trigger
+  that writes a sparse view can be captured in a CUDA graph), and the
+  payload ⊎ runs through the ordinary scatter kernel dispatch on those
+  slots.  Like every view the engine owns, a sparse view is updated in
+  place: its table and plane keep their addresses.
+* storage planner — picks dense or sparse per materialized view from the
+  modeled ``domain product × fill``, honouring ``REPRO_TORCH_VIEW_STORAGE``
+  and per-view overrides.
+
+Capacities are fixed per table: the eager per-call path
+(``IVMEngine.apply_update``) rehashes to 2× capacity when a sparse view
+could cross the load-factor bound (:func:`grow_if_loaded`, one host
+synchronise a touched view), and the stream executor grows tables between
+capacity segments; an insert into a full table drops its row.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Protocol, runtime_checkable
+import os
+from typing import Mapping, Protocol, Sequence, runtime_checkable
 
 import torch
 
+from ..kernels import hash_table
 from .relations import DenseRelation
 from .rings import Payload, Ring
 
+ENV_VAR = "REPRO_TORCH_VIEW_STORAGE"
 MODES = ("auto", "dense", "sparse")
 
-_SPARSE_TODO = ("sparse view storage is not ported yet (ROADMAP Queue 1 "
-                "item 11); build with storage='dense'")
+#: open-addressing sentinel: a table slot holding EMPTY is free
+EMPTY = hash_table.EMPTY
+
+#: auto-planner thresholds: a view flips to sparse when its key-domain
+#: product is at least MIN_SPARSE_DOMAIN and its fill is at most MAX_FILL
+MIN_SPARSE_DOMAIN = 4096
+MAX_FILL = 0.05
+
+#: eager-path growth trigger: rehash to 2× when occupancy crosses this
+LOAD_FACTOR = 0.7
 
 
 # ---------------------------------------------------------------------------
@@ -178,34 +204,544 @@ def make_base_relation(schema, ring: Ring, payload: Payload) -> DenseRelation:
 
 
 # ---------------------------------------------------------------------------
-# Storage planner (dense only in this slice)
+# Open-addressed hash table primitives.  Probe and insert are the hash
+# kernels on a CUDA tensor and their plain versions (the reference's
+# lockstep loops) on a CPU tensor; rank and dedup have fixed shapes and no
+# host synchronise on either.
+# ---------------------------------------------------------------------------
+def _hash_ids(ids: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Knuth multiplicative hash into [0, capacity); capacity power of 2."""
+    return hash_table.hash_ids(ids, capacity)
+
+
+def _find_slots(table: torch.Tensor, ids: torch.Tensor):
+    """Probe each id's chain: returns (slot [B] int32, found [B]).
+
+    ``slot`` is where the id lives (found) or the first free slot of its
+    chain (not found).  Ids < 0 are sentinels: not probed, found = False."""
+    return hash_table.hash_probe(table, ids.to(torch.int32).contiguous())
+
+
+#: the serving read path's probe.  The reference lowers it as a per-row
+#: loop beside the lockstep :func:`_find_slots` and keeps the two
+#: bit-identical; here both are the one ``hash_probe`` kernel.
+_probe_slots = _find_slots
+
+
+def _insert_ids(table: torch.Tensor, ids: torch.Tensor):
+    """Insert *distinct* ids (EMPTY = skip) into ``table``, in place.
+
+    Contention for a free slot goes to the lowest row index; losers keep
+    probing.  Returns (slot [B], placed [B]); rows that never place (the
+    table is full) report placed = False and slot 0."""
+    return hash_table.hash_insert(table, ids.to(torch.int32).contiguous())
+
+
+def _rank_ids(ids: torch.Tensor):
+    """Sort/rank key dedup: per-row rank into the distinct-id list, and the
+    distinct ids themselves (EMPTY-padded).  Sentinel ids (< 0) collapse
+    into one EMPTY rank.  :func:`_insert_ids` requires distinct ids, so
+    every insert path resolves slots per rank."""
+    B = ids.shape[0]
+    ids = ids.to(torch.int32)
+    rank = torch.zeros((B,), dtype=torch.int32, device=ids.device)
+    uniq = torch.full((B,), EMPTY, dtype=torch.int32, device=ids.device)
+    if B == 0:
+        return rank, uniq
+    order = torch.argsort(ids, stable=True)
+    sid = ids.index_select(0, order)
+    first = torch.ones((B,), dtype=torch.bool, device=ids.device)
+    first[1:] = sid[1:] != sid[:-1]
+    rank_sorted = (torch.cumsum(first, 0) - 1).to(torch.int32)
+    rank.scatter_(0, order, rank_sorted)
+    uniq.scatter_(0, rank.long(), torch.where(ids < 0, EMPTY, ids))
+    return rank, uniq
+
+
+def _dedup_ids(ids: torch.Tensor, vals: torch.Tensor):
+    """Distinct ids (EMPTY-padded) + per-id summed value rows, each id's
+    rows added in ascending row order (``segment_ring_sum`` for float32
+    rows: the kernel on the card)."""
+    from ..kernels.segment_ring_sum import segment_ring_sum
+
+    rank, uniq = _rank_ids(ids)
+    B = ids.shape[0]
+    if vals.dtype == torch.float32:
+        return uniq, segment_ring_sum(vals.contiguous(), rank, B)
+    sums = torch.zeros((B, vals.shape[1]), dtype=vals.dtype, device=vals.device)
+    return uniq, sums.index_add_(0, rank.long(), vals)
+
+
+# ---------------------------------------------------------------------------
+# SparseRelation: hashed-COO view storage
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(eq=False)
+class SparseRelation:
+    """Hashed-COO relation: ``table[c]`` holds the linearized key stored in
+    slot ``c`` (or EMPTY) and row ``c`` of ``plane`` (``[C + 1, d]``) its
+    ring value, the components as column slices (``payload``, leaves
+    ``[C, *comp]``).  Row C of the plane stays zero: a gather at a missed
+    probe reads it.  Invariant: free slots carry ring-zero payload.
+
+    Deletions (negative multiplicities) drive payloads to ring zero but
+    keep the key slot occupied — ``num_keys`` counts only non-zero keys,
+    and :meth:`rehash` compacts zombies away.  The ⊎ methods write the
+    table and plane in place and return the relation."""
+
+    schema: tuple[str, ...]
+    ring: Ring
+    _domains: tuple[int, ...]
+    table: torch.Tensor
+    plane: torch.Tensor
+    payload: Payload = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        C = self.capacity
+        if tuple(self.plane.shape) != (C + 1, payload_width(self.ring)):
+            raise ValueError(f"plane {tuple(self.plane.shape)} for capacity {C}")
+        self.payload = unflatten_payload(self.ring, self.plane[:C], (C,))
+
+    # -- layout --------------------------------------------------------------
+    @property
+    def domains(self) -> tuple[int, ...]:
+        return self._domains
+
+    @property
+    def device(self) -> torch.device:
+        return self.table.device
+
+    def domain_of(self, var: str) -> int:
+        return self._domains[self.schema.index(var)]
+
+    @property
+    def capacity(self) -> int:
+        return int(self.table.shape[0])
+
+    @property
+    def rows(self) -> torch.Tensor:
+        """The ``[C, d]`` payload rows of the plane (no zero row)."""
+        return self.plane[:self.capacity]
+
+    def nbytes(self) -> int:
+        """Table and plane bytes, the plane's zero row included."""
+        return (self.table.numel() * self.table.element_size()
+                + self.plane.numel() * self.plane.element_size())
+
+    def owned(self) -> "SparseRelation":
+        """A copy on new tensors."""
+        return SparseRelation(self.schema, self.ring, self._domains,
+                              self.table.clone(), self.plane.clone())
+
+    # -- occupancy -----------------------------------------------------------
+    def num_keys(self):
+        """Keys with non-zero payload, as a device scalar (no host sync)."""
+        return ((self.table >= 0) & ~self.ring.is_zero(self.payload)).sum()
+
+    def num_keys_sync(self) -> int:
+        return int(self.num_keys())
+
+    def num_slots_used(self):
+        """Occupied slots (including ring-zero zombies), device scalar."""
+        return (self.table >= 0).sum()
+
+    def num_slots_used_sync(self) -> int:
+        return int(self.num_slots_used())
+
+    # -- multi-device placement and the host oracle (not ported) ------------
+    def shard_axis(self):
+        raise NotImplementedError(_SHARD_TODO)
+
+    def shard_extent(self):
+        raise NotImplementedError(_SHARD_TODO)
+
+    def leaf_shardings(self, mesh, axis_name: str, shard: bool):
+        raise NotImplementedError(_SHARD_TODO)
+
+    def to_py(self, py_ring, to_payload=None):
+        raise NotImplementedError("the host oracle (PyRelation) is not ported "
+                                  "yet (ROADMAP Queue 1 item 13)")
+
+    # -- construction --------------------------------------------------------
+    @classmethod
+    def zeros(cls, schema, ring: Ring, domains, capacity: int = 64,
+              device="cuda"):
+        capacity = next_pow2(max(2, int(capacity)))
+        return cls(tuple(schema), ring, tuple(int(d) for d in domains),
+                   torch.full((capacity,), EMPTY, dtype=torch.int32,
+                              device=device),
+                   torch.zeros((capacity + 1, payload_width(ring)),
+                               dtype=ring.dtype, device=device))
+
+    @classmethod
+    def from_coo(cls, schema, ring: Ring, domains, keys, payload,
+                 capacity: int | None = None):
+        if capacity is None:
+            capacity = next_pow2(max(64, 2 * int(keys.shape[0])))
+        rel = cls.zeros(schema, ring, domains, capacity, device=keys.device)
+        return rel.scatter_add(keys, payload)
+
+    @classmethod
+    def from_dense(cls, dense: DenseRelation, capacity: int | None = None,
+                   min_capacity: int = 64) -> "SparseRelation":
+        """Sparsify a dense relation (reads the active key set on the host:
+        one synchronise)."""
+        ring = dense.ring
+        nz = torch.nonzero(~ring.is_zero(dense.payload))  # row-major
+        active = nz.shape[0]
+        if capacity is None:
+            capacity = max(min_capacity, next_pow2(max(2, 2 * active)))
+        rel = cls.zeros(dense.schema, ring, dense.domains, capacity,
+                        device=dense.device)
+        if active == 0:
+            return rel
+        keys = nz.to(torch.int32).reshape(active, len(dense.schema))
+        idx = tuple(nz[:, i] for i in range(nz.shape[1]))
+        return rel.scatter_add(keys, {c: dense.payload[c][idx]
+                                      for c in ring.components})
+
+    # -- core ops ------------------------------------------------------------
+    def _targets(self, ids: torch.Tensor) -> torch.Tensor:
+        """Claim slots for linearized ids (duplicates share one slot through
+        the rank prepass): the target slot of every row, EMPTY where the
+        table is full."""
+        rank, uniq = _rank_ids(ids)
+        slots, placed = _insert_ids(self.table, uniq)
+        return torch.where(placed, slots, EMPTY).index_select(0, rank.long())
+
+    def _scatter_lin(self, ids: torch.Tensor, flat_vals: torch.Tensor,
+                     backend: str | None = None) -> "SparseRelation":
+        """⊎ rows (linearized ids, EMPTY = drop; flat [B, d] values), in
+        place: dedup → hash insert → one flat slot-scatter through the ring
+        scatter kernel dispatch (the ``[S, d]`` plane with S = the table's
+        capacity)."""
+        from ..kernels import scatter_ops
+
+        uniq, sums = _dedup_ids(ids, flat_vals.to(self.plane.dtype))
+        slots, placed = _insert_ids(self.table, uniq)
+        target = torch.where(placed, slots, EMPTY)
+        rows = self.rows
+        if rows.dtype == torch.float32:
+            scatter_ops.scatter_add_flat(rows, target, sums, backend=backend)
+        else:  # count rings etc.: the exact plain path; EMPTY rows drop
+            rows.index_add_(0, target.clamp(min=0).long(),
+                            sums * (target >= 0)[:, None].to(sums.dtype))
+        return self
+
+    def scatter_add(self, keys: torch.Tensor, payload: Payload,
+                    backend: str | None = None) -> "SparseRelation":
+        """keys [B, k]; payload leaves [B, *comp] (protocol ⊎)."""
+        if keys.dim() != 2 or keys.shape[1] != len(self.schema):
+            raise ValueError(f"keys {tuple(keys.shape)} do not match schema "
+                             f"{self.schema}")
+        ids = linear_ids(keys, self._domains)
+        flat = flatten_payload(self.ring, payload, (keys.shape[0],))
+        return self._scatter_lin(ids, flat, backend=backend)
+
+    def gather_mul_scatter(self, keys: torch.Tensor, src_plane: torch.Tensor,
+                           in_ids: torch.Tensor, scale: torch.Tensor,
+                           backend: str | None = None) -> "SparseRelation":
+        """``self ⊎ (scale[b] · src_plane[in_ids[b]])`` at ``keys`` — the
+        deferred sibling gather fused with the slot scatter (scalar rings):
+        the target slots are inserted first, then one gather-⊗-⊎ runs over
+        the payload plane, accumulating duplicate keys."""
+        from ..kernels import ref, scatter_ops
+
+        target = self._targets(linear_ids(keys, self._domains))
+        rows = self.rows
+        in_ids = in_ids.to(torch.int32).contiguous()
+        if rows.dtype == torch.float32 and src_plane.dtype == torch.float32:
+            scatter_ops.gather_mul_scatter_flat(rows, target, src_plane, in_ids,
+                                                scale, backend=backend)
+        else:
+            ref.gather_mul_scatter_ref(rows, target, src_plane, in_ids, scale)
+        return self
+
+    def fused_slot_targets(self, keys: torch.Tensor):
+        """(table, target [B]) for the fused chain: claim slots for
+        ``keys`` but do not dedup values (the fused kernel accumulates
+        duplicates per tile).  Overflow rows map to EMPTY and drop."""
+        return self.table, self._targets(linear_ids(keys, self._domains))
+
+    def replace_plane(self, table: torch.Tensor,
+                      plane: torch.Tensor) -> "SparseRelation":
+        """The relation holding ``table`` and the flat ``[C, d]`` payload
+        rows ``plane`` (the fused-chain writeback): ``self`` when they are
+        its own storage, else a new relation on them."""
+        if table is self.table and plane.data_ptr() == self.plane.data_ptr():
+            return self
+        return SparseRelation(self.schema, self.ring, self._domains, table,
+                              _with_zero_row(plane))
+
+    def replace_payload(self, table: torch.Tensor,
+                        payload: Payload) -> "SparseRelation":
+        """A new relation from a key table and per-component payload
+        leaves ``[C, *comp]``."""
+        rows = flatten_payload(self.ring, payload, (table.shape[0],))
+        return SparseRelation(self.schema, self.ring, self._domains, table,
+                              _with_zero_row(rows))
+
+    def lookup(self, keys: torch.Tensor):
+        """(slots [B], found [B]) for keys [B, k] — the raw probe."""
+        return _find_slots(self.table, linear_ids(keys, self._domains))
+
+    #: the serving read path's probe (:func:`_probe_slots`), which is
+    #: :meth:`lookup` here
+    probe = lookup
+
+    def _read(self, slot: torch.Tensor, found: torch.Tensor) -> Payload:
+        """Payload rows at ``slot`` where ``found``, ring zero elsewhere: a
+        missed probe reads the plane's zero row C."""
+        rows = torch.where(found, slot, self.capacity).long()
+        return unflatten_payload(self.ring, self.plane.index_select(0, rows),
+                                 (slot.shape[0],))
+
+    def gather(self, keys: torch.Tensor) -> Payload:
+        """keys [B, k] -> payload leaves [B, *comp]; absent keys read 0.
+        A deleted key keeps its slot but its payload is ring zero, so it
+        reads exactly as an absent key does."""
+        return self._read(*self.lookup(keys))
+
+    #: :meth:`gather` through :meth:`probe`, which is :meth:`gather` here
+    gather_batched = gather
+
+    def gather_plane(self) -> torch.Tensor:
+        """The flat ``[C + 1, d]`` payload plane with its zero row C — the
+        deferred-sibling-gather source (the plane itself, not a copy)."""
+        return self.plane
+
+    def key_columns(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(cols [C, k] clamped to valid ranges, occupied mask [C])."""
+        occ = self.table >= 0
+        return unlinearize_ids(self.table.clamp(min=0), self._domains), occ
+
+    # -- ring algebra --------------------------------------------------------
+    def add(self, other) -> "SparseRelation":
+        """⊎ with another storage over the same schema."""
+        if tuple(self.schema) != tuple(other.schema):
+            raise ValueError(f"schemas differ: {self.schema} vs {other.schema}")
+        if isinstance(other, SparseRelation):
+            return self._scatter_lin(other.table, other.rows)
+        return self.add_dense(as_dense(other))
+
+    def add_dense(self, dense: DenseRelation) -> "SparseRelation":
+        """⊎ a dense relation by enumerating its full key grid (meant for
+        small dense deltas)."""
+        S = comp_width(self._domains)
+        ids = torch.arange(S, dtype=torch.int32, device=self.device)
+        flat = flatten_payload(dense.ring, dense.payload, self._domains)
+        return self._scatter_lin(ids, flat)
+
+    def _rekeyed(self, schema, domains, ids, rows) -> "SparseRelation":
+        out = SparseRelation.zeros(schema, self.ring, domains, self.capacity,
+                                   device=self.device)
+        return out._scatter_lin(ids, rows)
+
+    def marginalize(self, var: str, lift_rel=None) -> "SparseRelation":
+        """⊕_var with optional lifting, re-keyed into a fresh table."""
+        i = self.schema.index(var)
+        cols, occ = self.key_columns()
+        payload = self.payload
+        if lift_rel is not None:
+            payload = self.ring.mul(payload, lift_rel.gather(cols[:, i:i + 1]))
+        rem = torch.cat([cols[:, :i], cols[:, i + 1:]], dim=1)
+        new_schema = tuple(v for v in self.schema if v != var)
+        new_doms = tuple(d for j, d in enumerate(self._domains) if j != i)
+        ids = torch.where(occ, linear_ids(rem, new_doms), EMPTY)
+        return self._rekeyed(new_schema, new_doms, ids, flatten_payload(
+            self.ring, payload, (self.capacity,)))
+
+    def contract(self, other, marg: Sequence[str] = (),
+                 out_order=None) -> "SparseRelation":
+        """⊕_marg self ⊗ other via the dense contraction engine, re-keyed
+        sparse (host-side sizing: not for trigger paths — the planner keeps
+        contraction-fed views dense)."""
+        from .contraction import contract_dense
+
+        dense = contract_dense(self.to_dense(), as_dense(other), marg=marg,
+                               out_order=out_order)
+        return SparseRelation.from_dense(dense)
+
+    def transpose(self, new_schema) -> "SparseRelation":
+        perm = [self.schema.index(v) for v in new_schema]
+        cols, occ = self.key_columns()
+        new_doms = tuple(self._domains[p] for p in perm)
+        # column by column: a list index would copy the list to the device
+        cols = torch.stack([cols[:, p] for p in perm], dim=1)
+        ids = torch.where(occ, linear_ids(cols, new_doms), EMPTY)
+        return self._rekeyed(tuple(new_schema), new_doms, ids, self.rows)
+
+    def rehash(self, capacity: int | None = None) -> "SparseRelation":
+        """Rebuild into a fresh table (default: same capacity), dropping
+        ring-zero zombie keys."""
+        capacity = capacity or self.capacity
+        live = (self.table >= 0) & ~self.ring.is_zero(self.payload)
+        ids = torch.where(live, self.table, EMPTY)
+        out = SparseRelation.zeros(self.schema, self.ring, self._domains,
+                                   capacity, device=self.device)
+        return out._scatter_lin(ids, self.rows)
+
+    # -- conversion ----------------------------------------------------------
+    def to_dense(self) -> DenseRelation:
+        """The dense relation over the key domains (a new tensor; each key
+        occupies one slot, so every element is one copy, exact)."""
+        S = comp_width(self._domains)
+        ids = torch.where(self.table >= 0, self.table, S).long()
+        flat = torch.zeros((S + 1, self.plane.shape[1]), dtype=self.plane.dtype,
+                           device=self.device)
+        flat.index_add_(0, ids, self.rows)
+        return DenseRelation(self.schema, self.ring, unflatten_payload(
+            self.ring, flat[:S], self._domains))
+
+
+_SHARD_TODO = ("sharded sparse views are not ported yet (ROADMAP Queue 1 "
+               "item 14)")
+
+
+def _with_zero_row(rows: torch.Tensor) -> torch.Tensor:
+    return torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
+
+
+# ---------------------------------------------------------------------------
+# Storage planner
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class StorageSpec:
     """Planner decision for one view."""
 
-    kind: str  # "dense"
+    kind: str  # "dense" | "sparse"
+    capacity: int = 0  # sparse only
 
 
-def plan_storage(views: Mapping[str, ViewStorage], *,
-                 mode: str | None = None,
-                 overrides: Mapping[str, str] | None = None,
-                 ) -> dict[str, StorageSpec]:
-    """Pick a storage backend per materialized view.  ``mode`` None or
-    ``"dense"`` stores every view densely; ``"auto"``, ``"sparse"`` and
-    sparse overrides raise until sparse storage is ported."""
-    mode = mode or "dense"
-    if mode not in MODES:
-        raise ValueError(f"unknown storage mode {mode!r}; one of {MODES}")
-    if mode != "dense" or any(k != "dense" for k in (overrides or {}).values()):
-        raise NotImplementedError(_SPARSE_TODO)
-    return {name: StorageSpec("dense") for name in views}
+def resolve_storage_mode(mode: str | None = None) -> str:
+    """Explicit arg > ``REPRO_TORCH_VIEW_STORAGE`` > auto."""
+    m = mode or os.environ.get(ENV_VAR) or "auto"
+    if m not in MODES:
+        raise ValueError(f"unknown storage mode {m!r}; one of {MODES}")
+    return m
+
+
+def plan_storage(
+    views: Mapping[str, ViewStorage],
+    *,
+    tree=None,
+    updatable: Sequence[str] = (),
+    strategy: str = "fivm",
+    mode: str | None = None,
+    overrides: Mapping[str, str] | None = None,
+    min_domain: int = MIN_SPARSE_DOMAIN,
+    max_fill: float = MAX_FILL,
+    headroom: float = 2.0,
+    min_capacity: int = 64,
+) -> dict[str, StorageSpec]:
+    """Pick a storage backend per materialized view (one host synchronise
+    a view, at build).
+
+    ``auto`` chooses sparse when the key-domain product clears
+    ``min_domain``, the measured fill is at most ``max_fill`` and the view
+    is not in the plan's sparse-hostile set (``plan.storage_hostility``:
+    its joins would densify it, or its ⊎ would arrive with dense axes).
+    ``sparse`` forces every eligible view sparse; ``dense`` stores every
+    view densely.  Per-view ``overrides`` (name -> "dense" | "sparse") win.
+    Only ``fivm`` / ``dbt`` engines plan non-dense storage (1-IVM and
+    reevaluation rebuild views wholesale), premarg ``W:`` views and
+    scalar-keyed views stay dense.  A sparse view's capacity is
+    ``next_pow2(max(min_capacity, active · headroom + 1))``, at most the
+    domain product's power of two (such a table never overflows)."""
+    mode = resolve_storage_mode(mode)
+    overrides = dict(overrides or {})
+    hostile: set[str] = set()
+    if tree is not None and mode == "auto":
+        from .plan import storage_hostility
+
+        hostile = storage_hostility(tree, updatable)
+    plan: dict[str, StorageSpec] = {}
+    for name, v in views.items():
+        kind = overrides.get(name)
+        if kind is None:
+            if (strategy not in ("fivm", "dbt") or name.startswith("W:")
+                    or not v.schema or mode == "dense"):
+                kind = "dense"
+            elif mode == "sparse":
+                kind = "sparse"
+            else:  # auto: domain product × fill model
+                S = comp_width(v.domains)
+                fill = v.num_keys_sync() / max(S, 1)
+                kind = ("sparse" if S >= min_domain and fill <= max_fill
+                        and name not in hostile else "dense")
+        if kind == "sparse":
+            S = comp_width(v.domains)
+            active = v.num_keys_sync()
+            cap = next_pow2(max(min_capacity, int(active * headroom) + 1))
+            plan[name] = StorageSpec("sparse", min(cap, next_pow2(S)))
+        elif kind == "dense":
+            plan[name] = StorageSpec("dense")
+        else:
+            raise ValueError(f"unknown storage kind {kind!r} for {name}")
+    return plan
 
 
 def apply_storage_plan(views: Mapping[str, ViewStorage],
                        plan: Mapping[str, StorageSpec]):
-    """Convert each view to its planned backend (dense: identity)."""
-    for name, spec in plan.items():
-        if spec.kind != "dense" or not isinstance(views[name], DenseRelation):
-            raise NotImplementedError(_SPARSE_TODO)
-    return dict(views)
+    """Convert each view to its planned backend (no-op where it matches)."""
+    out = {}
+    for name, v in views.items():
+        spec = plan.get(name, StorageSpec("dense"))
+        if spec.kind == "sparse" and isinstance(v, DenseRelation):
+            out[name] = SparseRelation.from_dense(v, capacity=spec.capacity)
+        elif spec.kind == "dense" and isinstance(v, SparseRelation):
+            out[name] = v.to_dense().owned()
+        else:
+            out[name] = v
+    return out
+
+
+def grow_if_loaded(rel, budget: int = 0):
+    """Eager-path growth: rehash a sparse view to 2× capacity (repeatedly)
+    while adding ``budget`` more keys could cross the load-factor bound.
+    The budget is clamped to the key-domain product, and a table covering
+    the full domain stops growing.  Reads the occupancy on the host (one
+    synchronise); never called on a trigger or graph path."""
+    if not isinstance(rel, SparseRelation):
+        return rel
+    full = next_pow2(comp_width(rel.domains))
+    budget = min(int(budget), comp_width(rel.domains))
+    cap = rel.capacity
+    used = rel.num_slots_used_sync()
+    while cap < full and used + budget > LOAD_FACTOR * cap:
+        cap *= 2
+    if cap != rel.capacity:
+        rel = rel.rehash(cap)  # also compacts ring-zero zombies
+    return rel
+
+
+def occupancy_report(views: Mapping[str, ViewStorage]) -> dict[str, dict]:
+    """Occupancy of every sparse view (host synchronises): capacity, slots
+    used (zombies included — what the load-factor bound sees) and live
+    keys."""
+    return {name: {"capacity": v.capacity,
+                   "slots_used": v.num_slots_used_sync(),
+                   "keys": v.num_keys_sync()}
+            for name, v in views.items() if isinstance(v, SparseRelation)}
+
+
+# ---------------------------------------------------------------------------
+# Physical-layout export / import
+# ---------------------------------------------------------------------------
+def export_layout(rel) -> dict:
+    """JSON-serializable physical layout of a view's storage: for a sparse
+    view its table capacity, which drifts with growth and rarely matches a
+    freshly built engine's."""
+    if isinstance(rel, SparseRelation):
+        return {"kind": "sparse", "capacity": rel.capacity}
+    return {"kind": "dense"}
+
+
+def layout_template(rel, layout: Mapping) -> "ViewStorage":
+    """An all-zeros view with ``rel``'s logical definition (schema, ring,
+    domains) in the physical layout ``layout``, on ``rel``'s device."""
+    dev = rel.device
+    if layout.get("kind") == "sparse":
+        return SparseRelation.zeros(rel.schema, rel.ring, rel.domains,
+                                    capacity=int(layout["capacity"]),
+                                    device=dev)
+    return DenseRelation.zeros(rel.schema, rel.ring, rel.domains, device=dev)

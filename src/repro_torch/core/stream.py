@@ -51,10 +51,21 @@ replays (``kernels._cuda.CapturedLaunches``).
 
 **On the CPU** the same bodies, counter included, run eagerly step by step.
 
+**Sparse views** are state like any other: their key tables and payload
+planes are leaves that a trigger writes in place (``plan.relation_leaves``),
+and the hash kernels that resolve their slots never synchronise, so a step
+that writes one is captured as one graph.  Capacities are fixed inside a
+prepared stream.  A raw stream run against the engine's own state is first
+split into capacity segments (:func:`capacity_segments`): before a segment
+whose worst-case inserts could cross a table's load-factor bound, the table
+rehashes to a larger capacity, which changes the storage signature, so the
+segment compiles its plans and captures its graphs anew
+(:meth:`StreamExecutor._run_segmented`).  Sizing reads occupancy and the
+stream's keys on the host: admission synchronises, replay does not.
+
 Not ported: sharded executors (ROADMAP Queue 1 item 14), checkpointed and
-resumed streams (item 15), integrity (item 16), the serving registry
-(item 17), and the pipelined capacity segments that only those features and
-sparse views reach (item 11).
+resumed streams and straggler monitoring (item 15), integrity (item 16) and
+the serving registry (item 17), with the segment hooks that serve them.
 """
 from __future__ import annotations
 
@@ -67,9 +78,9 @@ from torch.utils import _pytree as pytree
 
 from ..kernels import _cuda
 from . import plan as plan_mod
+from . import storage as storage_mod
 from .ivm import IVMEngine
-from .relations import COOUpdate, DenseRelation
-from .storage import _SPARSE_TODO
+from .relations import COOUpdate
 
 #: longest schedule period run as a rounds body; longer periods take
 #: switch dispatch
@@ -132,31 +143,125 @@ def _schedule_period(sched: Sequence[str]) -> int | None:
 
 class StreamCapacityError(RuntimeError):
     """A stream prepared as one program could overflow a sparse view's hash
-    table.  Dense views, the only storage of this slice, hold their whole
-    key product and never overflow."""
-
-
-def _dense_only(views) -> None:
-    if any(not isinstance(v, DenseRelation) for v in views.values()):
-        raise NotImplementedError(_SPARSE_TODO)
+    table.  Capacities are fixed inside a prepared stream, and an insert
+    into a full table drops its row: run the raw stream through
+    ``StreamExecutor.run(stream)`` instead, which splits it into capacity
+    segments with a rehash between them."""
 
 
 def check_stream_capacity(engine: IVMEngine, stream, views=None) -> None:
     """Worst-case insert-budget audit of a stream run as one program;
     raises :class:`StreamCapacityError` when a sparse view could cross its
-    load-factor bound.  ``views`` is the state the stream will run against
-    (default: the engine's).  Every view is dense in this slice, so the
-    audit passes."""
-    _dense_only(engine.views if views is None else views)
+    load-factor bound.
+
+    Per (view, relation) the budget is the number of distinct projected
+    update keys across the stream times the extent of the view variables
+    the update does not bind, clamped to the view's domain product; the
+    occupancy counts zombie slots.  Tables whose capacity covers their
+    domain product are skipped.  ``views`` is the state the stream will run
+    against (default: the engine's).  Reads occupancy and the stream's keys
+    on the host (admission, never a replay)."""
+    views = engine.views if views is None else views
+    caps: dict[str, tuple] = {}
+    for name, v in views.items():
+        if not isinstance(v, storage_mod.SparseRelation):
+            continue
+        dom_prod = storage_mod.comp_width(v.domains)
+        if v.capacity >= storage_mod.next_pow2(dom_prod):
+            continue
+        caps[name] = (v, v.num_slots_used_sync(), dom_prod)
+    if not caps:
+        return
+    by_rel: dict[str, list[COOUpdate]] = {}
+    for rel, upd in stream:
+        by_rel.setdefault(rel, []).append(upd)
+    rel_keys = {rel: torch.cat([u.keys for u in upds]).cpu()
+                for rel, upds in by_rel.items()}
+    offenders = []
+    for name, (v, occ, dom_prod) in caps.items():
+        budget = 0
+        for rel, upds in by_rel.items():
+            wv, _ = engine.plans.write_sets(engine, rel)
+            if name not in wv:
+                continue
+            sch = tuple(upds[0].schema)
+            extra = 1
+            for var in v.schema:
+                if var not in sch:
+                    extra *= int(v.domain_of(var))
+            cols = [sch.index(var) for var in v.schema if var in sch]
+            distinct = (torch.unique(rel_keys[rel][:, cols], dim=0).shape[0]
+                        if cols else 1)
+            budget += min(distinct * extra, dom_prod)
+        budget = min(budget, dom_prod)
+        if occ + budget > storage_mod.LOAD_FACTOR * v.capacity:
+            offenders.append(
+                f"{name}: {occ} occupied + worst-case {budget} inserts > "
+                f"{storage_mod.LOAD_FACTOR:.0%} of capacity {v.capacity}")
+    if offenders:
+        raise StreamCapacityError(
+            "prepared stream could overflow sparse view(s) — "
+            + "; ".join(offenders)
+            + ".  Pass the raw stream to StreamExecutor.run() so it is split "
+            "into capacity segments (rehash + recompile between them), or "
+            "size the tables with more headroom "
+            "(storage_opts=dict(headroom=...)).")
 
 
 def capacity_segments(engine: IVMEngine, stream):
     """Split a raw stream so no sparse view's worst-case insert budget
     crosses the load-factor bound inside one segment: ``[(sub_stream,
-    grow_caps), ...]``.  With dense views only, one segment that grows
-    nothing."""
-    _dense_only(engine.views)
-    return [(list(stream), {})]
+    grow_caps), ...]``, where ``grow_caps`` maps view names to the capacity
+    they rehash to before the segment runs.  Budgets are the eager growth
+    path's (B × unbound-domain product a batch, clamped to the domain
+    product) and occupancy is tracked conservatively, so a segment never
+    drops a row; capacities stop growing at the domain product's power of
+    two.  Reads each sparse view's occupancy on the host once."""
+    caps: dict[str, int] = {}
+    occ: dict[str, int] = {}
+    full: dict[str, int] = {}
+    for name, v in engine.views.items():
+        if isinstance(v, storage_mod.SparseRelation):
+            caps[name] = v.capacity
+            occ[name] = v.num_slots_used_sync()
+            full[name] = storage_mod.next_pow2(
+                storage_mod.comp_width(v.domains))
+    if not caps:
+        return [(list(stream), {})]
+    touched: dict[str, list[str]] = {}
+    for rel in {r for r, _ in stream}:
+        wv, _ = engine.plans.write_sets(engine, rel)
+        touched[rel] = [n for n in wv if n in caps]
+
+    def budget(name: str, rel: str, upd: COOUpdate) -> int:
+        v = engine.views[name]
+        return min(engine._insert_budget(v, rel, upd),
+                   storage_mod.comp_width(v.domains))
+
+    segments: list = []
+    cur: list = []
+    grow: dict[str, int] = {}
+    for rel, upd in stream:
+        need: dict[str, int] = {}
+        for name in touched[rel]:
+            b = budget(name, rel, upd)
+            c = caps[name]
+            while (c < full[name]
+                   and occ[name] + b > storage_mod.LOAD_FACTOR * c):
+                c *= 2
+            if c != caps[name]:
+                need[name] = c
+        if need and cur:
+            segments.append((cur, grow))
+            cur, grow = [], {}
+        if need:
+            grow.update(need)
+            caps.update(need)
+        cur.append((rel, upd))
+        for name in touched[rel]:
+            occ[name] = min(occ[name] + budget(name, rel, upd), full[name])
+    segments.append((cur, grow))
+    return segments
 
 
 def split_segments(segments, max_updates: int | None):
@@ -485,6 +590,9 @@ class StreamExecutor:
         #: shared prep-op keys of the last rounds build (CSE telemetry)
         self.last_shared_ops: tuple = ()
         self.last_run_stats: dict = {}
+        #: per segment of the last segmented run: steps, grown capacities,
+        #: admission and dispatch host seconds, and the run's stats
+        self.last_segment_stats: list = []
 
     def _build(self, prepared: PreparedStream) -> _Program:
         if self.engine.device.type == "cuda":
@@ -509,12 +617,14 @@ class StreamExecutor:
         Unless ``donate_input=True`` the input state is copied first and
         the copy is updated in place.  A raw stream run against the
         engine's own state (``state=None``) is split into capacity segments
-        first (one segment with dense views); an explicit-state raw run is
-        audited against the caller's state.  With ``update_engine=False``
-        the engine's views and base are restored afterwards, also when the
-        run raises.  ``pipeline`` does nothing: it is kept only to match
-        the reference's signature, and belongs to the segmented path, which
-        is not ported."""
+        first (:func:`capacity_segments`; one segment that grows nothing
+        when no sparse table could fill), and runs segment by segment
+        (:meth:`_run_segmented`); an explicit-state raw run is audited
+        against the caller's state; a :class:`PreparedStream` is replayed
+        as it is, trusting its prepare-time audit.  With
+        ``update_engine=False`` the engine's views and base are restored
+        afterwards, also when the run raises.  ``pipeline`` does nothing:
+        it is kept only to match the reference's signature."""
         if state is None and donate_input and not update_engine:
             raise ValueError("donating the engine's own state without "
                              "updating the engine would leave it holding "
@@ -528,7 +638,7 @@ class StreamExecutor:
                 if state is None:
                     segments = capacity_segments(self.engine, stream)
                     if len(segments) > 1 or segments[0][1]:
-                        return self._run_segmented(segments, pipeline)
+                        return self._run_segmented(segments)
                 else:
                     check_stream_capacity(self.engine, stream, views=state[0])
                 prepared = prepare_stream(self.engine, stream,
@@ -548,13 +658,44 @@ class StreamExecutor:
             if saved is not None:
                 self.engine.set_state(saved)
 
-    def _run_segmented(self, segments, pipeline: bool = True):
-        """The pipelined capacity-segment loop: only sparse views (Queue 1
-        item 11), checkpoints (15), integrity (16) and the serving registry
-        (17) reach it."""
-        raise NotImplementedError(
-            "pipelined capacity segments are not ported yet (ROADMAP Queue 1 "
-            "items 11, 14-17)")
+    def _admit_segment(self, sub_stream, grow_caps):
+        """Admission of one segment: rehash the views ``grow_caps`` names
+        to their new capacities (device work queued behind the previous
+        segment), bucket and stack the segment's updates, and fetch its
+        plans and program.  Returns ``(prepared, admit_seconds)``."""
+        engine = self.engine
+        t0 = time.perf_counter()
+        if grow_caps:
+            engine.views = {name: (v.rehash(grow_caps[name])
+                                   if name in grow_caps else v)
+                            for name, v in engine.views.items()}
+        prepared = prepare_stream(engine, sub_stream, check_capacity=False)
+        self.compiled(prepared)
+        return prepared, time.perf_counter() - t0
+
+    def _run_segmented(self, segments):
+        """The capacity-segment loop: admit each segment (its rehash, its
+        stacked inputs, its program; :meth:`_admit_segment`), then run it as
+        one prepared stream on the engine's state.  Segment 0 copies the
+        state (it may be the caller's); later segments donate the previous
+        segment's output.  A rehash changes the storage signature, so the
+        segment after it compiles its plans and, on the card, captures its
+        graphs anew.  Per-segment stats land in :attr:`last_segment_stats`.  The
+        checkpoint, integrity and straggler hooks of the reference's loop
+        are not ported (ROADMAP Queue 1 items 15 and 16)."""
+        stats: list = []
+        state = None
+        for i, (sub, grow) in enumerate(segments):
+            prepared, admit_s = self._admit_segment(sub, grow)
+            t0 = time.perf_counter()
+            state = self.run(prepared, update_engine=True, donate_input=i > 0)
+            stats.append(dict(segment=i, n_steps=prepared.n_steps,
+                              updates=len(sub), grow=dict(grow),
+                              admit_s=admit_s,
+                              dispatch_s=time.perf_counter() - t0,
+                              run=dict(self.last_run_stats)))
+        self.last_segment_stats = stats
+        return state
 
     def resume(self, stream, checkpoint=None, pipeline: bool = True):
         """Replay-from-offset recovery from a stream checkpoint."""

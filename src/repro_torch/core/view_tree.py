@@ -173,6 +173,8 @@ def evaluate_view(
     itself)."""
     if node.is_leaf:
         out = db[node.relation]
+        if not isinstance(out, DenseRelation):  # a sparse leaf densifies
+            out = out.to_dense()
     else:
         acc: DenseRelation | None = None
         for c in node.children:

@@ -1,9 +1,10 @@
 """Synthetic databases and update streams for the port's benchmarks.
 
 Copies of the retailer snowflake and housing star definitions and of
-``synth_db`` / ``update_stream`` from ``benchmarks/common.py``: the same
-numpy calls in the same order, so one seed gives the same arrays as the
-reference.  Tensors are made on ``device``.
+``synth_db`` / ``synth_low_fill_db`` / ``update_stream`` from
+``benchmarks/common.py``: the same numpy calls in the same order, so one
+seed gives the same arrays as the reference.  Tensors are made on
+``device``.
 """
 from __future__ import annotations
 
@@ -54,6 +55,9 @@ HOUSING_RELATIONS = {
     "Transport": ("pc", "t1"),
 }
 HOUSING_DOMS = dict(pc=4096, h1=8, h2=8, s1=8, i1=8, r1=8, d1=8, t1=8)
+#: the reference's sparse-view scale: 65,536 postcodes, of which a low-fill
+#: database (:func:`synth_low_fill_db`) makes a few hundred active
+HOUSING_DOMS_BIG = dict(pc=65536, h1=8, h2=8, s1=8, i1=8, r1=8, d1=8, t1=8)
 
 
 def housing_vo():
@@ -81,6 +85,39 @@ def synth_db(relations, doms, ring, rng, density=0.3, scale=1.0,
             payload["c"] = torch.as_tensor(mult, device=dev)
             db[name] = DenseRelation(tuple(sch), ring, payload)
     return db
+
+
+def _relation(sch, ring, mult: np.ndarray, dev) -> DenseRelation:
+    """0/1 multiplicities as a base relation: ``v`` for a scalar ring, the
+    multiplicity in ``c`` of the ring's one otherwise (degree-m rings)."""
+    if set(ring.components) == {"v"}:
+        return DenseRelation(tuple(sch), ring,
+                             {"v": torch.as_tensor(mult, device=dev)})
+    payload = ring.ones(mult.shape, device=dev)
+    payload["c"] = torch.as_tensor(mult, device=dev)
+    return DenseRelation(tuple(sch), ring, payload)
+
+
+def synth_low_fill_db(relations, doms, ring, rng, wide_var: str,
+                      n_active: int, rows_per_key: int = 8, device="cuda"):
+    """Database whose ``wide_var`` dictionary is mostly inactive: every
+    relation's rows land on a shared pool of ``n_active`` values, so views
+    keyed on ``wide_var`` have fill ``n_active / D`` (the housing
+    ``pc = 65,536`` sparse-view scenario).  Returns ``(db, active values)``
+    (numpy)."""
+    dev = resolve_device(device)
+    active = np.sort(rng.choice(doms[wide_var], size=n_active, replace=False))
+    db = {}
+    for name, sch in relations.items():
+        shape = tuple(doms[v] for v in sch)
+        mult = np.zeros(shape, np.float32)
+        n_rows = n_active * rows_per_key
+        cols = [rng.choice(active, size=n_rows) if v == wide_var
+                else rng.integers(0, doms[v], size=n_rows) for v in sch]
+        np.add.at(mult, tuple(cols), 1.0)
+        mult = np.minimum(mult, 1.0)  # 0/1 multiplicities
+        db[name] = _relation(sch, ring, mult, dev)
+    return db, active
 
 
 def update_stream(relations, doms, ring, rng, batch: int, n_batches: int,

@@ -1,8 +1,10 @@
 """Dispatch layer for the ring scatter subsystem (⊎ / gather-⊗-⊎).
 
 PyTorch port of ``repro/kernels/scatter_ops.py``.  Every view-maintenance
-⊎ funnels through here: ``DenseRelation.scatter_add`` (base-relation bumps)
-and ``BatchedDelta.apply_to``.  The layer owns what the kernels don't:
+⊎ funnels through here: ``DenseRelation.scatter_add`` (base-relation bumps),
+``BatchedDelta.apply_to`` and the slot scatters of a hashed-COO
+``SparseRelation`` (whose segments are its table's slots, resolved by the
+hash kernels first).  The layer owns what the kernels don't:
 
 * **Key linearization + payload shim** — COO keys ``[B, k]`` flatten to
   row-major segment ids and a ring payload to one ``[S, d]`` plane (the
@@ -148,8 +150,10 @@ def _compact_scatter(view, seg_ids, values):
 def gather_mul_scatter_flat(view, out_ids, src, in_ids, scale,
                             backend: str | None = None):
     """view [S, d] ⊎ (scale[b] · src[in_ids[b]]) at out_ids[b] — the fused
-    sibling-gather ⊗ scatter of ``BatchedDelta.apply_to``.  Accumulates
-    into ``view`` and returns it."""
+    sibling-gather ⊗ scatter of ``BatchedDelta.apply_to``.  ``src`` is a
+    dense view's flattened plane, or a sparse view's ``[C + 1, d]`` plane
+    whose zero row C the missed probes index.  Accumulates into ``view``
+    and returns it."""
     S, d = view.shape
     backend = resolve_backend(S, out_ids.shape[0], d, backend,
                               device=view.device)

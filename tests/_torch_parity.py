@@ -60,6 +60,38 @@ def assert_views_equal(ref_eng, port_eng, where=""):
             np.testing.assert_array_equal(got, want, err_msg=f"{where} {name}.{comp}")
 
 
+def sparse_views(ref_eng) -> dict:
+    """The reference engine's views as numpy, ``{name: (capacity, table,
+    payload)}``; capacity and table are None for a dense view."""
+    from repro.core import storage as rstorage
+
+    out = {}
+    for name, rv in ref_eng.views.items():
+        sparse = isinstance(rv, rstorage.SparseRelation)
+        out[name] = (rv.capacity if sparse else None,
+                     np.asarray(rv.table) if sparse else None,
+                     {c: np.asarray(a) for c, a in rv.payload.items()})
+    return out
+
+
+def assert_sparse_views_equal(want, port_eng, where=""):
+    """Every view of ``port_eng`` bitwise against a :func:`sparse_views`
+    snapshot, a hash table's capacity and key table too."""
+    from repro_torch.core.storage import SparseRelation
+
+    assert set(want) == set(port_eng.views)
+    for name, (capacity, table, payload) in want.items():
+        tv = port_eng.views[name]
+        assert isinstance(tv, SparseRelation) == (table is not None), name
+        if table is not None:
+            assert tv.capacity == capacity, (where, name)
+            np.testing.assert_array_equal(tv.table.numpy(), table,
+                                          err_msg=f"{where} {name} table")
+        for c, arr in payload.items():
+            np.testing.assert_array_equal(tv.payload[c].numpy(), arr,
+                                          err_msg=f"{where} {name}.{c}")
+
+
 def run_parity(ref_query, port_query, ref_db, stream, var_order_ref,
                var_order_port, strategy):
     """Build both engines, replay ``stream`` (reference updates), compare

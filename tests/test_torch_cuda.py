@@ -1084,3 +1084,225 @@ def test_cuda_eager_trigger_path_does_not_synchronise(cuda_device, ring, fusion)
                 eng.apply_update(rel, upd)
         finally:
             torch.cuda.set_sync_debug_mode(0)
+
+
+# ---------------------------------------------------------------------------
+# sparse view storage: the hash kernels, and triggers and graphs over hash
+# tables
+# ---------------------------------------------------------------------------
+def _hash_case(rng, C, B, prefill, id_max=1 << 20):
+    """A table holding ``prefill`` distinct ids (inserted by the plain
+    version) and ``B`` distinct new ids with two sentinels (-1)."""
+    from repro_torch.kernels import hash_table
+
+    table = torch.full((C,), -1, dtype=torch.int32)
+    pre = np.unique(rng.integers(0, id_max, size=prefill)).astype(np.int32)
+    hash_table.insert_ref(table, torch.tensor(pre))
+    ids = np.setdiff1d(np.unique(rng.integers(0, id_max, size=B)), pre)
+    ids = rng.permutation(np.concatenate([ids, [-1, -1]])).astype(np.int32)
+    return table, torch.tensor(ids)
+
+
+#: (capacity, new ids, prefilled ids): small tables, contention at a 0.7 load,
+#: a table that fills up (rows that never place), and the rehash sizes of
+#: the housing legs
+_HASH_CASES = [(8, 6, 0), (64, 40, 5), (16, 30, 6), (2048, 1000, 512),
+               (8192, 4000, 3072), (1 << 17, 1 << 16, 0)]
+
+
+@pytest.mark.parametrize("C,B,prefill", _HASH_CASES)
+def test_cuda_hash_insert_matches_plain(cuda_device, C, B, prefill):
+    """``hash_insert`` builds the plain version's table slot for slot (the
+    reference's lockstep rounds), with its slots and placed flags, in one
+    launch."""
+    from repro_torch.kernels import hash_table
+
+    rng = np.random.default_rng(C + B)
+    table, ids = _hash_case(rng, C, B, prefill)
+    want_table = table.clone()
+    want_slot, want_placed = hash_table.insert_ref(want_table, ids)
+    got_table = table.to(cuda_device)
+    before = hash_table.HASH_INSERT.launches
+    got_slot, got_placed = hash_table.hash_insert(got_table, ids.to(cuda_device))
+    torch.cuda.synchronize()
+    assert hash_table.HASH_INSERT.launches == before + 1
+    assert torch.equal(got_table.cpu(), want_table)
+    assert torch.equal(got_slot.cpu(), want_slot)
+    assert torch.equal(got_placed.cpu(), want_placed)
+    if C == 16:
+        assert not want_placed.all()
+
+
+@pytest.mark.parametrize("C,B,prefill", _HASH_CASES)
+def test_cuda_hash_probe_matches_plain(cuda_device, C, B, prefill):
+    """``hash_probe`` gives the plain version's slots and found flags for
+    present, absent and sentinel ids, in one launch."""
+    from repro_torch.kernels import hash_table
+
+    rng = np.random.default_rng(C + 2 * B)
+    table, ids = _hash_case(rng, C, B, prefill)
+    hash_table.insert_ref(table, ids)
+    queries = torch.cat([ids, torch.tensor(rng.integers(-1, 1 << 20, size=B)
+                                           .astype(np.int32))])
+    want = hash_table.probe_ref(table, queries)
+    before = hash_table.HASH_PROBE.launches
+    got = hash_table.hash_probe(table.to(cuda_device), queries.to(cuda_device))
+    torch.cuda.synchronize()
+    assert hash_table.HASH_PROBE.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _housing_sparse(dev, n_active=128, pool_extra=0, batch=32, n_batches=12):
+    """The housing star at pc = 4,096 (auto: six hash tables, fill 3.1 %),
+    its low-fill database and a stream on ``dev``."""
+    doms = synth.HOUSING_DOMS
+    q = Query(relations=synth.HOUSING_RELATIONS, free_vars=(), ring=sum_ring(),
+              domains=doms, lifts={"h2": ("value",)})
+    db, active = synth.synth_low_fill_db(synth.HOUSING_RELATIONS, doms, q.ring,
+                                         np.random.default_rng(0), "pc", n_active,
+                                         device=dev)
+    pool = np.sort(np.concatenate([
+        active, np.setdiff1d(np.arange(doms["pc"]), active)[:pool_extra]]))
+    stream = synth.update_stream(synth.HOUSING_RELATIONS, doms, q.ring,
+                                 np.random.default_rng(1), batch, n_batches,
+                                 key_pools={"pc": pool}, device=dev)
+    return q, db, stream
+
+
+def _sparse_views_equal(a, b):
+    from repro_torch.core.storage import SparseRelation
+
+    for name, v in a.views.items():
+        w = b.views[name]
+        assert isinstance(v, SparseRelation) == isinstance(w, SparseRelation), name
+        if isinstance(v, SparseRelation):
+            assert torch.equal(v.table.cpu(), w.table.cpu()), name
+        assert torch.equal(v.payload["v"].cpu(), w.payload["v"].cpu()), name
+
+
+@pytest.mark.parametrize("fusion", ["off", "on"])
+def test_cuda_sparse_trigger_does_not_synchronise(cuda_device, fusion):
+    """After a warm-up round, a round of eager triggers that ⊎ into hash
+    tables (``functional_update``: the trigger without the eager path's
+    growth check, whose occupancy read is its one synchronise) makes no
+    synchronising call, launches both hash kernels and leaves the CPU
+    engine's views and tables."""
+    from repro_torch.kernels import hash_table
+
+    with tplan.use_fusion(fusion):
+        engines = {}
+        for dev in ("cpu", cuda_device):
+            q, db, stream = _housing_sparse(dev)
+            eng = IVMEngine.build(q, db, var_order=synth.housing_vo(), device=dev)
+            assert sum(s.kind == "sparse" for s in eng.storage_plan.values()) == 6
+            for i, (rel, upd) in enumerate(stream):
+                if str(dev) == "cpu" or i < 6:
+                    eng.apply_update(rel, upd)
+                    continue
+                if i == 6:
+                    before = (hash_table.HASH_PROBE.launches,
+                              hash_table.HASH_INSERT.launches)
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    eng.views, eng.base = eng.functional_update(eng.views, eng.base,
+                                                                rel, upd)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            engines[str(dev)] = eng
+    assert hash_table.HASH_PROBE.launches > before[0]
+    assert hash_table.HASH_INSERT.launches > before[1]
+    _sparse_views_equal(engines["cpu"], engines[str(cuda_device)])
+
+
+@pytest.mark.parametrize("fusion", ["off", "on"])
+def test_cuda_graphed_executor_over_sparse_views_matches_eager(cuda_device, fusion):
+    """The executor on the card over hash tables: a capture run, then a
+    replay-only run under ``set_sync_debug_mode("error")`` that keeps every
+    state leaf (key tables and planes included) at its address; both equal
+    the eager engine bitwise, with the eager engine's launch counts."""
+    from repro_torch.core import StreamExecutor, prepare_stream
+
+    q, db, stream = _housing_sparse(cuda_device)
+    with tplan.use_fusion(fusion):
+        eager, graphed = (IVMEngine.build(q, db, var_order=synth.housing_vo(),
+                                          device=cuda_device) for _ in range(2))
+        prepared = prepare_stream(graphed, stream)
+        assert prepared.mode == "rounds"
+        ex = StreamExecutor(graphed)
+        for rel, upd in stream:
+            eager.views, eager.base = eager.functional_update(
+                eager.views, eager.base, rel, upd)
+        ex.run(prepared)
+        assert ex.last_run_stats["replays"] > 0
+        _sparse_views_equal(eager, graphed)
+        ptrs = [t.data_ptr() for t in tplan.state_leaves(graphed.state)]
+        before = _counts()
+        for rel, upd in stream:
+            eager.views, eager.base = eager.functional_update(
+                eager.views, eager.base, rel, upd)
+        want_launches = _since(before)
+        assert want_launches.get("hash_insert", 0) > 0
+        before = _counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ex.run(prepared, donate_input=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert _since(before) == want_launches
+        assert ex.last_run_stats["eager_steps"] == 0
+    assert [t.data_ptr() for t in tplan.state_leaves(graphed.state)] == ptrs
+    _sparse_views_equal(eager, graphed)
+    ex.release()
+
+
+def test_cuda_executor_grows_tables_between_segments(cuda_device):
+    """A raw stream that outgrows the tables runs as capacity segments on
+    the card (rehash, recompile, capture): views and tables equal the CPU
+    executor's."""
+    from repro_torch.core import StreamExecutor
+
+    out = {}
+    for dev in ("cpu", cuda_device):
+        q, db, stream = _housing_sparse(dev, pool_extra=1024 - 128, batch=200)
+        eng = IVMEngine.build(q, db, var_order=synth.housing_vo(), device=dev)
+        ex = StreamExecutor(eng)
+        ex.run(stream)
+        assert any(s["grow"] for s in ex.last_segment_stats)
+        out[str(dev)] = eng
+    _sparse_views_equal(out["cpu"], out[str(cuda_device)])
+
+
+@pytest.mark.parametrize("kernel", ["scatter_add", "scatter_dedup", "fused_chain",
+                                    "gather_mul_scatter"])
+@pytest.mark.parametrize("d", [1, 111])
+def test_cuda_scatter_kernels_flush_subnormals(cuda_device, kernel, d):
+    """Payloads and products near 1e-40 (below 2^-126), through each ⊎
+    kernel at d = 1 (scalar reductions only) and d = 111 (the float4
+    reductions of a row's aligned interior, ``common.cuh``'s ``reduce_group``,
+    and the scalar ones of its head and tail): every kernel leaves 0, as
+    the reference's XLA ⊎ does (the float32 reductions flush subnormal
+    inputs and results).  The plain versions keep such values
+    (``tests/test_torch_scatter.py::
+    test_subnormal_payloads_reference_flushes_plain_versions_keep``)."""
+    S, B = 64, 256
+    rng = np.random.default_rng(d)
+    ids = torch.tensor(rng.permutation(np.arange(B) % S).astype(np.int32),
+                       device=cuda_device)
+    view = torch.zeros((S, d), device=cuda_device)
+    tiny = torch.full((B, d), 1e-40, device=cuda_device)
+    if kernel in ("scatter_add", "scatter_dedup"):
+        ring_scatter.scatter_add(view, ids, tiny, dedup=kernel == "scatter_dedup")
+    elif kernel == "fused_chain":  # 1e-20 · 1e-20: a subnormal product
+        vals = torch.full((B, d), 1e-20, device=cuda_device)
+        plane = torch.full((S, d), 1e-20, device=cuda_device)
+        ring_fused.fused_apply(view, ids, vals, [(plane, ids)], ("scalar",)
+                               if d == 1 else ("degree", 10))
+    else:
+        src = torch.full((S, d), 1e-20, device=cuda_device)
+        ring_scatter.gather_mul_scatter(view, ids, src, ids,
+                                        torch.full((B,), 1e-20, device=cuda_device))
+    torch.cuda.synchronize()
+    assert not view.any(), f"{kernel} kept {int(view.count_nonzero())} subnormal values"

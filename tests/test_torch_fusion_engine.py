@@ -34,6 +34,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import COOUpdate, IVMEngine, Query, chain, sum_ring  # noqa: E402
 from repro_torch.core import plan as tplan  # noqa: E402
 from repro_torch.core.apps import regression  # noqa: E402
+from repro_torch.core.storage import SparseRelation  # noqa: E402
 from repro_torch.data import synth  # noqa: E402
 from repro_torch.kernels import ring_fused  # noqa: E402
 
@@ -145,7 +146,8 @@ def _regression_engines(storage="dense"):
     def ref_build():
         return ref_regression.build_cofactor_engine(
             rels, doms, {n: jnp.asarray(m) for n, m in mult.items()},
-            var_order=ref_chain(["A"], {"A": [["B"], ["C"]]}))
+            var_order=ref_chain(["A"], {"A": [["B"], ["C"]]}),
+            **({} if storage == "dense" else dict(storage=storage)))
 
     def port_build():
         return regression.build_cofactor_engine(
@@ -311,14 +313,22 @@ def test_first_order_and_int_ring_plans_stay_unfused():
 
 
 def test_fused_chain_over_sparse_storage_raises():
-    """Sparse views are ROADMAP Queue 1 item 11: a fused chain that meets a
-    view that is not dense refuses instead of gathering it."""
-    _, port_build = _regression_engines()
-    eng = port_build()
-    upd = _regression_upd(eng.query.ring)
-    with tplan.use_fusion("on"):
-        plan = eng.trigger_plan("R", upd)
-    views = dict(eng.views)
-    views["V1@C"] = object()  # stands in for a hashed-COO view
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tplan.run_coo_ops(plan.ops, views, eng.query, upd)
+    """Sparse views are ported now, and fused chains run over them: with
+    every view a hash table the fused chains gather from sparse planes
+    (missed probes read the zero row) and ⊎ into claimed slots, equal after
+    every update to the reference's unfused and fused engines, key tables
+    included.  (The name is kept from when such a chain refused.)"""
+    ref_build, port_build = _regression_engines(storage="sparse")
+    ring_r = ref_build().query.ring
+    stream = _regression_stream(ring_r, ["R", "S", "R", "R", "S"])
+    ref_on, port, _, port_chains = _fused_parity(
+        ref_build, port_build, stream, port_build().query.ring)
+    assert len(port_chains["R"]) == 2
+    chains = [op for p in port.plans.plans.values() for op in p.ops
+              if isinstance(op, tplan.FusedChain)]
+    assert any(inner.storage == "sparse" for c in chains for inner in c.ops
+               if isinstance(inner, tplan.Gather))
+    for name, v in port.views.items():
+        if isinstance(v, SparseRelation):
+            np.testing.assert_array_equal(v.table.numpy(),
+                                          np.asarray(ref_on.views[name].table))

@@ -5,12 +5,14 @@
 * Entry points default to ``device="cuda"`` and raise on a host without
   CUDA unless the caller passes ``device="cpu"``.
 * What the slice does not port yet raises ``NotImplementedError``
-  (sparse storage also under plan fusion; every LM family but dense GQA,
-  and the training loss).
+  (indicators, factorized updates, sharding; every LM family but dense
+  GQA, and the training loss); sparse storage, ported since, runs against
+  the reference instead.
 * On a CUDA host the kernel toolchain (``nvcc``) is present: the test fails,
   not skips, where it is missing.
 """
 import ast
+import functools
 import pathlib
 
 import numpy as np
@@ -113,23 +115,85 @@ def test_server_without_device_raises_on_a_host_without_cuda():
     assert Server(cfg, device="cpu").device.type == "cpu"
 
 
+def _sparse_inputs(what):
+    """(reference query, numpy database, stream, storage keywords) for a case
+    of sparse storage, which is ported now: ``auto`` (the default, dense at
+    these domains), ``sparse``, a per-view ``sparse`` override, and
+    ``sparse`` under plan fusion."""
+    from benchmarks import common as bc
+    from repro.core import Query as RQuery
+    from repro.core import sum_ring as rsum
+
+    rq = RQuery(relations=bc.RETAILER_RELATIONS, free_vars=(), ring=rsum(),
+                domains=bc.RETAILER_DOMS, lifts={"units": ("value",)})
+    rng = np.random.default_rng(0)
+    rdb = bc.synth_db(bc.RETAILER_RELATIONS, bc.RETAILER_DOMS, rq.ring, rng,
+                      density=0.02)
+    stream = bc.update_stream(bc.RETAILER_RELATIONS, bc.RETAILER_DOMS, rq.ring,
+                              rng, 8, 5)
+    dense, _, _ = _small_engine(device="cpu", storage="dense")
+    keyed = sorted(n for n, v in dense.views.items() if v.schema)[0]
+    kw = {"auto": {}, "sparse": dict(storage="sparse"),
+          "fusion": dict(storage="sparse"),
+          "sparse_override": dict(storage="dense",
+                                  storage_overrides={keyed: "sparse"})}[what]
+    return rq, rdb, stream, kw
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_run(what):
+    """The reference engine's storage plan and result after the case's
+    stream; computed once a storage setting (the ``fusion`` case shares
+    ``sparse``'s: the port's plan fusion does not reach the reference)."""
+    if what == "fusion":
+        return _reference_run("sparse")
+    from benchmarks import common as bc
+    from repro.core import IVMEngine as RefEngine
+
+    rq, rdb, stream, kw = _sparse_inputs(what)
+    ref = RefEngine.build(rq, rdb, var_order=bc.retailer_vo(), **kw)
+    storage_plan = {n: (s.kind, s.capacity) for n, s in ref.storage_plan.items()}
+    for rel, upd in stream:
+        ref.apply_update(rel, upd)
+    return storage_plan, np.asarray(ref.result().payload["v"])
+
+
+def _sparse_case(what):
+    """(port engine, stream) for a case of :func:`_sparse_inputs`."""
+    import _torch_parity as P
+    from repro_torch import convert
+
+    _, rdb, stream, kw = _sparse_inputs(what)
+    q = Query(relations=synth.RETAILER_RELATIONS, free_vars=(), ring=sum_ring(),
+              domains=synth.RETAILER_DOMS, lifts={"units": ("value",)})
+    db = convert.database_from_numpy(P.db_to_numpy(rdb), q.ring, device="cpu")
+    eng = IVMEngine.build(q, db, var_order=synth.retailer_vo(), device="cpu", **kw)
+    return eng, stream
+
+
 @pytest.mark.parametrize("what", ["auto", "sparse", "sparse_override",
                                   "indicators", "factorized", "sharding",
                                   "fusion"])
 def test_unported_features_raise(what):
-    if what == "fusion":
-        # fusion is ported; fused sparse storage is not
-        with plan.use_fusion("on"):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-                _small_engine(device="cpu", storage="sparse")
-        return
-    if what in ("auto", "sparse"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            _small_engine(device="cpu", storage=what)
-        return
-    if what == "sparse_override":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            storage.plan_storage({}, overrides={"V0@locn": "sparse"})
+    """What is not ported raises; the sparse-storage cases, ported since,
+    now run a short retailer stream against the reference (the same
+    storage plan, the same result)."""
+    if what in ("auto", "sparse", "sparse_override", "fusion"):
+        import _torch_parity as P
+
+        eng, stream = _sparse_case(what)
+        ref_plan, ref_result = _reference_run(what)
+        assert {n: (s.kind, s.capacity) for n, s in eng.storage_plan.items()} == ref_plan
+        kinds = {s.kind for s in eng.storage_plan.values()}
+        assert kinds == ({"dense"} if what == "auto" else {"dense", "sparse"})
+        with plan.use_fusion("on" if what == "fusion" else "off"):
+            for rel, upd in stream:
+                eng.apply_update(rel, P.port_update(upd, eng.query.ring))
+        np.testing.assert_array_equal(eng.result().payload["v"].numpy(), ref_result)
+        if what == "sparse_override":
+            assert [n for n, v in eng.views.items()
+                    if isinstance(v, storage.SparseRelation)] == [
+                        n for n, s in eng.storage_plan.items() if s.kind == "sparse"]
         return
     if what == "indicators":
         with pytest.raises(NotImplementedError, match="Queue 1 item 5"):

@@ -215,3 +215,29 @@ def test_wrappers_check_their_inputs():
         ring_scatter.scatter_add(torch.zeros((2, 4)).t(), ids, vals)
     with pytest.raises(TypeError):
         tsegsum.segment_ring_sum(vals.double(), ids, 4)
+
+
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+def test_subnormal_payloads_reference_flushes_plain_versions_keep(backend):
+    """Float32 payloads near 1e-40 (below 2^-126): the reference's XLA ⊎
+    (the ``jnp`` backend) flushes them to 0, and so does every reduction of
+    the reference on the CPU; the port's plain versions keep them (torch on
+    the CPU does not flush).  On the card the kernels flush, as the
+    reference does (``tests/test_torch_cuda.py::
+    test_cuda_scatter_kernels_flush_subnormals``): the plain versions are
+    the side that differs from the reference, and only in this range."""
+    tiny = np.float32(1e-40)
+    assert 0 < tiny < np.finfo(np.float32).tiny
+    ids = np.array([0, 0, 2, -1, 5], np.int32)
+    vals = np.full((5, 3), tiny, np.float32)
+    want = np.asarray(rscatter.scatter_add_flat(
+        jnp.zeros((4, 3), jnp.float32), jnp.asarray(ids), jnp.asarray(vals),
+        backend="jnp"))
+    assert not want.any()  # flushed
+    assert float(jnp.sum(jnp.asarray(vals))) == 0.0
+    got = scatter_ops.scatter_add_flat(torch.zeros((4, 3)), torch.tensor(ids),
+                                       torch.tensor(vals), backend=backend)
+    keep = np.zeros((4, 3), np.float32)
+    keep[0] = np.float32(2 * tiny)  # two rows, exact in the subnormal range
+    keep[2] = tiny
+    np.testing.assert_array_equal(got.numpy(), keep)

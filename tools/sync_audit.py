@@ -11,9 +11,17 @@ For each ROOT (default: this checkout; another, such as a parent commit's
 under the ``scatter_dedup`` ⊎ backend), each on a fresh engine: one round
 of five batches of 1000 to warm up (lift relations, kernel libraries,
 cuBLAS), then one more round under ``torch.cuda.set_sync_debug_mode
-("warn")``.  Prints one JSON line a phase: the synchronising calls counted
-and their sites (the innermost frame in ``repro_torch``, with its source
-line).  Card only.
+("warn")``.  Where the tree has sparse view storage, also the housing star
+at ``HOUSING_DOMS_BIG`` (pc = 65,536) with ``auto`` storage, which keeps six
+of its seven views as hash tables: the sum ring (512 active postcodes,
+batches of 64, fusion off and ``auto``) and the degree-8 cofactor ring
+(3,072 active postcodes, batches of 1000, fusion ``auto``), two rounds of
+six batches each.  Prints one JSON line a phase: the synchronising calls
+counted and their sites (the innermost frame in ``repro_torch``, with its
+source line), split into those of the trigger (``trigger_syncs``) and those
+of the eager path's table growth check (``growth_syncs``: the occupancy
+read of ``storage.grow_if_loaded``, one a touched sparse view a batch).
+Card only.
 """
 from __future__ import annotations
 
@@ -34,14 +42,53 @@ PHASES = (("retailer_sum", "sum", "off", None),
           ("retailer_sum_scatter_dedup", "sum", "off", "scatter_dedup"),
           ("retailer_cofactor_m10", "cofactor", "off", None),
           ("retailer_cofactor_m10_fused", "cofactor", "auto", None))
+#: (label, ring, fusion, active postcodes, batch) of the housing phases
+SPARSE_PHASES = (("housing_sparse_sum", "sum", "off", 512, 64),
+                 ("housing_sparse_sum_fused", "sum", "auto", 512, 64),
+                 ("housing_sparse_cofactor_fused", "cofactor", "auto", 3072, BATCH))
 
 
-def _site() -> str:
-    for frame in reversed(traceback.extract_stack()):
+def _site() -> tuple[str, bool]:
+    """The innermost ``repro_torch`` frame of the current stack, and
+    whether the call came from the eager path's table growth check."""
+    stack = traceback.extract_stack()
+    growth = any(f.name == "grow_if_loaded" for f in stack)
+    for frame in reversed(stack):
         if "repro_torch" in frame.filename:
             path = frame.filename[frame.filename.index("repro_torch"):]
-            return f"{path}:{frame.lineno} {frame.line}"
-    return "outside repro_torch"
+            return f"{path}:{frame.lineno} {frame.line}", growth
+    return "outside repro_torch", growth
+
+
+def _audit(eng, warm, audited) -> dict:
+    """Apply ``warm``, then ``audited`` under sync debug mode "warn";
+    returns the counts and sites of the audited updates."""
+    import torch
+
+    sites: Counter = Counter()
+    growth: Counter = Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            site, in_growth = _site()
+            (growth if in_growth else sites)[site] += 1
+
+    for rel, upd in warm:
+        eng.apply_update(rel, upd)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for rel, upd in audited:
+                eng.apply_update(rel, upd)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return dict(batches=len(audited), syncs=sum(sites.values()) + sum(growth.values()),
+                trigger_syncs=sum(sites.values()), sites=dict(sites),
+                growth_syncs=sum(growth.values()), growth_sites=dict(growth))
 
 
 def worker(tree: Path) -> None:
@@ -62,32 +109,35 @@ def worker(tree: Path) -> None:
         db = synth.synth_db(rels, doms, q.ring, rng, device="cuda")
         stream = synth.update_stream(rels, doms, q.ring, rng, BATCH, 2 * len(rels),
                                      device="cuda")
-        sites: Counter = Counter()
-
-        def record(message, category, filename, lineno, file=None, line=None):
-            if "called a synchronizing CUDA operation" in str(message):
-                sites[_site()] += 1
-
         with plan.use_fusion(fusion), scatter_ops.use_backend(backend):
             eng = IVMEngine.build(q, db, var_order=synth.retailer_vo(),
                                   strategy="fivm", storage="dense", device="cuda")
             eng.precompile(BATCH)
-            for rel, upd in stream[:len(rels)]:
-                eng.apply_update(rel, upd)
-            torch.cuda.synchronize()
-            with warnings.catch_warnings():
-                warnings.simplefilter("always")
-                warnings.showwarning = record
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    for rel, upd in stream[len(rels):]:
-                        eng.apply_update(rel, upd)
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-            torch.cuda.synchronize()
-        print(json.dumps(dict(root=str(tree), phase=label, batches=len(rels),
-                              syncs=sum(sites.values()), sites=dict(sites))),
-              flush=True)
+            out = _audit(eng, stream[:len(rels)], stream[len(rels):])
+        print(json.dumps(dict(root=str(tree), phase=label, **out)), flush=True)
+        del eng, db, stream
+        torch.cuda.empty_cache()
+    if not hasattr(synth, "synth_low_fill_db"):  # a tree before sparse storage
+        return
+    doms, rels = synth.HOUSING_DOMS_BIG, synth.HOUSING_RELATIONS
+    for label, ring, fusion, n_active, batch in SPARSE_PHASES:
+        q = (Query(relations=rels, free_vars=(), ring=sum_ring(), domains=doms,
+                   lifts={"h2": ("value",)}) if ring == "sum"
+             else regression.cofactor_query(rels, doms))
+        db, active = synth.synth_low_fill_db(rels, doms, q.ring,
+                                             np.random.default_rng(0), "pc",
+                                             n_active, device="cuda")
+        stream = synth.update_stream(rels, doms, q.ring, np.random.default_rng(1),
+                                     batch, 2 * len(rels), key_pools={"pc": active},
+                                     device="cuda")
+        with plan.use_fusion(fusion):
+            eng = IVMEngine.build(q, db, var_order=synth.housing_vo(),
+                                  strategy="fivm", device="cuda")
+            n_sparse = sum(s.kind == "sparse" for s in eng.storage_plan.values())
+            eng.precompile(batch)
+            out = _audit(eng, stream[:len(rels)], stream[len(rels):])
+        print(json.dumps(dict(root=str(tree), phase=label, sparse_views=n_sparse,
+                              **out)), flush=True)
         del eng, db, stream
         torch.cuda.empty_cache()
 
