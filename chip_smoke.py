@@ -40,8 +40,14 @@ Phases (any failed check raises, and the script exits non-zero):
    ``hash_probe`` and ``hash_insert``, bitwise against the reference's
    loops written in torch (their plain versions) at S3's table (8,192
    slots, 3,072 keys, 1,000 ids), at a table that fills up and at a rehash
-   into 2^17 slots; bound: ids and chain words at the measured mean chain
-   length, results written.
+   into 2^17 slots: the insert by the route the wrapper picks for the
+   shape (cta up to 16,384 slots, else global) with its rounds; at S3's
+   shape also ``hash_insert_targets`` (a raw
+   batch with repeated ids; by ids and keyed) and the keyed probe, each
+   beside the rank prepass or linearize-and-probe composition it replaces
+   (device events and ms), and a sparse relation's claim and sibling
+   gather at one device event each; bound: ids (key columns) and chain
+   words at the measured mean chain length, results written.
 3. Paths, each through ``IVMEngine.apply_update`` (fivm, ``auto`` storage,
    which keeps every retailer view dense; checked) at
    ``RETAILER_DOMS_BIG`` with batches of 1000 tuples, checked against a
@@ -65,7 +71,8 @@ Phases (any failed check raises, and the script exits non-zero):
    (pc = 65,536) with ``auto`` storage (``HOUSING_LEGS``), each leg eager
    (growth included), profiled, and through the stream executor, against
    the float64 oracle, with view bytes sparse and dense, peak bytes,
-   tuples/s and launches a batch:
+   tuples/s, launches a batch (by hash entry and insert route too) and
+   device events a batch; every sparse read must take the keyed probe:
    - S1, the reference's scenario: the sum ring, 512 active postcodes,
      10 batches of 64, fusion off and ``auto``; the plan must be the
      reference's (six tables of 2,048 slots, ``V7@pc`` dense) and every
@@ -1761,6 +1768,9 @@ HOUSING_LEGS = (("S1_housing_sum", "sum", 512, 512, 64, 10, ("off", "auto")),
 #: the hash kernels' shapes: a table of S3's planned capacity holding its
 #: active keys, and a batch of distinct ids (S3's batches, in rank order)
 HASH_C, HASH_KEYS, HASH_B = 8192, 3072, BATCH
+#: a rehash of 2^16 ids into 2^17 slots, past one block's shared memory
+#: (the global route)
+HASH_REHASH_C, HASH_REHASH_B = 1 << 17, 1 << 16
 
 
 def chain_lengths(slot, ids, C: int) -> float:
@@ -1774,14 +1784,23 @@ def chain_lengths(slot, ids, C: int) -> float:
 
 
 def hash_rows(rng, rows: dict) -> None:
-    """``hash_probe`` and ``hash_insert`` against their plain versions (the
-    reference's loops in torch, run on the same card tensors), bitwise, at
-    the S3 shape: a table of 8,192 slots holding 3,072 keys, 1,000 distinct
-    ids (half of them present), then at a full table (rows that never
-    place) and a rehash into 2^17 slots.  Timed with CUDA events and the
-    profiler; bound: the ids and the chain words read at the measured mean
-    chain length, the results written (and the table words an insert
-    writes: its new ids, not its hits), at the card's memory rate."""
+    """The hash kernels of sparse view storage against their plain versions
+    (the reference's loops in torch, run on the same card tensors),
+    bitwise.  ``hash_insert`` by the route the wrapper picks, with its
+    rounds: at the S3 shape (a table of 8,192
+    slots holding 3,072 keys, 1,000 distinct ids, half of them present), a
+    full table (rows that never place) and the rehash of 2^16 ids into 2^17
+    slots.  ``hash_probe`` on the filled table.  At the S3 shape also
+    ``hash_insert_targets`` on a raw batch (duplicated ids, sentinels; by
+    ids and keyed) against its plain version and against the rank prepass
+    composition it replaces, and the keyed probe against its plain
+    version and the stack → linear_ids → probe → where it replaces; on a
+    sparse relation, a claim (``fused_slot_targets``) and a sibling gather
+    (``gather_rows``) must each be one device event.  Timed with CUDA
+    events and the profiler; bound: ids (or key columns) and the chain
+    words read at the measured mean chain length, the results written (and
+    the table words an insert writes: its new ids, not its hits), at the
+    card's memory rate."""
     import torch
     from repro_torch.kernels import hash_table
 
@@ -1791,40 +1810,36 @@ def hash_rows(rng, rows: dict) -> None:
         hash_table.insert_ref(table, ids_tensor(keys[:n_keys]))
         ids = np.concatenate([rng.choice(keys[:n_keys], size=present, replace=False),
                               keys[n_keys:n_keys + B - present]]) if n_keys else keys[:B]
-        return table, ids_tensor(rng.permutation(ids))
+        return table, ids_tensor(rng.permutation(ids)), keys
 
-    for C, n_keys, B, present in ((HASH_C, HASH_KEYS, HASH_B, HASH_B // 2),
-                                  (64, 40, 40, 10), (1 << 17, 0, 1 << 16, 0)):
-        table, ids = case(C, n_keys, B, present)
-        shape = dict(C=C, keys=n_keys, B=B)
-        # insert: the kernel and its plain version on copies of one table
-        want_t = table.clone()
-        want = hash_table.insert_ref(want_t, ids)
-        got_t = table.clone()
-        got = hash_table.hash_insert(got_t, ids)
-        torch.cuda.synchronize()
-        for name, g, w in (("table", got_t, want_t), ("slot", got[0], want[0]),
-                           ("placed", got[1], want[1])):
+    def check(label, pairs):
+        for name, g, w in pairs:
             if not torch.equal(g, w):
-                raise AssertionError(f"hash_insert {shape}: {name} differs from "
-                                     f"the plain version")
+                raise AssertionError(f"{label}: {name} differs from the plain version")
+
+    kernel_of = {"cta": "smem_insert_kernel", "global": "global_insert_kernel"}
+    for C, n_keys, B, present in ((HASH_C, HASH_KEYS, HASH_B, HASH_B // 2),
+                                  (64, 40, 40, 10), (HASH_REHASH_C, 0, HASH_REHASH_B, 0)):
+        table, ids, _ = case(C, n_keys, B, present)
+        shape = dict(C=C, keys=n_keys, B=B)
+        want_t, want_rounds = table.clone(), torch.zeros(1, dtype=torch.int32, device="cuda")
+        want = hash_table.insert_ref(want_t, ids, rounds=want_rounds)
         n_placed = int(want[1].sum())
         # the table words the insert writes: placed rows whose id was not
         # there yet (a hit resolves without a write)
         n_written = int((want_t != table).sum())
         ins_len = chain_lengths(want[0].masked_fill(~want[1], 0),
                                 ids.masked_fill(~want[1], -1), C)
-        # probe: the filled table, the batch and as many absent ids
-        queries = torch.cat([ids, ids_tensor(rng.integers(0, 1 << 22, size=B))])
-        pw = hash_table.probe_ref(want_t, queries)
-        pg = hash_table.hash_probe(want_t, queries)
-        for name, g, w in (("slot", pg[0], pw[0]), ("found", pg[1], pw[1])):
-            if not torch.equal(g, w):
-                raise AssertionError(f"hash_probe {shape}: {name} differs from "
-                                     f"the plain version")
-        probe_len = chain_lengths(pw[0], queries, C)
-        nq = queries.shape[0]
+        bms, by = bound_ms(B * 4 + B * ins_len * 4 + B * 5 + n_written * 4, 0)
         work = table.clone()
+        route = hash_table.insert_route(C, B)
+        got_t = table.clone()
+        rounds = torch.zeros(1, dtype=torch.int32, device="cuda")
+        got = hash_table.hash_insert(got_t, ids, rounds=rounds)
+        torch.cuda.synchronize()
+        check(f"hash_insert {shape} route {route}",
+              (("table", got_t, want_t), ("slot", got[0], want[0]),
+               ("placed", got[1], want[1]), ("rounds", rounds, want_rounds)))
 
         def insert():  # on a fresh copy of the table each call
             work.copy_(table)
@@ -1834,27 +1849,163 @@ def hash_rows(rng, rows: dict) -> None:
             work.copy_(table)
             return hash_table.insert_ref(work, ids)
 
-        bms, by = bound_ms(B * 4 + B * ins_len * 4 + B * 5 + n_written * 4, 0)
-        row = dict(shape=shape, max_abs_err=0.0, placed=n_placed, written=n_written,
+        row = dict(shape=shape, insert_route=route, rounds=int(rounds),
+                   max_abs_err=0.0, placed=n_placed, written=n_written,
                    mean_chain=ins_len, kernel_ms=time_ms(insert),
-                   device_ms=kernel_device_ms(insert, "hash_insert_kernel"),
-                   plain_ms=time_ms(insert_plain, reps=5, warmup=1),
-                   library_ms=None, bound_ms=bms, bound_by=by,
+                   device_ms=kernel_device_ms(insert, kernel_of[route]),
+                   plain_ms=time_ms(insert_plain, reps=5, warmup=1), library_ms=None,
+                   bound_ms=bms, bound_by=by,
                    note="ms and plain_ms include a copy of the table a call")
         rows["hash_insert"].append(row)
         log({"kernel": "hash_insert", **row})
+        # probe: the filled table, the batch and as many absent ids
+        queries = torch.cat([ids, ids_tensor(rng.integers(0, 1 << 22, size=B))])
+        pw = hash_table.probe_ref(want_t, queries)
+        probe_len = chain_lengths(pw[0], queries, C)
+        nq = queries.shape[0]
         bms, by = bound_ms(nq * 4 + nq * probe_len * 4 + nq * 5, 0)
+        plain_ms = time_ms(lambda: hash_table.probe_ref(want_t, queries), reps=5, warmup=1)
+        pg = hash_table.hash_probe(want_t, queries)
+        check(f"hash_probe {shape}", (("slot", pg[0], pw[0]), ("found", pg[1], pw[1])))
+
+        def probe():
+            return hash_table.hash_probe(want_t, queries)
+
         row = dict(shape=dict(shape, B=nq), max_abs_err=0.0, mean_chain=probe_len,
-                   found=int(pw[1].sum()),
-                   kernel_ms=time_ms(lambda: hash_table.hash_probe(want_t, queries)),
-                   device_ms=kernel_device_ms(lambda: hash_table.hash_probe(want_t, queries),
-                                              "hash_probe_kernel"),
-                   plain_ms=time_ms(lambda: hash_table.probe_ref(want_t, queries),
-                                    reps=5, warmup=1),
-                   library_ms=None, bound_ms=bms, bound_by=by)
+                   found=int(pw[1].sum()), kernel_ms=time_ms(probe),
+                   device_ms=kernel_device_ms(probe, "hash_probe_kernel"),
+                   plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by)
         rows["hash_probe"].append(row)
         log({"kernel": "hash_probe", **row})
         del work
+    hash_key_rows(rng, rows, case, check)
+
+
+def hash_key_rows(rng, rows: dict, case, check) -> None:
+    """``hash_insert_targets`` and the keyed probe at the S3 shape (see
+    :func:`hash_rows`), and the one-event claim and gather of a sparse
+    relation."""
+    import torch
+    from repro_torch.core import storage, sum_ring
+    from repro_torch.kernels import hash_table
+
+    C, n_keys, B = HASH_C, HASH_KEYS, HASH_B
+    table, _, keys = case(C, n_keys, 0, 0)
+    # a raw batch as S3's: ids drawn with repeats from the keys held and as
+    # many new ones, a few sentinels; and the same ids as column 1 of a
+    # [B, 3] key matrix (the delta's), linearized with stride 1
+    pool = np.concatenate([keys[:n_keys], rng.choice(1 << 22, size=n_keys)])
+    raw = rng.choice(pool, size=B).astype(np.int32)
+    raw[rng.random(B) < 0.02] = -1
+    ids = ids_tensor(raw)
+    kmat = ids_tensor(np.stack([rng.integers(0, 9, size=B), raw.clip(0),
+                                rng.integers(0, 9, size=B)], axis=1))
+    want_t = table.clone()
+    want = hash_table.insert_targets_ref(want_t, ids)
+    # the composition it replaces: rank prepass, insert, gather back to rows
+    comp_t = table.clone()
+    rank, uniq = storage._rank_ids(ids)
+    slot, placed = hash_table.hash_insert(comp_t, uniq)
+    composed = torch.where(placed, slot, -1).index_select(0, rank.long())
+    check("rank prepass composition", (("table", comp_t, want_t), ("target", composed, want)))
+    n_written = int((want_t != table).sum())
+    distinct = int(torch.unique(ids[ids >= 0]).numel())
+    ins_len = chain_lengths(want.clamp(min=0), ids.masked_fill(want < 0, -1), C)
+    # the key matrix holds a sentinel row as key 0
+    want_kt = table.clone()
+    want_k = hash_table.insert_targets_ref(want_kt, ids.clamp(min=0))
+    work = table.clone()
+    plain_ms = None
+    for keyed in (False, True):
+        got_t = table.clone()
+        got = (hash_table.hash_insert_targets_keys(got_t, kmat, (1,), (1,)) if keyed
+               else hash_table.hash_insert_targets(got_t, ids))
+        torch.cuda.synchronize()
+        check(f"hash_insert_targets keyed={keyed}",
+              (("table", got_t, want_kt if keyed else want_t),
+               ("target", got, want_k if keyed else want)))
+
+        def claim(keyed=keyed):
+            work.copy_(table)
+            return (hash_table.hash_insert_targets_keys(work, kmat, (1,), (1,)) if keyed
+                    else hash_table.hash_insert_targets(work, ids))
+
+        def composition():
+            work.copy_(table)
+            rank, uniq = storage._rank_ids(ids)
+            slot, placed = hash_table.hash_insert(work, uniq)
+            return torch.where(placed, slot, -1).index_select(0, rank.long())
+
+        if plain_ms is None:
+            def claim_plain():
+                work.copy_(table)
+                return hash_table.insert_targets_ref(work, ids)
+
+            plain_ms = time_ms(claim_plain, reps=5, warmup=1)
+        bms, by = bound_ms(B * 4 + distinct * ins_len * 4 + B * 4 + n_written * 4, 0)
+        row = dict(shape=dict(C=C, keys=n_keys, B=B, keyed=keyed),
+                   insert_route=hash_table.insert_route(C, B),
+                   distinct=distinct, written=n_written, mean_chain=ins_len,
+                   max_abs_err=0.0, kernel_ms=time_ms(claim),
+                   device_ms=kernel_device_ms(claim, "smem_insert_kernel"),
+                   composition_ms=time_ms(composition),
+                   composition_device_ms=all_device_ms(composition),
+                   composition_events=len(device_events(composition, 1)[0]),
+                   plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by,
+                   note="ms, composition_ms and plain_ms include a copy of the "
+                        "table a call")
+        rows["hash_insert_targets"].append(row)
+        log({"kernel": "hash_insert_targets", **row})
+    # keyed probe: the filled table, the batch's key matrix and as many rows
+    # of absent ids
+    qraw = np.concatenate([raw.clip(0), rng.integers(0, 1 << 22, size=B)]).astype(np.int32)
+    qmat = ids_tensor(np.stack([rng.integers(0, 9, size=2 * B), qraw,
+                                rng.integers(0, 9, size=2 * B)], axis=1))
+    pw = hash_table.probe_keys_ref(want_t, qmat, (1,), (1,))
+    probe_len = chain_lengths(pw[0], ids_tensor(qraw), C)
+    nq = 2 * B
+    bms, by = bound_ms(nq * 4 + nq * probe_len * 4 + nq * 9, 0)
+    plain_ms = time_ms(lambda: hash_table.probe_keys_ref(want_t, qmat, (1,), (1,)),
+                       reps=5, warmup=1)
+
+    def composition():
+        stacked = torch.stack([qmat[:, 1]], dim=1)
+        slot, found = hash_table.hash_probe(want_t, storage.linear_ids(stacked, (1 << 22,)))
+        return torch.where(found, slot, C)
+
+    check("keyed probe composition", (("rows", composition(), pw[2]),))
+    pg = hash_table.hash_probe_keys(want_t, qmat, (1,), (1,))
+    check("hash_probe_keys",
+          (("slot", pg[0], pw[0]), ("found", pg[1], pw[1]), ("rows", pg[2], pw[2])))
+
+    def probe():
+        return hash_table.hash_probe_keys(want_t, qmat, (1,), (1,))
+
+    row = dict(shape=dict(C=C, keys=n_keys, B=nq, keyed=True), max_abs_err=0.0,
+               mean_chain=probe_len, found=int(pw[1].sum()), kernel_ms=time_ms(probe),
+               device_ms=kernel_device_ms(probe, "hash_probe_kernel"),
+               composition_ms=time_ms(composition),
+               composition_device_ms=all_device_ms(composition),
+               composition_events=len(device_events(composition, 1)[0]),
+               plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by)
+    rows["hash_probe_keys"].append(row)
+    log({"kernel": "hash_probe_keys", **row})
+    # a sparse relation at S3's capacity: a claim and a sibling gather on a
+    # delta's key matrix are one device event each
+    rel = storage.SparseRelation.zeros(("pc",), sum_ring(), (1 << 22,), capacity=C,
+                                       device="cuda")
+    rel.scatter_add(ids_tensor(keys[:n_keys, None]),
+                    {"v": torch.ones(n_keys, device="cuda")})
+    events = dict(
+        fused_slot_targets=check_one_launch(
+            "sparse claim", lambda: rel.fused_slot_targets(kmat, (1,)),
+            "smem_insert_kernel", hash_table.HASH_INSERT),
+        gather_rows=check_one_launch(
+            "sparse sibling gather", lambda: rel.gather_rows(kmat, (1,)),
+            "hash_probe_kernel", hash_table.HASH_PROBE))
+    log({"hash_one_launch": events})
+    rows["hash_insert_targets"][-1]["device_events_per_call"] = events["fused_slot_targets"]
+    rows["hash_probe_keys"][0]["device_events_per_call"] = events["gather_rows"]
 
 
 def housing_query(ring: str, doms, dtype=None):
@@ -1969,6 +2120,9 @@ def housing_leg(label, leg, q, q64, db, pool, n_active, batch, n_batches,
     missing = [n for n in ("hash_probe", "hash_insert") if launches[n] == 0]
     if missing:
         raise AssertionError(f"{label}: the sparse path never launched {missing}")
+    # every sparse read is the keyed probe, every batch's claim one insert
+    if not launches["hash_probe:keys"] or launches["hash_probe:ids"]:
+        raise AssertionError(f"{label}: sparse reads not keyed: {launches}")
     eager_caps = capacities(eng)
     if leg == "S2" and not all(eager_caps[n] > caps_before[n] for n in caps_before):
         raise AssertionError(f"{label}: the eager tables did not grow: "
@@ -1994,6 +2148,7 @@ def housing_leg(label, leg, q, q64, db, pool, n_active, batch, n_batches,
     updates = iter(stream)
     events, wall = device_events(lambda: prof_eng.apply_update(*next(updates)), len(stream))
     profile = _busy(events, wall)
+    profile["device_events_per_batch"] = profile["device_events"] / n_batches
     del prof_eng
     torch.cuda.empty_cache()
     executor = housing_executor(label, leg, build, stream, q, q64, db, pool, batch,
@@ -2097,6 +2252,7 @@ def housing_executor(label, leg, build, stream, q, q64, db, pool, batch, n_batch
     reset(kernels)
     events, wall = device_events(lambda: ex.run(prepared, donate_input=True), 1)
     profile = _busy(events, wall)
+    profile["device_events_per_batch"] = profile["device_events"] / n_batches
     out.update(mode=prepared.mode, prepare_s=prepare_s, capture_run=runs["capture"],
                replay_run=runs["replay"], profile=profile,
                launches={k.name: runs["capture"]["launches"][k.name]
@@ -2124,7 +2280,8 @@ def main() -> int:
     from repro_torch.data import synth
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.cofactor_update import COFACTOR_UPDATE
-    from repro_torch.kernels.hash_table import HASH_INSERT, HASH_PROBE
+    from repro_torch.kernels.hash_table import (HASH_INSERT, HASH_PROBE, ROUTE_LAUNCHES,
+                                                ROUTES)
     from repro_torch.kernels.flash_attention import (FLASH_ATTENTION,
                                                      FLASH_ATTENTION_TF32,
                                                      FLASH_ATTENTION_WGMMA)
@@ -2163,9 +2320,12 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     laps.lap("build")
     rows = kernel_phase(rng, laps)
-    rows.update(hash_probe=[], hash_insert=[])
+    rows.update(hash_probe=[], hash_insert=[], hash_insert_targets=[], hash_probe_keys=[])
     hash_rows(rng, rows)
     laps.lap("kernels: hash_probe, hash_insert")
+    # the paths count each kernel and, beside the hash kernels, each entry
+    # and insert route (hash_table.ROUTE_LAUNCHES)
+    built, kernels = kernels, kernels + list(ROUTE_LAUNCHES.values())
 
     doms = synth.RETAILER_DOMS_BIG
     rels = synth.RETAILER_RELATIONS
@@ -2234,8 +2394,12 @@ def main() -> int:
         run[key] for run in paths for key in ("launches_float32", "launches_float32_reduced")
         if key in run]
     launched = {k.name: sum(r[k.name] for r in runs) for k in kernels}
-    if not all(launched.values()):
+    if not all(launched[k.name] for k in built):
         raise AssertionError(f"a kernel launched on no path: {launched}")
+    # every sparse read and claim of the main path took the keyed forms
+    if (not launched["hash_probe:keys"] or launched["hash_probe:ids"]
+            or not sum(launched[f"hash_insert_targets:{r}"] for r in ROUTES)):
+        raise AssertionError(f"sparse reads and claims not keyed: {launched}")
 
     sources = {
         "scatter_add": ("src/repro_torch/kernels/csrc/scatter_add.cu",
@@ -2282,20 +2446,36 @@ def main() -> int:
         "hash_insert": ("src/repro_torch/kernels/csrc/hash_insert.cu",
                         "src/repro/core/storage.py:271",
                         dict(C=HASH_C, keys=HASH_KEYS, B=HASH_B)),
+        "hash_insert_targets": ("src/repro_torch/kernels/csrc/hash_insert.cu",
+                                "src/repro/core/storage.py:271 (with :313 _rank_ids)",
+                                dict(C=HASH_C, keys=HASH_KEYS, B=HASH_B, keyed=True)),
+        "hash_probe_keys": ("src/repro_torch/kernels/csrc/hash_probe.cu",
+                            "src/repro/core/storage.py:210 (with :79 linear_ids)",
+                            dict(C=HASH_C, keys=HASH_KEYS, B=2 * HASH_B, keyed=True)),
     }
+    # the hash kernels' rows are entries that share a kernel: each row
+    # counts its own entry's launches (by route for the inserts), so the
+    # rows of one kernel add up to its launches
+    entries = {entry: [f"{entry}:{r}" for r in ROUTES]
+               for entry in ("hash_insert", "hash_insert_targets")}
+    entries.update(hash_probe=["hash_probe:ids"], hash_probe_keys=["hash_probe:keys"])
     summary = []
     for name, (source, replaces, shape) in sources.items():
         row = next(r for r in rows[name] if r["shape"] == shape)
         summary.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launched[name],
+            launches=sum(launched[n] for n in entries.get(name, [name])),
             max_abs_err=max(r["max_abs_err"] for r in rows[name]),
             ms=row["kernel_ms"], device_ms=row["device_ms"],
             plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=shape,
             **{k: row[k] for k in ("variant", "tc_bound_ms", "exp_bound_ms", "host_us",
-                                   "simt_device_ms") if k in row}))
+                                   "simt_device_ms", "insert_route", "rounds",
+                                   "composition_ms", "composition_device_ms")
+               if k in row},
+            **({"launches_by_route": {n.split(":")[1]: launched[n] for n in entries[name]}}
+               if name in ("hash_insert", "hash_insert_targets") else {})))
     log({"kernels": summary})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -187,6 +187,10 @@ class BatchedDelta:
     def key_col(self, var: str) -> torch.Tensor:
         return self.keys[:, self.coo_schema.index(var)]
 
+    def _cols(self, schema) -> list[int]:
+        """The column of each variable of ``schema`` in :attr:`keys`."""
+        return [self.coo_schema.index(v) for v in schema]
+
     @classmethod
     def from_coo(cls, ring: Ring, upd: COOUpdate) -> "BatchedDelta":
         return cls(
@@ -223,12 +227,13 @@ class BatchedDelta:
         step's memo)."""
         from . import storage
 
-        keys = torch.stack([self.key_col(v) for v in view.schema], dim=1)
         if isinstance(view, storage.SparseRelation):
-            slots, found = view.lookup(keys)
+            # one keyed probe launch on the delta's key matrix
+            rows = view.gather_rows(self.keys, self._cols(view.schema))
             if src_plane is None:
                 src_plane = view.gather_plane()  # [C + 1, d], zero row at C
-            return src_plane, torch.where(found, slots, view.capacity)
+            return src_plane, rows
+        keys = torch.stack([self.key_col(v) for v in view.schema], dim=1)
         if src_plane is None:
             src_plane = storage.flatten_payload(self.ring, view.payload,
                                                 view.domains)
@@ -318,10 +323,8 @@ class BatchedDelta:
             if view.schema and all(v in self.coo_schema for v in view.schema):
                 # per-row gather-multiply (a second sibling after a forced
                 # pending gather, or a delta carrying dense axes)
-                keys = torch.stack([self.key_col(v) for v in view.schema],
-                                   dim=1)
-                payload = _mul_broadcast(ring, self.payload, view.gather(keys),
-                                         self.dense_schema)
+                g = view.gather(self.keys, self._cols(view.schema))
+                payload = _mul_broadcast(ring, self.payload, g, self.dense_schema)
                 return dataclasses.replace(self, payload=payload)
             view = view.to_dense()  # the join grows dense axes: materialize
         shared_coo = [v for v in view.schema if v in self.coo_schema]
@@ -517,14 +520,15 @@ class BatchedDelta:
         if not view.schema:
             raise ValueError("scalar-keyed views are always dense")
         if not self.dense_schema:
-            keys = torch.stack([self.key_col(v) for v in view.schema], dim=1)
             if self.pending_gather is not None and self._is_scalar_ring():
-                # fused: insert slots, then one gather-⊗-⊎ over the plane
+                # fused: claim slots (one insert launch on the delta's key
+                # matrix), then one gather-⊗-⊎ over the plane
                 src_plane, in_ids = self.pending_gather
                 comp = next(iter(ring.components))
-                return view.gather_mul_scatter(keys, src_plane, in_ids,
-                                               self.payload[comp],
-                                               backend=backend)
+                return view.gather_mul_scatter(self.keys, src_plane, in_ids,
+                                               self.payload[comp], backend=backend,
+                                               cols=self._cols(view.schema))
+            keys = torch.stack([self.key_col(v) for v in view.schema], dim=1)
             slf = self._force()  # non-scalar pending: gather, then scatter
             return view.scatter_add(keys, slf.payload, backend=backend)
         slf = self._force()

@@ -1017,17 +1017,17 @@ def _run_fused_chain(chain: FusedChain, delta: BatchedDelta, views: Mapping,
     for op in chain.ops:
         if isinstance(op, Gather):
             view = views[op.view]
-            kv = view_keys(view.schema)
             plane = memo.get(("plane", op.view)) if memo else None
             if isinstance(view, SparseRelation):
-                slots, found = view.lookup(kv)
+                # one keyed probe launch: the delta's key columns in, the
+                # plane row (a missed key reads the zero row C) out
+                ids = view.gather_rows(keys, [coo.index(v) for v in view.schema])
                 if plane is None:
                     plane = view.gather_plane()
-                ids = torch.where(found, slots, view.capacity)
             else:
                 if plane is None:
                     plane = flatten_payload(ring, view.payload, view.domains)
-                ids = linear_ids(kv, view.domains)
+                ids = linear_ids(view_keys(view.schema), view.domains)
             sources.append((plane, ids))
         elif isinstance(op, Lift):
             lift_rel = query.lift_rel(op.var, dev)
@@ -1048,7 +1048,8 @@ def _run_fused_chain(chain: FusedChain, delta: BatchedDelta, views: Mapping,
             view = views[op.view]
             product = (torch.empty_like(vals) if chain.carries else None)
             if isinstance(view, SparseRelation):
-                table, ids = view.fused_slot_targets(view_keys(view.schema))
+                table, ids = view.fused_slot_targets(
+                    keys, [coo.index(v) for v in view.schema])
                 out = ring_fused.fused_apply(view.rows, ids, vals, sources,
                                              spec, backend=op.backend,
                                              product_out=product)

@@ -11,10 +11,12 @@
   row stays zero (the row a missed probe reads).  Slots are resolved by the
   hash kernels (``repro_torch.kernels.hash_table``: ``hash_probe`` and
   ``hash_insert``, one launch each and no host synchronise, so a trigger
-  that writes a sparse view can be captured in a CUDA graph), and the
-  payload ⊎ runs through the ordinary scatter kernel dispatch on those
-  slots.  Like every view the engine owns, a sparse view is updated in
-  place: its table and plane keep their addresses.
+  that writes a sparse view can be captured in a CUDA graph); a trigger's
+  reads and claims take the delta's key matrix as it is (the keyed probe,
+  ``hash_insert_targets_keys``: no stacked keys, no linear-id pass, no rank
+  prepass), and the payload ⊎ runs through the ordinary scatter kernel
+  dispatch on those slots.  Like every view the engine owns, a sparse
+  view is updated in place: its table and plane keep their addresses.
 * storage planner — picks dense or sparse per materialized view from the
   modeled ``domain product × fill``, honouring ``REPRO_TORCH_VIEW_STORAGE``
   and per-view overrides.
@@ -82,6 +84,16 @@ def linear_ids(keys: torch.Tensor, domains) -> torch.Tensor:
         stride *= int(domains[j + 1])
         ids.add_(keys[:, j], alpha=stride)
     return ids
+
+
+def row_major_strides(domains) -> tuple[int, ...]:
+    """The row-major stride of each key column over ``domains`` (the factor
+    :func:`linear_ids` multiplies it by)."""
+    strides, s = [], 1
+    for d in reversed(tuple(domains)):
+        strides.append(s)
+        s *= int(d)
+    return tuple(strides[::-1])
 
 
 def unlinearize_ids(ids: torch.Tensor, domains) -> torch.Tensor:
@@ -240,8 +252,8 @@ def _insert_ids(table: torch.Tensor, ids: torch.Tensor):
 def _rank_ids(ids: torch.Tensor):
     """Sort/rank key dedup: per-row rank into the distinct-id list, and the
     distinct ids themselves (EMPTY-padded).  Sentinel ids (< 0) collapse
-    into one EMPTY rank.  :func:`_insert_ids` requires distinct ids, so
-    every insert path resolves slots per rank."""
+    into one EMPTY rank.  :func:`_dedup_ids` sums a key's value rows by
+    rank."""
     B = ids.shape[0]
     ids = ids.to(torch.int32)
     rank = torch.zeros((B,), dtype=torch.int32, device=ids.device)
@@ -300,6 +312,7 @@ class SparseRelation:
         if tuple(self.plane.shape) != (C + 1, payload_width(self.ring)):
             raise ValueError(f"plane {tuple(self.plane.shape)} for capacity {C}")
         self.payload = unflatten_payload(self.ring, self.plane[:C], (C,))
+        self._strides = row_major_strides(self._domains)
 
     # -- layout --------------------------------------------------------------
     @property
@@ -400,13 +413,29 @@ class SparseRelation:
                                       for c in ring.components})
 
     # -- core ops ------------------------------------------------------------
-    def _targets(self, ids: torch.Tensor) -> torch.Tensor:
-        """Claim slots for linearized ids (duplicates share one slot through
-        the rank prepass): the target slot of every row, EMPTY where the
-        table is full."""
-        rank, uniq = _rank_ids(ids)
-        slots, placed = _insert_ids(self.table, uniq)
-        return torch.where(placed, slots, EMPTY).index_select(0, rank.long())
+    def _key_matrix(self, keys: torch.Tensor, cols):
+        """(int32 key matrix with unit column stride, the view's columns in
+        it): ``keys`` [B, k] in schema order when ``cols`` is None, else a
+        delta's key matrix and the index of each view variable in it."""
+        if cols is None:
+            if keys.dim() != 2 or keys.shape[1] != len(self.schema):
+                raise ValueError(f"keys {tuple(keys.shape)} do not match schema "
+                                 f"{self.schema}")
+            cols = range(len(self.schema))
+        if keys.dtype is not torch.int32:
+            keys = keys.to(torch.int32)
+        if keys.dim() == 2 and keys.shape[1] > 1 and keys.stride(1) != 1:
+            keys = keys.contiguous()
+        return keys, tuple(cols)
+
+    def _targets(self, keys: torch.Tensor, cols=None) -> torch.Tensor:
+        """Claim slots for the view keys in ``keys`` (:meth:`_key_matrix`;
+        duplicates share one slot): the target slot of every row, EMPTY
+        where the table is full.  One ``hash_insert`` launch that reads the
+        key columns itself."""
+        keys, cols = self._key_matrix(keys, cols)
+        return hash_table.hash_insert_targets_keys(self.table, keys, cols,
+                                                   self._strides)
 
     def _scatter_lin(self, ids: torch.Tensor, flat_vals: torch.Tensor,
                      backend: str | None = None) -> "SparseRelation":
@@ -439,14 +468,15 @@ class SparseRelation:
 
     def gather_mul_scatter(self, keys: torch.Tensor, src_plane: torch.Tensor,
                            in_ids: torch.Tensor, scale: torch.Tensor,
-                           backend: str | None = None) -> "SparseRelation":
-        """``self ⊎ (scale[b] · src_plane[in_ids[b]])`` at ``keys`` — the
-        deferred sibling gather fused with the slot scatter (scalar rings):
-        the target slots are inserted first, then one gather-⊗-⊎ runs over
-        the payload plane, accumulating duplicate keys."""
+                           backend: str | None = None, cols=None) -> "SparseRelation":
+        """``self ⊎ (scale[b] · src_plane[in_ids[b]])`` at ``keys``
+        (:meth:`_key_matrix`) — the deferred sibling gather fused with the
+        slot scatter (scalar rings): the target slots are claimed first,
+        then one gather-⊗-⊎ runs over the payload plane, accumulating
+        duplicate keys."""
         from ..kernels import ref, scatter_ops
 
-        target = self._targets(linear_ids(keys, self._domains))
+        target = self._targets(keys, cols)
         rows = self.rows
         in_ids = in_ids.to(torch.int32).contiguous()
         if rows.dtype == torch.float32 and src_plane.dtype == torch.float32:
@@ -456,11 +486,12 @@ class SparseRelation:
             ref.gather_mul_scatter_ref(rows, target, src_plane, in_ids, scale)
         return self
 
-    def fused_slot_targets(self, keys: torch.Tensor):
-        """(table, target [B]) for the fused chain: claim slots for
-        ``keys`` but do not dedup values (the fused kernel accumulates
-        duplicates per tile).  Overflow rows map to EMPTY and drop."""
-        return self.table, self._targets(linear_ids(keys, self._domains))
+    def fused_slot_targets(self, keys: torch.Tensor, cols=None):
+        """(table, target [B]) for the fused chain: claim slots for the
+        view keys in ``keys`` (:meth:`_key_matrix`) but do not dedup values
+        (the fused kernel accumulates duplicates per tile).  Overflow rows
+        map to EMPTY and drop."""
+        return self.table, self._targets(keys, cols)
 
     def replace_plane(self, table: torch.Tensor,
                       plane: torch.Tensor) -> "SparseRelation":
@@ -480,26 +511,35 @@ class SparseRelation:
         return SparseRelation(self.schema, self.ring, self._domains, table,
                               _with_zero_row(rows))
 
-    def lookup(self, keys: torch.Tensor):
-        """(slots [B], found [B]) for keys [B, k] — the raw probe."""
-        return _find_slots(self.table, linear_ids(keys, self._domains))
+    def _probe_keys(self, keys: torch.Tensor, cols):
+        keys, cols = self._key_matrix(keys, cols)
+        return hash_table.hash_probe_keys(self.table, keys, cols, self._strides)
+
+    def lookup(self, keys: torch.Tensor, cols=None):
+        """(slots [B], found [B]) for the view keys in ``keys``
+        (:meth:`_key_matrix`) — the raw probe, one keyed ``hash_probe``
+        launch."""
+        slot, found, _ = self._probe_keys(keys, cols)
+        return slot, found
 
     #: the serving read path's probe (:func:`_probe_slots`), which is
     #: :meth:`lookup` here
     probe = lookup
 
-    def _read(self, slot: torch.Tensor, found: torch.Tensor) -> Payload:
-        """Payload rows at ``slot`` where ``found``, ring zero elsewhere: a
-        missed probe reads the plane's zero row C."""
-        rows = torch.where(found, slot, self.capacity).long()
-        return unflatten_payload(self.ring, self.plane.index_select(0, rows),
-                                 (slot.shape[0],))
+    def gather_rows(self, keys: torch.Tensor, cols=None) -> torch.Tensor:
+        """The plane row each view key in ``keys`` (:meth:`_key_matrix`)
+        reads: its slot where the table holds it, else the zero row C.  One
+        keyed ``hash_probe`` launch."""
+        return self._probe_keys(keys, cols)[2]
 
-    def gather(self, keys: torch.Tensor) -> Payload:
-        """keys [B, k] -> payload leaves [B, *comp]; absent keys read 0.
-        A deleted key keeps its slot but its payload is ring zero, so it
-        reads exactly as an absent key does."""
-        return self._read(*self.lookup(keys))
+    def gather(self, keys: torch.Tensor, cols=None) -> Payload:
+        """keys (:meth:`_key_matrix`) -> payload leaves [B, *comp]; absent
+        keys read 0 (the plane's zero row C).  A deleted key keeps its slot
+        but its payload is ring zero, so it reads exactly as an absent key
+        does."""
+        rows = self.gather_rows(keys, cols)
+        return unflatten_payload(self.ring, self.plane.index_select(0, rows.long()),
+                                 (rows.shape[0],))
 
     #: :meth:`gather` through :meth:`probe`, which is :meth:`gather` here
     gather_batched = gather

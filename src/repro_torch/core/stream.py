@@ -70,6 +70,7 @@ the serving registry (item 17), with the segment hooks that serve them.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Sequence
 
@@ -475,6 +476,9 @@ class _Program:
                        for rel, plan in zip(prepared.rel_order, prepared.plans)]
         self.tail = lambda state, items: None
 
+    def release(self) -> None:
+        """Nothing to drop: an eager program holds no graphs."""
+
     def steps(self, prepared: PreparedStream) -> list:
         """The body of each step of ``prepared``."""
         if self.mode == "switch":
@@ -520,10 +524,21 @@ class _GraphProgram(_Program):
     def _capture(self, u: int, state):
         graph = torch.cuda.CUDAGraph()
         launches = _cuda.CapturedLaunches()
+        # No garbage collection while a graph is captured: a program is a
+        # reference cycle (its bodies read ``self.xs``), so one dropped
+        # without :meth:`release` frees its graphs only when the collector
+        # runs, and a graph destroyed mid-capture invalidates the capture.
+        # The collector runs on its own schedule outside captures (a full
+        # collection before each capture made a stream of 12 capacity
+        # segments 40 times slower, PERF.md section 6).
+        enabled = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self._pool):
                 self.bodies[u](state, self._counter)
         finally:
+            if enabled:
+                gc.enable()
             launches.close()
         return graph, launches
 
@@ -606,8 +621,10 @@ class StreamExecutor:
         return entry
 
     def release(self) -> None:
-        """Drop every cached program, and with them their CUDA graphs and
-        graph memory."""
+        """Drop every cached program, and with them, now, their CUDA graphs
+        and graph memory."""
+        for program in self._compiled.values():
+            program.release()
         self._compiled.clear()
 
     def run(self, stream_or_prepared, state=None, update_engine: bool = True,

@@ -113,6 +113,17 @@ class CudaKernel:
         self.launches += 1
 
 
+class LaunchCount:
+    """The launches of one entry or route of a kernel, counted beside the
+    kernel's own ``launches`` by its wrapper.  Registered with the kernels,
+    so that :class:`CapturedLaunches` counts its replays too."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+        KERNELS.append(self)
+
+
 def build_all(kernels) -> float:
     """Build every kernel whose library is missing, all ``nvcc`` processes
     at once; returns the seconds taken.  Raises with the compiler's output

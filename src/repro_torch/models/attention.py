@@ -188,7 +188,8 @@ def gqa_decode(cfg, p, x, cache, pos: int):
     """x [B,d], one token at ``pos``; cache {"k","v"} [B,KV,S,hd] is written
     in place at slot ``pos``.  Returns (y [B,d], cache)."""
     q, k, v = _qkv(cfg, p, x)                      # [B,heads,hd]
-    posv = torch.tensor([pos], device=x.device)
+    # built on the device: a tensor of host data would be a blocking copy
+    posv = torch.arange(pos, pos + 1, device=x.device)
     q = apply_rope(q[:, None], posv, cfg.rope_theta)[:, 0]
     k = apply_rope(k[:, None], posv, cfg.rope_theta)[:, 0]
     cache["k"][:, :, pos] = k.to(cache["k"].dtype)

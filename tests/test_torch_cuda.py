@@ -856,6 +856,31 @@ def test_cuda_lm_prefill_and_decode_match_cpu(cuda_device, arch):
         assert float((b.cpu() - a).abs().max()) <= 1e-5 * scale
 
 
+def test_cuda_decode_step_does_not_synchronise(cuda_device):
+    """One decode step of the reduced llama config, its token already on the
+    card, makes no synchronising call: ``gqa_decode`` builds the step's
+    position on the device (it was a tensor of host data, a blocking copy
+    in every layer; ROADMAP Queue 3)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import registry
+
+    cfg = get_config("llama3_2_1b").reduced()
+    api = registry.build(cfg)
+    params = api.init(seed=0, device=cuda_device)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 33))
+    logits, cache = api.prefill(params, {"tokens": toks}, 40)
+    token = logits.argmax(-1)
+    logits, cache = api.decode_step(params, token, 33, cache)  # warm-up
+    token = logits.argmax(-1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = api.decode_step(params, token, 34, cache)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(logits).all())
+
+
 # ---------------------------------------------------------------------------
 # CUDA graphs: the stream path's kernels captured and replayed, and the
 # stream executor (core/stream.py) against the eager engine
@@ -1153,6 +1178,165 @@ def test_cuda_hash_probe_matches_plain(cuda_device, C, B, prefill):
         assert torch.equal(g.cpu(), w)
 
 
+#: (route, capacity, new ids, prefilled ids): each insert route at sizes
+#: that take it (the wrapper picks the route by size), rows above a
+#: block's threads (cta: 5,000 rows on 1,024 threads; global: 9,000 and
+#: 2^16 rows on 1,024), and full tables (rows that never place)
+_ROUTE_CASES = [("cta", 8, 6, 0), ("cta", 16, 30, 6), ("cta", 8192, 4000, 3072),
+                ("cta", 16384, 5000, 2000), ("global", 32768, 1000, 512),
+                ("global", 1 << 17, 1 << 16, 0), ("global", 1 << 18, 3000, 1000),
+                ("global", 16384, 9000, 0), ("global", 64, 9000, 5)]
+
+
+def _route_id(case):
+    return "-".join(map(str, case[:3]))
+
+
+@pytest.mark.parametrize("route,C,B,prefill", _ROUTE_CASES, ids=map(_route_id, _ROUTE_CASES))
+def test_cuda_hash_insert_routes_match_plain(cuda_device, route, C, B, prefill):
+    """Each insert route, at sizes that take it, builds the plain
+    version's table slot for slot, with its slots, placed flags and rounds,
+    in one launch of that route."""
+    from repro_torch.kernels import hash_table
+
+    rng = np.random.default_rng(C + B)
+    table, ids = _hash_case(rng, C, B, prefill)
+    want_table, want_rounds = table.clone(), torch.zeros(1, dtype=torch.int32)
+    want = hash_table.insert_ref(want_table, ids, rounds=want_rounds)
+    got_table = table.to(cuda_device)
+    rounds = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    assert hash_table.insert_route(C, B) == route
+    counter = hash_table.ROUTE_LAUNCHES[f"hash_insert:{route}"]
+    before = counter.launches
+    got = hash_table.hash_insert(got_table, ids.to(cuda_device), rounds=rounds)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert torch.equal(got_table.cpu(), want_table)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(rounds) == int(want_rounds)
+
+
+def _dup_ids(rng, B, id_max):
+    """B ids with duplicates (a third of the draws repeat earlier ones) and
+    sentinels (-1, -3)."""
+    ids = rng.integers(0, id_max, size=B)
+    rep = rng.random(B) < 0.34
+    ids[rep] = rng.choice(ids[~rep], size=int(rep.sum()))
+    ids[rng.random(B) < 0.03] = -1
+    ids[:2] = -3
+    return torch.tensor(rng.permutation(ids).astype(np.int32))
+
+
+@pytest.mark.parametrize("route,C,B,prefill", _ROUTE_CASES, ids=map(_route_id, _ROUTE_CASES))
+def test_cuda_hash_insert_targets_matches_plain(cuda_device, route, C, B, prefill):
+    """``hash_insert_targets`` on duplicated ids and sentinels, by each
+    route: the plain version's table and every row's target, and the same
+    from the keyed entry on a two-column key matrix."""
+    from repro_torch.kernels import hash_table
+
+    rng = np.random.default_rng(C + 3 * B)
+    table, _ = _hash_case(rng, C, 0, prefill)
+    ids = _dup_ids(rng, B, 3 * C)
+    want_table = table.clone()
+    want = hash_table.insert_targets_ref(want_table, ids)
+    got_table = table.to(cuda_device)
+    assert hash_table.insert_route(C, B) == route
+    got = hash_table.hash_insert_targets(got_table, ids.to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(got_table.cpu(), want_table)
+    assert torch.equal(got.cpu(), want)
+    # keyed: id = 7 · col 2 + col 0 of a [B, 3] matrix (ids >= 0 only)
+    keyed = ids.clamp(min=0)
+    keys = torch.stack([keyed % 7, torch.zeros_like(keyed), keyed // 7], dim=1)
+    want_table = table.clone()
+    want = hash_table.insert_targets_ref(want_table, keyed)
+    got_table = table.to(cuda_device)
+    got = hash_table.hash_insert_targets_keys(got_table, keys.to(cuda_device), (2, 0),
+                                              (7, 1))
+    torch.cuda.synchronize()
+    assert torch.equal(got_table.cpu(), want_table)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("C,n_keys", [(8, 8), (64, 64), (64, 45), (2048, 1400),
+                                      (8192, 3072)])
+def test_cuda_keyed_probe_matches_plain(cuda_device, C, n_keys):
+    """The keyed probe (and the id probe) give the plain version's slots,
+    found flags and gather rows, on full tables (misses end where they
+    began) and on chains that wrap past slot C - 1."""
+    from repro_torch.kernels import hash_table
+
+    rng = np.random.default_rng(C + n_keys)
+    table = torch.full((C,), -1, dtype=torch.int32)
+    # up to four ids that hash to slot C - 1 first: their chains wrap
+    ids = torch.arange(1 << 16, dtype=torch.int32)
+    last = ids[hash_table.hash_ids(ids, C) == C - 1][:4].numpy()
+    rest = np.setdiff1d(rng.choice(1 << 16, size=2 * n_keys, replace=False), last)
+    present = np.concatenate([last, rng.permutation(rest)[:n_keys - len(last)]])
+    hash_table.insert_ref(table, torch.tensor(present.astype(np.int32)))
+    queries = np.concatenate([present, rng.integers(0, 1 << 16, size=3 * C)])
+    keys = torch.tensor(np.stack([queries >> 8, rng.integers(0, 5, size=len(queries)),
+                                  queries & 255], axis=1).astype(np.int32))
+    want = hash_table.probe_keys_ref(table, keys, (0, 2), (256, 1))
+    t_dev, k_dev = table.to(cuda_device), keys.to(cuda_device)
+    got = hash_table.hash_probe_keys(t_dev, k_dev, (0, 2), (256, 1))
+    ids = hash_table.linearize_ref(keys, (0, 2), (256, 1))
+    got_ids = hash_table.hash_probe(t_dev, ids.to(cuda_device))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    for g, w in zip(got_ids, want[:2]):
+        assert torch.equal(g.cpu(), w)
+    assert bool((want[0] < hash_table.hash_ids(ids, C)).any())  # wrapped chains
+
+
+def test_cuda_sparse_claim_and_gather_are_one_launch(cuda_device):
+    """On the card a sparse ``fused_slot_targets`` is one insert kernel (no
+    argsort, no rank prepass) and a sibling gather (``gather_rows``, and a
+    delta's deferred gather plan) one probe kernel, with nothing else on
+    the device; both equal the CPU relation's."""
+    from repro_torch.core.contraction import BatchedDelta
+    from repro_torch.core.storage import SparseRelation
+    from repro_torch.kernels import hash_table
+
+    rng = np.random.default_rng(9)
+    doms, schema = (64, 16), ("A", "B")
+    keys = np.stack([rng.integers(0, d, size=300) for d in doms], axis=1).astype(np.int32)
+    vals = rng.integers(-3, 4, size=300).astype(np.float32)
+    rels = {}
+    for dev in ("cpu", cuda_device):
+        rel = SparseRelation.zeros(schema, sum_ring(), doms, capacity=512, device=dev)
+        rel.scatter_add(torch.tensor(keys, device=dev), {"v": torch.tensor(vals, device=dev)})
+        rels[str(dev)] = rel
+    delta = np.stack([rng.integers(0, 5, size=1000)] + [rng.integers(0, d, size=1000)
+                                                        for d in doms[::-1]],
+                     axis=1).astype(np.int32)  # (X, B, A)
+    cols = (2, 1)
+    out = {}
+    for dev, rel in rels.items():
+        k = torch.tensor(delta, device=rel.device)
+        out[dev] = (rel.gather_rows(k, cols), rel.fused_slot_targets(k, cols)[1],
+                    rel.table.clone())
+    for g, w in zip(out[str(cuda_device)], out["cpu"]):
+        assert torch.equal(g.cpu(), w)
+    rel, k = rels[str(cuda_device)], torch.tensor(delta, device=cuda_device)
+    for fn, kernel, counter in (
+            (lambda: rel.fused_slot_targets(k, cols), "smem_insert_kernel",
+             hash_table.HASH_INSERT),
+            (lambda: rel.gather_rows(k, cols), "hash_probe_kernel", hash_table.HASH_PROBE)):
+        before = counter.launches
+        events, windows = _listed_kernels(fn, 5)
+        assert len(events) == 5 and all(kernel in e.name for e in events), \
+            [e.name for e in events]
+        assert counter.launches == before + 5 * windows
+    ring = sum_ring()
+    d = BatchedDelta(coo_schema=("X", "B", "A"), dense_schema=(), keys=k, ring=ring,
+                     payload={"v": torch.ones(1000, device=cuda_device)})
+    events, _ = _listed_kernels(lambda: d._gather_plan(rel), 5)
+    assert len(events) == 5 and all("hash_probe_kernel" in e.name for e in events)
+
+
 def _housing_sparse(dev, n_active=128, pool_extra=0, batch=32, n_batches=12):
     """The housing star at pc = 4,096 (auto: six hash tables, fill 3.1 %),
     its low-fill database and a stream on ``dev``."""
@@ -1256,6 +1440,92 @@ def test_cuda_graphed_executor_over_sparse_views_matches_eager(cuda_device, fusi
     assert [t.data_ptr() for t in tplan.state_leaves(graphed.state)] == ptrs
     _sparse_views_equal(eager, graphed)
     ex.release()
+
+
+@pytest.mark.parametrize("cols", [(0, 1, 2, 3), (4, 0, 3, 1, 2)])
+def test_cuda_wide_keys_match_plain(cuda_device, cols):
+    """Keys of 4 and 5 columns, wider than the kernels linearize: the
+    wrappers linearize them before the launch and the claim and the probe
+    are one launch each of the same kernels, equal to the plain versions
+    (which the CPU tests hold to the reference)."""
+    from repro_torch.core import storage
+    from repro_torch.kernels import hash_table
+
+    rng = np.random.default_rng(len(cols))
+    doms = (50, 30, 40, 60, 20)
+    strides = storage.row_major_strides([doms[c] for c in cols])
+    keys = torch.tensor(np.stack([rng.integers(0, d, size=3000) for d in doms], axis=1)
+                        .astype(np.int32))
+    C = 4096
+    want_t = torch.full((C,), -1, dtype=torch.int32)
+    want = hash_table.insert_targets_ref(want_t, hash_table.linearize_ref(keys, cols,
+                                                                          strides))
+    got_t, k_dev = want_t.new_full((C,), -1).to(cuda_device), keys.to(cuda_device)
+    before = _counts()
+    got = hash_table.hash_insert_targets_keys(got_t, k_dev, cols, strides)
+    queries = torch.cat([k_dev, k_dev.flip(0) % 3])
+    rows = hash_table.hash_probe_keys(got_t, queries, cols, strides)
+    torch.cuda.synchronize()
+    assert _since(before) == {"hash_insert": 1, "hash_insert_targets:cta": 1,
+                              "hash_probe": 1, "hash_probe:keys": 1}
+    assert torch.equal(got_t.cpu(), want_t) and torch.equal(got.cpu(), want)
+    want_rows = hash_table.probe_keys_ref(want_t, queries.cpu(), cols, strides)
+    for g, w in zip(rows, want_rows):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_cuda_four_column_sparse_view_matches_cpu(cuda_device):
+    """A group-by over four key columns, every view forced sparse (tables
+    sized for the stream), through the executor twice: on the card the
+    second run is graph replays alone (the root view claimed by
+    four-column keys) under ``set_sync_debug_mode("error")``; views and
+    tables equal the CPU executor's, bitwise."""
+    from repro_torch import convert
+    from repro_torch.core import StreamExecutor, chain, prepare_stream
+    from repro_torch.kernels import hash_table
+
+    rng = np.random.default_rng(5)
+    doms = dict(A=12, B=9, C=10, D=16, E=5)
+    q = Query(relations={"R": ("A", "B", "C", "D"), "S": ("D", "E")},
+              free_vars=("A", "B", "C", "D"), domains=doms, ring=sum_ring(),
+              lifts={"E": ("value",)})
+    arrays = {n: (sch, {"v": (rng.random(tuple(doms[v] for v in sch)) < 0.05)
+                        .astype(np.float32)}) for n, sch in q.relations.items()}
+    raw = []
+    for rel in ("R",) * 4:
+        sch = q.relations[rel]
+        raw.append((rel, sch, np.stack([rng.integers(0, doms[v], size=64) for v in sch],
+                                       axis=1).astype(np.int32),
+                    rng.integers(-2, 3, size=64).astype(np.float32)))
+    vo = chain(["A", "B", "C", "D"], {"D": [["E"]]})
+    engines = {}
+    for dev in ("cpu", cuda_device):
+        db = convert.database_from_numpy(arrays, q.ring, device=dev)
+        stream = [(rel, convert.update_from_numpy(sch, k, {"v": v}, q.ring, device=dev))
+                  for rel, sch, k, v in raw]
+        eng = IVMEngine.build(q, db, var_order=vo, storage="sparse",
+                              storage_opts=dict(headroom=4), device=dev)
+        assert any(len(v.schema) == 4 for n, v in eng.views.items()
+                   if eng.storage_plan[n].kind == "sparse")
+        ex = StreamExecutor(eng)
+        prepared = prepare_stream(eng, stream)
+        ex.run(prepared)
+        if str(dev) == "cpu":
+            ex.run(prepared)
+        else:
+            before = hash_table.ROUTE_LAUNCHES["hash_insert_targets:cta"].launches
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                ex.run(prepared, donate_input=True)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert ex.last_run_stats["eager_steps"] == 0
+            assert ex.last_run_stats["replays"] > 0
+            assert hash_table.ROUTE_LAUNCHES["hash_insert_targets:cta"].launches > before
+            ex.release()
+        engines[str(dev)] = eng
+    _sparse_views_equal(engines["cpu"], engines[str(cuda_device)])
 
 
 def test_cuda_executor_grows_tables_between_segments(cuda_device):

@@ -16,8 +16,13 @@ integer-valued data, so float32 sums are exact in any order:
   leaves the caller's database and (with ``update_engine=False``) the
   engine alone, and the graph runner's capture/replay bookkeeping holds;
 * ``storage.linear_ids`` equals the reference's and builds no tensor from
-  host data.
+  host data;
+* a capture runs no garbage collection (a dropped program's graphs are
+  freed outside captures), and releasing the executor releases its
+  graphs.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -600,3 +605,50 @@ def test_linear_ids_matches_reference_and_builds_no_host_tensor(seed, monkeypatc
         assert a.dtype == b.dtype == torch.int32
         np.testing.assert_array_equal(a.numpy(), want)
         np.testing.assert_array_equal(b.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# capture and the garbage collector (a dropped program's graphs)
+# ---------------------------------------------------------------------------
+def test_graph_capture_collects_first_and_holds_the_collector(monkeypatch):
+    """``_GraphProgram._capture`` runs no collection during a capture (a
+    program is a reference cycle, so a dropped one frees its CUDA graphs
+    when the collector runs, and a graph destroyed mid-capture invalidates
+    the capture): pending garbage is collected after it, by the collector
+    it restores, not during it; ``StreamExecutor.release`` releases each
+    program's graphs at once."""
+    import contextlib
+    import gc
+
+    events = []
+
+    class Cycle:
+        def __init__(self):
+            self.me = self
+
+        def __del__(self):
+            events.append("collected")
+
+    @contextlib.contextmanager
+    def fake_graph(graph, pool=None):
+        events.append(("capture", gc.isenabled()))
+        yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: "graph")
+    monkeypatch.setattr(torch.cuda, "graph", fake_graph)
+    prog = object.__new__(tstream._GraphProgram)
+    prog.bodies = [lambda state, counter: events.append(("body", gc.isenabled()))]
+    prog._pool = prog._counter = None
+    Cycle()
+    assert gc.isenabled()
+    graph, _ = prog._capture(0, None)
+    assert graph == "graph" and gc.isenabled()
+    assert events == [("capture", False), ("body", False)]
+    gc.collect()
+    assert events[2:] == ["collected"]
+
+    released = []
+    ex = object.__new__(tstream.StreamExecutor)
+    ex._compiled = {"sig": types.SimpleNamespace(release=lambda: released.append(1))}
+    ex.release()
+    assert released == [1] and ex._compiled == {}

@@ -21,6 +21,9 @@ counted and their sites (the innermost frame in ``repro_torch``, with its
 source line), split into those of the trigger (``trigger_syncs``) and those
 of the eager path's table growth check (``growth_syncs``: the occupancy
 read of ``storage.grow_if_loaded``, one a touched sparse view a batch).
+Last, the LM decode step (``lm_decode``, the reduced llama3.2-1b config on 2
+prompts of 33 tokens, its token already on the card): one warm-up step,
+then one audited step (phase ``lm_decode_step``).
 Card only.
 """
 from __future__ import annotations
@@ -63,6 +66,19 @@ def _site() -> tuple[str, bool]:
 def _audit(eng, warm, audited) -> dict:
     """Apply ``warm``, then ``audited`` under sync debug mode "warn";
     returns the counts and sites of the audited updates."""
+    for rel, upd in warm:
+        eng.apply_update(rel, upd)
+
+    def run():
+        for rel, upd in audited:
+            eng.apply_update(rel, upd)
+
+    return dict(batches=len(audited), **_count_syncs(run))
+
+
+def _count_syncs(run) -> dict:
+    """The synchronising calls ``run()`` makes under sync debug mode
+    "warn", by site, split into the trigger's and the growth check's."""
     import torch
 
     sites: Counter = Counter()
@@ -73,20 +89,17 @@ def _audit(eng, warm, audited) -> dict:
             site, in_growth = _site()
             (growth if in_growth else sites)[site] += 1
 
-    for rel, upd in warm:
-        eng.apply_update(rel, upd)
     torch.cuda.synchronize()
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            for rel, upd in audited:
-                eng.apply_update(rel, upd)
+            run()
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    return dict(batches=len(audited), syncs=sum(sites.values()) + sum(growth.values()),
+    return dict(syncs=sum(sites.values()) + sum(growth.values()),
                 trigger_syncs=sum(sites.values()), sites=dict(sites),
                 growth_syncs=sum(growth.values()), growth_sites=dict(growth))
 
@@ -140,6 +153,26 @@ def worker(tree: Path) -> None:
                               **out)), flush=True)
         del eng, db, stream
         torch.cuda.empty_cache()
+    _decode_phase(tree)
+
+
+def _decode_phase(tree: Path) -> None:
+    """The synchronising calls of one LM decode step (the reduced llama3.2-1b
+    config, 2 prompts of 33 tokens, the token already on the card)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import registry
+
+    cfg = get_config("llama3_2_1b").reduced()
+    api = registry.build(cfg)
+    params = api.init(seed=0, device="cuda")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 33))
+    logits, cache = api.prefill(params, {"tokens": toks}, 40)
+    logits, cache = api.decode_step(params, logits.argmax(-1), 33, cache)
+    token = logits.argmax(-1)
+    out = _count_syncs(lambda: api.decode_step(params, token, 34, cache))
+    print(json.dumps(dict(root=str(tree), phase="lm_decode_step", layers=cfg.n_layers,
+                          steps=1, **out)), flush=True)
 
 
 def main(argv) -> int:
