@@ -95,7 +95,16 @@ Phases (any failed check raises, and the script exits non-zero):
      solve against float64 (``cofactor_update``);
    - C, rank-1 matrix-chain deltas: 16 ``ops.rank1_chain_update`` calls on
      V = A1 A2 A3 at n = 8192 against float64 (``matvec``,
-     ``outer_accumulate``).
+     ``outer_accumulate``);
+   - chain_engine, the same chain through the engine: the same matrices
+     in ``matrix_chain.build_chain_engine`` (A2 updatable), 16 rank-1
+     updates and one row update through ``IVMEngine.apply_update``, each a
+     factorized trigger whose joins launch ``matvec`` and whose ⊎ launches
+     ``outer_accumulate`` as often as its plan says, against float64 A1 (A2
+     + Σ u vᵀ) A3, with host ms an update beside path C's and peak bytes;
+     then an integer-valued chain at n = 512 on the card and on the CPU
+     (every view bitwise) and sparse storage against dense under integer
+     row updates (bitwise).
 5. Path D, LM serving: llama3.2-1b at full width and depth, weights drawn
    from a seeded ``torch.Generator`` on the card, 4 prompts of 1024 tokens
    (flash attention in every prefill layer).  (i) In float32
@@ -233,9 +242,10 @@ def _busy(events, wall) -> dict:
 
 #: profiled windows a launch count or a kernel's device time may take: the
 #: profiler at times lists no kernel, or not all, of a window (see
-#: ``device_events``; two windows in a row listed none in one run), and
-#: then the window is profiled again
-WINDOWS = 5
+#: ``device_events``; in one run five windows in a row listed 0, 9, 0, 0
+#: and 15 of 20 matvec launches), and then the window is profiled again.
+#: A window that lists every launch must still list nothing else.
+WINDOWS = 10
 
 
 def listed_launches(fn, kernel: str, calls: int, label: str):
@@ -1544,6 +1554,147 @@ def chain_path(kernels) -> dict:
     return out
 
 
+#: the chain engine leg's small cases: integer-valued matrices of this
+#: width, on the card and on the CPU (bitwise), and sparse storage against
+#: dense; row updates of the sparse case
+CHAIN_INT_N, CHAIN_SPARSE_UPDATES = 512, 3
+
+
+def chain_kernel_ops(plan, views) -> tuple[int, int]:
+    """(Join→Lift→Marg triples, ⊎ ops into a dense 2-D view) of a rank-1
+    chain trigger plan: the ``matvec`` and ``outer_accumulate`` launches of
+    one update (``plan.factorized_route`` sends each there)."""
+    from repro_torch.core import plan as P
+
+    ops = plan.ops
+    joins = sum(isinstance(op, P.JoinContract) and isinstance(ops[i + 1], P.Lift)
+                and isinstance(ops[i + 2], P.Marginalize)
+                for i, op in enumerate(ops[:-2]))
+    outers = sum(isinstance(op, P.ScatterAccum) and op.storage == "dense"
+                 and len(views[op.view].schema) == 2 for op in ops)
+    return joins, outers
+
+
+def chain_engine_path(kernels, path_c: dict) -> dict:
+    """The chain engine leg (paper Example 7.1 through ``IVMEngine``): path
+    C's A1·A2·A3 at CHAIN_N (the same seed, so the same matrices) in
+    ``matrix_chain.build_chain_engine`` with A2 updatable, as the
+    reference's benchmark builds it; CHAIN_UPDATES rank-1 updates and one
+    row update through ``apply_update``, each a factorized trigger whose
+    joins take ``matvec`` and whose ⊎ takes ``outer_accumulate``, counted
+    against the plan.  The result is held to float64 A1 (A2 + Σ u vᵀ) A3
+    within RTOL.  Beside it: host ms an update against path C's bare
+    kernels for the same work, a profiled update, peak bytes; then an
+    integer-valued chain at CHAIN_INT_N on the card and on the CPU (every
+    view bitwise), and sparse storage against dense under integer row
+    updates (bitwise)."""
+    import torch
+    from repro_torch.core.apps import matrix_chain as mc
+
+    n, r = CHAIN_N, CHAIN_UPDATES
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    A1, A2, A3 = (torch.randn((n, n), generator=gen, device="cuda") for _ in range(3))
+    U = torch.randn((r, n), generator=gen, device="cuda")
+    W = torch.randn((r, n), generator=gen, device="cuda")
+    row, delta = 5, torch.randn(n, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = mc.build_chain_engine([A1, A2, A3], updatable=("A2",), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ring = eng.query.ring
+    upds = [mc.rank1_update(2, U[i], W[i], ring) for i in range(r)]
+    upds.append(mc.row_update(2, row, delta, n, ring))
+    plan = eng.trigger_plan("A2", upds[0])
+    log(plan.pretty())
+    joins, outers = chain_kernel_ops(plan, eng.views)
+    if (joins, outers) != (2, 1):
+        raise AssertionError(f"chain engine: {joins} joins, {outers} ⊎s, expected 2, 1")
+    expected = {k.name: 0 for k in kernels}
+    expected.update(matvec=joins * len(upds), outer_accumulate=outers * len(upds))
+    reset(kernels)
+    t0 = time.perf_counter()
+    for upd in upds:
+        eng.apply_update("A2", upd)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches("chain engine", kernels, expected)
+    peak = torch.cuda.max_memory_allocated()
+    got = mc.result_matrix(eng)
+    mid = A2.double() + U.double().T @ W.double()
+    mid[row] += delta.double()
+    V64 = (A1.double() @ mid) @ A3.double()
+    del mid
+    errors = dict(V=rel_err(got, V64))
+    del V64, got
+    # the engine's overhead over path C's bare kernels (events, median),
+    # and where an update's device time goes; neither counts as the leg's
+    # launches
+    update_ms = time_ms(lambda: eng.apply_update("A2", upds[0]), reps=20)
+    profile = _busy(*device_events(lambda: eng.apply_update("A2", upds[0]), 4))
+    profile["device_events"] /= 4
+    out = dict(path="chain_engine", n=n, updates=len(upds), build_s=build_s,
+               run_s=run_s, host_ms_per_update=1e3 * run_s / len(upds),
+               path_c_host_ms_per_update=path_c["us_per_update"] / 1e3,
+               update_ms=update_ms, path_c_update_ms=path_c["update_ms"],
+               plan_kernel_ops=dict(matvec=joins, outer_accumulate=outers),
+               launches=launches, profile_per_update=profile,
+               max_memory_allocated=peak, errors=errors)
+    del eng, upds, A1, A2, A3, U, W, delta
+    torch.cuda.empty_cache()
+    log(out)
+    check_within("chain engine", errors, dict.fromkeys(errors, RTOL))
+
+    # integer-valued: the card's kernels ≡ the CPU's plain versions
+    rng = np.random.default_rng(SEED)
+    m = CHAIN_INT_N
+    mats = [rng.integers(-1, 2, size=(m, m)).astype(np.float32) for _ in range(3)]
+    pairs = [(rng.integers(-1, 2, size=m), rng.integers(-1, 2, size=m))
+             for _ in range(r)]
+    engines = {dev: mc.build_chain_engine(mats, updatable=("A2",), device=dev)
+               for dev in ("cpu", "cuda")}
+    reset(kernels)
+    for u, v in pairs:
+        for dev, e in engines.items():
+            e.apply_update("A2", mc.rank1_update(
+                2, torch.tensor(u, dtype=torch.float32, device=dev),
+                torch.tensor(v, dtype=torch.float32, device=dev), e.query.ring))
+    expected.update(matvec=joins * r, outer_accumulate=outers * r)
+    out["launches_int"] = read_launches("chain engine, integers", kernels, expected)
+    for name, view in engines["cpu"].views.items():
+        check_equal(f"chain engine {name}, card vs CPU",
+                    engines["cuda"].views[name].payload["v"].cpu(), view.payload["v"])
+    del engines
+
+    # sparse storage ≡ dense storage under integer row updates
+    by_storage = {st: mc.build_chain_engine(mats, updatable=("A2",), storage=st,
+                                            device="cuda")
+                  for st in ("dense", "sparse")}
+    sparse_views = sorted(name for name, s in by_storage["sparse"].storage_plan.items()
+                          if s.kind == "sparse")
+    if not sparse_views:
+        raise AssertionError("chain engine: storage='sparse' kept no sparse view")
+    reset(kernels)
+    for _ in range(CHAIN_SPARSE_UPDATES):
+        r_i = int(rng.integers(0, m))
+        d = torch.tensor(rng.integers(-2, 3, size=m).astype(np.float32), device="cuda")
+        for e in by_storage.values():
+            e.apply_update("A2", mc.row_update(2, r_i, d, m, e.query.ring))
+    torch.cuda.synchronize()
+    out["launches_sparse"] = {k.name: k.launches for k in kernels}
+    check_equal("chain engine, sparse vs dense",
+                mc.result_matrix(by_storage["sparse"]).contiguous(),
+                mc.result_matrix(by_storage["dense"]).contiguous())
+    del by_storage
+    torch.cuda.empty_cache()
+    log(dict(path="chain_engine_small", n=m, int_updates=r,
+             launches_int=out["launches_int"], sparse_views=sparse_views,
+             sparse_row_updates=CHAIN_SPARSE_UPDATES,
+             launches_sparse=out["launches_sparse"], bitwise=True))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: path D, LM serving
 # ---------------------------------------------------------------------------
@@ -2382,16 +2533,22 @@ def main() -> int:
     paths.append(stats_path(kernels))
     paths.append(chain_path(kernels))
     torch.cuda.empty_cache()
-    # the LM scaffold's serving path: flash_attention in every prefill layer
     laps.lap("paths A-C")
+    # path C's rank-1 deltas through the engine: factorized updates
+    paths.append(chain_engine_path(kernels, paths[-1]))
+    laps.lap("chain_engine")
+    # the LM scaffold's serving path: flash_attention in every prefill layer
     paths.append(lm_serve_path(kernels))
     laps.lap("path D")
     # path D's float32 legs are the TF32 and mma flash kernels' paths
     # the housing legs' executor runs (capture and replay-only, or the
-    # capacity segments) count beside their eager runs
+    # capacity segments) count beside their eager runs, and the chain
+    # engine's integer and sparse cases beside its main run
     runs = [run["launches"] for run in streams + housing + paths] + [
         run["executor"]["launches"] for run in housing] + [
-        run[key] for run in paths for key in ("launches_float32", "launches_float32_reduced")
+        run[key] for run in paths
+        for key in ("launches_float32", "launches_float32_reduced", "launches_int",
+                    "launches_sparse")
         if key in run]
     launched = {k.name: sum(r[k.name] for r in runs) for k in kernels}
     if not all(launched[k.name] for k in built):

@@ -16,7 +16,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .core.relations import COOUpdate, DenseRelation, host_payload
+from .core.relations import (COOUpdate, DenseRelation, FactorizedUpdate,
+                             host_payload)
 from .device import resolve_device
 
 
@@ -41,6 +42,23 @@ def update_from_numpy(schema, keys, payload: Mapping, ring,
         torch.tensor(np.asarray(keys).astype(np.int32), device=dev),
         {c: torch.tensor(np.asarray(v), device=dev).to(ring.dtype)
          for c, v in payload.items()})
+
+
+def factorized_update_from_numpy(schema, factors, ring,
+                                 device="cuda") -> FactorizedUpdate:
+    """A ``FactorizedUpdate`` on ``device`` from ``factors``, a sequence of
+    ``(schema, {component: np.ndarray})`` pairs (or relations whose
+    payloads numpy can read, such as the reference's), each component in
+    the ring's dtype."""
+    dev = resolve_device(device)
+    out = []
+    for f in factors:
+        f_schema, comps = (f if isinstance(f, tuple)
+                           else (f.schema, f.payload))
+        out.append(DenseRelation(tuple(f_schema), ring, {
+            c: torch.tensor(np.asarray(v), device=dev).to(ring.dtype)
+            for c, v in comps.items()}))
+    return FactorizedUpdate(tuple(schema), tuple(out))
 
 
 def state_to_numpy(engine) -> dict:

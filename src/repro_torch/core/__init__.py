@@ -1,11 +1,11 @@
 """F-IVM core: factorized incremental view maintenance over rings."""
 from .contraction import BatchedDelta, contract_dense, lift_relation, marginalize_dense
-from .delta import propagate_coo
+from .delta import propagate_coo, propagate_factorized
 from .ivm import IVMEngine
 from .materialize import choose_materialized, views_on_path
 from .plan import PlanCache, TriggerPlan, compile_trigger, execute_trigger
 from .query import Query
-from .relations import COOUpdate, DenseRelation
+from .relations import COOUpdate, DenseRelation, FactorizedUpdate
 from .rings import DegreeMRing, MulTerm, Ring, ScalarRing, count_ring, sum_ring
 from .storage import (SparseRelation, StorageSpec, ViewStorage,
                       apply_storage_plan, as_dense, make_base_relation,
@@ -17,7 +17,8 @@ from .variable_orders import VariableOrder, VONode, chain, heuristic_order
 from .view_tree import ViewNode, build_view_tree, evaluate_view
 
 __all__ = [
-    "BatchedDelta", "COOUpdate", "DegreeMRing", "DenseRelation", "IVMEngine",
+    "BatchedDelta", "COOUpdate", "DegreeMRing", "DenseRelation",
+    "FactorizedUpdate", "IVMEngine",
     "MAX_ROUNDS_PERIOD", "MulTerm", "PlanCache", "PreparedStream", "Query",
     "Ring", "ScalarRing", "SparseRelation", "StorageSpec", "StreamCapacityError",
     "StreamExecutor", "TriggerPlan", "VONode", "VariableOrder", "ViewNode",
@@ -26,6 +27,7 @@ __all__ = [
     "choose_materialized", "compile_trigger", "contract_dense", "count_ring",
     "evaluate_view", "execute_trigger", "heuristic_order", "lift_relation",
     "make_base_relation", "marginalize_dense", "plan_storage",
-    "prepare_stream", "propagate_coo", "split_segments", "sum_ring",
+    "prepare_stream", "propagate_coo", "propagate_factorized",
+    "split_segments", "sum_ring",
     "view_nbytes", "views_on_path",
 ]

@@ -9,9 +9,11 @@ with delta views (Fig. 4):
 
 Only one child changes per path node, so the product rule degenerates to
 δV ⊗ (materialized siblings).  Deltas are carried as BatchedDelta (COO over
-update-bound variables × dense over sibling-contributed ones).  This module
+update-bound variables × dense over sibling-contributed ones) or, when the
+update is factorizable, as a product of per-group factors that marginalize
+independently (the paper's Optimize; Example 5.2 / 7.1).  This module
 is a thin plan interpreter: ``IVMEngine`` fetches plans from its cache; the
-function here compiles ad hoc (tests / exploratory use).
+functions here compile ad hoc (tests / exploratory use).
 """
 from __future__ import annotations
 
@@ -20,10 +22,10 @@ from typing import Mapping
 from . import plan as plan_mod
 from .plan import PropagationResult
 from .query import Query
-from .relations import COOUpdate
+from .relations import COOUpdate, DenseRelation, FactorizedUpdate
 from .view_tree import ViewNode
 
-__all__ = ["PropagationResult", "propagate_coo"]
+__all__ = ["PropagationResult", "propagate_coo", "propagate_factorized"]
 
 
 class _PathEngine:
@@ -52,3 +54,21 @@ def propagate_coo(
     plan = plan_mod.compile_trigger(eng, rel,
                                     ("coo", tuple(upd.schema), upd.batch))
     return plan_mod.run_coo_ops(plan.ops, materialized, query, upd)
+
+
+def propagate_factorized(
+    tree: ViewNode,
+    materialized: Mapping[str, DenseRelation],
+    query: Query,
+    rel: str,
+    upd: FactorizedUpdate,
+) -> PropagationResult:
+    """Sec. 5 Optimize: keep the delta as a product of factors over disjoint
+    variable groups; marginalization and sibling joins touch only the factor
+    containing the variable, so a rank-1 update to a p×p 'relation' costs
+    O(p²) instead of O(p³) (Example 7.1).  Dense views come back new; a
+    sparse view is written in place (use ``result.updated``)."""
+    eng = _PathEngine(tree, query, materialized, upd.factors[0].device)
+    plan = plan_mod.compile_trigger(eng, rel,
+                                    ("factorized", tuple(upd.schema)))
+    return plan_mod.run_factorized_ops(plan.ops, materialized, query, upd)

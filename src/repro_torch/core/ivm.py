@@ -15,7 +15,9 @@ signature) into a cached :class:`TriggerPlan` and the engine replays it
 eagerly.  Under plan fusion (``plan.fusion_mode(engine.device)``: ``auto``
 is on for an engine on the card) COO plans of ``fivm``/``dbt`` run their
 Gather→Lift→⊎ chains as ``FusedChain`` ops, one kernel launch each;
-first-order and reevaluation plans stay unfused.  The engine owns its
+first-order, reevaluation and factorized plans stay unfused (a factorized
+update's rank-1 joins and ⊎s take the ``rank1_chain`` kernels instead,
+``plan.factorized_route``).  The engine owns its
 state: views and base relations are copied out of the caller's database at
 build and updated in place afterwards.  View storage is planned per view at
 build (``storage``: ``auto`` by default, see
@@ -35,7 +37,7 @@ from . import plan as plan_mod
 from . import storage as storage_mod
 from .materialize import choose_materialized
 from .query import Query
-from .relations import COOUpdate, DenseRelation
+from .relations import COOUpdate, DenseRelation, FactorizedUpdate
 from .variable_orders import VariableOrder, heuristic_order
 from .view_tree import ViewNode, build_view_tree, evaluate_view
 
@@ -165,7 +167,7 @@ class IVMEngine:
         }
 
     # ---------------------------------------------------------------- update
-    def apply_update(self, rel: str, upd: COOUpdate) -> None:
+    def apply_update(self, rel: str, upd: COOUpdate | FactorizedUpdate) -> None:
         """Eager (per-call) update of the engine's state.  Sparse views in
         the trigger's write set first rehash to 2× capacity (repeatedly)
         when this batch could cross the load-factor bound: growth reads
@@ -186,15 +188,31 @@ class IVMEngine:
         self.views, self.base = self.functional_update(
             self.views, self.base, rel, upd)
 
-    def _insert_budget(self, view, rel: str, upd: COOUpdate) -> int:
+    def _insert_budget(self, view, rel: str, upd) -> int:
         """Worst-case distinct keys one update can insert into ``view``:
         B rows × the domain product of view variables the update does not
-        bind (a mixed COO×dense apply enumerates that grid);
+        bind (a mixed COO×dense apply enumerates that grid).  A factorized
+        update enumerates the cartesian product of its factors' *active*
+        key sets (the sparse lowering never touches the full grid), so its
+        budget is that product: each factor's non-zero count (one host read
+        a factor) times the domain of each view variable the update does
+        not bind.
         ``grow_if_loaded`` clamps it to the view's domain product."""
         if not isinstance(view, storage_mod.SparseRelation):
             return 0
-        if not isinstance(upd, COOUpdate):
-            raise NotImplementedError(plan_mod._FACTORIZED_TODO)
+        if isinstance(upd, FactorizedUpdate):
+            ring = self.query.ring
+            budget, seen = 1, set()
+            for v in view.schema:
+                if v in upd.schema:
+                    f = upd.factor_for(v)
+                    if id(f) in seen:
+                        continue
+                    seen.add(id(f))
+                    budget *= int((~ring.is_zero(f.payload)).sum())
+                else:
+                    budget *= int(self.query.domains[v])
+            return budget
         extra = 1
         for v in view.schema:
             if v not in upd.schema:
@@ -236,7 +254,7 @@ class IVMEngine:
     def set_state(self, state) -> None:
         self.views, self.base = state
 
-    def functional_update(self, views, base, rel: str, upd: COOUpdate,
+    def functional_update(self, views, base, rel: str, upd,
                           plan: plan_mod.TriggerPlan | None = None,
                           memo=None):
         """Returns new ``(views, base)`` after ``upd``: replays ``plan``, by
@@ -256,8 +274,12 @@ class IVMEngine:
         raise NotImplementedError("sharding is not ported yet (ROADMAP "
                                   "Queue 1 item 14)")
 
-    def _bump_base(self, rel: DenseRelation, upd: COOUpdate) -> DenseRelation:
-        """Base-relation ⊎ through the ring scatter dispatch layer."""
+    def _bump_base(self, rel: DenseRelation, upd) -> DenseRelation:
+        """Base-relation ⊎: a COO batch through the ring scatter dispatch
+        layer, a factorized update as its densified product."""
+        if isinstance(upd, FactorizedUpdate):
+            dense = upd.densify(self.query.ring).transpose(rel.schema)
+            return rel.add(dense)
         return rel.scatter_add(upd.keys, upd.payload)
 
 

@@ -27,8 +27,15 @@ gather), so every runtime decision of the delta algebra is known at compile
 time.  Each Gather / JoinContract / ScatterAccum carries the storage class
 of its view (``dense`` or ``sparse``, the hashed-COO tables of
 ``repro_torch.core.storage``), and the plan cache keys plans by the storage
-layout (kinds and table capacities), so a rehash recompiles.  Not in this
-slice: factorized updates, indicator sections and the plan verifier.
+layout (kinds and table capacities), so a rehash recompiles.
+
+Factorized updates (Sec. 5 Optimize) compile to their own op sequence
+(:func:`_compile_factorized_ops`) and replay over a factor list
+(:func:`run_factorized_ops`).  Two shapes of that replay, the ones a
+rank-1 matrix-chain trigger reduces to, run the hand kernels of
+``repro_torch.kernels.rank1_chain`` (:func:`factorized_route`); every
+other shape runs the reference's einsums.  Not in this slice: indicator
+sections and the plan verifier.
 """
 from __future__ import annotations
 
@@ -41,17 +48,14 @@ from typing import Any, Mapping, Sequence
 
 import torch
 
-from .contraction import BatchedDelta
+from .contraction import BatchedDelta, contract_dense
 from .materialize import views_on_path
 from .query import Query
-from .relations import COOUpdate, DenseRelation
+from .relations import COOUpdate, DenseRelation, FactorizedUpdate
+from .rings import ScalarRing
 from .storage import (SparseRelation, as_dense, flatten_payload, linear_ids,
                       payload_width, unflatten_payload)
 from .view_tree import ViewNode, evaluate_view
-
-_FACTORIZED_TODO = ("factorized updates are not ported yet (ROADMAP Queue 1 "
-                    "items 2 and 6); send COOUpdate batches")
-
 
 # ---------------------------------------------------------------------------
 # The op vocabulary.  Frozen dataclasses: hashable (interning) and printable
@@ -65,7 +69,8 @@ class PlanOp:
 
 @dataclasses.dataclass(frozen=True)
 class LeafDelta(PlanOp):
-    """Build the leaf delta: COO rows, or one densified delta relation."""
+    """Build the leaf delta: COO rows, one densified delta relation, or
+    (batch 0) the factor list of a factorized update."""
 
     rel: str
     schema: tuple
@@ -75,6 +80,8 @@ class LeafDelta(PlanOp):
     def label(self):
         if self.densify:
             form = f"densified[{','.join(self.schema)}]"
+        elif self.batch == 0:
+            form = f"factors[{','.join(self.schema)}]"
         else:
             form = f"rows[{','.join(self.schema)}; B={self.batch}]"
         return f"Leaf {form}"
@@ -247,10 +254,10 @@ class TriggerPlan:
     (relation, update signature)."""
 
     rel: str
-    kind: str  # "coo" | "first_order" | "reeval"
+    kind: str  # "coo" | "factorized" | "first_order" | "reeval"
     strategy: str
     schema: tuple
-    batch: int
+    batch: int | None  # None for a factorized plan
     densify: bool
     ops: tuple
     write_views: frozenset
@@ -268,8 +275,9 @@ class TriggerPlan:
 
     def pretty(self) -> str:
         """Stable text form (a fused chain's inner ops indented under it)."""
+        b = "-" if self.batch is None else str(self.batch)
         head = (f"trigger {self.rel} kind={self.kind} strategy={self.strategy}"
-                f" schema=[{','.join(self.schema)}] batch={self.batch}"
+                f" schema=[{','.join(self.schema)}] batch={b}"
                 f" densify={'yes' if self.densify else 'no'}"
                 f" cost={self.cost}")
         lines = [head]
@@ -599,16 +607,17 @@ def _compile_path_ops(tree: ViewNode, query: Query, rel: str,
 
 def compile_trigger(engine, rel: str, upd_sig, intern=None,
                     views=None) -> TriggerPlan:
-    """Compile the maintenance trigger for COO updates to ``rel``.
+    """Compile the maintenance trigger for updates to ``rel``.
 
-    ``upd_sig`` is ``("coo", schema, batch)``.  The result is a pure
-    metadata object: compiling never touches device state.
+    ``upd_sig`` is ``("coo", schema, batch)`` or ``("factorized",
+    schema)``.  The result is a pure metadata object: compiling never
+    touches device state.
     """
     intern = intern or (lambda op: op)
     kind, schema = upd_sig[0], tuple(upd_sig[1])
-    if kind != "coo":
-        raise NotImplementedError(_FACTORIZED_TODO)
-    batch = upd_sig[2]
+    if kind not in ("coo", "factorized"):
+        raise ValueError(f"unknown update kind {kind!r}")
+    batch = upd_sig[2] if kind == "coo" else None
     query, tree, strategy = engine.query, engine.tree, engine.strategy
     views = engine.views if views is None else views
     root = tree.name
@@ -623,13 +632,15 @@ def compile_trigger(engine, rel: str, upd_sig, intern=None,
             cost=0)
 
     path = views_on_path(tree, rel)
-    densify = should_densify(path, schema, batch, query)
-    cost_row, cost_dense, _ = path_costs(path, schema, batch, query)
-    cost = cost_dense if densify else cost_row
 
     if strategy == "fivm_1":
         # 1-IVM: recompute sibling views from base, run the delta path over
         # the recomputed store (all views present), apply only at the root.
+        if kind == "factorized":
+            # the full densified delta is the point of the comparison
+            batch = _domain_extent(query, schema)
+        densify = should_densify(path, schema, batch, query)
+        cost_row, cost_dense, _ = path_costs(path, schema, batch, query)
         store_views = {n.name: views.get(n.name, _DenseProxy(n, query))
                        for n in tree.walk()}
         path_ops, _ = _compile_path_ops(
@@ -644,12 +655,20 @@ def compile_trigger(engine, rel: str, upd_sig, intern=None,
             rel=rel, kind="first_order", strategy=strategy, schema=schema,
             batch=batch, densify=densify, ops=ops,
             write_views=frozenset({root}), write_base=frozenset({rel}),
-            cost=cost)
+            cost=cost_dense if densify else cost_row)
 
     # fivm / dbt: higher-order propagation along the delta tree
-    ops, write_views = _compile_path_ops(
-        tree, query, rel, schema, batch, views, densify, intern,
-        engine.device)
+    if kind == "factorized":
+        densify, cost = False, 0
+        ops, write_views = _compile_factorized_ops(tree, query, rel, schema,
+                                                   views, intern)
+    else:
+        densify = should_densify(path, schema, batch, query)
+        cost_row, cost_dense, _ = path_costs(path, schema, batch, query)
+        cost = cost_dense if densify else cost_row
+        ops, write_views = _compile_path_ops(
+            tree, query, rel, schema, batch, views, densify, intern,
+            engine.device)
     plan = TriggerPlan(
         rel=rel, kind=kind, strategy=strategy, schema=schema, batch=batch,
         densify=densify, ops=ops, write_views=frozenset(write_views),
@@ -662,6 +681,48 @@ def compile_trigger(engine, rel: str, upd_sig, intern=None,
         raise AssertionError(f"trigger for {rel} reads views it writes: "
                              f"{sorted(plan.read_views() & plan.write_views)}")
     return plan
+
+
+def _compile_factorized_ops(tree: ViewNode, query: Query, rel: str,
+                            upd_schema, views: Mapping, intern):
+    """Sec. 5 Optimize: the same path, interpreted over a factor list.
+    Joins absorb into touching factors, marginalization always contracts
+    against the lift relation (no identity skip), application is the
+    outer-product accumulate."""
+    path = views_on_path(tree, rel)
+    ops: list = []
+    write_views: set[str] = set()
+
+    def scatter(name):
+        ops.append(intern(ScatterAccum(name, _storage_kind(views[name]),
+                                       backend=None)))
+        write_views.add(name)
+
+    leaf = path[0]
+    ops.append(intern(LeafDelta(rel, tuple(upd_schema), 0, False)))
+    ops.append(intern(Emit(leaf.name)))
+    if leaf.name in views:
+        scatter(leaf.name)
+    child = leaf
+    for node in path[1:]:
+        for sib in node.children:
+            if sib is child:
+                continue
+            if sib.name not in views:
+                raise ValueError(f"sibling {sib.name} of the delta path must "
+                                 f"be materialized (μ guarantees this for "
+                                 f"updatable {rel})")
+            kind = _storage_kind(views[sib.name])
+            ops.append(intern(JoinContract(sib.name, tuple(sib.schema), kind,
+                                           densifies=kind == "sparse")))
+        for v in node.marg_vars:
+            ops.append(intern(Lift(v, tuple(query.lift_spec(v)))))
+            ops.append(intern(Marginalize(v, "factor")))
+        ops.append(intern(Emit(node.name)))
+        if node.name in views:
+            scatter(node.name)
+        child = node
+    return tuple(ops), write_views
 
 
 def active_backend_override() -> str | None:
@@ -871,16 +932,18 @@ class PlanCache:
         return plan
 
     def lookup(self, engine, rel: str, upd) -> TriggerPlan:
-        if not isinstance(upd, COOUpdate):
-            raise NotImplementedError(_FACTORIZED_TODO)
-        return self.lookup_sig(engine, rel,
-                               ("coo", tuple(upd.schema), upd.batch))
+        if isinstance(upd, FactorizedUpdate):
+            sig = ("factorized", tuple(upd.schema))
+        else:
+            sig = ("coo", tuple(upd.schema), upd.batch)
+        return self.lookup_sig(engine, rel, sig)
 
     def write_sets(self, engine, rel: str):
-        """``(write_views, write_base)`` of any COO trigger for ``rel``
-        (independent of the batch size), memoized under the plan cache's
-        environment key (backend override, fusion mode), so a fusion flip
-        re-derives them from a fresh plan."""
+        """``(write_views, write_base)`` of any trigger for ``rel``, COO or
+        factorized (independent of the batch size; a factorized plan walks
+        the same path, so the COO plan's sets serve both), memoized under
+        the plan cache's environment key (backend override, fusion mode),
+        so a fusion flip re-derives them from a fresh plan."""
         key = (rel, active_backend_override(), fusion_mode(engine.device))
         if key not in self._write_sets:
             sig = ("coo", tuple(engine.query.relations[rel]), 1)
@@ -1073,6 +1136,124 @@ def _run_fused_chain(chain: FusedChain, delta: BatchedDelta, views: Mapping,
     return carried
 
 
+def factorized_route(op, factors, view, query: Query, following=()) -> str:
+    """Where one op of a factorized plan runs: ``"matvec"``, ``"outer"`` or
+    ``"plain"``.  A pure function of the op, the ops after it, the factor
+    list and the view, so the CPU tests check it; the two kernel routes are
+    the O(p²) shapes a rank-1 matrix-chain trigger reduces to (Example
+    7.1), over a dense 2-D view of a float32 scalar ring:
+
+    * ``"matvec"``: a JoinContract that exactly one factor touches, a
+      1-D f[x], followed by Lift(x, one) and Marginalize(x).  Σ_x f[x] V[x,
+      y] is one ``rank1_chain.matvec`` (the [x, y] product is never
+      built).
+    * ``"outer"``: a ScatterAccum of exactly two 1-D factors covering the
+      view: V + u vᵀ is one ``rank1_chain.outer_accumulate``.
+
+    Everything else (a non-identity lift, a scalar factor, more factors, a
+    multi-component ring, another dtype, a sparse view) is ``"plain"``:
+    the reference's einsums."""
+    ring = query.ring
+    if not (isinstance(ring, ScalarRing) and ring.dtype == torch.float32
+            and isinstance(view, DenseRelation) and len(view.schema) == 2):
+        return "plain"
+
+    def vector(f):
+        return len(f.schema) == 1 and f.payload["v"].dtype == torch.float32
+
+    if isinstance(op, ScatterAccum):
+        if (len(factors) == 2 and all(vector(f) for f in factors)
+                and {f.schema[0] for f in factors} == set(view.schema)):
+            return "outer"
+        return "plain"
+    if isinstance(op, JoinContract):
+        touching = [f for f in factors if set(f.schema) & set(view.schema)]
+        if len(touching) != 1 or not vector(touching[0]):
+            return "plain"
+        x = touching[0].schema[0]
+        if (len(following) >= 2 and isinstance(following[0], Lift)
+                and following[0].var == x and following[0].spec == ("one",)
+                and isinstance(following[1], Marginalize)
+                and following[1].var == x):
+            return "matvec"
+    return "plain"
+
+
+def _matvec_join(factors: list, view: DenseRelation) -> None:
+    """The ``"matvec"`` route: replace the one factor f[x] touching
+    ``view`` by g[y] = Σ_x f[x] V[x, y], appended as absorb-then-marginalize
+    appends it.  V is read in place: as A when x is its second axis, as
+    the transpose of a row-major matrix (the kernel's cols layout) when
+    x is its first."""
+    from ..kernels import rank1_chain
+
+    f = next(f for f in factors if set(f.schema) & set(view.schema))
+    x = f.schema[0]
+    y = next(v for v in view.schema if v != x)
+    V = view.payload["v"]
+    if not (V.is_contiguous() or V.T.is_contiguous()):
+        V = V.contiguous()
+    A = V if view.schema[1] == x else V.T
+    g = rank1_chain.matvec(A, f.payload["v"].contiguous())
+    factors.remove(f)
+    factors.append(DenseRelation((y,), view.ring, {"v": g}))
+
+
+def _outer_scatter(view: DenseRelation, factors: list) -> DenseRelation:
+    """The ``"outer"`` route: V + u vᵀ with u over the view's first
+    variable and v over its second, into a new tensor."""
+    from ..kernels import rank1_chain
+
+    by_var = {f.schema[0]: f.payload["v"].contiguous() for f in factors}
+    u, v = (by_var[var] for var in view.schema)
+    out = rank1_chain.outer_accumulate(view.payload["v"].contiguous(), u, v)
+    return DenseRelation(view.schema, view.ring, {"v": out})
+
+
+def run_factorized_ops(ops, views: Mapping, query: Query,
+                       upd: FactorizedUpdate) -> PropagationResult:
+    """Replay a compiled factorized (Sec. 5 Optimize) path section over a
+    factor list: joins absorb, marginalization touches only the factor
+    containing the variable, application is the outer-product ⊎.  Each
+    join (with the marginalization after it) and each ⊎ runs where
+    :func:`factorized_route` sends it; the kernel wrappers run their plain
+    versions on CPU tensors."""
+    ring = query.ring
+    factors: list[DenseRelation] = list(upd.factors)
+    deltas: dict = {}
+    updated: dict = {}
+    i = 0
+    while i < len(ops):
+        op = ops[i]
+        if isinstance(op, LeafDelta):
+            pass  # the factor list IS the leaf delta
+        elif isinstance(op, JoinContract):
+            view = views[op.view]
+            if factorized_route(op, factors, view, query,
+                                ops[i + 1:i + 3]) == "matvec":
+                _matvec_join(factors, view)
+                i += 3  # the Lift and Marginalize ran inside the matvec
+                continue
+            absorb_factor(factors, view, ring)
+        elif isinstance(op, Lift):
+            pass  # factorized marginalization always contracts the lift
+        elif isinstance(op, Marginalize):
+            marginalize_factor(factors, op.var, query)
+        elif isinstance(op, Emit):
+            deltas[op.view] = FactorizedUpdate(
+                tuple(v for f in factors for v in f.schema), tuple(factors))
+        elif isinstance(op, ScatterAccum):
+            view = views[op.view]
+            if factorized_route(op, factors, view, query) == "outer":
+                updated[op.view] = _outer_scatter(view, factors)
+            else:
+                updated[op.view] = apply_factorized(view, factors, ring)
+        else:  # pragma: no cover
+            raise TypeError(op)
+        i += 1
+    return PropagationResult(deltas, updated)
+
+
 def reevaluate_store(engine, base) -> dict:
     """The ``Reevaluate`` op: evaluate the view tree bottom-up from ``base``
     relations, returning every node's view."""
@@ -1100,6 +1281,8 @@ def execute_trigger(engine, plan: TriggerPlan, views, base, upd,
         return views, base
 
     if plan.kind == "first_order":
+        if isinstance(upd, FactorizedUpdate):
+            upd = densify_update_to_coo(query, upd)
         store = reevaluate_store(engine, base)
         path_ops = tuple(op for op in plan.ops
                          if not isinstance(op, (Reevaluate, BaseBump,
@@ -1111,7 +1294,10 @@ def execute_trigger(engine, plan: TriggerPlan, views, base, upd,
         return views, base
 
     # fivm / dbt
-    res = run_coo_ops(plan.ops, views, query, upd, memo=memo)
+    if plan.kind == "factorized":
+        res = run_factorized_ops(plan.ops, views, query, upd)
+    else:
+        res = run_coo_ops(plan.ops, views, query, upd, memo=memo)
     views.update(res.updated)
     if plan.write_base:
         base[plan.rel] = engine._bump_base(base[plan.rel], upd)
@@ -1137,6 +1323,121 @@ def densified_delta(query: Query, rel: str, upd: COOUpdate) -> BatchedDelta:
         payload=payload,
         dense_domains=doms,
     )
+
+
+def densify_update_to_coo(query: Query, upd: FactorizedUpdate) -> COOUpdate:
+    """1-IVM takes the full (densified) delta — that is the point of the
+    comparison in Sec. 8.3: one row a key of the update's domain grid, in
+    row-major order."""
+    ring = query.ring
+    dense = upd.densify(ring)
+    doms = dense.domains
+    b = _domain_extent(query, dense.schema)
+    grids = torch.meshgrid(*[torch.arange(d, dtype=torch.int32,
+                                          device=dense.device) for d in doms],
+                           indexing="ij")
+    keys = torch.stack([g.reshape(-1) for g in grids], dim=1)
+    payload = {c: dense.payload[c].reshape((b, *ring.components[c]))
+               for c in ring.components}
+    return COOUpdate(dense.schema, keys, payload)
+
+
+def absorb_factor(factors: list, view, ring) -> None:
+    """Join a materialized sibling view into the factor list.  Factors
+    whose variables intersect the view's schema merge first; disjoint
+    factors stay independent (this is what preserves the factorized
+    complexity).  Sparse siblings materialize first (the planner keeps
+    factor-joined views dense)."""
+    view = as_dense(view)
+    touching = [f for f in factors if set(f.schema) & set(view.schema)]
+    if not touching:
+        factors.append(view)  # cartesian sibling: keep as its own factor
+        return
+    for f in touching:
+        factors.remove(f)
+    acc = touching[0]
+    for f in touching[1:]:
+        acc = contract_dense(acc, f, marg=())
+    factors.append(contract_dense(acc, view, marg=()))
+
+
+def marginalize_factor(factors: list, var: str, query: Query) -> None:
+    """⊕_var of the one factor holding ``var``, against its lift relation."""
+    for i, f in enumerate(factors):
+        if var in f.schema:
+            factors[i] = contract_dense(f, query.lift_rel(var, f.device),
+                                        marg=(var,))
+            return
+    raise KeyError(f"variable {var} not found in any factor")
+
+
+def apply_factorized(view, factors: list, ring):
+    """view ⊎ (⊗ factors): outer-product accumulate.  Cost is the size of
+    the materialized view (O(p²) for matrix views), not of any larger
+    product.  Scalar factors (fully-marginalized groups, e.g. ⊕_E δS_E in
+    Example 5.2) scale the product.  A sparse view absorbs the product by
+    per-factor active-key enumeration + slot scatter
+    (:func:`apply_factorized_sparse`)."""
+    covered = {v for f in factors for v in f.schema}
+    if covered != set(view.schema):
+        raise ValueError(f"factors cover {sorted(covered)}, the view is "
+                         f"{view.schema}")
+    if isinstance(view, SparseRelation):
+        return apply_factorized_sparse(view, factors, ring)
+    acc = factors[0]
+    for f in factors[1:]:
+        acc = contract_dense(acc, f, marg=())
+    return view.add(acc.transpose(view.schema))
+
+
+def apply_factorized_sparse(view: SparseRelation, factors: list, ring):
+    """Lower a factor product onto a hashed-COO view without densifying:
+    enumerate each keyed factor's *active* (non-ring-zero) keys on the host
+    (one synchronise a factor: the eager path only), form the cartesian
+    product of active rows, compute each row's payload as the ordered ring
+    product of its factor values (the dense outer product's multiply order:
+    bit-identical) and ⊎ the rows into the table (``SparseRelation.
+    scatter_add``, in place).  Inserts ∏ active_i keys, never the full
+    domain product; a ring-zero factor inserts nothing."""
+    dev = view.device
+    keyed = [f for f in factors if f.schema]
+    actives = []
+    for f in keyed:
+        nz = torch.nonzero(~ring.is_zero(f.payload))  # row-major, as argwhere
+        if nz.shape[0] == 0:
+            return view  # a ring-zero factor annihilates the product
+        actives.append(nz.to(torch.int32))
+    counts = [a.shape[0] for a in actives]
+    B = 1
+    for c in counts:
+        B *= c
+    grids = (torch.meshgrid(*[torch.arange(c, device=dev) for c in counts],
+                            indexing="ij") if counts else [])
+    rows = [g.reshape(-1) for g in grids]
+    # per-row payload: factor values multiplied in factor-list order (the
+    # order of the dense path's contract_dense chain)
+    payload = None
+    ki = 0
+    for f in factors:
+        if f.schema:
+            idx = tuple(actives[ki][:, j][rows[ki]].long()
+                        for j in range(len(f.schema)))
+            vals = {c: f.payload[c][idx] for c in ring.components}
+            ki += 1
+        else:
+            vals = {c: f.payload[c].expand((B, *shp))
+                    for c, shp in ring.components.items()}
+        payload = vals if payload is None else ring.mul(payload, vals)
+    # key columns in the view's schema order
+    cols = []
+    for v in view.schema:
+        for ki, f in enumerate(keyed):
+            if v in f.schema:
+                cols.append(actives[ki][:, f.schema.index(v)][rows[ki]])
+                break
+    keys = (torch.stack(cols, dim=1) if cols
+            else torch.zeros((B, 0), dtype=torch.int32, device=dev))
+    return view.scatter_add(keys, payload)
 
 
 # ---------------------------------------------------------------------------
@@ -1168,6 +1469,14 @@ def state_write_mask(state, write_views, write_base) -> tuple:
                  for part, names in ((views, write_views), (base, write_base))
                  for name in sorted(part)
                  for _ in relation_leaves(part[name]))
+
+
+def read_sets(plans: Sequence[TriggerPlan]) -> frozenset:
+    """Union of :meth:`TriggerPlan.read_views` across plans."""
+    out: set = set()
+    for p in plans:
+        out |= p.read_views()
+    return frozenset(out)
 
 
 def shared_prep_ops(plans: Sequence[TriggerPlan]) -> tuple:

@@ -7,6 +7,8 @@ payloads).
 
   DenseRelation      device-resident materialized view / base relation
   COOUpdate          batch of (key tuple -> payload) update rows
+  FactorizedUpdate   a delta as a product of factors over disjoint
+                     variable groups (Sec. 5)
 
 ``DenseRelation`` is the dense implementation of the ``ViewStorage``
 protocol (``repro_torch.core.storage``).  App code builds base relations
@@ -177,3 +179,36 @@ class COOUpdate:
         pad = ring.zeros((batch - b,), device=self.keys.device)
         payload = {c: torch.cat([v, pad[c]]) for c, v in self.payload.items()}
         return COOUpdate(self.schema, keys, payload)
+
+
+@dataclasses.dataclass
+class FactorizedUpdate:
+    """Sec. 5: a delta expressed as a product of factors over disjoint
+    variable groups: ``δR = f_1 ⊗ ... ⊗ f_g`` where each factor is a
+    DenseRelation (typically a vector over one variable).  A rank-r update
+    is a *list* of these (sum of rank-1 terms)."""
+
+    schema: tuple[str, ...]
+    factors: tuple[DenseRelation, ...]
+
+    def __post_init__(self):
+        covered = [v for f in self.factors for v in f.schema]
+        if sorted(covered) != sorted(set(covered)):
+            raise ValueError(f"factor schemas must be disjoint: {covered}")
+        if set(covered) != set(self.schema):
+            raise ValueError(f"factors cover {covered}, not {self.schema}")
+
+    def factor_for(self, var: str) -> DenseRelation:
+        for f in self.factors:
+            if var in f.schema:
+                return f
+        raise KeyError(var)
+
+    def densify(self, ring: Ring) -> DenseRelation:
+        """Materialize the product (tests / small cases only)."""
+        from .contraction import contract_dense
+
+        acc = self.factors[0]
+        for f in self.factors[1:]:
+            acc = contract_dense(acc, f, marg=())
+        return acc.transpose(self.schema)

@@ -170,18 +170,32 @@ def evaluate_view(
 ) -> DenseRelation:
     """Evaluate bottom-up on the database's device.  If ``store`` is given,
     record every view in it (a leaf's entry is the database relation
-    itself)."""
+    itself).
+
+    The reference joins a node's children and then sums out its variables.
+    Here a variable whose lift is the identity (g(x) = 1) is summed inside
+    the last join instead: the same sum, in another order (exact on
+    integer-valued data below 2**24), without the join's full product,
+    which for a chain of p × p matrices holds p³ values."""
     if node.is_leaf:
         out = db[node.relation]
         if not isinstance(out, DenseRelation):  # a sparse leaf densifies
             out = out.to_dense()
     else:
+        inner: tuple = ()
+        if len(node.children) > 1:
+            inner = tuple(v for v in node.marg_vars
+                          if query.lift_spec(v) == ("one",))
         acc: DenseRelation | None = None
-        for c in node.children:
+        for i, c in enumerate(node.children):
             cv = evaluate_view(c, db, query, store)
-            acc = cv if acc is None else contract_dense(acc, cv, marg=())
+            last = i == len(node.children) - 1
+            acc = cv if acc is None else contract_dense(
+                acc, cv, marg=inner if last else ())
         for v in node.marg_vars:
-            acc = contract_dense(acc, query.lift_rel(v, acc.device), marg=(v,))
+            if v not in inner:
+                acc = contract_dense(acc, query.lift_rel(v, acc.device),
+                                     marg=(v,))
         out = acc.transpose(node.schema)
     if store is not None:
         store[node.name] = out

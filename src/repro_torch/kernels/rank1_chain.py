@@ -7,7 +7,11 @@ and one rank-1 accumulate, all O(n²):
 
 Wrappers for ``csrc/matvec.cu`` and ``csrc/outer_accumulate.cu``, the
 Hopper counterparts of ``repro/kernels/rank1_chain.py``'s ``matvec`` and
-``outer_accumulate``; ``ops.rank1_chain_update`` composes them.
+``outer_accumulate``; ``ops.rank1_chain_update`` composes them, and an
+engine's factorized trigger plans reach them through
+``core.plan.factorized_route`` (a rank-1 join with its marginalization is
+one :func:`matvec`, a rank-1 ⊎ into a matrix view one
+:func:`outer_accumulate`).
 :func:`matvec` takes A row-major or as the transpose of a row-major matrix
 (``A3.T``): the latter runs the kernel's cols layout over A3's own rows,
 so Aᵀ is never copied.  A CPU tensor takes the plain version (``ref``).

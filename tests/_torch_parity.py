@@ -39,8 +39,12 @@ def db_to_numpy(db) -> dict:
 
 
 def port_update(upd, ring):
+    """A reference update (COO or factorized) on the CPU in the port."""
     from repro_torch import convert
 
+    if hasattr(upd, "factors"):
+        return convert.factorized_update_from_numpy(upd.schema, upd.factors,
+                                                    ring, device="cpu")
     return convert.update_from_numpy(
         upd.schema, np.asarray(upd.keys),
         {c: np.asarray(v) for c, v in upd.payload.items()}, ring, device="cpu")
@@ -58,6 +62,26 @@ def assert_views_equal(ref_eng, port_eng, where=""):
             got = got_views[name][comp]
             assert np.abs(want).max(initial=0) < EXACT_LIMIT, (name, comp)
             np.testing.assert_array_equal(got, want, err_msg=f"{where} {name}.{comp}")
+
+
+def assert_views_close(ref_eng, port_eng, rtol, where=""):
+    """Every materialized view of ``port_eng`` within ``rtol`` of the
+    largest magnitude of the reference's (dense or sparse storage, compared
+    densely): the bound for float32 sums the two packages add in another
+    order."""
+    from repro.core.storage import as_dense as ref_dense
+    from repro_torch.core.storage import as_dense
+
+    assert set(ref_eng.views) == set(port_eng.views)
+    for name, rv in ref_eng.views.items():
+        rv = ref_dense(rv)
+        tv = as_dense(port_eng.views[name]).transpose(rv.schema)
+        for comp, arr in rv.payload.items():
+            want = np.asarray(arr).astype(np.float64)
+            got = tv.payload[comp].numpy().astype(np.float64)
+            scale = np.abs(want).max(initial=0.0)
+            err = np.abs(got - want).max(initial=0.0)
+            assert err <= rtol * scale, (where, name, comp, err, scale)
 
 
 def sparse_views(ref_eng) -> dict:

@@ -1576,3 +1576,109 @@ def test_cuda_scatter_kernels_flush_subnormals(cuda_device, kernel, d):
                                         torch.full((B,), 1e-20, device=cuda_device))
     torch.cuda.synchronize()
     assert not view.any(), f"{kernel} kept {int(view.count_nonzero())} subnormal values"
+
+
+def _chain_mats(rng, n, count=3):
+    """Integer-valued float32 matrices: every chain product and update sum
+    stays an integer below 2**24, exact in any summation order."""
+    return [rng.integers(-1, 2, size=(n, n)).astype(np.float32) for _ in range(count)]
+
+
+def _chain_updates(rng, n):
+    """Integer rank-1 and row updates (u, v), as numpy pairs."""
+    out = []
+    for i in range(4):
+        if i % 2:
+            u = np.zeros(n, np.float32)
+            u[rng.integers(0, n)] = 1.0
+        else:
+            u = rng.integers(-1, 2, size=n).astype(np.float32)
+        out.append((u, rng.integers(-1, 2, size=n).astype(np.float32)))
+    return out
+
+
+def _chain_kernel_ops(plan, views) -> tuple[int, int]:
+    """(Join-Lift-Marg triples, ⊎ ops into a dense 2-D view) of a rank-1
+    chain plan: the matvec and outer_accumulate launches of one update."""
+    ops = plan.ops
+    joins = sum(isinstance(op, tplan.JoinContract)
+                and isinstance(ops[i + 1], tplan.Lift)
+                and isinstance(ops[i + 2], tplan.Marginalize)
+                for i, op in enumerate(ops))
+    outers = sum(isinstance(op, tplan.ScatterAccum) and op.storage == "dense"
+                 and len(views[op.view].schema) == 2 for op in ops)
+    return joins, outers
+
+
+@pytest.mark.parametrize("updatable", [("A2",), None])
+def test_cuda_chain_engine_bitwise_to_cpu(cuda_device, updatable):
+    """The chain engine on the card (rank-1 joins and ⊎s on the matvec and
+    outer_accumulate kernels) ≡ the same engine on the CPU (the kernels'
+    plain versions), every view, on integer-valued data."""
+    from repro_torch.core.apps import matrix_chain
+
+    rng = np.random.default_rng(0)
+    n = 192
+    mats = _chain_mats(rng, n)
+    engines = {dev: matrix_chain.build_chain_engine(mats, updatable=updatable,
+                                                    device=dev)
+               for dev in ("cpu", cuda_device)}
+    updates = _chain_updates(rng, n)
+    for u, v in updates:
+        for dev, eng in engines.items():
+            eng.apply_update("A2", matrix_chain.rank1_update(
+                2, torch.tensor(u, device=dev), torch.tensor(v, device=dev),
+                eng.query.ring))
+    cpu, card = engines["cpu"], engines[cuda_device]
+    for name, view in cpu.views.items():
+        np.testing.assert_array_equal(card.views[name].payload["v"].cpu().numpy(),
+                                      view.payload["v"].numpy(), err_msg=name)
+    a2 = mats[1].astype(np.float64) + sum(np.outer(u, v) for u, v in updates)
+    want = mats[0].astype(np.float64) @ a2 @ mats[2].astype(np.float64)
+    np.testing.assert_array_equal(matrix_chain.result_matrix(card).cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("updatable", [("A2",), None])
+def test_cuda_chain_update_launches_equal_the_plan(cuda_device, updatable):
+    """One rank-1 update launches matvec once a (Join, Lift, Marg) triple
+    of its plan and outer_accumulate once a ⊎ into a dense 2-D view."""
+    from repro_torch.core.apps import matrix_chain
+    from repro_torch.kernels import rank1_chain
+
+    rng = np.random.default_rng(1)
+    n = 256
+    eng = matrix_chain.build_chain_engine(_chain_mats(rng, n), updatable=updatable,
+                                          device=cuda_device)
+    (u, v), = _chain_updates(rng, n)[:1]
+    upd = matrix_chain.rank1_update(2, torch.tensor(u, device=cuda_device),
+                                    torch.tensor(v, device=cuda_device), eng.query.ring)
+    joins, outers = _chain_kernel_ops(eng.trigger_plan("A2", upd), eng.views)
+    assert joins == 2 and outers == (1 if updatable else 3)
+    before = rank1_chain.MATVEC.launches, rank1_chain.OUTER_ACCUMULATE.launches
+    eng.apply_update("A2", upd)
+    torch.cuda.synchronize()
+    assert (rank1_chain.MATVEC.launches - before[0],
+            rank1_chain.OUTER_ACCUMULATE.launches - before[1]) == (joins, outers)
+
+
+def test_cuda_sparse_chain_engine_equals_dense(cuda_device):
+    """A storage="sparse" chain engine on the card (joins densify sparse
+    siblings, each ⊎ the per-factor active-key lowering through the hash
+    kernels) ≡ dense storage, under integer row updates."""
+    from repro_torch.core.apps import matrix_chain
+    from repro_torch.core.storage import SparseRelation
+
+    rng = np.random.default_rng(2)
+    n = 64
+    mats = _chain_mats(rng, n, count=2)
+    eng_d = matrix_chain.build_chain_engine(mats, storage="dense", device=cuda_device)
+    eng_s = matrix_chain.build_chain_engine(mats, storage="sparse", device=cuda_device)
+    assert any(isinstance(v, SparseRelation) for v in eng_s.views.values())
+    for k, row in ((1, 3), (2, 0), (1, 63)):
+        delta = torch.tensor(rng.integers(-2, 3, size=n).astype(np.float32),
+                             device=cuda_device)
+        for eng in (eng_d, eng_s):
+            eng.apply_update(f"A{k}", matrix_chain.row_update(k, row, delta, n,
+                                                              eng.query.ring))
+    np.testing.assert_array_equal(matrix_chain.result_matrix(eng_s).cpu().numpy(),
+                                  matrix_chain.result_matrix(eng_d).cpu().numpy())

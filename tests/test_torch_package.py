@@ -5,8 +5,8 @@
 * Entry points default to ``device="cuda"`` and raise on a host without
   CUDA unless the caller passes ``device="cpu"``.
 * What the slice does not port yet raises ``NotImplementedError``
-  (indicators, factorized updates, sharding; every LM family but dense
-  GQA, and the training loss); sparse storage, ported since, runs against
+  (indicators, sharding; every LM family but dense GQA, and the training
+  loss); sparse storage and factorized updates, ported since, run against
   the reference instead.
 * On a CUDA host the kernel toolchain (``nvcc``) is present: the test fails,
   not skips, where it is missing.
@@ -171,13 +171,43 @@ def _sparse_case(what):
     return eng, stream
 
 
+def _factorized_case():
+    """Factorized updates, ported since: a product of an Item factor over
+    ksn and one over (cat, price) applied to the retailer engine of the
+    sparse cases (``auto`` storage, dense here), twice, bitwise against the
+    reference's engine."""
+    import _torch_parity as P
+    from benchmarks import common as bc
+    from repro.core import DenseRelation as RDense
+    from repro.core import FactorizedUpdate as RFact
+    from repro.core import IVMEngine as RefEngine
+
+    rq, rdb, _, _ = _sparse_inputs("auto")
+    eng, _ = _sparse_case("auto")
+    ref = RefEngine.build(rq, rdb, var_order=bc.retailer_vo())
+    rng = np.random.default_rng(3)
+    doms = bc.RETAILER_DOMS
+    for _ in range(2):
+        upd = RFact(("ksn", "cat", "price"), (
+            RDense(("ksn",), rq.ring, {"v": rng.integers(
+                -2, 3, doms["ksn"]).astype(np.float32)}),
+            RDense(("cat", "price"), rq.ring, {"v": rng.integers(
+                0, 2, (doms["cat"], doms["price"])).astype(np.float32)})))
+        ref.apply_update("Item", upd)
+        eng.apply_update("Item", P.port_update(upd, eng.query.ring))
+    P.assert_views_equal(ref, eng, "factorized Item")
+    np.testing.assert_array_equal(eng.result().payload["v"].numpy(),
+                                  np.asarray(ref.result().payload["v"]))
+
+
 @pytest.mark.parametrize("what", ["auto", "sparse", "sparse_override",
                                   "indicators", "factorized", "sharding",
                                   "fusion"])
 def test_unported_features_raise(what):
-    """What is not ported raises; the sparse-storage cases, ported since,
-    now run a short retailer stream against the reference (the same
-    storage plan, the same result)."""
+    """What is not ported raises; the sparse-storage cases and factorized
+    updates, ported since, now run against the reference (sparse storage:
+    a short retailer stream, the same storage plan, the same result;
+    factorized: :func:`_factorized_case`)."""
     if what in ("auto", "sparse", "sparse_override", "fusion"):
         import _torch_parity as P
 
@@ -199,11 +229,11 @@ def test_unported_features_raise(what):
         with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
             _small_engine(device="cpu", use_indicators=True)
         return
-    eng, _, _ = _small_engine(device="cpu", storage="dense")
     if what == "factorized":
-        with pytest.raises(NotImplementedError, match="Queue 1 items 2 and 6"):
-            eng.apply_update("Item", object())
-    else:
+        _factorized_case()
+        return
+    eng, _, _ = _small_engine(device="cpu", storage="dense")
+    if what == "sharding":
         with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
             eng.shard_state(None)
 
