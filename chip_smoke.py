@@ -85,6 +85,22 @@ Phases (any failed check raises, and the script exits non-zero):
      postcodes, 20 batches of 1000; the executor captures, then replays a
      second stream of the signature with 0 eager steps under
      ``set_sync_debug_mode("error")``.
+   Then the cyclic and conjunctive queries (paper Secs. 6 and 7.3):
+   - ``triangle`` (Fig. 11): R(A,B), S(B,C), T(C,A) at n = 4,096 a
+     variable (density 3/n), the degree-3 cofactor ring, 20 batches of
+     1000 distinct keys; ``fivm`` with indicator projections, ``fivm``
+     without and ``dbt`` with, each with its launches held to its plans'
+     (``plan_launches``), every view to the float64 oracle, its indicator
+     counts and plane to a recount (bitwise), profiled; the roots against
+     each other; then the ``fivm``-with-indicators stream through the
+     executor (capture, a replay-only run of 999/1000-row batches under
+     ``set_sync_debug_mode("error")``, a profiled replay), each run's
+     state against the eager engine's;
+   - ``conjunctive`` (Fig. 13): the factorized engine (premarg ``W:``
+     views) at pc = 65,536, 20 batches of 1000 distinct-key ±1 updates,
+     launches against its plans and every view bitwise to a float64
+     numpy recount; at pc = 32 the enumeration of its ``W:`` payloads
+     against the host listing engine (``PyIVM``) and a brute force.
 4. The kernel-ops layer's paths, counts reset before and read after each:
    - B, the ring product on engine state: ``ops.ring_mul`` of the largest
      view (1,179,648 keys, degree 10) of the two cofactor engines above,
@@ -2419,6 +2435,549 @@ def housing_executor(label, leg, build, stream, q, q64, db, pool, batch, n_batch
     return out
 
 
+# ---------------------------------------------------------------------------
+# Sec. 6 and Sec. 7.3: the triangle query with indicator projections, and
+# the conjunctive query's factorized and listing representations
+# ---------------------------------------------------------------------------
+#: the triangle leg (paper Fig. 11, ``benchmarks/bench_triangle.py``): n a
+#: variable, the bench's density 3/n, 20 batches of 1000 distinct keys
+TRIANGLE_N, TRIANGLE_BATCHES = 4096, 20
+#: label, IVMEngine.build keywords (every engine: fuse_chains=False, auto
+#: storage, plan fusion auto)
+TRIANGLE_ENGINES = (("fivm_indicators", dict(strategy="fivm", use_indicators=True)),
+                    ("fivm", dict(strategy="fivm")),
+                    ("dbt_indicators", dict(strategy="dbt", use_indicators=True)))
+
+
+def plan_launches(plan, eng) -> dict:
+    """The hand-kernel launches one replay of ``plan`` on ``eng`` makes, by
+    kernel, from its ops and the backends they carry: a ⊎ under
+    ``scatter`` is one ``scatter_add`` launch (one ``gather_mul_scatter``
+    when a scalar-ring sibling gather fuses into it), under ``compact`` one
+    ``segment_ring_sum`` and one ``scatter_add``; a ⊎ of a delta with only
+    dense axes, and any ⊎ under ``torch``, launches nothing; a fused chain
+    is one ``fused_chain`` launch.  An IndicatorBump ⊎s its δ∃ into the 0/1
+    plane, and a plan that writes its relation's stored base ⊎s the batch
+    into it, each under the backend the dispatch resolves for it."""
+    from repro_torch.core import plan as P
+    from repro_torch.core.storage import payload_width
+    from repro_torch.kernels import scatter_ops
+
+    ring = eng.query.ring
+    out: dict = {}
+
+    def add(name, n=1):
+        out[name] = out.get(name, 0) + n
+
+    def scatter(backend, fused_scalar=False):
+        if backend in (None, "torch"):
+            return
+        if backend == "compact":
+            add("segment_ring_sum")
+            add("scatter_add")
+        elif fused_scalar:
+            add("gather_mul_scatter")
+        else:
+            add("scatter_dedup" if backend == "scatter_dedup" else "scatter_add")
+
+    def resolved(domains):
+        return scatter_ops.resolve_backend(math.prod(domains), plan.batch,
+                                           payload_width(ring), device="cuda")
+
+    scalar = set(ring.components) == {"v"}
+    for op in plan.ops + plan.ind_ops:
+        if isinstance(op, P.FusedChain):
+            add("fused_chain")
+        elif isinstance(op, P.ScatterAccum):
+            if op.storage != "dense":
+                raise AssertionError(f"{op.view}: a sparse view on a dense leg")
+            scatter(op.backend, fused_scalar=op.fused and scalar)
+        elif isinstance(op, P.IndicatorBump):
+            scatter(resolved(eng.indicators[op.node].counts.shape))
+    for rel in plan.write_base:
+        scatter(resolved(eng.base[rel].domains))
+    return out
+
+
+def stream_launches(eng, stream) -> dict:
+    """:func:`plan_launches` summed over the plans ``stream``'s updates
+    take (the engine's cached plans)."""
+    out: dict = {}
+    for rel, upd in stream:
+        p = eng.trigger_plan(rel, upd)
+        for k, n in plan_launches(p, eng).items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def check_launches(label, kernels, want: dict) -> dict:
+    """The counts since the last reset, by kernel; raises unless they are
+    ``want``'s (every kernel ``want`` does not name launched 0 times)."""
+    launches = {k.name: k.launches for k in kernels}
+    got = {k: n for k, n in launches.items() if n and ":" not in k}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, the plans say {want}")
+    return launches
+
+
+def state_tensors(eng) -> dict:
+    """Every state leaf of an engine, by a name of its own."""
+    from repro_torch.core import plan as P
+
+    out = {}
+    for part, entries in zip(("views", "base", "indicators"), eng.state):
+        for name in sorted(entries):
+            for i, t in enumerate(P.relation_leaves(entries[name])):
+                out[f"{part}/{name}/{i}"] = t
+    return out
+
+
+def compare_states(label, a, b) -> dict:
+    """Raise unless two engines' states agree leaf by leaf: bitwise where
+    a leaf's values are below 2**24 (integer sums, exact in any order),
+    else within RTOL of its largest magnitude (``fused_chain`` and the ⊎
+    kernels add a batch's rows into a key with atomics, in no fixed
+    order).  Returns the leaves of each kind and the largest error."""
+    import torch
+
+    ta, tb = state_tensors(a), state_tensors(b)
+    if set(ta) != set(tb):
+        raise AssertionError(f"{label}: state entries differ")
+    out = {"bitwise_leaves": 0, "tolerance_leaves": 0, "max_rel_err": 0.0}
+    for k in ta:
+        x, y = ta[k], tb[k]
+        scale = float(x.abs().max()) if x.numel() else 0.0
+        if scale < EXACT_LIMIT:
+            if not torch.equal(x, y):
+                raise AssertionError(f"{label}: {k} differs from the eager engine")
+            out["bitwise_leaves"] += 1
+        else:
+            err = float((x.double() - y.double()).abs().max()) / scale
+            if err > RTOL:
+                raise AssertionError(f"{label}: {k} differs from the eager engine "
+                                     f"by {err} of its magnitude")
+            out["tolerance_leaves"] += 1
+            out["max_rel_err"] = max(out["max_rel_err"], err)
+    return out
+
+
+def check_indicators(label, eng, base_rel) -> dict:
+    """Each indicator's counts and plane against a recount from the
+    final base relation: bitwise."""
+    import torch
+
+    ring = eng.query.ring
+    out = {}
+    for name, ind in eng.indicators.items():
+        nz = ~ring.is_zero(base_rel[ind.rel_name].payload)
+        if ind.proj != base_rel[ind.rel_name].schema:
+            raise AssertionError(f"{label}: ∃{name} projects {ind.proj}")
+        if not torch.equal(ind.counts, nz.to(torch.int32)):
+            raise AssertionError(f"{label}: ∃{name} counts differ from a recount")
+        want = ring.ones(tuple(nz.shape), device="cuda")
+        for c, t in ind.dense.payload.items():
+            w = torch.where(nz.reshape(tuple(nz.shape) + (1,) * (t.dim() - 2)),
+                            want[c], torch.zeros_like(want[c]))
+            if not torch.equal(t, w):
+                raise AssertionError(f"{label}: ∃{name}.{c} differs from a recount")
+        out[name] = dict(keys=int(nz.sum()), rel=ind.rel_name, proj=list(ind.proj))
+    return out
+
+
+def triangle_phase(kernels, laps) -> list:
+    """Paper Fig. 11 at real state: R(A,B), S(B,C), T(C,A) at n = 4,096 a
+    variable (density 3/n, about 12,300 tuples a relation), the degree-3
+    cofactor ring (d = 13), var order chain(A, B, C), ``fuse_chains=False``,
+    ``auto`` storage, fusion ``auto``; 20 batches of 1000 distinct keys
+    round-robin over R, S, T.  Three engines, the bench's rows: ``fivm``
+    with indicators, ``fivm`` without, ``dbt`` with indicators, each built,
+    run eagerly (launches against the plans'), held to the float64 oracle
+    (every view), its indicators to a recount from the final base, and
+    profiled; the three roots against each other.  Then the ``fivm``-with-
+    indicators stream through the stream executor (:func:`triangle_executor`)."""
+    import torch
+    from repro_torch.core import IVMEngine
+    from repro_torch.core.apps import regression
+    from repro_torch.core.storage import as_dense
+    from repro_torch.data import synth
+
+    n = TRIANGLE_N
+    doms = dict(A=n, B=n, C=n)
+    rels = synth.TRIANGLE_RELATIONS
+    q = regression.cofactor_query(rels, doms)
+    q64 = regression.cofactor_query(rels, doms, dtype=torch.float64)
+    db = synth.synth_db(rels, doms, q.ring, np.random.default_rng(SEED),
+                        density=3.0 / n, device="cuda")
+    stream = synth.distinct_key_stream(rels, doms, q.ring,
+                                       np.random.default_rng(SEED + 1),
+                                       [BATCH] * TRIANGLE_BATCHES, device="cuda")
+    tuples = {r: int((rel.payload["c"] != 0).sum()) for r, rel in db.items()}
+
+    def build(kw):
+        eng = IVMEngine.build(q, db, var_order=synth.triangle_vo(),
+                              fuse_chains=False, device="cuda", **kw)
+        eng.precompile(BATCH)
+        return eng
+
+    out, roots, eager_twin = [], {}, None
+    for label, kw in TRIANGLE_ENGINES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = build(kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_peak = torch.cuda.max_memory_allocated()
+        storage_plan = {k: [s.kind, s.capacity] for k, s in sorted(eng.storage_plan.items())}
+        view_bytes, dense_b = eng.memory_bytes(), dense_bytes(eng)
+        want = stream_launches(eng, stream)
+        reset(kernels)
+        t0 = time.perf_counter()
+        for rel, upd in stream:
+            eng.apply_update(rel, upd)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_peak = torch.cuda.max_memory_allocated()
+        launches = check_launches(f"triangle {label}", kernels, want)
+        oracle = oracle_store(eng, db, stream, q64, 1)
+        check = compare_views(f"triangle {label}", eng, oracle)
+        del oracle
+        inds = check_indicators(f"triangle {label}", eng, eng.base)
+        roots[label] = {c: t.double().reshape(-1) for c, t in eng.result().payload.items()}
+        plans = {rel: eng.plans.lookup_sig(eng, rel, ("coo", rels[rel], BATCH)).pretty()
+                 for rel in rels}
+        row = dict(
+            stream=f"triangle_{label}", n=n, batch=BATCH, n_batches=TRIANGLE_BATCHES,
+            tuples=tuples, build_kw={k: v for k, v in kw.items()},
+            views=sorted(eng.materialized_names), indicators=inds,
+            storage_plan=storage_plan, capacities=capacities(eng),
+            view_bytes=view_bytes, view_bytes_dense=dense_b,
+            build_s=build_s, build_peak_bytes=build_peak,
+            run_s=run_s, tuples_per_s=BATCH * TRIANGLE_BATCHES / run_s,
+            max_memory_allocated_run=run_peak,
+            launches={k: v for k, v in launches.items() if v},
+            launches_per_batch={k: v / TRIANGLE_BATCHES for k, v in launches.items() if v},
+            plan_texts=plans, oracle=check)
+        if label == "fivm_indicators":
+            eager_twin = eng  # the executor leg continues it
+        else:
+            del eng
+        torch.cuda.empty_cache()
+        prof = build(kw)
+        updates = iter(stream)
+        events, wall = device_events(lambda: prof.apply_update(*next(updates)),
+                                     len(stream))
+        row["profile"] = _busy(events, wall)
+        row["profile"]["device_events_per_batch"] = (row["profile"]["device_events"]
+                                                     / TRIANGLE_BATCHES)
+        del prof
+        torch.cuda.empty_cache()
+        log(row)
+        out.append(row)
+        laps.lap(f"triangle {label}")
+    # the three engines compute one query: their roots agree (bitwise below
+    # 2**24, else within RTOL of the largest magnitude)
+    first = roots["fivm_indicators"]
+    for label, r in roots.items():
+        for c, t in r.items():
+            scale = float(first[c].abs().max())
+            err = float((t - first[c]).abs().max())
+            if (scale < EXACT_LIMIT and err) or (scale >= EXACT_LIMIT
+                                                 and err > RTOL * scale):
+                raise AssertionError(f"triangle roots: {label}.{c} differs from "
+                                     f"fivm_indicators by {err} (scale {scale})")
+    out.append(triangle_executor(kernels, q, q64, db, stream, eager_twin,
+                                 build, dict(TRIANGLE_ENGINES)["fivm_indicators"]))
+    laps.lap("triangle executor")
+    del eager_twin, db
+    torch.cuda.empty_cache()
+    return out
+
+
+def triangle_executor(kernels, q, q64, db, stream, eager, build, kw) -> dict:
+    """The ``fivm``-with-indicators stream through the stream executor on a
+    fresh engine (rounds mode: a round is R, S, T, each round one CUDA
+    graph, its IndicatorBump included): a capture run of the stream, a
+    replay-only run (``donate_input=True``, 0 eager steps) under
+    ``set_sync_debug_mode("error")`` of a second stream of the same
+    signature whose batches have 999 or 1000 rows, so that padded rows
+    pass through the indicator sections, then a profiled replay-only run
+    of the first stream again.  After each run every state leaf (views,
+    base, indicator counts and planes) equals the eager engine's after the
+    same updates (:func:`compare_states`: bitwise below 2**24, the root's
+    larger sums within RTOL; the eager engine takes the second stream
+    padded as the executor buckets it, so that every sum has the same
+    rows), and the launches equal the plans'.
+    The padded rows are held to be no-ops by the indicators' recount from
+    the final base (bitwise) and the views' float64 oracle over the
+    unpadded streams."""
+    import torch
+    from repro_torch.core import StreamExecutor, prepare_stream
+    from repro_torch.data import synth
+
+    rels = synth.TRIANGLE_RELATIONS
+    doms = {v: TRIANGLE_N for v in "ABC"}
+    sizes = [BATCH - (i // 3) % 2 for i in range(TRIANGLE_BATCHES)]
+    second = synth.distinct_key_stream(rels, doms, q.ring,
+                                       np.random.default_rng(SEED + 3), sizes,
+                                       device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = build(kw)
+    ex = StreamExecutor(eng)
+    prepared, prepared2 = prepare_stream(eng, stream), prepare_stream(eng, second)
+    if prepared2.signature != prepared.signature or prepared.mode != "rounds":
+        raise AssertionError("triangle executor: the second stream's signature differs")
+    padded = sum(BATCH - s for s in sizes)
+    plans = prepared.plans
+    if not any(p.ind_ops for p in plans):
+        raise AssertionError("triangle executor: no IndicatorBump in the round")
+    want: dict = {}
+    for p in plans:
+        for k, v in plan_launches(p, eng).items():
+            want[k] = want.get(k, 0) + v * prepared.n_steps
+    for p in plans[:prepared.tail_len]:
+        for k, v in plan_launches(p, eng).items():
+            want[k] = want.get(k, 0) + v
+    runs = {}
+    # (run, prepared stream, the updates the eager engine takes after it:
+    # none after the capture run, whose stream it ran in its own leg)
+    for run, prep, extra in (("capture", prepared, []),
+                             ("replay_padded", prepared2, second),
+                             ("replay_profiled", prepared, stream)):
+        reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if run == "capture":
+            ex.run(prep)
+        elif run == "replay_padded":
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                ex.run(prep, donate_input=True)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        else:
+            events, _ = device_events(lambda: ex.run(prep, donate_input=True), 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = dict(ex.last_run_stats)
+        if not stats["replays"] or (run != "capture" and stats["eager_steps"]):
+            raise AssertionError(f"triangle executor {run}: stats {stats}")
+        launches = check_launches(f"triangle executor {run}", kernels, want)
+        for rel, upd in extra:
+            eager.apply_update(rel, upd.pad_to(q.ring, BATCH))
+        torch.cuda.synchronize()
+        leaves = compare_states(f"triangle executor {run}", eager, eng)
+        runs[run] = dict(run_s=wall, tuples_per_s=sum(
+                             int(u.batch) for _, u in (extra or stream)) / wall,
+                         host_us_per_replay=1e6 * stats["replay_host_s"] / stats["replays"],
+                         against_eager=leaves,
+                         launches={k: v for k, v in launches.items() if v}, **stats)
+        if run == "replay_profiled":
+            runs[run]["profile"] = _busy(events, wall)
+            runs[run]["profile"]["device_events_per_batch"] = (
+                runs[run]["profile"]["device_events"] / TRIANGLE_BATCHES)
+    peak = dict(max_memory_allocated=torch.cuda.max_memory_allocated(),
+                max_memory_reserved=torch.cuda.max_memory_reserved())
+    check = compare_views("triangle executor", eng,
+                          oracle_store(eng, db, stream + second + stream, q64, 1))
+    inds = check_indicators("triangle executor", eng, eng.base)
+    ex.release()
+    del eng, ex, prepared, prepared2, second
+    torch.cuda.empty_cache()
+    row = dict(stream="triangle_fivm_indicators_executor", mode="rounds",
+               rounds=TRIANGLE_BATCHES // 3, tail=TRIANGLE_BATCHES % 3,
+               padded_rows=padded, indicators=inds, oracle=check, **peak, **runs)
+    log(row)
+    return row
+
+
+#: the conjunctive leg (paper Fig. 13, ``benchmarks/bench_factorized_payloads.py``):
+#: House(pc,h1), Shop(pc,s1), Rest(pc,r1), 0/1 multiplicities at density
+#: 0.5, attr 6; the factorized engine on the card at the housing star's
+#: postcode count, the enumeration check at the bench's largest scale
+CQ_RELATIONS = {"House": ("pc", "h1"), "Shop": ("pc", "s1"), "Rest": ("pc", "r1")}
+CQ_ATTR, CQ_DENSITY = 6, 0.5
+CQ_PC, CQ_PC_LISTING = 65_536, 32
+CQ_FREE = ("pc", "h1", "s1", "r1")
+
+
+def cq_vo():
+    from repro_torch.core import chain
+
+    return chain(["pc"], {"pc": [["h1"], ["s1"], ["r1"]]})
+
+
+def cq_data(pc: int, rng) -> tuple[dict, dict]:
+    doms = dict(pc=pc, h1=CQ_ATTR, s1=CQ_ATTR, r1=CQ_ATTR)
+    return doms, {name: (rng.random(tuple(doms[v] for v in sch)) < CQ_DENSITY
+                         ).astype(np.int64) for name, sch in CQ_RELATIONS.items()}
+
+
+def cq_updates(data: dict, rng, batch: int, n_batches: int) -> list:
+    """Round-robin batches of distinct keys, each +1 where the key is
+    absent and -1 where it is present (multiplicities stay 0/1); ``data``
+    follows them.  ``[(rel, keys [B, 2] int32, vals [B] float32), ...]``."""
+    out = []
+    for i in range(n_batches):
+        rel = list(CQ_RELATIONS)[i % 3]
+        shape = data[rel].shape
+        flat = rng.choice(int(np.prod(shape)), size=batch, replace=False)
+        keys = np.stack(np.unravel_index(flat, shape), axis=1).astype(np.int32)
+        vals = np.where(data[rel][tuple(keys.T)] == 0, 1.0, -1.0).astype(np.float32)
+        data[rel][tuple(keys.T)] += vals.astype(np.int64)
+        out.append((rel, keys, vals))
+    return out
+
+
+def cq_recount(eng, data) -> dict:
+    """Every view of the factorized engine over ``data`` in float64
+    numpy, by name: W:V@x = the relation; V@x = its row sums; W:V@pc = the
+    product of the three; the root = its sum."""
+    tree = eng.tree
+    want = {}
+    sums = []
+    for child in tree.children:
+        rel = child.children[0].relation
+        m = data[rel].astype(np.float64)
+        want[f"W:{child.name}"] = m
+        want[child.name] = m.sum(axis=1)
+        want[rel] = m
+        sums.append(m.sum(axis=1))
+    want[f"W:{tree.name}"] = sums[0] * sums[1] * sums[2]
+    want[tree.name] = np.asarray(want[f"W:{tree.name}"].sum())
+    return want
+
+
+def conjunctive_phase(kernels, laps) -> list:
+    """Paper Fig. 13 on the card.  (1) ``conjunctive.make_factorized_engine``
+    at pc = 65,536 (the housing star's postcode count), 20 batches of 1000
+    distinct-key ±1 updates through ``apply_update``: launches against the
+    plans', every ``W:`` view and the root against a float64 numpy recount
+    (bitwise: integer counts far below 2**24).  (2) At pc = 32, the bench's
+    largest scale: the same engine on the card and the host ``PyIVM``
+    listing engine under the same 60 single-tuple updates; the enumeration
+    of the card engine's ``W:`` payloads must equal the listing and a
+    brute-force oracle after every 20."""
+    import torch
+    from repro_torch.core import COOUpdate, PyRelation
+    from repro_torch.core.apps import conjunctive
+    from repro_torch.core.rings import PyRelationalRing
+    from repro_torch.core.storage import as_dense
+
+    rng = np.random.default_rng(SEED)
+    doms, data = cq_data(CQ_PC, rng)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, q = conjunctive.make_factorized_engine(CQ_RELATIONS, data, cq_vo(), doms,
+                                                device="cuda")
+    eng.precompile(BATCH)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    updates = cq_updates(data, rng, BATCH, N_BATCHES)
+    stream = [(rel, COOUpdate(CQ_RELATIONS[rel], torch.as_tensor(k, device="cuda"),
+                              {"v": torch.as_tensor(v, device="cuda")}))
+              for rel, k, v in updates]
+    want_launches = stream_launches(eng, stream)
+    reset(kernels)
+    t0 = time.perf_counter()
+    for rel, upd in stream:
+        eng.apply_update(rel, upd)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = check_launches("conjunctive", kernels, want_launches)
+    want = cq_recount(eng, data)
+    w_views = sorted(n for n in eng.views if n.startswith("W:"))
+    if len(w_views) != 4 or not set(eng.views) <= set(want):
+        raise AssertionError(f"conjunctive: views {sorted(eng.views)}")
+    for name, v in eng.views.items():
+        got = as_dense(v).payload["v"].double().cpu().numpy()
+        if got.shape != np.shape(want[name]) or not np.array_equal(got, want[name]):
+            raise AssertionError(f"conjunctive: {name} differs from the recount")
+    row = dict(stream="conjunctive_factorized", pc=CQ_PC, attr=CQ_ATTR,
+               batch=BATCH, n_batches=N_BATCHES, views=sorted(eng.views),
+               w_views=w_views, view_bytes=eng.memory_bytes(),
+               storage_plan={k: [s.kind, s.capacity]
+                             for k, s in sorted(eng.storage_plan.items())},
+               build_s=build_s, run_s=run_s,
+               tuples_per_s=BATCH * N_BATCHES / run_s,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               launches={k: v for k, v in launches.items() if v},
+               launches_per_batch={k: v / N_BATCHES for k, v in launches.items() if v},
+               root=float(want[eng.tree.name]), recount="bitwise")
+    del eng, stream
+    torch.cuda.empty_cache()
+    # profiled: a fresh engine over the same stream
+    doms, data = cq_data(CQ_PC, np.random.default_rng(SEED))
+    prof, _ = conjunctive.make_factorized_engine(CQ_RELATIONS, data, cq_vo(), doms,
+                                                 device="cuda")
+    prof.precompile(BATCH)
+    stream = [(rel, COOUpdate(CQ_RELATIONS[rel], torch.as_tensor(k, device="cuda"),
+                              {"v": torch.as_tensor(v, device="cuda")}))
+              for rel, k, v in updates]
+    it = iter(stream)
+    events, wall = device_events(lambda: prof.apply_update(*next(it)), len(stream))
+    row["profile"] = _busy(events, wall)
+    row["profile"]["device_events_per_batch"] = row["profile"]["device_events"] / N_BATCHES
+    del prof, stream
+    torch.cuda.empty_cache()
+    log(row)
+    laps.lap("conjunctive factorized")
+
+    # (2) enumeration against the listing and the oracle at the bench's scale
+    rng = np.random.default_rng(SEED + 1)
+    doms, data = cq_data(CQ_PC_LISTING, rng)
+    eng, _ = conjunctive.make_factorized_engine(CQ_RELATIONS, data, cq_vo(), doms,
+                                                device="cuda")
+    ring = PyRelationalRing(tagged=True)
+    db = {name: PyRelation(sch, ring, {tuple(int(x) for x in k): {(): 1}
+                                       for k in np.argwhere(data[name] != 0)})
+          for name, sch in CQ_RELATIONS.items()}
+    t0 = time.perf_counter()
+    listing, ltree = conjunctive.make_listing_engine(CQ_RELATIONS, CQ_FREE, db,
+                                                     cq_vo(), doms)
+    listing_build_s = time.perf_counter() - t0
+    checks, fac_s, lst_s = [], 0.0, 0.0
+    for block in range(3):
+        for rel, keys, vals in cq_updates(data, rng, 1, 20):
+            t0 = time.perf_counter()
+            eng.apply_update(rel, COOUpdate(CQ_RELATIONS[rel],
+                                            torch.as_tensor(keys, device="cuda"),
+                                            {"v": torch.as_tensor(vals, device="cuda")}))
+            torch.cuda.synchronize()
+            fac_s += time.perf_counter() - t0
+            d = PyRelation(CQ_RELATIONS[rel], ring)
+            d.data[tuple(int(x) for x in keys[0])] = {(): int(vals[0])}
+            t0 = time.perf_counter()
+            listing.apply_update(rel, d)
+            lst_s += time.perf_counter() - t0
+        payloads = conjunctive.factorized_payloads_from_engine(eng)
+        fac = conjunctive.enumerate_factorized(eng.tree, payloads, CQ_FREE)
+        lst = conjunctive.listing_result(listing, CQ_FREE, ltree)
+        oracle = {(p, h, s, r) for p in range(doms["pc"])
+                  for h in np.flatnonzero(data["House"][p])
+                  for s in np.flatnonzero(data["Shop"][p])
+                  for r in np.flatnonzero(data["Rest"][p])}
+        oracle = {tuple(int(x) for x in t) for t in oracle}
+        if fac != oracle or set(lst) != oracle or any(m != 1 for m in lst.values()):
+            raise AssertionError(f"conjunctive pc={CQ_PC_LISTING} after "
+                                 f"{20 * (block + 1)} updates: factorized "
+                                 f"{len(fac)}, listing {len(lst)}, oracle {len(oracle)}")
+        checks.append(dict(updates=20 * (block + 1), tuples=len(oracle),
+                           factorized_cells=conjunctive.factorized_cells(payloads),
+                           listing_cells=conjunctive.listing_cells(lst, len(CQ_FREE))))
+    row2 = dict(stream="conjunctive_enumeration", pc=CQ_PC_LISTING, attr=CQ_ATTR,
+                updates=60, checks=checks, listing_build_s=listing_build_s,
+                factorized_us_per_update=1e6 * fac_s / 60,
+                listing_us_per_update=1e6 * lst_s / 60)
+    del eng
+    torch.cuda.empty_cache()
+    log(row2)
+    laps.lap("conjunctive enumeration")
+    return [row, row2]
+
+
 def main() -> int:
     import torch
 
@@ -2525,6 +3084,10 @@ def main() -> int:
     laps.lap("streams")
     # sparse view storage: the housing star at pc = 65,536, legs S1-S3
     housing = housing_phase(kernels, laps)
+    # Sec. 6: the triangle query with indicator projections; Sec. 7.3: the
+    # conjunctive query's factorized (card) and listing (host) results
+    triangle = triangle_phase(kernels, laps)
+    conjunctive = conjunctive_phase(kernels, laps)
     # the kernel-ops layer: the ring product on engine state (B), streaming
     # statistics (A) and rank-1 matrix-chain deltas (C)
     paths = [ring_product_path(kept, kernels)]
@@ -2544,13 +3107,16 @@ def main() -> int:
     # the housing legs' executor runs (capture and replay-only, or the
     # capacity segments) count beside their eager runs, and the chain
     # engine's integer and sparse cases beside its main run
-    runs = [run["launches"] for run in streams + housing + paths] + [
+    runs = [run["launches"] for run in streams + housing + paths
+            + triangle[:-1] + conjunctive[:1]] + [
         run["executor"]["launches"] for run in housing] + [
+        triangle[-1][key]["launches"] for key in ("capture", "replay_padded",
+                                                  "replay_profiled")] + [
         run[key] for run in paths
         for key in ("launches_float32", "launches_float32_reduced", "launches_int",
                     "launches_sparse")
         if key in run]
-    launched = {k.name: sum(r[k.name] for r in runs) for k in kernels}
+    launched = {k.name: sum(r.get(k.name, 0) for r in runs) for k in kernels}
     if not all(launched[k.name] for k in built):
         raise AssertionError(f"a kernel launched on no path: {launched}")
     # every sparse read and claim of the main path took the keyed forms

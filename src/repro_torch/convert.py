@@ -62,11 +62,30 @@ def factorized_update_from_numpy(schema, factors, ring,
 
 
 def state_to_numpy(engine) -> dict:
-    """``{"views": {name: {comp: array}}, "base": {...}}`` on the host."""
+    """``{"views": {name: {comp: array}}, "base": {...}, "indicators":
+    {node: {"counts": array, "dense": {comp: array}}}}`` on the host."""
     return {
         "views": {n: host_payload(v.payload) for n, v in engine.views.items()},
         "base": {n: host_payload(v.payload) for n, v in engine.base.items()},
+        "indicators": {n: {"counts": ind.counts.cpu().numpy(),
+                           "dense": host_payload(ind.dense.payload)}
+                       for n, ind in engine.indicators.items()},
     }
+
+
+def indicator_from_numpy(rel_name: str, proj, counts, dense: Mapping, ring,
+                         device="cuda"):
+    """A ``core.indicators.IndicatorState`` on ``device`` from numpy: the
+    int32 ``counts`` over ``proj`` and the 0/1 plane's ``{comp: array}``
+    (the reference's ``IndicatorState`` read out with ``np.asarray``)."""
+    from .core.indicators import IndicatorState
+
+    dev = resolve_device(device)
+    plane = DenseRelation(tuple(proj), ring, {
+        c: torch.tensor(np.asarray(arr), device=dev).to(ring.dtype)
+        for c, arr in dense.items()}).owned()
+    counts = torch.tensor(np.asarray(counts), device=dev).to(torch.int32)
+    return IndicatorState(rel_name, tuple(proj), counts.contiguous(), plane)
 
 
 def running_cofactor_from_numpy(c, s, Q, device="cuda"):

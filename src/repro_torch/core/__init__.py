@@ -1,12 +1,16 @@
 """F-IVM core: factorized incremental view maintenance over rings."""
 from .contraction import BatchedDelta, contract_dense, lift_relation, marginalize_dense
 from .delta import propagate_coo, propagate_factorized
-from .ivm import IVMEngine
-from .materialize import choose_materialized, views_on_path
+from .indicators import IndicatorState, add_indicators, gyo_residual, indicator_of, is_acyclic
+from .ivm import IVMEngine, canonical_state
+from .materialize import choose_materialized, gather_scatter_profile, views_on_path
 from .plan import PlanCache, TriggerPlan, compile_trigger, execute_trigger
 from .query import Query
-from .relations import COOUpdate, DenseRelation, FactorizedUpdate
-from .rings import DegreeMRing, MulTerm, Ring, ScalarRing, count_ring, sum_ring
+from .relations import COOUpdate, DenseRelation, FactorizedUpdate, PyRelation
+from .py_engine import PyEngineSpec, PyIVM
+from .rings import (DegreeMRing, MulTerm, PyDegreeMRing, PyNumberRing,
+                    PyRelationalRing, PyRing, Ring, ScalarRing, count_ring,
+                    sum_ring)
 from .storage import (SparseRelation, StorageSpec, ViewStorage,
                       apply_storage_plan, as_dense, make_base_relation,
                       plan_storage, view_nbytes)
@@ -18,15 +22,19 @@ from .view_tree import ViewNode, build_view_tree, evaluate_view
 
 __all__ = [
     "BatchedDelta", "COOUpdate", "DegreeMRing", "DenseRelation",
-    "FactorizedUpdate", "IVMEngine",
-    "MAX_ROUNDS_PERIOD", "MulTerm", "PlanCache", "PreparedStream", "Query",
+    "FactorizedUpdate", "IVMEngine", "IndicatorState",
+    "MAX_ROUNDS_PERIOD", "MulTerm", "PlanCache", "PreparedStream",
+    "PyDegreeMRing", "PyEngineSpec", "PyIVM", "PyNumberRing", "PyRelation",
+    "PyRelationalRing", "PyRing", "Query",
     "Ring", "ScalarRing", "SparseRelation", "StorageSpec", "StreamCapacityError",
     "StreamExecutor", "TriggerPlan", "VONode", "VariableOrder", "ViewNode",
-    "ViewStorage", "apply_storage_plan", "as_dense", "build_view_tree",
+    "ViewStorage", "add_indicators", "apply_storage_plan", "as_dense",
+    "build_view_tree", "canonical_state",
     "capacity_segments", "chain", "check_stream_capacity",
     "choose_materialized", "compile_trigger", "contract_dense", "count_ring",
-    "evaluate_view", "execute_trigger", "heuristic_order", "lift_relation",
-    "make_base_relation", "marginalize_dense", "plan_storage",
+    "evaluate_view", "execute_trigger", "gather_scatter_profile",
+    "gyo_residual", "heuristic_order", "indicator_of", "is_acyclic",
+    "lift_relation", "make_base_relation", "marginalize_dense", "plan_storage",
     "prepare_stream", "propagate_coo", "propagate_factorized",
     "split_segments", "sum_ring",
     "view_nbytes", "views_on_path",

@@ -113,6 +113,34 @@ def gradient(stats: CofactorStats, theta: torch.Tensor) -> torch.Tensor:
     return stats.sigma() @ theta / torch.clamp(stats.c, min=1.0)
 
 
+def learn_linear_model(
+    stats: CofactorStats,
+    label: int,
+    features: Sequence[int],
+    lr: float = 0.1,
+    steps: int = 500,
+) -> torch.Tensor:
+    """Batch GD on the maintained statistics (paper: θ := θ − α MᵀM θ).
+
+    ``label``/``features`` index the query variables (0-based).  Returns the
+    homogeneous parameter vector θ over [bias, *all m variables] with
+    θ_label = −1 fixed and non-feature coordinates zero.  Each step is one
+    (m+1)² matrix-vector product on the stats' device; Σ and the count
+    clamp are formed once (the reference's scan recomputes them a step,
+    the same values)."""
+    m = stats.m
+    sigma = stats.sigma()
+    keep = np.zeros(m + 1, np.float32)
+    keep[[0] + [1 + f for f in features]] = 1.0  # bias + features
+    mask = torch.from_numpy(keep).to(device=sigma.device, dtype=sigma.dtype)
+    theta = torch.zeros(m + 1, dtype=sigma.dtype, device=sigma.device)
+    theta[1 + label] = -1.0
+    denom = torch.clamp(stats.c, min=1.0)
+    for _ in range(steps):
+        theta = theta - lr * (sigma @ theta / denom * mask)
+    return theta
+
+
 def solve_linear_model(
     stats: CofactorStats, label: int, features: Sequence[int], ridge: float = 1e-6
 ) -> torch.Tensor:

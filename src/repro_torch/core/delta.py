@@ -31,13 +31,26 @@ __all__ = ["PropagationResult", "propagate_coo", "propagate_factorized"]
 class _PathEngine:
     """Minimal engine facade for compiling a standalone path plan."""
 
-    def __init__(self, tree, query, views, device):
+    def __init__(self, tree, query, views, device, indicators=None):
         self.tree = tree
         self.query = query
         self.views = views
         self.strategy = "fivm"
         self.base = {}
         self.device = device
+        self.indicators = {}
+        for node in tree.walk():
+            if node.indicator is not None and indicators \
+                    and node.name in indicators:
+                self.indicators[node.name] = _IndMeta(
+                    tuple(node.indicator[1]), indicators[node.name])
+
+
+class _IndMeta:
+    def __init__(self, proj, dense):
+        self.proj = proj
+        self.dense = dense
+        self.rel_name = None  # never matches: path-only compilation
 
 
 def propagate_coo(
@@ -46,14 +59,18 @@ def propagate_coo(
     query: Query,
     rel: str,
     upd: COOUpdate,
+    indicators: Mapping[str, DenseRelation] | None = None,
 ) -> PropagationResult:
     """Propagate a COO batch update along the delta tree, updating every
     materialized view on the path (in place where the layout allows: the
-    views passed in must not be used again; use ``result.updated``)."""
-    eng = _PathEngine(tree, query, materialized, upd.keys.device)
+    views passed in must not be used again; use ``result.updated``).
+    ``indicators`` maps node names to maintained ∃-projection planes
+    (Sec. 6)."""
+    eng = _PathEngine(tree, query, materialized, upd.keys.device, indicators)
     plan = plan_mod.compile_trigger(eng, rel,
                                     ("coo", tuple(upd.schema), upd.batch))
-    return plan_mod.run_coo_ops(plan.ops, materialized, query, upd)
+    return plan_mod.run_coo_ops(plan.ops, materialized, query, upd,
+                                dict(indicators or {}))
 
 
 def propagate_factorized(
@@ -62,13 +79,16 @@ def propagate_factorized(
     query: Query,
     rel: str,
     upd: FactorizedUpdate,
+    indicators: Mapping[str, DenseRelation] | None = None,
 ) -> PropagationResult:
     """Sec. 5 Optimize: keep the delta as a product of factors over disjoint
     variable groups; marginalization and sibling joins touch only the factor
     containing the variable, so a rank-1 update to a p×p 'relation' costs
     O(p²) instead of O(p³) (Example 7.1).  Dense views come back new; a
     sparse view is written in place (use ``result.updated``)."""
-    eng = _PathEngine(tree, query, materialized, upd.factors[0].device)
+    eng = _PathEngine(tree, query, materialized, upd.factors[0].device,
+                      indicators)
     plan = plan_mod.compile_trigger(eng, rel,
                                     ("factorized", tuple(upd.schema)))
-    return plan_mod.run_factorized_ops(plan.ops, materialized, query, upd)
+    return plan_mod.run_factorized_ops(plan.ops, materialized, query, upd,
+                                       dict(indicators or {}))

@@ -29,6 +29,17 @@ def choose_materialized(tree: ViewNode, updatable: Iterable[str]) -> set[str]:
     return chosen
 
 
+def gather_scatter_profile(tree: ViewNode, updatable: Iterable[str]
+                           ) -> set[str]:
+    """Names of views whose delta interactions are *not* purely
+    gather/scatter shaped — the storage planner's sparse-hostile set,
+    derived from the trigger compiler's own path walk
+    (``repro_torch.core.plan.storage_hostility``)."""
+    from .plan import storage_hostility
+
+    return storage_hostility(tree, updatable)
+
+
 def views_on_path(tree: ViewNode, rel: str) -> list[ViewNode]:
     """Leaf-to-root list of views affected by an update to ``rel``
     (the delta tree's spine, Fig. 4)."""

@@ -6,8 +6,9 @@ trigger.  This module makes the trigger an explicit object:
 
 * a small typed IR (:class:`LeafDelta`, :class:`Gather`, :class:`Lift`,
   :class:`JoinContract`, :class:`Marginalize`, :class:`Emit`,
-  :class:`ScatterAccum`, :class:`BaseBump`, :class:`Reevaluate`), each op
-  carrying schema, storage class and backend annotations;
+  :class:`ScatterAccum`, :class:`IndicatorBump`, :class:`BaseBump`,
+  :class:`Reevaluate`), each op carrying schema, storage class and backend
+  annotations;
 * a compiler :func:`compile_trigger` that runs once per (relation,
   update signature, backend override) and is cached on the engine
   (:class:`PlanCache`);
@@ -34,8 +35,14 @@ Factorized updates (Sec. 5 Optimize) compile to their own op sequence
 (:func:`run_factorized_ops`).  Two shapes of that replay, the ones a
 rank-1 matrix-chain trigger reduces to, run the hand kernels of
 ``repro_torch.kernels.rank1_chain`` (:func:`factorized_route`); every
-other shape runs the reference's einsums.  Not in this slice: indicator
-sections and the plan verifier.
+other shape runs the reference's einsums.
+
+Indicator projections (Sec. 6) add a plan's second part, ``ind_ops``: for
+every maintained ∃-projection over the updated relation, an
+:class:`IndicatorBump` (the transition counts and δ∃) and the δ∃'s path to
+the root.  It runs after the main part and reads the views the main part
+has just updated, as the reference's does: δ(R·V) = δR·V + R′·δV.  It never
+fuses.  Not in this slice: the plan verifier.
 """
 from __future__ import annotations
 
@@ -56,6 +63,10 @@ from .rings import ScalarRing
 from .storage import (SparseRelation, as_dense, flatten_payload, linear_ids,
                       payload_width, unflatten_payload)
 from .view_tree import ViewNode, evaluate_view
+
+#: indicator dense relations are referenced by this name prefix in op
+#: ``view`` fields (the host oracle's ``∃<node>`` naming)
+IND_PREFIX = "∃"
 
 # ---------------------------------------------------------------------------
 # The op vocabulary.  Frozen dataclasses: hashable (interning) and printable
@@ -199,6 +210,19 @@ class BaseBump(PlanOp):
 
 
 @dataclasses.dataclass(frozen=True)
+class IndicatorBump(PlanOp):
+    """Transition-count maintenance of ∃_proj rel; starts an indicator
+    propagation section (the δ∃ becomes the current delta)."""
+
+    node: str
+    rel: str
+    proj: tuple
+
+    def label(self):
+        return f"IndicatorBump[{IND_PREFIX}{self.node} ← {self.rel}]"
+
+
+@dataclasses.dataclass(frozen=True)
 class Reevaluate(PlanOp):
     """Evaluate the view tree bottom-up from stored base relations."""
 
@@ -259,18 +283,20 @@ class TriggerPlan:
     schema: tuple
     batch: int | None  # None for a factorized plan
     densify: bool
-    ops: tuple
+    ops: tuple  # main delta-path section
+    ind_ops: tuple  # indicator sections (each led by an IndicatorBump)
     write_views: frozenset
     write_base: frozenset
+    write_indicators: frozenset
     cost: int  # modeled element count of the chosen delta walk
 
     def write_sets(self):
-        return self.write_views, self.write_base
+        return self.write_views, self.write_base, self.write_indicators
 
     def read_views(self) -> frozenset:
         """View names this plan reads by key through sibling joins (inside
-        fused chains too)."""
-        return frozenset(op.view for op in iter_flat_ops(self.ops)
+        fused chains too; indicator planes keep their ``∃`` prefix)."""
+        return frozenset(op.view for op in iter_flat_ops(self.ops + self.ind_ops)
                          if isinstance(op, (Gather, JoinContract)))
 
     def pretty(self) -> str:
@@ -285,9 +311,16 @@ class TriggerPlan:
             lines.append(f"  {op.label()}")
             if isinstance(op, FusedChain):
                 lines.extend(f"    {inner.label()}" for inner in op.ops)
-        lines.append("  writes: views=[%s] base=[%s]" % (
+        for op in self.ind_ops:
+            pad = "  " if isinstance(op, IndicatorBump) else "    "
+            lines.append(f"{pad}{op.label()}")
+        # the reference always prints indicators=[...]; the port prints it
+        # only for a plan that bumps an indicator
+        inds = (" indicators=[%s]" % ",".join(sorted(self.write_indicators))
+                if self.write_indicators else "")
+        lines.append("  writes: views=[%s] base=[%s]%s" % (
             ",".join(sorted(self.write_views)),
-            ",".join(sorted(self.write_base))))
+            ",".join(sorted(self.write_base)), inds))
         return "\n".join(lines)
 
 
@@ -353,7 +386,7 @@ def path_costs(path: Sequence[ViewNode], upd_schema: Sequence[str],
 
     * **Row (COO) propagation** streams ``[B, D_dense...]`` slices: each
       node costs ``B_eff · ∏ dense-axis domains`` where dense axes are the
-      sibling variables the update doesn't bind, and ``B_eff`` drops to 1
+      sibling/indicator variables the update doesn't bind, and ``B_eff`` drops to 1
       once the COO schema empties (batch collapse).
     * **Dense-delta propagation** materializes one relation over the
       delta's variable set: the leaf pays the full update-schema domain
@@ -373,10 +406,11 @@ def path_costs(path: Sequence[ViewNode], upd_schema: Sequence[str],
     grew_dense = False
     child = path[0]
     for node in path[1:]:
-        for sib in node.children:
-            if sib is child:
-                continue
-            sch = set(sib.schema)
+        sib_schemas = [set(sib.schema) for sib in node.children
+                       if sib is not child]
+        if node.indicator is not None:
+            sib_schemas.append(set(node.indicator[1]))
+        for sch in sib_schemas:
             row_dense |= sch - bound
             dense_vars |= sch
         grew_dense = grew_dense or bool(row_dense)
@@ -412,7 +446,7 @@ def storage_hostility(tree: ViewNode, updatable) -> set[str]:
     densify (or grows dense delta axes), and a view whose ⊎ arrives with
     dense axes takes the mixed (grid-enumerating) apply.  Sparse storage
     stays correct for these views, but the ``auto`` planner keeps them
-    dense.  (Indicator projections are not ported: no node carries one.)"""
+    dense."""
     hostile: set[str] = set()
     for rel in updatable:
         path = views_on_path(tree, rel)
@@ -427,6 +461,8 @@ def storage_hostility(tree: ViewNode, updatable) -> set[str]:
                 if not sch <= coo:
                     hostile.add(sib.name)
                     dense |= sch - coo
+            if node.indicator is not None:
+                dense |= set(node.indicator[1]) - coo
             if dense:
                 hostile.add(f"W:{node.name}")
             for v in node.marg_vars:
@@ -560,10 +596,12 @@ def _emit_marginalize(ops: list, st: _SymDelta, query: Query, var: str,
 
 
 def _compile_path_ops(tree: ViewNode, query: Query, rel: str,
-                      upd_schema, batch: int, views: Mapping, densify: bool,
+                      upd_schema, batch: int, views: Mapping,
+                      ind_meta: Mapping[str, tuple], densify: bool,
                       intern, device, apply_views: bool = True):
     """Compile the leaf-to-root delta path into ops.  ``views`` maps the
-    materialized view names to their storage objects.  ``apply_views=False``
+    materialized view names to their storage objects; ``ind_meta`` maps
+    indicator node names to ``(proj, dense plane)``.  ``apply_views=False``
     skips ScatterAccum ops (1-IVM applies only at the root)."""
     ring = query.ring
     path = views_on_path(tree, rel)
@@ -597,12 +635,95 @@ def _compile_path_ops(tree: ViewNode, query: Query, rel: str,
                                  f"updatable {rel})")
             _emit_join(ops, st, sib.name, views[sib.name], sib.schema,
                        intern)
+        if node.indicator is not None:
+            if node.name not in ind_meta:
+                raise ValueError(f"maintained indicator for {node.name} "
+                                 f"required")
+            proj, ind_view = ind_meta[node.name]
+            _emit_join(ops, st, IND_PREFIX + node.name, ind_view, proj,
+                       intern)
+        scatter(f"W:{node.name}")
         for v in node.marg_vars:
             _emit_marginalize(ops, st, query, v, intern)
         ops.append(intern(Emit(node.name)))
         scatter(node.name)
         child = node
     return tuple(ops), write_views
+
+
+def _require(views: Mapping, name: str) -> None:
+    if name not in views:
+        raise ValueError(f"{name} must be materialized")
+
+
+def _compile_indicator_ops(tree: ViewNode, query: Query, rel: str,
+                           batch: int, views: Mapping,
+                           indicators: Mapping, intern, device):
+    """Compile the indicator second pass (Sec. 6): for every maintained
+    ∃-projection over ``rel``, count maintenance plus the δ∃ propagation
+    path from the indicator node to the root."""
+    ring = query.ring
+    ops: list = []
+    write_views: set[str] = set()
+    write_inds: set[str] = set()
+
+    def scatter(name, st):
+        if name in views:
+            ops.append(intern(_scatter_op(query, name, views[name], st,
+                                          device)))
+            write_views.add(name)
+
+    for node_name, ind in indicators.items():
+        if ind.rel_name != rel:
+            continue
+        write_inds.add(node_name)
+        ops.append(intern(IndicatorBump(node_name, rel, tuple(ind.proj))))
+        st = _SymDelta(coo=tuple(ind.proj), dense=(), b=batch,
+                       pending=False, ring=ring)
+        node = tree.find(node_name)
+        for sib in node.children:
+            _require(views, sib.name)
+            _emit_join(ops, st, sib.name, views[sib.name], sib.schema,
+                       intern)
+        for v in node.marg_vars:
+            _emit_marginalize(ops, st, query, v, intern)
+        scatter(node.name, st)
+        child = node
+        for parent in path_to_root(tree, node_name)[1:]:
+            for sib in parent.children:
+                if sib is child:
+                    continue
+                _require(views, sib.name)
+                _emit_join(ops, st, sib.name, views[sib.name], sib.schema,
+                           intern)
+            if parent.indicator is not None and parent.name != node_name:
+                other = indicators[parent.name]
+                _emit_join(ops, st, IND_PREFIX + parent.name, other.dense,
+                           tuple(other.proj), intern)
+            for v in parent.marg_vars:
+                _emit_marginalize(ops, st, query, v, intern)
+            scatter(parent.name, st)
+            child = parent
+    return tuple(ops), write_views, write_inds
+
+
+def path_to_root(tree: ViewNode, name: str) -> list[ViewNode]:
+    """Node-to-root spine (indicator propagation paths)."""
+    path: list[ViewNode] = []
+
+    def rec(node: ViewNode) -> bool:
+        if node.name == name:
+            path.append(node)
+            return True
+        for c in node.children:
+            if rec(c):
+                path.append(node)
+                return True
+        return False
+
+    if not rec(tree):
+        raise KeyError(f"view {name} not in tree")
+    return path
 
 
 def compile_trigger(engine, rel: str, upd_sig, intern=None,
@@ -627,9 +748,9 @@ def compile_trigger(engine, rel: str, upd_sig, intern=None,
                intern(Reevaluate("root")))
         return TriggerPlan(
             rel=rel, kind="reeval", strategy=strategy, schema=schema,
-            batch=batch, densify=False, ops=ops,
+            batch=batch, densify=False, ops=ops, ind_ops=(),
             write_views=frozenset({root}), write_base=frozenset({rel}),
-            cost=0)
+            write_indicators=frozenset(), cost=0)
 
     path = views_on_path(tree, rel)
 
@@ -644,7 +765,7 @@ def compile_trigger(engine, rel: str, upd_sig, intern=None,
         store_views = {n.name: views.get(n.name, _DenseProxy(n, query))
                        for n in tree.walk()}
         path_ops, _ = _compile_path_ops(
-            tree, query, rel, schema, batch, store_views, densify,
+            tree, query, rel, schema, batch, store_views, {}, densify,
             intern, engine.device, apply_views=False)
         ops = (intern(Reevaluate("store")),) + path_ops + (
             _scatter_op(query, root, views[root],
@@ -653,38 +774,51 @@ def compile_trigger(engine, rel: str, upd_sig, intern=None,
             intern(BaseBump(rel, active_backend_override())))
         return TriggerPlan(
             rel=rel, kind="first_order", strategy=strategy, schema=schema,
-            batch=batch, densify=densify, ops=ops,
+            batch=batch, densify=densify, ops=ops, ind_ops=(),
             write_views=frozenset({root}), write_base=frozenset({rel}),
+            write_indicators=frozenset(),
             cost=cost_dense if densify else cost_row)
 
     # fivm / dbt: higher-order propagation along the delta tree
+    indicators = engine.indicators
+    ind_meta = {name: (tuple(ind.proj), ind.dense)
+                for name, ind in indicators.items()}
     if kind == "factorized":
         densify, cost = False, 0
         ops, write_views = _compile_factorized_ops(tree, query, rel, schema,
-                                                   views, intern)
+                                                   views, ind_meta, intern)
     else:
         densify = should_densify(path, schema, batch, query)
         cost_row, cost_dense, _ = path_costs(path, schema, batch, query)
         cost = cost_dense if densify else cost_row
         ops, write_views = _compile_path_ops(
-            tree, query, rel, schema, batch, views, densify, intern,
-            engine.device)
-    plan = TriggerPlan(
-        rel=rel, kind=kind, strategy=strategy, schema=schema, batch=batch,
-        densify=densify, ops=ops, write_views=frozenset(write_views),
-        write_base=frozenset({rel}) & frozenset(engine.base), cost=cost)
-    # views update in place: a trigger that read a view it had already
-    # written would see the new payload where the reference's functional
-    # replay reads the old one.  Sibling joins are off the delta path, so
-    # this never holds for the main path; keep it an invariant.
-    if plan.read_views() & plan.write_views:
+            tree, query, rel, schema, batch, views, ind_meta, densify,
+            intern, engine.device)
+    # views update in place: a main section that read a view it had
+    # already written would see the new payload where the reference's
+    # functional replay reads the old one.  Sibling joins are off the delta
+    # path, so this never holds; keep it an invariant.  (The indicator
+    # sections read the updated views on purpose, as the reference's do.)
+    main_reads = frozenset(op.view for op in iter_flat_ops(ops)
+                           if isinstance(op, (Gather, JoinContract)))
+    if main_reads & write_views:
         raise AssertionError(f"trigger for {rel} reads views it writes: "
-                             f"{sorted(plan.read_views() & plan.write_views)}")
-    return plan
+                             f"{sorted(main_reads & write_views)}")
+    ind_ops, ind_write_views, write_inds = _compile_indicator_ops(
+        tree, query, rel, batch or 1, views, indicators, intern,
+        engine.device)
+    if ind_ops and kind == "factorized":
+        raise ValueError("indicator maintenance needs COO updates")
+    return TriggerPlan(
+        rel=rel, kind=kind, strategy=strategy, schema=schema, batch=batch,
+        densify=densify, ops=ops, ind_ops=ind_ops,
+        write_views=frozenset(write_views | ind_write_views),
+        write_base=frozenset({rel}) & frozenset(engine.base),
+        write_indicators=frozenset(write_inds), cost=cost)
 
 
 def _compile_factorized_ops(tree: ViewNode, query: Query, rel: str,
-                            upd_schema, views: Mapping, intern):
+                            upd_schema, views: Mapping, ind_meta, intern):
     """Sec. 5 Optimize: the same path, interpreted over a factor list.
     Joins absorb into touching factors, marginalization always contracts
     against the lift relation (no identity skip), application is the
@@ -715,6 +849,12 @@ def _compile_factorized_ops(tree: ViewNode, query: Query, rel: str,
             kind = _storage_kind(views[sib.name])
             ops.append(intern(JoinContract(sib.name, tuple(sib.schema), kind,
                                            densifies=kind == "sparse")))
+        if node.indicator is not None:
+            proj, _ind = ind_meta[node.name]
+            ops.append(intern(JoinContract(IND_PREFIX + node.name, proj,
+                                           "dense")))
+        if f"W:{node.name}" in views:
+            scatter(f"W:{node.name}")
         for v in node.marg_vars:
             ops.append(intern(Lift(v, tuple(query.lift_spec(v)))))
             ops.append(intern(Marginalize(v, "factor")))
@@ -767,7 +907,8 @@ def _try_fuse_chain(ops, start: int, coo: tuple, views: Mapping,
         if isinstance(op, Gather):
             # views this plan already wrote stay unfused (read-after-write
             # inside one trigger must see the op-by-op ordering)
-            if collapsed or op.view in written or op.view not in views:
+            if collapsed or op.view.startswith(IND_PREFIX) \
+                    or op.view in written or op.view not in views:
                 return None
             reads.append(op.view)
             n_src += 1
@@ -788,7 +929,8 @@ def _try_fuse_chain(ops, start: int, coo: tuple, views: Mapping,
             # terminal ⊎: a dense scatter fits the kernel; a mixed
             # (dense-axes) apply does not.  A chain with no gather/lift
             # source is just a scatter: no fusion win.
-            if op.mixed or n_src == 0 or n_src > ring_fused.MAX_SOURCES:
+            if op.mixed or op.view.startswith(IND_PREFIX) or n_src == 0 \
+                    or n_src > ring_fused.MAX_SOURCES:
                 return None
             smem = ring_fused.chain_smem_bytes(width)
             if smem > ring_fused.SMEM_PER_BLOCK:
@@ -812,9 +954,10 @@ def fuse_trigger_ops(plan: TriggerPlan, query: Query,
     commutative-bilinear float32 ring (``ring_fused.fused_ring_spec``),
     pure-COO delta state at the chain boundary (no dense axes, no carried
     pending gather), a terminal non-mixed scatter, and no gather of a view
-    the plan already wrote; only the size bound is the H100 model of
-    :func:`_try_fuse_chain`.  Everything else stays op by op.  First-order
-    and reevaluation plans, and densified deltas, never fuse."""
+    the plan already wrote or of an indicator plane; only the size bound is
+    the H100 model of :func:`_try_fuse_chain`.  Everything else stays op by
+    op.  First-order and reevaluation plans, densified deltas and indicator
+    sections (they read views updated in place mid-trigger) never fuse."""
     if plan.kind != "coo" or plan.densify:
         return plan
     from ..kernels import ring_fused
@@ -939,7 +1082,8 @@ class PlanCache:
         return self.lookup_sig(engine, rel, sig)
 
     def write_sets(self, engine, rel: str):
-        """``(write_views, write_base)`` of any trigger for ``rel``, COO or
+        """``(write_views, write_base, write_indicators)`` of any trigger
+        for ``rel``, COO or
         factorized (independent of the batch size; a factorized plan walks
         the same path, so the COO plan's sets serve both), memoized under
         the plan cache's environment key (backend override, fusion mode),
@@ -986,12 +1130,21 @@ class PropagationResult:
         return d() if callable(d) else d
 
 
+def _resolve_view(name: str, views: Mapping, ind_dense: Mapping):
+    if name.startswith(IND_PREFIX):
+        return ind_dense[name[len(IND_PREFIX):]]
+    return views[name]
+
+
 def run_coo_ops(ops, views: Mapping, query: Query, upd: COOUpdate,
+                ind_dense: Mapping | None = None,
                 memo: Mapping | None = None) -> PropagationResult:
     """Replay a compiled COO path section: exactly the delta-algebra calls
     of the interpretive walk; backend hints thread into the scatters, and
     memoized sibling planes (``memo``, :func:`build_prep_memo`)
-    short-circuit the prepare step."""
+    short-circuit the prepare step.  ``ind_dense`` maps indicator node
+    names to their 0/1 planes (the ``∃<node>`` views of the plan)."""
+    ind_dense = ind_dense or {}
     ring = query.ring
     deltas: dict = {}
     updated: dict = {}
@@ -1003,9 +1156,10 @@ def run_coo_ops(ops, views: Mapping, query: Query, upd: COOUpdate,
                      else BatchedDelta.from_coo(ring, upd))
         elif isinstance(op, Gather):
             plane = memo.get(("plane", op.view)) if memo else None
-            delta = delta.join_dense(views[op.view], src_plane=plane)
+            delta = delta.join_dense(_resolve_view(op.view, views, ind_dense),
+                                     src_plane=plane)
         elif isinstance(op, JoinContract):
-            view = views[op.view]
+            view = _resolve_view(op.view, views, ind_dense)
             if op.densifies and memo:
                 view = memo.get(("dense", op.view), view)
             delta = delta.join_dense(view)
@@ -1211,7 +1365,8 @@ def _outer_scatter(view: DenseRelation, factors: list) -> DenseRelation:
 
 
 def run_factorized_ops(ops, views: Mapping, query: Query,
-                       upd: FactorizedUpdate) -> PropagationResult:
+                       upd: FactorizedUpdate,
+                       ind_dense: Mapping | None = None) -> PropagationResult:
     """Replay a compiled factorized (Sec. 5 Optimize) path section over a
     factor list: joins absorb, marginalization touches only the factor
     containing the variable, application is the outer-product ⊎.  Each
@@ -1228,7 +1383,7 @@ def run_factorized_ops(ops, views: Mapping, query: Query,
         if isinstance(op, LeafDelta):
             pass  # the factor list IS the leaf delta
         elif isinstance(op, JoinContract):
-            view = views[op.view]
+            view = _resolve_view(op.view, views, ind_dense or {})
             if factorized_route(op, factors, view, query,
                                 ops[i + 1:i + 3]) == "matvec":
                 _matvec_join(factors, view)
@@ -1254,54 +1409,110 @@ def run_factorized_ops(ops, views: Mapping, query: Query,
     return PropagationResult(deltas, updated)
 
 
+def run_indicator_ops(ops, views: dict, indicators: dict, query: Query,
+                      upd: COOUpdate, old_payload) -> None:
+    """Replay indicator sections in place: each IndicatorBump computes the
+    transition-count delta δ∃ (from ``old_payload``, the updated
+    relation's payload at the batch keys before the update) and the ops
+    after it propagate δ∃ to the root, reading (and writing) the views the
+    main section already updated."""
+    ring = query.ring
+    delta = None
+    pending_lift = None
+    for op in ops:
+        if isinstance(op, IndicatorBump):
+            if not isinstance(upd, COOUpdate):
+                raise TypeError("indicator maintenance needs COO updates")
+            if old_payload is None:
+                raise ValueError("indicator relations must be stored")
+            new_state, dind = indicators[op.node].delta_for_update(
+                query, upd, old_payload)
+            indicators[op.node] = new_state
+            delta = BatchedDelta.from_coo(ring, dind)
+        elif isinstance(op, (Gather, JoinContract)):
+            ind_dense = {n: st.dense for n, st in indicators.items()}
+            delta = delta.join_dense(_resolve_view(op.view, views, ind_dense))
+        elif isinstance(op, Lift):
+            pending_lift = query.lift_rel(op.var, upd.keys.device)
+        elif isinstance(op, Marginalize):
+            delta = delta.marginalize(op.var, pending_lift)
+            pending_lift = None
+        elif isinstance(op, ScatterAccum):
+            views[op.view] = delta.apply_to(views[op.view],
+                                            backend=op.backend)
+        else:  # pragma: no cover
+            raise TypeError(op)
+
+
 def reevaluate_store(engine, base) -> dict:
     """The ``Reevaluate`` op: evaluate the view tree bottom-up from ``base``
-    relations, returning every node's view."""
+    relations, returning every node's view (and the premarg ``W:`` views
+    when the engine maintains them)."""
     store: dict = {}
-    evaluate_view(engine.tree, base, engine.query, store=store)
+    premarg = any(name.startswith("W:") for name in engine.views)
+    evaluate_view(engine.tree, base, engine.query, store=store,
+                  premarg=premarg)
     return store
 
 
-def execute_trigger(engine, plan: TriggerPlan, views, base, upd,
+def execute_trigger(engine, plan: TriggerPlan, views, base, indicators, upd,
                     memo: Mapping | None = None):
     """Run a compiled trigger: the one execution entry of eager
     ``apply_update`` and of every stream-executor dispatch mode.  Returns
-    new ``(views, base)``.  View and base tensors are updated in place
-    where their layout allows, so the state passed in must not be used
-    again.  ``memo`` carries a stream step's shared sibling planes
-    (:func:`build_prep_memo`)."""
+    new ``(views, base, indicators)``.  View, base and indicator tensors are
+    updated in place where their layout allows, so the state passed in
+    must not be used again.  ``memo`` carries a stream step's shared
+    sibling planes (:func:`build_prep_memo`).
+
+    The order is the reference's: the main section (with the old ∃
+    planes), the base ⊎, then the indicator sections.  The base ⊎ writes
+    in place where the reference makes a new relation, so the updated
+    relation's payload at the batch keys, which the indicator sections
+    need from before the update, is gathered first."""
     query = engine.query
     views = dict(views)
     base = dict(base)
+    indicators = dict(indicators)
 
     if plan.kind == "reeval":
         base[plan.rel] = engine._bump_base(base[plan.rel], upd)
         store = reevaluate_store(engine, base)
         views[engine.tree.name] = store[engine.tree.name]
-        return views, base
+        return views, base, indicators
 
     if plan.kind == "first_order":
         if isinstance(upd, FactorizedUpdate):
             upd = densify_update_to_coo(query, upd)
         store = reevaluate_store(engine, base)
+        from .indicators import indicator_of
+
+        ind_dense = {name: indicator_of(base[st.rel_name], st.proj, query)
+                     for name, st in indicators.items()}
         path_ops = tuple(op for op in plan.ops
                          if not isinstance(op, (Reevaluate, BaseBump,
                                                 ScatterAccum)))
-        res = run_coo_ops(path_ops, store, query, upd)
+        res = run_coo_ops(path_ops, store, query, upd, ind_dense)
         root = engine.tree.name
         views[root] = res.deltas[root].apply_to(views[root])
         base[plan.rel] = engine._bump_base(base[plan.rel], upd)
-        return views, base
+        return views, base, indicators
 
     # fivm / dbt
+    old_payload = None
+    if plan.ind_ops and plan.rel in base:
+        old_payload = base[plan.rel].gather(upd.keys)
+    ind_dense = {name: st.dense for name, st in indicators.items()}
     if plan.kind == "factorized":
-        res = run_factorized_ops(plan.ops, views, query, upd)
+        res = run_factorized_ops(plan.ops, views, query, upd, ind_dense)
     else:
-        res = run_coo_ops(plan.ops, views, query, upd, memo=memo)
+        res = run_coo_ops(plan.ops, views, query, upd, ind_dense, memo=memo)
     views.update(res.updated)
     if plan.write_base:
         base[plan.rel] = engine._bump_base(base[plan.rel], upd)
-    return views, base
+    if plan.ind_ops:
+        run_indicator_ops(plan.ind_ops, views, indicators, query, upd,
+                          old_payload)
+    return views, base, indicators
 
 
 # ---------------------------------------------------------------------------
@@ -1446,27 +1657,31 @@ def apply_factorized_sparse(view: SparseRelation, factors: list, ring):
 def relation_leaves(rel) -> list:
     """The tensors that hold a relation's state: a dense relation's payload
     components by name; a sparse view's key table, then its payload plane
-    (both written in place by a trigger that ⊎s into it)."""
+    (both written in place by a trigger that ⊎s into it); an indicator's
+    counts, then its plane's components."""
     if isinstance(rel, SparseRelation):
         return [rel.table, rel.plane]
+    if hasattr(rel, "leaves"):  # an IndicatorState
+        return rel.leaves()
     return [rel.payload[c] for c in sorted(rel.payload)]
 
 
 def state_leaves(state) -> list:
-    """The state tensors of a ``(views, base)`` state in a fixed order:
-    views, then base relations, each by name, each relation's leaves in
-    :func:`relation_leaves` order."""
+    """The state tensors of a ``(views, base, indicators)`` state in a
+    fixed order: views, then base relations, then indicators, each by
+    name, each entry's leaves in :func:`relation_leaves` order."""
     return [leaf for part in state for name in sorted(part)
             for leaf in relation_leaves(part[name])]
 
 
-def state_write_mask(state, write_views, write_base) -> tuple:
+def state_write_mask(state, write_views, write_base,
+                     write_indicators=frozenset()) -> tuple:
     """Per-state-leaf mask (:func:`state_leaves` order): True iff the leaf
     belongs to an entry some plan's write set names.  The plans are the
     authority on what a trigger may replace."""
-    views, base = state
-    return tuple(name in names
-                 for part, names in ((views, write_views), (base, write_base))
+    names = (write_views, write_base, write_indicators)
+    return tuple(name in names[i]
+                 for i, part in enumerate(state)
                  for name in sorted(part)
                  for _ in relation_leaves(part[name]))
 
@@ -1495,6 +1710,8 @@ def shared_prep_ops(plans: Sequence[TriggerPlan]) -> tuple:
     for p in plans:
         keys = set()
         for op in iter_flat_ops(p.ops):
+            if getattr(op, "view", "").startswith(IND_PREFIX):
+                continue  # indicator planes change within a step
             if isinstance(op, Gather):
                 keys.add(("plane", op.view))
             elif isinstance(op, JoinContract) and op.densifies:

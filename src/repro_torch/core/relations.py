@@ -9,6 +9,9 @@ payloads).
   COOUpdate          batch of (key tuple -> payload) update rows
   FactorizedUpdate   a delta as a product of factors over disjoint
                      variable groups (Sec. 5)
+  PyRelation         host-side exact relation (dict of key tuple ->
+                     payload) for the host engine and the relational
+                     data ring
 
 ``DenseRelation`` is the dense implementation of the ``ViewStorage``
 protocol (``repro_torch.core.storage``).  App code builds base relations
@@ -21,11 +24,12 @@ updates (``IVMEngine.build`` copies them out of the caller's database).
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Any, Mapping, Sequence
 
+import numpy as np
 import torch
 
-from .rings import Payload, Ring
+from .rings import Payload, PyRing, Ring
 
 
 def host_payload(payload: Payload) -> dict:
@@ -149,6 +153,29 @@ class DenseRelation:
             new[comp] = arr.permute(perm + list(range(nk, arr.dim())))
         return DenseRelation(tuple(new_schema), self.ring, new)
 
+    def to_py(self, py_ring: PyRing, to_payload=None) -> "PyRelation":
+        """This relation on the host as a :class:`PyRelation` of its
+        non-zero keys (small relations only).  One device-to-host copy
+        (:meth:`payload_sync`); ``to_payload`` maps a key's ``{comp:
+        array}`` to its host payload (default: the scalar of a
+        one-component ring, else the tuple of components)."""
+        comp0 = next(iter(self.ring.components))
+        arrs = self.payload_sync()
+        doms = arrs[comp0].shape[:len(self.schema)]
+        out = PyRelation(self.schema, py_ring)
+        for key in np.ndindex(*doms):
+            p = {c: arrs[c][key] for c in arrs}
+            if to_payload is not None:
+                val = to_payload(p)
+            elif len(arrs) == 1:
+                x = p[comp0]
+                val = x.item() if x.ndim == 0 else x
+            else:
+                val = tuple(p[c] for c in self.ring.components)
+            if not py_ring.is_zero(val):
+                out.data[key] = val
+        return out
+
 
 @dataclasses.dataclass
 class COOUpdate:
@@ -212,3 +239,109 @@ class FactorizedUpdate:
         for f in self.factors[1:]:
             acc = contract_dense(acc, f, marg=())
         return acc.transpose(self.schema)
+
+
+class PyRelation:
+    """Host-side exact relation: dict[key tuple -> py payload]."""
+
+    def __init__(self, schema: Sequence[str], ring: PyRing, data: dict | None = None):
+        self.schema = tuple(schema)
+        self.ring = ring
+        self.data: dict[tuple, Any] = dict(data or {})
+
+    def copy(self) -> "PyRelation":
+        return PyRelation(self.schema, self.ring, dict(self.data))
+
+    def __len__(self):
+        return len(self.data)
+
+    def insert(self, key: tuple, payload) -> None:
+        cur = self.data.get(key, self.ring.zero())
+        new = self.ring.add(cur, payload)
+        if self.ring.is_zero(new):
+            self.data.pop(key, None)
+        else:
+            self.data[key] = new
+
+    def union(self, other: "PyRelation") -> "PyRelation":
+        if self.schema != other.schema:
+            raise ValueError(f"union of {self.schema} and {other.schema}")
+        out = self.copy()
+        for k, p in other.data.items():
+            out.insert(k, p)
+        return out
+
+    def project_cols(self, vars: Sequence[str]) -> list[int]:
+        return [self.schema.index(v) for v in vars]
+
+    def join(self, other: "PyRelation") -> "PyRelation":
+        """Natural join (⊗): payloads multiply."""
+        shared = [v for v in self.schema if v in other.schema]
+        out_schema = self.schema + tuple(v for v in other.schema if v not in self.schema)
+        ring = self.ring
+        out = PyRelation(out_schema, ring)
+        my_cols = self.project_cols(shared)
+        ot_cols = other.project_cols(shared)
+        ot_rest = [i for i, v in enumerate(other.schema) if v not in self.schema]
+        index: dict[tuple, list[tuple]] = {}
+        for k in other.data:
+            index.setdefault(tuple(k[i] for i in ot_cols), []).append(k)
+        for ka, pa in self.data.items():
+            probe = tuple(ka[i] for i in my_cols)
+            for kb in index.get(probe, ()):  # matching other keys
+                key = ka + tuple(kb[i] for i in ot_rest)
+                out.insert(key, ring.mul(pa, other.data[kb]))
+        return out
+
+    def marginalize(self, var: str, lift=None) -> "PyRelation":
+        """⊕_X with lifting function ``lift(value) -> payload`` (default 1)."""
+        i = self.schema.index(var)
+        out_schema = tuple(v for v in self.schema if v != var)
+        out = PyRelation(out_schema, self.ring)
+        for k, p in self.data.items():
+            g = lift(k[i]) if lift is not None else self.ring.one()
+            out.insert(k[:i] + k[i + 1:], self.ring.mul(p, g))
+        return out
+
+    def rename(self, mapping: Mapping[str, str]) -> "PyRelation":
+        return PyRelation(
+            tuple(mapping.get(v, v) for v in self.schema), self.ring, dict(self.data)
+        )
+
+    def reorder(self, schema: Sequence[str]) -> "PyRelation":
+        """Permute key columns into the given schema order."""
+        if tuple(schema) == self.schema:
+            return self
+        perm = [self.schema.index(v) for v in schema]
+        return PyRelation(
+            tuple(schema), self.ring,
+            {tuple(k[i] for i in perm): p for k, p in self.data.items()},
+        )
+
+    def equals(self, other: "PyRelation", approx=False, rtol=1e-5, atol=1e-8) -> bool:
+        if set(self.schema) != set(other.schema):
+            return False
+        perm = [other.schema.index(v) for v in self.schema]
+        theirs = {}
+        for k, p in other.data.items():
+            theirs[tuple(k[i] for i in perm)] = p
+        for k in set(self.data) | set(theirs):
+            a = self.data.get(k, self.ring.zero())
+            b = theirs.get(k, self.ring.zero())
+            if approx:
+                fa = np.concatenate([np.ravel(np.asarray(x, dtype=np.float64))
+                                     for x in (a if isinstance(a, tuple) else (a,))])
+                fb = np.concatenate([np.ravel(np.asarray(x, dtype=np.float64))
+                                     for x in (b if isinstance(b, tuple) else (b,))])
+                if not np.allclose(fa, fb, rtol=rtol, atol=atol):
+                    return False
+            elif isinstance(a, tuple):
+                for x, y in zip(a, b):
+                    if not np.allclose(np.asarray(x), np.asarray(y)):
+                        return False
+            elif a != b:
+                return False
+        return True
+
+    def __repr__(self):
+        return f"PyRelation({self.schema}, {self.data})"

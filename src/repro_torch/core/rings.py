@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping, Sequence
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -139,6 +140,16 @@ class Ring:
             flags = f if flags is None else flags & f
         return flags
 
+    def scale(self, a: Payload, factor: torch.Tensor) -> Payload:
+        """Scalar (ℤ-module) scaling: every component times ``factor``,
+        which has the key dims' shape and broadcasts over the payload
+        axes."""
+        out = {}
+        for k, x in a.items():
+            f = factor.to(x.dtype)
+            out[k] = x * f.reshape(tuple(f.shape) + (1,) * (x.dim() - f.dim()))
+        return out
+
 
 # ---------------------------------------------------------------------------
 # Scalar rings: ℤ and ℝ — COUNT / SUM aggregates.
@@ -227,3 +238,157 @@ class DegreeMRing(Ring):
                         device=x.device)
         Q[..., var_index, var_index] = x * x
         return {"c": c, "s": s, "Q": Q}
+
+
+# ---------------------------------------------------------------------------
+# Host rings: exact payloads as Python / numpy values, for the host engine
+# (``repro_torch.core.py_engine``) and the relational data ring of Sec. 7.3.
+# ---------------------------------------------------------------------------
+class PyRing:
+    """Protocol for host-side rings operating on opaque python payloads."""
+
+    name = "py-abstract"
+
+    def zero(self):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def one(self):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def add(self, a, b):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def neg(self, a):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def mul(self, a, b):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def lift(self, value, var_index=None):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def is_zero(self, a) -> bool:
+        return a == self.zero()
+
+
+class PyNumberRing(PyRing):
+    """ℤ / ℝ with numeric lifting (COUNT if count=True else SUM)."""
+
+    def __init__(self, count=False):
+        self.count = count
+        self.name = "py-count" if count else "py-sum"
+
+    def zero(self):
+        return 0
+
+    def one(self):
+        return 1
+
+    def add(self, a, b):
+        return a + b
+
+    def neg(self, a):
+        return -a
+
+    def mul(self, a, b):
+        return a * b
+
+    def lift(self, value, var_index=None):
+        return 1 if self.count else value
+
+
+class PyDegreeMRing(PyRing):
+    """Exact numpy mirror of DegreeMRing."""
+
+    def __init__(self, m: int):
+        self.m = m
+        self.name = f"py-degree{m}"
+
+    def zero(self):
+        return (0.0, np.zeros(self.m), np.zeros((self.m, self.m)))
+
+    def one(self):
+        return (1.0, np.zeros(self.m), np.zeros((self.m, self.m)))
+
+    def add(self, a, b):
+        return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
+
+    def neg(self, a):
+        return (-a[0], -a[1], -a[2])
+
+    def mul(self, a, b):
+        ca, sa, Qa = a
+        cb, sb, Qb = b
+        return (
+            ca * cb,
+            cb * sa + ca * sb,
+            cb * Qa + ca * Qb + np.outer(sa, sb) + np.outer(sb, sa),
+        )
+
+    def lift(self, value, var_index=None):
+        if var_index is None:
+            raise ValueError("degree-m lifting needs the variable index")
+        s = np.zeros(self.m)
+        s[var_index] = value
+        Q = np.zeros((self.m, self.m))
+        Q[var_index, var_index] = value * value
+        return (1.0, s, Q)
+
+    def is_zero(self, a):
+        return a[0] == 0 and not a[1].any() and not a[2].any()
+
+
+class PyRelationalRing(PyRing):
+    """The relational data ring F[ℤ] (Def. 7.4).
+
+    Payloads are relations over ℤ: dict mapping tuples -> int multiplicity.
+    0 = {} (empty relation); 1 = {(): 1}.  + is union (⊎); * is join (⊗)
+    implemented as concatenating Cartesian product of tuples with multiplied
+    multiplicities.
+
+    ``tagged=True`` activates the footnote-2 generalization needed for
+    *incremental* maintenance: payload entries are (var, value) pairs and
+    join canonicalizes by sorting on var, so delta payloads align with view
+    payloads whatever the order in which joins are applied during
+    propagation (evaluation joins children left-to-right; a delta joins its
+    siblings around the propagation path, a different order).
+    """
+
+    def __init__(self, tagged: bool = False):
+        self.tagged = tagged
+        self.name = "py-relational" + ("-tagged" if tagged else "")
+
+    def zero(self):
+        return {}
+
+    def one(self):
+        return {(): 1}
+
+    def add(self, a, b):
+        out = dict(a)
+        for t, mult in b.items():
+            out[t] = out.get(t, 0) + mult
+            if out[t] == 0:
+                del out[t]
+        return out
+
+    def neg(self, a):
+        return {t: -m for t, m in a.items()}
+
+    def mul(self, a, b):
+        out: dict[tuple, int] = {}
+        for ta, ma in a.items():
+            for tb, mb in b.items():
+                t = ta + tb
+                if self.tagged:
+                    t = tuple(sorted(t, key=lambda p: p[0]))
+                out[t] = out.get(t, 0) + ma * mb
+                if out[t] == 0:
+                    del out[t]
+        return out
+
+    def lift(self, value, var_index=None, free=True):
+        return {(value,): 1} if free else {(): 1}
+
+    def is_zero(self, a):
+        return len(a) == 0

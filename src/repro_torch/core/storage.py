@@ -371,8 +371,9 @@ class SparseRelation:
         raise NotImplementedError(_SHARD_TODO)
 
     def to_py(self, py_ring, to_payload=None):
-        raise NotImplementedError("the host oracle (PyRelation) is not ported "
-                                  "yet (ROADMAP Queue 1 item 13)")
+        """This table on the host as a ``PyRelation`` (through its dense
+        form; small relations only)."""
+        return self.to_dense().to_py(py_ring, to_payload)
 
     # -- construction --------------------------------------------------------
     @classmethod

@@ -6,7 +6,9 @@ multi-relation stream through a few CUDA graphs instead:
 
   1. **Bucketing** — updates are grouped by schedule position and padded to
      a per-position bucket size.  Padding rows carry key ``0`` and ring-zero
-     payloads, which ⊎ adds as an exact no-op.
+     payloads, which ⊎ adds as an exact no-op, and indicator maintenance
+     gates its ±1 deltas on per-row transitions, so padded rows leave the
+     ∃ counts and planes as they were.
   2. **Stacking** — keys and payloads are stacked into ``[n_steps, B, ...]``
      tensors on the engine's device, once a stream.
   3. **Dispatch** — three shapes, picked by schedule structure, as in the
@@ -50,6 +52,10 @@ never falls back to eager execution.  Each wrapper's launch count sees
 replays (``kernels._cuda.CapturedLaunches``).
 
 **On the CPU** the same bodies, counter included, run eagerly step by step.
+
+The state is ``(views, base, indicators)``: an indicator's counts and plane
+are leaves like a view's, written in place by the trigger that bumps them,
+so a step with an ``IndicatorBump`` is one graph like any other.
 
 **Sparse views** are state like any other: their key tables and payload
 planes are leaves that a trigger writes in place (``plan.relation_leaves``),
@@ -182,7 +188,7 @@ def check_stream_capacity(engine: IVMEngine, stream, views=None) -> None:
     for name, (v, occ, dom_prod) in caps.items():
         budget = 0
         for rel, upds in by_rel.items():
-            wv, _ = engine.plans.write_sets(engine, rel)
+            wv, _, _ = engine.plans.write_sets(engine, rel)
             if name not in wv:
                 continue
             sch = tuple(upds[0].schema)
@@ -231,7 +237,7 @@ def capacity_segments(engine: IVMEngine, stream):
         return [(list(stream), {})]
     touched: dict[str, list[str]] = {}
     for rel in {r for r, _ in stream}:
-        wv, _ = engine.plans.write_sets(engine, rel)
+        wv, _, _ = engine.plans.write_sets(engine, rel)
         touched[rel] = [n for n in wv if n in caps]
 
     def budget(name: str, rel: str, upd: COOUpdate) -> int:
@@ -377,8 +383,9 @@ def _same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def _owned_state(state):
-    """A copy of a ``(views, base)`` state, each relation one new [S, d]
-    plane (the layout the ⊎ kernels update in place)."""
+    """A copy of a ``(views, base, indicators)`` state, each relation one
+    new [S, d] plane (the layout the ⊎ kernels update in place), each
+    indicator new counts and plane."""
     return tuple({name: rel.owned() for name, rel in part.items()}
                  for part in state)
 
@@ -414,11 +421,13 @@ class _Program:
         schema_of = dict(zip(prepared.rel_order, prepared.schemas))
         wv: set[str] = set()
         wb: set[str] = set()
+        wi: set[str] = set()
         for p in prepared.plans:
-            v, b = p.write_sets()
+            v, b, i = p.write_sets()
             wv |= set(v)
             wb |= set(b)
-        mask = plan_mod.state_write_mask(engine.state, wv, wb)
+            wi |= set(i)
+        mask = plan_mod.state_write_mask(engine.state, wv, wb, wi)
         self.mode = prepared.mode
         #: stacked inputs the bodies read, ``prepared.xs``'s structure
         self.xs = None
@@ -629,7 +638,8 @@ class StreamExecutor:
 
     def run(self, stream_or_prepared, state=None, update_engine: bool = True,
             donate_input: bool = False, pipeline: bool = True):
-        """Apply the whole stream; returns the new ``(views, base)`` state.
+        """Apply the whole stream; returns the new ``(views, base,
+        indicators)`` state.
 
         Unless ``donate_input=True`` the input state is copied first and
         the copy is updated in place.  A raw stream run against the
@@ -639,15 +649,16 @@ class StreamExecutor:
         (:meth:`_run_segmented`); an explicit-state raw run is audited
         against the caller's state; a :class:`PreparedStream` is replayed
         as it is, trusting its prepare-time audit.  With
-        ``update_engine=False`` the engine's views and base are restored
-        afterwards, also when the run raises.  ``pipeline`` does nothing:
+        ``update_engine=False`` the engine's views, base and indicators are
+        restored afterwards, also when the run raises.  ``pipeline`` does nothing:
         it is kept only to match the reference's signature."""
         if state is None and donate_input and not update_engine:
             raise ValueError("donating the engine's own state without "
                              "updating the engine would leave it holding "
                              "the stream's result")
         saved = None if update_engine else (dict(self.engine.views),
-                                            dict(self.engine.base))
+                                            dict(self.engine.base),
+                                            dict(self.engine.indicators))
         try:
             prepared = stream_or_prepared
             if not isinstance(prepared, PreparedStream):

@@ -30,6 +30,7 @@ class ViewNode:
     rels: frozenset[str]  # relations under this subtree
     relation: str | None = None  # set for leaf nodes
     at_var: str | None = None
+    indicator: tuple[str, tuple[str, ...]] | None = None  # (rel, proj schema), Sec. 6
 
     @property
     def is_leaf(self) -> bool:
@@ -167,35 +168,70 @@ def evaluate_view(
     db: Mapping[str, DenseRelation],
     query: Query,
     store: dict[str, DenseRelation] | None = None,
+    premarg: bool = False,
 ) -> DenseRelation:
     """Evaluate bottom-up on the database's device.  If ``store`` is given,
     record every view in it (a leaf's entry is the database relation
-    itself).
+    itself).  A node with an indicator (Sec. 6) joins ∃_proj of its
+    relation, recomputed from ``db``.
 
-    The reference joins a node's children and then sums out its variables.
-    Here a variable whose lift is the identity (g(x) = 1) is summed inside
-    the last join instead: the same sum, in another order (exact on
-    integer-valued data below 2**24), without the join's full product,
-    which for a chain of p × p matrices holds p³ values."""
+    With ``premarg=True`` also store, for each non-leaf view with a
+    marginalized variable, the pre-marginalization join ``W:<name>`` over
+    ``schema + marg_vars`` (in that order) — the device form of the
+    factorized result representation (Sec. 7.3).  A ``W:`` view is the
+    full product, so such a node joins and then sums, as the reference
+    does.
+
+    Otherwise the reference's order (join every child and the indicator,
+    then sum out each variable against its lift) is changed so that no
+    join forms its full product: each summed variable's lift multiplies
+    into the last operand (child, or the indicator after the children)
+    that holds the variable, and the variable is summed inside the join
+    with that operand (or the first join, if only the first operand holds
+    it).  So an indicator whose projection holds the variable joins before
+    its sum, and one that does not joins after it.  The same sum in
+    another order: exact on integer-valued data below 2**24.  Without it
+    a chain of p × p matrices would form p³ values, and the triangle
+    query's view at C (S(B,C) ⊗ T(C,A) ⊗ ∃R(A,B), summed over C) n³."""
     if node.is_leaf:
         out = db[node.relation]
         if not isinstance(out, DenseRelation):  # a sparse leaf densifies
             out = out.to_dense()
     else:
-        inner: tuple = ()
-        if len(node.children) > 1:
-            inner = tuple(v for v in node.marg_vars
-                          if query.lift_spec(v) == ("one",))
-        acc: DenseRelation | None = None
-        for i, c in enumerate(node.children):
-            cv = evaluate_view(c, db, query, store)
-            last = i == len(node.children) - 1
-            acc = cv if acc is None else contract_dense(
-                acc, cv, marg=inner if last else ())
-        for v in node.marg_vars:
-            if v not in inner:
+        operands = [evaluate_view(c, db, query, store, premarg)
+                    for c in node.children]
+        if node.indicator is not None:
+            from .indicators import indicator_of
+
+            rel, proj = node.indicator
+            operands.append(indicator_of(db[rel], proj, query))
+        keep_product = premarg and store is not None and node.marg_vars
+        if keep_product or len(operands) == 1:
+            acc = operands[0]
+            for o in operands[1:]:
+                acc = contract_dense(acc, o, marg=())
+            if keep_product:
+                # canonical layout (schema first, then the marginalized
+                # vars): consumers of the factorized representation index
+                # W's key axes in node.schema order
+                store[f"W:{node.name}"] = acc.transpose(
+                    node.schema + tuple(node.marg_vars))
+            for v in node.marg_vars:
                 acc = contract_dense(acc, query.lift_rel(v, acc.device),
                                      marg=(v,))
+        else:
+            # the join at which each variable is summed
+            sum_at: dict[int, list[str]] = {}
+            for v in node.marg_vars:
+                last = max(i for i, o in enumerate(operands) if v in o.schema)
+                if query.lift_spec(v) != ("one",):
+                    operands[last] = contract_dense(
+                        operands[last], query.lift_rel(v, operands[last].device),
+                        marg=())
+                sum_at.setdefault(max(last, 1), []).append(v)
+            acc = operands[0]
+            for i, o in enumerate(operands[1:], start=1):
+                acc = contract_dense(acc, o, marg=tuple(sum_at.get(i, ())))
         out = acc.transpose(node.schema)
     if store is not None:
         store[node.name] = out

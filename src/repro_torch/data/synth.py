@@ -65,6 +65,14 @@ def housing_vo():
                                  ["d1"], ["t1"]]})
 
 
+#: the triangle query of Sec. 6 / Fig. 11 (``benchmarks/bench_triangle.py``)
+TRIANGLE_RELATIONS = {"R": ("A", "B"), "S": ("B", "C"), "T": ("C", "A")}
+
+
+def triangle_vo():
+    return chain(["A", "B", "C"])
+
+
 # ---------------------------------------------------------------------------
 # Database + update-stream synthesis
 # ---------------------------------------------------------------------------
@@ -137,6 +145,32 @@ def update_stream(relations, doms, ring, rng, batch: int, n_batches: int,
              if key_pools and v in key_pools
              else rng.integers(0, doms[v], size=batch) for v in sch],
             axis=1).astype(np.int32)
+        vals = rng.choice([-1.0, 1.0, 1.0, 1.0], size=batch).astype(np.float32)
+        if set(ring.components) == {"v"}:
+            payload = {"v": torch.as_tensor(vals, device=dev)}
+        else:
+            payload = {**ring.zeros((batch,), device=dev),
+                       "c": torch.as_tensor(vals, device=dev)}
+        out.append((rel, COOUpdate(tuple(sch), torch.as_tensor(keys, device=dev),
+                                   payload)))
+    return out
+
+
+def distinct_key_stream(relations, doms, ring, rng, batches, device="cuda"):
+    """Round-robin batches like :func:`update_stream` (payload c ∈ {−1, +1,
+    +1, +1}), of the sizes ``batches`` lists, each batch's keys drawn
+    without replacement from its relation's key grid: indicator
+    maintenance reads each row's old payload once, so its batches must
+    not repeat a key.  Returns ``[(relation, COOUpdate), ...]``."""
+    dev = resolve_device(device)
+    names = list(relations)
+    out = []
+    for i, batch in enumerate(batches):
+        rel = names[i % len(names)]
+        sch = relations[rel]
+        shape = tuple(doms[v] for v in sch)
+        flat = rng.choice(int(np.prod(shape)), size=batch, replace=False)
+        keys = np.stack(np.unravel_index(flat, shape), axis=1).astype(np.int32)
         vals = rng.choice([-1.0, 1.0, 1.0, 1.0], size=batch).astype(np.float32)
         if set(ring.components) == {"v"}:
             payload = {"v": torch.as_tensor(vals, device=dev)}

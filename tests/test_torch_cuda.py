@@ -1390,8 +1390,7 @@ def test_cuda_sparse_trigger_does_not_synchronise(cuda_device, fusion):
                     torch.cuda.synchronize()
                     torch.cuda.set_sync_debug_mode("error")
                 try:
-                    eng.views, eng.base = eng.functional_update(eng.views, eng.base,
-                                                                rel, upd)
+                    eng.set_state(eng.functional_update(*eng.state, rel, upd))
                 finally:
                     torch.cuda.set_sync_debug_mode(0)
             engines[str(dev)] = eng
@@ -1416,16 +1415,14 @@ def test_cuda_graphed_executor_over_sparse_views_matches_eager(cuda_device, fusi
         assert prepared.mode == "rounds"
         ex = StreamExecutor(graphed)
         for rel, upd in stream:
-            eager.views, eager.base = eager.functional_update(
-                eager.views, eager.base, rel, upd)
+            eager.set_state(eager.functional_update(*eager.state, rel, upd))
         ex.run(prepared)
         assert ex.last_run_stats["replays"] > 0
         _sparse_views_equal(eager, graphed)
         ptrs = [t.data_ptr() for t in tplan.state_leaves(graphed.state)]
         before = _counts()
         for rel, upd in stream:
-            eager.views, eager.base = eager.functional_update(
-                eager.views, eager.base, rel, upd)
+            eager.set_state(eager.functional_update(*eager.state, rel, upd))
         want_launches = _since(before)
         assert want_launches.get("hash_insert", 0) > 0
         before = _counts()
@@ -1682,3 +1679,171 @@ def test_cuda_sparse_chain_engine_equals_dense(cuda_device):
                                                               eng.query.ring))
     np.testing.assert_array_equal(matrix_chain.result_matrix(eng_s).cpu().numpy(),
                                   matrix_chain.result_matrix(eng_d).cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# Indicator projections (the triangle query) and the conjunctive app
+# ---------------------------------------------------------------------------
+def _triangle(dev, n=48, seed=0, batches=(40,) * 9):
+    """The triangle query in the degree-3 cofactor ring at n a variable
+    (0/1 multiplicities at ``synth_db``'s density 0.3, so that triangles
+    exist at this n) and a round-robin stream of distinct-key batches."""
+    doms = dict(A=n, B=n, C=n)
+    q = regression.cofactor_query(synth.TRIANGLE_RELATIONS, doms)
+    db = synth.synth_db(synth.TRIANGLE_RELATIONS, doms, q.ring,
+                        np.random.default_rng(seed), device=dev)
+    stream = synth.distinct_key_stream(synth.TRIANGLE_RELATIONS, doms, q.ring,
+                                       np.random.default_rng(seed + 1),
+                                       list(batches), device=dev)
+    return q, db, stream
+
+
+def _tri_engine(q, db, dev, **kw):
+    return IVMEngine.build(q, db, var_order=synth.triangle_vo(),
+                           use_indicators=True, fuse_chains=False, device=dev,
+                           **kw)
+
+
+def _states_equal(a, b):
+    la = tplan.state_leaves(a.state)
+    lb = tplan.state_leaves(b.state)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert torch.equal(x.cpu(), y.cpu())
+
+
+@pytest.mark.parametrize("strategy", ["fivm", "dbt"])
+@pytest.mark.parametrize("fusion", ["off", "on"])
+def test_cuda_triangle_engine_bitwise_to_cpu(cuda_device, strategy, fusion):
+    """Views, base relations, indicator counts and planes on the card equal
+    the CPU engine's after the stream (integer data below 2**24)."""
+    engines = {}
+    with tplan.use_fusion(fusion):
+        for dev in ("cpu", cuda_device):
+            q, db, stream = _triangle(dev)
+            eng = _tri_engine(q, db, dev, strategy=strategy)
+            for rel, upd in stream:
+                eng.apply_update(rel, upd)
+            engines[str(dev)] = eng
+    _states_equal(engines["cpu"], engines[str(cuda_device)])
+    assert engines["cpu"].indicators["V0@C"].counts.sum() > 0
+
+
+def test_cuda_triangle_launches_equal_the_plan(cuda_device):
+    """Each update launches the ⊎ kernels its plan's ScatterAccum ops,
+    IndicatorBump and stored base relation name under their backends
+    (``compact``: a ``segment_ring_sum`` and a ``scatter_add``;
+    ``scatter``: a ``scatter_add``), and fused chains one ``fused_chain``
+    each."""
+    from repro_torch.core.storage import payload_width
+
+    q, db, stream = _triangle(cuda_device)
+    eng = _tri_engine(q, db, cuda_device, strategy="fivm")
+    kernels = {"scatter_add": ring_scatter.SCATTER_ADD,
+               "segment_ring_sum": tsegsum.SEGMENT_RING_SUM,
+               "gather_mul_scatter": ring_scatter.GATHER_MUL_SCATTER,
+               "fused_chain": ring_fused.FUSED_CHAIN}
+    for rel, upd in stream:
+        p = eng.trigger_plan(rel, upd)
+        want = dict.fromkeys(kernels, 0)
+
+        def resolved(domains):
+            return scatter_ops.resolve_backend(int(np.prod(domains)), upd.batch,
+                                               payload_width(q.ring),
+                                               device=cuda_device)
+
+        def scatter(backend):
+            if backend == "compact":
+                want["segment_ring_sum"] += 1
+            if backend in ("compact", "scatter"):
+                want["scatter_add"] += 1
+
+        for op in p.ops + p.ind_ops:
+            if isinstance(op, tplan.FusedChain):
+                want["fused_chain"] += 1
+            elif isinstance(op, tplan.ScatterAccum):
+                scatter(op.backend)
+            elif isinstance(op, tplan.IndicatorBump):
+                scatter(resolved(eng.indicators[op.node].counts.shape))
+        for name in p.write_base:  # the stored base relation's ⊎
+            scatter(resolved(eng.base[name].domains))
+        before = {k: w.launches for k, w in kernels.items()}
+        eng.apply_update(rel, upd)
+        assert {k: w.launches - before[k] for k, w in kernels.items()} == want, rel
+    assert any(p.ind_ops for p in eng.plans.plans.values())
+
+
+def test_cuda_indicator_round_makes_no_synchronising_call(cuda_device):
+    """A round R, S, T whose R trigger bumps the indicator: the trigger
+    path (``functional_update``) under ``set_sync_debug_mode("error")``."""
+    q, db, stream = _triangle(cuda_device, batches=(40,) * 6)
+    eng = _tri_engine(q, db, cuda_device, strategy="fivm")
+    for rel, upd in stream[:3]:  # warm-up: lift relations, kernel libraries
+        eng.apply_update(rel, upd)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for rel, upd in stream[3:]:
+            eng.set_state(eng.functional_update(*eng.state, rel, upd))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert eng.trigger_plan("R", stream[3][1]).ind_ops
+
+
+def test_cuda_graphed_triangle_executor_with_padded_rows(cuda_device):
+    """The executor on the card over the indicator round, batches of 39
+    and 40 rows (padded rows through the IndicatorBump): a capture run,
+    then a replay-only run of the same stream on the captured state; the
+    state equals an eager engine's that took the same padded batches."""
+    from repro_torch.core import StreamExecutor, prepare_stream
+
+    q, db, stream = _triangle(cuda_device,
+                              batches=[40 - (i // 3) % 2 for i in range(9)])
+    eager = _tri_engine(q, db, cuda_device, strategy="fivm")
+    graphed = _tri_engine(q, db, cuda_device, strategy="fivm")
+    prepared = prepare_stream(graphed, stream)
+    ex = StreamExecutor(graphed)
+    ex.run(prepared)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ex.run(prepared, donate_input=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ex.last_run_stats["eager_steps"] == 0 and ex.last_run_stats["replays"]
+    for _ in range(2):
+        for rel, upd in stream:
+            eager.apply_update(rel, upd.pad_to(q.ring, 40))
+    _states_equal(eager, graphed)
+    ex.release()
+
+
+def test_cuda_conjunctive_W_views_bitwise_to_cpu(cuda_device):
+    from repro_torch.core.apps import conjunctive
+
+    rels = {"House": ("pc", "h1"), "Shop": ("pc", "s1"), "Rest": ("pc", "r1")}
+    doms = dict(pc=256, h1=6, s1=6, r1=6)
+    vo = (["pc"], {"pc": [["h1"], ["s1"], ["r1"]]})
+    rng = np.random.default_rng(0)
+    data = {n: (rng.random(tuple(doms[v] for v in sch)) < 0.5).astype(np.int64)
+            for n, sch in rels.items()}
+    engines = {}
+    for dev in ("cpu", cuda_device):
+        from repro_torch.core import chain
+
+        eng, _ = conjunctive.make_factorized_engine(rels, data, chain(*vo), doms,
+                                                    device=dev)
+        upds = np.random.default_rng(1)
+        for i in range(6):
+            rel = list(rels)[i % 3]
+            shape = data[rel].shape
+            flat = upds.choice(int(np.prod(shape)), size=64, replace=False)
+            keys = np.stack(np.unravel_index(flat, shape), axis=1).astype(np.int32)
+            vals = upds.choice([-1.0, 1.0], size=64).astype(np.float32)
+            eng.apply_update(rel, COOUpdate(rels[rel], torch.tensor(keys, device=dev),
+                                            {"v": torch.tensor(vals, device=dev)}))
+        engines[str(dev)] = eng
+    cpu, card = engines["cpu"], engines[str(cuda_device)]
+    assert sorted(cpu.views) == sorted(card.views)
+    assert sum(n.startswith("W:") for n in card.views) == 4
+    for name, v in cpu.views.items():
+        assert torch.equal(v.payload["v"], card.views[name].payload["v"].cpu()), name

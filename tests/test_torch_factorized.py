@@ -160,7 +160,8 @@ def test_factorized_plan_kinds_and_write_sets():
                               storage="dense", device="cpu")
         p = eng.plans.lookup_sig(eng, "S", ("factorized", ("A", "C", "E")))
         kinds[strategy] = (p.kind, p.batch)
-        assert eng.plans.write_sets(eng, "S") == (p.write_views, p.write_base)
+        assert eng.plans.write_sets(eng, "S") == (p.write_views, p.write_base,
+                                                  p.write_indicators)
         assert tplan.read_sets([p]) == p.read_views()
         # a factorized lookup hits the cached plan
         upd = P.port_update(_ref_update(rng, "S", "ints"), tq.ring)

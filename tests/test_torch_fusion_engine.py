@@ -264,7 +264,8 @@ def test_write_sets_track_fusion_flip():
     with tplan.use_fusion("on"):
         on_sets = eng.plans.write_sets(eng, "R")
         assert eng.plans.misses == misses + 1  # a fresh derivation
-    assert on_sets == off_sets == (frozenset({"V0@B", "V2@A"}), frozenset())
+    assert on_sets == off_sets == (frozenset({"V0@B", "V2@A"}), frozenset(),
+                                   frozenset())
 
 
 def test_chain_deltas_materialize_lazily_and_match_unfused():

@@ -226,8 +226,24 @@ def test_unported_features_raise(what):
                         n for n, s in eng.storage_plan.items() if s.kind == "sparse"]
         return
     if what == "indicators":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            _small_engine(device="cpu", use_indicators=True)
+        # ported since: the acyclic retailer query gets no indicator, as in
+        # the reference, and the engine equals its plain build
+        from benchmarks import common as bc
+        from repro.core import Query as RefQuery
+        from repro.core import add_indicators, build_view_tree
+        from repro.core import sum_ring as ref_sum_ring
+
+        eng, q, db = _small_engine(device="cpu", use_indicators=True)
+        plain, _, _ = _small_engine(device="cpu")
+        assert eng.indicators == {} and eng.tree.pretty() == plain.tree.pretty()
+        assert all(n.indicator is None for n in eng.tree.walk())
+        rq = RefQuery(relations=bc.RETAILER_RELATIONS, free_vars=(),
+                      ring=ref_sum_ring(), domains=bc.RETAILER_DOMS,
+                      lifts={"units": ("value",)})
+        ref_tree = add_indicators(build_view_tree(rq, bc.retailer_vo()), rq)
+        assert ref_tree.pretty() == eng.tree.pretty()
+        assert all(n.indicator is None for n in ref_tree.walk())
+        assert torch.equal(eng.result().payload["v"], plain.result().payload["v"])
         return
     if what == "factorized":
         _factorized_case()

@@ -21,9 +21,14 @@ counted and their sites (the innermost frame in ``repro_torch``, with its
 source line), split into those of the trigger (``trigger_syncs``) and those
 of the eager path's table growth check (``growth_syncs``: the occupancy
 read of ``storage.grow_if_loaded``, one a touched sparse view a batch).
-Last, the LM decode step (``lm_decode``, the reduced llama3.2-1b config on 2
-prompts of 33 tokens, its token already on the card): one warm-up step,
-then one audited step (phase ``lm_decode_step``).
+Where the tree has indicator projections, the triangle query of
+``chip_smoke.py``'s triangle leg (the degree-3 cofactor ring, n = 1,024 a
+variable, ``fivm`` with indicators, plan fusion ``auto``): one round R, S,
+T of distinct-key batches of 1000 to warm up, then two more rounds
+(phase ``triangle_indicators``; the R trigger of each bumps the
+indicator).  Last, the LM decode step (``lm_decode``, the reduced
+llama3.2-1b config on 2 prompts of 33 tokens, its token already on the
+card): one warm-up step, then one audited step (phase ``lm_decode_step``).
 Card only.
 """
 from __future__ import annotations
@@ -153,7 +158,33 @@ def worker(tree: Path) -> None:
                               **out)), flush=True)
         del eng, db, stream
         torch.cuda.empty_cache()
+    if hasattr(synth, "distinct_key_stream"):  # a tree with indicators
+        _triangle_phase(tree)
     _decode_phase(tree)
+
+
+def _triangle_phase(tree: Path, n: int = 1024) -> None:
+    """The synchronising calls of two triangle rounds with indicators."""
+    import torch
+    from repro_torch.core import IVMEngine
+    from repro_torch.core.apps import regression
+    from repro_torch.data import synth
+
+    rels = synth.TRIANGLE_RELATIONS
+    doms = dict(A=n, B=n, C=n)
+    q = regression.cofactor_query(rels, doms)
+    db = synth.synth_db(rels, doms, q.ring, np.random.default_rng(0),
+                        density=3.0 / n, device="cuda")
+    stream = synth.distinct_key_stream(rels, doms, q.ring, np.random.default_rng(1),
+                                       [BATCH] * 9, device="cuda")
+    eng = IVMEngine.build(q, db, var_order=synth.triangle_vo(), use_indicators=True,
+                          fuse_chains=False, device="cuda")
+    eng.precompile(BATCH)
+    out = _audit(eng, stream[:3], stream[3:])
+    print(json.dumps(dict(root=str(tree), phase="triangle_indicators", n=n,
+                          indicator_rounds=2, **out)), flush=True)
+    del eng, db, stream
+    torch.cuda.empty_cache()
 
 
 def _decode_phase(tree: Path) -> None:
