@@ -101,6 +101,35 @@ Phases (any failed check raises, and the script exits non-zero):
      launches against its plans and every view bitwise to a float64
      numpy recount; at pc = 32 the enumeration of its ``W:`` payloads
      against the host listing engine (``PyIVM``) and a brute force.
+   Then the stream executor's durability and integrity planes (snapshots
+   under ``build/snapshots``, removed by each phase), every leg's launches
+   held to the eager engine's (``plan_launches`` beside) or to the same
+   segments without snapshots or validation, every compared state leaf
+   bitwise (a leaf above 2²⁴ within 1e-5):
+   - ``durable``: D1, the retailer sum stream with fusion ``auto`` through
+     the executor with ``StreamCheckpointer(keep=3, segment_updates=5)``
+     and without (the same 4 segments), in turns, with the dispatch and
+     writer seconds of each save, the snapshot bytes, the synchronising
+     calls of a run with and without snapshots and of a non-final save
+     (0), a restore, and a ``mid_segment`` fault then ``resume`` on a
+     fresh engine; D2, S2's growing housing stream: faults at
+     ``mid_admit``, ``post_rehash_pre_recompile``, ``mid_checkpoint_write``
+     and ``mid_segment``, a bit flip in the newest snapshot (quarantined on
+     resume) and a child process killed by ``SIGKILL`` mid-segment, each
+     resumed on a fresh engine to the uninterrupted run's leaves,
+     capacities and occupancy;
+   - ``integrity``: I1, the reference's integrity leg (housing pc =
+     65,536, 512 active, 12 × 512): ``off``, ``validate`` and ``audit``
+     executors in turns, then a poisoned stream (NaN, +inf, pc = 65,536, a
+     key of -1, a batch of float keys): under ``quarantine`` bitwise to the
+     masked clean stream with exactly the planted dead letters and an
+     admission that never synchronises, under ``strict`` stopped at update
+     2 with nothing committed; I2, the degree-10 cofactor stream with two
+     audits at the full state, then drift put into the root between
+     segments, repaired in place at the next audit (the next segment
+     replays) to within 1e-5 of float64; I3, ``StreamSupervisor`` over D1
+     with a fault (one restart) and over I1's poisoned stream under
+     ``strict`` (escalated to ``quarantine_batch``).
 4. The kernel-ops layer's paths, counts reset before and read after each:
    - B, the ring product on engine state: ``ops.ring_mul`` of the largest
      view (1,179,648 keys, degree 10) of the two cofactor engines above,
@@ -2978,6 +3007,884 @@ def conjunctive_phase(kernels, laps) -> list:
     return [row, row2]
 
 
+# ---------------------------------------------------------------------------
+# The stream executor's durability and integrity planes
+# ---------------------------------------------------------------------------
+#: D1 and D2 cut a boundary every 5 updates (4 segments, 4 saves in D1)
+DURABLE_SEGMENT_UPDATES = 5
+#: the snapshots of the durable, integrity and supervisor phases (under the
+#: gitignored build/; each phase removes its own)
+SNAPSHOT_DIR = Path(__file__).resolve().parent / "build" / "snapshots"
+#: D2's in-process faults: (point, crossing index); each fires once
+D2_FAULTS = (("mid_admit", 2), ("post_rehash_pre_recompile", 1),
+             ("mid_checkpoint_write", 2), ("mid_segment", 2))
+#: I1, the reference's integrity leg (benchmarks/bench_stream.py:451-507):
+#: housing pc = 65,536, 512 active postcodes, 12 batches of 512, boundaries
+#: every 4 updates
+I1_ACTIVE, I1_BATCH, I1_BATCHES, I1_SEGMENT = 512, 512, 12, 4
+#: I1's poison, planted by the script: (batch, row, mutation)
+I1_POISON = ((2, 5, "nan"), (2, 17, "nan"), (2, 301, "nan"), (5, 7, "inf"),
+             (7, 11, "pc"), (7, 12, "negative_key"))
+#: I1's batch with integer keys stored as float32: a whole-batch dtype error
+I1_BAD_DTYPE = 9
+
+
+def count_syncs(fn):
+    """``(fn(), synchronising calls, their sites)`` under
+    ``torch.cuda.set_sync_debug_mode("warn")``: a site is the innermost
+    ``repro_torch`` frame of the call that synchronised (in whichever
+    thread it ran)."""
+    import traceback
+    import warnings
+
+    import torch
+
+    sites: dict = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        site = next((f"{f.filename[f.filename.index('repro_torch'):]}:{f.lineno}"
+                     for f in reversed(traceback.extract_stack())
+                     if "repro_torch" in f.filename), "outside repro_torch")
+        sites[site] = sites.get(site, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum(sites.values()), sites
+
+
+def state_copy(eng) -> dict:
+    """Every state leaf of an engine, cloned (:func:`state_tensors`)."""
+    return {k: t.clone() for k, t in state_tensors(eng).items()}
+
+
+def same_state(label, eng, want: dict) -> dict:
+    """Raise unless every state leaf of ``eng`` (key tables, planes with
+    their zombie slots, base relations) equals ``want``'s: bitwise for
+    integer leaves and float leaves below 2**24 (integer sums, exact in any
+    order), else within RTOL of the largest magnitude (the ⊎ kernels and
+    ``fused_chain`` add a batch's rows with atomics, in no fixed order, as
+    :func:`compare_states`).  Returns the leaves of each kind and the
+    largest error."""
+    import torch
+
+    got = state_tensors(eng)
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: state entries differ")
+    out = {"bitwise_leaves": 0, "tolerance_leaves": 0, "max_rel_err": 0.0}
+    for k, t in got.items():
+        w = want[k]
+        if t.shape != w.shape or t.dtype != w.dtype:
+            raise AssertionError(f"{label}: {k} has another shape or dtype")
+        scale = float(w.abs().max()) if w.numel() and w.is_floating_point() else 0.0
+        if scale < EXACT_LIMIT:
+            if not torch.equal(t, w):
+                raise AssertionError(f"{label}: {k} differs from the uninterrupted run")
+            out["bitwise_leaves"] += 1
+        else:
+            err = float((t.double() - w.double()).abs().max()) / scale
+            if err > RTOL:
+                raise AssertionError(f"{label}: {k} differs from the uninterrupted run "
+                                     f"by {err} of its magnitude")
+            out["tolerance_leaves"] += 1
+            out["max_rel_err"] = max(out["max_rel_err"], err)
+    return out
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+
+
+def timed_run(ex, stream, kernels) -> tuple[float, dict]:
+    """(host seconds, launches) of ``ex.run(stream)``, ended by a
+    synchronise, the counts reset before."""
+    import torch
+
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex.run(stream)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, {k.name: k.launches for k in kernels}
+
+
+def eager_launches(build, stream, kernels) -> dict:
+    """The launches, by kernel, of ``stream`` through a fresh engine's
+    eager ``apply_update``: what the executor's runs must launch (each
+    update's plan once, replays counted)."""
+    import torch
+
+    eng = build()
+    reset(kernels)
+    for rel, upd in stream:
+        eng.apply_update(rel, upd)
+    torch.cuda.synchronize()
+    out = {k.name: k.launches for k in kernels if k.launches and ":" not in k.name}
+    del eng
+    return out
+
+
+def run_until_fault(ex, stream, point: str, at: int, mode: str = "raise"):
+    """Run ``stream`` with a fault armed at the ``at``-th crossing of
+    ``point`` (``mode="bitflip"`` corrupts and runs on); raises unless it
+    fired.  Returns where it fired."""
+    from repro_torch.runtime import faults
+
+    with faults.inject(point, at=at, mode=mode) as inj:
+        try:
+            ex.run(stream)
+        except faults.InjectedFault:
+            pass
+    if not inj.fired:
+        raise AssertionError(f"the fault at {point}[{at}] never fired")
+    return [inj.fired[0][0], inj.fired[0][1]]
+
+
+def retailer_case(ring: str):
+    """The retailer snowflake at ``RETAILER_DOMS_BIG`` with the stream
+    phase's database and 20 × 1000 stream (seed 0): (query, float64 query,
+    db, stream, build)."""
+    import torch
+    from repro_torch.core import IVMEngine, Query, sum_ring
+    from repro_torch.core.apps import regression
+    from repro_torch.data import synth
+
+    doms, rels = synth.RETAILER_DOMS_BIG, synth.RETAILER_RELATIONS
+    if ring == "sum":
+        q = Query(relations=rels, free_vars=(), ring=sum_ring(), domains=doms,
+                  lifts={"units": ("value",)})
+        q64 = Query(relations=rels, free_vars=(), ring=sum_ring(torch.float64),
+                    domains=doms, lifts={"units": ("value",)})
+    else:
+        q = regression.cofactor_query(rels, doms)
+        q64 = regression.cofactor_query(rels, doms, dtype=torch.float64)
+    rng = np.random.default_rng(SEED)
+    db = synth.synth_db(rels, doms, q.ring, rng, device="cuda")
+    stream = synth.update_stream(rels, doms, q.ring, rng, BATCH, N_BATCHES, device="cuda")
+
+    def build(**kw):
+        eng = IVMEngine.build(q, db, var_order=synth.retailer_vo(), strategy="fivm",
+                              device="cuda", **kw)
+        eng.precompile(BATCH)
+        if any(s.kind != "dense" for s in eng.storage_plan.values()):
+            raise AssertionError("auto storage made a retailer view sparse")
+        return eng
+
+    return q, q64, db, stream, build
+
+
+def housing_growth_case():
+    """S2's configuration: the housing star at pc = 65,536, sum ring,
+    ``auto`` storage, 512 active postcodes, 20 × 1000 from 4,096 postcodes
+    (the tables grow through capacity segments): (query, float64 query,
+    db, stream, build)."""
+    import torch
+    from repro_torch.core import IVMEngine
+    from repro_torch.data.synth import (HOUSING_DOMS_BIG, HOUSING_RELATIONS, housing_vo,
+                                        synth_low_fill_db)
+
+    q = housing_query("sum", HOUSING_DOMS_BIG)
+    q64 = housing_query("sum", HOUSING_DOMS_BIG, torch.float64)
+    db, active = synth_low_fill_db(HOUSING_RELATIONS, HOUSING_DOMS_BIG, q.ring,
+                                   np.random.default_rng(SEED), "pc", 512, device="cuda")
+    inactive = np.setdiff1d(np.arange(HOUSING_DOMS_BIG["pc"]), active)
+    pool = np.sort(np.concatenate([active, np.random.default_rng(SEED + 2).choice(
+        inactive, size=4096 - 512, replace=False)]))
+    stream = housing_stream(q, pool, BATCH, N_BATCHES, SEED + 1)
+
+    def build(**kw):
+        eng = IVMEngine.build(q, db, var_order=housing_vo(), strategy="fivm",
+                              device="cuda", **kw)
+        eng.precompile(BATCH)
+        return eng
+
+    return q, q64, db, stream, build
+
+
+def durable_retailer(kernels) -> dict:
+    """D1: the retailer sum stream (fusion ``auto``, dense views) through
+    the executor with a ``StreamCheckpointer(keep=3, segment_updates=5)``
+    (4 segments, 4 saves) and without (an ``IntegrityConfig(policy=
+    "permissive", segment_updates=5)``: the same 4 segments), after a
+    warm-up run timed in turns off, on, on, off on fresh engines; each
+    run's launches equal to the eager engine's (its plans run once an
+    update; ``plan_launches`` reported beside).  Then the synchronising
+    calls of a run with and without snapshots and of a non-final boundary
+    save alone, a restore into a fresh engine, and a ``mid_segment`` fault
+    at the third boundary followed by ``resume`` on a fresh engine and
+    executor: every state leaf equal to the uninterrupted run's
+    (:func:`same_state`), the views to the float64 oracle."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import StreamCheckpointer
+    from repro_torch.core import StreamExecutor, plan
+    from repro_torch.runtime.integrity import IntegrityConfig
+
+    label = "D1_durable_retailer_sum"
+    root = SNAPSHOT_DIR / "durable_retailer"
+    shutil.rmtree(root, ignore_errors=True)
+    q, q64, db, stream, build = retailer_case("sum")
+    total: dict = {}
+
+    def executor(mode, tag):
+        eng = build()
+        if mode == "on":
+            ck = StreamCheckpointer(str(root / tag), keep=3,
+                                    segment_updates=DURABLE_SEGMENT_UPDATES)
+            return eng, StreamExecutor(eng, checkpoint=ck), ck
+        cfg = IntegrityConfig(policy="permissive", segment_updates=DURABLE_SEGMENT_UPDATES)
+        return eng, StreamExecutor(eng, integrity=cfg), None
+
+    with plan.use_fusion("auto"):
+        runs: dict = {"off": [], "on": []}
+        final = None
+        eager = eager_launches(build, stream, kernels)
+        eng, ex, _ = executor("off", "warm")  # first captures, kernel loads
+        ex.run(stream)
+        ex.release()
+        del eng, ex
+        for i, mode in enumerate(("off", "on", "on", "off")):
+            eng, ex, ck = executor(mode, f"run{i}")
+            wall, launches = timed_run(ex, stream, kernels)
+            check_launches(f"{label} {mode}", kernels, eager)
+            plans = stream_launches(eng, stream)
+            add_launches(total, launches)
+            segs = ex.last_segment_stats
+            entry = dict(run_s=wall, tuples_per_s=BATCH * N_BATCHES / wall,
+                         segments=len(segs),
+                         replays=sum(s["run"].get("replays", 0) for s in segs),
+                         eager_steps=sum(s["run"].get("eager_steps", 0) for s in segs))
+            if len(segs) != 4:
+                raise AssertionError(f"{label} {mode}: {len(segs)} segments, not 4")
+            if ck is not None:
+                if ck.saves_committed != 4 or ck.ckpt.all_steps() != [10, 15, 20]:
+                    raise AssertionError(f"{label}: saves {ck.saves_committed}, "
+                                         f"steps {ck.ckpt.all_steps()}")
+                entry.update(save_dispatch_s=[s["save_dispatch_s"] for s in segs],
+                             save_s=[s["save_s"] for s in segs],
+                             writer_s=[w["seconds"] for w in ck.ckpt.writes],
+                             snapshot_bytes=ck.ckpt.writes[-1]["bytes"])
+                final = (eng, ck)
+            runs[mode].append(entry)
+            ex.release()
+        eng_u, ck_u = final
+        want = state_copy(eng_u)
+        oracle = compare_views(label, eng_u, oracle_store(eng_u, db, stream, q64, 1))
+        # synchronising calls: a run with snapshots against one without, and
+        # a non-final boundary save alone (after a warm-up save)
+        syncs = {}
+        for mode in ("off", "on"):
+            eng, ex, ck = executor(mode, f"syncs_{mode}")
+            _, n, sites = count_syncs(lambda: ex.run(stream))
+            syncs[f"run_{mode}"] = dict(syncs=n, sites=sites)
+            ex.release()
+        probe = StreamCheckpointer(str(root / "probe"))
+        probe.save_boundary(eng_u, offset=1, segment=0)
+        probe.wait()
+        _, syncs["boundary_save"], _ = count_syncs(
+            lambda: probe.save_boundary(eng_u, offset=2, segment=1))
+        probe.wait()
+        in_checkpoint = [site for site in syncs["run_on"]["sites"]
+                         if "repro_torch/checkpoint" in site]
+        if syncs["boundary_save"] or in_checkpoint:
+            raise AssertionError(f"{label}: a boundary save synchronised: {syncs}")
+        # restore into a fresh engine
+        eng_r = build()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta = StreamCheckpointer(str(root / "run2"), keep=3).restore_into(eng_r)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if meta["offset"] != 20:
+            raise AssertionError(f"{label}: restored offset {meta['offset']}")
+        same_state(f"{label} restore", eng_r, want)
+        del eng_r
+        # a fault at the third boundary, then resume on a fresh engine
+        eng_f, ex_f, ck_f = executor("on", "fault")
+        reset(kernels)
+        fired = run_until_fault(ex_f, stream, "mid_segment", 2)
+        add_launches(total, {k.name: k.launches for k in kernels})
+        ck_f.ckpt.discard_pending()  # a boundary save may still be in flight
+        committed = ck_f.ckpt.all_steps()
+        ex_f.release()
+        del eng_f, ex_f, ck_f
+        eng_2, ex_2, ck_2 = executor("on", "fault")
+        reset(kernels)
+        t0 = time.perf_counter()
+        ex_2.resume(stream)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        replayed = sum(s["updates"] for s in ex_2.last_segment_stats)
+        check_launches(f"{label} resume", kernels,
+                       eager_launches(build, stream[-replayed:], kernels))
+        add_launches(total, {k.name: k.launches for k in kernels})
+        leaves = same_state(f"{label} resume", eng_2, want)
+        resumed_oracle = compare_views(label + "_resumed", eng_2,
+                                       oracle_store(eng_2, db, stream, q64, 1))
+        ex_2.release()
+    off = statistics.median(r["tuples_per_s"] for r in runs["off"])
+    on = statistics.median(r["tuples_per_s"] for r in runs["on"])
+    out = dict(
+        leg=label, fusion="auto", batch=BATCH, n_batches=N_BATCHES,
+        segment_updates=DURABLE_SEGMENT_UPDATES, runs=runs,
+        tuples_per_s_off=off, tuples_per_s_on=on, on_over_off=on / off,
+        save_dispatch_s=[r["save_dispatch_s"] for r in runs["on"]],
+        writer_s_per_save=[r["writer_s"] for r in runs["on"]],
+        snapshot_bytes=runs["on"][0]["snapshot_bytes"], restore_s=restore_s,
+        syncs=syncs, oracle=oracle,
+        fault=dict(fired=fired, committed=committed, replayed_updates=replayed,
+                   resume_s=resume_s, leaves=leaves, oracle=resumed_oracle),
+        launches_eager=eager, launches_plans=plans, launches=total)
+    shutil.rmtree(root, ignore_errors=True)
+    return out, want
+
+
+def durable_child(directory: str) -> int:
+    """D2's kill -9 leg, run as a child process of its own: the
+    checkpointed housing stream, killed by ``SIGKILL`` at the fifth
+    ``mid_segment`` crossing (no ``atexit``, no ``finally``)."""
+    import torch
+    from repro_torch.checkpoint import StreamCheckpointer
+    from repro_torch.core import StreamExecutor, plan
+    from repro_torch.runtime import faults
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device is available")
+    with plan.use_fusion("auto"):
+        _, _, _, stream, build = housing_growth_case()
+        ex = StreamExecutor(build(), checkpoint=StreamCheckpointer(
+            directory, segment_updates=DURABLE_SEGMENT_UPDATES))
+        faults.install(faults.FaultPlan("mid_segment", at=4, mode="kill9"))
+        ex.run(stream)
+    print("chip_smoke: the kill -9 fault never fired")
+    return 3
+
+
+def durable_housing(kernels) -> dict:
+    """D2: S2's growing housing stream with boundaries every 5 updates.
+    The uninterrupted checkpointed run against the same segments without
+    snapshots (launches equal, every leaf equal).  Then, each on a run
+    of its own, the in-process faults of ``D2_FAULTS``, a bit flip in the
+    newest snapshot (``snapshot_committed``) and a child process killed
+    by ``SIGKILL`` mid-segment: after each, ``resume`` on a fresh engine,
+    every leaf (key tables and zombie slots included) equal to the
+    uninterrupted run's (:func:`same_state`), capacities and
+    ``occupancy_report`` equal."""
+    import os
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import StreamCheckpointer
+    from repro_torch.core import StreamExecutor, plan
+    from repro_torch.core.storage import occupancy_report
+    from repro_torch.runtime.integrity import IntegrityConfig
+
+    label = "D2_durable_housing_growth"
+    root = SNAPSHOT_DIR / "durable_housing"
+    shutil.rmtree(root, ignore_errors=True)
+    q, q64, db, stream, build = housing_growth_case()
+    total: dict = {}
+
+    def checkpointed(tag):
+        eng = build()
+        ck = StreamCheckpointer(str(root / tag), segment_updates=DURABLE_SEGMENT_UPDATES)
+        return eng, StreamExecutor(eng, checkpoint=ck), ck
+
+    def resumed(tag, what):
+        """Resume ``tag``'s directory on a fresh engine; compare."""
+        eng, ex, ck = checkpointed(tag)
+        reset(kernels)
+        t0 = time.perf_counter()
+        ex.resume(stream)
+        torch.cuda.synchronize()
+        out = dict(resume_s=time.perf_counter() - t0,
+                   replayed_updates=sum(s["updates"] for s in ex.last_segment_stats),
+                   quarantined=list(ck.ckpt.quarantined),
+                   leaves=same_state(f"{label} {what}", eng, want))
+        add_launches(total, {k.name: k.launches for k in kernels})
+        if capacities(eng) != caps or occupancy_report(eng.views) != occupancy:
+            raise AssertionError(f"{label} {what}: capacities or occupancy differ: "
+                                 f"{capacities(eng)} {occupancy_report(eng.views)}")
+        ex.release()
+        return out
+
+    with plan.use_fusion("auto"):
+        eng = build()
+        caps_before = capacities(eng)
+        ex = StreamExecutor(eng, integrity=IntegrityConfig(
+            policy="permissive", segment_updates=DURABLE_SEGMENT_UPDATES))
+        off_s, off_launches = timed_run(ex, stream, kernels)
+        off_state = state_copy(eng)
+        ex.release()
+        del eng, ex
+        eng_u, ex_u, ck_u = checkpointed("uninterrupted")
+        on_s, launches = timed_run(ex_u, stream, kernels)
+        add_launches(total, off_launches)
+        add_launches(total, launches)
+        if launches != off_launches or not launches["hash_insert"] or not launches[
+                "hash_probe"]:
+            raise AssertionError(f"{label}: launches {launches} against "
+                                 f"{off_launches} without snapshots")
+        same_state(f"{label} checkpoint on vs off", eng_u, off_state)
+        del off_state
+        want = state_copy(eng_u)
+        caps, occupancy = capacities(eng_u), occupancy_report(eng_u.views)
+        if not all(caps[n] > caps_before[n] for n in caps_before):
+            raise AssertionError(f"{label}: no growth: {caps_before} -> {caps}")
+        segs = ex_u.last_segment_stats
+        n_saves = ck_u.saves_committed
+        oracle = compare_views(label, eng_u, oracle_store(eng_u, db, stream, q64, 1))
+        ex_u.release()
+        del eng_u, ex_u
+        faults_out = {}
+        for point, at in D2_FAULTS:
+            eng, ex, ck = checkpointed(point)
+            fired = run_until_fault(ex, stream, point, at)
+            ck.ckpt.discard_pending()  # a boundary save may still be in flight
+            ex.release()
+            del eng, ex
+            torn = sorted(n for n in os.listdir(root / point) if n.endswith(".tmp"))
+            faults_out[point] = dict(at=at, fired=fired, committed=ck.ckpt.all_steps(),
+                                     tmp_left=torn, **resumed(point, point))
+        # a bit flip in the newest committed snapshot: resume falls back
+        eng, ex, ck = checkpointed("bitflip")
+        run_until_fault(ex, stream, "snapshot_committed", n_saves - 1, mode="bitflip")
+        flipped = ck.ckpt.all_steps()[-1]
+        ex.release()
+        del eng, ex
+        bitflip = dict(flipped_step=flipped, **resumed("bitflip", "bitflip"))
+        if bitflip["quarantined"] != [flipped]:
+            raise AssertionError(f"{label}: bit flip not quarantined: {bitflip}")
+        # kill -9 of a child process mid-segment
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--durable-child", str(root / "kill9")],
+                              capture_output=True, text=True, timeout=900)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != -9:
+            raise AssertionError(f"{label}: the child exited {proc.returncode}: "
+                                 f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+        names = os.listdir(root / "kill9")
+        committed = sorted(n for n in names if n.startswith("step_")
+                           and not n.endswith(".tmp"))
+        if not committed or not all((root / "kill9" / n / "manifest.json").exists()
+                                    for n in committed):
+            raise AssertionError(f"{label}: torn committed step after kill -9: {names}")
+        kill9 = dict(returncode=proc.returncode, child_s=child_s,
+                     committed=[int(n[5:]) for n in committed],
+                     tmp_left=sorted(n for n in names if n.endswith(".tmp")),
+                     **resumed("kill9", "kill -9"))
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(
+        leg=label, batch=BATCH, n_batches=N_BATCHES,
+        segment_updates=DURABLE_SEGMENT_UPDATES, segments=len(segs), saves=n_saves,
+        grown_at=[[s["segment"], s["grow"]] for s in segs if s["grow"]],
+        capacities_before=caps_before, capacities_after=caps,
+        run_s_off=off_s, run_s_on=on_s,
+        tuples_per_s_off=BATCH * N_BATCHES / off_s, tuples_per_s_on=BATCH * N_BATCHES / on_s,
+        save_dispatch_s=[s["save_dispatch_s"] for s in segs],
+        writer_s=[w["seconds"] for w in ck_u.ckpt.writes],
+        snapshot_bytes=[w["bytes"] for w in ck_u.ckpt.writes],
+        oracle=oracle, faults=faults_out, bitflip=bitflip, kill9=kill9,
+        launches=total)
+
+
+def poison(stream) -> tuple[list, list, list]:
+    """I1's poisoned copy of ``stream`` (``I1_POISON`` and the dtype batch
+    ``I1_BAD_DTYPE``), the clean stream with exactly those rows masked (key
+    0, payload 0; the dtype batch all padding), and the dead letters they
+    must give: (rel, stream index, row, key, reasons)."""
+    import torch
+    from repro_torch.core import COOUpdate
+
+    bad, masked, letters = [], [], []
+    for j, (rel, upd) in enumerate(stream):
+        keys, vals = upd.keys.clone(), upd.payload["v"].clone()
+        mkeys, mvals = upd.keys.clone(), upd.payload["v"].clone()
+        pc = upd.schema.index("pc")
+        for at, row, how in I1_POISON:
+            if at != j:
+                continue
+            if how == "nan":
+                vals[row] = float("nan")
+            elif how == "inf":
+                vals[row] = float("inf")
+            elif how == "pc":
+                keys[row, pc] = 65_536
+            else:
+                keys[row, 1 if pc == 0 else 0] = -1
+            mkeys[row], mvals[row] = 0, 0
+            reason = "nonfinite_payload" if how in ("nan", "inf") else "key_out_of_domain"
+            letters.append((rel, j, row, tuple(keys[row].tolist()), (reason,)))
+        if j == I1_BAD_DTYPE:
+            bad.append((rel, COOUpdate(upd.schema, keys.to(torch.float32), {"v": vals})))
+            masked.append((rel, COOUpdate(upd.schema, torch.zeros_like(keys),
+                                          {"v": torch.zeros_like(vals)})))
+            letters.append((rel, j, -1, (), ("dtype_mismatch",)))
+            continue
+        bad.append((rel, COOUpdate(upd.schema, keys, {"v": vals})))
+        masked.append((rel, COOUpdate(upd.schema, mkeys, {"v": mvals})))
+    return bad, masked, sorted(letters, key=lambda r: (r[1], r[2]))
+
+
+def integrity_housing(kernels) -> dict:
+    """I1: the reference's integrity leg on the card.  The ``off``
+    (``permissive``), ``validate`` (``quarantine``) and ``audit``
+    (``quarantine``, ``audit_interval=2``, ``store_base=True``) executors,
+    every ``segment_updates=4``, each on a fresh engine, run once to warm
+    and twice timed in turns (the faster kept), launches of ``validate``
+    equal to ``off``'s.  Then a poisoned copy of the stream (``poison``):
+    under ``quarantine`` every leaf equal to the masked clean stream's,
+    the dead letters exactly the planted ones, its validated admission 0
+    synchronising calls before the final flush; under ``strict`` with a
+    checkpoint, ``StreamIntegrityError`` names update 2 and no step is
+    committed past the segment before it."""
+    import shutil
+
+    from repro_torch.checkpoint import StreamCheckpointer
+    from repro_torch.core import StreamExecutor, plan
+    from repro_torch.data.synth import (HOUSING_DOMS_BIG, HOUSING_RELATIONS, housing_vo,
+                                        synth_low_fill_db, update_stream)
+    from repro_torch.core import IVMEngine
+    from repro_torch.runtime import integrity as integ
+
+    label = "I1_integrity_housing"
+    root = SNAPSHOT_DIR / "integrity_housing"
+    shutil.rmtree(root, ignore_errors=True)
+    q = housing_query("sum", HOUSING_DOMS_BIG)
+    db, active = synth_low_fill_db(HOUSING_RELATIONS, HOUSING_DOMS_BIG, q.ring,
+                                   np.random.default_rng(SEED), "pc", I1_ACTIVE,
+                                   device="cuda")
+    stream = update_stream(HOUSING_RELATIONS, HOUSING_DOMS_BIG, q.ring,
+                           np.random.default_rng(SEED + 1), I1_BATCH, I1_BATCHES,
+                           key_pools={"pc": active}, device="cuda")
+    n_tuples = I1_BATCH * I1_BATCHES
+    total: dict = {}
+
+    def build(**kw):
+        eng = IVMEngine.build(q, db, var_order=housing_vo(), strategy="fivm",
+                              device="cuda", **kw)
+        eng.precompile(I1_BATCH)
+        return eng
+
+    cfgs = dict(off=dict(policy="permissive"), validate=dict(policy="quarantine"),
+                audit=dict(policy="quarantine", audit_interval=2))
+    with plan.use_fusion("auto"):
+        best: dict = {}
+        for rep in range(3):
+            for mode, kw in cfgs.items():
+                cfg = integ.IntegrityConfig(segment_updates=I1_SEGMENT, **kw)
+                eng = build(store_base=mode == "audit")
+                ex = StreamExecutor(eng, integrity=cfg)
+                wall, launches = timed_run(ex, stream, kernels)
+                add_launches(total, launches)
+                segs = ex.last_segment_stats
+                audits = [s["audit_s"] for s in segs if s["audit_s"]]
+                if rep and (mode not in best or wall < best[mode]["run_s"]):
+                    best[mode] = dict(run_s=wall, tuples_per_s=n_tuples / wall,
+                                      segments=len(segs),
+                                      admit_s=sum(s["admit_s"] for s in segs),
+                                      audit_s=audits, launches=launches,
+                                      audit_log=[dict(e) for e in cfg.audit_log],
+                                      dead_letters=len(cfg.dead_letters))
+                ex.release()
+                del eng, ex
+        if best["validate"]["launches"] != best["off"]["launches"]:
+            raise AssertionError(f"{label}: validation changed the launches")
+        # the audited run's launches: an unaudited run's on an engine that
+        # also stores its base, and one from-base Reevaluate's (alone)
+        eng = build(store_base=True)
+        ex = StreamExecutor(eng, integrity=integ.IntegrityConfig(
+            policy="permissive", segment_updates=I1_SEGMENT))
+        want = timed_run(ex, stream, kernels)[1]
+        add_launches(total, want)
+        reset(kernels)
+        integ.audit_engine(eng, integ.IntegrityConfig(audit_interval=1))
+        for k in kernels:
+            want[k.name] += k.launches
+        ex.release()
+        if best["audit"]["launches"] != want:
+            raise AssertionError(f"{label}: audited launches {best['audit']['launches']}"
+                                 f", unaudited and one audit {want}")
+        del eng, ex
+        if (len(best["audit"]["audit_s"]) != best["audit"]["segments"] // 2
+                or best["validate"]["dead_letters"]):
+            raise AssertionError(f"{label}: audits {best['audit']['audit_s']}, "
+                                 f"dead letters {best['validate']['dead_letters']}")
+        if any(e["repaired"] for e in best["audit"]["audit_log"]):
+            raise AssertionError(f"{label}: a clean stream's audit repaired a view: "
+                                 f"{best['audit']['audit_log']}")
+        bad, masked, letters = poison(stream)
+        eng_m = build()
+        ex = StreamExecutor(eng_m, integrity=integ.IntegrityConfig(
+            policy="permissive", segment_updates=I1_SEGMENT))
+        add_launches(total, timed_run(ex, masked, kernels)[1])
+        want = state_copy(eng_m)
+        ex.release()
+        del eng_m, ex
+        cfg = integ.IntegrityConfig(policy="quarantine", segment_updates=I1_SEGMENT)
+        eng_q = build()
+        ex = StreamExecutor(eng_q, integrity=cfg)
+        add_launches(total, timed_run(ex, bad, kernels)[1])
+        leaves = same_state(f"{label} quarantine", eng_q, want)
+        got = sorted(((r.rel, r.stream_index, r.row, tuple(r.key), tuple(r.reasons))
+                      for r in cfg.dead_letters), key=lambda r: (r[1], r[2]))
+        if got != letters:
+            raise AssertionError(f"{label}: dead letters {got}, planted {letters}")
+        ex.release()
+        del eng_q, ex
+        # validated admission of the whole poisoned stream: no host read
+        cfg_a = integ.IntegrityConfig(policy="quarantine")
+        eng_a = build()
+        _, admit_syncs, _ = count_syncs(lambda: integ.admit_stream(eng_a, bad, cfg_a))
+        del eng_a
+        if admit_syncs:
+            raise AssertionError(f"{label}: quarantine admission synchronised "
+                                 f"{admit_syncs} times")
+        integ.flush_dead_letters(cfg_a)
+        # strict, with a checkpoint: stops before the poisoned segment commits
+        ck = StreamCheckpointer(str(root / "strict"), segment_updates=I1_SEGMENT)
+        ex = StreamExecutor(build(), checkpoint=ck, integrity=integ.IntegrityConfig(
+            policy="strict", segment_updates=I1_SEGMENT))
+        try:
+            ex.run(bad)
+            raise AssertionError(f"{label}: strict admitted the poisoned stream")
+        except integ.StreamIntegrityError as e:
+            strict = dict(error=str(e), rows=[r.row for r in e.records])
+        ck.ckpt.discard_pending()
+        strict["committed"] = ck.ckpt.all_steps()
+        first = min(at for at, _, _ in I1_POISON)
+        if "update 2" not in strict["error"] or any(
+                s > first - first % I1_SEGMENT for s in strict["committed"]):
+            raise AssertionError(f"{label}: strict {strict}")
+        ex.release()
+        del ex
+    shutil.rmtree(root, ignore_errors=True)
+    off = best["off"]["tuples_per_s"]
+    return dict(
+        leg=label, batch=I1_BATCH, n_batches=I1_BATCHES, segment_updates=I1_SEGMENT,
+        n_active=I1_ACTIVE, runs=best,
+        validate_over_off=best["validate"]["tuples_per_s"] / off,
+        audit_over_off=best["audit"]["tuples_per_s"] / off,
+        quarantine=dict(leaves=leaves, dead_letters=len(got),
+                        admission_syncs=admit_syncs),
+        strict=strict, launches=total), bad, want
+
+
+def audit_hook(at_segment: int, fn):
+    """Call ``fn()`` at the ``mid_segment`` crossing of segment
+    ``at_segment`` (between that segment's run and its boundary): a
+    context that wraps ``faults.crossing``."""
+    import contextlib
+
+    from repro_torch.runtime import faults
+
+    @contextlib.contextmanager
+    def ctx():
+        crossing = faults.crossing
+
+        def hooked(point, **kw):
+            if point == "mid_segment" and kw.get("segment") == at_segment:
+                fn()
+            crossing(point, **kw)
+
+        faults.crossing = hooked
+        try:
+            yield
+        finally:
+            faults.crossing = crossing
+
+    return ctx()
+
+
+def integrity_cofactor(kernels) -> dict:
+    """I2: the retailer degree-10 cofactor stream (fusion ``auto``,
+    ``store_base=True``) under ``IntegrityConfig(policy="quarantine",
+    audit_interval=2, segment_updates=5)``: two audits at the full state,
+    each record with its seconds (the from-base Reevaluate is the priced
+    item).  Then a second run whose root's Q[0, 0] drifts by 1 % after the
+    second segment: the audit after it repairs the root in place, the next
+    segment replays (no eager step), and the root lies within RTOL of the
+    float64 oracle at the end."""
+    import torch
+    from repro_torch.core import StreamExecutor, plan
+    from repro_torch.runtime.integrity import IntegrityConfig, audit_engine
+
+    label = "I2_integrity_cofactor_audit"
+    q, q64, db, stream, build = retailer_case("cofactor")
+    total: dict = {}
+    with plan.use_fusion("auto"):
+        out = {}
+        eager = eager_launches(lambda: build(store_base=True), stream, kernels)
+        for run in ("clean", "drift"):
+            eng = build(store_base=True)
+            cfg = IntegrityConfig(policy="quarantine", audit_interval=2,
+                                  segment_updates=DURABLE_SEGMENT_UPDATES)
+            ex = StreamExecutor(eng, integrity=cfg)
+            root = eng.tree.name
+            drift = {}
+
+            def perturb():
+                qq = eng.views[root].payload["Q"]
+                idx = (0,) * qq.dim()
+                drift["value"] = float(qq[idx])
+                qq[idx] += 0.01 * (abs(drift["value"]) + 1.0)
+
+            ctx = audit_hook(1, perturb) if run == "drift" else audit_hook(-1, None)
+            with ctx:
+                wall, launches = timed_run(ex, stream, kernels)
+            add_launches(total, launches)
+            segs = ex.last_segment_stats
+            audits = [e for e in cfg.audit_log]
+            # the plans' launches and, for each audit, one from-base
+            # Reevaluate's (measured alone after the run)
+            reset(kernels)
+            audit_engine(eng, IntegrityConfig(audit_interval=1))
+            per_audit = {k.name: k.launches for k in kernels if k.launches}
+            want = dict(eager)
+            for k, n in per_audit.items():
+                want[k] = want.get(k, 0) + len(audits) * n
+            got = {k: n for k, n in launches.items() if n and ":" not in k}
+            if got != want:
+                raise AssertionError(f"{label} {run}: launches {got}, the eager "
+                                     f"engine's and the audits' {want}")
+            check = compare_views(f"{label} {run}", eng,
+                                  oracle_store(eng, db, stream, q64, 1))
+            out[run] = dict(run_s=wall, tuples_per_s=BATCH * N_BATCHES / wall,
+                            audits=audits, audit_s=[s["audit_s"] for s in segs if s["audit_s"]],
+                            eager_steps=[s["run"].get("eager_steps", 0) for s in segs],
+                            replays=[s["run"].get("replays", 0) for s in segs],
+                            oracle=check)
+            if len(audits) != 2:
+                raise AssertionError(f"{label} {run}: audits {audits}")
+            if run == "drift":
+                fixed = [(a["segment"], a["route"]) for a in audits if a["repaired"]]
+                if (1, "in_place") not in fixed or out[run]["eager_steps"][2] != 0:
+                    raise AssertionError(f"{label}: drift not repaired in place and "
+                                         f"replayed: {audits} {out[run]['eager_steps']}")
+                out[run]["drift_from"] = drift["value"]
+            ex.release()
+            del eng, ex
+            torch.cuda.empty_cache()
+    return dict(leg=label, batch=BATCH, n_batches=N_BATCHES,
+                segment_updates=DURABLE_SEGMENT_UPDATES, audit_interval=2,
+                launches_eager=eager, launches_plans=stream_launches(
+                    build(store_base=True), stream),
+                next_segment_after_repair=("replayed" if out["drift"]["eager_steps"][2] == 0
+                                           else "captured"),
+                **out, launches=total)
+
+
+def supervisor_phase(kernels, d1_state: dict, i1_bad, i1_want: dict) -> dict:
+    """I3: ``StreamSupervisor`` over D1's configuration with an in-process
+    ``mid_segment`` fault (one restart, the log's action ``restart``,
+    every leaf equal to D1's uninterrupted run), and over I1's poisoned
+    stream under ``strict`` (it escalates to ``quarantine_batch``, every
+    leaf equal to I1's quarantine run)."""
+    import shutil
+
+    from repro_torch.checkpoint import StreamCheckpointer
+    from repro_torch.core import StreamExecutor, plan
+    from repro_torch.data.synth import HOUSING_DOMS_BIG, HOUSING_RELATIONS, housing_vo
+    from repro_torch.data.synth import synth_low_fill_db
+    from repro_torch.core import IVMEngine
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.fault_tolerance import StreamSupervisor
+    from repro_torch.runtime.integrity import IntegrityConfig
+
+    label = "I3_supervisor"
+    root = SNAPSHOT_DIR / "supervisor"
+    shutil.rmtree(root, ignore_errors=True)
+    total: dict = {}
+    with plan.use_fusion("auto"):
+        _, _, _, stream, build = retailer_case("sum")
+        eng = build()
+        ex = StreamExecutor(eng, checkpoint=StreamCheckpointer(
+            str(root / "d1"), keep=3, segment_updates=DURABLE_SEGMENT_UPDATES))
+        reset(kernels)
+        faults.install(faults.FaultPlan("mid_segment", at=2))
+        try:
+            _, restarts, log_d1 = StreamSupervisor(backoff_s=0.0).run(ex, stream)
+        finally:
+            faults.clear()
+        add_launches(total, {k.name: k.launches for k in kernels})
+        if restarts != 1 or log_d1[0].get("action") != "restart":
+            raise AssertionError(f"{label}: {restarts} restarts, log {log_d1}")
+        d1_leaves = same_state(f"{label} D1", eng, d1_state)
+        ex.release()
+        del eng, ex
+        q = housing_query("sum", HOUSING_DOMS_BIG)
+        db, _ = synth_low_fill_db(HOUSING_RELATIONS, HOUSING_DOMS_BIG, q.ring,
+                                  np.random.default_rng(SEED), "pc", I1_ACTIVE,
+                                  device="cuda")
+        eng = IVMEngine.build(q, db, var_order=housing_vo(), strategy="fivm",
+                              device="cuda")
+        eng.precompile(I1_BATCH)
+        cfg = IntegrityConfig(policy="strict", segment_updates=I1_SEGMENT)
+        ex = StreamExecutor(eng, integrity=cfg, checkpoint=StreamCheckpointer(
+            str(root / "i1"), segment_updates=I1_SEGMENT))
+        reset(kernels)
+        _, restarts_i1, log_i1 = StreamSupervisor(backoff_s=0.0).run(ex, i1_bad)
+        add_launches(total, {k.name: k.launches for k in kernels})
+        actions = [e.get("action") for e in log_i1 if "action" in e]
+        if actions != ["quarantine_batch"] or cfg.policy != "quarantine":
+            raise AssertionError(f"{label}: I1 ladder {log_i1}")
+        i1_leaves = same_state(f"{label} I1", eng, i1_want)
+        ex.release()
+        del eng, ex
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(leg=label,
+                d1=dict(restarts=restarts, log=log_d1, leaves=d1_leaves),
+                i1=dict(restarts=restarts_i1, actions=actions,
+                        dead_letters=len(cfg.dead_letters), leaves=i1_leaves),
+                launches=total)
+
+
+def durable_phase(kernels, laps) -> tuple[list, dict]:
+    """The ``durable`` phase: D1 and D2 (see each), each logged.  Returns
+    the legs and D1's uninterrupted state (for I3)."""
+    import torch
+
+    d1, d1_state = durable_retailer(kernels)
+    log(d1)
+    torch.cuda.empty_cache()
+    laps.lap("durable D1")
+    d2 = durable_housing(kernels)
+    log(d2)
+    torch.cuda.empty_cache()
+    laps.lap("durable D2")
+    return [d1, d2], d1_state
+
+
+def integrity_phase(kernels, laps, d1_state: dict) -> list:
+    """The ``integrity`` phase: I1, I2 and I3 (see each), each logged."""
+    import torch
+
+    i1, bad, want = integrity_housing(kernels)
+    log(i1)
+    torch.cuda.empty_cache()
+    laps.lap("integrity I1")
+    i2 = integrity_cofactor(kernels)
+    log(i2)
+    torch.cuda.empty_cache()
+    laps.lap("integrity I2")
+    i3 = supervisor_phase(kernels, d1_state, bad, want)
+    log(i3)
+    torch.cuda.empty_cache()
+    laps.lap("integrity I3")
+    return [i1, i2, i3]
+
+
 def main() -> int:
     import torch
 
@@ -3088,6 +3995,12 @@ def main() -> int:
     # conjunctive query's factorized (card) and listing (host) results
     triangle = triangle_phase(kernels, laps)
     conjunctive = conjunctive_phase(kernels, laps)
+    # the stream executor's durability and integrity planes: checkpointed
+    # runs, faults and resume (D1, D2); validated admission, quarantine,
+    # audits and the supervisor's ladder (I1-I3)
+    durable, d1_state = durable_phase(kernels, laps)
+    integrity = integrity_phase(kernels, laps, d1_state)
+    del d1_state
     # the kernel-ops layer: the ring product on engine state (B), streaming
     # statistics (A) and rank-1 matrix-chain deltas (C)
     paths = [ring_product_path(kept, kernels)]
@@ -3115,7 +4028,7 @@ def main() -> int:
         run[key] for run in paths
         for key in ("launches_float32", "launches_float32_reduced", "launches_int",
                     "launches_sparse")
-        if key in run]
+        if key in run] + [leg["launches"] for leg in durable + integrity]
     launched = {k.name: sum(r.get(k.name, 0) for r in runs) for k in kernels}
     if not all(launched[k.name] for k in built):
         raise AssertionError(f"a kernel launched on no path: {launched}")
@@ -3207,4 +4120,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--durable-child"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        sys.exit(durable_child(sys.argv[2]))
     sys.exit(main())

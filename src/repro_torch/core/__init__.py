@@ -1,4 +1,11 @@
-"""F-IVM core: factorized incremental view maintenance over rings."""
+"""F-IVM core: factorized incremental view maintenance over rings.
+
+The stream executor's durability and integrity planes live in
+``repro_torch.checkpoint`` and ``repro_torch.runtime``; their entry points
+are re-exported here on first use (``StreamCheckpointer``,
+``IntegrityConfig``, ``StreamSupervisor``, ...), so importing the core does
+not import them."""
+import importlib
 from .contraction import BatchedDelta, contract_dense, lift_relation, marginalize_dense
 from .delta import propagate_coo, propagate_factorized
 from .indicators import IndicatorState, add_indicators, gyo_residual, indicator_of, is_acyclic
@@ -39,3 +46,21 @@ __all__ = [
     "split_segments", "sum_ring",
     "view_nbytes", "views_on_path",
 ]
+
+#: entry points of the durability and integrity planes, by defining module
+_PLANES = {
+    "Checkpointer": "repro_torch.checkpoint.checkpointer",
+    "StreamCheckpointer": "repro_torch.checkpoint.stream_state",
+    "DeadLetterLog": "repro_torch.runtime.integrity",
+    "IntegrityConfig": "repro_torch.runtime.integrity",
+    "StreamIntegrityError": "repro_torch.runtime.integrity",
+    "StragglerMonitor": "repro_torch.runtime.fault_tolerance",
+    "StreamSupervisor": "repro_torch.runtime.fault_tolerance",
+}
+__all__ += sorted(_PLANES)
+
+
+def __getattr__(name: str):
+    if name in _PLANES:
+        return getattr(importlib.import_module(_PLANES[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

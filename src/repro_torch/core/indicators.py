@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils import _pytree as pytree
 
 from .query import Query
 from .relations import COOUpdate, DenseRelation
@@ -199,3 +200,10 @@ class IndicatorState:
         dense = self.dense.scatter_add(proj_keys, payload)
         state = dataclasses.replace(self, dense=dense)
         return state, COOUpdate(self.proj, proj_keys, payload)
+
+
+# flattens as the reference's IndicatorState: the counts, then the plane
+pytree.register_pytree_node(
+    IndicatorState,
+    lambda s: ([s.counts, s.dense], (s.rel_name, s.proj)),
+    lambda children, ctx: IndicatorState(ctx[0], ctx[1], children[0], children[1]))

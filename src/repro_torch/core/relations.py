@@ -28,6 +28,7 @@ from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from .rings import Payload, PyRing, Ring
 
@@ -175,6 +176,15 @@ class DenseRelation:
             if not py_ring.is_zero(val):
                 out.data[key] = val
         return out
+
+
+# A relation is a pytree node that flattens as the reference's does (its
+# payload, components in sorted order): the checkpointer's leaves, and
+# their checksums, are the same in both packages.
+pytree.register_pytree_node(
+    DenseRelation,
+    lambda r: ([dict(sorted(r.payload.items()))], (r.schema, r.ring)),
+    lambda children, ctx: DenseRelation(ctx[0], ctx[1], dict(children[0])))
 
 
 @dataclasses.dataclass

@@ -34,6 +34,7 @@ import os
 from typing import Mapping, Protocol, Sequence, runtime_checkable
 
 import torch
+from torch.utils import _pytree as pytree
 
 from ..kernels import hash_table
 from .relations import DenseRelation
@@ -640,6 +641,23 @@ _SHARD_TODO = ("sharded sparse views are not ported yet (ROADMAP Queue 1 "
 
 def _with_zero_row(rows: torch.Tensor) -> torch.Tensor:
     return torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
+
+
+def _sparse_unflatten(children, ctx) -> SparseRelation:
+    schema, ring, domains = ctx
+    table, payload = children
+    rows = flatten_payload(ring, payload, (int(table.shape[0]),))
+    return SparseRelation(schema, ring, domains, table, _with_zero_row(rows))
+
+
+# flattens as the reference's SparseRelation: the key table, then the
+# payload components ``[C, *comp]`` in sorted order (not the plane, whose
+# zero row is no state); unflattening builds a new plane
+pytree.register_pytree_node(
+    SparseRelation,
+    lambda r: ([r.table, dict(sorted(r.payload.items()))],
+               (r.schema, r.ring, r._domains)),
+    _sparse_unflatten)
 
 
 # ---------------------------------------------------------------------------

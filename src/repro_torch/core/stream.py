@@ -69,9 +69,24 @@ segment compiles its plans and captures its graphs anew
 (:meth:`StreamExecutor._run_segmented`).  Sizing reads occupancy and the
 stream's keys on the host: admission synchronises, replay does not.
 
-Not ported: sharded executors (ROADMAP Queue 1 item 14), checkpointed and
-resumed streams and straggler monitoring (item 15), integrity (item 16) and
-the serving registry (item 17), with the segment hooks that serve them.
+**Durability and integrity** ride the segment boundaries
+(:meth:`StreamExecutor._run_segmented`).  A run with a
+``repro_torch.checkpoint.StreamCheckpointer`` or an active
+``repro_torch.runtime.integrity.IntegrityConfig`` always takes the segment
+loop, its segments capped at their ``segment_updates``.  Admission
+validates each segment (``strict`` reads one flag vector on the host a
+segment, ``quarantine`` none until the run's end), the audited Reevaluate
+runs every ``audit_interval`` boundaries before the boundary's snapshot,
+and the snapshot clones the state's leaves on the current stream, after
+the segment's replays and before the next segment's, for a writer thread
+that never synchronises the host.  :meth:`StreamExecutor.resume` restores
+the newest committed snapshot and replays the rest of the stream; named
+fault points (``repro_torch.runtime.faults``) let tests kill the run at
+each stage, and ``repro_torch.runtime.fault_tolerance.StreamSupervisor``
+drives resume through its escalation ladder.
+
+Not ported: sharded executors and the mesh-elastic resume (ROADMAP Queue 1
+item 14) and the serving registry (item 17).
 """
 from __future__ import annotations
 
@@ -84,9 +99,11 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..kernels import _cuda
+from ..runtime import faults
+from ..runtime.fault_tolerance import StragglerMonitor
 from . import plan as plan_mod
 from . import storage as storage_mod
-from .ivm import IVMEngine
+from .ivm import IVMEngine, canonical_state
 from .relations import COOUpdate
 
 #: longest schedule period run as a rounds body; longer periods take
@@ -540,10 +557,15 @@ class _GraphProgram(_Program):
         # The collector runs on its own schedule outside captures (a full
         # collection before each capture made a stream of 12 capacity
         # segments 40 times slower, PERF.md section 6).
+        # Thread-local capture mode: a boundary save's writer thread may be
+        # copying the last snapshot to pinned host memory on a side stream
+        # while this thread captures the next segment's graphs, and under
+        # the global mode its calls would invalidate the capture.
         enabled = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self._pool):
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
                 self.bodies[u](state, self._counter)
         finally:
             if enabled:
@@ -588,6 +610,12 @@ class _GraphProgram(_Program):
         return state
 
 
+def _rehash(engine: IVMEngine, caps: dict) -> None:
+    """Rehash the sparse views ``caps`` names to their new capacities."""
+    engine.views = {name: (v.rehash(caps[name]) if name in caps else v)
+                    for name, v in engine.views.items()}
+
+
 class StreamExecutor:
     """Runs prepared update streams against one engine.
 
@@ -595,28 +623,40 @@ class StreamExecutor:
     program keeps the CUDA graphs of its last run (see the module
     docstring), which :meth:`release` drops.  :attr:`last_run_stats` holds
     the last run's steps, eager steps, graph replays, graphs, and host
-    seconds of capture and replay."""
+    seconds of capture and replay.
+
+    ``checkpoint`` (a ``StreamCheckpointer``) snapshots the engine at every
+    segment boundary, ``integrity`` (an ``IntegrityConfig``) validates
+    admission and audits the views, and ``stragglers`` (default: a fresh
+    ``StragglerMonitor``) watches each segment's host wall.  ``shard`` and
+    ``registry`` are not ported (ROADMAP Queue 1 items 14 and 17)."""
 
     def __init__(self, engine: IVMEngine, shard=None, checkpoint=None,
-                 integrity=None, stragglers=None, registry=None):
+                 integrity=None, stragglers: StragglerMonitor | None = None,
+                 registry=None):
         for arg, value, what, item in (
                 ("shard", shard, "sharded execution", 14),
-                ("checkpoint", checkpoint, "durable streams", 15),
-                ("integrity", integrity, "stream integrity", 16),
-                ("stragglers", stragglers, "straggler monitoring", 15),
                 ("registry", registry, "the serving plane", 17)):
             if value is not None:
                 raise NotImplementedError(
                     f"StreamExecutor({arg}=...): {what} is not ported yet "
                     f"(ROADMAP Queue 1 item {item})")
         self.engine = engine
+        self.checkpoint = checkpoint
+        self.integrity = integrity
+        self.stragglers = (stragglers if stragglers is not None
+                           else StragglerMonitor())
         self._compiled: dict[Any, _Program] = {}
         #: shared prep-op keys of the last rounds build (CSE telemetry)
         self.last_shared_ops: tuple = ()
         self.last_run_stats: dict = {}
         #: per segment of the last segmented run: steps, grown capacities,
-        #: admission and dispatch host seconds, and the run's stats
+        #: admission, dispatch, audit and save host seconds, the straggler
+        #: verdict, and the run's stats
         self.last_segment_stats: list = []
+
+    def _integrity_active(self) -> bool:
+        return self.integrity is not None and self.integrity.active
 
     def _build(self, prepared: PreparedStream) -> _Program:
         if self.engine.device.type == "cuda":
@@ -637,7 +677,8 @@ class StreamExecutor:
         self._compiled.clear()
 
     def run(self, stream_or_prepared, state=None, update_engine: bool = True,
-            donate_input: bool = False, pipeline: bool = True):
+            donate_input: bool = False, pipeline: bool = True,
+            _offset: int = 0):
         """Apply the whole stream; returns the new ``(views, base,
         indicators)`` state.
 
@@ -645,13 +686,21 @@ class StreamExecutor:
         the copy is updated in place.  A raw stream run against the
         engine's own state (``state=None``) is split into capacity segments
         first (:func:`capacity_segments`; one segment that grows nothing
-        when no sparse table could fill), and runs segment by segment
-        (:meth:`_run_segmented`); an explicit-state raw run is audited
-        against the caller's state; a :class:`PreparedStream` is replayed
-        as it is, trusting its prepare-time audit.  With
+        when no sparse table could fill), those capped at the checkpoint's
+        and the integrity config's ``segment_updates``
+        (:func:`split_segments`), and runs segment by segment
+        (:meth:`_run_segmented`) whenever there is more than one segment, a
+        rehash, a checkpoint or an active integrity config; a checkpointed
+        run must update the engine.  An explicit-state raw run is audited
+        against the caller's state, and one that fails the audit spills to
+        the eager path when the integrity config's ``capacity_degrade`` is
+        set (:meth:`_eager_spill`); a :class:`PreparedStream` is replayed as
+        it is, trusting its prepare-time audit.  With
         ``update_engine=False`` the engine's views, base and indicators are
-        restored afterwards, also when the run raises.  ``pipeline`` does nothing:
-        it is kept only to match the reference's signature."""
+        restored afterwards, also when the run raises.  ``pipeline=False``
+        makes the boundary saves blocking; segments always run one after
+        the other.  ``_offset`` is the stream index of the first update
+        (:meth:`resume`)."""
         if state is None and donate_input and not update_engine:
             raise ValueError("donating the engine's own state without "
                              "updating the engine would leave it holding "
@@ -665,10 +714,35 @@ class StreamExecutor:
                 stream = list(prepared)
                 if state is None:
                     segments = capacity_segments(self.engine, stream)
-                    if len(segments) > 1 or segments[0][1]:
-                        return self._run_segmented(segments)
+                    if self.checkpoint is not None:
+                        if not update_engine:
+                            raise ValueError(
+                                "a checkpointed run must update the engine — "
+                                "boundary snapshots capture the engine's state")
+                        segments = split_segments(
+                            segments, self.checkpoint.segment_updates)
+                    if self._integrity_active():
+                        # integrity boundaries must exist even where
+                        # capacity segmentation never splits
+                        segments = split_segments(
+                            segments, self.integrity.segment_updates)
+                    if (self.checkpoint is not None or len(segments) > 1
+                            or segments[0][1] or self._integrity_active()):
+                        return self._run_segmented(segments, pipeline=pipeline,
+                                                   base_offset=_offset)
                 else:
-                    check_stream_capacity(self.engine, stream, views=state[0])
+                    try:
+                        check_stream_capacity(self.engine, stream,
+                                              views=state[0])
+                    except StreamCapacityError as e:
+                        if (self._integrity_active()
+                                and self.integrity.capacity_degrade):
+                            # graceful degradation: the eager per-batch
+                            # path grows tables instead of dropping rows
+                            return self._eager_spill(
+                                stream, state, update_engine=update_engine,
+                                donate_input=donate_input, error=e)
+                        raise
                 prepared = prepare_stream(self.engine, stream,
                                           check_capacity=False)
             if state is None:
@@ -686,46 +760,216 @@ class StreamExecutor:
             if saved is not None:
                 self.engine.set_state(saved)
 
-    def _admit_segment(self, sub_stream, grow_caps):
-        """Admission of one segment: rehash the views ``grow_caps`` names
-        to their new capacities (device work queued behind the previous
-        segment), bucket and stack the segment's updates, and fetch its
-        plans and program.  Returns ``(prepared, admit_seconds)``."""
+    def _admit_segment(self, sub_stream, grow_caps, offset: int = 0):
+        """Admission of one segment: validate it (with an integrity config
+        whose policy is not ``permissive``: ``strict`` raises here, before
+        the segment can run or snapshot; ``quarantine`` masks rows), rehash
+        the views ``grow_caps`` names to their new capacities (device work
+        queued behind the previous segment), re-audit the capacity budget
+        against live occupancy where the integrity config degrades
+        (pressure found here splits the segment: an emergency
+        re-segmentation, recorded in ``degrade_log``), then bucket and
+        stack the updates and fetch the plans and program.
+
+        Returns ``(prepared, admit_seconds, admitted_sub, deferred)``:
+        ``admitted_sub`` is the (possibly sanitized, possibly shortened)
+        update list the segment applies, ``deferred`` the emergency split's
+        remainder (``[(sub, grow), ...]``) for the segment loop to splice
+        in after it."""
         engine = self.engine
+        cfg = self.integrity
         t0 = time.perf_counter()
+        faults.crossing("mid_admit", updates=len(sub_stream))
+        if cfg is not None and cfg.policy != "permissive":
+            from ..runtime import integrity as integrity_mod
+
+            sub_stream = integrity_mod.admit_stream(engine, sub_stream, cfg,
+                                                    base_offset=offset)
         if grow_caps:
-            engine.views = {name: (v.rehash(grow_caps[name])
-                                   if name in grow_caps else v)
-                            for name, v in engine.views.items()}
+            _rehash(engine, grow_caps)
+            # the tables carry the grown capacities, but nothing is
+            # compiled (or checkpointed) against them yet
+            faults.crossing("post_rehash_pre_recompile",
+                            grown=sorted(grow_caps))
+        deferred: list = []
+        if cfg is not None and cfg.active and cfg.capacity_degrade:
+            try:
+                check_stream_capacity(engine, sub_stream)
+            except StreamCapacityError as e:
+                resegmented = capacity_segments(engine, sub_stream)
+                sub_stream, extra_grow = resegmented[0]
+                deferred = resegmented[1:]
+                _rehash(engine, extra_grow)
+                cfg.degrade_log.append(dict(
+                    kind="emergency_resegment",
+                    segments=1 + len(deferred),
+                    grow={k: int(v) for k, v in extra_grow.items()},
+                    occupancy=storage_mod.occupancy_report(engine.views),
+                    error=str(e)))
         prepared = prepare_stream(engine, sub_stream, check_capacity=False)
         self.compiled(prepared)
-        return prepared, time.perf_counter() - t0
+        return prepared, time.perf_counter() - t0, sub_stream, deferred
 
-    def _run_segmented(self, segments):
-        """The capacity-segment loop: admit each segment (its rehash, its
-        stacked inputs, its program; :meth:`_admit_segment`), then run it as
-        one prepared stream on the engine's state.  Segment 0 copies the
+    def _eager_spill(self, stream, state, update_engine: bool,
+                     donate_input: bool, error):
+        """Graceful degradation of an explicit-state run that failed its
+        capacity audit: apply the stream batch by batch through the
+        trigger plans with eager table growth (``grow_if_loaded``) —
+        slower (a host read a touched sparse view a batch) but it cannot
+        drop a row.  The spill still passes validated admission, and the
+        decision is recorded in ``integrity.degrade_log``."""
+        from ..runtime import integrity as integrity_mod
+
+        cfg = self.integrity
+        t0 = time.perf_counter()
+        stream = integrity_mod.admit_stream(self.engine, stream, cfg,
+                                            base_offset=0)
+        engine = self.engine
+        if not donate_input:
+            state = _owned_state(state)
+        views, base, indicators = (dict(state[0]), dict(state[1]),
+                                   dict(state[2]))
+        for rel, upd in stream:
+            touched, _, _ = engine.plans.write_sets(engine, rel)
+            views = {
+                name: (storage_mod.grow_if_loaded(
+                           v, engine._insert_budget(v, rel, upd))
+                       if name in touched else v)
+                for name, v in views.items()
+            }
+            views, base, indicators = engine.functional_update(
+                views, base, indicators, rel, upd)
+        integrity_mod.flush_dead_letters(cfg)
+        new_state = canonical_state((views, base, indicators))
+        cfg.degrade_log.append(dict(
+            kind="eager_spill", updates=len(stream), error=str(error),
+            wall_s=time.perf_counter() - t0))
+        if update_engine:
+            engine.set_state(new_state)
+        return new_state
+
+    def _run_segmented(self, segments, pipeline: bool = True,
+                       base_offset: int = 0):
+        """The segment loop: admit segment 0 (:meth:`_admit_segment`), then
+        for each segment run it as one prepared stream on the engine's
+        state, pass the boundary, and admit the next.  Segment 0 copies the
         state (it may be the caller's); later segments donate the previous
-        segment's output.  A rehash changes the storage signature, so the
-        segment after it compiles its plans and, on the card, captures its
-        graphs anew.  Per-segment stats land in :attr:`last_segment_stats`.  The
-        checkpoint, integrity and straggler hooks of the reference's loop
-        are not ported (ROADMAP Queue 1 items 15 and 16)."""
+        segment's output, so on the card their graphs replay on the same
+        tensors.  A rehash changes the storage signature, so the segment
+        after it compiles its plans and captures its graphs anew.
+
+        At each boundary, in order: the ``mid_segment`` fault crossing; the
+        audited Reevaluate when ``integrity.audit_due`` (before the save,
+        so a repaired state, never a drifted one, is committed; an in-place
+        repair keeps the graphs bound); the checkpoint's ``save_boundary``
+        (asynchronous: clones issued on the current stream, no host
+        synchronise; blocking with ``pipeline=False``), the last one
+        awaited so a finished run is durable and a writer failure surfaces
+        here; one ``stragglers.observe`` of the segment's admit + dispatch
+        host wall (on the card the time to enqueue its replays, not device
+        time).  Boundary steps are numbered by cumulative stream offset
+        (``base_offset`` + updates applied), :meth:`resume`'s replay
+        cursor.  An emergency re-segmentation splices its remainder into
+        the queue; quarantined rows become dead letters once, after the
+        last segment (``flush_dead_letters``).  Per-segment stats land in
+        :attr:`last_segment_stats`."""
         stats: list = []
         state = None
-        for i, (sub, grow) in enumerate(segments):
-            prepared, admit_s = self._admit_segment(sub, grow)
+        ck = self.checkpoint
+        cfg = self.integrity
+        if cfg is not None:
+            # a failed earlier attempt may have left validation results
+            # pending; re-admission below records them again
+            cfg.pending_dead_letters.clear()
+        offset = base_offset
+        queue = list(segments)
+        prepared, admit_s, sub, deferred = self._admit_segment(
+            *queue[0], offset=offset)
+        queue[1:1] = deferred
+        i = 0
+        while i < len(queue):
             t0 = time.perf_counter()
             state = self.run(prepared, update_engine=True, donate_input=i > 0)
+            dispatch_s = time.perf_counter() - t0
+            run_stats = dict(self.last_run_stats)
+            offset += len(sub)
+            faults.crossing("mid_segment", segment=i, offset=offset)
+            audit_s = 0.0
+            if cfg is not None and cfg.audit_due(i):
+                from ..runtime import integrity as integrity_mod
+
+                t1 = time.perf_counter()
+                integrity_mod.audit_engine(self.engine, cfg, segment=i)
+                state = self.engine.state
+                audit_s = time.perf_counter() - t1
+            save_s = save_dispatch_s = 0.0
+            if ck is not None:
+                t1 = time.perf_counter()
+                ck.save_boundary(self.engine, offset=offset, segment=i,
+                                 blocking=not pipeline)
+                save_dispatch_s = ck.last_dispatch_seconds
+                if i + 1 == len(queue):
+                    ck.wait()  # a finished run is durably checkpointed
+                save_s = time.perf_counter() - t1
+            straggler = self.stragglers.observe(i, admit_s + dispatch_s)
             stats.append(dict(segment=i, n_steps=prepared.n_steps,
-                              updates=len(sub), grow=dict(grow),
-                              admit_s=admit_s,
-                              dispatch_s=time.perf_counter() - t0,
-                              run=dict(self.last_run_stats)))
+                              updates=len(sub), grow=dict(queue[i][1]),
+                              admit_s=admit_s, dispatch_s=dispatch_s,
+                              save_s=save_s, save_dispatch_s=save_dispatch_s,
+                              audit_s=audit_s,
+                              straggler=straggler,
+                              straggler_baseline=self.stragglers.baseline,
+                              run=run_stats))
+            if i + 1 < len(queue):
+                prepared, admit_s, sub, deferred = self._admit_segment(
+                    *queue[i + 1], offset=offset)
+                queue[i + 2:i + 2] = deferred
+            i += 1
+        if cfg is not None and cfg.pending_dead_letters:
+            # every admitted segment has run: one host read for them all
+            from ..runtime import integrity as integrity_mod
+
+            integrity_mod.flush_dead_letters(cfg)
         self.last_segment_stats = stats
         return state
 
+    # --------------------------------------------------------------- recovery
     def resume(self, stream, checkpoint=None, pipeline: bool = True):
-        """Replay-from-offset recovery from a stream checkpoint."""
-        raise NotImplementedError("stream checkpoints and resume are not "
-                                  "ported yet (ROADMAP Queue 1 item 15)")
+        """Replay-from-offset recovery: restore the newest committed
+        snapshot and continue ``stream`` from where it left off.
+
+        ``stream`` is the *full* raw update stream of the original run;
+        the restored snapshot's ``offset`` says how many leading updates
+        are already applied, and the rest runs through the checkpointed
+        segment loop, so a crash during recovery recovers the same way.
+        A pending save of an interrupted run is discarded first.  When no
+        committed snapshot exists yet, a blocking offset-0 baseline is
+        written first: a resumed run always restarts from a snapshot,
+        never from a partially advanced live engine.  The restore installs
+        new state tensors, so this executor's next run captures its graphs
+        anew.  Restoring onto another device count (the mesh-elastic
+        re-plan) waits for sharded execution (ROADMAP Queue 1 item 14)."""
+        ck = checkpoint if checkpoint is not None else self.checkpoint
+        if ck is None:
+            raise ValueError("resume needs a StreamCheckpointer (pass "
+                             "checkpoint= or construct the executor with one)")
+        self.checkpoint = ck
+        # an interrupted run may have died with an async save in flight
+        # (or a captured writer failure); recovery restarts from the last
+        # committed step regardless
+        ck.ckpt.discard_pending()
+        stream = list(stream)
+        meta = ck.restore_into(self.engine)
+        offset = int(meta["offset"]) if meta is not None else 0
+        if meta is None:
+            ck.save_boundary(self.engine, offset=0, segment=-1,
+                             blocking=True)
+        if not 0 <= offset <= len(stream):
+            raise ValueError(
+                f"snapshot offset {offset} exceeds the replayed stream "
+                f"({len(stream)} updates) — wrong stream or checkpoint dir?")
+        remaining = stream[offset:]
+        if not remaining:
+            return self.engine.state
+        return self.run(remaining, update_engine=True, pipeline=pipeline,
+                        _offset=offset)

@@ -1847,3 +1847,193 @@ def test_cuda_conjunctive_W_views_bitwise_to_cpu(cuda_device):
     assert sum(n.startswith("W:") for n in card.views) == 4
     for name, v in cpu.views.items():
         assert torch.equal(v.payload["v"], card.views[name].payload["v"].cpu()), name
+
+
+# ---------------------------------------------------------------------------
+# the durability and integrity planes on the card
+# ---------------------------------------------------------------------------
+def _housing_engine(q, db, dev, **kw):
+    return IVMEngine.build(q, db, var_order=synth.housing_vo(), device=dev, **kw)
+
+
+def _dense_views_equal(a, b):
+    from repro_torch.core.storage import as_dense
+
+    for name, v in a.views.items():
+        assert torch.equal(as_dense(v).payload["v"], as_dense(b.views[name]).payload["v"]), name
+
+
+def test_cuda_checkpointed_graphed_run_matches_eager(cuda_device, tmp_path):
+    """A checkpointed run on the card (two segments of six updates, the
+    second only replays) equals the eager engine bitwise, and a run with
+    the same segments but no checkpoint leaf for leaf (key tables too); its
+    snapshots restore to the same state."""
+    from repro_torch.checkpoint import StreamCheckpointer
+    from repro_torch.core import StreamExecutor
+    from repro_torch.runtime.integrity import IntegrityConfig
+
+    q, db, stream = _housing_sparse(cuda_device)
+    eager, graphed, plain = (_housing_engine(q, db, cuda_device) for _ in range(3))
+    for rel, upd in stream:
+        eager.apply_update(rel, upd)
+    ck = StreamCheckpointer(str(tmp_path), segment_updates=6)
+    ex = StreamExecutor(graphed, checkpoint=ck)
+    ex.run(stream)
+    StreamExecutor(plain, integrity=IntegrityConfig(policy="permissive",
+                                                    segment_updates=6)).run(stream)
+    stats = ex.last_segment_stats
+    assert [s["updates"] for s in stats] == [6, 6]
+    assert stats[1]["run"]["eager_steps"] == 0 and stats[1]["run"]["replays"] == 6
+    _dense_views_equal(eager, graphed)
+    _sparse_views_equal(plain, graphed)
+    assert ck.ckpt.all_steps() == [6, 12]
+    restored = _housing_engine(q, db, cuda_device)
+    assert ck.restore_into(restored)["offset"] == 12
+    _sparse_views_equal(graphed, restored)
+    ex.release()
+
+
+def test_cuda_boundary_save_makes_no_synchronising_call(cuda_device, tmp_path):
+    """A non-final boundary save (clones on the current stream, an event,
+    the writer thread) makes no synchronising call, and the next segment's
+    in-place writes, queued right behind it, do not reach the snapshot:
+    the restored state is the state at the save."""
+    from repro_torch.checkpoint import StreamCheckpointer
+    from repro_torch.core import StreamExecutor
+
+    q, db, stream = _housing_sparse(cuda_device)
+    eng = _housing_engine(q, db, cuda_device)
+    StreamExecutor(eng).run(stream[:6])
+    ck = StreamCheckpointer(str(tmp_path))
+    ck.save_boundary(eng, offset=0, segment=0)  # warm: the pinned buffers
+    ck.wait()
+    want = [t.clone() for t in tplan.state_leaves(eng.state)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ck.save_boundary(eng, offset=6, segment=1)
+        for rel, upd in stream[6:]:
+            eng.set_state(eng.functional_update(*eng.state, rel, upd))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ck.wait()
+    restored = _housing_engine(q, db, cuda_device)
+    assert ck.restore_into(restored)["offset"] == 6
+    got = tplan.state_leaves(restored.state)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not all(torch.equal(a, b) for a, b in zip(tplan.state_leaves(eng.state), want))
+
+
+def test_cuda_supervisor_restarts_the_same_executor_without_a_stale_graph(
+        cuda_device, tmp_path):
+    """``StreamSupervisor`` resumes the executor that failed: the restore
+    installs new tensors, the next segment captures on them, and no graph
+    replays onto the tensors it was bound to before the restore (they
+    keep their values); the result is the uninterrupted run's."""
+    from repro_torch.checkpoint import StreamCheckpointer
+    from repro_torch.core import StreamExecutor
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.fault_tolerance import StreamSupervisor
+
+    q, db, stream = _housing_sparse(cuda_device, n_batches=18)
+    ref = _housing_engine(q, db, cuda_device)
+    for rel, upd in stream:
+        ref.apply_update(rel, upd)
+    eng = _housing_engine(q, db, cuda_device)
+    ck = StreamCheckpointer(str(tmp_path), segment_updates=6)
+    ex = StreamExecutor(eng, checkpoint=ck)
+    before_restore = []
+    restore = ck.restore_into
+
+    def spy(engine):
+        leaves = tplan.state_leaves(engine.state)
+        before_restore.append((leaves, [t.clone() for t in leaves]))
+        return restore(engine)
+
+    ck.restore_into = spy
+    faults.install(faults.FaultPlan("mid_segment", at=1))
+    try:
+        _, restarts, log = StreamSupervisor(backoff_s=0.0).run(ex, stream)
+    finally:
+        faults.clear()
+    assert restarts == 1 and log[0]["action"] == "restart"
+    stale, values = before_restore[-1]
+    now = tplan.state_leaves(eng.state)
+    assert not {id(t) for t in stale} & {id(t) for t in now}
+    for t, v in zip(stale, values):
+        assert torch.equal(t, v)  # nothing replayed onto the old tensors
+    _dense_views_equal(ref, eng)
+    ex.release()
+
+
+def test_cuda_in_place_audit_repair_keeps_the_leaves_and_the_graphs(cuda_device,
+                                                                    monkeypatch):
+    """Drift put into a dense and a sparse view after the first segment is
+    repaired in place at its audit: every state leaf keeps its address, the
+    next segment replays its graphs (no eager step, no capture), and the
+    result is the eager engine's."""
+    from repro_torch.core import StreamExecutor
+    from repro_torch.core.storage import SparseRelation
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.integrity import IntegrityConfig
+
+    q, db, stream = _housing_sparse(cuda_device, n_batches=18)
+    eager = _housing_engine(q, db, cuda_device)
+    for rel, upd in stream:
+        eager.apply_update(rel, upd)
+    eng = _housing_engine(q, db, cuda_device, store_base=True)
+    root = eng.tree.name
+    sparse = next(n for n, v in sorted(eng.views.items()) if isinstance(v, SparseRelation))
+    cfg = IntegrityConfig(policy="quarantine", audit_interval=1, segment_updates=6,
+                          audit_views=(root, sparse))
+    ex = StreamExecutor(eng, integrity=cfg)
+    seen = {}
+    crossing = faults.crossing
+
+    def drift(point, **ctx):
+        if point == "mid_segment" and ctx["segment"] == 0:
+            root_v = eng.views[root].payload["v"].view(-1)
+            root_v[0] += 0.01 * root_v[0].abs() + 7  # past audit_tol, relative
+            v = eng.views[sparse]
+            slot = int(torch.nonzero(v.table >= 0)[0])
+            v.plane[slot] += 7
+            seen["ptrs"] = [t.data_ptr() for t in tplan.state_leaves(eng.state)]
+        crossing(point, **ctx)
+
+    monkeypatch.setattr(faults, "crossing", drift)
+    ex.run(stream)
+    repaired = [e for e in cfg.audit_log if e["repaired"]]
+    assert [(e["segment"], e["view"], e["route"]) for e in repaired] == [
+        (0, root, "in_place"), (0, sparse, "in_place")]
+    stats = ex.last_segment_stats
+    assert [s["run"]["eager_steps"] for s in stats[1:]] == [0, 0]
+    assert [t.data_ptr() for t in tplan.state_leaves(eng.state)] == seen["ptrs"]
+    _dense_views_equal(eager, eng)
+    ex.release()
+
+
+def test_cuda_strict_admission_reads_the_host_once_a_segment(cuda_device):
+    """Validated admission of a segment: ``strict`` reads one stacked flag
+    vector on the host, ``quarantine`` nothing (its flags wait for the
+    run's end)."""
+    import warnings
+
+    from repro_torch.runtime.integrity import IntegrityConfig, admit_stream
+
+    q, db, stream = _housing_sparse(cuda_device)
+    eng = _housing_engine(q, db, cuda_device)
+    for policy, want in (("strict", 1), ("quarantine", 0)):
+        cfg = IntegrityConfig(policy=policy)
+        admit_stream(eng, stream[:6], cfg)  # warm
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                admit_stream(eng, stream[:6], cfg, base_offset=6)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in caught if "synchronizing" in str(w.message)]
+        assert len(syncs) == want, (policy, [str(w.message) for w in syncs])

@@ -51,8 +51,9 @@ def test_port_never_imports_jax_or_the_reference(path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"ivm.py", "plan.py", "stream.py", "scatter_ops.py", "ops.py",
-            "stats.py", "lm.py", "attention.py", "serve_lm.py",
-            "chip_smoke.py"} <= names
+            "stats.py", "lm.py", "attention.py", "serve_lm.py", "faults.py",
+            "integrity.py", "fault_tolerance.py", "checkpointer.py",
+            "stream_state.py", "chip_smoke.py"} <= names
 
 
 def _small_engine(**kw):

@@ -470,9 +470,7 @@ def test_update_engine_false_restores_the_engine_when_a_run_raises(monkeypatch):
         ex.run(upds, update_engine=False, donate_input=True)
 
 
-@pytest.mark.parametrize("arg,item", [("shard", 14), ("checkpoint", 15),
-                                      ("integrity", 16), ("stragglers", 15),
-                                      ("registry", 17)])
+@pytest.mark.parametrize("arg,item", [("shard", 14), ("registry", 17)])
 def test_unported_executor_features_raise(arg, item):
     db, stream = _np_case("sum", SCHEDULES["scan"])
     eng = _port("sum", db, stream)[0]()
@@ -481,13 +479,12 @@ def test_unported_executor_features_raise(arg, item):
 
 
 def test_unported_executor_paths_raise():
-    """Resume is not ported; the segment loop is (sparse view storage
-    reaches it): two segments leave the views of one run."""
+    """The segment loop (sparse view storage reaches it): two segments
+    leave the views of one run.  (Resume is ported:
+    ``tests/test_torch_recovery.py``.)"""
     db, stream = _np_case("sum", SCHEDULES["scan"])
     build, _, upds = _port("sum", db, stream)
     ex = StreamExecutor(build())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        ex.resume(upds)
     ex._run_segmented([(upds[:2], {}), (upds[2:], {})])
     assert [s["updates"] for s in ex.last_segment_stats] == [2, len(upds) - 2]
     whole = StreamExecutor(build())
@@ -615,8 +612,9 @@ def test_graph_capture_collects_first_and_holds_the_collector(monkeypatch):
     program is a reference cycle, so a dropped one frees its CUDA graphs
     when the collector runs, and a graph destroyed mid-capture invalidates
     the capture): pending garbage is collected after it, by the collector
-    it restores, not during it; ``StreamExecutor.release`` releases each
-    program's graphs at once."""
+    it restores, not during it; the capture is thread-local (another
+    thread's CUDA calls, a boundary save's writer, cannot invalidate it);
+    ``StreamExecutor.release`` releases each program's graphs at once."""
     import contextlib
     import gc
 
@@ -630,8 +628,8 @@ def test_graph_capture_collects_first_and_holds_the_collector(monkeypatch):
             events.append("collected")
 
     @contextlib.contextmanager
-    def fake_graph(graph, pool=None):
-        events.append(("capture", gc.isenabled()))
+    def fake_graph(graph, pool=None, capture_error_mode="global"):
+        events.append(("capture", gc.isenabled(), capture_error_mode))
         yield
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: "graph")
@@ -643,7 +641,8 @@ def test_graph_capture_collects_first_and_holds_the_collector(monkeypatch):
     assert gc.isenabled()
     graph, _ = prog._capture(0, None)
     assert graph == "graph" and gc.isenabled()
-    assert events == [("capture", False), ("body", False)]
+    # thread-local capture: a boundary save's writer thread runs beside it
+    assert events == [("capture", False, "thread_local"), ("body", False)]
     gc.collect()
     assert events[2:] == ["collected"]
 

@@ -26,7 +26,14 @@ Where the tree has indicator projections, the triangle query of
 variable, ``fivm`` with indicators, plan fusion ``auto``): one round R, S,
 T of distinct-key batches of 1000 to warm up, then two more rounds
 (phase ``triangle_indicators``; the R trigger of each bumps the
-indicator).  Last, the LM decode step (``lm_decode``, the reduced
+indicator).  Where the tree has the integrity and durability planes, the
+housing stream of ``chip_smoke.py``'s integrity leg (I1: pc = 65,536, 512
+active postcodes, batches of 512, ``segment_updates=4``; phase
+``integrity_durable``): one segment's admission under ``strict`` and under
+``quarantine`` (validation, and the capacity re-audit against live
+occupancy that ``capacity_degrade`` adds), one audited Reevaluate pass, one
+non-final boundary save, and one replay-only executor run, each after a
+warm-up call.  Last, the LM decode step (``lm_decode``, the reduced
 llama3.2-1b config on 2 prompts of 33 tokens, its token already on the
 card): one warm-up step, then one audited step (phase ``lm_decode_step``).
 Card only.
@@ -160,6 +167,8 @@ def worker(tree: Path) -> None:
         torch.cuda.empty_cache()
     if hasattr(synth, "distinct_key_stream"):  # a tree with indicators
         _triangle_phase(tree)
+    if (tree / "src" / "repro_torch" / "runtime" / "integrity.py").exists():
+        _integrity_durable_phase(tree)
     _decode_phase(tree)
 
 
@@ -183,6 +192,58 @@ def _triangle_phase(tree: Path, n: int = 1024) -> None:
     out = _audit(eng, stream[:3], stream[3:])
     print(json.dumps(dict(root=str(tree), phase="triangle_indicators", n=n,
                           indicator_rounds=2, **out)), flush=True)
+    del eng, db, stream
+    torch.cuda.empty_cache()
+
+
+def _integrity_durable_phase(tree: Path) -> None:
+    """The synchronising calls of the integrity and durability planes on
+    the housing I1 stream: admission of one segment (strict, quarantine),
+    one audit pass, one non-final boundary save, one replay-only run."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import StreamCheckpointer
+    from repro_torch.core import IVMEngine, Query, StreamExecutor, prepare_stream, sum_ring
+    from repro_torch.data import synth
+    from repro_torch.runtime.integrity import IntegrityConfig, audit_engine
+
+    doms, rels = synth.HOUSING_DOMS_BIG, synth.HOUSING_RELATIONS
+    q = Query(relations=rels, free_vars=(), ring=sum_ring(), domains=doms,
+              lifts={"h2": ("value",)})
+    db, active = synth.synth_low_fill_db(rels, doms, q.ring, np.random.default_rng(0),
+                                         "pc", 512, device="cuda")
+    stream = synth.update_stream(rels, doms, q.ring, np.random.default_rng(1), 512, 12,
+                                 key_pools={"pc": active}, device="cuda")
+    eng = IVMEngine.build(q, db, var_order=synth.housing_vo(), strategy="fivm",
+                          store_base=True, device="cuda")
+    eng.precompile(512)
+    out = {}
+    for policy in ("strict", "quarantine"):
+        ex = StreamExecutor(eng, integrity=IntegrityConfig(policy=policy,
+                                                           segment_updates=4))
+        ex._admit_segment(stream[:4], {}, 0)
+        out[f"admit_{policy}"] = _count_syncs(
+            lambda ex=ex: ex._admit_segment(stream[4:8], {}, 4))
+    cfg = IntegrityConfig(audit_interval=1)
+    audit_engine(eng, cfg)
+    out["audit"] = _count_syncs(lambda: audit_engine(eng, cfg))
+    ckdir = ROOT / "build" / "sync_audit_snapshots"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ck = StreamCheckpointer(str(ckdir))
+    ck.save_boundary(eng, offset=0, segment=0)
+    ck.wait()
+    out["boundary_save"] = _count_syncs(lambda: ck.save_boundary(eng, offset=4,
+                                                                 segment=1))
+    ck.wait()
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ex = StreamExecutor(eng)
+    prepared = prepare_stream(eng, stream[:4])
+    ex.run(prepared)
+    out["replay"] = _count_syncs(lambda: ex.run(prepared, donate_input=True))
+    ex.release()
+    print(json.dumps(dict(root=str(tree), phase="integrity_durable", batch=512,
+                          segment_updates=4, **out)), flush=True)
     del eng, db, stream
     torch.cuda.empty_cache()
 
