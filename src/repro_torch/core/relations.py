@@ -123,6 +123,10 @@ class DenseRelation:
         idx = tuple(keys[:, i].long() for i in range(len(self.schema)))
         return {comp: self.payload[comp][idx] for comp in self.ring.components}
 
+    #: the batched-read surface shared with ``SparseRelation`` (the serving
+    #: plane's point lookup): a dense view's gather is its batched read
+    gather_batched = gather
+
     def add(self, other) -> "DenseRelation":
         assert self.schema == other.schema
         return DenseRelation(

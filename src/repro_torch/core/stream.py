@@ -85,8 +85,16 @@ fault points (``repro_torch.runtime.faults``) let tests kill the run at
 each stage, and ``repro_torch.runtime.fault_tolerance.StreamSupervisor``
 drives resume through its escalation ladder.
 
+**Serving** rides them too: with a ``repro_torch.serve.SnapshotRegistry``
+attached (``registry=``, or a ``ViewServer`` that attaches one), every
+boundary publishes device clones of the read-visible views as a new
+generation, after the audit and before the save, and the save reuses those
+clones (``save_boundary(view_copies=)``), so a boundary copies each served
+view once.  Readers read the snapshots, never the state the next segment's
+graphs write in place.
+
 Not ported: sharded executors and the mesh-elastic resume (ROADMAP Queue 1
-item 14) and the serving registry (item 17).
+item 14).
 """
 from __future__ import annotations
 
@@ -628,22 +636,25 @@ class StreamExecutor:
     ``checkpoint`` (a ``StreamCheckpointer``) snapshots the engine at every
     segment boundary, ``integrity`` (an ``IntegrityConfig``) validates
     admission and audits the views, and ``stragglers`` (default: a fresh
-    ``StragglerMonitor``) watches each segment's host wall.  ``shard`` and
-    ``registry`` are not ported (ROADMAP Queue 1 items 14 and 17)."""
+    ``StragglerMonitor``) watches each segment's host wall, and ``registry``
+    (a ``repro_torch.serve.SnapshotRegistry``) publishes a generation of the
+    views at every boundary.  ``shard`` is not ported (ROADMAP Queue 1 item
+    14)."""
 
     def __init__(self, engine: IVMEngine, shard=None, checkpoint=None,
                  integrity=None, stragglers: StragglerMonitor | None = None,
                  registry=None):
-        for arg, value, what, item in (
-                ("shard", shard, "sharded execution", 14),
-                ("registry", registry, "the serving plane", 17)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"StreamExecutor({arg}=...): {what} is not ported yet "
-                    f"(ROADMAP Queue 1 item {item})")
+        if shard is not None:
+            raise NotImplementedError(
+                "StreamExecutor(shard=...): sharded execution is not ported "
+                "yet (ROADMAP Queue 1 item 14)")
         self.engine = engine
         self.checkpoint = checkpoint
         self.integrity = integrity
+        #: serving-plane snapshot registry: when attached, every segment
+        #: boundary of a run on the engine's own state publishes a
+        #: generation-stamped device copy of the read-visible views
+        self.registry = registry
         self.stragglers = (stragglers if stragglers is not None
                            else StragglerMonitor())
         self._compiled: dict[Any, _Program] = {}
@@ -690,8 +701,9 @@ class StreamExecutor:
         and the integrity config's ``segment_updates``
         (:func:`split_segments`), and runs segment by segment
         (:meth:`_run_segmented`) whenever there is more than one segment, a
-        rehash, a checkpoint or an active integrity config; a checkpointed
-        run must update the engine.  An explicit-state raw run is audited
+        rehash, a checkpoint, an active integrity config or a registry (whose
+        ``segment_updates`` caps them too); a checkpointed or
+        registry-attached run must update the engine.  An explicit-state raw run is audited
         against the caller's state, and one that fails the audit spills to
         the eager path when the integrity config's ``capacity_degrade`` is
         set (:meth:`_eager_spill`); a :class:`PreparedStream` is replayed as
@@ -726,8 +738,17 @@ class StreamExecutor:
                         # capacity segmentation never splits
                         segments = split_segments(
                             segments, self.integrity.segment_updates)
+                    if self.registry is not None:
+                        if not update_engine:
+                            raise ValueError(
+                                "a registry-attached run must update the "
+                                "engine — published generations snapshot "
+                                "the engine's state")
+                        segments = split_segments(
+                            segments, self.registry.segment_updates)
                     if (self.checkpoint is not None or len(segments) > 1
-                            or segments[0][1] or self._integrity_active()):
+                            or segments[0][1] or self._integrity_active()
+                            or self.registry is not None):
                         return self._run_segmented(segments, pipeline=pipeline,
                                                    base_offset=_offset)
                 else:
@@ -859,13 +880,17 @@ class StreamExecutor:
         after it compiles its plans and captures its graphs anew.
 
         At each boundary, in order: the ``mid_segment`` fault crossing; the
-        audited Reevaluate when ``integrity.audit_due`` (before the save,
-        so a repaired state, never a drifted one, is committed; an in-place
-        repair keeps the graphs bound); the checkpoint's ``save_boundary``
-        (asynchronous: clones issued on the current stream, no host
-        synchronise; blocking with ``pipeline=False``), the last one
-        awaited so a finished run is durable and a writer failure surfaces
-        here; one ``stragglers.observe`` of the segment's admit + dispatch
+        audited Reevaluate when ``integrity.audit_due`` (before the publish
+        and the save, so a repaired state, never a drifted one, is served
+        and committed; an in-place repair keeps the graphs bound); the
+        registry's ``publish`` of the views, stamped with the audit's
+        outcome (``integrity.publish_meta``: clones issued on the current
+        stream before the next segment's replays write the state in place);
+        the checkpoint's ``save_boundary`` (asynchronous: clones issued on
+        the current stream, no host synchronise, the publish's clones reused
+        for the served views; blocking with ``pipeline=False``), the last
+        one awaited so a finished run is durable and a writer failure
+        surfaces here; one ``stragglers.observe`` of the segment's admit + dispatch
         host wall (on the card the time to enqueue its replays, not device
         time).  Boundary steps are numbered by cumulative stream offset
         (``base_offset`` + updates applied), :meth:`resume`'s replay
@@ -895,18 +920,30 @@ class StreamExecutor:
             offset += len(sub)
             faults.crossing("mid_segment", segment=i, offset=offset)
             audit_s = 0.0
+            audit_meta: dict = {}
             if cfg is not None and cfg.audit_due(i):
                 from ..runtime import integrity as integrity_mod
 
                 t1 = time.perf_counter()
-                integrity_mod.audit_engine(self.engine, cfg, segment=i)
+                records = integrity_mod.audit_engine(self.engine, cfg,
+                                                     segment=i)
                 state = self.engine.state
+                audit_meta = integrity_mod.publish_meta(records)
                 audit_s = time.perf_counter() - t1
+            publish_s = 0.0
+            snap = None
+            if self.registry is not None:
+                t1 = time.perf_counter()
+                snap = self.registry.publish(self.engine.views, offset=offset,
+                                             segment=i, meta=audit_meta)
+                publish_s = time.perf_counter() - t1
             save_s = save_dispatch_s = 0.0
             if ck is not None:
                 t1 = time.perf_counter()
                 ck.save_boundary(self.engine, offset=offset, segment=i,
-                                 blocking=not pipeline)
+                                 blocking=not pipeline,
+                                 view_copies=(snap.views if snap is not None
+                                              else None))
                 save_dispatch_s = ck.last_dispatch_seconds
                 if i + 1 == len(queue):
                     ck.wait()  # a finished run is durably checkpointed
@@ -916,7 +953,10 @@ class StreamExecutor:
                               updates=len(sub), grow=dict(queue[i][1]),
                               admit_s=admit_s, dispatch_s=dispatch_s,
                               save_s=save_s, save_dispatch_s=save_dispatch_s,
-                              audit_s=audit_s,
+                              audit_s=audit_s, publish_s=publish_s,
+                              generation=(self.registry.generation
+                                          if self.registry is not None
+                                          else None),
                               straggler=straggler,
                               straggler_baseline=self.stragglers.baseline,
                               run=run_stats))
@@ -945,9 +985,11 @@ class StreamExecutor:
         A pending save of an interrupted run is discarded first.  When no
         committed snapshot exists yet, a blocking offset-0 baseline is
         written first: a resumed run always restarts from a snapshot,
-        never from a partially advanced live engine.  The restore installs
-        new state tensors, so this executor's next run captures its graphs
-        anew.  Restoring onto another device count (the mesh-elastic
+        never from a partially advanced live engine.  With a registry
+        attached the restored state is published as a new generation
+        (``meta={"restored": True}``), so readers never see what the engine
+        held before the restore.  The restore installs new state tensors, so
+        this executor's next run captures its graphs anew.  Restoring onto another device count (the mesh-elastic
         re-plan) waits for sharded execution (ROADMAP Queue 1 item 14)."""
         ck = checkpoint if checkpoint is not None else self.checkpoint
         if ck is None:
@@ -964,6 +1006,11 @@ class StreamExecutor:
         if meta is None:
             ck.save_boundary(self.engine, offset=0, segment=-1,
                              blocking=True)
+        if self.registry is not None:
+            # generations stay monotonic across restarts within this
+            # registry's lifetime
+            self.registry.publish(self.engine.views, offset=offset,
+                                  segment=-1, meta=dict(restored=True))
         if not 0 <= offset <= len(stream):
             raise ValueError(
                 f"snapshot offset {offset} exceeds the replayed stream "

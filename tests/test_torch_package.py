@@ -53,7 +53,8 @@ def test_port_files_found():
     assert {"ivm.py", "plan.py", "stream.py", "scatter_ops.py", "ops.py",
             "stats.py", "lm.py", "attention.py", "serve_lm.py", "faults.py",
             "integrity.py", "fault_tolerance.py", "checkpointer.py",
-            "stream_state.py", "chip_smoke.py"} <= names
+            "stream_state.py", "registry.py", "lookup.py", "server.py",
+            "chip_smoke.py"} <= names
 
 
 def _small_engine(**kw):

@@ -472,10 +472,27 @@ def test_update_engine_false_restores_the_engine_when_a_run_raises(monkeypatch):
 
 @pytest.mark.parametrize("arg,item", [("shard", 14), ("registry", 17)])
 def test_unported_executor_features_raise(arg, item):
+    """``shard`` still raises naming item 14; ``registry`` (item 17, the
+    serving plane) attaches, and a run publishes a generation a segment."""
     db, stream = _np_case("sum", SCHEDULES["scan"])
-    eng = _port("sum", db, stream)[0]()
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        StreamExecutor(eng, **{arg: object()})
+    build, _, upds = _port("sum", db, stream)
+    eng = build()
+    if arg == "shard":
+        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+            StreamExecutor(eng, **{arg: object()})
+        return
+    from repro_torch.serve import SnapshotRegistry
+
+    reg = SnapshotRegistry(segment_updates=2)
+    ex = StreamExecutor(eng, registry=reg)
+    assert ex.registry is reg
+    ex.run(upds)
+    segments = -(-len(upds) // 2)
+    assert reg.generation == segments - 1 and reg.publishes == segments
+    assert [s["generation"] for s in ex.last_segment_stats] == list(range(segments))
+    assert reg.latest().offset == len(upds)
+    for name, v in eng.views.items():
+        assert torch.equal(reg.latest().views[name].payload["v"], v.payload["v"])
 
 
 def test_unported_executor_paths_raise():
