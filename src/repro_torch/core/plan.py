@@ -42,7 +42,12 @@ every maintained ∃-projection over the updated relation, an
 :class:`IndicatorBump` (the transition counts and δ∃) and the δ∃'s path to
 the root.  It runs after the main part and reads the views the main part
 has just updated, as the reference's does: δ(R·V) = δR·V + R′·δV.  It never
-fuses.  Not in this slice: the plan verifier.
+fuses.
+
+Every compile miss of the plan cache runs the static plan verifier
+(``repro_torch.analysis.verifier``) when ``REPRO_TORCH_PLAN_VERIFY`` resolves
+to ``on`` (``auto``: under pytest and CI); a plan that fails it raises and is
+not cached, and a cache hit verifies nothing.
 """
 from __future__ import annotations
 
@@ -1027,10 +1032,11 @@ class PlanCache:
 
     Keys: (rel, update signature, storage layout, scatter-backend override,
     fusion mode).
-    ``hits`` / ``miss_new`` / ``miss_invalidated`` / ``compile_seconds`` are
-    the cache telemetry: ``miss_new`` counts first compiles of a (rel,
-    signature) trigger, ``miss_invalidated`` recompiles forced by an
-    layout, override or fusion-mode change."""
+    ``hits`` / ``miss_new`` / ``miss_invalidated`` / ``compile_seconds`` /
+    ``verify_seconds`` are the cache telemetry: ``miss_new`` counts first
+    compiles of a (rel, signature) trigger, ``miss_invalidated`` recompiles
+    forced by a layout, override or fusion-mode change, ``verify_seconds``
+    the static verification of the compiled plans (compile misses only)."""
 
     def __init__(self):
         self.plans: dict = {}
@@ -1038,6 +1044,7 @@ class PlanCache:
         self.miss_new = 0
         self.miss_invalidated = 0
         self.compile_seconds = 0.0
+        self.verify_seconds = 0.0
         self._interned: dict = {}
         self._write_sets: dict = {}
         self._seen: set = set()
@@ -1071,6 +1078,15 @@ class PlanCache:
         if fusion == "on":
             plan = fuse_trigger_ops(plan, engine.query, views)
         self.compile_seconds += time.perf_counter() - t0
+        # static verification rides the compile miss only: a verified plan
+        # is cached as verified, so a hit (and every graph replay) pays
+        # nothing; a plan that fails raises here and is never cached
+        from ..analysis import verifier
+
+        if verifier.verify_mode() == "on":
+            t1 = time.perf_counter()
+            verifier.check_plan(engine, plan, views=views)
+            self.verify_seconds += time.perf_counter() - t1
         self.plans[key] = plan
         return plan
 
@@ -1107,6 +1123,8 @@ class PlanCache:
             compile_ms_total=round(1e3 * self.compile_seconds, 3),
             compile_ms_per_plan=round(1e3 * self.compile_seconds / n, 3)
             if n else 0.0,
+            #: static verification; cache hits never re-verify
+            verify_ms_total=round(1e3 * self.verify_seconds, 3),
             interned_ops=len(self._interned),
         )
 

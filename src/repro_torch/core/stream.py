@@ -342,6 +342,16 @@ def prepare_stream(engine: IVMEngine, stream: Sequence[tuple[str, COOUpdate]],
         return engine.plans.lookup_sig(engine, rel,
                                        ("coo", schemas[rel], bucket))
 
+    def verified(plans: tuple) -> tuple:
+        """The step-level static race check (rule race/memo-write): the
+        CSE memo a step builds once must not name a view any plan of the
+        step writes.  It rides stream preparation, not replay."""
+        from ..analysis import verifier
+
+        if verifier.verify_mode() == "on":
+            verifier.check_step(plans)
+        return plans
+
     def stack(upds: list[COOUpdate], bucket: int):
         padded = [u.pad_to(ring, bucket) for u in upds]
         keys = torch.stack([u.keys for u in padded]).to(dev)
@@ -372,7 +382,8 @@ def prepare_stream(engine: IVMEngine, stream: Sequence[tuple[str, COOUpdate]],
             n_tuples=n_tuples,
             tail=tail,
             tail_len=tail_len,
-            plans=tuple(plan_for(r, b) for r, b in zip(pattern, buckets)),
+            plans=verified(tuple(plan_for(r, b)
+                                 for r, b in zip(pattern, buckets))),
             **sigs)
 
     # aperiodic: one bucket and key width for every step
@@ -394,7 +405,7 @@ def prepare_stream(engine: IVMEngine, stream: Sequence[tuple[str, COOUpdate]],
         n_steps=len(stream),
         buckets=(bucket,),
         n_tuples=n_tuples,
-        plans=tuple(plan_for(r, bucket) for r in rel_order),
+        plans=verified(tuple(plan_for(r, bucket) for r in rel_order)),
         schedule=tuple(rel_order.index(r) for r in sched),
         **sigs)
 

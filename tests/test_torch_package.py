@@ -1,7 +1,9 @@
 """Package rules of the PyTorch port.
 
-* No module of ``repro_torch``, nor ``chip_smoke.py``, imports ``jax`` or
-  the JAX package ``repro`` (checked statically with ``ast``).
+* No module of ``repro_torch``, nor ``chip_smoke.py`` and the port's tools
+  (``tools/lint_hotpath_torch.py``, ``tools/verify_plans_torch.py``),
+  imports ``jax`` or the JAX package ``repro`` (checked statically with
+  ``ast``).
 * Entry points default to ``device="cuda"`` and raise on a host without
   CUDA unless the caller passes ``device="cpu"``.
 * What the slice does not port yet raises ``NotImplementedError``
@@ -30,7 +32,8 @@ from repro_torch.data import synth  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "lint_hotpath_torch.py",
+    ROOT / "tools" / "verify_plans_torch.py"]
 
 
 def _imported_modules(path):
@@ -54,7 +57,8 @@ def test_port_files_found():
             "stats.py", "lm.py", "attention.py", "serve_lm.py", "faults.py",
             "integrity.py", "fault_tolerance.py", "checkpointer.py",
             "stream_state.py", "registry.py", "lookup.py", "server.py",
-            "chip_smoke.py"} <= names
+            "verifier.py", "chip_smoke.py", "lint_hotpath_torch.py",
+            "verify_plans_torch.py"} <= names
 
 
 def _small_engine(**kw):
