@@ -103,9 +103,10 @@ Phases (any failed check raises, and the script exits non-zero):
      against the host listing engine (``PyIVM``) and a brute force.
    Then the stream executor's durability and integrity planes (snapshots
    under ``build/snapshots``, removed by each phase), every leg's launches
-   held to the eager engine's (``plan_launches`` beside) or to the same
-   segments without snapshots or validation, every compared state leaf
-   bitwise (a leaf above 2²⁴ within 1e-5):
+   held to the plans (``plan_launches``; ``segment_launches`` adds the
+   rehashes between capacity segments; D2 to the same segments without
+   snapshots), every compared state leaf bitwise (a leaf above 2²⁴ within
+   1e-5):
    - ``durable``: D1, the retailer sum stream with fusion ``auto`` through
      the executor with ``StreamCheckpointer(keep=3, segment_updates=5)``
      and without (the same 4 segments), in turns, with the dispatch and
@@ -130,6 +131,25 @@ Phases (any failed check raises, and the script exits non-zero):
      replays) to within 1e-5 of float64; I3, ``StreamSupervisor`` over D1
      with a fault (one restart) and over I1's poisoned stream under
      ``strict`` (escalated to ``quarantine_batch``).
+   Then the serving plane (``repro_torch.serve``) against running
+   segmented streams, the reference's serving bench on the card:
+   - ``serve`` R1, reads: S1's engine served from its widest ``pc``-keyed
+     view as a hash table (``auto``) and dense, every read path of the
+     sparse view bitwise to the dense view's, a sparse point read one
+     keyed ``hash_probe`` launch, 0 synchronising calls a read path and a
+     publish, lookups/s at batches of 64, 1024 and 8192 keys and p50 / p95
+     / p99 ms of 200 reads of 256 keys;
+   - R2, updates under read load: I1's housing stream and a 12 × 64
+     degree-10 cofactor stream through ``ViewServer(segment_updates=4)``,
+     with and without a reader thread on its own CUDA stream (256 keys
+     every 10 ms), interleaved best of 5, launches held to the plans,
+     loaded / unloaded tuples/s beside the reference's 0.9 gate (reported,
+     not enforced), reads/s, publish seconds;
+   - R3, consistency: every generation of both streams under ``pin(g)``
+     equal to a fresh engine replayed to its offset, then D2's growing
+     stream with a ``mid_segment`` fault and an in-process ``resume``
+     while a reader thread reads every generation it sees, each equal to
+     an offline recompute at its offset.
 4. The kernel-ops layer's paths, counts reset before and read after each:
    - B, the ring product on engine state: ``ops.ring_mul`` of the largest
      view (1,179,648 keys, degree 10) of the two cofactor engines above,
@@ -2486,8 +2506,16 @@ def plan_launches(plan, eng) -> dict:
     ``segment_ring_sum`` and one ``scatter_add``; a ⊎ of a delta with only
     dense axes, and any ⊎ under ``torch``, launches nothing; a fused chain
     is one ``fused_chain`` launch.  An IndicatorBump ⊎s its δ∃ into the 0/1
-    plane, and a plan that writes its relation's stored base ⊎s the batch
-    into it, each under the backend the dispatch resolves for it."""
+    plane, a plan that writes its relation's stored base ⊎s the batch into
+    it, and a densified leaf (a float32 ring's) ⊎s the batch into its dense
+    delta relation, each under the backend the dispatch resolves for it.
+    A sparse view's sibling read (a Gather, or a fully bound join) is one
+    keyed ``hash_probe``; its ⊎ claims the batch's slots with one
+    ``hash_insert`` (a fused chain's terminal too), then runs one
+    gather-⊗-⊎ (a scalar ring's pending gather) or, for float32 rows, one
+    ``segment_ring_sum`` of each key's rows and the flat ⊎ under its
+    backend.  Growth (a rehash) is outside the plans."""
+    import torch
     from repro_torch.core import plan as P
     from repro_torch.core.storage import payload_width
     from repro_torch.kernels import scatter_ops
@@ -2499,32 +2527,97 @@ def plan_launches(plan, eng) -> dict:
         out[name] = out.get(name, 0) + n
 
     def scatter(backend, fused_scalar=False):
-        if backend in (None, "torch"):
-            return
-        if backend == "compact":
-            add("segment_ring_sum")
-            add("scatter_add")
-        elif fused_scalar:
-            add("gather_mul_scatter")
-        else:
-            add("scatter_dedup" if backend == "scatter_dedup" else "scatter_add")
+        add_launches(out, backend_launches(backend, fused_scalar))
 
     def resolved(domains):
         return scatter_ops.resolve_backend(math.prod(domains), plan.batch,
                                            payload_width(ring), device="cuda")
 
     scalar = set(ring.components) == {"v"}
+    float_rows = ring.dtype == torch.float32
+
+    def sparse_scatter(op):
+        add("hash_insert")  # the batch's slots, claimed by key
+        if op.fused and scalar:  # then one gather-⊗-⊎ over the plane
+            if float_rows:
+                scatter(op.backend, fused_scalar=True)
+        elif float_rows:  # the rows of a key summed, then one flat ⊎
+            add("segment_ring_sum")
+            scatter(op.backend)
+
+    for op in P.iter_flat_ops(plan.ops + plan.ind_ops):
+        sparse = getattr(op, "storage", None) == "sparse"
+        if sparse and (isinstance(op, P.Gather) or (
+                isinstance(op, P.JoinContract) and op.gathers)):
+            add("hash_probe")  # the delta's keys probed, a plane row each
     for op in plan.ops + plan.ind_ops:
-        if isinstance(op, P.FusedChain):
+        if isinstance(op, P.LeafDelta) and op.densify:
+            # the densified leaf's delta is the batch ⊎ into a fresh dense
+            # relation over the update schema (``plan.densified_delta``)
+            if float_rows:
+                scatter(resolved(tuple(eng.query.domains[v] for v in op.schema)))
+        elif isinstance(op, P.FusedChain):
             add("fused_chain")
+            if op.ops[-1].storage == "sparse":
+                add("hash_insert")  # the terminal's slots (fused_slot_targets)
         elif isinstance(op, P.ScatterAccum):
-            if op.storage != "dense":
-                raise AssertionError(f"{op.view}: a sparse view on a dense leg")
-            scatter(op.backend, fused_scalar=op.fused and scalar)
+            if op.storage == "sparse":
+                sparse_scatter(op)
+            else:
+                scatter(op.backend, fused_scalar=op.fused and scalar)
         elif isinstance(op, P.IndicatorBump):
             scatter(resolved(eng.indicators[op.node].counts.shape))
     for rel in plan.write_base:
         scatter(resolved(eng.base[rel].domains))
+    return out
+
+
+def backend_launches(backend, fused_scalar: bool = False) -> dict:
+    """The hand-kernel launches of one flat ⊎ under ``backend``: ``scatter``
+    one ``scatter_add`` (one ``gather_mul_scatter`` when a scalar ring's
+    sibling gather fuses into it), ``compact`` one ``segment_ring_sum`` and
+    one ``scatter_add``, ``scatter_dedup`` one ``scatter_dedup``, ``torch``
+    (or none) nothing."""
+    if backend in (None, "torch"):
+        return {}
+    if backend == "compact":
+        return {"segment_ring_sum": 1, "scatter_add": 1}
+    if fused_scalar:
+        return {"gather_mul_scatter": 1}
+    return {"scatter_dedup" if backend == "scatter_dedup" else "scatter_add": 1}
+
+
+def segment_launches(build, stream, segments) -> dict:
+    """The launches of a segmented executor run from its plans: for each of
+    its ``segments`` (the run's ``last_segment_stats``, in order) the rehash
+    of each table the segment grew (one ``hash_insert`` of the old
+    capacity's rows and, for float32 rows, one ``segment_ring_sum`` and the
+    flat ⊎ into the new table), then :func:`stream_launches` of its updates
+    on a fresh engine (``build()``) rehashed to the segment's capacities, as
+    a plan's sparse ⊎ backend follows its table's capacity."""
+    import torch
+    from repro_torch.core import stream as stream_mod
+    from repro_torch.core.storage import payload_width
+    from repro_torch.kernels import scatter_ops
+
+    eng = build()
+    ring = eng.query.ring
+    out: dict = {}
+    off = 0
+    for seg in segments:
+        for name, cap in sorted(seg["grow"].items()):
+            add_launches(out, {"hash_insert": 1})
+            if ring.dtype == torch.float32:
+                add_launches(out, {"segment_ring_sum": 1})
+                add_launches(out, backend_launches(scatter_ops.resolve_backend(
+                    cap, eng.views[name].capacity, payload_width(ring), device="cuda")))
+        if seg["grow"]:
+            stream_mod._rehash(eng, seg["grow"])
+        add_launches(out, stream_launches(eng, stream[off:off + seg["updates"]]))
+        off += seg["updates"]
+    if off != len(stream):
+        raise AssertionError(f"segments of {off} updates for a stream of {len(stream)}")
+    del eng
     return out
 
 
@@ -3042,11 +3135,12 @@ def count_syncs(fn):
     sites: dict = {}
 
     def record(message, category, filename, lineno, file=None, line=None):
-        if "synchronizing" not in str(message):
-            return
+        if "called a synchronizing CUDA operation" not in str(message):
+            return  # (set_sync_debug_mode's own notice also says "synchronizing")
+        stack = traceback.extract_stack()
         site = next((f"{f.filename[f.filename.index('repro_torch'):]}:{f.lineno}"
-                     for f in reversed(traceback.extract_stack())
-                     if "repro_torch" in f.filename), "outside repro_torch")
+                     for f in reversed(stack) if "repro_torch" in f.filename),
+                    f"outside repro_torch: {stack[-2].filename}:{stack[-2].lineno}")
         sites[site] = sites.get(site, 0) + 1
 
     torch.cuda.synchronize()
@@ -3216,8 +3310,8 @@ def durable_retailer(kernels) -> dict:
     (4 segments, 4 saves) and without (an ``IntegrityConfig(policy=
     "permissive", segment_updates=5)``: the same 4 segments), after a
     warm-up run timed in turns off, on, on, off on fresh engines; each
-    run's launches equal to the eager engine's (its plans run once an
-    update; ``plan_launches`` reported beside).  Then the synchronising
+    run's launches equal to the eager engine's, which equal its plans'
+    (``stream_launches``).  Then the synchronising
     calls of a run with and without snapshots and of a non-final boundary
     save alone, a restore into a fresh engine, and a ``mid_segment`` fault
     at the third boundary followed by ``resume`` on a fresh engine and
@@ -3249,6 +3343,10 @@ def durable_retailer(kernels) -> dict:
         runs: dict = {"off": [], "on": []}
         final = None
         eager = eager_launches(build, stream, kernels)
+        plans_want = stream_launches(build(), stream)
+        if eager != plans_want:
+            raise AssertionError(f"{label}: the eager engine launched {eager}, the "
+                                 f"plans say {plans_want}")
         eng, ex, _ = executor("off", "warm")  # first captures, kernel loads
         ex.run(stream)
         ex.release()
@@ -3543,9 +3641,11 @@ def integrity_housing(kernels) -> dict:
     (``quarantine``, ``audit_interval=2``, ``store_base=True``) executors,
     every ``segment_updates=4``, each on a fresh engine, run once to warm
     and twice timed in turns (the faster kept), launches of ``validate``
-    equal to ``off``'s.  Then a poisoned copy of the stream (``poison``):
-    under ``quarantine`` every leaf equal to the masked clean stream's,
-    the dead letters exactly the planted ones, its validated admission 0
+    equal to ``off``'s and ``off``'s to the plans of its segments
+    (``segment_launches``: the rehashes between segments included).  Then a poisoned copy of the stream (``poison``):
+    under ``quarantine`` every leaf equal to the masked clean stream's and
+    its launches too (the masked stream's held to its plans), the dead
+    letters exactly the planted ones, its validated admission 0
     synchronising calls before the final flush; under ``strict`` with a
     checkpoint, ``StreamIntegrityError`` names update 2 and no step is
     committed past the segment before it."""
@@ -3581,6 +3681,7 @@ def integrity_housing(kernels) -> dict:
                 audit=dict(policy="quarantine", audit_interval=2))
     with plan.use_fusion("auto"):
         best: dict = {}
+        seg_stats: dict = {}
         for rep in range(3):
             for mode, kw in cfgs.items():
                 cfg = integ.IntegrityConfig(segment_updates=I1_SEGMENT, **kw)
@@ -3589,6 +3690,7 @@ def integrity_housing(kernels) -> dict:
                 wall, launches = timed_run(ex, stream, kernels)
                 add_launches(total, launches)
                 segs = ex.last_segment_stats
+                seg_stats[mode] = segs
                 audits = [s["audit_s"] for s in segs if s["audit_s"]]
                 if rep and (mode not in best or wall < best[mode]["run_s"]):
                     best[mode] = dict(run_s=wall, tuples_per_s=n_tuples / wall,
@@ -3601,6 +3703,10 @@ def integrity_housing(kernels) -> dict:
                 del eng, ex
         if best["validate"]["launches"] != best["off"]["launches"]:
             raise AssertionError(f"{label}: validation changed the launches")
+        plans_want = segment_launches(build, stream, seg_stats["off"])
+        got = {k: n for k, n in best["off"]["launches"].items() if n and ":" not in k}
+        if got != plans_want:
+            raise AssertionError(f"{label}: launches {got}, the plans say {plans_want}")
         # the audited run's launches: an unaudited run's on an engine that
         # also stores its base, and one from-base Reevaluate's (alone)
         eng = build(store_base=True)
@@ -3628,14 +3734,24 @@ def integrity_housing(kernels) -> dict:
         eng_m = build()
         ex = StreamExecutor(eng_m, integrity=integ.IntegrityConfig(
             policy="permissive", segment_updates=I1_SEGMENT))
-        add_launches(total, timed_run(ex, masked, kernels)[1])
+        masked_launches = timed_run(ex, masked, kernels)[1]
+        add_launches(total, masked_launches)
+        masked_plans = segment_launches(build, masked, ex.last_segment_stats)
+        check = {k: n for k, n in masked_launches.items() if n and ":" not in k}
+        if check != masked_plans:
+            raise AssertionError(f"{label} masked: launches {check}, the plans say "
+                                 f"{masked_plans}")
         want = state_copy(eng_m)
         ex.release()
         del eng_m, ex
         cfg = integ.IntegrityConfig(policy="quarantine", segment_updates=I1_SEGMENT)
         eng_q = build()
         ex = StreamExecutor(eng_q, integrity=cfg)
-        add_launches(total, timed_run(ex, bad, kernels)[1])
+        quarantine_launches = timed_run(ex, bad, kernels)[1]
+        add_launches(total, quarantine_launches)
+        if quarantine_launches != masked_launches:
+            raise AssertionError(f"{label} quarantine: launches {quarantine_launches}, "
+                                 f"the masked stream's {masked_launches}")
         leaves = same_state(f"{label} quarantine", eng_q, want)
         got = sorted(((r.rel, r.stream_index, r.row, tuple(r.key), tuple(r.reasons))
                       for r in cfg.dead_letters), key=lambda r: (r[1], r[2]))
@@ -3678,7 +3794,7 @@ def integrity_housing(kernels) -> dict:
         audit_over_off=best["audit"]["tuples_per_s"] / off,
         quarantine=dict(leaves=leaves, dead_letters=len(got),
                         admission_syncs=admit_syncs),
-        strict=strict, launches=total), bad, want
+        strict=strict, launches=total), bad, masked, want
 
 
 def audit_hook(at_segment: int, fn):
@@ -3712,7 +3828,8 @@ def integrity_cofactor(kernels) -> dict:
     ``store_base=True``) under ``IntegrityConfig(policy="quarantine",
     audit_interval=2, segment_updates=5)``: two audits at the full state,
     each record with its seconds (the from-base Reevaluate is the priced
-    item).  Then a second run whose root's Q[0, 0] drifts by 1 % after the
+    item); the eager engine's launches equal the plans'.  Then a second
+    run whose root's Q[0, 0] drifts by 1 % after the
     second segment: the audit after it repairs the root in place, the next
     segment replays (no eager step), and the root lies within RTOL of the
     float64 oracle at the end."""
@@ -3726,6 +3843,10 @@ def integrity_cofactor(kernels) -> dict:
     with plan.use_fusion("auto"):
         out = {}
         eager = eager_launches(lambda: build(store_base=True), stream, kernels)
+        plans_want = stream_launches(build(store_base=True), stream)
+        if eager != plans_want:
+            raise AssertionError(f"{label}: the eager engine launched {eager}, the "
+                                 f"plans say {plans_want}")
         for run in ("clean", "drift"):
             eng = build(store_base=True)
             cfg = IntegrityConfig(policy="quarantine", audit_interval=2,
@@ -3778,19 +3899,21 @@ def integrity_cofactor(kernels) -> dict:
             torch.cuda.empty_cache()
     return dict(leg=label, batch=BATCH, n_batches=N_BATCHES,
                 segment_updates=DURABLE_SEGMENT_UPDATES, audit_interval=2,
-                launches_eager=eager, launches_plans=stream_launches(
-                    build(store_base=True), stream),
+                launches_eager=eager, launches_plans=plans_want,
                 next_segment_after_repair=("replayed" if out["drift"]["eager_steps"][2] == 0
                                            else "captured"),
                 **out, launches=total)
 
 
-def supervisor_phase(kernels, d1_state: dict, i1_bad, i1_want: dict) -> dict:
+def supervisor_phase(kernels, d1_state: dict, i1_bad, i1_masked,
+                     i1_want: dict) -> dict:
     """I3: ``StreamSupervisor`` over D1's configuration with an in-process
     ``mid_segment`` fault (one restart, the log's action ``restart``,
     every leaf equal to D1's uninterrupted run), and over I1's poisoned
     stream under ``strict`` (it escalates to ``quarantine_batch``, every
-    leaf equal to I1's quarantine run)."""
+    leaf equal to I1's quarantine run); each part's launches held to the
+    plans of the updates it ran (``stream_launches``,
+    ``segment_launches``)."""
     import shutil
 
     from repro_torch.checkpoint import StreamCheckpointer
@@ -3817,9 +3940,18 @@ def supervisor_phase(kernels, d1_state: dict, i1_bad, i1_want: dict) -> dict:
             _, restarts, log_d1 = StreamSupervisor(backoff_s=0.0).run(ex, stream)
         finally:
             faults.clear()
-        add_launches(total, {k.name: k.launches for k in kernels})
+        launches = {k.name: k.launches for k in kernels}
+        add_launches(total, launches)
         if restarts != 1 or log_d1[0].get("action") != "restart":
             raise AssertionError(f"{label}: {restarts} restarts, log {log_d1}")
+        # the plans of the 15 updates before the fault and of those the
+        # restart replayed from its snapshot
+        replayed = sum(s["updates"] for s in ex.last_segment_stats)
+        d1_plans = stream_launches(eng, stream[:3 * DURABLE_SEGMENT_UPDATES])
+        add_launches(d1_plans, stream_launches(eng, stream[len(stream) - replayed:]))
+        got = {k: n for k, n in launches.items() if n and ":" not in k}
+        if got != d1_plans:
+            raise AssertionError(f"{label} D1: launches {got}, the plans say {d1_plans}")
         d1_leaves = same_state(f"{label} D1", eng, d1_state)
         ex.release()
         del eng, ex
@@ -3827,15 +3959,27 @@ def supervisor_phase(kernels, d1_state: dict, i1_bad, i1_want: dict) -> dict:
         db, _ = synth_low_fill_db(HOUSING_RELATIONS, HOUSING_DOMS_BIG, q.ring,
                                   np.random.default_rng(SEED), "pc", I1_ACTIVE,
                                   device="cuda")
-        eng = IVMEngine.build(q, db, var_order=housing_vo(), strategy="fivm",
-                              device="cuda")
-        eng.precompile(I1_BATCH)
+
+        def build_i1():
+            eng = IVMEngine.build(q, db, var_order=housing_vo(), strategy="fivm",
+                                  device="cuda")
+            eng.precompile(I1_BATCH)
+            return eng
+
+        eng = build_i1()
         cfg = IntegrityConfig(policy="strict", segment_updates=I1_SEGMENT)
         ex = StreamExecutor(eng, integrity=cfg, checkpoint=StreamCheckpointer(
             str(root / "i1"), segment_updates=I1_SEGMENT))
         reset(kernels)
         _, restarts_i1, log_i1 = StreamSupervisor(backoff_s=0.0).run(ex, i1_bad)
-        add_launches(total, {k.name: k.launches for k in kernels})
+        launches = {k.name: k.launches for k in kernels}
+        add_launches(total, launches)
+        # strict stops at admission, before any launch; the quarantined
+        # restart runs every update, the poisoned rows masked
+        i1_plans = segment_launches(build_i1, i1_masked, ex.last_segment_stats)
+        got = {k: n for k, n in launches.items() if n and ":" not in k}
+        if got != i1_plans:
+            raise AssertionError(f"{label} I1: launches {got}, the plans say {i1_plans}")
         actions = [e.get("action") for e in log_i1 if "action" in e]
         if actions != ["quarantine_batch"] or cfg.policy != "quarantine":
             raise AssertionError(f"{label}: I1 ladder {log_i1}")
@@ -3870,7 +4014,7 @@ def integrity_phase(kernels, laps, d1_state: dict) -> list:
     """The ``integrity`` phase: I1, I2 and I3 (see each), each logged."""
     import torch
 
-    i1, bad, want = integrity_housing(kernels)
+    i1, bad, masked, want = integrity_housing(kernels)
     log(i1)
     torch.cuda.empty_cache()
     laps.lap("integrity I1")
@@ -3878,11 +4022,611 @@ def integrity_phase(kernels, laps, d1_state: dict) -> list:
     log(i2)
     torch.cuda.empty_cache()
     laps.lap("integrity I2")
-    i3 = supervisor_phase(kernels, d1_state, bad, want)
+    i3 = supervisor_phase(kernels, d1_state, bad, masked, want)
     log(i3)
     torch.cuda.empty_cache()
     laps.lap("integrity I3")
     return [i1, i2, i3]
+
+
+#: the serve phase (R1-R3), the reference's serving bench
+#: (benchmarks/bench_serve.py) on the card: R1's point batches and its
+#: latency reads (batches of 256 keys, each ended by one synchronise)
+SERVE_BATCHES = (64, 1024, 8192)
+SERVE_LAT_BATCH, SERVE_LAT_READS = 256, 200
+#: R2, updates under read load: the housing sparse stream (I1's: 12 × 512)
+#: and the degree-10 cofactor stream at RETAILER_DOMS_BIG (12 × 64), each
+#: through ViewServer(segment_updates=4), a reader of 256 keys every 10 ms
+#: in the loaded passes, interleaved best of 5; the reference bench's gate
+R2_COFACTOR_BATCH, R2_BATCHES, R2_SEGMENT = 64, 12, 4
+R2_READ_BATCH, R2_THROTTLE_S, R2_PASSES, R2_GATE = 256, 0.01, 5, 0.9
+#: R3's chaos case: the reader's keys a view, and the longest wait for it
+#: to see the final generation
+R3_KEYS, R3_DEADLINE_S = 256, 30.0
+
+
+def widest_view(eng) -> str:
+    """The served view with the largest key space, as the reference bench
+    picks it; of equally wide views the first by name (the engine's view
+    order varies from process to process)."""
+    return max(sorted(n for n, v in eng.views.items() if v.schema),
+               key=lambda n: math.prod(eng.views[n].domains))
+
+
+def probe_batch(view, active, rng, b: int) -> np.ndarray:
+    """The reference bench's read keys: half the rows from the active key
+    pool, half uniform (mostly misses at sub-percent fill)."""
+    cols = []
+    for v in view.schema:
+        col = rng.integers(0, int(view.domain_of(v)), size=b)
+        if v == "pc":
+            col = np.where(rng.random(b) < 0.5, rng.choice(active, size=b), col)
+        cols.append(col)
+    return np.stack(cols, axis=1).astype(np.int32)
+
+
+def host_tree(tree):
+    """A pytree of tensors as numpy arrays (one copy a leaf)."""
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_map(lambda x: x.detach().cpu().numpy(), tree)
+
+
+def host_leaves(views) -> list:
+    """Every leaf of a view dict, views in name order, as numpy arrays (a
+    sparse view's key table and payload columns)."""
+    from torch.utils import _pytree as pytree
+
+    return [x.detach().cpu().numpy()
+            for n in sorted(views) for x in pytree.tree_leaves(views[n])]
+
+
+def same_reads(label: str, got, want) -> dict:
+    """Raise unless two host read trees are equal: bitwise where the
+    largest magnitude is below 2**24, else within RTOL of it (float sums
+    past 2**24 depend on the order of the atomics).  Returns the counts."""
+    from torch.utils import _pytree as pytree
+
+    a, sa = pytree.tree_flatten(got)
+    b, sb = pytree.tree_flatten(want)
+    if sa != sb:
+        raise AssertionError(f"{label}: read structures differ")
+    out = {"bitwise": 0, "tolerance": 0, "max_rel_err": 0.0}
+    for x, y in zip(a, b):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"{label}: a read has another shape or dtype")
+        scale = float(np.abs(y).max()) if y.size and y.dtype.kind == "f" else 0.0
+        if scale < EXACT_LIMIT:
+            if not np.array_equal(x, y):
+                raise AssertionError(f"{label}: reads differ")
+            out["bitwise"] += 1
+        else:
+            err = float(np.abs(x.astype(np.float64) - y).max()) / scale
+            if err > RTOL:
+                raise AssertionError(f"{label}: reads differ by {err} of their magnitude")
+            out["tolerance"] += 1
+            out["max_rel_err"] = max(out["max_rel_err"], err)
+    return out
+
+
+def view_reads(server, name: str, keys) -> dict:
+    """Every read path over one served view of the newest generation: a
+    point batch, two range sums, a range scan and a top-k, on the host."""
+    S = math.prod(server.registry.latest().views[name].domains)
+    return host_tree(dict(
+        point=server.point(name, keys).data,
+        range_all=server.range_sum(name, 0, S).data,
+        range_part=server.range_sum(name, S // 7, S // 2).data,
+        scan=server.range_scan(name, 0, S, 64).data,
+        top=server.top_k(name, 16).data))
+
+
+def serve_engine(q, db, storage: str, batch: int):
+    from repro_torch.core import IVMEngine
+    from repro_torch.data.synth import housing_vo
+
+    eng = IVMEngine.build(q, db, var_order=housing_vo(), strategy="fivm",
+                          storage=storage, device="cuda")
+    eng.precompile(batch)
+    return eng
+
+
+def serve_reads_leg(kernels) -> dict:
+    """R1: S1's engine (the housing star at pc = 65,536, 512 active, the
+    sum ring, S1's 10 × 64 stream applied through a registry-attached
+    executor) served from its widest ``pc``-keyed view, once with ``auto``
+    storage (a hash table) and once ``dense``.  Every read path of the
+    sparse view equals the dense view's bitwise; a sparse point read is one
+    keyed ``hash_probe`` launch and nothing else of the hand kernels (its
+    counts, and a profiled window listing one ``hash_probe_kernel`` a
+    read); ``point`` (device keys and host keys), ``range_sum``,
+    ``range_scan``, ``top_k`` and a publish make 0 synchronising calls.
+    Then, for each storage, lookups/s of point batches of 64, 1024 and 8192
+    keys (best of 3 × 20, each read ended by a synchronise, the keys drawn
+    as the reference bench draws them) and the p50 / p95 / p99 host ms of
+    200 reads of 256 keys, each ended by ``ReadResult.host()``."""
+    import torch
+    from repro_torch.core import StreamExecutor
+    from repro_torch.core.storage import SparseRelation
+    from repro_torch.data.synth import HOUSING_DOMS_BIG, HOUSING_RELATIONS, synth_low_fill_db
+    from repro_torch.kernels.hash_table import HASH_PROBE, ROUTE_LAUNCHES
+    from repro_torch.serve import ViewServer
+
+    label = "R1_serve_reads"
+    q = housing_query("sum", HOUSING_DOMS_BIG)
+    db, active = synth_low_fill_db(HOUSING_RELATIONS, HOUSING_DOMS_BIG, q.ring,
+                                   np.random.default_rng(SEED), "pc", 512, device="cuda")
+    stream = housing_stream(q, active, 64, 10, SEED + 1)
+    servers, total = {}, {}
+    for storage in ("dense", "auto"):
+        eng = serve_engine(q, db, storage, 64)
+        ex = StreamExecutor(eng)
+        servers[storage] = ViewServer(ex)
+        reset(kernels)
+        ex.run(stream)
+        add_launches(total, {k.name: k.launches for k in kernels})
+        ex.release()
+    name = widest_view(servers["auto"].engine)
+    if not isinstance(servers["auto"].engine.views[name], SparseRelation) or isinstance(
+            servers["dense"].engine.views[name], SparseRelation):
+        raise AssertionError(f"{label}: {name} is not a hash table under auto "
+                             f"and dense under dense")
+    sparse, dense = servers["auto"], servers["dense"]
+    view = sparse.engine.views[name]
+    rng = np.random.default_rng(SEED + 3)
+    keys = probe_batch(view, active, rng, 1000)
+    keys[-3:] = -1  # padding rows read ring zero
+    got, want = view_reads(sparse, name, keys), view_reads(dense, name, keys)
+    # top-k places equal values by position, a slot in the table and a key
+    # in the dense view: its values are held bitwise, its keys by reading
+    # them back from the dense view
+    top_keys = got["top"].pop("keys")
+    want["top"].pop("keys")
+    equal = same_reads(f"{label} sparse vs dense", got, want)
+    back = dense.point(name, top_keys).host()["v"]
+    valid = got["top"]["valid"]
+    if equal["tolerance"] or not np.array_equal(back[valid], got["top"]["values"][valid]):
+        raise AssertionError(f"{label}: sparse reads not bitwise to dense: {equal}")
+    dkeys = torch.from_numpy(probe_batch(view, active, rng, SERVE_LAT_BATCH)).to("cuda")
+    # synchronising calls of each read path and of a publish (warmed first)
+    S = math.prod(view.domains)
+    paths = dict(point_device_keys=lambda: sparse.point(name, dkeys),
+                 point_host_keys=lambda: sparse.point(name, keys),
+                 range_sum=lambda: sparse.range_sum(name, 0, S),
+                 range_scan=lambda: sparse.range_scan(name, 0, S, 64),
+                 top_k=lambda: sparse.top_k(name, 16),
+                 publish=lambda: sparse.registry.publish(sparse.engine.views))
+    syncs = {}
+    for path, fn in paths.items():
+        fn()
+        _, syncs[path], sites = count_syncs(fn)
+        if syncs[path]:
+            raise AssertionError(f"{label}: {path} synchronised at {sites}")
+    # a sparse point read: one keyed probe, no other hand kernel
+    sparse.point(name, dkeys)
+    torch.cuda.synchronize()
+    reset(kernels)
+    sparse.point(name, dkeys)
+    torch.cuda.synchronize()
+    one = {k.name: k.launches for k in kernels if k.launches}
+    if one != {"hash_probe": 1, "hash_probe:keys": 1}:
+        raise AssertionError(f"{label}: a sparse point read launched {one}")
+    before = (HASH_PROBE.launches, ROUTE_LAUNCHES["hash_probe:keys"].launches)
+    events, windows = listed_launches(lambda: sparse.point(name, dkeys),
+                                      "hash_probe_kernel", 20, f"{label} point")
+    probes = sum("hash_probe_kernel" in e.name for e in events)
+    after = (HASH_PROBE.launches, ROUTE_LAUNCHES["hash_probe:keys"].launches)
+    if probes != 20 or any(a - b != 20 * windows for a, b in zip(after, before)):
+        raise AssertionError(f"{label}: {probes} probe kernels listed, launches "
+                             f"{before} -> {after} for 20 reads a window")
+    out = dict(view=name, view_capacity=view.capacity, reads_equal=equal,
+               point_launches=one, point_device_events=len(events) / 20,
+               syncs=syncs, throughput={}, latency={})
+    for storage, server in servers.items():
+        backend = "sparse" if storage == "auto" else "dense"
+        rates = {}
+        for b in SERVE_BATCHES:
+            bkeys = probe_batch(view, active, rng, b)
+            server.point(name, bkeys)
+            torch.cuda.synchronize()
+            best = float("inf")
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    server.point(name, bkeys)
+                    torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t0)
+            rates[b] = b * 20 / best
+        out["throughput"][backend] = {"lookups_per_s": rates}
+        batches = [probe_batch(view, active, rng, SERVE_LAT_BATCH) for _ in range(8)]
+        for k in batches:
+            server.point(name, k).host()
+        lat = []
+        for i in range(SERVE_LAT_READS):
+            t0 = time.perf_counter()
+            server.point(name, batches[i % len(batches)]).host()
+            lat.append(time.perf_counter() - t0)
+        out["latency"][backend] = {f"p{p}_ms": 1e3 * float(np.percentile(lat, p))
+                                   for p in (50, 95, 99)}
+    return dict(leg=label, batch=64, n_batches=10, n_active=512, **out,
+                launches=total)
+
+
+def read_load_pass(ex, server, name, keys, stream, kernels, mode: str,
+                   reader_stream=None) -> dict:
+    """One R2 pass: ``stream`` through the registry-attached executor ``ex``
+    (its state restored after).  ``mode`` ``"loaded"`` runs a reader
+    thread on ``reader_stream`` reading ``keys`` from the newest generation
+    every ``R2_THROTTLE_S``; ``"sleeper"`` a thread that wakes as often
+    and reads nothing (the thread's own cost); ``"unloaded"`` no thread.
+    Returns the wall, the reads, the publishes' seconds, the launches and
+    the segments."""
+    import threading
+
+    import torch
+
+    eng = ex.engine
+    saved = (dict(eng.views), dict(eng.base), dict(eng.indicators))
+    stop, errors, reads = threading.Event(), [], [0]
+
+    def reader():
+        try:
+            with torch.cuda.stream(reader_stream):
+                while not stop.is_set():
+                    if mode == "loaded":
+                        server.point(name, keys).host()
+                        reads[0] += 1
+                    time.sleep(R2_THROTTLE_S)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    thread = (threading.Thread(target=reader, daemon=True) if mode != "unloaded"
+              else None)
+    reset(kernels)
+    torch.cuda.synchronize()
+    if thread is not None:
+        thread.start()
+    t0 = time.perf_counter()
+    try:
+        ex.run(stream)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        stop.set()
+        if thread is not None:
+            thread.join(timeout=60)
+    if thread is not None and thread.is_alive():
+        raise AssertionError("R2: the reader thread did not stop")
+    if errors:
+        raise errors[0]
+    launches = {k.name: k.launches for k in kernels}
+    segs = ex.last_segment_stats
+    eng.set_state(saved)
+    # where a pass's host seconds go: admission, the segments' runs (of
+    # which capture, warm-up and replay dispatch), the publishes
+    parts = {key: sum(s[key] for s in segs) for key in ("admit_s", "dispatch_s",
+                                                         "publish_s")}
+    parts.update({key: sum(s["run"].get(key, 0.0) for s in segs)
+                  for key in ("capture_s", "replay_host_s")})
+    return dict(wall=wall, reads=reads[0], launches=launches, segments=len(segs),
+                stats=segs, publish_s=parts["publish_s"], parts=parts,
+                generations=[s["generation"] for s in segs])
+
+
+def serve_load_leg(kernels) -> dict:
+    """R2: the reference bench's gated leg at the card's state.  The
+    housing sparse stream (pc = 65,536, 512 active, I1's 12 × 512) and the
+    degree-10 cofactor stream at ``RETAILER_DOMS_BIG`` (I2's database and
+    engine, 12 × 64), each through ``ViewServer(segment_updates=4)`` on two
+    engines: unloaded, loaded by a reader thread on a CUDA stream of its
+    own reading 256 keys of the widest view from the newest generation
+    every 10 ms, and a "sleeper" thread that wakes as often and reads
+    nothing (what the thread alone costs).  A warm pass each, then best of
+    5 in turns, the state restored between passes.  Each pass's launches are held to the plans
+    (``stream_launches``): the unloaded exactly, the loaded for every
+    kernel but ``hash_probe``, which the reads add to.  Reports loaded and
+    unloaded tuples/s, their ratio beside the reference's 0.9 gate (a
+    ratio below it is a finding, not a failure), reads/s and the publishes'
+    seconds a pass."""
+    import torch
+    from repro_torch.core import IVMEngine, StreamExecutor, plan
+    from repro_torch.core.apps import regression
+    from repro_torch.data import synth
+    from repro_torch.serve import ViewServer
+
+    label = "R2_serve_load"
+    hq = housing_query("sum", synth.HOUSING_DOMS_BIG)
+    hdb, active = synth.synth_low_fill_db(
+        synth.HOUSING_RELATIONS, synth.HOUSING_DOMS_BIG, hq.ring,
+        np.random.default_rng(SEED), "pc", I1_ACTIVE, device="cuda")
+    hstream = synth.update_stream(synth.HOUSING_RELATIONS, synth.HOUSING_DOMS_BIG, hq.ring,
+                                  np.random.default_rng(SEED + 1), I1_BATCH, R2_BATCHES,
+                                  key_pools={"pc": active}, device="cuda")
+    doms, rels = synth.RETAILER_DOMS_BIG, synth.RETAILER_RELATIONS
+    cq = regression.cofactor_query(rels, doms)
+    cdb = synth.synth_db(rels, doms, cq.ring, np.random.default_rng(SEED), device="cuda")
+    cstream = synth.update_stream(rels, doms, cq.ring, np.random.default_rng(SEED + 2),
+                                  R2_COFACTOR_BATCH, R2_BATCHES, device="cuda")
+
+    def housing():
+        return serve_engine(hq, hdb, "auto", I1_BATCH)
+
+    def cofactor():
+        eng = IVMEngine.build(cq, cdb, var_order=synth.retailer_vo(), strategy="fivm",
+                              device="cuda")
+        eng.precompile(R2_COFACTOR_BATCH)
+        return eng
+
+    out, total = {}, {}
+    with plan.use_fusion("auto"):
+        for dataset, build, stream, pool in (
+                ("housing_sparse_pc65536", housing, hstream, active),
+                ("retailer_cofactor_m10", cofactor, cstream, np.arange(4))):
+            execs, servers = {}, {}
+            for mode in ("unloaded", "loaded", "sleeper"):
+                execs[mode] = StreamExecutor(build())
+                servers[mode] = ViewServer(execs[mode], segment_updates=R2_SEGMENT)
+            eng = execs["loaded"].engine
+            name = widest_view(eng)
+            keys = probe_batch(eng.views[name], pool, np.random.default_rng(SEED + 3),
+                               R2_READ_BATCH)
+            # the reader's stream lives as long as the server, as a serving
+            # process's would: its allocations are cached after the warm pass
+            reader_stream = torch.cuda.Stream()
+            for mode in execs:  # warm: captures, kernel loads, read paths
+                warm = read_load_pass(execs[mode], servers[mode], name, keys, stream,
+                                      kernels, mode, reader_stream)
+            plans = segment_launches(build, stream, warm["stats"])
+            best: dict = {}
+            for _ in range(R2_PASSES):
+                for mode in execs:
+                    p = read_load_pass(execs[mode], servers[mode], name, keys, stream,
+                                       kernels, mode, reader_stream)
+                    add_launches(total, p["launches"])
+                    got = {k: n for k, n in p["launches"].items() if n and ":" not in k}
+                    if mode != "loaded":
+                        ok = got == plans
+                    else:
+                        reads = got.pop("hash_probe", 0)
+                        ok = ({k: n for k, n in got.items()}
+                              == {k: n for k, n in plans.items() if k != "hash_probe"}
+                              and reads >= plans.get("hash_probe", 0))
+                    if not ok:
+                        raise AssertionError(f"{label} {dataset} {mode}: launches "
+                                             f"{p['launches']}, the plans say {plans}")
+                    if p["segments"] < R2_BATCHES // R2_SEGMENT:
+                        raise AssertionError(f"{label} {dataset}: {p['segments']} segments")
+                    if mode not in best or p["wall"] < best[mode]["wall"]:
+                        best[mode] = p
+            for p in best.values():
+                del p["stats"]
+            n_tuples = sum(upd.batch for _, upd in stream)
+            un, lo, sl = best["unloaded"], best["loaded"], best["sleeper"]
+            out[dataset] = dict(
+                batch=stream[0][1].batch, n_batches=len(stream), served_view=name,
+                segments=lo["segments"], launches_plans=plans,
+                tuples_per_s_unloaded=n_tuples / un["wall"],
+                tuples_per_s_loaded=n_tuples / lo["wall"],
+                loaded_over_unloaded=un["wall"] / lo["wall"], gate=R2_GATE,
+                meets_gate=un["wall"] / lo["wall"] >= R2_GATE,
+                sleeper_over_unloaded=un["wall"] / sl["wall"],
+                reads_per_s=lo["reads"] / lo["wall"],
+                read_lookups_per_s=lo["reads"] * R2_READ_BATCH / lo["wall"],
+                reads=lo["reads"], publish_s_per_pass_loaded=lo["publish_s"],
+                publish_s_per_pass_unloaded=un["publish_s"],
+                pass_parts={m: best[m]["parts"] for m in best})
+            for ex in execs.values():
+                ex.release()
+            del execs, servers, eng
+            torch.cuda.empty_cache()
+    return dict(leg=label, segment_updates=R2_SEGMENT, read_batch=R2_READ_BATCH,
+                throttle_s=R2_THROTTLE_S, passes=R2_PASSES, **out, launches=total)
+
+
+def serve_consistency_leg(kernels) -> dict:
+    """R3: (a) the housing sparse stream and the cofactor stream of R2 through
+    ``ViewServer(retain=32, segment_updates=4)``: every generation, read
+    under ``pin(g)`` (every view: a point batch and a ``range_sum`` over its
+    key space) and leaf by leaf, equals a fresh engine that replayed
+    ``stream[:offset]`` (the sum ring bitwise, the cofactor ring bitwise
+    below 2**24, else within RTOL); the housing runs' launches equal their
+    plans.  (b) The chaos case: D2's growing housing stream (tables rehash
+    between segments, so segments capture their graphs anew) under a
+    checkpoint and a registry, every 5 updates, with a reader thread on a
+    CUDA stream of its own reading every view of each generation it sees
+    under a pin, while the run takes a ``mid_segment`` fault and an
+    in-process ``resume``: every generation it saw equals a fresh engine
+    replayed to that generation's offset."""
+    import shutil
+    import threading
+
+    import torch
+    from repro_torch.checkpoint import StreamCheckpointer
+    from repro_torch.core import IVMEngine, StreamExecutor, plan
+    from repro_torch.core.apps import regression
+    from repro_torch.data import synth
+    from repro_torch.runtime import faults
+    from repro_torch.serve import ViewServer
+
+    label = "R3_serve_consistency"
+    root = SNAPSHOT_DIR / "serve_chaos"
+    shutil.rmtree(root, ignore_errors=True)
+    hq = housing_query("sum", synth.HOUSING_DOMS_BIG)
+    hdb, active = synth.synth_low_fill_db(
+        synth.HOUSING_RELATIONS, synth.HOUSING_DOMS_BIG, hq.ring,
+        np.random.default_rng(SEED), "pc", I1_ACTIVE, device="cuda")
+    hstream = synth.update_stream(synth.HOUSING_RELATIONS, synth.HOUSING_DOMS_BIG, hq.ring,
+                                  np.random.default_rng(SEED + 1), I1_BATCH, R2_BATCHES,
+                                  key_pools={"pc": active}, device="cuda")
+    doms, rels = synth.RETAILER_DOMS_BIG, synth.RETAILER_RELATIONS
+    cq = regression.cofactor_query(rels, doms)
+    cdb = synth.synth_db(rels, doms, cq.ring, np.random.default_rng(SEED), device="cuda")
+    cstream = synth.update_stream(rels, doms, cq.ring, np.random.default_rng(SEED + 2),
+                                  R2_COFACTOR_BATCH, R2_BATCHES, device="cuda")
+
+    def cofactor():
+        eng = IVMEngine.build(cq, cdb, var_order=synth.retailer_vo(), strategy="fivm",
+                              device="cuda")
+        eng.precompile(R2_COFACTOR_BATCH)
+        return eng
+
+    def probe(eng, pool) -> dict:
+        rng = np.random.default_rng(SEED + 4)
+        return {n: (probe_batch(v, pool, rng, R3_KEYS) if v.schema
+                    else np.zeros((R3_KEYS, 0), np.int32))
+                for n, v in eng.views.items()}
+
+    def reads(src, keys) -> dict:
+        """Every view's point batch and whole-range sum, from a server's
+        newest generation or a pinned one."""
+        return {n: host_tree((src.point(n, k).data, src.range_sum(n, 0, 1 << 30).data))
+                for n, k in sorted(keys.items())}
+
+    def offline(build, stream, offset, keys) -> dict:
+        eng = build()
+        if offset:
+            ex = StreamExecutor(eng)
+            ex.run(stream[:offset])
+            ex.release()
+        return eng, reads(ViewServer(StreamExecutor(eng)), keys)
+
+    out, total = {}, {}
+    with plan.use_fusion("auto"):
+        for dataset, build, stream, pool in (
+                ("housing_sparse_pc65536", lambda: serve_engine(hq, hdb, "auto", I1_BATCH),
+                 hstream, active),
+                ("retailer_cofactor_m10", cofactor, cstream, np.arange(4))):
+            eng = build()
+            ex = StreamExecutor(eng)
+            server = ViewServer(ex, retain=32, segment_updates=R2_SEGMENT)
+            keys = probe(eng, pool)
+            reset(kernels)
+            ex.run(stream)
+            launches = {k.name: k.launches for k in kernels}
+            add_launches(total, launches)
+            got_l = {k: n for k, n in launches.items() if n and ":" not in k}
+            want_l = segment_launches(build, stream, ex.last_segment_stats)
+            if got_l != want_l:
+                raise AssertionError(f"{label} {dataset}: launches {got_l}, the plans "
+                                     f"say {want_l}")
+            reg = server.registry
+            checked = {"bitwise": 0, "tolerance": 0, "max_rel_err": 0.0}
+            gens = []
+            for g in range(reg.generation + 1):
+                with server.pin(g) as p:
+                    snap = reg.get(g)
+                    ref_eng, want = offline(build, stream, snap.offset, keys)
+                    res = same_reads(f"{label} {dataset} generation {g}",
+                                     reads(p, keys), want)
+                    leaves = same_reads(
+                        f"{label} {dataset} generation {g} leaves",
+                        host_leaves(snap.views), host_leaves(ref_eng.views))
+                    for r in (res, leaves):
+                        checked["bitwise"] += r["bitwise"]
+                        checked["tolerance"] += r["tolerance"]
+                        checked["max_rel_err"] = max(checked["max_rel_err"],
+                                                     r["max_rel_err"])
+                    gens.append([g, p.offset, snap.segment])
+                    del ref_eng
+            if reg.latest().offset != len(stream) or len(gens) != 1 + len(
+                    ex.last_segment_stats):
+                raise AssertionError(f"{label} {dataset}: generations {gens}")
+            out[dataset] = dict(generations=gens, compared=checked)
+            ex.release()
+            del eng, ex, server
+            torch.cuda.empty_cache()
+        # (b) the chaos case on D2's growing stream
+        _, _, gdb, gstream, gbuild = housing_growth_case()
+        eng = gbuild()
+        ck = StreamCheckpointer(str(root), segment_updates=DURABLE_SEGMENT_UPDATES)
+        ex = StreamExecutor(eng, checkpoint=ck)
+        server = ViewServer(ex, segment_updates=DURABLE_SEGMENT_UPDATES)
+        pool = np.unique(np.concatenate([upd.keys[:, upd.schema.index("pc")].cpu().numpy()
+                                         for _, upd in gstream]))
+        keys = probe(eng, pool)
+        reads(server, keys)  # warm the read paths on the first layout
+        seen, errors, stop = {}, [], threading.Event()
+
+        def reader():
+            try:
+                with torch.cuda.stream(torch.cuda.Stream()):
+                    while not stop.is_set():
+                        with server.pin() as p:
+                            if p.generation not in seen:
+                                seen[p.generation] = (p.offset, reads(p, keys))
+                        time.sleep(0.001)
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        thread = threading.Thread(target=reader, daemon=True)
+        reset(kernels)
+        thread.start()
+        try:
+            with faults.inject("mid_segment", at=1) as inj:
+                try:
+                    ex.resume(gstream)
+                except faults.InjectedFault:
+                    pass
+            first = [dict(s) for s in ex.last_segment_stats]
+            ex.resume(gstream)
+            torch.cuda.synchronize()
+            deadline = time.time() + R3_DEADLINE_S
+            while server.registry.generation not in seen and time.time() < deadline:
+                time.sleep(0.005)
+        finally:
+            stop.set()
+            thread.join(timeout=60)
+        add_launches(total, {k.name: k.launches for k in kernels})
+        if thread.is_alive() or errors:
+            raise AssertionError(f"{label}: the reader failed: {errors}")
+        if not inj.fired:
+            raise AssertionError(f"{label}: the mid_segment fault never fired")
+        resumed = ex.last_segment_stats
+        grew = [s["segment"] for s in first + resumed if s["grow"]]
+        # a later segment of either run that warmed and captured its graphs
+        # (a rehash changed its signature) while the reader ran
+        recaptured = [[run, s["segment"]] for run, segs in (("first", first),
+                                                             ("resumed", resumed))
+                      for s in segs[1:] if s["run"].get("eager_steps", 0)]
+        offsets = sorted({off for off, _ in seen.values()})
+        if len(seen) < 2 or offsets[-1] != len(gstream) or not grew or not recaptured:
+            raise AssertionError(f"{label}: generations seen {sorted(seen)} at offsets "
+                                 f"{offsets}, growth at {grew}, recaptures {recaptured}")
+        ex.release()
+        del eng, ex
+        torch.cuda.empty_cache()
+        checked = {"bitwise": 0, "tolerance": 0, "max_rel_err": 0.0}
+        offline_reads = {}
+        for g, (offset, got) in sorted(seen.items()):
+            if offset not in offline_reads:
+                ref_eng, offline_reads[offset] = offline(gbuild, gstream, offset, keys)
+                del ref_eng
+            r = same_reads(f"{label} chaos generation {g}", got, offline_reads[offset])
+            checked["bitwise"] += r["bitwise"]
+            checked["tolerance"] += r["tolerance"]
+            checked["max_rel_err"] = max(checked["max_rel_err"], r["max_rel_err"])
+        restored = [g for g, s in server.registry._snaps.items()
+                    if s.meta.get("restored")]
+        out["chaos_housing_growth"] = dict(
+            fault=inj.fired[0][:2], generations_seen=len(seen), offsets_seen=offsets,
+            grew_at_segments=grew, recaptured_segments=recaptured,
+            restored_generations_retained=restored, compared=checked)
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(leg=label, **out, launches=total)
+
+
+def serve_phase(kernels, laps) -> list:
+    """The ``serve`` phase: R1, R2 and R3 (see each), each logged."""
+    import torch
+
+    legs = []
+    for fn, lap in ((serve_reads_leg, "serve R1"), (serve_load_leg, "serve R2"),
+                    (serve_consistency_leg, "serve R3")):
+        legs.append(fn(kernels))
+        log(legs[-1])
+        torch.cuda.empty_cache()
+        laps.lap(lap)
+    return legs
 
 
 def main() -> int:
@@ -4001,6 +4745,10 @@ def main() -> int:
     durable, d1_state = durable_phase(kernels, laps)
     integrity = integrity_phase(kernels, laps, d1_state)
     del d1_state
+    # the serving plane against running segmented streams: reads (R1),
+    # updates under read load (R2), generation consistency and the chaos
+    # case (R3)
+    serve = serve_phase(kernels, laps)
     # the kernel-ops layer: the ring product on engine state (B), streaming
     # statistics (A) and rank-1 matrix-chain deltas (C)
     paths = [ring_product_path(kept, kernels)]
@@ -4028,7 +4776,7 @@ def main() -> int:
         run[key] for run in paths
         for key in ("launches_float32", "launches_float32_reduced", "launches_int",
                     "launches_sparse")
-        if key in run] + [leg["launches"] for leg in durable + integrity]
+        if key in run] + [leg["launches"] for leg in durable + integrity + serve]
     launched = {k.name: sum(r.get(k.name, 0) for r in runs) for k in kernels}
     if not all(launched[k.name] for k in built):
         raise AssertionError(f"a kernel launched on no path: {launched}")

@@ -673,8 +673,8 @@ class StreamExecutor:
         self.last_shared_ops: tuple = ()
         self.last_run_stats: dict = {}
         #: per segment of the last segmented run: steps, grown capacities,
-        #: admission, dispatch, audit and save host seconds, the straggler
-        #: verdict, and the run's stats
+        #: admission, dispatch, audit, publish and save host seconds, the
+        #: published generation, the straggler verdict, and the run's stats
         self.last_segment_stats: list = []
 
     def _integrity_active(self) -> bool:

@@ -2037,3 +2037,206 @@ def test_cuda_strict_admission_reads_the_host_once_a_segment(cuda_device):
                 torch.cuda.set_sync_debug_mode(0)
         syncs = [w for w in caught if "synchronizing" in str(w.message)]
         assert len(syncs) == want, (policy, [str(w.message) for w in syncs])
+
+
+# ---------------------------------------------------------------------------
+# the serving plane on the card
+# ---------------------------------------------------------------------------
+def _served_housing(dev, storage="auto", retain=2, **kw):
+    """The housing star at pc = 4,096 (``auto``: six hash tables) after its
+    stream ran through a registry-attached executor: (engine, executor,
+    server, the first ``pc``-keyed view by name)."""
+    from repro_torch.core import StreamExecutor
+    from repro_torch.serve import ViewServer
+
+    q, db, stream = _housing_sparse(dev, **kw)
+    eng = _housing_engine(q, db, dev, storage=storage)
+    ex = StreamExecutor(eng)
+    server = ViewServer(ex, retain=retain)
+    ex.run(stream)
+    name = sorted(n for n, v in eng.views.items() if v.schema)[0]
+    return eng, ex, server, name
+
+
+def _host(tree):
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_map(lambda x: x.detach().cpu().numpy(), tree)
+
+
+def _assert_host_equal(a, b, where=""):
+    from torch.utils import _pytree as pytree
+
+    la, sa = pytree.tree_flatten(a)
+    lb, sb = pytree.tree_flatten(b)
+    assert sa == sb, where
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype, where
+        np.testing.assert_array_equal(x, y, err_msg=where)
+
+
+@pytest.mark.parametrize("storage", ["auto", "dense"])
+def test_cuda_serve_reads_make_no_synchronising_call(cuda_device, storage):
+    """``point`` (device and host keys), ``range_sum``, ``range_scan``,
+    ``top_k`` and a publish make no synchronising call on the card
+    (``set_sync_debug_mode("error")``), and every read equals the CPU
+    engine's, top-k ties in the same order (the tables are equal slot for
+    slot)."""
+    out = {}
+    for dev in ("cpu", cuda_device):
+        eng, ex, server, name = _served_housing(dev, storage)
+        keys = np.concatenate([np.arange(0, 4096, 37), [-1, -1]])[:, None].astype(np.int32)
+        dkeys = torch.from_numpy(keys).to(dev)
+        paths = (lambda: server.point(name, dkeys), lambda: server.point(name, keys),
+                 lambda: server.range_sum(name, 0, 4096),
+                 lambda: server.range_scan(name, 100, 3000, 32),
+                 lambda: server.top_k(name, 8))
+        for fn in paths:  # warm: pinned buffers, first-use allocations
+            fn()
+        if dev == "cpu":
+            reads = [fn().data for fn in paths]
+        else:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                reads = [fn().data for fn in paths]
+                server.registry.publish(eng.views)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        out[str(dev)] = _host(reads)
+        ex.release()
+    _assert_host_equal(out[str(cuda_device)], out["cpu"])
+
+
+def test_cuda_sparse_point_read_is_one_keyed_probe(cuda_device):
+    """A point read of a hash-table view launches one keyed ``hash_probe``
+    and no other hand kernel: the wrappers' counts, and the profiler lists
+    one ``hash_probe_kernel`` a read."""
+    from repro_torch.kernels import hash_table
+
+    eng, ex, server, name = _served_housing(cuda_device)
+    from repro_torch.core.storage import SparseRelation
+
+    assert isinstance(eng.views[name], SparseRelation)
+    keys = torch.arange(0, 4096, 16, dtype=torch.int32, device=cuda_device)[:, None]
+    server.point(name, keys)
+    others = [ring_scatter.SCATTER_ADD, ring_scatter.SCATTER_DEDUP,
+              ring_scatter.GATHER_MUL_SCATTER, tsegsum.SEGMENT_RING_SUM,
+              ring_fused.FUSED_CHAIN, hash_table.HASH_INSERT]
+    before = ([k.launches for k in others], hash_table.HASH_PROBE.launches,
+              hash_table.ROUTE_LAUNCHES["hash_probe:keys"].launches)
+    events, windows = _listed_kernels(lambda: server.point(name, keys), 10)
+    assert sum("hash_probe_kernel" in e.name for e in events) == 10
+    assert [k.launches for k in others] == before[0]
+    assert hash_table.HASH_PROBE.launches - before[1] == 10 * windows
+    assert hash_table.ROUTE_LAUNCHES["hash_probe:keys"].launches - before[2] == 10 * windows
+    ex.release()
+
+
+def test_cuda_evicted_generation_read_in_flight_stays_correct(cuda_device):
+    """A read of generation g queued on a side stream behind a long kernel,
+    while the producer's stream evicts g (``retain=1``) and allocates and
+    fills memory of g's size: the read still sees g, because it marked g's
+    tensors as used on its stream (``record_stream``), so the caching
+    allocator does not hand g's block to the producer's stream before the
+    read has run.  (The view has a size of its own, 12,000,068 bytes, so
+    the allocator's best fit for the fill is g's block.)"""
+    from types import SimpleNamespace
+
+    from repro_torch.core import DenseRelation
+    from repro_torch.serve import ViewServer
+
+    n = 3_000_017
+    ring = sum_ring()
+    views = {"X": DenseRelation(("A",), ring, {"v": torch.ones(n, device=cuda_device)})}
+    ex = SimpleNamespace(engine=SimpleNamespace(views=views), last_segment_stats=[],
+                         stragglers=SimpleNamespace(baseline=None))
+    server = ViewServer(ex, retain=1)
+    keys = torch.arange(0, n, n // 512, dtype=torch.int32, device=cuda_device)[:, None]
+    snap = server.registry.latest()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):  # warm the read's own allocations
+        server.point("X", keys, snapshot=snap)
+    # six cached blocks of the view's size: from here on no allocation of
+    # that size calls cudaMalloc, which would wait for the whole device and
+    # so order the read before the fills below
+    warm = [torch.empty((n,), device=cuda_device) for _ in range(6)]
+    del warm
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)  # the read waits behind this on its stream
+        res = server.point("X", keys, snapshot=snap)
+    g = snap.generation
+    del snap
+    server.registry.publish(views)  # evicts g on the producer's stream
+    with pytest.raises(LookupError):
+        server.registry.get(g)
+    junk = [torch.full((n,), 7.0, device=cuda_device) for _ in range(6)]
+    side.synchronize()
+    assert torch.equal(res.data["v"].cpu(), torch.ones(keys.shape[0]))
+    del junk
+
+
+def test_cuda_reader_stays_live_across_a_recapture(cuda_device):
+    """A reader thread on its own CUDA stream reads every view of each new
+    generation under a pin while a growing stream runs as capacity segments
+    (each rehash recompiles and captures its graphs anew, in thread-local
+    capture mode): no error, and every generation it saw equals the CPU
+    executor's state at that generation's offset, read the same way."""
+    import threading
+    import time
+
+    from repro_torch.core import StreamExecutor
+    from repro_torch.serve import ViewServer
+
+    def served(dev):
+        q, db, stream = _housing_sparse(dev, pool_extra=1024 - 128, batch=200)
+        eng = IVMEngine.build(q, db, var_order=synth.housing_vo(), device=dev)
+        return eng, stream
+
+    eng, stream = served(cuda_device)
+    ex = StreamExecutor(eng)
+    server = ViewServer(ex, retain=64, segment_updates=3)
+    keys = {n: (np.arange(0, 4096, 13)[:, None] if v.schema else np.zeros((8, 0)))
+            .astype(np.int32) for n, v in eng.views.items()}
+
+    def reads(src):
+        return {n: _host((src.point(n, k).data, src.range_sum(n, 0, 1 << 30).data))
+                for n, k in sorted(keys.items())}
+
+    reads(server)
+    seen, errors, stop = {}, [], threading.Event()
+
+    def reader():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                while not stop.is_set():
+                    with server.pin() as p:
+                        if p.generation not in seen:
+                            seen[p.generation] = (p.offset, reads(p))
+                    time.sleep(0.001)
+        except BaseException as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    t = threading.Thread(target=reader, daemon=True)
+    t.start()
+    try:
+        ex.run(stream)
+        torch.cuda.synchronize()
+        deadline = time.time() + 30
+        while server.registry.generation not in seen and time.time() < deadline:
+            time.sleep(0.005)
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not t.is_alive() and not errors, errors
+    stats = ex.last_segment_stats
+    assert any(s["grow"] for s in stats)
+    assert any(s["run"]["eager_steps"] for s in stats[1:])  # a recapture
+    assert len(seen) >= 2 and max(off for off, _ in seen.values()) == len(stream)
+    ex.release()
+    for g, (offset, got) in sorted(seen.items()):
+        ref, ref_stream = served("cpu")
+        if offset:
+            StreamExecutor(ref).run(ref_stream[:offset])
+        _assert_host_equal(got, reads(ViewServer(StreamExecutor(ref))), f"generation {g}")

@@ -36,7 +36,7 @@ from repro_torch.analysis import verifier  # noqa: E402
 from repro_torch.core import IVMEngine, Query, sum_ring  # noqa: E402
 from repro_torch.core import plan as plan_mod  # noqa: E402
 from repro_torch.core.apps import conjunctive, matrix_chain, regression  # noqa: E402
-from repro_torch.core.plan import FusedChain, Gather, Marginalize, ScatterAccum  # noqa: E402
+from repro_torch.core.plan import FusedChain, ScatterAccum  # noqa: E402
 from repro_torch.core.rings import MulTerm, Ring  # noqa: E402
 from repro_torch.core.variable_orders import chain  # noqa: E402
 from repro_torch.data import synth  # noqa: E402
@@ -481,10 +481,11 @@ def test_verify_amortized_to_zero_on_cache_hits(plain_env):
 def test_verify_overhead_small_vs_compile(plain_env):
     """The port's verifier stays a cheap pure-Python pass a plan — the guard
     against device work or a super-linear rule on the compile path.  The
-    ceiling, 1e-3 s a plan, is 10× the largest of 30 measurements on the
-    CPU container the suite runs on under six pytest-xdist workers (9.2e-5
-    s a plan; 6.0e-5 s alone); the reference's guard holds its own package
-    at 1e-4 s."""
+    ceiling, 1e-3 s a plan, is 11.8× the largest of 30 measurements of this
+    loop on the CPU container the suite runs on, taken while six
+    pytest-xdist workers ran port tests (8.5e-5 s a plan, median 7.1e-5;
+    alone 6.6e-5, median 4.8e-5); the reference's guard holds its own
+    package at 1e-4 s."""
     eng = _regression_engine(storage="dense")
     with verifier.use_verify("on"):
         eng.plans.lookup_sig(eng, "R", ("coo", ("A", "B"), 2))  # warm-up

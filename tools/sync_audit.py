@@ -33,7 +33,11 @@ active postcodes, batches of 512, ``segment_updates=4``; phase
 ``quarantine`` (validation, and the capacity re-audit against live
 occupancy that ``capacity_degrade`` adds), one audited Reevaluate pass, one
 non-final boundary save, and one replay-only executor run, each after a
-warm-up call.  Last, the LM decode step (``lm_decode``, the reduced
+warm-up call.  Where the tree has the serving plane, its read paths over
+the housing star at pc = 65,536 (512 active postcodes, served with ``auto``
+storage, a hash table, and ``dense``; phase ``serve_reads``): ``point``
+with device and with host keys, ``range_sum``, ``range_scan``, ``top_k``
+and a registry publish, each after a warm-up call.  Last, the LM decode step (``lm_decode``, the reduced
 llama3.2-1b config on 2 prompts of 33 tokens, its token already on the
 card): one warm-up step, then one audited step (phase ``lm_decode_step``).
 Card only.
@@ -169,6 +173,8 @@ def worker(tree: Path) -> None:
         _triangle_phase(tree)
     if (tree / "src" / "repro_torch" / "runtime" / "integrity.py").exists():
         _integrity_durable_phase(tree)
+    if (tree / "src" / "repro_torch" / "serve").exists():
+        _serve_reads_phase(tree)
     _decode_phase(tree)
 
 
@@ -245,6 +251,54 @@ def _integrity_durable_phase(tree: Path) -> None:
     print(json.dumps(dict(root=str(tree), phase="integrity_durable", batch=512,
                           segment_updates=4, **out)), flush=True)
     del eng, db, stream
+    torch.cuda.empty_cache()
+
+
+def _serve_reads_phase(tree: Path) -> None:
+    """The synchronising calls of the serving plane's read paths and of a
+    publish: the housing star at pc = 65,536 (512 active postcodes, S1's
+    10 batches of 64 run through a registry-attached executor), served
+    from its first ``pc``-keyed view by name, with ``auto`` storage (a hash
+    table) and ``dense``; each path called once to warm, then audited."""
+    import torch
+    from repro_torch.core import IVMEngine, Query, StreamExecutor, sum_ring
+    from repro_torch.data import synth
+    from repro_torch.serve import ViewServer
+
+    doms, rels = synth.HOUSING_DOMS_BIG, synth.HOUSING_RELATIONS
+    q = Query(relations=rels, free_vars=(), ring=sum_ring(), domains=doms,
+              lifts={"h2": ("value",)})
+    db, active = synth.synth_low_fill_db(rels, doms, q.ring, np.random.default_rng(0),
+                                         "pc", 512, device="cuda")
+    stream = synth.update_stream(rels, doms, q.ring, np.random.default_rng(1), 64, 10,
+                                 key_pools={"pc": active}, device="cuda")
+    rng = np.random.default_rng(2)
+    host_keys = rng.choice(active, size=(256, 1)).astype(np.int32)
+    dev_keys = torch.from_numpy(host_keys).to("cuda")
+    for storage in ("auto", "dense"):
+        eng = IVMEngine.build(q, db, var_order=synth.housing_vo(), strategy="fivm",
+                              storage=storage, device="cuda")
+        ex = StreamExecutor(eng)
+        server = ViewServer(ex)
+        ex.run(stream)
+        name = sorted(n for n, v in eng.views.items() if v.schema)[0]
+        S = doms["pc"]
+        paths = dict(point_device_keys=lambda: server.point(name, dev_keys),
+                     point_host_keys=lambda: server.point(name, host_keys),
+                     range_sum=lambda: server.range_sum(name, 0, S),
+                     range_scan=lambda: server.range_scan(name, 0, S, 64),
+                     top_k=lambda: server.top_k(name, 16),
+                     publish=lambda: server.registry.publish(eng.views))
+        out = {}
+        for path, fn in paths.items():
+            fn()
+            out[path] = _count_syncs(fn)
+        ex.release()
+        print(json.dumps(dict(root=str(tree), phase="serve_reads", storage=storage,
+                              view=name, view_kind=type(eng.views[name]).__name__,
+                              keys=len(host_keys), **out)), flush=True)
+        del eng, ex, server
+    del db, stream
     torch.cuda.empty_cache()
 
 
