@@ -4629,6 +4629,529 @@ def serve_phase(kernels, laps) -> list:
     return legs
 
 
+# ---------------------------------------------------------------------------
+# Sharding: the reference's sharded sweep (benchmarks/bench_stream.py:106-175)
+# over the ranks of one torch.distributed group on the one card
+# ---------------------------------------------------------------------------
+#: the child groups, in order: one rank (NCCL, the capturable path), four
+#: ranks, then two (gloo: NCCL refuses two ranks on one device).  Each rank
+#: is a process of its own on the one card (``--shard-child``).
+SHARD_WORLDS = (1, 4, 2)
+#: the groups' rendezvous files, outputs and SH3's snapshots (gitignored)
+SHARD_DIR = Path(__file__).resolve().parent / "build" / "shard"
+#: SH3: boundaries every 5 updates (D2's), the 4-rank run killed at the
+#: second ``mid_segment`` crossing
+SH3_KILL_AT = 2
+#: SH2: the largest relative difference a ring component of a view may
+#: show against the unsharded executor (the reference sweep's bound)
+SH2_RTOL = 1e-6
+#: SH4: read keys a view, and boundaries every 2 updates
+SH4_KEYS, SH4_SEGMENT = 64, 2
+#: updates of the warm-up run before each timed run (plan compiles, kernel
+#: libraries and lazy initialisation; another signature, so a graphed timed
+#: run still captures)
+SHARD_WARMUP = 5
+#: SH2 runs on 4 ranks of the one card only if four times the peak device
+#: bytes of its 1-rank run stay under this (the card holds 80 GB)
+SH2_MAX_GROUP_BYTES = 70e9
+
+
+def shard_case(leg: str):
+    """(query, float64 query, db, stream, build) of a sharded leg: SH1 the
+    housing star at pc = 65,536 (sum ring, 512 active postcodes, 10 × 64,
+    ``auto`` storage: six tables), SH2 the retailer degree-10 cofactor at
+    ``RETAILER_DOMS_BIG`` (20 × 1000), SH3 D2's growing housing stream."""
+    import torch
+    from repro_torch.core import IVMEngine
+    from repro_torch.core.apps import regression
+    from repro_torch.data import synth
+
+    if leg == "SH3":
+        return housing_growth_case()
+    if leg == "SH1":
+        q = housing_query("sum", synth.HOUSING_DOMS_BIG)
+        q64 = housing_query("sum", synth.HOUSING_DOMS_BIG, torch.float64)
+        db, active = synth.synth_low_fill_db(
+            synth.HOUSING_RELATIONS, synth.HOUSING_DOMS_BIG, q.ring,
+            np.random.default_rng(SEED), "pc", 512, device="cuda")
+        stream = housing_stream(q, np.sort(active), 64, 10, SEED + 1)
+        vo, batch = synth.housing_vo(), 64
+    else:
+        doms, rels = synth.RETAILER_DOMS_BIG, synth.RETAILER_RELATIONS
+        q = regression.cofactor_query(rels, doms)
+        q64 = regression.cofactor_query(rels, doms, dtype=torch.float64)
+        rng = np.random.default_rng(SEED)
+        db = synth.synth_db(rels, doms, q.ring, rng, device="cuda")
+        stream = synth.update_stream(rels, doms, q.ring, rng, BATCH, N_BATCHES,
+                                     device="cuda")
+        vo, batch = synth.retailer_vo(), BATCH
+
+    def build(**kw):
+        eng = IVMEngine.build(q, db, var_order=vo, strategy="fivm", device="cuda", **kw)
+        eng.precompile(batch)
+        return eng
+
+    return q, q64, db, stream, build
+
+
+def logical_views(eng) -> dict:
+    """Every view whole (a collective for each sharded one: every rank)."""
+    from repro_torch.core.storage import as_dense
+
+    return {n: as_dense(eng.views[n]) for n in sorted(eng.views)}
+
+
+def component_rel_err(got: dict, want: dict) -> float:
+    """The largest, over views and ring components, of max |got - want|
+    over the largest |want| of that component (the reference sweep's
+    ``max_rel_diff``: planes differ in scale by orders of magnitude)."""
+    worst = 0.0
+    for n, w in want.items():
+        for c, t in w.payload.items():
+            scale = float(t.abs().max()) if t.numel() else 0.0
+            err = float((got[n].payload[c].double() - t.double()).abs().max()) \
+                if t.numel() else 0.0
+            worst = max(worst, err / scale if scale else err)
+    return worst
+
+
+def replica_drift(eng, shard) -> dict:
+    """The largest difference between the ranks' copies of a replicated
+    float leaf (views the plan does not shard, base relations): each
+    leaf against rank 0's, by broadcast, then the largest over ranks,
+    absolute and over the leaf's largest magnitude."""
+    import torch
+    from repro_torch.core import collectives
+    from repro_torch.core import plan as plan_mod
+
+    import torch.distributed as dist
+
+    grp = shard.mesh.grp
+    if grp.size == 1:
+        return dict(abs=0.0, rel=0.0)
+    views, base, _ = eng.state
+    leaves = [t for n in sorted(views) if n not in shard.sharded_views()
+              for t in plan_mod.relation_leaves(views[n])]
+    leaves += [t for n in sorted(base) for t in plan_mod.relation_leaves(base[n])]
+    drift = [0.0, 0.0]
+    for t in leaves:
+        if t.is_floating_point() and t.numel():
+            ref = collectives.broadcast(t.clone(), grp)
+            err = float((t - ref).abs().max())
+            scale = float(ref.abs().max())
+            drift = [max(drift[0], err), max(drift[1], err / scale if scale else err)]
+    worst = torch.tensor(drift, dtype=torch.float64)
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX, group=grp.group)
+    return dict(abs=float(worst[0]), rel=float(worst[1]))
+
+
+def shard_report(shard_plan, views) -> dict:
+    """Per sharded view: this rank's bytes of its split leaves (the payload
+    rows) against the whole view's, and the bytes of its replicated leaves
+    (a sparse view's key table)."""
+    from repro_torch.core.relations import ShardedDense, is_sharded
+    from repro_torch.core.storage import SparseRelation
+
+    out = {}
+    for name in shard_plan.sharded_views():
+        v = views[name]
+        rows = v.rows if isinstance(v, (ShardedDense, SparseRelation)) else None
+        local = (rows.numel() * rows.element_size() if rows is not None
+                 else v.nbytes())
+        whole = (v.shard.total_rows * rows.shape[1] * rows.element_size()
+                 if is_sharded(v) else local)
+        table = (v.table.numel() * v.table.element_size()
+                 if isinstance(v, SparseRelation) else 0)
+        out[name] = dict(local_bytes=local, whole_bytes=whole,
+                         replicated_bytes=table)
+    return out
+
+
+def shard_leg(leg: str, kernels) -> dict:
+    """One sharded leg at this group's size, on every rank.  Rank 0 first
+    runs the unsharded executor on an engine of its own (the baseline);
+    then every rank builds the engine, plans and places it
+    (``shard_executor``) and runs the stream, timed between barriers, its
+    kernels' counts reset before and read after.  Each timed run follows
+    a warm-up run of the stream's first ``SHARD_WARMUP`` updates that
+    leaves the engine as it was.  Rank 0 holds the whole
+    views to the baseline (SH1 bitwise; SH2 within ``SH2_RTOL`` a
+    component, and to the float64 oracle); at one rank the sharded run
+    must capture as many graphs and launch each kernel as often as the
+    baseline.  Returns this rank's line."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import StreamExecutor, collectives, plan, shard_executor
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    label = f"{leg}_ranks{world}"
+    with plan.use_fusion("auto"):
+        q, q64, db, stream, build = shard_case(leg)
+        n_batches = len(stream)
+        n_tuples = sum(u.batch for _, u in stream)
+        base = None
+        warm = stream[:SHARD_WARMUP]
+        if rank == 0:
+            eng = build()
+            ex = StreamExecutor(eng)
+            ex.run(warm, update_engine=False)  # plan compiles, lazy inits
+            reset(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ex.run(stream)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            base = dict(views=logical_views(eng), stats=dict(ex.last_run_stats),
+                        launches={k.name: k.launches for k in kernels},
+                        tuples_per_s=n_tuples / wall)
+            ex.release()
+            del eng, ex
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = build()
+        ex = shard_executor(eng)
+        specs = ex.shard.pretty()
+        view_bytes = shard_report(ex.shard, eng.views)
+        ex.run(warm, update_engine=False)
+        collectives.reset_stats()
+        reset(kernels)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex.run(stream)
+        torch.cuda.synchronize()
+        dist.barrier()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        stats = dict(ex.last_run_stats)
+        coll = {k: dict(calls_per_batch=v["calls"] / n_batches,
+                        bytes_per_batch=v["bytes"] / n_batches, backend=v["backend"])
+                for k, v in collectives.STATS.items()}
+        drift = replica_drift(eng, ex.shard)
+        views = logical_views(eng)
+        peak = torch.cuda.max_memory_allocated()
+    out = dict(leg=label, ranks=world, rank=rank, backend=ex.shard.backend,
+               program=stats.get("program"), program_reason=stats.get("program_reason"),
+               graphs=stats.get("graphs"), replays=stats.get("replays"),
+               eager_steps=stats.get("eager_steps"), specs=specs.splitlines(),
+               sharded_views=list(ex.shard.sharded_views()), view_bytes=view_bytes,
+               tuples_per_s=n_tuples / wall, run_s=wall,
+               collectives_per_batch=coll,
+               launches={k: n for k, n in launches.items() if n},
+               max_memory_allocated=peak, replica_drift=drift)
+    for name, b in view_bytes.items():
+        if b["local_bytes"] * world != b["whole_bytes"]:
+            raise AssertionError(f"{label} {name}: {b['local_bytes']} bytes on a "
+                                 f"rank, not 1/{world} of {b['whole_bytes']}")
+    if rank == 0:
+        missing = [n for n, c in base["launches"].items() if c and not launches[n]]
+        if missing:
+            raise AssertionError(f"{label}: the sharded run never launched {missing}")
+        if leg == "SH1":
+            for name, w in base["views"].items():
+                for c, t in w.payload.items():
+                    if not torch.equal(views[name].payload[c], t):
+                        raise AssertionError(f"{label} {name}.{c}: differs from the "
+                                             f"unsharded executor")
+            out["bitwise_views"] = len(base["views"])
+        else:
+            err = component_rel_err(views, base["views"])
+            if err > SH2_RTOL:
+                raise AssertionError(f"{label}: relative difference {err} > {SH2_RTOL}")
+            out["max_rel_diff"] = err
+            store = oracle_store(eng, db, stream, q64, 1)
+            out["oracle"] = compare_views(label, types.SimpleNamespace(
+                views=views, materialized_names=eng.materialized_names), store)
+        if world == 1:
+            same = {k: (stats.get(k), base["stats"].get(k))
+                    for k in ("program", "graphs", "replays", "eager_steps")}
+            if (any(a != b for a, b in same.values())
+                    or launches != base["launches"]):
+                raise AssertionError(f"{label}: one rank is not the unsharded "
+                                     f"program: {same}, launches {launches} vs "
+                                     f"{base['launches']}")
+        out["unsharded_tuples_per_s"] = base["tuples_per_s"]
+    ex.release()
+    del eng, ex, views, base
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_serve_leg(kernels) -> dict:
+    """SH4: SH1's engine on this group behind ``ViewServer(segment_updates=2)``
+    while a reader thread on a CUDA stream of its own reads every
+    generation it sees under a pin (the reader never issues a collective:
+    a publish gathers the whole views on the stream thread).  Rank 0 then
+    holds every generation (views and the reads seen) to a fresh unsharded
+    engine replayed to its offset, bitwise."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import StreamExecutor, plan, shard_executor
+    from repro_torch.serve import ViewServer
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    label = f"SH4_serve_ranks{world}"
+    with plan.use_fusion("auto"):
+        _, _, _, stream, build = shard_case("SH1")
+        eng = build()
+        ex = shard_executor(eng)
+        server = ViewServer(ex, retain=64, segment_updates=SH4_SEGMENT)
+        rng = np.random.default_rng(SEED + 4)
+        pool = np.unique(np.concatenate([u.keys[:, u.schema.index("pc")].cpu().numpy()
+                                         for _, u in stream]))
+        keys = {n: probe_batch(v, pool, rng, SH4_KEYS)
+                for n, v in sorted(server.registry.latest().views.items()) if v.schema}
+
+        def reads(src) -> dict:
+            return {n: host_tree(src.point(n, k).data) for n, k in keys.items()}
+
+        seen, errors, stop = {}, [], threading.Event()
+
+        def reader():
+            try:
+                with torch.cuda.stream(torch.cuda.Stream()):
+                    while not stop.is_set():
+                        with server.pin() as p:
+                            if p.generation not in seen:
+                                seen[p.generation] = (p.offset, reads(p))
+                        time.sleep(0.001)
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        thread = threading.Thread(target=reader)
+        thread.start()
+        try:
+            ex.run(stream)
+            final = server.registry.generation
+            deadline = time.perf_counter() + R3_DEADLINE_S
+            while final not in seen and not errors and time.perf_counter() < deadline:
+                time.sleep(0.01)
+        finally:
+            stop.set()
+            thread.join(timeout=R3_DEADLINE_S)
+        if errors or thread.is_alive():
+            raise AssertionError(f"{label}: the reader failed: {errors}")
+        reg = server.registry
+        out = dict(leg=label, ranks=world, rank=rank, generations=reg.generation + 1,
+                   seen=sorted(seen), reads_per_generation=len(keys))
+        if rank == 0:
+            checked = {"bitwise": 0, "tolerance": 0, "max_rel_err": 0.0}
+            for g in range(reg.generation + 1):
+                snap = reg.get(g)
+                ref = build()
+                if snap.offset:
+                    rex = StreamExecutor(ref)
+                    rex.run(stream[:snap.offset])
+                    rex.release()
+                rsrv = ViewServer(StreamExecutor(ref))
+                got = [same_reads(f"{label} generation {g} leaves",
+                                  host_leaves(snap.views), host_leaves(ref.views))]
+                if g in seen:
+                    got.append(same_reads(f"{label} generation {g} reads", seen[g][1],
+                                          reads(rsrv)))
+                for r in got:
+                    for k in ("bitwise", "tolerance"):
+                        checked[k] += r[k]
+                del ref, rsrv
+            if reg.latest().offset != len(stream):
+                raise AssertionError(f"{label}: the last generation is at "
+                                     f"{reg.latest().offset}")
+            out["compared"] = checked
+    ex.release()
+    del eng, ex, server
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_chaos(kernels, directory: str, resume: bool) -> dict:
+    """SH3 on this group: D2's growing housing stream with snapshots every
+    5 updates.  ``resume=False``: the run, killed by ``SIGKILL`` at the
+    second ``mid_segment`` crossing on every rank (never returns).
+    ``resume=True``: ``resume`` from those snapshots, re-planned for this
+    group; returns this rank's line with rank 0's whole views."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import StreamCheckpointer
+    from repro_torch.core import plan, shard_executor
+    from repro_torch.runtime import faults
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    with plan.use_fusion("auto"):
+        _, _, _, stream, build = shard_case("SH3")
+        ck = StreamCheckpointer(directory, segment_updates=DURABLE_SEGMENT_UPDATES)
+        ex = shard_executor(build(), checkpoint=ck)
+        if not resume:
+            faults.install(faults.FaultPlan("mid_segment", at=SH3_KILL_AT, mode="kill9"))
+            ex.run(stream)
+            raise AssertionError("SH3: the kill -9 fault never fired")
+        t0 = time.perf_counter()
+        ex.resume(stream)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        views = logical_views(ex.engine)
+    out = dict(leg=f"SH3_resume_ranks{world}", ranks=world, rank=rank,
+               resumed_from=ck.ckpt.all_steps(), resume_s=wall,
+               sharded_views=list(ex.shard.sharded_views()),
+               capacities=capacities(ex.engine),
+               views={n: v.payload["v"].cpu().numpy() for n, v in views.items()}
+               if rank == 0 else None)
+    ex.release()
+    return out
+
+
+def shard_child(world: int, rank: int, out_dir: str, legs: list) -> int:
+    """One rank of a child group of the ``shard`` phase: ``legs`` (SH1,
+    SH2) at the group's size; at two ranks SH4 and SH3's resume; at four
+    SH3's killed run.  Kernels come from the parent's build
+    (``build/kernels``).  Each rank writes its lines to ``rank<r>.pkl`` in
+    its group's directory."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = Path(out_dir) / f"world{world}"
+    dist.init_process_group("nccl" if world == 1 else "gloo",
+                            init_method=f"file://{out / 'init'}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    kernels = shard_kernels()
+    lines = [shard_leg(leg, kernels) for leg in legs]
+    if world == 2:
+        lines.append(shard_serve_leg(kernels))
+        lines.append(shard_chaos(kernels, str(Path(out_dir) / "sh3_ranks2"), True))
+    (out / f"rank{rank}.pkl").write_bytes(pickle.dumps(lines))
+    dist.barrier()
+    if world == 4:
+        shard_chaos(kernels, str(Path(out_dir) / "sh3"), False)
+    dist.destroy_process_group()
+    return 0
+
+
+def shard_kernels() -> list:
+    """The kernels the sharded legs count (the hash kernels by entry and
+    route too), their libraries loaded from the parent's build."""
+    from repro_torch.kernels.hash_table import HASH_INSERT, HASH_PROBE, ROUTE_LAUNCHES
+    from repro_torch.kernels.ring_fused import FUSED_CHAIN
+    from repro_torch.kernels.ring_scatter import GATHER_MUL_SCATTER, SCATTER_ADD
+    from repro_torch.kernels.segment_ring_sum import SEGMENT_RING_SUM
+
+    return [SCATTER_ADD, SEGMENT_RING_SUM, GATHER_MUL_SCATTER, FUSED_CHAIN,
+            HASH_PROBE, HASH_INSERT] + list(ROUTE_LAUNCHES.values())
+
+
+def shard_phase(laps) -> list:
+    """The ``shard`` phase: child groups of 1 (NCCL), 4 and 2 ranks (gloo),
+    every rank a process on the one card (:func:`shard_child`), run one
+    after the other; a rank's failure fails the phase.  Then SH3: the
+    4-rank group must have died by ``SIGKILL``; its snapshots were resumed
+    on 2 ranks (in the 2-rank group, from a copy) and are resumed here on
+    one, each against the uninterrupted unsharded run, bitwise."""
+    import pickle
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import StreamCheckpointer
+    from repro_torch.core import StreamExecutor, plan, shard_executor
+
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    lines: list = []
+    legs = ["SH1", "SH2"]
+    for world in SHARD_WORLDS:
+        if world == 4:
+            peak = next(line["max_memory_allocated_per_rank"][0] for line in lines
+                        if line["leg"] == "SH2_ranks1")
+            if 4 * peak >= SH2_MAX_GROUP_BYTES:
+                lines.append(dict(leg="SH2_ranks4", ranks=4, skipped=True,
+                                  reduced=f"4 x {peak} peak bytes of one rank >= "
+                                          f"{SH2_MAX_GROUP_BYTES:.0f}"))
+        run_legs = [leg for leg in legs
+                    if not any(line.get("skipped") and line["leg"] == f"{leg}_ranks{world}"
+                               for line in lines)]
+        gdir = SHARD_DIR / f"world{world}"
+        gdir.mkdir(parents=True)
+        if world == 2:  # SH3's resume on 2 ranks reads a copy of the snapshots
+            shutil.copytree(SHARD_DIR / "sh3", SHARD_DIR / "sh3_ranks2")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--shard-child", str(world), str(r), str(SHARD_DIR),
+                                   ",".join(run_legs)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for r in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append((p.communicate(timeout=600)[0], p.returncode))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (text, code) in enumerate(outs):
+            # the 4-rank group ends in SH3's kill: rank 0 by SIGKILL, a peer
+            # by SIGKILL or by the collective that its killed peers broke
+            ok = (code == 0 if world != 4 else code == -9 if r == 0 else code != 0)
+            if not ok:
+                raise AssertionError(f"shard: rank {r} of {world} exited {code}:\n"
+                                     f"{text[-4000:]}")
+        group = [pickle.loads((gdir / f"rank{r}.pkl").read_bytes()) for r in range(world)]
+        for i, line in enumerate(group[0]):
+            line = dict(line)
+            line.pop("rank")
+            if "launches" in line:
+                line["launches_per_rank"] = [g[i]["launches"] for g in group]
+                line.pop("launches")
+            if "max_memory_allocated" in line:
+                line["max_memory_allocated_per_rank"] = [
+                    g[i]["max_memory_allocated"] for g in group]
+                line.pop("max_memory_allocated")
+            line["group_s"] = time.perf_counter() - t0
+            lines.append(line)
+        laps.lap(f"shard {world} ranks")
+    # SH3: the uninterrupted run, unsharded, then the resume on one rank here
+    # (no process group: a one-rank plan)
+    sh3_ranks2 = next(line for line in lines if line["leg"] == "SH3_resume_ranks2")
+    with plan.use_fusion("auto"):
+        _, _, _, stream, build = shard_case("SH3")
+        eng = build()
+        StreamExecutor(eng).run(stream)
+        want = {n: v.payload["v"].cpu().numpy() for n, v in logical_views(eng).items()}
+        del eng
+        ck = StreamCheckpointer(str(SHARD_DIR / "sh3"),
+                                segment_updates=DURABLE_SEGMENT_UPDATES)
+        steps = ck.ckpt.all_steps()
+        if not steps:
+            raise AssertionError("SH3: the killed group committed no snapshot")
+        ex = shard_executor(build(), checkpoint=ck)
+        t0 = time.perf_counter()
+        ex.resume(stream)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got1 = {n: v.payload["v"].cpu().numpy() for n, v in logical_views(ex.engine).items()}
+        ex.release()
+    for label, got in (("SH3_resume_ranks2", sh3_ranks2.pop("views")),
+                       ("SH3_resume_ranks1", got1)):
+        for n, w in want.items():
+            if not np.array_equal(got[n], w):
+                raise AssertionError(f"{label} {n}: differs from the uninterrupted run")
+    lines.append(dict(leg="SH3_resume_ranks1", ranks=1, killed_ranks=4,
+                      killed_at_crossing=SH3_KILL_AT, committed_by_killed_group=steps,
+                      resume_s=wall, bitwise_views=len(want)))
+    sh3_ranks2["bitwise_views"] = len(want)
+    for line in lines:
+        log(line)
+    torch.cuda.empty_cache()
+    laps.lap("shard SH3 resume")
+    return lines
+
+
 def main() -> int:
     import torch
 
@@ -4749,6 +5272,10 @@ def main() -> int:
     # updates under read load (R2), generation consistency and the chaos
     # case (R3)
     serve = serve_phase(kernels, laps)
+    # sharding over a torch.distributed group on the one card: SH1-SH2 at
+    # 1 (NCCL), 2 and 4 (gloo) ranks, SH3 the mesh-elastic resume, SH4 a
+    # sharded executor behind the serving plane
+    shard_phase(laps)
     # the kernel-ops layer: the ring product on engine state (B), streaming
     # statistics (A) and rank-1 matrix-chain deltas (C)
     paths = [ring_product_path(kept, kernels)]
@@ -4871,4 +5398,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--durable-child"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
         sys.exit(durable_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--shard-child"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        sys.exit(shard_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                             sys.argv[5].split(",")))
     sys.exit(main())

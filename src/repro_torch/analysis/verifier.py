@@ -35,7 +35,7 @@ race/memo-write         no CSE memo plane is written by any plan that step
 race/fused-read-set     FusedChain.reads == gathers of its flattened ops
 race/fused-write-set    FusedChain.writes == its terminal scatter target
 race/fused-raw          a chain never reads a view the plan already wrote
-race/shard-spec         shard placement (sharded execution: not ported)
+race/shard-spec         shard placement consistent with true read/write sets
 fusion/ring             chain ring spec == independent fused_ring_spec
 fusion/commutativity    ring commutativity witnessed on sample payloads
 fusion/smem             the block's shared memory re-derived from the ring
@@ -46,9 +46,9 @@ fusion/terminal         chain shape: legal entry state + terminal ⊎
 capacity/under-budget   engine insert budget covers the plan-derived bound
 ======================  ====================================================
 
-``race/shard-spec`` needs ``core/shard.py``: :func:`verify_shard_plan` and
-:func:`check_shard` raise ``NotImplementedError`` naming ROADMAP Queue 1
-item 14, like the port's other shard entry points.
+``race/shard-spec`` checks a ``repro_torch.core.shard.ShardPlan`` against
+the plans it was derived from (:func:`verify_shard_plan`); ``plan_shards``
+runs :func:`check_shard` when verification is on.
 """
 from __future__ import annotations
 
@@ -88,10 +88,6 @@ VERIFY_ENV_VAR = "REPRO_TORCH_PLAN_VERIFY"
 VERIFY_MODES = ("on", "off", "auto")
 
 _verify_override: str | None = None
-
-_SHARD_TODO = ("shard-plan verification needs sharded execution, which is "
-               "not ported yet (ROADMAP Queue 1 item 14)")
-
 
 def _check_mode(mode: str | None) -> None:
     if mode is not None and mode not in VERIFY_MODES:
@@ -767,9 +763,50 @@ def verify_step_plans(plans: Sequence[TriggerPlan]) -> list[PlanViolation]:
 
 def verify_shard_plan(shard_plan, plans: Sequence[TriggerPlan],
                       views: Mapping) -> list[PlanViolation]:
-    """Rule race/shard-spec: needs sharded execution (``core/shard.py``),
-    which is not ported (ROADMAP Queue 1 item 14)."""
-    raise NotImplementedError(_SHARD_TODO)
+    """Rule race/shard-spec: the multi-device race detector.  Every
+    sharded spec must name a view the plans actually scatter-write, carry
+    the collective its true by-key readers require, and declare the live
+    storage extent — all re-derived from the op sequences."""
+    out: list[PlanViolation] = []
+    write_union: set = set()
+    for p in plans:
+        write_union |= _derived_write_views(p) | set(p.write_views)
+    read_union = set(plan_mod.read_sets(plans))
+    n = shard_plan.n_devices
+    head = f"shard[{shard_plan.axis_name}={n}]"
+
+    def bad(name, message):
+        out.append(PlanViolation("race/shard-spec", head,
+                                 f"spec({name})", name, message))
+
+    for name, spec in shard_plan.specs.items():
+        if spec.kind != "shard":
+            continue
+        if name not in write_union:
+            bad(name,
+                f"view '{name}' is sharded but no plan scatter-writes it; "
+                f"sharding buys nothing and every read pays a collective")
+        if name in read_union and spec.collective != "all_gather":
+            bad(name,
+                f"view '{name}' is read by key by a sibling gather but "
+                f"its shard spec routes reads via "
+                f"'{spec.collective}'; cross-shard reads need all_gather")
+        if name not in read_union and spec.collective == "all_gather":
+            bad(name,
+                f"view '{name}' is never read by key but pays an "
+                f"all_gather on every read site")
+        view = views.get(name)
+        if view is not None:
+            ext = int(view.shard_extent())
+            if spec.extent != ext:
+                bad(name,
+                    f"spec extent {spec.extent} != live storage extent "
+                    f"{ext} for view '{name}'")
+            elif ext % n != 0:
+                bad(name,
+                    f"extent {ext} of view '{name}' does not divide the "
+                    f"{n}-device mesh")
+    return out
 
 
 def check_plan(engine, plan: TriggerPlan,
@@ -790,4 +827,6 @@ def check_step(plans: Sequence[TriggerPlan]) -> None:
 
 def check_shard(shard_plan, plans: Sequence[TriggerPlan],
                 views: Mapping) -> None:
-    raise NotImplementedError(_SHARD_TODO)
+    violations = verify_shard_plan(shard_plan, plans, views)
+    if violations:
+        raise PlanVerificationError(violations)

@@ -37,8 +37,10 @@ Design points:
 
 Trees are flattened with ``torch.utils._pytree`` (the port's relation
 classes are registered nodes that flatten as the reference's pytrees do).
-Leaves are logical, unsharded arrays; restoring onto shardings (the
-mesh-elastic path) waits for sharded execution (ROADMAP Queue 1 item 14).
+Leaves are logical, unsharded arrays.  ``restore(shardings=)`` (a
+``collectives.Placement`` per leaf, as ``ShardPlan.state_shardings`` gives)
+returns each rank's part of a split leaf: a run saved on one group restores
+onto any other (the mesh-elastic path).
 """
 from __future__ import annotations
 
@@ -292,15 +294,18 @@ class Checkpointer:
 
     def restore(self, template: Any, step: int, shardings: Any = None):
         """Restore into the structure of ``template``: each leaf on its
-        template leaf's device, in its dtype.  ``shardings`` (the
-        mesh-elastic path) is not ported yet."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto shardings is not ported yet (ROADMAP "
-                "Queue 1 item 14)")
+        template leaf's device, in its dtype.  With ``shardings`` (a pytree
+        of ``collectives.Placement`` matching the template's leaves) a leaf
+        split over a group comes back as this rank's rows of dim 0 (the
+        template holds the whole leaf's shape)."""
         manifest = self.read_manifest(step)
         d = os.path.join(self.directory, f"step_{step:08d}")
         t_leaves, spec = pytree.tree_flatten(template)
+        places = (pytree.tree_leaves(shardings) if shardings is not None
+                  else [None] * len(t_leaves))
+        if len(places) != len(t_leaves):
+            raise AssertionError(
+                f"{len(places)} placements for {len(t_leaves)} leaves")
         # AssertionError, as the reference's asserts, but kept under -O: a
         # caller's template mismatch is skipped, not quarantined
         if manifest["n_leaves"] != len(t_leaves):
@@ -322,8 +327,10 @@ class Checkpointer:
             if tuple(x.shape) != tuple(tl.shape):
                 raise AssertionError((i, x.shape, tl.shape))
             if isinstance(tl, torch.Tensor):
-                out.append(torch.from_numpy(x).to(device=tl.device,
-                                                  dtype=tl.dtype))
+                t = torch.from_numpy(x)
+                if places[i] is not None:
+                    t = places[i].take(t)
+                out.append(t.to(device=tl.device, dtype=tl.dtype))
             else:
                 out.append(x)
         return pytree.tree_unflatten(out, spec)
@@ -360,8 +367,6 @@ class Checkpointer:
                             "falling back to the previous committed step",
                             step, e)
                 self.quarantine_step(step)
-            except NotImplementedError:
-                raise
             except Exception as e:  # noqa: BLE001 — fall back to older step
                 # e.g. a template/structure mismatch: the snapshot itself
                 # may be fine for another caller — skip, don't quarantine

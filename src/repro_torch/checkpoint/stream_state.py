@@ -34,6 +34,14 @@ into pinned host buffers and commits (see
 Restores install new tensors (so the executor's next run on them captures
 its graphs anew).  A torn or corrupt newest step falls back to the
 previous committed one.
+
+A sharded engine (``repro_torch.core.shard``) saves the same logical
+arrays: each sharded view is gathered to rank 0 (or the serving plane's
+logical copies are reused), rank 0 alone writes and commits, and every
+rank waits for it at a barrier in :meth:`StreamCheckpointer.wait`.  A
+restore reads the logical arrays on every rank;
+``StreamExecutor.resume`` then re-plans for the current group and places
+each rank's slice.
 """
 from __future__ import annotations
 
@@ -42,9 +50,11 @@ import time
 
 from torch.utils import _pytree as pytree
 
+from ..core import collectives
 from ..core import plan as plan_mod
 from ..core import storage as storage_mod
 from ..core.ivm import canonical_state
+from ..core.relations import is_sharded
 from .checkpointer import CORRUPTION_ERRORS, Checkpointer
 
 log = logging.getLogger("repro_torch.checkpoint")
@@ -76,6 +86,8 @@ class StreamCheckpointer:
         #: stall the executor's loop pays; the write itself runs on the
         #: writer thread — see ``write_seconds``)
         self.last_dispatch_seconds: float = 0.0
+        #: the group of the last sharded save (its ranks meet in :meth:`wait`)
+        self._group = None
 
     # ------------------------------------------------------------------ save
     def save_boundary(self, engine, offset: int, segment: int,
@@ -94,6 +106,22 @@ class StreamCheckpointer:
         are cloned here."""
         t0 = time.perf_counter()
         state = _sorted_state(engine.canonical_state())
+        grp = next((v.shard.grp for v in engine.views.values()
+                    if is_sharded(v)), None)
+        if grp is not None:
+            # logical arrays: each sharded view gathered to rank 0 (a
+            # collective every rank makes), or the publish's logical copies
+            have = dict(view_copies or {})
+            for name, v in state[0].items():
+                if is_sharded(v) and name not in have:
+                    have[name] = v.logical(dst=0)
+            state = ({n: have.get(n, v) for n, v in state[0].items()},
+                     state[1], state[2])
+            view_copies = {n: have[n] for n in state[0] if n in have}
+            self._group = grp
+            if grp.rank != 0:  # rank 0 alone writes and commits
+                self.last_dispatch_seconds = time.perf_counter() - t0
+                return
         meta = {
             "offset": int(offset),
             "segment": int(segment),
@@ -121,8 +149,11 @@ class StreamCheckpointer:
 
     def wait(self) -> None:
         """Block until the pending boundary save committed (re-raising a
-        writer failure — see ``Checkpointer.wait``)."""
+        writer failure — see ``Checkpointer.wait``); after a sharded save,
+        every rank of its group waits here for rank 0's commit."""
         self.ckpt.wait()
+        if self._group is not None:
+            collectives.barrier(self._group)
 
     # -------------------------------------------------------------- telemetry
     @property

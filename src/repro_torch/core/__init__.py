@@ -14,6 +14,14 @@ from .materialize import choose_materialized, gather_scatter_profile, views_on_p
 from .plan import PlanCache, TriggerPlan, compile_trigger, execute_trigger
 from .query import Query
 from .relations import COOUpdate, DenseRelation, FactorizedUpdate, PyRelation
+from .shard import (
+    ShardPlan,
+    ShardSpec,
+    make_mesh,
+    plan_shards,
+    replan_shards,
+    shard_executor,
+)
 from .py_engine import PyEngineSpec, PyIVM
 from .rings import (DegreeMRing, MulTerm, PyDegreeMRing, PyNumberRing,
                     PyRelationalRing, PyRing, Ring, ScalarRing, count_ring,
@@ -33,7 +41,8 @@ __all__ = [
     "MAX_ROUNDS_PERIOD", "MulTerm", "PlanCache", "PreparedStream",
     "PyDegreeMRing", "PyEngineSpec", "PyIVM", "PyNumberRing", "PyRelation",
     "PyRelationalRing", "PyRing", "Query",
-    "Ring", "ScalarRing", "SparseRelation", "StorageSpec", "StreamCapacityError",
+    "Ring", "ScalarRing", "ShardPlan", "ShardSpec", "SparseRelation",
+    "StorageSpec", "StreamCapacityError",
     "StreamExecutor", "TriggerPlan", "VONode", "VariableOrder", "ViewNode",
     "ViewStorage", "add_indicators", "apply_storage_plan", "as_dense",
     "build_view_tree", "canonical_state",
@@ -41,8 +50,9 @@ __all__ = [
     "choose_materialized", "compile_trigger", "contract_dense", "count_ring",
     "evaluate_view", "execute_trigger", "gather_scatter_profile",
     "gyo_residual", "heuristic_order", "indicator_of", "is_acyclic",
-    "lift_relation", "make_base_relation", "marginalize_dense", "plan_storage",
-    "prepare_stream", "propagate_coo", "propagate_factorized",
+    "lift_relation", "make_base_relation", "make_mesh", "marginalize_dense",
+    "plan_shards", "plan_storage", "prepare_stream", "propagate_coo",
+    "propagate_factorized", "replan_shards", "shard_executor",
     "split_segments", "sum_ring",
     "view_nbytes", "views_on_path",
 ]

@@ -22,7 +22,7 @@ from typing import Sequence
 
 import torch
 
-from .relations import COOUpdate, DenseRelation
+from .relations import COOUpdate, DenseRelation, ShardedDense, is_sharded
 from .rings import Payload, Ring
 
 _KEY_LETTERS = string.ascii_lowercase
@@ -227,6 +227,17 @@ class BatchedDelta:
         step's memo)."""
         from . import storage
 
+        if is_sharded(view):
+            # a sharded sibling: this rank's rows of the batch, then one
+            # collective over the batch; the gather source is the batch
+            cols = self._cols(view.schema)
+            if isinstance(view, storage.SparseRelation):
+                rows = view.read_rows(self.keys, cols)
+            else:
+                rows = view.read_rows(torch.stack(
+                    [self.keys[:, c] for c in cols], dim=1))
+            return rows, torch.arange(self.batch, dtype=torch.int32,
+                                      device=rows.device)
         if isinstance(view, storage.SparseRelation):
             # one keyed probe launch on the delta's key matrix
             rows = view.gather_rows(self.keys, self._cols(view.schema))
@@ -327,6 +338,13 @@ class BatchedDelta:
                 payload = _mul_broadcast(ring, self.payload, g, self.dense_schema)
                 return dataclasses.replace(self, payload=payload)
             view = view.to_dense()  # the join grows dense axes: materialize
+        elif isinstance(view, ShardedDense):
+            if all(v in self.coo_schema for v in view.schema):
+                g = view.gather(torch.stack([self.key_col(v)
+                                             for v in view.schema], dim=1))
+                payload = _mul_broadcast(ring, self.payload, g, self.dense_schema)
+                return dataclasses.replace(self, payload=payload)
+            view = view.logical()  # the join reads the whole view
         shared_coo = [v for v in view.schema if v in self.coo_schema]
 
         # Gather view slices at coo coordinates -> leading batch axis.
@@ -399,6 +417,8 @@ class BatchedDelta:
 
         if isinstance(view, SparseRelation):
             return self._apply_sparse(view, backend)
+        if isinstance(view, ShardedDense):
+            return self._apply_sharded(view, backend)
         coo_axes = [view.schema.index(v) for v in self.coo_schema]
         dense_axes = [view.schema.index(v) for v in self.dense_schema]
         from ..kernels import scatter_ops
@@ -510,6 +530,66 @@ class BatchedDelta:
             new_payload[comp] = plane.reshape(pshape).permute(inv)
             off += w
         return DenseRelation(view.schema, ring, new_payload)
+
+    def _apply_sharded(self, view: ShardedDense, backend: str | None):
+        """⊎ into one rank's slice of a dense view split on its leading key
+        axis, in place: a pure-COO delta's rows are routed (rows another
+        rank owns get id -1, which every ⊎ kernel drops; the rest are
+        offset to the local plane) and take the same flat kernels; a delta
+        with dense axes is cut to this rank's keys first (rows another rank
+        owns, or its dense lead axis outside the range) and applied to the
+        local relation."""
+        from ..kernels import ref, scatter_ops
+        from .storage import flatten_payload
+
+        ring = self.ring
+        lead = view.schema[0]
+        if self.coo_schema and not self.dense_schema:
+            keys = torch.stack([self.key_col(v) for v in view.schema], dim=1)
+            ids = view.shard.route(view.linear_rows(keys))
+            rows = view.rows
+            if (self.pending_gather is not None and self._is_scalar_ring()
+                    and scatter_ops.kernelable(ring, self.payload)
+                    and self.pending_gather[0].dtype == torch.float32):
+                src_plane, in_ids = self.pending_gather
+                comp = next(iter(ring.components))
+                scatter_ops.gather_mul_scatter_flat(
+                    rows, ids, src_plane, in_ids, self.payload[comp],
+                    backend=backend)
+                return view
+            slf = self._force()
+            vals = flatten_payload(ring, slf.payload, (slf.batch,))
+            if scatter_ops.kernelable(ring, slf.payload):
+                scatter_ops.scatter_add_flat(rows, ids, vals, backend=backend)
+            else:
+                ref.scatter_add_ref(rows, ids, vals.to(rows.dtype))
+            return view
+        slf = self._force()
+        lo, n = view.shard.lo, view.shard.per_rank
+        if lead in slf.coo_schema:
+            i = slf.coo_schema.index(lead)
+            k = slf.keys[:, i]
+            own = (k >= lo) & (k < lo + n)
+            keys = slf.keys.clone()
+            keys[:, i] = torch.where(own, k - lo, 0)
+            payload = {}
+            for c, p in slf.payload.items():
+                mask = own.reshape((-1,) + (1,) * (p.dim() - 1))
+                payload[c] = torch.where(mask, p, torch.zeros_like(p))
+            slf = dataclasses.replace(slf, keys=keys, payload=payload)
+        else:
+            j = slf.dense_schema.index(lead)
+            slf = dataclasses.replace(
+                slf, payload={c: p.narrow(1 + j, lo, n)
+                              for c, p in slf.payload.items()},
+                dense_domains=tuple(n if a == j else d for a, d
+                                    in enumerate(slf.dense_domains)))
+        local = DenseRelation(view.schema, ring, view.payload)
+        out = slf.apply_to(local, backend=backend)
+        for c in ring.components:
+            if out.payload[c].data_ptr() != view.payload[c].data_ptr():
+                view.payload[c].copy_(out.payload[c])
+        return view
 
     def _apply_sparse(self, view, backend: str | None):
         """⊎ into a hashed-COO view: hash-slot resolution + the same flat

@@ -320,9 +320,12 @@ class IVMEngine:
                                         upd, memo=memo)
 
     def shard_state(self, shard_plan) -> None:
-        """Sharded placement is not ported yet."""
-        raise NotImplementedError("sharding is not ported yet (ROADMAP "
-                                  "Queue 1 item 14)")
+        """Place the canonical state under a :class:`repro_torch.core.shard.
+        ShardPlan`: each sharded view becomes this rank's slice of it (the
+        rows of its leading keys, or the payload rows of its slot range),
+        the rest stays whole.  The sharded analogue of
+        :meth:`canonical_state`; every rank of the plan's group calls it."""
+        self.set_state(shard_plan.place(self.canonical_state()))
 
     def _bump_base(self, rel: DenseRelation, upd) -> DenseRelation:
         """Base-relation ⊎: a COO batch through the ring scatter dispatch

@@ -63,7 +63,8 @@ import torch
 from .contraction import BatchedDelta, contract_dense
 from .materialize import views_on_path
 from .query import Query
-from .relations import COOUpdate, DenseRelation, FactorizedUpdate
+from .relations import (COOUpdate, DenseRelation, FactorizedUpdate,
+                        ShardedDense, is_sharded)
 from .rings import ScalarRing
 from .storage import (SparseRelation, as_dense, flatten_payload, linear_ids,
                       payload_width, unflatten_payload)
@@ -1253,7 +1254,17 @@ def _run_fused_chain(chain: FusedChain, delta: BatchedDelta, views: Mapping,
         if isinstance(op, Gather):
             view = views[op.view]
             plane = memo.get(("plane", op.view)) if memo else None
-            if isinstance(view, SparseRelation):
+            if is_sharded(view):
+                # this rank's rows of the batch, completed by one
+                # collective: the source is the gathered batch itself
+                if isinstance(view, SparseRelation):
+                    plane = view.read_rows(keys, [coo.index(v)
+                                                  for v in view.schema])
+                else:
+                    plane = view.read_rows(view_keys(view.schema))
+                ids = torch.arange(plane.shape[0], dtype=torch.int32,
+                                   device=dev)
+            elif isinstance(view, SparseRelation):
                 # one keyed probe launch: the delta's key columns in, the
                 # plane row (a missed key reads the zero row C) out
                 ids = view.gather_rows(keys, [coo.index(v) for v in view.schema])
@@ -1289,6 +1300,15 @@ def _run_fused_chain(chain: FusedChain, delta: BatchedDelta, views: Mapping,
                                              spec, backend=op.backend,
                                              product_out=product)
                 updated[op.view] = view.replace_plane(table, out)
+            elif isinstance(view, ShardedDense):
+                # rows another rank owns get id -1 and drop in the kernel
+                ids = view.shard.route(view.linear_rows(view_keys(view.schema)))
+                out = ring_fused.fused_apply(view.rows, ids, vals, sources,
+                                             spec, backend=op.backend,
+                                             product_out=product)
+                if out.data_ptr() != view.rows.data_ptr():
+                    view.rows.copy_(out)
+                updated[op.view] = view
             else:
                 if view.schema:
                     ids = linear_ids(view_keys(view.schema), view.domains)
@@ -1327,8 +1347,8 @@ def factorized_route(op, factors, view, query: Query, following=()) -> str:
     the reference's einsums."""
     ring = query.ring
     if not (isinstance(ring, ScalarRing) and ring.dtype == torch.float32
-            and isinstance(view, DenseRelation) and len(view.schema) == 2):
-        return "plain"
+            and type(view) is DenseRelation and len(view.schema) == 2):
+        return "plain"  # (a sharded slice takes the plain route: whole reads)
 
     def vector(f):
         return len(f.schema) == 1 and f.payload["v"].dtype == torch.float32
@@ -1473,6 +1493,14 @@ def reevaluate_store(engine, base) -> dict:
     return store
 
 
+def _keep_placement(old, new):
+    """``new`` in ``old``'s placement: a view rebuilt wholesale (reeval's
+    root) stays one rank's slice where ``old`` was one."""
+    if isinstance(old, ShardedDense) and type(new) is DenseRelation:
+        return old.assign(new)
+    return new
+
+
 def execute_trigger(engine, plan: TriggerPlan, views, base, indicators, upd,
                     memo: Mapping | None = None):
     """Run a compiled trigger: the one execution entry of eager
@@ -1495,7 +1523,8 @@ def execute_trigger(engine, plan: TriggerPlan, views, base, indicators, upd,
     if plan.kind == "reeval":
         base[plan.rel] = engine._bump_base(base[plan.rel], upd)
         store = reevaluate_store(engine, base)
-        views[engine.tree.name] = store[engine.tree.name]
+        root = engine.tree.name
+        views[root] = _keep_placement(views[root], store[root])
         return views, base, indicators
 
     if plan.kind == "first_order":
@@ -1712,6 +1741,41 @@ def read_sets(plans: Sequence[TriggerPlan]) -> frozenset:
     return frozenset(out)
 
 
+def collective_placement(plans: Sequence[TriggerPlan],
+                         shardable) -> dict:
+    """Decide, per view named by any plan, how it participates in a
+    sharded carry — the plan-time collective pass consumed by
+    ``repro_torch.core.shard.plan_shards``.
+
+    ``shardable`` maps view names to whether their storage layout *can*
+    split along its key/slot axis (leading extent divisible by the mesh).
+    The placement derives entirely from the compiled plans' op graph:
+
+    * ``"scatter"``  — written via ScatterAccum and never read by key:
+      the ⊎ routes each row to the shard owning its key/slot range; no
+      read collective ever materializes the full axis.
+    * ``"all_gather"`` — written *and* read by key (a sibling gather at
+      arbitrary delta keys): the view shards for its writes, and each
+      read gathers the rows its rank owns, then one collective over the
+      batch completes it (``repro_torch.core.collectives``).
+    * ``"replicate"`` — read-only views, layouts that cannot split, and
+      indicator planes: reads stay local, writes (if any) broadcast.
+    """
+    write_v: set = set()
+    for p in plans:
+        write_v |= set(p.write_views)
+    read_v = read_sets(plans)
+    placement: dict = {}
+    for name in sorted(write_v | set(read_v)):
+        if not shardable.get(name, False) or name not in write_v:
+            placement[name] = "replicate"
+        elif name in read_v:
+            placement[name] = "all_gather"
+        else:
+            placement[name] = "scatter"
+    return placement
+
+
 def shared_prep_ops(plans: Sequence[TriggerPlan]) -> tuple:
     """Sibling-view prepare steps shared by >= 2 plans of one stream step
     whose source view no plan of the step writes: their gather planes
@@ -1745,6 +1809,8 @@ def build_prep_memo(shared: tuple, views: Mapping) -> dict:
     memo: dict = {}
     for form, name in shared:
         v = views[name]
+        if form == "plane" and is_sharded(v):
+            continue  # read by key per position: a collective over the batch
         if form == "dense":
             memo[(form, name)] = as_dense(v)
         elif isinstance(v, SparseRelation):

@@ -33,6 +33,19 @@ from torch.utils import _pytree as pytree
 from .rings import Payload, PyRing, Ring
 
 
+def axis0_leaf_shardings(tree, mesh, axis_name: str, shard: bool):
+    """A ``collectives.Placement`` per tensor leaf of ``tree``: dim 0 split
+    over ``axis_name`` when ``shard``, else replicated.  The one
+    partitioning convention every storage backend shares (dense leading
+    key axis, sparse slot axis), single-sourced so the backends cannot
+    drift apart."""
+    from .collectives import Placement
+
+    place = (Placement.split(axis_name, getattr(mesh, "grp", None)) if shard
+             else Placement.replicate())
+    return pytree.tree_map(lambda _: place, tree)
+
+
 def host_payload(payload: Payload) -> dict:
     """Copy a ring payload to host numpy (the one blocking device→host
     transfer point for reporting and tests)."""
@@ -77,6 +90,23 @@ class DenseRelation:
     def nbytes(self) -> int:
         return sum(arr.numel() * arr.element_size()
                    for arr in self.payload.values())
+
+    def shard_axis(self) -> int | None:
+        """Axis along which this storage's key space splits across ranks
+        (the leading key axis: parent-var-first layout makes it the axis
+        delta scatters index first); None for a scalar view."""
+        return 0 if self.schema else None
+
+    def shard_extent(self) -> int:
+        """Size of the shard axis (0 when unshardable)."""
+        return int(self.domains[0]) if self.schema else 0
+
+    def leaf_shardings(self, mesh, axis_name: str, shard: bool):
+        """A ``collectives.Placement`` per payload leaf (this relation's
+        pytree leaves): the leading key axis split over ``axis_name`` when
+        ``shard``, else replicated."""
+        return axis0_leaf_shardings(dict(sorted(self.payload.items())), mesh,
+                                    axis_name, shard and bool(self.schema))
 
     def owned(self) -> "DenseRelation":
         """A copy whose payload components are column slices of one new
@@ -189,6 +219,164 @@ pytree.register_pytree_node(
     DenseRelation,
     lambda r: ([dict(sorted(r.payload.items()))], (r.schema, r.ring)),
     lambda children, ctx: DenseRelation(ctx[0], ctx[1], dict(children[0])))
+
+
+@dataclasses.dataclass(eq=False)
+class ShardedDense(DenseRelation):
+    """One rank's slice of a dense view split along its leading key axis
+    (``repro_torch.core.shard``): the rows of leading keys ``[lo, hi)`` as
+    one ``[rows + 1, d]`` plane whose last row stays zero (the row a read
+    of a key another rank owns takes), ``payload`` its components over the
+    local domains.  :attr:`domains` and :meth:`domain_of` are the view's
+    logical ones, so plans compile and cache as for the whole view.  ⊎
+    routes each row to the rank that owns it; a by-key read and a whole-view
+    read run a collective (``repro_torch.core.collectives``), so every
+    rank of the group must make them together."""
+
+    shard: Any = None  # collectives.ShardSlice
+    plane: torch.Tensor | None = None
+
+    @classmethod
+    def place(cls, rel: DenseRelation, shard) -> "ShardedDense":
+        """This rank's slice of the whole view ``rel`` (new tensors)."""
+        from .storage import flatten_payload
+
+        full = flatten_payload(rel.ring, rel.payload, rel.domains)
+        return cls._on(rel.schema, rel.ring, rel.domains, shard,
+                       shard.take(full))
+
+    @classmethod
+    def _on(cls, schema, ring, domains, shard, plane) -> "ShardedDense":
+        from .storage import unflatten_payload
+
+        local = (shard.per_rank, *domains[1:])
+        payload = unflatten_payload(ring, plane[:shard.rows], local)
+        return cls(tuple(schema), ring, payload, shard=shard, plane=plane)
+
+    @property
+    def domains(self) -> tuple[int, ...]:
+        return (self.shard.extent, *self.local_domains[1:])
+
+    @property
+    def local_domains(self) -> tuple[int, ...]:
+        return DenseRelation.domains.fget(self)
+
+    @property
+    def rows(self) -> torch.Tensor:
+        """The ``[rows, d]`` local payload rows (no zero row)."""
+        return self.plane[:self.shard.rows]
+
+    def leaves(self) -> list:
+        """The tensors that hold this slice's state (``plan.relation_leaves``)."""
+        return [self.plane]
+
+    def nbytes(self) -> int:
+        """Bytes of this rank's payload rows."""
+        return self.rows.numel() * self.rows.element_size()
+
+    def owned(self) -> "ShardedDense":
+        return ShardedDense._on(self.schema, self.ring, self.domains,
+                                self.shard, self.plane.clone())
+
+    def logical(self, dst: int | None = None) -> DenseRelation:
+        """The whole view as a new :class:`DenseRelation` (a collective:
+        every rank calls it; with ``dst`` only that rank gets the view)."""
+        from .storage import unflatten_payload
+
+        full = self.shard.gather(self.rows, dst=dst)
+        return DenseRelation(self.schema, self.ring, unflatten_payload(
+            self.ring, full, self.domains))
+
+    def to_dense(self) -> DenseRelation:
+        return self.logical()
+
+    def assign(self, rel: DenseRelation) -> "ShardedDense":
+        """Overwrite this slice, in place, with its rows of the whole view
+        ``rel`` (a trigger that rebuilds the view wholesale)."""
+        from .storage import flatten_payload
+
+        full = flatten_payload(rel.ring, rel.payload, rel.domains)
+        lo = self.shard.row_lo
+        self.rows.copy_(full[lo:lo + self.shard.rows])
+        return self
+
+    def linear_rows(self, keys: torch.Tensor) -> torch.Tensor:
+        """Global plane rows of the view keys ``keys`` [B, k]."""
+        from .storage import linear_ids
+
+        return linear_ids(keys, self.domains)
+
+    def read_rows(self, keys: torch.Tensor) -> torch.Tensor:
+        """The ``[B, d]`` rows of the view keys ``keys`` on every rank (a
+        collective over the batch)."""
+        return self.shard.read(self.plane, self.linear_rows(keys))
+
+    def num_keys(self) -> torch.Tensor:
+        return self.logical().num_keys()
+
+    def payload_sync(self) -> dict:
+        return self.logical().payload_sync()
+
+    def scatter_add(self, keys: torch.Tensor, payload: Payload,
+                    backend: str | None = None) -> "ShardedDense":
+        """⊎ a COO batch: each row lands on the rank that owns its key."""
+        from ..kernels import ref, scatter_ops
+        from .storage import flatten_payload
+
+        ids = self.shard.route(self.linear_rows(keys))
+        vals = flatten_payload(self.ring, payload, (keys.shape[0],))
+        if scatter_ops.kernelable(self.ring, payload):
+            scatter_ops.scatter_add_flat(self.rows, ids, vals, backend=backend)
+        else:
+            ref.scatter_add_ref(self.rows, ids, vals.to(self.rows.dtype))
+        return self
+
+    def gather(self, keys: torch.Tensor) -> Payload:
+        from .storage import unflatten_payload
+
+        return unflatten_payload(self.ring, self.read_rows(keys),
+                                 (keys.shape[0],))
+
+    gather_batched = gather
+
+    def add(self, other) -> "ShardedDense":
+        """⊎ a whole relation over the same schema: this rank's rows of it."""
+        from .storage import as_dense, flatten_payload
+
+        other = as_dense(other)
+        assert self.schema == other.schema
+        full = flatten_payload(self.ring, other.payload, self.domains)
+        lo = self.shard.row_lo
+        self.rows.add_(full[lo:lo + self.shard.rows])
+        return self
+
+    def marginalize(self, var: str, lift_rel=None) -> DenseRelation:
+        return self.logical().marginalize(var, lift_rel)
+
+    def contract(self, other, marg: Sequence[str] = (),
+                 out_order=None) -> DenseRelation:
+        return self.logical().contract(other, marg=marg, out_order=out_order)
+
+    def transpose(self, new_schema: Sequence[str]) -> DenseRelation:
+        return self.logical().transpose(new_schema)
+
+    def to_py(self, py_ring: PyRing, to_payload=None) -> "PyRelation":
+        return self.logical().to_py(py_ring, to_payload)
+
+
+# A slice flattens as its plane, with the slice as context; saves and
+# publishes take :meth:`ShardedDense.logical` first, so this form never
+# reaches a checkpoint.
+pytree.register_pytree_node(
+    ShardedDense,
+    lambda r: ([r.plane], (r.schema, r.ring, r.domains, r.shard)),
+    lambda children, ctx: ShardedDense._on(ctx[0], ctx[1], ctx[2], ctx[3],
+                                           children[0]))
+
+
+def is_sharded(rel) -> bool:
+    """Whether ``rel`` is one rank's slice of a sharded view."""
+    return getattr(rel, "shard", None) is not None and hasattr(rel, "logical")
 
 
 @dataclasses.dataclass

@@ -37,7 +37,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..kernels import hash_table
-from .relations import DenseRelation
+from .relations import DenseRelation, is_sharded
 from .rings import Payload, Ring
 
 ENV_VAR = "REPRO_TORCH_VIEW_STORAGE"
@@ -201,8 +201,9 @@ class ViewStorage(Protocol):
 
 
 def as_dense(rel) -> DenseRelation:
-    """Coerce any storage to its dense materialization (dense: identity)."""
-    return rel if isinstance(rel, DenseRelation) else rel.to_dense()
+    """Coerce any storage to its dense materialization (dense: identity; a
+    sharded slice: the whole view, a collective)."""
+    return rel if type(rel) is DenseRelation else rel.to_dense()
 
 
 def view_nbytes(rel) -> int:
@@ -361,15 +362,28 @@ class SparseRelation:
     def num_slots_used_sync(self) -> int:
         return int(self.num_slots_used())
 
-    # -- multi-device placement and the host oracle (not ported) ------------
-    def shard_axis(self):
-        raise NotImplementedError(_SHARD_TODO)
+    # -- multi-device placement and the host oracle ------------------------
+    def shard_axis(self) -> int | None:
+        """The slot axis: a sharded table splits its payload rows by slot
+        range (its key table stays whole on every rank,
+        :class:`ShardedSparse`)."""
+        return 0
 
-    def shard_extent(self):
-        raise NotImplementedError(_SHARD_TODO)
+    def shard_extent(self) -> int:
+        return self.capacity
 
     def leaf_shardings(self, mesh, axis_name: str, shard: bool):
-        raise NotImplementedError(_SHARD_TODO)
+        """Placement per leaf (the reference's leaves: the key table, then
+        the payload components): the payload rows split their slot axis
+        over ``axis_name`` when ``shard``; the key table always replicates,
+        because a probe, a claim and a rehash walk linear-probe chains
+        across slot ranges."""
+        from .collectives import Placement
+        from .relations import axis0_leaf_shardings
+
+        return [Placement.replicate(),
+                axis0_leaf_shardings(dict(sorted(self.payload.items())),
+                                     mesh, axis_name, shard)]
 
     def to_py(self, py_ring, to_payload=None):
         """This table on the host as a ``PyRelation`` (through its dense
@@ -439,6 +453,11 @@ class SparseRelation:
         return hash_table.hash_insert_targets_keys(self.table, keys, cols,
                                                    self._strides)
 
+    def _local_slots(self, target: torch.Tensor) -> torch.Tensor:
+        """The rows of :attr:`rows` that the claimed slots ``target`` write
+        (the slots themselves: one table, one plane)."""
+        return target
+
     def _scatter_lin(self, ids: torch.Tensor, flat_vals: torch.Tensor,
                      backend: str | None = None) -> "SparseRelation":
         """⊎ rows (linearized ids, EMPTY = drop; flat [B, d] values), in
@@ -449,7 +468,7 @@ class SparseRelation:
 
         uniq, sums = _dedup_ids(ids, flat_vals.to(self.plane.dtype))
         slots, placed = _insert_ids(self.table, uniq)
-        target = torch.where(placed, slots, EMPTY)
+        target = self._local_slots(torch.where(placed, slots, EMPTY))
         rows = self.rows
         if rows.dtype == torch.float32:
             scatter_ops.scatter_add_flat(rows, target, sums, backend=backend)
@@ -478,7 +497,7 @@ class SparseRelation:
         duplicate keys."""
         from ..kernels import ref, scatter_ops
 
-        target = self._targets(keys, cols)
+        target = self._local_slots(self._targets(keys, cols))
         rows = self.rows
         in_ids = in_ids.to(torch.int32).contiguous()
         if rows.dtype == torch.float32 and src_plane.dtype == torch.float32:
@@ -493,7 +512,7 @@ class SparseRelation:
         view keys in ``keys`` (:meth:`_key_matrix`) but do not dedup values
         (the fused kernel accumulates duplicates per tile).  Overflow rows
         map to EMPTY and drop."""
-        return self.table, self._targets(keys, cols)
+        return self.table, self._local_slots(self._targets(keys, cols))
 
     def replace_plane(self, table: torch.Tensor,
                       plane: torch.Tensor) -> "SparseRelation":
@@ -635,8 +654,118 @@ class SparseRelation:
             self.ring, flat[:S], self._domains))
 
 
-_SHARD_TODO = ("sharded sparse views are not ported yet (ROADMAP Queue 1 "
-               "item 14)")
+
+
+@dataclasses.dataclass(eq=False)
+class ShardedSparse(SparseRelation):
+    """One rank's slice of a hashed-COO view split by slot range
+    (``repro_torch.core.shard``): the whole int32 key table, replicated on
+    every rank, beside the payload rows of slots ``[lo, hi)`` as one
+    ``[rows + 1, d]`` plane whose last row stays zero.
+
+    Linear probing crosses slot ranges, so every rank keeps the table and
+    runs each probe, claim and rehash itself; a claim is deterministic
+    (the lowest row wins), so every rank claims the same slots from the
+    same rows, and a ⊎ then writes only the slots its rank owns
+    (:meth:`_local_slots`).  A by-key read (:meth:`gather`) and anything
+    that needs the whole view (:meth:`logical`: ``to_dense``, ``rehash``,
+    ``marginalize``) run a collective, so every rank of the group must make
+    them together.  :attr:`capacity` is the table's, so plans compile and
+    cache as for the whole view."""
+
+    shard: object = None  # collectives.ShardSlice over the slot axis
+
+    def __post_init__(self):
+        n = self.shard.rows
+        if tuple(self.plane.shape) != (n + 1, payload_width(self.ring)):
+            raise ValueError(f"plane {tuple(self.plane.shape)} for {n} local "
+                             f"slots")
+        self.payload = unflatten_payload(self.ring, self.plane[:n], (n,))
+        self._strides = row_major_strides(self._domains)
+
+    @classmethod
+    def place(cls, rel: SparseRelation, grp) -> "ShardedSparse":
+        """This rank's slice of the whole table ``rel`` over the group
+        ``grp`` (new tensors)."""
+        from .collectives import ShardSlice
+
+        shard = ShardSlice(grp, rel.capacity)
+        return cls(rel.schema, rel.ring, rel._domains, rel.table.clone(),
+                   shard.take(rel.rows), shard=shard)
+
+    @property
+    def rows(self) -> torch.Tensor:
+        """This rank's ``[rows, d]`` payload rows (no zero row)."""
+        return self.plane[:self.shard.rows]
+
+    def owned(self) -> "ShardedSparse":
+        return ShardedSparse(self.schema, self.ring, self._domains,
+                             self.table.clone(), self.plane.clone(),
+                             shard=self.shard)
+
+    def logical(self, dst: int | None = None) -> SparseRelation:
+        """The whole table as a new :class:`SparseRelation` (a collective:
+        every rank calls it; with ``dst`` only that rank gets the plane)."""
+        rows = self.shard.gather(self.rows, dst=dst)
+        return SparseRelation(self.schema, self.ring, self._domains,
+                              self.table.clone(), _with_zero_row(rows))
+
+    def _local_slots(self, target: torch.Tensor) -> torch.Tensor:
+        """Claimed slots → this rank's rows; slots other ranks own → -1."""
+        return self.shard.route(target)
+
+    def num_keys(self):
+        return self.logical().num_keys()
+
+    def replace_plane(self, table: torch.Tensor,
+                      plane: torch.Tensor) -> "ShardedSparse":
+        if table is self.table and plane.data_ptr() == self.plane.data_ptr():
+            return self
+        return ShardedSparse(self.schema, self.ring, self._domains, table,
+                             _with_zero_row(plane), shard=self.shard)
+
+    def read_rows(self, keys: torch.Tensor, cols=None) -> torch.Tensor:
+        """The ``[B, d]`` rows of the view keys in ``keys``
+        (:meth:`_key_matrix`) on every rank: one keyed probe of the whole
+        table, this rank's rows, then a collective over the batch (a
+        missed key's row C is no rank's, so it reads zero)."""
+        return self.shard.read(self.plane, self.gather_rows(keys, cols))
+
+    def gather(self, keys: torch.Tensor, cols=None) -> Payload:
+        return unflatten_payload(self.ring, self.read_rows(keys, cols),
+                                 (keys.shape[0],))
+
+    gather_batched = gather
+
+    def gather_plane(self) -> torch.Tensor:
+        raise TypeError("a sharded table's plane holds one rank's slots: "
+                        "read it by key (read_rows) or whole (logical)")
+
+    def add(self, other) -> "ShardedSparse":
+        if is_sharded(other):
+            other = other.logical()
+        return super().add(other)
+
+    def marginalize(self, var: str, lift_rel=None) -> SparseRelation:
+        return self.logical().marginalize(var, lift_rel)
+
+    def contract(self, other, marg: Sequence[str] = (),
+                 out_order=None) -> SparseRelation:
+        return self.logical().contract(other, marg=marg, out_order=out_order)
+
+    def transpose(self, new_schema) -> SparseRelation:
+        return self.logical().transpose(new_schema)
+
+    def rehash(self, capacity: int | None = None) -> "ShardedSparse":
+        """Rebuild into a fresh table: the plane rows are gathered, the
+        whole table rehashed on every rank alike, and each rank keeps the
+        rows of its slot range of the new capacity (rows move across
+        ranks)."""
+        return ShardedSparse.place(self.logical().rehash(capacity),
+                                   self.shard.grp)
+
+    def to_dense(self) -> DenseRelation:
+        return self.logical().to_dense()
 
 
 def _with_zero_row(rows: torch.Tensor) -> torch.Tensor:
@@ -658,6 +787,14 @@ pytree.register_pytree_node(
     lambda r: ([r.table, dict(sorted(r.payload.items()))],
                (r.schema, r.ring, r._domains)),
     _sparse_unflatten)
+
+# a slice flattens as its table and plane; saves and publishes take
+# :meth:`ShardedSparse.logical` first, so this form never reaches a checkpoint
+pytree.register_pytree_node(
+    ShardedSparse,
+    lambda r: ([r.table, r.plane], (r.schema, r.ring, r._domains, r.shard)),
+    lambda children, ctx: ShardedSparse(ctx[0], ctx[1], ctx[2], children[0],
+                                        children[1], shard=ctx[3]))
 
 
 # ---------------------------------------------------------------------------

@@ -93,8 +93,17 @@ clones (``save_boundary(view_copies=)``), so a boundary copies each served
 view once.  Readers read the snapshots, never the state the next segment's
 graphs write in place.
 
-Not ported: sharded executors and the mesh-elastic resume (ROADMAP Queue 1
-item 14).
+**Sharding**: with a ``repro_torch.core.shard.ShardPlan`` (``shard=``) the
+executor is one rank of an explicit-SPMD group: each run places the state
+under the plan (each rank holds its slice of every sharded view) and
+replicates the stream's inputs from rank 0, every rank runs the same steps,
+each ⊎ keeps the writes to its rank's range, and by-key reads of sharded
+views run their collectives at the read site.  Under NCCL (or at one rank,
+where nothing is split) the steps are captured as on one card; gloo
+collectives cannot be captured, so a gloo group's executor runs the eager
+program and says so in ``last_run_stats`` (``program``, ``program_reason``).
+:meth:`StreamExecutor.resume` re-plans for the current group and re-places
+the restored (logical) state: the mesh-elastic half of recovery.
 """
 from __future__ import annotations
 
@@ -147,6 +156,10 @@ class PreparedStream:
     fusion_sig: str | None = None
     #: switch mode: the rel_order index of each step
     schedule: tuple = ()
+    #: a sharded executor's group-replicated ``(mesh, xs, tail)``, cached
+    #: beside the originals so the same prepared stream can still feed an
+    #: unsharded executor
+    placed: Any = None
 
     @property
     def signature(self):
@@ -630,8 +643,12 @@ class _GraphProgram(_Program):
 
 
 def _rehash(engine: IVMEngine, caps: dict) -> None:
-    """Rehash the sparse views ``caps`` names to their new capacities."""
-    engine.views = {name: (v.rehash(caps[name]) if name in caps else v)
+    """Rehash the sparse views ``caps`` names to their new capacities (by
+    name: a sharded table's rehash is a collective, which every rank must
+    issue in the same order)."""
+    grown = {name: engine.views[name].rehash(caps[name])
+             for name in sorted(caps)}
+    engine.views = {name: grown.get(name, v)
                     for name, v in engine.views.items()}
 
 
@@ -649,17 +666,15 @@ class StreamExecutor:
     admission and audits the views, and ``stragglers`` (default: a fresh
     ``StragglerMonitor``) watches each segment's host wall, and ``registry``
     (a ``repro_torch.serve.SnapshotRegistry``) publishes a generation of the
-    views at every boundary.  ``shard`` is not ported (ROADMAP Queue 1 item
-    14)."""
+    views at every boundary.  ``shard`` (a ``repro_torch.core.shard.
+    ShardPlan``) makes the executor one rank of its group (see the module
+    docstring): every rank of the group runs the same streams."""
 
     def __init__(self, engine: IVMEngine, shard=None, checkpoint=None,
                  integrity=None, stragglers: StragglerMonitor | None = None,
                  registry=None):
-        if shard is not None:
-            raise NotImplementedError(
-                "StreamExecutor(shard=...): sharded execution is not ported "
-                "yet (ROADMAP Queue 1 item 14)")
         self.engine = engine
+        self.shard = shard
         self.checkpoint = checkpoint
         self.integrity = integrity
         #: serving-plane snapshot registry: when attached, every segment
@@ -680,8 +695,18 @@ class StreamExecutor:
     def _integrity_active(self) -> bool:
         return self.integrity is not None and self.integrity.active
 
+    def program_kind(self) -> tuple[str, str]:
+        """``(program, reason)``: ``"graphed"`` (captured and replayed) or
+        ``"eager"`` (stepped from the host), and why."""
+        if self.engine.device.type != "cuda":
+            return "eager", "CPU tensors: no CUDA graphs"
+        if self.shard is not None and not self.shard.mesh.grp.capturable:
+            return "eager", (f"{self.shard.backend} collectives cannot be "
+                             "captured in a CUDA graph")
+        return "graphed", "CUDA graphs"
+
     def _build(self, prepared: PreparedStream) -> _Program:
-        if self.engine.device.type == "cuda":
+        if self.program_kind()[0] == "graphed":
             return _GraphProgram(self, prepared)
         return _Program(self, prepared)
 
@@ -781,9 +806,23 @@ class StreamExecutor:
                 state = self.engine.state
             if not donate_input:
                 state = _owned_state(state)
+            program, reason = self.program_kind()
             stats = dict(mode=prepared.mode, steps=prepared.n_steps,
-                         tail=prepared.tail_len)
-            new_state = self.compiled(prepared).run(state, prepared, stats)
+                         tail=prepared.tail_len, program=program,
+                         program_reason=reason)
+            runnable = prepared
+            if self.shard is not None:
+                state = self.shard.place(state)
+                # every rank consumes every update row: rank 0's inputs,
+                # replicated once a prepared stream
+                mesh = self.shard.mesh
+                if prepared.placed is None or prepared.placed[0] is not mesh:
+                    prepared.placed = (mesh, self.shard.replicate(prepared.xs),
+                                       self.shard.replicate(prepared.tail))
+                runnable = dataclasses.replace(
+                    prepared, xs=prepared.placed[1], tail=prepared.placed[2],
+                    placed=None)
+            new_state = self.compiled(prepared).run(state, runnable, stats)
             self.last_run_stats = stats
             if update_engine:
                 self.engine.set_state(new_state)
@@ -1000,8 +1039,12 @@ class StreamExecutor:
         attached the restored state is published as a new generation
         (``meta={"restored": True}``), so readers never see what the engine
         held before the restore.  The restore installs new state tensors, so
-        this executor's next run captures its graphs anew.  Restoring onto another device count (the mesh-elastic
-        re-plan) waits for sharded execution (ROADMAP Queue 1 item 14)."""
+        this executor's next run captures its graphs anew.
+
+        Mesh-elastic: snapshots hold logical (unsharded) arrays, so a
+        sharded executor re-derives its ``ShardPlan`` for the *current*
+        group (``replan_shards``) and re-places the restored state — a run
+        killed on 4 ranks resumes on 2 or 1 (or the other way round)."""
         ck = checkpoint if checkpoint is not None else self.checkpoint
         if ck is None:
             raise ValueError("resume needs a StreamCheckpointer (pass "
@@ -1014,6 +1057,12 @@ class StreamExecutor:
         stream = list(stream)
         meta = ck.restore_into(self.engine)
         offset = int(meta["offset"]) if meta is not None else 0
+        if self.shard is not None:
+            from . import shard as shard_mod
+
+            self.shard = shard_mod.replan_shards(self.engine, self.shard)
+            self.release()
+            self.engine.shard_state(self.shard)
         if meta is None:
             ck.save_boundary(self.engine, offset=0, segment=-1,
                              blocking=True)

@@ -22,8 +22,8 @@ What runs where:
     device's time (no device timer, which would synchronise).
   * ``ClusterState`` — heartbeat registry for elastic membership: nodes
     join/leave; ``plan_mesh`` recomputes the largest (data, model) mesh
-    that fits the healthy node set (restoring a snapshot onto that mesh
-    waits for sharded execution, ROADMAP Queue 1 item 14).
+    that fits the healthy node set (a snapshot restores onto that group
+    through ``StreamExecutor.resume``, which re-plans the shards).
 """
 from __future__ import annotations
 

@@ -59,7 +59,7 @@ import torch
 
 from ..core import plan as plan_mod
 from ..core import storage as storage_mod
-from ..core.relations import COOUpdate, DenseRelation
+from ..core.relations import COOUpdate, DenseRelation, is_sharded
 
 # --------------------------------------------------------------------------
 # Reason codes (dead-letter vocabulary)
@@ -423,18 +423,25 @@ def repair_view(engine, name: str, ref_dense: DenseRelation) -> str:
     identity the executor's graphs are bound to — else ``"replaced"`` (a
     sparse view that needs a larger table gets new tensors).  The sparse
     table is ``SparseRelation.from_dense`` at the repair capacity, the
-    reference's slot layout."""
+    reference's slot layout.  One rank's slice of a sharded view takes
+    its own rows of the repaired view (every rank repairs alike: the
+    audit compares whole views)."""
     live = engine.views[name]
+    sharded = is_sharded(live)
     if isinstance(live, storage_mod.SparseRelation):
         ring = ref_dense.ring
         active = int((~ring.is_zero(ref_dense.payload)).sum())
         new = storage_mod.SparseRelation.from_dense(
             ref_dense, capacity=_repair_capacity(live, active))
         if new.capacity != live.capacity:
-            engine.views[name] = new
+            engine.views[name] = (storage_mod.ShardedSparse.place(new, live.shard.grp)
+                                  if sharded else new)
             return "replaced"
         live.table.copy_(new.table)
-        live.plane.copy_(new.plane)
+        live.plane.copy_(live.shard.take(new.rows) if sharded else new.plane)
+        return "in_place"
+    if sharded:
+        live.assign(ref_dense)
         return "in_place"
     for c, leaf in live.payload.items():
         leaf.copy_(ref_dense.payload[c])

@@ -48,6 +48,7 @@ from typing import Any, Mapping, Sequence
 import torch
 from torch.utils import _pytree as pytree
 
+from ..core.relations import is_sharded
 from ..core.storage import SparseRelation
 
 
@@ -78,7 +79,12 @@ class Snapshot:
 def copy_view(view):
     """A device copy of one view on new tensors, issued on the current
     stream: a sparse view's table and plane once each, any other pytree leaf
-    by leaf."""
+    by leaf.  A rank's slice of a sharded view is gathered whole (a
+    collective every rank of its group makes, on the stream thread), so a
+    snapshot is always the logical view and a reader never issues a
+    collective."""
+    if is_sharded(view):
+        return view.logical()
     if isinstance(view, SparseRelation):
         return view.owned()
     return pytree.tree_map(torch.clone, view)
@@ -135,7 +141,9 @@ class SnapshotRegistry:
         t0 = time.perf_counter()
         names = (self.view_names if self.view_names is not None
                  else tuple(views))
-        copies = {n: copy_view(views[n]) for n in names}
+        # by name: a sharded view's copy is a collective, which every rank
+        # must issue in the same order
+        copies = {n: copy_view(views[n]) for n in sorted(names)}
         stream = ready = None
         device = _device_of(copies)
         if device is not None and device.type == "cuda":

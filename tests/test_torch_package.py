@@ -6,9 +6,9 @@
   ``ast``).
 * Entry points default to ``device="cuda"`` and raise on a host without
   CUDA unless the caller passes ``device="cpu"``.
-* What the slice does not port yet raises ``NotImplementedError``
-  (indicators, sharding; every LM family but dense GQA, and the training
-  loss); sparse storage and factorized updates, ported since, run against
+* What the slice does not port yet raises ``NotImplementedError`` (every
+  LM family but dense GQA, and the training loss); sparse storage,
+  indicators, factorized updates and sharding, ported since, run against
   the reference instead.
 * On a CUDA host the kernel toolchain (``nvcc``) is present: the test fails,
   not skips, where it is missing.
@@ -254,10 +254,27 @@ def test_unported_features_raise(what):
     if what == "factorized":
         _factorized_case()
         return
-    eng, _, _ = _small_engine(device="cpu", storage="dense")
     if what == "sharding":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-            eng.shard_state(None)
+        # ported since: the sparse case's shard plan at one rank is the
+        # reference's at one device, and a sharded executor over it ends
+        # where the reference's engine does
+        import _torch_parity as P
+        import jax
+        from benchmarks import common as bc
+        from repro.core import IVMEngine as RefEngine
+        from repro.core import plan_shards as ref_plan_shards
+        from repro_torch.core import plan_shards, shard_executor
+
+        eng, stream = _sparse_case("sparse")
+        rq, rdb, _, kw = _sparse_inputs("sparse")
+        ref = RefEngine.build(rq, rdb, var_order=bc.retailer_vo(), **kw)
+        want = ref_plan_shards(ref, devices=jax.devices()[:1]).pretty()
+        assert plan_shards(eng).pretty() == want
+        ex = shard_executor(eng)
+        ex.run([(rel, P.port_update(upd, eng.query.ring))
+                for rel, upd in stream])
+        np.testing.assert_array_equal(eng.result().payload["v"].numpy(),
+                                      _reference_run("sparse")[1])
 
 
 @pytest.mark.cuda

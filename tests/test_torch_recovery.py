@@ -15,8 +15,8 @@ here on the same numpy inputs through ``repro`` (JAX on the CPU) and
   rounds and switch dispatch × dense and sparse storage (the chaos sweep
   keeps the reference's hypothesis form and its 6 examples);
 * a ``kill -9`` of a child process mid-segment (on the CPU), then a resume
-  in the parent; the reference's mesh-elastic half (resuming on another
-  device count) waits for sharded execution (ROADMAP Queue 1 item 14);
+  in the parent; the reference's mesh-elastic half (a 4-rank group killed,
+  then resumed on another rank count) is ``test_torch_shard.py``'s;
 * ``Supervisor`` / ``StreamSupervisor`` / ``ClusterState`` — restart
   budgets, backoff, the NaN guard, elastic mesh planning.
 
@@ -151,13 +151,21 @@ def test_retention_deletes_a_step_by_renaming_it_first(tmp_path, monkeypatch):
 
 
 def test_restore_onto_shardings_is_not_ported(tmp_path):
+    """Restoring onto placements (ported since): a replicated leaf comes
+    back whole, a leaf split over a group as this rank's rows (rank 1 of 2
+    here), from the same logical save."""
+    from repro_torch.core.collectives import Placement, ShardGroup
+
     ck = Checkpointer(str(tmp_path))
-    tree = {"a": torch.arange(3)}
+    tree = {"a": torch.arange(4), "b": torch.arange(6).reshape(3, 2)}
     ck.save(tree, 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        ck.restore(tree, 1, shardings={"a": None})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        ck.restore_latest(tree, shardings={"a": None})
+    grp = ShardGroup(None, 2, 1, "none")
+    places = {"a": Placement.split("view", grp), "b": Placement.replicate()}
+    got = ck.restore(tree, 1, shardings=places)
+    assert torch.equal(got["a"], torch.arange(2, 4))
+    assert torch.equal(got["b"], tree["b"])
+    got, step = ck.restore_latest(tree, shardings=places)
+    assert step == 1 and torch.equal(got["a"], torch.arange(2, 4))
 
 
 def test_async_save_of_cpu_tensors_keeps_them_until_wait(tmp_path):
@@ -469,8 +477,8 @@ def test_subprocess_kill9_mid_segment_then_resume(tmp_path):
     """A child is SIGKILLed mid-stream; the parent resumes from the
     child's snapshots and converges to the reference's uninterrupted run,
     bitwise.  (The reference's child runs on 4 devices and the parent on
-    another count: that mesh-elastic half waits for ROADMAP Queue 1 item
-    14.)"""
+    another count: that mesh-elastic half, a 4-rank group killed and
+    resumed on 1 and 2 ranks, is in ``test_torch_shard.py``.)"""
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     ckdir = str(tmp_path / "ck")
     out = subprocess.run([sys.executable, "-c", _CHAOS_CHILD, ckdir, src],

@@ -1,7 +1,7 @@
 """The port's serving plane ≡ the reference's (``tests/test_serve.py``).
 
-Every case of the reference's serving suite but the 4-device one (which
-waits for sharded execution, ROADMAP Queue 1 item 14) runs here on the same
+Every case of the reference's serving suite but the 4-device one (whose
+4-rank form is ``test_torch_shard.py``'s) runs here on the same
 numpy inputs through ``repro.serve`` (JAX on the CPU) and
 ``repro_torch.serve`` (on the CPU), and the port is held to the reference's
 outcome bitwise (payloads are small integers in float32, or int32):

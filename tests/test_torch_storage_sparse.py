@@ -307,9 +307,15 @@ def test_num_keys_is_device_scalar_and_layout_helpers():
     from repro_torch.core.rings import PyNumberRing
 
     assert t.to_py(PyNumberRing()).data == t.to_dense().to_py(PyNumberRing()).data
-    for method in ("shard_axis", "shard_extent"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-            getattr(t, method)()
+    # the shard surface (ported since): the slot axis, the capacity, and
+    # a placement per leaf of the reference's leaves (the key table stays
+    # whole on every rank; the payload rows split)
+    assert t.shard_axis() == 0 and t.shard_extent() == 8
+    places = t.leaf_shardings(None, "view", True)
+    assert [p.kind for p in torch.utils._pytree.tree_leaves(places)] == [
+        "replicate", "split"]
+    assert len(torch.utils._pytree.tree_leaves(places)) == len(
+        torch.utils._pytree.tree_leaves(t))
 
 
 @pytest.mark.parametrize("sparse_sibling", [False, True])

@@ -472,14 +472,26 @@ def test_update_engine_false_restores_the_engine_when_a_run_raises(monkeypatch):
 
 @pytest.mark.parametrize("arg,item", [("shard", 14), ("registry", 17)])
 def test_unported_executor_features_raise(arg, item):
-    """``shard`` still raises naming item 14; ``registry`` (item 17, the
-    serving plane) attaches, and a run publishes a generation a segment."""
+    """Both attach, as ported since: ``shard`` (item 14; a one-rank plan
+    outside any group: nothing is split, so the run equals the unsharded
+    executor's, in the same program), and ``registry`` (item 17, the
+    serving plane: a run publishes a generation a segment)."""
     db, stream = _np_case("sum", SCHEDULES["scan"])
     build, _, upds = _port("sum", db, stream)
     eng = build()
     if arg == "shard":
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-            StreamExecutor(eng, **{arg: object()})
+        from repro_torch.core import plan_shards
+
+        plan = plan_shards(eng)
+        assert plan.n_devices == 1 and plan.sharded_views()
+        ex = StreamExecutor(eng, **{arg: plan})
+        assert ex.shard is plan
+        ex.run(upds)
+        plain = build()
+        StreamExecutor(plain).run(upds)
+        for name, v in eng.views.items():
+            assert torch.equal(v.payload["v"], plain.views[name].payload["v"])
+        assert ex.last_run_stats["program"] == "eager"  # CPU tensors
         return
     from repro_torch.serve import SnapshotRegistry
 

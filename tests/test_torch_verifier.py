@@ -11,8 +11,8 @@
   is rebased on the H100's shared memory), the op and the view.
 * **Gating** — ``REPRO_TORCH_PLAN_VERIFY`` precedence, a bad plan raises and
   is not cached, cache hits verify nothing, the per-plan cost stays under a
-  ceiling measured here, and the shard rule raises naming ROADMAP Queue 1
-  item 14.
+  ceiling measured here, and the shard rule (``race/shard-spec``) fires on
+  a spec that routes a by-key-read view without an all_gather.
 """
 import dataclasses
 
@@ -204,11 +204,30 @@ def test_factorized_and_first_order_plans_verify_clean(plain_env):
 
 
 def test_shard_rule_waits_for_sharded_execution(plain_env):
+    """The port's form of the reference's
+    ``test_broken_shard_read_set_disagreement``: a clean shard plan
+    verifies clean, and a spec routing a by-key-read view without an
+    all_gather fires ``race/shard-spec`` with the reference's message (and
+    ``check_shard`` raises on it)."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import shard as shard_mod
+
     eng = _regression_engine(storage="sparse")
     plans = [_compile(eng, rel, 2) for rel in eng.updatable]
-    for fn in (verifier.verify_shard_plan, verifier.check_shard):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-            fn(object(), plans, eng.views)
+    with verifier.use_verify("off"):
+        splan = shard_mod.plan_shards(eng)
+    assert verifier.verify_shard_plan(splan, plans, eng.views) == []
+    read = sorted(set(plan_mod.read_sets(plans)) & set(splan.specs))[0]
+    view = eng.views[read]
+    splan.specs[read] = shard_mod.ShardSpec(
+        read, "shard", "slot", "scatter", int(view.shard_extent()),
+        "corrupted")
+    violations = verifier.verify_shard_plan(splan, plans, eng.views)
+    assert "race/shard-spec" in {v.rule for v in violations}
+    v = next(v for v in violations if v.rule == "race/shard-spec")
+    assert read in v.message and "all_gather" in v.message
+    with pytest.raises(verifier.PlanVerificationError):
+        verifier.check_shard(splan, plans, eng.views)
 
 
 # ---------------------------------------------------------------------------

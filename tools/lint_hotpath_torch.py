@@ -47,6 +47,7 @@ from pathlib import Path
 HOT_MODULES = (
     "src/repro_torch/core/plan.py",
     "src/repro_torch/core/stream.py",
+    "src/repro_torch/core/collectives.py",
     "src/repro_torch/core/contraction.py",
     "src/repro_torch/core/storage.py",
     "src/repro_torch/core/relations.py",
