@@ -8,7 +8,7 @@ Run from the repository root with one card visible:
 Phases (any failed check raises, and the script exits non-zero):
 
 1. Device: the card's name and power limit from nvidia-smi, then a build of
-   all fourteen CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   all fifteen CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together).
 2. Kernels: each kernel against its plain PyTorch version on integer-valued
    float32 at the shapes the main path gives it (bitwise; ``cofactor_update``
@@ -180,6 +180,25 @@ Phases (any failed check raises, and the script exits non-zero):
    ``Server.generate`` of 32 tokens, timed, with the first decode step held
    to a bf16 prefill over the extended prompt and the decode loop
    profiled.
+6. Path E, LM training (``launch/train.py``, ``optim/``, ``lm_loss``; the
+   attention gradient is ``flash_attention_bwd``, a hand kernel with no
+   Pallas original):
+   - E1, ``flash_attention_bwd`` against its plain version in float64
+     (``BWD_CASES``: llama3.2-1b's microbatch attention in float32 and
+     bf16, causal and not; head dims 16 and 128, G 1 and 4, T 100 and 257),
+     two calls bitwise equal, timed beside the plain version, SDPA's
+     backward and its bound;
+   - E2, one ``make_train_step`` at llama3.2-1b's widths and 2 layers in
+     float32 (TF32 forward, the backward kernel) against the same port
+     functions in float64 through the plain attention: loss, gradients,
+     post-AdamW parameters;
+   - E3, llama3.2-1b at full width and depth, bf16, remat ``full``, 6 steps
+     of ``run_training`` at 8 × 1024 (2 microbatches): step ms, tokens/s,
+     peak bytes, flash launches a step (64 forward, 32 backward), one
+     profiled step;
+   - E4, the reduced config 10 steps straight against 5 + a resume
+     (the last loss equal), then ``repro_torch.examples.train_lm --tiny``
+     (``cofactor_update`` a batch, its loss falling).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel with its numbers.  Imports nothing of JAX or the JAX package.
@@ -1783,16 +1802,18 @@ LM_BF16_RTOL = 2.0 ** -6
 
 def lm_oracle_logits(cfg, params, tokens, n_last: int):
     """Float64 logits [B, n_last, Vp] at the last ``n_last`` positions of
-    tokens [B, S]: a plain forward over the port's state dict (embedding,
+    tokens [B, S]: a plain forward over the port's parameters (embedding,
     RMSNorm, interleaved RoPE with the model's float32 angles, masked
     softmax attention with the KV heads repeated, SwiGLU, tied logits), one
     prompt at a time so that a layer's scores stay [H, S, S]."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.models.lm import layer_params
+    from torch.utils import _pytree as pytree
 
     if cfg.qkv_bias or not cfg.tie_embeddings:
         raise ValueError(f"the oracle covers untied-bias-free llama configs, not {cfg.name}")
-    sd = {n: t.double() for n, t in params.state_dict().items()}
+    p64 = pytree.tree_map(lambda t: t.double(), params)
     S, hd, G = tokens.shape[1], cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
     freqs = 1.0 / cfg.rope_theta ** (
         torch.arange(0, hd, 2, dtype=torch.float32, device="cuda") / hd)
@@ -1809,21 +1830,20 @@ def lm_oracle_logits(cfg, params, tokens, n_last: int):
 
     out = []
     for b in range(tokens.shape[0]):
-        x = sd["embed"][tokens[b]]                                  # [S, d]
-        for i in range(cfg.n_layers):
-            w = {n[len(f"layers.{i}."):]: t for n, t in sd.items()
-                 if n.startswith(f"layers.{i}.")}
+        x = p64["embed"][tokens[b]]                                 # [S, d]
+        for w in layer_params(cfg, p64):
+            at, mlp = w["attn"], w["mlp"]
             h = norm(x, w["ln1"])
-            q = rope(torch.einsum("sd,dhk->shk", h, w["attn.wq"]))
-            k = rope(torch.einsum("sd,dhk->shk", h, w["attn.wk"])).repeat_interleave(G, 1)
-            v = torch.einsum("sd,dhk->shk", h, w["attn.wv"]).repeat_interleave(G, 1)
+            q = rope(torch.einsum("sd,dhk->shk", h, at["wq"]))
+            k = rope(torch.einsum("sd,dhk->shk", h, at["wk"])).repeat_interleave(G, 1)
+            v = torch.einsum("sd,dhk->shk", h, at["wv"]).repeat_interleave(G, 1)
             a = (torch.einsum("qhk,thk->hqt", q, k) / math.sqrt(hd)).masked_fill(
                 ~mask, float("-inf")).softmax(-1)
             o = torch.einsum("hqt,thk->qhk", a, v)
-            x = x + torch.einsum("qhk,hkd->qd", o, w["attn.wo"])
+            x = x + torch.einsum("qhk,hkd->qd", o, at["wo"])
             h = norm(x, w["ln2"])
-            x = x + (F.silu(h @ w["mlp.w_gate"]) * (h @ w["mlp.w_up"])) @ w["mlp.w_down"]
-        out.append(norm(x[-n_last:], sd["final_norm"]) @ sd["embed"].T)
+            x = x + (F.silu(h @ mlp["w_gate"]) * (h @ mlp["w_up"])) @ mlp["w_down"]
+        out.append(norm(x[-n_last:], p64["final_norm"]) @ p64["embed"].T)
     return torch.stack(out)
 
 
@@ -1968,6 +1988,424 @@ def lm_serve_path(kernels) -> dict:
     del server
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: path E, LM training
+# ---------------------------------------------------------------------------
+#: E1's cases (B, H, Hkv, T, D, dtype, causal): llama3.2-1b's per-microbatch
+#: attention (a global batch of 8 × 1024 in 2 microbatches) in float32 and
+#: bf16, causal and not; head dim 16 at G = 1 and T = 100, not a multiple
+#: of the kernels' 64-row tile (the reduced configs); head dim 128 at G = 4
+#: and T = 257 (llama3.2-3b, qwen2-1.5b)
+BWD_CASES = ((4, 32, 8, 1024, 64, "float32", True), (4, 32, 8, 1024, 64, "float32", False),
+             (4, 32, 8, 1024, 64, "bfloat16", True), (2, 4, 4, 100, 16, "float32", True),
+             (2, 4, 4, 100, 16, "float32", False), (1, 8, 2, 257, 128, "float32", True))
+#: the backward kernel against its plain version in float64 on the same
+#: inputs, of each output's largest magnitude.  float32: every product and
+#: sum in float32 (~6e-8 a rounding), over sums of up to T terms in another
+#: order than the plain version's, and P recomputed through exp2 of scores
+#: scaled once; measured below 4e-6 on an H100.  bf16: the outputs are
+#: rounded to bf16 (2⁻⁹ of each value), and o, the forward's bf16 output,
+#: enters Δ as it is; measured about 3e-3
+BWD_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+#: the shape of the summary row: the main path's (E3) backward
+BWD_MAIN = (4, 32, 8, 1024, 64, "bfloat16", True)
+#: E2: llama3.2-1b's widths at 2 layers, batch 2 × 256 in 2 microbatches
+#: (so the step's accumulators add and divide), float32
+TRAIN_E2_LAYERS, TRAIN_E2_B, TRAIN_E2_T, TRAIN_E2_MICRO = 2, 2, 256, 2
+#: E2's SGD step: p − lr·g with lr 2^20 (exact in float32) leaves the
+#: step's own gradient in (p − p') / lr, to a rounding of p' over 2^20
+TRAIN_E2_SGD_LR = 2.0 ** 20
+#: E2's limits against the float64 oracle: the loss and the step's
+#: ``grad_norm`` relative; each leaf of the step's gradient of its largest
+#: magnitude (float32 products and sums in another order, back through the
+#: network); the post-AdamW parameters against AdamW's first step in
+#: float64 on the step's gradient, of each leaf's largest magnitude
+TRAIN_E2_RTOL = {"loss": 1e-5, "grad_norm": 1e-4, "grads": 1e-4, "params": 1e-5}
+#: E3: llama3.2-1b at full width and depth, bf16, global batch 8 × 1024
+#: (2 microbatches), 6 steps
+TRAIN_E3_B, TRAIN_E3_T, TRAIN_E3_STEPS = 8, 1024, 6
+#: E3's step 0 loss: the logits are near uniform at init, so within this
+#: of ln(vocab)
+TRAIN_E3_LOSS0_SLACK = 1.5
+#: E4: the reduced config, 10 steps straight against 5 + a resume to 10
+TRAIN_E4_B, TRAIN_E4_T, TRAIN_E4_STEPS = 4, 64, 10
+#: E4's resumed last loss against the straight run's when they are not
+#: bitwise equal (reported): float32 sums of the same operations in another
+#: order
+TRAIN_E4_RTOL = 1e-6
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "train"
+
+
+def bwd_device_ms(fn, calls: int = 5):
+    """Device ms a call of ``fn`` (the backward wrapper: two kernels a
+    call), from the first of up to WINDOWS profiled windows that lists
+    2·``calls`` ``flash_bwd`` kernels; None when none did (the counts are
+    logged when it took more than one window).  Five calls: late in the
+    smoke, windows of 10 calls of the 3.8 ms backward listed 13 of the 20
+    kernels, window after window, on an H100."""
+    counts = []
+    for _ in range(WINDOWS):
+        events, _ = device_events(fn, calls)
+        mine = [e for e in events if "flash_bwd" in e.name]
+        counts.append((len(mine), len(events)))
+        if len(mine) == 2 * calls:
+            break
+    if len(counts) > 1:
+        log({"profiler_windows": "flash_attention_bwd", "listed_and_all": counts,
+             "calls": calls})
+    if len(mine) != 2 * calls:
+        return None
+    return sum(e.time_range.elapsed_us() for e in mine) / 1e3 / calls
+
+
+def flash_bwd_rows(rng) -> list:
+    """E1: ``flash_attention_bwd`` at BWD_CASES against
+    ``ref.flash_attention_bwd_ref`` in float64 on the same inputs (o from
+    the forward kernel), within BWD_RTOL of each output's largest
+    magnitude, two calls bitwise equal; timed with CUDA events beside the
+    plain version, SDPA's backward (``library_ms``: the forward outside the
+    timed window, ``torch.autograd.grad`` timed) and its bound: the five
+    T×T×D products of the backward (the causal half where causal) at the
+    tensor-core peak of the dtype (bf16 989, TF32 495 TFLOP/s), against q,
+    k, v, o, dO read and dQ, dK, dV written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ref
+
+    rows = []
+    for B, H, Hkv, T, D, dtype, causal in BWD_CASES:
+        dt = getattr(torch, dtype)
+        q = normal(rng, (B, H, T, D)).to(dt)
+        k, v = (normal(rng, (B, Hkv, T, D)).to(dt) for _ in range(2))
+        do = normal(rng, (B, H, T, D)).to(dt)
+        o = tflash.flash_attention(q, k, v, causal)
+        got = tflash.flash_attention_bwd(q, k, v, o, do, causal)
+        again = tflash.flash_attention_bwd(q, k, v, o, do, causal)
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        want = ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)),
+                                           causal=causal)
+        errors = {name: rel_err(g, w) for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+        max_abs = max(float((g.double() - w).abs().max()) for g, w in zip(got, want))
+        del again, want
+        label = f"flash_attention_bwd {(B, H, Hkv, T, D)} {dtype} causal={causal}"
+        check_within(label, errors, dict.fromkeys(errors, BWD_RTOL[dtype]))
+        if not bitwise:
+            raise AssertionError(f"{label}: two calls differ")
+
+        def kernel():
+            tflash.flash_attention_bwd(q, k, v, o, do, causal)
+
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=True)
+
+        def library():
+            torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
+
+        times = time_in_turns({"kernel": kernel, "library": library})
+        pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+        nbytes = q.element_size() * (4 * B * H * T * D + 4 * B * Hkv * T * D)
+        peak = BF16_OPS_PER_S if dt == torch.bfloat16 else TF32_OPS_PER_S
+        bms, by = bound_ms(nbytes, 5 * 2 * pairs * D, peak)
+        row = dict(shape=dict(B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=dtype), causal=causal,
+                   errors=errors, max_abs_err=max_abs, limit=BWD_RTOL[dtype],
+                   bitwise_repeat=bitwise, kernel_ms=times["kernel"],
+                   device_ms=bwd_device_ms(kernel),
+                   plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(
+                       q, k, v, o, do, causal=causal), reps=5, warmup=1),
+                   library_ms=times["library"], bound_ms=bms, bound_by=by,
+                   bound_peak="bf16 tensor cores" if dt == torch.bfloat16
+                   else "TF32 tensor cores")
+        rows.append(row)
+        log({"kernel": "flash_attention_bwd", **row})
+        del q, k, v, o, do, got, qs, ks, vs, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def plain_attention(q, k, v, *, causal=True, prefix_len=None, window=None):
+    """``models.attention.flash_attention`` by the plain version on any
+    device, in the inputs' dtype (float64 for the oracle); autograd
+    differentiates it."""
+    from repro_torch.kernels import ref
+
+    return ref.flash_attention_ref(q, k, v, causal=causal).to(q.dtype)
+
+
+def oracle_loss_and_grads(api, params, batch):
+    """(loss, gradient tree) of ``api.loss`` at ``params`` with
+    ``plain_attention`` in place of ``models.attention.flash_attention``
+    (by name, for the call)."""
+    import torch
+    from repro_torch.models import attention as tattn
+    from torch.utils import _pytree as pytree
+
+    leaves, spec = pytree.tree_flatten(params)
+    xs = [p.detach().requires_grad_() for p in leaves]
+    kept, tattn.flash_attention = tattn.flash_attention, plain_attention
+    try:
+        loss, _ = api.loss(pytree.tree_unflatten(xs, spec), batch)
+        grads = torch.autograd.grad(loss, xs)
+    finally:
+        tattn.flash_attention = kept
+    return loss.detach(), pytree.tree_unflatten(list(grads), spec)
+
+
+def tree_errors(got, want) -> dict:
+    """Each leaf's ``rel_err`` by its path."""
+    from torch.utils import _pytree as pytree
+
+    g, _ = pytree.tree_flatten_with_path(got)
+    w = pytree.tree_leaves(want)
+    return {pytree.keystr(path): rel_err(a, b) for (path, a), b in zip(g, w)}
+
+
+def adamw_first_step64(params, grads, lr: float, b1=0.9, b2=0.95, eps=1e-8,
+                       weight_decay=0.1, clip_norm=1.0):
+    """AdamW's first step from zero moments in float64, written from its
+    formulas (``optim.adamw`` takes every leaf to float32): the gradient
+    clipped to global norm ``clip_norm``; m = (1 − b1)·g and v = (1 − b2)·g²,
+    each divided by its bias correction; p − lr·(m̂ / (√v̂ + eps) +
+    weight_decay·p).  The defaults are ``optim.adamw``'s."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    ps, spec = pytree.tree_flatten(params)
+    gs = [g.double() for g in pytree.tree_leaves(grads)]
+    norm = torch.sqrt(sum(g.square().sum() for g in gs))
+    scale = torch.clamp(clip_norm / (norm + 1e-9), max=1.0)
+    out = []
+    for p, g in zip(ps, gs):
+        p, g = p.double(), g * scale
+        m_hat = (1 - b1) * g / (1 - b1)
+        v_hat = (1 - b2) * g * g / (1 - b2)
+        out.append(p - lr * (m_hat / (v_hat.sqrt() + eps) + weight_decay * p))
+    return pytree.tree_unflatten(out, spec)
+
+
+def train_step_leg(kernels) -> dict:
+    """E2: ``make_train_step`` of llama3.2-1b's widths at TRAIN_E2_LAYERS
+    layers in float32 on the card, batch TRAIN_E2_B × TRAIN_E2_T from
+    ``lm_data`` in TRAIN_E2_MICRO microbatches (the TF32 forward and the
+    backward kernel, remat ``full``), once with AdamW and once with SGD at
+    TRAIN_E2_SGD_LR, whose update gives back the step's accumulated
+    gradient.  The oracle is the same port functions in float64 through the
+    plain attention (``oracle_loss_and_grads``) on the whole batch: the AdamW
+    step's loss and ``grad_norm``, the SGD step's gradient leaf for leaf,
+    and the AdamW step's parameters against ``adamw_first_step64`` of that
+    gradient.  (AdamW's first step is nearly sign(g)·lr for every element,
+    so a gradient within rounding of 0 flips an element by up to 2·lr
+    whatever the kernels did: the update against the oracle's own gradient
+    is reported, ``params_vs_oracle_grads``, not held.)"""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data import lm_data
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.train import make_train_plan, make_train_step
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw, sgd
+    from torch.utils import _pytree as pytree
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_E2_LAYERS,
+                              act_dtype="float32", param_dtype="float32")
+    shape = ShapeSpec("e2", TRAIN_E2_T, TRAIN_E2_B, "train")
+    api = registry.build(cfg)
+    params = api.init(seed=SEED, device="cuda")
+    batch = lm_data._batch_for_step(cfg, shape, SEED, 0, "cuda")
+    plan = dataclasses.replace(make_train_plan(cfg, shape, make_smoke_mesh()),
+                               n_microbatches=TRAIN_E2_MICRO)
+    lr = 3e-4
+    opt, descent = adamw(lr), sgd(TRAIN_E2_SGD_LR)
+    torch.cuda.synchronize()
+    reset(kernels)
+    adam_params, _, metrics = make_train_step(cfg, api, opt, plan)(
+        params, opt.init(params), batch)
+    sgd_params, _, sgd_metrics = make_train_step(cfg, api, descent, plan)(
+        params, descent.init(params), batch)
+    torch.cuda.synchronize()
+    n = 2 * cfg.n_layers * plan.n_microbatches
+    launches = read_launches("E2 train steps", kernels, {
+        "flash_attention_tf32": 2 * n, "flash_attention_bwd": n, "flash_attention": 0,
+        "flash_attention_wgmma": 0})
+    step_grads = pytree.tree_map(lambda p, q: (p.double() - q.double()) / TRAIN_E2_SGD_LR,
+                                 params, sgd_params)
+    cfg64 = dataclasses.replace(cfg, act_dtype="float64", param_dtype="float64")
+    params64 = pytree.tree_map(lambda t: t.double(), params)
+    loss64, grads64 = oracle_loss_and_grads(registry.build(cfg64), params64, batch)
+    norm64 = math.sqrt(sum(float(g.square().sum()) for g in pytree.tree_leaves(grads64)))
+    errors = {"loss": abs(float(metrics["loss"]) - float(loss64)) / abs(float(loss64)),
+              "grad_norm": abs(float(metrics["grad_norm"]) - norm64) / norm64,
+              "grads": max(tree_errors(step_grads, grads64).values()),
+              "params": max(tree_errors(adam_params, adamw_first_step64(
+                  params, step_grads, lr)).values())}
+    out = dict(path="train_step", arch=cfg.name, n_layers=cfg.n_layers,
+               batch=TRAIN_E2_B, seq=TRAIN_E2_T, n_microbatches=plan.n_microbatches,
+               loss=float(metrics["loss"]), loss_oracle=float(loss64),
+               grad_norm=float(metrics["grad_norm"]), grad_norm_oracle=norm64,
+               steps_equal_grad_norm=float(sgd_metrics["grad_norm"])
+               == float(metrics["grad_norm"]),
+               errors=errors, limits=TRAIN_E2_RTOL,
+               grad_errors=tree_errors(step_grads, grads64),
+               params_vs_oracle_grads=max(tree_errors(adam_params, adamw_first_step64(
+                   params, grads64, lr)).values()),
+               launches=launches)
+    log(out)
+    check_within("E2 train step", errors, TRAIN_E2_RTOL)
+    del params, adam_params, sgd_params, step_grads, params64, grads64
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_full_leg(kernels) -> dict:
+    """E3: llama3.2-1b at full width and depth, bf16 parameters, AdamW as
+    configured, remat ``full``, through ``run_training`` (no checkpoint)
+    for TRAIN_E3_STEPS steps of TRAIN_E3_B × TRAIN_E3_T (2 microbatches):
+    step ms and tokens/s (host wall of a step, ended by reading its loss;
+    the median of the steps after the first), peak bytes, the flash
+    launches a step (each layer's forward twice a microbatch under remat,
+    its backward once), then one more step profiled (device busy against
+    wall, idle share, top kernels).  Gates: every loss finite, step 0's
+    within TRAIN_E3_LOSS0_SLACK of ln(vocab_size)."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data import lm_data
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.train import make_train_plan, make_train_step, run_training
+    from repro_torch.models import registry
+    from repro_torch.optim import make_optimizer
+
+    cfg = get_config(LM_ARCH)
+    shape = ShapeSpec("e3", TRAIN_E3_T, TRAIN_E3_B, "train")
+    plan = make_train_plan(cfg, shape, make_smoke_mesh())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    params, history = run_training(cfg, steps=TRAIN_E3_STEPS, batch_size=TRAIN_E3_B,
+                                   seq_len=TRAIN_E3_T, seed=SEED, log_every=1,
+                                   device="cuda")
+    torch.cuda.synchronize()
+    per_step = cfg.n_layers * plan.n_microbatches
+    launches = read_launches("E3 llama3.2-1b training", kernels, {
+        "flash_attention_wgmma": 2 * per_step * TRAIN_E3_STEPS,
+        "flash_attention_bwd": per_step * TRAIN_E3_STEPS, "flash_attention": 0,
+        "flash_attention_tf32": 0})
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in history]
+    step_s = statistics.median(h["time_s"] for h in history[1:])
+    api = registry.build(cfg)
+    opt = make_optimizer(cfg.optimizer, 3e-4)
+    state = opt.init(params)
+    batch = lm_data._batch_for_step(cfg, shape, SEED, TRAIN_E3_STEPS, "cuda")
+    step_fn = make_train_step(cfg, api, opt, plan)
+    profile = _busy(*device_events(lambda: step_fn(params, state, batch), 1))
+    del params, state
+    torch.cuda.empty_cache()
+    out = dict(path="train_full", arch=cfg.name, n_params=api.n_params(),
+               steps=TRAIN_E3_STEPS, batch=TRAIN_E3_B, seq=TRAIN_E3_T,
+               n_microbatches=plan.n_microbatches, losses=losses,
+               step_ms=1e3 * step_s, step_ms_each=[1e3 * h["time_s"] for h in history],
+               tokens_per_s=TRAIN_E3_B * TRAIN_E3_T / step_s, max_memory_allocated=peak,
+               flash_launches_per_step={"forward": launches["flash_attention_wgmma"]
+                                        / TRAIN_E3_STEPS,
+                                        "backward": launches["flash_attention_bwd"]
+                                        / TRAIN_E3_STEPS},
+               profile=profile, launches=launches)
+    log(out)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"E3: a loss is not finite: {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > TRAIN_E3_LOSS0_SLACK:
+        raise AssertionError(f"E3: step 0 loss {losses[0]} is not within "
+                             f"{TRAIN_E3_LOSS0_SLACK} of ln({cfg.vocab_size})")
+    return out
+
+
+def train_resume_leg(kernels) -> dict:
+    """E4: the reduced llama3.2-1b (float32, head dim 16: the mma forward
+    and the backward kernel) on the card, TRAIN_E4_STEPS steps straight
+    against half of them, then a resume to all (``schedule_steps`` fixed),
+    each run checkpointing into a fresh directory: the resumed run starts
+    at the checkpoint's step and its last loss is the straight run's
+    (bitwise, else reported and held within TRAIN_E4_RTOL).  Then the
+    ``train_lm`` example (``--tiny``, a fresh checkpoint directory), whose
+    data monitor launches ``cofactor_update`` once a batch: the mean loss
+    of its last 10 steps must be below that of its first 10."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.examples import train_lm
+    from repro_torch.launch.train import run_training
+
+    cfg = get_config(LM_ARCH).reduced()
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(dir=TRAIN_DIR))
+    kw = dict(batch_size=TRAIN_E4_B, seq_len=TRAIN_E4_T, checkpoint_every=TRAIN_E4_STEPS // 2,
+              log_every=0, device="cuda")
+    try:
+        reset(kernels)
+        _, straight = run_training(cfg, steps=TRAIN_E4_STEPS,
+                                   checkpoint_dir=str(root / "straight"), **kw)
+        run_training(cfg, steps=TRAIN_E4_STEPS // 2, checkpoint_dir=str(root / "resumed"),
+                     schedule_steps=TRAIN_E4_STEPS, **kw)
+        _, resumed = run_training(cfg, steps=TRAIN_E4_STEPS,
+                                  checkpoint_dir=str(root / "resumed"),
+                                  schedule_steps=TRAIN_E4_STEPS, **kw)
+        torch.cuda.synchronize()
+        steps_run = 2 * TRAIN_E4_STEPS
+        launches = read_launches("E4 resume", kernels, {
+            "flash_attention": 2 * cfg.n_layers * steps_run,
+            "flash_attention_bwd": cfg.n_layers * steps_run,
+            "flash_attention_tf32": 0, "flash_attention_wgmma": 0})
+        reset(kernels)
+        t0 = time.perf_counter()
+        example = train_lm.main(["--tiny", "--ckpt", str(root / "example")])
+        example_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        tiny = train_lm.lm_tiny()
+        n = len(example)
+        example_launches = read_launches("E4 train_lm example", kernels, {
+            "cofactor_update": n, "flash_attention": 2 * tiny.n_layers * n,
+            "flash_attention_bwd": tiny.n_layers * n})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    last, last_resumed = straight[-1]["loss"], resumed[-1]["loss"]
+    first10 = statistics.mean(h["loss"] for h in example[:10])
+    last10 = statistics.mean(h["loss"] for h in example[-10:])
+    out = dict(path="train_resume", arch=cfg.name, steps=TRAIN_E4_STEPS,
+               resumed_from=resumed[0]["step"], last_loss=last,
+               last_loss_resumed=last_resumed, bitwise=last == last_resumed,
+               rel_diff=abs(last - last_resumed) / abs(last), launches=launches,
+               example=dict(steps=n, seconds=example_s, first10_mean=first10,
+                            last10_mean=last10, launches=example_launches))
+    log(out)
+    if resumed[0]["step"] != TRAIN_E4_STEPS // 2:
+        raise AssertionError(f"E4: the resumed run started at step {resumed[0]['step']}")
+    check_within("E4 resume", {"last_loss": out["rel_diff"]}, {"last_loss": TRAIN_E4_RTOL})
+    if not last10 < first10:
+        raise AssertionError(f"E4 example: loss did not fall ({first10} -> {last10})")
+    return out
+
+
+def train_phase(kernels, laps: Laps) -> dict:
+    """Path E, LM training: E1 the backward kernel against its plain
+    version (comparison launches, not the path's), then with the counts
+    reset before each leg E2 (one train step against float64), E3
+    (llama3.2-1b at full size) and E4 (resume and the example)."""
+    rows = flash_bwd_rows(np.random.default_rng(SEED))
+    laps.lap("train E1 backward kernel")
+    legs = [train_step_leg(kernels)]
+    laps.lap("train E2 step")
+    legs.append(train_full_leg(kernels))
+    laps.lap("train E3 llama3.2-1b")
+    legs.append(train_resume_leg(kernels))
+    laps.lap("train E4 resume, example")
+    return dict(rows=rows, legs=legs)
 
 
 # ---------------------------------------------------------------------------
@@ -5167,6 +5605,7 @@ def main() -> int:
     from repro_torch.kernels.hash_table import (HASH_INSERT, HASH_PROBE, ROUTE_LAUNCHES,
                                                 ROUTES)
     from repro_torch.kernels.flash_attention import (FLASH_ATTENTION,
+                                                     FLASH_ATTENTION_BWD,
                                                      FLASH_ATTENTION_TF32,
                                                      FLASH_ATTENTION_WGMMA)
     from repro_torch.kernels.rank1_chain import MATVEC, OUTER_ACCUMULATE
@@ -5190,7 +5629,7 @@ def main() -> int:
     kernels = [SCATTER_ADD, SEGMENT_RING_SUM, GATHER_MUL_SCATTER, SCATTER_DEDUP,
                FUSED_CHAIN, COFACTOR_UPDATE, RING_MUL, MATVEC, OUTER_ACCUMULATE,
                FLASH_ATTENTION, FLASH_ATTENTION_WGMMA, FLASH_ATTENTION_TF32,
-               HASH_PROBE, HASH_INSERT]
+               HASH_PROBE, HASH_INSERT, FLASH_ATTENTION_BWD]
     laps = Laps()
     build_s = _cuda.build_all(kernels)
     log({"build_s": build_s, "libraries": [k.library_path().name for k in kernels]})
@@ -5291,6 +5730,9 @@ def main() -> int:
     # the LM scaffold's serving path: flash_attention in every prefill layer
     paths.append(lm_serve_path(kernels))
     laps.lap("path D")
+    # path E, LM training: the backward kernel (E1), a train step against
+    # float64 (E2), llama3.2-1b at full size (E3), resume and the example (E4)
+    train = train_phase(kernels, laps)
     # path D's float32 legs are the TF32 and mma flash kernels' paths
     # the housing legs' executor runs (capture and replay-only, or the
     # capacity segments) count beside their eager runs, and the chain
@@ -5303,7 +5745,8 @@ def main() -> int:
         run[key] for run in paths
         for key in ("launches_float32", "launches_float32_reduced", "launches_int",
                     "launches_sparse")
-        if key in run] + [leg["launches"] for leg in durable + integrity + serve]
+        if key in run] + [leg["launches"] for leg in durable + integrity + serve] + [
+        leg["launches"] for leg in train["legs"]] + [train["legs"][-1]["example"]["launches"]]
     launched = {k.name: sum(r.get(k.name, 0) for r in runs) for k in kernels}
     if not all(launched[k.name] for k in built):
         raise AssertionError(f"a kernel launched on no path: {launched}")
@@ -5387,6 +5830,19 @@ def main() -> int:
                if k in row},
             **({"launches_by_route": {n.split(":")[1]: launched[n] for n in entries[name]}}
                if name in ("hash_insert", "hash_insert_targets") else {})))
+    B, H, Hkv, T, D, dtype, causal = BWD_MAIN
+    row = next(r for r in train["rows"] if r["causal"] == causal and r["shape"] == dict(
+        B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=dtype))
+    summary.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="no Pallas original: the gradient jax.grad takes of "
+                 "src/repro/models/attention.py:76",
+        launches=launched["flash_attention_bwd"],
+        max_abs_err=max(r["max_abs_err"] for r in train["rows"]),
+        ms=row["kernel_ms"], device_ms=row["device_ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+        shape={**row["shape"], "causal": causal}, bound_peak=row["bound_peak"]))
     log({"kernels": summary})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

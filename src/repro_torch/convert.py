@@ -5,9 +5,11 @@ numpy (or reads them out of the reference with ``np.asarray``) and builds
 both engines from the same arrays.
 
 ``db_np`` is ``{relation: (schema, {component: np.ndarray})}``.  An LM's
-parameters cross as the reference's pytree: nested dicts of numpy arrays,
-block parameters stacked over layer periods (``"layers"/"sub0"/"attn"/"wq"``
-is [n_periods, d, H, hd]).
+parameters are the reference's pytree on both sides: nested dicts, block
+parameters stacked over layer periods (``"layers"/"sub0"/"attn"/"wq"`` is
+[n_periods, d, H, hd]).  They, and the rest of a training state (optimizer
+states, compression states), cross leaf for leaf with ``tree_from_numpy``
+/ ``tree_to_numpy``.
 """
 from __future__ import annotations
 
@@ -113,25 +115,46 @@ def _tensor_from_numpy(arr, device) -> torch.Tensor:
     return torch.tensor(arr, device=device)
 
 
-def lm_params_from_numpy(cfg, tree: Mapping, device="cuda"):
-    """The port's parameter module (``models.layers.Params``) on ``device``
-    from the reference's parameter pytree with numpy (or array-like) leaves;
-    each leaf keeps its dtype."""
-    from .models import layers, lm
+def tree_from_numpy(tree, device="cuda"):
+    """A training-state tree on ``device`` from the reference's tree with
+    numpy (or array-like) leaves, as ``jax.tree.map(np.asarray, ...)``
+    gives it: parameters in the reference's layout, an optimizer's state
+    (sgd, adamw, adafactor: an adafactor slot, the reference's
+    ``_FactoredSlot``, becomes ``optim.optimizers.FactoredSlot``) or a
+    compression state (None for a leaf that is not compressed).  Dict keys
+    come out sorted, as ``jax.tree.flatten`` visits them; each leaf keeps
+    its dtype (bfloat16 through float32, exactly)."""
+    from .optim.optimizers import FactoredSlot
 
     dev = resolve_device(device)
-    return lm.params_from_tree(
-        cfg, layers.map_tree(lambda a: _tensor_from_numpy(a, dev), tree))
+
+    def conv(x):
+        if x is None:
+            return None
+        if isinstance(x, Mapping):
+            return {k: conv(x[k]) for k in sorted(x)}
+        if isinstance(x, tuple) and getattr(x, "_fields", None) == ("vr", "vc"):
+            return FactoredSlot(conv(x.vr), conv(x.vc))
+        if isinstance(x, (list, tuple)):
+            return type(x)(conv(v) for v in x)
+        return _tensor_from_numpy(x, dev)
+
+    return conv(tree)
 
 
-def lm_params_to_numpy(cfg, params) -> dict:
-    """The reference's parameter pytree (numpy leaves, block parameters
-    stacked over periods) of the port's parameter module; bfloat16 leaves
-    come back as float32 (exact), numpy having no bfloat16."""
-    from .models import layers, lm
-
-    def host(t):
-        t = t.detach().cpu()
+def tree_to_numpy(tree):
+    """``tree_from_numpy``'s inverse: numpy leaves on the host (bfloat16 as
+    float32, exactly), ``FactoredSlot``s of numpy arrays, None kept."""
+    def conv(x):
+        if x is None:
+            return None
+        if isinstance(x, Mapping):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(conv(v) for v in x))
+        if isinstance(x, (list, tuple)):
+            return type(x)(conv(v) for v in x)
+        t = x.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    return layers.map_tree(host, lm.params_to_tree(cfg, params))
+    return conv(tree)

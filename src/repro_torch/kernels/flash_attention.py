@@ -31,6 +31,15 @@ FMAs, every head dim), which :func:`launch` runs only when asked for by
 name (``"simt"``): ``chip_smoke.py`` times it beside the others.  The
 tensor-core kernels read 16-byte aligned q, k and v (TMA, ``cp.async``);
 one at an offset that is not is copied once.
+
+The gradient: :class:`FlashAttentionFn` is the forward as an autograd
+function; its backward is ``csrc/flash_attention_bwd.cu``
+(``FLASH_ATTENTION_BWD``, :func:`flash_attention_bwd`), a hand kernel with
+no Pallas original (the reference trains by ``jax.grad`` through
+``flash_attention_jnp``): dQ, dK and dV at every dtype and head dim the
+forward takes, float32 accumulation, no atomics (two calls are bitwise
+equal).  ``models.attention.flash_attention`` takes it on CUDA tensors when
+a gradient is asked for; serving keeps the plain launch.
 """
 from __future__ import annotations
 
@@ -50,6 +59,9 @@ FLASH_ATTENTION_TF32 = CudaKernel("flash_attention_tf32.cu",
                                   "repro_flash_attention_tf32",
                                   [PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32,
                                    I32, I32])
+FLASH_ATTENTION_BWD = CudaKernel("flash_attention_bwd.cu",
+                                 "repro_flash_attention_bwd",
+                                 [PTR] * 10 + [I32] * 8)
 
 #: head dims the kernels are compiled for
 HEAD_DIMS = (8, 16, 32, 64, 128)
@@ -77,8 +89,9 @@ KERNELS = {"wgmma": FLASH_ATTENTION_WGMMA, "tf32": FLASH_ATTENTION_TF32,
            "mma": FLASH_ATTENTION}
 
 
-def flash_attention(q, k, v, causal: bool = True):
-    """q [B, H, T, D], k/v [B, Hkv, Tk, D] -> [B, H, T, D] in q's dtype."""
+def _check(q, k, v, causal: bool) -> None:
+    """Raise unless q [B, H, T, D], k/v [B, Hkv, Tk, D] are what the
+    kernels take."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"expected q [B,H,T,D], k and v [B,Hkv,Tk,D]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -96,11 +109,65 @@ def flash_attention(q, k, v, causal: bool = True):
                              f"{q.dtype} on {q.device}")
     if q.dtype not in DTYPES:
         raise TypeError(f"q has dtype {q.dtype}, expected float32 or bfloat16")
+    if on_card(q) and B * H > 65535:
+        raise ValueError(f"B·H = {B * H} exceeds the grid's 65,535")
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """q [B, H, T, D], k/v [B, Hkv, Tk, D] -> [B, H, T, D] in q's dtype."""
+    _check(q, k, v, causal)
     if not on_card(q):
         return ref.flash_attention_ref(q, k, v, causal=causal).to(q.dtype)
-    if B * H > 65535:
-        raise ValueError(f"B·H = {B * H} exceeds the grid's 65,535")
-    return launch(variant(q.dtype, D), q, k, v, causal)
+    return launch(variant(q.dtype, q.shape[3]), q, k, v, causal)
+
+
+def flash_attention_bwd(q, k, v, o, do, causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal)`` whose output is
+    o, for the output gradient do [B, H, T, D]; each in q's dtype and
+    shape of its input.  CUDA tensors launch ``FLASH_ATTENTION_BWD`` (two
+    kernels, one call); CPU tensors take ``ref.flash_attention_bwd_ref``."""
+    _check(q, k, v, causal)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype} on {t.device}; "
+                             f"q is {tuple(q.shape)} {q.dtype} on {q.device}")
+    if not on_card(q):
+        return tuple(g.to(q.dtype) for g in
+                     ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal))
+    B, H, T, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if not q.numel():
+        return dq, dk.zero_(), dv.zero_()
+    # the row logsumexp (base 2) and Δ, written by the first kernel
+    lse2 = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse2)
+    FLASH_ATTENTION_BWD.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse2.data_ptr(),
+        delta.data_ptr(), B, H, Hkv, T, Tk, D, DTYPES[q.dtype], int(causal),
+        stream_handle(q))
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with its gradient: the forward launches the
+    kernel ``variant`` names, as ``flash_attention`` does, and keeps q, k,
+    v and its output; the backward is :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True):
+        o = flash_attention(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, ctx.causal)
+        return dq, dk, dv, None
 
 
 def launch(kind: str, q, k, v, causal: bool = True):

@@ -8,6 +8,8 @@ for tensors on the CPU; on the card the kernels are held against these.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -105,3 +107,39 @@ def flash_attention_ref(q, k, v, causal: bool = True, scale=None):
         logits = torch.where(mask, logits, -1e30)
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.to(dt))
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, causal: bool = True):
+    """The gradient of ``flash_attention`` (the plain version of
+    ``csrc/flash_attention_bwd.cu``): (dq, dk, dv) of q [B, H, T, D], k/v
+    [B, Hkv, Tk, D], the forward's output o and its gradient do [B, H, T,
+    D], in float32 (float64 for float64 inputs), written from the formulas.
+
+    P is recomputed from the scores (scale 1/√D, masked at -1e30) and the
+    row logsumexp L (the denominator floored at 1e-30) and stays in the
+    working dtype, as the kernels keep it; then Δ = rowsum(dO∘O),
+    dV = Pᵀ dO, dS = P∘(dO Vᵀ − Δ), dQ = dS K·scale, dK = dSᵀ Q·scale.
+    q-head h reads kv-head h // G (G = H / Hkv); dK and dV sum over the G
+    query heads of their group.  The causal mask is aligned at the last
+    query, as ``flash_attention_ref``'s."""
+    B, H, T, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    q, k, v, o, do = (t.to(dt) for t in (q, k, v, o, do))
+    kr, vr = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+    scale = 1.0 / math.sqrt(D)  # the kernel's: a double, rounded to the working dtype
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kr) * scale
+    if causal:
+        mask = torch.ones((T, Tk), dtype=torch.bool, device=q.device).tril(Tk - T)
+        s = torch.where(mask, s, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    lse = m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True).clamp(min=1e-30))
+    p = torch.exp(s - lse)
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do, vr) - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
+    return (dq, dk.reshape(B, Hkv, G, Tk, D).sum(dim=2),
+            dv.reshape(B, Hkv, G, Tk, D).sum(dim=2))

@@ -7,7 +7,12 @@
   ``kernels/csrc/flash_attention.cu`` otherwise), and nothing else.  On CPU
   tensors it runs the plain versions of the reference's two branches: plain
   masked attention for short or unaligned sequences, and the chunked online
-  softmax over (block_q, block_k) tiles above 4096²/16 scores.
+  softmax over (block_q, block_k) tiles above 4096²/16 scores.  When a
+  gradient is asked for (grad mode on and an input that requires grad), the
+  CUDA path is ``kernels.flash_attention.FlashAttentionFn``: the same
+  forward launch, with the hand-written backward kernel
+  (``kernels/csrc/flash_attention_bwd.cu``); autograd differentiates the
+  CPU branches as they are.
 * ``decode_attention`` is one query token against the cache, plain torch as
   in the reference.
 * ``gqa_forward`` / ``gqa_decode`` are the full-sequence and one-token
@@ -104,7 +109,8 @@ def flash_attention(q, k, v, *, causal=True, prefix_len=None, window=None):
     H % Hkv == 0 -> [B, H, S, D] in q's dtype.
 
     CUDA tensors: the hand-written flash kernel (any S; scores, softmax and
-    accumulator in float32, as the Pallas kernel).  CPU tensors: the
+    accumulator in float32, as the Pallas kernel), through
+    ``FlashAttentionFn`` when a gradient is asked for.  CPU tensors: the
     reference's plain masked branch, or its chunked branch when S·Sk exceeds
     4096²/16 and S, Sk are multiples of BLOCK_Q, BLOCK_K."""
     if prefix_len is not None:
@@ -112,6 +118,9 @@ def flash_attention(q, k, v, *, causal=True, prefix_len=None, window=None):
     if window is not None:
         raise unported("sliding-window attention")
     if on_card(q):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _flash.FlashAttentionFn.apply(q, k, v, causal)
         return _flash.flash_attention(q, k, v, causal=causal)
     B, H, S, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]

@@ -9,9 +9,12 @@ port runs on one card, so it has no sharding constraints (the reference's
 ``shd`` is the identity here and is dropped).
 
 The numeric primitives compute as the reference does: ``rms_norm``, the
-SiLU of ``swiglu`` and ``apply_rope`` work in float32 and cast back to the
-activation dtype; RoPE rotates interleaved pairs (``x[..., ::2]``,
-``x[..., 1::2]``) with angles in float32.
+SiLU of ``swiglu`` and ``apply_rope`` work in float32 (float64 inputs, which
+the reference never sees, stay float64: the float64 oracles of
+``chip_smoke.py``) and cast back to the activation dtype; RoPE rotates
+interleaved pairs (``x[..., ::2]``, ``x[..., 1::2]``) with angles in
+float32.  ``softmax_cross_entropy`` is the padded-vocab cross entropy of
+the training loss.
 """
 from __future__ import annotations
 
@@ -20,7 +23,6 @@ import math
 from typing import Mapping
 
 import torch
-from torch import nn
 
 
 # ---------------------------------------------------------------------------
@@ -54,6 +56,15 @@ def map_tree(fn, tree):
     if isinstance(tree, Mapping):
         return {k: map_tree(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def sort_tree(tree):
+    """The tree with every dict's keys in sorted order, so that
+    ``torch.utils._pytree`` (which keeps insertion order) flattens it in
+    the order ``jax.tree.flatten`` visits the reference's."""
+    if isinstance(tree, Mapping):
+        return {k: sort_tree(tree[k]) for k in sorted(tree)}
+    return tree
 
 
 def init_scale(spec: P) -> float:
@@ -105,51 +116,26 @@ def stack_specs(spec_tree, n: int, axis_name: str = "layers"):
                                 s.scale), spec_tree)
 
 
-class Params(nn.Module):
-    """A parameter tree as a module: tensors become frozen parameters, dicts
-    sub-modules and lists ``nn.ModuleList``s.  ``p["wq"]`` and ``"mlp" in p``
-    read as they do on the reference's dict pytree."""
-
-    def __init__(self, tree: Mapping):
-        super().__init__()
-        for name, val in tree.items():
-            if isinstance(val, Mapping):
-                self.add_module(name, Params(val))
-            elif isinstance(val, (list, tuple)):
-                self.add_module(name, nn.ModuleList(Params(v) for v in val))
-            else:
-                self.register_parameter(name, nn.Parameter(val, requires_grad=False))
-
-    def __getitem__(self, name: str):
-        return getattr(self, name)
-
-    def __contains__(self, name: str) -> bool:
-        return name in self._parameters or name in self._modules
-
-    def tree(self) -> dict:
-        """The tensors as a nested dict (lists for module lists)."""
-        out: dict = {n: p.data for n, p in self._parameters.items()}
-        for n, m in self._modules.items():
-            out[n] = ([sub.tree() for sub in m] if isinstance(m, nn.ModuleList)
-                      else m.tree())
-        return out
-
-
 # ---------------------------------------------------------------------------
 # Numeric primitives
 # ---------------------------------------------------------------------------
+def at_least_f32(x):
+    """x in float32, or as it is when its dtype is wider (float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def rms_norm(x, gamma, eps: float = 1e-5):
     dt = x.dtype
-    xf = x.float()
+    xf = at_least_f32(x)
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * gamma.float()).to(dt)
+    return (out * at_least_f32(gamma)).to(dt)
 
 
 def swiglu(x, w_gate, w_up, w_down):
     g = x @ w_gate
     u = x @ w_up
-    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    h = torch.nn.functional.silu(at_least_f32(g)).to(x.dtype) * u
     return h @ w_down
 
 
@@ -170,7 +156,7 @@ def apply_rope(x, positions, theta: float):
     for _ in range(x.dim() - angles.dim()):
         angles = angles[..., None, :]
     cos, sin = torch.cos(angles), torch.sin(angles)
-    x1, x2 = x[..., ::2].float(), x[..., 1::2].float()
+    x1, x2 = at_least_f32(x[..., ::2]), at_least_f32(x[..., 1::2])
     xr1 = x1 * cos - x2 * sin
     xr2 = x1 * sin + x2 * cos
     return torch.stack([xr1, xr2], dim=-1).reshape(x.shape).to(x.dtype)
@@ -181,3 +167,21 @@ def causal_mask(q_len: int, kv_len: int, q_offset: int = 0, device=None):
     q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
     k_pos = torch.arange(kv_len, device=device)[None, :]
     return k_pos <= q_pos
+
+
+# ---------------------------------------------------------------------------
+# Cross entropy (padded-vocab aware)
+# ---------------------------------------------------------------------------
+def softmax_cross_entropy(logits, labels, vocab_size: int):
+    """logits [..., Vp] (taken in float32); labels int [...] -> the
+    per-position loss logsumexp − logit[label].  Columns ``>= vocab_size``
+    are padding: set to -1e30 before the logsumexp.  A negative label (a
+    masked position, which the caller weighs 0) reads column 0."""
+    vp = logits.shape[-1]
+    logits = at_least_f32(logits)
+    if vp > vocab_size:
+        pad = torch.arange(vp, device=logits.device) >= vocab_size
+        logits = torch.where(pad, -1e30, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long().clamp(min=0)[..., None])[..., 0]
+    return lse - ll

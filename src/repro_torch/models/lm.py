@@ -1,31 +1,41 @@
-"""Decoder-only language model, serving entry points (port of
-``repro.models.lm`` for the dense GQA family).
+"""Decoder-only language model (port of ``repro.models.lm`` for the dense
+GQA family): the training loss and the serving entry points.
 
-The parameters are a ``layers.Params`` module: ``embed`` [Vp, d], ``layers``
-(an ``nn.ModuleList``, one block per layer), ``final_norm`` and, for untied
-configs, ``lm_head``.  The reference stacks each block parameter over its
-layer periods for ``lax.scan``; ``params_from_tree`` / ``params_to_tree``
-convert between that stacked tree and the module.  The backbone is a plain
-loop over the layers (serving runs no backward pass, so there is no remat).
+The parameters are the reference's tree (``lm_init``): nested dicts, each
+block parameter stacked over the layer periods under ``layers/sub<i>``,
+keys in sorted order (the order in which ``jax.tree.flatten`` visits the
+reference's tree), so optimizer states, checkpoints and the carriers of
+``convert`` match it leaf for leaf.  The backbone is a loop over the
+layers; ``layer_params`` splits the stacked leaves along the periods with
+``unbind`` (views, whose backward is one stack a leaf).
 
 Entry points:
+  * ``lm_loss``    — the masked mean cross entropy of a (tokens, labels)
+    batch over the padded vocab (labels < 0 masked), plus the MTP head's
+    loss when the config has one; the backbone runs under ``cfg.remat``
+    (``"full"``: each period is recomputed in the backward pass,
+    ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).
   * ``lm_prefill`` — forward over a prompt: last-position logits over the
     padded vocab and the decode cache, each layer's K/V padded to
     ``cache_len``.
   * ``lm_decode``  — one token against the cache at position ``pos``; the
     cache is updated in place.
-The training loss (``lm_loss``) is not ported yet (ROADMAP Queue 1 item 20).
 """
 from __future__ import annotations
 
-import torch
+from typing import Mapping
 
+import torch
+import torch.utils.checkpoint
+
+from .attention import unported
 from .blocks import apply_block, block_init_cache, block_specs, decode_block
-from .layers import P, Params, init_from_spec, map_tree, rms_norm, stack_specs
+from .layers import (P, init_from_spec, rms_norm, softmax_cross_entropy, sort_tree,
+                     stack_specs)
 
 
 # ---------------------------------------------------------------------------
-# Param specs and the parameter module
+# Param specs and init
 # ---------------------------------------------------------------------------
 def lm_specs(cfg) -> dict:
     d = cfg.d_model
@@ -39,43 +49,22 @@ def lm_specs(cfg) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = P((d, cfg.padded_vocab), ("embed", "vocab"))
+    if cfg.mtp:
+        specs["mtp"] = {
+            "proj": P((2 * d, d), ("inner", "embed")),
+            "block": block_specs(cfg, "attn", 0),
+            "norm": P((d,), ("embed",), init="ones"),
+        }
     return specs
 
 
-def params_from_tree(cfg, tree) -> Params:
-    """The parameter module from a tree in the reference's layout (block
-    parameters stacked over periods under ``layers/sub<i>``); layer
-    ``p·len(pattern) + i`` is period p, sub-block i.  The layers' tensors
-    are views into the stacked ones."""
-    pattern = cfg.layer_pattern
-    layers = [map_tree(lambda a, p=p: a[p], tree["layers"][f"sub{i}"])
-              for p in range(cfg.n_periods) for i in range(len(pattern))]
-    return Params({**{k: v for k, v in tree.items() if k != "layers"},
-                   "layers": layers})
-
-
-def params_to_tree(cfg, params: Params) -> dict:
-    """The reference's layout of ``params``: block parameters stacked over
-    periods under ``layers/sub<i>``."""
-    tree = params.tree()
-    n = len(cfg.layer_pattern)
-    per_layer = tree.pop("layers")
-
-    def stack(trees):
-        if isinstance(trees[0], dict):
-            return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return torch.stack(trees)
-
-    tree["layers"] = {f"sub{i}": stack(per_layer[i::n]) for i in range(n)}
-    return tree
-
-
-def lm_init(cfg, generator: torch.Generator, dtype=None) -> Params:
-    """Parameters drawn from ``generator`` on its device, at the reference's
-    init scales (fan-in over the stacked shape), in ``dtype`` (default the
-    config's ``param_dtype``)."""
+def lm_init(cfg, generator: torch.Generator, dtype=None) -> dict:
+    """Parameters in the reference's layout (keys sorted), drawn from
+    ``generator`` on its device at the reference's init scales (fan-in
+    over the stacked shape), in ``dtype`` (default the config's
+    ``param_dtype``)."""
     dtype = dtype or getattr(torch, cfg.param_dtype)
-    return params_from_tree(cfg, init_from_spec(lm_specs(cfg), generator, dtype))
+    return sort_tree(init_from_spec(lm_specs(cfg), generator, dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -86,12 +75,28 @@ def _layer_kinds(cfg):
     return [(i, kind) for _ in range(cfg.n_periods) for i, kind in enumerate(pattern)]
 
 
+def layer_params(cfg, params) -> list:
+    """One block's parameters a layer, in layer order: the tree's stacked
+    leaves unbound along the periods (views); layer ``p·len(pattern) + i``
+    is period p, sub-block i."""
+    layers = params["layers"]
+
+    def unbind(tree):
+        if isinstance(tree, Mapping):
+            parts = {k: unbind(v) for k, v in tree.items()}
+            return [{k: p[n] for k, p in parts.items()} for n in range(cfg.n_periods)]
+        return tree.unbind(0)
+
+    subs = [unbind(layers[f"sub{i}"]) for i in range(len(cfg.layer_pattern))]
+    return [subs[i][n] for n in range(cfg.n_periods) for i in range(len(subs))]
+
+
 def lm_backbone(cfg, params, x, positions, *, collect_cache=False):
     """x [B,S,d] -> (h [B,S,d], caches or None); caches are
     ``{"sub<i>": {"k", "v"}}`` with the layer's K/V stacked over periods."""
     per_sub: dict = {}
     h = x
-    for bp, (i, kind) in zip(params["layers"], _layer_kinds(cfg)):
+    for bp, (i, kind) in zip(layer_params(cfg, params), _layer_kinds(cfg)):
         h, st = apply_block(cfg, kind, bp, h, positions, return_kv=collect_cache)
         if collect_cache:
             per_sub.setdefault(f"sub{i}", []).append(st)
@@ -100,6 +105,31 @@ def lm_backbone(cfg, params, x, positions, *, collect_cache=False):
     caches = {sub: {c: torch.stack([st[c] for st in sts]) for c in sts[0]}
               for sub, sts in per_sub.items()}
     return h, caches
+
+
+def _train_backbone(cfg, params, x, positions):
+    """x [B,S,d] -> h [B,S,d] under ``cfg.remat``: ``"full"`` runs each
+    period inside ``torch.utils.checkpoint`` (non-reentrant), which keeps
+    only the period's input and recomputes its activations in the backward
+    pass; ``"none"`` is the plain loop."""
+    if cfg.remat not in ("full", "none"):
+        raise unported(f"remat={cfg.remat!r} (selective checkpointing)")
+    layers = layer_params(cfg, params)
+    n = len(cfg.layer_pattern)
+
+    def period(h, p):
+        for i, kind in enumerate(cfg.layer_pattern):
+            h, _ = apply_block(cfg, kind, layers[p * n + i], h, positions)
+        return h
+
+    h = x
+    for p in range(cfg.n_periods):
+        if cfg.remat == "full":
+            h = torch.utils.checkpoint.checkpoint(period, h, p, use_reentrant=False,
+                                                  preserve_rng_state=False)
+        else:
+            h = period(h, p)
+    return h
 
 
 def _act_dtype(cfg):
@@ -113,6 +143,46 @@ def _embed(cfg, params, tokens):
 def _logits(cfg, params, h):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return h @ w.to(h.dtype)
+
+
+def _masked_mean(ce, labels):
+    mask = (labels >= 0).to(torch.float32)
+    return (ce * mask).sum() / mask.sum().clamp(min=1.0), mask.sum()
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+def lm_loss(cfg, params, batch):
+    """batch: tokens, labels [B, S] (numpy or tensors, moved to the
+    parameters' device); labels < 0 are masked.  Returns (loss, metrics):
+    a 0-d float32 loss (the mean cross entropy over unmasked positions,
+    plus 0.3 × the MTP loss when ``cfg.mtp``) and ``{"loss", "tokens"}``
+    (and ``"mtp_loss"``) as device tensors."""
+    dev = params["embed"].device
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    labels = torch.as_tensor(batch["labels"], device=dev).long()
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], device=dev)[None, :]
+    h = _train_backbone(cfg, params, x, positions)
+    h = rms_norm(h, params["final_norm"], cfg.rms_eps)
+    ce = softmax_cross_entropy(_logits(cfg, params, h), labels, cfg.vocab_size)
+    loss, tokens_n = _masked_mean(ce, labels)
+    metrics = {"loss": loss, "tokens": tokens_n}
+    if cfg.mtp:  # multi-token prediction: predict t+2 from (h_t, emb_{t+1})
+        mp = params["mtp"]
+        emb_next = _embed(cfg, params, tokens)[:, 1:]
+        h_in = torch.cat([rms_norm(h[:, :-1], mp["norm"], cfg.rms_eps), emb_next],
+                         dim=-1) @ mp["proj"]
+        pos2 = torch.arange(h_in.shape[1], device=dev)[None, :]
+        h2, _ = apply_block(cfg, "attn", mp["block"], h_in, pos2)
+        labels2 = labels[:, 1:]
+        ce2 = softmax_cross_entropy(_logits(cfg, params, h2), labels2, cfg.vocab_size)
+        mtp_loss, _ = _masked_mean(ce2, labels2)
+        loss = loss + 0.3 * mtp_loss
+        metrics["mtp_loss"] = mtp_loss
+        metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -170,7 +240,8 @@ def lm_decode(cfg, params, token, pos: int, cache):
     dev = params["embed"].device
     h = _embed(cfg, params, torch.as_tensor(token, device=dev).long())
     n = len(cfg.layer_pattern)
-    for idx, (bp, (i, kind)) in enumerate(zip(params["layers"], _layer_kinds(cfg))):
+    for idx, (bp, (i, kind)) in enumerate(zip(layer_params(cfg, params),
+                                              _layer_kinds(cfg))):
         # views of period idx // n: the slot write lands in ``cache``
         layer_cache = {c: t[idx // n] for c, t in cache[f"sub{i}"].items()}
         h, _ = decode_block(cfg, kind, bp, h, int(pos), state=layer_cache)

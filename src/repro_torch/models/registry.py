@@ -3,8 +3,10 @@ architectures the port builds, the dense GQA family (llama3.2-1b,
 llama3.2-3b, qwen2-1.5b, granite-3-2b).
 
 ``build(cfg)`` raises ``NotImplementedError`` for encoder-decoder, MoE, MLA,
-SSM, vision and hybrid configs, and ``ModelAPI.loss`` raises for every
-config: training is not ported yet (ROADMAP Queue 1 item 20).
+SSM, vision and hybrid configs (ROADMAP Queue 1 item 20).  ``ModelAPI.loss``
+is ``lm.lm_loss``; ``batch_spec`` and ``real_batch`` give a workload cell's
+inputs.  The dry run's abstract inputs (the reference's ``abstract_batch``)
+wait for item 20's ``launch/`` part.
 """
 from __future__ import annotations
 
@@ -13,27 +15,25 @@ from typing import Any, Callable
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeSpec
 from ..device import resolve_device
 from . import lm
 from .attention import UNPORTED
-from .layers import count_params
+from .layers import P, count_params
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: ArchConfig
     specs: Any                     # param spec tree (P leaves), reference layout
-    init: Callable                 # (seed=0, device="cuda", dtype=None, generator=None) -> params
+    init: Callable                 # (seed=0, device="cuda", dtype=None, generator=None) -> tree
+    loss: Callable                 # (params, batch) -> (loss, metrics)
     prefill: Callable              # (params, batch, cache_len=None) -> (logits, cache)
     decode_step: Callable          # (params, token, pos, cache) -> (logits, cache)
     init_cache: Callable           # (batch, seq, dtype, device="cuda") -> cache
 
     def n_params(self) -> int:
         return count_params(self.specs)
-
-    def loss(self, params, batch):
-        raise NotImplementedError(f"lm_loss and training are not ported yet ({UNPORTED})")
 
 
 def _unsupported(cfg: ArchConfig) -> str | None:
@@ -63,8 +63,38 @@ def build(cfg: ArchConfig) -> ModelAPI:
         cfg=cfg,
         specs=specs,
         init=init,
+        loss=lambda p, b: lm.lm_loss(cfg, p, b),
         prefill=lambda p, b, cache_len=None: lm.lm_prefill(cfg, p, b, cache_len),
         decode_step=lambda p, t, pos, c: lm.lm_decode(cfg, p, t, pos, c),
         init_cache=lambda batch, seq, dtype, device="cuda": lm.lm_init_cache(
             cfg, batch, seq, dtype, resolve_device(device)),
     )
+
+
+# ---------------------------------------------------------------------------
+# Batch input specs per workload shape
+# ---------------------------------------------------------------------------
+def batch_spec(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """Logical-axis specs for every model input of this workload cell (the
+    dense GQA family has no vision or audio front-end)."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return {"tokens": P((B, S), ("batch", "seq"), "zeros"),
+                "labels": P((B, S), ("batch", "seq"), "zeros")}
+    if shape.kind == "prefill":
+        return {"tokens": P((B, S), ("batch", "seq"), "zeros")}
+    # decode: one token + position; the cache is specced separately
+    return {"token": P((B,), ("batch",), "zeros"), "pos": P((), (), "zeros")}
+
+
+def real_batch(cfg: ArchConfig, shape: ShapeSpec, generator: torch.Generator) -> dict:
+    """A random batch on the generator's device: token ids uniform in
+    [0, vocab_size) as int32, ``pos`` 0, drawn in the specs' order."""
+    out = {}
+    for name, s in batch_spec(cfg, shape).items():
+        if name == "pos":
+            out[name] = torch.zeros((), dtype=torch.int32, device=generator.device)
+        else:
+            out[name] = torch.randint(0, cfg.vocab_size, s.shape, generator=generator,
+                                      dtype=torch.int32, device=generator.device)
+    return out

@@ -793,7 +793,7 @@ def test_cuda_reduced_lm_float32_takes_the_simt_kernel(cuda_device):
     within 1e-5 of their largest magnitude."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import flash_attention as tflash
-    from repro_torch.models import registry
+    from repro_torch.models import layers, registry
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config("llama3_2_1b").reduced()
@@ -801,7 +801,7 @@ def test_cuda_reduced_lm_float32_takes_the_simt_kernel(cuda_device):
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 66))
     outs = []
     for dev in ("cpu", cuda_device):
-        params = api.init(seed=0, device="cpu").to(dev)
+        params = layers.map_tree(lambda t: t.to(dev), api.init(seed=0, device="cpu"))
         before = {name: kern.launches for name, kern in tflash.KERNELS.items()}
         logits, cache = api.prefill(params, {"tokens": toks[:, :64]}, 66)
         steps = [logits]
@@ -838,13 +838,13 @@ def test_cuda_lm_prefill_and_decode_match_cpu(cuda_device, arch):
     against the same weights on the CPU (the plain branches): float32 logits
     and caches within 1e-5 of their largest magnitude."""
     from repro_torch.configs.base import get_config
-    from repro_torch.models import registry
+    from repro_torch.models import layers, registry
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(arch).reduced()
     api = registry.build(cfg)
     params = api.init(seed=0, device="cpu")
-    on_card = api.init(seed=0, device="cpu").to(cuda_device)
+    on_card = layers.map_tree(lambda t: t.to(cuda_device), params)
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 34))
     outs = []
     for p in (params, on_card):
@@ -2240,3 +2240,137 @@ def test_cuda_reader_stays_live_across_a_recapture(cuda_device):
         if offset:
             StreamExecutor(ref).run(ref_stream[:offset])
         _assert_host_equal(got, reads(ViewServer(StreamExecutor(ref))), f"generation {g}")
+
+
+# ---------------------------------------------------------------------------
+# The attention backward kernel and the training step
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,T,D,causal", [
+    (2, 4, 2, 100, 16, True), (2, 4, 4, 100, 16, False), (1, 4, 1, 65, 8, True),
+    (1, 8, 2, 130, 32, False), (2, 8, 2, 257, 64, True), (1, 8, 8, 64, 64, False),
+    (1, 8, 2, 257, 128, True), (1, 4, 1, 77, 128, False)])
+def test_cuda_flash_bwd_matches_plain(cuda_device, B, H, Hkv, T, D, causal, dtype):
+    """``flash_attention_bwd`` against its plain version in float64 on the
+    same inputs (o from the forward kernel): dQ, dK and dV within 1e-5
+    (float32) or 1e-2 (bf16: outputs rounded to bf16) of each one's largest
+    magnitude; one launch; a second call bitwise equal (no atomics)."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(T + D + H)
+    q, k, v, do = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                                device=cuda_device).to(dt)
+                   for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, D), (B, H, T, D)))
+    o = tflash.flash_attention(q, k, v, causal=causal)
+    n = tflash.FLASH_ATTENTION_BWD.launches
+    got = tflash.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    again = tflash.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    assert tflash.FLASH_ATTENTION_BWD.launches == n + 2
+    want = ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)),
+                                       causal=causal)
+    rtol = 1e-5 if dt == torch.float32 else 1e-2
+    for g, a, w, inp in zip(got, again, want, (q, k, v)):
+        assert g.dtype == dt and g.shape == inp.shape
+        assert torch.equal(g, a)
+        assert float((g.double() - w).abs().max()) <= rtol * float(w.abs().max())
+
+
+def test_cuda_flash_bwd_rejects_what_it_does_not_take(cuda_device):
+    """The wrapper raises on shapes, dtypes and devices the kernel does not
+    take, and a launch the C entry refuses (causal with T != Tk) raises."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    def t(*shape, dtype=torch.float32, device=cuda_device):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    q, k = t(1, 2, 8, 16), t(1, 1, 8, 16)
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.flash_attention_bwd(t(1, 2, 8, 48), t(1, 1, 8, 48), t(1, 1, 8, 48),
+                                   t(1, 2, 8, 48), t(1, 2, 8, 48))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        h = torch.float16
+        tflash.flash_attention_bwd(t(1, 2, 8, 16, dtype=h), t(1, 1, 8, 16, dtype=h),
+                                   t(1, 1, 8, 16, dtype=h), t(1, 2, 8, 16, dtype=h),
+                                   t(1, 2, 8, 16, dtype=h))
+    with pytest.raises(ValueError, match="do is"):
+        tflash.flash_attention_bwd(q, k, k, q, t(1, 2, 8, 16, device="cpu"))
+    with pytest.raises(ValueError, match="T == Tk"):
+        tflash.flash_attention_bwd(t(1, 2, 4, 16), k, k, t(1, 2, 4, 16), t(1, 2, 4, 16))
+    lse = t(1, 2, 4)
+    with pytest.raises(RuntimeError, match="repro_flash_attention_bwd failed"):
+        q4 = t(1, 2, 4, 16)
+        tflash.FLASH_ATTENTION_BWD.launch(
+            q4.data_ptr(), k.data_ptr(), k.data_ptr(), q4.data_ptr(), q4.data_ptr(),
+            q4.data_ptr(), k.data_ptr(), k.data_ptr(), lse.data_ptr(), lse.data_ptr(),
+            1, 2, 1, 4, 8, 16, 0, 1, 0)
+
+
+@pytest.mark.parametrize("D", [16, 64])
+def test_cuda_model_attention_gradient_takes_the_backward_kernel(cuda_device, D):
+    """With a gradient asked for, ``models.attention.flash_attention`` on
+    CUDA tensors is ``FlashAttentionFn``: the forward kernel once, the
+    backward kernel once, the gradients those of ``flash_attention_bwd``;
+    without one (serving) it is the plain launch."""
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.models import attention
+
+    rng = np.random.default_rng(D)
+    q, k, v, do = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                                device=cuda_device)
+                   for s in ((2, 4, 70, D), (2, 2, 70, D), (2, 2, 70, D), (2, 4, 70, D)))
+    with torch.no_grad():
+        assert attention.flash_attention(q, k, v).grad_fn is None
+    qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+    fwd = tflash.KERNELS[tflash.variant(torch.float32, D)]
+    n_f, n_b = fwd.launches, tflash.FLASH_ATTENTION_BWD.launches
+    o = attention.flash_attention(qs, ks, vs)
+    assert type(o.grad_fn).__name__ == "FlashAttentionFnBackward"
+    got = torch.autograd.grad(o, (qs, ks, vs), do)
+    assert (fwd.launches - n_f, tflash.FLASH_ATTENTION_BWD.launches - n_b) == (1, 1)
+    want = tflash.flash_attention_bwd(q, k, v, o.detach(), do)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_cuda_train_step_matches_cpu(cuda_device):
+    """One ``make_train_step`` of the reduced llama3.2-1b (the mma forward
+    and the backward kernel, remat ``full``, 2 microbatches) on the card
+    against the same step on the CPU, from the same parameters and batch,
+    within chip_smoke.py E2's limits: the loss 1e-5 relative, every
+    gradient leaf 1e-4 and every parameter after the update 1e-5 of its
+    largest magnitude.  SGD with momentum: AdamW's first step is nearly
+    sign(g)·lr, which turns gradients within rounding of 0 into updates
+    that differ by up to 2·lr."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data import lm_data
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.optim import optimizers
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama3_2_1b").reduced()
+    api = registry.build(cfg)
+    batch = lm_data._batch_for_step(cfg, ShapeSpec("t", 64, 4, "train"), 0, 0, "cpu")
+    opt = optimizers.sgd(0.1, momentum=0.9)
+    plan = train.TrainPlan(2, torch.float32)
+    results = []
+    for dev in ("cpu", cuda_device):
+        params = api.init(seed=0, device="cpu")
+        params = pytree.tree_map(lambda t: t.to(dev), params)
+        n = tflash.FLASH_ATTENTION_BWD.launches
+        new, state, metrics = train.make_train_step(cfg, api, opt, plan)(
+            params, opt.init(params), batch)
+        torch.cuda.synchronize()
+        launched = tflash.FLASH_ATTENTION_BWD.launches - n
+        results.append((float(metrics["loss"]), new, state["mu"], launched))
+    (l_cpu, p_cpu, g_cpu, n_cpu), (l_gpu, p_gpu, g_gpu, n_gpu) = results
+    assert (n_cpu, n_gpu) == (0, cfg.n_layers * plan.n_microbatches)
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    for rtol, a, b in ((1e-4, g_cpu, g_gpu), (1e-5, p_cpu, p_gpu)):
+        for x, y in zip(pytree.tree_leaves(a), pytree.tree_leaves(b)):
+            assert float((y.cpu() - x).abs().max()) <= rtol * float(x.abs().max())

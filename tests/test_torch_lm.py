@@ -5,7 +5,7 @@ qwen2-1.5b with its QKV bias, granite-3-2b), float32.  Parameters are the
 reference's pytree, either its own init (``registry.build(cfg).init``) or
 drawn with numpy at per-layer scales with every norm and bias perturbed (so
 that none of them is a no-op), moved into the port with
-``convert.lm_params_from_numpy``.  The same tokens go through both.
+``convert.tree_from_numpy``.  The same tokens go through both.
 
 Tolerances: logits and K/V caches within 1e-5 of their largest magnitude.
 Both packages compute the same float32 function; the dot products and sums
@@ -81,7 +81,7 @@ def both(arch: str, init: str = "numpy"):
     else:
         tree = numpy_params(api.specs, seed=len(arch))
     rparams = jax.tree.map(jnp.asarray, tree)
-    return rapi, api, rparams, convert.lm_params_from_numpy(cfg, tree, device="cpu")
+    return rapi, api, rparams, convert.tree_from_numpy(tree, device="cpu")
 
 
 def _tokens(cfg, shape, seed=0):
@@ -157,7 +157,7 @@ def test_full_width_block_matches_reference():
     pos = np.arange(16)[None, :]
     r_y, r_kv = rblocks.apply_block(rcfg, "attn", jax.tree.map(jnp.asarray, tree),
                                     jnp.asarray(x), jnp.asarray(pos), return_kv=True)
-    bp = layers.Params(layers.map_tree(torch.tensor, tree))
+    bp = layers.map_tree(torch.tensor, tree)
     t_y, t_kv = blocks.apply_block(cfg, "attn", bp, torch.tensor(x),
                                    torch.tensor(pos), return_kv=True)
     assert_close(t_y, r_y)
@@ -209,7 +209,7 @@ def test_swap_adapter_matches_reference():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_convert_round_trip(arch):
     _, api, rp, tp = both(arch, "reference")
-    back = convert.lm_params_to_numpy(api.cfg, tp)
+    back = convert.tree_to_numpy(tp)
     ref_leaves = jax.tree.leaves_with_path(rp)
     got_leaves = jax.tree.leaves_with_path(back)
     assert [p for p, _ in got_leaves] == [p for p, _ in ref_leaves]
@@ -233,8 +233,7 @@ def test_init_follows_the_reference_scales():
     embedding; norms are ones and biases zeros."""
     cfg = get_config("qwen2_1_5b").reduced()
     api = registry.build(cfg)
-    params = api.init(seed=0, device="cpu")
-    tree = registry.lm.params_to_tree(cfg, params)
+    tree = api.init(seed=0, device="cpu")
     for path, spec in layers.iter_specs(api.specs):
         t = tree
         for key in path:
@@ -249,7 +248,8 @@ def test_init_follows_the_reference_scales():
             assert abs(float(t.std()) / want - 1.0) < 0.1, (path, float(t.std()), want)
     # a seeded generator on the device: the same seed gives the same weights
     again = api.init(seed=0, device="cpu")
-    assert torch.equal(again["layers"][1]["attn"]["wq"], params["layers"][1]["attn"]["wq"])
+    assert torch.equal(again["layers"]["sub0"]["attn"]["wq"],
+                       tree["layers"]["sub0"]["attn"]["wq"])
 
 
 def test_convert_bf16_tree():
@@ -258,9 +258,9 @@ def test_convert_bf16_tree():
     rcfg, cfg = ref_config("granite_3_2b").reduced(), get_config("granite_3_2b").reduced()
     tree = jax.tree.map(np.asarray, rregistry.build(rcfg).init(jax.random.PRNGKey(1),
                                                                jnp.bfloat16))
-    params = convert.lm_params_from_numpy(cfg, tree, device="cpu")
+    params = convert.tree_from_numpy(tree, device="cpu")
     assert params["embed"].dtype == torch.bfloat16
-    back = convert.lm_params_to_numpy(cfg, params)
+    back = convert.tree_to_numpy(params)
     for g, w in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
         assert g.dtype == np.float32
         np.testing.assert_array_equal(g, w.astype(np.float32))

@@ -7,9 +7,9 @@
 * Entry points default to ``device="cuda"`` and raise on a host without
   CUDA unless the caller passes ``device="cpu"``.
 * What the slice does not port yet raises ``NotImplementedError`` (every
-  LM family but dense GQA, and the training loss); sparse storage,
-  indicators, factorized updates and sharding, ported since, run against
-  the reference instead.
+  LM family but dense GQA); sparse storage, indicators, factorized updates,
+  sharding and the training loss, ported since, run against the reference
+  instead.
 * On a CUDA host the kernel toolchain (``nvcc``) is present: the test fails,
   not skips, where it is missing.
 """
@@ -58,7 +58,8 @@ def test_port_files_found():
             "integrity.py", "fault_tolerance.py", "checkpointer.py",
             "stream_state.py", "registry.py", "lookup.py", "server.py",
             "verifier.py", "chip_smoke.py", "lint_hotpath_torch.py",
-            "verify_plans_torch.py"} <= names
+            "verify_plans_torch.py", "optimizers.py", "schedules.py", "train.py",
+            "mesh.py", "compression.py", "lm_data.py", "train_lm.py"} <= names
 
 
 def _small_engine(**kw):
@@ -97,13 +98,28 @@ def test_unported_lm_families_raise(arch):
 
 
 def test_lm_loss_is_not_ported():
+    """Ported since: ``ModelAPI.loss`` is ``lm_loss``, which equals the
+    reference's on the same parameters and batch (labels < 0 masked)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.base import get_config as ref_config
+    from repro.models import registry as rregistry
+    from repro_torch import convert
     from repro_torch.configs.base import get_config
     from repro_torch.models import registry
 
     cfg = get_config("llama3_2_1b").reduced()
     api = registry.build(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 20"):
-        api.loss(None, {"tokens": np.zeros((1, 4), np.int32)})
+    tree = jax.tree.map(np.asarray, rregistry.build(ref_config("llama3_2_1b").reduced()).init(
+        jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32),
+             "labels": rng.integers(-1, cfg.vocab_size, (2, 8)).astype(np.int32)}
+    loss, metrics = api.loss(convert.tree_from_numpy(tree, device="cpu"), batch)
+    want, want_metrics = rregistry.build(ref_config("llama3_2_1b").reduced()).loss(
+        jax.tree.map(jnp.asarray, tree), {k: jnp.asarray(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+    assert float(metrics["tokens"]) == float(want_metrics["tokens"])
 
 
 def test_server_without_device_raises_on_a_host_without_cuda():
