@@ -181,13 +181,15 @@ Phases (any failed check raises, and the script exits non-zero):
    to a bf16 prefill over the extended prompt and the decode loop
    profiled.
 6. Path E, LM training (``launch/train.py``, ``optim/``, ``lm_loss``; the
-   attention gradient is ``flash_attention_bwd``, a hand kernel with no
-   Pallas original):
+   attention gradient is ``flash_attention_bwd``, hand kernels with no
+   Pallas original: ``flash_attention_bwd_wgmma`` for bf16 at head dim 64
+   or 128, ``flash_attention_bwd``'s SIMT kernels otherwise):
    - E1, ``flash_attention_bwd`` against its plain version in float64
      (``BWD_CASES``: llama3.2-1b's microbatch attention in float32 and
      bf16, causal and not; head dims 16 and 128, G 1 and 4, T 100 and 257),
      two calls bitwise equal, timed beside the plain version, SDPA's
-     backward and its bound;
+     backward and its bound; at ``BWD_MAIN`` the SIMT route timed by name
+     beside the wgmma route;
    - E2, one ``make_train_step`` at llama3.2-1b's widths and 2 layers in
      float32 (TF32 forward, the backward kernel) against the same port
      functions in float64 through the plain attention: loss, gradients,
@@ -1997,10 +1999,12 @@ def lm_serve_path(kernels) -> dict:
 #: attention (a global batch of 8 × 1024 in 2 microbatches) in float32 and
 #: bf16, causal and not; head dim 16 at G = 1 and T = 100, not a multiple
 #: of the kernels' 64-row tile (the reduced configs); head dim 128 at G = 4
-#: and T = 257 (llama3.2-3b, qwen2-1.5b)
+#: and T = 257 (llama3.2-3b, qwen2-1.5b), in float32 and bf16.  bf16 at head
+#: dim 64 and 128 takes the wgmma route, the rest the SIMT route
 BWD_CASES = ((4, 32, 8, 1024, 64, "float32", True), (4, 32, 8, 1024, 64, "float32", False),
-             (4, 32, 8, 1024, 64, "bfloat16", True), (2, 4, 4, 100, 16, "float32", True),
-             (2, 4, 4, 100, 16, "float32", False), (1, 8, 2, 257, 128, "float32", True))
+             (4, 32, 8, 1024, 64, "bfloat16", True), (4, 32, 8, 1024, 64, "bfloat16", False),
+             (2, 4, 4, 100, 16, "float32", True), (2, 4, 4, 100, 16, "float32", False),
+             (1, 8, 2, 257, 128, "float32", True), (1, 8, 2, 257, 128, "bfloat16", True))
 #: the backward kernel against its plain version in float64 on the same
 #: inputs, of each output's largest magnitude.  float32: every product and
 #: sum in float32 (~6e-8 a rounding), over sums of up to T terms in another
@@ -2009,7 +2013,8 @@ BWD_CASES = ((4, 32, 8, 1024, 64, "float32", True), (4, 32, 8, 1024, 64, "float3
 #: rounded to bf16 (2⁻⁹ of each value), and o, the forward's bf16 output,
 #: enters Δ as it is; measured about 3e-3
 BWD_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
-#: the shape of the summary row: the main path's (E3) backward
+#: the shape of the wgmma route's summary row: the main path's (E3)
+#: backward; the SIMT route's row is the same shape in float32
 BWD_MAIN = (4, 32, 8, 1024, 64, "bfloat16", True)
 #: E2: llama3.2-1b's widths at 2 layers, batch 2 × 256 in 2 microbatches
 #: (so the step's accumulators add and divide), float32
@@ -2041,8 +2046,9 @@ TRAIN_DIR = Path(__file__).resolve().parent / "build" / "train"
 def bwd_device_ms(fn, calls: int = 5):
     """Device ms a call of ``fn`` (the backward wrapper: two kernels a
     call), from the first of up to WINDOWS profiled windows that lists
-    2·``calls`` ``flash_bwd`` kernels; None when none did (the counts are
-    logged when it took more than one window).  Five calls: late in the
+    2·``calls`` ``flash_bwd`` kernels (either route's: the names of both
+    routes' two kernels hold ``flash_bwd``); None when none did (the counts
+    are logged when it took more than one window).  Five calls: late in the
     smoke, windows of 10 calls of the 3.8 ms backward listed 13 of the 20
     kernels, window after window, on an H100."""
     counts = []
@@ -2061,15 +2067,17 @@ def bwd_device_ms(fn, calls: int = 5):
 
 
 def flash_bwd_rows(rng) -> list:
-    """E1: ``flash_attention_bwd`` at BWD_CASES against
-    ``ref.flash_attention_bwd_ref`` in float64 on the same inputs (o from
-    the forward kernel), within BWD_RTOL of each output's largest
-    magnitude, two calls bitwise equal; timed with CUDA events beside the
-    plain version, SDPA's backward (``library_ms``: the forward outside the
-    timed window, ``torch.autograd.grad`` timed) and its bound: the five
-    T×T×D products of the backward (the causal half where causal) at the
-    tensor-core peak of the dtype (bf16 989, TF32 495 TFLOP/s), against q,
-    k, v, o, dO read and dQ, dK, dV written once."""
+    """E1: ``flash_attention_bwd`` at BWD_CASES (the route ``bwd_variant``
+    names) against ``ref.flash_attention_bwd_ref`` in float64 on the same
+    inputs (o from the forward kernel), within BWD_RTOL of each output's
+    largest magnitude, two calls bitwise equal; timed with CUDA events
+    beside the route's plain version, SDPA's backward (``library_ms``: the
+    forward outside the timed window, ``torch.autograd.grad`` timed) and its
+    bound: the five T×T×D products of the backward (the causal half where
+    causal) at the tensor-core peak of the dtype (bf16 989, TF32 495
+    TFLOP/s), against q, k, v, o, dO read and dQ, dK, dV written once.  At
+    BWD_MAIN the SIMT route (``bwd_launch("simt", ...)``) is timed in turns
+    beside them, events and device ms (``simt_ms``, ``simt_device_ms``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as tflash
@@ -2082,6 +2090,7 @@ def flash_bwd_rows(rng) -> list:
         k, v = (normal(rng, (B, Hkv, T, D)).to(dt) for _ in range(2))
         do = normal(rng, (B, H, T, D)).to(dt)
         o = tflash.flash_attention(q, k, v, causal)
+        route = tflash.bwd_variant(dt, D)
         got = tflash.flash_attention_bwd(q, k, v, o, do, causal)
         again = tflash.flash_attention_bwd(q, k, v, o, do, causal)
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -2090,7 +2099,7 @@ def flash_bwd_rows(rng) -> list:
         errors = {name: rel_err(g, w) for name, g, w in zip(("dq", "dk", "dv"), got, want)}
         max_abs = max(float((g.double() - w).abs().max()) for g, w in zip(got, want))
         del again, want
-        label = f"flash_attention_bwd {(B, H, Hkv, T, D)} {dtype} causal={causal}"
+        label = f"flash_attention_bwd {(B, H, Hkv, T, D)} {dtype} causal={causal} {route}"
         check_within(label, errors, dict.fromkeys(errors, BWD_RTOL[dtype]))
         if not bitwise:
             raise AssertionError(f"{label}: two calls differ")
@@ -2104,20 +2113,27 @@ def flash_bwd_rows(rng) -> list:
         def library():
             torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
 
-        times = time_in_turns({"kernel": kernel, "library": library})
+        def simt():
+            tflash.bwd_launch("simt", q, k, v, o, do, causal)
+
+        main = (B, H, Hkv, T, D, dtype, causal) == BWD_MAIN
+        times = time_in_turns({"kernel": kernel, "library": library,
+                               **({"simt": simt} if main else {})})
         pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
         nbytes = q.element_size() * (4 * B * H * T * D + 4 * B * Hkv * T * D)
         peak = BF16_OPS_PER_S if dt == torch.bfloat16 else TF32_OPS_PER_S
         bms, by = bound_ms(nbytes, 5 * 2 * pairs * D, peak)
         row = dict(shape=dict(B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=dtype), causal=causal,
-                   errors=errors, max_abs_err=max_abs, limit=BWD_RTOL[dtype],
+                   route=route, errors=errors, max_abs_err=max_abs, limit=BWD_RTOL[dtype],
                    bitwise_repeat=bitwise, kernel_ms=times["kernel"],
                    device_ms=bwd_device_ms(kernel),
-                   plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(
+                   plain_ms=time_ms(lambda: tflash.BWD_PLAIN[route](
                        q, k, v, o, do, causal=causal), reps=5, warmup=1),
                    library_ms=times["library"], bound_ms=bms, bound_by=by,
                    bound_peak="bf16 tensor cores" if dt == torch.bfloat16
                    else "TF32 tensor cores")
+        if main:
+            row.update(simt_ms=times["simt"], simt_device_ms=bwd_device_ms(simt))
         rows.append(row)
         log({"kernel": "flash_attention_bwd", **row})
         del q, k, v, o, do, got, qs, ks, vs, out
@@ -2230,7 +2246,7 @@ def train_step_leg(kernels) -> dict:
     n = 2 * cfg.n_layers * plan.n_microbatches
     launches = read_launches("E2 train steps", kernels, {
         "flash_attention_tf32": 2 * n, "flash_attention_bwd": n, "flash_attention": 0,
-        "flash_attention_wgmma": 0})
+        "flash_attention_wgmma": 0, "flash_attention_bwd_wgmma": 0})
     step_grads = pytree.tree_map(lambda p, q: (p.double() - q.double()) / TRAIN_E2_SGD_LR,
                                  params, sgd_params)
     cfg64 = dataclasses.replace(cfg, act_dtype="float64", param_dtype="float64")
@@ -2292,8 +2308,8 @@ def train_full_leg(kernels) -> dict:
     per_step = cfg.n_layers * plan.n_microbatches
     launches = read_launches("E3 llama3.2-1b training", kernels, {
         "flash_attention_wgmma": 2 * per_step * TRAIN_E3_STEPS,
-        "flash_attention_bwd": per_step * TRAIN_E3_STEPS, "flash_attention": 0,
-        "flash_attention_tf32": 0})
+        "flash_attention_bwd_wgmma": per_step * TRAIN_E3_STEPS, "flash_attention_bwd": 0,
+        "flash_attention": 0, "flash_attention_tf32": 0})
     peak = torch.cuda.max_memory_allocated()
     losses = [h["loss"] for h in history]
     step_s = statistics.median(h["time_s"] for h in history[1:])
@@ -2302,7 +2318,16 @@ def train_full_leg(kernels) -> dict:
     state = opt.init(params)
     batch = lm_data._batch_for_step(cfg, shape, SEED, TRAIN_E3_STEPS, "cuda")
     step_fn = make_train_step(cfg, api, opt, plan)
-    profile = _busy(*device_events(lambda: step_fn(params, state, batch), 1))
+    events, wall = device_events(lambda: step_fn(params, state, batch), 1)
+    profile = _busy(events, wall)
+    # the backward's kernels by name: device ms and launches of the step
+    backward = {}
+    for e in events:
+        if "flash_bwd" in e.name:
+            ms, n = backward.get(e.name[:90], (0.0, 0))
+            backward[e.name[:90]] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    profile.update(backward_kernels={k: list(v) for k, v in backward.items()},
+                   backward_ms=sum(ms for ms, _ in backward.values()))
     del params, state
     torch.cuda.empty_cache()
     out = dict(path="train_full", arch=cfg.name, n_params=api.n_params(),
@@ -2312,7 +2337,7 @@ def train_full_leg(kernels) -> dict:
                tokens_per_s=TRAIN_E3_B * TRAIN_E3_T / step_s, max_memory_allocated=peak,
                flash_launches_per_step={"forward": launches["flash_attention_wgmma"]
                                         / TRAIN_E3_STEPS,
-                                        "backward": launches["flash_attention_bwd"]
+                                        "backward": launches["flash_attention_bwd_wgmma"]
                                         / TRAIN_E3_STEPS},
                profile=profile, launches=launches)
     log(out)
@@ -2361,7 +2386,8 @@ def train_resume_leg(kernels) -> dict:
         launches = read_launches("E4 resume", kernels, {
             "flash_attention": 2 * cfg.n_layers * steps_run,
             "flash_attention_bwd": cfg.n_layers * steps_run,
-            "flash_attention_tf32": 0, "flash_attention_wgmma": 0})
+            "flash_attention_tf32": 0, "flash_attention_wgmma": 0,
+            "flash_attention_bwd_wgmma": 0})
         reset(kernels)
         t0 = time.perf_counter()
         example = train_lm.main(["--tiny", "--ckpt", str(root / "example")])
@@ -2371,7 +2397,7 @@ def train_resume_leg(kernels) -> dict:
         n = len(example)
         example_launches = read_launches("E4 train_lm example", kernels, {
             "cofactor_update": n, "flash_attention": 2 * tiny.n_layers * n,
-            "flash_attention_bwd": tiny.n_layers * n})
+            "flash_attention_bwd": tiny.n_layers * n, "flash_attention_bwd_wgmma": 0})
     finally:
         shutil.rmtree(root, ignore_errors=True)
     last, last_resumed = straight[-1]["loss"], resumed[-1]["loss"]
@@ -5606,6 +5632,7 @@ def main() -> int:
                                                 ROUTES)
     from repro_torch.kernels.flash_attention import (FLASH_ATTENTION,
                                                      FLASH_ATTENTION_BWD,
+                                                     FLASH_ATTENTION_BWD_WGMMA,
                                                      FLASH_ATTENTION_TF32,
                                                      FLASH_ATTENTION_WGMMA)
     from repro_torch.kernels.rank1_chain import MATVEC, OUTER_ACCUMULATE
@@ -5629,7 +5656,7 @@ def main() -> int:
     kernels = [SCATTER_ADD, SEGMENT_RING_SUM, GATHER_MUL_SCATTER, SCATTER_DEDUP,
                FUSED_CHAIN, COFACTOR_UPDATE, RING_MUL, MATVEC, OUTER_ACCUMULATE,
                FLASH_ATTENTION, FLASH_ATTENTION_WGMMA, FLASH_ATTENTION_TF32,
-               HASH_PROBE, HASH_INSERT, FLASH_ATTENTION_BWD]
+               HASH_PROBE, HASH_INSERT, FLASH_ATTENTION_BWD, FLASH_ATTENTION_BWD_WGMMA]
     laps = Laps()
     build_s = _cuda.build_all(kernels)
     log({"build_s": build_s, "libraries": [k.library_path().name for k in kernels]})
@@ -5830,19 +5857,23 @@ def main() -> int:
                if k in row},
             **({"launches_by_route": {n.split(":")[1]: launched[n] for n in entries[name]}}
                if name in ("hash_insert", "hash_insert_targets") else {})))
+    # the two backward routes: the wgmma route at BWD_MAIN (the SIMT route's
+    # time at that shape beside it), the SIMT route at BWD_MAIN in float32
     B, H, Hkv, T, D, dtype, causal = BWD_MAIN
-    row = next(r for r in train["rows"] if r["causal"] == causal and r["shape"] == dict(
-        B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=dtype))
-    summary.append(dict(
-        name="flash_attention_bwd", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        replaces="no Pallas original: the gradient jax.grad takes of "
-                 "src/repro/models/attention.py:76",
-        launches=launched["flash_attention_bwd"],
-        max_abs_err=max(r["max_abs_err"] for r in train["rows"]),
-        ms=row["kernel_ms"], device_ms=row["device_ms"], plain_ms=row["plain_ms"],
-        bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
-        shape={**row["shape"], "causal": causal}, bound_peak=row["bound_peak"]))
+    for name, dtype in (("flash_attention_bwd_wgmma", dtype), ("flash_attention_bwd", "float32")):
+        route = "wgmma" if name.endswith("wgmma") else "simt"
+        row = next(r for r in train["rows"] if r["causal"] == causal and r["shape"] == dict(
+            B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=dtype))
+        summary.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces="no Pallas original: the gradient jax.grad takes of "
+                     "src/repro/models/attention.py:76",
+            launches=launched[name],
+            max_abs_err=max(r["max_abs_err"] for r in train["rows"] if r["route"] == route),
+            ms=row["kernel_ms"], device_ms=row["device_ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+            shape={**row["shape"], "causal": causal}, bound_peak=row["bound_peak"],
+            **{k: row[k] for k in ("simt_ms", "simt_device_ms") if k in row}))
     log({"kernels": summary})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
@@ -5850,7 +5881,35 @@ def main() -> int:
     return 0
 
 
+def backward_main() -> int:
+    """``python3 chip_smoke.py --backward``: path E's E1 alone (the flash
+    kernels built, then ``flash_bwd_rows``), for work on the backward
+    kernels; the whole smoke runs without arguments."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device is available")
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention as tflash
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True, text=True,
+                       check=True).stdout.strip().splitlines()[0])
+    kernels = [tflash.FLASH_ATTENTION, tflash.FLASH_ATTENTION_WGMMA,
+               tflash.FLASH_ATTENTION_TF32, tflash.FLASH_ATTENTION_BWD,
+               tflash.FLASH_ATTENTION_BWD_WGMMA]
+    log({"build_s": _cuda.build_all(kernels)})
+    flash_bwd_rows(np.random.default_rng(SEED))
+    log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                "count": torch.cuda.device_count()}})
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--backward"]:
+        sys.exit(backward_main())
     if sys.argv[1:2] == ["--durable-child"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
         sys.exit(durable_child(sys.argv[2]))

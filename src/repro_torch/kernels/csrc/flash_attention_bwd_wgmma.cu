@@ -1,0 +1,809 @@
+// The gradient of causal (or full) flash attention on Hopper's tensor cores:
+// dQ, dK and dV of o = softmax(q kᵀ / √D) v for q, o, dO [B, H, T, D] and
+// k, v [B, Hkv, Tk, D] in bfloat16, D ∈ {64, 128}.
+//
+// Replaces: no Pallas kernel.  The reference trains by jax.grad through
+// flash_attention_jnp (src/repro/models/attention.py:76); the Pallas
+// forward has no custom_vjp.  This is the Hopper route of
+// repro_torch.kernels.flash_attention.flash_attention_bwd for bf16 at the
+// head dims of every dense config the port trains; float32, and D ≤ 32,
+// stay on flash_attention_bwd.cu's SIMT kernels.  It computes that file's
+// function: scores scaled by 1/√D (a double rounded to float) and masked
+// at -1e30, the denominator floored at 1e-30, GQA by index (dK and dV sum
+// over the G query heads of their group), any T.
+//
+// Precision.  S, dP, the softmax, Δ and every accumulator are float32.  P
+// enters dV = Pᵀ dO, and dS = P ∘ (dP − Δ) (formed from the float32 P)
+// enters dQ = dS K and dK = dSᵀ Q, each rounded once to bf16, as SDPA's
+// flash backward feeds them to the tensor cores.  Its plain version is
+// ref.flash_attention_bwd_bf16_ref.  Both are held within 1e-2 of each
+// output's largest magnitude of the float64 gradient, the plain version on
+// the CPU (tests/test_torch_flash_bwd.py), the kernel on the card
+// (chip_smoke.py E1, tests/test_torch_cuda.py), with no split of P or dS
+// into several bf16 terms.
+//
+// Bound: operations.  Five T×T×D products of the causal half (S, dP, dV,
+// dQ, dK): at llama3.2-1b's microbatch (B 4, H 32, T 1024, D 64) 43 GFLOP,
+// 0.0435 ms at 989 TFLOP/s bf16.  These kernels do eight: S three times
+// (the dq kernel's pass for L, its pass for dQ, the dkdv kernel) and dP
+// twice; ten at D = 128, where both of a dkdv block's warpgroups compute
+// Sᵀ and dPᵀ (DkvCfg).
+//
+// Design: FlashAttention-2's backward in two kernels, launched in order on
+// the caller's stream by one C entry, laid out as flash_attention_wgmma.cu
+// lays out the forward.  Each block is three warpgroups: warpgroup 0 is the
+// producer (it gives its registers up with setmaxnreg; one thread issues
+// the TMA loads into a ring of stages, each signalled by an mbarrier with
+// its byte count, freed by the consumers through a second mbarrier), and
+// warpgroups 1 and 2 each own 64 rows of the block's 128 (the dkdv kernel
+// at D = 128: the same 64 rows, half the output columns each).  Tiles are
+// 3-D TMA tensors (D, rows, B·heads), so a tile past a head's last row is
+// zero-filled, not read from the next head; shared memory is 128-byte
+// swizzled in 64-column panels.  Every product is a wgmma with float32
+// accumulators:
+// - flash_bwd_dq_wgmma_kernel, a block per (b·H + h, tile of 128 query
+//   rows), heaviest causal tiles first.  Q, dO and O stay resident; K and V
+//   stream in tiles of 64 keys.  Δ = rowsum(dO ∘ O) from shared memory;
+//   pass 1 computes S = Q Kᵀ (both operands K-major) over the key tiles for
+//   the row maximum and sum, so L (base 2); pass 2 computes S and
+//   dP = dO Vᵀ, then P = exp2(S·c − L) and dS in registers, and
+//   dQ += dS K with dS as the register-A operand (the accumulator layout of
+//   S is the A fragment layout) and K the MN-major B operand (transpose
+//   bit).  It writes L and Δ to float32 scratch [B·H, T rounded up to 128]
+//   (rows past T too: finite, and met only by zero rows of Q and dO).
+// - flash_bwd_dkdv_wgmma_kernel, a block per (b·Hkv + kvh, tile of 128
+//   keys; 64 at D = 128, see DkvCfg), the key tiles that see the most
+//   queries first.  K and V stay resident; Q, dO and the tile's L and Δ (a
+//   bulk copy each) stream in tiles of 64 queries for each of the G query
+//   heads of the group (causally only the tiles at or below the keys).
+//   It works transposed: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, so Pᵀ = exp2(Sᵀ·c − L) and
+//   dSᵀ = Pᵀ ∘ (dPᵀ − Δ) are already the A fragments of dV += Pᵀ dO and
+//   dK += dSᵀ Q, with dO and Q the MN-major B operands.  P and dS never
+//   touch shared memory.
+// Every output element is one warpgroup's accumulator in a fixed order: no
+// atomics, so two calls on the same inputs are bitwise equal.
+//
+// The tensor maps are encoded on the host for each call through
+// cuTensorMapEncodeTiled, found with cudaGetDriverEntryPoint, so the
+// library links no libcuda.
+#include <cuda.h>
+#include <cuda_bf16.h>
+
+#include <cmath>
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBlockM = 128;     // query rows of a dq block
+constexpr int kBlockN = 64;      // keys of a dq K/V tile
+constexpr int kPanel = 64;       // bf16 columns of one 128-byte swizzled panel
+constexpr int kRowBytes = 128;   // bytes of one row of a panel
+constexpr int kThreadsWG = 384;  // producer warpgroup + two consumer warpgroups
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// dq: Q, dO and O resident, a ring of K and V tiles
+template <int D>
+struct DqCfg {
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int kPanels = D / kPanel;
+  static constexpr int kBigBytes = kBlockM * D * 2;   // one resident tile
+  static constexpr int kTileBytes = kBlockN * D * 2;  // one K or V tile
+  static constexpr int kDoOff = kBigBytes;
+  static constexpr int kOOff = 2 * kBigBytes;
+  static constexpr int kKOff = 3 * kBigBytes;
+  static constexpr int kVOff = kKOff + kStages * kTileBytes;
+  static constexpr int kBarOff = kVOff + kStages * kTileBytes;
+  // barriers: full[kStages], empty[kStages], resident; then slack to align
+  // the dynamic shared memory to 1024 bytes (the swizzle's repeat)
+  static constexpr size_t kBytes = kBarOff + (2 * kStages + 1) * 8 + 1024;
+};
+
+// dkdv: K and V resident, a ring of Q and dO tiles with their L and Δ.
+// At D = 128 a warpgroup's dK and dV of 64 keys alone take 128 registers a
+// thread: a kernel that held them spilled and had its wgmmas serialized
+// (ptxas -v), with tiles of 64 queries and of 32.  So at D = 128 a block
+// takes 64 keys, and both consumer warpgroups take all of them, each the
+// dK and dV of one 64-column half: Sᵀ and dPᵀ are computed by both, and a
+// thread holds what it holds at D = 64 (tools/sass_report.py reads the
+// registers and spills of the code).
+template <int D>
+struct DkvCfg {
+  static constexpr int kStages = 4;
+  static constexpr int kPanels = D / kPanel;
+  static constexpr bool kSplit = D == 128;            // columns split, keys shared
+  static constexpr int kKeys = kSplit ? 64 : 128;     // keys of a block
+  static constexpr int kCols = kSplit ? 64 : D;       // output columns of a warpgroup
+  static constexpr int kQ = kBlockN;                  // queries of a tile
+  static constexpr int kBigBytes = kKeys * D * 2;     // the resident K or V
+  static constexpr int kTileBytes = kQ * D * 2;       // one Q or dO tile
+  static constexpr int kStatBytes = 2 * kQ * 4;       // L, then Δ, of a tile
+  static constexpr int kVOff = kBigBytes;
+  static constexpr int kQOff = 2 * kBigBytes;
+  static constexpr int kDoOff = kQOff + kStages * kTileBytes;
+  static constexpr int kLOff = kDoOff + kStages * kTileBytes;
+  static constexpr int kBarOff = kLOff + kStages * kStatBytes;
+  static constexpr size_t kBytes = kBarOff + (2 * kStages + 1) * 8 + 1024;
+  static constexpr uint32_t kStageTx = 2 * kTileBytes + kStatBytes;
+};
+
+using repro::mbar_arrive;
+using repro::mbar_expect_tx;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::smem_u32;
+
+// One TMA box of a 3-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16, 16-byte aligned ends) into
+// shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand (layout type 1): start
+// address, leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin registers that an asynchronous wgmma reads or writes: the compiler
+// may not move their uses across this point.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d[32] (+)= A[64 x 16] · B[16 x 64], A and B K-major in shared memory;
+// accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[32] += A[64 x 16] · B[16 x 64], A in registers (bf16 pairs), B MN-major
+// in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64] += A[64 x 16] · B[16 x 128], A in registers (bf16 pairs), B MN-major
+// in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// acc[N / 2] += A · B with B[16 x N] MN-major: the products into dQ, dK, dV
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&acc)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64(acc, a, db);
+  } else {
+    wgmma_rs_n128(acc, a, db);
+  }
+}
+
+// A copy of x the compiler cannot see through: a descriptor made from it
+// inside a loop is not hoisted out and held in registers.
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("mov.b64 %0, %0;\n" : "+l"(x));
+  return x;
+}
+
+// s[32] = A · Bᵀ over D for a 64-row A at sa (a tile of a_rows rows) and a
+// 64-row B at sb (a tile of b_rows rows), both K-major: D / 16 steps of 16
+// columns (32 bytes) along each panel, advancing the descriptors' address
+// fields (16-byte units).  Issued, not waited for.
+template <int D>
+__device__ __forceinline__ void issue_dot(float (&s)[32], uint32_t sa, int a_rows,
+                                          uint32_t sb, int b_rows) {
+  const uint64_t da = opaque(smem_desc(sa, 16, 1024));
+  const uint64_t db = opaque(smem_desc(sb, 16, 1024));
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss_n64(s, da + (((kk / 4) * a_rows * kRowBytes + off) >> 4),
+                 db + (((kk / 4) * b_rows * kRowBytes + off) >> 4), kk > 0);
+  }
+}
+
+// acc[N / 2] += A · B for the A fragments a (64 rows, the 64 columns of a
+// score tile in four k-steps) and B the N columns at sb of a 64-row tile,
+// MN-major: 16 rows (two 1024-byte swizzle atoms) a step, the leading byte
+// offset stepping between its 64-column panels.  Issued, not waited for.
+template <int N>
+__device__ __forceinline__ void issue_rs(float (&acc)[N / 2], const uint32_t (&a)[4][4],
+                                         uint32_t sb) {
+  const uint64_t db = opaque(smem_desc(sb, kBlockN * kRowBytes, 1024));
+#pragma unroll
+  for (int kk = 0; kk < kBlockN / 16; ++kk)
+    wgmma_rs<N>(acc, a[kk], db + ((kk * 16 * kRowBytes) >> 4));
+}
+
+// The two floats as a bf16 pair (the first in the low half), each rounded
+// to nearest even: one register of a wgmma A fragment.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Byte offset of element (row, col) in a bf16 tile of `rows` rows, stored
+// as 128-byte-swizzled 64-column panels (TMA's layout): the 16-byte chunk
+// of a row is xor-ed with the row's index in its 1024-byte atom.
+__device__ __forceinline__ uint32_t swz(int row, int col, int rows) {
+  const int c = (col % kPanel) * 2;
+  return (col / kPanel) * rows * kRowBytes + row * kRowBytes +
+         ((((c >> 4) ^ (row & 7))) << 4) + (c & 15);
+}
+
+// Accumulator layout (m64nN, float32): element i of a thread lies in row
+// r0 + 8·((i >> 1) & 1) of its warpgroup's 64, with r0 = 16·warp + lane / 4,
+// and column 8·(i / 4) + 2·(lane % 4) + (i & 1).  Register j of k-step kk
+// of an A fragment holds elements 8kk + 2j and 8kk + 2j + 1.
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsWG, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap domap,
+                              const __grid_constant__ CUtensorMap omap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              __nv_bfloat16* __restrict__ dq, float* __restrict__ lse2,
+                              float* __restrict__ delta, int H, int Hkv, int Tq, int Tk,
+                              int Tpad, float scale, int causal) {
+  using C = DqCfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const unsigned char* basep = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t sq = base, sdo = base + C::kDoOff, so = base + C::kOOff;
+  const uint32_t sk = base + C::kKOff, sv = base + C::kVOff;
+  const uint32_t bars = base + C::kBarOff;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (C::kStages + s); };
+  const uint32_t resident = bars + 8u * (2 * C::kStages);
+
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kvh = b * Hkv + h / (H / Hkv);
+  const int q0 = qt * kBlockM;
+  // the key tiles of the block: all, or causally those up to its last row
+  int n_kt = (Tk + kBlockN - 1) / kBlockN;
+  if (causal) n_kt = min(n_kt, (min(q0 + kBlockM, Tq) - 1) / kBlockN + 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2 * 128);  // every consumer thread releases a stage
+    }
+    mbar_init(resident, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: Q, dO and O once, then K tiles for pass 1 and K/V tiles for
+    // pass 2 through one ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(resident, 3 * C::kBigBytes);
+      for (int p = 0; p < C::kPanels; ++p) {
+        const uint32_t off = p * kBlockM * kRowBytes;
+        tma_load_3d(sq + off, &qmap, resident, p * kPanel, q0, bh);
+        tma_load_3d(sdo + off, &domap, resident, p * kPanel, q0, bh);
+        tma_load_3d(so + off, &omap, resident, p * kPanel, q0, bh);
+      }
+      int it = 0;
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int t = 0; t < n_kt; ++t, ++it) {
+          const int s = it % C::kStages;
+          mbar_wait(empty(s), ((it / C::kStages) & 1) ^ 1);
+          mbar_expect_tx(full(s), (pass + 1) * C::kTileBytes);
+          for (int p = 0; p < C::kPanels; ++p) {
+            const uint32_t off = s * C::kTileBytes + p * kBlockN * kRowBytes;
+            tma_load_3d(sk + off, &kmap, full(s), p * kPanel, t * kBlockN, kvh);
+            if (pass) tma_load_3d(sv + off, &vmap, full(s), p * kPanel, t * kBlockN, kvh);
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = threadIdx.x / 128 - 1;  // consumer: rows 64·cw .. of the block
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int c2 = 2 * (lane % 4);
+    const int rl = 64 * cw + 16 * warp + lane / 4;  // the thread's rows rl, rl + 8
+    const int r0 = q0 + rl;
+    const int wg_row0 = q0 + 64 * cw;
+    const float c = scale * kLog2e;  // raw scores to base-2 exponents
+    const uint32_t sq_wg = sq + cw * 64 * kRowBytes;
+    const uint32_t sdo_wg = sdo + cw * 64 * kRowBytes;
+    mbar_wait(resident, 0);
+
+    // Δ of rows rl and rl + 8: this thread's D / 4 columns of dO ∘ O, then
+    // the quad's sum (two commutative adds: every lane gets the same value)
+    float dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float part = 0.f;
+#pragma unroll
+      for (int g = 0; g < D / 8; ++g) {
+        const uint32_t off = swz(rl + 8 * r, 8 * g + c2, kBlockM);
+        const float2 x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(basep + C::kDoOff + off));
+        const float2 y = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(basep + C::kOOff + off));
+        part = fmaf(x.x, y.x, part);
+        part = fmaf(x.y, y.y, part);
+      }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      dl[r] = part;
+    }
+
+    // masked scores of a key tile: keys past Tk, and causally past the row
+    auto mask = [&](float (&sc)[32], int k0) {
+      if (k0 + kBlockN <= Tk && !(causal && k0 + kBlockN - 1 > wg_row0)) return;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = k0 + 8 * (i / 4) + c2 + (i & 1);
+        if (key >= Tk || (causal && key > r0 + 8 * ((i >> 1) & 1))) sc[i] = kNegInf;
+      }
+    };
+
+    // pass 1: the row maximum (raw scores) and sum of exp2 over every key tile
+    float sc[32], dp[32];  // S and dP tiles: a tile's first product overwrites them
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
+    int it = 0;
+    for (int t = 0; t < n_kt; ++t, ++it) {
+      const int s = it % C::kStages;
+      mbar_wait(full(s), (it / C::kStages) & 1);
+      wgmma_fence();
+      issue_dot<D>(sc, sq_wg, kBlockM, sk + s * C::kTileBytes, kBlockN);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      mbar_arrive(empty(s));
+      mask(sc, t * kBlockN);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float mc[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        l[r] *= exp2f((m[r] - mx[r]) * c);
+        m[r] = mx[r];
+        mc[r] = mx[r] * c;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) l[(i >> 1) & 1] += exp2f(fmaf(sc[i], c, -mc[(i >> 1) & 1]));
+    }
+    float lse[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      lse[r] = m[r] * c + log2f(fmaxf(l[r], 1e-30f));
+      if (lane % 4 == 0) {
+        const long long at = static_cast<long long>(bh) * Tpad + r0 + 8 * r;
+        lse2[at] = lse[r];
+        delta[at] = dl[r];
+      }
+    }
+
+    // pass 2: S and dP, then P and dS in registers, then dQ += dS K
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int t = 0; t < n_kt; ++t, ++it) {
+      const int s = it % C::kStages;
+      const uint32_t sks = sk + s * C::kTileBytes;
+      mbar_wait(full(s), (it / C::kStages) & 1);
+      wgmma_fence();
+      issue_dot<D>(sc, sq_wg, kBlockM, sks, kBlockN);
+      issue_dot<D>(dp, sdo_wg, kBlockM, sv + s * C::kTileBytes, kBlockN);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+      mask(sc, t * kBlockN);
+      uint32_t ds[kBlockN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 8 * kk + 2 * j;
+          const int r = j & 1;  // (i >> 1) & 1
+          const float p0 = exp2f(fmaf(sc[i], c, -lse[r]));
+          const float p1 = exp2f(fmaf(sc[i + 1], c, -lse[r]));
+          ds[kk][j] = pack_bf16(p0 * (dp[i] - dl[r]), p1 * (dp[i + 1] - dl[r]));
+        }
+      }
+      fence_regs(acc);
+      fence_regs(ds);
+      wgmma_fence();
+      issue_rs<D>(acc, ds, sks);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      mbar_arrive(empty(s));
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row < Tq) {
+        __nv_bfloat16* out = dq + (static_cast<long long>(bh) * Tq + row) * D;
+#pragma unroll
+        for (int g = 0; g < D / 8; ++g)
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * g + c2) = __floats2bfloat162_rn(
+              acc[4 * g + 2 * r] * scale, acc[4 * g + 2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsWG, 1)
+    flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                                const __grid_constant__ CUtensorMap domap,
+                                const __grid_constant__ CUtensorMap kmap,
+                                const __grid_constant__ CUtensorMap vmap,
+                                const float* __restrict__ lse2,
+                                const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                                __nv_bfloat16* __restrict__ dv, int H, int Hkv, int Tq, int Tk,
+                                int Tpad, float scale, int causal) {
+  using C = DkvCfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const unsigned char* basep = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t sk = base, sv = base + C::kVOff, sq = base + C::kQOff;
+  const uint32_t sdo = base + C::kDoOff, sl = base + C::kLOff;
+  const uint32_t bars = base + C::kBarOff;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (C::kStages + s); };
+  const uint32_t resident = bars + 8u * (2 * C::kStages);
+
+  const int kt = blockIdx.y;  // the first key tiles see the most queries: first
+  const int bkv = blockIdx.x;
+  const int b = bkv / Hkv;
+  const int kvh = bkv - b * Hkv;
+  const int G = H / Hkv;
+  const int k0 = kt * C::kKeys;
+  constexpr int kQ = C::kQ;
+  const int nq = (Tq + kQ - 1) / kQ;
+  // causal: query i sees keys 0..i, so tiles of queries below k0 see none
+  // of these keys (tiles aligned at 0, kKeys a multiple of kQ)
+  const int qt0 = causal ? k0 / kQ : 0;
+  const int per_head = nq - qt0;
+  const int n_it = G * per_head;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2 * 128);
+    }
+    mbar_init(resident, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: K and V once, then Q, dO, L and Δ of each query tile of each
+    // query head of the group
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(resident, 2 * C::kBigBytes);
+      for (int p = 0; p < C::kPanels; ++p) {
+        const uint32_t off = p * C::kKeys * kRowBytes;
+        tma_load_3d(sk + off, &kmap, resident, p * kPanel, k0, bkv);
+        tma_load_3d(sv + off, &vmap, resident, p * kPanel, k0, bkv);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int g = it / per_head;
+        const int q0 = (qt0 + it - g * per_head) * kQ;
+        const int bh = b * H + kvh * G + g;
+        const int s = it % C::kStages;
+        mbar_wait(empty(s), ((it / C::kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), C::kStageTx);
+        for (int p = 0; p < C::kPanels; ++p) {
+          const uint32_t off = s * C::kTileBytes + p * kQ * kRowBytes;
+          tma_load_3d(sq + off, &qmap, full(s), p * kPanel, q0, bh);
+          tma_load_3d(sdo + off, &domap, full(s), p * kPanel, q0, bh);
+        }
+        const long long at = static_cast<long long>(bh) * Tpad + q0;
+        bulk_load(sl + s * C::kStatBytes, lse2 + at, kQ * 4, full(s));
+        bulk_load(sl + s * C::kStatBytes + kQ * 4, delta + at, kQ * 4, full(s));
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    constexpr int kCols = C::kCols;
+    const int cw = threadIdx.x / 128 - 1;
+    const int wg_keys = C::kSplit ? 0 : 64 * cw;  // the warpgroup's keys in the block
+    const int wg_cols = C::kSplit ? 64 * cw : 0;  // and its output columns
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int c2 = 2 * (lane % 4);
+    const int key0 = k0 + wg_keys + 16 * warp + lane / 4;  // the thread's keys, and + 8
+    const int wg_key0 = k0 + wg_keys;
+    const float c = scale * kLog2e;
+    const uint32_t sk_wg = sk + wg_keys * kRowBytes;
+    const uint32_t sv_wg = sv + wg_keys * kRowBytes;
+    // the warpgroup's 64-column panel of Q and dO tiles when split
+    const uint32_t panel = (wg_cols / kPanel) * kQ * kRowBytes;
+    float dka[kCols / 2], dva[kCols / 2], st[kQ / 2], dpt[kQ / 2];
+#pragma unroll
+    for (int i = 0; i < kCols / 2; ++i) dka[i] = dva[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kQ / 2; ++i) st[i] = dpt[i] = 0.f;
+    mbar_wait(resident, 0);
+
+    for (int it = 0; it < n_it; ++it) {
+      const int g = it / per_head;
+      const int q0 = (qt0 + it - g * per_head) * kQ;
+      const int s = it % C::kStages;
+      const uint32_t sqs = sq + s * C::kTileBytes;
+      const uint32_t sdos = sdo + s * C::kTileBytes;
+      const float* ls = reinterpret_cast<const float*>(basep + C::kLOff + s * C::kStatBytes);
+      const float* dls = ls + kQ;
+      mbar_wait(full(s), (it / C::kStages) & 1);
+      wgmma_fence();
+      issue_dot<D>(st, sk_wg, C::kKeys, sqs, kQ);   // Sᵀ = K Qᵀ
+      issue_dot<D>(dpt, sv_wg, C::kKeys, sdos, kQ);  // dPᵀ = V dOᵀ
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // Pᵀ and dSᵀ: element i is key key0 + 8·((i >> 1) & 1) against query
+      // q0 + 8·(i / 4) + c2 + (i & 1); causally a key past the query is 0
+      const bool masked = causal && q0 < wg_key0 + 63;
+      uint32_t pf[kQ / 16][4], dsf[kQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 8 * kk + 2 * j;
+          const int col = 8 * (i / 4) + c2;
+          const float2 lv = *reinterpret_cast<const float2*>(ls + col);
+          const float2 dv2 = *reinterpret_cast<const float2*>(dls + col);
+          float p0 = exp2f(fmaf(st[i], c, -lv.x));
+          float p1 = exp2f(fmaf(st[i + 1], c, -lv.y));
+          if (masked) {
+            const int key = key0 + 8 * (j & 1);
+            if (key > q0 + col) p0 = 0.f;
+            if (key > q0 + col + 1) p1 = 0.f;
+          }
+          pf[kk][j] = pack_bf16(p0, p1);
+          dsf[kk][j] = pack_bf16(p0 * (dpt[i] - dv2.x), p1 * (dpt[i + 1] - dv2.y));
+        }
+      }
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_regs(pf);
+      fence_regs(dsf);
+      wgmma_fence();
+      issue_rs<kCols>(dva, pf, sdos + panel);  // dV += Pᵀ dO
+      issue_rs<kCols>(dka, dsf, sqs + panel);  // dK += dSᵀ Q
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dva);
+      fence_regs(dka);
+      mbar_arrive(empty(s));
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (key < Tk) {
+        const long long row = (static_cast<long long>(bkv) * Tk + key) * D;
+#pragma unroll
+        for (int g = 0; g < kCols / 8; ++g) {
+          const long long at = row + wg_cols + 8 * g + c2;
+          *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
+              dka[4 * g + 2 * r] * scale, dka[4 * g + 2 * r + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+              __floats2bfloat162_rn(dva[4 * g + 2 * r], dva[4 * g + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda (looked up at run time), or null.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The bf16 tensor [n, rows, D] at ptr as a 3-D TMA map (D, rows, n) with
+// 64 x box_rows boxes, 128-byte swizzle and zero fill past the edges.
+bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D, int rows,
+              int n, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint32_t box[3] = {kPanel, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, void* dq, void* dk, void* dv, float* lse2,
+                   float* delta, int B, int H, int Hkv, int Tq, int Tk, int causal,
+                   cudaStream_t stream) {
+  auto dq_kernel = flash_bwd_dq_wgmma_kernel<D>;
+  auto dkv_kernel = flash_bwd_dkdv_wgmma_kernel<D>;
+  cudaError_t err = repro::allow_smem(dq_kernel, DqCfg<D>::kBytes);
+  if (err == cudaSuccess) err = repro::allow_smem(dkv_kernel, DkvCfg<D>::kBytes);
+  if (err != cudaSuccess) return err;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  // the dq kernel's maps: 128-row Q, dO and O tiles, 64-row K and V tiles;
+  // the dkdv kernel's: kKeys-row K and V tiles, 64-row Q and dO tiles
+  CUtensorMap q_m, do_m, o_m, k_n, v_n, q_n, do_n, k_m, v_m;
+  if (!make_map(&q_m, encode, q, D, Tq, B * H, kBlockM) ||
+      !make_map(&do_m, encode, dout, D, Tq, B * H, kBlockM) ||
+      !make_map(&o_m, encode, o, D, Tq, B * H, kBlockM) ||
+      !make_map(&k_n, encode, k, D, Tk, B * Hkv, kBlockN) ||
+      !make_map(&v_n, encode, v, D, Tk, B * Hkv, kBlockN) ||
+      !make_map(&q_n, encode, q, D, Tq, B * H, DkvCfg<D>::kQ) ||
+      !make_map(&do_n, encode, dout, D, Tq, B * H, DkvCfg<D>::kQ) ||
+      !make_map(&k_m, encode, k, D, Tk, B * Hkv, DkvCfg<D>::kKeys) ||
+      !make_map(&v_m, encode, v, D, Tk, B * Hkv, DkvCfg<D>::kKeys))
+    return cudaErrorInvalidValue;
+  // the reference's 1.0 / (D ** 0.5), a double rounded to float
+  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
+  const int n_qt = (Tq + kBlockM - 1) / kBlockM;
+  const int Tpad = n_qt * kBlockM;
+  dq_kernel<<<dim3(B * H, n_qt), kThreadsWG, DqCfg<D>::kBytes, stream>>>(
+      q_m, do_m, o_m, k_n, v_n, static_cast<__nv_bfloat16*>(dq), lse2, delta, H, Hkv, Tq,
+      Tk, Tpad, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkv_kernel<<<dim3(B * Hkv, (Tk + DkvCfg<D>::kKeys - 1) / DkvCfg<D>::kKeys), kThreadsWG,
+               DkvCfg<D>::kBytes,
+               stream>>>(q_n, do_n, k_m, v_m, lse2, delta, static_cast<__nv_bfloat16*>(dk),
+                         static_cast<__nv_bfloat16*>(dv), H, Hkv, Tq, Tk, Tpad, scale, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dQ, dK, dV of bf16 attention, D ∈ {64, 128}; every pointer 16-byte
+// aligned, every tensor contiguous.  lse2 and delta are float32 [B·H, Tpad]
+// scratch, Tpad = Tq rounded up to 128 (the row logsumexp in base 2, and
+// Δ), written by the first kernel and read by the second.  Causal needs
+// Tq == Tk.
+extern "C" int repro_flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
+                                               const void* o, const void* dout, void* dq,
+                                               void* dk, void* dv, void* lse2, void* delta,
+                                               int B, int H, int Hkv, int Tq, int Tk, int D,
+                                               int causal, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 ||
+      (causal && Tq != Tk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* l = static_cast<float*>(lse2);
+  float* dl = static_cast<float*>(delta);
+  cudaError_t err;
+  switch (D) {
+    case 64:
+      err = launch<64>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, causal, stream);
+      break;
+    case 128:
+      err = launch<128>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, causal, stream);
+      break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+REPRO_DEFINE_ERROR_STRING(repro_flash_attention_bwd_wgmma)

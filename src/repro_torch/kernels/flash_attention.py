@@ -33,13 +33,25 @@ tensor-core kernels read 16-byte aligned q, k and v (TMA, ``cp.async``);
 one at an offset that is not is copied once.
 
 The gradient: :class:`FlashAttentionFn` is the forward as an autograd
-function; its backward is ``csrc/flash_attention_bwd.cu``
-(``FLASH_ATTENTION_BWD``, :func:`flash_attention_bwd`), a hand kernel with
-no Pallas original (the reference trains by ``jax.grad`` through
-``flash_attention_jnp``): dQ, dK and dV at every dtype and head dim the
-forward takes, float32 accumulation, no atomics (two calls are bitwise
-equal).  ``models.attention.flash_attention`` takes it on CUDA tensors when
-a gradient is asked for; serving keeps the plain launch.
+function; its backward is :func:`flash_attention_bwd`, hand kernels with no
+Pallas original (the reference trains by ``jax.grad`` through
+``flash_attention_jnp``): dQ, dK and dV, float32 accumulation, no atomics
+(two calls are bitwise equal).  Two routes, chosen by :func:`bwd_variant`
+from the dtype and head dim alone:
+
+* ``csrc/flash_attention_bwd_wgmma.cu`` (``FLASH_ATTENTION_BWD_WGMMA``) for
+  bf16 at D ∈ {64, 128}, the training path of every dense config: a dq and a
+  dkdv kernel on tensor cores (wgmma) fed by TMA, with P and dS rounded
+  once to bf16 where they enter their products (plain version
+  ``ref.flash_attention_bwd_bf16_ref``);
+* ``csrc/flash_attention_bwd.cu`` (``FLASH_ATTENTION_BWD``) for float32 at
+  every head dim and bf16 at D ∈ {8, 16, 32}: two SIMT float32 kernels,
+  P and dS never rounded (plain version ``ref.flash_attention_bwd_ref``).
+
+:func:`bwd_launch` runs either by name; the SIMT route takes every dtype
+and head dim, so ``chip_smoke.py`` times it beside the wgmma route.
+``models.attention.flash_attention`` takes the backward on CUDA tensors
+when a gradient is asked for; serving keeps the plain launch.
 """
 from __future__ import annotations
 
@@ -62,11 +74,17 @@ FLASH_ATTENTION_TF32 = CudaKernel("flash_attention_tf32.cu",
 FLASH_ATTENTION_BWD = CudaKernel("flash_attention_bwd.cu",
                                  "repro_flash_attention_bwd",
                                  [PTR] * 10 + [I32] * 8)
+FLASH_ATTENTION_BWD_WGMMA = CudaKernel("flash_attention_bwd_wgmma.cu",
+                                       "repro_flash_attention_bwd_wgmma",
+                                       [PTR] * 10 + [I32] * 7)
 
 #: head dims the kernels are compiled for
 HEAD_DIMS = (8, 16, 32, 64, 128)
 #: head dims of the wgmma kernels (wgmma: bf16, tf32: float32)
 WGMMA_HEAD_DIMS = (64, 128)
+#: rows of the wgmma backward's dq tile: its L and Δ scratch has T rounded
+#: up to a multiple of them
+BWD_ROWS = 128
 #: dtype codes of ``csrc/flash_attention.cu``'s C entry
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -87,6 +105,21 @@ def variant(dtype: torch.dtype, head_dim: int) -> str:
 #: the kernel object of each variant
 KERNELS = {"wgmma": FLASH_ATTENTION_WGMMA, "tf32": FLASH_ATTENTION_TF32,
            "mma": FLASH_ATTENTION}
+
+
+def bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward route of (dtype, head_dim) on the card: ``"wgmma"``
+    (``FLASH_ATTENTION_BWD_WGMMA``) for bf16 at D ∈ {64, 128}, else
+    ``"simt"`` (``FLASH_ATTENTION_BWD``)."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+#: the kernel object and the plain version of each backward route
+BWD_KERNELS = {"wgmma": FLASH_ATTENTION_BWD_WGMMA, "simt": FLASH_ATTENTION_BWD}
+BWD_PLAIN = {"wgmma": ref.flash_attention_bwd_bf16_ref,
+             "simt": ref.flash_attention_bwd_ref}
 
 
 def _check(q, k, v, causal: bool) -> None:
@@ -124,30 +157,50 @@ def flash_attention(q, k, v, causal: bool = True):
 def flash_attention_bwd(q, k, v, o, do, causal: bool = True):
     """(dq, dk, dv) of ``flash_attention(q, k, v, causal)`` whose output is
     o, for the output gradient do [B, H, T, D]; each in q's dtype and
-    shape of its input.  CUDA tensors launch ``FLASH_ATTENTION_BWD`` (two
-    kernels, one call); CPU tensors take ``ref.flash_attention_bwd_ref``."""
+    shape of its input.  CUDA tensors launch the route ``bwd_variant``
+    names (two kernels, one call); CPU tensors take that route's plain
+    version (``BWD_PLAIN``)."""
     _check(q, k, v, causal)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype} on {t.device}; "
                              f"q is {tuple(q.shape)} {q.dtype} on {q.device}")
+    kind = bwd_variant(q.dtype, q.shape[3])
     if not on_card(q):
         return tuple(g.to(q.dtype) for g in
-                     ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal))
+                     BWD_PLAIN[kind](q, k, v, o, do, causal=causal))
+    return bwd_launch(kind, q, k, v, o, do, causal)
+
+
+def bwd_launch(kind: str, q, k, v, o, do, causal: bool = True):
+    """Launch the ``kind`` backward (a key of BWD_KERNELS) on CUDA tensors
+    that ``flash_attention_bwd`` has checked.  The wrapper passes
+    ``bwd_variant``'s choice; ``chip_smoke.py`` also passes ``"simt"`` at
+    the wgmma route's shapes, to time the two on the same inputs."""
+    if kind != "simt" and bwd_variant(q.dtype, q.shape[3]) != kind:
+        raise ValueError(f"the {kind} backward does not take {q.dtype} at "
+                         f"D = {q.shape[3]}")
     B, H, T, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    if kind == "wgmma":  # TMA reads 16-byte aligned rows
+        q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone()
+                          for t in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if not q.numel():
         return dq, dk.zero_(), dv.zero_()
     # the row logsumexp (base 2) and Δ, written by the first kernel
-    lse2 = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    rows = -(-T // BWD_ROWS) * BWD_ROWS if kind == "wgmma" else T
+    lse2 = torch.empty((B * H, rows), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse2)
-    FLASH_ATTENTION_BWD.launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse2.data_ptr(),
-        delta.data_ptr(), B, H, Hkv, T, Tk, D, DTYPES[q.dtype], int(causal),
-        stream_handle(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse2.data_ptr(),
+            delta.data_ptr(), B, H, Hkv, T, Tk, D)
+    if kind == "wgmma":
+        FLASH_ATTENTION_BWD_WGMMA.launch(*args, int(causal), stream_handle(q))
+    else:
+        FLASH_ATTENTION_BWD.launch(*args, DTYPES[q.dtype], int(causal),
+                                   stream_handle(q))
     return dq, dk, dv
 
 

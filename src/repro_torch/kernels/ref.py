@@ -122,10 +122,26 @@ def flash_attention_bwd_ref(q, k, v, o, do, causal: bool = True):
     q-head h reads kv-head h // G (G = H / Hkv); dK and dV sum over the G
     query heads of their group.  The causal mask is aligned at the last
     query, as ``flash_attention_ref``'s."""
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    return _attention_bwd(q, k, v, o, do, causal, dt, None)
+
+
+def flash_attention_bwd_bf16_ref(q, k, v, o, do, causal: bool = True):
+    """The plain version of ``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at
+    D 64/128): ``flash_attention_bwd_ref`` in float32 with P rounded once to
+    bf16 where it enters dV = Pᵀ dO, and dS (formed from the float32 P)
+    rounded once to bf16 where it enters dQ = dS K and dK = dSᵀ Q, as the
+    kernel feeds them to the tensor cores; S, dP, the softmax and every sum
+    stay float32."""
+    return _attention_bwd(q, k, v, o, do, causal, torch.float32, torch.bfloat16)
+
+
+def _attention_bwd(q, k, v, o, do, causal, dt, rounded):
+    """FlashAttention-2's backward in ``dt``, with P and dS rounded to
+    ``rounded`` (None: not rounded) where they enter their products."""
     B, H, T, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     G = H // Hkv
-    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
     q, k, v, o, do = (t.to(dt) for t in (q, k, v, o, do))
     kr, vr = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
     scale = 1.0 / math.sqrt(D)  # the kernel's: a double, rounded to the working dtype
@@ -137,8 +153,10 @@ def flash_attention_bwd_ref(q, k, v, o, do, causal: bool = True):
     lse = m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True).clamp(min=1e-30))
     p = torch.exp(s - lse)
     delta = (do * o).sum(dim=-1, keepdim=True)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
     ds = p * (torch.einsum("bhqd,bhkd->bhqk", do, vr) - delta)
+    if rounded is not None:
+        p, ds = p.to(rounded).to(dt), ds.to(rounded).to(dt)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
     return (dq, dk.reshape(B, Hkv, G, Tk, D).sum(dim=2),

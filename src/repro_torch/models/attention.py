@@ -10,9 +10,11 @@
   softmax over (block_q, block_k) tiles above 4096²/16 scores.  When a
   gradient is asked for (grad mode on and an input that requires grad), the
   CUDA path is ``kernels.flash_attention.FlashAttentionFn``: the same
-  forward launch, with the hand-written backward kernel
-  (``kernels/csrc/flash_attention_bwd.cu``); autograd differentiates the
-  CPU branches as they are.
+  forward launch, with the hand-written backward kernels that
+  ``kernels.flash_attention.bwd_variant`` names
+  (``kernels/csrc/flash_attention_bwd_wgmma.cu`` for bf16 at head dim 64 or
+  128, ``kernels/csrc/flash_attention_bwd.cu`` otherwise); autograd
+  differentiates the CPU branches as they are.
 * ``decode_attention`` is one query token against the cache, plain torch as
   in the reference.
 * ``gqa_forward`` / ``gqa_decode`` are the full-sequence and one-token

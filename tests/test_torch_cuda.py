@@ -2249,12 +2249,16 @@ def test_cuda_reader_stays_live_across_a_recapture(cuda_device):
 @pytest.mark.parametrize("B,H,Hkv,T,D,causal", [
     (2, 4, 2, 100, 16, True), (2, 4, 4, 100, 16, False), (1, 4, 1, 65, 8, True),
     (1, 8, 2, 130, 32, False), (2, 8, 2, 257, 64, True), (1, 8, 8, 64, 64, False),
-    (1, 8, 2, 257, 128, True), (1, 4, 1, 77, 128, False)])
+    (1, 8, 2, 257, 128, True), (1, 4, 1, 77, 128, False), (4, 8, 2, 1024, 64, True),
+    (4, 8, 2, 1024, 64, False)])
 def test_cuda_flash_bwd_matches_plain(cuda_device, B, H, Hkv, T, D, causal, dtype):
     """``flash_attention_bwd`` against its plain version in float64 on the
     same inputs (o from the forward kernel): dQ, dK and dV within 1e-5
     (float32) or 1e-2 (bf16: outputs rounded to bf16) of each one's largest
-    magnitude; one launch; a second call bitwise equal (no atomics)."""
+    magnitude; one launch of the route ``bwd_variant`` names; a second call
+    bitwise equal (no atomics).  The wgmma route (bf16 at D 64/128) is also
+    held to its own plain version, ``flash_attention_bwd_bf16_ref``, within
+    1e-2."""
     from repro_torch.kernels import flash_attention as tflash
 
     dt = getattr(torch, dtype)
@@ -2263,18 +2267,24 @@ def test_cuda_flash_bwd_matches_plain(cuda_device, B, H, Hkv, T, D, causal, dtyp
                                 device=cuda_device).to(dt)
                    for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, D), (B, H, T, D)))
     o = tflash.flash_attention(q, k, v, causal=causal)
-    n = tflash.FLASH_ATTENTION_BWD.launches
+    kind = tflash.bwd_variant(dt, D)
+    counts = {name: kern.launches for name, kern in tflash.BWD_KERNELS.items()}
     got = tflash.flash_attention_bwd(q, k, v, o, do, causal=causal)
     again = tflash.flash_attention_bwd(q, k, v, o, do, causal=causal)
     torch.cuda.synchronize()
-    assert tflash.FLASH_ATTENTION_BWD.launches == n + 2
-    want = ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)),
-                                       causal=causal)
+    assert {name: kern.launches - counts[name] for name, kern in
+            tflash.BWD_KERNELS.items()} == {name: 2 * (name == kind) for name in counts}
+    wants = [ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)),
+                                         causal=causal)]
+    if kind == "wgmma":
+        wants.append(ref.flash_attention_bwd_bf16_ref(q, k, v, o, do, causal=causal))
     rtol = 1e-5 if dt == torch.float32 else 1e-2
-    for g, a, w, inp in zip(got, again, want, (q, k, v)):
-        assert g.dtype == dt and g.shape == inp.shape
-        assert torch.equal(g, a)
-        assert float((g.double() - w).abs().max()) <= rtol * float(w.abs().max())
+    for want in wants:
+        for g, a, w, inp in zip(got, again, want, (q, k, v)):
+            assert g.dtype == dt and g.shape == inp.shape
+            assert torch.equal(g, a)
+            assert float((g.double() - w.double()).abs().max()) <= rtol * float(
+                w.abs().max())
 
 
 def test_cuda_flash_bwd_rejects_what_it_does_not_take(cuda_device):
@@ -2305,6 +2315,13 @@ def test_cuda_flash_bwd_rejects_what_it_does_not_take(cuda_device):
             q4.data_ptr(), k.data_ptr(), k.data_ptr(), q4.data_ptr(), q4.data_ptr(),
             q4.data_ptr(), k.data_ptr(), k.data_ptr(), lse.data_ptr(), lse.data_ptr(),
             1, 2, 1, 4, 8, 16, 0, 1, 0)
+    lse = t(2, tflash.BWD_ROWS)
+    with pytest.raises(RuntimeError, match="repro_flash_attention_bwd_wgmma failed"):
+        q4, k8 = t(1, 2, 4, 64, dtype=torch.bfloat16), t(1, 1, 8, 64, dtype=torch.bfloat16)
+        tflash.FLASH_ATTENTION_BWD_WGMMA.launch(
+            q4.data_ptr(), k8.data_ptr(), k8.data_ptr(), q4.data_ptr(), q4.data_ptr(),
+            q4.data_ptr(), k8.data_ptr(), k8.data_ptr(), lse.data_ptr(), lse.data_ptr(),
+            1, 2, 1, 4, 8, 64, 1, 0)
 
 
 @pytest.mark.parametrize("D", [16, 64])
@@ -2329,6 +2346,31 @@ def test_cuda_model_attention_gradient_takes_the_backward_kernel(cuda_device, D)
     assert type(o.grad_fn).__name__ == "FlashAttentionFnBackward"
     got = torch.autograd.grad(o, (qs, ks, vs), do)
     assert (fwd.launches - n_f, tflash.FLASH_ATTENTION_BWD.launches - n_b) == (1, 1)
+    want = tflash.flash_attention_bwd(q, k, v, o.detach(), do)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_cuda_model_attention_gradient_bf16_takes_the_wgmma_backward(cuda_device):
+    """The bf16 D 64 form of the test above: ``FlashAttentionFn`` launches
+    the wgmma forward once and the wgmma backward once (the SIMT backward
+    not at all), and its gradients are ``flash_attention_bwd``'s."""
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.models import attention
+
+    rng = np.random.default_rng(64)
+    q, k, v, do = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                                device=cuda_device).to(torch.bfloat16)
+                   for s in ((2, 4, 70, 64), (2, 2, 70, 64), (2, 2, 70, 64), (2, 4, 70, 64)))
+    assert tflash.bwd_variant(torch.bfloat16, 64) == "wgmma"
+    qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+    kernels = (tflash.FLASH_ATTENTION_WGMMA, tflash.FLASH_ATTENTION_BWD_WGMMA,
+               tflash.FLASH_ATTENTION_BWD)
+    before = [kern.launches for kern in kernels]
+    o = attention.flash_attention(qs, ks, vs)
+    assert type(o.grad_fn).__name__ == "FlashAttentionFnBackward"
+    got = torch.autograd.grad(o, (qs, ks, vs), do)
+    assert [kern.launches - n for kern, n in zip(kernels, before)] == [1, 1, 0]
     want = tflash.flash_attention_bwd(q, k, v, o.detach(), do)
     for g, w in zip(got, want):
         assert torch.equal(g, w)

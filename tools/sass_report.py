@@ -1,0 +1,64 @@
+#!/usr/bin/env python3
+"""What ptxas made of the port's kernels: registers and spills, per kernel.
+
+Builds the named sources of ``src/repro_torch/kernels/csrc/`` (default:
+``flash_attention_bwd_wgmma.cu``) as the library builds them, disassembles
+each library with the toolkit's ``cuobjdump -sass`` and prints one JSON line
+a kernel function: the highest register index its code uses, its
+local-memory stores and loads (spills: ``STL``, ``LDL``) and whether it
+reallocates registers (``setmaxnreg``: ``USETMAXREG``).  ``-Xptxas -v``
+reports a kernel's registers at launch; this shows what the code past a
+``setmaxnreg.inc`` really holds.  Runs where ``nvcc`` is (the card's host):
+
+    python3 tools/sass_report.py [flash_attention_bwd_wgmma.cu ...]
+"""
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def functions(sass: str):
+    """(name, body) of each kernel function in ``cuobjdump -sass`` output."""
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, _, body = part.partition("\n")
+        yield name.strip(), body
+
+
+def report(name: str, body: str) -> dict:
+    code = [line for line in body.splitlines() if re.search(r"/\*[0-9a-f]{4}\*/", line)]
+    regs = [int(r) for line in code for r in re.findall(r"\bR(\d+)\b", line)]
+    return dict(function=name, instructions=len(code), max_register=max(regs, default=-1),
+                local_stores=sum("STL" in line for line in code),
+                local_loads=sum("LDL" in line for line in code),
+                setmaxnreg=sum("USETMAXREG" in line for line in code))
+
+
+def main(argv) -> int:
+    from repro_torch.kernels import _cuda
+    # every kernel module, so that _cuda.KERNELS knows every source
+    from repro_torch.kernels import (cofactor_update, flash_attention, hash_table,  # noqa: F401
+                                     rank1_chain, ring_fused, ring_mul, ring_scatter,
+                                     segment_ring_sum)
+
+    wanted = argv or ["flash_attention_bwd_wgmma.cu"]
+    kernels = [k for k in _cuda.KERNELS if getattr(k, "source", None) in wanted]
+    missing = set(wanted) - {k.source for k in kernels}
+    if missing:
+        raise SystemExit(f"no kernel is built from {sorted(missing)}")
+    _cuda.build_all(kernels)
+    cuobjdump = Path(_cuda.find_nvcc()).parent / "cuobjdump"
+    for k in kernels:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(k.library_path())],
+                              capture_output=True, text=True, check=True).stdout
+        for name, body in functions(sass):
+            print(json.dumps({"source": k.source, **report(name, body)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
