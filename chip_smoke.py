@@ -182,16 +182,18 @@ Phases (any failed check raises, and the script exits non-zero):
    profiled.
 6. Path E, LM training (``launch/train.py``, ``optim/``, ``lm_loss``; the
    attention gradient is ``flash_attention_bwd``, hand kernels with no
-   Pallas original: ``flash_attention_bwd_wgmma`` for bf16 at head dim 64
-   or 128, ``flash_attention_bwd``'s SIMT kernels otherwise):
+   Pallas original: at head dim 64 or 128 ``flash_attention_bwd_wgmma``
+   for bf16 and ``flash_attention_bwd_tf32`` for float32,
+   ``flash_attention_bwd``'s SIMT kernels otherwise):
    - E1, ``flash_attention_bwd`` against its plain version in float64
      (``BWD_CASES``: llama3.2-1b's microbatch attention in float32 and
      bf16, causal and not; head dims 16 and 128, G 1 and 4, T 100 and 257),
      two calls bitwise equal, timed beside the plain version, SDPA's
-     backward and its bound; at ``BWD_MAIN`` the SIMT route timed by name
-     beside the wgmma route;
+     backward and its bound (float32 rows also ``tc_bound_ms``, three TF32
+     terms); at ``BWD_MAIN`` and ``BWD_MAIN_F32`` the SIMT route timed by
+     name beside the wgmma and the tf32 route;
    - E2, one ``make_train_step`` at llama3.2-1b's widths and 2 layers in
-     float32 (TF32 forward, the backward kernel) against the same port
+     float32 (TF32 forward, the TF32 backward) against the same port
      functions in float64 through the plain attention: loss, gradients,
      post-AdamW parameters;
    - E3, llama3.2-1b at full width and depth, bf16, remat ``full``, 6 steps
@@ -2000,7 +2002,8 @@ def lm_serve_path(kernels) -> dict:
 #: bf16, causal and not; head dim 16 at G = 1 and T = 100, not a multiple
 #: of the kernels' 64-row tile (the reduced configs); head dim 128 at G = 4
 #: and T = 257 (llama3.2-3b, qwen2-1.5b), in float32 and bf16.  bf16 at head
-#: dim 64 and 128 takes the wgmma route, the rest the SIMT route
+#: dim 64 and 128 takes the wgmma route, float32 there the tf32 route, head
+#: dim 16 the SIMT route
 BWD_CASES = ((4, 32, 8, 1024, 64, "float32", True), (4, 32, 8, 1024, 64, "float32", False),
              (4, 32, 8, 1024, 64, "bfloat16", True), (4, 32, 8, 1024, 64, "bfloat16", False),
              (2, 4, 4, 100, 16, "float32", True), (2, 4, 4, 100, 16, "float32", False),
@@ -2009,13 +2012,18 @@ BWD_CASES = ((4, 32, 8, 1024, 64, "float32", True), (4, 32, 8, 1024, 64, "float3
 #: inputs, of each output's largest magnitude.  float32: every product and
 #: sum in float32 (~6e-8 a rounding), over sums of up to T terms in another
 #: order than the plain version's, and P recomputed through exp2 of scores
-#: scaled once; measured below 4e-6 on an H100.  bf16: the outputs are
+#: scaled once; the tf32 route's products as three TF32 terms (about 2⁻²¹
+#: of each product; its CPU emulation ≤ 5.2e-7); measured below 4e-6 on an
+#: H100.  bf16: the outputs are
 #: rounded to bf16 (2⁻⁹ of each value), and o, the forward's bf16 output,
 #: enters Δ as it is; measured about 3e-3
 BWD_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 #: the shape of the wgmma route's summary row: the main path's (E3)
-#: backward; the SIMT route's row is the same shape in float32
+#: backward; the tf32 route's row is the same shape in float32 (E2's
+#: widths), the SIMT route's the head dim 16 case (E4's)
 BWD_MAIN = (4, 32, 8, 1024, 64, "bfloat16", True)
+BWD_MAIN_F32 = (4, 32, 8, 1024, 64, "float32", True)
+BWD_SIMT = (2, 4, 4, 100, 16, "float32", True)
 #: E2: llama3.2-1b's widths at 2 layers, batch 2 × 256 in 2 microbatches
 #: (so the step's accumulators add and divide), float32
 TRAIN_E2_LAYERS, TRAIN_E2_B, TRAIN_E2_T, TRAIN_E2_MICRO = 2, 2, 256, 2
@@ -2043,14 +2051,15 @@ TRAIN_E4_RTOL = 1e-6
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "train"
 
 
-def bwd_device_ms(fn, calls: int = 5):
+def bwd_device_ms(fn, calls: int = 5, by_kernel: dict | None = None):
     """Device ms a call of ``fn`` (the backward wrapper: two kernels a
     call), from the first of up to WINDOWS profiled windows that lists
-    2·``calls`` ``flash_bwd`` kernels (either route's: the names of both
-    routes' two kernels hold ``flash_bwd``); None when none did (the counts
+    2·``calls`` ``flash_bwd`` kernels (any route's: the names of every
+    route's two kernels hold ``flash_bwd``); None when none did (the counts
     are logged when it took more than one window).  Five calls: late in the
     smoke, windows of 10 calls of the 3.8 ms backward listed 13 of the 20
-    kernels, window after window, on an H100."""
+    kernels, window after window, on an H100.  ``by_kernel``, when given,
+    receives each kernel's device ms a call by its name (to 60 characters)."""
     counts = []
     for _ in range(WINDOWS):
         events, _ = device_events(fn, calls)
@@ -2063,6 +2072,10 @@ def bwd_device_ms(fn, calls: int = 5):
              "calls": calls})
     if len(mine) != 2 * calls:
         return None
+    if by_kernel is not None:
+        for e in mine:
+            key = e.name[:60]
+            by_kernel[key] = by_kernel.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
     return sum(e.time_range.elapsed_us() for e in mine) / 1e3 / calls
 
 
@@ -2071,13 +2084,18 @@ def flash_bwd_rows(rng) -> list:
     names) against ``ref.flash_attention_bwd_ref`` in float64 on the same
     inputs (o from the forward kernel), within BWD_RTOL of each output's
     largest magnitude, two calls bitwise equal; timed with CUDA events
-    beside the route's plain version, SDPA's backward (``library_ms``: the
-    forward outside the timed window, ``torch.autograd.grad`` timed) and its
+    beside the route's plain version (device ms also by kernel,
+    ``device_kernels``), SDPA's backward (``library_ms``: the forward outside
+    the timed window, ``torch.autograd.grad`` timed) and its
     bound: the five T×T×D products of the backward (the causal half where
     causal) at the tensor-core peak of the dtype (bf16 989, TF32 495
-    TFLOP/s), against q, k, v, o, dO read and dQ, dK, dV written once.  At
-    BWD_MAIN the SIMT route (``bwd_launch("simt", ...)``) is timed in turns
-    beside them, events and device ms (``simt_ms``, ``simt_device_ms``)."""
+    TFLOP/s, one term), against q, k, v, o, dO read and dQ, dK, dV written
+    once; float32 rows also ``tc_bound_ms``, the products as three TF32
+    terms.  At BWD_MAIN and BWD_MAIN_F32 the SIMT route (``bwd_launch("simt",
+    ...)``) is timed in turns beside them, events and device ms
+    (``simt_ms``; ``simt_device_ms`` from windows of five calls, else of
+    one: windows of five calls of the SIMT float32 backward were seen to
+    list 2 of their 10 kernels, window after window)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as tflash
@@ -2116,24 +2134,31 @@ def flash_bwd_rows(rng) -> list:
         def simt():
             tflash.bwd_launch("simt", q, k, v, o, do, causal)
 
-        main = (B, H, Hkv, T, D, dtype, causal) == BWD_MAIN
+        main = (B, H, Hkv, T, D, dtype, causal) in (BWD_MAIN, BWD_MAIN_F32)
         times = time_in_turns({"kernel": kernel, "library": library,
                                **({"simt": simt} if main else {})})
         pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
         nbytes = q.element_size() * (4 * B * H * T * D + 4 * B * Hkv * T * D)
         peak = BF16_OPS_PER_S if dt == torch.bfloat16 else TF32_OPS_PER_S
         bms, by = bound_ms(nbytes, 5 * 2 * pairs * D, peak)
+        extra = {}
+        if dt == torch.float32:
+            extra["tc_bound_ms"] = bound_ms(nbytes, 3 * 5 * 2 * pairs * D, peak)[0]
+        split = {}
         row = dict(shape=dict(B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=dtype), causal=causal,
                    route=route, errors=errors, max_abs_err=max_abs, limit=BWD_RTOL[dtype],
                    bitwise_repeat=bitwise, kernel_ms=times["kernel"],
-                   device_ms=bwd_device_ms(kernel),
+                   device_ms=bwd_device_ms(kernel, by_kernel=split), device_kernels=split,
                    plain_ms=time_ms(lambda: tflash.BWD_PLAIN[route](
                        q, k, v, o, do, causal=causal), reps=5, warmup=1),
                    library_ms=times["library"], bound_ms=bms, bound_by=by,
                    bound_peak="bf16 tensor cores" if dt == torch.bfloat16
-                   else "TF32 tensor cores")
+                   else "TF32 tensor cores, one term", **extra)
         if main:
-            row.update(simt_ms=times["simt"], simt_device_ms=bwd_device_ms(simt))
+            simt_device = bwd_device_ms(simt)
+            if simt_device is None:  # then from windows of one call
+                simt_device = bwd_device_ms(simt, 1)
+            row.update(simt_ms=times["simt"], simt_device_ms=simt_device)
         rows.append(row)
         log({"kernel": "flash_attention_bwd", **row})
         del q, k, v, o, do, got, qs, ks, vs, out
@@ -2205,7 +2230,7 @@ def train_step_leg(kernels) -> dict:
     """E2: ``make_train_step`` of llama3.2-1b's widths at TRAIN_E2_LAYERS
     layers in float32 on the card, batch TRAIN_E2_B × TRAIN_E2_T from
     ``lm_data`` in TRAIN_E2_MICRO microbatches (the TF32 forward and the
-    backward kernel, remat ``full``), once with AdamW and once with SGD at
+    TF32 backward, remat ``full``), once with AdamW and once with SGD at
     TRAIN_E2_SGD_LR, whose update gives back the step's accumulated
     gradient.  The oracle is the same port functions in float64 through the
     plain attention (``oracle_loss_and_grads``) on the whole batch: the AdamW
@@ -2245,8 +2270,9 @@ def train_step_leg(kernels) -> dict:
     torch.cuda.synchronize()
     n = 2 * cfg.n_layers * plan.n_microbatches
     launches = read_launches("E2 train steps", kernels, {
-        "flash_attention_tf32": 2 * n, "flash_attention_bwd": n, "flash_attention": 0,
-        "flash_attention_wgmma": 0, "flash_attention_bwd_wgmma": 0})
+        "flash_attention_tf32": 2 * n, "flash_attention_bwd_tf32": n,
+        "flash_attention_bwd": 0, "flash_attention": 0, "flash_attention_wgmma": 0,
+        "flash_attention_bwd_wgmma": 0})
     step_grads = pytree.tree_map(lambda p, q: (p.double() - q.double()) / TRAIN_E2_SGD_LR,
                                  params, sgd_params)
     cfg64 = dataclasses.replace(cfg, act_dtype="float64", param_dtype="float64")
@@ -2309,7 +2335,7 @@ def train_full_leg(kernels) -> dict:
     launches = read_launches("E3 llama3.2-1b training", kernels, {
         "flash_attention_wgmma": 2 * per_step * TRAIN_E3_STEPS,
         "flash_attention_bwd_wgmma": per_step * TRAIN_E3_STEPS, "flash_attention_bwd": 0,
-        "flash_attention": 0, "flash_attention_tf32": 0})
+        "flash_attention_bwd_tf32": 0, "flash_attention": 0, "flash_attention_tf32": 0})
     peak = torch.cuda.max_memory_allocated()
     losses = [h["loss"] for h in history]
     step_s = statistics.median(h["time_s"] for h in history[1:])
@@ -2387,7 +2413,7 @@ def train_resume_leg(kernels) -> dict:
             "flash_attention": 2 * cfg.n_layers * steps_run,
             "flash_attention_bwd": cfg.n_layers * steps_run,
             "flash_attention_tf32": 0, "flash_attention_wgmma": 0,
-            "flash_attention_bwd_wgmma": 0})
+            "flash_attention_bwd_wgmma": 0, "flash_attention_bwd_tf32": 0})
         reset(kernels)
         t0 = time.perf_counter()
         example = train_lm.main(["--tiny", "--ckpt", str(root / "example")])
@@ -2397,7 +2423,8 @@ def train_resume_leg(kernels) -> dict:
         n = len(example)
         example_launches = read_launches("E4 train_lm example", kernels, {
             "cofactor_update": n, "flash_attention": 2 * tiny.n_layers * n,
-            "flash_attention_bwd": tiny.n_layers * n, "flash_attention_bwd_wgmma": 0})
+            "flash_attention_bwd": tiny.n_layers * n, "flash_attention_bwd_wgmma": 0,
+            "flash_attention_bwd_tf32": 0})
     finally:
         shutil.rmtree(root, ignore_errors=True)
     last, last_resumed = straight[-1]["loss"], resumed[-1]["loss"]
@@ -5632,6 +5659,7 @@ def main() -> int:
                                                 ROUTES)
     from repro_torch.kernels.flash_attention import (FLASH_ATTENTION,
                                                      FLASH_ATTENTION_BWD,
+                                                     FLASH_ATTENTION_BWD_TF32,
                                                      FLASH_ATTENTION_BWD_WGMMA,
                                                      FLASH_ATTENTION_TF32,
                                                      FLASH_ATTENTION_WGMMA)
@@ -5656,7 +5684,8 @@ def main() -> int:
     kernels = [SCATTER_ADD, SEGMENT_RING_SUM, GATHER_MUL_SCATTER, SCATTER_DEDUP,
                FUSED_CHAIN, COFACTOR_UPDATE, RING_MUL, MATVEC, OUTER_ACCUMULATE,
                FLASH_ATTENTION, FLASH_ATTENTION_WGMMA, FLASH_ATTENTION_TF32,
-               HASH_PROBE, HASH_INSERT, FLASH_ATTENTION_BWD, FLASH_ATTENTION_BWD_WGMMA]
+               HASH_PROBE, HASH_INSERT, FLASH_ATTENTION_BWD, FLASH_ATTENTION_BWD_WGMMA,
+               FLASH_ATTENTION_BWD_TF32]
     laps = Laps()
     build_s = _cuda.build_all(kernels)
     log({"build_s": build_s, "libraries": [k.library_path().name for k in kernels]})
@@ -5857,11 +5886,13 @@ def main() -> int:
                if k in row},
             **({"launches_by_route": {n.split(":")[1]: launched[n] for n in entries[name]}}
                if name in ("hash_insert", "hash_insert_targets") else {})))
-    # the two backward routes: the wgmma route at BWD_MAIN (the SIMT route's
-    # time at that shape beside it), the SIMT route at BWD_MAIN in float32
-    B, H, Hkv, T, D, dtype, causal = BWD_MAIN
-    for name, dtype in (("flash_attention_bwd_wgmma", dtype), ("flash_attention_bwd", "float32")):
-        route = "wgmma" if name.endswith("wgmma") else "simt"
+    # the three backward routes: the wgmma route at BWD_MAIN and the tf32
+    # route at BWD_MAIN_F32 (each with the SIMT route's time at its shape
+    # beside it), the SIMT route at BWD_SIMT
+    for name, route, (B, H, Hkv, T, D, dtype, causal) in (
+            ("flash_attention_bwd_wgmma", "wgmma", BWD_MAIN),
+            ("flash_attention_bwd_tf32", "tf32", BWD_MAIN_F32),
+            ("flash_attention_bwd", "simt", BWD_SIMT)):
         row = next(r for r in train["rows"] if r["causal"] == causal and r["shape"] == dict(
             B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=dtype))
         summary.append(dict(
@@ -5873,7 +5904,8 @@ def main() -> int:
             ms=row["kernel_ms"], device_ms=row["device_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape={**row["shape"], "causal": causal}, bound_peak=row["bound_peak"],
-            **{k: row[k] for k in ("simt_ms", "simt_device_ms") if k in row}))
+            **{k: row[k] for k in ("tc_bound_ms", "device_kernels", "simt_ms", "simt_device_ms")
+               if k in row}))
     log({"kernels": summary})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
@@ -5899,7 +5931,7 @@ def backward_main() -> int:
                        check=True).stdout.strip().splitlines()[0])
     kernels = [tflash.FLASH_ATTENTION, tflash.FLASH_ATTENTION_WGMMA,
                tflash.FLASH_ATTENTION_TF32, tflash.FLASH_ATTENTION_BWD,
-               tflash.FLASH_ATTENTION_BWD_WGMMA]
+               tflash.FLASH_ATTENTION_BWD_WGMMA, tflash.FLASH_ATTENTION_BWD_TF32]
     log({"build_s": _cuda.build_all(kernels)})
     flash_bwd_rows(np.random.default_rng(SEED))
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

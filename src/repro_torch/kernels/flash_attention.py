@@ -36,7 +36,7 @@ The gradient: :class:`FlashAttentionFn` is the forward as an autograd
 function; its backward is :func:`flash_attention_bwd`, hand kernels with no
 Pallas original (the reference trains by ``jax.grad`` through
 ``flash_attention_jnp``): dQ, dK and dV, float32 accumulation, no atomics
-(two calls are bitwise equal).  Two routes, chosen by :func:`bwd_variant`
+(two calls are bitwise equal).  Three routes, chosen by :func:`bwd_variant`
 from the dtype and head dim alone:
 
 * ``csrc/flash_attention_bwd_wgmma.cu`` (``FLASH_ATTENTION_BWD_WGMMA``) for
@@ -44,14 +44,19 @@ from the dtype and head dim alone:
   dkdv kernel on tensor cores (wgmma) fed by TMA, with P and dS rounded
   once to bf16 where they enter their products (plain version
   ``ref.flash_attention_bwd_bf16_ref``);
-* ``csrc/flash_attention_bwd.cu`` (``FLASH_ATTENTION_BWD``) for float32 at
-  every head dim and bf16 at D ∈ {8, 16, 32}: two SIMT float32 kernels,
-  P and dS never rounded (plain version ``ref.flash_attention_bwd_ref``).
+* ``csrc/flash_attention_bwd_tf32.cu`` (``FLASH_ATTENTION_BWD_TF32``) for
+  float32 at D ∈ {64, 128}, the training path's precision check: the same
+  two kernels on the TF32 tensor cores, every product taken as three TF32
+  terms (a_hi·b_hi + a_hi·b_lo + a_lo·b_hi, P and dS split too), float32
+  accuracy (plain version ``ref.flash_attention_bwd_ref``);
+* ``csrc/flash_attention_bwd.cu`` (``FLASH_ATTENTION_BWD``) for every dtype
+  at D ∈ {8, 16, 32}: two SIMT float32 kernels, P and dS never rounded
+  (plain version ``ref.flash_attention_bwd_ref``).
 
-:func:`bwd_launch` runs either by name; the SIMT route takes every dtype
-and head dim, so ``chip_smoke.py`` times it beside the wgmma route.
-``models.attention.flash_attention`` takes the backward on CUDA tensors
-when a gradient is asked for; serving keeps the plain launch.
+:func:`bwd_launch` runs any of them by name; the SIMT route takes every
+dtype and head dim, so ``chip_smoke.py`` times it beside the tensor-core
+routes.  ``models.attention.flash_attention`` takes the backward on CUDA
+tensors when a gradient is asked for; serving keeps the plain launch.
 """
 from __future__ import annotations
 
@@ -77,13 +82,16 @@ FLASH_ATTENTION_BWD = CudaKernel("flash_attention_bwd.cu",
 FLASH_ATTENTION_BWD_WGMMA = CudaKernel("flash_attention_bwd_wgmma.cu",
                                        "repro_flash_attention_bwd_wgmma",
                                        [PTR] * 10 + [I32] * 7)
+FLASH_ATTENTION_BWD_TF32 = CudaKernel("flash_attention_bwd_tf32.cu",
+                                      "repro_flash_attention_bwd_tf32",
+                                      [PTR] * 10 + [I32] * 7)
 
 #: head dims the kernels are compiled for
 HEAD_DIMS = (8, 16, 32, 64, 128)
 #: head dims of the wgmma kernels (wgmma: bf16, tf32: float32)
 WGMMA_HEAD_DIMS = (64, 128)
-#: rows of the wgmma backward's dq tile: its L and Δ scratch has T rounded
-#: up to a multiple of them
+#: the tensor-core backwards' L and Δ scratch has T rounded up to a multiple
+#: of this (the wgmma route's dq tile)
 BWD_ROWS = 128
 #: dtype codes of ``csrc/flash_attention.cu``'s C entry
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -108,17 +116,23 @@ KERNELS = {"wgmma": FLASH_ATTENTION_WGMMA, "tf32": FLASH_ATTENTION_TF32,
 
 
 def bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward route of (dtype, head_dim) on the card: ``"wgmma"``
-    (``FLASH_ATTENTION_BWD_WGMMA``) for bf16 at D ∈ {64, 128}, else
-    ``"simt"`` (``FLASH_ATTENTION_BWD``)."""
-    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
-        return "wgmma"
+    """The backward route of (dtype, head_dim) on the card: at D ∈ {64,
+    128} ``"wgmma"`` (``FLASH_ATTENTION_BWD_WGMMA``) for bf16 and ``"tf32"``
+    (``FLASH_ATTENTION_BWD_TF32``) for float32, else ``"simt"``
+    (``FLASH_ATTENTION_BWD``)."""
+    if head_dim in WGMMA_HEAD_DIMS:
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        if dtype == torch.float32:
+            return "tf32"
     return "simt"
 
 
 #: the kernel object and the plain version of each backward route
-BWD_KERNELS = {"wgmma": FLASH_ATTENTION_BWD_WGMMA, "simt": FLASH_ATTENTION_BWD}
+BWD_KERNELS = {"wgmma": FLASH_ATTENTION_BWD_WGMMA, "tf32": FLASH_ATTENTION_BWD_TF32,
+               "simt": FLASH_ATTENTION_BWD}
 BWD_PLAIN = {"wgmma": ref.flash_attention_bwd_bf16_ref,
+             "tf32": ref.flash_attention_bwd_ref,
              "simt": ref.flash_attention_bwd_ref}
 
 
@@ -176,28 +190,28 @@ def bwd_launch(kind: str, q, k, v, o, do, causal: bool = True):
     """Launch the ``kind`` backward (a key of BWD_KERNELS) on CUDA tensors
     that ``flash_attention_bwd`` has checked.  The wrapper passes
     ``bwd_variant``'s choice; ``chip_smoke.py`` also passes ``"simt"`` at
-    the wgmma route's shapes, to time the two on the same inputs."""
+    the tensor-core routes' shapes, to time them on the same inputs."""
     if kind != "simt" and bwd_variant(q.dtype, q.shape[3]) != kind:
         raise ValueError(f"the {kind} backward does not take {q.dtype} at "
                          f"D = {q.shape[3]}")
     B, H, T, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
-    if kind == "wgmma":  # TMA reads 16-byte aligned rows
+    if kind != "simt":  # TMA reads 16-byte aligned rows
         q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone()
                           for t in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if not q.numel():
         return dq, dk.zero_(), dv.zero_()
     # the row logsumexp (base 2) and Δ, written by the first kernel
-    rows = -(-T // BWD_ROWS) * BWD_ROWS if kind == "wgmma" else T
+    rows = T if kind == "simt" else -(-T // BWD_ROWS) * BWD_ROWS
     lse2 = torch.empty((B * H, rows), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse2)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse2.data_ptr(),
             delta.data_ptr(), B, H, Hkv, T, Tk, D)
-    if kind == "wgmma":
-        FLASH_ATTENTION_BWD_WGMMA.launch(*args, int(causal), stream_handle(q))
+    if kind != "simt":
+        BWD_KERNELS[kind].launch(*args, int(causal), stream_handle(q))
     else:
         FLASH_ATTENTION_BWD.launch(*args, DTYPES[q.dtype], int(causal),
                                    stream_handle(q))

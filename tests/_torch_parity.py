@@ -32,6 +32,22 @@ def cap_torch_threads() -> None:
         torch.set_num_threads(TORCH_THREADS)
 
 
+def tf32_rna(x):
+    """``cvt.rna.tf32.f32`` on a float32 torch tensor: 10 mantissa bits,
+    nearest, ties away from zero (the magnitude bits rounded half up), as a
+    float32 (the emulations of the port's TF32 flash kernels)."""
+    import torch
+
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x):
+    """x as the kernels' two TF32 terms: hi = rna(x), lo = rna(x − hi)."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
 def db_to_numpy(db) -> dict:
     """Reference database -> ``{rel: (schema, {comp: array})}``."""
     return {n: (r.schema, {c: np.asarray(v) for c, v in r.payload.items()})

@@ -2255,10 +2255,11 @@ def test_cuda_flash_bwd_matches_plain(cuda_device, B, H, Hkv, T, D, causal, dtyp
     """``flash_attention_bwd`` against its plain version in float64 on the
     same inputs (o from the forward kernel): dQ, dK and dV within 1e-5
     (float32) or 1e-2 (bf16: outputs rounded to bf16) of each one's largest
-    magnitude; one launch of the route ``bwd_variant`` names; a second call
-    bitwise equal (no atomics).  The wgmma route (bf16 at D 64/128) is also
-    held to its own plain version, ``flash_attention_bwd_bf16_ref``, within
-    1e-2."""
+    magnitude; one launch a call of the route ``bwd_variant`` names (the
+    tf32 route for float32 at D 64/128, the wgmma route for bf16 there, the
+    SIMT route at D ≤ 32; two kernels each); a second call bitwise equal (no
+    atomics).  The wgmma route is also held to its own plain version,
+    ``flash_attention_bwd_bf16_ref``, within 1e-2."""
     from repro_torch.kernels import flash_attention as tflash
 
     dt = getattr(torch, dtype)
@@ -2322,14 +2323,21 @@ def test_cuda_flash_bwd_rejects_what_it_does_not_take(cuda_device):
             q4.data_ptr(), k8.data_ptr(), k8.data_ptr(), q4.data_ptr(), q4.data_ptr(),
             q4.data_ptr(), k8.data_ptr(), k8.data_ptr(), lse.data_ptr(), lse.data_ptr(),
             1, 2, 1, 4, 8, 64, 1, 0)
+    with pytest.raises(RuntimeError, match="repro_flash_attention_bwd_tf32 failed"):
+        q4, k8 = t(1, 2, 4, 64), t(1, 1, 8, 64)
+        tflash.FLASH_ATTENTION_BWD_TF32.launch(
+            q4.data_ptr(), k8.data_ptr(), k8.data_ptr(), q4.data_ptr(), q4.data_ptr(),
+            q4.data_ptr(), k8.data_ptr(), k8.data_ptr(), lse.data_ptr(), lse.data_ptr(),
+            1, 2, 1, 4, 8, 64, 1, 0)
 
 
 @pytest.mark.parametrize("D", [16, 64])
 def test_cuda_model_attention_gradient_takes_the_backward_kernel(cuda_device, D):
     """With a gradient asked for, ``models.attention.flash_attention`` on
     CUDA tensors is ``FlashAttentionFn``: the forward kernel once, the
-    backward kernel once, the gradients those of ``flash_attention_bwd``;
-    without one (serving) it is the plain launch."""
+    backward route ``bwd_variant`` names once (float32: SIMT at D 16, tf32
+    at D 64), the gradients those of ``flash_attention_bwd``; without one
+    (serving) it is the plain launch."""
     from repro_torch.kernels import flash_attention as tflash
     from repro_torch.models import attention
 
@@ -2341,14 +2349,36 @@ def test_cuda_model_attention_gradient_takes_the_backward_kernel(cuda_device, D)
         assert attention.flash_attention(q, k, v).grad_fn is None
     qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
     fwd = tflash.KERNELS[tflash.variant(torch.float32, D)]
-    n_f, n_b = fwd.launches, tflash.FLASH_ATTENTION_BWD.launches
+    bwd = tflash.BWD_KERNELS[tflash.bwd_variant(torch.float32, D)]
+    n_f, n_b = fwd.launches, bwd.launches
     o = attention.flash_attention(qs, ks, vs)
     assert type(o.grad_fn).__name__ == "FlashAttentionFnBackward"
     got = torch.autograd.grad(o, (qs, ks, vs), do)
-    assert (fwd.launches - n_f, tflash.FLASH_ATTENTION_BWD.launches - n_b) == (1, 1)
+    assert (fwd.launches - n_f, bwd.launches - n_b) == (1, 1)
     want = tflash.flash_attention_bwd(q, k, v, o.detach(), do)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_cuda_flash_bwd_tf32_spills_nothing(cuda_device):
+    """``tools/sass_report.py`` on ``flash_attention_bwd_tf32.cu``: the dq
+    and the dkdv kernel, at D 64 and 128, store and load nothing in local
+    memory (no register spills)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(root / "tools" / "sass_report.py"),
+                          "flash_attention_bwd_tf32.cu"], capture_output=True, text=True,
+                         check=True).stdout
+    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    for kernel in ("flash_bwd_dq_tf32_kernel", "flash_bwd_dkdv_tf32_kernel"):
+        mine = [r for r in rows if kernel in r["function"]]
+        assert len(mine) == 2, (kernel, rows)  # D 64 and D 128
+        for r in mine:
+            assert (r["local_stores"], r["local_loads"]) == (0, 0), r
 
 
 def test_cuda_model_attention_gradient_bf16_takes_the_wgmma_backward(cuda_device):

@@ -16,8 +16,9 @@ kernel to.  Here, at small shapes (T 24–80, not a multiple of 64; D 64 and
   can pass 1e-2 itself: the port is held within 1e-2 plus that error of
   the reference's gradient, and within 1e-2 of float64, with both errors
   reported in the assertion message;
-* ``bwd_variant`` for every dtype and head dim, and the CPU wrapper taking
-  the plain version of the route it names.
+* ``bwd_variant`` for every dtype and head dim (three routes: wgmma, tf32,
+  simt), and the CPU wrapper taking the plain version of the route it
+  names.
 """
 import numpy as np
 import pytest
@@ -103,10 +104,16 @@ def test_bf16_plain_backward_matches_jax_vjp_in_bf16(B, H, Hkv, T, D, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", tflash.HEAD_DIMS)
 def test_bwd_variant_by_dtype_and_head_dim(dtype, D):
-    want = "wgmma" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
+    """At D 64/128 bf16 takes the wgmma route and float32 the TF32 route
+    (tests/test_torch_flash_bwd_tf32.py); every dtype at D ≤ 32 the SIMT
+    route."""
+    want = "simt"
+    if D in (64, 128):
+        want = "wgmma" if dtype == torch.bfloat16 else "tf32"
     assert tflash.bwd_variant(dtype, D) == want
-    assert tflash.BWD_KERNELS[want].source == (
-        "flash_attention_bwd_wgmma.cu" if want == "wgmma" else "flash_attention_bwd.cu")
+    assert tflash.BWD_KERNELS[want].source == {
+        "wgmma": "flash_attention_bwd_wgmma.cu", "tf32": "flash_attention_bwd_tf32.cu",
+        "simt": "flash_attention_bwd.cu"}[want]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -114,12 +121,16 @@ def test_bwd_variant_by_dtype_and_head_dim(dtype, D):
 def test_cpu_wrapper_takes_the_routes_plain_version(dtype, D):
     """On CPU tensors ``flash_attention_bwd`` is the plain version of the
     route ``bwd_variant`` names, cast to the inputs' dtype, bitwise; no
-    kernel launches."""
+    kernel of any route launches.  The TF32 route (float32 at D 64/128)
+    takes ``flash_attention_bwd_ref``."""
     q, k, v, do = (_bf16(a).to(dtype) for a in _inputs(1, 4, 2, 40, D, seed=2))
     o = tflash.flash_attention(q, k, v)
     counts = {name: kern.launches for name, kern in tflash.BWD_KERNELS.items()}
     got = tflash.flash_attention_bwd(q, k, v, o, do)
-    plain = tflash.BWD_PLAIN[tflash.bwd_variant(dtype, D)]
+    kind = tflash.bwd_variant(dtype, D)
+    plain = tflash.BWD_PLAIN[kind]
+    if kind == "tf32":
+        assert plain is ref.flash_attention_bwd_ref
     for g, w in zip(got, plain(q, k, v, o, do)):
         assert torch.equal(g, w.to(dtype))
     assert {name: kern.launches for name, kern in tflash.BWD_KERNELS.items()} == counts
@@ -129,3 +140,5 @@ def test_bwd_launch_refuses_a_route_that_does_not_take_the_input():
     q = torch.zeros((1, 2, 8, 64), dtype=torch.float32)
     with pytest.raises(ValueError, match="wgmma backward does not take"):
         tflash.bwd_launch("wgmma", q, q, q, q, q)
+    with pytest.raises(ValueError, match="tf32 backward does not take"):
+        tflash.bwd_launch("tf32", *(q.to(torch.bfloat16) for _ in range(5)))

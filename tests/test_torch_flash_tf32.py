@@ -49,16 +49,8 @@ SHAPES = [(1, 4, 1, 77, 64, True), (1, 2, 2, 257, 128, True),
           (2, 8, 2, 130, 64, True), (1, 4, 4, 128, 64, False), (1, 2, 1, 256, 128, False)]
 
 
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """``cvt.rna.tf32.f32``: float32 to 10 mantissa bits, nearest, ties away
-    from zero (the magnitude bits rounded half up), as a float32."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def split(x: torch.Tensor):
-    hi = tf32_rna(x)
-    return hi, tf32_rna(x - hi)
+#: cvt.rna.tf32 and the hi/lo split, one copy for every TF32 emulation
+tf32_rna, split = _torch_parity.tf32_rna, _torch_parity.split
 
 
 def three_terms(a: torch.Tensor, b: torch.Tensor, eq: str, terms: int = 3) -> torch.Tensor:
