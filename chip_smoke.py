@@ -203,12 +203,29 @@ Phases (any failed check raises, and the script exits non-zero):
    - E4, the reduced config 10 steps straight against 5 + a resume
      (the last loss equal), then ``repro_torch.examples.train_lm --tiny``
      (``cofactor_update`` a batch, its loss falling).
+7. Path F, moonshot-v1-16b-a3b (``models/moe.py``: the router, the
+   sort-based capacity dispatch, routed and shared experts; no hand kernel
+   of its own, the flash kernels at head dim 128):
+   - its attention shape (4, 16, 16, 1024, 128) bf16: the wgmma forward and
+     backward beside SDPA's;
+   - F1, float32 at full width and 2 layers (the TF32 flash kernel) and the
+     reduced config (the mma kernel): prefill and two decode steps against
+     the same functions in float64 replaying the float32 run's routing;
+     dropped slots and the float64 router's other choices counted; the
+     reduced decode also against its own prefill;
+   - F2, bf16 at full width and all 48 layers through ``Server.generate``
+     (4 × 1024 tokens, 32 new): prefill and decode ms, tokens/s, peak bytes,
+     idle share, device ms by part of the MoE MLP;
+   - F3, bf16 at full width and 2 layers: 4 steps of ``run_training`` at
+     8 × 1024 tokens, a profiled step, one step twice from one state,
+     bitwise equal.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel with its numbers.  Imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -2458,6 +2475,486 @@ def train_phase(kernels, laps: Laps) -> dict:
     laps.lap("train E3 llama3.2-1b")
     legs.append(train_resume_leg(kernels))
     laps.lap("train E4 resume, example")
+    return dict(rows=rows, legs=legs)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: path F, the MoE model
+# ---------------------------------------------------------------------------
+#: path F's model, moonshot-v1-16b-a3b: 48 layers, d 2048, 16 heads over 16
+#: KV heads at head dim 128, 64 routed experts top-6 (d_expert_ff 1408), 2
+#: shared, vocab 163,840, capacity factor 1.25
+MOE_ARCH = "moonshot_v1_16b_a3b"
+#: F1: full width at 2 layers in float32 (1.85 B parameters), 2 prompts of
+#: 512 tokens (16 groups of 64 tokens, C = 8 against a mean load of 6, so
+#: slots drop) and 2 decode steps; the reduced config (head dim 16: the mma
+#: kernel; 4 experts top-2, capacity factor 4.0: nothing drops) on 2 prompts
+#: of 64
+MOE_F1_LAYERS, MOE_F1_B, MOE_F1_T = 2, 2, 512
+#: F1's limit: float32 logits against the float64 forward of the same
+#: functions on the float32 run's routing, of their largest magnitude.
+#: float32 rounds at ~6e-8 an operation over sums of up to 2816 terms (the
+#: shared experts' width), so a correct forward stays near path D's 1e-6; a
+#: slot's output on the wrong token, a wrong weight or a lost expert moves
+#: the logits by far more.  The reduced decode against its own float32
+#: prefill over the extended prompt (nothing drops there, so both compute
+#: one function, batched differently) is held to the same limit
+MOE_F32_RTOL = 1e-4
+#: F2: full width and depth, bf16, 4 prompts of 1024 tokens (16 groups of 256,
+#: C = 32 against a mean load of 24), 32 new tokens
+MOE_F2_B, MOE_F2_T, MOE_F2_NEW = 4, 1024, 32
+#: F3: full width at 2 layers, bf16, AdamW as configured, remat "full",
+#: 4 steps of 8 × 1024 tokens (2 microbatches of 4 × 1024)
+MOE_F3_LAYERS, MOE_F3_B, MOE_F3_T, MOE_F3_STEPS = 2, 8, 1024, 4
+#: moonshot's per-microbatch attention (B, H, Hkv, T, D), bf16 causal: the
+#: forward and backward kernels beside SDPA's
+MOE_ATTN_SHAPE = (4, 16, 16, 1024, 128)
+
+
+class swapped:
+    """``module.name`` replaced by ``value`` inside a ``with`` block (by
+    name, as E2 swaps in ``plain_attention``)."""
+
+    def __init__(self, module, name: str, value):
+        self.module, self.name, self.value = module, name, value
+
+    def __enter__(self):
+        self.kept = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.kept)
+
+
+def plain_decode_attention(q, k_cache, v_cache, pos: int, *, window=None):
+    """``models.attention.decode_attention`` in the inputs' dtype (the
+    port's computes its scores in float32): the float64 oracle's."""
+    import torch
+
+    B, H, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bhgd,bhtd->bhgt", qg, k_cache) / math.sqrt(D)
+    s = s.masked_fill(torch.arange(S, device=q.device) > pos, float("-inf"))
+    return torch.einsum("bhgt,bhtd->bhgd", s.softmax(-1), v_cache).reshape(B, H, D)
+
+
+def moe_float32_leg(cfg, prompts, kernels, expected: dict, label: str,
+                    own_prefill: bool) -> dict:
+    """Prefill and two decode steps of ``cfg`` in float32 (weights from
+    ``torch.Generator`` seed 0 on the card), each fed the argmax token, with
+    every ``moe_route`` result recorded; the flash kernels must launch as
+    ``expected``.  The oracle is the same model functions in float64
+    (``plain_attention``, ``plain_decode_attention``) fed the same tokens,
+    its ``moe_route`` replaying the recorded routings (experts, slots,
+    keep) with weights from its own float64 router, so that a near-tie in
+    the router cannot move an expert between the two runs: logits within
+    MOE_F32_RTOL.  Counts the token-expert choices the float64 router
+    would have made otherwise, and the prefill's dropped slots.  With
+    ``own_prefill`` each decode step is also held to the float32 prefill
+    over the extended prompt."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import moe, registry
+    from torch.utils import _pytree as pytree
+
+    T = prompts.shape[1]
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    api = registry.build(cfg)
+    routings: list = []
+    route = moe.moe_route
+
+    def recorded(cfg_, router, x):
+        routings.append(route(cfg_, router, x))
+        return routings[-1]
+
+    with torch.inference_mode():
+        params = api.init(seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        reset(kernels)
+        with swapped(moe, "moe_route", recorded):
+            logits, cache = api.prefill(params, {"tokens": prompts}, cache_len=T + 2)
+            n_prefill = len(routings)
+            steps, toks = [logits], [logits.argmax(-1)]
+            for i in range(2):
+                logits, cache = api.decode_step(params, toks[-1], T + i, cache)
+                steps.append(logits)
+                toks.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        launches = read_launches(label, kernels, expected)
+        del cache
+        own_errors = {}
+        if own_prefill:
+            seq = torch.as_tensor(prompts, device="cuda").long()
+            for i in range(2):
+                seq = torch.cat([seq, toks[i][:, None]], dim=1)
+                ref, _ = api.prefill(params, {"tokens": seq})
+                own_errors[f"decode_{i + 1}"] = rel_err(steps[i + 1], ref)
+        dropped = sum(int((~r.kept).sum()) for r in routings[:n_prefill])
+        dropped_tokens = sum(int((~r.kept).any(-1).sum()) for r in routings[:n_prefill])
+        prefill_slots = sum(r.kept.numel() for r in routings[:n_prefill])
+
+        cfg64 = dataclasses.replace(cfg, act_dtype="float64", param_dtype="float64")
+        api64 = registry.build(cfg64)
+        params64 = pytree.tree_map(lambda t: t.double(), params)
+        del params
+        queue = list(routings)
+        flips = [0]
+
+        def replayed(cfg_, router, x):
+            r = queue.pop(0)
+            probs = moe.router_probs(router, x)
+            own = moe.top_k(probs, k)[1]
+            flips[0] += int((F.one_hot(own, E).sum(1) - F.one_hot(r.experts, E).sum(1))
+                            .clamp(min=0).sum())
+            return dataclasses.replace(r, weights=moe.route_weights(probs, r.experts))
+
+        with swapped(tattn, "flash_attention", plain_attention), \
+                swapped(tattn, "decode_attention", plain_decode_attention), \
+                swapped(moe, "moe_route", replayed):
+            want, cache = api64.prefill(params64, {"tokens": prompts}, cache_len=T + 2)
+            wants = [want]
+            for i in range(2):
+                want, cache = api64.decode_step(params64, toks[i], T + i, cache)
+                wants.append(want)
+        if queue:
+            raise AssertionError(f"{label}: {len(queue)} routings not replayed")
+        errors = {name: rel_err(got, want) for name, got, want in
+                  zip(("prefill", "decode_1", "decode_2"), steps, wants)}
+        del params64, cache, wants, steps, routings
+    torch.cuda.empty_cache()
+    out = dict(path=label, arch=cfg.name, n_layers=cfg.n_layers, batch=prompts.shape[0],
+               prompt_len=T, errors=errors, limit=MOE_F32_RTOL,
+               decode_vs_own_prefill=own_errors, launches=launches,
+               prefill_slots=prefill_slots, prefill_dropped_slots=dropped,
+               prefill_tokens_with_a_drop=dropped_tokens,
+               float64_router_other_choices=flips[0])
+    log(out)
+    check_within(label, {**errors, **{f"own_prefill_{n}": e for n, e in own_errors.items()}},
+                 dict.fromkeys([*errors, *(f"own_prefill_{n}" for n in own_errors)],
+                               MOE_F32_RTOL))
+    # no slot can drop where C >= t (t·k/E·cf >= t): every token could go
+    # to one expert and still fit
+    can_drop = cfg.moe.capacity_factor * k < E
+    if can_drop and not dropped:
+        raise AssertionError(f"{label}: no slot dropped at capacity factor "
+                             f"{cfg.moe.capacity_factor}")
+    if not can_drop and dropped:
+        raise AssertionError(f"{label}: {dropped} slots dropped at capacity factor "
+                             f"{cfg.moe.capacity_factor}")
+    return out
+
+
+def moe_device_split(fn, calls: int) -> dict:
+    """Device ms a call of ``fn`` by part, from one profiled window (opened
+    and closed by the marker kernel) with ``moe_route``, ``moe_dispatch``
+    and the shared experts' ``swiglu`` swapped by name for versions inside
+    ``record_function`` ranges; each kernel goes to the range its launching
+    op lies in: ``route`` (router, softmax, sorts, slot maps), ``experts``
+    (the batched expert products, the ``aten::bmm`` ops of
+    ``moe_dispatch``), ``dispatch`` (the rest of ``moe_dispatch``: the
+    gathers into and out of the buffers, the SwiGLU's elementwise work, the
+    weighting and the ordered combine), ``shared`` and ``other``
+    (attention, projections, norms, logits).  ``dispatch_share`` is route +
+    dispatch over the MoE MLP's device ms."""
+    import torch
+    from repro_torch.models import moe
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(name, f):
+        def g(*args, **kw):
+            with record_function(name):
+                return f(*args, **kw)
+        return g
+
+    parts = dict.fromkeys(("route", "experts", "dispatch", "shared", "other"), 0.0)
+    with swapped(moe, "moe_route", ranged("moe_route", moe.moe_route)), \
+            swapped(moe, "moe_dispatch", ranged("moe_dispatch", moe.moe_dispatch)), \
+            swapped(moe, "swiglu", ranged("moe_shared", moe.swiglu)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(MARKER_CYCLES)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(MARKER_CYCLES)
+            torch.cuda.synchronize()
+    kernels = 0
+    for e in prof.events():
+        mine = [kern for kern in e.kernels if MARKER not in kern.name]
+        if not mine:
+            continue
+        chain, node = set(), e
+        while node is not None:
+            chain.add(node.name)
+            node = node.cpu_parent
+        if "moe_route" in chain:
+            part = "route"
+        elif "moe_dispatch" in chain:
+            part = "experts" if "aten::bmm" in chain else "dispatch"
+        else:
+            part = "shared" if "moe_shared" in chain else "other"
+        parts[part] += sum(kern.duration for kern in mine) / 1e3 / calls
+        kernels += len(mine)
+    moe_ms = sum(v for name, v in parts.items() if name != "other")
+    return dict(ms_per_call=parts, kernels_listed=kernels, calls=calls,
+                dispatch_share=(parts["route"] + parts["dispatch"]) / moe_ms
+                if moe_ms else None)
+
+
+def moe_serve_leg(kernels) -> dict:
+    """F2: moonshot at full width and depth in bf16 through ``Server``
+    (weights from ``torch.Generator`` seed 0 on the card; the peak of its
+    init against the parameters' bytes), ``generate`` of MOE_F2_NEW tokens
+    for MOE_F2_B prompts of MOE_F2_T after a short warm-up, timed, the flash
+    kernel once a layer; peak bytes; a prefill and one decode step again,
+    their tokens equal to the generated ones and their logits finite;
+    device busy against wall over 16 decode steps and one prefill; each
+    one's device ms by part of the MoE MLP (``moe_device_split``)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.serve_lm import Server
+    from torch.utils import _pytree as pytree
+
+    cfg = get_config(MOE_ARCH)
+    B, T, NEW = MOE_F2_B, MOE_F2_T, MOE_F2_NEW
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    server = Server(cfg, cache_len=T + NEW, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    param_bytes = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(server.params))
+    server.generate({"tokens": prompts[:, :64]}, 2)  # warm-up: handles, loads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    res = server.generate({"tokens": prompts}, NEW)
+    launches = read_launches("F2 moonshot serving", kernels, {
+        "flash_attention_wgmma": cfg.n_layers, "flash_attention": 0,
+        "flash_attention_tf32": 0})
+    peak = torch.cuda.max_memory_allocated()
+    api, params = server.api, server.params
+    with torch.inference_mode():
+        logits0, cache = api.prefill(params, {"tokens": prompts}, cache_len=T + NEW)
+        tok = logits0.argmax(-1)
+        logits1, cache = api.decode_step(params, tok, T, cache)
+        finite = bool(torch.isfinite(logits0).all()) and bool(torch.isfinite(logits1).all())
+        again = np.stack([tok.cpu().numpy(), logits1.argmax(-1).cpu().numpy()], axis=1)
+        tokens_equal = bool(np.array_equal(again, res.tokens[:, :2]))
+        state = {"tok": logits1.argmax(-1), "pos": T + 1, "cache": cache}
+
+        def decode_step():
+            lg, state["cache"] = api.decode_step(params, state["tok"], state["pos"],
+                                                 state["cache"])
+            state["tok"] = lg.argmax(-1)
+            state["pos"] += 1
+
+        def prefill():
+            api.prefill(params, {"tokens": prompts}, cache_len=T + NEW)
+
+        profiles = {name: _busy(*device_events(fn, calls))
+                    for name, fn, calls in (("decode", decode_step, 16),
+                                            ("prefill", prefill, 1))}
+        split = {name: moe_device_split(fn, calls)
+                 for name, fn, calls in (("decode", decode_step, 4), ("prefill", prefill, 1))}
+        del cache, state
+    out = dict(
+        path="moe_serve", arch=cfg.name, n_layers=cfg.n_layers, n_params=api.n_params(),
+        n_active_params=api.n_active_params(), param_bytes=param_bytes,
+        allocated_before_init=start, init_s=init_s, init_peak_bytes=init_peak, batch=B,
+        prompt_len=T, new_tokens=NEW, cache_len=T + NEW, prefill_ms=1e3 * res.prefill_s,
+        decode_ms_per_step=1e3 * res.decode_s / (NEW - 1),
+        decode_tokens_per_s=B * (NEW - 1) / res.decode_s,
+        generate_tokens_per_s=res.tokens_per_s, max_memory_allocated=peak,
+        launches=launches, logits_finite=finite, first_tokens_equal=tokens_equal,
+        profile=profiles, moe_split=split)
+    log(out)
+    if not finite or not tokens_equal:
+        raise AssertionError(f"F2: finite {finite}, first tokens equal {tokens_equal}")
+    del server, api, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_leg(kernels) -> dict:
+    """F3: moonshot at full width and MOE_F3_LAYERS layers, bf16, AdamW as
+    configured, remat ``full``, through ``run_training`` for MOE_F3_STEPS
+    steps of MOE_F3_B × MOE_F3_T (2 microbatches): step ms and tokens/s (as
+    E3), peak bytes, the flash launches a step; then one more step profiled
+    (as E3), and one step twice from the same state: loss and every
+    parameter bitwise equal (the dispatch has no float atomics).  Gates: every loss finite, step 0's
+    within TRAIN_E3_LOSS0_SLACK of ln(vocab_size)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data import lm_data
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.train import make_train_plan, make_train_step, run_training
+    from repro_torch.models import registry
+    from repro_torch.optim import make_optimizer
+    from torch.utils import _pytree as pytree
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_F3_LAYERS)
+    shape = ShapeSpec("f3", MOE_F3_T, MOE_F3_B, "train")
+    plan = make_train_plan(cfg, shape, make_smoke_mesh())
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    params, history = run_training(cfg, steps=MOE_F3_STEPS, batch_size=MOE_F3_B,
+                                   seq_len=MOE_F3_T, seed=SEED, log_every=1, device="cuda")
+    torch.cuda.synchronize()
+    per_step = cfg.n_layers * plan.n_microbatches
+    launches = read_launches("F3 moonshot training", kernels, {
+        "flash_attention_wgmma": 2 * per_step * MOE_F3_STEPS,
+        "flash_attention_bwd_wgmma": per_step * MOE_F3_STEPS, "flash_attention_bwd": 0,
+        "flash_attention_bwd_tf32": 0, "flash_attention": 0, "flash_attention_tf32": 0})
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in history]
+    step_s = statistics.median(h["time_s"] for h in history[1:])
+    api = registry.build(cfg)
+    opt = make_optimizer(cfg.optimizer, 3e-4)
+    state = opt.init(params)
+    batch = lm_data._batch_for_step(cfg, shape, SEED, MOE_F3_STEPS, "cuda")
+    step_fn = make_train_step(cfg, api, opt, plan)
+    # each step's parameters and loss kept on the host (its optimizer state
+    # dropped), so that the second step has the first one's memory
+    runs = []
+
+    def step():
+        new_params, _, metrics = step_fn(params, state, batch)
+        runs.append(([t.cpu() for t in pytree.tree_leaves(new_params)],
+                     metrics["loss"].cpu()))
+
+    torch.cuda.empty_cache()
+    events, wall = device_events(lambda: step_fn(params, state, batch), 1)
+    for _ in range(2):
+        torch.cuda.empty_cache()
+        step()
+    (p1, l1), (p2, l2) = runs
+    bitwise = bool(torch.equal(l1, l2)) and all(torch.equal(a, b) for a, b in zip(p1, p2))
+    profile = _busy(events, wall)
+    del params, state, runs, p1, p2
+    torch.cuda.empty_cache()
+    out = dict(path="moe_train", arch=cfg.name, n_layers=cfg.n_layers, n_params=api.n_params(),
+               steps=MOE_F3_STEPS, batch=MOE_F3_B, seq=MOE_F3_T,
+               n_microbatches=plan.n_microbatches, losses=losses, step_ms=1e3 * step_s,
+               step_ms_each=[1e3 * h["time_s"] for h in history],
+               tokens_per_s=MOE_F3_B * MOE_F3_T / step_s, max_memory_allocated=peak,
+               flash_launches_per_step={
+                   "forward": launches["flash_attention_wgmma"] / MOE_F3_STEPS,
+                   "backward": launches["flash_attention_bwd_wgmma"] / MOE_F3_STEPS},
+               repeat_loss=float(l1), repeat_bitwise=bitwise, profile=profile,
+               launches=launches)
+    log(out)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"F3: a loss is not finite: {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > TRAIN_E3_LOSS0_SLACK:
+        raise AssertionError(f"F3: step 0 loss {losses[0]} is not within "
+                             f"{TRAIN_E3_LOSS0_SLACK} of ln({cfg.vocab_size})")
+    if not bitwise:
+        raise AssertionError("F3: two steps from one state differ")
+    return out
+
+
+def moe_attention_row(rng) -> dict:
+    """The bf16 forward (``flash_attention_wgmma``) and backward
+    (``flash_attention_bwd_wgmma``) at MOE_ATTN_SHAPE, causal: event ms in
+    turns and device ms of each beside SDPA's forward and its backward
+    (``torch.autograd.grad``, the forward outside the timed call), and the
+    bounds of E1 and of ``flash_attention_rows``.  Comparison launches, not
+    the path's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as tflash
+
+    B, H, Hkv, T, D = MOE_ATTN_SHAPE
+    q = normal(rng, (B, H, T, D)).bfloat16()
+    k, v = (normal(rng, (B, Hkv, T, D)).bfloat16() for _ in range(2))
+    do = normal(rng, (B, H, T, D)).bfloat16()
+    o = tflash.flash_attention(q, k, v, True)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    def forward():
+        tflash.flash_attention(q, k, v, True)
+
+    def backward():
+        tflash.flash_attention_bwd(q, k, v, o, do, True)
+
+    def sdpa_forward():
+        F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    def sdpa_backward():
+        torch.autograd.grad(lib_out, (qs, ks, vs), do, retain_graph=True)
+
+    times = time_in_turns({"forward": forward, "backward": backward,
+                           "sdpa_forward": sdpa_forward, "sdpa_backward": sdpa_backward})
+    pairs = B * H * T * (T + 1) // 2
+    row = dict(shape=dict(B=B, H=H, Hkv=Hkv, T=T, D=D, dtype="bfloat16"), causal=True,
+               forward_ms=times["forward"],
+               forward_device_ms=kernel_device_ms(forward, FLASH_KERNEL_NAMES["wgmma"]),
+               backward_ms=times["backward"], backward_device_ms=bwd_device_ms(backward),
+               sdpa_forward_ms=times["sdpa_forward"],
+               sdpa_forward_device_ms=all_device_ms(sdpa_forward),
+               sdpa_backward_ms=times["sdpa_backward"],
+               sdpa_backward_device_ms=all_device_ms(sdpa_backward, calls=5),
+               forward_bound_ms=bound_ms(2 * (2 * B * H * T * D + 2 * B * Hkv * T * D),
+                                         2 * B * H * T * T * D, BF16_OPS_PER_S)[0],
+               backward_bound_ms=bound_ms(2 * (4 * B * H * T * D + 4 * B * Hkv * T * D),
+                                          5 * 2 * pairs * D, BF16_OPS_PER_S)[0])
+    log({"kernel": "flash_attention at moonshot's attention", **row})
+    del q, k, v, o, do, qs, ks, vs, lib_out
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_phase(kernels, laps: Laps) -> dict:
+    """Path F, moonshot-v1-16b-a3b (the MoE MLP: ``models/moe.py``), after
+    path E's memory is released: the attention kernels at its shape, then
+    with the counts reset before each leg F1 (float32 against float64, full
+    width at 2 layers and the reduced config), F2 (serving at full width and
+    depth) and F3 (training at full width, 2 layers)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({"path": "moe", "memory_allocated_at_start": torch.cuda.memory_allocated()})
+    rows = [moe_attention_row(np.random.default_rng(SEED))]
+    laps.lap("F attention at moonshot's shape")
+    full = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_F1_LAYERS,
+                               act_dtype="float32", param_dtype="float32")
+    prompts = np.random.default_rng(SEED).integers(
+        0, full.vocab_size, (MOE_F1_B, MOE_F1_T)).astype(np.int32)
+    legs = [moe_float32_leg(full, prompts, kernels, {
+        "flash_attention_tf32": full.n_layers, "flash_attention": 0,
+        "flash_attention_wgmma": 0}, "moe_float32", own_prefill=False)]
+    small = get_config(MOE_ARCH).reduced()
+    small_prompts = np.random.default_rng(SEED).integers(
+        0, small.vocab_size, (LM_REDUCED_B, LM_REDUCED_T)).astype(np.int32)
+    legs.append(moe_float32_leg(small, small_prompts, kernels, {
+        "flash_attention": small.n_layers, "flash_attention_tf32": 0,
+        "flash_attention_wgmma": 0}, "moe_float32_reduced", own_prefill=True))
+    laps.lap("F1 float32 against float64")
+    legs.append(moe_serve_leg(kernels))
+    laps.lap("F2 moonshot serving")
+    legs.append(moe_train_leg(kernels))
+    laps.lap("F3 moonshot training")
     return dict(rows=rows, legs=legs)
 
 
@@ -5789,6 +6286,9 @@ def main() -> int:
     # path E, LM training: the backward kernel (E1), a train step against
     # float64 (E2), llama3.2-1b at full size (E3), resume and the example (E4)
     train = train_phase(kernels, laps)
+    # path F, the MoE model (moonshot-v1-16b-a3b): float32 against float64
+    # at 2 layers and reduced (F1), serving at full depth (F2), training (F3)
+    moe = moe_phase(kernels, laps)
     # path D's float32 legs are the TF32 and mma flash kernels' paths
     # the housing legs' executor runs (capture and replay-only, or the
     # capacity segments) count beside their eager runs, and the chain
@@ -5802,7 +6302,8 @@ def main() -> int:
         for key in ("launches_float32", "launches_float32_reduced", "launches_int",
                     "launches_sparse")
         if key in run] + [leg["launches"] for leg in durable + integrity + serve] + [
-        leg["launches"] for leg in train["legs"]] + [train["legs"][-1]["example"]["launches"]]
+        leg["launches"] for leg in train["legs"] + moe["legs"]] + [
+        train["legs"][-1]["example"]["launches"]]
     launched = {k.name: sum(r.get(k.name, 0) for r in runs) for k in kernels}
     if not all(launched[k.name] for k in built):
         raise AssertionError(f"a kernel launched on no path: {launched}")

@@ -4,7 +4,7 @@ Reproducible token streams keyed by (seed, step), so a restarted job resumes
 mid-stream (``start_step``) without replaying or skipping data.  Batches
 are drawn on the host with the reference's numpy generator, so the tokens
 and labels are bitwise the reference's, and go to ``device`` as int32
-tensors.  The dense GQA family the port trains has no vision or audio
+tensors.  The GQA decoders the port trains have no vision or audio
 front-end, so a batch is ``{"tokens", "labels"}``; a vision or
 encoder-decoder config raises (ROADMAP Queue 1 item 20).
 """

@@ -14,7 +14,7 @@ q's dtype; any other dtype or device raises.
 Three kernels, chosen by :func:`variant` from the dtype and head dim alone:
 
 * ``csrc/flash_attention_wgmma.cu`` for bf16 at D ∈ {64, 128}, the head
-  dims of every dense GQA config the port builds: tensor cores (wgmma) fed
+  dims of every full-size config the port builds: tensor cores (wgmma) fed
   by TMA, with P split into three bf16 terms for PV (they sum to the
   float32 P exactly);
 * ``csrc/flash_attention_tf32.cu`` for float32 at D ∈ {64, 128}, the

@@ -1,1 +1,2 @@
-"""The LM scaffold's serving path (port of ``repro.models``): dense GQA only."""
+"""The LM scaffold's serving and training paths (port of ``repro.models``):
+the GQA decoders, dense and MoE."""

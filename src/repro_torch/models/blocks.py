@@ -1,12 +1,14 @@
 """Transformer-block composition (port of ``repro.models.blocks``) for the
-dense GQA family: attention mixer + dense SwiGLU MLP, pre-norm residual.
+GQA attention blocks: attention mixer + MLP (dense SwiGLU, or the MoE MLP
+on the layers ``cfg.is_moe_layer`` names), pre-norm residual.
 
-MoE, Mamba, mLSTM and sLSTM blocks and MLA attention raise
+Mamba, mLSTM and sLSTM blocks and MLA attention raise
 ``NotImplementedError`` (ROADMAP Queue 1 item 20).
 """
 from __future__ import annotations
 
 from . import attention as attn
+from . import moe as moe_mod
 from .layers import P, rms_norm, swiglu
 
 
@@ -29,23 +31,28 @@ def mlp_specs(cfg) -> dict:
 def block_specs(cfg, kind: str, idx_in_period: int) -> dict:
     """Spec tree for one layer of the given kind."""
     _check_kind(cfg, kind)
-    if cfg.is_moe_layer(idx_in_period):
-        raise attn.unported("the MoE MLP")
     d = cfg.d_model
     s: dict = {"ln1": P((d,), ("embed",), init="ones"), "attn": attn.gqa_specs(cfg)}
-    if cfg.d_ff:
+    if cfg.d_ff or cfg.moe is not None:
         s["ln2"] = P((d,), ("embed",), init="ones")
-        s["mlp"] = mlp_specs(cfg)
+        if cfg.is_moe_layer(idx_in_period):
+            s["moe"] = moe_mod.moe_specs(cfg)
+        else:
+            s["mlp"] = mlp_specs(cfg)
     return s
 
 
 def apply_mlp_part(cfg, bp, x):
-    """Post-mixer MLP with pre-norm residual.  x [B,S,d] (or [B,d])."""
-    if "mlp" not in bp:
+    """Post-mixer MLP/MoE with pre-norm residual.  x [B,S,d] (or [B,d]);
+    the MoE MLP takes the tokens flattened to [B·S, d]."""
+    if "mlp" not in bp and "moe" not in bp:
         return x
     h = rms_norm(x, bp["ln2"], cfg.rms_eps)
-    mlp = bp["mlp"]
-    return x + swiglu(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
+    if "moe" in bp:
+        y = moe_mod.moe_apply(cfg, bp["moe"], h.reshape(-1, h.shape[-1])).view(h.shape)
+    else:
+        y = swiglu(h, bp["mlp"]["w_gate"], bp["mlp"]["w_up"], bp["mlp"]["w_down"])
+    return x + y
 
 
 def apply_block(cfg, kind: str, bp, x, positions, *, return_kv=False):

@@ -81,10 +81,19 @@ def init_scale(spec: P) -> float:
             "small": 0.01}[spec.init]
 
 
+#: the most elements one float32 draw of ``init_from_spec`` takes (a
+#: leading-axis slice of a leaf larger than this is drawn alone)
+INIT_DRAW_ELEMS = 1 << 27
+
+
 def init_from_spec(spec_tree, generator: torch.Generator, dtype=torch.float32):
     """A tensor tree from a spec tree, on the generator's device: each
-    normal leaf is a float32 standard-normal draw times its scale, cast to
-    ``dtype``; leaves are drawn in sorted-key order."""
+    normal leaf is float32 standard-normal draws times its scale, cast to
+    ``dtype``; leaves are drawn in sorted-key order, each in blocks of
+    leading-axis slices (at most INIT_DRAW_ELEMS elements a block, or one
+    slice), written into the leaf in ``dtype``: no float32 copy of a whole
+    leaf exists (a stacked expert leaf of a full MoE config is 8.9 G
+    elements)."""
     dev = generator.device
 
     def leaf(spec: P) -> torch.Tensor:
@@ -92,18 +101,27 @@ def init_from_spec(spec_tree, generator: torch.Generator, dtype=torch.float32):
             return torch.zeros(spec.shape, dtype=dtype, device=dev)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dtype, device=dev)
-        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                        device=dev)
-        return x.mul_(init_scale(spec)).to(dtype)
+        out = torch.empty(spec.shape, dtype=dtype, device=dev)
+        flat = out.view(-1, *spec.shape[1:])
+        rows = max(1, INIT_DRAW_ELEMS // math.prod(spec.shape[1:]))
+        for lo in range(0, flat.shape[0], rows):
+            part = flat[lo:lo + rows]
+            # unnamed, so that it is freed before the next block's draw
+            part.copy_(torch.randn(part.shape, generator=generator, dtype=torch.float32,
+                                   device=dev).mul_(init_scale(spec)))
+        return out
 
     vals = {path: leaf(spec) for path, spec in iter_specs(spec_tree)}
+    return _tree_of(spec_tree, vals)
 
-    def build(tree, path=()):
-        if isinstance(tree, Mapping):
-            return {k: build(v, path + (k,)) for k, v in tree.items()}
-        return vals[path]
 
-    return build(spec_tree)
+def _tree_of(tree, vals: dict, path: tuple = ()):
+    """``tree`` with each leaf replaced by ``vals[its path]`` (a function of
+    the module, not a recursive closure: a closure's cycle would keep the
+    leaves alive after the caller drops them, until the collector runs)."""
+    if isinstance(tree, Mapping):
+        return {k: _tree_of(v, vals, path + (k,)) for k, v in tree.items()}
+    return vals[path]
 
 
 def count_params(spec_tree) -> int:

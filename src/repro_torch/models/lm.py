@@ -1,5 +1,5 @@
-"""Decoder-only language model (port of ``repro.models.lm`` for the dense
-GQA family): the training loss and the serving entry points.
+"""Decoder-only language model (port of ``repro.models.lm`` for the GQA
+decoders, dense and MoE): the training loss and the serving entry points.
 
 The parameters are the reference's tree (``lm_init``): nested dicts, each
 block parameter stacked over the layer periods under ``layers/sub<i>``,

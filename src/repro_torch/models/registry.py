@@ -1,8 +1,9 @@
 """Model registry (port of ``repro.models.registry``): one API over the
-architectures the port builds, the dense GQA family (llama3.2-1b,
-llama3.2-3b, qwen2-1.5b, granite-3-2b).
+architectures the port builds, the GQA decoders: the dense family
+(llama3.2-1b, llama3.2-3b, qwen2-1.5b, granite-3-2b) and the MoE
+moonshot-v1-16b-a3b.
 
-``build(cfg)`` raises ``NotImplementedError`` for encoder-decoder, MoE, MLA,
+``build(cfg)`` raises ``NotImplementedError`` for encoder-decoder, MLA,
 SSM, vision and hybrid configs (ROADMAP Queue 1 item 20).  ``ModelAPI.loss``
 is ``lm.lm_loss``; ``batch_spec`` and ``real_batch`` give a workload cell's
 inputs.  The dry run's abstract inputs (the reference's ``abstract_batch``)
@@ -11,6 +12,7 @@ wait for item 20's ``launch/`` part.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
@@ -19,7 +21,7 @@ from ..configs.base import ArchConfig, ShapeSpec
 from ..device import resolve_device
 from . import lm
 from .attention import UNPORTED
-from .layers import P, count_params
+from .layers import P, count_params, iter_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,10 +37,26 @@ class ModelAPI:
     def n_params(self) -> int:
         return count_params(self.specs)
 
+    def n_active_params(self) -> int:
+        """Per-token active parameters (MoE: top_k + shared experts only):
+        the reference's count, whose routed tensors are the leaves under a
+        "moe" key of at least 3 dims with n_experts among them (the stacked
+        router too), each counted at top_k / n_experts."""
+        m = self.cfg.moe
+        if m is None:
+            return self.n_params()
+        total, routed = 0, 0
+        for path, spec in iter_specs(self.specs):
+            n = math.prod(spec.shape)
+            total += n
+            if "moe" in path and m.n_experts in spec.shape and len(spec.shape) >= 3:
+                routed += n
+        return total - routed + int(routed * m.top_k / m.n_experts)
+
 
 def _unsupported(cfg: ArchConfig) -> str | None:
-    for what, yes in (("encoder-decoder", cfg.enc_dec), ("MoE", cfg.moe is not None),
-                      ("MLA", cfg.attn_kind == "mla"), ("SSM", cfg.ssm is not None),
+    for what, yes in (("encoder-decoder", cfg.enc_dec), ("MLA", cfg.attn_kind == "mla"),
+                      ("SSM", cfg.ssm is not None),
                       (f"{cfg.frontend} front-end", cfg.frontend is not None),
                       ("hybrid", cfg.family == "hybrid")):
         if yes:
@@ -51,7 +69,7 @@ def build(cfg: ArchConfig) -> ModelAPI:
     if what is not None:
         raise NotImplementedError(
             f"{cfg.name}: {what} models are not ported yet; the port builds the "
-            f"dense GQA family only ({UNPORTED})")
+            f"GQA decoders, dense and MoE, only ({UNPORTED})")
     specs = lm.lm_specs(cfg)
 
     def init(seed: int = 0, device="cuda", dtype=None, generator=None):
@@ -76,7 +94,7 @@ def build(cfg: ArchConfig) -> ModelAPI:
 # ---------------------------------------------------------------------------
 def batch_spec(cfg: ArchConfig, shape: ShapeSpec) -> dict:
     """Logical-axis specs for every model input of this workload cell (the
-    dense GQA family has no vision or audio front-end)."""
+    GQA decoders have no vision or audio front-end)."""
     B, S = shape.global_batch, shape.seq_len
     if shape.kind == "train":
         return {"tokens": P((B, S), ("batch", "seq"), "zeros"),

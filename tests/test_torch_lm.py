@@ -36,7 +36,8 @@ from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.models import blocks, layers, registry  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ARCHS = ["llama3_2_1b", "llama3_2_3b", "qwen2_1_5b", "granite_3_2b"]
+ARCHS = ["llama3_2_1b", "llama3_2_3b", "qwen2_1_5b", "granite_3_2b",
+         "moonshot_v1_16b_a3b"]
 RTOL = 1e-5
 S = 16
 

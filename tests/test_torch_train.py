@@ -58,7 +58,8 @@ from repro_torch.models import attention, layers, registry  # noqa: E402
 from repro_torch.optim import optimizers  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
 
-ARCHS = ["llama3_2_1b", "llama3_2_3b", "qwen2_1_5b", "granite_3_2b"]
+ARCHS = ["llama3_2_1b", "llama3_2_3b", "qwen2_1_5b", "granite_3_2b",
+         "moonshot_v1_16b_a3b"]
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 B, S = 2, 16
