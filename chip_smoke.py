@@ -8,7 +8,7 @@ Run from the repository root with one card visible:
 Phases (any failed check raises, and the script exits non-zero):
 
 1. Device: the card's name and power limit from nvidia-smi, then a build of
-   all fifteen CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   all seventeen CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together).
 2. Kernels: each kernel against its plain PyTorch version on integer-valued
    float32 at the shapes the main path gives it (bitwise; ``cofactor_update``
@@ -219,6 +219,22 @@ Phases (any failed check raises, and the script exits non-zero):
    - F3, bf16 at full width and 2 layers: 4 steps of ``run_training`` at
      8 × 1024 tokens, a profiled step, one step twice from one state,
      bitwise equal.
+8. Path G, deepseek-v3-671b (``models/attention.py``'s MLA: q and k of 128
+   + 64 columns, v of 128, a latent cache and the absorbed decode; the
+   flash kernels at the head-dim pair (192, 128), the reduced config's
+   (16, 8)), after path F's memory is released:
+   - the G rows: ``flash_attention_wgmma`` at (4, 128, 128, 1024, 192→128)
+     bf16, ``flash_attention_tf32`` at (1, 128, 128, 1024, 192→128) float32
+     and the mma kernel at (2, 4, 4, 64, 16→8) in both dtypes, each against
+     its plain version in float64 (the equal-dim rows' gates), timed beside
+     SDPA with its bound;
+   - G1, float32 against float64: the MLA module alone at full width (2 ×
+     512 tokens through the TF32 kernel, then 2 absorbed decode steps), and
+     the reduced model as F1 runs moonshot's (its own prefill too);
+   - G2, bf16 at full width and 1 of 61 layers (49.95 GB of parameters;
+     two layers would not fit) through ``Server.generate`` (4 × 1024
+     tokens, 32 new), as F2: one wgmma launch a prefill, none a decode
+     step, the tokens repeated.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel with its numbers.  Imports nothing of JAX or the JAX package.
@@ -937,6 +953,25 @@ def sm_clock_hz() -> float:
     return 1e6 * float(out.splitlines()[0])
 
 
+def check_flash(label, got, want, dt):
+    """(max abs err, its share of the largest output) of a flash output
+    against the float64 plain version; raises beyond the gate: float32
+    within FLASH_F32_RTOL of the largest output, bf16 every element within
+    one bf16 rounding, 2⁻⁸·|ref| + 1e-6·max|ref|."""
+    import torch
+
+    err = (got.double() - want).abs()
+    scale = float(want.abs().max())
+    if dt == torch.float32:
+        if not float(err.max()) <= FLASH_F32_RTOL * scale:
+            raise AssertionError(f"{label}: max abs err {float(err.max())} "
+                                 f"> {FLASH_F32_RTOL} x {scale}")
+    elif not bool((err <= 2.0 ** -8 * want.abs() + 1e-6 * scale).all()):
+        raise AssertionError(f"{label}: beyond one bf16 rounding of the "
+                             f"float64 result (max abs err {float(err.max())})")
+    return float(err.max()), float(err.max()) / scale
+
+
 def flash_attention_rows(rng, rows: dict) -> None:
     """``flash_attention`` (causal) at FLASH_SHAPES in bf16 and float32, each
     against the plain version in float64 on the same inputs, into
@@ -959,18 +994,6 @@ def flash_attention_rows(rng, rows: dict) -> None:
     from repro_torch.kernels import flash_attention as tflash
     from repro_torch.kernels import ref
 
-    def check(label, got, want, dt):
-        err = (got.double() - want).abs()
-        scale = float(want.abs().max())
-        if dt == torch.float32:
-            if not float(err.max()) <= FLASH_F32_RTOL * scale:
-                raise AssertionError(f"{label}: max abs err {float(err.max())} "
-                                     f"> {FLASH_F32_RTOL} x {scale}")
-        elif not bool((err <= 2.0 ** -8 * want.abs() + 1e-6 * scale).all()):
-            raise AssertionError(f"{label}: beyond one bf16 rounding of the "
-                                 f"float64 result (max abs err {float(err.max())})")
-        return float(err.max()), float(err.max()) / scale
-
     exp_rate = EXP_PER_CLOCK_SM * torch.cuda.get_device_properties(0).multi_processor_count \
         * sm_clock_hz()
     for B, H, Hkv, T, D in FLASH_SHAPES:
@@ -981,8 +1004,8 @@ def flash_attention_rows(rng, rows: dict) -> None:
             name = tflash.KERNELS[kind].name
             label = f"{name} {(B, H, Hkv, T, D)} {dt}"
             want = ref.flash_attention_ref(q.double(), k.double(), v.double())
-            err, rel = check(label, tflash.flash_attention(q, k, v), want, dt)
-            simt_err, _ = check(f"flash_attention (simt) {(B, H, Hkv, T, D)} {dt}",
+            err, rel = check_flash(label, tflash.flash_attention(q, k, v), want, dt)
+            simt_err, _ = check_flash(f"flash_attention (simt) {(B, H, Hkv, T, D)} {dt}",
                                 tflash.launch("simt", q, k, v), want, dt)
             extra = {"simt_max_abs_err": simt_err}
             if D <= 32:
@@ -2706,21 +2729,24 @@ def moe_device_split(fn, calls: int) -> dict:
                 if moe_ms else None)
 
 
-def moe_serve_leg(kernels) -> dict:
-    """F2: moonshot at full width and depth in bf16 through ``Server``
-    (weights from ``torch.Generator`` seed 0 on the card; the peak of its
-    init against the parameters' bytes), ``generate`` of MOE_F2_NEW tokens
-    for MOE_F2_B prompts of MOE_F2_T after a short warm-up, timed, the flash
-    kernel once a layer; peak bytes; a prefill and one decode step again,
+def moe_serve_leg(kernels, cfg=None, path: str = "moe_serve",
+                  label: str = "F2 moonshot serving", extra: dict | None = None) -> dict:
+    """F2: moonshot at full width and depth (or ``cfg``: G2's deepseek) in
+    bf16 through ``Server`` (weights from ``torch.Generator`` seed 0 on the
+    card; the peak of its init against the parameters' bytes), ``generate``
+    of MOE_F2_NEW tokens for MOE_F2_B prompts of MOE_F2_T after a short
+    warm-up, timed, the flash kernel once a layer in the prefill and never
+    in a decode step; peak bytes; a prefill and one decode step again,
     their tokens equal to the generated ones and their logits finite;
     device busy against wall over 16 decode steps and one prefill; each
-    one's device ms by part of the MoE MLP (``moe_device_split``)."""
+    one's device ms by part of the MoE MLP (``moe_device_split``).  The
+    line carries ``extra`` (G2: the cut of its depth)."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.serve_lm import Server
     from torch.utils import _pytree as pytree
 
-    cfg = get_config(MOE_ARCH)
+    cfg = cfg or get_config(MOE_ARCH)
     B, T, NEW = MOE_F2_B, MOE_F2_T, MOE_F2_NEW
     prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
     torch.cuda.synchronize()
@@ -2739,7 +2765,7 @@ def moe_serve_leg(kernels) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset(kernels)
     res = server.generate({"tokens": prompts}, NEW)
-    launches = read_launches("F2 moonshot serving", kernels, {
+    launches = read_launches(label, kernels, {
         "flash_attention_wgmma": cfg.n_layers, "flash_attention": 0,
         "flash_attention_tf32": 0})
     peak = torch.cuda.max_memory_allocated()
@@ -2769,7 +2795,7 @@ def moe_serve_leg(kernels) -> dict:
                  for name, fn, calls in (("decode", decode_step, 4), ("prefill", prefill, 1))}
         del cache, state
     out = dict(
-        path="moe_serve", arch=cfg.name, n_layers=cfg.n_layers, n_params=api.n_params(),
+        path=path, arch=cfg.name, n_layers=cfg.n_layers, n_params=api.n_params(),
         n_active_params=api.n_active_params(), param_bytes=param_bytes,
         allocated_before_init=start, init_s=init_s, init_peak_bytes=init_peak, batch=B,
         prompt_len=T, new_tokens=NEW, cache_len=T + NEW, prefill_ms=1e3 * res.prefill_s,
@@ -2777,10 +2803,10 @@ def moe_serve_leg(kernels) -> dict:
         decode_tokens_per_s=B * (NEW - 1) / res.decode_s,
         generate_tokens_per_s=res.tokens_per_s, max_memory_allocated=peak,
         launches=launches, logits_finite=finite, first_tokens_equal=tokens_equal,
-        profile=profiles, moe_split=split)
+        profile=profiles, moe_split=split, **(extra or {}))
     log(out)
     if not finite or not tokens_equal:
-        raise AssertionError(f"F2: finite {finite}, first tokens equal {tokens_equal}")
+        raise AssertionError(f"{label}: finite {finite}, first tokens equal {tokens_equal}")
     del server, api, params
     torch.cuda.empty_cache()
     return out
@@ -2956,6 +2982,192 @@ def moe_phase(kernels, laps: Laps) -> dict:
     legs.append(moe_train_leg(kernels))
     laps.lap("F3 moonshot training")
     return dict(rows=rows, legs=legs)
+
+
+# ---------------------------------------------------------------------------
+# Path G: deepseek-v3-671b, MLA attention
+# ---------------------------------------------------------------------------
+MLA_ARCH = "deepseek_v3_671b"
+#: the G rows (B, H, Hkv, T, D, Dv, dtype), causal: each forward route at
+#: MLA's head-dim pairs (q and k of 128 + 64 columns, v of 128; the reduced
+#: config's 8 + 8 and 8): G2's prefill (4 prompts of 1024 tokens, 128
+#: heads) in bf16 (wgmma), one of its prompts in float32 (tf32), the reduced
+#: config's prefill in both dtypes (mma).  Comparison launches, not the path's
+MLA_ATTN_SHAPES = ((4, 128, 128, 1024, 192, 128, "bfloat16"),
+                   (1, 128, 128, 1024, 192, 128, "float32"),
+                   (LM_REDUCED_B, 4, 4, LM_REDUCED_T, 16, 8, "float32"),
+                   (LM_REDUCED_B, 4, 4, LM_REDUCED_T, 16, 8, "bfloat16"))
+#: G1 (a): the MLA module alone at full width (187 M parameters, 0.75 GB in
+#: float32), 2 prompts of 512 tokens, then 2 absorbed decode steps
+MLA_G1_B, MLA_G1_T = 2, 512
+#: G1's limit, of the largest magnitude against float64: as F1's
+#: (MOE_F32_RTOL); the module sums over up to 7,168 terms (the model width)
+MLA_F32_RTOL = 1e-4
+#: G2's depth: 1 of deepseek's 61 layers.  At one layer the tree is
+#: 24,974,374,912 parameters (49.95 GB in bf16; the MTP head, which the
+#: model always builds, is 11.6 B of them); two layers would be 73 GB of
+#: parameters before any activation, past the card's 80 GB with the cache
+#: and the MoE buffers
+MLA_G2_LAYERS = 1
+
+
+def mla_attention_rows(rng, rows: dict) -> list:
+    """``flash_attention`` at MLA_ATTN_SHAPES against the plain version in
+    float64 on the same inputs (``check_flash``'s gate, the equal-dim rows'
+    own), into ``rows[kernel name]`` by the route ``variant`` takes: event
+    ms in turns beside SDPA (``library_ms``; null with the reason when SDPA
+    refuses v of another head dim), the route's device ms, SDPA's device
+    ms, the plain version's ms and the bound: q, k, v read once and o
+    written once, or the causal half's B·H·T²·(D + Dv) flops at the dtype's
+    rate (float32 rows also ``tc_bound_ms``, three TF32 products)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ref
+
+    out = []
+    for B, H, Hkv, T, D, Dv, dtype in MLA_ATTN_SHAPES:
+        dt = getattr(torch, dtype)
+        q = normal(rng, (B, H, T, D)).to(dt)
+        k = normal(rng, (B, Hkv, T, D)).to(dt)
+        v = normal(rng, (B, Hkv, T, Dv)).to(dt)
+        kind = tflash.variant(dt, D, Dv)
+        name = tflash.KERNELS[kind].name
+        want = ref.flash_attention_ref(q.double(), k.double(), v.double())
+        err, rel = check_flash(f"G {name} {(B, H, Hkv, T, D, Dv)} {dtype}",
+                               tflash.flash_attention(q, k, v), want, dt)
+        del want
+        nbytes = q.element_size() * (B * H * T * (D + Dv) + B * Hkv * T * (D + Dv))
+        flops = B * H * T * T * (D + Dv)
+        bms, by = bound_ms(nbytes, flops,
+                           BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S)
+        extra = {}
+        if dt == torch.float32:
+            extra["tc_bound_ms"] = bound_ms(nbytes, 3 * flops, TF32_OPS_PER_S)[0]
+
+        def kernel():
+            tflash.flash_attention(q, k, v)
+
+        def library():
+            F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+        fns = {"kernel": kernel}
+        try:  # the yardstick only: the port never calls SDPA
+            library()
+            torch.cuda.synchronize()
+            fns["library"] = library
+        except RuntimeError as e:
+            extra["library_refused"] = str(e)[:300]
+        times = time_in_turns(fns)
+        row = dict(shape=dict(B=B, H=H, Hkv=Hkv, T=T, D=D, Dv=Dv, dtype=dtype),
+                   variant=kind, max_abs_err=err, rel_err=rel, kernel_ms=times["kernel"],
+                   device_ms=kernel_device_ms(kernel, FLASH_KERNEL_NAMES[kind]),
+                   plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=5),
+                   library_ms=times.get("library"),
+                   library_device_ms=all_device_ms(library) if "library" in fns else None,
+                   bound_ms=bms, bound_by=by, **extra)
+        rows[name].append(row)
+        out.append(row)
+        log({"kernel": name, "path": "G", **row})
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_module_leg(kernels) -> dict:
+    """G1 (a): deepseek's MLA module alone at full width in float32
+    (weights ``init_from_spec`` of ``mla_specs`` from ``torch.Generator``
+    seed 0 on the card, inputs N(0, 1)): ``mla_forward`` over MLA_G1_B
+    prompts of MLA_G1_T tokens (the TF32 kernel at (192, 128), one launch),
+    its latent cache placed in a cache of MLA_G1_T + 2 slots, then two
+    absorbed ``mla_decode`` steps; against the same functions in float64
+    (``plain_attention`` swapped in by name): each output within
+    MLA_F32_RTOL of its largest magnitude."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import attention as tattn
+    from repro_torch.models.layers import init_from_spec
+    from torch.utils import _pytree as pytree
+
+    cfg = get_config(MLA_ARCH)
+    B, T = MLA_G1_B, MLA_G1_T
+
+    def run(p, x):
+        positions = torch.arange(T, device=x.device)[None, :]
+        y, (c_kv, k_rope) = tattn.mla_forward(cfg, p, x[:, :T], positions, return_kv=True)
+        cache = tattn.mla_init_cache(cfg, B, T + 2, x.dtype, x.device)
+        cache["c_kv"][:, :T] = c_kv
+        cache["k_rope"][:, :T] = k_rope
+        outs = [y]
+        for i in range(2):
+            y, cache = tattn.mla_decode(cfg, p, x[:, T + i], cache, T + i)
+            outs.append(y)
+        return outs
+
+    with torch.inference_mode():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = init_from_spec(tattn.mla_specs(cfg), gen, torch.float32)
+        x = torch.randn((B, T + 2, cfg.d_model), generator=gen, device="cuda")
+        n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+        torch.cuda.synchronize()
+        reset(kernels)
+        got = run(params, x)
+        torch.cuda.synchronize()
+        launches = read_launches("G1 MLA module", kernels, {
+            "flash_attention_tf32": 1, "flash_attention": 0, "flash_attention_wgmma": 0})
+        params64 = pytree.tree_map(lambda t: t.double(), params)
+        del params
+        with swapped(tattn, "flash_attention", plain_attention):
+            wants = run(params64, x.double())
+        errors = {name: rel_err(g, w) for name, g, w in
+                  zip(("prefill", "decode_1", "decode_2"), got, wants)}
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        del params64, got, wants, x
+    torch.cuda.empty_cache()
+    out = dict(path="mla_module_float32", arch=cfg.name, n_params=n_params, batch=B,
+               prompt_len=T, errors=errors, limit=MLA_F32_RTOL, launches=launches,
+               finite=finite)
+    log(out)
+    check_within("G1 MLA module", errors, dict.fromkeys(errors, MLA_F32_RTOL))
+    if not finite:
+        raise AssertionError("G1 MLA module: an output is not finite")
+    return out
+
+
+def mla_phase(kernels, rows: dict, laps: Laps) -> dict:
+    """Path G, deepseek-v3-671b (MLA attention), after path F's memory is
+    released: the forward routes at MLA's head-dim pairs (``rows``), then
+    with the counts reset before each leg G1 (float32 against float64: the
+    MLA module at full width, and the reduced model as F1 runs moonshot's)
+    and G2 (serving at full width and MLA_G2_LAYERS layer through
+    ``Server``, as F2)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({"path": "mla", "memory_allocated_at_start": torch.cuda.memory_allocated()})
+    attn_rows = mla_attention_rows(np.random.default_rng(SEED), rows)
+    laps.lap("G attention at MLA's head-dim pairs")
+    legs = [mla_module_leg(kernels)]
+    small = get_config(MLA_ARCH).reduced()
+    small_prompts = np.random.default_rng(SEED).integers(
+        0, small.vocab_size, (LM_REDUCED_B, LM_REDUCED_T)).astype(np.int32)
+    legs.append(moe_float32_leg(small, small_prompts, kernels, {
+        "flash_attention": small.n_layers, "flash_attention_tf32": 0,
+        "flash_attention_wgmma": 0}, "mla_float32_reduced", own_prefill=True))
+    laps.lap("G1 float32 against float64")
+    full = get_config(MLA_ARCH)
+    legs.append(moe_serve_leg(
+        kernels, dataclasses.replace(full, n_layers=MLA_G2_LAYERS), path="mla_serve",
+        label="G2 deepseek serving",
+        extra=dict(reduced=f"n_layers {full.n_layers} -> {MLA_G2_LAYERS}: two layers "
+                           "are 73 GB of bf16 parameters (the MTP head included) "
+                           "before activations")))
+    laps.lap("G2 deepseek serving")
+    return dict(rows=attn_rows, legs=legs)
 
 
 # ---------------------------------------------------------------------------
@@ -6289,6 +6501,9 @@ def main() -> int:
     # path F, the MoE model (moonshot-v1-16b-a3b): float32 against float64
     # at 2 layers and reduced (F1), serving at full depth (F2), training (F3)
     moe = moe_phase(kernels, laps)
+    # path G, MLA attention (deepseek-v3-671b): the forward routes at its
+    # head-dim pairs, float32 against float64 (G1), serving at full width (G2)
+    mla = mla_phase(kernels, rows, laps)
     # path D's float32 legs are the TF32 and mma flash kernels' paths
     # the housing legs' executor runs (capture and replay-only, or the
     # capacity segments) count beside their eager runs, and the chain
@@ -6302,7 +6517,7 @@ def main() -> int:
         for key in ("launches_float32", "launches_float32_reduced", "launches_int",
                     "launches_sparse")
         if key in run] + [leg["launches"] for leg in durable + integrity + serve] + [
-        leg["launches"] for leg in train["legs"] + moe["legs"]] + [
+        leg["launches"] for leg in train["legs"] + moe["legs"] + mla["legs"]] + [
         train["legs"][-1]["example"]["launches"]]
     launched = {k.name: sum(r.get(k.name, 0) for r in runs) for k in kernels}
     if not all(launched[k.name] for k in built):
@@ -6373,6 +6588,10 @@ def main() -> int:
     summary = []
     for name, (source, replaces, shape) in sources.items():
         row = next(r for r in rows[name] if r["shape"] == shape)
+        # path G's rows: the route at MLA's head-dim pairs
+        mla_rows = [{k: r[k] for k in ("shape", "kernel_ms", "device_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")}
+                    for r in rows[name] if "Dv" in r.get("shape", {})]
         summary.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(launched[n] for n in entries.get(name, [name])),
@@ -6386,7 +6605,8 @@ def main() -> int:
                                    "composition_ms", "composition_device_ms")
                if k in row},
             **({"launches_by_route": {n.split(":")[1]: launched[n] for n in entries[name]}}
-               if name in ("hash_insert", "hash_insert_targets") else {})))
+               if name in ("hash_insert", "hash_insert_targets") else {}),
+            **({"mla": mla_rows} if mla_rows else {})))
     # the three backward routes: the wgmma route at BWD_MAIN and the tf32
     # route at BWD_MAIN_F32 (each with the SIMT route's time at its shape
     # beside it), the SIMT route at BWD_SIMT

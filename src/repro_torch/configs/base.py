@@ -4,9 +4,9 @@ Every assigned architecture is a frozen ``ArchConfig``; every workload cell
 is an (arch, ShapeSpec) pair.  ``reduced()`` produces the CPU-smoke variant
 of any config (same family/topology, tiny dims).  The configs are pure data,
 kept here so that the port imports nothing of the JAX package; ``get_config``
-loads ``repro_torch.configs.<arch>``.  The port builds the GQA decoders, dense
-and MoE (``models.registry``); the CPU tests use reduced configs, the card runs the
-full ones.
+loads ``repro_torch.configs.<arch>``.  The port builds the attention
+decoders, GQA or MLA, dense or MoE (``models.registry``); the CPU tests use
+reduced configs, the card runs the full ones.
 """
 from __future__ import annotations
 

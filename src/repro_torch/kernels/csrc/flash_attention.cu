@@ -1,16 +1,19 @@
 // Causal flash attention on Hopper at small head dims: o = softmax(q kᵀ /
-// √D, causal) v for q, o [B, H, T, D] and k, v [B, Hkv, Tk, D], float32 or
-// bfloat16.  Two kernels in one library:
-// - flash_attention_mma_kernel, the one the wrapper takes at D ∈ {8, 16,
-//   32}: warp-level tensor cores (mma.sync);
-// - flash_attention_kernel, the first (SIMT) port, compiled for D ∈ {8,
-//   16, 32, 64, 128} and launched only on request (chip_smoke.py times it
-//   beside every other variant).
+// √D, causal) v for q [B, H, T, D], k [B, Hkv, Tk, D], v [B, Hkv, Tk, Dv]
+// and o [B, H, T, Dv], float32 or bfloat16.  Two kernels in one library:
+// - flash_attention_mma_kernel, the one the wrapper takes at (D, Dv) ∈
+//   {(8, 8), (16, 16), (32, 32), (16, 8)}: warp-level tensor cores
+//   (mma.sync), each product sized by its own head dim (QKᵀ by D, PV and O
+//   by Dv);
+// - flash_attention_kernel, the first (SIMT) port, compiled for D = Dv ∈
+//   {8, 16, 32, 64, 128} and launched only on request (chip_smoke.py times
+//   it beside every other variant).
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (Pallas
-// body _kernel) at the head dims no config of the port has (every config
-// takes 64 or 128, flash_attention_wgmma.cu and flash_attention_tf32.cu):
-// the reduced configs, e.g. path D's reduced llama at head dim 16.  Both
+// body _kernel) at the head dims no full-size config of the port has
+// (those take flash_attention_wgmma.cu and flash_attention_tf32.cu): the
+// reduced configs, e.g. path D's reduced llama at head dim 16 and the
+// reduced deepseek's MLA at (16, 8) (q and k of 8 + 8 columns, v of 8).  Both
 // kernels compute what the Pallas kernel computes: scores scaled by 1/√D
 // and masked at -1e30, a running max and denominator in float32 (an online
 // softmax over K/V tiles), the probabilities kept in float32 for the PV
@@ -297,7 +300,7 @@ constexpr int kMmaKeys = 64;   // keys of a staged K/V tile
 constexpr int kMmaStages = 3;  // the ring of staged K/V tiles
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 struct MmaCfg {
   static constexpr bool kTF32 = sizeof(T) == 4;
   // warps of 16 query rows a block: float32 8 (each K/V tile, split once,
@@ -306,23 +309,27 @@ struct MmaCfg {
   static constexpr int kWarps = kTF32 ? 8 : 4;
   static constexpr int kRows = 16 * kWarps;
   static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kRowBytes = D * static_cast<int>(sizeof(T));
+  static constexpr int kRowBytesK = D * static_cast<int>(sizeof(T));
+  static constexpr int kRowBytesV = DV * static_cast<int>(sizeof(T));
   // shared-memory row pitch: 16-byte rows packed, wider rows padded by 16
   // bytes, so the 8 rows of a fragment load (or of an ldmatrix) fall in
   // distinct banks
-  static constexpr int kPitch = kRowBytes == 16 ? 16 : kRowBytes + 16;
-  static constexpr int kTileBytes = kMmaKeys * kPitch;  // one K or V tile
-  static constexpr int kStageBytes = 2 * kTileBytes;    // K, then V
+  static constexpr int kPitchK = kRowBytesK == 16 ? 16 : kRowBytesK + 16;
+  static constexpr int kPitchV = kRowBytesV == 16 ? 16 : kRowBytesV + 16;
+  static constexpr int kTileBytesK = kMmaKeys * kPitchK;      // one K tile
+  static constexpr int kTileBytesV = kMmaKeys * kPitchV;      // one V tile
+  static constexpr int kStageBytes = kTileBytesK + kTileBytesV;  // K, then V
   // float32: the landed tile's TF32 lo terms (K, then V) beside its stage,
   // whose raw values the hi terms replace
   static constexpr int kLoBytes = kTF32 ? kStageBytes : 0;
   static constexpr int kBytes = kMmaStages * kStageBytes + kLoBytes;
-  static constexpr int kChunks = kRowBytes / 16;        // 16-byte copies a row
+  static constexpr int kChunksK = kRowBytesK / 16;      // 16-byte copies a K row
+  static constexpr int kChunksV = kRowBytesV / 16;      // and a V row
   static constexpr int kQK = kTF32 || D == 8 ? 8 : 16;  // QKᵀ: k of an mma
   static constexpr int kQSteps = D / kQK;
   static constexpr int kARegs = kTF32 || kQK == 16 ? 4 : 2;  // Q's registers a k-step
   static constexpr int kNT = kMmaKeys / 8;               // n-tiles of S
-  static constexpr int kND = D / 8;                      // n-tiles of O
+  static constexpr int kND = DV / 8;                     // n-tiles of O
   static constexpr int kPK = kTF32 ? 8 : 16;             // PV: keys a k-step
   static constexpr int kTerms = kVariant == kOneTerm ? 1 : 3;
 };
@@ -400,13 +407,13 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
 // m16n8k8 TF32: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).  B (k x 8,
 // column n = g): bf16 k16 (2t, 2t + 1) and (2t + 8, 2t + 9); bf16 k8 (2t,
 // 2t + 1); TF32 t and t + 4.
-template <typename T, int D>
-__global__ void __launch_bounds__(MmaCfg<T, D>::kThreads, 2)
+template <typename T, int D, int DV>
+__global__ void __launch_bounds__(MmaCfg<T, D, DV>::kThreads, 2)
     flash_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
                                int Tq, int Tk, float scale_log2, int causal) {
   // scale_log2 = log₂e / √D: P = exp2(s·scale_log2 − m·scale_log2)
-  using C = MmaCfg<T, D>;
+  using C = MmaCfg<T, D, DV>;
   extern __shared__ __align__(128) unsigned char smem_mma[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -420,7 +427,7 @@ __global__ void __launch_bounds__(MmaCfg<T, D>::kThreads, 2)
   const int w0 = q0 + 16 * warp;  // the warp's first row
   const int r0 = w0 + g;          // this lane's rows: r0 and r0 + 8
   const char* kb = reinterpret_cast<const char*>(k + kvh * Tk * D);
-  const char* vb = reinterpret_cast<const char*>(v + kvh * Tk * D);
+  const char* vb = reinterpret_cast<const char*>(v + kvh * Tk * DV);
   const uint32_t sbase = repro::smem_u32(smem_mma);
 
   const int q_last = min(q0 + C::kRows, Tq) - 1;
@@ -431,13 +438,32 @@ __global__ void __launch_bounds__(MmaCfg<T, D>::kThreads, 2)
   // Tk are zero-filled (source size 0, the address kept in the head)
   auto stage = [&](int t, int s) {
     const int k0 = t * kMmaKeys;
-    for (int c = threadIdx.x; c < kMmaKeys * C::kChunks; c += C::kThreads) {
-      const int r = c / C::kChunks, j = c % C::kChunks;
+    const uint32_t dst = sbase + s * C::kStageBytes;
+    // D = Dv: a K and a V copy of the same row and chunk in one loop (two
+    // loops, as below, cost the float32 instances registers: 104 bytes of
+    // spills at D = 32 against 56, 8 at D = 16 against none)
+    if constexpr (D == DV) {
+      for (int c = threadIdx.x; c < kMmaKeys * C::kChunksK; c += C::kThreads) {
+        const int r = c / C::kChunksK, j = c % C::kChunksK;
+        const bool in = k0 + r < Tk;
+        const long long off =
+            (in ? static_cast<long long>(k0 + r) * C::kRowBytesK : 0) + 16 * j;
+        cp_async16(dst + r * C::kPitchK + 16 * j, kb + off, in ? 16 : 0);
+        cp_async16(dst + C::kTileBytesK + r * C::kPitchK + 16 * j, vb + off, in ? 16 : 0);
+      }
+      return;
+    }
+    for (int c = threadIdx.x; c < kMmaKeys * C::kChunksK; c += C::kThreads) {
+      const int r = c / C::kChunksK, j = c % C::kChunksK;
       const bool in = k0 + r < Tk;
-      const long long off = (in ? static_cast<long long>(k0 + r) * C::kRowBytes : 0) + 16 * j;
-      const uint32_t dst = sbase + s * C::kStageBytes + r * C::kPitch + 16 * j;
-      cp_async16(dst, kb + off, in ? 16 : 0);
-      cp_async16(dst + C::kTileBytes, vb + off, in ? 16 : 0);
+      const long long off = (in ? static_cast<long long>(k0 + r) * C::kRowBytesK : 0) + 16 * j;
+      cp_async16(dst + r * C::kPitchK + 16 * j, kb + off, in ? 16 : 0);
+    }
+    for (int c = threadIdx.x; c < kMmaKeys * C::kChunksV; c += C::kThreads) {
+      const int r = c / C::kChunksV, j = c % C::kChunksV;
+      const bool in = k0 + r < Tk;
+      const long long off = (in ? static_cast<long long>(k0 + r) * C::kRowBytesV : 0) + 16 * j;
+      cp_async16(dst + C::kTileBytesK + r * C::kPitchV + 16 * j, vb + off, in ? 16 : 0);
     }
   };
   // the ring's first tiles (a group each, empty past the last tile, so
@@ -481,9 +507,10 @@ __global__ void __launch_bounds__(MmaCfg<T, D>::kThreads, 2)
     unsigned char* ks = smem_mma + s * C::kStageBytes;  // K rows, then V rows
     const unsigned char* klo = smem_mma + kMmaStages * C::kStageBytes;
     if constexpr (C::kTF32) {
-      // split the landed tile once for every warp: hi in place, lo beside
-      for (int c = threadIdx.x; c < 2 * kMmaKeys * C::kChunks; c += C::kThreads) {
-        const int off = (c / C::kChunks) * C::kPitch + 16 * (c % C::kChunks);
+      // split the landed tile once for every warp: hi in place, lo beside;
+      // the K rows (chunks of kChunksK), then the V rows (kChunksV), which
+      // at D = Dv are one run of 2·kMmaKeys rows of one pitch
+      auto split16 = [&](int off) {
         const float4 x = *reinterpret_cast<const float4*>(ks + off);
         uint4 hi, lo;
         repro::split_tf32(x.x, hi.x, lo.x);
@@ -492,6 +519,13 @@ __global__ void __launch_bounds__(MmaCfg<T, D>::kThreads, 2)
         repro::split_tf32(x.w, hi.w, lo.w);
         *reinterpret_cast<uint4*>(ks + off) = hi;
         *reinterpret_cast<uint4*>(smem_mma + kMmaStages * C::kStageBytes + off) = lo;
+      };
+      constexpr int kKRows = D == DV ? 2 * kMmaKeys : kMmaKeys;
+      for (int c = threadIdx.x; c < kKRows * C::kChunksK; c += C::kThreads)
+        split16((c / C::kChunksK) * C::kPitchK + 16 * (c % C::kChunksK));
+      if constexpr (D != DV) {
+        for (int c = threadIdx.x; c < kMmaKeys * C::kChunksV; c += C::kThreads)
+          split16(C::kTileBytesK + (c / C::kChunksV) * C::kPitchV + 16 * (c % C::kChunksV));
       }
       __syncthreads();
     }
@@ -502,7 +536,7 @@ __global__ void __launch_bounds__(MmaCfg<T, D>::kThreads, 2)
       if (kVariant == kNoCompute) l[0] = l[1] = 1.f;
       continue;
     }
-    const uint32_t sv = sbase + s * C::kStageBytes + C::kTileBytes;
+    const uint32_t sv = sbase + s * C::kStageBytes + C::kTileBytesK;
 
     // S = Q Kᵀ: n-tile nt holds keys k0 + 8nt + 2t4 (+1), rows r0 (+8)
     float sc[C::kNT][4];
@@ -510,7 +544,7 @@ __global__ void __launch_bounds__(MmaCfg<T, D>::kThreads, 2)
     for (int nt = 0; nt < C::kNT; ++nt) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) sc[nt][i] = 0.f;
-      const unsigned char* krow = ks + (8 * nt + g) * C::kPitch;
+      const unsigned char* krow = ks + (8 * nt + g) * C::kPitchK;
       if constexpr (C::kTF32) {
         const uint32_t* kr = reinterpret_cast<const uint32_t*>(krow);
         const uint32_t* kq = reinterpret_cast<const uint32_t*>(klo + (krow - ks));
@@ -605,11 +639,11 @@ __global__ void __launch_bounds__(MmaCfg<T, D>::kThreads, 2)
         uint32_t ph[4], pl[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) repro::split_tf32(pa[j], ph[j], pl[j]);
-        const int v0 = C::kTileBytes + (8 * kk + 2 * t4) * C::kPitch;  // V row 2t4
+        const int v0 = C::kTileBytesK + (8 * kk + 2 * t4) * C::kPitchV;  // V row 2t4
         const uint32_t* vr0 = reinterpret_cast<const uint32_t*>(ks + v0);
-        const uint32_t* vr1 = reinterpret_cast<const uint32_t*>(ks + v0 + C::kPitch);
+        const uint32_t* vr1 = reinterpret_cast<const uint32_t*>(ks + v0 + C::kPitchV);
         const uint32_t* vq0 = reinterpret_cast<const uint32_t*>(klo + v0);
-        const uint32_t* vq1 = reinterpret_cast<const uint32_t*>(klo + v0 + C::kPitch);
+        const uint32_t* vq1 = reinterpret_cast<const uint32_t*>(klo + v0 + C::kPitchV);
 #pragma unroll
         for (int nd = 0; nd < C::kND; ++nd) {
           const uint32_t vh[2] = {vr0[8 * nd + g], vr1[8 * nd + g]};
@@ -645,9 +679,9 @@ __global__ void __launch_bounds__(MmaCfg<T, D>::kThreads, 2)
         for (int nd = 0; nd < C::kND; nd += 2) {
           uint32_t vf[4];
           if constexpr (C::kND == 1) {
-            ldmatrix_x2_trans(vf, sv + mrow * C::kPitch);
+            ldmatrix_x2_trans(vf, sv + mrow * C::kPitchV);
           } else {
-            ldmatrix_x4_trans(vf, sv + mrow * C::kPitch + 16 * (nd + (lane >> 4)));
+            ldmatrix_x4_trans(vf, sv + mrow * C::kPitchV + 16 * (nd + (lane >> 4)));
           }
 #pragma unroll
           for (int a = 0; a < C::kTerms; ++a) mma_bf16_k16(out[nd], pt[a], vf[0], vf[1]);
@@ -676,24 +710,25 @@ __global__ void __launch_bounds__(MmaCfg<T, D>::kThreads, 2)
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
     if (row >= Tq) continue;
-    T* orow = o + (static_cast<long long>(bh) * Tq + row) * D;
+    T* orow = o + (static_cast<long long>(bh) * Tq + row) * DV;
 #pragma unroll
     for (int nd = 0; nd < C::kND; ++nd)
       store2(orow + 8 * nd + 2 * t4, acc[nd][2 * r] / l[r], acc[nd][2 * r + 1] / l[r]);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H,
                        int Hkv, int Tq, int Tk, int causal, cudaStream_t stream) {
+  using C = MmaCfg<T, D, DV>;
   // the reference's 1.0 / (D ** 0.5), a double rounded to float
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  auto kernel = flash_attention_mma_kernel<T, D>;
-  const size_t bytes = MmaCfg<T, D>::kBytes;
+  auto kernel = flash_attention_mma_kernel<T, D, DV>;
+  const size_t bytes = C::kBytes;
   const cudaError_t err = repro::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + MmaCfg<T, D>::kRows - 1) / MmaCfg<T, D>::kRows, B * H);
-  kernel<<<grid, MmaCfg<T, D>::kThreads, bytes, stream>>>(
+  const dim3 grid((Tq + C::kRows - 1) / C::kRows, B * H);
+  kernel<<<grid, C::kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), H, Hkv, Tq, Tk, scale * kLog2e, causal);
   return cudaGetLastError();
@@ -701,36 +736,42 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
 
 template <typename T>
 cudaError_t launch_mma_dim(const void* q, const void* k, const void* v, void* o, int B,
-                           int H, int Hkv, int Tq, int Tk, int D, int causal,
+                           int H, int Hkv, int Tq, int Tk, int D, int Dv, int causal,
                            cudaStream_t stream) {
+  if (D == 16 && Dv == 8)  // the reduced MLA
+    return launch_mma<T, 16, 8>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+  if (Dv != D) return cudaErrorInvalidValue;
   switch (D) {
-    case 8: return launch_mma<T, 8>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
-    case 16: return launch_mma<T, 16>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
-    case 32: return launch_mma<T, 32>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+    case 8: return launch_mma<T, 8, 8>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+    case 16: return launch_mma<T, 16, 16>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+    case 32: return launch_mma<T, 32, 32>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// o [B, H, Tq, D] = attention of q [B, H, Tq, D] over k, v [B, Hkv, Tk, D]
-// (all contiguous, one dtype: 0 float32, 1 bfloat16; k and v 16-byte
-// aligned for the mma kernel's copies); causal: query i sees keys 0..i
-// (Tq == Tk).  simt = 0 takes the mma kernel (D ∈ {8, 16, 32}), 1 the SIMT
-// kernel (D ∈ {8, 16, 32, 64, 128}).
+// o [B, H, Tq, Dv] = attention of q [B, H, Tq, D] over k [B, Hkv, Tk, D]
+// and v [B, Hkv, Tk, Dv] (all contiguous, one dtype: 0 float32, 1 bfloat16;
+// k and v 16-byte aligned for the mma kernel's copies); causal: query i
+// sees keys 0..i (Tq == Tk).  simt = 0 takes the mma kernel ((D, Dv) ∈
+// {(8, 8), (16, 16), (32, 32), (16, 8)}), 1 the SIMT kernel (D = Dv ∈ {8,
+// 16, 32, 64, 128}).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* o, int B, int H, int Hkv, int Tq, int Tk,
-                                     int D, int dtype, int causal, int simt,
+                                     int D, int Dv, int dtype, int causal, int simt,
                                      cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk < 0 || simt < 0 || simt > 1)
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk < 0 || simt < 0 ||
+      simt > 1 || (simt && Dv != D))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (dtype == 0) {
     err = simt ? launch_dim<float>(q, k, v, o, B, H, Hkv, Tq, Tk, D, causal, stream)
-               : launch_mma_dim<float>(q, k, v, o, B, H, Hkv, Tq, Tk, D, causal, stream);
+               : launch_mma_dim<float>(q, k, v, o, B, H, Hkv, Tq, Tk, D, Dv, causal,
+                                       stream);
   } else if (dtype == 1) {
     err = simt ? launch_dim<__nv_bfloat16>(q, k, v, o, B, H, Hkv, Tq, Tk, D, causal, stream)
-               : launch_mma_dim<__nv_bfloat16>(q, k, v, o, B, H, Hkv, Tq, Tk, D, causal,
+               : launch_mma_dim<__nv_bfloat16>(q, k, v, o, B, H, Hkv, Tq, Tk, D, Dv, causal,
                                                stream);
   } else {
     err = cudaErrorInvalidValue;

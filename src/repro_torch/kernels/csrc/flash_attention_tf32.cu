@@ -1,12 +1,14 @@
 // Causal flash attention on Hopper's tensor cores in float32: o =
-// softmax(q kᵀ / √D, causal) v for q, o [B, H, T, D] and k, v [B, Hkv, Tk,
-// D] in float32, D ∈ {64, 128}.
+// softmax(q kᵀ / √D, causal) v for q [B, H, T, D], k [B, Hkv, Tk, D], v
+// [B, Hkv, Tk, Dv] and o [B, H, T, Dv] in float32, (D, Dv) ∈ {(64, 64),
+// (128, 128), (192, 128)}.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (Pallas
-// body _kernel) for float32 at the head dims of every dense GQA config the
-// port builds: the path's float32 precision check.  bf16 at D 64/128 stays
-// on flash_attention_wgmma.cu, every dtype at D ∈ {8, 16, 32} on
-// flash_attention.cu.  It computes what the Pallas kernel computes: scores
+// body _kernel) for float32 at the head dims of every full-size config the
+// port builds (deepseek-v3-671b's MLA: q and k of 192 columns, v of 128):
+// the path's float32 precision check.  bf16 at those pairs stays on
+// flash_attention_wgmma.cu, every dtype at the reduced configs' head dims
+// on flash_attention.cu.  It computes what the Pallas kernel computes: scores
 // scaled by 1/√D and masked at -1e30, a running max and denominator in
 // float32, probabilities in float32, the denominator floored at 1e-30 and
 // one write of a float32 output.  GQA is by index (q-head h reads kv-head
@@ -68,7 +70,14 @@
 // warpgroup (64 registers of Q_hi and 64 of O a thread leave no room for a
 // second within 168).  Shared memory: raw stages, split slots and Q_lo,
 // 176 KB at D = 64 (three and three) and 224 KB at D = 128 (two and two),
-// one block an SM.
+// one block an SM.  (192, 128), MLA: Q_hi in registers would be 96 a
+// thread beside O's 64, a tile's P V and P, near the 255 a thread can
+// have; so Q_hi, like Q_lo, is an A operand from shared memory (the S
+// products are shared-memory wgmmas), and the consumer holds O, S, a
+// tile's P V and P only.  Q_hi and Q_lo take 96 KB, a raw stage 40 KB
+// (K 24, V 16) and a split slot 80 KB, so one of each fits (216 KB): the
+// TMA of tile t + 1 overlaps the consumer's work on tile t, its split
+// does not.  The split slots of K and Vᵀ are sized by D and Dv apart.
 //
 // The tensor maps are encoded on the host for each call through
 // cuTensorMapEncodeTiled, found with cudaGetDriverEntryPoint, so the
@@ -101,24 +110,32 @@ constexpr int kRowBytes = 128;   // bytes of one row of a panel
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+template <int D, int DV>
 struct Cfg {
   static constexpr int kN = 32;                  // keys of a K/V tile
   static constexpr int kNC = D == 64 ? 2 : 1;    // consumer warpgroups
   static constexpr int kThreads = 128 * (1 + kNC);
   static constexpr int kBlockQ = 64 * kNC;       // query rows of a q tile
-  static constexpr int kTile = kN * D * 4;       // bytes of one K, V or Vᵀ tile
-  static constexpr int kRawStages = D == 64 && kVariant != kRing22 ? 3 : 2;  // raw K/V (TMA)
-  static constexpr int kSlots = D == 64 && kVariant != kRing22 ? 3 : 2;  // split slots
+  static constexpr bool kQhiSmem = D == 192;     // Q_hi from shared memory
+  static constexpr int kTileK = kN * D * 4;      // bytes of one K tile
+  static constexpr int kTileV = kN * DV * 4;     // bytes of one V or Vᵀ tile
+  // raw K/V stages (TMA) and split slots
+  static constexpr int kRawStages = D == 64 && kVariant != kRing22 ? 3 : kQhiSmem ? 1 : 2;
+  static constexpr int kSlots = kRawStages;
   static constexpr int kRawOff = 0;              // raw stage s: K, then V
-  static constexpr int kSplitOff = kRawStages * 2 * kTile;  // slot s: K_hi K_lo Vᵀ_hi Vᵀ_lo
-  // Q_lo of each consumer's 64 rows (an A operand from shared memory)
-  static constexpr int kQloOff = kSplitOff + kSlots * 4 * kTile;
-  static constexpr int kBarOff = kQloOff + kNC * 64 * D * 4;
+  static constexpr int kRawBytes = kTileK + kTileV;
+  static constexpr int kSplitOff = kRawStages * kRawBytes;  // slot s: K_hi K_lo Vᵀ_hi Vᵀ_lo
+  static constexpr int kSlotBytes = 2 * (kTileK + kTileV);
+  // Q_lo (and at D = 192 Q_hi) of each consumer's 64 rows (A operands from
+  // shared memory)
+  static constexpr int kQloOff = kSplitOff + kSlots * kSlotBytes;
+  static constexpr int kQhiOff = kQloOff + kNC * 64 * D * 4;
+  static constexpr int kBarOff = kQhiOff + (kQhiSmem ? kNC * 64 * D * 4 : 0);
   // barriers: raw_full, raw_empty, split_full, split_empty (2 each); then
   // slack to align the dynamic shared memory to 1024 bytes (the swizzle's
   // repeat)
   static constexpr size_t kBytes = kBarOff + 8 * 2 * (kRawStages + kSlots) + 1024;
+  static_assert(kBytes <= 232448, "more shared memory than a block can have");
 };
 
 using repro::mbar_arrive;
@@ -236,21 +253,21 @@ __device__ __forceinline__ uint32_t swz(int row, int col, int rows) {
 
 // K/V tiles that query tile qt (of kBlockQ rows) visits: all of them, or
 // causally those up to the diagonal.
-template <int D>
+template <int D, int DV>
 __device__ __forceinline__ int kv_tiles(int qt, int Tq, int Tk, int causal) {
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   const int n = (Tk + C::kN - 1) / C::kN;
   return causal ? min(n, (min((qt + 1) * C::kBlockQ, Tq) - 1) / C::kN + 1) : n;
 }
 
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+template <int D, int DV>
+__global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
     flash_attention_tf32_kernel(const __grid_constant__ CUtensorMap kmap,
                                 const __grid_constant__ CUtensorMap vmap,
                                 const float* __restrict__ q, float* __restrict__ o, int H,
                                 int Hkv, int Tq, int Tk, float scale_log2, int causal) {
   // scale_log2 = log₂e / √D: P = exp2(s·scale_log2 − m·scale_log2)
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   constexpr int kN = C::kN;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -259,8 +276,8 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
   auto raw_empty = [&](int s) { return bars + 8u * (C::kRawStages + s); };
   auto split_full = [&](int s) { return bars + 8u * (2 * C::kRawStages + s); };
   auto split_empty = [&](int s) { return bars + 8u * (2 * C::kRawStages + C::kSlots + s); };
-  auto raw_k = [&](int s) { return base + C::kRawOff + s * 2 * C::kTile; };
-  auto split = [&](int s) { return base + C::kSplitOff + s * 4 * C::kTile; };
+  auto raw_k = [&](int s) { return base + C::kRawOff + s * C::kRawBytes; };
+  auto split = [&](int s) { return base + C::kSplitOff + s * C::kSlotBytes; };
 
   const int n_qt = (Tq + C::kBlockQ - 1) / C::kBlockQ;
   const int qt_heavy = n_qt - 1 - blockIdx.x;
@@ -270,8 +287,8 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
   const int b = bh / H;
   const int h = bh - b * H;
   const int kvh = b * Hkv + h / (H / Hkv);
-  const int n0 = kv_tiles<D>(qt_heavy, Tq, Tk, causal);
-  const int n_total = n0 + (n_pass == 2 ? kv_tiles<D>(qt_light, Tq, Tk, causal) : 0);
+  const int n0 = kv_tiles<D, DV>(qt_heavy, Tq, Tk, causal);
+  const int n_total = n0 + (n_pass == 2 ? kv_tiles<D, DV>(qt_light, Tq, Tk, causal) : 0);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::kRawStages; ++s) {
@@ -297,13 +314,13 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     auto issue = [&](int it) {
       const int s = it % C::kRawStages;
       mbar_wait(raw_empty(s), ((it / C::kRawStages) & 1) ^ 1);
-      mbar_expect_tx(raw_full(s), 2 * C::kTile);
-      for (int pn = 0; pn < D / kPanel; ++pn) {
-        const uint32_t off = pn * kN * kRowBytes;
-        tma_load_3d(raw_k(s) + off, kp, raw_full(s), pn * kPanel, key_tile(it) * kN, kvh);
-        tma_load_3d(raw_k(s) + C::kTile + off, vp, raw_full(s), pn * kPanel,
+      mbar_expect_tx(raw_full(s), C::kRawBytes);
+      for (int pn = 0; pn < D / kPanel; ++pn)
+        tma_load_3d(raw_k(s) + pn * kN * kRowBytes, kp, raw_full(s), pn * kPanel,
                     key_tile(it) * kN, kvh);
-      }
+      for (int pn = 0; pn < DV / kPanel; ++pn)
+        tma_load_3d(raw_k(s) + C::kTileK + pn * kN * kRowBytes, vp, raw_full(s),
+                    pn * kPanel, key_tile(it) * kN, kvh);
     };
     if (p == 0) {
       for (int it = 0; it < C::kRawStages && it < n_total; ++it) issue(it);
@@ -313,10 +330,10 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
       mbar_wait(raw_full(s), (it / C::kRawStages) & 1);
       mbar_wait(split_empty(slot), ((it / C::kSlots) & 1) ^ 1);
       const unsigned char* rk = smem_raw + (raw_k(s) - smem_u32(smem_raw));
-      const unsigned char* rv = rk + C::kTile;
+      const unsigned char* rv = rk + C::kTileK;
       unsigned char* sp = smem_raw + (split(slot) - smem_u32(smem_raw));
       // K: hi and lo in K's own layout, a float4 at a time
-      for (int e = p; kVariant != kNoSplit && e < C::kTile / 16; e += 128) {
+      for (int e = p; kVariant != kNoSplit && e < C::kTileK / 16; e += 128) {
         const float4 v = reinterpret_cast<const float4*>(rk)[e];
         uint4 hi, lo;
         split_tf32(v.x, hi.x, lo.x);
@@ -324,23 +341,23 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
         split_tf32(v.z, hi.z, lo.z);
         split_tf32(v.w, hi.w, lo.w);
         reinterpret_cast<uint4*>(sp)[e] = hi;
-        reinterpret_cast<uint4*>(sp + C::kTile)[e] = lo;
+        reinterpret_cast<uint4*>(sp + C::kTileK)[e] = lo;
       }
-      // Vᵀ [D x kN]: chunk (d, positions 4jq .. 4jq + 3) holds keys
+      // Vᵀ [Dv x kN]: chunk (d, positions 4jq .. 4jq + 3) holds keys
       // 8g + (4jq % 8) / 4 + 2i (the permuted order); a warp takes 32
       // consecutive d of one chunk column, so neither its reads nor its
       // writes conflict
-      for (int e = p; kVariant != kNoSplit && e < C::kTile / 16; e += 128) {
-        const int d = e % D, jq = e / D;
+      for (int e = p; kVariant != kNoSplit && e < C::kTileV / 16; e += 128) {
+        const int d = e % DV, jq = e / DV;
         const int key0 = 8 * (jq / 2) + (jq & 1);
         uint4 hi, lo;
         split_tf32(*reinterpret_cast<const float*>(rv + swz(key0, d, kN)), hi.x, lo.x);
         split_tf32(*reinterpret_cast<const float*>(rv + swz(key0 + 2, d, kN)), hi.y, lo.y);
         split_tf32(*reinterpret_cast<const float*>(rv + swz(key0 + 4, d, kN)), hi.z, lo.z);
         split_tf32(*reinterpret_cast<const float*>(rv + swz(key0 + 6, d, kN)), hi.w, lo.w);
-        const uint32_t off = swz(d, 4 * jq, D);
-        *reinterpret_cast<uint4*>(sp + 2 * C::kTile + off) = hi;
-        *reinterpret_cast<uint4*>(sp + 3 * C::kTile + off) = lo;
+        const uint32_t off = swz(d, 4 * jq, DV);
+        *reinterpret_cast<uint4*>(sp + 2 * C::kTileK + off) = hi;
+        *reinterpret_cast<uint4*>(sp + 2 * C::kTileK + C::kTileV + off) = lo;
       }
       // the split is written by the generic proxy and read by wgmma (the
       // async proxy)
@@ -359,15 +376,16 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     const int c2 = 2 * t4;  // first column of each 8-column group
     // Accumulator layout (m64nN, float32): element i of a thread lies in
     // row r0 + 8·((i >> 1) & 1), column 8·(i / 4) + c2 + (i & 1).
-    float acc[D / 2], sc[kN / 2], tile[32];
-    uint32_t qh[D / 8][4];
+    float acc[DV / 2], sc[kN / 2], tile[32];
+    uint32_t qh[C::kQhiSmem ? 1 : D / 8][4];  // Q_hi fragments (in registers)
     const uint32_t qlo = base + C::kQloOff + cw * 64 * D * 4;  // Q_lo [64 x D], swizzled
+    const uint32_t qhi = base + C::kQhiOff + cw * 64 * D * 4;  // Q_hi there at D = 192
     int it = 0;  // tiles consumed so far, over both passes
 
     for (int pass = 0; pass < n_pass; ++pass) {
       const int qt = pass == 0 ? qt_heavy : qt_light;
       const int q0 = qt * C::kBlockQ + 64 * cw;  // this warpgroup's first row
-      const int n_tiles = kv_tiles<D>(qt, Tq, Tk, causal);
+      const int n_tiles = kv_tiles<D, DV>(qt, Tq, Tk, causal);
       const int r0 = q0 + 16 * warp + lane / 4;  // rows r0 and r0 + 8
       // every wgmma of the last pass has read Q_lo (a barrier of this
       // warpgroup's 128 threads)
@@ -382,17 +400,22 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
           const int col = 8 * kk + t4 + 4 * (j >> 1);
           const float v =
               row < Tq ? __ldg(q + (static_cast<long long>(bh) * Tq + row) * D + col) : 0.f;
-          uint32_t lo;
-          split_tf32(v, qh[kk][j], lo);
-          *reinterpret_cast<uint32_t*>(smem_raw + (qlo - smem_u32(smem_raw)) +
-                                       swz(row - q0, col, 64)) = lo;
+          uint32_t hi, lo;
+          split_tf32(v, hi, lo);
+          const uint32_t at = swz(row - q0, col, 64);
+          *reinterpret_cast<uint32_t*>(smem_raw + (qlo - smem_u32(smem_raw)) + at) = lo;
+          if constexpr (C::kQhiSmem) {
+            *reinterpret_cast<uint32_t*>(smem_raw + (qhi - smem_u32(smem_raw)) + at) = hi;
+          } else {
+            qh[kk][j] = hi;
+          }
         }
       }
-      // Q_lo is written by the generic proxy and read by wgmma
+      // Q_lo (Q_hi) is written by the generic proxy and read by wgmma
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
       if (kVariant == kOInTensorCores)
         for (int i = 0; i < 32; ++i) tile[i] = 0.f;
       float m[2] = {kNegInf, kNegInf};
@@ -406,25 +429,34 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
           mbar_arrive(split_empty(slot));
           continue;
         }
-        const uint32_t khi = split(slot), klo = khi + C::kTile;
-        const uint32_t vhi = khi + 2 * C::kTile, vlo = khi + 3 * C::kTile;
+        const uint32_t khi = split(slot), klo = khi + C::kTileK;
+        const uint32_t vhi = khi + 2 * C::kTileK, vlo = vhi + C::kTileV;
 
         // S = Q Kᵀ: D / 8 k-steps of 8 columns (32 bytes) along each panel,
         // Q_lo·K_hi and Q_hi·K_lo first, then Q_hi·K_hi
         fence_regs(sc);
-        fence_regs(qh);
+        if constexpr (!C::kQhiSmem) fence_regs(qh);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 8; ++kk) {
           const uint32_t off = (kk / 4) * kN * kRowBytes + (kk % 4) * 32;
-          wgmma_tf32_ss_n32(sc, smem_desc(qlo + (kk / 4) * 64 * kRowBytes + (kk % 4) * 32),
-                            smem_desc(khi + off), kk > 0);
-          wgmma_tf32<kN>(sc, qh[kk], smem_desc(klo + off), 1);
+          const uint32_t qoff = (kk / 4) * 64 * kRowBytes + (kk % 4) * 32;
+          wgmma_tf32_ss_n32(sc, smem_desc(qlo + qoff), smem_desc(khi + off), kk > 0);
+          if constexpr (C::kQhiSmem) {
+            wgmma_tf32_ss_n32(sc, smem_desc(qhi + qoff), smem_desc(klo + off), 1);
+          } else {
+            wgmma_tf32<kN>(sc, qh[kk], smem_desc(klo + off), 1);
+          }
         }
 #pragma unroll
         for (int kk = 0; kk < D / 8; ++kk) {
           const uint32_t off = (kk / 4) * kN * kRowBytes + (kk % 4) * 32;
-          wgmma_tf32<kN>(sc, qh[kk], smem_desc(khi + off), 1);
+          if constexpr (C::kQhiSmem) {
+            wgmma_tf32_ss_n32(sc, smem_desc(qhi + (kk / 4) * 64 * kRowBytes + (kk % 4) * 32),
+                              smem_desc(khi + off), 1);
+          } else {
+            wgmma_tf32<kN>(sc, qh[kk], smem_desc(khi + off), 1);
+          }
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -478,7 +510,7 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
         // O.  The tensor cores' float32 accumulation then runs over one
         // tile's 3·kN / 8 products, not over every key of the row.
 #pragma unroll
-        for (int half = 0; half < (kVariant == kNoPV ? 0 : D / 64); ++half) {
+        for (int half = 0; half < (kVariant == kNoPV ? 0 : DV / 64); ++half) {
           const uint32_t hoff = half * 64 * kRowBytes;  // Vᵀ rows 64·half ..
           if (kVariant == kOInTensorCores)
             for (int i = 0; i < 32; ++i) tile[i] *= alpha[(i >> 1) & 1];
@@ -488,14 +520,14 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
           wgmma_fence();
 #pragma unroll
           for (int g = 0; g < kN / 8; ++g) {
-            const uint32_t off = hoff + (g / 4) * D * kRowBytes + (g % 4) * 32;
+            const uint32_t off = hoff + (g / 4) * DV * kRowBytes + (g % 4) * 32;
             wgmma_tf32<64>(tile, pl[g], smem_desc(vhi + off),
                            kVariant == kOInTensorCores || g > 0);
             wgmma_tf32<64>(tile, ph[g], smem_desc(vlo + off), 1);
           }
 #pragma unroll
           for (int g = 0; g < kN / 8; ++g) {
-            const uint32_t off = hoff + (g / 4) * D * kRowBytes + (g % 4) * 32;
+            const uint32_t off = hoff + (g / 4) * DV * kRowBytes + (g % 4) * 32;
             wgmma_tf32<64>(tile, ph[g], smem_desc(vhi + off), 1);
           }
           wgmma_commit();
@@ -520,9 +552,9 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
       for (int r = 0; r < 2; ++r) {
         const int row = r0 + 8 * r;
         if (row < Tq) {
-          float* orow = o + (static_cast<long long>(bh) * Tq + row) * D;
+          float* orow = o + (static_cast<long long>(bh) * Tq + row) * DV;
 #pragma unroll
-          for (int g = 0; g < D / 8; ++g) {
+          for (int g = 0; g < DV / 8; ++g) {
             *reinterpret_cast<float2*>(orow + 8 * g + c2) =
                 make_float2(acc[4 * g + 2 * r] / l[r], acc[4 * g + 2 * r + 1] / l[r]);
           }
@@ -573,11 +605,11 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D, int 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o, int B, int H,
                    int Hkv, int Tq, int Tk, int causal, cudaStream_t stream) {
-  using C = Cfg<D>;
-  auto kernel = flash_attention_tf32_kernel<D>;
+  using C = Cfg<D, DV>;
+  auto kernel = flash_attention_tf32_kernel<D, DV>;
   static bool allowed = false;
   if (!allowed) {
     const cudaError_t err = repro::allow_smem(kernel, C::kBytes);
@@ -588,7 +620,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, int
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap kmap, vmap;
   if (!make_map(&kmap, encode, k, D, Tk, B * Hkv, C::kN) ||
-      !make_map(&vmap, encode, v, D, Tk, B * Hkv, C::kN))
+      !make_map(&vmap, encode, v, DV, Tk, B * Hkv, C::kN))
     return cudaErrorInvalidValue;
   // the reference's 1.0 / (D ** 0.5), a double rounded to float, in log₂ units
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
@@ -600,24 +632,28 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, int
 
 }  // namespace
 
-// o [B, H, Tq, D] = attention of q [B, H, Tq, D] over k, v [B, Hkv, Tk, D],
-// all contiguous float32 (k and v 16-byte aligned), D ∈ {64, 128}; causal:
-// query i sees keys 0..i (Tq == Tk).  With no keys (Tk == 0) the output is
-// zero, as 0 / 1e-30.
+// o [B, H, Tq, Dv] = attention of q [B, H, Tq, D] over k [B, Hkv, Tk, D]
+// and v [B, Hkv, Tk, Dv], all contiguous float32 (k and v 16-byte aligned),
+// (D, Dv) ∈ {(64, 64), (128, 128), (192, 128)}; causal: query i sees keys
+// 0..i (Tq == Tk).  With no keys (Tk == 0) the output is zero, as 0 / 1e-30.
 extern "C" int repro_flash_attention_tf32(const float* q, const float* k, const float* v,
                                           float* o, int B, int H, int Hkv, int Tq, int Tk,
-                                          int D, int causal, cudaStream_t stream) {
+                                          int D, int Dv, int causal, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (Tk == 0) {
-    cudaMemsetAsync(o, 0, static_cast<size_t>(B) * H * Tq * D * 4, stream);
+    cudaMemsetAsync(o, 0, static_cast<size_t>(B) * H * Tq * Dv * 4, stream);
     return static_cast<int>(cudaGetLastError());
   }
   cudaError_t err;
-  switch (D) {
-    case 64: err = launch<64>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream); break;
-    case 128: err = launch<128>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream); break;
-    default: err = cudaErrorInvalidValue;
+  if (D == 64 && Dv == 64) {
+    err = launch<64, 64>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+  } else if (D == 128 && Dv == 128) {
+    err = launch<128, 128>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+  } else if (D == 192 && Dv == 128) {
+    err = launch<192, 128>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+  } else {
+    err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

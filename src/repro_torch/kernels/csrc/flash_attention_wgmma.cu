@@ -1,12 +1,15 @@
 // Causal flash attention on Hopper's tensor cores: o = softmax(q kᵀ / √D,
-// causal) v for q, o [B, H, T, D] and k, v [B, Hkv, Tk, D] in bfloat16,
-// D ∈ {64, 128}.
+// causal) v for q [B, H, T, D], k [B, Hkv, Tk, D], v [B, Hkv, Tk, Dv] and
+// o [B, H, T, Dv] in bfloat16, (D, Dv) ∈ {(64, 64), (128, 128), (192, 128)}.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (Pallas
-// body _kernel), the prefill attention of every layer of the dense GQA
-// models, for bf16 at the head dims of every config the port builds.
-// float32, and bf16 at D ∈ {8, 16, 32}, stay on flash_attention.cu.  It
-// computes what the Pallas kernel computes: scores scaled by 1/√D and
+// body _kernel), the prefill attention of every layer of the GQA models
+// and of deepseek-v3-671b's MLA (q and k of 128 + 64 columns, v of 128:
+// the reference's flash_attention_jnp takes Dv ≠ D), for bf16 at the head
+// dims of every config the port builds.  float32 stays on
+// flash_attention_tf32.cu, the reduced configs' head dims on
+// flash_attention.cu.  It computes what the Pallas kernel computes: scores
+// scaled by 1/√D and
 // masked at -1e30, a running max and denominator in float32, the
 // probabilities kept in float32 for the PV product (exactly, below), the
 // denominator floored at 1e-30 and one rounding of the output to bf16.  GQA
@@ -54,9 +57,17 @@
 // keys; skipping that half by a branch around the wgmmas measured slower,
 // as ptxas then serialises them.)
 // Shared memory is 128-byte swizzled (TMA and wgmma descriptors agree),
-// in 64-column panels (two at D = 128); 160 KB at D = 64 (4 stages), 192 KB
-// at D = 128 (2 stages), so one block holds an SM and setmaxnreg's pool is
-// its own.  Softmax and the tensor cores do not overlap within a
+// in 64-column panels (D / 64 of Q and K, Dv / 64 of V); 160 KB at D = 64
+// (4 stages), 192 KB at D = 128 (2 stages), so one block holds an SM and
+// setmaxnreg's pool is its own.  At (192, 128) a stage is 48 KB of K and
+// 32 KB of V, and two Q tiles would be 96 KB: 256 KB with two stages, past
+// the 227 KB a block can have.  There one Q tile stays resident (48 KB,
+// 208 KB in all): the producer loads the second pass's Q once the
+// consumers' last S product of the first pass has read the first
+// (an mbarrier), and the 128-key tiles, the S wgmma (m64n128, D / 16 = 12
+// k-steps) and the register plan of D = 128 stay as they are: P, PV and O
+// are sized by Dv = 128.  (64-key tiles would keep both Q tiles but halve
+// each wgmma's N and double the barrier round trips a key.)  Softmax and the tensor cores do not overlap within a
 // warpgroup; the two consumer warpgroups overlap each other.
 //
 // The tensor maps are encoded on the host for each call through
@@ -81,18 +92,22 @@ constexpr int kTerms = 3;        // bf16 terms of P in the PV product
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+template <int D, int DV>
 struct Cfg {
   static constexpr int kStages = D == 64 ? 4 : 2;
-  static constexpr int kPanels = D / kPanel;
+  static constexpr int kPanels = D / kPanel;          // of Q and K
+  static constexpr int kVPanels = DV / kPanel;        // of V
+  static constexpr int kQTiles = D == 192 ? 1 : 2;    // resident Q tiles
   static constexpr int kQBytes = kBlockQ * D * 2;     // one Q tile
-  static constexpr int kTileBytes = kBlockK * D * 2;  // one K or V tile
-  static constexpr int kKOff = 2 * kQBytes;           // after the two Q tiles
-  static constexpr int kVOff = kKOff + kStages * kTileBytes;
-  static constexpr int kBarOff = kVOff + kStages * kTileBytes;
-  // barriers: full[kStages], empty[kStages], q[2]; then slack to align the
-  // dynamic shared memory to 1024 bytes (the swizzle's repeat)
-  static constexpr size_t kBytes = kBarOff + (2 * kStages + 2) * 8 + 1024;
+  static constexpr int kKBytes = kBlockK * D * 2;     // one K tile
+  static constexpr int kVBytes = kBlockK * DV * 2;    // one V tile
+  static constexpr int kKOff = kQTiles * kQBytes;     // after the Q tiles
+  static constexpr int kVOff = kKOff + kStages * kKBytes;
+  static constexpr int kBarOff = kVOff + kStages * kVBytes;
+  // barriers: full[kStages], empty[kStages], q[2], q_free; then slack to
+  // align the dynamic shared memory to 1024 bytes (the swizzle's repeat)
+  static constexpr size_t kBytes = kBarOff + (2 * kStages + 3) * 8 + 1024;
+  static_assert(kBytes <= 232448, "more shared memory than a block can have");
 };
 
 using repro::mbar_arrive;
@@ -209,10 +224,10 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4],
+template <int DV>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (D == 64) {
+  if constexpr (DV == 64) {
     wgmma_rs_n64(o, a, db);
   } else {
     wgmma_rs_n128(o, a, db);
@@ -228,7 +243,7 @@ __device__ __forceinline__ int kv_tiles(int qt, int Tq, int Tk, int causal) {
   return causal ? min(n, (min((qt + 1) * kBlockQ, Tq) - 1) / kBlockK + 1) : n;
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsWG, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                  const __grid_constant__ CUtensorMap kmap,
@@ -236,7 +251,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
                                  __nv_bfloat16* __restrict__ o, int H, int Hkv, int Tq,
                                  int Tk, float scale_log2, int causal) {
   // scale_log2 = log₂e / √D: P = exp2(s·scale_log2 − m·scale_log2)
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base, sk = base + C::kKOff, sv = base + C::kVOff;
@@ -244,6 +259,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (C::kStages + s); };
   auto qbar = [&](int pass) { return bars + 8u * (2 * C::kStages + pass); };
+  const uint32_t q_free = bars + 8u * (2 * C::kStages + 2);  // one Q tile: read
 
   // The block's q tiles: the x-th heaviest and the x-th lightest, so that
   // causally every block visits n + 1 K/V tiles (n q tiles a head), and K/V
@@ -264,33 +280,42 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
     }
     mbar_init(qbar(0), 1);
     mbar_init(qbar(1), 1);
+    mbar_init(q_free, 2 * 128);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // producer: one thread loads both Q tiles, then keeps the K/V ring full
+    // producer: one thread loads the Q tiles (both at once where two are
+    // resident, else the second once the first is read), then keeps the
+    // K/V ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
-      for (int pass = 0; pass < n_pass; ++pass) {
+      auto load_q = [&](int pass) {
         const int q0 = (pass == 0 ? qt_heavy : qt_light) * kBlockQ;
+        const uint32_t dst = sq + (pass % C::kQTiles) * C::kQBytes;
         mbar_expect_tx(qbar(pass), C::kQBytes);
         for (int p = 0; p < C::kPanels; ++p)
-          tma_load_3d(sq + pass * C::kQBytes + p * kBlockQ * kRowBytes, &qmap, qbar(pass),
-                      p * kPanel, q0, bh);
-      }
+          tma_load_3d(dst + p * kBlockQ * kRowBytes, &qmap, qbar(pass), p * kPanel, q0, bh);
+      };
+      for (int pass = 0; pass < n_pass && pass < C::kQTiles; ++pass) load_q(pass);
       int it = 0;  // K/V tiles loaded so far, over both passes
       for (int pass = 0; pass < n_pass; ++pass) {
+        if (pass > 0 && C::kQTiles == 1) {
+          mbar_wait(q_free, 0);
+          load_q(pass);
+        }
         const int n_tiles = kv_tiles(pass == 0 ? qt_heavy : qt_light, Tq, Tk, causal);
         for (int t = 0; t < n_tiles; ++t, ++it) {
           const int s = it % C::kStages;
           mbar_wait(empty(s), ((it / C::kStages) & 1) ^ 1);
-          mbar_expect_tx(full(s), 2 * C::kTileBytes);
-          for (int p = 0; p < C::kPanels; ++p) {
-            const uint32_t off = s * C::kTileBytes + p * kBlockK * kRowBytes;
-            tma_load_3d(sk + off, &kmap, full(s), p * kPanel, t * kBlockK, kvh);
-            tma_load_3d(sv + off, &vmap, full(s), p * kPanel, t * kBlockK, kvh);
-          }
+          mbar_expect_tx(full(s), C::kKBytes + C::kVBytes);
+          for (int p = 0; p < C::kPanels; ++p)
+            tma_load_3d(sk + s * C::kKBytes + p * kBlockK * kRowBytes, &kmap, full(s),
+                        p * kPanel, t * kBlockK, kvh);
+          for (int p = 0; p < C::kVPanels; ++p)
+            tma_load_3d(sv + s * C::kVBytes + p * kBlockK * kRowBytes, &vmap, full(s),
+                        p * kPanel, t * kBlockK, kvh);
         }
       }
     }
@@ -303,7 +328,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
     const int c2 = 2 * (lane % 4);  // first column of each 8-column group
     // Accumulator layout (m64nN, float32): element i of a thread lies in
     // row r0 + 8·((i >> 1) & 1), column 8·(i / 4) + c2 + (i & 1).
-    float acc[D / 2], sc[kBlockK / 2];
+    float acc[DV / 2], sc[kBlockK / 2];
 #pragma unroll
     for (int i = 0; i < kBlockK / 2; ++i) sc[i] = 0.f;
     int it = 0;  // K/V tiles consumed so far, over both passes
@@ -312,9 +337,9 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
       const int q0 = (pass == 0 ? qt_heavy : qt_light) * kBlockQ;
       const int n_tiles = kv_tiles(q0 / kBlockQ, Tq, Tk, causal);
       const int r0 = q0 + 64 * cw + 16 * warp + lane / 4;  // rows r0 and r0 + 8
-      const uint32_t sq_wg = sq + pass * C::kQBytes + cw * 64 * kRowBytes;
+      const uint32_t sq_wg = sq + (pass % C::kQTiles) * C::kQBytes + cw * 64 * kRowBytes;
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
       float m[2] = {kNegInf, kNegInf};
       float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
 
@@ -332,12 +357,16 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
           const uint64_t da =
               smem_desc(sq_wg + (kk / 4) * kBlockQ * kRowBytes + off, 16, 1024);
           const uint64_t db = smem_desc(
-              sk + s * C::kTileBytes + (kk / 4) * kBlockK * kRowBytes + off, 16, 1024);
+              sk + s * C::kKBytes + (kk / 4) * kBlockK * kRowBytes + off, 16, 1024);
           wgmma_ss_n128(sc, da, db, kk > 0);
         }
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(sc);
+        // one resident Q tile: the last S product of the first pass has
+        // read it, so the producer may load the second pass's
+        if (C::kQTiles == 1 && n_pass == 2 && pass == 0 && t == n_tiles - 1)
+          mbar_arrive(q_free);
 
         // online softmax over the tile; masked scores are -1e30
         if (t == n_tiles - 1) {  // the only tile with masked keys
@@ -363,7 +392,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
           l[r] *= alpha[r];
         }
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
         // P in three bf16 terms, already in PV's register-A fragment layout:
         // fragment j of k-step kk holds elements 8kk + 2j, 8kk + 2j + 1
@@ -393,10 +422,10 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBlockK / 16; ++kk) {
-          const uint64_t db = smem_desc(sv + s * C::kTileBytes + kk * 16 * kRowBytes,
+          const uint64_t db = smem_desc(sv + s * C::kVBytes + kk * 16 * kRowBytes,
                                         kBlockK * kRowBytes, 1024);
 #pragma unroll
-          for (int a = 0; a < kTerms; ++a) wgmma_pv<D>(acc, pt[a][kk], db);
+          for (int a = 0; a < kTerms; ++a) wgmma_pv<DV>(acc, pt[a][kk], db);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -414,9 +443,9 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
       for (int r = 0; r < 2; ++r) {
         const int row = r0 + 8 * r;
         if (row < Tq) {
-          __nv_bfloat16* orow = o + (static_cast<long long>(bh) * Tq + row) * D;
+          __nv_bfloat16* orow = o + (static_cast<long long>(bh) * Tq + row) * DV;
 #pragma unroll
-          for (int g = 0; g < D / 8; ++g) {
+          for (int g = 0; g < DV / 8; ++g) {
             *reinterpret_cast<__nv_bfloat162*>(orow + 8 * g + c2) = __floats2bfloat162_rn(
                 acc[4 * g + 2 * r] / l[r], acc[4 * g + 2 * r + 1] / l[r]);
           }
@@ -467,11 +496,11 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D, int 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
                    int Hkv, int Tq, int Tk, int causal, cudaStream_t stream) {
-  auto kernel = flash_attention_wgmma_kernel<D>;
-  const size_t bytes = Cfg<D>::kBytes;
+  auto kernel = flash_attention_wgmma_kernel<D, DV>;
+  const size_t bytes = Cfg<D, DV>::kBytes;
   cudaError_t err = repro::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   const EncodeTiled encode = encode_tiled();
@@ -479,7 +508,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   CUtensorMap qmap, kmap, vmap;
   if (!make_map(&qmap, encode, q, D, Tq, B * H, kBlockQ) ||
       !make_map(&kmap, encode, k, D, Tk, B * Hkv, kBlockK) ||
-      !make_map(&vmap, encode, v, D, Tk, B * Hkv, kBlockK))
+      !make_map(&vmap, encode, v, DV, Tk, B * Hkv, kBlockK))
     return cudaErrorInvalidValue;
   // the reference's 1.0 / (D ** 0.5), a double rounded to float, in log₂ units
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
@@ -492,23 +521,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 
 }  // namespace
 
-// o [B, H, Tq, D] = attention of q [B, H, Tq, D] over k, v [B, Hkv, Tk, D],
-// all contiguous bfloat16, D ∈ {64, 128}; causal: query i sees keys 0..i
-// (Tq == Tk).  With no keys (Tk == 0) the output is zero, as 0 / 1e-30.
+// o [B, H, Tq, Dv] = attention of q [B, H, Tq, D] over k [B, Hkv, Tk, D]
+// and v [B, Hkv, Tk, Dv], all contiguous bfloat16, (D, Dv) ∈ {(64, 64),
+// (128, 128), (192, 128)}; causal: query i sees keys 0..i (Tq == Tk).  With
+// no keys (Tk == 0) the output is zero, as 0 / 1e-30.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
                                            void* o, int B, int H, int Hkv, int Tq, int Tk,
-                                           int D, int causal, cudaStream_t stream) {
+                                           int D, int Dv, int causal, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (Tk == 0) {
-    cudaMemsetAsync(o, 0, static_cast<size_t>(B) * H * Tq * D * 2, stream);
+    cudaMemsetAsync(o, 0, static_cast<size_t>(B) * H * Tq * Dv * 2, stream);
     return static_cast<int>(cudaGetLastError());
   }
   cudaError_t err;
-  switch (D) {
-    case 64: err = launch<64>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream); break;
-    case 128: err = launch<128>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream); break;
-    default: err = cudaErrorInvalidValue;
+  if (D == 64 && Dv == 64) {
+    err = launch<64, 64>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+  } else if (D == 128 && Dv == 128) {
+    err = launch<128, 128>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+  } else if (D == 192 && Dv == 128) {
+    err = launch<192, 128>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+  } else {
+    err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

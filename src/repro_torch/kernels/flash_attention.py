@@ -2,32 +2,35 @@
 
 Wrapper for the Hopper counterparts of
 ``repro/kernels/flash_attention.py::flash_attention``: online-softmax
-attention of q [B, H, T, D] over k, v [B, Hkv, Tk, D], with scale 1/√D,
-masked scores at -1e30, running max, denominator and accumulator in
-float32, the denominator floored at 1e-30 and one rounding of the output
-to q's dtype (float32 or bfloat16; D ∈ {8, 16, 32, 64, 128}).  GQA is by
-index: q-head h reads kv-head h // (H / Hkv), so K and V are never
-repeated in memory.  Any T works; causal attention needs T == Tk (query i
-sees keys 0..i).  A CPU tensor takes the plain version (``ref``), cast to
-q's dtype; any other dtype or device raises.
+attention of q [B, H, T, D] over k [B, Hkv, Tk, D] and v [B, Hkv, Tk, Dv],
+with scale 1/√D, masked scores at -1e30, running max, denominator and
+accumulator in float32, the denominator floored at 1e-30 and one rounding
+of the output [B, H, T, Dv] to q's dtype (float32 or bfloat16).  The head
+dims are a pair of ``PAIRS``: D = Dv ∈ {8, 16, 32, 64, 128}, or MLA's
+(the reference's ``flash_attention_jnp`` takes Dv ≠ D): deepseek-v3-671b's
+(192, 128) and its reduced config's (16, 8).  GQA is by index: q-head h
+reads kv-head h // (H / Hkv), so K and V are never repeated in memory.
+Any T works; causal attention needs T == Tk (query i sees keys 0..i).  A
+CPU tensor takes the plain version (``ref``), cast to q's dtype; any other
+dtype, device or head-dim pair raises.
 
-Three kernels, chosen by :func:`variant` from the dtype and head dim alone:
+Three kernels, chosen by :func:`variant` from the dtype and head dims alone:
 
-* ``csrc/flash_attention_wgmma.cu`` for bf16 at D ∈ {64, 128}, the head
-  dims of every full-size config the port builds: tensor cores (wgmma) fed
-  by TMA, with P split into three bf16 terms for PV (they sum to the
-  float32 P exactly);
-* ``csrc/flash_attention_tf32.cu`` for float32 at D ∈ {64, 128}, the
+* ``csrc/flash_attention_wgmma.cu`` for bf16 at (64, 64), (128, 128) and
+  (192, 128), the head dims of every full-size config the port builds:
+  tensor cores (wgmma) fed by TMA, with P split into three bf16 terms for
+  PV (they sum to the float32 P exactly);
+* ``csrc/flash_attention_tf32.cu`` for float32 at the same pairs, the
   path's precision check: TF32 tensor cores (wgmma) fed by TMA, each
   product taken as three TF32 terms (a_hi·b_hi + a_hi·b_lo + a_lo·b_hi),
   float32 accuracy;
-* ``csrc/flash_attention.cu``'s mma kernel for every dtype at D ∈ {8, 16,
-  32} (the reduced configs): warp-level tensor cores (``mma.sync``) fed by
-  ``cp.async``, with the same three-term products (bf16: P in three bf16
-  terms; float32: three TF32 terms).
+* ``csrc/flash_attention.cu``'s mma kernel for every dtype at (8, 8), (16,
+  16), (32, 32) and (16, 8) (the reduced configs): warp-level tensor cores
+  (``mma.sync``) fed by ``cp.async``, with the same three-term products
+  (bf16: P in three bf16 terms; float32: three TF32 terms).
 
 The same library also holds the first, SIMT kernel (float32 CUDA-core
-FMAs, every head dim), which :func:`launch` runs only when asked for by
+FMAs, every D = Dv), which :func:`launch` runs only when asked for by
 name (``"simt"``): ``chip_smoke.py`` times it beside the others.  The
 tensor-core kernels read 16-byte aligned q, k and v (TMA, ``cp.async``);
 one at an offset that is not is copied once.
@@ -36,8 +39,9 @@ The gradient: :class:`FlashAttentionFn` is the forward as an autograd
 function; its backward is :func:`flash_attention_bwd`, hand kernels with no
 Pallas original (the reference trains by ``jax.grad`` through
 ``flash_attention_jnp``): dQ, dK and dV, float32 accumulation, no atomics
-(two calls are bitwise equal).  Three routes, chosen by :func:`bwd_variant`
-from the dtype and head dim alone:
+(two calls are bitwise equal), at D = Dv only: a gradient through MLA's
+(D, Dv) pairs raises ``NotImplementedError`` (``MLA_TRAINING``).  Three
+routes, chosen by :func:`bwd_variant` from the dtype and head dim alone:
 
 * ``csrc/flash_attention_bwd_wgmma.cu`` (``FLASH_ATTENTION_BWD_WGMMA``) for
   bf16 at D ∈ {64, 128}, the training path of every dense config: a dq and a
@@ -66,16 +70,11 @@ from . import ref
 from ._cuda import I32, PTR, CudaKernel, on_card, stream_handle
 
 FLASH_ATTENTION = CudaKernel("flash_attention.cu", "repro_flash_attention",
-                             [PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32, I32,
-                              I32, I32, I32])
+                             [PTR] * 4 + [I32] * 10)
 FLASH_ATTENTION_WGMMA = CudaKernel("flash_attention_wgmma.cu",
-                                   "repro_flash_attention_wgmma",
-                                   [PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32,
-                                    I32, I32])
+                                   "repro_flash_attention_wgmma", [PTR] * 4 + [I32] * 8)
 FLASH_ATTENTION_TF32 = CudaKernel("flash_attention_tf32.cu",
-                                  "repro_flash_attention_tf32",
-                                  [PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32,
-                                   I32, I32])
+                                  "repro_flash_attention_tf32", [PTR] * 4 + [I32] * 8)
 FLASH_ATTENTION_BWD = CudaKernel("flash_attention_bwd.cu",
                                  "repro_flash_attention_bwd",
                                  [PTR] * 10 + [I32] * 8)
@@ -86,10 +85,20 @@ FLASH_ATTENTION_BWD_TF32 = CudaKernel("flash_attention_bwd_tf32.cu",
                                       "repro_flash_attention_bwd_tf32",
                                       [PTR] * 10 + [I32] * 7)
 
-#: head dims the kernels are compiled for
+#: head dims the kernels are compiled for with q, k and v of one head dim
 HEAD_DIMS = (8, 16, 32, 64, 128)
-#: head dims of the wgmma kernels (wgmma: bf16, tf32: float32)
+#: (q/k head dim, v head dim) pairs the forward kernels take: D = Dv, and
+#: MLA's (deepseek-v3-671b's 128 + 64 → 128, its reduced config's 8 + 8 → 8)
+PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((16, 8), (192, 128))
+#: pairs of the wgmma forward kernels (wgmma: bf16, tf32: float32)
+WGMMA_PAIRS = ((64, 64), (128, 128), (192, 128))
+#: head dims of the wgmma backward kernels (wgmma: bf16, tf32: float32)
 WGMMA_HEAD_DIMS = (64, 128)
+#: what a gradient through a pair with Dv ≠ D raises: the backward kernels
+#: take D = Dv only
+MLA_TRAINING = ("MLA training (attention backward kernels for a v head dim "
+                "other than the q/k head dim) is not ported yet (ROADMAP "
+                "Queue 1 item 20, part 2: MLA training)")
 #: the tensor-core backwards' L and Δ scratch has T rounded up to a multiple
 #: of this (the wgmma route's dq tile)
 BWD_ROWS = 128
@@ -97,12 +106,13 @@ BWD_ROWS = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def variant(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel that takes (dtype, head_dim) on the card: at D ∈ {64,
-    128} ``"wgmma"`` (``FLASH_ATTENTION_WGMMA``) for bf16 and ``"tf32"``
+def variant(dtype: torch.dtype, head_dim: int, v_head_dim: int | None = None) -> str:
+    """The kernel that takes (dtype, head_dim, v_head_dim) on the card
+    (``v_head_dim`` defaults to ``head_dim``): at a pair of WGMMA_PAIRS
+    ``"wgmma"`` (``FLASH_ATTENTION_WGMMA``) for bf16 and ``"tf32"``
     (``FLASH_ATTENTION_TF32``) for float32, else ``"mma"``
     (``FLASH_ATTENTION``'s mma kernel)."""
-    if head_dim in WGMMA_HEAD_DIMS:
+    if (head_dim, head_dim if v_head_dim is None else v_head_dim) in WGMMA_PAIRS:
         if dtype == torch.bfloat16:
             return "wgmma"
         if dtype == torch.float32:
@@ -137,19 +147,20 @@ BWD_PLAIN = {"wgmma": ref.flash_attention_bwd_bf16_ref,
 
 
 def _check(q, k, v, causal: bool) -> None:
-    """Raise unless q [B, H, T, D], k/v [B, Hkv, Tk, D] are what the
-    kernels take."""
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"expected q [B,H,T,D], k and v [B,Hkv,Tk,D]; got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    """Raise unless q [B, H, T, D], k [B, Hkv, Tk, D] and v [B, Hkv, Tk,
+    Dv] are what the kernels take."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"expected q [B,H,T,D], k [B,Hkv,Tk,D] and v [B,Hkv,Tk,Dv]; "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, H, T, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or H % Hkv:
         raise ValueError(f"k and v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
     if causal and T != Tk:
         raise ValueError(f"causal attention needs T == Tk, got {T} and {Tk}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} is not one of {HEAD_DIMS}")
+    if (D, v.shape[3]) not in PAIRS:
+        raise ValueError(f"head dims (q/k {D}, v {v.shape[3]}) are not a pair the "
+                         f"kernels take: {PAIRS}")
     for name, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} is {t.dtype} on {t.device}, q is "
@@ -161,11 +172,12 @@ def _check(q, k, v, causal: bool) -> None:
 
 
 def flash_attention(q, k, v, causal: bool = True):
-    """q [B, H, T, D], k/v [B, Hkv, Tk, D] -> [B, H, T, D] in q's dtype."""
+    """q [B, H, T, D], k [B, Hkv, Tk, D], v [B, Hkv, Tk, Dv] -> [B, H, T,
+    Dv] in q's dtype."""
     _check(q, k, v, causal)
     if not on_card(q):
         return ref.flash_attention_ref(q, k, v, causal=causal).to(q.dtype)
-    return launch(variant(q.dtype, q.shape[3]), q, k, v, causal)
+    return launch(variant(q.dtype, q.shape[3], v.shape[3]), q, k, v, causal)
 
 
 def flash_attention_bwd(q, k, v, o, do, causal: bool = True):
@@ -173,8 +185,11 @@ def flash_attention_bwd(q, k, v, o, do, causal: bool = True):
     o, for the output gradient do [B, H, T, D]; each in q's dtype and
     shape of its input.  CUDA tensors launch the route ``bwd_variant``
     names (two kernels, one call); CPU tensors take that route's plain
-    version (``BWD_PLAIN``)."""
+    version (``BWD_PLAIN``).  A v head dim other than q's raises
+    ``NotImplementedError`` (``MLA_TRAINING``)."""
     _check(q, k, v, causal)
+    if v.shape[3] != q.shape[3]:
+        raise NotImplementedError(MLA_TRAINING)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype} on {t.device}; "
@@ -241,21 +256,23 @@ def launch(kind: str, q, k, v, causal: bool = True):
     """Launch the ``kind`` kernel (a key of KERNELS, or ``"simt"``) on CUDA
     tensors that ``flash_attention`` has checked.  The wrapper passes
     ``variant``'s choice; ``chip_smoke.py`` also passes ``"simt"`` (the
-    SIMT kernel of ``FLASH_ATTENTION``, at any head dim), to time the
+    SIMT kernel of ``FLASH_ATTENTION``, at any D = Dv), to time the
     kernels on the same inputs."""
-    if kind != "simt" and variant(q.dtype, q.shape[3]) != kind:
-        raise ValueError(f"the {kind} kernel does not take {q.dtype} at "
-                         f"D = {q.shape[3]}")
     B, H, T, D = q.shape
-    Hkv, Tk = k.shape[1], k.shape[2]
+    Hkv, Tk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if kind == "simt" and Dv != D:
+        raise ValueError(f"the simt kernel takes D = Dv only, not ({D}, {Dv})")
+    if kind != "simt" and variant(q.dtype, D, Dv) != kind:
+        raise ValueError(f"the {kind} kernel does not take {q.dtype} at "
+                         f"(D, Dv) = ({D}, {Dv})")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if kind != "simt":  # TMA and cp.async read 16-byte aligned rows
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
-    o = torch.empty_like(q)
+    o = q.new_empty((B, H, T, Dv))
     if not o.numel():
         return o
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv, T,
-            Tk, D)
+            Tk, D, Dv)
     if kind in ("wgmma", "tf32"):
         KERNELS[kind].launch(*args, int(causal), stream_handle(q))
     else:

@@ -89,10 +89,11 @@ def rank1_chain_ref(A1, u, v, A3, V) -> torch.Tensor:
 
 
 def flash_attention_ref(q, k, v, causal: bool = True, scale=None):
-    """Plain attention: q [B, H, T, D], k/v [B, Hkv, Tk, D] (KV heads are
-    repeated, q-head h reading kv-head h // (H / Hkv)) -> [B, H, T, D] in
-    float32, or in float64 for float64 inputs.  Scores are masked with -1e30
-    by the causal mask aligned at the last query (``tril(ones, Tk - T)``)."""
+    """Plain attention: q [B, H, T, D], k [B, Hkv, Tk, D] and v [B, Hkv, Tk,
+    Dv] (KV heads are repeated, q-head h reading kv-head h // (H / Hkv);
+    Dv ≠ D is MLA's) -> [B, H, T, Dv] in float32, or in float64 for float64
+    inputs, with scale 1/√D.  Scores are masked with -1e30 by the causal
+    mask aligned at the last query (``tril(ones, Tk - T)``)."""
     B, H, T, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     dt = torch.float64 if q.dtype == torch.float64 else torch.float32

@@ -1,4 +1,4 @@
-"""Grouped-query attention (port of the GQA part of ``repro.models.attention``).
+"""Attention: GQA and deepseek-v3's MLA (port of ``repro.models.attention``).
 
 * ``flash_attention`` is the counterpart of the reference's
   ``flash_attention_jnp``.  On CUDA tensors it launches a hand-written
@@ -20,10 +20,20 @@
 * ``gqa_forward`` / ``gqa_decode`` are the full-sequence and one-token
   modules.  The decode cache is updated in place (a copy into the slot),
   where the reference returns a new cache and donates the old buffer.
+* ``mla_forward`` / ``mla_decode`` are deepseek-v3's multi-head latent
+  attention.  The prefill runs the flash kernel with q and k of
+  ``qk_nope + qk_rope`` columns (192) and v of ``v_head_dim`` (128), scale
+  1/√192; it caches the compressed kv-latent (``kv_lora_rank``, 512) and
+  the shared rope key (64) a token, ``{"c_kv": [B, S, r], "k_rope": [B,
+  S, rope]}``.  The decode is the absorbed form: W_uk folded into the
+  query, attention against the latent cache directly, plain products as
+  in the reference (no Pallas kernel there either).  A gradient through
+  MLA's attention raises ``NotImplementedError`` on every device: the
+  backward kernels take one head dim for q, k and v (ROADMAP Queue 1 item
+  20, part 2: MLA training).
 
-q-head h reads kv-head h // G (G = H / Hkv) on every path.  Sliding windows,
-prefix-LM masks and MLA raise ``NotImplementedError`` (ROADMAP Queue 1
-item 20).
+q-head h reads kv-head h // G (G = H / Hkv) on every path.  Sliding windows
+and prefix-LM masks raise ``NotImplementedError`` (ROADMAP Queue 1 item 20).
 """
 from __future__ import annotations
 
@@ -31,7 +41,7 @@ import torch
 
 from ..kernels import flash_attention as _flash
 from ..kernels._cuda import on_card
-from .layers import P, apply_rope, causal_mask
+from .layers import P, apply_rope, at_least_f32, causal_mask, rms_norm
 
 NEG_INF = -1e30
 UNPORTED = "ROADMAP Queue 1 item 20"
@@ -61,6 +71,23 @@ def gqa_specs(cfg) -> dict:
         s["bk"] = P((KV, hd), ("kv_heads", "head_dim"), init="zeros")
         s["bv"] = P((KV, hd), ("kv_heads", "head_dim"), init="zeros")
     return s
+
+
+def mla_specs(cfg) -> dict:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": P((d, m.q_lora_rank), ("embed", "q_lora")),
+        "q_norm": P((m.q_lora_rank,), ("q_lora",), init="ones"),
+        "w_uq": P((m.q_lora_rank, H, qk), ("q_lora", "heads", "head_dim")),
+        "w_dkv": P((d, m.kv_lora_rank), ("embed", "kv_lora")),
+        "kv_norm": P((m.kv_lora_rank,), ("kv_lora",), init="ones"),
+        "w_kr": P((d, m.qk_rope_head_dim), ("embed", "head_dim")),
+        "w_ukv": P((m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim),
+                   ("kv_lora", "heads", "head_dim")),
+        "wo": P((H, m.v_head_dim, d), ("heads", "head_dim", "embed")),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -107,21 +134,27 @@ def _chunked_attention(qg, kg, vg, causal, scale, block_q, block_k, out_dtype):
 
 
 def flash_attention(q, k, v, *, causal=True, prefix_len=None, window=None):
-    """Causal (or full) attention; q [B, H, S, D], k/v [B, Hkv, Sk, D] with
-    H % Hkv == 0 -> [B, H, S, D] in q's dtype.
+    """Causal (or full) attention; q [B, H, S, D], k [B, Hkv, Sk, D], v [B,
+    Hkv, Sk, Dv] with H % Hkv == 0 -> [B, H, S, Dv] in q's dtype (Dv ≠ D:
+    MLA).
 
     CUDA tensors: the hand-written flash kernel (any S; scores, softmax and
     accumulator in float32, as the Pallas kernel), through
     ``FlashAttentionFn`` when a gradient is asked for.  CPU tensors: the
     reference's plain masked branch, or its chunked branch when S·Sk exceeds
-    4096²/16 and S, Sk are multiples of BLOCK_Q, BLOCK_K."""
+    4096²/16 and S, Sk are multiples of BLOCK_Q, BLOCK_K.  A gradient asked
+    for with Dv ≠ D raises ``NotImplementedError`` on every device (no
+    backward kernel takes it)."""
     if prefix_len is not None:
         raise unported("prefix-LM attention")
     if window is not None:
         raise unported("sliding-window attention")
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    if grad and v.shape[-1] != q.shape[-1]:
+        raise NotImplementedError(_flash.MLA_TRAINING)
     if on_card(q):
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad):
+        if grad:
             return _flash.FlashAttentionFn.apply(q, k, v, causal)
         return _flash.flash_attention(q, k, v, causal=causal)
     B, H, S, D = q.shape
@@ -209,3 +242,75 @@ def gqa_decode(cfg, p, x, cache, pos: int):
     y = torch.einsum("bhk,hkd->bd", out, p["wo"])
     return y, cache
 
+
+# ---------------------------------------------------------------------------
+# MLA module (deepseek-v3)
+# ---------------------------------------------------------------------------
+def _mla_q(cfg, p, x, positions):
+    """x [B,S,d] -> (q_nope [B,S,H,nope], q_rope [B,S,H,rope])."""
+    m = cfg.mla
+    ql = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.rms_eps)
+    q = torch.einsum("bsr,rhk->bshk", ql, p["w_uq"])
+    qn, qr = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return qn, apply_rope(qr, positions, cfg.rope_theta)
+
+
+def mla_forward(cfg, p, x, positions, *, return_kv=False):
+    """x [B,S,d] -> [B,S,d] (and the layer's cache entries c_kv [B,S,r] and
+    k_rope [B,S,rope] with ``return_kv``).  Full-sequence, causal
+    (prefill): q and k of nope + rope columns, v of v_head_dim, through
+    ``flash_attention``."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    qn, qr = _mla_q(cfg, p, x, positions)
+    c_kv = rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.rms_eps)        # [B,S,r]
+    kr = apply_rope((x @ p["w_kr"])[:, :, None, :], positions, cfg.rope_theta)
+    kv = torch.einsum("bsr,rhk->bshk", c_kv, p["w_ukv"])
+    kn, v = kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+    q = torch.cat([qn, qr], dim=-1).transpose(1, 2)                   # [B,H,S,qk]
+    k = torch.cat([kn, kr.expand(B, S, H, m.qk_rope_head_dim)], dim=-1).transpose(1, 2)
+    out = flash_attention(q, k, v.transpose(1, 2))                    # [B,H,S,v]
+    y = torch.einsum("bhsk,hkd->bsd", out, p["wo"])
+    if return_kv:
+        return y, (c_kv, kr[:, :, 0, :])
+    return y
+
+
+def mla_init_cache(cfg, batch: int, seq: int, dtype, device="cuda"):
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, seq, m.kv_lora_rank), dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, seq, m.qk_rope_head_dim), dtype=dtype,
+                                  device=device)}
+
+
+def mla_decode(cfg, p, x, cache, pos: int):
+    """Absorbed-form MLA decode: x [B,d], one token at ``pos``; the cache
+    {"c_kv" [B,S,r], "k_rope" [B,S,rope]} is written in place at slot
+    ``pos`` and attended directly (W_uk folded into the query, W_uv applied
+    to the attended latent).  Scores and softmax in float32 (float64 stays
+    float64), the probabilities rounded to the cache dtype, as the
+    reference.  Returns (y [B,d], cache)."""
+    m = cfg.mla
+    # built on the device: a tensor of host data would be a blocking copy
+    posv = torch.arange(pos, pos + 1, device=x.device)
+    qn, qr = _mla_q(cfg, p, x[:, None, :], posv)
+    qn, qr = qn[:, 0], qr[:, 0]                                       # [B,H,nope/rope]
+    c_new = rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.rms_eps)       # [B,r]
+    kr_new = apply_rope((x @ p["w_kr"])[:, None, :], posv, cfg.rope_theta)[:, 0]
+    c_cache, kr_cache = cache["c_kv"], cache["k_rope"]
+    c_cache[:, pos] = c_new.to(c_cache.dtype)
+    kr_cache[:, pos] = kr_new.to(kr_cache.dtype)
+    w_uk = p["w_ukv"][..., :m.qk_nope_head_dim]                       # [r,H,nope]
+    w_uv = p["w_ukv"][..., m.qk_nope_head_dim:]                       # [r,H,v]
+    q_abs = torch.einsum("bhn,rhn->bhr", qn, w_uk)                    # absorbed query
+    s = torch.einsum("bhr,bsr->bhs", at_least_f32(q_abs), at_least_f32(c_cache))
+    s = s + torch.einsum("bhr,bsr->bhs", at_least_f32(qr), at_least_f32(kr_cache))
+    s = s / ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5)
+    S = c_cache.shape[1]
+    s = torch.where(torch.arange(S, device=x.device) <= pos, s, NEG_INF)
+    attn = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", attn.to(c_cache.dtype), c_cache)
+    v = torch.einsum("bhr,rhv->bhv", ctx, w_uv)
+    y = torch.einsum("bhv,hvd->bd", v, p["wo"])
+    return y, cache

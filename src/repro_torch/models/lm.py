@@ -1,5 +1,6 @@
-"""Decoder-only language model (port of ``repro.models.lm`` for the GQA
-decoders, dense and MoE): the training loss and the serving entry points.
+"""Decoder-only language model (port of ``repro.models.lm`` for the
+attention decoders, GQA or MLA, dense or MoE): the training loss and the
+serving entry points.
 
 The parameters are the reference's tree (``lm_init``): nested dicts, each
 block parameter stacked over the layer periods under ``layers/sub<i>``,
@@ -16,7 +17,8 @@ Entry points:
     (``"full"``: each period is recomputed in the backward pass,
     ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).
   * ``lm_prefill`` — forward over a prompt: last-position logits over the
-    padded vocab and the decode cache, each layer's K/V padded to
+    padded vocab and the decode cache, each layer's entries (GQA's K/V,
+    MLA's latent and rope key) padded along their sequence axis to
     ``cache_len``.
   * ``lm_decode``  — one token against the cache at position ``pos``; the
     cache is updated in place.
@@ -93,7 +95,8 @@ def layer_params(cfg, params) -> list:
 
 def lm_backbone(cfg, params, x, positions, *, collect_cache=False):
     """x [B,S,d] -> (h [B,S,d], caches or None); caches are
-    ``{"sub<i>": {"k", "v"}}`` with the layer's K/V stacked over periods."""
+    ``{"sub<i>": entries}`` with each layer's cache entries (GQA ``{"k",
+    "v"}``, MLA ``{"c_kv", "k_rope"}``) stacked over periods."""
     per_sub: dict = {}
     h = x
     for bp, (i, kind) in zip(layer_params(cfg, params), _layer_kinds(cfg)):
@@ -189,7 +192,10 @@ def lm_loss(cfg, params, batch):
 # Prefill / decode
 # ---------------------------------------------------------------------------
 def lm_init_cache(cfg, batch: int, seq: int, dtype, device="cuda") -> dict:
-    """Zero caches ``{"sub<i>": {"k", "v"}}``, each [n_periods, B, KV, seq, hd]."""
+    """Zero caches ``{"sub<i>": entries}`` stacked over periods: GQA ``{"k",
+    "v"}``, each [n_periods, B, KV, seq, hd]; MLA ``{"c_kv", "k_rope"}``,
+    [n_periods, B, seq, kv_lora_rank] and [n_periods, B, seq, rope] (the
+    sequence axis second, not third)."""
     out = {}
     for i, kind in enumerate(cfg.layer_pattern):
         st = block_init_cache(cfg, kind, batch, seq, dtype, device)
@@ -200,8 +206,10 @@ def lm_init_cache(cfg, batch: int, seq: int, dtype, device="cuda") -> dict:
 
 def place(dst, src):
     """``src`` cast to ``dst``'s dtype and fitted to its shape along the one
-    axis where they differ: a shorter prompt pads the future slots at the
-    end; a longer one keeps the last entries (a ring buffer's)."""
+    axis where they differ (the sequence axis, wherever the cache keeps it:
+    GQA's K/V and MLA's entries differ there): a shorter prompt pads the
+    future slots at the end; a longer one keeps the last entries (a ring
+    buffer's)."""
     src = src.to(dst.dtype)
     if src.shape == dst.shape:
         return src

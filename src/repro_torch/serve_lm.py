@@ -1,10 +1,11 @@
 """LM serving: batched greedy generation with a fixed-capacity KV cache
 (port of ``examples/serve_lm.py``).
 
-``Server`` builds a GQA decoder, dense or MoE (``models.registry``), on
-``device`` (default ``"cuda"``; a host without CUDA raises unless the caller
-passes ``device="cpu"``), with weights drawn from an explicit ``torch.Generator``
-seeded with ``seed`` unless ``params`` are given.  ``generate`` runs the
+``Server`` builds an attention decoder, GQA or MLA, dense or MoE
+(``models.registry``), on ``device`` (default ``"cuda"``; a host without
+CUDA raises unless the caller passes ``device="cpu"``), with weights drawn
+from an explicit ``torch.Generator`` seeded with ``seed`` unless ``params``
+are given.  ``generate`` runs the
 prefill (the hand-written flash-attention kernel on the card, in every
 layer) and then one decode step per new token, each token the argmax over
 the padded vocab, under ``torch.inference_mode()``; times end with

@@ -769,6 +769,92 @@ def test_cuda_flash_mma_matches_float64(cuda_device, B, H, Hkv, T, Tk, causal, D
             assert bool((err <= 2.0 ** -8 * want.abs() + 1e-6 * scale).all()), kind
 
 
+#: MLA's head-dim pairs on the card: (dtype, D, Dv, route)
+MLA_ROUTES = [("bfloat16", 192, 128, "wgmma"), ("float32", 192, 128, "tf32"),
+              ("float32", 16, 8, "mma"), ("bfloat16", 16, 8, "mma")]
+
+
+@pytest.mark.parametrize("dtype,D,Dv,route", MLA_ROUTES)
+@pytest.mark.parametrize("B,H,Hkv,T,causal", [
+    (1, 4, 4, 77, True), (1, 2, 2, 257, False), (2, 4, 2, 1000, True),
+    (1, 2, 2, 300, False), (2, 4, 4, 64, True)])
+def test_cuda_flash_mla_pairs_match_float64(cuda_device, B, H, Hkv, T, causal, dtype, D,
+                                            Dv, route):
+    """Each forward route at MLA's (D, Dv) pairs, causal and not, at T that
+    are not multiples of a tile, against the plain version in float64 on
+    the same inputs: float32 within 1e-5 of the largest output, bf16 within
+    one bf16 rounding of the float64 result.  One launch of the route's
+    kernel a call, none of another; two calls bitwise equal."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(T + D + Dv)
+    q, k, v = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                            device=cuda_device).to(dt)
+               for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, Dv)))
+    assert tflash.variant(dt, D, Dv) == route
+    before = {name: kern.launches for name, kern in tflash.KERNELS.items()}
+    got = tflash.flash_attention(q, k, v, causal=causal)
+    again = tflash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert {name: kern.launches - before[name] for name, kern in tflash.KERNELS.items()} == {
+        name: 2 * int(name == route) for name in tflash.KERNELS}
+    assert got.dtype == dt and got.shape == (B, H, T, Dv)
+    assert torch.equal(got, again)
+    want = ref.flash_attention_ref(q.double(), k.double(), v.double(), causal=causal)
+    err = (got.double() - want).abs()
+    scale = float(want.abs().max())
+    if dt == torch.float32:
+        assert float(err.max()) <= 1e-5 * scale, (float(err.max()), scale)
+    else:
+        assert bool((err <= 2.0 ** -8 * want.abs() + 1e-6 * scale).all())
+
+
+def test_cuda_flash_refuses_what_no_route_takes(cuda_device):
+    """A pair no kernel takes, and the SIMT kernel by name at Dv ≠ D, raise
+    before any launch."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    q = torch.zeros((1, 2, 8, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="q/k 64, v 32"):
+        tflash.flash_attention(q, q, q[..., :32].contiguous())
+    q = torch.zeros((1, 2, 8, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="simt kernel takes D = Dv"):
+        tflash.launch("simt", q, q, q[..., :8].contiguous())
+
+
+def test_cuda_reduced_deepseek_float32_matches_cpu(cuda_device):
+    """The reduced deepseek-v3-671b in float32 on the card (MLA at (16, 8):
+    the mma kernel once a layer in the prefill, no flash kernel in a decode
+    step) against the same weights on the CPU: logits of the prefill and
+    two decode steps within 1e-5 of their largest magnitude."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.models import layers, registry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("deepseek_v3_671b").reduced()
+    api = registry.build(cfg)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 66))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        params = layers.map_tree(lambda t: t.to(dev), api.init(seed=0, device="cpu"))
+        with torch.inference_mode():
+            before = {name: kern.launches for name, kern in tflash.KERNELS.items()}
+            logits, cache = api.prefill(params, {"tokens": toks[:, :64]}, 66)
+            launches = {name: kern.launches - before[name]
+                        for name, kern in tflash.KERNELS.items()}
+            steps = [logits]
+            for i in range(2):
+                logits, cache = api.decode_step(params, toks[:, 64 + i], 64 + i, cache)
+                steps.append(logits)
+        outs.append(steps)
+    assert launches == {"wgmma": 0, "tf32": 0, "mma": cfg.n_layers}
+    for a, b in zip(*outs):
+        scale = float(a.abs().max())
+        assert float((b.cpu() - a).abs().max()) <= 1e-5 * scale
+
+
 def test_cuda_model_attention_launches_the_tf32_kernel(cuda_device):
     """``models.attention.flash_attention`` on float32 CUDA tensors at head
     dim 64 is the TF32 kernel: one launch, the wrapper's output bit for bit."""

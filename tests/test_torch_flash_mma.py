@@ -21,6 +21,8 @@ once.  Inputs are drawn with numpy from a seed.
   values;
 * at D 8, 16 and 32, causal and not, at T = 100 and 64 (path D's reduced
   leg), under GQA;
+* at the reduced MLA pair, q and k of 16 columns and v of 8, in both
+  dtypes, against the reference's ``flash_attention_jnp`` and float64;
 * the fragment claim the kernel's PV rests on: S's accumulator registers
   are P's A fragments (bf16 m16n8k16 as they stand; TF32 m16n8k8 with V
   read at keys 2t and 2t + 1), so P needs no shuffle.
@@ -51,6 +53,9 @@ FLASH_F32_RTOL = 1e-5
 #: path D's reduced leg (2, 4, 2, 64), a ragged causal T = 130
 SHAPES = [(1, 4, 1, 100, True), (2, 4, 2, 100, False), (2, 4, 2, 64, True),
           (1, 2, 2, 64, False), (1, 8, 2, 130, True)]
+#: (B, H, Hkv, T, causal) at (D, Dv) = (16, 8), the reduced deepseek's MLA:
+#: its chip_smoke.py shape (2, 4, 4, 64) and ragged T causal and not
+MLA_SHAPES = [(2, 4, 4, 64, True), (1, 4, 4, 100, False), (1, 4, 4, 130, True)]
 
 
 def tf32_rna(x: np.ndarray) -> np.ndarray:
@@ -90,7 +95,8 @@ def _products(a, b, eq, tf32: bool, terms: int = 3):
 
 def mma_emulation(q, k, v, causal: bool, tf32: bool, terms: int = 3) -> np.ndarray:
     """The mma kernel's arithmetic on float32 arrays (bf16 values when not
-    ``tf32``): q [B, H, T, D], k/v [B, Hkv, Tk, D] -> unrounded float32."""
+    ``tf32``): q [B, H, T, D], k [B, Hkv, Tk, D], v [B, Hkv, Tk, Dv] ->
+    unrounded float32 [B, H, T, Dv]."""
     B, H, T, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     k = np.repeat(k, H // Hkv, axis=1)
@@ -98,7 +104,7 @@ def mma_emulation(q, k, v, causal: bool, tf32: bool, terms: int = 3) -> np.ndarr
     c = np.float32(np.float32(1.0 / math.sqrt(D)) * np.float32(LOG2E))
     m = np.full((B, H, T), -1e30, np.float32)
     l = np.zeros((B, H, T), np.float32)
-    acc = np.zeros((B, H, T, D), np.float32)
+    acc = np.zeros((B, H, T, v.shape[-1]), np.float32)
     qpos = np.arange(T)[:, None]
     for k0 in range(0, Tk, BLOCK_K):
         kt, vt = k[:, :, k0:k0 + BLOCK_K], v[:, :, k0:k0 + BLOCK_K]
@@ -124,10 +130,10 @@ def mma_emulation(q, k, v, causal: bool, tf32: bool, terms: int = 3) -> np.ndarr
     return acc / np.maximum(l, np.float32(1e-30))[..., None]
 
 
-def _qkv(seed, B, H, Hkv, T, D, bf16: bool):
+def _qkv(seed, B, H, Hkv, T, D, bf16: bool, Dv=None):
     rng = np.random.default_rng(seed)
     out = [rng.standard_normal(s).astype(np.float32)
-           for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, D))]
+           for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, Dv or D))]
     if bf16:  # bf16 values, exact in both types
         out = [torch.tensor(a).to(torch.bfloat16).float().numpy() for a in out]
     return out
@@ -175,6 +181,24 @@ def test_bf16_emulation_within_one_bf16_rounding(B, H, Hkv, T, causal, D):
     rounded = torch.tensor(got).to(torch.bfloat16).double().numpy()
     bound = 2.0 ** -8 * np.abs(want) + 1e-6 * np.abs(want).max()
     assert np.all(np.abs(rounded - want) <= bound)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,T,causal", MLA_SHAPES)
+def test_mla_pair_emulation_matches_reference(B, H, Hkv, T, causal, bf16):
+    q, k, v = _qkv(T + 7, B, H, Hkv, T, 16, bf16, Dv=8)
+    got = mma_emulation(q, k, v, causal, tf32=not bf16)
+    want = np.asarray(rattn.flash_attention_jnp(jnp.asarray(q), jnp.asarray(k),
+                                                jnp.asarray(v), causal=causal))
+    assert want.shape == got.shape == (B, H, T, 8)
+    assert _rel_err(got, want) <= FLASH_F32_RTOL
+    f64 = _float64(q, k, v, causal)
+    if bf16:
+        rounded = torch.tensor(got).to(torch.bfloat16).double().numpy()
+        bound = 2.0 ** -8 * np.abs(f64) + 1e-6 * np.abs(f64).max()
+        assert np.all(np.abs(rounded - f64) <= bound)
+    else:
+        assert _rel_err(got, f64) <= FLASH_F32_RTOL / 4
 
 
 def test_one_tf32_term_misses_the_float32_gate():

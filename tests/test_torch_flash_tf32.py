@@ -20,6 +20,8 @@ a seed.
 * The PV fragments need no shuffle: with Vᵀ's keys permuted within each
   group of 8 as the kernel writes them, the S accumulator's registers are
   the register-A fragment of P, and P·V is the unpermuted product.
+* At MLA's pair, q and k of 192 columns and v of 128 (``MLA_SHAPES``), the
+  emulation is within the gate of ``flash_attention_jnp`` and of float64.
 """
 import math
 
@@ -47,6 +49,8 @@ FLASH_F32_RTOL = 1e-5
 #: 4 and 8, non-causal cases (the Pallas kernel needs aligned Tk there)
 SHAPES = [(1, 4, 1, 77, 64, True), (1, 2, 2, 257, 128, True),
           (2, 8, 2, 130, 64, True), (1, 4, 4, 128, 64, False), (1, 2, 1, 256, 128, False)]
+#: (B, H, Hkv, T, causal) at (D, Dv) = (192, 128), deepseek-v3's MLA
+MLA_SHAPES = [(1, 2, 2, 77, True), (1, 2, 2, 100, False), (2, 2, 2, 130, True)]
 
 
 #: cvt.rna.tf32 and the hi/lo split, one copy for every TF32 emulation
@@ -63,8 +67,8 @@ def three_terms(a: torch.Tensor, b: torch.Tensor, eq: str, terms: int = 3) -> to
 
 
 def tf32_emulation(q, k, v, causal: bool, terms: int = 3) -> torch.Tensor:
-    """The TF32 kernel's arithmetic on float32 q [B, H, T, D], k/v [B, Hkv,
-    Tk, D] -> float32 output."""
+    """The TF32 kernel's arithmetic on float32 q [B, H, T, D], k [B, Hkv,
+    Tk, D], v [B, Hkv, Tk, Dv] -> float32 output [B, H, T, Dv]."""
     B, H, T, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     k = k.repeat_interleave(H // Hkv, dim=1)
@@ -73,7 +77,7 @@ def tf32_emulation(q, k, v, causal: bool, terms: int = 3) -> torch.Tensor:
         torch.tensor(LOG2E, dtype=torch.float32)
     m = torch.full((B, H, T), -1e30)
     l = torch.zeros((B, H, T))
-    acc = torch.zeros((B, H, T, D))
+    acc = torch.zeros((B, H, T, v.shape[-1]))
     qpos = torch.arange(T)[:, None]
     for k0 in range(0, Tk, BLOCK_K):
         kt, vt = k[:, :, k0:k0 + BLOCK_K], v[:, :, k0:k0 + BLOCK_K]
@@ -90,10 +94,10 @@ def tf32_emulation(q, k, v, causal: bool, terms: int = 3) -> torch.Tensor:
     return acc / l.clamp(min=1e-30)[..., None]
 
 
-def _qkv(seed, B, H, Hkv, T, D):
+def _qkv(seed, B, H, Hkv, T, D, Dv=None):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s).astype(np.float32)
-            for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, D))]
+            for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, Dv or D))]
 
 
 def _rel_err(got: np.ndarray, want: np.ndarray) -> float:
@@ -140,6 +144,19 @@ def test_emulation_is_near_float64(B, H, Hkv, T, D, causal):
     got = tf32_emulation(q, k, v, causal).numpy()
     want = ref.flash_attention_ref(q.double(), k.double(), v.double(), causal=causal).numpy()
     assert _rel_err(got, want) <= FLASH_F32_RTOL / 4
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,causal", MLA_SHAPES)
+def test_mla_pair_emulation_matches_reference_and_float64(B, H, Hkv, T, causal):
+    q, k, v = _qkv(T + 3, B, H, Hkv, T, 192, 128)
+    got = tf32_emulation(*map(torch.tensor, (q, k, v)), causal).numpy()
+    want = np.asarray(rattn.flash_attention_jnp(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal))
+    assert want.shape == got.shape == (B, H, T, 128)
+    assert _rel_err(got, want) <= FLASH_F32_RTOL
+    f64 = ref.flash_attention_ref(*(torch.tensor(a).double() for a in (q, k, v)),
+                                  causal=causal).numpy()
+    assert _rel_err(got, f64) <= FLASH_F32_RTOL / 4
 
 
 def test_one_term_misses_the_float32_bound():

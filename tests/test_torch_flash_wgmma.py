@@ -19,6 +19,9 @@ numpy from a seed.
 * Two terms are not enough: their residual reaches 2⁻¹⁶·P, and a row over
   few keys does not average it out, so an output near zero misses the
   per-element bound (``test_two_terms_miss_the_bf16_bound``).
+* The same holds at MLA's pair, q and k of 192 columns and v of 128
+  (``MLA_SHAPES``): against float64, and unrounded against the reference's
+  ``flash_attention_jnp`` (its Pallas kernel takes one head dim).
 """
 import math
 
@@ -45,6 +48,9 @@ RTOL = 1e-5
 SHAPES = [(1, 4, 1, 77, 64, True), (1, 2, 2, 257, 128, True),
           (2, 8, 2, 130, 64, True), (1, 8, 1, 200, 128, True),
           (1, 4, 4, 128, 64, False), (1, 2, 1, 256, 128, False)]
+#: (B, H, Hkv, T, causal) at (D, Dv) = (192, 128), deepseek-v3's MLA (H =
+#: Hkv): unaligned T causal and not
+MLA_SHAPES = [(1, 2, 2, 77, True), (1, 2, 2, 200, False), (2, 2, 2, 130, True)]
 
 
 @pytest.mark.parametrize("dtype,D,want", [
@@ -61,18 +67,20 @@ def test_variant_names_the_kernel(dtype, D, want):
                              "mma": "flash_attention.cu"}[want]
 
 
-def _bf16_qkv(seed, B, H, Hkv, T, D):
-    """float32 arrays holding bf16 values (each exact in both types)."""
+def _bf16_qkv(seed, B, H, Hkv, T, D, Dv=None):
+    """float32 arrays holding bf16 values (each exact in both types); v of
+    Dv columns (default D)."""
     rng = np.random.default_rng(seed)
     return [torch.tensor(rng.standard_normal(s).astype(np.float32))
             .to(torch.bfloat16).float().numpy()
-            for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, D))]
+            for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, Dv or D))]
 
 
 def _wgmma_emulation(q, k, v, causal: bool, terms: int = 3) -> torch.Tensor:
     """The wgmma kernel's arithmetic on float32 tensors of bf16 values
-    (q [B, H, T, D], k/v [B, Hkv, Tk, D]) -> unrounded float32 output; P
-    enters PV as ``terms`` bf16 terms by truncation (the kernel's 3)."""
+    (q [B, H, T, D], k [B, Hkv, Tk, D], v [B, Hkv, Tk, Dv]) -> unrounded
+    float32 output [B, H, T, Dv]; P enters PV as ``terms`` bf16 terms by
+    truncation (the kernel's 3)."""
     B, H, T, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     k = k.repeat_interleave(H // Hkv, dim=1)
@@ -81,7 +89,7 @@ def _wgmma_emulation(q, k, v, causal: bool, terms: int = 3) -> torch.Tensor:
     scale_log2 = scale * torch.tensor(LOG2E, dtype=torch.float32)
     m = torch.full((B, H, T), -1e30)
     l = torch.zeros((B, H, T))
-    acc = torch.zeros((B, H, T, D))
+    acc = torch.zeros((B, H, T, v.shape[-1]))
     qpos = torch.arange(T)[:, None]
     for k0 in range(0, Tk, BLOCK_K):
         kt, vt = k[:, :, k0:k0 + BLOCK_K], v[:, :, k0:k0 + BLOCK_K]
@@ -103,9 +111,9 @@ def _wgmma_emulation(q, k, v, causal: bool, terms: int = 3) -> torch.Tensor:
     return acc / l.clamp(min=1e-30)[..., None]
 
 
-def _bf16_bound_excess(B, H, Hkv, T, D, causal, terms):
+def _bf16_bound_excess(B, H, Hkv, T, D, causal, terms, Dv=None):
     """Largest err / (2⁻⁸·|ref| + 1e-6·max|ref|) of the rounded emulation."""
-    q, k, v = map(torch.tensor, _bf16_qkv(T + D, B, H, Hkv, T, D))
+    q, k, v = map(torch.tensor, _bf16_qkv(T + D, B, H, Hkv, T, D, Dv))
     got = _wgmma_emulation(q, k, v, causal, terms).to(torch.bfloat16).double()
     want = ref.flash_attention_ref(q.double(), k.double(), v.double(), causal=causal)
     bound = 2.0 ** -8 * want.abs() + 1e-6 * want.abs().max()
@@ -130,6 +138,22 @@ def test_emulation_matches_reference_in_float32(B, H, Hkv, T, D, causal):
         scale = float(np.abs(want).max())
         err = float(np.abs(got.astype(np.float64) - want).max())
         assert err <= RTOL * scale, (err, scale)
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,causal", MLA_SHAPES)
+def test_mla_pair_emulation_within_one_bf16_rounding(B, H, Hkv, T, causal):
+    assert _bf16_bound_excess(B, H, Hkv, T, 192, causal, terms=3, Dv=128) <= 1.0
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,causal", MLA_SHAPES)
+def test_mla_pair_emulation_matches_reference_in_float32(B, H, Hkv, T, causal):
+    q, k, v = _bf16_qkv(T + 1, B, H, Hkv, T, 192, 128)
+    got = _wgmma_emulation(*map(torch.tensor, (q, k, v)), causal).numpy()
+    want = np.asarray(rattn.flash_attention_jnp(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal))
+    assert want.shape == got.shape == (B, H, T, 128)
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    assert err <= RTOL * float(np.abs(want).max())
 
 
 def test_two_terms_miss_the_bf16_bound():

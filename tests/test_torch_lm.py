@@ -1,7 +1,9 @@
 """The port's LM serving path ≡ the reference's, on the CPU.
 
 Reduced configs of the four dense GQA models (llama3.2-1b, llama3.2-3b,
-qwen2-1.5b with its QKV bias, granite-3-2b), float32.  Parameters are the
+qwen2-1.5b with its QKV bias, granite-3-2b), of the MoE moonshot-v1-16b-a3b
+and of deepseek-v3-671b (MLA attention, whose cache holds the kv latent and
+the rope key), float32.  Parameters are the
 reference's pytree, either its own init (``registry.build(cfg).init``) or
 drawn with numpy at per-layer scales with every norm and bias perturbed (so
 that none of them is a no-op), moved into the port with
@@ -37,7 +39,7 @@ from repro_torch.models import blocks, layers, registry  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = ["llama3_2_1b", "llama3_2_3b", "qwen2_1_5b", "granite_3_2b",
-         "moonshot_v1_16b_a3b"]
+         "moonshot_v1_16b_a3b", "deepseek_v3_671b"]
 RTOL = 1e-5
 S = 16
 
@@ -90,9 +92,12 @@ def _tokens(cfg, shape, seed=0):
 
 
 def _assert_cache_close(got, want):
+    """Every cache entry of every layer: GQA's {"k", "v"}, MLA's {"c_kv",
+    "k_rope"}."""
     assert set(got) == set(want)
     for sub in want:
-        for c in ("k", "v"):
+        assert set(got[sub]) == set(want[sub])
+        for c in want[sub]:
             assert_close(got[sub][c], want[sub][c])
 
 

@@ -225,12 +225,12 @@ def flash_rows(libs) -> None:
             if VARIANTS[name][0] != FLASH_SRC:
                 continue
             fn = lib.repro_flash_attention_tf32
-            fn.argtypes = [P, P, P, P, I32, I32, I32, I32, I32, I32, I32, P]
+            fn.argtypes = [P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32, P]
             bufs[name] = torch.empty_like(q)
 
             def call(fn=fn, o=bufs[name], name=name):
                 rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv,
-                        T, T, D, int(causal), stream)
+                        T, T, D, D, int(causal), stream)
                 if rc:
                     raise RuntimeError(f"{name}: CUDA error {rc}")
                 return o
@@ -380,7 +380,7 @@ def mma_rows(libs) -> None:
                 continue
             o = torch.empty_like(q)
             args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv, T, T,
-                    D, tflash.DTYPES[dt], 1, 0, stream)
+                    D, D, tflash.DTYPES[dt], 1, 0, stream)
             call = _c_call(lib, tflash.FLASH_ATTENTION, args, name)
             outs[name] = lambda call=call, o=o: (call(), o)[1]
         errors = {}
