@@ -227,14 +227,25 @@ Phases (any failed check raises, and the script exits non-zero):
      bf16, ``flash_attention_tf32`` at (1, 128, 128, 1024, 192→128) float32
      and the mma kernel at (2, 4, 4, 64, 16→8) in both dtypes, each against
      its plain version in float64 (the equal-dim rows' gates), timed beside
-     SDPA with its bound;
+     SDPA with its bound; the G backward rows: ``flash_attention_bwd`` at
+     the wgmma shape in bf16, the tf32 shape in float32 and (2, 4, 4, 64,
+     16→8) in both dtypes (the SIMT route), as E1's rows (``--backward``
+     runs them too);
    - G1, float32 against float64: the MLA module alone at full width (2 ×
      512 tokens through the TF32 kernel, then 2 absorbed decode steps), and
      the reduced model as F1 runs moonshot's (its own prefill too);
    - G2, bf16 at full width and 1 of 61 layers (49.95 GB of parameters;
      two layers would not fit) through ``Server.generate`` (4 × 1024
      tokens, 32 new), as F2: one wgmma launch a prefill, none a decode
-     step, the tokens repeated.
+     step, the tokens repeated;
+   - after G2's memory is released, G3: the full-width MLA module's
+     gradient, float32 at 2 × 512 against float64 (one tf32 forward and
+     one tf32 backward call), then bf16 at 4 × 1024 (a wgmma forward and
+     backward call a step: ms a step, peak bytes, the backward's device ms,
+     two steps bitwise);
+   - G4: the reduced deepseek (MLA (16, 8), MoE, MTP head) trains: E2's
+     float32 step against float64 replaying the float32 run's routing,
+     then bf16 ``run_training`` steps, one repeated bitwise.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel with its numbers.  Imports nothing of JAX or the JAX package.
@@ -2119,19 +2130,21 @@ def bwd_device_ms(fn, calls: int = 5, by_kernel: dict | None = None):
     return sum(e.time_range.elapsed_us() for e in mine) / 1e3 / calls
 
 
-def flash_bwd_rows(rng) -> list:
-    """E1: ``flash_attention_bwd`` at BWD_CASES (the route ``bwd_variant``
+def flash_bwd_rows(rng, cases=BWD_CASES, path: str = "E1") -> list:
+    """E1: ``flash_attention_bwd`` at ``cases`` (BWD_CASES, or path G's
+    MLA_BWD_CASES, whose v head dim Dv follows D; the route ``bwd_variant``
     names) against ``ref.flash_attention_bwd_ref`` in float64 on the same
     inputs (o from the forward kernel), within BWD_RTOL of each output's
     largest magnitude, two calls bitwise equal; timed with CUDA events
     beside the route's plain version (device ms also by kernel,
     ``device_kernels``), SDPA's backward (``library_ms``: the forward outside
-    the timed window, ``torch.autograd.grad`` timed) and its
-    bound: the five T×T×D products of the backward (the causal half where
-    causal) at the tensor-core peak of the dtype (bf16 989, TF32 495
-    TFLOP/s, one term), against q, k, v, o, dO read and dQ, dK, dV written
-    once; float32 rows also ``tc_bound_ms``, the products as three TF32
-    terms.  At BWD_MAIN and BWD_MAIN_F32 the SIMT route (``bwd_launch("simt",
+    the timed window, ``torch.autograd.grad`` timed; ``library_refused``
+    with the reason where SDPA refuses) and its bound: the five T×T
+    products of the backward (the causal half where causal), three over D
+    (S, dQ, dK) and two over Dv (dP, dV), at the tensor-core peak of the
+    dtype (bf16 989, TF32 495 TFLOP/s, one term), against q, k, v, o, dO
+    read and dQ, dK, dV written once; float32 rows also ``tc_bound_ms``, the
+    products as three TF32 terms.  At BWD_MAIN and BWD_MAIN_F32 the SIMT route (``bwd_launch("simt",
     ...)``) is timed in turns beside them, events and device ms
     (``simt_ms``; ``simt_device_ms`` from windows of five calls, else of
     one: windows of five calls of the SIMT float32 backward were seen to
@@ -2142,13 +2155,16 @@ def flash_bwd_rows(rng) -> list:
     from repro_torch.kernels import ref
 
     rows = []
-    for B, H, Hkv, T, D, dtype, causal in BWD_CASES:
+    for case in cases:
+        B, H, Hkv, T, D = case[:5]
+        Dv, dtype, causal = case[5:] if len(case) == 8 else (D, *case[5:])
         dt = getattr(torch, dtype)
         q = normal(rng, (B, H, T, D)).to(dt)
-        k, v = (normal(rng, (B, Hkv, T, D)).to(dt) for _ in range(2))
-        do = normal(rng, (B, H, T, D)).to(dt)
+        k = normal(rng, (B, Hkv, T, D)).to(dt)
+        v = normal(rng, (B, Hkv, T, Dv)).to(dt)
+        do = normal(rng, (B, H, T, Dv)).to(dt)
         o = tflash.flash_attention(q, k, v, causal)
-        route = tflash.bwd_variant(dt, D)
+        route = tflash.bwd_variant(dt, D, Dv)
         got = tflash.flash_attention_bwd(q, k, v, o, do, causal)
         again = tflash.flash_attention_bwd(q, k, v, o, do, causal)
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -2157,7 +2173,8 @@ def flash_bwd_rows(rng) -> list:
         errors = {name: rel_err(g, w) for name, g, w in zip(("dq", "dk", "dv"), got, want)}
         max_abs = max(float((g.double() - w).abs().max()) for g, w in zip(got, want))
         del again, want
-        label = f"flash_attention_bwd {(B, H, Hkv, T, D)} {dtype} causal={causal} {route}"
+        label = (f"{path} flash_attention_bwd {(B, H, Hkv, T, D, Dv)} {dtype} "
+                 f"causal={causal} {route}")
         check_within(label, errors, dict.fromkeys(errors, BWD_RTOL[dtype]))
         if not bitwise:
             raise AssertionError(f"{label}: two calls differ")
@@ -2166,7 +2183,15 @@ def flash_bwd_rows(rng) -> list:
             tflash.flash_attention_bwd(q, k, v, o, do, causal)
 
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=True)
+        extra = {}
+        try:  # the yardstick only: the port never calls SDPA
+            out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                                 enable_gqa=True)
+            torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            out = None
+            extra["library_refused"] = str(e)[:300]
 
         def library():
             torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
@@ -2174,24 +2199,28 @@ def flash_bwd_rows(rng) -> list:
         def simt():
             tflash.bwd_launch("simt", q, k, v, o, do, causal)
 
-        main = (B, H, Hkv, T, D, dtype, causal) in (BWD_MAIN, BWD_MAIN_F32)
-        times = time_in_turns({"kernel": kernel, "library": library,
+        main = case in (BWD_MAIN, BWD_MAIN_F32)
+        times = time_in_turns({"kernel": kernel, **({"library": library} if out is not None
+                                                     else {}),
                                **({"simt": simt} if main else {})})
         pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
-        nbytes = q.element_size() * (4 * B * H * T * D + 4 * B * Hkv * T * D)
+        nbytes = q.element_size() * 2 * (B * H + B * Hkv) * T * (D + Dv)
+        flops = 2 * pairs * (3 * D + 2 * Dv)
         peak = BF16_OPS_PER_S if dt == torch.bfloat16 else TF32_OPS_PER_S
-        bms, by = bound_ms(nbytes, 5 * 2 * pairs * D, peak)
-        extra = {}
+        bms, by = bound_ms(nbytes, flops, peak)
         if dt == torch.float32:
-            extra["tc_bound_ms"] = bound_ms(nbytes, 3 * 5 * 2 * pairs * D, peak)[0]
+            extra["tc_bound_ms"] = bound_ms(nbytes, 3 * flops, peak)[0]
         split = {}
-        row = dict(shape=dict(B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=dtype), causal=causal,
+        shape = dict(B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=dtype)
+        if Dv != D:
+            shape = dict(B=B, H=H, Hkv=Hkv, T=T, D=D, Dv=Dv, dtype=dtype)
+        row = dict(shape=shape, causal=causal,
                    route=route, errors=errors, max_abs_err=max_abs, limit=BWD_RTOL[dtype],
                    bitwise_repeat=bitwise, kernel_ms=times["kernel"],
                    device_ms=bwd_device_ms(kernel, by_kernel=split), device_kernels=split,
                    plain_ms=time_ms(lambda: tflash.BWD_PLAIN[route](
                        q, k, v, o, do, causal=causal), reps=5, warmup=1),
-                   library_ms=times["library"], bound_ms=bms, bound_by=by,
+                   library_ms=times.get("library"), bound_ms=bms, bound_by=by,
                    bound_peak="bf16 tensor cores" if dt == torch.bfloat16
                    else "TF32 tensor cores, one term", **extra)
         if main:
@@ -2200,7 +2229,7 @@ def flash_bwd_rows(rng) -> list:
                 simt_device = bwd_device_ms(simt, 1)
             row.update(simt_ms=times["simt"], simt_device_ms=simt_device)
         rows.append(row)
-        log({"kernel": "flash_attention_bwd", **row})
+        log({"kernel": "flash_attention_bwd", "path": path, **row})
         del q, k, v, o, do, got, qs, ks, vs, out
     torch.cuda.empty_cache()
     return rows
@@ -2562,6 +2591,31 @@ def plain_decode_attention(q, k_cache, v_cache, pos: int, *, window=None):
     return torch.einsum("bhgt,bhtd->bhgd", s.softmax(-1), v_cache).reshape(B, H, D)
 
 
+def route_replay(routings: list, cfg):
+    """A stand-in for ``moe.moe_route`` that hands ``routings`` back in
+    order (popping each), with weights from its own router on its own x
+    (the float64 oracle's), so that a near-tie in the float64 router cannot
+    move an expert between two runs; and a one-item list counting the
+    token-expert choices its router would have made otherwise."""
+    import dataclasses
+
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    flips = [0]
+
+    def replayed(cfg_, router, x):
+        r = routings.pop(0)
+        probs = moe.router_probs(router, x)
+        own = moe.top_k(probs, k)[1]
+        flips[0] += int((F.one_hot(own, E).sum(1) - F.one_hot(r.experts, E).sum(1))
+                        .clamp(min=0).sum())
+        return dataclasses.replace(r, weights=moe.route_weights(probs, r.experts))
+
+    return replayed, flips
+
+
 def moe_float32_leg(cfg, prompts, kernels, expected: dict, label: str,
                     own_prefill: bool) -> dict:
     """Prefill and two decode steps of ``cfg`` in float32 (weights from
@@ -2579,7 +2633,6 @@ def moe_float32_leg(cfg, prompts, kernels, expected: dict, label: str,
     import dataclasses
 
     import torch
-    import torch.nn.functional as F
     from repro_torch.models import attention as tattn
     from repro_torch.models import moe, registry
     from torch.utils import _pytree as pytree
@@ -2625,16 +2678,7 @@ def moe_float32_leg(cfg, prompts, kernels, expected: dict, label: str,
         params64 = pytree.tree_map(lambda t: t.double(), params)
         del params
         queue = list(routings)
-        flips = [0]
-
-        def replayed(cfg_, router, x):
-            r = queue.pop(0)
-            probs = moe.router_probs(router, x)
-            own = moe.top_k(probs, k)[1]
-            flips[0] += int((F.one_hot(own, E).sum(1) - F.one_hot(r.experts, E).sum(1))
-                            .clamp(min=0).sum())
-            return dataclasses.replace(r, weights=moe.route_weights(probs, r.experts))
-
+        replayed, flips = route_replay(queue, cfg)
         with swapped(tattn, "flash_attention", plain_attention), \
                 swapped(tattn, "decode_attention", plain_decode_attention), \
                 swapped(moe, "moe_route", replayed):
@@ -3011,6 +3055,27 @@ MLA_F32_RTOL = 1e-4
 MLA_G2_LAYERS = 1
 
 
+#: G's backward rows (B, H, Hkv, T, D, Dv, dtype, causal): G2's attention in
+#: bf16 (the wgmma route), G1's in float32 (the tf32 route) and the reduced
+#: config's pair in both dtypes (the SIMT route)
+MLA_BWD_CASES = ((4, 128, 128, 1024, 192, 128, "bfloat16", True),
+                 (1, 128, 128, 1024, 192, 128, "float32", True),
+                 (2, 4, 4, 64, 16, 8, "float32", True),
+                 (2, 4, 4, 64, 16, 8, "bfloat16", True))
+#: G3: the full-width MLA module's gradient, in float32 at G1's 2 × 512
+#: against float64, and in bf16 at 4 × 1024 (G2's prefill) for
+#: MLA_G3_STEPS forward and backward steps
+MLA_G3_B, MLA_G3_T, MLA_G3_STEPS = 4, 1024, 4
+#: G4: the reduced deepseek (MLA (16, 8), MoE, MTP head), E2's float32 step
+#: at 4 × 64 in 2 microbatches, then MLA_G4_STEPS bf16 ``run_training``
+#: steps of 8 × 64
+MLA_G4_B, MLA_G4_T, MLA_G4_MICRO = 4, 64, 2
+MLA_G4_TRAIN_B, MLA_G4_STEPS = 8, 4
+#: the weight of the MTP head's loss in ``lm_loss``: at init both cross
+#: entropies are near ln(vocab), so a step-0 loss near (1 + it)·ln(vocab)
+MTP_WEIGHT = 0.3
+
+
 def mla_attention_rows(rng, rows: dict) -> list:
     """``flash_attention`` at MLA_ATTN_SHAPES against the plain version in
     float64 on the same inputs (``check_flash``'s gate, the equal-dim rows'
@@ -3134,13 +3199,258 @@ def mla_module_leg(kernels) -> dict:
     return out
 
 
+def mla_grad_leg(kernels) -> dict:
+    """G3: the gradient of deepseek's MLA module at full width (weights
+    ``init_from_spec`` of ``mla_specs`` from ``torch.Generator`` seed 0 on
+    the card, x N(0, 1)) through ``mla_forward``, of the loss Σ y ∘ W for a
+    fixed random W.  Float32 at MLA_G1_B × MLA_G1_T: d(x) and every
+    parameter's gradient against the same functions in float64
+    (``plain_attention`` swapped in by name), each within
+    TRAIN_E2_RTOL["grads"] of its largest magnitude; one tf32 forward and
+    one tf32 backward call.  Bf16 at MLA_G3_B × MLA_G3_T: MLA_G3_STEPS
+    forward and backward steps (each one wgmma forward and one wgmma
+    backward call), ms a step (host wall ended by a synchronise; the median
+    after the first), peak bytes, a profiled step's busy share and the
+    backward kernels' device ms; two steps' gradients bitwise equal."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import attention as tattn
+    from repro_torch.models.layers import init_from_spec
+    from torch.utils import _pytree as pytree
+
+    cfg = get_config(MLA_ARCH)
+
+    def grads(p, x, w):
+        leaves, spec = pytree.tree_flatten(p)
+        xs = [t.detach().requires_grad_() for t in [x, *leaves]]
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        y = tattn.mla_forward(cfg, pytree.tree_unflatten(xs[1:], spec), xs[0], positions)
+        return torch.autograd.grad((y * w).sum(), xs)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_from_spec(tattn.mla_specs(cfg), gen, torch.float32)
+    names = ["x"] + [pytree.keystr(k) for k, _ in pytree.tree_flatten_with_path(params)[0]]
+    x = torch.randn((MLA_G1_B, MLA_G1_T, cfg.d_model), generator=gen, device="cuda")
+    w = torch.randn(x.shape, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    reset(kernels)
+    got = grads(params, x, w)
+    torch.cuda.synchronize()
+    launches = read_launches("G3 MLA gradient, float32", kernels, {
+        "flash_attention_tf32": 1, "flash_attention_bwd_tf32": 1, "flash_attention": 0,
+        "flash_attention_wgmma": 0, "flash_attention_bwd": 0,
+        "flash_attention_bwd_wgmma": 0})
+    params64 = pytree.tree_map(lambda t: t.double(), params)
+    with swapped(tattn, "flash_attention", plain_attention):
+        wants = grads(params64, x.double(), w.double())
+    errors = {n: rel_err(g, v) for n, g, v in zip(names, got, wants)}
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    del params, params64, got, wants, x, w
+    torch.cuda.empty_cache()
+    check_within("G3 MLA gradient, float32", errors,
+                 dict.fromkeys(errors, TRAIN_E2_RTOL["grads"]))
+    if not finite:
+        raise AssertionError("G3 MLA gradient: a gradient is not finite")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_from_spec(tattn.mla_specs(cfg), gen, torch.bfloat16)
+    x = torch.randn((MLA_G3_B, MLA_G3_T, cfg.d_model), generator=gen,
+                    device="cuda").bfloat16()
+    w = torch.randn(x.shape, generator=gen, device="cuda").bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    step_s, kept = [], []
+    for i in range(MLA_G3_STEPS):
+        t0 = time.perf_counter()
+        g = grads(params, x, w)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if i < 2:
+            kept.append(g)
+        del g
+    launches16 = read_launches("G3 MLA gradient, bf16", kernels, {
+        "flash_attention_wgmma": MLA_G3_STEPS, "flash_attention_bwd_wgmma": MLA_G3_STEPS,
+        "flash_attention": 0, "flash_attention_tf32": 0, "flash_attention_bwd": 0,
+        "flash_attention_bwd_tf32": 0})
+    peak = torch.cuda.max_memory_allocated()
+    bitwise = all(torch.equal(a, b) for a, b in zip(*kept))
+    finite16 = all(bool(torch.isfinite(g).all()) for g in kept[0])
+    del kept
+    events, wall = device_events(lambda: grads(params, x, w), 1)
+    profile = _busy(events, wall)
+    backward = {}
+    for e in events:
+        if "flash_bwd" in e.name:
+            backward[e.name[:90]] = backward.get(e.name[:90], 0.0) + e.time_range.elapsed_us() / 1e3
+    profile.update(backward_kernels=backward, backward_ms=sum(backward.values()))
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    del params, x, w, events
+    torch.cuda.empty_cache()
+    out = dict(path="mla_grad", arch=cfg.name, n_params=n_params,
+               float32=dict(batch=MLA_G1_B, seq=MLA_G1_T, errors=errors,
+                            limit=TRAIN_E2_RTOL["grads"], launches=launches),
+               bf16=dict(batch=MLA_G3_B, seq=MLA_G3_T, steps=MLA_G3_STEPS,
+                         step_ms=1e3 * statistics.median(step_s[1:]),
+                         step_ms_each=[1e3 * t for t in step_s], max_memory_allocated=peak,
+                         repeat_bitwise=bitwise, finite=finite16, profile=profile,
+                         launches=launches16),
+               launches={n: launches[n] + launches16[n] for n in launches})
+    log(out)
+    if not finite16 or not bitwise:
+        raise AssertionError(f"G3 MLA gradient, bf16: finite {finite16}, repeat bitwise "
+                             f"{bitwise}")
+    return out
+
+
+def mla_train_leg(kernels) -> dict:
+    """G4: the reduced deepseek (MLA (16, 8): the mma forward and the SIMT
+    backward; MoE; the MTP head) trains on the card.  First E2's float32
+    check: ``make_train_step`` at MLA_G4_B × MLA_G4_T from ``lm_data`` in
+    MLA_G4_MICRO microbatches with float32 accumulators (the config's plan
+    accumulates in bf16), with AdamW and with SGD at TRAIN_E2_SGD_LR
+    (its update gives back the step's gradient), against the same port
+    functions in float64 run microbatch by microbatch as the step runs them
+    (``plain_attention`` swapped in by name, ``moe_route`` replaying the
+    float32 SGD step's recorded routings with weights from the float64
+    router, as F1): the loss, ``grad_norm``, every gradient leaf and the
+    AdamW step (``adamw_first_step64``) within TRAIN_E2_RTOL.  Then
+    MLA_G4_STEPS bf16 steps of ``run_training`` (MLA_G4_TRAIN_B ×
+    MLA_G4_T, the config's Adafactor): every loss finite, step 0 within
+    TRAIN_E3_LOSS0_SLACK of (1 + MTP_WEIGHT)·ln(vocab), one more step twice
+    from the same state bitwise equal.  Flash launches a step: forward
+    (2·layers + 1)·microbatches (remat ``full`` runs each layer twice, the
+    MTP block once), backward (layers + 1)·microbatches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data import lm_data
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.train import make_train_plan, make_train_step, run_training
+    from repro_torch.models import moe, registry
+    from repro_torch.optim import adamw, make_optimizer, sgd
+    from torch.utils import _pytree as pytree
+
+    cfg = get_config(MLA_ARCH).reduced()
+    shape = ShapeSpec("g4", MLA_G4_T, MLA_G4_B, "train")
+    api = registry.build(cfg)
+    params = api.init(seed=SEED, device="cuda")
+    batch = lm_data._batch_for_step(cfg, shape, SEED, 0, "cuda")
+    # float32 accumulators: the config's plan accumulates in bf16 (its
+    # Adafactor memory plan), which the bf16 run below keeps
+    plan = dataclasses.replace(make_train_plan(cfg, shape, make_smoke_mesh()),
+                               n_microbatches=MLA_G4_MICRO, accum_dtype=torch.float32)
+    lr = 3e-4
+    opt, descent = adamw(lr), sgd(TRAIN_E2_SGD_LR)
+    routings = []
+    route = moe.moe_route
+
+    def recorded(cfg_, router, x):
+        routings.append(route(cfg_, router, x))
+        return routings[-1]
+
+    torch.cuda.synchronize()
+    reset(kernels)
+    adam_params, _, metrics = make_train_step(cfg, api, opt, plan)(
+        params, opt.init(params), batch)
+    with swapped(moe, "moe_route", recorded):
+        sgd_params, _, sgd_metrics = make_train_step(cfg, api, descent, plan)(
+            params, descent.init(params), batch)
+    torch.cuda.synchronize()
+    per_step = plan.n_microbatches
+    launches = read_launches("G4 train steps, float32", kernels, {
+        "flash_attention": 2 * (2 * cfg.n_layers + 1) * per_step,
+        "flash_attention_bwd": 2 * (cfg.n_layers + 1) * per_step,
+        "flash_attention_tf32": 0, "flash_attention_wgmma": 0,
+        "flash_attention_bwd_tf32": 0, "flash_attention_bwd_wgmma": 0})
+    step_grads = pytree.tree_map(lambda p, q: (p.double() - q.double()) / TRAIN_E2_SGD_LR,
+                                 params, sgd_params)
+    cfg64 = dataclasses.replace(cfg, act_dtype="float64", param_dtype="float64")
+    api64 = registry.build(cfg64)
+    params64 = pytree.tree_map(lambda t: t.double(), params)
+    replayed, flips = route_replay(routings, cfg)
+    n_micro = plan.n_microbatches
+    losses64, grads64 = [], None
+    with swapped(moe, "moe_route", replayed):
+        for i in range(n_micro):
+            part = {key: v.reshape(n_micro, -1, *v.shape[1:])[i] for key, v in batch.items()}
+            loss_i, g_i = oracle_loss_and_grads(api64, params64, part)
+            losses64.append(float(loss_i))
+            grads64 = g_i if grads64 is None else pytree.tree_map(torch.add, grads64, g_i)
+    if routings:
+        raise AssertionError(f"G4: {len(routings)} routings not replayed")
+    grads64 = pytree.tree_map(lambda g: g / n_micro, grads64)
+    loss64 = sum(losses64) / n_micro
+    norm64 = math.sqrt(sum(float(g.square().sum()) for g in pytree.tree_leaves(grads64)))
+    errors = {"loss": abs(float(metrics["loss"]) - loss64) / abs(loss64),
+              "grad_norm": abs(float(metrics["grad_norm"]) - norm64) / norm64,
+              "grads": max(tree_errors(step_grads, grads64).values()),
+              "params": max(tree_errors(adam_params, adamw_first_step64(
+                  params, step_grads, lr)).values())}
+    step = dict(batch=MLA_G4_B, seq=MLA_G4_T, n_microbatches=n_micro,
+                loss=float(metrics["loss"]), loss_oracle=loss64,
+                grad_norm=float(metrics["grad_norm"]), grad_norm_oracle=norm64,
+                steps_equal_grad_norm=float(sgd_metrics["grad_norm"])
+                == float(metrics["grad_norm"]), errors=errors, limits=TRAIN_E2_RTOL,
+                float64_router_other_choices=flips[0], launches=launches)
+    del params, adam_params, sgd_params, step_grads, params64, grads64
+    check_within("G4 train step", errors, TRAIN_E2_RTOL)
+
+    cfg16 = dataclasses.replace(cfg, act_dtype="bfloat16", param_dtype="bfloat16")
+    shape16 = ShapeSpec("g4", MLA_G4_T, MLA_G4_TRAIN_B, "train")
+    plan16 = make_train_plan(cfg16, shape16, make_smoke_mesh())
+    torch.cuda.synchronize()
+    reset(kernels)
+    params, history = run_training(cfg16, steps=MLA_G4_STEPS, batch_size=MLA_G4_TRAIN_B,
+                                   seq_len=MLA_G4_T, seed=SEED, log_every=0, device="cuda")
+    torch.cuda.synchronize()
+    per_step = plan16.n_microbatches * MLA_G4_STEPS
+    launches16 = read_launches("G4 bf16 training", kernels, {
+        "flash_attention": (2 * cfg.n_layers + 1) * per_step,
+        "flash_attention_bwd": (cfg.n_layers + 1) * per_step,
+        "flash_attention_tf32": 0, "flash_attention_wgmma": 0,
+        "flash_attention_bwd_tf32": 0, "flash_attention_bwd_wgmma": 0})
+    losses = [h["loss"] for h in history]
+    api16 = registry.build(cfg16)
+    opt16 = make_optimizer(cfg16.optimizer, 3e-4)
+    state = opt16.init(params)
+    batch16 = lm_data._batch_for_step(cfg16, shape16, SEED, MLA_G4_STEPS, "cuda")
+    step_fn = make_train_step(cfg16, api16, opt16, plan16)
+    runs = [step_fn(params, state, batch16) for _ in range(2)]
+    (p1, _, m1), (p2, _, m2) = runs
+    bitwise = bool(torch.equal(m1["loss"], m2["loss"])) and all(
+        torch.equal(a, b) for a, b in zip(pytree.tree_leaves(p1), pytree.tree_leaves(p2)))
+    del params, state, runs, p1, p2
+    torch.cuda.empty_cache()
+    center = (1 + MTP_WEIGHT) * math.log(cfg.vocab_size)
+    out = dict(path="mla_train", arch=cfg.name, float32_step=step,
+               bf16=dict(steps=MLA_G4_STEPS, batch=MLA_G4_TRAIN_B, seq=MLA_G4_T,
+                         n_microbatches=plan16.n_microbatches, losses=losses,
+                         step_ms_each=[1e3 * h["time_s"] for h in history],
+                         loss0_center=center, repeat_loss=float(m1["loss"]),
+                         repeat_bitwise=bitwise, launches=launches16),
+               launches={n: launches[n] + launches16[n] for n in launches})
+    log(out)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"G4: a loss is not finite: {losses}")
+    if abs(losses[0] - center) > TRAIN_E3_LOSS0_SLACK:
+        raise AssertionError(f"G4: step 0 loss {losses[0]} is not within "
+                             f"{TRAIN_E3_LOSS0_SLACK} of {center}")
+    if not bitwise:
+        raise AssertionError("G4: two steps from one state differ")
+    return out
+
+
 def mla_phase(kernels, rows: dict, laps: Laps) -> dict:
     """Path G, deepseek-v3-671b (MLA attention), after path F's memory is
-    released: the forward routes at MLA's head-dim pairs (``rows``), then
-    with the counts reset before each leg G1 (float32 against float64: the
-    MLA module at full width, and the reduced model as F1 runs moonshot's)
-    and G2 (serving at full width and MLA_G2_LAYERS layer through
-    ``Server``, as F2)."""
+    released: the forward routes at MLA's head-dim pairs (``rows``) and the
+    backward routes (MLA_BWD_CASES), then with the counts reset before each
+    leg G1 (float32 against float64: the MLA module at full width, and the
+    reduced model as F1 runs moonshot's), G2 (serving at full width and
+    MLA_G2_LAYERS layer through ``Server``, as F2), and after G2's memory is
+    released G3 (the full-width module's gradient) and G4 (the reduced
+    model trains)."""
     import dataclasses
 
     import torch
@@ -3151,6 +3461,8 @@ def mla_phase(kernels, rows: dict, laps: Laps) -> dict:
     log({"path": "mla", "memory_allocated_at_start": torch.cuda.memory_allocated()})
     attn_rows = mla_attention_rows(np.random.default_rng(SEED), rows)
     laps.lap("G attention at MLA's head-dim pairs")
+    bwd_rows = flash_bwd_rows(np.random.default_rng(SEED), MLA_BWD_CASES, "G")
+    laps.lap("G attention backward at MLA's head-dim pairs")
     legs = [mla_module_leg(kernels)]
     small = get_config(MLA_ARCH).reduced()
     small_prompts = np.random.default_rng(SEED).integers(
@@ -3167,7 +3479,14 @@ def mla_phase(kernels, rows: dict, laps: Laps) -> dict:
                            "are 73 GB of bf16 parameters (the MTP head included) "
                            "before activations")))
     laps.lap("G2 deepseek serving")
-    return dict(rows=attn_rows, legs=legs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({"path": "mla_training", "memory_allocated_at_start": torch.cuda.memory_allocated()})
+    legs.append(mla_grad_leg(kernels))
+    laps.lap("G3 MLA module gradient")
+    legs.append(mla_train_leg(kernels))
+    laps.lap("G4 reduced deepseek training")
+    return dict(rows=attn_rows, bwd_rows=bwd_rows, legs=legs)
 
 
 # ---------------------------------------------------------------------------
@@ -6501,8 +6820,10 @@ def main() -> int:
     # path F, the MoE model (moonshot-v1-16b-a3b): float32 against float64
     # at 2 layers and reduced (F1), serving at full depth (F2), training (F3)
     moe = moe_phase(kernels, laps)
-    # path G, MLA attention (deepseek-v3-671b): the forward routes at its
-    # head-dim pairs, float32 against float64 (G1), serving at full width (G2)
+    # path G, MLA attention (deepseek-v3-671b): the forward and backward
+    # routes at its head-dim pairs, float32 against float64 (G1), serving at
+    # full width (G2), the module's gradient (G3), the reduced model trains
+    # (G4)
     mla = mla_phase(kernels, rows, laps)
     # path D's float32 legs are the TF32 and mma flash kernels' paths
     # the housing legs' executor runs (capture and replay-only, or the
@@ -6609,24 +6930,30 @@ def main() -> int:
             **({"mla": mla_rows} if mla_rows else {})))
     # the three backward routes: the wgmma route at BWD_MAIN and the tf32
     # route at BWD_MAIN_F32 (each with the SIMT route's time at its shape
-    # beside it), the SIMT route at BWD_SIMT
+    # beside it), the SIMT route at BWD_SIMT; each with path G's rows of
+    # its route at MLA's head-dim pairs
+    bwd_rows = train["rows"] + mla["bwd_rows"]
     for name, route, (B, H, Hkv, T, D, dtype, causal) in (
             ("flash_attention_bwd_wgmma", "wgmma", BWD_MAIN),
             ("flash_attention_bwd_tf32", "tf32", BWD_MAIN_F32),
             ("flash_attention_bwd", "simt", BWD_SIMT)):
         row = next(r for r in train["rows"] if r["causal"] == causal and r["shape"] == dict(
             B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=dtype))
+        mla_rows = [{k: r[k] for k in ("shape", "kernel_ms", "device_ms", "device_kernels",
+                                       "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "library_refused", "tc_bound_ms") if k in r}
+                    for r in mla["bwd_rows"] if r["route"] == route]
         summary.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
             replaces="no Pallas original: the gradient jax.grad takes of "
                      "src/repro/models/attention.py:76",
             launches=launched[name],
-            max_abs_err=max(r["max_abs_err"] for r in train["rows"] if r["route"] == route),
+            max_abs_err=max(r["max_abs_err"] for r in bwd_rows if r["route"] == route),
             ms=row["kernel_ms"], device_ms=row["device_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape={**row["shape"], "causal": causal}, bound_peak=row["bound_peak"],
             **{k: row[k] for k in ("tc_bound_ms", "device_kernels", "simt_ms", "simt_device_ms")
-               if k in row}))
+               if k in row}, mla=mla_rows))
     log({"kernels": summary})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
@@ -6635,9 +6962,10 @@ def main() -> int:
 
 
 def backward_main() -> int:
-    """``python3 chip_smoke.py --backward``: path E's E1 alone (the flash
-    kernels built, then ``flash_bwd_rows``), for work on the backward
-    kernels; the whole smoke runs without arguments."""
+    """``python3 chip_smoke.py --backward``: path E's E1 and path G's
+    backward rows alone (the flash kernels built, then ``flash_bwd_rows`` at
+    BWD_CASES and at MLA_BWD_CASES), for work on the backward kernels; the
+    whole smoke runs without arguments."""
     import torch
 
     if not torch.cuda.is_available():
@@ -6655,6 +6983,7 @@ def backward_main() -> int:
                tflash.FLASH_ATTENTION_BWD_WGMMA, tflash.FLASH_ATTENTION_BWD_TF32]
     log({"build_s": _cuda.build_all(kernels)})
     flash_bwd_rows(np.random.default_rng(SEED))
+    flash_bwd_rows(np.random.default_rng(SEED), MLA_BWD_CASES, "G")
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
     return 0

@@ -1,6 +1,9 @@
 // The gradient of causal (or full) flash attention on Hopper: dQ, dK and dV
-// of o = softmax(q kᵀ / √D) v for q, o, dO [B, H, T, D] and k, v
-// [B, Hkv, Tk, D], float32 or bfloat16, D ∈ {8, 16, 32, 64, 128}.
+// of o = softmax(q kᵀ / √D) v for q [B, H, T, D], k [B, Hkv, Tk, D], v
+// [B, Hkv, Tk, Dv] and o, dO [B, H, T, Dv], float32 or bfloat16, (D, Dv) ∈
+// {(8, 8), (16, 16), (32, 32), (64, 64), (128, 128), (16, 8)}: (16, 8) is
+// deepseek-v3-671b's reduced MLA (q and k of nope + rope columns, v of its
+// own width).
 //
 // Replaces: no Pallas kernel.  The reference trains by jax.grad through
 // flash_attention_jnp (src/repro/models/attention.py:76), and the Pallas
@@ -17,7 +20,7 @@
 //
 // FlashAttention-2's backward, recomputing P from q, k and the row
 // logsumexp L (the forward kernels do not write L):
-//   Δ = rowsum(dO ∘ O), P = exp(S − L), dV = Pᵀ dO,
+//   Δ = rowsum(dO ∘ O) over Dv, P = exp(S − L), dV = Pᵀ dO,
 //   dS = P ∘ (dO Vᵀ − Δ), dQ = dS K / √D, dK = dSᵀ Q / √D.
 // Two kernels, launched in order on the caller's stream by one C entry:
 // - flash_bwd_dq_kernel, a block per (b·H + h, tile of 64 query rows):
@@ -38,7 +41,8 @@
 // 64 × 64 score tile (rows ty + 16i, columns tx + 16j, so the 16 threads of
 // a row read 16 consecutive padded rows of K: distinct banks) and the same
 // rows' output columns tx + 16j.  Tiles are staged in shared memory as
-// float32 rows padded to D + 1 floats; the score tile to 65.
+// float32 rows padded to D + 1 floats (dO and V to Dv + 1); the score tile
+// to 65.
 //
 // Bound.  A causal backward is five T×T×D products over the causal half
 // (S, dP, dV, dQ, dK): 5·B·H·T²·D flops; at llama3.2-1b's microbatch (B 4,
@@ -67,15 +71,21 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162f
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
+// A staged tile of 64 rows of D columns (q and k: D, dO and v: Dv)
 template <int D>
-struct Bwd {
-  static constexpr int kPitch = D + 1;            // staged q, dO, k, v rows
+struct Rows {
+  static constexpr int kPitch = D + 1;            // floats a staged row
   static constexpr int kRowTile = kTile * kPitch;  // one staged tile
-  static constexpr int kScore = kTile * kSPitch;
   static constexpr int kDJ = (D + 15) / 16;        // output columns a thread
+};
+
+template <int D, int DV>
+struct Bwd {
+  static constexpr int kScore = kTile * kSPitch;
+  static constexpr int kTiles = 2 * (Rows<D>::kRowTile + Rows<DV>::kRowTile);
   // dq: Q, dO, K, V and dS; dkdv: K, V, Q, dO, P/dS and L, Δ of 64 rows
-  static constexpr size_t kDqBytes = sizeof(float) * (4 * kRowTile + kScore);
-  static constexpr size_t kDkvBytes = sizeof(float) * (4 * kRowTile + kScore + 2 * kTile);
+  static constexpr size_t kDqBytes = sizeof(float) * (kTiles + kScore);
+  static constexpr size_t kDkvBytes = sizeof(float) * (kTiles + kScore + 2 * kTile);
 };
 
 // rows [row0, row0 + 64) of a [rows, D] matrix into a padded float tile;
@@ -85,7 +95,7 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int row0, int ro
   for (int e = threadIdx.x; e < kTile * D; e += kThreadsBwd) {
     const int r = e / D;
     const int c = e - r * D;
-    dst[r * Bwd<D>::kPitch + c] =
+    dst[r * Rows<D>::kPitch + c] =
         row0 + r < rows ? to_float(src[static_cast<long long>(row0) * D + e]) : 0.f;
   }
 }
@@ -94,7 +104,7 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int row0, int ro
 template <int D>
 __device__ __forceinline__ void micro_dot(const float* a, const float* b, int ty, int tx,
                                           float s[4][4]) {
-  constexpr int P = Bwd<D>::kPitch;
+  constexpr int P = Rows<D>::kPitch;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -117,15 +127,15 @@ __device__ __forceinline__ void micro_dot(const float* a, const float* b, int ty
 // score tile w (pitch 65) and the padded float tile m
 template <int D>
 __device__ __forceinline__ void micro_tn(const float* w, const float* m, int ty, int tx,
-                                         float acc[4][Bwd<D>::kDJ]) {
-  constexpr int P = Bwd<D>::kPitch;
+                                         float acc[4][Rows<D>::kDJ]) {
+  constexpr int P = Rows<D>::kPitch;
 #pragma unroll 4
   for (int r = 0; r < kTile; ++r) {
     float x[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) x[i] = w[r * kSPitch + ty + 16 * i];
 #pragma unroll
-    for (int j = 0; j < Bwd<D>::kDJ; ++j) {
+    for (int j = 0; j < Rows<D>::kDJ; ++j) {
       const int d = tx + 16 * j;
       if (d < D) {
         const float y = m[r * P + d];
@@ -136,22 +146,23 @@ __device__ __forceinline__ void micro_tn(const float* w, const float* m, int ty,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreadsBwd)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ o,
                         const T* __restrict__ dout, T* __restrict__ dq,
                         float* __restrict__ lse2, float* __restrict__ delta, int H, int Hkv,
                         int Tq, int Tk, float scale, int causal) {
-  using L = Bwd<D>;
-  constexpr int P = L::kPitch;
-  constexpr int DJ = L::kDJ;
+  constexpr int P = Rows<D>::kPitch;
+  constexpr int PV = Rows<DV>::kPitch;
+  constexpr int DJ = Rows<D>::kDJ;
+  constexpr int DJV = Rows<DV>::kDJ;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* dOs = Qs + L::kRowTile;
-  float* Ks = dOs + L::kRowTile;
-  float* Vs = Ks + L::kRowTile;
-  float* Ss = Vs + L::kRowTile;
+  float* dOs = Qs + Rows<D>::kRowTile;
+  float* Ks = dOs + Rows<DV>::kRowTile;
+  float* Vs = Ks + Rows<D>::kRowTile;
+  float* Ss = Vs + Rows<DV>::kRowTile;
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
@@ -163,11 +174,11 @@ __global__ void __launch_bounds__(kThreadsBwd)
   const int q0 = qt * kTile;
   const long long row_base = static_cast<long long>(bh) * Tq;
   const T* kb = k + kvh * Tk * D;
-  const T* vb = v + kvh * Tk * D;
+  const T* vb = v + kvh * Tk * DV;
   const float c2 = scale * kLog2e;  // scores to base-2 exponents
 
   stage<T, D>(Qs, q + row_base * D, q0, Tq);
-  stage<T, D>(dOs, dout + row_base * D, q0, Tq);
+  stage<T, DV>(dOs, dout + row_base * DV, q0, Tq);
   __syncthreads();
 
   // Δ of the thread's rows: the 16 threads of a row each sum columns
@@ -178,11 +189,11 @@ __global__ void __launch_bounds__(kThreadsBwd)
     const int r = ty + 16 * i;
     float part = 0.f;
     if (q0 + r < Tq) {
-      const T* orow = o + (row_base + q0 + r) * D;
+      const T* orow = o + (row_base + q0 + r) * DV;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
+      for (int j = 0; j < DJV; ++j) {
         const int d = tx + 16 * j;
-        if (d < D) part = fmaf(dOs[r * P + d], to_float(orow[d]), part);
+        if (d < DV) part = fmaf(dOs[r * PV + d], to_float(orow[d]), part);
       }
     }
 #pragma unroll
@@ -252,11 +263,11 @@ __global__ void __launch_bounds__(kThreadsBwd)
     const int k0 = t * kTile;
     __syncthreads();  // the previous tile's readers are done
     stage<T, D>(Ks, kb, k0, Tk);
-    stage<T, D>(Vs, vb, k0, Tk);
+    stage<T, DV>(Vs, vb, k0, Tk);
     __syncthreads();
     float s[4][4], dp[4][4];
     micro_dot<D>(Qs, Ks, ty, tx, s);
-    micro_dot<D>(dOs, Vs, ty, tx, dp);
+    micro_dot<DV>(dOs, Vs, ty, tx, dp);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qpos = q0 + ty + 16 * i;
@@ -300,22 +311,22 @@ __global__ void __launch_bounds__(kThreadsBwd)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreadsBwd)
     flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse2, const float* __restrict__ delta,
                           T* __restrict__ dk, T* __restrict__ dv, int H, int Hkv, int Tq,
                           int Tk, float scale, int causal) {
-  using L = Bwd<D>;
-  constexpr int DJ = L::kDJ;
+  constexpr int DJ = Rows<D>::kDJ;
+  constexpr int DJV = Rows<DV>::kDJ;
   extern __shared__ float smem[];
   float* Ks = smem;
-  float* Vs = Ks + L::kRowTile;
-  float* Qs = Vs + L::kRowTile;
-  float* dOs = Qs + L::kRowTile;
-  float* Ps = dOs + L::kRowTile;
-  float* Ls = Ps + L::kScore;
+  float* Vs = Ks + Rows<D>::kRowTile;
+  float* Qs = Vs + Rows<DV>::kRowTile;
+  float* dOs = Qs + Rows<D>::kRowTile;
+  float* Ps = dOs + Rows<DV>::kRowTile;
+  float* Ls = Ps + Bwd<D, DV>::kScore;
   float* Ds = Ls + kTile;
 
   const int tx = threadIdx.x % 16;
@@ -330,13 +341,16 @@ __global__ void __launch_bounds__(kThreadsBwd)
   const float c2 = scale * kLog2e;
 
   stage<T, D>(Ks, k + kv_base * D, k0, Tk);
-  stage<T, D>(Vs, v + kv_base * D, k0, Tk);
+  stage<T, DV>(Vs, v + kv_base * DV, k0, Tk);
 
-  float dka[4][DJ], dva[4][DJ];
+  float dka[4][DJ], dva[4][DJV];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) dka[i][j] = dva[i][j] = 0.f;
+    for (int j = 0; j < DJ; ++j) dka[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DJV; ++j) dva[i][j] = 0.f;
+  }
 
   const int nq = (Tq + kTile - 1) / kTile;
   // causal: query i sees keys 0..i, so tiles of rows below k0 see none of
@@ -348,7 +362,7 @@ __global__ void __launch_bounds__(kThreadsBwd)
       const int q0 = qt * kTile;
       __syncthreads();  // the previous tile's readers are done
       stage<T, D>(Qs, q + row_base * D, q0, Tq);
-      stage<T, D>(dOs, dout + row_base * D, q0, Tq);
+      stage<T, DV>(dOs, dout + row_base * DV, q0, Tq);
       if (threadIdx.x < kTile) {
         const int r = q0 + threadIdx.x;
         Ls[threadIdx.x] = r < Tq ? lse2[row_base + r] : 0.f;
@@ -358,7 +372,7 @@ __global__ void __launch_bounds__(kThreadsBwd)
       // query rows ty + 16i against keys tx + 16j
       float s[4][4], dp[4][4];
       micro_dot<D>(Qs, Ks, ty, tx, s);
-      micro_dot<D>(dOs, Vs, ty, tx, dp);
+      micro_dot<DV>(dOs, Vs, ty, tx, dp);
       float ds[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -374,7 +388,7 @@ __global__ void __launch_bounds__(kThreadsBwd)
         }
       }
       __syncthreads();
-      micro_tn<D>(Ps, dOs, ty, tx, dva);  // dV[c] += Σ_r P[r][c] dO[r]
+      micro_tn<DV>(Ps, dOs, ty, tx, dva);  // dV[c] += Σ_r P[r][c] dO[r]
       __syncthreads();
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -390,27 +404,30 @@ __global__ void __launch_bounds__(kThreadsBwd)
     const int c = k0 + ty + 16 * i;
     if (c >= Tk) continue;
     T* krow = dk + (kv_base + c) * D;
-    T* vrow = dv + (kv_base + c) * D;
+    T* vrow = dv + (kv_base + c) * DV;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) {
-        store(krow + d, dka[i][j] * scale);
-        store(vrow + d, dva[i][j]);
-      }
+      if (d < D) store(krow + d, dka[i][j] * scale);
+    }
+#pragma unroll
+    for (int j = 0; j < DJV; ++j) {
+      const int d = tx + 16 * j;
+      if (d < DV) store(vrow + d, dva[i][j]);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, void* dq, void* dk, void* dv, float* lse2,
                    float* delta, int B, int H, int Hkv, int Tq, int Tk, int causal,
                    cudaStream_t stream) {
-  auto dq_kernel = flash_bwd_dq_kernel<T, D>;
-  auto dkv_kernel = flash_bwd_dkdv_kernel<T, D>;
-  cudaError_t err = repro::allow_smem(dq_kernel, Bwd<D>::kDqBytes);
-  if (err == cudaSuccess) err = repro::allow_smem(dkv_kernel, Bwd<D>::kDkvBytes);
+  using L = Bwd<D, DV>;
+  auto dq_kernel = flash_bwd_dq_kernel<T, D, DV>;
+  auto dkv_kernel = flash_bwd_dkdv_kernel<T, D, DV>;
+  cudaError_t err = repro::allow_smem(dq_kernel, L::kDqBytes);
+  if (err == cudaSuccess) err = repro::allow_smem(dkv_kernel, L::kDkvBytes);
   if (err != cudaSuccess) return err;
   // the reference's 1.0 / (D ** 0.5), a double rounded to float
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
@@ -419,13 +436,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
   const dim3 grid_q((Tq + kTile - 1) / kTile, B * H);
-  dq_kernel<<<grid_q, kThreadsBwd, Bwd<D>::kDqBytes, stream>>>(
+  dq_kernel<<<grid_q, kThreadsBwd, L::kDqBytes, stream>>>(
       qt, kt, vt, static_cast<const T*>(o), dot, static_cast<T*>(dq), lse2, delta, H, Hkv,
       Tq, Tk, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_k((Tk + kTile - 1) / kTile, B * Hkv);
-  dkv_kernel<<<grid_k, kThreadsBwd, Bwd<D>::kDkvBytes, stream>>>(
+  dkv_kernel<<<grid_k, kThreadsBwd, L::kDkvBytes, stream>>>(
       qt, kt, vt, dot, lse2, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Tq,
       Tk, scale, causal);
   return cudaGetLastError();
@@ -435,32 +452,32 @@ template <typename T>
 cudaError_t launch_dim(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, void* dq, void* dk, void* dv, float* lse2,
                        float* delta, int B, int H, int Hkv, int Tq, int Tk, int D,
-                       int causal, cudaStream_t stream) {
-  switch (D) {
-#define REPRO_BWD_CASE(DIM)                                                                \
-  case DIM:                                                                                \
-    return launch<T, DIM>(q, k, v, o, dout, dq, dk, dv, lse2, delta, B, H, Hkv, Tq, Tk, \
-                          causal, stream);
-    REPRO_BWD_CASE(8)
-    REPRO_BWD_CASE(16)
-    REPRO_BWD_CASE(32)
-    REPRO_BWD_CASE(64)
-    REPRO_BWD_CASE(128)
+                       int Dv, int causal, cudaStream_t stream) {
+#define REPRO_BWD_CASE(DIM, DIMV)                                                    \
+  if (D == DIM && Dv == DIMV)                                                        \
+    return launch<T, DIM, DIMV>(q, k, v, o, dout, dq, dk, dv, lse2, delta, B, H, Hkv, \
+                                Tq, Tk, causal, stream);
+  REPRO_BWD_CASE(8, 8)
+  REPRO_BWD_CASE(16, 16)
+  REPRO_BWD_CASE(32, 32)
+  REPRO_BWD_CASE(64, 64)
+  REPRO_BWD_CASE(128, 128)
+  REPRO_BWD_CASE(16, 8)
 #undef REPRO_BWD_CASE
-    default: return cudaErrorInvalidValue;
-  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype 0: float32, 1: bfloat16.  lse2 and delta are float32 [B, H, Tq]
+// dtype 0: float32, 1: bfloat16; (D, Dv) a pair above.  lse2 and delta are
+// float32 [B, H, Tq]
 // scratch (the row logsumexp in base 2, and Δ), written by the first kernel
 // and read by the second.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, void* dq, void* dk,
                                          void* dv, void* lse2, void* delta, int B, int H,
-                                         int Hkv, int Tq, int Tk, int D, int dtype,
-                                         int causal, cudaStream_t stream) {
+                                         int Hkv, int Tq, int Tk, int D, int Dv,
+                                         int dtype, int causal, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 ||
       (causal && Tq != Tk))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -468,11 +485,11 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
   float* dl = static_cast<float*>(delta);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch_dim<float>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, D,
+    err = launch_dim<float>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, D, Dv,
                             causal, stream);
   } else if (dtype == 1) {
     err = launch_dim<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk,
-                                    D, causal, stream);
+                                    D, Dv, causal, stream);
   } else {
     err = cudaErrorInvalidValue;
   }

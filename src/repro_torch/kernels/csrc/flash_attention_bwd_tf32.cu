@@ -1,14 +1,17 @@
 // The gradient of causal (or full) flash attention on Hopper's TF32 tensor
-// cores: dQ, dK and dV of o = softmax(q kᵀ / √D) v for q, o, dO [B, H, T, D]
-// and k, v [B, Hkv, Tk, D] in float32, D ∈ {64, 128}.
+// cores: dQ, dK and dV of o = softmax(q kᵀ / √D) v for q [B, H, T, D], k
+// [B, Hkv, Tk, D], v [B, Hkv, Tk, Dv] and o, dO [B, H, T, Dv] in float32,
+// (D, Dv) ∈ {(64, 64), (128, 128), (192, 128)}: (192, 128) is
+// deepseek-v3-671b's MLA.
 //
 // Replaces: no Pallas kernel.  The reference trains by jax.grad through
 // flash_attention_jnp (src/repro/models/attention.py:76); the Pallas
 // forward has no custom_vjp.  This is the float32 route of
 // repro_torch.kernels.flash_attention.flash_attention_bwd at the head dims
 // of every dense config the port trains, the backward of
-// flash_attention_tf32.cu; bf16 at D 64/128 takes flash_attention_bwd_wgmma.cu,
-// D ≤ 32 flash_attention_bwd.cu's SIMT kernels.  It computes that SIMT
+// flash_attention_tf32.cu; bf16 at those pairs takes
+// flash_attention_bwd_wgmma.cu, D ≤ 32 and (16, 8) flash_attention_bwd.cu's
+// SIMT kernels.  It computes that SIMT
 // file's function in float32: scores scaled by 1/√D (a double rounded to
 // float) and masked at -1e30, the denominator floored at 1e-30, P and dS
 // never rounded to a narrower type, GQA by index (dK and dV sum over the G
@@ -31,7 +34,10 @@
 // one TF32 term at 495 TFLOP/s, 0.261 ms as three.  These kernels do eight
 // (S three times: the dq kernel's pass for L, its pass for dQ, the dkdv
 // kernel; dP twice), ten at D = 128 where both of a dkdv block's
-// warpgroups compute Sᵀ and dPᵀ.
+// warpgroups compute Sᵀ and dPᵀ.  At (192, 128) the causal half's five
+// products (three at D, two at Dv) at deepseek-v3-671b's shape (B 1, H 128,
+// T 1024) are 111.7 GFLOP: 0.226 ms as one TF32 term, 0.677 ms as three;
+// the kernels do S four times (both dkdv parts) and dP twice.
 //
 // Design: flash_attention_bwd_wgmma.cu's two kernels, launched in order on
 // the caller's stream by one C entry, with the TF32 forward's producer.
@@ -52,15 +58,17 @@
 //   dSᵀ), with no shuffle.
 // - flash_bwd_dq_tf32_kernel, a block per (b·H + h, tile of kRows query
 //   rows), heaviest causal tiles first.  Q and dO stay resident, split
-//   once into hi and lo; K and V stream in tiles of 32 keys.  Δ = rowsum(dO
+//   once into hi and lo; K and V stream in tiles of 32 keys (16 at (192,
+//   128), whose transposed copies are rows of 64 bytes: DqCfg).  Δ = rowsum(dO
 //   ∘ O) from global memory while Q and dO land; pass 1 computes S over
 //   the key tiles for the row maximum and sum, so L (base 2); pass 2
 //   computes S and dP, then P = exp2(S·c − L) and dS = P ∘ (dP − Δ) in
 //   registers, and dQ += dS K (Kᵀ the transposed copy), 64 output columns
 //   at a time.  It writes L and Δ to float32 scratch [B·H, T rounded up to
 //   128] (rows past T too: finite, and met only by zero rows of Q and dO).
-// - flash_bwd_dkdv_tf32_kernel, a block per (b·Hkv + kvh, tile of 64 keys),
-//   the key tiles that see the most queries first.  K and V stay resident,
+// - flash_bwd_dkdv_tf32_kernel (D = Dv), a block per (b·Hkv + kvh, tile of
+//   64 keys), the key tiles that see the most queries first.  K and V stay
+//   resident,
 //   split once; Q, dO and the tile's L and Δ (a bulk copy each) stream in
 //   tiles of kQ queries for each of the G query heads of the group (causally
 //   only the tiles at or below the keys).  It works transposed: Sᵀ = K Qᵀ and
@@ -69,7 +77,9 @@
 // Shared memory (float32 hi/lo copies are four times bf16's bytes) and
 // registers (a fresh tile accumulator beside each sum; ptxas fits a
 // 384-thread block's consumers in 168 registers whatever setmaxnreg grants)
-// set the shapes (DqCfg, DkvCfg).  Every output element is one warpgroup's
+// set the shapes (DqCfg, DkvCfg; at (192, 128) the dq kernel's 16-key
+// tiles and flash_bwd_dkdv_tf32_mla_kernel, whose blocks take dK or dV:
+// MlaKvCfg).  Every output element is one warpgroup's
 // sum in a fixed order, or two warpgroups' sums added once: no atomics, so
 // two calls on the same inputs are bitwise equal.
 //
@@ -95,25 +105,36 @@ constexpr float kLog2e = 1.4426950408889634f;
 // a V tile of kN keys with K_lo, Kᵀ_hi, Kᵀ_lo and V_lo beside them.  D = 64:
 // two consumer warpgroups of 64 rows and two slots; D = 128: one consumer
 // warpgroup (the dQ sum takes 64 registers a thread) and one slot.  Either
-// is 224 KB of the 227 a block may have.
-template <int D>
+// is 224 KB of the 227 a block may have.  (192, 128): one consumer
+// warpgroup and one slot; Q_hi, Q_lo (48 KB each), dO_hi and dO_lo (32 KB
+// each) take 160 KB, so a slot has 66 KB: tiles of 16 keys (K_hi, K_lo 12
+// KB each, V_hi, V_lo 8 each), whose transposed copies are rows of 16
+// positions, 64 bytes, in the 64-byte swizzle (12 KB each, where rows of
+// 128 bytes half used would take 24): 64 KB a slot, 225 KB in all.
+template <int D, int DV>
 struct DqCfg {
   static constexpr int kNC = D == 64 ? 2 : 1;      // consumer warpgroups
   static constexpr int kThreads = 128 * (1 + kNC);
   static constexpr int kRows = 64 * kNC;           // query rows of a block
-  static constexpr int kN = 32;                    // keys of a K/V tile
+  static constexpr int kN = D == DV ? 32 : 16;     // keys of a K/V tile
+  static constexpr int kTrRow = kN * 4;            // bytes of a transposed row
   static constexpr int kSlots = D == 64 ? 2 : 1;
-  static constexpr int kBig = kRows * D * 4;       // one resident copy
-  static constexpr int kTile = kN * D * 4;         // one K or V copy
+  static constexpr int kBigQ = kRows * D * 4;      // one resident Q copy
+  static constexpr int kBigV = kRows * DV * 4;     // one resident dO copy
+  static constexpr int kTile = kN * D * 4;         // one K or Kᵀ copy
+  static constexpr int kTileV = kN * DV * 4;       // one V copy
   // a slot: K_hi (TMA lands K here), K_lo, Kᵀ_hi, Kᵀ_lo, V_hi (V lands), V_lo
   static constexpr int kKhi = 0, kKlo = kTile, kKThi = 2 * kTile, kKTlo = 3 * kTile;
-  static constexpr int kVhi = 4 * kTile, kVlo = 5 * kTile;
-  static constexpr int kSlotBytes = 6 * kTile;
-  static constexpr int kSlotOff = 4 * kBig;        // after Q_hi, Q_lo, dO_hi, dO_lo
+  static constexpr int kVhi = 4 * kTile, kVlo = 4 * kTile + kTileV;
+  static constexpr int kSlotBytes = 4 * kTile + 2 * kTileV;
+  // after Q_hi, Q_lo, dO_hi, dO_lo
+  static constexpr int kDoOff = 2 * kBigQ;
+  static constexpr int kSlotOff = 2 * kBigQ + 2 * kBigV;
   static constexpr int kBarOff = kSlotOff + kSlots * kSlotBytes;
   // barriers: resident landed, resident split, then land, full and empty of
   // each slot; slack to align the dynamic shared memory to 1024 bytes
   static constexpr size_t kBytes = kBarOff + 8 * (2 + 3 * kSlots) + 1024;
+  static_assert(kBytes <= 232448, "more shared memory than a block can have");
 };
 
 // dkdv: K and V of 64 keys resident as hi and lo copies; a ring of slots,
@@ -151,6 +172,52 @@ struct DkvCfg {
   static constexpr uint32_t kStageTx = 2 * kNat + 2 * kQ * 4;
 };
 
+// dkdv at MLA's (192, 128): K and V of 64 keys resident as hi and lo
+// copies take 160 KB, so a block has 66 KB beside them, and a slot of
+// 16-query tiles with both transposed copies needs 80 (Q and dO natural hi
+// and lo 40, Qᵀ and dOᵀ hi and lo 40 in 64-byte rows).  So the work is cut
+// in two parts, blockIdx.z: part 0 takes dK (Sᵀ, dPᵀ, dSᵀ, then dSᵀ Q
+// against Qᵀ), part 1 takes dV (Sᵀ, Pᵀ, then Pᵀ dO against dOᵀ; V is not
+// loaded); a slot holds one transposed pair, Qᵀ or dOᵀ (65 KB a slot, 226
+// KB in all).  Each block is a producer and one consumer warpgroup, which
+// holds its part's sums whole (dK 96 registers a thread, dV 64) beside a
+// tile's product (32), Sᵀ and dPᵀ (16) and a fragment pair (16): within the
+// 255 a thread of a 256-thread block may have, where two consumer
+// warpgroups would have 168.
+template <int D, int DV>
+struct MlaKvCfg {
+  static constexpr int kThreads = 256;
+  static constexpr int kKeys = 64;
+  static constexpr int kQ = 16;                     // queries of a tile
+  static constexpr int kTrRow = kQ * 4;             // bytes of a transposed row
+  static constexpr int kBigK = kKeys * D * 4;       // one resident K copy
+  static constexpr int kBigV = kKeys * DV * 4;      // one resident V copy
+  static constexpr int kNatQ = kQ * D * 4;          // one natural Q copy
+  static constexpr int kNatDo = kQ * DV * 4;        // one natural dO copy
+  static constexpr int kTr = D * kTrRow;            // one transposed copy (Qᵀ; dOᵀ fits)
+  // resident: K_hi, K_lo, V_hi, V_lo; a slot: Q_hi (TMA lands Q here), Q_lo,
+  // dO_hi (dO lands), dO_lo, Tᵀ_hi, Tᵀ_lo (Qᵀ in part 0, dOᵀ in part 1),
+  // then L and Δ of the tile's queries
+  static constexpr int kVhi = 2 * kBigK, kVlo = 2 * kBigK + kBigV;
+  static constexpr int kQhi = 0, kQlo = kNatQ, kDOhi = 2 * kNatQ, kDOlo = 2 * kNatQ + kNatDo;
+  static constexpr int kThi = 2 * (kNatQ + kNatDo), kTlo = kThi + kTr;
+  static constexpr int kStat = kThi + 2 * kTr;
+  static constexpr int kSlotBytes = (kStat + 2 * kQ * 4 + 1023) / 1024 * 1024;
+  static constexpr int kSlotOff = 2 * (kBigK + kBigV);
+  static constexpr int kBarOff = kSlotOff + kSlotBytes;
+  // barriers: resident landed, resident split, then land, full and empty of
+  // the slot; slack to align the dynamic shared memory to 1024 bytes
+  static constexpr size_t kBytes = kBarOff + 8 * 5 + 1024;
+  static constexpr uint32_t kStageTx = kNatQ + kNatDo + 2 * kQ * 4;
+  static_assert(kBytes <= 232448, "more shared memory than a block can have");
+};
+
+// A compile-time int, to hand a generic lambda its template argument
+template <int N>
+struct Int {
+  static constexpr int value = N;
+};
+
 using repro::mbar_arrive;
 using repro::mbar_expect_tx;
 using repro::mbar_init;
@@ -185,6 +252,13 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(16 >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The same for a 64-byte-swizzled K-major operand of 64-byte rows (layout
+// type 2): stride 512 bytes, eight rows.
+__device__ __forceinline__ uint64_t smem_desc64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
 }
 
 // A copy of x the compiler cannot see through: a descriptor made from it
@@ -310,13 +384,15 @@ __device__ __forceinline__ void issue_scores(float (&s)[N / 2], uint32_t ahi, ui
 
 // tile[32] = Σ_g A_g · B_g over KS k-steps of 8 in three TF32 terms (a_lo·B_hi
 // and a_hi·B_lo, then a_hi·B_hi): A the register fragments ah / al, B the
-// 64 rows at bhi / blo of a transposed copy (128 bytes a row, k-step g at
+// 64 rows at bhi / blo of a transposed copy (RowBytes a row, k-step g at
 // byte 32g).  The first product overwrites tile.  Issued, not waited for.
-template <int KS>
+template <int KS, int RowBytes = kRowBytes>
 __device__ __forceinline__ void issue_frag(float (&tile)[32], const uint32_t (&ah)[KS][4],
                                            const uint32_t (&al)[KS][4], uint32_t bhi,
                                            uint32_t blo) {
-  const uint64_t dbh = opaque(smem_desc(bhi)), dbl = opaque(smem_desc(blo));
+  static_assert(RowBytes == kRowBytes || RowBytes == 64, "128- or 64-byte rows");
+  const uint64_t dbh = opaque(RowBytes == kRowBytes ? smem_desc(bhi) : smem_desc64(bhi));
+  const uint64_t dbl = opaque(RowBytes == kRowBytes ? smem_desc(blo) : smem_desc64(blo));
 #pragma unroll
   for (int g = 0; g < KS; ++g) {
     wgmma_rs_n64(tile, al[g], dbh + 2 * g, g > 0);
@@ -351,13 +427,15 @@ __device__ __forceinline__ void split_in_place(unsigned char* x, unsigned char* 
 }
 
 // The transposed copies (hi at thi, lo at tlo) of the raw tile at raw, N
-// rows of D floats in D / 32 panels: row d of a copy holds the tile's
-// column d, its position q the tile's row 8(q / 8) + 2(q % 4) + (q % 8) / 4
-// (positions N .. 31 of the 32 are not written).  Chunk (d, positions 4jq ..
-// 4jq + 3) takes rows r, r + 2, r + 4, r + 6 with r = 8(jq / 2) + jq % 2; a
-// warp takes 32 consecutive d of one chunk column, so neither its reads nor
-// its writes conflict.
-template <int D, int N>
+// rows of D floats in D / 32 panels: row d of a copy (RowBytes bytes)
+// holds the tile's column d, its position q the tile's row 8(q / 8) +
+// 2(q % 4) + (q % 8) / 4 (positions past N are not written).  Chunk (d,
+// positions 4jq .. 4jq + 3) takes rows r, r + 2, r + 4, r + 6 with r =
+// 8(jq / 2) + jq % 2; a warp takes 32 consecutive d of one chunk column,
+// so neither its reads nor its writes conflict.  Rows of 128 bytes (32
+// positions) take swz's 128-byte swizzle; rows of 64 bytes (16 positions)
+// the 64-byte swizzle, chunk c of row d at c ^ ((d / 2) % 4).
+template <int D, int N, int RowBytes = kRowBytes>
 __device__ __forceinline__ void transpose_split(const unsigned char* raw, unsigned char* thi,
                                                 unsigned char* tlo, int p) {
   for (int e = p; e < D * N / 4; e += 128) {
@@ -368,7 +446,9 @@ __device__ __forceinline__ void transpose_split(const unsigned char* raw, unsign
     split_tf32(*reinterpret_cast<const float*>(raw + swz(r + 2, d, N)), h.y, l.y);
     split_tf32(*reinterpret_cast<const float*>(raw + swz(r + 4, d, N)), h.z, l.z);
     split_tf32(*reinterpret_cast<const float*>(raw + swz(r + 6, d, N)), h.w, l.w);
-    const uint32_t off = swz(d, 4 * jq, D);
+    const uint32_t off = RowBytes == kRowBytes
+                             ? swz(d, 4 * jq, D)
+                             : d * RowBytes + ((jq ^ ((d >> 1) & 3)) << 4);
     *reinterpret_cast<uint4*>(thi + off) = h;
     *reinterpret_cast<uint4*>(tlo + off) = l;
   }
@@ -385,8 +465,8 @@ __device__ __forceinline__ constexpr int frag_elem(int g, int j) {
   return 4 * g + ((j & 1) << 1) + (j >> 1);
 }
 
-template <int D>
-__global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
+template <int D, int DV>
+__global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
     flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap domap,
                              const __grid_constant__ CUtensorMap kmap,
@@ -395,7 +475,7 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
                              float* __restrict__ dq, float* __restrict__ lse2,
                              float* __restrict__ delta, int H, int Hkv, int Tq, int Tk,
                              int Tpad, float scale, int causal) {
-  using C = DqCfg<D>;
+  using C = DqCfg<D, DV>;
   constexpr int kN = C::kN;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -435,16 +515,17 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
     if constexpr (C::kNC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     const int p = threadIdx.x;
     if (p == 0) {
-      mbar_expect_tx(res_land, 2 * C::kBig);
-      for (int pn = 0; pn < D / kPanel; ++pn) {
+      mbar_expect_tx(res_land, C::kBigQ + C::kBigV);
+      for (int pn = 0; pn < D / kPanel; ++pn) {  // Dv <= D: dO takes the first panels
         const uint32_t off = pn * C::kRows * kRowBytes;
         tma_load_3d(base + off, &qmap, res_land, pn * kPanel, q0, bh);
-        tma_load_3d(base + 2 * C::kBig + off, &domap, res_land, pn * kPanel, q0, bh);
+        if (pn < DV / kPanel)
+          tma_load_3d(base + C::kDoOff + off, &domap, res_land, pn * kPanel, q0, bh);
       }
     }
     mbar_wait(res_land, 0);
-    split_in_place(basep, basep + C::kBig, C::kBig, p);
-    split_in_place(basep + 2 * C::kBig, basep + 3 * C::kBig, C::kBig, p);
+    split_in_place(basep, basep + C::kBigQ, C::kBigQ, p);
+    split_in_place(basep + C::kDoOff, basep + C::kDoOff + C::kBigV, C::kBigV, p);
     proxy_fence();
     mbar_arrive(res_ready);
     int it = 0;
@@ -455,17 +536,18 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
         unsigned char* sp = basep + slot(s);
         mbar_wait(empty(s), (use & 1) ^ 1);
         if (p == 0) {
-          mbar_expect_tx(land(s), (pass + 1) * C::kTile);
+          mbar_expect_tx(land(s), C::kTile + pass * C::kTileV);
           for (int pn = 0; pn < D / kPanel; ++pn) {
             const uint32_t off = pn * kN * kRowBytes;
             tma_load_3d(sa + C::kKhi + off, &kmap, land(s), pn * kPanel, t * kN, kvh);
-            if (pass) tma_load_3d(sa + C::kVhi + off, &vmap, land(s), pn * kPanel, t * kN, kvh);
+            if (pass && pn < DV / kPanel)
+              tma_load_3d(sa + C::kVhi + off, &vmap, land(s), pn * kPanel, t * kN, kvh);
           }
         }
         mbar_wait(land(s), use & 1);
         if (pass) {
-          transpose_split<D, kN>(sp + C::kKhi, sp + C::kKThi, sp + C::kKTlo, p);
-          split_in_place(sp + C::kVhi, sp + C::kVlo, C::kTile, p);
+          transpose_split<D, kN, C::kTrRow>(sp + C::kKhi, sp + C::kKThi, sp + C::kKTlo, p);
+          split_in_place(sp + C::kVhi, sp + C::kVlo, C::kTileV, p);
         }
         bar_sync(1, 128);  // every read of the raw K is done
         split_in_place(sp + C::kKhi, sp + C::kKlo, C::kTile, p);
@@ -483,20 +565,20 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
     const int r0 = q0 + 64 * cw + 16 * warp + lane / 4;  // the thread's rows r0, r0 + 8
     const int wg_row0 = q0 + 64 * cw;
     const float c = scale * kLog2e;  // raw scores to base-2 exponents
-    const uint32_t qhi = base + cw * 64 * kRowBytes, qlo = qhi + C::kBig;
-    const uint32_t dohi = qhi + 2 * C::kBig, dolo = qhi + 3 * C::kBig;
+    const uint32_t qhi = base + cw * 64 * kRowBytes, qlo = qhi + C::kBigQ;
+    const uint32_t dohi = qhi + C::kDoOff, dolo = dohi + C::kBigV;
 
     // Δ of rows r0 and r0 + 8 from global memory while Q and dO land: this
-    // thread's D / 4 columns of dO ∘ O, then the quad's sum
+    // thread's Dv / 4 columns of dO ∘ O, then the quad's sum
     float dl[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + 8 * r;
       float part = 0.f;
       if (row < Tq) {
-        const long long at = (static_cast<long long>(bh) * Tq + row) * D;
+        const long long at = (static_cast<long long>(bh) * Tq + row) * DV;
 #pragma unroll
-        for (int g = 0; g < D / 8; ++g) {
+        for (int g = 0; g < DV / 8; ++g) {
           const float2 x = __ldg(reinterpret_cast<const float2*>(dout + at + 8 * g + c2));
           const float2 y = __ldg(reinterpret_cast<const float2*>(o + at + 8 * g + c2));
           part = fmaf(x.x, y.x, part);
@@ -593,7 +675,7 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
       fence_regs(dp);
       wgmma_fence();
       issue_scores<D, kN, C::kRows, kN>(sc, qhi, qlo, sa + C::kKhi, sa + C::kKlo);
-      issue_scores<D, kN, C::kRows, kN>(dp, dohi, dolo, sa + C::kVhi, sa + C::kVlo);
+      issue_scores<DV, kN, C::kRows, kN>(dp, dohi, dolo, sa + C::kVhi, sa + C::kVlo);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
@@ -612,12 +694,13 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
       }
 #pragma unroll
       for (int half = 0; half < D / 64; ++half) {
-        const uint32_t hoff = half * 64 * kRowBytes;  // Kᵀ rows 64·half ..
+        const uint32_t hoff = half * 64 * C::kTrRow;  // Kᵀ rows 64·half ..
         fence_regs(tile);
         fence_regs(dsh);
         fence_regs(dsl);
         wgmma_fence();
-        issue_frag<kN / 8>(tile, dsh, dsl, sa + C::kKThi + hoff, sa + C::kKTlo + hoff);
+        issue_frag<kN / 8, C::kTrRow>(tile, dsh, dsl, sa + C::kKThi + hoff,
+                                      sa + C::kKTlo + hoff);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(tile);
@@ -863,6 +946,196 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads, 1)
   }
 }
 
+// The dkdv kernel at MLA's pairs (MlaKvCfg): a block per (b·Hkv + kvh, tile
+// of 64 keys, part), the key tiles that see the most queries first; part 0
+// writes dK, part 1 dV.  The products are the dkdv kernel's.
+template <int D, int DV>
+__global__ void __launch_bounds__(MlaKvCfg<D, DV>::kThreads, 1)
+    flash_bwd_dkdv_tf32_mla_kernel(const __grid_constant__ CUtensorMap qmap,
+                                   const __grid_constant__ CUtensorMap domap,
+                                   const __grid_constant__ CUtensorMap kmap,
+                                   const __grid_constant__ CUtensorMap vmap,
+                                   const float* __restrict__ lse2,
+                                   const float* __restrict__ delta, float* __restrict__ dk,
+                                   float* __restrict__ dv, int H, int Hkv, int Tq, int Tk,
+                                   int Tpad, float scale, int causal) {
+  using C = MlaKvCfg<D, DV>;
+  constexpr int kQ = C::kQ;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* basep = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t bars = base + C::kBarOff;
+  const uint32_t res_land = bars, res_ready = bars + 8;
+  const uint32_t land = bars + 16, full = bars + 24, empty = bars + 32;
+  const uint32_t sa = base + C::kSlotOff;
+  unsigned char* sp = basep + C::kSlotOff;
+
+  const int kt = blockIdx.y;  // the first key tiles see the most queries: first
+  const int bkv = blockIdx.x;
+  const int b = bkv / Hkv;
+  const int kvh = bkv - b * Hkv;
+  const int G = H / Hkv;
+  const int k0 = kt * C::kKeys;
+  const int nq = (Tq + kQ - 1) / kQ;
+  // causal: query i sees keys 0..i, so tiles of queries below k0 see none
+  // of these keys (tiles aligned at 0, kKeys a multiple of kQ)
+  const int qt0 = causal ? k0 / kQ : 0;
+  const int per_head = nq - qt0;
+  const int n_it = G * per_head;
+
+  if (threadIdx.x == 0) {
+    mbar_init(res_land, 1);
+    mbar_init(res_ready, 128);
+    mbar_init(land, 1);
+    mbar_init(full, 128);
+    mbar_init(empty, 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto run = [&](auto part_) {
+    constexpr bool kDk = decltype(part_)::value == 0;
+    constexpr int NC = kDk ? D : DV;  // output columns of the part
+    if (threadIdx.x < 128) {
+      // producer: K (and for dK V) once, then Q, dO, L and Δ of each query
+      // tile of each query head of the group, each split as it lands
+      const int p = threadIdx.x;
+      if (p == 0) {
+        mbar_expect_tx(res_land, kDk ? C::kBigK + C::kBigV : C::kBigK);
+        for (int pn = 0; pn < D / kPanel; ++pn) {
+          const uint32_t off = pn * C::kKeys * kRowBytes;
+          tma_load_3d(base + off, &kmap, res_land, pn * kPanel, k0, bkv);
+          if (kDk && pn < DV / kPanel)
+            tma_load_3d(base + C::kVhi + off, &vmap, res_land, pn * kPanel, k0, bkv);
+        }
+      }
+      mbar_wait(res_land, 0);
+      split_in_place(basep, basep + C::kBigK, C::kBigK, p);
+      if (kDk) split_in_place(basep + C::kVhi, basep + C::kVlo, C::kBigV, p);
+      proxy_fence();
+      mbar_arrive(res_ready);
+      for (int it = 0; it < n_it; ++it) {
+        const int g = it / per_head;
+        const int q0 = (qt0 + it - g * per_head) * kQ;
+        const int bh = b * H + kvh * G + g;
+        mbar_wait(empty, (it & 1) ^ 1);
+        if (p == 0) {
+          mbar_expect_tx(land, C::kStageTx);
+          for (int pn = 0; pn < D / kPanel; ++pn) {
+            const uint32_t off = pn * kQ * kRowBytes;
+            tma_load_3d(sa + C::kQhi + off, &qmap, land, pn * kPanel, q0, bh);
+            if (pn < DV / kPanel)
+              tma_load_3d(sa + C::kDOhi + off, &domap, land, pn * kPanel, q0, bh);
+          }
+          const long long at = static_cast<long long>(bh) * Tpad + q0;
+          bulk_load(sa + C::kStat, lse2 + at, kQ * 4, land);
+          bulk_load(sa + C::kStat + kQ * 4, delta + at, kQ * 4, land);
+        }
+        mbar_wait(land, it & 1);
+        if constexpr (kDk) {
+          transpose_split<D, kQ, C::kTrRow>(sp + C::kQhi, sp + C::kThi, sp + C::kTlo, p);
+        } else {
+          transpose_split<DV, kQ, C::kTrRow>(sp + C::kDOhi, sp + C::kThi, sp + C::kTlo, p);
+        }
+        bar_sync(1, 128);  // every read of the raw Q or dO is done
+        split_in_place(sp + C::kQhi, sp + C::kQlo, C::kNatQ, p);
+        if (kDk) split_in_place(sp + C::kDOhi, sp + C::kDOlo, C::kNatDo, p);
+        proxy_fence();
+        mbar_arrive(full);
+      }
+    } else {
+      const int tid = threadIdx.x - 128;
+      const int warp = tid / 32;
+      const int lane = tid % 32;
+      const int c2 = 2 * (lane % 4);
+      const int key0 = k0 + 16 * warp + lane / 4;  // the thread's keys, and + 8
+      const float c = scale * kLog2e;
+      const uint32_t khi = base, klo = base + C::kBigK;
+      const uint32_t vhi = base + C::kVhi, vlo = base + C::kVlo;
+      const float* ls = reinterpret_cast<const float*>(sp + C::kStat);
+      const float* dls = ls + kQ;
+      float acc[NC / 2], st[kQ / 2], dpt[kQ / 2], tile[32];
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) tile[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kQ / 2; ++i) st[i] = dpt[i] = 0.f;
+      mbar_wait(res_ready, 0);
+
+      for (int it = 0; it < n_it; ++it) {
+        const int g = it / per_head;
+        const int q0 = (qt0 + it - g * per_head) * kQ;
+        mbar_wait(full, it & 1);
+        fence_regs(st);
+        fence_regs(dpt);
+        wgmma_fence();
+        issue_scores<D, kQ, C::kKeys, kQ>(st, khi, klo, sa + C::kQhi, sa + C::kQlo);  // Sᵀ
+        if constexpr (kDk)
+          issue_scores<DV, kQ, C::kKeys, kQ>(dpt, vhi, vlo, sa + C::kDOhi,
+                                             sa + C::kDOlo);  // dPᵀ
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(st);
+        fence_regs(dpt);
+
+        // Pᵀ (part 1) or dSᵀ (part 0): element i is key key0 + 8·((i >> 1) &
+        // 1) against query q0 + 8·(i / 4) + c2 + (i & 1); causally a key past
+        // the query is 0
+        const bool masked = causal && q0 < k0 + 63;
+#pragma unroll
+        for (int i = 0; i < kQ / 2; ++i) {
+          const int col = 8 * (i / 4) + c2 + (i & 1);
+          float pv = exp2f(fmaf(st[i], c, -ls[col]));
+          if (masked && key0 + 8 * ((i >> 1) & 1) > q0 + col) pv = 0.f;
+          st[i] = kDk ? pv * (dpt[i] - dls[col]) : pv;
+        }
+        // dK += dSᵀ Q against Qᵀ, or dV += Pᵀ dO against dOᵀ, 64 columns at
+        // a time, each tile's product into a fresh accumulator added once
+        uint32_t ah[kQ / 8][4], al[kQ / 8][4];
+#pragma unroll
+        for (int g2 = 0; g2 < kQ / 8; ++g2)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) split_tf32(st[frag_elem(g2, j)], ah[g2][j], al[g2][j]);
+#pragma unroll
+        for (int half = 0; half < NC / 64; ++half) {
+          const uint32_t hoff = half * 64 * C::kTrRow;
+          fence_regs(tile);
+          fence_regs(ah);
+          fence_regs(al);
+          wgmma_fence();
+          issue_frag<kQ / 8, C::kTrRow>(tile, ah, al, sa + C::kThi + hoff, sa + C::kTlo + hoff);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(tile);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[32 * half + i] += tile[i];
+        }
+        mbar_arrive(empty);
+      }
+
+      float* out = kDk ? dk : dv;
+      const float mul = kDk ? scale : 1.f;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        if (key < Tk) {
+          const long long row = (static_cast<long long>(bkv) * Tk + key) * NC;
+#pragma unroll
+          for (int g = 0; g < NC / 8; ++g)
+            *reinterpret_cast<float2*>(out + row + 8 * g + c2) =
+                make_float2(acc[4 * g + 2 * r] * mul, acc[4 * g + 2 * r + 1] * mul);
+        }
+      }
+    }
+  };
+  if (blockIdx.z == 0) {
+    run(Int<0>{});
+  } else {
+    run(Int<1>{});
+  }
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave,
@@ -904,31 +1177,42 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D, int 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* o,
                    const float* dout, float* dq, float* dk, float* dv, float* lse2,
                    float* delta, int B, int H, int Hkv, int Tq, int Tk, int causal,
                    cudaStream_t stream) {
-  using Q = DqCfg<D>;
-  using K = DkvCfg<D>;
-  auto dq_kernel = flash_bwd_dq_tf32_kernel<D>;
-  auto dkv_kernel = flash_bwd_dkdv_tf32_kernel<D>;
+  using Q = DqCfg<D, DV>;
+  constexpr bool kMla = D != DV;
+  // the dkdv kernel's shapes: DkvCfg's at D = Dv, MlaKvCfg's at MLA's pair
+  constexpr int kKeys = kMla ? MlaKvCfg<D, DV>::kKeys : DkvCfg<D>::kKeys;
+  constexpr int kQ = kMla ? MlaKvCfg<D, DV>::kQ : DkvCfg<D>::kQ;
+  constexpr int kKvThreads = kMla ? MlaKvCfg<D, DV>::kThreads : DkvCfg<D>::kThreads;
+  constexpr size_t kKvBytes = kMla ? MlaKvCfg<D, DV>::kBytes : DkvCfg<D>::kBytes;
+  auto dq_kernel = flash_bwd_dq_tf32_kernel<D, DV>;
+  auto dkv_kernel = [] {
+    if constexpr (kMla) {
+      return flash_bwd_dkdv_tf32_mla_kernel<D, DV>;
+    } else {
+      return flash_bwd_dkdv_tf32_kernel<D>;
+    }
+  }();
   cudaError_t err = repro::allow_smem(dq_kernel, Q::kBytes);
-  if (err == cudaSuccess) err = repro::allow_smem(dkv_kernel, K::kBytes);
+  if (err == cudaSuccess) err = repro::allow_smem(dkv_kernel, kKvBytes);
   if (err != cudaSuccess) return err;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  // the dq kernel's maps: kRows-row Q and dO tiles, 32-row K and V tiles;
+  // the dq kernel's maps: kRows-row Q and dO tiles, kN-row K and V tiles;
   // the dkdv kernel's: 64-row K and V tiles, kQ-row Q and dO tiles
   CUtensorMap q_m, do_m, k_n, v_n, q_n, do_n, k_m, v_m;
   if (!make_map(&q_m, encode, q, D, Tq, B * H, Q::kRows) ||
-      !make_map(&do_m, encode, dout, D, Tq, B * H, Q::kRows) ||
+      !make_map(&do_m, encode, dout, DV, Tq, B * H, Q::kRows) ||
       !make_map(&k_n, encode, k, D, Tk, B * Hkv, Q::kN) ||
-      !make_map(&v_n, encode, v, D, Tk, B * Hkv, Q::kN) ||
-      !make_map(&q_n, encode, q, D, Tq, B * H, K::kQ) ||
-      !make_map(&do_n, encode, dout, D, Tq, B * H, K::kQ) ||
-      !make_map(&k_m, encode, k, D, Tk, B * Hkv, K::kKeys) ||
-      !make_map(&v_m, encode, v, D, Tk, B * Hkv, K::kKeys))
+      !make_map(&v_n, encode, v, DV, Tk, B * Hkv, Q::kN) ||
+      !make_map(&q_n, encode, q, D, Tq, B * H, kQ) ||
+      !make_map(&do_n, encode, dout, DV, Tq, B * H, kQ) ||
+      !make_map(&k_m, encode, k, D, Tk, B * Hkv, kKeys) ||
+      !make_map(&v_m, encode, v, DV, Tk, B * Hkv, kKeys))
     return cudaErrorInvalidValue;
   // the reference's 1.0 / (D ** 0.5), a double rounded to float
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
@@ -938,7 +1222,8 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
       q_m, do_m, k_n, v_n, o, dout, dq, lse2, delta, H, Hkv, Tq, Tk, Tpad, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkv_kernel<<<dim3(B * Hkv, (Tk + K::kKeys - 1) / K::kKeys), K::kThreads, K::kBytes,
+  // at MLA's pair a third grid dimension: part 0 writes dK, part 1 dV
+  dkv_kernel<<<dim3(B * Hkv, (Tk + kKeys - 1) / kKeys, kMla ? 2 : 1), kKvThreads, kKvBytes,
                stream>>>(q_n, do_n, k_m, v_m, lse2, delta, dk, dv, H, Hkv, Tq, Tk, Tpad,
                          scale, causal);
   return cudaGetLastError();
@@ -946,16 +1231,16 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
 
 }  // namespace
 
-// dQ, dK, dV of float32 attention, D ∈ {64, 128}; every pointer 16-byte
-// aligned, every tensor contiguous.  lse2 and delta are float32 [B·H, Tpad]
-// scratch, Tpad = Tq rounded up to 128 (the row logsumexp in base 2, and
-// Δ), written by the first kernel and read by the second.  Causal needs
-// Tq == Tk.
+// dQ, dK, dV of float32 attention, (D, Dv) ∈ {(64, 64), (128, 128), (192,
+// 128)}; every pointer 16-byte aligned, every tensor contiguous.  lse2 and
+// delta are float32 [B·H, Tpad] scratch, Tpad = Tq rounded up to 128 (the
+// row logsumexp in base 2, and Δ), written by the first kernel and read by
+// the second.  Causal needs Tq == Tk.
 extern "C" int repro_flash_attention_bwd_tf32(const void* q, const void* k, const void* v,
                                               const void* o, const void* dout, void* dq,
                                               void* dk, void* dv, void* lse2, void* delta,
                                               int B, int H, int Hkv, int Tq, int Tk, int D,
-                                              int causal, cudaStream_t stream) {
+                                              int Dv, int causal, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 ||
       (causal && Tq != Tk))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -969,16 +1254,16 @@ extern "C" int repro_flash_attention_bwd_tf32(const void* q, const void* k, cons
   float* gv = static_cast<float*>(dv);
   float* l = static_cast<float*>(lse2);
   float* dl = static_cast<float*>(delta);
-  cudaError_t err;
-  switch (D) {
-    case 64:
-      err = launch<64>(fq, fk, fv, fo, fdo, gq, gk, gv, l, dl, B, H, Hkv, Tq, Tk, causal, stream);
-      break;
-    case 128:
-      err = launch<128>(fq, fk, fv, fo, fdo, gq, gk, gv, l, dl, B, H, Hkv, Tq, Tk, causal, stream);
-      break;
-    default: err = cudaErrorInvalidValue;
-  }
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 64 && Dv == 64)
+    err = launch<64, 64>(fq, fk, fv, fo, fdo, gq, gk, gv, l, dl, B, H, Hkv, Tq, Tk, causal,
+                         stream);
+  else if (D == 128 && Dv == 128)
+    err = launch<128, 128>(fq, fk, fv, fo, fdo, gq, gk, gv, l, dl, B, H, Hkv, Tq, Tk, causal,
+                           stream);
+  else if (D == 192 && Dv == 128)
+    err = launch<192, 128>(fq, fk, fv, fo, fdo, gq, gk, gv, l, dl, B, H, Hkv, Tq, Tk, causal,
+                           stream);
   return static_cast<int>(err);
 }
 

@@ -1,13 +1,16 @@
 // The gradient of causal (or full) flash attention on Hopper's tensor cores:
-// dQ, dK and dV of o = softmax(q kᵀ / √D) v for q, o, dO [B, H, T, D] and
-// k, v [B, Hkv, Tk, D] in bfloat16, D ∈ {64, 128}.
+// dQ, dK and dV of o = softmax(q kᵀ / √D) v for q [B, H, T, D], k [B, Hkv,
+// Tk, D], v [B, Hkv, Tk, Dv] and o, dO [B, H, T, Dv] in bfloat16, (D, Dv) ∈
+// {(64, 64), (128, 128), (192, 128)}: (192, 128) is deepseek-v3-671b's MLA
+// (q and k of 128 nope + 64 rope columns, v of 128).
 //
 // Replaces: no Pallas kernel.  The reference trains by jax.grad through
 // flash_attention_jnp (src/repro/models/attention.py:76); the Pallas
 // forward has no custom_vjp.  This is the Hopper route of
 // repro_torch.kernels.flash_attention.flash_attention_bwd for bf16 at the
-// head dims of every dense config the port trains; float32, and D ≤ 32,
-// stay on flash_attention_bwd.cu's SIMT kernels.  It computes that file's
+// head dims of every full-size config the port trains; float32 takes
+// flash_attention_bwd_tf32.cu, D ≤ 32 and (16, 8) flash_attention_bwd.cu's
+// SIMT kernels.  It computes that file's
 // function: scores scaled by 1/√D (a double rounded to float) and masked
 // at -1e30, the denominator floored at 1e-30, GQA by index (dK and dV sum
 // over the G query heads of their group), any T.
@@ -27,7 +30,10 @@
 // 0.0435 ms at 989 TFLOP/s bf16.  These kernels do eight: S three times
 // (the dq kernel's pass for L, its pass for dQ, the dkdv kernel) and dP
 // twice; ten at D = 128, where both of a dkdv block's warpgroups compute
-// Sᵀ and dPᵀ (DkvCfg).
+// Sᵀ and dPᵀ (DkvCfg).  At (192, 128) the five products of the causal half
+// are three at D and two at Dv: at deepseek-v3-671b's microbatch (B 4,
+// H 128, T 1024) 446.7 GFLOP, 0.452 ms at 989 TFLOP/s; the kernels do S
+// four times and dP three times (both dkdv warpgroups take Sᵀ and dPᵀ).
 //
 // Design: FlashAttention-2's backward in two kernels, launched in order on
 // the caller's stream by one C entry, laid out as flash_attention_wgmma.cu
@@ -43,7 +49,7 @@
 // accumulators:
 // - flash_bwd_dq_wgmma_kernel, a block per (b·H + h, tile of 128 query
 //   rows), heaviest causal tiles first.  Q, dO and O stay resident; K and V
-//   stream in tiles of 64 keys.  Δ = rowsum(dO ∘ O) from shared memory;
+//   stream in tiles of 64 keys (32 at (192, 128), see DqCfg).  Δ = rowsum(dO ∘ O) from shared memory;
 //   pass 1 computes S = Q Kᵀ (both operands K-major) over the key tiles for
 //   the row maximum and sum, so L (base 2); pass 2 computes S and
 //   dP = dO Vᵀ, then P = exp2(S·c − L) and dS in registers, and
@@ -52,9 +58,10 @@
 //   bit).  It writes L and Δ to float32 scratch [B·H, T rounded up to 128]
 //   (rows past T too: finite, and met only by zero rows of Q and dO).
 // - flash_bwd_dkdv_wgmma_kernel, a block per (b·Hkv + kvh, tile of 128
-//   keys; 64 at D = 128, see DkvCfg), the key tiles that see the most
+//   keys; 64 at D ≥ 128, see DkvCfg), the key tiles that see the most
 //   queries first.  K and V stay resident; Q, dO and the tile's L and Δ (a
-//   bulk copy each) stream in tiles of 64 queries for each of the G query
+//   bulk copy each) stream in tiles of 64 queries (32 at (192, 128)) for
+//   each of the G query
 //   heads of the group (causally only the tiles at or below the keys).
 //   It works transposed: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, so Pᵀ = exp2(Sᵀ·c − L) and
 //   dSᵀ = Pᵀ ∘ (dPᵀ − Δ) are already the A fragments of dV += Pᵀ dO and
@@ -84,21 +91,32 @@ constexpr int kThreadsWG = 384;  // producer warpgroup + two consumer warpgroups
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// dq: Q, dO and O resident, a ring of K and V tiles
-template <int D>
+// dq: Q, dO and O resident, a ring of K and V tiles of kN keys.  At (192,
+// 128) the resident tiles take 112 KB (Q 48, dO and O 32 each) and a stage
+// of 64 keys 40 KB (K 24, V 16), so three would pass the 227 KB a block may
+// have; and a consumer's dQ of 192 columns (96 registers a thread) beside
+// S, dP and dS of 64 keys (80) would pass the 168 registers ptxas gives a
+// thread of a 384-thread block.  So the K/V tiles there are 32 keys: S, dP
+// and dS take 40 registers, a stage 20 KB, and five stages fit (212 KB).
+template <int D, int DV>
 struct DqCfg {
-  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int kN = D == DV ? kBlockN : 32;     // keys of a K/V tile
+  static constexpr int kStages = D == 64 ? 4 : D == 128 ? 3 : 5;
   static constexpr int kPanels = D / kPanel;
-  static constexpr int kBigBytes = kBlockM * D * 2;   // one resident tile
-  static constexpr int kTileBytes = kBlockN * D * 2;  // one K or V tile
-  static constexpr int kDoOff = kBigBytes;
-  static constexpr int kOOff = 2 * kBigBytes;
-  static constexpr int kKOff = 3 * kBigBytes;
-  static constexpr int kVOff = kKOff + kStages * kTileBytes;
-  static constexpr int kBarOff = kVOff + kStages * kTileBytes;
+  static constexpr int kPanelsV = DV / kPanel;
+  static constexpr int kBigQ = kBlockM * D * 2;        // the resident Q
+  static constexpr int kBigV = kBlockM * DV * 2;       // the resident dO or O
+  static constexpr int kTileK = kN * D * 2;            // one K tile
+  static constexpr int kTileV = kN * DV * 2;           // one V tile
+  static constexpr int kDoOff = kBigQ;
+  static constexpr int kOOff = kBigQ + kBigV;
+  static constexpr int kKOff = kBigQ + 2 * kBigV;
+  static constexpr int kVOff = kKOff + kStages * kTileK;
+  static constexpr int kBarOff = kVOff + kStages * kTileV;
   // barriers: full[kStages], empty[kStages], resident; then slack to align
   // the dynamic shared memory to 1024 bytes (the swizzle's repeat)
   static constexpr size_t kBytes = kBarOff + (2 * kStages + 1) * 8 + 1024;
+  static_assert(kBytes <= 232448, "more shared memory than a block can have");
 };
 
 // dkdv: K and V resident, a ring of Q and dO tiles with their L and Δ.
@@ -108,25 +126,50 @@ struct DqCfg {
 // takes 64 keys, and both consumer warpgroups take all of them, each the
 // dK and dV of one 64-column half: Sᵀ and dPᵀ are computed by both, and a
 // thread holds what it holds at D = 64 (tools/sass_report.py reads the
-// registers and spills of the code).
-template <int D>
+// registers and spills of the code).  At (192, 128) the same split gives
+// five 64-column panels of output to two warpgroups: warpgroup 0 takes dK's
+// first two and dV's first, warpgroup 1 dK's third and dV's second (a
+// split of 96 and 64 columns each would cut a swizzled panel in two).
+// Warpgroup 0's 96 registers of sums beside Sᵀ, dPᵀ, Pᵀ and dSᵀ of 64
+// queries (96) would pass 168, so the Q and dO tiles there are 32 queries
+// (48), and eight stages fit (202 KB: K 24 and V 16 resident, 20 KB a
+// stage).
+template <int D, int DV>
 struct DkvCfg {
-  static constexpr int kStages = 4;
+  static constexpr int kStages = D == DV ? 4 : 8;
   static constexpr int kPanels = D / kPanel;
-  static constexpr bool kSplit = D == 128;            // columns split, keys shared
+  static constexpr int kPanelsV = DV / kPanel;
+  static constexpr bool kSplit = D >= 128;            // columns split, keys shared
   static constexpr int kKeys = kSplit ? 64 : 128;     // keys of a block
-  static constexpr int kCols = kSplit ? 64 : D;       // output columns of a warpgroup
-  static constexpr int kQ = kBlockN;                  // queries of a tile
-  static constexpr int kBigBytes = kKeys * D * 2;     // the resident K or V
-  static constexpr int kTileBytes = kQ * D * 2;       // one Q or dO tile
+  static constexpr int kQ = D == DV ? kBlockN : 32;   // queries of a tile
+  // dK and dV columns of warpgroup 0 (it starts at column 0 of each) and of
+  // warpgroup 1 (it starts where warpgroup 0 ends; without the split each
+  // warpgroup takes every column of its own 64 keys)
+  static constexpr int kCols = kSplit ? 64 : D;       // output columns a warpgroup, D = Dv
+  // at (192, 128): dK columns of warpgroup 0 (from 0) and 1 (from kKC0),
+  // and dV columns of each (from kVC·cw)
+  static constexpr int kKC0 = 128;
+  static constexpr int kKC1 = D - kKC0;
+  static constexpr int kVC = DV / 2;
+  static constexpr int kBigK = kKeys * D * 2;         // the resident K
+  static constexpr int kBigV = kKeys * DV * 2;        // the resident V
+  static constexpr int kTileQ = kQ * D * 2;           // one Q tile
+  static constexpr int kTileDo = kQ * DV * 2;         // one dO tile
   static constexpr int kStatBytes = 2 * kQ * 4;       // L, then Δ, of a tile
-  static constexpr int kVOff = kBigBytes;
-  static constexpr int kQOff = 2 * kBigBytes;
-  static constexpr int kDoOff = kQOff + kStages * kTileBytes;
-  static constexpr int kLOff = kDoOff + kStages * kTileBytes;
+  static constexpr int kVOff = kBigK;
+  static constexpr int kQOff = kBigK + kBigV;
+  static constexpr int kDoOff = kQOff + kStages * kTileQ;
+  static constexpr int kLOff = kDoOff + kStages * kTileDo;
   static constexpr int kBarOff = kLOff + kStages * kStatBytes;
   static constexpr size_t kBytes = kBarOff + (2 * kStages + 1) * 8 + 1024;
-  static constexpr uint32_t kStageTx = 2 * kTileBytes + kStatBytes;
+  static constexpr uint32_t kStageTx = kTileQ + kTileDo + kStatBytes;
+  static_assert(kBytes <= 232448, "more shared memory than a block can have");
+};
+
+// A compile-time int, to hand a generic lambda its template arguments
+template <int N>
+struct Int {
+  static constexpr int value = N;
 };
 
 using repro::mbar_arrive;
@@ -206,6 +249,31 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[16] (+)= A[64 x 16] · B[16 x 32], A and B K-major in shared memory;
+// accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// s[N / 2] (+)= A[64 x 16] · B[16 x N], N ∈ {32, 64}: the score products
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 64) {
+    wgmma_ss_n64(d, da, db, accumulate);
+  } else {
+    wgmma_ss_n32(d, da, db, accumulate);
+  }
+}
+
 // d[32] += A[64 x 16] · B[16 x 64], A in registers (bf16 pairs), B MN-major
 // in shared memory (transpose bit set).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
@@ -246,14 +314,45 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[96] += A[64 x 16] · B[16 x 192], A in registers (bf16 pairs), B MN-major
+// in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // acc[N / 2] += A · B with B[16 x N] MN-major: the products into dQ, dK, dV
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&acc)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (N == 64) {
     wgmma_rs_n64(acc, a, db);
-  } else {
+  } else if constexpr (N == 128) {
     wgmma_rs_n128(acc, a, db);
+  } else {
+    wgmma_rs_n192(acc, a, db);
   }
 }
 
@@ -264,33 +363,33 @@ __device__ __forceinline__ uint64_t opaque(uint64_t x) {
   return x;
 }
 
-// s[32] = A · Bᵀ over D for a 64-row A at sa (a tile of a_rows rows) and a
-// 64-row B at sb (a tile of b_rows rows), both K-major: D / 16 steps of 16
-// columns (32 bytes) along each panel, advancing the descriptors' address
-// fields (16-byte units).  Issued, not waited for.
-template <int D>
-__device__ __forceinline__ void issue_dot(float (&s)[32], uint32_t sa, int a_rows,
+// s[N / 2] = A · Bᵀ over D for a 64-row A at sa (a tile of a_rows rows)
+// and an N-row B at sb (a tile of b_rows rows), both K-major: D / 16 steps
+// of 16 columns (32 bytes) along each panel, advancing the descriptors'
+// address fields (16-byte units).  Issued, not waited for.
+template <int D, int N = kBlockN>
+__device__ __forceinline__ void issue_dot(float (&s)[N / 2], uint32_t sa, int a_rows,
                                           uint32_t sb, int b_rows) {
   const uint64_t da = opaque(smem_desc(sa, 16, 1024));
   const uint64_t db = opaque(smem_desc(sb, 16, 1024));
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
-    wgmma_ss_n64(s, da + (((kk / 4) * a_rows * kRowBytes + off) >> 4),
-                 db + (((kk / 4) * b_rows * kRowBytes + off) >> 4), kk > 0);
+    wgmma_ss<N>(s, da + (((kk / 4) * a_rows * kRowBytes + off) >> 4),
+                db + (((kk / 4) * b_rows * kRowBytes + off) >> 4), kk > 0);
   }
 }
 
-// acc[N / 2] += A · B for the A fragments a (64 rows, the 64 columns of a
-// score tile in four k-steps) and B the N columns at sb of a 64-row tile,
+// acc[N / 2] += A · B for the A fragments a (64 rows, the K columns of a
+// score tile in K / 16 k-steps) and B the N columns at sb of a K-row tile,
 // MN-major: 16 rows (two 1024-byte swizzle atoms) a step, the leading byte
 // offset stepping between its 64-column panels.  Issued, not waited for.
-template <int N>
-__device__ __forceinline__ void issue_rs(float (&acc)[N / 2], const uint32_t (&a)[4][4],
+template <int N, int K = kBlockN>
+__device__ __forceinline__ void issue_rs(float (&acc)[N / 2], const uint32_t (&a)[K / 16][4],
                                          uint32_t sb) {
-  const uint64_t db = opaque(smem_desc(sb, kBlockN * kRowBytes, 1024));
+  const uint64_t db = opaque(smem_desc(sb, K * kRowBytes, 1024));
 #pragma unroll
-  for (int kk = 0; kk < kBlockN / 16; ++kk)
+  for (int kk = 0; kk < K / 16; ++kk)
     wgmma_rs<N>(acc, a[kk], db + ((kk * 16 * kRowBytes) >> 4));
 }
 
@@ -315,7 +414,7 @@ __device__ __forceinline__ uint32_t swz(int row, int col, int rows) {
 // and column 8·(i / 4) + 2·(lane % 4) + (i & 1).  Register j of k-step kk
 // of an A fragment holds elements 8kk + 2j and 8kk + 2j + 1.
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsWG, 1)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                               const __grid_constant__ CUtensorMap domap,
@@ -325,7 +424,8 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
                               __nv_bfloat16* __restrict__ dq, float* __restrict__ lse2,
                               float* __restrict__ delta, int H, int Hkv, int Tq, int Tk,
                               int Tpad, float scale, int causal) {
-  using C = DqCfg<D>;
+  using C = DqCfg<D, DV>;
+  constexpr int kN = C::kN;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const unsigned char* basep = smem_raw + (base - smem_u32(smem_raw));
@@ -343,8 +443,8 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
   const int kvh = b * Hkv + h / (H / Hkv);
   const int q0 = qt * kBlockM;
   // the key tiles of the block: all, or causally those up to its last row
-  int n_kt = (Tk + kBlockN - 1) / kBlockN;
-  if (causal) n_kt = min(n_kt, (min(q0 + kBlockM, Tq) - 1) / kBlockN + 1);
+  int n_kt = (Tk + kN - 1) / kN;
+  if (causal) n_kt = min(n_kt, (min(q0 + kBlockM, Tq) - 1) / kN + 1);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::kStages; ++s) {
@@ -361,23 +461,26 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
     // pass 2 through one ring
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(resident, 3 * C::kBigBytes);
-      for (int p = 0; p < C::kPanels; ++p) {
+      mbar_expect_tx(resident, C::kBigQ + 2 * C::kBigV);
+      for (int p = 0; p < C::kPanels; ++p) {  // Dv <= D: dO and O take the first panels
         const uint32_t off = p * kBlockM * kRowBytes;
         tma_load_3d(sq + off, &qmap, resident, p * kPanel, q0, bh);
-        tma_load_3d(sdo + off, &domap, resident, p * kPanel, q0, bh);
-        tma_load_3d(so + off, &omap, resident, p * kPanel, q0, bh);
+        if (p < C::kPanelsV) {
+          tma_load_3d(sdo + off, &domap, resident, p * kPanel, q0, bh);
+          tma_load_3d(so + off, &omap, resident, p * kPanel, q0, bh);
+        }
       }
       int it = 0;
       for (int pass = 0; pass < 2; ++pass) {
         for (int t = 0; t < n_kt; ++t, ++it) {
           const int s = it % C::kStages;
           mbar_wait(empty(s), ((it / C::kStages) & 1) ^ 1);
-          mbar_expect_tx(full(s), (pass + 1) * C::kTileBytes);
+          mbar_expect_tx(full(s), C::kTileK + pass * C::kTileV);
           for (int p = 0; p < C::kPanels; ++p) {
-            const uint32_t off = s * C::kTileBytes + p * kBlockN * kRowBytes;
-            tma_load_3d(sk + off, &kmap, full(s), p * kPanel, t * kBlockN, kvh);
-            if (pass) tma_load_3d(sv + off, &vmap, full(s), p * kPanel, t * kBlockN, kvh);
+            const uint32_t off = p * kN * kRowBytes;
+            tma_load_3d(sk + s * C::kTileK + off, &kmap, full(s), p * kPanel, t * kN, kvh);
+            if (pass && p < C::kPanelsV)
+              tma_load_3d(sv + s * C::kTileV + off, &vmap, full(s), p * kPanel, t * kN, kvh);
           }
         }
       }
@@ -397,14 +500,14 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
     const uint32_t sdo_wg = sdo + cw * 64 * kRowBytes;
     mbar_wait(resident, 0);
 
-    // Δ of rows rl and rl + 8: this thread's D / 4 columns of dO ∘ O, then
+    // Δ of rows rl and rl + 8: this thread's Dv / 4 columns of dO ∘ O, then
     // the quad's sum (two commutative adds: every lane gets the same value)
     float dl[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float part = 0.f;
 #pragma unroll
-      for (int g = 0; g < D / 8; ++g) {
+      for (int g = 0; g < DV / 8; ++g) {
         const uint32_t off = swz(rl + 8 * r, 8 * g + c2, kBlockM);
         const float2 x = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(basep + C::kDoOff + off));
@@ -419,19 +522,19 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
     }
 
     // masked scores of a key tile: keys past Tk, and causally past the row
-    auto mask = [&](float (&sc)[32], int k0) {
-      if (k0 + kBlockN <= Tk && !(causal && k0 + kBlockN - 1 > wg_row0)) return;
+    auto mask = [&](float (&sc)[kN / 2], int k0) {
+      if (k0 + kN <= Tk && !(causal && k0 + kN - 1 > wg_row0)) return;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < kN / 2; ++i) {
         const int key = k0 + 8 * (i / 4) + c2 + (i & 1);
         if (key >= Tk || (causal && key > r0 + 8 * ((i >> 1) & 1))) sc[i] = kNegInf;
       }
     };
 
     // pass 1: the row maximum (raw scores) and sum of exp2 over every key tile
-    float sc[32], dp[32];  // S and dP tiles: a tile's first product overwrites them
+    float sc[kN / 2], dp[kN / 2];  // S and dP tiles: a tile's first product overwrites them
 #pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    for (int i = 0; i < kN / 2; ++i) sc[i] = dp[i] = 0.f;
     float m[2] = {kNegInf, kNegInf};
     float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
     int it = 0;
@@ -439,15 +542,15 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
       const int s = it % C::kStages;
       mbar_wait(full(s), (it / C::kStages) & 1);
       wgmma_fence();
-      issue_dot<D>(sc, sq_wg, kBlockM, sk + s * C::kTileBytes, kBlockN);
+      issue_dot<D, kN>(sc, sq_wg, kBlockM, sk + s * C::kTileK, kN);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
       mbar_arrive(empty(s));
-      mask(sc, t * kBlockN);
+      mask(sc, t * kN);
       float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      for (int i = 0; i < kN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
       float mc[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -458,7 +561,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
         mc[r] = mx[r] * c;
       }
 #pragma unroll
-      for (int i = 0; i < 32; ++i) l[(i >> 1) & 1] += exp2f(fmaf(sc[i], c, -mc[(i >> 1) & 1]));
+      for (int i = 0; i < kN / 2; ++i) l[(i >> 1) & 1] += exp2f(fmaf(sc[i], c, -mc[(i >> 1) & 1]));
     }
     float lse[2];
 #pragma unroll
@@ -479,19 +582,19 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     for (int t = 0; t < n_kt; ++t, ++it) {
       const int s = it % C::kStages;
-      const uint32_t sks = sk + s * C::kTileBytes;
+      const uint32_t sks = sk + s * C::kTileK;
       mbar_wait(full(s), (it / C::kStages) & 1);
       wgmma_fence();
-      issue_dot<D>(sc, sq_wg, kBlockM, sks, kBlockN);
-      issue_dot<D>(dp, sdo_wg, kBlockM, sv + s * C::kTileBytes, kBlockN);
+      issue_dot<D, kN>(sc, sq_wg, kBlockM, sks, kN);
+      issue_dot<DV, kN>(dp, sdo_wg, kBlockM, sv + s * C::kTileV, kN);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
       fence_regs(dp);
-      mask(sc, t * kBlockN);
-      uint32_t ds[kBlockN / 16][4];
+      mask(sc, t * kN);
+      uint32_t ds[kN / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      for (int kk = 0; kk < kN / 16; ++kk) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int i = 8 * kk + 2 * j;
@@ -504,7 +607,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
       fence_regs(acc);
       fence_regs(ds);
       wgmma_fence();
-      issue_rs<D>(acc, ds, sks);
+      issue_rs<D, kN>(acc, ds, sks);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -525,7 +628,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsWG, 1)
     flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                 const __grid_constant__ CUtensorMap domap,
@@ -535,7 +638,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
                                 const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                                 __nv_bfloat16* __restrict__ dv, int H, int Hkv, int Tq, int Tk,
                                 int Tpad, float scale, int causal) {
-  using C = DkvCfg<D>;
+  using C = DkvCfg<D, DV>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const unsigned char* basep = smem_raw + (base - smem_u32(smem_raw));
@@ -575,11 +678,11 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
     // query head of the group
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(resident, 2 * C::kBigBytes);
-      for (int p = 0; p < C::kPanels; ++p) {
+      mbar_expect_tx(resident, C::kBigK + C::kBigV);
+      for (int p = 0; p < C::kPanels; ++p) {  // Dv <= D: V takes the first panels
         const uint32_t off = p * C::kKeys * kRowBytes;
         tma_load_3d(sk + off, &kmap, resident, p * kPanel, k0, bkv);
-        tma_load_3d(sv + off, &vmap, resident, p * kPanel, k0, bkv);
+        if (p < C::kPanelsV) tma_load_3d(sv + off, &vmap, resident, p * kPanel, k0, bkv);
       }
       for (int it = 0; it < n_it; ++it) {
         const int g = it / per_head;
@@ -589,9 +692,10 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
         mbar_wait(empty(s), ((it / C::kStages) & 1) ^ 1);
         mbar_expect_tx(full(s), C::kStageTx);
         for (int p = 0; p < C::kPanels; ++p) {
-          const uint32_t off = s * C::kTileBytes + p * kQ * kRowBytes;
-          tma_load_3d(sq + off, &qmap, full(s), p * kPanel, q0, bh);
-          tma_load_3d(sdo + off, &domap, full(s), p * kPanel, q0, bh);
+          const uint32_t off = p * kQ * kRowBytes;
+          tma_load_3d(sq + s * C::kTileQ + off, &qmap, full(s), p * kPanel, q0, bh);
+          if (p < C::kPanelsV)
+            tma_load_3d(sdo + s * C::kTileDo + off, &domap, full(s), p * kPanel, q0, bh);
         }
         const long long at = static_cast<long long>(bh) * Tpad + q0;
         bulk_load(sl + s * C::kStatBytes, lse2 + at, kQ * 4, full(s));
@@ -600,95 +704,195 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    constexpr int kCols = C::kCols;
-    const int cw = threadIdx.x / 128 - 1;
-    const int wg_keys = C::kSplit ? 0 : 64 * cw;  // the warpgroup's keys in the block
-    const int wg_cols = C::kSplit ? 64 * cw : 0;  // and its output columns
-    const int tid = threadIdx.x % 128;
-    const int warp = tid / 32;
-    const int lane = tid % 32;
-    const int c2 = 2 * (lane % 4);
-    const int key0 = k0 + wg_keys + 16 * warp + lane / 4;  // the thread's keys, and + 8
-    const int wg_key0 = k0 + wg_keys;
-    const float c = scale * kLog2e;
-    const uint32_t sk_wg = sk + wg_keys * kRowBytes;
-    const uint32_t sv_wg = sv + wg_keys * kRowBytes;
-    // the warpgroup's 64-column panel of Q and dO tiles when split
-    const uint32_t panel = (wg_cols / kPanel) * kQ * kRowBytes;
-    float dka[kCols / 2], dva[kCols / 2], st[kQ / 2], dpt[kQ / 2];
+    if constexpr (D == DV) {
+      constexpr int kCols = C::kCols;
+      const int cw = threadIdx.x / 128 - 1;
+      const int wg_keys = C::kSplit ? 0 : 64 * cw;  // the warpgroup's keys in the block
+      const int wg_cols = C::kSplit ? 64 * cw : 0;  // and its output columns
+      const int tid = threadIdx.x % 128;
+      const int warp = tid / 32;
+      const int lane = tid % 32;
+      const int c2 = 2 * (lane % 4);
+      const int key0 = k0 + wg_keys + 16 * warp + lane / 4;  // the thread's keys, and + 8
+      const int wg_key0 = k0 + wg_keys;
+      const float c = scale * kLog2e;
+      const uint32_t sk_wg = sk + wg_keys * kRowBytes;
+      const uint32_t sv_wg = sv + wg_keys * kRowBytes;
+      // the warpgroup's 64-column panel of Q and dO tiles when split
+      const uint32_t panel = (wg_cols / kPanel) * kQ * kRowBytes;
+      float dka[kCols / 2], dva[kCols / 2], st[kQ / 2], dpt[kQ / 2];
 #pragma unroll
-    for (int i = 0; i < kCols / 2; ++i) dka[i] = dva[i] = 0.f;
+      for (int i = 0; i < kCols / 2; ++i) dka[i] = dva[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kQ / 2; ++i) st[i] = dpt[i] = 0.f;
-    mbar_wait(resident, 0);
+      for (int i = 0; i < kQ / 2; ++i) st[i] = dpt[i] = 0.f;
+      mbar_wait(resident, 0);
 
-    for (int it = 0; it < n_it; ++it) {
-      const int g = it / per_head;
-      const int q0 = (qt0 + it - g * per_head) * kQ;
-      const int s = it % C::kStages;
-      const uint32_t sqs = sq + s * C::kTileBytes;
-      const uint32_t sdos = sdo + s * C::kTileBytes;
-      const float* ls = reinterpret_cast<const float*>(basep + C::kLOff + s * C::kStatBytes);
-      const float* dls = ls + kQ;
-      mbar_wait(full(s), (it / C::kStages) & 1);
-      wgmma_fence();
-      issue_dot<D>(st, sk_wg, C::kKeys, sqs, kQ);   // Sᵀ = K Qᵀ
-      issue_dot<D>(dpt, sv_wg, C::kKeys, sdos, kQ);  // dPᵀ = V dOᵀ
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(st);
-      fence_regs(dpt);
+      for (int it = 0; it < n_it; ++it) {
+        const int g = it / per_head;
+        const int q0 = (qt0 + it - g * per_head) * kQ;
+        const int s = it % C::kStages;
+        const uint32_t sqs = sq + s * C::kTileQ;
+        const uint32_t sdos = sdo + s * C::kTileDo;
+        const float* ls = reinterpret_cast<const float*>(basep + C::kLOff + s * C::kStatBytes);
+        const float* dls = ls + kQ;
+        mbar_wait(full(s), (it / C::kStages) & 1);
+        wgmma_fence();
+        issue_dot<D>(st, sk_wg, C::kKeys, sqs, kQ);   // Sᵀ = K Qᵀ
+        issue_dot<D>(dpt, sv_wg, C::kKeys, sdos, kQ);  // dPᵀ = V dOᵀ
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(st);
+        fence_regs(dpt);
 
-      // Pᵀ and dSᵀ: element i is key key0 + 8·((i >> 1) & 1) against query
-      // q0 + 8·(i / 4) + c2 + (i & 1); causally a key past the query is 0
-      const bool masked = causal && q0 < wg_key0 + 63;
-      uint32_t pf[kQ / 16][4], dsf[kQ / 16][4];
+        // Pᵀ and dSᵀ: element i is key key0 + 8·((i >> 1) & 1) against query
+        // q0 + 8·(i / 4) + c2 + (i & 1); causally a key past the query is 0
+        const bool masked = causal && q0 < wg_key0 + 63;
+        uint32_t pf[kQ / 16][4], dsf[kQ / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kQ / 16; ++kk) {
+        for (int kk = 0; kk < kQ / 16; ++kk) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int i = 8 * kk + 2 * j;
-          const int col = 8 * (i / 4) + c2;
-          const float2 lv = *reinterpret_cast<const float2*>(ls + col);
-          const float2 dv2 = *reinterpret_cast<const float2*>(dls + col);
-          float p0 = exp2f(fmaf(st[i], c, -lv.x));
-          float p1 = exp2f(fmaf(st[i + 1], c, -lv.y));
-          if (masked) {
-            const int key = key0 + 8 * (j & 1);
-            if (key > q0 + col) p0 = 0.f;
-            if (key > q0 + col + 1) p1 = 0.f;
+          for (int j = 0; j < 4; ++j) {
+            const int i = 8 * kk + 2 * j;
+            const int col = 8 * (i / 4) + c2;
+            const float2 lv = *reinterpret_cast<const float2*>(ls + col);
+            const float2 dv2 = *reinterpret_cast<const float2*>(dls + col);
+            float p0 = exp2f(fmaf(st[i], c, -lv.x));
+            float p1 = exp2f(fmaf(st[i + 1], c, -lv.y));
+            if (masked) {
+              const int key = key0 + 8 * (j & 1);
+              if (key > q0 + col) p0 = 0.f;
+              if (key > q0 + col + 1) p1 = 0.f;
+            }
+            pf[kk][j] = pack_bf16(p0, p1);
+            dsf[kk][j] = pack_bf16(p0 * (dpt[i] - dv2.x), p1 * (dpt[i + 1] - dv2.y));
           }
-          pf[kk][j] = pack_bf16(p0, p1);
-          dsf[kk][j] = pack_bf16(p0 * (dpt[i] - dv2.x), p1 * (dpt[i + 1] - dv2.y));
+        }
+        fence_regs(dva);
+        fence_regs(dka);
+        fence_regs(pf);
+        fence_regs(dsf);
+        wgmma_fence();
+        issue_rs<kCols>(dva, pf, sdos + panel);  // dV += Pᵀ dO
+        issue_rs<kCols>(dka, dsf, sqs + panel);  // dK += dSᵀ Q
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dva);
+        fence_regs(dka);
+        mbar_arrive(empty(s));
+      }
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        if (key < Tk) {
+          const long long row = (static_cast<long long>(bkv) * Tk + key) * D;
+#pragma unroll
+          for (int g = 0; g < kCols / 8; ++g) {
+            const long long at = row + wg_cols + 8 * g + c2;
+            *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
+                dka[4 * g + 2 * r] * scale, dka[4 * g + 2 * r + 1] * scale);
+            *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+                __floats2bfloat162_rn(dva[4 * g + 2 * r], dva[4 * g + 2 * r + 1]);
+          }
         }
       }
-      fence_regs(dva);
-      fence_regs(dka);
-      fence_regs(pf);
-      fence_regs(dsf);
-      wgmma_fence();
-      issue_rs<kCols>(dva, pf, sdos + panel);  // dV += Pᵀ dO
-      issue_rs<kCols>(dka, dsf, sqs + panel);  // dK += dSᵀ Q
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(dva);
-      fence_regs(dka);
-      mbar_arrive(empty(s));
-    }
+    } else {
+      // MLA's pair: the warpgroups' shares differ (DkvCfg), so each runs
+      // its own copy of the loop above, KC columns of dK from kc0 and VC
+      // of dV from vc0: straight-line products and stores for its share
+      const int cw = threadIdx.x / 128 - 1;
+      auto consume = [&](auto kc_, auto vc_, int kc0, int vc0) {
+        constexpr int KC = decltype(kc_)::value;
+        constexpr int VC = decltype(vc_)::value;
+        const int tid = threadIdx.x % 128;
+        const int warp = tid / 32;
+        const int lane = tid % 32;
+        const int c2 = 2 * (lane % 4);
+        const int key0 = k0 + 16 * warp + lane / 4;  // the thread's keys, and + 8
+        const float c = scale * kLog2e;
+        float dka[KC / 2], dva[VC / 2], st[kQ / 2], dpt[kQ / 2];
+#pragma unroll
+        for (int i = 0; i < KC / 2; ++i) dka[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < VC / 2; ++i) dva[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < kQ / 2; ++i) st[i] = dpt[i] = 0.f;
+        mbar_wait(resident, 0);
+
+        for (int it = 0; it < n_it; ++it) {
+          const int g = it / per_head;
+          const int q0 = (qt0 + it - g * per_head) * kQ;
+          const int s = it % C::kStages;
+          const uint32_t sqs = sq + s * C::kTileQ;
+          const uint32_t sdos = sdo + s * C::kTileDo;
+          const float* ls =
+              reinterpret_cast<const float*>(basep + C::kLOff + s * C::kStatBytes);
+          const float* dls = ls + kQ;
+          mbar_wait(full(s), (it / C::kStages) & 1);
+          wgmma_fence();
+          issue_dot<D, kQ>(st, sk, C::kKeys, sqs, kQ);     // Sᵀ = K Qᵀ
+          issue_dot<DV, kQ>(dpt, sv, C::kKeys, sdos, kQ);  // dPᵀ = V dOᵀ
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(st);
+          fence_regs(dpt);
+
+          const bool masked = causal && q0 < k0 + 63;
+          uint32_t pf[kQ / 16][4], dsf[kQ / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < kQ / 16; ++kk) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int i = 8 * kk + 2 * j;
+              const int col = 8 * (i / 4) + c2;
+              const float2 lv = *reinterpret_cast<const float2*>(ls + col);
+              const float2 dv2 = *reinterpret_cast<const float2*>(dls + col);
+              float p0 = exp2f(fmaf(st[i], c, -lv.x));
+              float p1 = exp2f(fmaf(st[i + 1], c, -lv.y));
+              if (masked) {
+                const int key = key0 + 8 * (j & 1);
+                if (key > q0 + col) p0 = 0.f;
+                if (key > q0 + col + 1) p1 = 0.f;
+              }
+              pf[kk][j] = pack_bf16(p0, p1);
+              dsf[kk][j] = pack_bf16(p0 * (dpt[i] - dv2.x), p1 * (dpt[i + 1] - dv2.y));
+            }
+          }
+          fence_regs(dva);
+          fence_regs(dka);
+          fence_regs(pf);
+          fence_regs(dsf);
+          wgmma_fence();
+          issue_rs<VC, kQ>(dva, pf, sdos + (vc0 / kPanel) * kQ * kRowBytes);  // dV += Pᵀ dO
+          issue_rs<KC, kQ>(dka, dsf, sqs + (kc0 / kPanel) * kQ * kRowBytes);  // dK += dSᵀ Q
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(dva);
+          fence_regs(dka);
+          mbar_arrive(empty(s));
+        }
 
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = key0 + 8 * r;
-      if (key < Tk) {
-        const long long row = (static_cast<long long>(bkv) * Tk + key) * D;
+        for (int r = 0; r < 2; ++r) {
+          const int key = key0 + 8 * r;
+          if (key < Tk) {
+            const long long row = static_cast<long long>(bkv) * Tk + key;
 #pragma unroll
-        for (int g = 0; g < kCols / 8; ++g) {
-          const long long at = row + wg_cols + 8 * g + c2;
-          *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
-              dka[4 * g + 2 * r] * scale, dka[4 * g + 2 * r + 1] * scale);
-          *reinterpret_cast<__nv_bfloat162*>(dv + at) =
-              __floats2bfloat162_rn(dva[4 * g + 2 * r], dva[4 * g + 2 * r + 1]);
+            for (int g = 0; g < KC / 8; ++g)
+              *reinterpret_cast<__nv_bfloat162*>(dk + row * D + kc0 + 8 * g + c2) =
+                  __floats2bfloat162_rn(dka[4 * g + 2 * r] * scale,
+                                        dka[4 * g + 2 * r + 1] * scale);
+#pragma unroll
+            for (int g = 0; g < VC / 8; ++g)
+              *reinterpret_cast<__nv_bfloat162*>(dv + row * DV + vc0 + 8 * g + c2) =
+                  __floats2bfloat162_rn(dva[4 * g + 2 * r], dva[4 * g + 2 * r + 1]);
+          }
         }
+      };
+      if (cw == 0) {
+        consume(Int<C::kKC0>{}, Int<C::kVC>{}, 0, 0);
+      } else {
+        consume(Int<C::kKC1>{}, Int<C::kVC>{}, C::kKC0, C::kVC);
       }
     }
   }
@@ -735,42 +939,43 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D, int 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, void* dq, void* dk, void* dv, float* lse2,
                    float* delta, int B, int H, int Hkv, int Tq, int Tk, int causal,
                    cudaStream_t stream) {
-  auto dq_kernel = flash_bwd_dq_wgmma_kernel<D>;
-  auto dkv_kernel = flash_bwd_dkdv_wgmma_kernel<D>;
-  cudaError_t err = repro::allow_smem(dq_kernel, DqCfg<D>::kBytes);
-  if (err == cudaSuccess) err = repro::allow_smem(dkv_kernel, DkvCfg<D>::kBytes);
+  using Q = DqCfg<D, DV>;
+  using K = DkvCfg<D, DV>;
+  auto dq_kernel = flash_bwd_dq_wgmma_kernel<D, DV>;
+  auto dkv_kernel = flash_bwd_dkdv_wgmma_kernel<D, DV>;
+  cudaError_t err = repro::allow_smem(dq_kernel, Q::kBytes);
+  if (err == cudaSuccess) err = repro::allow_smem(dkv_kernel, K::kBytes);
   if (err != cudaSuccess) return err;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  // the dq kernel's maps: 128-row Q, dO and O tiles, 64-row K and V tiles;
-  // the dkdv kernel's: kKeys-row K and V tiles, 64-row Q and dO tiles
+  // the dq kernel's maps: 128-row Q, dO and O tiles, kN-row K and V tiles;
+  // the dkdv kernel's: kKeys-row K and V tiles, kQ-row Q and dO tiles
   CUtensorMap q_m, do_m, o_m, k_n, v_n, q_n, do_n, k_m, v_m;
   if (!make_map(&q_m, encode, q, D, Tq, B * H, kBlockM) ||
-      !make_map(&do_m, encode, dout, D, Tq, B * H, kBlockM) ||
-      !make_map(&o_m, encode, o, D, Tq, B * H, kBlockM) ||
-      !make_map(&k_n, encode, k, D, Tk, B * Hkv, kBlockN) ||
-      !make_map(&v_n, encode, v, D, Tk, B * Hkv, kBlockN) ||
-      !make_map(&q_n, encode, q, D, Tq, B * H, DkvCfg<D>::kQ) ||
-      !make_map(&do_n, encode, dout, D, Tq, B * H, DkvCfg<D>::kQ) ||
-      !make_map(&k_m, encode, k, D, Tk, B * Hkv, DkvCfg<D>::kKeys) ||
-      !make_map(&v_m, encode, v, D, Tk, B * Hkv, DkvCfg<D>::kKeys))
+      !make_map(&do_m, encode, dout, DV, Tq, B * H, kBlockM) ||
+      !make_map(&o_m, encode, o, DV, Tq, B * H, kBlockM) ||
+      !make_map(&k_n, encode, k, D, Tk, B * Hkv, Q::kN) ||
+      !make_map(&v_n, encode, v, DV, Tk, B * Hkv, Q::kN) ||
+      !make_map(&q_n, encode, q, D, Tq, B * H, K::kQ) ||
+      !make_map(&do_n, encode, dout, DV, Tq, B * H, K::kQ) ||
+      !make_map(&k_m, encode, k, D, Tk, B * Hkv, K::kKeys) ||
+      !make_map(&v_m, encode, v, DV, Tk, B * Hkv, K::kKeys))
     return cudaErrorInvalidValue;
   // the reference's 1.0 / (D ** 0.5), a double rounded to float
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   const int n_qt = (Tq + kBlockM - 1) / kBlockM;
   const int Tpad = n_qt * kBlockM;
-  dq_kernel<<<dim3(B * H, n_qt), kThreadsWG, DqCfg<D>::kBytes, stream>>>(
+  dq_kernel<<<dim3(B * H, n_qt), kThreadsWG, Q::kBytes, stream>>>(
       q_m, do_m, o_m, k_n, v_n, static_cast<__nv_bfloat16*>(dq), lse2, delta, H, Hkv, Tq,
       Tk, Tpad, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkv_kernel<<<dim3(B * Hkv, (Tk + DkvCfg<D>::kKeys - 1) / DkvCfg<D>::kKeys), kThreadsWG,
-               DkvCfg<D>::kBytes,
+  dkv_kernel<<<dim3(B * Hkv, (Tk + K::kKeys - 1) / K::kKeys), kThreadsWG, K::kBytes,
                stream>>>(q_n, do_n, k_m, v_m, lse2, delta, static_cast<__nv_bfloat16*>(dk),
                          static_cast<__nv_bfloat16*>(dv), H, Hkv, Tq, Tk, Tpad, scale, causal);
   return cudaGetLastError();
@@ -778,31 +983,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// dQ, dK, dV of bf16 attention, D ∈ {64, 128}; every pointer 16-byte
-// aligned, every tensor contiguous.  lse2 and delta are float32 [B·H, Tpad]
-// scratch, Tpad = Tq rounded up to 128 (the row logsumexp in base 2, and
-// Δ), written by the first kernel and read by the second.  Causal needs
-// Tq == Tk.
+// dQ, dK, dV of bf16 attention, (D, Dv) ∈ {(64, 64), (128, 128), (192,
+// 128)}; every pointer 16-byte aligned, every tensor contiguous.  lse2 and
+// delta are float32 [B·H, Tpad] scratch, Tpad = Tq rounded up to 128 (the
+// row logsumexp in base 2, and Δ), written by the first kernel and read by
+// the second.  Causal needs Tq == Tk.
 extern "C" int repro_flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
                                                const void* o, const void* dout, void* dq,
                                                void* dk, void* dv, void* lse2, void* delta,
                                                int B, int H, int Hkv, int Tq, int Tk, int D,
-                                               int causal, cudaStream_t stream) {
+                                               int Dv, int causal, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 ||
       (causal && Tq != Tk))
     return static_cast<int>(cudaErrorInvalidValue);
   float* l = static_cast<float*>(lse2);
   float* dl = static_cast<float*>(delta);
-  cudaError_t err;
-  switch (D) {
-    case 64:
-      err = launch<64>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, causal, stream);
-      break;
-    case 128:
-      err = launch<128>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, causal, stream);
-      break;
-    default: err = cudaErrorInvalidValue;
-  }
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 64 && Dv == 64)
+    err = launch<64, 64>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, causal, stream);
+  else if (D == 128 && Dv == 128)
+    err = launch<128, 128>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, causal,
+                           stream);
+  else if (D == 192 && Dv == 128)
+    err = launch<192, 128>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, causal,
+                           stream);
   return static_cast<int>(err);
 }
 

@@ -39,28 +39,30 @@ The gradient: :class:`FlashAttentionFn` is the forward as an autograd
 function; its backward is :func:`flash_attention_bwd`, hand kernels with no
 Pallas original (the reference trains by ``jax.grad`` through
 ``flash_attention_jnp``): dQ, dK and dV, float32 accumulation, no atomics
-(two calls are bitwise equal), at D = Dv only: a gradient through MLA's
-(D, Dv) pairs raises ``NotImplementedError`` (``MLA_TRAINING``).  Three
-routes, chosen by :func:`bwd_variant` from the dtype and head dim alone:
+(two calls are bitwise equal), at every pair of ``BWD_PAIRS`` (those of
+``PAIRS``: MLA trains too).  Three routes, chosen by :func:`bwd_variant`
+from the dtype and head dims alone:
 
 * ``csrc/flash_attention_bwd_wgmma.cu`` (``FLASH_ATTENTION_BWD_WGMMA``) for
-  bf16 at D ∈ {64, 128}, the training path of every dense config: a dq and a
-  dkdv kernel on tensor cores (wgmma) fed by TMA, with P and dS rounded
-  once to bf16 where they enter their products (plain version
-  ``ref.flash_attention_bwd_bf16_ref``);
+  bf16 at (64, 64), (128, 128) and (192, 128), the training path of every
+  full-size config: a dq and a dkdv kernel on tensor cores (wgmma) fed by
+  TMA, with P and dS rounded once to bf16 where they enter their products
+  (plain version ``ref.flash_attention_bwd_bf16_ref``);
 * ``csrc/flash_attention_bwd_tf32.cu`` (``FLASH_ATTENTION_BWD_TF32``) for
-  float32 at D ∈ {64, 128}, the training path's precision check: the same
-  two kernels on the TF32 tensor cores, every product taken as three TF32
+  float32 at the same pairs, the training path's precision check: the same
+  products on the TF32 tensor cores, every product taken as three TF32
   terms (a_hi·b_hi + a_hi·b_lo + a_lo·b_hi, P and dS split too), float32
   accuracy (plain version ``ref.flash_attention_bwd_ref``);
 * ``csrc/flash_attention_bwd.cu`` (``FLASH_ATTENTION_BWD``) for every dtype
-  at D ∈ {8, 16, 32}: two SIMT float32 kernels, P and dS never rounded
-  (plain version ``ref.flash_attention_bwd_ref``).
+  at D = Dv ∈ {8, 16, 32} and MLA's reduced (16, 8): two SIMT float32
+  kernels, P and dS never rounded (plain version
+  ``ref.flash_attention_bwd_ref``).
 
 :func:`bwd_launch` runs any of them by name; the SIMT route takes every
-dtype and head dim, so ``chip_smoke.py`` times it beside the tensor-core
-routes.  ``models.attention.flash_attention`` takes the backward on CUDA
-tensors when a gradient is asked for; serving keeps the plain launch.
+dtype at every pair but (192, 128), so ``chip_smoke.py`` times it beside the
+tensor-core routes.  ``models.attention.flash_attention`` takes the backward
+on CUDA tensors when a gradient is asked for; serving keeps the plain
+launch.
 """
 from __future__ import annotations
 
@@ -77,13 +79,13 @@ FLASH_ATTENTION_TF32 = CudaKernel("flash_attention_tf32.cu",
                                   "repro_flash_attention_tf32", [PTR] * 4 + [I32] * 8)
 FLASH_ATTENTION_BWD = CudaKernel("flash_attention_bwd.cu",
                                  "repro_flash_attention_bwd",
-                                 [PTR] * 10 + [I32] * 8)
+                                 [PTR] * 10 + [I32] * 9)
 FLASH_ATTENTION_BWD_WGMMA = CudaKernel("flash_attention_bwd_wgmma.cu",
                                        "repro_flash_attention_bwd_wgmma",
-                                       [PTR] * 10 + [I32] * 7)
+                                       [PTR] * 10 + [I32] * 8)
 FLASH_ATTENTION_BWD_TF32 = CudaKernel("flash_attention_bwd_tf32.cu",
                                       "repro_flash_attention_bwd_tf32",
-                                      [PTR] * 10 + [I32] * 7)
+                                      [PTR] * 10 + [I32] * 8)
 
 #: head dims the kernels are compiled for with q, k and v of one head dim
 HEAD_DIMS = (8, 16, 32, 64, 128)
@@ -92,13 +94,11 @@ HEAD_DIMS = (8, 16, 32, 64, 128)
 PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((16, 8), (192, 128))
 #: pairs of the wgmma forward kernels (wgmma: bf16, tf32: float32)
 WGMMA_PAIRS = ((64, 64), (128, 128), (192, 128))
-#: head dims of the wgmma backward kernels (wgmma: bf16, tf32: float32)
-WGMMA_HEAD_DIMS = (64, 128)
-#: what a gradient through a pair with Dv ≠ D raises: the backward kernels
-#: take D = Dv only
-MLA_TRAINING = ("MLA training (attention backward kernels for a v head dim "
-                "other than the q/k head dim) is not ported yet (ROADMAP "
-                "Queue 1 item 20, part 2: MLA training)")
+#: pairs the backward kernels take: every forward pair (the tensor-core
+#: backward kernels take WGMMA_PAIRS, as the forward's)
+BWD_PAIRS = PAIRS
+#: pairs of the SIMT backward kernels: all but (192, 128)
+SIMT_BWD_PAIRS = tuple(p for p in BWD_PAIRS if p != (192, 128))
 #: the tensor-core backwards' L and Δ scratch has T rounded up to a multiple
 #: of this (the wgmma route's dq tile)
 BWD_ROWS = 128
@@ -125,12 +125,13 @@ KERNELS = {"wgmma": FLASH_ATTENTION_WGMMA, "tf32": FLASH_ATTENTION_TF32,
            "mma": FLASH_ATTENTION}
 
 
-def bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward route of (dtype, head_dim) on the card: at D ∈ {64,
-    128} ``"wgmma"`` (``FLASH_ATTENTION_BWD_WGMMA``) for bf16 and ``"tf32"``
+def bwd_variant(dtype: torch.dtype, head_dim: int, v_head_dim: int | None = None) -> str:
+    """The backward route of (dtype, head_dim, v_head_dim) on the card
+    (``v_head_dim`` defaults to ``head_dim``): at a pair of WGMMA_PAIRS
+    ``"wgmma"`` (``FLASH_ATTENTION_BWD_WGMMA``) for bf16 and ``"tf32"``
     (``FLASH_ATTENTION_BWD_TF32``) for float32, else ``"simt"``
     (``FLASH_ATTENTION_BWD``)."""
-    if head_dim in WGMMA_HEAD_DIMS:
+    if (head_dim, head_dim if v_head_dim is None else v_head_dim) in WGMMA_PAIRS:
         if dtype == torch.bfloat16:
             return "wgmma"
         if dtype == torch.float32:
@@ -182,19 +183,19 @@ def flash_attention(q, k, v, causal: bool = True):
 
 def flash_attention_bwd(q, k, v, o, do, causal: bool = True):
     """(dq, dk, dv) of ``flash_attention(q, k, v, causal)`` whose output is
-    o, for the output gradient do [B, H, T, D]; each in q's dtype and
-    shape of its input.  CUDA tensors launch the route ``bwd_variant``
-    names (two kernels, one call); CPU tensors take that route's plain
-    version (``BWD_PLAIN``).  A v head dim other than q's raises
-    ``NotImplementedError`` (``MLA_TRAINING``)."""
+    o [B, H, T, Dv], for the output gradient do [B, H, T, Dv]; each in q's
+    dtype and the shape of its input.  CUDA tensors launch the route
+    ``bwd_variant`` names (one call); CPU tensors take that route's plain
+    version (``BWD_PLAIN``).  A pair outside ``BWD_PAIRS`` raises
+    (``_check``)."""
     _check(q, k, v, causal)
-    if v.shape[3] != q.shape[3]:
-        raise NotImplementedError(MLA_TRAINING)
+    D, Dv = q.shape[3], v.shape[3]
+    want = (*q.shape[:3], Dv)
     for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+        if t.shape != want or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype} on {t.device}; "
-                             f"q is {tuple(q.shape)} {q.dtype} on {q.device}")
-    kind = bwd_variant(q.dtype, q.shape[3])
+                             f"expected {want} {q.dtype} on {q.device}")
+    kind = bwd_variant(q.dtype, D, Dv)
     if not on_card(q):
         return tuple(g.to(q.dtype) for g in
                      BWD_PLAIN[kind](q, k, v, o, do, causal=causal))
@@ -205,12 +206,15 @@ def bwd_launch(kind: str, q, k, v, o, do, causal: bool = True):
     """Launch the ``kind`` backward (a key of BWD_KERNELS) on CUDA tensors
     that ``flash_attention_bwd`` has checked.  The wrapper passes
     ``bwd_variant``'s choice; ``chip_smoke.py`` also passes ``"simt"`` at
-    the tensor-core routes' shapes, to time them on the same inputs."""
-    if kind != "simt" and bwd_variant(q.dtype, q.shape[3]) != kind:
-        raise ValueError(f"the {kind} backward does not take {q.dtype} at "
-                         f"D = {q.shape[3]}")
+    the tensor-core routes' shapes but (192, 128), to time them on the same
+    inputs."""
     B, H, T, D = q.shape
-    Hkv, Tk = k.shape[1], k.shape[2]
+    Hkv, Tk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if kind == "simt" and (D, Dv) not in SIMT_BWD_PAIRS:
+        raise ValueError(f"the simt backward does not take (D, Dv) = ({D}, {Dv})")
+    if kind != "simt" and bwd_variant(q.dtype, D, Dv) != kind:
+        raise ValueError(f"the {kind} backward does not take {q.dtype} at "
+                         f"(D, Dv) = ({D}, {Dv})")
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     if kind != "simt":  # TMA reads 16-byte aligned rows
         q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone()
@@ -224,7 +228,7 @@ def bwd_launch(kind: str, q, k, v, o, do, causal: bool = True):
     delta = torch.empty_like(lse2)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse2.data_ptr(),
-            delta.data_ptr(), B, H, Hkv, T, Tk, D)
+            delta.data_ptr(), B, H, Hkv, T, Tk, D, Dv)
     if kind != "simt":
         BWD_KERNELS[kind].launch(*args, int(causal), stream_handle(q))
     else:

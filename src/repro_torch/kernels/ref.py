@@ -112,14 +112,16 @@ def flash_attention_ref(q, k, v, causal: bool = True, scale=None):
 
 def flash_attention_bwd_ref(q, k, v, o, do, causal: bool = True):
     """The gradient of ``flash_attention`` (the plain version of
-    ``csrc/flash_attention_bwd.cu``): (dq, dk, dv) of q [B, H, T, D], k/v
-    [B, Hkv, Tk, D], the forward's output o and its gradient do [B, H, T,
-    D], in float32 (float64 for float64 inputs), written from the formulas.
+    ``csrc/flash_attention_bwd.cu``): (dq, dk, dv) of q [B, H, T, D], k [B,
+    Hkv, Tk, D], v [B, Hkv, Tk, Dv], the forward's output o and its gradient
+    do [B, H, T, Dv], in float32 (float64 for float64 inputs), written from
+    the formulas (Dv ≠ D is MLA's).
 
     P is recomputed from the scores (scale 1/√D, masked at -1e30) and the
     row logsumexp L (the denominator floored at 1e-30) and stays in the
-    working dtype, as the kernels keep it; then Δ = rowsum(dO∘O),
-    dV = Pᵀ dO, dS = P∘(dO Vᵀ − Δ), dQ = dS K·scale, dK = dSᵀ Q·scale.
+    working dtype, as the kernels keep it; then Δ = rowsum(dO∘O) over the Dv
+    columns, dV = Pᵀ dO, dS = P∘(dO Vᵀ − Δ), dQ = dS K·scale and dK = dSᵀ
+    Q·scale, the scale 1/√D at any Dv.
     q-head h reads kv-head h // G (G = H / Hkv); dK and dV sum over the G
     query heads of their group.  The causal mask is aligned at the last
     query, as ``flash_attention_ref``'s."""
@@ -129,11 +131,11 @@ def flash_attention_bwd_ref(q, k, v, o, do, causal: bool = True):
 
 def flash_attention_bwd_bf16_ref(q, k, v, o, do, causal: bool = True):
     """The plain version of ``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at
-    D 64/128): ``flash_attention_bwd_ref`` in float32 with P rounded once to
-    bf16 where it enters dV = Pᵀ dO, and dS (formed from the float32 P)
-    rounded once to bf16 where it enters dQ = dS K and dK = dSᵀ Q, as the
-    kernel feeds them to the tensor cores; S, dP, the softmax and every sum
-    stay float32."""
+    (D, Dv) ∈ {(64, 64), (128, 128), (192, 128)}): ``flash_attention_bwd_ref``
+    in float32 with P rounded once to bf16 where it enters dV = Pᵀ dO, and
+    dS (formed from the float32 P) rounded once to bf16 where it enters dQ =
+    dS K and dK = dSᵀ Q, as the kernel feeds them to the tensor cores; S,
+    dP, the softmax and every sum stay float32."""
     return _attention_bwd(q, k, v, o, do, causal, torch.float32, torch.bfloat16)
 
 
@@ -141,7 +143,7 @@ def _attention_bwd(q, k, v, o, do, causal, dt, rounded):
     """FlashAttention-2's backward in ``dt``, with P and dS rounded to
     ``rounded`` (None: not rounded) where they enter their products."""
     B, H, T, D = q.shape
-    Hkv, Tk = k.shape[1], k.shape[2]
+    Hkv, Tk, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
     q, k, v, o, do = (t.to(dt) for t in (q, k, v, o, do))
     kr, vr = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
@@ -161,4 +163,4 @@ def _attention_bwd(q, k, v, o, do, causal, dt, rounded):
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
     return (dq, dk.reshape(B, Hkv, G, Tk, D).sum(dim=2),
-            dv.reshape(B, Hkv, G, Tk, D).sum(dim=2))
+            dv.reshape(B, Hkv, G, Tk, Dv).sum(dim=2))

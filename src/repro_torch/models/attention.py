@@ -12,8 +12,10 @@
   CUDA path is ``kernels.flash_attention.FlashAttentionFn``: the same
   forward launch, with the hand-written backward kernels that
   ``kernels.flash_attention.bwd_variant`` names
-  (``kernels/csrc/flash_attention_bwd_wgmma.cu`` for bf16 at head dim 64 or
-  128, ``kernels/csrc/flash_attention_bwd.cu`` otherwise); autograd
+  (at head dims (64, 64), (128, 128) and MLA's (192, 128)
+  ``kernels/csrc/flash_attention_bwd_wgmma.cu`` for bf16 and
+  ``kernels/csrc/flash_attention_bwd_tf32.cu`` for float32,
+  ``kernels/csrc/flash_attention_bwd.cu`` otherwise); autograd
   differentiates the CPU branches as they are.
 * ``decode_attention`` is one query token against the cache, plain torch as
   in the reference.
@@ -28,9 +30,9 @@
   S, rope]}``.  The decode is the absorbed form: W_uk folded into the
   query, attention against the latent cache directly, plain products as
   in the reference (no Pallas kernel there either).  A gradient through
-  MLA's attention raises ``NotImplementedError`` on every device: the
-  backward kernels take one head dim for q, k and v (ROADMAP Queue 1 item
-  20, part 2: MLA training).
+  MLA's attention takes the backward kernels at (192, 128) (and (16, 8),
+  the reduced config's) on the card, and autograd of the plain branch on
+  the CPU, as the reference's ``jax.grad``.
 
 q-head h reads kv-head h // G (G = H / Hkv) on every path.  Sliding windows
 and prefix-LM masks raise ``NotImplementedError`` (ROADMAP Queue 1 item 20).
@@ -142,17 +144,13 @@ def flash_attention(q, k, v, *, causal=True, prefix_len=None, window=None):
     accumulator in float32, as the Pallas kernel), through
     ``FlashAttentionFn`` when a gradient is asked for.  CPU tensors: the
     reference's plain masked branch, or its chunked branch when S·Sk exceeds
-    4096²/16 and S, Sk are multiples of BLOCK_Q, BLOCK_K.  A gradient asked
-    for with Dv ≠ D raises ``NotImplementedError`` on every device (no
-    backward kernel takes it)."""
+    4096²/16 and S, Sk are multiples of BLOCK_Q, BLOCK_K."""
     if prefix_len is not None:
         raise unported("prefix-LM attention")
     if window is not None:
         raise unported("sliding-window attention")
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad)
-    if grad and v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError(_flash.MLA_TRAINING)
     if on_card(q):
         if grad:
             return _flash.FlashAttentionFn.apply(q, k, v, causal)

@@ -2401,20 +2401,20 @@ def test_cuda_flash_bwd_rejects_what_it_does_not_take(cuda_device):
         tflash.FLASH_ATTENTION_BWD.launch(
             q4.data_ptr(), k.data_ptr(), k.data_ptr(), q4.data_ptr(), q4.data_ptr(),
             q4.data_ptr(), k.data_ptr(), k.data_ptr(), lse.data_ptr(), lse.data_ptr(),
-            1, 2, 1, 4, 8, 16, 0, 1, 0)
+            1, 2, 1, 4, 8, 16, 16, 0, 1, 0)
     lse = t(2, tflash.BWD_ROWS)
     with pytest.raises(RuntimeError, match="repro_flash_attention_bwd_wgmma failed"):
         q4, k8 = t(1, 2, 4, 64, dtype=torch.bfloat16), t(1, 1, 8, 64, dtype=torch.bfloat16)
         tflash.FLASH_ATTENTION_BWD_WGMMA.launch(
             q4.data_ptr(), k8.data_ptr(), k8.data_ptr(), q4.data_ptr(), q4.data_ptr(),
             q4.data_ptr(), k8.data_ptr(), k8.data_ptr(), lse.data_ptr(), lse.data_ptr(),
-            1, 2, 1, 4, 8, 64, 1, 0)
+            1, 2, 1, 4, 8, 64, 64, 1, 0)
     with pytest.raises(RuntimeError, match="repro_flash_attention_bwd_tf32 failed"):
         q4, k8 = t(1, 2, 4, 64), t(1, 1, 8, 64)
         tflash.FLASH_ATTENTION_BWD_TF32.launch(
             q4.data_ptr(), k8.data_ptr(), k8.data_ptr(), q4.data_ptr(), q4.data_ptr(),
             q4.data_ptr(), k8.data_ptr(), k8.data_ptr(), lse.data_ptr(), lse.data_ptr(),
-            1, 2, 1, 4, 8, 64, 1, 0)
+            1, 2, 1, 4, 8, 64, 64, 1, 0)
 
 
 @pytest.mark.parametrize("D", [16, 64])
@@ -2448,8 +2448,10 @@ def test_cuda_model_attention_gradient_takes_the_backward_kernel(cuda_device, D)
 
 def test_cuda_flash_bwd_tf32_spills_nothing(cuda_device):
     """``tools/sass_report.py`` on ``flash_attention_bwd_tf32.cu``: the dq
-    and the dkdv kernel, at D 64 and 128, store and load nothing in local
-    memory (no register spills)."""
+    kernel at D 64, 128 and (192, 128) and the dkdv kernel at D 64 and 128
+    store and load nothing in local memory (no register spills); the
+    (192, 128) dkdv kernel, ``flash_bwd_dkdv_tf32_mla_kernel``, is
+    ``test_cuda_flash_bwd_mla_instances_spill_nothing``'s."""
     import json
     import subprocess
     import sys
@@ -2460,11 +2462,170 @@ def test_cuda_flash_bwd_tf32_spills_nothing(cuda_device):
                           "flash_attention_bwd_tf32.cu"], capture_output=True, text=True,
                          check=True).stdout
     rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
-    for kernel in ("flash_bwd_dq_tf32_kernel", "flash_bwd_dkdv_tf32_kernel"):
+    for kernel, n in (("flash_bwd_dq_tf32_kernel", 3), ("flash_bwd_dkdv_tf32_kernel", 2)):
         mine = [r for r in rows if kernel in r["function"]]
-        assert len(mine) == 2, (kernel, rows)  # D 64 and D 128
+        assert len(mine) == n, (kernel, rows)
         for r in mine:
             assert (r["local_stores"], r["local_loads"]) == (0, 0), r
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,D,Dv,causal,dtype", [
+    (1, 4, 2, 130, 192, 128, True, "bfloat16"), (2, 4, 4, 256, 192, 128, False, "bfloat16"),
+    (1, 4, 2, 130, 192, 128, True, "float32"), (2, 4, 4, 256, 192, 128, False, "float32"),
+    (2, 4, 4, 64, 16, 8, True, "float32"), (1, 4, 2, 100, 16, 8, False, "float32"),
+    (2, 4, 4, 64, 16, 8, True, "bfloat16"), (1, 4, 2, 100, 16, 8, False, "bfloat16")])
+def test_cuda_flash_bwd_at_mla_pairs_matches_plain(cuda_device, B, H, Hkv, T, D, Dv, causal,
+                                                  dtype):
+    """``flash_attention_bwd`` at MLA's head-dim pairs (q and k of D
+    columns, v, o and dO of Dv): the wgmma route (bf16 at (192, 128)), the
+    tf32 route (float32 there) and the SIMT route ((16, 8), every dtype),
+    against the plain version in float64 on the same inputs within 1e-5
+    (float32) or 1e-2 (bf16) of each output's largest magnitude, the wgmma
+    route also against ``flash_attention_bwd_bf16_ref``; one launch a call
+    of that route and no other; two calls bitwise equal."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(T + D + Dv + H)
+    q, k, v, do = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                                device=cuda_device).to(dt)
+                   for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, Dv), (B, H, T, Dv)))
+    o = tflash.flash_attention(q, k, v, causal=causal)
+    kind = tflash.bwd_variant(dt, D, Dv)
+    assert kind == ("simt" if D == 16 else "wgmma" if dt == torch.bfloat16 else "tf32")
+    counts = {name: kern.launches for name, kern in tflash.BWD_KERNELS.items()}
+    got = tflash.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    again = tflash.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    assert {name: kern.launches - counts[name] for name, kern in
+            tflash.BWD_KERNELS.items()} == {name: 2 * (name == kind) for name in counts}
+    wants = [ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)),
+                                         causal=causal)]
+    if kind == "wgmma":
+        wants.append(ref.flash_attention_bwd_bf16_ref(q, k, v, o, do, causal=causal))
+    rtol = 1e-5 if dt == torch.float32 else 1e-2
+    for want in wants:
+        for g, a, w, inp in zip(got, again, want, (q, k, v)):
+            assert g.dtype == dt and g.shape == inp.shape
+            assert torch.equal(g, a)
+            assert float((g.double() - w.double()).abs().max()) <= rtol * float(
+                w.abs().max())
+
+
+@pytest.mark.parametrize("D,Dv,dtype", [(192, 128, "bfloat16"), (192, 128, "float32"),
+                                        (16, 8, "float32")])
+def test_cuda_model_attention_gradient_at_mla_pairs(cuda_device, D, Dv, dtype):
+    """With a gradient asked for at MLA's pairs, ``models.attention
+    .flash_attention`` is ``FlashAttentionFn``: the forward kernel once and
+    the backward route ``bwd_variant`` names once, the gradients those of
+    ``flash_attention_bwd`` bitwise."""
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.models import attention
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(D + Dv)
+    q, k, v, do = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                                device=cuda_device).to(dt)
+                   for s in ((2, 4, 70, D), (2, 2, 70, D), (2, 2, 70, Dv), (2, 4, 70, Dv)))
+    qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+    fwd = tflash.KERNELS[tflash.variant(dt, D, Dv)]
+    bwd = tflash.BWD_KERNELS[tflash.bwd_variant(dt, D, Dv)]
+    n_f, n_b = fwd.launches, bwd.launches
+    o = attention.flash_attention(qs, ks, vs)
+    assert type(o.grad_fn).__name__ == "FlashAttentionFnBackward"
+    got = torch.autograd.grad(o, (qs, ks, vs), do)
+    assert (fwd.launches - n_f, bwd.launches - n_b) == (1, 1)
+    want = tflash.flash_attention_bwd(q, k, v, o.detach(), do)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.shape == x.shape and torch.equal(g, w)
+
+
+def test_cuda_flash_bwd_mla_instances_spill_nothing(cuda_device):
+    """``tools/sass_report.py`` on the backward sources: the wgmma route's
+    dq and dkdv kernels at (192, 128), the tf32 route's dq kernel there and
+    its ``flash_bwd_dkdv_tf32_mla_kernel``, and the SIMT route's float32 dq
+    and dkdv kernels at (16, 8) store and load nothing in local memory.
+    The SIMT route's bf16 instances at (16, 8) are left out: ptxas keeps 4
+    bytes of the bf16 dkdv kernel in local memory (one store, two loads,
+    at 80 of the 255 registers it may use), a choice of its own that it
+    makes for the bf16 (8, 8) dq kernel too (12 bytes); their time is
+    measured in ``chip_smoke.py``'s G rows."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(root / "tools" / "sass_report.py"),
+                          "flash_attention_bwd_wgmma.cu", "flash_attention_bwd_tf32.cu",
+                          "flash_attention_bwd.cu"], capture_output=True, text=True,
+                         check=True).stdout
+    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    wanted = (("flash_bwd_dq_wgmma_kernelILi192ELi128E", 1),
+              ("flash_bwd_dkdv_wgmma_kernelILi192ELi128E", 1),
+              ("flash_bwd_dq_tf32_kernelILi192ELi128E", 1),
+              ("flash_bwd_dkdv_tf32_mla_kernelILi192ELi128E", 1),
+              ("flash_bwd_dq_kernelIfLi16ELi8E", 1), ("flash_bwd_dkdv_kernelIfLi16ELi8E", 1))
+    for kernel, n in wanted:
+        mine = [r for r in rows if kernel in r["function"]]
+        assert len(mine) == n, (kernel, rows)
+        for r in mine:
+            assert (r["local_stores"], r["local_loads"]) == (0, 0), r
+
+
+def test_cuda_deepseek_reduced_train_step_matches_cpu(cuda_device):
+    """One ``make_train_step`` of the reduced deepseek (MLA (16, 8): the mma
+    forward and the SIMT backward; MoE, capacity factor 4.0, nothing drops;
+    the MTP head; remat ``full``; 2 microbatches, float32 accumulators) on
+    the card against the same step on the CPU from the same parameters and
+    batch, within ``test_cuda_train_step_matches_cpu``'s limits; the
+    backward launches (2 layers + the MTP block) × 2 microbatches times.
+    The router is float32 on both devices, and a near-tie between the k-th
+    and (k + 1)-th expert could route a token differently: the check
+    asserts that the two runs' routings agree before comparing."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data import lm_data
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.launch import train
+    from repro_torch.models import moe, registry
+    from repro_torch.optim import optimizers
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("deepseek_v3_671b").reduced()
+    api = registry.build(cfg)
+    batch = lm_data._batch_for_step(cfg, ShapeSpec("t", 64, 4, "train"), 0, 0, "cpu")
+    opt = optimizers.sgd(0.1, momentum=0.9)
+    plan = train.TrainPlan(2, torch.float32)
+    route, results = moe.moe_route, []
+    for dev in ("cpu", cuda_device):
+        experts = []
+
+        def recorded(cfg_, router, x):
+            experts.append(route(cfg_, router, x))
+            return experts[-1]
+
+        params = api.init(seed=0, device="cpu")
+        params = pytree.tree_map(lambda t: t.to(dev), params)
+        n = tflash.FLASH_ATTENTION_BWD.launches
+        moe.moe_route = recorded
+        try:
+            new, state, metrics = train.make_train_step(cfg, api, opt, plan)(
+                params, opt.init(params), batch)
+        finally:
+            moe.moe_route = route
+        torch.cuda.synchronize()
+        launched = tflash.FLASH_ATTENTION_BWD.launches - n
+        results.append((float(metrics["loss"]), new, state["mu"], launched,
+                        [r.experts.cpu() for r in experts]))
+    (l_cpu, p_cpu, g_cpu, n_cpu, e_cpu), (l_gpu, p_gpu, g_gpu, n_gpu, e_gpu) = results
+    assert all(torch.equal(a, b) for a, b in zip(e_cpu, e_gpu))
+    assert (n_cpu, n_gpu) == (0, (cfg.n_layers + 1) * plan.n_microbatches)
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    for rtol, a, b in ((1e-4, g_cpu, g_gpu), (1e-5, p_cpu, p_gpu)):
+        for x, y in zip(pytree.tree_leaves(a), pytree.tree_leaves(b)):
+            assert float((y.cpu() - x).abs().max()) <= rtol * float(x.abs().max())
 
 
 def test_cuda_model_attention_gradient_bf16_takes_the_wgmma_backward(cuda_device):

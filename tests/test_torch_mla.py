@@ -14,8 +14,7 @@ numpy (norms 1 + 0.1·N, matrices N / √fan_in) and moved into the port with
 * deepseek-v3-671b's reduced config through ``registry.build``: parameter
   counts (reduced and full), the prefill's logits and cache, three decode
   steps fed the same tokens, ``lm_loss`` with its MTP term under
-  ``torch.no_grad()``; a gradient through MLA raises
-  ``NotImplementedError`` naming the ROADMAP item.
+  ``torch.no_grad()`` (its gradients: ``tests/test_torch_mla_train.py``).
 
 Tolerances: float32 outputs within 1e-5 of their largest magnitude (the
 tolerance of ``tests/test_torch_lm.py``: the same function, its products
@@ -177,14 +176,17 @@ def test_unsupported_pair_raises(D, Dv):
 
 
 def test_simt_and_backward_refuse_mla_pairs():
-    """The SIMT kernel by name takes D = Dv only; the backward raises
-    ``NotImplementedError`` at a pair with Dv ≠ D (before any launch)."""
+    """The SIMT forward kernel by name takes D = Dv only, and the SIMT
+    backward by name every pair but (192, 128) (before any launch); the
+    backward's own routes take both MLA pairs
+    (``tests/test_torch_mla_train.py``)."""
     q, k, v = map(torch.tensor, _qkv(1, 1, 2, 8, 16, 8))
     with pytest.raises(ValueError, match="simt kernel takes D = Dv"):
         tflash.launch("simt", q, k, v)
+    q, k, v = map(torch.tensor, _qkv(1, 1, 2, 8, 192, 128))
     o = tflash.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 20.*MLA training"):
-        tflash.flash_attention_bwd(q, k, v, o, o)
+    with pytest.raises(ValueError, match="simt backward does not take"):
+        tflash.bwd_launch("simt", q, k, v, o, o)
 
 
 def _both(seed: int = 5):
@@ -256,19 +258,6 @@ def test_loss_with_mtp_matches_reference():
     assert_close(t_loss, r_loss)
     assert_close(t_metrics["mtp_loss"], r_metrics["mtp_loss"])
     assert float(t_metrics["tokens"]) == float(r_metrics["tokens"])
-
-
-def test_gradient_through_mla_raises():
-    """No backward kernel takes q/k and v of other head dims, so a gradient
-    through MLA raises on every device rather than half-train."""
-    _, api, _, tp = _both()
-    params = layers.map_tree(lambda t: t.requires_grad_(), tp)
-    toks = _tokens(api.cfg, (1, 9))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 20.*MLA training"):
-        api.loss(params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
-    q, k, v = (torch.tensor(a, requires_grad=True) for a in _qkv(2, 1, 2, 8, 16, 8))
-    with pytest.raises(NotImplementedError, match="MLA training"):
-        attention.flash_attention(q, k, v)
 
 
 def test_server_generates_with_deepseek_reduced():
