@@ -79,7 +79,19 @@
 // 384-thread block's consumers in 168 registers whatever setmaxnreg grants)
 // set the shapes (DqCfg, DkvCfg; at (192, 128) the dq kernel's 16-key
 // tiles and flash_bwd_dkdv_tf32_mla_kernel, whose blocks take dK or dV:
-// MlaKvCfg).  Every output element is one warpgroup's
+// MlaKvCfg).  At (192, 128) one slot is all that fits beside the resident
+// copies (the dq kernel's second pass, the dK blocks), so the producer's
+// copies, not the products, set the time; there: the dq kernel's first
+// pass alternates two K buffers in the slot, the dV blocks have a layout
+// of their own with two slots, a single slot is released in two phases
+// (the split natural tiles once the products that read them are done, the
+// transposed copies, made from the split tiles, once theirs are), and a
+// producer thread loads all of its share of a tile before it stores any
+// copy (split_tile, transpose_tile), so those loads are in flight together.
+// (A second producer warpgroup and copies a chunk at a time measured no
+// faster; a 384-thread block leaves each thread 168 registers, which the
+// dq kernel's consumer, with dQ's 96, does not fit.)  Every output element
+// is one warpgroup's
 // sum in a fixed order, or two warpgroups' sums added once: no atomics, so
 // two calls on the same inputs are bitwise equal.
 //
@@ -93,7 +105,21 @@
 
 #include "common.cuh"
 
+// Variants: 0 in the library; tools/kernel_variants.py builds the source
+// with REPRO_VARIANT set to one of the cuts below, to time what each part of
+// the (192, 128) kernels costs (the other instances ignore it).
+#ifndef REPRO_VARIANT
+#define REPRO_VARIANT 0
+#endif
+
 namespace {
+
+constexpr int kVariant = REPRO_VARIANT;
+constexpr int kNoSplit = 1;     // the producer writes no copies (tiles as landed)
+constexpr int kNoCompute = 2;   // consumers release each tile unread
+constexpr int kDqPass1 = 3;     // the dq kernel's first pass alone
+constexpr int kDkOnly = 4;      // the dkdv kernel's dK blocks alone
+constexpr int kDvOnly = 5;      // the dkdv kernel's dV blocks alone
 
 constexpr int kPanel = 32;      // float columns of one 128-byte swizzled panel
 constexpr int kRowBytes = 128;  // bytes of one row of a panel
@@ -110,7 +136,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 // each) take 160 KB, so a slot has 66 KB: tiles of 16 keys (K_hi, K_lo 12
 // KB each, V_hi, V_lo 8 each), whose transposed copies are rows of 16
 // positions, 64 bytes, in the 64-byte swizzle (12 KB each, where rows of
-// 128 bytes half used would take 24): 64 KB a slot, 225 KB in all.
+// 128 bytes half used would take 24): 64 KB a slot, 225 KB in all.  The
+// first pass reads K_hi and K_lo alone (24 KB a tile), so there the slot
+// holds two such buffers, each with barriers of its own (kBufs), and the
+// producer splits one tile while the consumer takes the other.  In the
+// second pass the slot is released in two phases: K and V (split in place,
+// buffer 0's barriers) once S and dP are taken, so the next tile lands and
+// is split while dS and dQ run; Kᵀ (copied from the split K, buffer 1's
+// barriers) once dQ is taken, so it is written while S and dP run.
 template <int D, int DV>
 struct DqCfg {
   static constexpr int kNC = D == 64 ? 2 : 1;      // consumer warpgroups
@@ -119,6 +152,7 @@ struct DqCfg {
   static constexpr int kN = D == DV ? 32 : 16;     // keys of a K/V tile
   static constexpr int kTrRow = kN * 4;            // bytes of a transposed row
   static constexpr int kSlots = D == 64 ? 2 : 1;
+  static constexpr int kBufs = D == DV ? kSlots : 2;  // barrier sets: slots, or pass 1's buffers
   static constexpr int kBigQ = kRows * D * 4;      // one resident Q copy
   static constexpr int kBigV = kRows * DV * 4;     // one resident dO copy
   static constexpr int kTile = kN * D * 4;         // one K or Kᵀ copy
@@ -132,8 +166,9 @@ struct DqCfg {
   static constexpr int kSlotOff = 2 * kBigQ + 2 * kBigV;
   static constexpr int kBarOff = kSlotOff + kSlots * kSlotBytes;
   // barriers: resident landed, resident split, then land, full and empty of
-  // each slot; slack to align the dynamic shared memory to 1024 bytes
-  static constexpr size_t kBytes = kBarOff + 8 * (2 + 3 * kSlots) + 1024;
+  // each slot (of each buffer); slack to align the dynamic shared memory to
+  // 1024 bytes
+  static constexpr size_t kBytes = kBarOff + 8 * (2 + 3 * kBufs) + 1024;
   static_assert(kBytes <= 232448, "more shared memory than a block can have");
 };
 
@@ -176,38 +211,48 @@ struct DkvCfg {
 // copies take 160 KB, so a block has 66 KB beside them, and a slot of
 // 16-query tiles with both transposed copies needs 80 (Q and dO natural hi
 // and lo 40, Qᵀ and dOᵀ hi and lo 40 in 64-byte rows).  So the work is cut
-// in two parts, blockIdx.z: part 0 takes dK (Sᵀ, dPᵀ, dSᵀ, then dSᵀ Q
-// against Qᵀ), part 1 takes dV (Sᵀ, Pᵀ, then Pᵀ dO against dOᵀ; V is not
-// loaded); a slot holds one transposed pair, Qᵀ or dOᵀ (65 KB a slot, 226
-// KB in all).  Each block is a producer and one consumer warpgroup, which
-// holds its part's sums whole (dK 96 registers a thread, dV 64) beside a
-// tile's product (32), Sᵀ and dPᵀ (16) and a fragment pair (16): within the
-// 255 a thread of a 256-thread block may have, where two consumer
-// warpgroups would have 168.
-template <int D, int DV>
+// in two parts, blockIdx.z, each with a layout of its own (kDk):
+// - part 0 takes dK (Sᵀ, dPᵀ, dSᵀ, then dSᵀ Q against Qᵀ): K and V
+//   resident, one slot of Q and dO hi and lo and Qᵀ (65 KB, 226 in all),
+//   released in two phases: Q, dO, L and Δ (split in place) once dSᵀ is
+//   made, so the next tile lands and is split while dK is taken; Qᵀ
+//   (copied from the split Q; barriers tr_full, tr_empty) once dK is taken,
+//   so it is written while Sᵀ and dPᵀ are;
+// - part 1 takes dV (Sᵀ, Pᵀ, then Pᵀ dO against dOᵀ): K resident (96 KB),
+//   V not loaded and dO not split (it lands raw and is only transposed), so
+//   a slot is 49 KB and two fit (194 KB in all): the producer splits the
+//   next tile while the consumer takes this one.
+// Each block is a producer and one consumer warpgroup, which holds its
+// part's sums whole (dK 96 registers a thread, dV 64) beside a tile's
+// product (32), Sᵀ and dPᵀ (16) and a fragment pair (16): within the 255 a
+// thread of a 256-thread block may have, where two consumer warpgroups
+// would have 168.
+template <int D, int DV, bool kDk>
 struct MlaKvCfg {
   static constexpr int kThreads = 256;
   static constexpr int kKeys = 64;
   static constexpr int kQ = 16;                     // queries of a tile
   static constexpr int kTrRow = kQ * 4;             // bytes of a transposed row
   static constexpr int kBigK = kKeys * D * 4;       // one resident K copy
-  static constexpr int kBigV = kKeys * DV * 4;      // one resident V copy
+  static constexpr int kBigV = kDk ? kKeys * DV * 4 : 0;  // one resident V copy
   static constexpr int kNatQ = kQ * D * 4;          // one natural Q copy
   static constexpr int kNatDo = kQ * DV * 4;        // one natural dO copy
-  static constexpr int kTr = D * kTrRow;            // one transposed copy (Qᵀ; dOᵀ fits)
-  // resident: K_hi, K_lo, V_hi, V_lo; a slot: Q_hi (TMA lands Q here), Q_lo,
-  // dO_hi (dO lands), dO_lo, Tᵀ_hi, Tᵀ_lo (Qᵀ in part 0, dOᵀ in part 1),
-  // then L and Δ of the tile's queries
+  static constexpr int kTr = (kDk ? D : DV) * kTrRow;  // one transposed copy, Qᵀ or dOᵀ
+  static constexpr int kSlots = kDk ? 1 : 2;
+  // resident: K_hi, K_lo (, V_hi, V_lo); a slot: Q_hi (TMA lands Q here),
+  // Q_lo, dO_hi (dO lands; part 1 keeps it raw), (dO_lo,) Tᵀ_hi, Tᵀ_lo (Qᵀ
+  // in part 0, dOᵀ in part 1), then L and Δ of the tile's queries
   static constexpr int kVhi = 2 * kBigK, kVlo = 2 * kBigK + kBigV;
   static constexpr int kQhi = 0, kQlo = kNatQ, kDOhi = 2 * kNatQ, kDOlo = 2 * kNatQ + kNatDo;
-  static constexpr int kThi = 2 * (kNatQ + kNatDo), kTlo = kThi + kTr;
+  static constexpr int kThi = 2 * kNatQ + (kDk ? 2 : 1) * kNatDo, kTlo = kThi + kTr;
   static constexpr int kStat = kThi + 2 * kTr;
   static constexpr int kSlotBytes = (kStat + 2 * kQ * 4 + 1023) / 1024 * 1024;
   static constexpr int kSlotOff = 2 * (kBigK + kBigV);
-  static constexpr int kBarOff = kSlotOff + kSlotBytes;
+  static constexpr int kBarOff = kSlotOff + kSlots * kSlotBytes;
   // barriers: resident landed, resident split, then land, full and empty of
-  // the slot; slack to align the dynamic shared memory to 1024 bytes
-  static constexpr size_t kBytes = kBarOff + 8 * 5 + 1024;
+  // each slot, then tr_full and tr_empty (part 0); slack to align the
+  // dynamic shared memory to 1024 bytes
+  static constexpr size_t kBytes = kBarOff + 8 * (4 + 3 * kSlots) + 1024;
   static constexpr uint32_t kStageTx = kNatQ + kNatDo + 2 * kQ * 4;
   static_assert(kBytes <= 232448, "more shared memory than a block can have");
 };
@@ -454,6 +499,67 @@ __device__ __forceinline__ void transpose_split(const unsigned char* raw, unsign
   }
 }
 
+// split_in_place over a tile of kBytes (a compile-time size, a whole number
+// of float4s for each of the producer's 128 threads): every float4 of a
+// thread is loaded before any is split and stored, so the loads are in
+// flight together (the MLA kernels' per-tile copies).
+template <int kBytes>
+__device__ __forceinline__ void split_tile(unsigned char* x, unsigned char* lo, int p) {
+  constexpr int kIt = kBytes / 16 / 128;
+  static_assert(kBytes % (16 * 128) == 0, "a whole number of float4s a thread");
+  float4 v[kIt];
+#pragma unroll
+  for (int i = 0; i < kIt; ++i) v[i] = reinterpret_cast<const float4*>(x)[p + i * 128];
+#pragma unroll
+  for (int i = 0; i < kIt; ++i) {
+    uint4 h, l;
+    split_tf32(v[i].x, h.x, l.x);
+    split_tf32(v[i].y, h.y, l.y);
+    split_tf32(v[i].z, h.z, l.z);
+    split_tf32(v[i].w, h.w, l.w);
+    reinterpret_cast<uint4*>(x)[p + i * 128] = h;
+    reinterpret_cast<uint4*>(lo)[p + i * 128] = l;
+  }
+}
+
+// transpose_split's copies (the same order, layout and values) by the
+// producer's 128 threads, a whole number of chunks each, every element of a
+// thread loaded before any copy is stored: from the raw tile at x (kSplit),
+// or from a tile already split in place, hi at x and lo at xlo (the same
+// values, as the split is elementwise).
+template <int D, int N, int RowBytes, bool kSplit>
+__device__ __forceinline__ void transpose_tile(const unsigned char* x, const unsigned char* xlo,
+                                               unsigned char* thi, unsigned char* tlo, int p) {
+  constexpr int kIt = D * N / 4 / 128;
+  static_assert(D * N / 4 % 128 == 0, "a whole number of chunks a thread");
+  static_assert(RowBytes == kRowBytes || RowBytes == 64, "128- or 64-byte rows");
+  uint32_t h[kIt][4], l[kIt][4];
+#pragma unroll
+  for (int i = 0; i < kIt; ++i) {
+    const int e = p + i * 128, d = e % D, jq = e / D;
+    const int r = 8 * (jq / 2) + (jq & 1);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t a = swz(r + 2 * k, d, N);
+      if constexpr (kSplit) {
+        split_tf32(*reinterpret_cast<const float*>(x + a), h[i][k], l[i][k]);
+      } else {
+        h[i][k] = *reinterpret_cast<const uint32_t*>(x + a);
+        l[i][k] = *reinterpret_cast<const uint32_t*>(xlo + a);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kIt; ++i) {
+    const int e = p + i * 128, d = e % D, jq = e / D;
+    const uint32_t off = RowBytes == kRowBytes
+                             ? swz(d, 4 * jq, D)
+                             : d * RowBytes + ((jq ^ ((d >> 1) & 3)) << 4);
+    *reinterpret_cast<uint4*>(thi + off) = make_uint4(h[i][0], h[i][1], h[i][2], h[i][3]);
+    *reinterpret_cast<uint4*>(tlo + off) = make_uint4(l[i][0], l[i][1], l[i][2], l[i][3]);
+  }
+}
+
 // Accumulator layout (m64nN, float32): element i of a thread lies in row
 // r0 + 8·((i >> 1) & 1) of its warpgroup's 64, with r0 = 16·warp + lane / 4,
 // and column 8·(i / 4) + 2·(lane % 4) + (i & 1).  A tf32 A fragment of k-step
@@ -477,15 +583,20 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
                              int Tpad, float scale, int causal) {
   using C = DqCfg<D, DV>;
   constexpr int kN = C::kN;
+  constexpr int kV = D != DV ? kVariant : 0;  // the variants cut MLA's instance
+  constexpr int kPasses = kV == kDqPass1 ? 1 : 2;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   unsigned char* basep = smem_raw + (base - smem_u32(smem_raw));
   const uint32_t bars = base + C::kBarOff;
   const uint32_t res_land = bars, res_ready = bars + 8;
   auto land = [&](int s) { return bars + 16u + 8u * s; };
-  auto full = [&](int s) { return bars + 16u + 8u * (C::kSlots + s); };
-  auto empty = [&](int s) { return bars + 16u + 8u * (2 * C::kSlots + s); };
+  auto full = [&](int s) { return bars + 16u + 8u * (C::kBufs + s); };
+  auto empty = [&](int s) { return bars + 16u + 8u * (2 * C::kBufs + s); };
   auto slot = [&](int s) { return C::kSlotOff + s * C::kSlotBytes; };
+  // at MLA's pair pass 1 alternates two buffers of K_hi and K_lo in the
+  // slot, and pass 2 takes the slot whole with buffer 0's barriers
+  constexpr bool kMla = D != DV;
 
   const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
   const int bh = blockIdx.x;
@@ -500,7 +611,7 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
   if (threadIdx.x == 0) {
     mbar_init(res_land, 1);
     mbar_init(res_ready, 128);
-    for (int s = 0; s < C::kSlots; ++s) {
+    for (int s = 0; s < C::kBufs; ++s) {
       mbar_init(land(s), 1);
       mbar_init(full(s), 128);              // every producer thread, after its split
       mbar_init(empty(s), 128 * C::kNC);    // every consumer thread
@@ -524,16 +635,20 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
       }
     }
     mbar_wait(res_land, 0);
-    split_in_place(basep, basep + C::kBigQ, C::kBigQ, p);
-    split_in_place(basep + C::kDoOff, basep + C::kDoOff + C::kBigV, C::kBigV, p);
+    if (kV != kNoSplit) {
+      split_in_place(basep, basep + C::kBigQ, C::kBigQ, p);
+      split_in_place(basep + C::kDoOff, basep + C::kDoOff + C::kBigV, C::kBigV, p);
+    }
     proxy_fence();
     mbar_arrive(res_ready);
     int it = 0;
-    for (int pass = 0; pass < 2; ++pass) {
+    for (int pass = 0; pass < kPasses; ++pass) {
       for (int t = 0; t < n_kt; ++t, ++it) {
-        const int s = it % C::kSlots, use = it / C::kSlots;
-        const uint32_t sa = base + slot(s);
-        unsigned char* sp = basep + slot(s);
+        const int s = kMla ? (pass ? 0 : t & 1) : it % C::kSlots;
+        const int use = kMla ? (pass ? (n_kt + 1) / 2 + t : t >> 1) : it / C::kSlots;
+        const int at = kMla ? C::kSlotOff + s * 2 * C::kTile : slot(s);
+        const uint32_t sa = base + at;
+        unsigned char* sp = basep + at;
         mbar_wait(empty(s), (use & 1) ^ 1);
         if (p == 0) {
           mbar_expect_tx(land(s), C::kTile + pass * C::kTileV);
@@ -545,12 +660,40 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
           }
         }
         mbar_wait(land(s), use & 1);
-        if (pass) {
+        if constexpr (kMla) {
+          if (pass) {
+            // phase A: K and V split in place; phase B: Kᵀ from them once
+            // the consumer is past the tile before's dQ (and, at the first
+            // tile, past pass 1's last use of buffer 1, which Kᵀ overlays)
+            if (kV != kNoSplit) {
+              split_tile<C::kTileV>(sp + C::kVhi, sp + C::kVlo, p);
+              split_tile<C::kTile>(sp + C::kKhi, sp + C::kKlo, p);
+            }
+            proxy_fence();
+            mbar_arrive(full(0));
+            bar_sync(1, 128);  // every half of K is split
+            mbar_wait(empty(1), ((n_kt / 2 + t) & 1) ^ 1);
+            if (kV != kNoSplit)
+              transpose_tile<D, kN, C::kTrRow, false>(sp + C::kKhi, sp + C::kKlo, sp + C::kKThi,
+                                                      sp + C::kKTlo, p);
+            proxy_fence();
+            mbar_arrive(full(1));
+            bar_sync(1, 128);  // every read of K is done before the next tile lands
+            continue;
+          }
+        }
+        if (pass && kV != kNoSplit) {
           transpose_split<D, kN, C::kTrRow>(sp + C::kKhi, sp + C::kKThi, sp + C::kKTlo, p);
           split_in_place(sp + C::kVhi, sp + C::kVlo, C::kTileV, p);
         }
         bar_sync(1, 128);  // every read of the raw K is done
-        split_in_place(sp + C::kKhi, sp + C::kKlo, C::kTile, p);
+        if (kV != kNoSplit) {
+          if constexpr (kMla) {  // pass 1's K
+            split_tile<C::kTile>(sp + C::kKhi, sp + C::kKlo, p);
+          } else {
+            split_in_place(sp + C::kKhi, sp + C::kKlo, C::kTile, p);
+          }
+        }
         proxy_fence();
         mbar_arrive(full(s));
       }
@@ -610,14 +753,14 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
     float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
     int it = 0;
     for (int t = 0; t < n_kt; ++t, ++it) {
-      const int s = it % C::kSlots;
+      const int s = kMla ? t & 1 : it % C::kSlots;
       const int k0 = t * kN;
-      mbar_wait(full(s), (it / C::kSlots) & 1);
-      if (causal && k0 > wg_row0 + 63) {
+      mbar_wait(full(s), (kMla ? t >> 1 : it / C::kSlots) & 1);
+      if (kV == kNoCompute || (causal && k0 > wg_row0 + 63)) {
         mbar_arrive(empty(s));
         continue;
       }
-      const uint32_t sa = base + slot(s);
+      const uint32_t sa = base + (kMla ? C::kSlotOff + s * 2 * C::kTile : slot(s));
       fence_regs(sc);
       wgmma_fence();
       issue_scores<D, kN, C::kRows, kN>(sc, qhi, qlo, sa + C::kKhi, sa + C::kKlo);
@@ -662,12 +805,17 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < 32; ++i) tile[i] = 0.f;
-    for (int t = 0; t < n_kt; ++t, ++it) {
-      const int s = it % C::kSlots;
+    for (int t = 0; t < (kPasses == 2 ? n_kt : 0); ++t, ++it) {
+      const int s = kMla ? 0 : it % C::kSlots;
       const int k0 = t * kN;
-      mbar_wait(full(s), (it / C::kSlots) & 1);
-      if (causal && k0 > wg_row0 + 63) {
+      const int ub = n_kt / 2 + t;  // MLA: the tile's use of buffer 1's barriers (Kᵀ)
+      mbar_wait(full(s), (kMla ? (n_kt + 1) / 2 + t : it / C::kSlots) & 1);
+      if (kV == kNoCompute || (causal && k0 > wg_row0 + 63)) {
         mbar_arrive(empty(s));
+        if (kMla) {
+          mbar_wait(full(1), ub & 1);
+          mbar_arrive(empty(1));
+        }
         continue;
       }
       const uint32_t sa = base + slot(s);
@@ -680,6 +828,7 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
       wgmma_wait_all();
       fence_regs(sc);
       fence_regs(dp);
+      if (kMla) mbar_arrive(empty(0));  // K and V are read
       mask(sc, k0);
       uint32_t dsh[kN / 8][4], dsl[kN / 8][4];
 #pragma unroll
@@ -692,6 +841,7 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
           split_tf32(pv * (dp[i] - dl[r]), dsh[g][j], dsl[g][j]);
         }
       }
+      if (kMla) mbar_wait(full(1), ub & 1);  // Kᵀ is written
 #pragma unroll
       for (int half = 0; half < D / 64; ++half) {
         const uint32_t hoff = half * 64 * C::kTrRow;  // Kᵀ rows 64·half ..
@@ -707,7 +857,7 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[32 * half + i] += tile[i];
       }
-      mbar_arrive(empty(s));
+      mbar_arrive(empty(kMla ? 1 : s));
     }
 
 #pragma unroll
@@ -950,7 +1100,7 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads, 1)
 // of 64 keys, part), the key tiles that see the most queries first; part 0
 // writes dK, part 1 dV.  The products are the dkdv kernel's.
 template <int D, int DV>
-__global__ void __launch_bounds__(MlaKvCfg<D, DV>::kThreads, 1)
+__global__ void __launch_bounds__(MlaKvCfg<D, DV, true>::kThreads, 1)
     flash_bwd_dkdv_tf32_mla_kernel(const __grid_constant__ CUtensorMap qmap,
                                    const __grid_constant__ CUtensorMap domap,
                                    const __grid_constant__ CUtensorMap kmap,
@@ -959,49 +1109,57 @@ __global__ void __launch_bounds__(MlaKvCfg<D, DV>::kThreads, 1)
                                    const float* __restrict__ delta, float* __restrict__ dk,
                                    float* __restrict__ dv, int H, int Hkv, int Tq, int Tk,
                                    int Tpad, float scale, int causal) {
-  using C = MlaKvCfg<D, DV>;
-  constexpr int kQ = C::kQ;
+  if ((kVariant == kDkOnly && blockIdx.z == 1) || (kVariant == kDvOnly && blockIdx.z == 0))
+    return;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   unsigned char* basep = smem_raw + (base - smem_u32(smem_raw));
-  const uint32_t bars = base + C::kBarOff;
-  const uint32_t res_land = bars, res_ready = bars + 8;
-  const uint32_t land = bars + 16, full = bars + 24, empty = bars + 32;
-  const uint32_t sa = base + C::kSlotOff;
-  unsigned char* sp = basep + C::kSlotOff;
-
   const int kt = blockIdx.y;  // the first key tiles see the most queries: first
   const int bkv = blockIdx.x;
   const int b = bkv / Hkv;
   const int kvh = bkv - b * Hkv;
   const int G = H / Hkv;
-  const int k0 = kt * C::kKeys;
-  const int nq = (Tq + kQ - 1) / kQ;
-  // causal: query i sees keys 0..i, so tiles of queries below k0 see none
-  // of these keys (tiles aligned at 0, kKeys a multiple of kQ)
-  const int qt0 = causal ? k0 / kQ : 0;
-  const int per_head = nq - qt0;
-  const int n_it = G * per_head;
-
-  if (threadIdx.x == 0) {
-    mbar_init(res_land, 1);
-    mbar_init(res_ready, 128);
-    mbar_init(land, 1);
-    mbar_init(full, 128);
-    mbar_init(empty, 128);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
 
   auto run = [&](auto part_) {
     constexpr bool kDk = decltype(part_)::value == 0;
+    using C = MlaKvCfg<D, DV, kDk>;
+    constexpr int kQ = C::kQ;
     constexpr int NC = kDk ? D : DV;  // output columns of the part
+    const uint32_t bars = base + C::kBarOff;
+    const uint32_t res_land = bars, res_ready = bars + 8;
+    auto land = [&](int s) { return bars + 16u + 8u * s; };
+    auto full = [&](int s) { return bars + 16u + 8u * (C::kSlots + s); };
+    auto empty = [&](int s) { return bars + 16u + 8u * (2 * C::kSlots + s); };
+    auto slot = [&](int s) { return C::kSlotOff + s * C::kSlotBytes; };
+    const uint32_t tr_full = bars + 16u + 24u * C::kSlots, tr_empty = tr_full + 8;
+    const int k0 = kt * C::kKeys;
+    const int nq = (Tq + kQ - 1) / kQ;
+    // causal: query i sees keys 0..i, so tiles of queries below k0 see none
+    // of these keys (tiles aligned at 0, kKeys a multiple of kQ)
+    const int qt0 = causal ? k0 / kQ : 0;
+    const int per_head = nq - qt0;
+    const int n_it = G * per_head;
+
+    if (threadIdx.x == 0) {
+      mbar_init(res_land, 1);
+      mbar_init(res_ready, 128);
+      for (int s = 0; s < C::kSlots; ++s) {
+        mbar_init(land(s), 1);
+        mbar_init(full(s), 128);
+        mbar_init(empty(s), 128);
+      }
+      mbar_init(tr_full, 128);
+      mbar_init(tr_empty, 128);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
     if (threadIdx.x < 128) {
       // producer: K (and for dK V) once, then Q, dO, L and Δ of each query
       // tile of each query head of the group, each split as it lands
       const int p = threadIdx.x;
       if (p == 0) {
-        mbar_expect_tx(res_land, kDk ? C::kBigK + C::kBigV : C::kBigK);
+        mbar_expect_tx(res_land, C::kBigK + C::kBigV);
         for (int pn = 0; pn < D / kPanel; ++pn) {
           const uint32_t off = pn * C::kKeys * kRowBytes;
           tma_load_3d(base + off, &kmap, res_land, pn * kPanel, k0, bkv);
@@ -1010,38 +1168,59 @@ __global__ void __launch_bounds__(MlaKvCfg<D, DV>::kThreads, 1)
         }
       }
       mbar_wait(res_land, 0);
-      split_in_place(basep, basep + C::kBigK, C::kBigK, p);
-      if (kDk) split_in_place(basep + C::kVhi, basep + C::kVlo, C::kBigV, p);
+      if (kVariant != kNoSplit) {
+        split_in_place(basep, basep + C::kBigK, C::kBigK, p);
+        if (kDk) split_in_place(basep + C::kVhi, basep + C::kVlo, C::kBigV, p);
+      }
       proxy_fence();
       mbar_arrive(res_ready);
       for (int it = 0; it < n_it; ++it) {
         const int g = it / per_head;
         const int q0 = (qt0 + it - g * per_head) * kQ;
         const int bh = b * H + kvh * G + g;
-        mbar_wait(empty, (it & 1) ^ 1);
+        const int s = it % C::kSlots, use = it / C::kSlots;
+        const uint32_t sa = base + slot(s);
+        unsigned char* sp = basep + slot(s);
+        mbar_wait(empty(s), (use & 1) ^ 1);
         if (p == 0) {
-          mbar_expect_tx(land, C::kStageTx);
+          mbar_expect_tx(land(s), C::kStageTx);
           for (int pn = 0; pn < D / kPanel; ++pn) {
             const uint32_t off = pn * kQ * kRowBytes;
-            tma_load_3d(sa + C::kQhi + off, &qmap, land, pn * kPanel, q0, bh);
+            tma_load_3d(sa + C::kQhi + off, &qmap, land(s), pn * kPanel, q0, bh);
             if (pn < DV / kPanel)
-              tma_load_3d(sa + C::kDOhi + off, &domap, land, pn * kPanel, q0, bh);
+              tma_load_3d(sa + C::kDOhi + off, &domap, land(s), pn * kPanel, q0, bh);
           }
           const long long at = static_cast<long long>(bh) * Tpad + q0;
-          bulk_load(sa + C::kStat, lse2 + at, kQ * 4, land);
-          bulk_load(sa + C::kStat + kQ * 4, delta + at, kQ * 4, land);
+          bulk_load(sa + C::kStat, lse2 + at, kQ * 4, land(s));
+          bulk_load(sa + C::kStat + kQ * 4, delta + at, kQ * 4, land(s));
         }
-        mbar_wait(land, it & 1);
+        mbar_wait(land(s), use & 1);
         if constexpr (kDk) {
-          transpose_split<D, kQ, C::kTrRow>(sp + C::kQhi, sp + C::kThi, sp + C::kTlo, p);
+          // phase A: Q and dO split in place; phase B: Qᵀ from the split Q
+          // once the consumer is past the tile before's dK product
+          if (kVariant != kNoSplit) {
+            split_tile<C::kNatQ>(sp + C::kQhi, sp + C::kQlo, p);
+            split_tile<C::kNatDo>(sp + C::kDOhi, sp + C::kDOlo, p);
+          }
+          proxy_fence();
+          mbar_arrive(full(s));
+          bar_sync(1, 128);  // every half of Q is split
+          mbar_wait(tr_empty, (it & 1) ^ 1);
+          if (kVariant != kNoSplit)
+            transpose_tile<D, kQ, C::kTrRow, false>(sp + C::kQhi, sp + C::kQlo, sp + C::kThi,
+                                                    sp + C::kTlo, p);
+          proxy_fence();
+          mbar_arrive(tr_full);
+          bar_sync(1, 128);  // every read of Q is done before the next tile lands
         } else {
-          transpose_split<DV, kQ, C::kTrRow>(sp + C::kDOhi, sp + C::kThi, sp + C::kTlo, p);
+          if (kVariant != kNoSplit)
+            transpose_tile<DV, kQ, C::kTrRow, true>(sp + C::kDOhi, nullptr, sp + C::kThi,
+                                                    sp + C::kTlo, p);
+          bar_sync(1, 128);  // every read of the raw dO is done
+          if (kVariant != kNoSplit) split_tile<C::kNatQ>(sp + C::kQhi, sp + C::kQlo, p);
+          proxy_fence();
+          mbar_arrive(full(s));
         }
-        bar_sync(1, 128);  // every read of the raw Q or dO is done
-        split_in_place(sp + C::kQhi, sp + C::kQlo, C::kNatQ, p);
-        if (kDk) split_in_place(sp + C::kDOhi, sp + C::kDOlo, C::kNatDo, p);
-        proxy_fence();
-        mbar_arrive(full);
       }
     } else {
       const int tid = threadIdx.x - 128;
@@ -1052,8 +1231,6 @@ __global__ void __launch_bounds__(MlaKvCfg<D, DV>::kThreads, 1)
       const float c = scale * kLog2e;
       const uint32_t khi = base, klo = base + C::kBigK;
       const uint32_t vhi = base + C::kVhi, vlo = base + C::kVlo;
-      const float* ls = reinterpret_cast<const float*>(sp + C::kStat);
-      const float* dls = ls + kQ;
       float acc[NC / 2], st[kQ / 2], dpt[kQ / 2], tile[32];
 #pragma unroll
       for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
@@ -1066,7 +1243,19 @@ __global__ void __launch_bounds__(MlaKvCfg<D, DV>::kThreads, 1)
       for (int it = 0; it < n_it; ++it) {
         const int g = it / per_head;
         const int q0 = (qt0 + it - g * per_head) * kQ;
-        mbar_wait(full, it & 1);
+        const int s = it % C::kSlots;
+        const uint32_t sa = base + slot(s);
+        const float* ls = reinterpret_cast<const float*>(basep + slot(s) + C::kStat);
+        const float* dls = ls + kQ;
+        mbar_wait(full(s), (it / C::kSlots) & 1);
+        if (kVariant == kNoCompute) {
+          mbar_arrive(empty(s));
+          if (kDk) {
+            mbar_wait(tr_full, it & 1);
+            mbar_arrive(tr_empty);
+          }
+          continue;
+        }
         fence_regs(st);
         fence_regs(dpt);
         wgmma_fence();
@@ -1090,6 +1279,10 @@ __global__ void __launch_bounds__(MlaKvCfg<D, DV>::kThreads, 1)
           if (masked && key0 + 8 * ((i >> 1) & 1) > q0 + col) pv = 0.f;
           st[i] = kDk ? pv * (dpt[i] - dls[col]) : pv;
         }
+        if (kDk) {  // Q, dO, L and Δ are read; Qᵀ is next
+          mbar_arrive(empty(s));
+          mbar_wait(tr_full, it & 1);
+        }
         // dK += dSᵀ Q against Qᵀ, or dV += Pᵀ dO against dOᵀ, 64 columns at
         // a time, each tile's product into a fresh accumulator added once
         uint32_t ah[kQ / 8][4], al[kQ / 8][4];
@@ -1111,7 +1304,7 @@ __global__ void __launch_bounds__(MlaKvCfg<D, DV>::kThreads, 1)
 #pragma unroll
           for (int i = 0; i < 32; ++i) acc[32 * half + i] += tile[i];
         }
-        mbar_arrive(empty);
+        mbar_arrive(kDk ? tr_empty : empty(s));
       }
 
       float* out = kDk ? dk : dv;
@@ -1185,10 +1378,14 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   using Q = DqCfg<D, DV>;
   constexpr bool kMla = D != DV;
   // the dkdv kernel's shapes: DkvCfg's at D = Dv, MlaKvCfg's at MLA's pair
-  constexpr int kKeys = kMla ? MlaKvCfg<D, DV>::kKeys : DkvCfg<D>::kKeys;
-  constexpr int kQ = kMla ? MlaKvCfg<D, DV>::kQ : DkvCfg<D>::kQ;
-  constexpr int kKvThreads = kMla ? MlaKvCfg<D, DV>::kThreads : DkvCfg<D>::kThreads;
-  constexpr size_t kKvBytes = kMla ? MlaKvCfg<D, DV>::kBytes : DkvCfg<D>::kBytes;
+  using Mk = MlaKvCfg<D, DV, true>;
+  using Mv = MlaKvCfg<D, DV, false>;
+  constexpr int kKeys = kMla ? Mk::kKeys : DkvCfg<D>::kKeys;
+  constexpr int kQ = kMla ? Mk::kQ : DkvCfg<D>::kQ;
+  constexpr int kKvThreads = kMla ? Mk::kThreads : DkvCfg<D>::kThreads;
+  // at MLA's pair the larger of the two parts' layouts
+  constexpr size_t kKvBytes =
+      kMla ? (Mk::kBytes > Mv::kBytes ? Mk::kBytes : Mv::kBytes) : DkvCfg<D>::kBytes;
   auto dq_kernel = flash_bwd_dq_tf32_kernel<D, DV>;
   auto dkv_kernel = [] {
     if constexpr (kMla) {

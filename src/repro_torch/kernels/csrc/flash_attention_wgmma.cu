@@ -27,7 +27,10 @@
 // keys into a ring of stages that runs on from the first tile to the
 // second, each stage signalled by an mbarrier with its byte count; the
 // consumers free a stage through a second mbarrier.  Warpgroups 1 and 2
-// each own 64 query rows:
+// each own 64 query rows.  (At (192, 128) the block is the two consumer
+// warpgroups and one producer warp, 288 threads with no setmaxnreg: ptxas
+// gives them the registers of 384 threads, 168, which that instance's
+// consumers fit without spilling; below.)
 // - S = Q Kᵀ with wgmma m64n128k16 from shared memory, both operands
 //   K-major, float32 accumulators.  Products of bf16 are exact in float32,
 //   so S is the Pallas kernel's float32 dot up to summation order.
@@ -65,10 +68,21 @@
 // 208 KB in all): the producer loads the second pass's Q once the
 // consumers' last S product of the first pass has read the first
 // (an mbarrier), and the 128-key tiles, the S wgmma (m64n128, D / 16 = 12
-// k-steps) and the register plan of D = 128 stay as they are: P, PV and O
-// are sized by Dv = 128.  (64-key tiles would keep both Q tiles but halve
-// each wgmma's N and double the barrier round trips a key.)  Softmax and the tensor cores do not overlap within a
-// warpgroup; the two consumer warpgroups overlap each other.
+// k-steps) and the sizes of D = 128 stay as they are: P, PV and O are sized
+// by Dv = 128.  At D 64/128 softmax and the tensor cores do not overlap
+// within a warpgroup; the two consumer warpgroups overlap each other.  At
+// (192, 128), whose S and three-term PV are the heaviest, the warpgroup
+// makes P k-step by k-step (16 keys: the exponentials, the row sums, the
+// three terms) and issues each step's three PV wgmmas as a commit group of
+// its own, so the tensor cores take step kk while the terms of step kk + 1
+// are made; the terms of two steps are held (24 registers, where the whole
+// tile's 96 spilled), the third step waits for the first (wait_group 1);
+// a third step's terms held measured no faster.
+// Measured in turns on an H100 (tools/kernel_variants.py mla): 64-key tiles
+// with both Q tiles resident and S(t) in flight during the softmax of t − 1
+// were slower (m64n64 S wgmmas: twice the instructions a key), with or
+// without the warpgroups taking turns on named barriers; so was S of the
+// next tile issued behind this tile's PV.
 //
 // The tensor maps are encoded on the host for each call through
 // cuTensorMapEncodeTiled, found with cudaGetDriverEntryPoint, so the
@@ -81,13 +95,29 @@
 
 #include "common.cuh"
 
+// Variants: 0 in the library; tools/kernel_variants.py builds the source
+// with REPRO_VARIANT set to one of the cuts below, to time what each part of
+// the (192, 128) instance costs (the other instances ignore it).
+#ifndef REPRO_VARIANT
+#define REPRO_VARIANT 0
+#endif
+
 namespace {
+
+constexpr int kVariant = REPRO_VARIANT;
+constexpr int kNoPV = 1;        // S, the softmax and the split, no PV
+constexpr int kOneTerm = 2;     // P as one bf16 term: no split
+constexpr int kNoSoftmax = 3;   // P = S: no max, no exponentials
+constexpr int kNoCompute = 4;   // the tiles staged, nothing computed
 
 constexpr int kBlockQ = 128;     // query rows of a block, 64 per consumer
 constexpr int kBlockK = 128;     // keys of a K/V tile
 constexpr int kPanel = 64;       // bf16 columns of one 128-byte swizzled panel
 constexpr int kRowBytes = 128;   // bytes of one row of a panel
 constexpr int kThreadsWG = 384;  // producer warpgroup + two consumer warpgroups
+// (192, 128): the two consumer warpgroups (warps 0-7) and one producer warp
+// (warp 8), no setmaxnreg
+constexpr int kThreadsMla = 288;
 constexpr int kTerms = 3;        // bf16 terms of P in the PV product
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -143,6 +173,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Wait for all but the last N committed groups of wgmmas.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Pin registers that an asynchronous wgmma reads or writes: the compiler
 // may not move their uses across this point.
@@ -159,6 +194,14 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N][4]) {
     for (int i = 0; i < N; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[a][i][j])::"memory");
+}
+// The same for the fragments r[.][i] of one k-step.
+template <int M, int N>
+__device__ __forceinline__ void fence_step(uint32_t (&r)[M][N][4], int i) {
+#pragma unroll
+  for (int a = 0; a < M; ++a)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[a][i][j])::"memory");
 }
 
 // d[64] (+)= A[64 x 16] · B[16 x 128], A and B K-major in shared memory;
@@ -244,7 +287,7 @@ __device__ __forceinline__ int kv_tiles(int qt, int Tq, int Tk, int causal) {
 }
 
 template <int D, int DV>
-__global__ void __launch_bounds__(kThreadsWG, 1)
+__global__ void __launch_bounds__(D == 192 ? kThreadsMla : kThreadsWG, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                  const __grid_constant__ CUtensorMap kmap,
                                  const __grid_constant__ CUtensorMap vmap,
@@ -252,6 +295,13 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
                                  int Tk, float scale_log2, int causal) {
   // scale_log2 = log₂e / √D: P = exp2(s·scale_log2 − m·scale_log2)
   using C = Cfg<D, DV>;
+  // (192, 128) builds each k-step's terms just before its PV wgmmas (below);
+  // the variants cut that instance only
+  constexpr bool kMla = D == 192;
+  constexpr int kV = kMla ? kVariant : 0;
+  constexpr int kT = kV == kOneTerm ? 1 : kTerms;  // bf16 terms of P
+  constexpr bool kSoftmax = kV != kNoSoftmax;
+  constexpr int kRing = 2;  // k-steps whose P terms are held
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base, sk = base + C::kKOff, sv = base + C::kVOff;
@@ -285,12 +335,13 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
   }
   __syncthreads();
 
-  if (threadIdx.x < 128) {
+  // the producer: warpgroup 0, or at (192, 128) warp 8
+  if (kMla ? threadIdx.x >= 256 : threadIdx.x < 128) {
     // producer: one thread loads the Q tiles (both at once where two are
     // resident, else the second once the first is read), then keeps the
     // K/V ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 0) {
+    if constexpr (!kMla) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == (kMla ? 256 : 0)) {
       auto load_q = [&](int pass) {
         const int q0 = (pass == 0 ? qt_heavy : qt_light) * kBlockQ;
         const uint32_t dst = sq + (pass % C::kQTiles) * C::kQBytes;
@@ -320,8 +371,8 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    const int cw = threadIdx.x / 128 - 1;  // consumer: query rows 64·cw ..
+    if constexpr (!kMla) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = threadIdx.x / 128 - (kMla ? 0 : 1);  // consumer: query rows 64·cw ..
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32;
     const int lane = tid % 32;
@@ -347,6 +398,12 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
       for (int t = 0; t < n_tiles; ++t, ++it) {
         const int s = it % C::kStages;
         mbar_wait(full(s), (it / C::kStages) & 1);
+        if (kV == kNoCompute) {
+          if (C::kQTiles == 1 && n_pass == 2 && pass == 0 && t == n_tiles - 1)
+            mbar_arrive(q_free);
+          mbar_arrive(empty(s));
+          continue;
+        }
 
         // S = Q Kᵀ: D / 16 steps of 16 columns (32 bytes) along each panel
         fence_regs(sc);
@@ -379,11 +436,11 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
         }
         float mx[2] = {m[0], m[1]};
 #pragma unroll
-        for (int i = 0; i < kBlockK / 2; ++i)
+        for (int i = 0; kSoftmax && i < kBlockK / 2; ++i)
           mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
         float alpha[2], mc[2];
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
+        for (int r = 0; kSoftmax && r < 2; ++r) {
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
           alpha[r] = exp2f((m[r] - mx[r]) * scale_log2);
@@ -392,7 +449,51 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
           l[r] *= alpha[r];
         }
 #pragma unroll
-        for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; kSoftmax && i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+        if constexpr (kMla) {
+          // k-step by k-step: the step's probabilities, their sums and
+          // terms, then its PV wgmmas, a commit group each, so the tensor
+          // cores take step kk while the terms of step kk + 1 are made.  The
+          // terms of kRing steps are held (pr[.][kk % kRing]): step kk waits
+          // until step kk − kRing is done (wait_group kRing − 1) before it
+          // overwrites them.
+          uint32_t pr[kT][kRing][4];
+          fence_regs(acc);
+#pragma unroll
+          for (int kk = 0; kk < kBlockK / 16; ++kk) {
+            if (kk >= kRing) {
+              wgmma_wait<kRing - 1>();
+              fence_step(pr, kk % kRing);
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int i = 8 * kk + 2 * j;
+              float r0v = kSoftmax ? exp2f(fmaf(sc[i], scale_log2, -mc[j & 1])) : sc[i];
+              float r1v = kSoftmax ? exp2f(fmaf(sc[i + 1], scale_log2, -mc[j & 1])) : sc[i + 1];
+              l[j & 1] += r0v + r1v;
+#pragma unroll
+              for (int a = 0; a < kT; ++a) {
+                const uint32_t b0 = __float_as_uint(r0v), b1 = __float_as_uint(r1v);
+                pr[a][kk % kRing][j] = bf16x2_high(b0, b1);
+                r0v -= __uint_as_float(b0 & 0xffff0000u);  // exact
+                r1v -= __uint_as_float(b1 & 0xffff0000u);
+              }
+            }
+            fence_step(pr, kk % kRing);
+            wgmma_fence();
+            const uint64_t db = smem_desc(sv + s * C::kVBytes + kk * 16 * kRowBytes,
+                                          kBlockK * kRowBytes, 1024);
+#pragma unroll
+            for (int a = 0; a < (kV == kNoPV ? 0 : kT); ++a) wgmma_pv<DV>(acc, pr[a][kk % kRing], db);
+            wgmma_commit();
+          }
+          wgmma_wait_all();
+          fence_regs(acc);
+          fence_regs(pr);
+          mbar_arrive(empty(s));
+          continue;
+        }
 
         // P in three bf16 terms, already in PV's register-A fragment layout:
         // fragment j of k-step kk holds elements 8kk + 2j, 8kk + 2j + 1
@@ -513,9 +614,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   // the reference's 1.0 / (D ** 0.5), a double rounded to float, in log₂ units
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   const dim3 grid(((Tq + kBlockQ - 1) / kBlockQ + 1) / 2, B * H);  // two q tiles a block
-  kernel<<<grid, kThreadsWG, bytes, stream>>>(qmap, kmap, vmap,
-                                              static_cast<__nv_bfloat16*>(o), H, Hkv, Tq,
-                                              Tk, scale * kLog2e, causal);
+  kernel<<<grid, D == 192 ? kThreadsMla : kThreadsWG, bytes, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), H, Hkv, Tq, Tk, scale * kLog2e,
+      causal);
   return cudaGetLastError();
 }
 

@@ -810,6 +810,24 @@ def test_cuda_flash_mla_pairs_match_float64(cuda_device, B, H, Hkv, T, causal, d
         assert bool((err <= 2.0 ** -8 * want.abs() + 1e-6 * scale).all())
 
 
+def test_cuda_flash_wgmma_mla_instance_spills_nothing(cuda_device):
+    """``tools/sass_report.py`` on ``flash_attention_wgmma.cu``: the kernel's
+    (192, 128) instance stores and loads nothing in local memory."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(root / "tools" / "sass_report.py"),
+                          "flash_attention_wgmma.cu"], capture_output=True, text=True,
+                         check=True).stdout
+    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    mine = [r for r in rows if "flash_attention_wgmma_kernelILi192ELi128E" in r["function"]]
+    assert len(mine) == 1, rows
+    assert (mine[0]["local_stores"], mine[0]["local_loads"]) == (0, 0), mine[0]
+
+
 def test_cuda_flash_refuses_what_no_route_takes(cuda_device):
     """A pair no kernel takes, and the SIMT kernel by name at Dv ≠ D, raise
     before any launch."""

@@ -7,12 +7,13 @@ emulation, kept in this file: every product (S = Q Kᵀ, dP = dO Vᵀ, dV = Pᵀ
 dO, dQ = dS K, dK = dSᵀ Q) in three TF32 terms (a_hi·b_hi + a_hi·b_lo +
 a_lo·b_hi, x_hi = rna(x), x_lo = rna(x − x_hi), P and dS split too), summed
 in float64 within a tile and rounded once to float32; the dq kernel's tiles
-of 32 keys (pass 1 the row maximum and sum, so L in base 2; pass 2 dS =
-P ∘ (dP − Δ)); the dkdv kernel's blocks of 64 keys and tiles of 32 queries
-(16 at D 128) over the G query heads of a group, at D 64 the even and odd
-tiles summed apart and added once at the end; each tile's product added
-once to a float32 sum.  On numpy inputs from a seed, in float32, at T 24–130
-(never a multiple of 64), D 64 and 128, G 1, 2 and 4, causal and not:
+of 32 keys (16 at MLA's (192, 128); pass 1 the row maximum and sum, so L
+in base 2; pass 2 dS = P ∘ (dP − Δ)); the dkdv kernel's blocks of 64 keys
+and tiles of 32 queries (16 at D 128 and at (192, 128)) over the G query
+heads of a group, at D 64 the even and odd tiles summed apart and added
+once at the end; each tile's product added once to a float32 sum.  On
+numpy inputs from a seed, in float32, at T 24–130 (never a multiple of
+64), D 64 and 128 and (D, Dv) = (192, 128), G 1, 2 and 4, causal and not:
 
 * the emulation within 1e-5 of each output's largest magnitude of
   ``flash_attention_bwd_ref`` in float64;
@@ -43,12 +44,12 @@ from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
 LOG2E = 1.4426950408889634
-#: keys of the dq kernel's K/V tiles (DqCfg::kN)
-DQ_KEYS = 32
-#: keys of a dkdv block (DkvCfg::kKeys)
+#: keys of the dq kernel's K/V tiles by q/k head dim (DqCfg::kN)
+DQ_KEYS = {64: 32, 128: 32, 192: 16}
+#: keys of a dkdv block (DkvCfg::kKeys, MlaKvCfg::kKeys)
 DKV_KEYS = 64
-#: queries of a dkdv tile by head dim (DkvCfg::kQ)
-DKV_QUERIES = {64: 32, 128: 16}
+#: queries of a dkdv tile by q/k head dim (DkvCfg::kQ, MlaKvCfg::kQ)
+DKV_QUERIES = {64: 32, 128: 16, 192: 16}
 #: the float32 gate of chip_smoke.py E1 and tests/test_torch_cuda.py
 RTOL = 1e-5
 #: (B, H, Hkv, T, D, causal): T 24–130 and never a multiple of 64, D 64
@@ -56,6 +57,9 @@ RTOL = 1e-5
 SHAPES = [(1, 4, 1, 130, 64, False), (1, 2, 2, 24, 64, True), (2, 4, 2, 100, 64, True),
           (1, 4, 2, 72, 64, False), (1, 4, 1, 130, 128, True), (1, 2, 2, 40, 128, False),
           (1, 4, 2, 100, 128, False), (2, 4, 1, 72, 128, True)]
+#: (B, H, Hkv, T, causal) at MLA's (D, Dv) = (192, 128): T not a multiple
+#: of 16 or 64, G 1 and 2
+MLA_SHAPES = [(1, 2, 2, 40, True), (1, 4, 2, 72, False), (2, 2, 1, 100, True)]
 
 
 def product(a: torch.Tensor, b: torch.Tensor, eq: str, terms: int = 3) -> torch.Tensor:
@@ -79,6 +83,7 @@ def dq_emulation(q, k, v, o, do, causal: bool, terms: int = 3):
     B, H, T, D = q.shape
     Tk = k.shape[2]
     G = H // k.shape[1]
+    n = DQ_KEYS[D]
     kr, vr = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
     scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
     c = scale * torch.tensor(LOG2E, dtype=torch.float32)
@@ -86,26 +91,26 @@ def dq_emulation(q, k, v, o, do, causal: bool, terms: int = 3):
     rows = torch.arange(T)[:, None]
 
     def scores(k0):
-        s = product(q, kr[:, :, k0:k0 + DQ_KEYS], "bhqd,bhkd->bhqk", terms)
+        s = product(q, kr[:, :, k0:k0 + n], "bhqd,bhkd->bhqk", terms)
         if causal:
-            keys = torch.arange(k0, min(k0 + DQ_KEYS, Tk))[None, :]
+            keys = torch.arange(k0, min(k0 + n, Tk))[None, :]
             s = torch.where(keys > rows, torch.tensor(-1e30), s)
         return s
 
     m = torch.full((B, H, T), -1e30)
     l = torch.zeros((B, H, T))
-    for k0 in range(0, Tk, DQ_KEYS):
+    for k0 in range(0, Tk, n):
         s = scores(k0)
         mx = torch.maximum(m, s.amax(-1))
         l = l * torch.exp2((m - mx) * c) + _fma_exp2(s, c, (mx * c)[..., None]).sum(-1)
         m = mx
     lse = m * c + torch.log2(l.clamp(min=1e-30))
     acc = torch.zeros((B, H, T, D))
-    for k0 in range(0, Tk, DQ_KEYS):
+    for k0 in range(0, Tk, n):
         s = scores(k0)
-        dp = product(do, vr[:, :, k0:k0 + DQ_KEYS], "bhqd,bhkd->bhqk", terms)
+        dp = product(do, vr[:, :, k0:k0 + n], "bhqd,bhkd->bhqk", terms)
         ds = _fma_exp2(s, c, lse[..., None]) * (dp - delta[..., None])
-        acc = acc + product(ds, kr[:, :, k0:k0 + DQ_KEYS], "bhqk,bhkd->bhqd", terms)
+        acc = acc + product(ds, kr[:, :, k0:k0 + n], "bhqk,bhkd->bhqd", terms)
     return acc * scale, lse, delta
 
 
@@ -118,7 +123,7 @@ def dkdv_emulation(q, k, v, do, lse, delta, causal: bool, terms: int = 3):
     alternate = D == 64  # the two warpgroups sum the even and odd tiles apart
     scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
     c = scale * torch.tensor(LOG2E, dtype=torch.float32)
-    qg, dog = (t.reshape(B, Hkv, G, T, D) for t in (q, do))
+    qg, dog = (t.reshape(B, Hkv, G, T, t.shape[-1]) for t in (q, do))
     lg, dg = (t.reshape(B, Hkv, G, T) for t in (lse, delta))
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
     for k0 in range(0, Tk, DKV_KEYS):
@@ -150,10 +155,12 @@ def tf32_emulation(q, k, v, o, do, causal: bool, terms: int = 3):
     return (dq, *dkdv_emulation(q, k, v, do, lse, delta, causal, terms))
 
 
-def _inputs(B, H, Hkv, T, D, seed=0):
+def _inputs(B, H, Hkv, T, D, seed=0, Dv=None):
+    """q, k, v, dO from a seed; v and dO of Dv columns (default D)."""
     rng = np.random.default_rng(seed + T + D + H)
+    Dv = Dv or D
     return [rng.standard_normal(s).astype(np.float32) for s in
-            ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, D), (B, H, T, D))]
+            ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, Dv), (B, H, T, Dv))]
 
 
 def _err(got, want) -> float:
@@ -178,9 +185,35 @@ def test_emulation_within_1e5_of_float64(B, H, Hkv, T, D, causal):
         assert _err(g, w) <= RTOL, (name, _err(g, w))
 
 
+@pytest.mark.parametrize("B,H,Hkv,T,causal", MLA_SHAPES)
+def test_mla_emulation_within_1e5_of_float64(B, H, Hkv, T, causal):
+    """The same at MLA's pair: q and k of 192 columns, v, o and dO of 128;
+    the dq kernel's 16-key tiles and the dkdv kernel's 16-query tiles."""
+    q, k, v, do = (torch.tensor(a) for a in _inputs(B, H, Hkv, T, 192, Dv=128))
+    o = ref.flash_attention_ref(q.double(), k.double(), v.double(), causal=causal).float()
+    got = tf32_emulation(q, k, v, o, do, causal)
+    for name, g, w, inp in zip(("dq", "dk", "dv"), got, _exact(q, k, v, o, do, causal),
+                               (q, k, v)):
+        assert g.dtype == torch.float32 and g.shape == inp.shape
+        assert _err(g, w) <= RTOL, (name, _err(g, w))
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,causal", MLA_SHAPES)
+def test_mla_emulation_matches_jax_vjp_in_float32(B, H, Hkv, T, causal):
+    """At MLA's pair against the reference's ``jax.vjp`` of
+    ``flash_attention_jnp`` (which takes v of another head dim), as below."""
+    _check_against_vjp(_inputs(B, H, Hkv, T, 192, seed=1, Dv=128), causal)
+
+
 @pytest.mark.parametrize("B,H,Hkv,T,D,causal", SHAPES)
 def test_emulation_matches_jax_vjp_in_float32(B, H, Hkv, T, D, causal):
-    arrs = _inputs(B, H, Hkv, T, D, seed=1)
+    _check_against_vjp(_inputs(B, H, Hkv, T, D, seed=1), causal)
+
+
+def _check_against_vjp(arrs, causal: bool) -> None:
+    """The emulation on ``arrs`` (q, k, v, dO) against the reference's
+    ``jax.vjp`` in float32, within RTOL plus the reference's own error to
+    float64, and within RTOL of float64."""
 
     def f(q_, k_, v_):
         return rattn.flash_attention_jnp(q_, k_, v_, causal=causal)

@@ -70,10 +70,39 @@ float64 plain version:
 * ``mma_no_compute``: the K/V tiles staged, nothing computed;
 * ``mma_one_term``: one term a product (TF32 hi·hi, bf16 P_1).
 
-Run on a card from the repository root (all sections, or the ones
-named: ``matvec``, ``flash``, ``dedup``, ``gms``, ``mma``):
+MLA's two kernels at (D, Dv) = (192, 128) (section ``mla``): the bf16
+forward ``flash_attention_wgmma.cu`` at G2's prefill (4, 128, 128, 1024),
+causal, and the float32 backward ``flash_attention_bwd_tf32.cu`` at G1's
+(1, 128, 128, 1024), causal, device ms from the profiler in turns (the
+backward's dq and dkdv kernels each), errors against float64 for the
+shipped and checked builds, and two shipped calls bitwise equal; each
+function's events ms in turns beside them (the profiler at times lists 19
+of a window's 20 kernels, window after window, and then has no device ms):
 
-    python3 tools/kernel_variants.py [section ...]
+* ``shipped``, and ``parent``: the same C entry built from another
+  checkout's source (``--other ROOT``, e.g. a parent's ``git archive``
+  under ``build/``), when given;
+* forward ``fwd_no_pv``: S, the softmax and the split, no PV;
+  ``fwd_no_split``: P as one bf16 term; ``fwd_no_softmax``: P = S;
+  ``fwd_no_compute``: the K/V tiles staged, nothing computed;
+* backward ``bwd_no_split``: the producer writes no hi/lo or transposed
+  copies; ``bwd_no_compute``: the consumers release each tile unread;
+  ``bwd_dq_pass1``: the dq kernel's first pass alone (its dkdv kernel as
+  shipped); ``bwd_dk_only`` / ``bwd_dv_only``: the dkdv kernel's dK or dV
+  work alone.
+
+With ``--other ROOT`` the section also times against ROOT's builds in turns
+(ROOT, this, this, ROOT), each pair's outputs compared bitwise: MLA's
+instances of ``flash_attention_tf32.cu`` (float32 forward, (1, 128, 128,
+1024)) and ``flash_attention_bwd_wgmma.cu`` (bf16 backward, (4, 128, 128,
+1024)), and the D 64 and D 128 instances of the two cut sources: the
+forward at (4, 32, 8, 1024, 64) and (1, 8, 2, 257, 128) bf16, the backward
+at (4, 32, 8, 1024, 64) and (1, 8, 2, 257, 128) float32, causal.
+
+Run on a card from the repository root (all sections, or the ones
+named: ``matvec``, ``flash``, ``dedup``, ``gms``, ``mma``, ``mla``):
+
+    python3 tools/kernel_variants.py [section ...] [--other ROOT]
 """
 from __future__ import annotations
 
@@ -96,6 +125,11 @@ DEDUP_SRC = "scatter_dedup.cu"
 CHAIN_SRC = "fused_chain.cu"
 GMS_SRC = "gather_mul_scatter.cu"
 MMA_SRC = "flash_attention.cu"
+MLA_FWD_SRC = "flash_attention_wgmma.cu"
+MLA_BWD_SRC = "flash_attention_bwd_tf32.cu"
+#: the other sources of MLA's (192, 128) instances, timed beside a parent's
+MLA_TF32_FWD_SRC = "flash_attention_tf32.cu"
+MLA_BF16_BWD_SRC = "flash_attention_bwd_wgmma.cu"
 
 #: name -> (source, REPRO_VARIANT, checked): the numbers are the kernels'
 #: own kVariant constants
@@ -120,23 +154,43 @@ VARIANTS = {
     "mma_no_softmax": (MMA_SRC, 2, False),
     "mma_no_compute": (MMA_SRC, 3, False),
     "mma_one_term": (MMA_SRC, 4, False),
+    "fwd_no_pv": (MLA_FWD_SRC, 1, False),
+    "fwd_no_split": (MLA_FWD_SRC, 2, False),
+    "fwd_no_softmax": (MLA_FWD_SRC, 3, False),
+    "fwd_no_compute": (MLA_FWD_SRC, 4, False),
+    "bwd_no_split": (MLA_BWD_SRC, 1, False),
+    "bwd_no_compute": (MLA_BWD_SRC, 2, False),
+    "bwd_dq_pass1": (MLA_BWD_SRC, 3, False),
+    "bwd_dk_only": (MLA_BWD_SRC, 4, False),
+    "bwd_dv_only": (MLA_BWD_SRC, 5, False),
 }
 #: flash shapes (B, H, Hkv, T, D, causal)
 FLASH_SHAPES = ((4, 32, 8, 1024, 64, True), (1, 8, 1, 1000, 64, False))
 
 
-def build_all(names) -> dict:
+def build_all(names, other: Path | None = None) -> dict:
     """Compile the variants (all nvcc processes at once) into
-    build/kernels/variants/; returns name -> loaded library."""
+    build/kernels/variants/, and with ``other`` (a checkout's root) that
+    tree's MLA sources as ``parent_fwd`` and ``parent_bwd`` (and, with this
+    tree's builds of the same, ``parent_tf32`` / ``this_tf32`` and
+    ``parent_bwd_wgmma`` / ``this_bwd_wgmma``); returns name -> loaded
+    library."""
     from repro_torch.kernels import _cuda
 
     out = _cuda.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
+    csrc = {name: (_cuda.CSRC, *VARIANTS[name][:2]) for name in names}
+    if other is not None:
+        theirs = other / "src" / "repro_torch" / "kernels" / "csrc"
+        csrc.update(parent_fwd=(theirs, MLA_FWD_SRC, 0), parent_bwd=(theirs, MLA_BWD_SRC, 0),
+                    parent_tf32=(theirs, MLA_TF32_FWD_SRC, 0),
+                    this_tf32=(_cuda.CSRC, MLA_TF32_FWD_SRC, 0),
+                    parent_bwd_wgmma=(theirs, MLA_BF16_BWD_SRC, 0),
+                    this_bwd_wgmma=(_cuda.CSRC, MLA_BF16_BWD_SRC, 0))
     jobs = {}
-    for name in names:
-        source, number, _ = VARIANTS[name]
+    for name, (root, source, number) in csrc.items():
         cmd = [_cuda.find_nvcc(), *_cuda.NVCC_FLAGS, f"-DREPRO_VARIANT={number}",
-               "-I", str(_cuda.CSRC), "-o", str(out / f"{name}.so"), str(_cuda.CSRC / source)]
+               "-I", str(root), "-o", str(out / f"{name}.so"), str(root / source)]
         jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True)
     libs = {}
@@ -144,7 +198,8 @@ def build_all(names) -> dict:
         text, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n{text}")
-        spills = [line.strip() for line in text.splitlines() if "spill" in line]
+        spills = [line.strip() for line in text.splitlines()
+                  if "spill" in line or "wgmma" in line]
         print(json.dumps({"variant": name, "ptxas": spills}), flush=True)
         libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
     return libs
@@ -396,6 +451,190 @@ def mma_rows(libs) -> None:
                           "rel_err": errors, "checked": ["shipped", "simt"]}), flush=True)
 
 
+def _bwd_split(fn) -> dict:
+    """Device ms a call of a backward call ``fn``: its two kernels', and
+    each kernel's (``dq``, ``dkdv``) from the same window."""
+    from chip_smoke import bwd_device_ms
+
+    by_kernel: dict = {}
+    total = bwd_device_ms(fn, by_kernel=by_kernel)
+    if total is None:
+        return {"total": None}
+    split = {"dq" if "dq" in name else "dkdv": ms for name, ms in by_kernel.items()}
+    return {"total": total, **split}
+
+
+def _bwd_in_turns(fns: dict) -> dict:
+    """``_bwd_split`` of each function, each in order and then in reverse
+    order, averaged by part."""
+    runs: dict = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            runs[name].append(_bwd_split(fns[name]))
+    out = {}
+    for name, parts in runs.items():
+        keys = set().union(*parts)
+        out[name] = {k: (None if any(p.get(k) is None for p in parts)
+                         else statistics.mean(p[k] for p in parts)) for k in sorted(keys)}
+    return out
+
+
+def _qkv(rng, B, H, Hkv, T, D, Dv, dt):
+    import torch
+
+    return [torch.tensor(rng.standard_normal(s).astype(np.float32), device="cuda").to(dt)
+            for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, Dv), (B, H, T, Dv))]
+
+
+def _fwd_calls(libs, names, q, k, v, stream, kernel=None) -> dict:
+    """C-entry calls of the forward (``kernel``, by default the wgmma one) in
+    each library of ``names``."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    kernel = kernel or tflash.FLASH_ATTENTION_WGMMA
+    B, H, T, D = q.shape
+    Hkv, Dv = k.shape[1], v.shape[3]
+    calls = {}
+    for name in names:
+        o = q.new_empty((B, H, T, Dv))
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv, T, T,
+                D, Dv, 1, stream)
+        call = _c_call(libs[name], kernel, args, name)
+        calls[name] = lambda call=call, o=o: (call(), o)[1]
+    return calls
+
+
+def _bwd_calls(libs, names, q, k, v, o, do, stream, kernel=None) -> dict:
+    """C-entry calls of the backward (``kernel``, by default the float32 one)
+    in each library of ``names``."""
+    import torch
+    from repro_torch.kernels import flash_attention as tflash
+
+    kernel = kernel or tflash.FLASH_ATTENTION_BWD_TF32
+    B, H, T, D = q.shape
+    Hkv, Dv = k.shape[1], v.shape[3]
+    rows = -(-T // tflash.BWD_ROWS) * tflash.BWD_ROWS
+    calls = {}
+    for name in names:
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        lse2 = torch.empty((B * H, rows), dtype=torch.float32, device="cuda")
+        delta = torch.empty_like(lse2)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse2.data_ptr(),
+                delta.data_ptr(), B, H, Hkv, T, T, D, Dv, 1, stream)
+        call = _c_call(libs[name], kernel, args, name)
+        calls[name] = lambda call=call, g=(dq, dk, dv): (call(), g)[1]
+    return calls
+
+
+def mla_rows(libs) -> None:
+    """MLA's bf16 forward and float32 backward at (192, 128): shipped,
+    parent and cut, device ms in turns; with a parent, the D 64/128
+    instances of both sources beside the parent's."""
+    import torch
+    from chip_smoke import check_flash, kernel_device_ms
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ref
+
+    stream = torch.cuda.current_stream().cuda_stream
+    parent = "parent_fwd" in libs
+    rng = np.random.default_rng(0)
+
+    q, k, v, _ = _qkv(rng, 4, 128, 128, 1024, 192, 128, torch.bfloat16)
+    want = ref.flash_attention_ref(q.double(), k.double(), v.double())
+    fwd = {"shipped": lambda: tflash.flash_attention(q, k, v)}
+    names = [n for n in libs if VARIANTS.get(n, ("",))[0] == MLA_FWD_SRC]
+    fwd.update(_fwd_calls(libs, names, q, k, v, stream))
+    if parent:
+        fwd["parent"] = _fwd_calls(libs, ["parent_fwd"], q, k, v, stream)["parent_fwd"]
+    errors = {}
+    for name in ["shipped", "parent"] + [n for n in names if VARIANTS[n][2]]:
+        if name in fwd:
+            got = fwd[name]()
+            torch.cuda.synchronize()
+            errors[name] = check_flash(f"mla forward {name}", got, want, torch.bfloat16)[1]
+    bitwise = torch.equal(fwd["shipped"](), fwd["shipped"]())
+    del want
+    times = device_in_turns(fwd, "flash_attention_wgmma")
+    print(json.dumps({"kernel": "flash_attention_wgmma (192, 128)",
+                      "shape": [4, 128, 128, 1024, 192, 128], "dtype": "bfloat16",
+                      "device_ms": times, "events_ms": in_turns(fwd), "rel_err": errors,
+                      "bitwise_repeat": bitwise}), flush=True)
+    del q, k, v, fwd
+
+    q, k, v, do = _qkv(rng, 1, 128, 128, 1024, 192, 128, torch.float32)
+    o = tflash.flash_attention(q, k, v)
+    want = ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)))
+    bwd = {"shipped": lambda: tflash.flash_attention_bwd(q, k, v, o, do)}
+    names = [n for n in libs if VARIANTS.get(n, ("",))[0] == MLA_BWD_SRC]
+    bwd.update(_bwd_calls(libs, names, q, k, v, o, do, stream))
+    if parent:
+        bwd["parent"] = _bwd_calls(libs, ["parent_bwd"], q, k, v, o, do,
+                                   stream)["parent_bwd"]
+    errors = {}
+    for name in ["shipped", "parent"] + [n for n in names if VARIANTS[n][2]]:
+        if name in bwd:
+            got = bwd[name]()
+            torch.cuda.synchronize()
+            errors[name] = {g: float((x.double() - w).abs().max() / w.abs().max())
+                            for g, x, w in zip(("dq", "dk", "dv"), got, want)}
+    bitwise = all(torch.equal(a, b) for a, b in zip(bwd["shipped"](), bwd["shipped"]()))
+    del want
+    print(json.dumps({"kernel": "flash_attention_bwd_tf32 (192, 128)",
+                      "shape": [1, 128, 128, 1024, 192, 128], "dtype": "float32",
+                      "device_ms": _bwd_in_turns(bwd), "events_ms": in_turns(bwd),
+                      "rel_err": errors, "bitwise_repeat": bitwise}), flush=True)
+    del q, k, v, o, do, bwd
+    if not parent:
+        return
+    # the MLA instances of the sources this section does not cut, each tree's
+    # build through its C entry
+    q, k, v, do = _qkv(rng, 1, 128, 128, 1024, 192, 128, torch.float32)
+    fns = {name: _fwd_calls(libs, [f"{name}_tf32"], q, k, v, stream,
+                            tflash.FLASH_ATTENTION_TF32)[f"{name}_tf32"]
+           for name in ("parent", "this")}
+    print(json.dumps({"kernel": "flash_attention_tf32 (192, 128)",
+                      "shape": [1, 128, 128, 1024, 192, 128], "dtype": "float32",
+                      "device_ms": device_in_turns(fns, "flash_attention_tf32"),
+                      "events_ms": in_turns(fns),
+                      "bitwise_to_parent": torch.equal(fns["parent"](), fns["this"]())}),
+          flush=True)
+    q, k, v, do = _qkv(rng, 4, 128, 128, 1024, 192, 128, torch.bfloat16)
+    o = tflash.flash_attention(q, k, v)
+    fns = {name: _bwd_calls(libs, [f"{name}_bwd_wgmma"], q, k, v, o, do, stream,
+                            tflash.FLASH_ATTENTION_BWD_WGMMA)[f"{name}_bwd_wgmma"]
+           for name in ("parent", "this")}
+    same = all(torch.equal(a, b) for a, b in zip(fns["parent"](), fns["this"]()))
+    print(json.dumps({"kernel": "flash_attention_bwd_wgmma (192, 128)",
+                      "shape": [4, 128, 128, 1024, 192, 128], "dtype": "bfloat16",
+                      "device_ms": _bwd_in_turns(fns), "events_ms": in_turns(fns),
+                      "bitwise_to_parent": same}), flush=True)
+    del q, k, v, o, do, fns
+    for B, H, Hkv, T, D in ((4, 32, 8, 1024, 64), (1, 8, 2, 257, 128)):
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, do = _qkv(rng, B, H, Hkv, T, D, D, dt)
+            if dt == torch.bfloat16:
+                theirs = _fwd_calls(libs, ["parent_fwd"], q, k, v, stream)["parent_fwd"]
+                fns = {"parent": theirs, "this": lambda: tflash.flash_attention(q, k, v)}
+                same = torch.equal(fns["parent"](), fns["this"]())
+                times = device_in_turns(fns, "flash_attention_wgmma")
+                kernel = "flash_attention_wgmma"
+            else:
+                o = tflash.flash_attention(q, k, v)
+                theirs = _bwd_calls(libs, ["parent_bwd"], q, k, v, o, do,
+                                    stream)["parent_bwd"]
+                fns = {"parent": theirs,
+                       "this": lambda: tflash.flash_attention_bwd(q, k, v, o, do)}
+                same = all(torch.equal(a, b) for a, b in zip(fns["parent"](), fns["this"]()))
+                times = _bwd_in_turns(fns)
+                kernel = "flash_attention_bwd_tf32"
+            print(json.dumps({"kernel": kernel, "shape": [B, H, Hkv, T, D],
+                              "dtype": str(dt).split(".")[1], "device_ms": times,
+                              "events_ms": in_turns(fns), "bitwise_to_parent": same}),
+                  flush=True)
+            del q, k, v, do, fns
+
+
 def main() -> int:
     import torch
 
@@ -406,18 +645,26 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
+    args = sys.argv[1:]
+    other = None
+    if "--other" in args:
+        at = args.index("--other")
+        other = Path(args[at + 1]).resolve()
+        del args[at:at + 2]
     sections = {"matvec": (matvec_rows, (MATVEC_SRC,)),
                 "flash": (flash_rows, (FLASH_SRC,)),
                 "dedup": (dedup_rows, (DEDUP_SRC, CHAIN_SRC)),
                 "gms": (gms_rows, (GMS_SRC,)),
-                "mma": (mma_rows, (MMA_SRC,))}
-    chosen = sys.argv[1:] or list(sections)
+                "mma": (mma_rows, (MMA_SRC,)),
+                "mla": (mla_rows, (MLA_FWD_SRC, MLA_BWD_SRC))}
+    chosen = args or list(sections)
     unknown = set(chosen) - set(sections)
     if unknown:
         raise SystemExit(f"kernel_variants: unknown sections {sorted(unknown)}; "
                          f"one of {sorted(sections)}")
     sources = {src for name in chosen for src in sections[name][1]}
-    libs = build_all([v for v, (src, _, _) in VARIANTS.items() if src in sources])
+    libs = build_all([v for v, (src, _, _) in VARIANTS.items() if src in sources],
+                     other if "mla" in chosen else None)
     for name in chosen:
         sections[name][0](libs)
     return 0
