@@ -2148,7 +2148,11 @@ def flash_bwd_rows(rng, cases=BWD_CASES, path: str = "E1") -> list:
     ...)``) is timed in turns beside them, events and device ms
     (``simt_ms``; ``simt_device_ms`` from windows of five calls, else of
     one: windows of five calls of the SIMT float32 backward were seen to
-    list 2 of their 10 kernels, window after window)."""
+    list 2 of their 10 kernels, window after window).  Where ``lse_route``
+    holds (bf16 at (192, 128)) the route runs as autograd runs it, given
+    the forward's L (``flash_attention(..., return_lse=True)``), and the
+    call without L (the dq kernel's own pass for it) is gated and timed
+    beside it the same way (``no_lse``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as tflash
@@ -2163,23 +2167,36 @@ def flash_bwd_rows(rng, cases=BWD_CASES, path: str = "E1") -> list:
         k = normal(rng, (B, Hkv, T, D)).to(dt)
         v = normal(rng, (B, Hkv, T, Dv)).to(dt)
         do = normal(rng, (B, H, T, Dv)).to(dt)
-        o = tflash.flash_attention(q, k, v, causal)
+        lse = None
+        if tflash.lse_route(dt, D, Dv):
+            o, lse = tflash.flash_attention(q, k, v, causal, return_lse=True)
+        else:
+            o = tflash.flash_attention(q, k, v, causal)
         route = tflash.bwd_variant(dt, D, Dv)
-        got = tflash.flash_attention_bwd(q, k, v, o, do, causal)
-        again = tflash.flash_attention_bwd(q, k, v, o, do, causal)
-        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
         want = ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)),
                                            causal=causal)
-        errors = {name: rel_err(g, w) for name, g, w in zip(("dq", "dk", "dv"), got, want)}
-        max_abs = max(float((g.double() - w).abs().max()) for g, w in zip(got, want))
-        del again, want
         label = (f"{path} flash_attention_bwd {(B, H, Hkv, T, D, Dv)} {dtype} "
                  f"causal={causal} {route}")
-        check_within(label, errors, dict.fromkeys(errors, BWD_RTOL[dtype]))
-        if not bitwise:
-            raise AssertionError(f"{label}: two calls differ")
+        checked = {}
+        for given in ((lse, None) if lse is not None else (None,)):
+            got = tflash.flash_attention_bwd(q, k, v, o, do, causal, lse=given)
+            again = tflash.flash_attention_bwd(q, k, v, o, do, causal, lse=given)
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+            errors = {name: rel_err(g, w) for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+            max_abs = max(float((g.double() - w).abs().max()) for g, w in zip(got, want))
+            what = label + (" given L" if given is not None else "")
+            check_within(what, errors, dict.fromkeys(errors, BWD_RTOL[dtype]))
+            if not bitwise:
+                raise AssertionError(f"{what}: two calls differ")
+            checked[given is not None] = (errors, max_abs, bitwise)
+            del got, again
+        errors, max_abs, bitwise = checked[lse is not None]
+        del want
 
         def kernel():
+            tflash.flash_attention_bwd(q, k, v, o, do, causal, lse=lse)
+
+        def no_lse():
             tflash.flash_attention_bwd(q, k, v, o, do, causal)
 
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
@@ -2202,7 +2219,8 @@ def flash_bwd_rows(rng, cases=BWD_CASES, path: str = "E1") -> list:
         main = case in (BWD_MAIN, BWD_MAIN_F32)
         times = time_in_turns({"kernel": kernel, **({"library": library} if out is not None
                                                      else {}),
-                               **({"simt": simt} if main else {})})
+                               **({"simt": simt} if main else {}),
+                               **({"no_lse": no_lse} if lse is not None else {})})
         pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
         nbytes = q.element_size() * 2 * (B * H + B * Hkv) * T * (D + Dv)
         flops = 2 * pairs * (3 * D + 2 * Dv)
@@ -2223,6 +2241,12 @@ def flash_bwd_rows(rng, cases=BWD_CASES, path: str = "E1") -> list:
                    library_ms=times.get("library"), bound_ms=bms, bound_by=by,
                    bound_peak="bf16 tensor cores" if dt == torch.bfloat16
                    else "TF32 tensor cores, one term", **extra)
+        if lse is not None:
+            split_no_lse = {}
+            row["no_lse"] = dict(errors=checked[False][0], max_abs_err=checked[False][1],
+                                 bitwise_repeat=checked[False][2], kernel_ms=times["no_lse"],
+                                 device_ms=bwd_device_ms(no_lse, by_kernel=split_no_lse),
+                                 device_kernels=split_no_lse)
         if main:
             simt_device = bwd_device_ms(simt)
             if simt_device is None:  # then from windows of one call
@@ -2230,7 +2254,7 @@ def flash_bwd_rows(rng, cases=BWD_CASES, path: str = "E1") -> list:
             row.update(simt_ms=times["simt"], simt_device_ms=simt_device)
         rows.append(row)
         log({"kernel": "flash_attention_bwd", "path": path, **row})
-        del q, k, v, o, do, got, qs, ks, vs, out
+        del q, k, v, o, do, lse, qs, ks, vs, out
     torch.cuda.empty_cache()
     return rows
 
@@ -3084,7 +3108,12 @@ def mla_attention_rows(rng, rows: dict) -> list:
     refuses v of another head dim), the route's device ms, SDPA's device
     ms, the plain version's ms and the bound: q, k, v read once and o
     written once, or the causal half's B·H·T²·(D + Dv) flops at the dtype's
-    rate (float32 rows also ``tc_bound_ms``, three TF32 products)."""
+    rate (float32 rows also ``tc_bound_ms``, three TF32 products).  Where
+    ``lse_route`` holds (bf16 at (192, 128)) the forward that also writes L
+    (``return_lse``, as ``FlashAttentionFn`` runs it) is timed in turns
+    beside the one without (``lse_kernel_ms``, ``lse_device_ms``), its o
+    bitwise to the other's and its L against the plain version's
+    (``lse_max_abs_err``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as tflash
@@ -3113,10 +3142,24 @@ def mla_attention_rows(rng, rows: dict) -> list:
         def kernel():
             tflash.flash_attention(q, k, v)
 
+        def with_lse():
+            tflash.flash_attention(q, k, v, return_lse=True)
+
         def library():
             F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
 
         fns = {"kernel": kernel}
+        if tflash.lse_route(dt, D, Dv):
+            o, lse = tflash.flash_attention(q, k, v, return_lse=True)
+            if not torch.equal(o, tflash.flash_attention(q, k, v)):
+                raise AssertionError(f"G {name} {(D, Dv)}: o differs with L asked for")
+            want_lse = ref.flash_attention_lse_ref(q, k, v)
+            extra["lse_max_abs_err"] = float((lse[..., :T] - want_lse).abs().max())
+            if not extra["lse_max_abs_err"] <= 1e-6 * float(want_lse.abs().max()):
+                raise AssertionError(f"G {name} {(D, Dv)}: L {extra['lse_max_abs_err']} "
+                                     "from the plain version's")
+            del o, lse, want_lse
+            fns["with_lse"] = with_lse
         try:  # the yardstick only: the port never calls SDPA
             library()
             torch.cuda.synchronize()
@@ -3131,6 +3174,9 @@ def mla_attention_rows(rng, rows: dict) -> list:
                    library_ms=times.get("library"),
                    library_device_ms=all_device_ms(library) if "library" in fns else None,
                    bound_ms=bms, bound_by=by, **extra)
+        if "with_lse" in fns:
+            row.update(lse_kernel_ms=times["with_lse"],
+                       lse_device_ms=kernel_device_ms(with_lse, FLASH_KERNEL_NAMES[kind]))
         rows[name].append(row)
         out.append(row)
         log({"kernel": name, "path": "G", **row})
@@ -3211,9 +3257,12 @@ def mla_grad_leg(kernels) -> dict:
     forward and backward steps (each one wgmma forward and one wgmma
     backward call), ms a step (host wall ended by a synchronise; the median
     after the first), peak bytes, a profiled step's busy share and the
-    backward kernels' device ms; two steps' gradients bitwise equal."""
+    backward kernels' device ms; two steps' gradients bitwise equal.  Then
+    the same steps with ``lse_route`` swapped off by name, so the forward
+    writes no L and the backward computes it (``step_ms_without_lse``)."""
     import torch
     from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as tflash
     from repro_torch.models import attention as tattn
     from repro_torch.models.layers import init_from_spec
     from torch.utils import _pytree as pytree
@@ -3284,6 +3333,14 @@ def mla_grad_leg(kernels) -> dict:
         if "flash_bwd" in e.name:
             backward[e.name[:90]] = backward.get(e.name[:90], 0.0) + e.time_range.elapsed_us() / 1e3
     profile.update(backward_kernels=backward, backward_ms=sum(backward.values()))
+    no_lse_s = []
+    with swapped(tflash, "lse_route", lambda *args: False):
+        for _ in range(MLA_G3_STEPS):
+            t0 = time.perf_counter()
+            g = grads(params, x, w)
+            torch.cuda.synchronize()
+            no_lse_s.append(time.perf_counter() - t0)
+            del g
     n_params = sum(t.numel() for t in pytree.tree_leaves(params))
     del params, x, w, events
     torch.cuda.empty_cache()
@@ -3293,6 +3350,7 @@ def mla_grad_leg(kernels) -> dict:
                bf16=dict(batch=MLA_G3_B, seq=MLA_G3_T, steps=MLA_G3_STEPS,
                          step_ms=1e3 * statistics.median(step_s[1:]),
                          step_ms_each=[1e3 * t for t in step_s], max_memory_allocated=peak,
+                         step_ms_without_lse=1e3 * statistics.median(no_lse_s[1:]),
                          repeat_bitwise=bitwise, finite=finite16, profile=profile,
                          launches=launches16),
                launches={n: launches[n] + launches16[n] for n in launches})
@@ -6911,7 +6969,8 @@ def main() -> int:
         row = next(r for r in rows[name] if r["shape"] == shape)
         # path G's rows: the route at MLA's head-dim pairs
         mla_rows = [{k: r[k] for k in ("shape", "kernel_ms", "device_ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms")}
+                                       "bound_ms", "bound_by", "library_ms", "lse_kernel_ms",
+                                       "lse_device_ms") if k in r}
                     for r in rows[name] if "Dv" in r.get("shape", {})]
         summary.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -6941,7 +7000,7 @@ def main() -> int:
             B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=dtype))
         mla_rows = [{k: r[k] for k in ("shape", "kernel_ms", "device_ms", "device_kernels",
                                        "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                       "library_refused", "tc_bound_ms") if k in r}
+                                       "library_refused", "tc_bound_ms", "no_lse") if k in r}
                     for r in mla["bwd_rows"] if r["route"] == route]
         summary.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",

@@ -32,8 +32,10 @@
 // twice; ten at D = 128, where both of a dkdv block's warpgroups compute
 // Sᵀ and dPᵀ (DkvCfg).  At (192, 128) the five products of the causal half
 // are three at D and two at Dv: at deepseek-v3-671b's microbatch (B 4,
-// H 128, T 1024) 446.7 GFLOP, 0.452 ms at 989 TFLOP/s; the kernels do S
-// four times and dP three times (both dkdv warpgroups take Sᵀ and dPᵀ).
+// H 128, T 1024) 446.7 GFLOP, 0.452 ms at 989 TFLOP/s.  There the kernels
+// do six, given the forward's L (S twice, dP twice: the dkdv kernel splits
+// its work by product, so neither of its warpgroups repeats one), and
+// seven without it (the dq kernel's pass for L).
 //
 // Design: FlashAttention-2's backward in two kernels, launched in order on
 // the caller's stream by one C entry, laid out as flash_attention_wgmma.cu
@@ -49,24 +51,33 @@
 // accumulators:
 // - flash_bwd_dq_wgmma_kernel, a block per (b·H + h, tile of 128 query
 //   rows), heaviest causal tiles first.  Q, dO and O stay resident; K and V
-//   stream in tiles of 64 keys (32 at (192, 128), see DqCfg).  Δ = rowsum(dO ∘ O) from shared memory;
-//   pass 1 computes S = Q Kᵀ (both operands K-major) over the key tiles for
-//   the row maximum and sum, so L (base 2); pass 2 computes S and
-//   dP = dO Vᵀ, then P = exp2(S·c − L) and dS in registers, and
-//   dQ += dS K with dS as the register-A operand (the accumulator layout of
-//   S is the A fragment layout) and K the MN-major B operand (transpose
-//   bit).  It writes L and Δ to float32 scratch [B·H, T rounded up to 128]
-//   (rows past T too: finite, and met only by zero rows of Q and dO).
+//   stream in tiles of 64 keys (32 at (192, 128), see DqCfg).  Δ =
+//   rowsum(dO ∘ O) from shared memory; pass 1 computes S = Q Kᵀ (both
+//   operands K-major) over the key tiles for the row maximum and sum, so L
+//   (base 2); pass 2 computes S and dP = dO Vᵀ, then P = exp2(S·c − L) and
+//   dS in registers, and dQ += dS K with dS as the register-A operand (the
+//   accumulator layout of S is the A fragment layout) and K the MN-major B
+//   operand (transpose bit).  It writes L and Δ to float32 scratch [B·H, T
+//   rounded up to 128] (rows past T too: finite, and met only by zero rows
+//   of Q and dO).  At (192, 128), given the forward's L in that scratch
+//   (the kLseIn instance), pass 1 and its K loads are left out and only Δ
+//   is written.
 // - flash_bwd_dkdv_wgmma_kernel, a block per (b·Hkv + kvh, tile of 128
 //   keys; 64 at D ≥ 128, see DkvCfg), the key tiles that see the most
 //   queries first.  K and V stay resident; Q, dO and the tile's L and Δ (a
-//   bulk copy each) stream in tiles of 64 queries (32 at (192, 128)) for
-//   each of the G query
+//   bulk copy each) stream in tiles of 64 queries for each of the G query
 //   heads of the group (causally only the tiles at or below the keys).
 //   It works transposed: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, so Pᵀ = exp2(Sᵀ·c − L) and
 //   dSᵀ = Pᵀ ∘ (dPᵀ − Δ) are already the A fragments of dV += Pᵀ dO and
-//   dK += dSᵀ Q, with dO and Q the MN-major B operands.  P and dS never
-//   touch shared memory.
+//   dK += dSᵀ Q, with dO and Q the MN-major B operands.  At D = Dv P and dS
+//   never touch shared memory; at (192, 128) Pᵀ goes from the warpgroup
+//   that computes Sᵀ and dV to the one that computes dPᵀ and dK through
+//   shared memory (DkvCfg).
+// At (192, 128) both grids put a head's tiles on blockIdx.x, so the blocks
+// in flight share their K/V (dq) or Q/dO (dkdv) tiles through L2: with the
+// head on blockIdx.x the 132 blocks in flight were 132 heads at one tile,
+// and every tile came from HBM again (3 GB a kernel at (B 4, H 128, T
+// 1024); measured with tools/kernel_variants.py mla, PERF.md).
 // Every output element is one warpgroup's accumulator in a fixed order: no
 // atomics, so two calls on the same inputs are bitwise equal.
 //
@@ -81,7 +92,21 @@
 
 #include "common.cuh"
 
+// Variants: 0 in the library; tools/kernel_variants.py builds the source
+// with REPRO_VARIANT set to one of the cuts below, to time what each part of
+// the (192, 128) kernels costs (the other instances ignore it).
+#ifndef REPRO_VARIANT
+#define REPRO_VARIANT 0
+#endif
+
 namespace {
+
+constexpr int kVariant = REPRO_VARIANT;
+constexpr int kNoCompute = 1;   // consumers release each tile unread
+constexpr int kDqPass1 = 2;     // the dq kernel's first pass alone
+constexpr int kNoExchange = 3;  // dkdv: Pᵀ not handed over (B takes Pᵀ = 1)
+constexpr int kNoSoftmax = 4;   // P = S: no max, no sum, no exponentials
+constexpr int kRegProbe = 5;    // dkdv: warpgroup A does all of the work alone
 
 constexpr int kBlockM = 128;     // query rows of a dq block
 constexpr int kBlockN = 64;      // keys of a dq K/V tile
@@ -95,9 +120,10 @@ constexpr float kLog2e = 1.4426950408889634f;
 // 128) the resident tiles take 112 KB (Q 48, dO and O 32 each) and a stage
 // of 64 keys 40 KB (K 24, V 16), so three would pass the 227 KB a block may
 // have; and a consumer's dQ of 192 columns (96 registers a thread) beside
-// S, dP and dS of 64 keys (80) would pass the 168 registers ptxas gives a
-// thread of a 384-thread block.  So the K/V tiles there are 32 keys: S, dP
-// and dS take 40 registers, a stage 20 KB, and five stages fit (212 KB).
+// S, dP and dS of 64 keys (80): built so, with two stages, ptxas held the
+// consumers to 165 registers and spilled (178 local stores), and the kernel
+// ran 1.6 times as long.  So the K/V tiles there are 32 keys: S, dP and dS
+// take 40 registers, a stage 20 KB, and five stages fit (212 KB).
 template <int D, int DV>
 struct DqCfg {
   static constexpr int kN = D == DV ? kBlockN : 32;     // keys of a K/V tile
@@ -126,42 +152,45 @@ struct DqCfg {
 // takes 64 keys, and both consumer warpgroups take all of them, each the
 // dK and dV of one 64-column half: Sᵀ and dPᵀ are computed by both, and a
 // thread holds what it holds at D = 64 (tools/sass_report.py reads the
-// registers and spills of the code).  At (192, 128) the same split gives
-// five 64-column panels of output to two warpgroups: warpgroup 0 takes dK's
-// first two and dV's first, warpgroup 1 dK's third and dV's second (a
-// split of 96 and 64 columns each would cut a swizzled panel in two).
-// Warpgroup 0's 96 registers of sums beside Sᵀ, dPᵀ, Pᵀ and dSᵀ of 64
-// queries (96) would pass 168, so the Q and dO tiles there are 32 queries
-// (48), and eight stages fit (202 KB: K 24 and V 16 resident, 20 KB a
-// stage).
+// registers and spills of the code).  At (192, 128) a block takes 64 keys
+// too, and the warpgroups split the work by product, not by output column:
+// A computes Sᵀ and Pᵀ and accumulates dV (64 registers of sums), B
+// computes dPᵀ and dSᵀ and accumulates dK (96), so each does 320 of a
+// tile's 640 column-units of products and neither repeats one.  Pᵀ goes
+// from A to B in float32 (dSᵀ is formed from the float32 P, as before)
+// through two slots of shared memory, each with a written and a read
+// mbarrier, so A may run a tile ahead of B.  The Q and dO tiles are 64
+// queries, as at D 64/128: three stages (40.5 KB each), K and V (40 KB) and
+// the slots (32 KB) take 194 KB; A holds 64 sums and 48 registers of Sᵀ and
+// Pᵀ, B 96 sums and 48 of dPᵀ and dSᵀ.
 template <int D, int DV>
 struct DkvCfg {
-  static constexpr int kStages = D == DV ? 4 : 8;
+  static constexpr bool kMla = D != DV;               // (192, 128): split by product
+  static constexpr int kStages = kMla ? 3 : 4;
   static constexpr int kPanels = D / kPanel;
   static constexpr int kPanelsV = DV / kPanel;
-  static constexpr bool kSplit = D >= 128;            // columns split, keys shared
+  static constexpr bool kSplit = D >= 128;            // D = Dv: columns split, keys shared
   static constexpr int kKeys = kSplit ? 64 : 128;     // keys of a block
-  static constexpr int kQ = D == DV ? kBlockN : 32;   // queries of a tile
-  // dK and dV columns of warpgroup 0 (it starts at column 0 of each) and of
-  // warpgroup 1 (it starts where warpgroup 0 ends; without the split each
-  // warpgroup takes every column of its own 64 keys)
-  static constexpr int kCols = kSplit ? 64 : D;       // output columns a warpgroup, D = Dv
-  // at (192, 128): dK columns of warpgroup 0 (from 0) and 1 (from kKC0),
-  // and dV columns of each (from kVC·cw)
-  static constexpr int kKC0 = 128;
-  static constexpr int kKC1 = D - kKC0;
-  static constexpr int kVC = DV / 2;
+  static constexpr int kQ = kBlockN;                  // queries of a tile
+  // D = Dv: dK and dV columns of a warpgroup (warpgroup 1 starts where
+  // warpgroup 0 ends; without the split each takes every column of its own
+  // 64 keys)
+  static constexpr int kCols = kSplit ? 64 : D;
   static constexpr int kBigK = kKeys * D * 2;         // the resident K
   static constexpr int kBigV = kKeys * DV * 2;        // the resident V
   static constexpr int kTileQ = kQ * D * 2;           // one Q tile
   static constexpr int kTileDo = kQ * DV * 2;         // one dO tile
   static constexpr int kStatBytes = 2 * kQ * 4;       // L, then Δ, of a tile
+  static constexpr int kSlotBytes = kMla ? kKeys * kQ * 4 : 0;  // a Pᵀ slot, float32
   static constexpr int kVOff = kBigK;
   static constexpr int kQOff = kBigK + kBigV;
   static constexpr int kDoOff = kQOff + kStages * kTileQ;
   static constexpr int kLOff = kDoOff + kStages * kTileDo;
-  static constexpr int kBarOff = kLOff + kStages * kStatBytes;
-  static constexpr size_t kBytes = kBarOff + (2 * kStages + 1) * 8 + 1024;
+  static constexpr int kPOff = kLOff + kStages * kStatBytes;
+  static constexpr int kBarOff = kPOff + 2 * kSlotBytes;
+  // barriers: full[kStages], empty[kStages], resident, and at (192, 128)
+  // pfull[2], pfree[2]
+  static constexpr size_t kBytes = kBarOff + (2 * kStages + 1 + (kMla ? 4 : 0)) * 8 + 1024;
   static constexpr uint32_t kStageTx = kTileQ + kTileDo + kStatBytes;
   static_assert(kBytes <= 232448, "more shared memory than a block can have");
 };
@@ -215,6 +244,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait for all but the last N committed groups of wgmmas.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Pin registers that an asynchronous wgmma reads or writes: the compiler
@@ -414,7 +448,7 @@ __device__ __forceinline__ uint32_t swz(int row, int col, int rows) {
 // and column 8·(i / 4) + 2·(lane % 4) + (i & 1).  Register j of k-step kk
 // of an A fragment holds elements 8kk + 2j and 8kk + 2j + 1.
 
-template <int D, int DV>
+template <int D, int DV, bool kLseIn = false>
 __global__ void __launch_bounds__(kThreadsWG, 1)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                               const __grid_constant__ CUtensorMap domap,
@@ -426,6 +460,8 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
                               int Tpad, float scale, int causal) {
   using C = DqCfg<D, DV>;
   constexpr int kN = C::kN;
+  constexpr int kV = D != DV ? kVariant : 0;  // the variants cut MLA's instance
+  constexpr int kPasses = kV == kDqPass1 ? 1 : 2;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const unsigned char* basep = smem_raw + (base - smem_u32(smem_raw));
@@ -436,8 +472,12 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
   auto empty = [&](int s) { return bars + 8u * (C::kStages + s); };
   const uint32_t resident = bars + 8u * (2 * C::kStages);
 
-  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
-  const int bh = blockIdx.x;
+  // heaviest causal tiles first; at (192, 128) the query tiles of one head
+  // are in flight together (blockIdx.x), so its K and V tiles come from L2
+  // after the first read
+  constexpr bool kHeadMajor = D != DV;
+  const int qt = kHeadMajor ? gridDim.x - 1 - blockIdx.x : gridDim.y - 1 - blockIdx.y;
+  const int bh = kHeadMajor ? blockIdx.y : blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int kvh = b * Hkv + h / (H / Hkv);
@@ -457,8 +497,8 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // producer: Q, dO and O once, then K tiles for pass 1 and K/V tiles for
-    // pass 2 through one ring
+    // producer: Q, dO and O once, then K tiles for pass 1 (not when L is
+    // given) and K/V tiles for pass 2 through one ring
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(resident, C::kBigQ + 2 * C::kBigV);
@@ -471,7 +511,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
         }
       }
       int it = 0;
-      for (int pass = 0; pass < 2; ++pass) {
+      for (int pass = kLseIn ? 1 : 0; pass < kPasses; ++pass) {
         for (int t = 0; t < n_kt; ++t, ++it) {
           const int s = it % C::kStages;
           mbar_wait(empty(s), ((it / C::kStages) & 1) ^ 1);
@@ -531,48 +571,62 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
       }
     };
 
-    // pass 1: the row maximum (raw scores) and sum of exp2 over every key tile
     float sc[kN / 2], dp[kN / 2];  // S and dP tiles: a tile's first product overwrites them
 #pragma unroll
     for (int i = 0; i < kN / 2; ++i) sc[i] = dp[i] = 0.f;
-    float m[2] = {kNegInf, kNegInf};
-    float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
     int it = 0;
-    for (int t = 0; t < n_kt; ++t, ++it) {
-      const int s = it % C::kStages;
-      mbar_wait(full(s), (it / C::kStages) & 1);
-      wgmma_fence();
-      issue_dot<D, kN>(sc, sq_wg, kBlockM, sk + s * C::kTileK, kN);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(sc);
-      mbar_arrive(empty(s));
-      mask(sc, t * kN);
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int i = 0; i < kN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-      float mc[2];
+    float lse[2];
+    if constexpr (kLseIn) {  // L of rows r0, r0 + 8 from the forward
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        l[r] *= exp2f((m[r] - mx[r]) * c);
-        m[r] = mx[r];
-        mc[r] = mx[r] * c;
+        const long long at = static_cast<long long>(bh) * Tpad + r0 + 8 * r;
+        lse[r] = lse2[at];
+        if (lane % 4 == 0) delta[at] = dl[r];
+      }
+    } else {
+      // pass 1: the row maximum (raw scores) and sum of exp2 over every key tile
+      float m[2] = {kNegInf, kNegInf};
+      float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
+      for (int t = 0; t < n_kt; ++t, ++it) {
+        const int s = it % C::kStages;
+        mbar_wait(full(s), (it / C::kStages) & 1);
+        if (kV == kNoCompute) {
+          mbar_arrive(empty(s));
+          continue;
+        }
+        wgmma_fence();
+        issue_dot<D, kN>(sc, sq_wg, kBlockM, sk + s * C::kTileK, kN);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+        mbar_arrive(empty(s));
+        if (kV == kNoSoftmax) continue;
+        mask(sc, t * kN);
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+        float mc[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          l[r] *= exp2f((m[r] - mx[r]) * c);
+          m[r] = mx[r];
+          mc[r] = mx[r] * c;
+        }
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) l[(i >> 1) & 1] += exp2f(fmaf(sc[i], c, -mc[(i >> 1) & 1]));
       }
 #pragma unroll
-      for (int i = 0; i < kN / 2; ++i) l[(i >> 1) & 1] += exp2f(fmaf(sc[i], c, -mc[(i >> 1) & 1]));
-    }
-    float lse[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      lse[r] = m[r] * c + log2f(fmaxf(l[r], 1e-30f));
-      if (lane % 4 == 0) {
-        const long long at = static_cast<long long>(bh) * Tpad + r0 + 8 * r;
-        lse2[at] = lse[r];
-        delta[at] = dl[r];
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        lse[r] = m[r] * c + log2f(fmaxf(l[r], 1e-30f));
+        if (lane % 4 == 0) {
+          const long long at = static_cast<long long>(bh) * Tpad + r0 + 8 * r;
+          lse2[at] = lse[r];
+          delta[at] = dl[r];
+        }
       }
     }
 
@@ -580,10 +634,14 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
     float acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    for (int t = 0; t < n_kt; ++t, ++it) {
+    for (int t = 0; kPasses == 2 && t < n_kt; ++t, ++it) {
       const int s = it % C::kStages;
       const uint32_t sks = sk + s * C::kTileK;
       mbar_wait(full(s), (it / C::kStages) & 1);
+      if (kV == kNoCompute) {
+        mbar_arrive(empty(s));
+        continue;
+      }
       wgmma_fence();
       issue_dot<D, kN>(sc, sq_wg, kBlockM, sks, kN);
       issue_dot<DV, kN>(dp, sdo_wg, kBlockM, sv + s * C::kTileV, kN);
@@ -599,8 +657,8 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
         for (int j = 0; j < 4; ++j) {
           const int i = 8 * kk + 2 * j;
           const int r = j & 1;  // (i >> 1) & 1
-          const float p0 = exp2f(fmaf(sc[i], c, -lse[r]));
-          const float p1 = exp2f(fmaf(sc[i + 1], c, -lse[r]));
+          const float p0 = kV == kNoSoftmax ? sc[i] : exp2f(fmaf(sc[i], c, -lse[r]));
+          const float p1 = kV == kNoSoftmax ? sc[i + 1] : exp2f(fmaf(sc[i + 1], c, -lse[r]));
           ds[kk][j] = pack_bf16(p0 * (dp[i] - dl[r]), p1 * (dp[i + 1] - dl[r]));
         }
       }
@@ -648,9 +706,15 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (C::kStages + s); };
   const uint32_t resident = bars + 8u * (2 * C::kStages);
+  // (192, 128): the Pᵀ slot j written (pfull) and read (pfree)
+  auto pfull = [&](int j) { return bars + 8u * (2 * C::kStages + 1 + j); };
+  auto pfree = [&](int j) { return bars + 8u * (2 * C::kStages + 3 + j); };
 
-  const int kt = blockIdx.y;  // the first key tiles see the most queries: first
-  const int bkv = blockIdx.x;
+  // the first key tiles see the most queries: first; at (192, 128) the key
+  // tiles of one head are in flight together (blockIdx.x), so its Q and dO
+  // tiles come from L2 after the first read
+  const int kt = C::kMla ? blockIdx.x : blockIdx.y;
+  const int bkv = C::kMla ? blockIdx.y : blockIdx.x;
   const int b = bkv / Hkv;
   const int kvh = bkv - b * Hkv;
   const int G = H / Hkv;
@@ -669,6 +733,12 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
       mbar_init(empty(s), 2 * 128);
     }
     mbar_init(resident, 1);
+    if constexpr (C::kMla) {
+      for (int j = 0; j < 2; ++j) {
+        mbar_init(pfull(j), 128);
+        mbar_init(pfree(j), 128);
+      }
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -797,28 +867,78 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
         }
       }
     } else {
-      // MLA's pair: the warpgroups' shares differ (DkvCfg), so each runs
-      // its own copy of the loop above, KC columns of dK from kc0 and VC
-      // of dV from vc0: straight-line products and stores for its share
+      // MLA's pair, split by product (DkvCfg): warpgroup A (cw 0) computes
+      // Sᵀ, makes Pᵀ, hands it to B through a slot and accumulates dV over
+      // all Dv columns; warpgroup B (cw 1) computes dPᵀ, takes Pᵀ from the
+      // slot, forms dSᵀ and accumulates dK over all D columns.  Two slots, so
+      // A may run a tile ahead of B.  (kRegProbe: A does all of it alone.)
+      constexpr int kV = kVariant;
+      constexpr bool kAll = kV == kRegProbe;
+      constexpr int kVecs = C::kSlotBytes / 16;  // float4s of a slot
       const int cw = threadIdx.x / 128 - 1;
-      auto consume = [&](auto kc_, auto vc_, int kc0, int vc0) {
-        constexpr int KC = decltype(kc_)::value;
-        constexpr int VC = decltype(vc_)::value;
-        const int tid = threadIdx.x % 128;
-        const int warp = tid / 32;
-        const int lane = tid % 32;
-        const int c2 = 2 * (lane % 4);
-        const int key0 = k0 + 16 * warp + lane / 4;  // the thread's keys, and + 8
-        const float c = scale * kLog2e;
-        float dka[KC / 2], dva[VC / 2], st[kQ / 2], dpt[kQ / 2];
+      const int tid = threadIdx.x % 128;
+      const int warp = tid / 32;
+      const int lane = tid % 32;
+      const int c2 = 2 * (lane % 4);
+      const int key0 = k0 + 16 * warp + lane / 4;  // the thread's keys, and + 8
+      const float c = scale * kLog2e;
+      float4* slots = reinterpret_cast<float4*>(smem_raw + (base - smem_u32(smem_raw)) + C::kPOff);
+      mbar_wait(resident, 0);
+
+      // the sums of N columns (a row of `out`) of the thread's two keys, times mul
+      auto store = [&](auto n_, __nv_bfloat16* out, const auto& acc, float mul) {
+        constexpr int N = decltype(n_)::value;
 #pragma unroll
-        for (int i = 0; i < KC / 2; ++i) dka[i] = 0.f;
+        for (int r = 0; r < 2; ++r) {
+          const int key = key0 + 8 * r;
+          if (key < Tk) {
+            __nv_bfloat16* row = out + (static_cast<long long>(bkv) * Tk + key) * N;
 #pragma unroll
-        for (int i = 0; i < VC / 2; ++i) dva[i] = 0.f;
+            for (int g = 0; g < N / 8; ++g)
+              *reinterpret_cast<__nv_bfloat162*>(row + 8 * g + c2) = __floats2bfloat162_rn(
+                  acc[4 * g + 2 * r] * mul, acc[4 * g + 2 * r + 1] * mul);
+          }
+        }
+      };
+
+      // A tile's first product (Sᵀ for A, dPᵀ for B) into s_, issued as a
+      // commit group of its own once the tile has landed
+      auto first = [&](float (&s_)[kQ / 2], int it, bool b_side) {
+        const int s = it % C::kStages;
+        mbar_wait(full(s), (it / C::kStages) & 1);
+        wgmma_fence();
+        if (b_side) {
+          issue_dot<DV, kQ>(s_, sv, C::kKeys, sdo + s * C::kTileDo, kQ);  // dPᵀ = V dOᵀ
+        } else {
+          issue_dot<D, kQ>(s_, sk, C::kKeys, sq + s * C::kTileQ, kQ);  // Sᵀ = K Qᵀ
+        }
+        wgmma_commit();
+      };
+      // begin: tile `it`'s first product, waited for; end: its second product
+      // waited for, then the tile's stage released
+      auto begin = [&](float (&cur)[kQ / 2], int it, bool b_side) {
+        first(cur, it, b_side);
+        wgmma_wait<0>();
+        fence_regs(cur);
+      };
+      auto end = [&](int it) {
+        wgmma_wait<0>();
+        mbar_arrive(empty(it % C::kStages));
+      };
+
+      if (kV == kNoCompute || (kAll && cw == 1)) {
+        for (int it = 0; it < n_it; ++it) {
+          mbar_wait(full(it % C::kStages), (it / C::kStages) & 1);
+          mbar_arrive(empty(it % C::kStages));
+        }
+      } else if (cw == 0) {
+        float dva[DV / 2], st[kQ / 2], dka[kAll ? D / 2 : 2], dpt[kQ / 2];
+#pragma unroll
+        for (int i = 0; i < DV / 2; ++i) dva[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < (kAll ? D / 2 : 2); ++i) dka[i] = 0.f;
 #pragma unroll
         for (int i = 0; i < kQ / 2; ++i) st[i] = dpt[i] = 0.f;
-        mbar_wait(resident, 0);
-
         for (int it = 0; it < n_it; ++it) {
           const int g = it / per_head;
           const int q0 = (qt0 + it - g * per_head) * kQ;
@@ -827,72 +947,113 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
           const uint32_t sdos = sdo + s * C::kTileDo;
           const float* ls =
               reinterpret_cast<const float*>(basep + C::kLOff + s * C::kStatBytes);
-          const float* dls = ls + kQ;
-          mbar_wait(full(s), (it / C::kStages) & 1);
-          wgmma_fence();
-          issue_dot<D, kQ>(st, sk, C::kKeys, sqs, kQ);     // Sᵀ = K Qᵀ
-          issue_dot<DV, kQ>(dpt, sv, C::kKeys, sdos, kQ);  // dPᵀ = V dOᵀ
-          wgmma_commit();
-          wgmma_wait_all();
-          fence_regs(st);
-          fence_regs(dpt);
+          begin(st, it, false);
+          if constexpr (kAll) {  // A also takes dPᵀ
+            wgmma_fence();
+            issue_dot<DV, kQ>(dpt, sv, C::kKeys, sdos, kQ);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(dpt);
+          }
 
+          // Pᵀ, k-step by k-step: element i is key key0 + 8·((i >> 1) & 1)
+          // against query q0 + 8·(i / 4) + c2 + (i & 1); causally a key past
+          // the query is 0.  Each step's eight floats go to B's slot as two
+          // float4s, in B's own layout (its thread tid holds the same
+          // elements of dPᵀ)
+          constexpr bool kHand = !kAll && kV != kNoExchange;
           const bool masked = causal && q0 < k0 + 63;
+          const int slot = it & 1;
+          if (kHand) mbar_wait(pfree(slot), ((it >> 1) & 1) ^ 1);
           uint32_t pf[kQ / 16][4], dsf[kQ / 16][4];
 #pragma unroll
           for (int kk = 0; kk < kQ / 16; ++kk) {
+            float p[8];
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
               const int i = 8 * kk + 2 * j;
               const int col = 8 * (i / 4) + c2;
               const float2 lv = *reinterpret_cast<const float2*>(ls + col);
-              const float2 dv2 = *reinterpret_cast<const float2*>(dls + col);
-              float p0 = exp2f(fmaf(st[i], c, -lv.x));
-              float p1 = exp2f(fmaf(st[i + 1], c, -lv.y));
-              if (masked) {
+              float p0 = kV == kNoSoftmax ? st[i] : exp2f(fmaf(st[i], c, -lv.x));
+              float p1 = kV == kNoSoftmax ? st[i + 1] : exp2f(fmaf(st[i + 1], c, -lv.y));
+              if (kV != kNoSoftmax && masked) {
                 const int key = key0 + 8 * (j & 1);
                 if (key > q0 + col) p0 = 0.f;
                 if (key > q0 + col + 1) p1 = 0.f;
               }
+              p[2 * j] = p0;
+              p[2 * j + 1] = p1;
               pf[kk][j] = pack_bf16(p0, p1);
-              dsf[kk][j] = pack_bf16(p0 * (dpt[i] - dv2.x), p1 * (dpt[i + 1] - dv2.y));
+              if constexpr (kAll) {  // dSᵀ = Pᵀ ∘ (dPᵀ − Δ)
+                const float2 dv2 = *reinterpret_cast<const float2*>(ls + kQ + col);
+                dsf[kk][j] = pack_bf16(p0 * (dpt[i] - dv2.x), p1 * (dpt[i + 1] - dv2.y));
+              }
+            }
+            if (kHand) {
+              slots[slot * kVecs + 2 * kk * 128 + tid] = make_float4(p[0], p[1], p[2], p[3]);
+              slots[slot * kVecs + (2 * kk + 1) * 128 + tid] =
+                  make_float4(p[4], p[5], p[6], p[7]);
             }
           }
+          if (kHand) mbar_arrive(pfull(slot));
           fence_regs(dva);
-          fence_regs(dka);
           fence_regs(pf);
+          if constexpr (kAll) {
+            fence_regs(dka);
+            fence_regs(dsf);
+          }
+          wgmma_fence();
+          issue_rs<DV, kQ>(dva, pf, sdos);  // dV += Pᵀ dO
+          if constexpr (kAll) issue_rs<D, kQ>(dka, dsf, sqs);
+          wgmma_commit();
+          end(it);
+        }
+        fence_regs(dva);
+        if constexpr (kAll) fence_regs(dka);
+        store(Int<DV>{}, dv, dva, 1.f);
+        if constexpr (kAll) store(Int<D>{}, dk, dka, scale);
+      } else {
+        float dka[D / 2], dpt[kQ / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dka[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < kQ / 2; ++i) dpt[i] = 0.f;
+        for (int it = 0; it < n_it; ++it) {
+          const int s = it % C::kStages;
+          const float* dls =
+              reinterpret_cast<const float*>(basep + C::kLOff + s * C::kStatBytes) + kQ;
+          begin(dpt, it, true);
+          // dSᵀ = Pᵀ ∘ (dPᵀ − Δ), k-step by k-step from A's slot, as the A
+          // fragments of dK += dSᵀ Q
+          const int slot = it & 1;
+          if (kV != kNoExchange) mbar_wait(pfull(slot), (it >> 1) & 1);
+          uint32_t dsf[kQ / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < kQ / 16; ++kk) {
+            float4 x0 = make_float4(1.f, 1.f, 1.f, 1.f), x1 = x0;
+            if (kV != kNoExchange) {
+              x0 = slots[slot * kVecs + 2 * kk * 128 + tid];
+              x1 = slots[slot * kVecs + (2 * kk + 1) * 128 + tid];
+            }
+            const float p[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int i = 8 * kk + 2 * j;
+              const float2 dv2 = *reinterpret_cast<const float2*>(dls + 8 * (i / 4) + c2);
+              dsf[kk][j] = pack_bf16(p[2 * j] * (dpt[i] - dv2.x),
+                                     p[2 * j + 1] * (dpt[i + 1] - dv2.y));
+            }
+          }
+          if (kV != kNoExchange) mbar_arrive(pfree(slot));
+          fence_regs(dka);
           fence_regs(dsf);
           wgmma_fence();
-          issue_rs<VC, kQ>(dva, pf, sdos + (vc0 / kPanel) * kQ * kRowBytes);  // dV += Pᵀ dO
-          issue_rs<KC, kQ>(dka, dsf, sqs + (kc0 / kPanel) * kQ * kRowBytes);  // dK += dSᵀ Q
+          issue_rs<D, kQ>(dka, dsf, sq + s * C::kTileQ);  // dK += dSᵀ Q
           wgmma_commit();
-          wgmma_wait_all();
-          fence_regs(dva);
-          fence_regs(dka);
-          mbar_arrive(empty(s));
+          end(it);
         }
-
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int key = key0 + 8 * r;
-          if (key < Tk) {
-            const long long row = static_cast<long long>(bkv) * Tk + key;
-#pragma unroll
-            for (int g = 0; g < KC / 8; ++g)
-              *reinterpret_cast<__nv_bfloat162*>(dk + row * D + kc0 + 8 * g + c2) =
-                  __floats2bfloat162_rn(dka[4 * g + 2 * r] * scale,
-                                        dka[4 * g + 2 * r + 1] * scale);
-#pragma unroll
-            for (int g = 0; g < VC / 8; ++g)
-              *reinterpret_cast<__nv_bfloat162*>(dv + row * DV + vc0 + 8 * g + c2) =
-                  __floats2bfloat162_rn(dva[4 * g + 2 * r], dva[4 * g + 2 * r + 1]);
-          }
-        }
-      };
-      if (cw == 0) {
-        consume(Int<C::kKC0>{}, Int<C::kVC>{}, 0, 0);
-      } else {
-        consume(Int<C::kKC1>{}, Int<C::kVC>{}, C::kKC0, C::kVC);
+        fence_regs(dka);
+        store(Int<D>{}, dk, dka, scale);
       }
     }
   }
@@ -939,14 +1100,14 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D, int 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int DV>
+template <int D, int DV, bool kLseIn = false>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, void* dq, void* dk, void* dv, float* lse2,
                    float* delta, int B, int H, int Hkv, int Tq, int Tk, int causal,
                    cudaStream_t stream) {
   using Q = DqCfg<D, DV>;
   using K = DkvCfg<D, DV>;
-  auto dq_kernel = flash_bwd_dq_wgmma_kernel<D, DV>;
+  auto dq_kernel = flash_bwd_dq_wgmma_kernel<D, DV, kLseIn>;
   auto dkv_kernel = flash_bwd_dkdv_wgmma_kernel<D, DV>;
   cudaError_t err = repro::allow_smem(dq_kernel, Q::kBytes);
   if (err == cudaSuccess) err = repro::allow_smem(dkv_kernel, K::kBytes);
@@ -970,14 +1131,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   const int n_qt = (Tq + kBlockM - 1) / kBlockM;
   const int Tpad = n_qt * kBlockM;
-  dq_kernel<<<dim3(B * H, n_qt), kThreadsWG, Q::kBytes, stream>>>(
+  // (192, 128): a head's tiles on blockIdx.x (in flight together)
+  constexpr bool kHeadMajor = D != DV;
+  const int n_kb = (Tk + K::kKeys - 1) / K::kKeys;
+  const dim3 dq_grid = kHeadMajor ? dim3(n_qt, B * H) : dim3(B * H, n_qt);
+  const dim3 dkv_grid = kHeadMajor ? dim3(n_kb, B * Hkv) : dim3(B * Hkv, n_kb);
+  dq_kernel<<<dq_grid, kThreadsWG, Q::kBytes, stream>>>(
       q_m, do_m, o_m, k_n, v_n, static_cast<__nv_bfloat16*>(dq), lse2, delta, H, Hkv, Tq,
       Tk, Tpad, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkv_kernel<<<dim3(B * Hkv, (Tk + K::kKeys - 1) / K::kKeys), kThreadsWG, K::kBytes,
-               stream>>>(q_n, do_n, k_m, v_m, lse2, delta, static_cast<__nv_bfloat16*>(dk),
-                         static_cast<__nv_bfloat16*>(dv), H, Hkv, Tq, Tk, Tpad, scale, causal);
+  dkv_kernel<<<dkv_grid, kThreadsWG, K::kBytes, stream>>>(
+      q_n, do_n, k_m, v_m, lse2, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, Hkv, Tq, Tk, Tpad, scale, causal);
   return cudaGetLastError();
 }
 
@@ -985,16 +1151,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 
 // dQ, dK, dV of bf16 attention, (D, Dv) ∈ {(64, 64), (128, 128), (192,
 // 128)}; every pointer 16-byte aligned, every tensor contiguous.  lse2 and
-// delta are float32 [B·H, Tpad] scratch, Tpad = Tq rounded up to 128 (the
-// row logsumexp in base 2, and Δ), written by the first kernel and read by
-// the second.  Causal needs Tq == Tk.
+// delta are float32 [B·H, Tpad], Tpad = Tq rounded up to 128 (the row
+// logsumexp in base 2, and Δ), written by the first kernel and read by the
+// second; with have_lse (at (192, 128) only) lse2 holds the forward's L
+// already (flash_attention_wgmma.cu) and is only read.  Causal needs
+// Tq == Tk.
 extern "C" int repro_flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
                                                const void* o, const void* dout, void* dq,
                                                void* dk, void* dv, void* lse2, void* delta,
                                                int B, int H, int Hkv, int Tq, int Tk, int D,
-                                               int Dv, int causal, cudaStream_t stream) {
+                                               int Dv, int causal, int have_lse,
+                                               cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 ||
-      (causal && Tq != Tk))
+      (causal && Tq != Tk) || (have_lse && (D != 192 || Dv != 128)))
     return static_cast<int>(cudaErrorInvalidValue);
   float* l = static_cast<float*>(lse2);
   float* dl = static_cast<float*>(delta);
@@ -1004,6 +1173,9 @@ extern "C" int repro_flash_attention_bwd_wgmma(const void* q, const void* k, con
   else if (D == 128 && Dv == 128)
     err = launch<128, 128>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, causal,
                            stream);
+  else if (D == 192 && Dv == 128 && have_lse)
+    err = launch<192, 128, true>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk,
+                                 causal, stream);
   else if (D == 192 && Dv == 128)
     err = launch<192, 128>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, causal,
                            stream);

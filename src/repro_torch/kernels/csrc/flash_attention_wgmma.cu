@@ -78,6 +78,13 @@
 // are made; the terms of two steps are held (24 registers, where the whole
 // tile's 96 spilled), the third step waits for the first (wait_group 1);
 // a third step's terms held measured no faster.
+// With a pointer for it, the (192, 128) instance also writes each row's
+// logsumexp in base 2, L = m·c + log₂(max(l, 1e-30)) with c = log₂e / √D
+// (the backward's definition), into float32 [B·H, T rounded up to 128],
+// rows past T too (finite: their q rows load as zeros), so that the bf16
+// backward need not compute it again (flash_attention_bwd_wgmma.cu); that
+// is a second instance of the kernel, and without the pointer the first
+// runs as before.
 // Measured in turns on an H100 (tools/kernel_variants.py mla): 64-key tiles
 // with both Q tiles resident and S(t) in flight during the softmax of t − 1
 // were slower (m64n64 S wgmmas: twice the instructions a key), with or
@@ -286,13 +293,14 @@ __device__ __forceinline__ int kv_tiles(int qt, int Tq, int Tk, int causal) {
   return causal ? min(n, (min((qt + 1) * kBlockQ, Tq) - 1) / kBlockK + 1) : n;
 }
 
-template <int D, int DV>
+template <int D, int DV, bool kLse = false>
 __global__ void __launch_bounds__(D == 192 ? kThreadsMla : kThreadsWG, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                  const __grid_constant__ CUtensorMap kmap,
                                  const __grid_constant__ CUtensorMap vmap,
                                  __nv_bfloat16* __restrict__ o, int H, int Hkv, int Tq,
-                                 int Tk, float scale_log2, int causal) {
+                                 int Tk, float scale_log2, int causal,
+                                 float* __restrict__ lse2) {
   // scale_log2 = log₂e / √D: P = exp2(s·scale_log2 − m·scale_log2)
   using C = Cfg<D, DV>;
   // (192, 128) builds each k-step's terms just before its PV wgmmas (below);
@@ -540,6 +548,14 @@ __global__ void __launch_bounds__(D == 192 ? kThreadsMla : kThreadsWG, 1)
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         l[r] = fmaxf(l[r], 1e-30f);
       }
+      if constexpr (kLse) {  // every row of the tile: [B·H, n_qt · 128]
+        if (lane % 4 == 0) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            lse2[static_cast<long long>(bh) * n_qt * kBlockQ + r0 + 8 * r] =
+                m[r] * scale_log2 + log2f(l[r]);
+        }
+      }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = r0 + 8 * r;
@@ -597,10 +613,10 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D, int 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int DV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                   int Hkv, int Tq, int Tk, int causal, cudaStream_t stream) {
-  auto kernel = flash_attention_wgmma_kernel<D, DV>;
+template <int D, int DV, bool kLse = false>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse2, int B,
+                   int H, int Hkv, int Tq, int Tk, int causal, cudaStream_t stream) {
+  auto kernel = flash_attention_wgmma_kernel<D, DV, kLse>;
   const size_t bytes = Cfg<D, DV>::kBytes;
   cudaError_t err = repro::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
@@ -616,7 +632,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid(((Tq + kBlockQ - 1) / kBlockQ + 1) / 2, B * H);  // two q tiles a block
   kernel<<<grid, D == 192 ? kThreadsMla : kThreadsWG, bytes, stream>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), H, Hkv, Tq, Tk, scale * kLog2e,
-      causal);
+      causal, lse2);
   return cudaGetLastError();
 }
 
@@ -625,11 +641,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 // o [B, H, Tq, Dv] = attention of q [B, H, Tq, D] over k [B, Hkv, Tk, D]
 // and v [B, Hkv, Tk, Dv], all contiguous bfloat16, (D, Dv) ∈ {(64, 64),
 // (128, 128), (192, 128)}; causal: query i sees keys 0..i (Tq == Tk).  With
-// no keys (Tk == 0) the output is zero, as 0 / 1e-30.
+// no keys (Tk == 0) the output is zero, as 0 / 1e-30.  lse2, null or (at
+// (192, 128) with Tk > 0 only) float32 [B·H, Tq rounded up to 128],
+// receives each row's logsumexp in base 2.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
-                                           void* o, int B, int H, int Hkv, int Tq, int Tk,
-                                           int D, int Dv, int causal, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk < 0)
+                                           void* o, void* lse2, int B, int H, int Hkv, int Tq,
+                                           int Tk, int D, int Dv, int causal,
+                                           cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk < 0 ||
+      (lse2 != nullptr && (D != 192 || Dv != 128 || Tk == 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Tk == 0) {
     cudaMemsetAsync(o, 0, static_cast<size_t>(B) * H * Tq * Dv * 2, stream);
@@ -637,11 +657,14 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const v
   }
   cudaError_t err;
   if (D == 64 && Dv == 64) {
-    err = launch<64, 64>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+    err = launch<64, 64>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, stream);
   } else if (D == 128 && Dv == 128) {
-    err = launch<128, 128>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+    err = launch<128, 128>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, stream);
+  } else if (D == 192 && Dv == 128 && lse2 != nullptr) {
+    err = launch<192, 128, true>(q, k, v, o, static_cast<float*>(lse2), B, H, Hkv, Tq, Tk,
+                                 causal, stream);
   } else if (D == 192 && Dv == 128) {
-    err = launch<192, 128>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+    err = launch<192, 128>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, stream);
   } else {
     err = cudaErrorInvalidValue;
   }

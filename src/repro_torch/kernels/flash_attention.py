@@ -47,7 +47,10 @@ from the dtype and head dims alone:
   bf16 at (64, 64), (128, 128) and (192, 128), the training path of every
   full-size config: a dq and a dkdv kernel on tensor cores (wgmma) fed by
   TMA, with P and dS rounded once to bf16 where they enter their products
-  (plain version ``ref.flash_attention_bwd_bf16_ref``);
+  (plain version ``ref.flash_attention_bwd_bf16_ref``); at the pairs of
+  ``LSE_PAIRS`` (MLA's (192, 128)) the forward kernel also writes each
+  row's logsumexp L and ``FlashAttentionFn`` hands it to this route, whose
+  dq kernel then makes one pass;
 * ``csrc/flash_attention_bwd_tf32.cu`` (``FLASH_ATTENTION_BWD_TF32``) for
   float32 at the same pairs, the training path's precision check: the same
   products on the TF32 tensor cores, every product taken as three TF32
@@ -74,7 +77,7 @@ from ._cuda import I32, PTR, CudaKernel, on_card, stream_handle
 FLASH_ATTENTION = CudaKernel("flash_attention.cu", "repro_flash_attention",
                              [PTR] * 4 + [I32] * 10)
 FLASH_ATTENTION_WGMMA = CudaKernel("flash_attention_wgmma.cu",
-                                   "repro_flash_attention_wgmma", [PTR] * 4 + [I32] * 8)
+                                   "repro_flash_attention_wgmma", [PTR] * 5 + [I32] * 8)
 FLASH_ATTENTION_TF32 = CudaKernel("flash_attention_tf32.cu",
                                   "repro_flash_attention_tf32", [PTR] * 4 + [I32] * 8)
 FLASH_ATTENTION_BWD = CudaKernel("flash_attention_bwd.cu",
@@ -82,7 +85,7 @@ FLASH_ATTENTION_BWD = CudaKernel("flash_attention_bwd.cu",
                                  [PTR] * 10 + [I32] * 9)
 FLASH_ATTENTION_BWD_WGMMA = CudaKernel("flash_attention_bwd_wgmma.cu",
                                        "repro_flash_attention_bwd_wgmma",
-                                       [PTR] * 10 + [I32] * 8)
+                                       [PTR] * 10 + [I32] * 9)
 FLASH_ATTENTION_BWD_TF32 = CudaKernel("flash_attention_bwd_tf32.cu",
                                       "repro_flash_attention_bwd_tf32",
                                       [PTR] * 10 + [I32] * 8)
@@ -102,6 +105,9 @@ SIMT_BWD_PAIRS = tuple(p for p in BWD_PAIRS if p != (192, 128))
 #: the tensor-core backwards' L and Δ scratch has T rounded up to a multiple
 #: of this (the wgmma route's dq tile)
 BWD_ROWS = 128
+#: pairs at which the bf16 forward kernel writes L, each row's logsumexp in
+#: base 2, and the bf16 backward takes it in place of a pass of its own
+LSE_PAIRS = ((192, 128),)
 #: dtype codes of ``csrc/flash_attention.cu``'s C entry
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -118,6 +124,14 @@ def variant(dtype: torch.dtype, head_dim: int, v_head_dim: int | None = None) ->
         if dtype == torch.float32:
             return "tf32"
     return "mma"
+
+
+def lse_route(dtype: torch.dtype, head_dim: int, v_head_dim: int | None = None) -> bool:
+    """True where the forward gives L (``flash_attention(...,
+    return_lse=True)``) and the backward takes it (``flash_attention_bwd(...,
+    lse=L)``): bf16 at a pair of LSE_PAIRS (the wgmma routes)."""
+    pair = (head_dim, head_dim if v_head_dim is None else v_head_dim)
+    return dtype == torch.bfloat16 and pair in LSE_PAIRS
 
 
 #: the kernel object of each variant
@@ -172,21 +186,31 @@ def _check(q, k, v, causal: bool) -> None:
         raise ValueError(f"B·H = {B * H} exceeds the grid's 65,535")
 
 
-def flash_attention(q, k, v, causal: bool = True):
+def flash_attention(q, k, v, causal: bool = True, return_lse: bool = False):
     """q [B, H, T, D], k [B, Hkv, Tk, D], v [B, Hkv, Tk, Dv] -> [B, H, T,
-    Dv] in q's dtype."""
+    Dv] in q's dtype; with ``return_lse`` (where ``lse_route`` holds, Tk >
+    0) the pair (o, L): L float32 [B, H, R], each row's logsumexp of the
+    scaled, masked scores in base 2, R = T on the CPU (the plain version)
+    and T rounded up to BWD_ROWS on the card (rows past T finite)."""
     _check(q, k, v, causal)
+    if return_lse and not (lse_route(q.dtype, q.shape[3], v.shape[3]) and k.shape[2]):
+        raise ValueError(f"no L from the forward of {q.dtype} at (D, Dv) = "
+                         f"({q.shape[3]}, {v.shape[3]}) over {k.shape[2]} keys; "
+                         f"it is given at {LSE_PAIRS} in bfloat16")
     if not on_card(q):
-        return ref.flash_attention_ref(q, k, v, causal=causal).to(q.dtype)
-    return launch(variant(q.dtype, q.shape[3], v.shape[3]), q, k, v, causal)
+        o = ref.flash_attention_ref(q, k, v, causal=causal).to(q.dtype)
+        return (o, ref.flash_attention_lse_ref(q, k, v, causal=causal)) if return_lse else o
+    return launch(variant(q.dtype, q.shape[3], v.shape[3]), q, k, v, causal, return_lse)
 
 
-def flash_attention_bwd(q, k, v, o, do, causal: bool = True):
+def flash_attention_bwd(q, k, v, o, do, causal: bool = True, lse=None):
     """(dq, dk, dv) of ``flash_attention(q, k, v, causal)`` whose output is
     o [B, H, T, Dv], for the output gradient do [B, H, T, Dv]; each in q's
-    dtype and the shape of its input.  CUDA tensors launch the route
-    ``bwd_variant`` names (one call); CPU tensors take that route's plain
-    version (``BWD_PLAIN``).  A pair outside ``BWD_PAIRS`` raises
+    dtype and the shape of its input.  ``lse``, where ``lse_route`` holds,
+    is the forward's L (``flash_attention(..., return_lse=True)``): the
+    route then takes it in place of computing it.  CUDA tensors launch the
+    route ``bwd_variant`` names (one call); CPU tensors take that route's
+    plain version (``BWD_PLAIN``).  A pair outside ``BWD_PAIRS`` raises
     (``_check``)."""
     _check(q, k, v, causal)
     D, Dv = q.shape[3], v.shape[3]
@@ -195,19 +219,35 @@ def flash_attention_bwd(q, k, v, o, do, causal: bool = True):
         if t.shape != want or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype} on {t.device}; "
                              f"expected {want} {q.dtype} on {q.device}")
+    if lse is not None:
+        _check_lse(lse, q, D, Dv)
     kind = bwd_variant(q.dtype, D, Dv)
     if not on_card(q):
         return tuple(g.to(q.dtype) for g in
-                     BWD_PLAIN[kind](q, k, v, o, do, causal=causal))
-    return bwd_launch(kind, q, k, v, o, do, causal)
+                     BWD_PLAIN[kind](q, k, v, o, do, causal=causal, lse=lse))
+    return bwd_launch(kind, q, k, v, o, do, causal, lse)
 
 
-def bwd_launch(kind: str, q, k, v, o, do, causal: bool = True):
+def _check_lse(lse, q, D: int, Dv: int) -> None:
+    """Raise unless ``lse`` is L as ``flash_attention(q, ...,
+    return_lse=True)`` gives it on q's device."""
+    B, H, T = q.shape[:3]
+    if not lse_route(q.dtype, D, Dv):
+        raise ValueError(f"the backward of {q.dtype} at (D, Dv) = ({D}, {Dv}) takes no "
+                         f"L; it does at {LSE_PAIRS} in bfloat16")
+    rows = -(-T // BWD_ROWS) * BWD_ROWS if on_card(q) else T
+    if (lse.dtype != torch.float32 or lse.device != q.device
+            or tuple(lse.shape) != (B, H, rows) or not lse.is_contiguous()):
+        raise ValueError(f"lse is {tuple(lse.shape)} {lse.dtype} on {lse.device}; "
+                         f"expected contiguous {(B, H, rows)} float32 on {q.device}")
+
+
+def bwd_launch(kind: str, q, k, v, o, do, causal: bool = True, lse=None):
     """Launch the ``kind`` backward (a key of BWD_KERNELS) on CUDA tensors
-    that ``flash_attention_bwd`` has checked.  The wrapper passes
-    ``bwd_variant``'s choice; ``chip_smoke.py`` also passes ``"simt"`` at
-    the tensor-core routes' shapes but (192, 128), to time them on the same
-    inputs."""
+    that ``flash_attention_bwd`` has checked, with the forward's L where it
+    is given.  The wrapper passes ``bwd_variant``'s choice;
+    ``chip_smoke.py`` also passes ``"simt"`` at the tensor-core routes'
+    shapes but (192, 128), to time them on the same inputs."""
     B, H, T, D = q.shape
     Hkv, Tk, Dv = k.shape[1], k.shape[2], v.shape[3]
     if kind == "simt" and (D, Dv) not in SIMT_BWD_PAIRS:
@@ -215,6 +255,8 @@ def bwd_launch(kind: str, q, k, v, o, do, causal: bool = True):
     if kind != "simt" and bwd_variant(q.dtype, D, Dv) != kind:
         raise ValueError(f"the {kind} backward does not take {q.dtype} at "
                          f"(D, Dv) = ({D}, {Dv})")
+    if lse is not None and kind != "wgmma":
+        raise ValueError(f"the {kind} backward takes no L")
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     if kind != "simt":  # TMA reads 16-byte aligned rows
         q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone()
@@ -222,14 +264,18 @@ def bwd_launch(kind: str, q, k, v, o, do, causal: bool = True):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if not q.numel():
         return dq, dk.zero_(), dv.zero_()
-    # the row logsumexp (base 2) and Δ, written by the first kernel
+    # the row logsumexp (base 2), the forward's or written by the first
+    # kernel, and Δ, written by the first kernel
     rows = T if kind == "simt" else -(-T // BWD_ROWS) * BWD_ROWS
-    lse2 = torch.empty((B * H, rows), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse2)
+    delta = torch.empty((B * H, rows), dtype=torch.float32, device=q.device)
+    lse2 = torch.empty_like(delta) if lse is None else lse
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse2.data_ptr(),
             delta.data_ptr(), B, H, Hkv, T, Tk, D, Dv)
-    if kind != "simt":
+    if kind == "wgmma":
+        BWD_KERNELS[kind].launch(*args, int(causal), int(lse is not None),
+                                 stream_handle(q))
+    elif kind != "simt":
         BWD_KERNELS[kind].launch(*args, int(causal), stream_handle(q))
     else:
         FLASH_ATTENTION_BWD.launch(*args, DTYPES[q.dtype], int(causal),
@@ -240,27 +286,33 @@ def bwd_launch(kind: str, q, k, v, o, do, causal: bool = True):
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` with its gradient: the forward launches the
     kernel ``variant`` names, as ``flash_attention`` does, and keeps q, k,
-    v and its output; the backward is :func:`flash_attention_bwd`."""
+    v, its output and, where ``lse_route`` holds, its L; the backward is
+    :func:`flash_attention_bwd`, given that L."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True):
-        o = flash_attention(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, o)
+        lse = None
+        if lse_route(q.dtype, q.shape[3], v.shape[3]) and k.shape[2]:
+            o, lse = flash_attention(q, k, v, causal, return_lse=True)
+        else:
+            o = flash_attention(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, ctx.causal)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, ctx.causal, lse)
         return dq, dk, dv, None
 
 
-def launch(kind: str, q, k, v, causal: bool = True):
+def launch(kind: str, q, k, v, causal: bool = True, return_lse: bool = False):
     """Launch the ``kind`` kernel (a key of KERNELS, or ``"simt"``) on CUDA
-    tensors that ``flash_attention`` has checked.  The wrapper passes
-    ``variant``'s choice; ``chip_smoke.py`` also passes ``"simt"`` (the
-    SIMT kernel of ``FLASH_ATTENTION``, at any D = Dv), to time the
+    tensors that ``flash_attention`` has checked; with ``return_lse`` (the
+    wgmma kernel where ``lse_route`` holds) it returns (o, L).  The wrapper
+    passes ``variant``'s choice; ``chip_smoke.py`` also passes ``"simt"``
+    (the SIMT kernel of ``FLASH_ATTENTION``, at any D = Dv), to time the
     kernels on the same inputs."""
     B, H, T, D = q.shape
     Hkv, Tk, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -272,12 +324,20 @@ def launch(kind: str, q, k, v, causal: bool = True):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if kind != "simt":  # TMA and cp.async read 16-byte aligned rows
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    if return_lse and (kind != "wgmma" or not lse_route(q.dtype, D, Dv) or not Tk):
+        raise ValueError(f"the {kind} kernel gives no L at (D, Dv) = ({D}, {Dv}), Tk {Tk}")
     o = q.new_empty((B, H, T, Dv))
+    lse = (torch.empty((B, H, -(-T // BWD_ROWS) * BWD_ROWS), dtype=torch.float32,
+                       device=q.device) if return_lse else None)
     if not o.numel():
-        return o
+        return (o, lse) if return_lse else o
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv, T,
             Tk, D, Dv)
-    if kind in ("wgmma", "tf32"):
+    if kind == "wgmma":
+        KERNELS[kind].launch(*args[:4], None if lse is None else lse.data_ptr(), *args[4:],
+                             int(causal), stream_handle(q))
+        return (o, lse) if return_lse else o
+    if kind == "tf32":
         KERNELS[kind].launch(*args, int(causal), stream_handle(q))
     else:
         FLASH_ATTENTION.launch(*args, DTYPES[q.dtype], int(causal),

@@ -110,7 +110,39 @@ def flash_attention_ref(q, k, v, causal: bool = True, scale=None):
     return torch.einsum("bhqk,bhkd->bhqd", p, v.to(dt))
 
 
-def flash_attention_bwd_ref(q, k, v, o, do, causal: bool = True):
+def flash_attention_lse_ref(q, k, v, causal: bool = True):
+    """L [B, H, T] of q [B, H, T, D] over k [B, Hkv, Tk, D]: each row's
+    logsumexp in base 2 of the scores scaled by 1/√D and masked at -1e30 (the
+    denominator floored at 1e-30), in float32 (float64 for float64 inputs):
+    the L the backward computes (``_attention_bwd``), as the forward kernel
+    gives it where ``flash_attention.lse_route`` holds.  v is checked by the
+    callers and not read."""
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    s = _scores(q, k, causal, dt)
+    return (_lse(s) * (1.0 / math.log(2.0))).squeeze(-1)
+
+
+def _scores(q, k, causal: bool, dt):
+    """The scores of ``_attention_bwd``: q kᵀ (kv-heads repeated) times the
+    double 1/√D in ``dt``, masked at -1e30."""
+    B, H, T, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    kr = k.to(dt).repeat_interleave(H // Hkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(dt), kr) * (1.0 / math.sqrt(D))
+    if causal:
+        mask = torch.ones((T, Tk), dtype=torch.bool, device=q.device).tril(Tk - T)
+        s = torch.where(mask, s, -1e30)
+    return s
+
+
+def _lse(s):
+    """The row logsumexp (natural) of scores s, the denominator floored at
+    1e-30, keeping the last axis."""
+    m = s.amax(dim=-1, keepdim=True)
+    return m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True).clamp(min=1e-30))
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, causal: bool = True, lse=None):
     """The gradient of ``flash_attention`` (the plain version of
     ``csrc/flash_attention_bwd.cu``): (dq, dk, dv) of q [B, H, T, D], k [B,
     Hkv, Tk, D], v [B, Hkv, Tk, Dv], the forward's output o and its gradient
@@ -124,36 +156,39 @@ def flash_attention_bwd_ref(q, k, v, o, do, causal: bool = True):
     Q·scale, the scale 1/√D at any Dv.
     q-head h reads kv-head h // G (G = H / Hkv); dK and dV sum over the G
     query heads of their group.  The causal mask is aligned at the last
-    query, as ``flash_attention_ref``'s."""
+    query, as ``flash_attention_ref``'s.  ``lse``, the forward's L [B, H,
+    R ≥ T] in base 2 (``flash_attention_lse_ref``), is taken in place of
+    L where it is given."""
     dt = torch.float64 if q.dtype == torch.float64 else torch.float32
-    return _attention_bwd(q, k, v, o, do, causal, dt, None)
+    return _attention_bwd(q, k, v, o, do, causal, dt, None, lse)
 
 
-def flash_attention_bwd_bf16_ref(q, k, v, o, do, causal: bool = True):
+def flash_attention_bwd_bf16_ref(q, k, v, o, do, causal: bool = True, lse=None):
     """The plain version of ``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at
     (D, Dv) ∈ {(64, 64), (128, 128), (192, 128)}): ``flash_attention_bwd_ref``
     in float32 with P rounded once to bf16 where it enters dV = Pᵀ dO, and
     dS (formed from the float32 P) rounded once to bf16 where it enters dQ =
     dS K and dK = dSᵀ Q, as the kernel feeds them to the tensor cores; S,
-    dP, the softmax and every sum stay float32."""
-    return _attention_bwd(q, k, v, o, do, causal, torch.float32, torch.bfloat16)
+    dP, the softmax and every sum stay float32.  ``lse`` as
+    ``flash_attention_bwd_ref``'s."""
+    return _attention_bwd(q, k, v, o, do, causal, torch.float32, torch.bfloat16, lse)
 
 
-def _attention_bwd(q, k, v, o, do, causal, dt, rounded):
+def _attention_bwd(q, k, v, o, do, causal, dt, rounded, lse2=None):
     """FlashAttention-2's backward in ``dt``, with P and dS rounded to
-    ``rounded`` (None: not rounded) where they enter their products."""
+    ``rounded`` (None: not rounded) where they enter their products, and L
+    from ``lse2`` (base 2, rows past T ignored) where it is given."""
     B, H, T, D = q.shape
     Hkv, Tk, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
+    scale = 1.0 / math.sqrt(D)  # the kernel's: a double, rounded to the working dtype
+    s = _scores(q, k, causal, dt)
     q, k, v, o, do = (t.to(dt) for t in (q, k, v, o, do))
     kr, vr = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
-    scale = 1.0 / math.sqrt(D)  # the kernel's: a double, rounded to the working dtype
-    s = torch.einsum("bhqd,bhkd->bhqk", q, kr) * scale
-    if causal:
-        mask = torch.ones((T, Tk), dtype=torch.bool, device=q.device).tril(Tk - T)
-        s = torch.where(mask, s, -1e30)
-    m = s.amax(dim=-1, keepdim=True)
-    lse = m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True).clamp(min=1e-30))
+    if lse2 is None:
+        lse = _lse(s)
+    else:
+        lse = lse2[..., :T, None].to(dt) * math.log(2.0)
     p = torch.exp(s - lse)
     delta = (do * o).sum(dim=-1, keepdim=True)
     ds = p * (torch.einsum("bhqd,bhkd->bhqk", do, vr) - delta)

@@ -812,7 +812,8 @@ def test_cuda_flash_mla_pairs_match_float64(cuda_device, B, H, Hkv, T, causal, d
 
 def test_cuda_flash_wgmma_mla_instance_spills_nothing(cuda_device):
     """``tools/sass_report.py`` on ``flash_attention_wgmma.cu``: the kernel's
-    (192, 128) instance stores and loads nothing in local memory."""
+    two (192, 128) instances, without L and with it (``return_lse``), store
+    and load nothing in local memory."""
     import json
     import subprocess
     import sys
@@ -824,8 +825,9 @@ def test_cuda_flash_wgmma_mla_instance_spills_nothing(cuda_device):
                          check=True).stdout
     rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
     mine = [r for r in rows if "flash_attention_wgmma_kernelILi192ELi128E" in r["function"]]
-    assert len(mine) == 1, rows
-    assert (mine[0]["local_stores"], mine[0]["local_loads"]) == (0, 0), mine[0]
+    assert len(mine) == 2, rows
+    for r in mine:
+        assert (r["local_stores"], r["local_loads"]) == (0, 0), r
 
 
 def test_cuda_flash_refuses_what_no_route_takes(cuda_device):
@@ -2426,7 +2428,7 @@ def test_cuda_flash_bwd_rejects_what_it_does_not_take(cuda_device):
         tflash.FLASH_ATTENTION_BWD_WGMMA.launch(
             q4.data_ptr(), k8.data_ptr(), k8.data_ptr(), q4.data_ptr(), q4.data_ptr(),
             q4.data_ptr(), k8.data_ptr(), k8.data_ptr(), lse.data_ptr(), lse.data_ptr(),
-            1, 2, 1, 4, 8, 64, 64, 1, 0)
+            1, 2, 1, 4, 8, 64, 64, 1, 0, 0)
     with pytest.raises(RuntimeError, match="repro_flash_attention_bwd_tf32 failed"):
         q4, k8 = t(1, 2, 4, 64), t(1, 1, 8, 64)
         tflash.FLASH_ATTENTION_BWD_TF32.launch(
@@ -2536,7 +2538,8 @@ def test_cuda_model_attention_gradient_at_mla_pairs(cuda_device, D, Dv, dtype):
     """With a gradient asked for at MLA's pairs, ``models.attention
     .flash_attention`` is ``FlashAttentionFn``: the forward kernel once and
     the backward route ``bwd_variant`` names once, the gradients those of
-    ``flash_attention_bwd`` bitwise."""
+    ``flash_attention_bwd`` bitwise, given the forward's L where
+    ``lse_route`` holds (bf16 at (192, 128))."""
     from repro_torch.kernels import flash_attention as tflash
     from repro_torch.models import attention
 
@@ -2553,14 +2556,64 @@ def test_cuda_model_attention_gradient_at_mla_pairs(cuda_device, D, Dv, dtype):
     assert type(o.grad_fn).__name__ == "FlashAttentionFnBackward"
     got = torch.autograd.grad(o, (qs, ks, vs), do)
     assert (fwd.launches - n_f, bwd.launches - n_b) == (1, 1)
-    want = tflash.flash_attention_bwd(q, k, v, o.detach(), do)
+    lse = None
+    if tflash.lse_route(dt, D, Dv):
+        lse = tflash.flash_attention(q, k, v, return_lse=True)[1]
+    want = tflash.flash_attention_bwd(q, k, v, o.detach(), do, lse=lse)
     for g, w, x in zip(got, want, (q, k, v)):
         assert g.shape == x.shape and torch.equal(g, w)
 
 
+@pytest.mark.parametrize("B,H,Hkv,T,causal", [(1, 4, 2, 130, True), (2, 4, 4, 256, False),
+                                               (1, 8, 8, 1024, True)])
+def test_cuda_flash_bwd_mla_with_lse_matches_float64(cuda_device, B, H, Hkv, T, causal):
+    """bf16 at (192, 128): the forward with L (``return_lse``) gives the same
+    o bitwise as without it and L within 1e-6 of the plain version's
+    largest magnitude (sums in another order); ``flash_attention_bwd``
+    given that L and without it are each within 1e-2 of each output's
+    largest magnitude of the float64 plain version and of
+    ``flash_attention_bwd_bf16_ref``, bitwise on a repeat, one wgmma
+    forward and one wgmma backward launch a call."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    rng = np.random.default_rng(T + H)
+    q, k, v, do = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                                device=cuda_device).to(torch.bfloat16)
+                   for s in ((B, H, T, 192), (B, Hkv, T, 192), (B, Hkv, T, 128),
+                             (B, H, T, 128)))
+    fwd, bwd = tflash.FLASH_ATTENTION_WGMMA, tflash.FLASH_ATTENTION_BWD_WGMMA
+    n_f = fwd.launches
+    o = tflash.flash_attention(q, k, v, causal)
+    o2, lse = tflash.flash_attention(q, k, v, causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert fwd.launches - n_f == 2
+    assert torch.equal(o, o2)
+    rows = -(-T // tflash.BWD_ROWS) * tflash.BWD_ROWS
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (B, H, rows)
+    assert bool(torch.isfinite(lse).all())
+    want_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal)
+    assert float((lse[..., :T].cpu() - want_lse.cpu()).abs().max()) <= 1e-6 * float(
+        want_lse.abs().max())
+    wants = (ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)),
+                                         causal=causal),
+             ref.flash_attention_bwd_bf16_ref(q, k, v, o, do, causal=causal))
+    for given in (lse, None):
+        n_b = bwd.launches
+        got = tflash.flash_attention_bwd(q, k, v, o, do, causal, lse=given)
+        again = tflash.flash_attention_bwd(q, k, v, o, do, causal, lse=given)
+        torch.cuda.synchronize()
+        assert bwd.launches - n_b == 2
+        for want in wants:
+            for g, a, w in zip(got, again, want):
+                assert torch.equal(g, a)
+                assert float((g.double() - w.double()).abs().max()) <= 1e-2 * float(
+                    w.abs().max())
+
+
 def test_cuda_flash_bwd_mla_instances_spill_nothing(cuda_device):
     """``tools/sass_report.py`` on the backward sources: the wgmma route's
-    dq and dkdv kernels at (192, 128), the tf32 route's dq kernel there and
+    dq kernels at (192, 128) (with and without the forward's L) and its dkdv
+    kernel there (split by product), the tf32 route's dq kernel there and
     its ``flash_bwd_dkdv_tf32_mla_kernel``, and the SIMT route's float32 dq
     and dkdv kernels at (16, 8) store and load nothing in local memory.
     The SIMT route's bf16 instances at (16, 8) are left out: ptxas keeps 4
@@ -2579,7 +2632,7 @@ def test_cuda_flash_bwd_mla_instances_spill_nothing(cuda_device):
                           "flash_attention_bwd.cu"], capture_output=True, text=True,
                          check=True).stdout
     rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
-    wanted = (("flash_bwd_dq_wgmma_kernelILi192ELi128E", 1),
+    wanted = (("flash_bwd_dq_wgmma_kernelILi192ELi128E", 2),
               ("flash_bwd_dkdv_wgmma_kernelILi192ELi128E", 1),
               ("flash_bwd_dq_tf32_kernelILi192ELi128E", 1),
               ("flash_bwd_dkdv_tf32_mla_kernelILi192ELi128E", 1),

@@ -70,37 +70,53 @@ float64 plain version:
 * ``mma_no_compute``: the K/V tiles staged, nothing computed;
 * ``mma_one_term``: one term a product (TF32 hi·hi, bf16 P_1).
 
-MLA's two kernels at (D, Dv) = (192, 128) (section ``mla``): the bf16
+MLA's three kernels at (D, Dv) = (192, 128) (section ``mla``): the bf16
 forward ``flash_attention_wgmma.cu`` at G2's prefill (4, 128, 128, 1024),
-causal, and the float32 backward ``flash_attention_bwd_tf32.cu`` at G1's
-(1, 128, 128, 1024), causal, device ms from the profiler in turns (the
-backward's dq and dkdv kernels each), errors against float64 for the
+causal, the float32 backward ``flash_attention_bwd_tf32.cu`` at G1's
+(1, 128, 128, 1024), causal, and the bf16 backward
+``flash_attention_bwd_wgmma.cu`` at G3's (4, 128, 128, 1024), causal
+(alone: section ``mla_bf16_bwd``), device ms from the profiler in turns
+(the backwards' dq and dkdv kernels each), errors against float64 for the
 shipped and checked builds, and two shipped calls bitwise equal; each
 function's events ms in turns beside them (the profiler at times lists 19
 of a window's 20 kernels, window after window, and then has no device ms):
 
 * ``shipped``, and ``parent``: the same C entry built from another
   checkout's source (``--other ROOT``, e.g. a parent's ``git archive``
-  under ``build/``), when given;
-* forward ``fwd_no_pv``: S, the softmax and the split, no PV;
+  under ``build/``; its entries' arguments read from its source), when
+  given;
+* forward ``shipped_lse``: the forward that also writes L (its o bitwise
+  to ``shipped``'s); ``fwd_no_pv``: S, the softmax and the split, no PV;
   ``fwd_no_split``: P as one bf16 term; ``fwd_no_softmax``: P = S;
   ``fwd_no_compute``: the K/V tiles staged, nothing computed;
-* backward ``bwd_no_split``: the producer writes no hi/lo or transposed
-  copies; ``bwd_no_compute``: the consumers release each tile unread;
-  ``bwd_dq_pass1``: the dq kernel's first pass alone (its dkdv kernel as
-  shipped); ``bwd_dk_only`` / ``bwd_dv_only``: the dkdv kernel's dK or dV
-  work alone.
+* float32 backward ``bwd_no_split``: the producer writes no hi/lo or
+  transposed copies; ``bwd_no_compute``: the consumers release each tile
+  unread; ``bwd_dq_pass1``: the dq kernel's first pass alone (its dkdv
+  kernel as shipped); ``bwd_dk_only`` / ``bwd_dv_only``: the dkdv kernel's
+  dK or dV work alone;
+* bf16 backward, given the forward's L as autograd runs it (``shipped``;
+  ``shipped_no_lse`` without it), beside SDPA's backward (``sdpa``, every
+  kernel and copy of ``torch.autograd.grad``), each cut's registers and
+  local memory (``tools/sass_report.py``): ``bf16_bwd_no_compute``: the
+  consumers release each tile unread; ``bf16_bwd_dq_pass1`` (without L):
+  the dq kernel's first pass alone; ``bf16_bwd_no_exchange``: Pᵀ not
+  handed from the dkdv kernel's Sᵀ warpgroup to its dPᵀ one;
+  ``bf16_bwd_no_softmax``: P = S; ``bf16_bwd_reg_probe`` (checked): one
+  dkdv warpgroup does all the work, 208 registers of sums and fragments,
+  to read what ptxas gives a consumer past ``setmaxnreg.inc 240``.
 
 With ``--other ROOT`` the section also times against ROOT's builds in turns
 (ROOT, this, this, ROOT), each pair's outputs compared bitwise: MLA's
-instances of ``flash_attention_tf32.cu`` (float32 forward, (1, 128, 128,
-1024)) and ``flash_attention_bwd_wgmma.cu`` (bf16 backward, (4, 128, 128,
-1024)), and the D 64 and D 128 instances of the two cut sources: the
-forward at (4, 32, 8, 1024, 64) and (1, 8, 2, 257, 128) bf16, the backward
-at (4, 32, 8, 1024, 64) and (1, 8, 2, 257, 128) float32, causal.
+instance of ``flash_attention_tf32.cu`` (float32 forward, (1, 128, 128,
+1024)), and the D 64 and D 128 instances of the three sources: the bf16
+forward and backward at (4, 32, 8, 1024, 64) and (1, 8, 2, 257, 128), the
+float32 backward at the same shapes, causal; and it prints whether ROOT's
+and this tree's D 64/128 kernels of the two wgmma sources have equal
+``sass_report`` lines.
 
 Run on a card from the repository root (all sections, or the ones
-named: ``matvec``, ``flash``, ``dedup``, ``gms``, ``mma``, ``mla``):
+named: ``matvec``, ``flash``, ``dedup``, ``gms``, ``mma``, ``mla``,
+``mla_bf16_bwd``):
 
     python3 tools/kernel_variants.py [section ...] [--other ROOT]
 """
@@ -108,6 +124,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -163,7 +180,15 @@ VARIANTS = {
     "bwd_dq_pass1": (MLA_BWD_SRC, 3, False),
     "bwd_dk_only": (MLA_BWD_SRC, 4, False),
     "bwd_dv_only": (MLA_BWD_SRC, 5, False),
+    "bf16_bwd_no_compute": (MLA_BF16_BWD_SRC, 1, False),
+    "bf16_bwd_dq_pass1": (MLA_BF16_BWD_SRC, 2, False),
+    "bf16_bwd_no_exchange": (MLA_BF16_BWD_SRC, 3, False),
+    "bf16_bwd_no_softmax": (MLA_BF16_BWD_SRC, 4, False),
+    "bf16_bwd_reg_probe": (MLA_BF16_BWD_SRC, 5, True),
 }
+#: the C entries' argument kinds in the ``--other`` tree's wgmma sources
+#: (``entry_argtypes``), by build: ``fwd``, ``bwd_wgmma``
+PARENT_ARGTYPES: dict = {}
 #: flash shapes (B, H, Hkv, T, D, causal)
 FLASH_SHAPES = ((4, 32, 8, 1024, 64, True), (1, 8, 1, 1000, 64, False))
 
@@ -171,10 +196,9 @@ FLASH_SHAPES = ((4, 32, 8, 1024, 64, True), (1, 8, 1, 1000, 64, False))
 def build_all(names, other: Path | None = None) -> dict:
     """Compile the variants (all nvcc processes at once) into
     build/kernels/variants/, and with ``other`` (a checkout's root) that
-    tree's MLA sources as ``parent_fwd`` and ``parent_bwd`` (and, with this
-    tree's builds of the same, ``parent_tf32`` / ``this_tf32`` and
-    ``parent_bwd_wgmma`` / ``this_bwd_wgmma``); returns name -> loaded
-    library."""
+    tree's MLA sources as ``parent_fwd``, ``parent_bwd`` and
+    ``parent_bwd_wgmma`` (and, with this tree's build of the same,
+    ``parent_tf32`` / ``this_tf32``); returns name -> loaded library."""
     from repro_torch.kernels import _cuda
 
     out = _cuda.BUILD_DIR / "variants"
@@ -185,8 +209,7 @@ def build_all(names, other: Path | None = None) -> dict:
         csrc.update(parent_fwd=(theirs, MLA_FWD_SRC, 0), parent_bwd=(theirs, MLA_BWD_SRC, 0),
                     parent_tf32=(theirs, MLA_TF32_FWD_SRC, 0),
                     this_tf32=(_cuda.CSRC, MLA_TF32_FWD_SRC, 0),
-                    parent_bwd_wgmma=(theirs, MLA_BF16_BWD_SRC, 0),
-                    this_bwd_wgmma=(_cuda.CSRC, MLA_BF16_BWD_SRC, 0))
+                    parent_bwd_wgmma=(theirs, MLA_BF16_BWD_SRC, 0))
     jobs = {}
     for name, (root, source, number) in csrc.items():
         cmd = [_cuda.find_nvcc(), *_cuda.NVCC_FLAGS, f"-DREPRO_VARIANT={number}",
@@ -194,6 +217,13 @@ def build_all(names, other: Path | None = None) -> dict:
         jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True)
     libs = {}
+    if other is not None:
+        from repro_torch.kernels import flash_attention as tflash
+
+        PARENT_ARGTYPES["bwd_wgmma"] = entry_argtypes(
+            theirs / MLA_BF16_BWD_SRC, tflash.FLASH_ATTENTION_BWD_WGMMA.entry)
+        PARENT_ARGTYPES["fwd"] = entry_argtypes(theirs / MLA_FWD_SRC,
+                                                tflash.FLASH_ATTENTION_WGMMA.entry)
     for name, proc in jobs.items():
         text, _ = proc.communicate()
         if proc.returncode:
@@ -317,11 +347,12 @@ def device_in_turns(fns: dict, kernel: str, others: dict | None = None) -> dict:
     return {name: (None if None in t else statistics.mean(t)) for name, t in times.items()}
 
 
-def _c_call(lib, kernel, args, name):
+def _c_call(lib, kernel, args, name, argtypes=None):
     """A call of ``kernel``'s C entry in the variant library ``lib`` with
-    ``args`` (the wrapper's own, stream last)."""
+    ``args`` (the wrapper's own, stream last; ``argtypes`` where the
+    library's entry takes others than this tree's)."""
     fn = getattr(lib, kernel.entry)
-    fn.argtypes = kernel.argtypes
+    fn.argtypes = argtypes or kernel.argtypes
 
     def call():
         rc = fn(*args)
@@ -451,17 +482,26 @@ def mma_rows(libs) -> None:
                           "rel_err": errors, "checked": ["shipped", "simt"]}), flush=True)
 
 
-def _bwd_split(fn) -> dict:
-    """Device ms a call of a backward call ``fn``: its two kernels', and
-    each kernel's (``dq``, ``dkdv``) from the same window."""
-    from chip_smoke import bwd_device_ms
+def _bwd_split(fn, calls: int = 5) -> dict:
+    """Device ms a call of a backward call ``fn``: each kernel's (``dq``,
+    ``dkdv``), the mean over the calls a profiled window lists of it (the
+    first of up to ``chip_smoke.WINDOWS`` windows of ``calls`` calls that
+    lists each at least ``calls`` − 1 times: on the H100 windows of this
+    backward often list 8 of their 10 kernels, window after window), and
+    their sum."""
+    from chip_smoke import WINDOWS, device_events
 
-    by_kernel: dict = {}
-    total = bwd_device_ms(fn, by_kernel=by_kernel)
-    if total is None:
-        return {"total": None}
-    split = {"dq" if "dq" in name else "dkdv": ms for name, ms in by_kernel.items()}
-    return {"total": total, **split}
+    for _ in range(WINDOWS):
+        events, _ = device_events(fn, calls)
+        by_part: dict = {}
+        for e in events:
+            if "flash_bwd" in e.name:
+                by_part.setdefault("dq" if "dq" in e.name else "dkdv", []).append(
+                    e.time_range.elapsed_us() / 1e3)
+        if len(by_part) == 2 and all(len(t) >= calls - 1 for t in by_part.values()):
+            split = {part: statistics.mean(t) for part, t in by_part.items()}
+            return {"total": sum(split.values()), **split}
+    return {"total": None}
 
 
 def _bwd_in_turns(fns: dict) -> dict:
@@ -479,6 +519,21 @@ def _bwd_in_turns(fns: dict) -> dict:
     return out
 
 
+def entry_argtypes(source: Path, entry: str) -> list:
+    """ctypes argument kinds of the C entry ``entry`` as ``source`` declares
+    it (pointers and the stream ``c_void_p``, ints ``c_int``): another
+    checkout's entry may take other arguments than this tree's."""
+    text = source.read_text()
+    m = re.search(r'extern "C" int ' + re.escape(entry) + r"\(([^)]*)\)", text)
+    if m is None:
+        raise RuntimeError(f"{source} declares no C entry {entry}")
+    kinds = []
+    for param in m.group(1).split(","):
+        param = param.strip()
+        kinds.append(ctypes.c_int if param.startswith("int ") else ctypes.c_void_p)
+    return kinds
+
+
 def _qkv(rng, B, H, Hkv, T, D, Dv, dt):
     import torch
 
@@ -486,43 +541,52 @@ def _qkv(rng, B, H, Hkv, T, D, Dv, dt):
             for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, Dv), (B, H, T, Dv))]
 
 
-def _fwd_calls(libs, names, q, k, v, stream, kernel=None) -> dict:
+def _fwd_calls(libs, names, q, k, v, stream, kernel=None, argtypes=None) -> dict:
     """C-entry calls of the forward (``kernel``, by default the wgmma one) in
-    each library of ``names``."""
+    each library of ``names`` (whose entry takes ``argtypes``, by default the
+    kernel's: an entry with a fifth pointer, L's, is passed null)."""
     from repro_torch.kernels import flash_attention as tflash
 
     kernel = kernel or tflash.FLASH_ATTENTION_WGMMA
+    argtypes = argtypes or kernel.argtypes
+    no_lse = (None,) if argtypes[4] is ctypes.c_void_p else ()
     B, H, T, D = q.shape
     Hkv, Dv = k.shape[1], v.shape[3]
     calls = {}
     for name in names:
         o = q.new_empty((B, H, T, Dv))
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv, T, T,
-                D, Dv, 1, stream)
-        call = _c_call(libs[name], kernel, args, name)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *no_lse, B, H, Hkv,
+                T, T, D, Dv, 1, stream)
+        call = _c_call(libs[name], kernel, args, name, argtypes)
         calls[name] = lambda call=call, o=o: (call(), o)[1]
     return calls
 
 
-def _bwd_calls(libs, names, q, k, v, o, do, stream, kernel=None) -> dict:
+def _bwd_calls(libs, names, q, k, v, o, do, stream, kernel=None, argtypes=None,
+               lse=None) -> dict:
     """C-entry calls of the backward (``kernel``, by default the float32 one)
-    in each library of ``names``."""
+    in each library of ``names`` (whose entry takes ``argtypes``, by default
+    the kernel's), given the forward's L ``lse`` where the entry takes it (a
+    ninth int, ``have_lse``)."""
     import torch
     from repro_torch.kernels import flash_attention as tflash
 
     kernel = kernel or tflash.FLASH_ATTENTION_BWD_TF32
+    argtypes = argtypes or kernel.argtypes
+    have_lse = argtypes.count(ctypes.c_int) == 9
     B, H, T, D = q.shape
     Hkv, Dv = k.shape[1], v.shape[3]
     rows = -(-T // tflash.BWD_ROWS) * tflash.BWD_ROWS
     calls = {}
     for name in names:
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        lse2 = torch.empty((B * H, rows), dtype=torch.float32, device="cuda")
-        delta = torch.empty_like(lse2)
+        delta = torch.empty((B * H, rows), dtype=torch.float32, device="cuda")
+        lse2 = torch.empty_like(delta) if lse is None or not have_lse else lse
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse2.data_ptr(),
-                delta.data_ptr(), B, H, Hkv, T, T, D, Dv, 1, stream)
-        call = _c_call(libs[name], kernel, args, name)
+                delta.data_ptr(), B, H, Hkv, T, T, D, Dv, 1,
+                *((int(lse is not None),) if have_lse else ()), stream)
+        call = _c_call(libs[name], kernel, args, name, argtypes)
         calls[name] = lambda call=call, g=(dq, dk, dv): (call(), g)[1]
     return calls
 
@@ -542,11 +606,13 @@ def mla_rows(libs) -> None:
 
     q, k, v, _ = _qkv(rng, 4, 128, 128, 1024, 192, 128, torch.bfloat16)
     want = ref.flash_attention_ref(q.double(), k.double(), v.double())
-    fwd = {"shipped": lambda: tflash.flash_attention(q, k, v)}
+    fwd = {"shipped": lambda: tflash.flash_attention(q, k, v),
+           "shipped_lse": lambda: tflash.flash_attention(q, k, v, return_lse=True)[0]}
     names = [n for n in libs if VARIANTS.get(n, ("",))[0] == MLA_FWD_SRC]
     fwd.update(_fwd_calls(libs, names, q, k, v, stream))
     if parent:
-        fwd["parent"] = _fwd_calls(libs, ["parent_fwd"], q, k, v, stream)["parent_fwd"]
+        fwd["parent"] = _fwd_calls(libs, ["parent_fwd"], q, k, v, stream,
+                                   argtypes=PARENT_ARGTYPES["fwd"])["parent_fwd"]
     errors = {}
     for name in ["shipped", "parent"] + [n for n in names if VARIANTS[n][2]]:
         if name in fwd:
@@ -554,12 +620,15 @@ def mla_rows(libs) -> None:
             torch.cuda.synchronize()
             errors[name] = check_flash(f"mla forward {name}", got, want, torch.bfloat16)[1]
     bitwise = torch.equal(fwd["shipped"](), fwd["shipped"]())
+    lse_same_o = torch.equal(fwd["shipped"](), fwd["shipped_lse"]())
+    to_parent = torch.equal(fwd["shipped"](), fwd["parent"]()) if parent else None
     del want
     times = device_in_turns(fwd, "flash_attention_wgmma")
     print(json.dumps({"kernel": "flash_attention_wgmma (192, 128)",
                       "shape": [4, 128, 128, 1024, 192, 128], "dtype": "bfloat16",
                       "device_ms": times, "events_ms": in_turns(fwd), "rel_err": errors,
-                      "bitwise_repeat": bitwise}), flush=True)
+                      "bitwise_repeat": bitwise, "o_bitwise_with_lse": lse_same_o,
+                      "bitwise_to_parent": to_parent}), flush=True)
     del q, k, v, fwd
 
     q, k, v, do = _qkv(rng, 1, 128, 128, 1024, 192, 128, torch.float32)
@@ -585,6 +654,7 @@ def mla_rows(libs) -> None:
                       "device_ms": _bwd_in_turns(bwd), "events_ms": in_turns(bwd),
                       "rel_err": errors, "bitwise_repeat": bitwise}), flush=True)
     del q, k, v, o, do, bwd
+    mla_bf16_bwd_rows(libs, rng, stream)
     if not parent:
         return
     # the MLA instances of the sources this section does not cut, each tree's
@@ -599,26 +669,27 @@ def mla_rows(libs) -> None:
                       "events_ms": in_turns(fns),
                       "bitwise_to_parent": torch.equal(fns["parent"](), fns["this"]())}),
           flush=True)
-    q, k, v, do = _qkv(rng, 4, 128, 128, 1024, 192, 128, torch.bfloat16)
-    o = tflash.flash_attention(q, k, v)
-    fns = {name: _bwd_calls(libs, [f"{name}_bwd_wgmma"], q, k, v, o, do, stream,
-                            tflash.FLASH_ATTENTION_BWD_WGMMA)[f"{name}_bwd_wgmma"]
-           for name in ("parent", "this")}
-    same = all(torch.equal(a, b) for a, b in zip(fns["parent"](), fns["this"]()))
-    print(json.dumps({"kernel": "flash_attention_bwd_wgmma (192, 128)",
-                      "shape": [4, 128, 128, 1024, 192, 128], "dtype": "bfloat16",
-                      "device_ms": _bwd_in_turns(fns), "events_ms": in_turns(fns),
-                      "bitwise_to_parent": same}), flush=True)
-    del q, k, v, o, do, fns
     for B, H, Hkv, T, D in ((4, 32, 8, 1024, 64), (1, 8, 2, 257, 128)):
         for dt in (torch.bfloat16, torch.float32):
             q, k, v, do = _qkv(rng, B, H, Hkv, T, D, D, dt)
             if dt == torch.bfloat16:
-                theirs = _fwd_calls(libs, ["parent_fwd"], q, k, v, stream)["parent_fwd"]
+                theirs = _fwd_calls(libs, ["parent_fwd"], q, k, v, stream,
+                                    argtypes=PARENT_ARGTYPES["fwd"])["parent_fwd"]
                 fns = {"parent": theirs, "this": lambda: tflash.flash_attention(q, k, v)}
                 same = torch.equal(fns["parent"](), fns["this"]())
                 times = device_in_turns(fns, "flash_attention_wgmma")
                 kernel = "flash_attention_wgmma"
+                o = tflash.flash_attention(q, k, v)
+                bwd = {"parent": _bwd_calls(libs, ["parent_bwd_wgmma"], q, k, v, o, do, stream,
+                                            tflash.FLASH_ATTENTION_BWD_WGMMA,
+                                            PARENT_ARGTYPES["bwd_wgmma"])["parent_bwd_wgmma"],
+                       "this": lambda: tflash.flash_attention_bwd(q, k, v, o, do)}
+                print(json.dumps({"kernel": "flash_attention_bwd_wgmma", "shape": [B, H, Hkv, T, D],
+                                  "dtype": "bfloat16", "device_ms": _bwd_in_turns(bwd),
+                                  "events_ms": in_turns(bwd),
+                                  "bitwise_to_parent": all(torch.equal(a, b) for a, b in zip(
+                                      bwd["parent"](), bwd["this"]()))}), flush=True)
+                del o, bwd
             else:
                 o = tflash.flash_attention(q, k, v)
                 theirs = _bwd_calls(libs, ["parent_bwd"], q, k, v, o, do,
@@ -633,6 +704,103 @@ def mla_rows(libs) -> None:
                               "events_ms": in_turns(fns), "bitwise_to_parent": same}),
                   flush=True)
             del q, k, v, do, fns
+    _sass_to_parent(libs)
+
+
+def _sass_to_parent(libs) -> None:
+    """Whether the parent's and this tree's D 64/128 kernels of the two wgmma
+    sources have equal ``sass_report`` lines (instructions, registers, local
+    memory, setmaxnreg), with each side's lines."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention as tflash
+    from tools.sass_report import library_reports
+
+    out = _cuda.BUILD_DIR / "variants"
+    for name, kernel in (("parent_fwd", tflash.FLASH_ATTENTION_WGMMA),
+                         ("parent_bwd_wgmma", tflash.FLASH_ATTENTION_BWD_WGMMA)):
+        kernel.library()
+
+        def equal_dims(reports):  # by kernel and (D, Dv): the mangled names differ
+            found = {}
+            for r in reports:
+                m = re.search(r"(flash_bwd_dq_wgmma_kernel|flash_bwd_dkdv_wgmma_kernel|"
+                              r"flash_attention_wgmma_kernel)ILi(\d+)ELi(\d+)E", r["function"])
+                if m and m.group(2) == m.group(3):
+                    found[f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"] = {
+                        k: r[k] for k in r if k != "function"}
+            return found
+
+        theirs = equal_dims(library_reports(out / f"{name}.so"))
+        mine = equal_dims(library_reports(kernel.library_path()))
+        print(json.dumps({"sass_d64_d128": kernel.source, "equal": theirs == mine,
+                          "parent": theirs, "this": mine}), flush=True)
+
+
+def mla_bf16_bwd_rows(libs, rng, stream) -> None:
+    """MLA's bf16 backward at G3's (4, 128, 128, 1024, 192 → 128), causal:
+    shipped, cut and (with ``--other``) the parent's build, device ms in
+    turns by kernel (dq, dkdv) beside SDPA's backward (its device ms of
+    every kernel and copy, and events ms in turns with the rest), errors
+    against float64 for the shipped, parent and checked builds, two shipped
+    calls bitwise equal, and what ptxas made of each cut's build
+    (``tools/sass_report.py``: registers, local memory)."""
+    import torch
+    import torch.nn.functional as F
+    from chip_smoke import all_device_ms
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ref
+    from tools.sass_report import library_reports
+
+    kernel = tflash.FLASH_ATTENTION_BWD_WGMMA
+    q, k, v, do = _qkv(rng, 4, 128, 128, 1024, 192, 128, torch.bfloat16)
+    o, lse = tflash.flash_attention(q, k, v, return_lse=True)
+    want = ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)))
+    bwd = {"shipped": lambda: tflash.flash_attention_bwd(q, k, v, o, do, lse=lse),
+           "shipped_no_lse": lambda: tflash.flash_attention_bwd(q, k, v, o, do)}
+    names = [n for n in libs if VARIANTS.get(n, ("",))[0] == MLA_BF16_BWD_SRC]
+    for name in names:  # as autograd runs them, given L, but the two-pass cut
+        bwd.update(_bwd_calls(libs, [name], q, k, v, o, do, stream, kernel,
+                              lse=None if name == "bf16_bwd_dq_pass1" else lse))
+    if "parent_bwd_wgmma" in libs:
+        bwd["parent"] = _bwd_calls(libs, ["parent_bwd_wgmma"], q, k, v, o, do, stream, kernel,
+                                   PARENT_ARGTYPES["bwd_wgmma"])["parent_bwd_wgmma"]
+    errors = {}
+    for name in ["shipped", "shipped_no_lse", "parent"] + [n for n in names if VARIANTS[n][2]]:
+        if name in bwd:
+            got = bwd[name]()
+            torch.cuda.synchronize()
+            errors[name] = {g: float((x.double() - w).abs().max() / w.abs().max())
+                            for g, x, w in zip(("dq", "dk", "dv"), got, want)}
+    bitwise = {name: all(torch.equal(a, b) for a, b in zip(bwd[name](), bwd[name]()))
+               for name in ("shipped", "shipped_no_lse")}
+    same = (all(torch.equal(a, b) for a, b in zip(bwd["parent"](), bwd["shipped_no_lse"]()))
+            if "parent" in bwd else None)
+    del want
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    def sdpa():
+        torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
+
+    device = _bwd_in_turns(bwd)
+    device["sdpa"] = statistics.mean(all_device_ms(sdpa) for _ in range(2))
+    sass = {name: [r for r in library_reports(_cuda.BUILD_DIR / "variants" / f"{name}.so")
+                   if "flash_bwd" in r["function"] and "192" in r["function"]]
+            for name in names}
+    print(json.dumps({"kernel": "flash_attention_bwd_wgmma (192, 128)",
+                      "shape": [4, 128, 128, 1024, 192, 128], "dtype": "bfloat16",
+                      "device_ms": device, "events_ms": in_turns({**bwd, "sdpa": sdpa}),
+                      "rel_err": errors, "bitwise_repeat": bitwise,
+                      "bitwise_to_parent": same, "sass": sass}), flush=True)
+    del q, k, v, o, do, bwd, qs, ks, vs, out, lse
+
+
+def mla_bf16_bwd_only(libs) -> None:
+    """Section ``mla_bf16_bwd``: ``mla_bf16_bwd_rows`` alone."""
+    import torch
+
+    mla_bf16_bwd_rows(libs, np.random.default_rng(0), torch.cuda.current_stream().cuda_stream)
 
 
 def main() -> int:
@@ -656,7 +824,8 @@ def main() -> int:
                 "dedup": (dedup_rows, (DEDUP_SRC, CHAIN_SRC)),
                 "gms": (gms_rows, (GMS_SRC,)),
                 "mma": (mma_rows, (MMA_SRC,)),
-                "mla": (mla_rows, (MLA_FWD_SRC, MLA_BWD_SRC))}
+                "mla": (mla_rows, (MLA_FWD_SRC, MLA_BWD_SRC, MLA_BF16_BWD_SRC)),
+                "mla_bf16_bwd": (mla_bf16_bwd_only, (MLA_BF16_BWD_SRC,))}
     chosen = args or list(sections)
     unknown = set(chosen) - set(sections)
     if unknown:
@@ -664,7 +833,7 @@ def main() -> int:
                          f"one of {sorted(sections)}")
     sources = {src for name in chosen for src in sections[name][1]}
     libs = build_all([v for v, (src, _, _) in VARIANTS.items() if src in sources],
-                     other if "mla" in chosen else None)
+                     other if {"mla", "mla_bf16_bwd"} & set(chosen) else None)
     for name in chosen:
         sections[name][0](libs)
     return 0

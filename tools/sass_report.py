@@ -38,6 +38,16 @@ def report(name: str, body: str) -> dict:
                 setmaxnreg=sum("USETMAXREG" in line for line in code))
 
 
+def library_reports(path) -> list:
+    """``report`` of each kernel function in the built library at ``path``."""
+    from repro_torch.kernels import _cuda
+
+    cuobjdump = Path(_cuda.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout
+    return [report(name, body) for name, body in functions(sass)]
+
+
 def main(argv) -> int:
     from repro_torch.kernels import _cuda
     # every kernel module, so that _cuda.KERNELS knows every source
@@ -51,12 +61,9 @@ def main(argv) -> int:
     if missing:
         raise SystemExit(f"no kernel is built from {sorted(missing)}")
     _cuda.build_all(kernels)
-    cuobjdump = Path(_cuda.find_nvcc()).parent / "cuobjdump"
     for k in kernels:
-        sass = subprocess.run([str(cuobjdump), "-sass", str(k.library_path())],
-                              capture_output=True, text=True, check=True).stdout
-        for name, body in functions(sass):
-            print(json.dumps({"source": k.source, **report(name, body)}))
+        for line in library_reports(k.library_path()):
+            print(json.dumps({"source": k.source, **line}))
     return 0
 
 
