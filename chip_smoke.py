@@ -246,6 +246,27 @@ Phases (any failed check raises, and the script exits non-zero):
    - G4: the reduced deepseek (MLA (16, 8), MoE, MTP head) trains: E2's
      float32 step against float64 replaying the float32 run's routing,
      then bf16 ``run_training`` steps, one repeated bitwise.
+9. Paths H and J, the SSM and hybrid models (``models/ssm.py``: Mamba's
+   chunked selective scan, the chunkwise mLSTM, the sLSTM's loop over time;
+   no hand kernel of their own, as the reference's scans are ``lax`` code
+   outside Pallas), after path G's memory is released:
+   - H1, xlstm-1.3b at full width and depth in float32, 2 × 256 tokens:
+     prefill and two decode steps against the same functions in float64;
+   - H2, xlstm-1.3b at full width and depth in bf16 through
+     ``Server.generate`` (4 × 512 tokens, 32 new: the sLSTM's loop made
+     F2's 1024 too slow), as F2, with the prefill's device ms by mixer
+     (``mixer_profile``);
+   - J1, jamba-v0.1-52b's Mamba block and its attention block (GQA at head
+     dim 128: one ``flash_attention_tf32`` launch; the MoE MLP) at full
+     width in float32, 1 × 512 tokens and two decode steps, and the reduced
+     jamba whole (the mma kernel) with 12 decode steps across its 32-slot
+     ring buffer's wrap, each against float64;
+   - J2, jamba at full width in bf16 at 2 of its 4 periods (16 of 32
+     layers) through ``Server.generate`` (4 × 1024 tokens, 32 new): one
+     ``flash_attention_wgmma`` launch an attention layer in the prefill,
+     none in a decode step, the prefill's device ms by mixer;
+   - H3 and J3, the reduced xlstm and jamba: G4's float32 train step
+     against float64 (``train_step_check``).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel with its numbers.  Imports nothing of JAX or the JAX package.
@@ -360,10 +381,15 @@ def device_events(fn, calls: int):
 def _busy(events, wall) -> dict:
     """Device busy time against host wall time (the device's idle share),
     device events and the heaviest kernels of a profiled run."""
+    return _busy_of([(e.name, e.time_range.elapsed_us() / 1e3) for e in events], wall)
+
+
+def _busy_of(kernels, wall) -> dict:
+    """``_busy`` of (name, device ms) pairs."""
     by_name: dict = {}
-    for e in events:
-        tot, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (tot + e.time_range.elapsed_us() / 1e3, n + 1)
+    for name, ms in kernels:
+        tot, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + ms, n + 1)
     busy_ms = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return dict(wall_ms=1e3 * wall, device_busy_ms=busy_ms,
@@ -2604,14 +2630,16 @@ class swapped:
 
 def plain_decode_attention(q, k_cache, v_cache, pos: int, *, window=None):
     """``models.attention.decode_attention`` in the inputs' dtype (the
-    port's computes its scores in float32): the float64 oracle's."""
+    port's computes its scores in float32): the float64 oracle's.  With
+    ``window`` the cache is a ring buffer: slots below min(pos + 1, S)."""
     import torch
 
     B, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(B, Hkv, H // Hkv, D)
     s = torch.einsum("bhgd,bhtd->bhgt", qg, k_cache) / math.sqrt(D)
-    s = s.masked_fill(torch.arange(S, device=q.device) > pos, float("-inf"))
+    last = pos if window is None else min(pos, S - 1)
+    s = s.masked_fill(torch.arange(S, device=q.device) > last, float("-inf"))
     return torch.einsum("bhgt,bhtd->bhgd", s.softmax(-1), v_cache).reshape(B, H, D)
 
 
@@ -2640,20 +2668,22 @@ def route_replay(routings: list, cfg):
     return replayed, flips
 
 
-def moe_float32_leg(cfg, prompts, kernels, expected: dict, label: str,
-                    own_prefill: bool) -> dict:
-    """Prefill and two decode steps of ``cfg`` in float32 (weights from
-    ``torch.Generator`` seed 0 on the card), each fed the argmax token, with
-    every ``moe_route`` result recorded; the flash kernels must launch as
-    ``expected``.  The oracle is the same model functions in float64
-    (``plain_attention``, ``plain_decode_attention``) fed the same tokens,
-    its ``moe_route`` replaying the recorded routings (experts, slots,
-    keep) with weights from its own float64 router, so that a near-tie in
-    the router cannot move an expert between the two runs: logits within
-    MOE_F32_RTOL.  Counts the token-expert choices the float64 router
-    would have made otherwise, and the prefill's dropped slots.  With
-    ``own_prefill`` each decode step is also held to the float32 prefill
-    over the extended prompt."""
+def float64_leg(cfg, prompts, kernels, expected: dict, label: str,
+                own_prefill: bool, n_decode: int = 2, cache_len: int | None = None) -> dict:
+    """Prefill and ``n_decode`` decode steps of ``cfg`` in float32 (weights
+    from ``torch.Generator`` seed 0 on the card) into a cache of
+    ``cache_len`` (default T + n_decode), each step fed the argmax token;
+    the flash kernels must launch as ``expected``.  The oracle is the same
+    model functions in float64 (``plain_attention``,
+    ``plain_decode_attention``) fed the same tokens: logits within
+    MOE_F32_RTOL.  With an MoE, every ``moe_route`` result is recorded and
+    the oracle's ``moe_route`` replays them (experts, slots, keep) with
+    weights from its own float64 router, so that a near-tie in the router
+    cannot move an expert between the two runs; the token-expert choices
+    the float64 router would have made otherwise and the prefill's dropped
+    slots are counted.  With ``own_prefill`` each decode step is also held
+    to the float32 prefill over the extended prompt."""
+    import contextlib
     import dataclasses
 
     import torch
@@ -2662,7 +2692,7 @@ def moe_float32_leg(cfg, prompts, kernels, expected: dict, label: str,
     from torch.utils import _pytree as pytree
 
     T = prompts.shape[1]
-    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    cache_len = cache_len or T + n_decode
     api = registry.build(cfg)
     routings: list = []
     route = moe.moe_route
@@ -2671,15 +2701,18 @@ def moe_float32_leg(cfg, prompts, kernels, expected: dict, label: str,
         routings.append(route(cfg_, router, x))
         return routings[-1]
 
+    def routed(fn):
+        return swapped(moe, "moe_route", fn) if cfg.moe else contextlib.nullcontext()
+
     with torch.inference_mode():
         params = api.init(seed=SEED, device="cuda")
         torch.cuda.synchronize()
         reset(kernels)
-        with swapped(moe, "moe_route", recorded):
-            logits, cache = api.prefill(params, {"tokens": prompts}, cache_len=T + 2)
+        with routed(recorded):
+            logits, cache = api.prefill(params, {"tokens": prompts}, cache_len=cache_len)
             n_prefill = len(routings)
             steps, toks = [logits], [logits.argmax(-1)]
-            for i in range(2):
+            for i in range(n_decode):
                 logits, cache = api.decode_step(params, toks[-1], T + i, cache)
                 steps.append(logits)
                 toks.append(logits.argmax(-1))
@@ -2689,7 +2722,7 @@ def moe_float32_leg(cfg, prompts, kernels, expected: dict, label: str,
         own_errors = {}
         if own_prefill:
             seq = torch.as_tensor(prompts, device="cuda").long()
-            for i in range(2):
+            for i in range(n_decode):
                 seq = torch.cat([seq, toks[i][:, None]], dim=1)
                 ref, _ = api.prefill(params, {"tokens": seq})
                 own_errors[f"decode_{i + 1}"] = rel_err(steps[i + 1], ref)
@@ -2702,40 +2735,46 @@ def moe_float32_leg(cfg, prompts, kernels, expected: dict, label: str,
         params64 = pytree.tree_map(lambda t: t.double(), params)
         del params
         queue = list(routings)
-        replayed, flips = route_replay(queue, cfg)
+        replayed, flips = route_replay(queue, cfg) if cfg.moe else (None, [0])
         with swapped(tattn, "flash_attention", plain_attention), \
                 swapped(tattn, "decode_attention", plain_decode_attention), \
-                swapped(moe, "moe_route", replayed):
-            want, cache = api64.prefill(params64, {"tokens": prompts}, cache_len=T + 2)
+                routed(replayed):
+            want, cache = api64.prefill(params64, {"tokens": prompts}, cache_len=cache_len)
             wants = [want]
-            for i in range(2):
+            for i in range(n_decode):
                 want, cache = api64.decode_step(params64, toks[i], T + i, cache)
                 wants.append(want)
         if queue:
             raise AssertionError(f"{label}: {len(queue)} routings not replayed")
-        errors = {name: rel_err(got, want) for name, got, want in
-                  zip(("prefill", "decode_1", "decode_2"), steps, wants)}
+        names = ["prefill"] + [f"decode_{i + 1}" for i in range(n_decode)]
+        errors = {name: rel_err(got, want) for name, got, want in zip(names, steps, wants)}
+        finite = all(bool(torch.isfinite(t).all()) for t in steps)
         del params64, cache, wants, steps, routings
     torch.cuda.empty_cache()
     out = dict(path=label, arch=cfg.name, n_layers=cfg.n_layers, batch=prompts.shape[0],
-               prompt_len=T, errors=errors, limit=MOE_F32_RTOL,
-               decode_vs_own_prefill=own_errors, launches=launches,
-               prefill_slots=prefill_slots, prefill_dropped_slots=dropped,
-               prefill_tokens_with_a_drop=dropped_tokens,
-               float64_router_other_choices=flips[0])
+               prompt_len=T, cache_len=cache_len, errors=errors, limit=MOE_F32_RTOL,
+               decode_vs_own_prefill=own_errors, launches=launches, logits_finite=finite)
+    if cfg.moe:
+        out.update(prefill_slots=prefill_slots, prefill_dropped_slots=dropped,
+                   prefill_tokens_with_a_drop=dropped_tokens,
+                   float64_router_other_choices=flips[0])
     log(out)
     check_within(label, {**errors, **{f"own_prefill_{n}": e for n, e in own_errors.items()}},
                  dict.fromkeys([*errors, *(f"own_prefill_{n}" for n in own_errors)],
                                MOE_F32_RTOL))
-    # no slot can drop where C >= t (t·k/E·cf >= t): every token could go
-    # to one expert and still fit
-    can_drop = cfg.moe.capacity_factor * k < E
-    if can_drop and not dropped:
-        raise AssertionError(f"{label}: no slot dropped at capacity factor "
-                             f"{cfg.moe.capacity_factor}")
-    if not can_drop and dropped:
-        raise AssertionError(f"{label}: {dropped} slots dropped at capacity factor "
-                             f"{cfg.moe.capacity_factor}")
+    if not finite:
+        raise AssertionError(f"{label}: logits not finite")
+    if cfg.moe:
+        # no slot can drop where C >= t (t·k/E·cf >= t): every token could
+        # go to one expert and still fit
+        E, k = cfg.moe.n_experts, cfg.moe.top_k
+        can_drop = cfg.moe.capacity_factor * k < E
+        if can_drop and not dropped:
+            raise AssertionError(f"{label}: no slot dropped at capacity factor "
+                                 f"{cfg.moe.capacity_factor}")
+        if not can_drop and dropped:
+            raise AssertionError(f"{label}: {dropped} slots dropped at capacity factor "
+                                 f"{cfg.moe.capacity_factor}")
     return out
 
 
@@ -2797,25 +2836,35 @@ def moe_device_split(fn, calls: int) -> dict:
                 if moe_ms else None)
 
 
-def moe_serve_leg(kernels, cfg=None, path: str = "moe_serve",
-                  label: str = "F2 moonshot serving", extra: dict | None = None) -> dict:
-    """F2: moonshot at full width and depth (or ``cfg``: G2's deepseek) in
-    bf16 through ``Server`` (weights from ``torch.Generator`` seed 0 on the
-    card; the peak of its init against the parameters' bytes), ``generate``
-    of MOE_F2_NEW tokens for MOE_F2_B prompts of MOE_F2_T after a short
-    warm-up, timed, the flash kernel once a layer in the prefill and never
-    in a decode step; peak bytes; a prefill and one decode step again,
-    their tokens equal to the generated ones and their logits finite;
-    device busy against wall over 16 decode steps and one prefill; each
-    one's device ms by part of the MoE MLP (``moe_device_split``).  The
-    line carries ``extra`` (G2: the cut of its depth)."""
+def attention_layers(cfg) -> int:
+    """The attention layers of ``cfg``: each launches one flash forward in a
+    prefill."""
+    return cfg.n_periods * cfg.layer_pattern.count("attn")
+
+
+def serve_leg(kernels, cfg=None, path: str = "moe_serve",
+              label: str = "F2 moonshot serving", extra: dict | None = None,
+              mixers: bool = False, prompt_len: int = MOE_F2_T) -> dict:
+    """F2: moonshot at full width and depth (or ``cfg``: G2's deepseek, H2's
+    xlstm, J2's jamba) in bf16 through ``Server`` (weights from
+    ``torch.Generator`` seed 0 on the card; the peak of its init against
+    the parameters' bytes), ``generate`` of MOE_F2_NEW tokens for MOE_F2_B
+    prompts of ``prompt_len`` after a short warm-up, timed, the flash kernel once
+    an attention layer in the prefill and never in a decode step; peak
+    bytes; a prefill and one decode step again, their tokens equal to the
+    generated ones and their logits finite; device busy against wall over
+    16 decode steps and one prefill; each one's device ms by part of the
+    MoE MLP (``moe_device_split``), or with ``mixers`` the prefill's busy
+    share and device ms by mixer from one profiled prefill
+    (``mixer_profile``).  The line carries ``extra`` (G2, J2: the cut of
+    the depth)."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.serve_lm import Server
     from torch.utils import _pytree as pytree
 
     cfg = cfg or get_config(MOE_ARCH)
-    B, T, NEW = MOE_F2_B, MOE_F2_T, MOE_F2_NEW
+    B, T, NEW = MOE_F2_B, prompt_len, MOE_F2_NEW
     prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
     torch.cuda.synchronize()
     gc.collect()
@@ -2834,7 +2883,7 @@ def moe_serve_leg(kernels, cfg=None, path: str = "moe_serve",
     reset(kernels)
     res = server.generate({"tokens": prompts}, NEW)
     launches = read_launches(label, kernels, {
-        "flash_attention_wgmma": cfg.n_layers, "flash_attention": 0,
+        "flash_attention_wgmma": attention_layers(cfg), "flash_attention": 0,
         "flash_attention_tf32": 0})
     peak = torch.cuda.max_memory_allocated()
     api, params = server.api, server.params
@@ -2856,11 +2905,20 @@ def moe_serve_leg(kernels, cfg=None, path: str = "moe_serve",
         def prefill():
             api.prefill(params, {"tokens": prompts}, cache_len=T + NEW)
 
-        profiles = {name: _busy(*device_events(fn, calls))
-                    for name, fn, calls in (("decode", decode_step, 16),
-                                            ("prefill", prefill, 1))}
-        split = {name: moe_device_split(fn, calls)
-                 for name, fn, calls in (("decode", decode_step, 4), ("prefill", prefill, 1))}
+        if mixers:
+            profiles = {"decode": _busy(*device_events(decode_step, 16)),
+                        "prefill": mixer_profile(prefill)}
+            # the profiler slows a host-bound prefill: its busy time
+            # against the timed, unprofiled prefill too
+            profiles["prefill"]["idle_share_of_timed_prefill"] = (
+                1.0 - profiles["prefill"]["device_busy_ms"] / (1e3 * res.prefill_s))
+            split = {}
+        else:
+            profiles = {name: _busy(*device_events(fn, calls))
+                        for name, fn, calls in (("decode", decode_step, 16),
+                                                ("prefill", prefill, 1))}
+            split = {"moe_split": {name: moe_device_split(fn, calls) for name, fn, calls in (
+                ("decode", decode_step, 4), ("prefill", prefill, 1))}}
         del cache, state
     out = dict(
         path=path, arch=cfg.name, n_layers=cfg.n_layers, n_params=api.n_params(),
@@ -2871,7 +2929,7 @@ def moe_serve_leg(kernels, cfg=None, path: str = "moe_serve",
         decode_tokens_per_s=B * (NEW - 1) / res.decode_s,
         generate_tokens_per_s=res.tokens_per_s, max_memory_allocated=peak,
         launches=launches, logits_finite=finite, first_tokens_equal=tokens_equal,
-        profile=profiles, moe_split=split, **(extra or {}))
+        profile=profiles, **split, **(extra or {}))
     log(out)
     if not finite or not tokens_equal:
         raise AssertionError(f"{label}: finite {finite}, first tokens equal {tokens_equal}")
@@ -3035,17 +3093,17 @@ def moe_phase(kernels, laps: Laps) -> dict:
                                act_dtype="float32", param_dtype="float32")
     prompts = np.random.default_rng(SEED).integers(
         0, full.vocab_size, (MOE_F1_B, MOE_F1_T)).astype(np.int32)
-    legs = [moe_float32_leg(full, prompts, kernels, {
+    legs = [float64_leg(full, prompts, kernels, {
         "flash_attention_tf32": full.n_layers, "flash_attention": 0,
         "flash_attention_wgmma": 0}, "moe_float32", own_prefill=False)]
     small = get_config(MOE_ARCH).reduced()
     small_prompts = np.random.default_rng(SEED).integers(
         0, small.vocab_size, (LM_REDUCED_B, LM_REDUCED_T)).astype(np.int32)
-    legs.append(moe_float32_leg(small, small_prompts, kernels, {
+    legs.append(float64_leg(small, small_prompts, kernels, {
         "flash_attention": small.n_layers, "flash_attention_tf32": 0,
         "flash_attention_wgmma": 0}, "moe_float32_reduced", own_prefill=True))
     laps.lap("F1 float32 against float64")
-    legs.append(moe_serve_leg(kernels))
+    legs.append(serve_leg(kernels))
     laps.lap("F2 moonshot serving")
     legs.append(moe_train_leg(kernels))
     laps.lap("F3 moonshot training")
@@ -3361,18 +3419,99 @@ def mla_grad_leg(kernels) -> dict:
     return out
 
 
+def train_step_check(kernels, cfg, label: str, expected_per_step: dict) -> dict:
+    """E2's float32 check of a reduced config on the card:
+    ``make_train_step`` at MLA_G4_B × MLA_G4_T from ``lm_data`` in
+    MLA_G4_MICRO microbatches with float32 accumulators (a config's plan
+    may accumulate in bf16, as its Adafactor memory plan does), with AdamW
+    and with SGD at TRAIN_E2_SGD_LR (its update gives back the step's
+    gradient), against the same port functions in float64 run microbatch
+    by microbatch as the step runs them (``plain_attention`` swapped in by
+    name; with an MoE, ``moe_route`` replaying the float32 SGD step's
+    recorded routings with weights from the float64 router, as F1): the
+    loss, ``grad_norm``, every gradient leaf and the AdamW step
+    (``adamw_first_step64``) within TRAIN_E2_RTOL.  Each of the two steps
+    must launch the kernels as ``expected_per_step`` says."""
+    import contextlib
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import lm_data
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.train import make_train_plan, make_train_step
+    from repro_torch.models import moe, registry
+    from repro_torch.optim import adamw, sgd
+    from torch.utils import _pytree as pytree
+
+    shape = ShapeSpec("check", MLA_G4_T, MLA_G4_B, "train")
+    api = registry.build(cfg)
+    params = api.init(seed=SEED, device="cuda")
+    batch = lm_data._batch_for_step(cfg, shape, SEED, 0, "cuda")
+    plan = dataclasses.replace(make_train_plan(cfg, shape, make_smoke_mesh()),
+                               n_microbatches=MLA_G4_MICRO, accum_dtype=torch.float32)
+    lr = 3e-4
+    opt, descent = adamw(lr), sgd(TRAIN_E2_SGD_LR)
+    routings = []
+    route = moe.moe_route
+
+    def recorded(cfg_, router, x):
+        routings.append(route(cfg_, router, x))
+        return routings[-1]
+
+    def routed(fn):
+        return swapped(moe, "moe_route", fn) if cfg.moe else contextlib.nullcontext()
+
+    torch.cuda.synchronize()
+    reset(kernels)
+    adam_params, _, metrics = make_train_step(cfg, api, opt, plan)(
+        params, opt.init(params), batch)
+    with routed(recorded):
+        sgd_params, _, sgd_metrics = make_train_step(cfg, api, descent, plan)(
+            params, descent.init(params), batch)
+    torch.cuda.synchronize()
+    launches = read_launches(label, kernels,
+                             {k: 2 * n for k, n in expected_per_step.items()})
+    step_grads = pytree.tree_map(lambda p, q: (p.double() - q.double()) / TRAIN_E2_SGD_LR,
+                                 params, sgd_params)
+    cfg64 = dataclasses.replace(cfg, act_dtype="float64", param_dtype="float64")
+    api64 = registry.build(cfg64)
+    params64 = pytree.tree_map(lambda t: t.double(), params)
+    replayed, flips = route_replay(routings, cfg) if cfg.moe else (None, [0])
+    n_micro = plan.n_microbatches
+    losses64, grads64 = [], None
+    with routed(replayed):
+        for i in range(n_micro):
+            part = {key: v.reshape(n_micro, -1, *v.shape[1:])[i] for key, v in batch.items()}
+            loss_i, g_i = oracle_loss_and_grads(api64, params64, part)
+            losses64.append(float(loss_i))
+            grads64 = g_i if grads64 is None else pytree.tree_map(torch.add, grads64, g_i)
+    if routings:
+        raise AssertionError(f"{label}: {len(routings)} routings not replayed")
+    grads64 = pytree.tree_map(lambda g: g / n_micro, grads64)
+    loss64 = sum(losses64) / n_micro
+    norm64 = math.sqrt(sum(float(g.square().sum()) for g in pytree.tree_leaves(grads64)))
+    errors = {"loss": abs(float(metrics["loss"]) - loss64) / abs(loss64),
+              "grad_norm": abs(float(metrics["grad_norm"]) - norm64) / norm64,
+              "grads": max(tree_errors(step_grads, grads64).values()),
+              "params": max(tree_errors(adam_params, adamw_first_step64(
+                  params, step_grads, lr)).values())}
+    step = dict(arch=cfg.name, batch=MLA_G4_B, seq=MLA_G4_T, n_microbatches=n_micro,
+                loss=float(metrics["loss"]), loss_oracle=loss64,
+                grad_norm=float(metrics["grad_norm"]), grad_norm_oracle=norm64,
+                steps_equal_grad_norm=float(sgd_metrics["grad_norm"])
+                == float(metrics["grad_norm"]), errors=errors, limits=TRAIN_E2_RTOL,
+                float64_router_other_choices=flips[0], launches=launches)
+    del params, adam_params, sgd_params, step_grads, params64, grads64
+    torch.cuda.empty_cache()
+    check_within(label, errors, TRAIN_E2_RTOL)
+    return step
+
+
 def mla_train_leg(kernels) -> dict:
     """G4: the reduced deepseek (MLA (16, 8): the mma forward and the SIMT
     backward; MoE; the MTP head) trains on the card.  First E2's float32
-    check: ``make_train_step`` at MLA_G4_B × MLA_G4_T from ``lm_data`` in
-    MLA_G4_MICRO microbatches with float32 accumulators (the config's plan
-    accumulates in bf16), with AdamW and with SGD at TRAIN_E2_SGD_LR
-    (its update gives back the step's gradient), against the same port
-    functions in float64 run microbatch by microbatch as the step runs them
-    (``plain_attention`` swapped in by name, ``moe_route`` replaying the
-    float32 SGD step's recorded routings with weights from the float64
-    router, as F1): the loss, ``grad_norm``, every gradient leaf and the
-    AdamW step (``adamw_first_step64``) within TRAIN_E2_RTOL.  Then
+    check (``train_step_check``).  Then
     MLA_G4_STEPS bf16 steps of ``run_training`` (MLA_G4_TRAIN_B ×
     MLA_G4_T, the config's Adafactor): every loss finite, step 0 within
     TRAIN_E3_LOSS0_SLACK of (1 + MTP_WEIGHT)·ln(vocab), one more step twice
@@ -3386,74 +3525,17 @@ def mla_train_leg(kernels) -> dict:
     from repro_torch.data import lm_data
     from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.launch.train import make_train_plan, make_train_step, run_training
-    from repro_torch.models import moe, registry
-    from repro_torch.optim import adamw, make_optimizer, sgd
+    from repro_torch.models import registry
+    from repro_torch.optim import make_optimizer
     from torch.utils import _pytree as pytree
 
     cfg = get_config(MLA_ARCH).reduced()
-    shape = ShapeSpec("g4", MLA_G4_T, MLA_G4_B, "train")
-    api = registry.build(cfg)
-    params = api.init(seed=SEED, device="cuda")
-    batch = lm_data._batch_for_step(cfg, shape, SEED, 0, "cuda")
-    # float32 accumulators: the config's plan accumulates in bf16 (its
-    # Adafactor memory plan), which the bf16 run below keeps
-    plan = dataclasses.replace(make_train_plan(cfg, shape, make_smoke_mesh()),
-                               n_microbatches=MLA_G4_MICRO, accum_dtype=torch.float32)
-    lr = 3e-4
-    opt, descent = adamw(lr), sgd(TRAIN_E2_SGD_LR)
-    routings = []
-    route = moe.moe_route
-
-    def recorded(cfg_, router, x):
-        routings.append(route(cfg_, router, x))
-        return routings[-1]
-
-    torch.cuda.synchronize()
-    reset(kernels)
-    adam_params, _, metrics = make_train_step(cfg, api, opt, plan)(
-        params, opt.init(params), batch)
-    with swapped(moe, "moe_route", recorded):
-        sgd_params, _, sgd_metrics = make_train_step(cfg, api, descent, plan)(
-            params, descent.init(params), batch)
-    torch.cuda.synchronize()
-    per_step = plan.n_microbatches
-    launches = read_launches("G4 train steps, float32", kernels, {
-        "flash_attention": 2 * (2 * cfg.n_layers + 1) * per_step,
-        "flash_attention_bwd": 2 * (cfg.n_layers + 1) * per_step,
+    step = train_step_check(kernels, cfg, "G4 train steps, float32", {
+        "flash_attention": (2 * cfg.n_layers + 1) * MLA_G4_MICRO,
+        "flash_attention_bwd": (cfg.n_layers + 1) * MLA_G4_MICRO,
         "flash_attention_tf32": 0, "flash_attention_wgmma": 0,
         "flash_attention_bwd_tf32": 0, "flash_attention_bwd_wgmma": 0})
-    step_grads = pytree.tree_map(lambda p, q: (p.double() - q.double()) / TRAIN_E2_SGD_LR,
-                                 params, sgd_params)
-    cfg64 = dataclasses.replace(cfg, act_dtype="float64", param_dtype="float64")
-    api64 = registry.build(cfg64)
-    params64 = pytree.tree_map(lambda t: t.double(), params)
-    replayed, flips = route_replay(routings, cfg)
-    n_micro = plan.n_microbatches
-    losses64, grads64 = [], None
-    with swapped(moe, "moe_route", replayed):
-        for i in range(n_micro):
-            part = {key: v.reshape(n_micro, -1, *v.shape[1:])[i] for key, v in batch.items()}
-            loss_i, g_i = oracle_loss_and_grads(api64, params64, part)
-            losses64.append(float(loss_i))
-            grads64 = g_i if grads64 is None else pytree.tree_map(torch.add, grads64, g_i)
-    if routings:
-        raise AssertionError(f"G4: {len(routings)} routings not replayed")
-    grads64 = pytree.tree_map(lambda g: g / n_micro, grads64)
-    loss64 = sum(losses64) / n_micro
-    norm64 = math.sqrt(sum(float(g.square().sum()) for g in pytree.tree_leaves(grads64)))
-    errors = {"loss": abs(float(metrics["loss"]) - loss64) / abs(loss64),
-              "grad_norm": abs(float(metrics["grad_norm"]) - norm64) / norm64,
-              "grads": max(tree_errors(step_grads, grads64).values()),
-              "params": max(tree_errors(adam_params, adamw_first_step64(
-                  params, step_grads, lr)).values())}
-    step = dict(batch=MLA_G4_B, seq=MLA_G4_T, n_microbatches=n_micro,
-                loss=float(metrics["loss"]), loss_oracle=loss64,
-                grad_norm=float(metrics["grad_norm"]), grad_norm_oracle=norm64,
-                steps_equal_grad_norm=float(sgd_metrics["grad_norm"])
-                == float(metrics["grad_norm"]), errors=errors, limits=TRAIN_E2_RTOL,
-                float64_router_other_choices=flips[0], launches=launches)
-    del params, adam_params, sgd_params, step_grads, params64, grads64
-    check_within("G4 train step", errors, TRAIN_E2_RTOL)
+    launches = step["launches"]
 
     cfg16 = dataclasses.replace(cfg, act_dtype="bfloat16", param_dtype="bfloat16")
     shape16 = ShapeSpec("g4", MLA_G4_T, MLA_G4_TRAIN_B, "train")
@@ -3525,12 +3607,12 @@ def mla_phase(kernels, rows: dict, laps: Laps) -> dict:
     small = get_config(MLA_ARCH).reduced()
     small_prompts = np.random.default_rng(SEED).integers(
         0, small.vocab_size, (LM_REDUCED_B, LM_REDUCED_T)).astype(np.int32)
-    legs.append(moe_float32_leg(small, small_prompts, kernels, {
+    legs.append(float64_leg(small, small_prompts, kernels, {
         "flash_attention": small.n_layers, "flash_attention_tf32": 0,
         "flash_attention_wgmma": 0}, "mla_float32_reduced", own_prefill=True))
     laps.lap("G1 float32 against float64")
     full = get_config(MLA_ARCH)
-    legs.append(moe_serve_leg(
+    legs.append(serve_leg(
         kernels, dataclasses.replace(full, n_layers=MLA_G2_LAYERS), path="mla_serve",
         label="G2 deepseek serving",
         extra=dict(reduced=f"n_layers {full.n_layers} -> {MLA_G2_LAYERS}: two layers "
@@ -3545,6 +3627,259 @@ def mla_phase(kernels, rows: dict, laps: Laps) -> dict:
     legs.append(mla_train_leg(kernels))
     laps.lap("G4 reduced deepseek training")
     return dict(rows=attn_rows, bwd_rows=bwd_rows, legs=legs)
+
+
+# ---------------------------------------------------------------------------
+# Paths H and J: the SSM and hybrid models (xlstm-1.3b, jamba-v0.1-52b)
+# ---------------------------------------------------------------------------
+SSM_ARCH, HYBRID_ARCH = "xlstm_1_3b", "jamba_v0_1_52b"
+#: H1: xlstm at full width and depth in float32 (2.63 B parameters), 2
+#: prompts of 256 tokens and 2 decode steps against float64 (the limit is
+#: MOE_F32_RTOL, 1e-4 of the largest magnitude: F1's and G1's)
+SSM_H1_B, SSM_H1_T = 2, 256
+#: J1: jamba's Mamba block (sub0: the dense MLP) and its attention block
+#: (sub3: the MoE MLP) at full width in float32, 1 prompt of 512 tokens and
+#: 2 decode steps, against float64 within MOE_F32_RTOL
+HYBRID_J1_T = 512
+#: J1's reduced jamba: 2 prompts of 24 tokens into a cache of 64 (its
+#: attention layers: min(64, 32) = 32 slots), 12 decode steps at positions
+#: 24…35, so the ring buffer wraps at 32
+HYBRID_J1_REDUCED_T, HYBRID_J1_REDUCED_DECODE, HYBRID_J1_REDUCED_CACHE = 24, 12, 64
+#: J2: jamba at full width in bf16 at 2 of its 4 periods (16 of 32 layers,
+#: 2 of them attention): 25.8 B parameters, 51.6 GB; three periods would be
+#: 77.4 GB of parameters before activations on the 80 GB card
+HYBRID_J2_PERIODS = 2
+#: H2's prompt: 512 tokens (4 prompts, 32 new), cut from F2's 1024 because
+#: the sLSTM's loop over time made the leg 98 s at 1024 (4.9 s a prefill,
+#: three prefills and a profiled one; NVIDIA H100 80GB HBM3, 700 W)
+SSM_H2_T = 512
+#: the ranges of ``mixer_profile``: (part, module, function swapped in by name)
+MIXERS = (("mamba", "ssm", "mamba_forward"), ("mlstm", "ssm", "mlstm_forward"),
+          ("slstm", "ssm", "slstm_forward"), ("attention", "attention", "gqa_forward"),
+          ("moe", "moe", "moe_apply"))
+
+
+def mixer_profile(fn) -> dict:
+    """One call of ``fn`` under the profiler (a window opened and closed by
+    the marker kernel), with each mixer of ``MIXERS`` swapped by name for a
+    version inside a ``record_function`` range: the call's device busy
+    against wall, device events and heaviest kernels (``_busy``'s keys),
+    and ``mixer_ms``, each kernel's device ms by the mixer range whose span
+    on the device holds its start (one stream: a range's kernels run
+    inside its span and no other kernel does; ``other``: the embedding,
+    norms, dense MLPs and logits).  It reads the profiler's raw events,
+    without building its event tree: the sLSTM's loop over time launches
+    half a million kernels in one xlstm prefill."""
+    import bisect
+    import contextlib
+    import importlib
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(name, f):
+        def g(*args, **kw):
+            with record_function(name):
+                return f(*args, **kw)
+        return g
+
+    ranges = {f"mixer:{part}": part for part, _, _ in MIXERS}
+    with contextlib.ExitStack() as stack:
+        for part, module, name in MIXERS:
+            mod = importlib.import_module(f"repro_torch.models.{module}")
+            stack.enter_context(swapped(mod, name, ranged(f"mixer:{part}", getattr(mod, name))))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(MARKER_CYCLES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            torch.cuda._sleep(MARKER_CYCLES)
+            torch.cuda.synchronize()
+    spans, kernels = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name()
+        if name in ranges:
+            spans.append((e.start_ns(), e.end_ns(), ranges[name]))
+        elif not e.is_user_annotation() and MARKER not in name:
+            kernels.append((e.start_ns(), e.duration_ns(), name))
+    spans.sort()
+    starts = [a for a, _, _ in spans]
+    parts = dict.fromkeys([*ranges.values(), "other"], 0.0)
+    for start, dur, _ in kernels:
+        i = bisect.bisect_right(starts, start) - 1
+        parts[spans[i][2] if i >= 0 and start <= spans[i][1] else "other"] += dur / 1e6
+    return dict(_busy_of([(name, dur / 1e6) for _, dur, name in kernels], wall),
+                mixer_ms=parts)
+
+
+def hybrid_block_leg(kernels) -> dict:
+    """J1 (a): jamba's Mamba block (sub0: ln1, the mixer at d_inner 8192 and
+    d_state 16, ln2, the dense SwiGLU) and its attention block (sub3: 32
+    heads over 8 KV heads at head dim 128, the MoE MLP of 16 experts top-2)
+    at full width in float32 (weights ``init_from_spec`` of ``block_specs``
+    from ``torch.Generator`` seed 0 on the card, x N(0, 1)):
+    ``apply_block`` over 1 prompt of HYBRID_J1_T tokens (the attention
+    block: one ``flash_attention_tf32`` launch), then 2 ``decode_block``
+    steps from the block's state (the attention block from a cache of
+    ``block_init_cache``, its hybrid ring buffer); against the same
+    functions in float64 (``plain_attention``, ``plain_decode_attention``,
+    ``moe_route`` replaying the float32 run's routings): each output and
+    the Mamba block's final state within MOE_F32_RTOL of its largest
+    magnitude."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import blocks, moe
+    from repro_torch.models.layers import init_from_spec
+    from torch.utils import _pytree as pytree
+
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), act_dtype="float32",
+                              param_dtype="float32")
+    T = HYBRID_J1_T
+    route = moe.moe_route
+    out = {}
+    for kind, idx in (("mamba", 0), ("attn", 3)):
+        def run(p, x):
+            positions = torch.arange(T, device=x.device)[None, :]
+            y, st = blocks.apply_block(cfg, kind, p, x[:, :T], positions, return_kv=True)
+            window = None
+            if kind == "attn":
+                cache = blocks.block_init_cache(cfg, kind, 1, T + 2, x.dtype, x.device)
+                for c in ("k", "v"):
+                    cache[c][:, :, :T] = st[c]
+                window = cfg.sliding_window
+            else:
+                cache = st
+            outs = {"prefill": y}
+            for i in range(2):
+                y, cache = blocks.decode_block(cfg, kind, p, x[:, T + i], T + i,
+                                               window=window, state=cache)
+                outs[f"decode_{i + 1}"] = y
+            if kind == "mamba":
+                outs.update({f"state_{c}": t for c, t in cache.items()})
+            return outs
+
+        routings: list = []
+
+        def recorded(cfg_, router, x):
+            routings.append(route(cfg_, router, x))
+            return routings[-1]
+
+        with torch.inference_mode():
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            params = init_from_spec(blocks.block_specs(cfg, kind, idx), gen, torch.float32)
+            x = torch.randn((1, T + 2, cfg.d_model), generator=gen, device="cuda")
+            n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+            torch.cuda.synchronize()
+            reset(kernels)
+            with swapped(moe, "moe_route", recorded):
+                got = run(params, x)
+            torch.cuda.synchronize()
+            launches = read_launches(f"J1 jamba {kind} block", kernels, {
+                "flash_attention_tf32": int(kind == "attn"), "flash_attention": 0,
+                "flash_attention_wgmma": 0})
+            params64 = pytree.tree_map(lambda t: t.double(), params)
+            del params
+            replayed, flips = route_replay(routings, cfg)
+            with swapped(tattn, "flash_attention", plain_attention), \
+                    swapped(tattn, "decode_attention", plain_decode_attention), \
+                    swapped(moe, "moe_route", replayed):
+                wants = run(params64, x.double())
+            if routings:
+                raise AssertionError(f"J1 {kind} block: {len(routings)} routings not replayed")
+            errors = {n: rel_err(got[n], wants[n]) for n in got}
+            finite = all(bool(torch.isfinite(t).all()) for t in got.values())
+            del params64, got, wants, x
+        torch.cuda.empty_cache()
+        out[kind] = dict(sub=f"sub{idx}", n_params=n_params, errors=errors,
+                         launches=launches, finite=finite,
+                         float64_router_other_choices=flips[0])
+        check_within(f"J1 jamba {kind} block", errors, dict.fromkeys(errors, MOE_F32_RTOL))
+        if not finite:
+            raise AssertionError(f"J1 jamba {kind} block: an output is not finite")
+    res = dict(path="hybrid_blocks_float32", arch=cfg.name, batch=1, prompt_len=T,
+               limit=MOE_F32_RTOL, blocks=out,
+               launches={n: sum(b["launches"][n] for b in out.values())
+                         for n in out["attn"]["launches"]})
+    log(res)
+    return res
+
+
+def ssm_phase(kernels, laps: Laps) -> dict:
+    """Paths H (xlstm-1.3b: mLSTM and sLSTM blocks, no attention, so no
+    hand kernel) and J (jamba-v0.1-52b: Mamba blocks, a GQA layer a period
+    whose decode cache is a ring buffer, the MoE MLP; the flash kernels at
+    head dim 128 and, reduced, 16), after path G's memory is released, with
+    the counts reset before each leg: H1 (float32 against float64 at full
+    width and depth), H2 (serving at full width and depth, bf16), J1 (the
+    Mamba and attention blocks at full width, and the reduced model across
+    its ring buffer's wrap, float32 against float64), J2 (serving at full
+    width and HYBRID_J2_PERIODS of 4 periods, bf16), then the reduced
+    configs' float32 train steps against float64 (``train_step_check``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import registry
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({"path": "ssm", "memory_allocated_at_start": torch.cuda.memory_allocated()})
+    no_flash = {"flash_attention": 0, "flash_attention_tf32": 0, "flash_attention_wgmma": 0}
+    xlstm = get_config(SSM_ARCH)
+    full32 = dataclasses.replace(xlstm, act_dtype="float32", param_dtype="float32")
+    prompts = np.random.default_rng(SEED).integers(
+        0, xlstm.vocab_size, (SSM_H1_B, SSM_H1_T)).astype(np.int32)
+    legs = [float64_leg(full32, prompts, kernels, no_flash, "ssm_float32", own_prefill=False)]
+    laps.lap("H1 xlstm float32 against float64")
+    legs.append(serve_leg(kernels, xlstm, path="ssm_serve", label="H2 xlstm serving",
+                          mixers=True, prompt_len=SSM_H2_T,
+                          extra=dict(reduced=f"prompt {MOE_F2_T} -> {SSM_H2_T} tokens: the "
+                                             "sLSTM's loop over time, 4.9 s a prefill at "
+                                             "1024, made the leg 98 s")))
+    laps.lap("H2 xlstm serving")
+    legs.append(hybrid_block_leg(kernels))
+    small = get_config(HYBRID_ARCH).reduced()
+    small_prompts = np.random.default_rng(SEED).integers(
+        0, small.vocab_size, (LM_REDUCED_B, HYBRID_J1_REDUCED_T)).astype(np.int32)
+    legs.append(float64_leg(small, small_prompts, kernels,
+                            {**no_flash, "flash_attention": attention_layers(small)},
+                            "hybrid_float32_reduced", own_prefill=False,
+                            n_decode=HYBRID_J1_REDUCED_DECODE,
+                            cache_len=HYBRID_J1_REDUCED_CACHE))
+    laps.lap("J1 jamba float32 against float64")
+    jamba = get_config(HYBRID_ARCH)
+    cut = dataclasses.replace(
+        jamba, n_layers=HYBRID_J2_PERIODS * len(jamba.layer_pattern))
+    legs.append(serve_leg(
+        kernels, cut, path="hybrid_serve", label="J2 jamba serving", mixers=True,
+        extra=dict(n_params_full=registry.build(jamba).n_params(),
+                   reduced=f"n_layers {jamba.n_layers} -> {cut.n_layers} "
+                           f"({HYBRID_J2_PERIODS} of {jamba.n_periods} periods): three "
+                           "periods are 77.4 GB of bf16 parameters before activations")))
+    laps.lap("J2 jamba serving")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, label in ((SSM_ARCH, "H3 xlstm train step, float32"),
+                        (HYBRID_ARCH, "J3 jamba train step, float32")):
+        cfg = get_config(arch).reduced()
+        n = attention_layers(cfg) * MLA_G4_MICRO
+        step = train_step_check(kernels, cfg, label, {
+            "flash_attention": 2 * n, "flash_attention_bwd": n,
+            "flash_attention_tf32": 0, "flash_attention_wgmma": 0,
+            "flash_attention_bwd_tf32": 0, "flash_attention_bwd_wgmma": 0})
+        log({"path": "ssm_train_step", "label": label, **step})
+        legs.append(step)
+    laps.lap("H3, J3 reduced train steps")
+    return dict(legs=legs)
 
 
 # ---------------------------------------------------------------------------
@@ -6883,6 +7218,11 @@ def main() -> int:
     # full width (G2), the module's gradient (G3), the reduced model trains
     # (G4)
     mla = mla_phase(kernels, rows, laps)
+    # paths H and J, the SSM and hybrid models: xlstm-1.3b (H1 float32
+    # against float64, H2 serving) and jamba-v0.1-52b (J1 its blocks and the
+    # reduced model across the ring buffer's wrap, J2 serving at 2 of 4
+    # periods), then the reduced configs' train steps against float64
+    ssm = ssm_phase(kernels, laps)
     # path D's float32 legs are the TF32 and mma flash kernels' paths
     # the housing legs' executor runs (capture and replay-only, or the
     # capacity segments) count beside their eager runs, and the chain
@@ -6896,7 +7236,8 @@ def main() -> int:
         for key in ("launches_float32", "launches_float32_reduced", "launches_int",
                     "launches_sparse")
         if key in run] + [leg["launches"] for leg in durable + integrity + serve] + [
-        leg["launches"] for leg in train["legs"] + moe["legs"] + mla["legs"]] + [
+        leg["launches"] for leg in train["legs"] + moe["legs"] + mla["legs"]
+        + ssm["legs"]] + [
         train["legs"][-1]["example"]["launches"]]
     launched = {k.name: sum(r.get(k.name, 0) for r in runs) for k in kernels}
     if not all(launched[k.name] for k in built):
@@ -7020,11 +7361,10 @@ def main() -> int:
     return 0
 
 
-def backward_main() -> int:
-    """``python3 chip_smoke.py --backward``: path E's E1 and path G's
-    backward rows alone (the flash kernels built, then ``flash_bwd_rows`` at
-    BWD_CASES and at MLA_BWD_CASES), for work on the backward kernels; the
-    whole smoke runs without arguments."""
+def flash_main(run) -> int:
+    """Builds the six flash kernels and calls ``run(kernels)``: the
+    ``--backward`` and ``--ssm`` runs of parts of the smoke; the whole
+    smoke runs without arguments."""
     import torch
 
     if not torch.cuda.is_available():
@@ -7034,6 +7374,7 @@ def backward_main() -> int:
     from repro_torch.kernels import flash_attention as tflash
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True, text=True,
                        check=True).stdout.strip().splitlines()[0])
@@ -7041,16 +7382,31 @@ def backward_main() -> int:
                tflash.FLASH_ATTENTION_TF32, tflash.FLASH_ATTENTION_BWD,
                tflash.FLASH_ATTENTION_BWD_WGMMA, tflash.FLASH_ATTENTION_BWD_TF32]
     log({"build_s": _cuda.build_all(kernels)})
-    flash_bwd_rows(np.random.default_rng(SEED))
-    flash_bwd_rows(np.random.default_rng(SEED), MLA_BWD_CASES, "G")
+    run(kernels)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
     return 0
 
 
+def backward_main(kernels) -> None:
+    """``python3 chip_smoke.py --backward``: path E's E1 and path G's
+    backward rows alone (``flash_bwd_rows`` at BWD_CASES and at
+    MLA_BWD_CASES), for work on the backward kernels."""
+    flash_bwd_rows(np.random.default_rng(SEED))
+    flash_bwd_rows(np.random.default_rng(SEED), MLA_BWD_CASES, "G")
+
+
+def ssm_main(kernels) -> None:
+    """``python3 chip_smoke.py --ssm``: paths H and J alone (``ssm_phase``),
+    for work on the SSM and hybrid models."""
+    ssm_phase(kernels, Laps())
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--backward"]:
-        sys.exit(backward_main())
+        sys.exit(flash_main(backward_main))
+    if sys.argv[1:2] == ["--ssm"]:
+        sys.exit(flash_main(ssm_main))
     if sys.argv[1:2] == ["--durable-child"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
         sys.exit(durable_child(sys.argv[2]))

@@ -1,2 +1,3 @@
 """The LM scaffold's serving and training paths (port of ``repro.models``):
-the GQA decoders, dense and MoE."""
+the decoder-only LMs, attention (GQA or MLA, dense or MoE), SSM (mLSTM and
+sLSTM) and hybrid (Mamba with GQA)."""

@@ -22,6 +22,9 @@
 * ``gqa_forward`` / ``gqa_decode`` are the full-sequence and one-token
   modules.  The decode cache is updated in place (a copy into the slot),
   where the reference returns a new cache and donates the old buffer.
+  With ``window`` (a hybrid's attention layers in decode) the cache is a
+  ring buffer: position ``pos`` goes to slot ``pos % S`` and every slot
+  below min(pos + 1, S) is attended.
 * ``mla_forward`` / ``mla_decode`` are deepseek-v3's multi-head latent
   attention.  The prefill runs the flash kernel with q and k of
   ``qk_nope + qk_rope`` columns (192) and v of ``v_head_dim`` (128), scale
@@ -34,8 +37,10 @@
   the reduced config's) on the card, and autograd of the plain branch on
   the CPU, as the reference's ``jax.grad``.
 
-q-head h reads kv-head h // G (G = H / Hkv) on every path.  Sliding windows
-and prefix-LM masks raise ``NotImplementedError`` (ROADMAP Queue 1 item 20).
+q-head h reads kv-head h // G (G = H / Hkv) on every path.  A window or a
+prefix-LM mask in ``flash_attention`` raises ``NotImplementedError`` (ROADMAP
+Queue 1 item 20): no entry point of the reference passes either to a
+prefill of the configs the port builds.
 """
 from __future__ import annotations
 
@@ -174,17 +179,17 @@ def flash_attention(q, k, v, *, causal=True, prefix_len=None, window=None):
 
 def decode_attention(q, k_cache, v_cache, pos: int, *, window=None):
     """One-step decode: q [B,H,D] against cache [B,Hkv,S,D]; entries at
-    indices > pos are masked.  Scores and softmax in float32; the
-    probabilities are rounded to the cache dtype for the PV product, which
-    accumulates in float32; the output has the cache dtype."""
-    if window is not None:
-        raise unported("ring-buffer (windowed) decode")
+    indices > pos are masked, or with ``window`` (a ring buffer of S slots)
+    those at indices >= min(pos + 1, S).  Scores and softmax in float32;
+    the probabilities are rounded to the cache dtype for the PV product,
+    which accumulates in float32; the output has the cache dtype."""
     B, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
     qg = q.reshape(B, Hkv, G, D)  # q-head h -> kv-head h // G
     s = torch.einsum("bhgd,bhtd->bhgt", qg.float(), k_cache.float()) / (D ** 0.5)
-    valid = torch.arange(S, device=q.device) <= pos
+    idx = torch.arange(S, device=q.device)
+    valid = idx <= pos if window is None else idx < min(pos + 1, S)
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgt,bhtd->bhgd", p.to(v_cache.dtype).float(),
@@ -226,17 +231,19 @@ def gqa_init_cache(cfg, batch: int, seq: int, dtype, device="cuda"):
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def gqa_decode(cfg, p, x, cache, pos: int):
+def gqa_decode(cfg, p, x, cache, pos: int, *, window=None):
     """x [B,d], one token at ``pos``; cache {"k","v"} [B,KV,S,hd] is written
-    in place at slot ``pos``.  Returns (y [B,d], cache)."""
+    in place at slot ``pos`` (with ``window``: ``pos % S``).  Returns (y
+    [B,d], cache)."""
     q, k, v = _qkv(cfg, p, x)                      # [B,heads,hd]
     # built on the device: a tensor of host data would be a blocking copy
     posv = torch.arange(pos, pos + 1, device=x.device)
     q = apply_rope(q[:, None], posv, cfg.rope_theta)[:, 0]
     k = apply_rope(k[:, None], posv, cfg.rope_theta)[:, 0]
-    cache["k"][:, :, pos] = k.to(cache["k"].dtype)
-    cache["v"][:, :, pos] = v.to(cache["v"].dtype)
-    out = decode_attention(q, cache["k"], cache["v"], pos)
+    slot = pos % cache["k"].shape[2] if window is not None else pos
+    cache["k"][:, :, slot] = k.to(cache["k"].dtype)
+    cache["v"][:, :, slot] = v.to(cache["v"].dtype)
+    out = decode_attention(q, cache["k"], cache["v"], pos, window=window)
     y = torch.einsum("bhk,hkd->bd", out, p["wo"])
     return y, cache
 

@@ -1,6 +1,7 @@
-"""Decoder-only language model (port of ``repro.models.lm`` for the
-attention decoders, GQA or MLA, dense or MoE): the training loss and the
-serving entry points.
+"""Decoder-only language model (port of ``repro.models.lm``: the attention
+decoders, GQA or MLA, dense or MoE; the SSM models (mLSTM and sLSTM
+blocks); the hybrids (Mamba blocks beside GQA layers)): the training loss
+and the serving entry points.
 
 The parameters are the reference's tree (``lm_init``): nested dicts, each
 block parameter stacked over the layer periods under ``layers/sub<i>``,
@@ -8,20 +9,24 @@ keys in sorted order (the order in which ``jax.tree.flatten`` visits the
 reference's tree), so optimizer states, checkpoints and the carriers of
 ``convert`` match it leaf for leaf.  The backbone is a loop over the
 layers; ``layer_params`` splits the stacked leaves along the periods with
-``unbind`` (views, whose backward is one stack a leaf).
+``unbind`` (views, whose backward is one stack a leaf).  A stateful layer
+(Mamba, mLSTM, sLSTM) starts from the zero states of
+``_full_init_states``, stacked over periods as the reference's.
 
 Entry points:
   * ``lm_loss``    — the masked mean cross entropy of a (tokens, labels)
     batch over the padded vocab (labels < 0 masked), plus the MTP head's
     loss when the config has one; the backbone runs under ``cfg.remat``
     (``"full"``: each period is recomputed in the backward pass,
-    ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).
+    ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``,
+    with the period's initial SSM states among its inputs).
   * ``lm_prefill`` — forward over a prompt: last-position logits over the
-    padded vocab and the decode cache, each layer's entries (GQA's K/V,
-    MLA's latent and rope key) padded along their sequence axis to
-    ``cache_len``.
+    padded vocab and the decode cache: each attention layer's entries
+    (GQA's K/V, MLA's latent and rope key) fitted along their sequence
+    axis to the cache (``place``), each SSM layer's final state.
   * ``lm_decode``  — one token against the cache at position ``pos``; the
-    cache is updated in place.
+    cache is updated in place (a hybrid's attention layers as ring buffers
+    of ``cfg.sliding_window`` slots).
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ import torch
 import torch.utils.checkpoint
 
 from .attention import unported
-from .blocks import apply_block, block_init_cache, block_specs, decode_block
+from .blocks import SSM_KINDS, apply_block, block_init_cache, block_specs, decode_block
 from .layers import (P, init_from_spec, rms_norm, softmax_cross_entropy, sort_tree,
                      stack_specs)
 
@@ -93,14 +98,48 @@ def layer_params(cfg, params) -> list:
     return [subs[i][n] for n in range(cfg.n_periods) for i in range(len(subs))]
 
 
-def lm_backbone(cfg, params, x, positions, *, collect_cache=False):
+def _stateful(kind: str) -> bool:
+    return kind in SSM_KINDS
+
+
+def _period_states(states, p: int):
+    """Period ``p``'s initial states ``{"sub<i>": state}`` of
+    ``_full_init_states`` (None: zeros in every block)."""
+    if states is None:
+        return {}
+    return {sub: {c: t[p] for c, t in st.items()} for sub, st in states.items()}
+
+
+def _full_init_states(cfg, batch: int, dtype, device):
+    """Zero initial states for the stateful blocks, stacked over periods
+    (expanded views, read only), as the reference's; None when no block of
+    the pattern is stateful."""
+    pattern = cfg.layer_pattern
+    if not any(_stateful(k) for k in pattern):
+        return None
+    per = {}
+    for i, kind in enumerate(pattern):
+        if _stateful(kind):
+            st = block_init_cache(cfg, kind, batch, 0, dtype, device)
+            per[f"sub{i}"] = {c: t.expand(cfg.n_periods, *t.shape) for c, t in st.items()}
+    return per
+
+
+def lm_backbone(cfg, params, x, positions, *, collect_cache=False, init_states=None):
     """x [B,S,d] -> (h [B,S,d], caches or None); caches are
     ``{"sub<i>": entries}`` with each layer's cache entries (GQA ``{"k",
-    "v"}``, MLA ``{"c_kv", "k_rope"}``) stacked over periods."""
+    "v"}``, MLA ``{"c_kv", "k_rope"}``, an SSM block's final state)
+    stacked over periods.  ``init_states`` (``_full_init_states``) are the
+    SSM blocks' initial states."""
     per_sub: dict = {}
     h = x
-    for bp, (i, kind) in zip(layer_params(cfg, params), _layer_kinds(cfg)):
-        h, st = apply_block(cfg, kind, bp, h, positions, return_kv=collect_cache)
+    n = len(cfg.layer_pattern)
+    states = [_period_states(init_states, p) for p in range(cfg.n_periods)]
+    for idx, (bp, (i, kind)) in enumerate(zip(layer_params(cfg, params),
+                                              _layer_kinds(cfg))):
+        h, st = apply_block(cfg, kind, bp, h, positions,
+                            state=states[idx // n].get(f"sub{i}"),
+                            return_kv=collect_cache)
         if collect_cache:
             per_sub.setdefault(f"sub{i}", []).append(st)
     if not collect_cache:
@@ -110,28 +149,31 @@ def lm_backbone(cfg, params, x, positions, *, collect_cache=False):
     return h, caches
 
 
-def _train_backbone(cfg, params, x, positions):
+def _train_backbone(cfg, params, x, positions, init_states=None):
     """x [B,S,d] -> h [B,S,d] under ``cfg.remat``: ``"full"`` runs each
     period inside ``torch.utils.checkpoint`` (non-reentrant), which keeps
-    only the period's input and recomputes its activations in the backward
-    pass; ``"none"`` is the plain loop."""
+    only the period's inputs (h and its blocks' initial SSM states) and
+    recomputes its activations in the backward pass; ``"none"`` is the
+    plain loop."""
     if cfg.remat not in ("full", "none"):
         raise unported(f"remat={cfg.remat!r} (selective checkpointing)")
     layers = layer_params(cfg, params)
     n = len(cfg.layer_pattern)
 
-    def period(h, p):
+    def period(h, states, p):
         for i, kind in enumerate(cfg.layer_pattern):
-            h, _ = apply_block(cfg, kind, layers[p * n + i], h, positions)
+            h, _ = apply_block(cfg, kind, layers[p * n + i], h, positions,
+                               state=states.get(f"sub{i}"))
         return h
 
     h = x
     for p in range(cfg.n_periods):
+        states = _period_states(init_states, p)
         if cfg.remat == "full":
-            h = torch.utils.checkpoint.checkpoint(period, h, p, use_reentrant=False,
+            h = torch.utils.checkpoint.checkpoint(period, h, states, p, use_reentrant=False,
                                                   preserve_rng_state=False)
         else:
-            h = period(h, p)
+            h = period(h, states, p)
     return h
 
 
@@ -167,7 +209,8 @@ def lm_loss(cfg, params, batch):
     labels = torch.as_tensor(batch["labels"], device=dev).long()
     x = _embed(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=dev)[None, :]
-    h = _train_backbone(cfg, params, x, positions)
+    states = _full_init_states(cfg, x.shape[0], x.dtype, dev)
+    h = _train_backbone(cfg, params, x, positions, states)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     ce = softmax_cross_entropy(_logits(cfg, params, h), labels, cfg.vocab_size)
     loss, tokens_n = _masked_mean(ce, labels)
@@ -193,9 +236,10 @@ def lm_loss(cfg, params, batch):
 # ---------------------------------------------------------------------------
 def lm_init_cache(cfg, batch: int, seq: int, dtype, device="cuda") -> dict:
     """Zero caches ``{"sub<i>": entries}`` stacked over periods: GQA ``{"k",
-    "v"}``, each [n_periods, B, KV, seq, hd]; MLA ``{"c_kv", "k_rope"}``,
-    [n_periods, B, seq, kv_lora_rank] and [n_periods, B, seq, rope] (the
-    sequence axis second, not third)."""
+    "v"}``, each [n_periods, B, KV, seq, hd] (a hybrid's: min(seq,
+    sliding_window) slots); MLA ``{"c_kv", "k_rope"}``, [n_periods, B, seq,
+    kv_lora_rank] and [n_periods, B, seq, rope] (the sequence axis second,
+    not third); an SSM kind's initial state (``models/ssm.py``)."""
     out = {}
     for i, kind in enumerate(cfg.layer_pattern):
         st = block_init_cache(cfg, kind, batch, seq, dtype, device)
@@ -232,7 +276,9 @@ def lm_prefill(cfg, params, batch, cache_len: int | None = None):
     x = _embed(cfg, params, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, device=dev)[None, :]
-    h, caches = lm_backbone(cfg, params, x, positions, collect_cache=True)
+    states = _full_init_states(cfg, B, x.dtype, dev)
+    h, caches = lm_backbone(cfg, params, x, positions, collect_cache=True,
+                            init_states=states)
     h = rms_norm(h[:, -1], params["final_norm"], cfg.rms_eps)
     logits = _logits(cfg, params, h[:, None])[:, 0]
     full = lm_init_cache(cfg, B, cache_len or S, x.dtype, dev)
@@ -243,16 +289,25 @@ def lm_prefill(cfg, params, batch, cache_len: int | None = None):
 
 def lm_decode(cfg, params, token, pos: int, cache):
     """token [B] (numpy or a tensor); pos an int; cache from
-    ``lm_init_cache``/``lm_prefill``, written in place.  Returns (logits
-    [B, Vp], cache)."""
+    ``lm_init_cache``/``lm_prefill``, written in place.  A hybrid's
+    attention layers decode with ``cfg.sliding_window`` (ring buffers).
+    Returns (logits [B, Vp], cache)."""
     dev = params["embed"].device
     h = _embed(cfg, params, torch.as_tensor(token, device=dev).long())
     n = len(cfg.layer_pattern)
+    window = cfg.sliding_window if cfg.family == "hybrid" else None
     for idx, (bp, (i, kind)) in enumerate(zip(layer_params(cfg, params),
                                               _layer_kinds(cfg))):
         # views of period idx // n: the slot write lands in ``cache``
         layer_cache = {c: t[idx // n] for c, t in cache[f"sub{i}"].items()}
-        h, _ = decode_block(cfg, kind, bp, h, int(pos), state=layer_cache)
+        h, st = decode_block(cfg, kind, bp, h, int(pos), state=layer_cache,
+                             window=window if kind == "attn" else None)
+        if _stateful(kind):
+            # the new state into the cache in place, cast to its dtype: the
+            # mLSTM's conv state comes back in the activation dtype (bf16
+            # values, which the float32 cache holds exactly)
+            for c, t in st.items():
+                layer_cache[c].copy_(t)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     logits = _logits(cfg, params, h[:, None])[:, 0]
     return logits, cache

@@ -1,11 +1,13 @@
 """Model registry (port of ``repro.models.registry``): one API over the
-architectures the port builds, the attention decoders: the dense GQA family
+architectures the port builds, the decoder-only LMs: the dense GQA family
 (llama3.2-1b, llama3.2-3b, qwen2-1.5b, granite-3-2b), the MoE GQA
-moonshot-v1-16b-a3b and deepseek-v3-671b (MLA attention, MoE, the MTP head;
-serving only: a gradient through MLA raises).
+moonshot-v1-16b-a3b, deepseek-v3-671b (MLA attention, MoE, the MTP head),
+the SSM xlstm-1.3b (mLSTM and sLSTM blocks) and the hybrid jamba-v0.1-52b
+(Mamba blocks, a GQA layer a period with a sliding-window decode cache,
+the MoE MLP).
 
-``build(cfg)`` raises ``NotImplementedError`` for encoder-decoder, SSM,
-vision and hybrid configs (ROADMAP Queue 1 item 20).  ``ModelAPI.loss``
+``build(cfg)`` raises ``NotImplementedError`` for encoder-decoder and
+front-end (vision, audio) configs (ROADMAP Queue 1 item 20).  ``ModelAPI.loss``
 is ``lm.lm_loss``; ``batch_spec`` and ``real_batch`` give a workload cell's
 inputs.  The dry run's abstract inputs (the reference's ``abstract_batch``)
 wait for item 20's ``launch/`` part.
@@ -56,9 +58,8 @@ class ModelAPI:
 
 
 def _unsupported(cfg: ArchConfig) -> str | None:
-    for what, yes in (("encoder-decoder", cfg.enc_dec), ("SSM", cfg.ssm is not None),
-                      (f"{cfg.frontend} front-end", cfg.frontend is not None),
-                      ("hybrid", cfg.family == "hybrid")):
+    for what, yes in (("encoder-decoder", cfg.enc_dec),
+                      (f"{cfg.frontend} front-end", cfg.frontend is not None)):
         if yes:
             return what
     return None
@@ -69,7 +70,7 @@ def build(cfg: ArchConfig) -> ModelAPI:
     if what is not None:
         raise NotImplementedError(
             f"{cfg.name}: {what} models are not ported yet; the port builds the "
-            f"attention decoders (GQA or MLA, dense or MoE) only ({UNPORTED})")
+            f"decoder-only LMs (attention, SSM and hybrid) only ({UNPORTED})")
     specs = lm.lm_specs(cfg)
 
     def init(seed: int = 0, device="cuda", dtype=None, generator=None):
@@ -94,7 +95,7 @@ def build(cfg: ArchConfig) -> ModelAPI:
 # ---------------------------------------------------------------------------
 def batch_spec(cfg: ArchConfig, shape: ShapeSpec) -> dict:
     """Logical-axis specs for every model input of this workload cell (the
-    attention decoders have no vision or audio front-end)."""
+    decoder-only LMs have no vision or audio front-end)."""
     B, S = shape.global_batch, shape.seq_len
     if shape.kind == "train":
         return {"tokens": P((B, S), ("batch", "seq"), "zeros"),

@@ -1,15 +1,16 @@
 """LM serving: batched greedy generation with a fixed-capacity KV cache
 (port of ``examples/serve_lm.py``).
 
-``Server`` builds an attention decoder, GQA or MLA, dense or MoE
-(``models.registry``), on ``device`` (default ``"cuda"``; a host without
-CUDA raises unless the caller passes ``device="cpu"``), with weights drawn
-from an explicit ``torch.Generator`` seeded with ``seed`` unless ``params``
-are given.  ``generate`` runs the
-prefill (the hand-written flash-attention kernel on the card, in every
-layer) and then one decode step per new token, each token the argmax over
-the padded vocab, under ``torch.inference_mode()``; times end with
-``torch.cuda.synchronize()``.  The cache is updated in place.
+``Server`` builds a decoder-only LM, attention (GQA or MLA, dense or MoE),
+SSM or hybrid (``models.registry``), on ``device`` (default ``"cuda"``; a
+host without CUDA raises unless the caller passes ``device="cpu"``), with
+weights drawn from an explicit ``torch.Generator`` seeded with ``seed``
+unless ``params`` are given.  ``generate`` runs the prefill (the
+hand-written flash-attention kernel on the card, in every attention layer)
+and then one decode step per new token, each token the argmax over the
+padded vocab, under ``torch.inference_mode()``; times end with
+``torch.cuda.synchronize()``.  The cache (KV entries and SSM states) is
+updated in place.
 
 ``swap_adapter_rank_r`` applies a rank-1 adapter delta W += u vᵀ to a 2-D
 weight in place (the factorized update of F-IVM integration point #2,

@@ -962,6 +962,37 @@ def test_cuda_lm_prefill_and_decode_match_cpu(cuda_device, arch):
         assert float((b.cpu() - a).abs().max()) <= 1e-5 * scale
 
 
+@pytest.mark.parametrize("arch", ["xlstm_1_3b", "jamba_v0_1_52b"])
+def test_cuda_ssm_and_hybrid_prefill_and_decode_match_cpu(cuda_device, arch):
+    """The reduced xlstm (mLSTM and sLSTM blocks) and jamba (Mamba blocks,
+    a GQA layer a period through the mma flash kernel, its decode cache a
+    ring buffer of 32 slots) on the card against the same weights on the
+    CPU: a prompt of 24, then 12 decode steps fed the same tokens across
+    the ring's wrap at 32; float32 logits and every cache leaf within 1e-4
+    of their largest magnitude (behind seven Mamba layers two float32
+    runs drift apart by up to ~3e-5: ``tests/test_torch_hybrid.py``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers, registry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    api = registry.build(cfg)
+    params = api.init(seed=0, device="cpu")
+    on_card = layers.map_tree(lambda t: t.to(cuda_device), params)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 36))
+    outs = []
+    for p in (params, on_card):
+        logits, cache = api.prefill(p, {"tokens": toks[:, :24]}, 64)
+        got = [logits]
+        for pos in range(24, 36):
+            logits, cache = api.decode_step(p, toks[:, pos], pos, cache)
+            got.append(logits)
+        outs.append(got + [t for st in cache.values() for t in st.values()])
+    for a, b in zip(*outs):
+        scale = float(a.abs().max())
+        assert float((b.cpu() - a).abs().max()) <= 1e-4 * scale
+
+
 def test_cuda_decode_step_does_not_synchronise(cuda_device):
     """One decode step of the reduced llama config, its token already on the
     card, makes no synchronising call: ``gqa_decode`` builds the step's
@@ -1433,8 +1464,10 @@ def test_cuda_sparse_claim_and_gather_are_one_launch(cuda_device):
             (lambda: rel.gather_rows(k, cols), "hash_probe_kernel", hash_table.HASH_PROBE)):
         before = counter.launches
         events, windows = _listed_kernels(fn, 5)
+        # the message says what the profiler lost (ROADMAP Queue 3): the
+        # listed names, the windows profiled and the wrapper's launches
         assert len(events) == 5 and all(kernel in e.name for e in events), \
-            [e.name for e in events]
+            ([e.name[:60] for e in events], windows, counter.launches - before)
         assert counter.launches == before + 5 * windows
     ring = sum_ring()
     d = BatchedDelta(coo_schema=("X", "B", "A"), dense_schema=(), keys=k, ring=ring,
