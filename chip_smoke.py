@@ -187,15 +187,19 @@ Phases (any failed check raises, and the script exits non-zero):
    ``flash_attention_bwd``'s SIMT kernels otherwise):
    - E1, ``flash_attention_bwd`` against its plain version in float64
      (``BWD_CASES``: llama3.2-1b's microbatch attention in float32 and
-     bf16, causal and not; head dims 16 and 128, G 1 and 4, T 100 and 257),
-     two calls bitwise equal, timed beside the plain version, SDPA's
-     backward and its bound (float32 rows also ``tc_bound_ms``, three TF32
-     terms); at ``BWD_MAIN`` and ``BWD_MAIN_F32`` the SIMT route timed by
-     name beside the wgmma and the tf32 route;
+     bf16, causal and not; head dims 16 and 128, G 1 and 4, T 100 and 257;
+     moonshot-v1-16b-a3b's (4, 16, 16, 1024, 128) in both dtypes), two
+     calls bitwise equal, given the forward's L where ``lse_route`` holds
+     and without it beside (``no_lse``), timed beside the plain version,
+     SDPA's backward and its bounds (float32 rows also ``tc_bound_ms``,
+     three TF32 terms; every row ``exp_bound_ms``, two exp2 passes); at
+     ``BWD_MAIN`` and ``BWD_MAIN_F32`` the SIMT route timed by name beside
+     the wgmma and the tf32 route;
    - E2, one ``make_train_step`` at llama3.2-1b's widths and 2 layers in
      float32 (TF32 forward, the TF32 backward) against the same port
      functions in float64 through the plain attention: loss, gradients,
-     post-AdamW parameters;
+     post-AdamW parameters; then the step's ms and one profiled step
+     (device busy, idle share);
    - E3, llama3.2-1b at full width and depth, bf16, remat ``full``, 6 steps
      of ``run_training`` at 8 × 1024 (2 microbatches): step ms, tokens/s,
      peak bytes, flash launches a step (64 forward, 32 backward), one
@@ -1066,7 +1070,22 @@ def flash_attention_rows(rng, rows: dict) -> None:
             def simt():
                 tflash.launch("simt", q, k, v)
 
-            times = time_in_turns({"kernel": kernel, "library": library, "simt": simt})
+            def with_lse():
+                tflash.flash_attention(q, k, v, return_lse=True)
+
+            fns = {"kernel": kernel, "library": library, "simt": simt}
+            if tflash.lse_route(dt, D):
+                o, lse = tflash.flash_attention(q, k, v, return_lse=True)
+                if not torch.equal(o, tflash.flash_attention(q, k, v)):
+                    raise AssertionError(f"{label}: o differs with L asked for")
+                want_lse = ref.flash_attention_lse_ref(q, k, v)
+                extra["lse_max_abs_err"] = float((lse[..., :T] - want_lse).abs().max())
+                if not extra["lse_max_abs_err"] <= 1e-6 * float(want_lse.abs().max()):
+                    raise AssertionError(f"{label}: L {extra['lse_max_abs_err']} from the "
+                                         "plain version's")
+                del o, lse, want_lse
+                fns["with_lse"] = with_lse
+            times = time_in_turns(fns)
             row = dict(
                 shape=dict(B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=str(dt).split(".")[1]),
                 variant=kind, max_abs_err=err, rel_err=rel,
@@ -1076,6 +1095,9 @@ def flash_attention_rows(rng, rows: dict) -> None:
                 library_ms=times["library"],
                 bound_ms=bms, bound_by=by, simt_ms=times["simt"],
                 simt_device_ms=kernel_device_ms(simt, FLASH_KERNEL_NAMES["simt"]), **extra)
+            if "with_lse" in fns:
+                row.update(lse_kernel_ms=times["with_lse"],
+                           lse_device_ms=kernel_device_ms(with_lse, FLASH_KERNEL_NAMES[kind]))
             rows[name].append(row)
             log({"kernel": name, **row})
             del q, k, v
@@ -2084,7 +2106,8 @@ def lm_serve_path(kernels) -> dict:
 BWD_CASES = ((4, 32, 8, 1024, 64, "float32", True), (4, 32, 8, 1024, 64, "float32", False),
              (4, 32, 8, 1024, 64, "bfloat16", True), (4, 32, 8, 1024, 64, "bfloat16", False),
              (2, 4, 4, 100, 16, "float32", True), (2, 4, 4, 100, 16, "float32", False),
-             (1, 8, 2, 257, 128, "float32", True), (1, 8, 2, 257, 128, "bfloat16", True))
+             (1, 8, 2, 257, 128, "float32", True), (1, 8, 2, 257, 128, "bfloat16", True),
+             (4, 16, 16, 1024, 128, "bfloat16", True), (4, 16, 16, 1024, 128, "float32", True))
 #: the backward kernel against its plain version in float64 on the same
 #: inputs, of each output's largest magnitude.  float32: every product and
 #: sum in float32 (~6e-8 a rounding), over sums of up to T terms in another
@@ -2104,6 +2127,8 @@ BWD_SIMT = (2, 4, 4, 100, 16, "float32", True)
 #: E2: llama3.2-1b's widths at 2 layers, batch 2 × 256 in 2 microbatches
 #: (so the step's accumulators add and divide), float32
 TRAIN_E2_LAYERS, TRAIN_E2_B, TRAIN_E2_T, TRAIN_E2_MICRO = 2, 2, 256, 2
+#: E2's AdamW steps timed after the checked ones (the first not counted)
+TRAIN_E2_TIMED = 4
 #: E2's SGD step: p − lr·g with lr 2^20 (exact in float32) leaves the
 #: step's own gradient in (p − p') / lr, to a rounding of p' over 2^20
 TRAIN_E2_SGD_LR = 2.0 ** 20
@@ -2170,20 +2195,26 @@ def flash_bwd_rows(rng, cases=BWD_CASES, path: str = "E1") -> list:
     (S, dQ, dK) and two over Dv (dP, dV), at the tensor-core peak of the
     dtype (bf16 989, TF32 495 TFLOP/s, one term), against q, k, v, o, dO
     read and dQ, dK, dV written once; float32 rows also ``tc_bound_ms``, the
-    products as three TF32 terms.  At BWD_MAIN and BWD_MAIN_F32 the SIMT route (``bwd_launch("simt",
-    ...)``) is timed in turns beside them, events and device ms
-    (``simt_ms``; ``simt_device_ms`` from windows of five calls, else of
-    one: windows of five calls of the SIMT float32 backward were seen to
-    list 2 of their 10 kernels, window after window).  Where ``lse_route``
-    holds (bf16 at (192, 128)) the route runs as autograd runs it, given
-    the forward's L (``flash_attention(..., return_lse=True)``), and the
-    call without L (the dq kernel's own pass for it) is gated and timed
-    beside it the same way (``no_lse``)."""
+    products as three TF32 terms; every row also ``exp_bound_ms``, the two
+    exp2 passes of the causal half's (or every) score given the forward's L
+    (P in the dq kernel, Pᵀ in the dkdv kernel) at EXP_PER_CLOCK_SM a clock
+    on every SM at the maximum SM clock.  At BWD_MAIN and BWD_MAIN_F32 the
+    SIMT route (``bwd_launch("simt", ...)``) is timed in turns beside them,
+    events and device ms (``simt_ms``; ``simt_device_ms`` from windows of
+    five calls, else of one: windows of five calls of the SIMT float32
+    backward were seen to list 2 of their 10 kernels, window after window).
+    Where ``lse_route`` holds (bf16 at every wgmma pair, float32 at (64, 64)
+    and (128, 128)) the route runs as autograd runs it, given the forward's
+    L (``flash_attention(..., return_lse=True)``), and the call without L
+    (the dq kernel's own pass for it) is gated and timed beside it the same
+    way (``no_lse``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as tflash
     from repro_torch.kernels import ref
 
+    exp_rate = EXP_PER_CLOCK_SM * torch.cuda.get_device_properties(0).multi_processor_count \
+        * sm_clock_hz()
     rows = []
     for case in cases:
         B, H, Hkv, T, D = case[:5]
@@ -2254,6 +2285,7 @@ def flash_bwd_rows(rng, cases=BWD_CASES, path: str = "E1") -> list:
         bms, by = bound_ms(nbytes, flops, peak)
         if dt == torch.float32:
             extra["tc_bound_ms"] = bound_ms(nbytes, 3 * flops, peak)[0]
+        extra["exp_bound_ms"] = 1e3 * 2 * pairs / exp_rate
         split = {}
         shape = dict(B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=dtype)
         if Dv != D:
@@ -2392,6 +2424,19 @@ def train_step_leg(kernels) -> dict:
         "flash_attention_tf32": 2 * n, "flash_attention_bwd_tf32": n,
         "flash_attention_bwd": 0, "flash_attention": 0, "flash_attention_wgmma": 0,
         "flash_attention_bwd_wgmma": 0})
+    # the AdamW step's time (host wall ended by a synchronise, the median of
+    # the steps after the first) and one profiled step: device busy, idle share
+    step_fn, state = make_train_step(cfg, api, opt, plan), opt.init(params)
+    times = []
+    for _ in range(TRAIN_E2_TIMED):
+        t0 = time.perf_counter()
+        step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    events, wall = device_events(lambda: step_fn(params, state, batch), 1)
+    timing = dict(step_ms=1e3 * statistics.median(times[1:]),
+                  step_ms_each=[1e3 * t for t in times], profile=_busy(events, wall))
+    del state, events
     step_grads = pytree.tree_map(lambda p, q: (p.double() - q.double()) / TRAIN_E2_SGD_LR,
                                  params, sgd_params)
     cfg64 = dataclasses.replace(cfg, act_dtype="float64", param_dtype="float64")
@@ -2413,7 +2458,7 @@ def train_step_leg(kernels) -> dict:
                grad_errors=tree_errors(step_grads, grads64),
                params_vs_oracle_grads=max(tree_errors(adam_params, adamw_first_step64(
                    params, grads64, lr)).values()),
-               launches=launches)
+               launches=launches, **timing)
     log(out)
     check_within("E2 train step", errors, TRAIN_E2_RTOL)
     del params, adam_params, sgd_params, step_grads, params64, grads64
@@ -7322,7 +7367,8 @@ def main() -> int:
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=shape,
             **{k: row[k] for k in ("variant", "tc_bound_ms", "exp_bound_ms", "host_us",
-                                   "simt_device_ms", "insert_route", "rounds",
+                                   "simt_device_ms", "lse_kernel_ms", "lse_device_ms",
+                                   "insert_route", "rounds",
                                    "composition_ms", "composition_device_ms")
                if k in row},
             **({"launches_by_route": {n.split(":")[1]: launched[n] for n in entries[name]}}
@@ -7339,10 +7385,14 @@ def main() -> int:
             ("flash_attention_bwd", "simt", BWD_SIMT)):
         row = next(r for r in train["rows"] if r["causal"] == causal and r["shape"] == dict(
             B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=dtype))
-        mla_rows = [{k: r[k] for k in ("shape", "kernel_ms", "device_ms", "device_kernels",
-                                       "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                       "library_refused", "tc_bound_ms", "no_lse") if k in r}
+        keys = ("shape", "causal", "kernel_ms", "device_ms", "device_kernels", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "library_refused", "tc_bound_ms",
+                "exp_bound_ms", "no_lse")
+        mla_rows = [{k: r[k] for k in keys if k in r}
                     for r in mla["bwd_rows"] if r["route"] == route]
+        # E1's other rows of the route (the D 128 cases among them)
+        cases = [{k: r[k] for k in keys if k in r} for r in train["rows"]
+                 if r["route"] == route and r is not row]
         summary.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
             replaces="no Pallas original: the gradient jax.grad takes of "
@@ -7352,8 +7402,9 @@ def main() -> int:
             ms=row["kernel_ms"], device_ms=row["device_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape={**row["shape"], "causal": causal}, bound_peak=row["bound_peak"],
-            **{k: row[k] for k in ("tc_bound_ms", "device_kernels", "simt_ms", "simt_device_ms")
-               if k in row}, mla=mla_rows))
+            **{k: row[k] for k in ("tc_bound_ms", "exp_bound_ms", "no_lse", "device_kernels",
+                                   "simt_ms", "simt_device_ms") if k in row},
+            cases=cases, mla=mla_rows))
     log({"kernels": summary})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -31,13 +31,15 @@
 //
 // Bound: operations.  Five T×T×D products of the causal half: at
 // llama3.2-1b's microbatch (B 4, H 32, T 1024, D 64) 43 GFLOP, 0.0869 ms as
-// one TF32 term at 495 TFLOP/s, 0.261 ms as three.  These kernels do eight
-// (S three times: the dq kernel's pass for L, its pass for dQ, the dkdv
-// kernel; dP twice), ten at D = 128 where both of a dkdv block's
-// warpgroups compute Sᵀ and dPᵀ.  At (192, 128) the causal half's five
-// products (three at D, two at Dv) at deepseek-v3-671b's shape (B 1, H 128,
-// T 1024) are 111.7 GFLOP: 0.226 ms as one TF32 term, 0.677 ms as three;
-// the kernels do S four times (both dkdv parts) and dP twice.
+// one TF32 term at 495 TFLOP/s, 0.261 ms as three.  Given the forward's L
+// (flash_attention_tf32.cu, the kLseIn instances, as autograd runs them)
+// these kernels do seven (S and dP twice: once in each kernel), nine at
+// D = 128 where both of a dkdv block's warpgroups compute Sᵀ and dPᵀ;
+// without L one more, the dq kernel's pass for L.  At (192, 128) the
+// causal half's five products (three at D, two at Dv) at deepseek-v3-671b's
+// shape (B 1, H 128, T 1024) are 111.7 GFLOP: 0.226 ms as one TF32 term,
+// 0.677 ms as three; the kernels do S four times (both dkdv parts) and dP
+// twice.
 //
 // Design: flash_attention_bwd_wgmma.cu's two kernels, launched in order on
 // the caller's stream by one C entry, with the TF32 forward's producer.
@@ -66,6 +68,10 @@
 //   registers, and dQ += dS K (Kᵀ the transposed copy), 64 output columns
 //   at a time.  It writes L and Δ to float32 scratch [B·H, T rounded up to
 //   128] (rows past T too: finite, and met only by zero rows of Q and dO).
+//   At D = Dv, given the forward's L in that scratch (the kLseIn
+//   instances), pass 1 and its K loads are left out and only Δ is written
+//   (a row past T reads 0 for L: the forward writes the rows of its own
+//   query tiles, which at D = 128 may stop short of the scratch's end).
 // - flash_bwd_dkdv_tf32_kernel (D = Dv), a block per (b·Hkv + kvh, tile of
 //   64 keys), the key tiles that see the most queries first.  K and V stay
 //   resident,
@@ -91,9 +97,11 @@
 // (A second producer warpgroup and copies a chunk at a time measured no
 // faster; a 384-thread block leaves each thread 168 registers, which the
 // dq kernel's consumer, with dQ's 96, does not fit.)  Every output element
-// is one warpgroup's
-// sum in a fixed order, or two warpgroups' sums added once: no atomics, so
-// two calls on the same inputs are bitwise equal.
+// is one warpgroup's sum in a fixed order, or two warpgroups' sums added
+// once: no atomics, so two calls on the same inputs are bitwise equal.  A
+// head's tiles on blockIdx.x (the kHeadMajorCut variant) measured slower
+// at D 64 and 128, both kernels (tools/kernel_variants.py bwd_d64_d128,
+// PERF.md).
 //
 // The tensor maps are encoded on the host for each call through
 // cuTensorMapEncodeTiled, found with cudaGetDriverEntryPoint, so the
@@ -107,7 +115,7 @@
 
 // Variants: 0 in the library; tools/kernel_variants.py builds the source
 // with REPRO_VARIANT set to one of the cuts below, to time what each part of
-// the (192, 128) kernels costs (the other instances ignore it).
+// the kernels costs (every instance; kDkOnly and kDvOnly at (192, 128)).
 #ifndef REPRO_VARIANT
 #define REPRO_VARIANT 0
 #endif
@@ -120,6 +128,7 @@ constexpr int kNoCompute = 2;   // consumers release each tile unread
 constexpr int kDqPass1 = 3;     // the dq kernel's first pass alone
 constexpr int kDkOnly = 4;      // the dkdv kernel's dK blocks alone
 constexpr int kDvOnly = 5;      // the dkdv kernel's dV blocks alone
+constexpr int kHeadMajorCut = 6;  // D 64/128: a head's tiles on blockIdx.x in both grids
 
 constexpr int kPanel = 32;      // float columns of one 128-byte swizzled panel
 constexpr int kRowBytes = 128;  // bytes of one row of a panel
@@ -571,7 +580,7 @@ __device__ __forceinline__ constexpr int frag_elem(int g, int j) {
   return 4 * g + ((j & 1) << 1) + (j >> 1);
 }
 
-template <int D, int DV>
+template <int D, int DV, bool kLseIn = false>
 __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
     flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap domap,
@@ -583,7 +592,7 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
                              int Tpad, float scale, int causal) {
   using C = DqCfg<D, DV>;
   constexpr int kN = C::kN;
-  constexpr int kV = D != DV ? kVariant : 0;  // the variants cut MLA's instance
+  constexpr int kV = kVariant;
   constexpr int kPasses = kV == kDqPass1 ? 1 : 2;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -598,8 +607,9 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
   // slot, and pass 2 takes the slot whole with buffer 0's barriers
   constexpr bool kMla = D != DV;
 
-  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
-  const int bh = blockIdx.x;
+  // heaviest causal tiles first
+  const int qt = kV == kHeadMajorCut ? gridDim.x - 1 - blockIdx.x : gridDim.y - 1 - blockIdx.y;
+  const int bh = kV == kHeadMajorCut ? blockIdx.y : blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int kvh = b * Hkv + h / (H / Hkv);
@@ -642,7 +652,7 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
     proxy_fence();
     mbar_arrive(res_ready);
     int it = 0;
-    for (int pass = 0; pass < kPasses; ++pass) {
+    for (int pass = kLseIn ? 1 : 0; pass < kPasses; ++pass) {
       for (int t = 0; t < n_kt; ++t, ++it) {
         const int s = kMla ? (pass ? 0 : t & 1) : it % C::kSlots;
         const int use = kMla ? (pass ? (n_kt + 1) / 2 + t : t >> 1) : it / C::kSlots;
@@ -744,56 +754,66 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
       }
     };
 
-    // pass 1: the row maximum (raw scores) and sum of exp2 over every key
-    // tile; a tile wholly above the warpgroup's rows adds nothing
     float sc[kN / 2], dp[kN / 2];
 #pragma unroll
     for (int i = 0; i < kN / 2; ++i) sc[i] = dp[i] = 0.f;
-    float m[2] = {kNegInf, kNegInf};
-    float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
     int it = 0;
-    for (int t = 0; t < n_kt; ++t, ++it) {
-      const int s = kMla ? t & 1 : it % C::kSlots;
-      const int k0 = t * kN;
-      mbar_wait(full(s), (kMla ? t >> 1 : it / C::kSlots) & 1);
-      if (kV == kNoCompute || (causal && k0 > wg_row0 + 63)) {
-        mbar_arrive(empty(s));
-        continue;
-      }
-      const uint32_t sa = base + (kMla ? C::kSlotOff + s * 2 * C::kTile : slot(s));
-      fence_regs(sc);
-      wgmma_fence();
-      issue_scores<D, kN, C::kRows, kN>(sc, qhi, qlo, sa + C::kKhi, sa + C::kKlo);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(sc);
-      mbar_arrive(empty(s));
-      mask(sc, k0);
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int i = 0; i < kN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-      float mc[2];
+    float lse[2];
+    if constexpr (kLseIn) {  // L of rows r0, r0 + 8 from the forward (rows past T: 0)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        l[r] *= exp2f((m[r] - mx[r]) * c);
-        m[r] = mx[r];
-        mc[r] = mx[r] * c;
+        const long long at = static_cast<long long>(bh) * Tpad + r0 + 8 * r;
+        lse[r] = r0 + 8 * r < Tq ? lse2[at] : 0.f;
+        if (lane % 4 == 0) delta[at] = dl[r];
+      }
+    } else {
+      // pass 1: the row maximum (raw scores) and sum of exp2 over every key
+      // tile; a tile wholly above the warpgroup's rows adds nothing
+      float m[2] = {kNegInf, kNegInf};
+      float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
+      for (int t = 0; t < n_kt; ++t, ++it) {
+        const int s = kMla ? t & 1 : it % C::kSlots;
+        const int k0 = t * kN;
+        mbar_wait(full(s), (kMla ? t >> 1 : it / C::kSlots) & 1);
+        if (kV == kNoCompute || (causal && k0 > wg_row0 + 63)) {
+          mbar_arrive(empty(s));
+          continue;
+        }
+        const uint32_t sa = base + (kMla ? C::kSlotOff + s * 2 * C::kTile : slot(s));
+        fence_regs(sc);
+        wgmma_fence();
+        issue_scores<D, kN, C::kRows, kN>(sc, qhi, qlo, sa + C::kKhi, sa + C::kKlo);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+        mbar_arrive(empty(s));
+        mask(sc, k0);
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+        float mc[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          l[r] *= exp2f((m[r] - mx[r]) * c);
+          m[r] = mx[r];
+          mc[r] = mx[r] * c;
+        }
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i)
+          l[(i >> 1) & 1] += exp2f(fmaf(sc[i], c, -mc[(i >> 1) & 1]));
       }
 #pragma unroll
-      for (int i = 0; i < kN / 2; ++i) l[(i >> 1) & 1] += exp2f(fmaf(sc[i], c, -mc[(i >> 1) & 1]));
-    }
-    float lse[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      lse[r] = m[r] * c + log2f(fmaxf(l[r], 1e-30f));
-      if (lane % 4 == 0) {
-        const long long at = static_cast<long long>(bh) * Tpad + r0 + 8 * r;
-        lse2[at] = lse[r];
-        delta[at] = dl[r];
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        lse[r] = m[r] * c + log2f(fmaxf(l[r], 1e-30f));
+        if (lane % 4 == 0) {
+          const long long at = static_cast<long long>(bh) * Tpad + r0 + 8 * r;
+          lse2[at] = lse[r];
+          delta[at] = dl[r];
+        }
       }
     }
 
@@ -895,8 +915,9 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads, 1)
   auto empty = [&](int s) { return bars + 16u + 8u * (2 * C::kSlots + s); };
   auto slot = [&](int s) { return C::kSlotOff + s * C::kSlotBytes; };
 
-  const int kt = blockIdx.y;  // the first key tiles see the most queries: first
-  const int bkv = blockIdx.x;
+  // the first key tiles see the most queries: first
+  const int kt = kVariant == kHeadMajorCut ? blockIdx.x : blockIdx.y;
+  const int bkv = kVariant == kHeadMajorCut ? blockIdx.y : blockIdx.x;
   const int b = bkv / Hkv;
   const int kvh = bkv - b * Hkv;
   const int G = H / Hkv;
@@ -934,8 +955,10 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads, 1)
       }
     }
     mbar_wait(res_land, 0);
-    split_in_place(basep, basep + C::kBig, C::kBig, p);
-    split_in_place(basep + 2 * C::kBig, basep + 3 * C::kBig, C::kBig, p);
+    if (kVariant != kNoSplit) {
+      split_in_place(basep, basep + C::kBig, C::kBig, p);
+      split_in_place(basep + 2 * C::kBig, basep + 3 * C::kBig, C::kBig, p);
+    }
     proxy_fence();
     mbar_arrive(res_ready);
     for (int it = 0; it < n_it; ++it) {
@@ -958,11 +981,15 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads, 1)
         bulk_load(sa + C::kStat + kQ * 4, delta + at, kQ * 4, land(s));
       }
       mbar_wait(land(s), use & 1);
-      transpose_split<D, kQ>(sp + C::kQhi, sp + C::kQThi, sp + C::kQTlo, p);
-      transpose_split<D, kQ>(sp + C::kDOhi, sp + C::kDOThi, sp + C::kDOTlo, p);
+      if (kVariant != kNoSplit) {
+        transpose_split<D, kQ>(sp + C::kQhi, sp + C::kQThi, sp + C::kQTlo, p);
+        transpose_split<D, kQ>(sp + C::kDOhi, sp + C::kDOThi, sp + C::kDOTlo, p);
+      }
       bar_sync(1, 128);  // every read of the raw Q and dO is done
-      split_in_place(sp + C::kQhi, sp + C::kQlo, C::kNat, p);
-      split_in_place(sp + C::kDOhi, sp + C::kDOlo, C::kNat, p);
+      if (kVariant != kNoSplit) {
+        split_in_place(sp + C::kQhi, sp + C::kQlo, C::kNat, p);
+        split_in_place(sp + C::kDOhi, sp + C::kDOlo, C::kNat, p);
+      }
       proxy_fence();
       mbar_arrive(full(s));
     }
@@ -994,6 +1021,10 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads, 1)
       const float* ls = reinterpret_cast<const float*>(basep + slot(s) + C::kStat);
       const float* dls = ls + kQ;
       mbar_wait(full(s), (it / C::kSlots) & 1);
+      if (kVariant == kNoCompute) {
+        mbar_arrive(empty(s));
+        continue;
+      }
       fence_regs(st);
       fence_regs(dpt);
       wgmma_fence();
@@ -1370,7 +1401,7 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D, int 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int DV>
+template <int D, int DV, bool kLseIn = false>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* o,
                    const float* dout, float* dq, float* dk, float* dv, float* lse2,
                    float* delta, int B, int H, int Hkv, int Tq, int Tk, int causal,
@@ -1386,7 +1417,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   // at MLA's pair the larger of the two parts' layouts
   constexpr size_t kKvBytes =
       kMla ? (Mk::kBytes > Mv::kBytes ? Mk::kBytes : Mv::kBytes) : DkvCfg<D>::kBytes;
-  auto dq_kernel = flash_bwd_dq_tf32_kernel<D, DV>;
+  auto dq_kernel = flash_bwd_dq_tf32_kernel<D, DV, kLseIn>;
   auto dkv_kernel = [] {
     if constexpr (kMla) {
       return flash_bwd_dkdv_tf32_mla_kernel<D, DV>;
@@ -1415,14 +1446,18 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   const int Tpad = (Tq + kPadRows - 1) / kPadRows * kPadRows;
   // every row of the scratch gets its L and Δ (blocks of kRows rows)
-  dq_kernel<<<dim3(B * H, Tpad / Q::kRows), Q::kThreads, Q::kBytes, stream>>>(
+  const dim3 dq_grid = kVariant == kHeadMajorCut ? dim3(Tpad / Q::kRows, B * H)
+                                                 : dim3(B * H, Tpad / Q::kRows);
+  dq_kernel<<<dq_grid, Q::kThreads, Q::kBytes, stream>>>(
       q_m, do_m, k_n, v_n, o, dout, dq, lse2, delta, H, Hkv, Tq, Tk, Tpad, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // at MLA's pair a third grid dimension: part 0 writes dK, part 1 dV
-  dkv_kernel<<<dim3(B * Hkv, (Tk + kKeys - 1) / kKeys, kMla ? 2 : 1), kKvThreads, kKvBytes,
-               stream>>>(q_n, do_n, k_m, v_m, lse2, delta, dk, dv, H, Hkv, Tq, Tk, Tpad,
-                         scale, causal);
+  const int n_kb = (Tk + kKeys - 1) / kKeys;
+  const dim3 dkv_grid = kVariant == kHeadMajorCut && !kMla ? dim3(n_kb, B * Hkv)
+                                                           : dim3(B * Hkv, n_kb, kMla ? 2 : 1);
+  dkv_kernel<<<dkv_grid, kKvThreads, kKvBytes, stream>>>(
+      q_n, do_n, k_m, v_m, lse2, delta, dk, dv, H, Hkv, Tq, Tk, Tpad, scale, causal);
   return cudaGetLastError();
 }
 
@@ -1432,14 +1467,17 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
 // 128)}; every pointer 16-byte aligned, every tensor contiguous.  lse2 and
 // delta are float32 [B·H, Tpad] scratch, Tpad = Tq rounded up to 128 (the
 // row logsumexp in base 2, and Δ), written by the first kernel and read by
-// the second.  Causal needs Tq == Tk.
+// the second; with have_lse (at (64, 64) and (128, 128) only) lse2 holds the
+// forward's L already (flash_attention_tf32.cu) and is only read.  Causal
+// needs Tq == Tk.
 extern "C" int repro_flash_attention_bwd_tf32(const void* q, const void* k, const void* v,
                                               const void* o, const void* dout, void* dq,
                                               void* dk, void* dv, void* lse2, void* delta,
                                               int B, int H, int Hkv, int Tq, int Tk, int D,
-                                              int Dv, int causal, cudaStream_t stream) {
+                                              int Dv, int causal, int have_lse,
+                                              cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 ||
-      (causal && Tq != Tk))
+      (causal && Tq != Tk) || (have_lse && D != Dv))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* fq = static_cast<const float*>(q);
   const float* fk = static_cast<const float*>(k);
@@ -1452,9 +1490,15 @@ extern "C" int repro_flash_attention_bwd_tf32(const void* q, const void* k, cons
   float* l = static_cast<float*>(lse2);
   float* dl = static_cast<float*>(delta);
   cudaError_t err = cudaErrorInvalidValue;
-  if (D == 64 && Dv == 64)
+  if (D == 64 && Dv == 64 && have_lse)
+    err = launch<64, 64, true>(fq, fk, fv, fo, fdo, gq, gk, gv, l, dl, B, H, Hkv, Tq, Tk, causal,
+                               stream);
+  else if (D == 64 && Dv == 64)
     err = launch<64, 64>(fq, fk, fv, fo, fdo, gq, gk, gv, l, dl, B, H, Hkv, Tq, Tk, causal,
                          stream);
+  else if (D == 128 && Dv == 128 && have_lse)
+    err = launch<128, 128, true>(fq, fk, fv, fo, fdo, gq, gk, gv, l, dl, B, H, Hkv, Tq, Tk,
+                                 causal, stream);
   else if (D == 128 && Dv == 128)
     err = launch<128, 128>(fq, fk, fv, fo, fdo, gq, gk, gv, l, dl, B, H, Hkv, Tq, Tk, causal,
                            stream);

@@ -27,15 +27,16 @@
 //
 // Bound: operations.  Five T×T×D products of the causal half (S, dP, dV,
 // dQ, dK): at llama3.2-1b's microbatch (B 4, H 32, T 1024, D 64) 43 GFLOP,
-// 0.0435 ms at 989 TFLOP/s bf16.  These kernels do eight: S three times
-// (the dq kernel's pass for L, its pass for dQ, the dkdv kernel) and dP
-// twice; ten at D = 128, where both of a dkdv block's warpgroups compute
-// Sᵀ and dPᵀ (DkvCfg).  At (192, 128) the five products of the causal half
-// are three at D and two at Dv: at deepseek-v3-671b's microbatch (B 4,
-// H 128, T 1024) 446.7 GFLOP, 0.452 ms at 989 TFLOP/s.  There the kernels
-// do six, given the forward's L (S twice, dP twice: the dkdv kernel splits
-// its work by product, so neither of its warpgroups repeats one), and
-// seven without it (the dq kernel's pass for L).
+// 0.0435 ms at 989 TFLOP/s bf16; beside them two exp2 passes (P in each
+// kernel), 67 M exponentials at that shape, about 0.032 ms at 16 a clock
+// on each SM.  Given the forward's L (the kLseIn instances, as autograd
+// runs them) these kernels do seven products at every pair: S and dP twice
+// (once in each kernel), dV, dQ and dK; without L eight (the dq kernel's
+// pass for L computes S again).  At D ≥ 128 the dkdv kernel splits its
+// work by product, so neither of its warpgroups repeats one (DkvCfg).  At
+// (192, 128) the five products of the causal half are three at D and two
+// at Dv: at deepseek-v3-671b's microbatch (B 4, H 128, T 1024) 446.7
+// GFLOP, 0.452 ms at 989 TFLOP/s.
 //
 // Design: FlashAttention-2's backward in two kernels, launched in order on
 // the caller's stream by one C entry, laid out as flash_attention_wgmma.cu
@@ -44,7 +45,7 @@
 // the TMA loads into a ring of stages, each signalled by an mbarrier with
 // its byte count, freed by the consumers through a second mbarrier), and
 // warpgroups 1 and 2 each own 64 rows of the block's 128 (the dkdv kernel
-// at D = 128: the same 64 rows, half the output columns each).  Tiles are
+// from D = 128: the same 64 keys, one product each).  Tiles are
 // 3-D TMA tensors (D, rows, B·heads), so a tile past a head's last row is
 // zero-filled, not read from the next head; shared memory is 128-byte
 // swizzled in 64-column panels.  Every product is a wgmma with float32
@@ -59,9 +60,8 @@
 //   accumulator layout of S is the A fragment layout) and K the MN-major B
 //   operand (transpose bit).  It writes L and Δ to float32 scratch [B·H, T
 //   rounded up to 128] (rows past T too: finite, and met only by zero rows
-//   of Q and dO).  At (192, 128), given the forward's L in that scratch
-//   (the kLseIn instance), pass 1 and its K loads are left out and only Δ
-//   is written.
+//   of Q and dO).  Given the forward's L in that scratch (the kLseIn
+//   instances), pass 1 and its K loads are left out and only Δ is written.
 // - flash_bwd_dkdv_wgmma_kernel, a block per (b·Hkv + kvh, tile of 128
 //   keys; 64 at D ≥ 128, see DkvCfg), the key tiles that see the most
 //   queries first.  K and V stay resident; Q, dO and the tile's L and Δ (a
@@ -69,15 +69,25 @@
 //   heads of the group (causally only the tiles at or below the keys).
 //   It works transposed: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, so Pᵀ = exp2(Sᵀ·c − L) and
 //   dSᵀ = Pᵀ ∘ (dPᵀ − Δ) are already the A fragments of dV += Pᵀ dO and
-//   dK += dSᵀ Q, with dO and Q the MN-major B operands.  At D = Dv P and dS
-//   never touch shared memory; at (192, 128) Pᵀ goes from the warpgroup
+//   dK += dSᵀ Q, with dO and Q the MN-major B operands.  At D = 64 P and dS
+//   never touch shared memory; from D = 128 Pᵀ goes from the warpgroup
 //   that computes Sᵀ and dV to the one that computes dPᵀ and dK through
 //   shared memory (DkvCfg).
 // At (192, 128) both grids put a head's tiles on blockIdx.x, so the blocks
 // in flight share their K/V (dq) or Q/dO (dkdv) tiles through L2: with the
 // head on blockIdx.x the 132 blocks in flight were 132 heads at one tile,
 // and every tile came from HBM again (3 GB a kernel at (B 4, H 128, T
-// 1024); measured with tools/kernel_variants.py mla, PERF.md).
+// 1024); measured with tools/kernel_variants.py mla, PERF.md).  At D 64/128
+// the same order measured slower, both kernels, at (B 4, H 32, T 1024, D
+// 64) and (4, 16, T 1024, 128): there a head's K/V and Q/dO already fit the
+// L2 (the kHeadMajorCut variant; tools/kernel_variants.py bwd_d64_d128).
+// Each warpgroup waits for its products before its softmax.  Issuing a
+// tile's S and dP as two commit groups, with P made while dP ran and the
+// tile before's dQ (or dV, dK) left in flight, measured slower at both
+// pairs; holding the next tile's S and dP in a second set of registers
+// spilled (ptxas holds a 384-thread block's code to about 168 registers);
+// the two consumer warpgroups taking turns at issuing S and dP (named
+// barriers) measured no faster (PERF.md).
 // Every output element is one warpgroup's accumulator in a fixed order: no
 // atomics, so two calls on the same inputs are bitwise equal.
 //
@@ -94,7 +104,8 @@
 
 // Variants: 0 in the library; tools/kernel_variants.py builds the source
 // with REPRO_VARIANT set to one of the cuts below, to time what each part of
-// the (192, 128) kernels costs (the other instances ignore it).
+// the kernels costs (every instance; kNoExchange and kRegProbe only where
+// the dkdv warpgroups split by product).
 #ifndef REPRO_VARIANT
 #define REPRO_VARIANT 0
 #endif
@@ -107,6 +118,7 @@ constexpr int kDqPass1 = 2;     // the dq kernel's first pass alone
 constexpr int kNoExchange = 3;  // dkdv: Pᵀ not handed over (B takes Pᵀ = 1)
 constexpr int kNoSoftmax = 4;   // P = S: no max, no sum, no exponentials
 constexpr int kRegProbe = 5;    // dkdv: warpgroup A does all of the work alone
+constexpr int kHeadMajorCut = 6;  // D 64/128: a head's tiles on blockIdx.x too
 
 constexpr int kBlockM = 128;     // query rows of a dq block
 constexpr int kBlockN = 64;      // keys of a dq K/V tile
@@ -146,54 +158,53 @@ struct DqCfg {
 };
 
 // dkdv: K and V resident, a ring of Q and dO tiles with their L and Δ.
-// At D = 128 a warpgroup's dK and dV of 64 keys alone take 128 registers a
-// thread: a kernel that held them spilled and had its wgmmas serialized
-// (ptxas -v), with tiles of 64 queries and of 32.  So at D = 128 a block
-// takes 64 keys, and both consumer warpgroups take all of them, each the
-// dK and dV of one 64-column half: Sᵀ and dPᵀ are computed by both, and a
-// thread holds what it holds at D = 64 (tools/sass_report.py reads the
-// registers and spills of the code).  At (192, 128) a block takes 64 keys
-// too, and the warpgroups split the work by product, not by output column:
-// A computes Sᵀ and Pᵀ and accumulates dV (64 registers of sums), B
-// computes dPᵀ and dSᵀ and accumulates dK (96), so each does 320 of a
-// tile's 640 column-units of products and neither repeats one.  Pᵀ goes
-// from A to B in float32 (dSᵀ is formed from the float32 P, as before)
-// through two slots of shared memory, each with a written and a read
-// mbarrier, so A may run a tile ahead of B.  The Q and dO tiles are 64
-// queries, as at D 64/128: three stages (40.5 KB each), K and V (40 KB) and
+// At D = 64 a block takes 128 keys, 64 for each consumer warpgroup, which
+// computes Sᵀ, dPᵀ, dV and dK of its keys.  From D = 128 a warpgroup's dK
+// and dV of 64 keys would take 128 registers a thread (a kernel that held
+// them spilled and had its wgmmas serialized, ptxas -v), so a block takes 64
+// keys and the warpgroups split the work by product, not by output column:
+// A computes Sᵀ and Pᵀ and accumulates dV (Dv / 2 registers of sums), B
+// computes dPᵀ and dSᵀ and accumulates dK (D / 2), so neither repeats a
+// product.  Pᵀ goes from A to B in float32 (dSᵀ is formed from the float32
+// P, as before) through two slots of shared memory, each with a written and
+// a read mbarrier, so A may run a tile ahead of B.  The Q and dO tiles are 64
+// queries.  At (192, 128): three stages (40.5 KB each), K and V (40 KB) and
 // the slots (32 KB) take 194 KB; A holds 64 sums and 48 registers of Sᵀ and
-// Pᵀ, B 96 sums and 48 of dPᵀ and dSᵀ.
+// Pᵀ, B 96 sums and 48 of dPᵀ and dSᵀ.  At 128: four stages (32.5 KB each),
+// K and V (32 KB) and the slots (32 KB), 194 KB.
 template <int D, int DV>
 struct DkvCfg {
-  static constexpr bool kMla = D != DV;               // (192, 128): split by product
-  static constexpr int kStages = kMla ? 3 : 4;
+  static constexpr bool kByProduct = D >= 128;        // the warpgroups split by product
+  static constexpr int kStages = D == 192 ? 3 : 4;
   static constexpr int kPanels = D / kPanel;
   static constexpr int kPanelsV = DV / kPanel;
-  static constexpr bool kSplit = D >= 128;            // D = Dv: columns split, keys shared
-  static constexpr int kKeys = kSplit ? 64 : 128;     // keys of a block
+  static constexpr int kKeys = kByProduct ? 64 : 128;  // keys of a block
   static constexpr int kQ = kBlockN;                  // queries of a tile
-  // D = Dv: dK and dV columns of a warpgroup (warpgroup 1 starts where
-  // warpgroup 0 ends; without the split each takes every column of its own
-  // 64 keys)
-  static constexpr int kCols = kSplit ? 64 : D;
   static constexpr int kBigK = kKeys * D * 2;         // the resident K
   static constexpr int kBigV = kKeys * DV * 2;        // the resident V
   static constexpr int kTileQ = kQ * D * 2;           // one Q tile
   static constexpr int kTileDo = kQ * DV * 2;         // one dO tile
   static constexpr int kStatBytes = 2 * kQ * 4;       // L, then Δ, of a tile
-  static constexpr int kSlotBytes = kMla ? kKeys * kQ * 4 : 0;  // a Pᵀ slot, float32
+  static constexpr int kSlotBytes = kByProduct ? kKeys * kQ * 4 : 0;  // a Pᵀ slot, float32
   static constexpr int kVOff = kBigK;
   static constexpr int kQOff = kBigK + kBigV;
   static constexpr int kDoOff = kQOff + kStages * kTileQ;
   static constexpr int kLOff = kDoOff + kStages * kTileDo;
   static constexpr int kPOff = kLOff + kStages * kStatBytes;
   static constexpr int kBarOff = kPOff + 2 * kSlotBytes;
-  // barriers: full[kStages], empty[kStages], resident, and at (192, 128)
-  // pfull[2], pfree[2]
-  static constexpr size_t kBytes = kBarOff + (2 * kStages + 1 + (kMla ? 4 : 0)) * 8 + 1024;
+  // barriers: full[kStages], empty[kStages], resident, and split by
+  // product pfull[2], pfree[2]
+  static constexpr size_t kBytes = kBarOff + (2 * kStages + 1 + (kByProduct ? 4 : 0)) * 8 + 1024;
   static constexpr uint32_t kStageTx = kTileQ + kTileDo + kStatBytes;
   static_assert(kBytes <= 232448, "more shared memory than a block can have");
 };
+
+// Whether a grid puts a head's tiles on blockIdx.x: at (192, 128), and in
+// the kHeadMajorCut variant
+template <int D, int DV>
+__host__ __device__ constexpr bool head_major() {
+  return D != DV || kVariant == kHeadMajorCut;
+}
 
 // A compile-time int, to hand a generic lambda its template arguments
 template <int N>
@@ -460,7 +471,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
                               int Tpad, float scale, int causal) {
   using C = DqCfg<D, DV>;
   constexpr int kN = C::kN;
-  constexpr int kV = D != DV ? kVariant : 0;  // the variants cut MLA's instance
+  constexpr int kV = kVariant;
   constexpr int kPasses = kV == kDqPass1 ? 1 : 2;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -475,7 +486,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
   // heaviest causal tiles first; at (192, 128) the query tiles of one head
   // are in flight together (blockIdx.x), so its K and V tiles come from L2
   // after the first read
-  constexpr bool kHeadMajor = D != DV;
+  constexpr bool kHeadMajor = head_major<D, DV>();
   const int qt = kHeadMajor ? gridDim.x - 1 - blockIdx.x : gridDim.y - 1 - blockIdx.y;
   const int bh = kHeadMajor ? blockIdx.y : blockIdx.x;
   const int b = bh / H;
@@ -706,15 +717,15 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (C::kStages + s); };
   const uint32_t resident = bars + 8u * (2 * C::kStages);
-  // (192, 128): the Pᵀ slot j written (pfull) and read (pfree)
+  // split by product: the Pᵀ slot j written (pfull) and read (pfree)
   auto pfull = [&](int j) { return bars + 8u * (2 * C::kStages + 1 + j); };
   auto pfree = [&](int j) { return bars + 8u * (2 * C::kStages + 3 + j); };
 
   // the first key tiles see the most queries: first; at (192, 128) the key
   // tiles of one head are in flight together (blockIdx.x), so its Q and dO
   // tiles come from L2 after the first read
-  const int kt = C::kMla ? blockIdx.x : blockIdx.y;
-  const int bkv = C::kMla ? blockIdx.y : blockIdx.x;
+  const int kt = head_major<D, DV>() ? blockIdx.x : blockIdx.y;
+  const int bkv = head_major<D, DV>() ? blockIdx.y : blockIdx.x;
   const int b = bkv / Hkv;
   const int kvh = bkv - b * Hkv;
   const int G = H / Hkv;
@@ -733,7 +744,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
       mbar_init(empty(s), 2 * 128);
     }
     mbar_init(resident, 1);
-    if constexpr (C::kMla) {
+    if constexpr (C::kByProduct) {
       for (int j = 0; j < 2; ++j) {
         mbar_init(pfull(j), 128);
         mbar_init(pfree(j), 128);
@@ -774,11 +785,10 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    if constexpr (D == DV) {
-      constexpr int kCols = C::kCols;
+    if constexpr (!C::kByProduct) {
+      // D = 64: warpgroup cw takes keys 64·cw .. of the block, all columns
       const int cw = threadIdx.x / 128 - 1;
-      const int wg_keys = C::kSplit ? 0 : 64 * cw;  // the warpgroup's keys in the block
-      const int wg_cols = C::kSplit ? 64 * cw : 0;  // and its output columns
+      const int wg_keys = 64 * cw;  // the warpgroup's keys in the block
       const int tid = threadIdx.x % 128;
       const int warp = tid / 32;
       const int lane = tid % 32;
@@ -788,11 +798,9 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
       const float c = scale * kLog2e;
       const uint32_t sk_wg = sk + wg_keys * kRowBytes;
       const uint32_t sv_wg = sv + wg_keys * kRowBytes;
-      // the warpgroup's 64-column panel of Q and dO tiles when split
-      const uint32_t panel = (wg_cols / kPanel) * kQ * kRowBytes;
-      float dka[kCols / 2], dva[kCols / 2], st[kQ / 2], dpt[kQ / 2];
+      float dka[D / 2], dva[D / 2], st[kQ / 2], dpt[kQ / 2];
 #pragma unroll
-      for (int i = 0; i < kCols / 2; ++i) dka[i] = dva[i] = 0.f;
+      for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
 #pragma unroll
       for (int i = 0; i < kQ / 2; ++i) st[i] = dpt[i] = 0.f;
       mbar_wait(resident, 0);
@@ -806,6 +814,10 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
         const float* ls = reinterpret_cast<const float*>(basep + C::kLOff + s * C::kStatBytes);
         const float* dls = ls + kQ;
         mbar_wait(full(s), (it / C::kStages) & 1);
+        if (kVariant == kNoCompute) {
+          mbar_arrive(empty(s));
+          continue;
+        }
         wgmma_fence();
         issue_dot<D>(st, sk_wg, C::kKeys, sqs, kQ);   // Sᵀ = K Qᵀ
         issue_dot<D>(dpt, sv_wg, C::kKeys, sdos, kQ);  // dPᵀ = V dOᵀ
@@ -826,9 +838,9 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
             const int col = 8 * (i / 4) + c2;
             const float2 lv = *reinterpret_cast<const float2*>(ls + col);
             const float2 dv2 = *reinterpret_cast<const float2*>(dls + col);
-            float p0 = exp2f(fmaf(st[i], c, -lv.x));
-            float p1 = exp2f(fmaf(st[i + 1], c, -lv.y));
-            if (masked) {
+            float p0 = kVariant == kNoSoftmax ? st[i] : exp2f(fmaf(st[i], c, -lv.x));
+            float p1 = kVariant == kNoSoftmax ? st[i + 1] : exp2f(fmaf(st[i + 1], c, -lv.y));
+            if (kVariant != kNoSoftmax && masked) {
               const int key = key0 + 8 * (j & 1);
               if (key > q0 + col) p0 = 0.f;
               if (key > q0 + col + 1) p1 = 0.f;
@@ -842,8 +854,8 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
         fence_regs(pf);
         fence_regs(dsf);
         wgmma_fence();
-        issue_rs<kCols>(dva, pf, sdos + panel);  // dV += Pᵀ dO
-        issue_rs<kCols>(dka, dsf, sqs + panel);  // dK += dSᵀ Q
+        issue_rs<D>(dva, pf, sdos);  // dV += Pᵀ dO
+        issue_rs<D>(dka, dsf, sqs);  // dK += dSᵀ Q
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(dva);
@@ -857,8 +869,8 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
         if (key < Tk) {
           const long long row = (static_cast<long long>(bkv) * Tk + key) * D;
 #pragma unroll
-          for (int g = 0; g < kCols / 8; ++g) {
-            const long long at = row + wg_cols + 8 * g + c2;
+          for (int g = 0; g < D / 8; ++g) {
+            const long long at = row + 8 * g + c2;
             *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
                 dka[4 * g + 2 * r] * scale, dka[4 * g + 2 * r + 1] * scale);
             *reinterpret_cast<__nv_bfloat162*>(dv + at) =
@@ -867,7 +879,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
         }
       }
     } else {
-      // MLA's pair, split by product (DkvCfg): warpgroup A (cw 0) computes
+      // From D = 128, split by product (DkvCfg): warpgroup A (cw 0) computes
       // Sᵀ, makes Pᵀ, hands it to B through a slot and accumulates dV over
       // all Dv columns; warpgroup B (cw 1) computes dPᵀ, takes Pᵀ from the
       // slot, forms dSᵀ and accumulates dK over all D columns.  Two slots, so
@@ -1132,7 +1144,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   const int n_qt = (Tq + kBlockM - 1) / kBlockM;
   const int Tpad = n_qt * kBlockM;
   // (192, 128): a head's tiles on blockIdx.x (in flight together)
-  constexpr bool kHeadMajor = D != DV;
+  constexpr bool kHeadMajor = head_major<D, DV>();
   const int n_kb = (Tk + K::kKeys - 1) / K::kKeys;
   const dim3 dq_grid = kHeadMajor ? dim3(n_qt, B * H) : dim3(B * H, n_qt);
   const dim3 dkv_grid = kHeadMajor ? dim3(n_kb, B * Hkv) : dim3(B * Hkv, n_kb);
@@ -1153,23 +1165,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 // 128)}; every pointer 16-byte aligned, every tensor contiguous.  lse2 and
 // delta are float32 [B·H, Tpad], Tpad = Tq rounded up to 128 (the row
 // logsumexp in base 2, and Δ), written by the first kernel and read by the
-// second; with have_lse (at (192, 128) only) lse2 holds the forward's L
-// already (flash_attention_wgmma.cu) and is only read.  Causal needs
-// Tq == Tk.
+// second; with have_lse lse2 holds the forward's L already
+// (flash_attention_wgmma.cu) and is only read.  Causal needs Tq == Tk.
 extern "C" int repro_flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
                                                const void* o, const void* dout, void* dq,
                                                void* dk, void* dv, void* lse2, void* delta,
                                                int B, int H, int Hkv, int Tq, int Tk, int D,
                                                int Dv, int causal, int have_lse,
                                                cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 ||
-      (causal && Tq != Tk) || (have_lse && (D != 192 || Dv != 128)))
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 || (causal && Tq != Tk))
     return static_cast<int>(cudaErrorInvalidValue);
   float* l = static_cast<float*>(lse2);
   float* dl = static_cast<float*>(delta);
   cudaError_t err = cudaErrorInvalidValue;
-  if (D == 64 && Dv == 64)
+  if (D == 64 && Dv == 64 && have_lse)
+    err = launch<64, 64, true>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, causal,
+                               stream);
+  else if (D == 64 && Dv == 64)
     err = launch<64, 64>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, causal, stream);
+  else if (D == 128 && Dv == 128 && have_lse)
+    err = launch<128, 128, true>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk,
+                                 causal, stream);
   else if (D == 128 && Dv == 128)
     err = launch<128, 128>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, causal,
                            stream);

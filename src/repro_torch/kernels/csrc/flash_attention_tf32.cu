@@ -78,6 +78,12 @@
 // (K 24, V 16) and a split slot 80 KB, so one of each fits (216 KB): the
 // TMA of tile t + 1 overlaps the consumer's work on tile t, its split
 // does not.  The split slots of K and Vᵀ are sized by D and Dv apart.
+// With a pointer for it (at D = Dv), a second instance of the kernel also
+// writes each row's logsumexp in base 2, L = m·c + log₂(max(l, 1e-30)) with
+// c = log₂e / √D, into float32 [B·H, T rounded up to 128] (the rows of its
+// query tiles, past T too), so that the float32 backward need not compute
+// it again (flash_attention_bwd_tf32.cu); without the pointer the first
+// instance runs as before.
 //
 // The tensor maps are encoded on the host for each call through
 // cuTensorMapEncodeTiled, found with cudaGetDriverEntryPoint, so the
@@ -260,12 +266,13 @@ __device__ __forceinline__ int kv_tiles(int qt, int Tq, int Tk, int causal) {
   return causal ? min(n, (min((qt + 1) * C::kBlockQ, Tq) - 1) / C::kN + 1) : n;
 }
 
-template <int D, int DV>
+template <int D, int DV, bool kLse = false>
 __global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
     flash_attention_tf32_kernel(const __grid_constant__ CUtensorMap kmap,
                                 const __grid_constant__ CUtensorMap vmap,
                                 const float* __restrict__ q, float* __restrict__ o, int H,
-                                int Hkv, int Tq, int Tk, float scale_log2, int causal) {
+                                int Hkv, int Tq, int Tk, float scale_log2, int causal,
+                                float* __restrict__ lse2, int Tpad) {
   // scale_log2 = log₂e / √D: P = exp2(s·scale_log2 − m·scale_log2)
   using C = Cfg<D, DV>;
   constexpr int kN = C::kN;
@@ -548,6 +555,14 @@ __global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         l[r] = fmaxf(l[r], 1e-30f);
       }
+      if constexpr (kLse) {  // every row of the tile: [B·H, Tpad]
+        if (lane % 4 == 0) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            lse2[static_cast<long long>(bh) * Tpad + r0 + 8 * r] =
+                m[r] * scale_log2 + log2f(l[r]);
+        }
+      }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = r0 + 8 * r;
@@ -605,11 +620,11 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D, int 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int DV>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o, int B, int H,
-                   int Hkv, int Tq, int Tk, int causal, cudaStream_t stream) {
+template <int D, int DV, bool kLse = false>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse2,
+                   int B, int H, int Hkv, int Tq, int Tk, int causal, cudaStream_t stream) {
   using C = Cfg<D, DV>;
-  auto kernel = flash_attention_tf32_kernel<D, DV>;
+  auto kernel = flash_attention_tf32_kernel<D, DV, kLse>;
   static bool allowed = false;
   if (!allowed) {
     const cudaError_t err = repro::allow_smem(kernel, C::kBytes);
@@ -625,8 +640,10 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, int
   // the reference's 1.0 / (D ** 0.5), a double rounded to float, in log₂ units
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   const dim3 grid(((Tq + C::kBlockQ - 1) / C::kBlockQ + 1) / 2, B * H);  // two q tiles a block
+  // L's rows: Tq rounded up to 128, as the backward's scratch
+  const int Tpad = (Tq + 127) / 128 * 128;
   kernel<<<grid, C::kThreads, C::kBytes, stream>>>(kmap, vmap, q, o, H, Hkv, Tq, Tk,
-                                                   scale * kLog2e, causal);
+                                                   scale * kLog2e, causal, lse2, Tpad);
   return cudaGetLastError();
 }
 
@@ -636,22 +653,31 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, int
 // and v [B, Hkv, Tk, Dv], all contiguous float32 (k and v 16-byte aligned),
 // (D, Dv) ∈ {(64, 64), (128, 128), (192, 128)}; causal: query i sees keys
 // 0..i (Tq == Tk).  With no keys (Tk == 0) the output is zero, as 0 / 1e-30.
+// lse2, null or (at (64, 64) and (128, 128) with Tk > 0 only) float32 [B·H,
+// Tq rounded up to 128], receives each row's logsumexp in base 2 (the rows
+// of the query tiles, so every row the backward reads).
 extern "C" int repro_flash_attention_tf32(const float* q, const float* k, const float* v,
-                                          float* o, int B, int H, int Hkv, int Tq, int Tk,
-                                          int D, int Dv, int causal, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk < 0)
+                                          float* o, float* lse2, int B, int H, int Hkv,
+                                          int Tq, int Tk, int D, int Dv, int causal,
+                                          cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk < 0 ||
+      (lse2 != nullptr && (D != Dv || Tk == 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Tk == 0) {
     cudaMemsetAsync(o, 0, static_cast<size_t>(B) * H * Tq * Dv * 4, stream);
     return static_cast<int>(cudaGetLastError());
   }
   cudaError_t err;
-  if (D == 64 && Dv == 64) {
-    err = launch<64, 64>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+  if (D == 64 && Dv == 64 && lse2 != nullptr) {
+    err = launch<64, 64, true>(q, k, v, o, lse2, B, H, Hkv, Tq, Tk, causal, stream);
+  } else if (D == 64 && Dv == 64) {
+    err = launch<64, 64>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, stream);
+  } else if (D == 128 && Dv == 128 && lse2 != nullptr) {
+    err = launch<128, 128, true>(q, k, v, o, lse2, B, H, Hkv, Tq, Tk, causal, stream);
   } else if (D == 128 && Dv == 128) {
-    err = launch<128, 128>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+    err = launch<128, 128>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, stream);
   } else if (D == 192 && Dv == 128) {
-    err = launch<192, 128>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+    err = launch<192, 128>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, stream);
   } else {
     err = cudaErrorInvalidValue;
   }

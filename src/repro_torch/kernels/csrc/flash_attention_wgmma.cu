@@ -78,13 +78,13 @@
 // are made; the terms of two steps are held (24 registers, where the whole
 // tile's 96 spilled), the third step waits for the first (wait_group 1);
 // a third step's terms held measured no faster.
-// With a pointer for it, the (192, 128) instance also writes each row's
-// logsumexp in base 2, L = m·c + log₂(max(l, 1e-30)) with c = log₂e / √D
-// (the backward's definition), into float32 [B·H, T rounded up to 128],
-// rows past T too (finite: their q rows load as zeros), so that the bf16
+// With a pointer for it, the kernel also writes each row's logsumexp in
+// base 2, L = m·c + log₂(max(l, 1e-30)) with c = log₂e / √D (the
+// backward's definition), into float32 [B·H, T rounded up to 128], rows
+// past T too (finite: their q rows load as zeros), so that the bf16
 // backward need not compute it again (flash_attention_bwd_wgmma.cu); that
-// is a second instance of the kernel, and without the pointer the first
-// runs as before.
+// is a second instance of the kernel at each pair, and without the pointer
+// the first runs as before.
 // Measured in turns on an H100 (tools/kernel_variants.py mla): 64-key tiles
 // with both Q tiles resident and S(t) in flight during the softmax of t − 1
 // were slower (m64n64 S wgmmas: twice the instructions a key), with or
@@ -641,23 +641,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 // o [B, H, Tq, Dv] = attention of q [B, H, Tq, D] over k [B, Hkv, Tk, D]
 // and v [B, Hkv, Tk, Dv], all contiguous bfloat16, (D, Dv) ∈ {(64, 64),
 // (128, 128), (192, 128)}; causal: query i sees keys 0..i (Tq == Tk).  With
-// no keys (Tk == 0) the output is zero, as 0 / 1e-30.  lse2, null or (at
-// (192, 128) with Tk > 0 only) float32 [B·H, Tq rounded up to 128],
-// receives each row's logsumexp in base 2.
+// no keys (Tk == 0) the output is zero, as 0 / 1e-30.  lse2, null or (with
+// Tk > 0 only) float32 [B·H, Tq rounded up to 128], receives each row's
+// logsumexp in base 2 (every row of the padded length).
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
                                            void* o, void* lse2, int B, int H, int Hkv, int Tq,
                                            int Tk, int D, int Dv, int causal,
                                            cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk < 0 ||
-      (lse2 != nullptr && (D != 192 || Dv != 128 || Tk == 0)))
+      (lse2 != nullptr && Tk == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Tk == 0) {
     cudaMemsetAsync(o, 0, static_cast<size_t>(B) * H * Tq * Dv * 2, stream);
     return static_cast<int>(cudaGetLastError());
   }
   cudaError_t err;
-  if (D == 64 && Dv == 64) {
+  if (D == 64 && Dv == 64 && lse2 != nullptr) {
+    err = launch<64, 64, true>(q, k, v, o, static_cast<float*>(lse2), B, H, Hkv, Tq, Tk,
+                               causal, stream);
+  } else if (D == 64 && Dv == 64) {
     err = launch<64, 64>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, stream);
+  } else if (D == 128 && Dv == 128 && lse2 != nullptr) {
+    err = launch<128, 128, true>(q, k, v, o, static_cast<float*>(lse2), B, H, Hkv, Tq, Tk,
+                                 causal, stream);
   } else if (D == 128 && Dv == 128) {
     err = launch<128, 128>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, stream);
   } else if (D == 192 && Dv == 128 && lse2 != nullptr) {

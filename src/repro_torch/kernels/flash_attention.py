@@ -47,15 +47,16 @@ from the dtype and head dims alone:
   bf16 at (64, 64), (128, 128) and (192, 128), the training path of every
   full-size config: a dq and a dkdv kernel on tensor cores (wgmma) fed by
   TMA, with P and dS rounded once to bf16 where they enter their products
-  (plain version ``ref.flash_attention_bwd_bf16_ref``); at the pairs of
-  ``LSE_PAIRS`` (MLA's (192, 128)) the forward kernel also writes each
-  row's logsumexp L and ``FlashAttentionFn`` hands it to this route, whose
-  dq kernel then makes one pass;
+  (plain version ``ref.flash_attention_bwd_bf16_ref``); at every pair the
+  forward kernel also writes each row's logsumexp L (``LSE_PAIRS``) and
+  ``FlashAttentionFn`` hands it to this route, whose dq kernel then makes
+  one pass;
 * ``csrc/flash_attention_bwd_tf32.cu`` (``FLASH_ATTENTION_BWD_TF32``) for
   float32 at the same pairs, the training path's precision check: the same
   products on the TF32 tensor cores, every product taken as three TF32
   terms (a_hi·b_hi + a_hi·b_lo + a_lo·b_hi, P and dS split too), float32
-  accuracy (plain version ``ref.flash_attention_bwd_ref``);
+  accuracy (plain version ``ref.flash_attention_bwd_ref``); at (64, 64)
+  and (128, 128) it takes the TF32 forward's L as the bf16 route does;
 * ``csrc/flash_attention_bwd.cu`` (``FLASH_ATTENTION_BWD``) for every dtype
   at D = Dv ∈ {8, 16, 32} and MLA's reduced (16, 8): two SIMT float32
   kernels, P and dS never rounded (plain version
@@ -79,7 +80,7 @@ FLASH_ATTENTION = CudaKernel("flash_attention.cu", "repro_flash_attention",
 FLASH_ATTENTION_WGMMA = CudaKernel("flash_attention_wgmma.cu",
                                    "repro_flash_attention_wgmma", [PTR] * 5 + [I32] * 8)
 FLASH_ATTENTION_TF32 = CudaKernel("flash_attention_tf32.cu",
-                                  "repro_flash_attention_tf32", [PTR] * 4 + [I32] * 8)
+                                  "repro_flash_attention_tf32", [PTR] * 5 + [I32] * 8)
 FLASH_ATTENTION_BWD = CudaKernel("flash_attention_bwd.cu",
                                  "repro_flash_attention_bwd",
                                  [PTR] * 10 + [I32] * 9)
@@ -88,7 +89,7 @@ FLASH_ATTENTION_BWD_WGMMA = CudaKernel("flash_attention_bwd_wgmma.cu",
                                        [PTR] * 10 + [I32] * 9)
 FLASH_ATTENTION_BWD_TF32 = CudaKernel("flash_attention_bwd_tf32.cu",
                                       "repro_flash_attention_bwd_tf32",
-                                      [PTR] * 10 + [I32] * 8)
+                                      [PTR] * 10 + [I32] * 9)
 
 #: head dims the kernels are compiled for with q, k and v of one head dim
 HEAD_DIMS = (8, 16, 32, 64, 128)
@@ -105,9 +106,11 @@ SIMT_BWD_PAIRS = tuple(p for p in BWD_PAIRS if p != (192, 128))
 #: the tensor-core backwards' L and Δ scratch has T rounded up to a multiple
 #: of this (the wgmma route's dq tile)
 BWD_ROWS = 128
-#: pairs at which the bf16 forward kernel writes L, each row's logsumexp in
-#: base 2, and the bf16 backward takes it in place of a pass of its own
-LSE_PAIRS = ((192, 128),)
+#: pairs at which the forward kernel of each dtype writes L, each row's
+#: logsumexp in base 2, and the backward takes it in place of a pass of its
+#: own: the wgmma routes at every pair, the tf32 routes at D = Dv (their
+#: (192, 128) dq kernel still makes its own pass)
+LSE_PAIRS = {torch.bfloat16: WGMMA_PAIRS, torch.float32: ((64, 64), (128, 128))}
 #: dtype codes of ``csrc/flash_attention.cu``'s C entry
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -129,9 +132,10 @@ def variant(dtype: torch.dtype, head_dim: int, v_head_dim: int | None = None) ->
 def lse_route(dtype: torch.dtype, head_dim: int, v_head_dim: int | None = None) -> bool:
     """True where the forward gives L (``flash_attention(...,
     return_lse=True)``) and the backward takes it (``flash_attention_bwd(...,
-    lse=L)``): bf16 at a pair of LSE_PAIRS (the wgmma routes)."""
+    lse=L)``): at a pair of ``LSE_PAIRS[dtype]`` (the wgmma and tf32
+    routes)."""
     pair = (head_dim, head_dim if v_head_dim is None else v_head_dim)
-    return dtype == torch.bfloat16 and pair in LSE_PAIRS
+    return pair in LSE_PAIRS.get(dtype, ())
 
 
 #: the kernel object of each variant
@@ -196,7 +200,7 @@ def flash_attention(q, k, v, causal: bool = True, return_lse: bool = False):
     if return_lse and not (lse_route(q.dtype, q.shape[3], v.shape[3]) and k.shape[2]):
         raise ValueError(f"no L from the forward of {q.dtype} at (D, Dv) = "
                          f"({q.shape[3]}, {v.shape[3]}) over {k.shape[2]} keys; "
-                         f"it is given at {LSE_PAIRS} in bfloat16")
+                         f"it is given at {LSE_PAIRS.get(q.dtype, ())}")
     if not on_card(q):
         o = ref.flash_attention_ref(q, k, v, causal=causal).to(q.dtype)
         return (o, ref.flash_attention_lse_ref(q, k, v, causal=causal)) if return_lse else o
@@ -234,7 +238,7 @@ def _check_lse(lse, q, D: int, Dv: int) -> None:
     B, H, T = q.shape[:3]
     if not lse_route(q.dtype, D, Dv):
         raise ValueError(f"the backward of {q.dtype} at (D, Dv) = ({D}, {Dv}) takes no "
-                         f"L; it does at {LSE_PAIRS} in bfloat16")
+                         f"L; it does at {LSE_PAIRS.get(q.dtype, ())}")
     rows = -(-T // BWD_ROWS) * BWD_ROWS if on_card(q) else T
     if (lse.dtype != torch.float32 or lse.device != q.device
             or tuple(lse.shape) != (B, H, rows) or not lse.is_contiguous()):
@@ -255,7 +259,7 @@ def bwd_launch(kind: str, q, k, v, o, do, causal: bool = True, lse=None):
     if kind != "simt" and bwd_variant(q.dtype, D, Dv) != kind:
         raise ValueError(f"the {kind} backward does not take {q.dtype} at "
                          f"(D, Dv) = ({D}, {Dv})")
-    if lse is not None and kind != "wgmma":
+    if lse is not None and kind == "simt":
         raise ValueError(f"the {kind} backward takes no L")
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     if kind != "simt":  # TMA reads 16-byte aligned rows
@@ -272,11 +276,9 @@ def bwd_launch(kind: str, q, k, v, o, do, causal: bool = True, lse=None):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse2.data_ptr(),
             delta.data_ptr(), B, H, Hkv, T, Tk, D, Dv)
-    if kind == "wgmma":
+    if kind != "simt":
         BWD_KERNELS[kind].launch(*args, int(causal), int(lse is not None),
                                  stream_handle(q))
-    elif kind != "simt":
-        BWD_KERNELS[kind].launch(*args, int(causal), stream_handle(q))
     else:
         FLASH_ATTENTION_BWD.launch(*args, DTYPES[q.dtype], int(causal),
                                    stream_handle(q))
@@ -310,10 +312,10 @@ class FlashAttentionFn(torch.autograd.Function):
 def launch(kind: str, q, k, v, causal: bool = True, return_lse: bool = False):
     """Launch the ``kind`` kernel (a key of KERNELS, or ``"simt"``) on CUDA
     tensors that ``flash_attention`` has checked; with ``return_lse`` (the
-    wgmma kernel where ``lse_route`` holds) it returns (o, L).  The wrapper
-    passes ``variant``'s choice; ``chip_smoke.py`` also passes ``"simt"``
-    (the SIMT kernel of ``FLASH_ATTENTION``, at any D = Dv), to time the
-    kernels on the same inputs."""
+    wgmma or tf32 kernel where ``lse_route`` holds) it returns (o, L).  The
+    wrapper passes ``variant``'s choice; ``chip_smoke.py`` also passes
+    ``"simt"`` (the SIMT kernel of ``FLASH_ATTENTION``, at any D = Dv), to
+    time the kernels on the same inputs."""
     B, H, T, D = q.shape
     Hkv, Tk, Dv = k.shape[1], k.shape[2], v.shape[3]
     if kind == "simt" and Dv != D:
@@ -324,7 +326,8 @@ def launch(kind: str, q, k, v, causal: bool = True, return_lse: bool = False):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if kind != "simt":  # TMA and cp.async read 16-byte aligned rows
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
-    if return_lse and (kind != "wgmma" or not lse_route(q.dtype, D, Dv) or not Tk):
+    if return_lse and (kind not in ("wgmma", "tf32") or not lse_route(q.dtype, D, Dv)
+                       or not Tk):
         raise ValueError(f"the {kind} kernel gives no L at (D, Dv) = ({D}, {Dv}), Tk {Tk}")
     o = q.new_empty((B, H, T, Dv))
     lse = (torch.empty((B, H, -(-T // BWD_ROWS) * BWD_ROWS), dtype=torch.float32,
@@ -333,13 +336,10 @@ def launch(kind: str, q, k, v, causal: bool = True, return_lse: bool = False):
         return (o, lse) if return_lse else o
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv, T,
             Tk, D, Dv)
-    if kind == "wgmma":
+    if kind in ("wgmma", "tf32"):
         KERNELS[kind].launch(*args[:4], None if lse is None else lse.data_ptr(), *args[4:],
                              int(causal), stream_handle(q))
         return (o, lse) if return_lse else o
-    if kind == "tf32":
-        KERNELS[kind].launch(*args, int(causal), stream_handle(q))
-    else:
-        FLASH_ATTENTION.launch(*args, DTYPES[q.dtype], int(causal),
-                               int(kind == "simt"), stream_handle(q))
+    FLASH_ATTENTION.launch(*args, DTYPES[q.dtype], int(causal),
+                           int(kind == "simt"), stream_handle(q))
     return o

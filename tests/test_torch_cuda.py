@@ -2467,7 +2467,7 @@ def test_cuda_flash_bwd_rejects_what_it_does_not_take(cuda_device):
         tflash.FLASH_ATTENTION_BWD_TF32.launch(
             q4.data_ptr(), k8.data_ptr(), k8.data_ptr(), q4.data_ptr(), q4.data_ptr(),
             q4.data_ptr(), k8.data_ptr(), k8.data_ptr(), lse.data_ptr(), lse.data_ptr(),
-            1, 2, 1, 4, 8, 64, 64, 1, 0)
+            1, 2, 1, 4, 8, 64, 64, 1, 0, 0)
 
 
 @pytest.mark.parametrize("D", [16, 64])
@@ -2475,7 +2475,8 @@ def test_cuda_model_attention_gradient_takes_the_backward_kernel(cuda_device, D)
     """With a gradient asked for, ``models.attention.flash_attention`` on
     CUDA tensors is ``FlashAttentionFn``: the forward kernel once, the
     backward route ``bwd_variant`` names once (float32: SIMT at D 16, tf32
-    at D 64), the gradients those of ``flash_attention_bwd``; without one
+    at D 64), the gradients those of ``flash_attention_bwd`` (given the
+    forward's L where ``lse_route`` holds: tf32 at D 64); without one
     (serving) it is the plain launch."""
     from repro_torch.kernels import flash_attention as tflash
     from repro_torch.models import attention
@@ -2494,15 +2495,19 @@ def test_cuda_model_attention_gradient_takes_the_backward_kernel(cuda_device, D)
     assert type(o.grad_fn).__name__ == "FlashAttentionFnBackward"
     got = torch.autograd.grad(o, (qs, ks, vs), do)
     assert (fwd.launches - n_f, bwd.launches - n_b) == (1, 1)
-    want = tflash.flash_attention_bwd(q, k, v, o.detach(), do)
+    lse = None
+    if tflash.lse_route(torch.float32, D):
+        lse = tflash.flash_attention(q, k, v, return_lse=True)[1]
+    want = tflash.flash_attention_bwd(q, k, v, o.detach(), do, lse=lse)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 
 def test_cuda_flash_bwd_tf32_spills_nothing(cuda_device):
     """``tools/sass_report.py`` on ``flash_attention_bwd_tf32.cu``: the dq
-    kernel at D 64, 128 and (192, 128) and the dkdv kernel at D 64 and 128
-    store and load nothing in local memory (no register spills); the
+    kernel at D 64 and 128 (with and without the forward's L) and (192,
+    128) and the dkdv kernel at D 64 and 128 store and load nothing in local
+    memory (no register spills); the
     (192, 128) dkdv kernel, ``flash_bwd_dkdv_tf32_mla_kernel``, is
     ``test_cuda_flash_bwd_mla_instances_spill_nothing``'s."""
     import json
@@ -2515,7 +2520,7 @@ def test_cuda_flash_bwd_tf32_spills_nothing(cuda_device):
                           "flash_attention_bwd_tf32.cu"], capture_output=True, text=True,
                          check=True).stdout
     rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
-    for kernel, n in (("flash_bwd_dq_tf32_kernel", 3), ("flash_bwd_dkdv_tf32_kernel", 2)):
+    for kernel, n in (("flash_bwd_dq_tf32_kernel", 5), ("flash_bwd_dkdv_tf32_kernel", 2)):
         mine = [r for r in rows if kernel in r["function"]]
         assert len(mine) == n, (kernel, rows)
         for r in mine:
@@ -2677,6 +2682,93 @@ def test_cuda_flash_bwd_mla_instances_spill_nothing(cuda_device):
             assert (r["local_stores"], r["local_loads"]) == (0, 0), r
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,H,Hkv,T,D,causal", [
+    (1, 4, 2, 130, 64, True), (2, 4, 4, 100, 64, False), (1, 8, 2, 257, 128, True),
+    (1, 4, 1, 77, 128, False), (4, 32, 8, 1024, 64, True), (4, 16, 16, 1024, 128, True)])
+def test_cuda_flash_bwd_with_lse_at_d64_d128_matches_float64(cuda_device, B, H, Hkv, T, D,
+                                                            causal, dtype):
+    """At (64, 64) and (128, 128), both routes: the forward with L
+    (``return_lse``) gives the same o bitwise as without it and L within
+    1e-6 of the plain version's largest magnitude; ``flash_attention_bwd``
+    given that L is within 1e-2 (bf16) or 1e-5 (float32) of each output's
+    largest magnitude of the float64 plain version, the bf16 route also of
+    ``flash_attention_bwd_bf16_ref``; two calls bitwise equal; one forward
+    launch a call and one backward launch a call of the dtype's route."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(T + D + H)
+    q, k, v, do = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                                device=cuda_device).to(dt)
+                   for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, D), (B, H, T, D)))
+    assert tflash.lse_route(dt, D)
+    fwd = tflash.KERNELS[tflash.variant(dt, D)]
+    bwd = tflash.BWD_KERNELS[tflash.bwd_variant(dt, D)]
+    n_f = fwd.launches
+    o = tflash.flash_attention(q, k, v, causal)
+    o2, lse = tflash.flash_attention(q, k, v, causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert fwd.launches - n_f == 2
+    assert torch.equal(o, o2)
+    rows = -(-T // tflash.BWD_ROWS) * tflash.BWD_ROWS
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (B, H, rows)
+    want_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal)
+    assert float((lse[..., :T].cpu() - want_lse.cpu()).abs().max()) <= 1e-6 * float(
+        want_lse.abs().max())
+    wants = [ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)),
+                                         causal=causal)]
+    if dt == torch.bfloat16:
+        wants.append(ref.flash_attention_bwd_bf16_ref(q, k, v, o, do, causal=causal))
+    n_b = bwd.launches
+    got = tflash.flash_attention_bwd(q, k, v, o, do, causal, lse=lse)
+    again = tflash.flash_attention_bwd(q, k, v, o, do, causal, lse=lse)
+    torch.cuda.synchronize()
+    assert bwd.launches - n_b == 2
+    rtol = 1e-5 if dt == torch.float32 else 1e-2
+    for want in wants:
+        for g, a, w, inp in zip(got, again, want, (q, k, v)):
+            assert g.dtype == dt and g.shape == inp.shape
+            assert torch.equal(g, a)
+            assert float((g.double() - w.double()).abs().max()) <= rtol * float(
+                w.abs().max())
+
+
+def test_cuda_flash_d64_d128_instances_spill_nothing(cuda_device):
+    """``tools/sass_report.py`` on the four tensor-core flash sources, at
+    (64, 64) and (128, 128): the wgmma route's dq kernels given L and its
+    dkdv kernels (the D 128 one split by product), and the tf32 route's dq
+    kernels given L, store and load nothing in local memory; the forwards
+    that write L (wgmma and tf32) keep in local memory what their no-L
+    instances keep, no more (the bf16 forward at D 128 keeps 10 words there
+    with L and without it, as the parent's build does)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(root / "tools" / "sass_report.py"),
+                          "flash_attention_wgmma.cu", "flash_attention_tf32.cu",
+                          "flash_attention_bwd_wgmma.cu", "flash_attention_bwd_tf32.cu"],
+                         capture_output=True, text=True, check=True).stdout
+    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+    def local(kernel):
+        mine = [r for r in rows if kernel in r["function"]]
+        assert len(mine) == 1, (kernel, rows)
+        return mine[0]["local_stores"], mine[0]["local_loads"]
+
+    for d in (64, 128):
+        for kernel in (f"flash_bwd_dq_wgmma_kernelILi{d}ELi{d}ELb1E",
+                       f"flash_bwd_dkdv_wgmma_kernelILi{d}ELi{d}E",
+                       f"flash_bwd_dq_tf32_kernelILi{d}ELi{d}ELb1E"):
+            assert local(kernel) == (0, 0), kernel
+        for kernel in ("flash_attention_wgmma_kernel", "flash_attention_tf32_kernel"):
+            assert local(f"{kernel}ILi{d}ELi{d}ELb1E") == local(f"{kernel}ILi{d}ELi{d}ELb0E"), (
+                kernel, d)
+
+
 def test_cuda_deepseek_reduced_train_step_matches_cpu(cuda_device):
     """One ``make_train_step`` of the reduced deepseek (MLA (16, 8): the mma
     forward and the SIMT backward; MoE, capacity factor 4.0, nothing drops;
@@ -2735,7 +2827,8 @@ def test_cuda_deepseek_reduced_train_step_matches_cpu(cuda_device):
 def test_cuda_model_attention_gradient_bf16_takes_the_wgmma_backward(cuda_device):
     """The bf16 D 64 form of the test above: ``FlashAttentionFn`` launches
     the wgmma forward once and the wgmma backward once (the SIMT backward
-    not at all), and its gradients are ``flash_attention_bwd``'s."""
+    not at all), and its gradients are ``flash_attention_bwd``'s given the
+    forward's L."""
     from repro_torch.kernels import flash_attention as tflash
     from repro_torch.models import attention
 
@@ -2752,7 +2845,8 @@ def test_cuda_model_attention_gradient_bf16_takes_the_wgmma_backward(cuda_device
     assert type(o.grad_fn).__name__ == "FlashAttentionFnBackward"
     got = torch.autograd.grad(o, (qs, ks, vs), do)
     assert [kern.launches - n for kern, n in zip(kernels, before)] == [1, 1, 0]
-    want = tflash.flash_attention_bwd(q, k, v, o.detach(), do)
+    lse = tflash.flash_attention(q, k, v, return_lse=True)[1]
+    want = tflash.flash_attention_bwd(q, k, v, o.detach(), do, lse=lse)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 

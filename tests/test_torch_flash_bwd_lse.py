@@ -1,29 +1,36 @@
-"""L from the forward, taken by the bf16 backward at (192, 128), on the CPU.
+"""L from the forward, taken by the backward where ``lse_route`` holds, on
+the CPU.
 
-On the card the (192, 128) bf16 forward (``csrc/flash_attention_wgmma.cu``)
-also writes L, each row's logsumexp in base 2 of the scaled, masked scores,
-and ``FlashAttentionFn`` hands it to the backward (``csrc/
-flash_attention_bwd_wgmma.cu``), whose dq kernel then drops the pass that
-computes L.  The kernels run only on the card; here their plain versions,
-at small shapes (T 20–40, not a multiple of 64; G 1 and 2; causal and not),
-on the same numpy inputs:
+On the card the bf16 forward (``csrc/flash_attention_wgmma.cu``) at (64,
+64), (128, 128) and (192, 128), and the float32 forward
+(``csrc/flash_attention_tf32.cu``) at (64, 64) and (128, 128), also write
+L, each row's logsumexp in base 2 of the scaled, masked scores, and
+``FlashAttentionFn`` hands it to the backward (``csrc/
+flash_attention_bwd_wgmma.cu``, ``csrc/flash_attention_bwd_tf32.cu``),
+whose dq kernel then drops the pass that computes L.  The kernels run only
+on the card; here their plain versions, at small shapes (T 17–40, not a
+multiple of 64; G 1 and 2; causal and not), on the same numpy inputs:
 
-* the plain L (``ref.flash_attention_lse_ref``) at (192, 128) and (16, 8)
-  against ``jax.nn.logsumexp`` of the reference's scaled, masked scores
-  (``flash_attention_jnp``'s: q kᵀ / √D, -1e30 above the diagonal) over
-  ln 2, in float32, within 1e-6 of L's largest magnitude;
+* the plain L (``ref.flash_attention_lse_ref``) at (64, 64), (128, 128),
+  (192, 128) and (16, 8) against ``jax.nn.logsumexp`` of the reference's
+  scaled, masked scores (``flash_attention_jnp``'s: q kᵀ / √D, -1e30 above
+  the diagonal) over ln 2, in float32, within 1e-6 of L's largest
+  magnitude;
 * the backward given L against the backward without it: the bf16 route
-  through ``flash_attention_bwd`` (its plain version), the float32 plain
-  version ``ref.flash_attention_bwd_ref`` directly.  L given is the same
-  number through one more float32 rounding (base 2 and back), so P moves by
-  a few float32 roundings: float32 outputs within 1e-6 of their largest
-  magnitude; bf16 ones within 2⁻⁸ (one bf16 rounding of the largest
-  magnitude, where P or dS crosses a rounding boundary), and both within
-  1e-2 of float64;
-* ``FlashAttentionFn`` at (192, 128) in bf16 (it asks the forward for L and
-  hands it to the backward) against ``jax.vjp`` of ``flash_attention_jnp``
-  in bf16: within 1e-2 plus the reference's own error of float64, and within
-  1e-2 of float64 (``tests/test_torch_flash_bwd.py``'s limits);
+  through ``flash_attention_bwd`` (its plain version) at the wgmma pairs,
+  the float32 route the same way at (64, 64) and (128, 128), and the
+  float32 plain version ``ref.flash_attention_bwd_ref`` directly at every
+  pair.  L given is the same number through one more float32 rounding
+  (base 2 and back), so P moves by a few float32 roundings: float32 outputs
+  within 1e-6 of their largest magnitude; bf16 ones within 2⁻⁸ (one bf16
+  rounding of the largest magnitude, where P or dS crosses a rounding
+  boundary), and both within 1e-2 of float64;
+* ``FlashAttentionFn`` (it asks the forward for L and hands it to the
+  backward) against ``jax.vjp`` of ``flash_attention_jnp``: in bf16 at the
+  wgmma pairs within 1e-2 plus the reference's own error of float64, and
+  within 1e-2 of float64 (``tests/test_torch_flash_bwd.py``'s limits); in
+  float32 at (64, 64) and (128, 128) within 1e-5 of each output's largest
+  magnitude (float32 sums in another order);
 * what takes L and what does not: ``lse_route``, ``return_lse`` and
   ``lse=`` refused elsewhere, and an L of the wrong shape refused.
 """
@@ -44,12 +51,18 @@ from repro.models import attention as rattn  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
-#: (B, H, Hkv, T, D, Dv, causal): MLA's full pair with a few narrow heads
-#: and its reduced pair, G 1 and 2, T never a multiple of 64
+#: (B, H, Hkv, T, D, Dv, causal): MLA's full pair with a few narrow heads,
+#: its reduced pair, and the wgmma and tf32 routes' D = Dv pairs, G 1 and 2,
+#: T never a multiple of 64
 SHAPES = [(1, 2, 2, 20, 192, 128, True), (1, 2, 2, 20, 192, 128, False),
           (1, 4, 2, 33, 192, 128, True), (2, 2, 1, 40, 192, 128, False),
-          (2, 4, 4, 24, 16, 8, True), (1, 4, 2, 17, 16, 8, False)]
-MLA = [s for s in SHAPES if s[4] == 192]
+          (2, 4, 4, 24, 16, 8, True), (1, 4, 2, 17, 16, 8, False),
+          (1, 2, 2, 20, 64, 64, True), (1, 4, 2, 33, 64, 64, False),
+          (2, 2, 1, 40, 128, 128, True), (1, 4, 2, 17, 128, 128, False)]
+#: the shapes where bf16 takes L (the wgmma pairs) and where float32 does
+#: (the tf32 route's D = Dv pairs)
+BF16_LSE = [s for s in SHAPES if tflash.lse_route(torch.bfloat16, s[4], s[5])]
+F32_LSE = [s for s in SHAPES if tflash.lse_route(torch.float32, s[4], s[5])]
 #: each output within this of its largest magnitude (float64, jax.vjp)
 RTOL = 1e-2
 
@@ -83,7 +96,7 @@ def test_plain_lse_matches_jax_logsumexp(B, H, Hkv, T, D, Dv, causal):
     assert _err(got, want) <= 1e-6
 
 
-@pytest.mark.parametrize("B,H,Hkv,T,D,Dv,causal", MLA)
+@pytest.mark.parametrize("B,H,Hkv,T,D,Dv,causal", BF16_LSE)
 def test_bf16_backward_with_lse_equals_without(B, H, Hkv, T, D, Dv, causal):
     q, k, v, do = (torch.tensor(a).to(torch.bfloat16)
                    for a in _inputs(1, B, H, Hkv, T, D, Dv))
@@ -112,7 +125,23 @@ def test_float32_plain_backward_with_lse_equals_without(B, H, Hkv, T, D, Dv, cau
         assert _err(a, b) <= 1e-6, name
 
 
-@pytest.mark.parametrize("B,H,Hkv,T,D,Dv,causal", MLA)
+@pytest.mark.parametrize("B,H,Hkv,T,D,Dv,causal", F32_LSE)
+def test_float32_backward_with_lse_equals_without(B, H, Hkv, T, D, Dv, causal):
+    q, k, v, do = (torch.tensor(a) for a in _inputs(6, B, H, Hkv, T, D, Dv))
+    o, lse = tflash.flash_attention(q, k, v, causal, return_lse=True)
+    assert torch.equal(o, tflash.flash_attention(q, k, v, causal))
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (B, H, T)
+    with_lse = tflash.flash_attention_bwd(q, k, v, o, do, causal, lse=lse)
+    without = tflash.flash_attention_bwd(q, k, v, o, do, causal)
+    exact = ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)),
+                                        causal=causal)
+    for name, a, b, x in zip(("dq", "dk", "dv"), with_lse, without, exact):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert _err(a, b) <= 1e-6, name
+        assert _err(a, x) <= 1e-5, name
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,D,Dv,causal", BF16_LSE)
 def test_flash_attention_fn_at_192_128_matches_jax_vjp(monkeypatch, B, H, Hkv, T, D, Dv,
                                                         causal):
     arrs = _inputs(3, B, H, Hkv, T, D, Dv)
@@ -145,15 +174,43 @@ def test_flash_attention_fn_at_192_128_matches_jax_vjp(monkeypatch, B, H, Hkv, T
         assert port_err <= RTOL, (name, port_err)
 
 
+@pytest.mark.parametrize("B,H,Hkv,T,D,Dv,causal", F32_LSE)
+def test_flash_attention_fn_float32_matches_jax_vjp(monkeypatch, B, H, Hkv, T, D, Dv,
+                                                     causal):
+    arrs = _inputs(7, B, H, Hkv, T, D, Dv)
+
+    def f(q_, k_, v_):
+        return rattn.flash_attention_jnp(q_, k_, v_, causal=causal)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in arrs[:3]))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(arrs[3]))]
+    q, k, v, do = (torch.tensor(a) for a in arrs)
+    given = []
+    bwd = tflash.flash_attention_bwd
+
+    def spy(*args, **kwargs):
+        given.append(args[6] if len(args) > 6 else kwargs.get("lse"))
+        return bwd(*args, **kwargs)
+
+    monkeypatch.setattr(tflash, "flash_attention_bwd", spy)
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    o = tflash.FlashAttentionFn.apply(qs, ks, vs, causal)
+    got = torch.autograd.grad(o, (qs, ks, vs), do)
+    assert len(given) == 1 and given[0] is not None and tuple(given[0].shape) == (B, H, T)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32
+        assert _err(g, w) <= 1e-5, (name, _err(g, w))
+
+
 @pytest.mark.parametrize("dtype,D,Dv,want", [
     (torch.bfloat16, 192, 128, True), (torch.float32, 192, 128, False),
-    (torch.bfloat16, 64, 64, False), (torch.bfloat16, 128, None, False),
-    (torch.bfloat16, 16, 8, False), (torch.float32, 16, 8, False)])
-def test_lse_route_is_bf16_at_192_128(dtype, D, Dv, want):
+    (torch.bfloat16, 64, 64, True), (torch.float32, 128, None, True),
+    (torch.bfloat16, 16, 8, False), (torch.float32, 32, None, False)])
+def test_lse_route_is_at_the_wgmma_and_tf32_pairs(dtype, D, Dv, want):
     assert tflash.lse_route(dtype, D, Dv) is want
 
 
-@pytest.mark.parametrize("dtype,D,Dv", [(torch.float32, 192, 128), (torch.bfloat16, 64, 64),
+@pytest.mark.parametrize("dtype,D,Dv", [(torch.float32, 192, 128), (torch.bfloat16, 32, 32),
                                         (torch.bfloat16, 16, 8)])
 def test_lse_refused_where_no_route_takes_it(dtype, D, Dv):
     q, k, v, do = (torch.tensor(a).to(dtype) for a in _inputs(4, 1, 2, 2, 20, D, Dv))

@@ -110,13 +110,27 @@ With ``--other ROOT`` the section also times against ROOT's builds in turns
 instance of ``flash_attention_tf32.cu`` (float32 forward, (1, 128, 128,
 1024)), and the D 64 and D 128 instances of the three sources: the bf16
 forward and backward at (4, 32, 8, 1024, 64) and (1, 8, 2, 257, 128), the
-float32 backward at the same shapes, causal; and it prints whether ROOT's
-and this tree's D 64/128 kernels of the two wgmma sources have equal
-``sass_report`` lines.
+float32 backward at the same shapes, causal; and it prints whether each
+kernel instance of the four tensor-core sources has ROOT's
+``sass_report`` line (``_sass_instances``).
+
+Section ``bwd_d64_d128`` (``bwd_d64_d128_rows``): the attention backward
+at head dims 64 and 128 in both routes, at llama3.2-1b's microbatch (4, 32,
+8, 1024, 64) and moonshot-v1-16b-a3b's (4, 16, 16, 1024, 128), causal: the
+shipped build given the forward's L (as autograd runs it) and without it,
+the parent's build (``--other``), SDPA's backward and the cuts of
+BWD_D64_D128_CUTS (``*_no_compute``, ``*_dq_pass1``, ``bf16_bwd_no_softmax``,
+``bwd_no_split``, ``bf16_bwd_no_exchange`` at 128, and ``*_head_major``,
+a head's tiles on ``blockIdx.x``, held bitwise to the shipped build), dq
+and dkdv apart, with the bounds (``exp_bound_ms`` among them); then the
+forwards with and without L beside the parent's, and with ``--other``
+every kernel instance of the four tensor-core sources against the
+parent's build (``sass_report`` lines; a (192, 128) instance that differs
+leaves its SASS diff under ``build/sass_diff/``).
 
 Run on a card from the repository root (all sections, or the ones
 named: ``matvec``, ``flash``, ``dedup``, ``gms``, ``mma``, ``mla``,
-``mla_bf16_bwd``):
+``mla_bf16_bwd``, ``bwd_d64_d128``):
 
     python3 tools/kernel_variants.py [section ...] [--other ROOT]
 """
@@ -185,9 +199,21 @@ VARIANTS = {
     "bf16_bwd_no_exchange": (MLA_BF16_BWD_SRC, 3, False),
     "bf16_bwd_no_softmax": (MLA_BF16_BWD_SRC, 4, False),
     "bf16_bwd_reg_probe": (MLA_BF16_BWD_SRC, 5, True),
+    "bf16_bwd_head_major": (MLA_BF16_BWD_SRC, 6, True),
+    "bwd_head_major": (MLA_BWD_SRC, 6, True),
 }
-#: the C entries' argument kinds in the ``--other`` tree's wgmma sources
-#: (``entry_argtypes``), by build: ``fwd``, ``bwd_wgmma``
+#: section ``bwd_d64_d128``: its shapes (B, H, Hkv, T, D), causal, E3's
+#: microbatch (llama3.2-1b) and moonshot-v1-16b-a3b's attention at T 1024,
+#: and the cuts it times at D 64/128 by dtype (``bf16_bwd_no_exchange`` where
+#: the dkdv warpgroups split by product: D 128)
+BWD_D64_D128_SHAPES = ((4, 32, 8, 1024, 64), (4, 16, 16, 1024, 128))
+BWD_D64_D128_CUTS = {
+    "bfloat16": ("bf16_bwd_no_compute", "bf16_bwd_dq_pass1", "bf16_bwd_no_softmax",
+                 "bf16_bwd_no_exchange", "bf16_bwd_head_major"),
+    "float32": ("bwd_no_split", "bwd_no_compute", "bwd_dq_pass1", "bwd_head_major")}
+#: the C entries' argument kinds in the ``--other`` tree's tensor-core
+#: sources (``entry_argtypes``), by build: ``fwd``, ``bwd_wgmma``, ``tf32``,
+#: ``bwd_tf32``
 PARENT_ARGTYPES: dict = {}
 #: flash shapes (B, H, Hkv, T, D, causal)
 FLASH_SHAPES = ((4, 32, 8, 1024, 64, True), (1, 8, 1, 1000, 64, False))
@@ -222,8 +248,12 @@ def build_all(names, other: Path | None = None) -> dict:
 
         PARENT_ARGTYPES["bwd_wgmma"] = entry_argtypes(
             theirs / MLA_BF16_BWD_SRC, tflash.FLASH_ATTENTION_BWD_WGMMA.entry)
+        PARENT_ARGTYPES["bwd_tf32"] = entry_argtypes(
+            theirs / MLA_BWD_SRC, tflash.FLASH_ATTENTION_BWD_TF32.entry)
         PARENT_ARGTYPES["fwd"] = entry_argtypes(theirs / MLA_FWD_SRC,
                                                 tflash.FLASH_ATTENTION_WGMMA.entry)
+        PARENT_ARGTYPES["tf32"] = entry_argtypes(theirs / MLA_TF32_FWD_SRC,
+                                                 tflash.FLASH_ATTENTION_TF32.entry)
     for name, proc in jobs.items():
         text, _ = proc.communicate()
         if proc.returncode:
@@ -638,8 +668,8 @@ def mla_rows(libs) -> None:
     names = [n for n in libs if VARIANTS.get(n, ("",))[0] == MLA_BWD_SRC]
     bwd.update(_bwd_calls(libs, names, q, k, v, o, do, stream))
     if parent:
-        bwd["parent"] = _bwd_calls(libs, ["parent_bwd"], q, k, v, o, do,
-                                   stream)["parent_bwd"]
+        bwd["parent"] = _bwd_calls(libs, ["parent_bwd"], q, k, v, o, do, stream,
+                                   argtypes=PARENT_ARGTYPES["bwd_tf32"])["parent_bwd"]
     errors = {}
     for name in ["shipped", "parent"] + [n for n in names if VARIANTS[n][2]]:
         if name in bwd:
@@ -661,7 +691,8 @@ def mla_rows(libs) -> None:
     # build through its C entry
     q, k, v, do = _qkv(rng, 1, 128, 128, 1024, 192, 128, torch.float32)
     fns = {name: _fwd_calls(libs, [f"{name}_tf32"], q, k, v, stream,
-                            tflash.FLASH_ATTENTION_TF32)[f"{name}_tf32"]
+                            tflash.FLASH_ATTENTION_TF32,
+                            PARENT_ARGTYPES["tf32"] if name == "parent" else None)[f"{name}_tf32"]
            for name in ("parent", "this")}
     print(json.dumps({"kernel": "flash_attention_tf32 (192, 128)",
                       "shape": [1, 128, 128, 1024, 192, 128], "dtype": "float32",
@@ -692,8 +723,8 @@ def mla_rows(libs) -> None:
                 del o, bwd
             else:
                 o = tflash.flash_attention(q, k, v)
-                theirs = _bwd_calls(libs, ["parent_bwd"], q, k, v, o, do,
-                                    stream)["parent_bwd"]
+                theirs = _bwd_calls(libs, ["parent_bwd"], q, k, v, o, do, stream,
+                                    argtypes=PARENT_ARGTYPES["bwd_tf32"])["parent_bwd"]
                 fns = {"parent": theirs,
                        "this": lambda: tflash.flash_attention_bwd(q, k, v, o, do)}
                 same = all(torch.equal(a, b) for a, b in zip(fns["parent"](), fns["this"]()))
@@ -704,36 +735,7 @@ def mla_rows(libs) -> None:
                               "events_ms": in_turns(fns), "bitwise_to_parent": same}),
                   flush=True)
             del q, k, v, do, fns
-    _sass_to_parent(libs)
-
-
-def _sass_to_parent(libs) -> None:
-    """Whether the parent's and this tree's D 64/128 kernels of the two wgmma
-    sources have equal ``sass_report`` lines (instructions, registers, local
-    memory, setmaxnreg), with each side's lines."""
-    from repro_torch.kernels import _cuda
-    from repro_torch.kernels import flash_attention as tflash
-    from tools.sass_report import library_reports
-
-    out = _cuda.BUILD_DIR / "variants"
-    for name, kernel in (("parent_fwd", tflash.FLASH_ATTENTION_WGMMA),
-                         ("parent_bwd_wgmma", tflash.FLASH_ATTENTION_BWD_WGMMA)):
-        kernel.library()
-
-        def equal_dims(reports):  # by kernel and (D, Dv): the mangled names differ
-            found = {}
-            for r in reports:
-                m = re.search(r"(flash_bwd_dq_wgmma_kernel|flash_bwd_dkdv_wgmma_kernel|"
-                              r"flash_attention_wgmma_kernel)ILi(\d+)ELi(\d+)E", r["function"])
-                if m and m.group(2) == m.group(3):
-                    found[f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"] = {
-                        k: r[k] for k in r if k != "function"}
-            return found
-
-        theirs = equal_dims(library_reports(out / f"{name}.so"))
-        mine = equal_dims(library_reports(kernel.library_path()))
-        print(json.dumps({"sass_d64_d128": kernel.source, "equal": theirs == mine,
-                          "parent": theirs, "this": mine}), flush=True)
+    _sass_instances(libs)
 
 
 def mla_bf16_bwd_rows(libs, rng, stream) -> None:
@@ -796,6 +798,187 @@ def mla_bf16_bwd_rows(libs, rng, stream) -> None:
     del q, k, v, o, do, bwd, qs, ks, vs, out, lse
 
 
+def bwd_d64_d128_rows(libs) -> None:
+    """Section ``bwd_d64_d128``: the attention backward at D 64 and 128 in
+    both routes (bf16 ``flash_attention_bwd_wgmma.cu``, float32
+    ``flash_attention_bwd_tf32.cu``) at BWD_D64_D128_SHAPES, causal: the
+    shipped build as autograd runs it (given the forward's L where
+    ``lse_route`` holds; ``shipped_no_lse`` without it there), the parent's
+    build (``--other``), the cuts of BWD_D64_D128_CUTS (given L where the
+    shipped build takes it, but the two-pass cuts) and SDPA's backward,
+    device ms by kernel (dq, dkdv) in turns and events ms in turns; errors
+    against float64 for the shipped, parent and checked builds, two shipped
+    calls bitwise equal, the head-major cut bitwise to the shipped build,
+    the bounds (the five products of the causal half at the dtype's tensor
+    rate, one TF32 term and three; ``exp_bound_ms``, the two exp2 passes
+    given L at chip_smoke's rate) and each cut's ``sass_report`` lines.
+    Then the forwards at the same shapes: the no-L launch beside the
+    parent's and the launch that writes L, device ms in turns, outputs
+    bitwise; and with ``--other`` every instance of the four sources
+    against the parent's build (``_sass_instances``)."""
+    import torch
+    import torch.nn.functional as F
+    from chip_smoke import (BF16_OPS_PER_S, EXP_PER_CLOCK_SM, TF32_OPS_PER_S, all_device_ms,
+                            sm_clock_hz)
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ref
+    from tools.sass_report import library_reports
+
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(0)
+    parent = "parent_bwd" in libs
+    exp_rate = (EXP_PER_CLOCK_SM * torch.cuda.get_device_properties(0).multi_processor_count
+                * sm_clock_hz())
+    for B, H, Hkv, T, D in BWD_D64_D128_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            dtype = str(dt).split(".")[1]
+            bf16 = dt == torch.bfloat16
+            kernel = tflash.FLASH_ATTENTION_BWD_WGMMA if bf16 else tflash.FLASH_ATTENTION_BWD_TF32
+            q, k, v, do = _qkv(rng, B, H, Hkv, T, D, D, dt)
+            lse = None
+            if tflash.lse_route(dt, D, D):
+                o, lse = tflash.flash_attention(q, k, v, return_lse=True)
+            else:
+                o = tflash.flash_attention(q, k, v)
+            want = ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)))
+            bwd = {"shipped": lambda: tflash.flash_attention_bwd(q, k, v, o, do, lse=lse)}
+            if lse is not None:
+                bwd["shipped_no_lse"] = lambda: tflash.flash_attention_bwd(q, k, v, o, do)
+            if parent:
+                name = "parent_bwd_wgmma" if bf16 else "parent_bwd"
+                bwd["parent"] = _bwd_calls(
+                    libs, [name], q, k, v, o, do, stream, kernel,
+                    PARENT_ARGTYPES["bwd_wgmma" if bf16 else "bwd_tf32"])[name]
+            cuts = [n for n in BWD_D64_D128_CUTS[dtype]
+                    if n in libs and (n != "bf16_bwd_no_exchange" or D == 128)]
+            for name in cuts:
+                bwd.update(_bwd_calls(libs, [name], q, k, v, o, do, stream, kernel,
+                                      lse=None if name.endswith("dq_pass1") else lse))
+            errors = {}
+            for name in ("shipped", "shipped_no_lse", "parent",
+                         *(n for n in cuts if VARIANTS[n][2])):
+                if name in bwd:
+                    got = bwd[name]()
+                    torch.cuda.synchronize()
+                    errors[name] = {g: float((x.double() - w).abs().max() / w.abs().max())
+                                    for g, x, w in zip(("dq", "dk", "dv"), got, want)}
+            del want
+
+            def equal(a, b):
+                return all(torch.equal(x, y) for x, y in zip(bwd[a](), bwd[b]()))
+
+            bitwise = {"shipped_repeat": equal("shipped", "shipped")}
+            for name in cuts:  # the cuts that only reorder the grid
+                if name.endswith("head_major"):
+                    bitwise[f"{name}_to_shipped"] = equal(name, "shipped")
+            if parent:
+                bitwise["parent_to_shipped_no_lse" if lse is not None
+                        else "parent_to_shipped"] = equal(
+                            "parent", "shipped_no_lse" if lse is not None else "shipped")
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+            def sdpa(out=out, qs=qs, ks=ks, vs=vs):
+                torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
+
+            device = _bwd_in_turns(bwd)
+            device["sdpa"] = statistics.mean(all_device_ms(sdpa) for _ in range(2))
+            pairs = B * H * T * (T + 1) // 2
+            flops = 2 * pairs * 5 * D
+            peak = BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S
+            bounds = {"products_ms": 1e3 * flops / peak,
+                      "exp_bound_ms": 1e3 * 2 * pairs / exp_rate}
+            if not bf16:
+                bounds["tc_bound_ms"] = 3 * bounds["products_ms"]
+            sass = {name: [r for r in library_reports(_cuda.BUILD_DIR / "variants" / f"{name}.so")
+                           if "flash_bwd" in r["function"] and f"Li{D}ELi{D}E" in r["function"]]
+                    for name in cuts}
+            print(json.dumps({"kernel": kernel.name, "shape": [B, H, Hkv, T, D],
+                              "dtype": dtype, "lse_route": lse is not None,
+                              "device_ms": device, "events_ms": in_turns({**bwd, "sdpa": sdpa}),
+                              "rel_err": errors, "bitwise": bitwise, "bounds": bounds,
+                              "sass": sass}), flush=True)
+            del q, k, v, o, do, lse, bwd, qs, ks, vs, out
+            torch.cuda.empty_cache()
+    for B, H, Hkv, T, D in BWD_D64_D128_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            bf16 = dt == torch.bfloat16
+            q, k, v, _ = _qkv(rng, B, H, Hkv, T, D, D, dt)
+            fns = {"this": lambda: tflash.flash_attention(q, k, v)}
+            if tflash.lse_route(dt, D, D):
+                fns["this_lse"] = lambda: tflash.flash_attention(q, k, v, return_lse=True)[0]
+            if parent:
+                name = "parent_fwd" if bf16 else "parent_tf32"
+                fns["parent"] = _fwd_calls(
+                    libs, [name], q, k, v, stream,
+                    None if bf16 else tflash.FLASH_ATTENTION_TF32,
+                    PARENT_ARGTYPES["fwd" if bf16 else "tf32"])[name]
+            outs = {name: fn() for name, fn in fns.items()}
+            kernel = "flash_attention_wgmma" if bf16 else "flash_attention_tf32"
+            print(json.dumps({"kernel": kernel, "shape": [B, H, Hkv, T, D],
+                              "dtype": str(dt).split(".")[1],
+                              "device_ms": device_in_turns(fns, kernel),
+                              "events_ms": in_turns(fns),
+                              "bitwise_to_this": {n: torch.equal(x, outs["this"])
+                                                  for n, x in outs.items() if n != "this"}}),
+                  flush=True)
+            del q, k, v, fns, outs
+    if parent:
+        _sass_instances(libs)
+
+
+def _sass_instances(libs) -> None:
+    """Every kernel instance of the four wgmma and TF32 flash sources in the
+    parent's build (``--other``) and this tree's, keyed by kernel and
+    template arguments (an absent bool is false), each with whether its
+    ``sass_report`` line (the SASS body's hash among it) is the parent's."""
+    import difflib
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention as tflash
+    from tools.sass_report import code_lines, library_sass, report
+
+    out = _cuda.BUILD_DIR / "variants"
+    diffs = _cuda.BUILD_DIR.parent / "sass_diff"
+
+    def by_instance(path):
+        found = {}
+        for function, body in library_sass(path).items():
+            # the kernel's name follows its length (after the namespace's)
+            m = re.search(r"\d(flash_[a-z0-9_]+?_kernel)I((?:Li\d+E|Lb[01]E)+)E", function)
+            if m:
+                args = re.findall(r"L([ib])(\d+)E", m.group(2))
+                ints = [a for kind, a in args if kind == "i"]
+                flag = next((a for kind, a in args if kind == "b"), "0")
+                kernel = m.group(1)
+                r = report(function, body)
+                found[f"{kernel}<{', '.join(ints)}, {flag}>"] = (
+                    {key: r[key] for key in r if key != "function"}, code_lines(body))
+        return found
+
+    for name, kernel in (("parent_fwd", tflash.FLASH_ATTENTION_WGMMA),
+                         ("parent_tf32", tflash.FLASH_ATTENTION_TF32),
+                         ("parent_bwd_wgmma", tflash.FLASH_ATTENTION_BWD_WGMMA),
+                         ("parent_bwd", tflash.FLASH_ATTENTION_BWD_TF32)):
+        kernel.library()
+        theirs = by_instance(out / f"{name}.so")
+        mine = by_instance(kernel.library_path())
+        equal = {key: key in theirs and theirs[key][0] == line
+                 for key, (line, _) in mine.items()}
+        for key, same in equal.items():
+            if not same and key in theirs and "192" in key:
+                diffs.mkdir(parents=True, exist_ok=True)
+                text = "\n".join(difflib.unified_diff(theirs[key][1], mine[key][1], "parent",
+                                                      "this", lineterm="", n=2))
+                (diffs / f"sass_diff_{kernel.name}_{re.sub(r'[^0-9a-z]+', '_', key)}.txt"
+                 ).write_text(text[:400_000])
+        print(json.dumps({"sass_instances": kernel.source, "equal": equal,
+                          "parent_only": sorted(set(theirs) - set(mine)),
+                          "this": {key: line for key, (line, _) in mine.items()}}),
+              flush=True)
+
+
 def mla_bf16_bwd_only(libs) -> None:
     """Section ``mla_bf16_bwd``: ``mla_bf16_bwd_rows`` alone."""
     import torch
@@ -825,15 +1008,19 @@ def main() -> int:
                 "gms": (gms_rows, (GMS_SRC,)),
                 "mma": (mma_rows, (MMA_SRC,)),
                 "mla": (mla_rows, (MLA_FWD_SRC, MLA_BWD_SRC, MLA_BF16_BWD_SRC)),
-                "mla_bf16_bwd": (mla_bf16_bwd_only, (MLA_BF16_BWD_SRC,))}
+                "mla_bf16_bwd": (mla_bf16_bwd_only, (MLA_BF16_BWD_SRC,)),
+                "bwd_d64_d128": (bwd_d64_d128_rows, (MLA_BWD_SRC, MLA_BF16_BWD_SRC))}
     chosen = args or list(sections)
     unknown = set(chosen) - set(sections)
     if unknown:
         raise SystemExit(f"kernel_variants: unknown sections {sorted(unknown)}; "
                          f"one of {sorted(sections)}")
     sources = {src for name in chosen for src in sections[name][1]}
-    libs = build_all([v for v, (src, _, _) in VARIANTS.items() if src in sources],
-                     other if {"mla", "mla_bf16_bwd"} & set(chosen) else None)
+    names = [v for v, (src, _, _) in VARIANTS.items() if src in sources]
+    if chosen == ["bwd_d64_d128"]:  # its own cuts alone
+        names = [v for cuts in BWD_D64_D128_CUTS.values() for v in cuts]
+    libs = build_all(names, other if {"mla", "mla_bf16_bwd", "bwd_d64_d128"} & set(chosen)
+                     else None)
     for name in chosen:
         sections[name][0](libs)
     return 0

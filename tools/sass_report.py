@@ -6,12 +6,15 @@ Builds the named sources of ``src/repro_torch/kernels/csrc/`` (default:
 each library with the toolkit's ``cuobjdump -sass`` and prints one JSON line
 a kernel function: the highest register index its code uses, its
 local-memory stores and loads (spills: ``STL``, ``LDL``) and whether it
-reallocates registers (``setmaxnreg``: ``USETMAXREG``).  ``-Xptxas -v``
+reallocates registers (``setmaxnreg``: ``USETMAXREG``), and a hash of its
+code (blanks and branch labels made independent of the rest of the
+library: two builds of one kernel compiled alike have the same).  ``-Xptxas -v``
 reports a kernel's registers at launch; this shows what the code past a
 ``setmaxnreg.inc`` really holds.  Runs where ``nvcc`` is (the card's host):
 
     python3 tools/sass_report.py [flash_attention_bwd_wgmma.cu ...]
 """
+import hashlib
 import json
 import re
 import subprocess
@@ -29,23 +32,46 @@ def functions(sass: str):
         yield name.strip(), body
 
 
+def code_lines(body: str) -> list:
+    """The instruction lines of a function's SASS, each line's runs of
+    blanks made one and branch labels renumbered from 0 in order of first
+    use (cuobjdump pads every line to the widest instruction of the library
+    and numbers the labels across it, so another function in the same
+    library changes both)."""
+    code = [" ".join(line.split()) for line in body.splitlines()
+            if re.search(r"/\*[0-9a-f]{4,}\*/", line)]
+    labels: dict = {}
+
+    def label(m):
+        return f".L_x_{labels.setdefault(m.group(1), len(labels))}"
+
+    return [re.sub(r"\.L_x_(\d+)", label, line) for line in code]
+
+
 def report(name: str, body: str) -> dict:
-    code = [line for line in body.splitlines() if re.search(r"/\*[0-9a-f]{4}\*/", line)]
+    code = code_lines(body)
     regs = [int(r) for line in code for r in re.findall(r"\bR(\d+)\b", line)]
     return dict(function=name, instructions=len(code), max_register=max(regs, default=-1),
                 local_stores=sum("STL" in line for line in code),
                 local_loads=sum("LDL" in line for line in code),
-                setmaxnreg=sum("USETMAXREG" in line for line in code))
+                setmaxnreg=sum("USETMAXREG" in line for line in code),
+                sha=hashlib.sha256("\n".join(code).encode()).hexdigest()[:16])
 
 
-def library_reports(path) -> list:
-    """``report`` of each kernel function in the built library at ``path``."""
+def library_sass(path) -> dict:
+    """Each kernel function's ``code_lines`` in the built library at
+    ``path``, by name."""
     from repro_torch.kernels import _cuda
 
     cuobjdump = Path(_cuda.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
                           capture_output=True, text=True, check=True).stdout
-    return [report(name, body) for name, body in functions(sass)]
+    return {name: body for name, body in functions(sass)}
+
+
+def library_reports(path) -> list:
+    """``report`` of each kernel function in the built library at ``path``."""
+    return [report(name, body) for name, body in library_sass(path).items()]
 
 
 def main(argv) -> int:
