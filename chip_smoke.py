@@ -194,7 +194,12 @@ Phases (any failed check raises, and the script exits non-zero):
      SDPA's backward and its bounds (float32 rows also ``tc_bound_ms``,
      three TF32 terms; every row ``exp_bound_ms``, two exp2 passes); at
      ``BWD_MAIN`` and ``BWD_MAIN_F32`` the SIMT route timed by name beside
-     the wgmma and the tf32 route;
+     the wgmma and the tf32 route; then path K's attention shapes in both
+     dtypes (``cross_attention_rows``): the forward writing L at the
+     encoder's (4 × 1024 frames, non-causal), the decoder's self-attention
+     (4 × 128 tokens, causal) and the cross-attention's (``CROSS_SHAPE``:
+     the 128 queries against 1024 frames, non-causal), and the backward
+     given L at the cross shape, each against float64 beside SDPA;
    - E2, one ``make_train_step`` at llama3.2-1b's widths and 2 layers in
      float32 (TF32 forward, the TF32 backward) against the same port
      functions in float64 through the plain attention: loss, gradients,
@@ -214,7 +219,8 @@ Phases (any failed check raises, and the script exits non-zero):
      backward beside SDPA's;
    - F1, float32 at full width and 2 layers (the TF32 flash kernel) and the
      reduced config (the mma kernel): prefill and two decode steps against
-     the same functions in float64 replaying the float32 run's routing;
+     the same functions in float64 replaying the float32 run's routing (the
+     logits and every cache leaf, as every ``float64_leg``);
      dropped slots and the float64 router's other choices counted; the
      reduced decode also against its own prefill;
    - F2, bf16 at full width and all 48 layers through ``Server.generate``
@@ -249,7 +255,8 @@ Phases (any failed check raises, and the script exits non-zero):
      two steps bitwise);
    - G4: the reduced deepseek (MLA (16, 8), MoE, MTP head) trains: E2's
      float32 step against float64 replaying the float32 run's routing,
-     then bf16 ``run_training`` steps, one repeated bitwise.
+     repeated bitwise (as every ``train_step_check``), then bf16
+     ``run_training`` steps, one repeated bitwise.
 9. Paths H and J, the SSM and hybrid models (``models/ssm.py``: Mamba's
    chunked selective scan, the chunkwise mLSTM, the sLSTM's loop over time;
    no hand kernel of their own, as the reference's scans are ``lax`` code
@@ -270,7 +277,25 @@ Phases (any failed check raises, and the script exits non-zero):
      ``flash_attention_wgmma`` launch an attention layer in the prefill,
      none in a decode step, the prefill's device ms by mixer;
    - H3 and J3, the reduced xlstm and jamba: G4's float32 train step
-     against float64 (``train_step_check``).
+     against float64 (``train_step_check``), repeated bitwise.
+10. Path K, seamless-m4t-large-v2, the encoder-decoder (``models/encdec.py``:
+    24 bidirectional encoder layers over 1024 stub audio frames, 24 causal
+    decoder layers each with cross-attention over the frames, query length
+    other than key length; the flash kernels non-causal there), after path
+    J's memory is released (``--encdec`` runs it alone):
+   - K1, float32 at full width and depth (2.04 B parameters), 2 × 256
+     tokens over 1024 frames: prefill and two decode steps against the same
+     functions in float64, the logits and every cache leaf; 72
+     ``flash_attention_tf32`` launches a prefill, none a decode step;
+   - K2, bf16 at full width and depth through ``Server.generate`` (4 × 128
+     tokens over 1024 frames, 64 new, a cache of 192): 72
+     ``flash_attention_wgmma`` launches a prefill, none a decode step;
+     prefill and decode ms, tokens/s, peak bytes, idle share, the prefill's
+     device ms by stack (encoder, decoder), a second run's tokens equal;
+   - K3, the reduced config (head dim 16: the mma forward and the SIMT
+     backward; cross shape Tq 24 against Tk 16): G4's float32 AdamW step
+     against float64 (``train_step_check``), repeated bitwise, then a
+     prefill of 24 tokens and 3 decode steps against float64.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel with its numbers.  Imports nothing of JAX or the JAX package.
@@ -2183,8 +2208,8 @@ def bwd_device_ms(fn, calls: int = 5, by_kernel: dict | None = None):
 
 def flash_bwd_rows(rng, cases=BWD_CASES, path: str = "E1") -> list:
     """E1: ``flash_attention_bwd`` at ``cases`` (BWD_CASES, or path G's
-    MLA_BWD_CASES, whose v head dim Dv follows D; the route ``bwd_variant``
-    names) against ``ref.flash_attention_bwd_ref`` in float64 on the same
+    MLA_BWD_CASES, whose v head dim Dv follows D, or CROSS_BWD_CASES, whose
+    T is the pair (T, Tk); the route ``bwd_variant`` names) against ``ref.flash_attention_bwd_ref`` in float64 on the same
     inputs (o from the forward kernel), within BWD_RTOL of each output's
     largest magnitude, two calls bitwise equal; timed with CUDA events
     beside the route's plain version (device ms also by kernel,
@@ -2193,8 +2218,8 @@ def flash_bwd_rows(rng, cases=BWD_CASES, path: str = "E1") -> list:
     with the reason where SDPA refuses) and its bound: the five T×T
     products of the backward (the causal half where causal), three over D
     (S, dQ, dK) and two over Dv (dP, dV), at the tensor-core peak of the
-    dtype (bf16 989, TF32 495 TFLOP/s, one term), against q, k, v, o, dO
-    read and dQ, dK, dV written once; float32 rows also ``tc_bound_ms``, the
+    dtype (bf16 989, TF32 495 TFLOP/s, one term; T·Tk pairs where Tk ≠ T),
+    against q, k, v, o, dO read and dQ, dK, dV written once; float32 rows also ``tc_bound_ms``, the
     products as three TF32 terms; every row also ``exp_bound_ms``, the two
     exp2 passes of the causal half's (or every) score given the forward's L
     (P in the dq kernel, Pᵀ in the dkdv kernel) at EXP_PER_CLOCK_SM a clock
@@ -2219,10 +2244,11 @@ def flash_bwd_rows(rng, cases=BWD_CASES, path: str = "E1") -> list:
     for case in cases:
         B, H, Hkv, T, D = case[:5]
         Dv, dtype, causal = case[5:] if len(case) == 8 else (D, *case[5:])
+        T, Tk = T if isinstance(T, tuple) else (T, T)
         dt = getattr(torch, dtype)
         q = normal(rng, (B, H, T, D)).to(dt)
-        k = normal(rng, (B, Hkv, T, D)).to(dt)
-        v = normal(rng, (B, Hkv, T, Dv)).to(dt)
+        k = normal(rng, (B, Hkv, Tk, D)).to(dt)
+        v = normal(rng, (B, Hkv, Tk, Dv)).to(dt)
         do = normal(rng, (B, H, T, Dv)).to(dt)
         lse = None
         if tflash.lse_route(dt, D, Dv):
@@ -2232,7 +2258,7 @@ def flash_bwd_rows(rng, cases=BWD_CASES, path: str = "E1") -> list:
         route = tflash.bwd_variant(dt, D, Dv)
         want = ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)),
                                            causal=causal)
-        label = (f"{path} flash_attention_bwd {(B, H, Hkv, T, D, Dv)} {dtype} "
+        label = (f"{path} flash_attention_bwd {(B, H, Hkv, T, Tk, D, Dv)} {dtype} "
                  f"causal={causal} {route}")
         checked = {}
         for given in ((lse, None) if lse is not None else (None,)):
@@ -2278,8 +2304,8 @@ def flash_bwd_rows(rng, cases=BWD_CASES, path: str = "E1") -> list:
                                                      else {}),
                                **({"simt": simt} if main else {}),
                                **({"no_lse": no_lse} if lse is not None else {})})
-        pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
-        nbytes = q.element_size() * 2 * (B * H + B * Hkv) * T * (D + Dv)
+        pairs = B * H * (T * (T + 1) // 2 if causal else T * Tk)
+        nbytes = q.element_size() * 2 * (B * H * T + B * Hkv * Tk) * (D + Dv)
         flops = 2 * pairs * (3 * D + 2 * Dv)
         peak = BF16_OPS_PER_S if dt == torch.bfloat16 else TF32_OPS_PER_S
         bms, by = bound_ms(nbytes, flops, peak)
@@ -2290,6 +2316,8 @@ def flash_bwd_rows(rng, cases=BWD_CASES, path: str = "E1") -> list:
         shape = dict(B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=dtype)
         if Dv != D:
             shape = dict(B=B, H=H, Hkv=Hkv, T=T, D=D, Dv=Dv, dtype=dtype)
+        if Tk != T:
+            shape = dict(B=B, H=H, Hkv=Hkv, T=T, Tk=Tk, D=D, dtype=dtype)
         row = dict(shape=shape, causal=causal,
                    route=route, errors=errors, max_abs_err=max_abs, limit=BWD_RTOL[dtype],
                    bitwise_repeat=bitwise, kernel_ms=times["kernel"],
@@ -2611,18 +2639,20 @@ def train_resume_leg(kernels) -> dict:
 
 def train_phase(kernels, laps: Laps) -> dict:
     """Path E, LM training: E1 the backward kernel against its plain
-    version (comparison launches, not the path's), then with the counts
+    version and both directions at the cross-attention shape
+    (``cross_attention_rows``; comparison launches, not the path's), then with the counts
     reset before each leg E2 (one train step against float64), E3
     (llama3.2-1b at full size) and E4 (resume and the example)."""
     rows = flash_bwd_rows(np.random.default_rng(SEED))
-    laps.lap("train E1 backward kernel")
+    cross = cross_attention_rows(np.random.default_rng(SEED))
+    laps.lap("train E1 backward kernel, cross-attention shape")
     legs = [train_step_leg(kernels)]
     laps.lap("train E2 step")
     legs.append(train_full_leg(kernels))
     laps.lap("train E3 llama3.2-1b")
     legs.append(train_resume_leg(kernels))
     laps.lap("train E4 resume, example")
-    return dict(rows=rows, legs=legs)
+    return dict(rows=rows, cross=cross, legs=legs)
 
 
 # ---------------------------------------------------------------------------
@@ -2714,14 +2744,17 @@ def route_replay(routings: list, cfg):
 
 
 def float64_leg(cfg, prompts, kernels, expected: dict, label: str,
-                own_prefill: bool, n_decode: int = 2, cache_len: int | None = None) -> dict:
+                own_prefill: bool, n_decode: int = 2, cache_len: int | None = None,
+                inputs: dict | None = None) -> dict:
     """Prefill and ``n_decode`` decode steps of ``cfg`` in float32 (weights
     from ``torch.Generator`` seed 0 on the card) into a cache of
     ``cache_len`` (default T + n_decode), each step fed the argmax token;
-    the flash kernels must launch as ``expected``.  The oracle is the same
+    ``inputs`` (an encoder-decoder's ``frames``) go to every prefill beside
+    the prompt.  The flash kernels must launch as ``expected`` in the
+    prefill and not at all in the decode steps.  The oracle is the same
     model functions in float64 (``plain_attention``,
-    ``plain_decode_attention``) fed the same tokens: logits within
-    MOE_F32_RTOL.  With an MoE, every ``moe_route`` result is recorded and
+    ``plain_decode_attention``) fed the same tokens: logits and every leaf
+    of the cache after the last step within MOE_F32_RTOL.  With an MoE, every ``moe_route`` result is recorded and
     the oracle's ``moe_route`` replays them (experts, slots, keep) with
     weights from its own float64 router, so that a near-tie in the router
     cannot move an expert between the two runs; the token-expert choices
@@ -2739,6 +2772,7 @@ def float64_leg(cfg, prompts, kernels, expected: dict, label: str,
     T = prompts.shape[1]
     cache_len = cache_len or T + n_decode
     api = registry.build(cfg)
+    inputs = inputs or {}
     routings: list = []
     route = moe.moe_route
 
@@ -2754,8 +2788,10 @@ def float64_leg(cfg, prompts, kernels, expected: dict, label: str,
         torch.cuda.synchronize()
         reset(kernels)
         with routed(recorded):
-            logits, cache = api.prefill(params, {"tokens": prompts}, cache_len=cache_len)
+            logits, cache = api.prefill(params, {"tokens": prompts, **inputs},
+                                        cache_len=cache_len)
             n_prefill = len(routings)
+            prefill_launches = read_launches(f"{label} prefill", kernels, expected)
             steps, toks = [logits], [logits.argmax(-1)]
             for i in range(n_decode):
                 logits, cache = api.decode_step(params, toks[-1], T + i, cache)
@@ -2763,13 +2799,14 @@ def float64_leg(cfg, prompts, kernels, expected: dict, label: str,
                 toks.append(logits.argmax(-1))
         torch.cuda.synchronize()
         launches = read_launches(label, kernels, expected)
+        got_cache = cache
         del cache
         own_errors = {}
         if own_prefill:
             seq = torch.as_tensor(prompts, device="cuda").long()
             for i in range(n_decode):
                 seq = torch.cat([seq, toks[i][:, None]], dim=1)
-                ref, _ = api.prefill(params, {"tokens": seq})
+                ref, _ = api.prefill(params, {"tokens": seq, **inputs})
                 own_errors[f"decode_{i + 1}"] = rel_err(steps[i + 1], ref)
         dropped = sum(int((~r.kept).sum()) for r in routings[:n_prefill])
         dropped_tokens = sum(int((~r.kept).any(-1).sum()) for r in routings[:n_prefill])
@@ -2784,7 +2821,8 @@ def float64_leg(cfg, prompts, kernels, expected: dict, label: str,
         with swapped(tattn, "flash_attention", plain_attention), \
                 swapped(tattn, "decode_attention", plain_decode_attention), \
                 routed(replayed):
-            want, cache = api64.prefill(params64, {"tokens": prompts}, cache_len=cache_len)
+            want, cache = api64.prefill(params64, {"tokens": prompts, **inputs},
+                                        cache_len=cache_len)
             wants = [want]
             for i in range(n_decode):
                 want, cache = api64.decode_step(params64, toks[i], T + i, cache)
@@ -2794,11 +2832,16 @@ def float64_leg(cfg, prompts, kernels, expected: dict, label: str,
         names = ["prefill"] + [f"decode_{i + 1}" for i in range(n_decode)]
         errors = {name: rel_err(got, want) for name, got, want in zip(names, steps, wants)}
         finite = all(bool(torch.isfinite(t).all()) for t in steps)
-        del params64, cache, wants, steps, routings
+        errors.update({"cache/" + "/".join(str(key.key) for key in path): rel_err(t, w)
+                       for (path, t), w in zip(pytree.tree_flatten_with_path(got_cache)[0],
+                                               pytree.tree_leaves(cache))})
+        del params64, cache, wants, steps, routings, got_cache
     torch.cuda.empty_cache()
     out = dict(path=label, arch=cfg.name, n_layers=cfg.n_layers, batch=prompts.shape[0],
                prompt_len=T, cache_len=cache_len, errors=errors, limit=MOE_F32_RTOL,
-               decode_vs_own_prefill=own_errors, launches=launches, logits_finite=finite)
+               decode_vs_own_prefill=own_errors, launches=launches,
+               prefill_launches=prefill_launches, logits_finite=finite,
+               **{f"{name}_shape": list(a.shape) for name, a in inputs.items()})
     if cfg.moe:
         out.update(prefill_slots=prefill_slots, prefill_dropped_slots=dropped,
                    prefill_tokens_with_a_drop=dropped_tokens,
@@ -2883,34 +2926,47 @@ def moe_device_split(fn, calls: int) -> dict:
 
 def attention_layers(cfg) -> int:
     """The attention layers of ``cfg``: each launches one flash forward in a
-    prefill."""
+    prefill (an encoder-decoder's: each encoder layer, and each decoder
+    layer's self- and cross-attention)."""
+    if cfg.enc_dec:
+        return cfg.n_enc_layers + 2 * cfg.n_layers
     return cfg.n_periods * cfg.layer_pattern.count("attn")
 
 
 def serve_leg(kernels, cfg=None, path: str = "moe_serve",
               label: str = "F2 moonshot serving", extra: dict | None = None,
-              mixers: bool = False, prompt_len: int = MOE_F2_T) -> dict:
+              mixers: tuple = (), prompt_len: int = MOE_F2_T, batch: int = MOE_F2_B,
+              new: int = MOE_F2_NEW, inputs: dict | None = None,
+              repeat: bool = False) -> dict:
     """F2: moonshot at full width and depth (or ``cfg``: G2's deepseek, H2's
-    xlstm, J2's jamba) in bf16 through ``Server`` (weights from
-    ``torch.Generator`` seed 0 on the card; the peak of its init against
-    the parameters' bytes), ``generate`` of MOE_F2_NEW tokens for MOE_F2_B
-    prompts of ``prompt_len`` after a short warm-up, timed, the flash kernel once
-    an attention layer in the prefill and never in a decode step; peak
-    bytes; a prefill and one decode step again, their tokens equal to the
-    generated ones and their logits finite; device busy against wall over
-    16 decode steps and one prefill; each one's device ms by part of the
-    MoE MLP (``moe_device_split``), or with ``mixers`` the prefill's busy
-    share and device ms by mixer from one profiled prefill
-    (``mixer_profile``).  The line carries ``extra`` (G2, J2: the cut of
-    the depth)."""
+    xlstm, J2's jamba, K2's seamless) in bf16 through ``Server`` (weights
+    from ``torch.Generator`` seed 0 on the card; the peak of its init
+    against the parameters' bytes), ``generate`` of ``new`` tokens for
+    ``batch`` prompts of ``prompt_len`` (and ``inputs``, an
+    encoder-decoder's ``frames``) after a short warm-up, timed, the flash
+    kernel once an attention layer in the prefill and never in a decode
+    step (also counted apart on a prefill and a decode step run again);
+    peak bytes; that prefill and decode step, their tokens equal to the
+    generated ones and their logits finite; with ``repeat`` a second
+    ``generate``, every token equal (K2 only: F2's, H2's and J2's legs
+    take 26–120 s each, and their repeats would crowd the smoke's time
+    limit); device busy against wall over 16
+    decode steps and one prefill; each one's device ms by part of the MoE
+    MLP (``moe_device_split``), or with ``mixers`` (MIXERS, or K2's
+    ENCDEC_PARTS) the prefill's busy share and device ms by range from one
+    profiled prefill (``mixer_profile``).  The line carries ``extra`` (G2,
+    J2: the cut of the depth)."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.serve_lm import Server
     from torch.utils import _pytree as pytree
 
     cfg = cfg or get_config(MOE_ARCH)
-    B, T, NEW = MOE_F2_B, prompt_len, MOE_F2_NEW
+    B, T, NEW = batch, prompt_len, new
     prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+    inputs = inputs or {}
+    flash = {"flash_attention_wgmma": attention_layers(cfg), "flash_attention": 0,
+             "flash_attention_tf32": 0}
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2922,20 +2978,30 @@ def serve_leg(kernels, cfg=None, path: str = "moe_serve",
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
     param_bytes = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(server.params))
-    server.generate({"tokens": prompts[:, :64]}, 2)  # warm-up: handles, loads
+    server.generate({"tokens": prompts[:, :64], **inputs}, 2)  # warm-up: handles, loads
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset(kernels)
-    res = server.generate({"tokens": prompts}, NEW)
-    launches = read_launches(label, kernels, {
-        "flash_attention_wgmma": attention_layers(cfg), "flash_attention": 0,
-        "flash_attention_tf32": 0})
+    res = server.generate({"tokens": prompts, **inputs}, NEW)
+    launches = read_launches(label, kernels, flash)
     peak = torch.cuda.max_memory_allocated()
+    repeated = {}
+    if repeat:
+        again = server.generate({"tokens": prompts, **inputs}, NEW)
+        repeated = dict(repeat_tokens_equal=bool(np.array_equal(again.tokens, res.tokens)),
+                        repeat_prefill_ms=1e3 * again.prefill_s,
+                        repeat_decode_ms_per_step=1e3 * again.decode_s / (NEW - 1))
     api, params = server.api, server.params
     with torch.inference_mode():
-        logits0, cache = api.prefill(params, {"tokens": prompts}, cache_len=T + NEW)
+        batch_in = {"tokens": prompts, **inputs}
+        reset(kernels)
+        logits0, cache = api.prefill(params, batch_in, cache_len=T + NEW)
+        split_launches = {"prefill": read_launches(f"{label} prefill", kernels, flash)}
+        reset(kernels)
         tok = logits0.argmax(-1)
         logits1, cache = api.decode_step(params, tok, T, cache)
+        split_launches["decode_step"] = read_launches(
+            f"{label} decode step", kernels, dict.fromkeys(flash, 0))
         finite = bool(torch.isfinite(logits0).all()) and bool(torch.isfinite(logits1).all())
         again = np.stack([tok.cpu().numpy(), logits1.argmax(-1).cpu().numpy()], axis=1)
         tokens_equal = bool(np.array_equal(again, res.tokens[:, :2]))
@@ -2948,11 +3014,11 @@ def serve_leg(kernels, cfg=None, path: str = "moe_serve",
             state["pos"] += 1
 
         def prefill():
-            api.prefill(params, {"tokens": prompts}, cache_len=T + NEW)
+            api.prefill(params, batch_in, cache_len=T + NEW)
 
         if mixers:
             profiles = {"decode": _busy(*device_events(decode_step, 16)),
-                        "prefill": mixer_profile(prefill)}
+                        "prefill": mixer_profile(prefill, mixers)}
             # the profiler slows a host-bound prefill: its busy time
             # against the timed, unprofiled prefill too
             profiles["prefill"]["idle_share_of_timed_prefill"] = (
@@ -2973,11 +3039,13 @@ def serve_leg(kernels, cfg=None, path: str = "moe_serve",
         decode_ms_per_step=1e3 * res.decode_s / (NEW - 1),
         decode_tokens_per_s=B * (NEW - 1) / res.decode_s,
         generate_tokens_per_s=res.tokens_per_s, max_memory_allocated=peak,
-        launches=launches, logits_finite=finite, first_tokens_equal=tokens_equal,
-        profile=profiles, **split, **(extra or {}))
+        launches=launches, launches_apart=split_launches, logits_finite=finite,
+        first_tokens_equal=tokens_equal, **repeated, profile=profiles, **split,
+        **{f"{name}_shape": list(a.shape) for name, a in inputs.items()}, **(extra or {}))
     log(out)
-    if not finite or not tokens_equal:
-        raise AssertionError(f"{label}: finite {finite}, first tokens equal {tokens_equal}")
+    if not finite or not tokens_equal or not repeated.get("repeat_tokens_equal", True):
+        raise AssertionError(f"{label}: finite {finite}, first tokens equal {tokens_equal}, "
+                             f"repeat {repeated}")
     del server, api, params
     torch.cuda.empty_cache()
     return out
@@ -3476,7 +3544,9 @@ def train_step_check(kernels, cfg, label: str, expected_per_step: dict) -> dict:
     recorded routings with weights from the float64 router, as F1): the
     loss, ``grad_norm``, every gradient leaf and the AdamW step
     (``adamw_first_step64``) within TRAIN_E2_RTOL.  Each of the two steps
-    must launch the kernels as ``expected_per_step`` says."""
+    must launch the kernels as ``expected_per_step`` says.  The AdamW step
+    then runs again from the same state: its loss and every parameter
+    bitwise equal."""
     import contextlib
     import dataclasses
 
@@ -3517,6 +3587,15 @@ def train_step_check(kernels, cfg, label: str, expected_per_step: dict) -> dict:
     torch.cuda.synchronize()
     launches = read_launches(label, kernels,
                              {k: 2 * n for k, n in expected_per_step.items()})
+    again, _, again_metrics = make_train_step(cfg, api, opt, plan)(
+        params, opt.init(params), batch)
+    repeat_bitwise = bool(
+        torch.equal(again_metrics["loss"], metrics["loss"])
+        and all(torch.equal(a, b) for a, b in zip(pytree.tree_leaves(again),
+                                                  pytree.tree_leaves(adam_params))))
+    del again
+    if not repeat_bitwise:
+        raise AssertionError(f"{label}: the repeated AdamW step differs")
     step_grads = pytree.tree_map(lambda p, q: (p.double() - q.double()) / TRAIN_E2_SGD_LR,
                                  params, sgd_params)
     cfg64 = dataclasses.replace(cfg, act_dtype="float64", param_dtype="float64")
@@ -3546,7 +3625,8 @@ def train_step_check(kernels, cfg, label: str, expected_per_step: dict) -> dict:
                 grad_norm=float(metrics["grad_norm"]), grad_norm_oracle=norm64,
                 steps_equal_grad_norm=float(sgd_metrics["grad_norm"])
                 == float(metrics["grad_norm"]), errors=errors, limits=TRAIN_E2_RTOL,
-                float64_router_other_choices=flips[0], launches=launches)
+                float64_router_other_choices=flips[0], launches=launches,
+                repeat_bitwise=repeat_bitwise)
     del params, adam_params, sgd_params, step_grads, params64, grads64
     torch.cuda.empty_cache()
     check_within(label, errors, TRAIN_E2_RTOL)
@@ -3704,15 +3784,16 @@ MIXERS = (("mamba", "ssm", "mamba_forward"), ("mlstm", "ssm", "mlstm_forward"),
           ("moe", "moe", "moe_apply"))
 
 
-def mixer_profile(fn) -> dict:
+def mixer_profile(fn, mixers=MIXERS) -> dict:
     """One call of ``fn`` under the profiler (a window opened and closed by
-    the marker kernel), with each mixer of ``MIXERS`` swapped by name for a
+    the marker kernel), with each function of ``mixers`` (MIXERS, or K2's
+    encoder and decoder stacks, ENCDEC_PARTS) swapped by name for a
     version inside a ``record_function`` range: the call's device busy
     against wall, device events and heaviest kernels (``_busy``'s keys),
-    and ``mixer_ms``, each kernel's device ms by the mixer range whose span
+    and ``mixer_ms``, each kernel's device ms by the range whose span
     on the device holds its start (one stream: a range's kernels run
-    inside its span and no other kernel does; ``other``: the embedding,
-    norms, dense MLPs and logits).  It reads the profiler's raw events,
+    inside its span and no other kernel does; ``other``: with MIXERS the
+    embedding, norms, dense MLPs and logits).  It reads the profiler's raw events,
     without building its event tree: the sLSTM's loop over time launches
     half a million kernels in one xlstm prefill."""
     import bisect
@@ -3729,9 +3810,9 @@ def mixer_profile(fn) -> dict:
                 return f(*args, **kw)
         return g
 
-    ranges = {f"mixer:{part}": part for part, _, _ in MIXERS}
+    ranges = {f"mixer:{part}": part for part, _, _ in mixers}
     with contextlib.ExitStack() as stack:
-        for part, module, name in MIXERS:
+        for part, module, name in mixers:
             mod = importlib.import_module(f"repro_torch.models.{module}")
             stack.enter_context(swapped(mod, name, ranged(f"mixer:{part}", getattr(mod, name))))
         torch.cuda.synchronize()
@@ -3886,7 +3967,7 @@ def ssm_phase(kernels, laps: Laps) -> dict:
     legs = [float64_leg(full32, prompts, kernels, no_flash, "ssm_float32", own_prefill=False)]
     laps.lap("H1 xlstm float32 against float64")
     legs.append(serve_leg(kernels, xlstm, path="ssm_serve", label="H2 xlstm serving",
-                          mixers=True, prompt_len=SSM_H2_T,
+                          mixers=MIXERS, prompt_len=SSM_H2_T,
                           extra=dict(reduced=f"prompt {MOE_F2_T} -> {SSM_H2_T} tokens: the "
                                              "sLSTM's loop over time, 4.9 s a prefill at "
                                              "1024, made the leg 98 s")))
@@ -3905,7 +3986,7 @@ def ssm_phase(kernels, laps: Laps) -> dict:
     cut = dataclasses.replace(
         jamba, n_layers=HYBRID_J2_PERIODS * len(jamba.layer_pattern))
     legs.append(serve_leg(
-        kernels, cut, path="hybrid_serve", label="J2 jamba serving", mixers=True,
+        kernels, cut, path="hybrid_serve", label="J2 jamba serving", mixers=MIXERS,
         extra=dict(n_params_full=registry.build(jamba).n_params(),
                    reduced=f"n_layers {jamba.n_layers} -> {cut.n_layers} "
                            f"({HYBRID_J2_PERIODS} of {jamba.n_periods} periods): three "
@@ -3924,6 +4005,170 @@ def ssm_phase(kernels, laps: Laps) -> dict:
         log({"path": "ssm_train_step", "label": label, **step})
         legs.append(step)
     laps.lap("H3, J3 reduced train steps")
+    return dict(legs=legs)
+
+
+# ---------------------------------------------------------------------------
+# Path K: seamless-m4t-large-v2, the encoder-decoder
+# ---------------------------------------------------------------------------
+#: path K's model, seamless-m4t-large-v2: 24 encoder and 24 decoder layers,
+#: d 1024, 16 heads over 16 KV heads at head dim 64, d_ff 8192, vocab
+#: 256,206, 1024 stub audio frames a sequence
+ENCDEC_ARCH = "seamless_m4t_large_v2"
+#: K1: float32 at full width and depth (2.04 B parameters, 8.15 GB), 2
+#: prompts of 256 tokens over 1024 frames and 2 decode steps, against
+#: float64 within MOE_F32_RTOL (H1's and J1's limit), the cache leaves too
+ENCDEC_K1_B, ENCDEC_K1_T = 2, 256
+#: K2: bf16 through ``Server``, 4 prompts of 128 tokens over 1024 frames,
+#: 64 new tokens into a cache of 192
+ENCDEC_K2_B, ENCDEC_K2_T, ENCDEC_K2_NEW = 4, 128, 64
+#: K3: the reduced config's prefill of 24 tokens over its 16 frames (the
+#: cross shape Tq 24 against Tk 16) and 3 decode steps against float64
+ENCDEC_K3_T, ENCDEC_K3_DECODE = 24, 3
+#: the ranges of K2's profiled prefill (``mixer_profile``): the encoder
+#: stack and the decoder stack
+ENCDEC_PARTS = (("encoder", "encdec", "encode"), ("decoder", "encdec", "decode_stack"))
+#: E1's cross-attention shape, non-causal: K2's decoder, 4 prompts of 128
+#: tokens (16 heads of 64) against 1024 encoder frames, (B, H, Hkv, T, Tk, D)
+CROSS_SHAPE = (4, 16, 16, 128, 1024, 64)
+#: E1's forward rows at path K's three attention shapes, (part, (B, H, Hkv,
+#: T, Tk, D), causal): K2's encoder (4 × 1024 frames, non-causal), its
+#: decoder's self-attention (4 × 128 tokens, causal) and CROSS_SHAPE
+ENCDEC_FWD_CASES = (("encoder", (4, 16, 16, 1024, 1024, 64), False),
+                    ("decoder self", (4, 16, 16, 128, 128, 64), True),
+                    ("cross", CROSS_SHAPE, False))
+#: ``flash_bwd_rows`` cases at CROSS_SHAPE (T given as the pair (T, Tk))
+CROSS_BWD_CASES = tuple((*CROSS_SHAPE[:3], CROSS_SHAPE[3:5], CROSS_SHAPE[5], dtype, False)
+                        for dtype in ("bfloat16", "float32"))
+
+
+def stub_frames(cfg, batch: int) -> np.ndarray:
+    """Frame embeddings [batch, n_frontend_tokens, d_model], float32
+    standard normal from seed SEED + 1: the stub audio front-end's output."""
+    return np.random.default_rng(SEED + 1).standard_normal(
+        (batch, cfg.n_frontend_tokens, cfg.d_model), dtype=np.float32)
+
+
+def cross_attention_rows(rng) -> dict:
+    """E1 at path K's attention shapes (ENCDEC_FWD_CASES: the encoder's and
+    the cross-attention's non-causal calls, the latter T ≠ Tk, and the
+    decoder's causal self-attention) in bf16 (the wgmma routes) and float32
+    (the tf32 routes).  Forward, as autograd runs it (writing L): o against
+    the plain version in float64 (``check_flash``'s gate), L within 1e-6 of
+    the plain version's largest magnitude, o bitwise the call without L;
+    events ms in turns beside SDPA's forward of the same causality, device
+    ms, the plain version's ms and the bound (q, k, v read and o written
+    once; QKᵀ and PV over every pair, the causal half where causal, at the
+    dtype's rate, float32 rows also ``tc_bound_ms``, three TF32 products).
+    Backward: ``flash_bwd_rows`` at CROSS_BWD_CASES (given L and without).
+    Comparison launches, not the path's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ref
+
+    forward = []
+    for part, (B, H, Hkv, T, Tk, D), causal in ENCDEC_FWD_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            q = normal(rng, (B, H, T, D)).to(dt)
+            k, v = (normal(rng, (B, Hkv, Tk, D)).to(dt) for _ in range(2))
+            kind = tflash.variant(dt, D)
+            label = f"E1 {part} {tflash.KERNELS[kind].name} {(B, H, Hkv, T, Tk, D)} {dt}"
+            o, lse = tflash.flash_attention(q, k, v, causal, return_lse=True)
+            want = ref.flash_attention_ref(q.double(), k.double(), v.double(), causal=causal)
+            err, rel = check_flash(label, o, want, dt)
+            if not torch.equal(o, tflash.flash_attention(q, k, v, causal)):
+                raise AssertionError(f"{label}: o differs with L asked for")
+            want_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal)
+            lse_err = float((lse[..., :T] - want_lse).abs().max())
+            if not lse_err <= 1e-6 * float(want_lse.abs().max()):
+                raise AssertionError(f"{label}: L {lse_err} from the plain version's")
+            del o, lse, want, want_lse
+
+            def kernel():
+                tflash.flash_attention(q, k, v, causal, return_lse=True)
+
+            def library():
+                F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+
+            times = time_in_turns({"kernel": kernel, "library": library})
+            nbytes = q.element_size() * (2 * B * H * T * D + 2 * B * Hkv * Tk * D)
+            flops = 4 * B * H * (T * (T + 1) // 2 if causal else T * Tk) * D
+            bms, by = bound_ms(nbytes, flops,
+                               BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S)
+            extra = ({"tc_bound_ms": bound_ms(nbytes, 3 * flops, TF32_OPS_PER_S)[0]}
+                     if dt == torch.float32 else {})
+            row = dict(part=part,
+                       shape=dict(B=B, H=H, Hkv=Hkv, T=T, Tk=Tk, D=D,
+                                  dtype=str(dt).split(".")[1]),
+                       causal=causal, variant=kind, with_lse=True, max_abs_err=err,
+                       rel_err=rel, lse_max_abs_err=lse_err, kernel_ms=times["kernel"],
+                       device_ms=kernel_device_ms(kernel, FLASH_KERNEL_NAMES[kind]),
+                       plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                                        causal=causal),
+                                        reps=5, warmup=1),
+                       library_ms=times["library"],
+                       library_device_ms=all_device_ms(library), bound_ms=bms, bound_by=by,
+                       **extra)
+            forward.append(row)
+            log({"kernel": tflash.KERNELS[kind].name, "path": f"E1 {part}", **row})
+            del q, k, v
+    backward = flash_bwd_rows(rng, CROSS_BWD_CASES, "E1 cross")
+    return dict(forward=forward, backward=backward)
+
+
+def encdec_phase(kernels, laps: Laps) -> dict:
+    """Path K, seamless-m4t-large-v2 (``models/encdec.py``: a bidirectional
+    encoder over the stub frames, a causal decoder with cross-attention over
+    them), after path J's memory is released, with the counts reset before
+    each leg: K1 (float32 at full width and depth against float64, logits
+    and every cache leaf; the TF32 forward once an attention layer a
+    prefill: 24 encoder, 24 decoder self-, 24 cross-attention layers), K2
+    (serving at full width and depth, bf16, the wgmma forward the same 72
+    times a prefill; prefill device ms by stack, decode ms a step, two runs'
+    tokens equal), K3 (the reduced config: an AdamW step against float64,
+    repeated bitwise, the mma forward and the SIMT backward, then a prefill
+    and decode steps against float64)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({"path": "encdec", "memory_allocated_at_start": torch.cuda.memory_allocated()})
+    none = {"flash_attention": 0, "flash_attention_tf32": 0, "flash_attention_wgmma": 0}
+    cfg = get_config(ENCDEC_ARCH)
+    full32 = dataclasses.replace(cfg, act_dtype="float32", param_dtype="float32")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (ENCDEC_K1_B, ENCDEC_K1_T)).astype(np.int32)
+    legs = [float64_leg(full32, prompts, kernels,
+                        {**none, "flash_attention_tf32": attention_layers(cfg)},
+                        "encdec_float32", own_prefill=False,
+                        inputs={"frames": stub_frames(cfg, ENCDEC_K1_B)})]
+    laps.lap("K1 seamless float32 against float64")
+    legs.append(serve_leg(kernels, cfg, path="encdec_serve", label="K2 seamless serving",
+                          mixers=ENCDEC_PARTS, prompt_len=ENCDEC_K2_T, batch=ENCDEC_K2_B,
+                          new=ENCDEC_K2_NEW, inputs={"frames": stub_frames(cfg, ENCDEC_K2_B)},
+                          repeat=True))
+    laps.lap("K2 seamless serving")
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = cfg.reduced()
+    n = attention_layers(small) * MLA_G4_MICRO
+    step = train_step_check(kernels, small, "K3 seamless train step, float32",
+                            {**none, "flash_attention": 2 * n, "flash_attention_bwd": n,
+                             "flash_attention_bwd_tf32": 0, "flash_attention_bwd_wgmma": 0})
+    log({"path": "encdec_train_step", **step})
+    legs.append(step)
+    small_prompts = np.random.default_rng(SEED).integers(
+        0, small.vocab_size, (LM_REDUCED_B, ENCDEC_K3_T)).astype(np.int32)
+    legs.append(float64_leg(small, small_prompts, kernels,
+                            {**none, "flash_attention": attention_layers(small)},
+                            "encdec_float32_reduced", own_prefill=True,
+                            n_decode=ENCDEC_K3_DECODE,
+                            inputs={"frames": stub_frames(small, LM_REDUCED_B)}))
+    laps.lap("K3 reduced seamless train step and decode")
     return dict(legs=legs)
 
 
@@ -7268,6 +7513,10 @@ def main() -> int:
     # reduced model across the ring buffer's wrap, J2 serving at 2 of 4
     # periods), then the reduced configs' train steps against float64
     ssm = ssm_phase(kernels, laps)
+    # path K, the encoder-decoder seamless-m4t-large-v2: K1 float32 against
+    # float64, K2 serving at full width and depth, K3 the reduced config's
+    # train step and decode
+    encdec = encdec_phase(kernels, laps)
     # path D's float32 legs are the TF32 and mma flash kernels' paths
     # the housing legs' executor runs (capture and replay-only, or the
     # capacity segments) count beside their eager runs, and the chain
@@ -7282,7 +7531,7 @@ def main() -> int:
                     "launches_sparse")
         if key in run] + [leg["launches"] for leg in durable + integrity + serve] + [
         leg["launches"] for leg in train["legs"] + moe["legs"] + mla["legs"]
-        + ssm["legs"]] + [
+        + ssm["legs"] + encdec["legs"]] + [
         train["legs"][-1]["example"]["launches"]]
     launched = {k.name: sum(r.get(k.name, 0) for r in runs) for k in kernels}
     if not all(launched[k.name] for k in built):
@@ -7358,10 +7607,13 @@ def main() -> int:
                                        "bound_ms", "bound_by", "library_ms", "lse_kernel_ms",
                                        "lse_device_ms") if k in r}
                     for r in rows[name] if "Dv" in r.get("shape", {})]
+        # E1 at path K's encoder, decoder-self and cross-attention shapes, with L
+        cross_rows = [r for r in train["cross"]["forward"]
+                      if name == f"flash_attention_{r['variant']}"]
         summary.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(launched[n] for n in entries.get(name, [name])),
-            max_abs_err=max(r["max_abs_err"] for r in rows[name]),
+            max_abs_err=max(r["max_abs_err"] for r in rows[name] + cross_rows),
             ms=row["kernel_ms"], device_ms=row["device_ms"],
             plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
@@ -7373,12 +7625,13 @@ def main() -> int:
                if k in row},
             **({"launches_by_route": {n.split(":")[1]: launched[n] for n in entries[name]}}
                if name in ("hash_insert", "hash_insert_targets") else {}),
-            **({"mla": mla_rows} if mla_rows else {})))
+            **({"mla": mla_rows} if mla_rows else {}),
+            **({"cross": cross_rows} if cross_rows else {})))
     # the three backward routes: the wgmma route at BWD_MAIN and the tf32
     # route at BWD_MAIN_F32 (each with the SIMT route's time at its shape
     # beside it), the SIMT route at BWD_SIMT; each with path G's rows of
     # its route at MLA's head-dim pairs
-    bwd_rows = train["rows"] + mla["bwd_rows"]
+    bwd_rows = train["rows"] + mla["bwd_rows"] + train["cross"]["backward"]
     for name, route, (B, H, Hkv, T, D, dtype, causal) in (
             ("flash_attention_bwd_wgmma", "wgmma", BWD_MAIN),
             ("flash_attention_bwd_tf32", "tf32", BWD_MAIN_F32),
@@ -7404,7 +7657,9 @@ def main() -> int:
             shape={**row["shape"], "causal": causal}, bound_peak=row["bound_peak"],
             **{k: row[k] for k in ("tc_bound_ms", "exp_bound_ms", "no_lse", "device_kernels",
                                    "simt_ms", "simt_device_ms") if k in row},
-            cases=cases, mla=mla_rows))
+            cases=cases, mla=mla_rows,
+            cross=[{k: r[k] for k in keys if k in r} for r in train["cross"]["backward"]
+                   if r["route"] == route]))
     log({"kernels": summary})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
@@ -7414,7 +7669,7 @@ def main() -> int:
 
 def flash_main(run) -> int:
     """Builds the six flash kernels and calls ``run(kernels)``: the
-    ``--backward`` and ``--ssm`` runs of parts of the smoke; the whole
+    ``--backward``, ``--ssm`` and ``--encdec`` runs of parts of the smoke; the whole
     smoke runs without arguments."""
     import torch
 
@@ -7440,10 +7695,12 @@ def flash_main(run) -> int:
 
 
 def backward_main(kernels) -> None:
-    """``python3 chip_smoke.py --backward``: path E's E1 and path G's
-    backward rows alone (``flash_bwd_rows`` at BWD_CASES and at
-    MLA_BWD_CASES), for work on the backward kernels."""
+    """``python3 chip_smoke.py --backward``: path E's E1 (with the
+    cross-attention shape, ``cross_attention_rows``) and path G's backward
+    rows alone (``flash_bwd_rows`` at BWD_CASES and at MLA_BWD_CASES), for
+    work on the backward kernels."""
     flash_bwd_rows(np.random.default_rng(SEED))
+    cross_attention_rows(np.random.default_rng(SEED))
     flash_bwd_rows(np.random.default_rng(SEED), MLA_BWD_CASES, "G")
 
 
@@ -7453,11 +7710,19 @@ def ssm_main(kernels) -> None:
     ssm_phase(kernels, Laps())
 
 
+def encdec_main(kernels) -> None:
+    """``python3 chip_smoke.py --encdec``: path K alone (``encdec_phase``),
+    for work on the encoder-decoder."""
+    encdec_phase(kernels, Laps())
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--backward"]:
         sys.exit(flash_main(backward_main))
     if sys.argv[1:2] == ["--ssm"]:
         sys.exit(flash_main(ssm_main))
+    if sys.argv[1:2] == ["--encdec"]:
+        sys.exit(flash_main(encdec_main))
     if sys.argv[1:2] == ["--durable-child"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
         sys.exit(durable_child(sys.argv[2]))

@@ -4,9 +4,11 @@ Reproducible token streams keyed by (seed, step), so a restarted job resumes
 mid-stream (``start_step``) without replaying or skipping data.  Batches
 are drawn on the host with the reference's numpy generator, so the tokens
 and labels are bitwise the reference's, and go to ``device`` as int32
-tensors.  The GQA decoders the port trains have no vision or audio
-front-end, so a batch is ``{"tokens", "labels"}``; a vision or
-encoder-decoder config raises (ROADMAP Queue 1 item 20).
+tensors.  A batch is ``{"tokens", "labels"}``; an encoder-decoder's also
+carries ``frames`` [B, n_frontend_tokens, d_model], float32 standard
+normal draws of the same generator after the tokens (the stub audio
+front-end's frame embeddings, bitwise the reference's).  A vision config
+raises (ROADMAP Queue 1 item 20).
 """
 from __future__ import annotations
 
@@ -19,18 +21,21 @@ from ..device import resolve_device
 
 def _batch_for_step(cfg: ArchConfig, shape: ShapeSpec, seed: int, step: int,
                     device="cuda") -> dict:
-    if cfg.frontend is not None or cfg.enc_dec:
-        raise NotImplementedError(f"{cfg.name}: batches with a {cfg.frontend or 'encoder'} "
-                                  "input are not ported yet (ROADMAP Queue 1 item 20)")
+    if cfg.frontend == "vision":
+        raise NotImplementedError(f"{cfg.name}: batches with a vision input are not "
+                                  "ported yet (ROADMAP Queue 1 item 20)")
     rng = np.random.default_rng(np.uint64(seed) * np.uint64(1_000_003) + np.uint64(step))
     B, S = shape.global_batch, shape.seq_len
     # Markov-ish stream: correlated tokens so the loss actually decreases
     base = rng.integers(0, cfg.vocab_size, size=(B, 1), dtype=np.int64)
     drift = rng.integers(0, 17, size=(B, S + 1), dtype=np.int64)
     toks = ((base + np.cumsum(drift, axis=1)) % cfg.vocab_size).astype(np.int32)
+    batch = {"tokens": toks[:, :S], "labels": toks[:, 1:S + 1]}
+    if cfg.enc_dec:
+        batch["frames"] = rng.standard_normal((B, cfg.n_frontend_tokens, cfg.d_model),
+                                              dtype=np.float32)
     dev = resolve_device(device)
-    return {"tokens": torch.from_numpy(np.ascontiguousarray(toks[:, :S])).to(dev),
-            "labels": torch.from_numpy(np.ascontiguousarray(toks[:, 1:S + 1])).to(dev)}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
 
 
 def synthetic_lm_batches(cfg: ArchConfig, shape: ShapeSpec, *, seed: int = 0,

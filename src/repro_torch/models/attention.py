@@ -20,7 +20,8 @@
 * ``decode_attention`` is one query token against the cache, plain torch as
   in the reference.
 * ``gqa_forward`` / ``gqa_decode`` are the full-sequence and one-token
-  modules.  The decode cache is updated in place (a copy into the slot),
+  modules; ``gqa_forward(..., causal=False)`` is an encoder's
+  bidirectional layer (``models/encdec.py``).  The decode cache is updated in place (a copy into the slot),
   where the reference returns a new cache and donates the old buffer.
   With ``window`` (a hybrid's attention layers in decode) the cache is a
   ring buffer: position ``pos`` goes to slot ``pos % S`` and every slot
@@ -210,14 +211,15 @@ def _qkv(cfg, p, x):
     return q, k, v
 
 
-def gqa_forward(cfg, p, x, positions, *, return_kv=False):
+def gqa_forward(cfg, p, x, positions, *, causal=True, return_kv=False):
     """x [B,S,d] -> [B,S,d] (and the layer's k, v [B,KV,S,hd] with
-    ``return_kv``).  Full-sequence, causal (prefill)."""
+    ``return_kv``).  Full-sequence (prefill), causal unless ``causal`` is
+    False (an encoder layer)."""
     q, k, v = _qkv(cfg, p, x)                      # [B,S,heads,hd]
     q = apply_rope(q, positions, cfg.rope_theta).transpose(1, 2)
     k = apply_rope(k, positions, cfg.rope_theta).transpose(1, 2)
     v = v.transpose(1, 2)
-    out = flash_attention(q, k, v)                 # [B,H,S,hd]
+    out = flash_attention(q, k, v, causal=causal)  # [B,H,S,hd]
     y = torch.einsum("bhsk,hkd->bsd", out, p["wo"])
     if return_kv:
         return y, (k, v)

@@ -82,19 +82,23 @@ def _layer_kinds(cfg):
     return [(i, kind) for _ in range(cfg.n_periods) for i, kind in enumerate(pattern)]
 
 
+def unbind_layers(tree, n: int) -> list:
+    """A tree whose leaves are stacked over ``n`` layers along their first
+    axis, as ``n`` trees of that layer's leaves (views, whose backward is
+    one stack a leaf)."""
+    if isinstance(tree, Mapping):
+        parts = {k: unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
 def layer_params(cfg, params) -> list:
     """One block's parameters a layer, in layer order: the tree's stacked
     leaves unbound along the periods (views); layer ``p·len(pattern) + i``
     is period p, sub-block i."""
     layers = params["layers"]
-
-    def unbind(tree):
-        if isinstance(tree, Mapping):
-            parts = {k: unbind(v) for k, v in tree.items()}
-            return [{k: p[n] for k, p in parts.items()} for n in range(cfg.n_periods)]
-        return tree.unbind(0)
-
-    subs = [unbind(layers[f"sub{i}"]) for i in range(len(cfg.layer_pattern))]
+    subs = [unbind_layers(layers[f"sub{i}"], cfg.n_periods)
+            for i in range(len(cfg.layer_pattern))]
     return [subs[i][n] for n in range(cfg.n_periods) for i in range(len(subs))]
 
 

@@ -1,16 +1,19 @@
 """Model registry (port of ``repro.models.registry``): one API over the
-architectures the port builds, the decoder-only LMs: the dense GQA family
-(llama3.2-1b, llama3.2-3b, qwen2-1.5b, granite-3-2b), the MoE GQA
-moonshot-v1-16b-a3b, deepseek-v3-671b (MLA attention, MoE, the MTP head),
-the SSM xlstm-1.3b (mLSTM and sLSTM blocks) and the hybrid jamba-v0.1-52b
-(Mamba blocks, a GQA layer a period with a sliding-window decode cache,
-the MoE MLP).
+architectures the port builds: the decoder-only LMs (the dense GQA family
+llama3.2-1b, llama3.2-3b, qwen2-1.5b, granite-3-2b; the MoE GQA
+moonshot-v1-16b-a3b; deepseek-v3-671b with MLA attention, MoE and the MTP
+head; the SSM xlstm-1.3b with mLSTM and sLSTM blocks; the hybrid
+jamba-v0.1-52b with Mamba blocks, a GQA layer a period with a
+sliding-window decode cache and the MoE MLP) and the encoder-decoder
+seamless-m4t-large-v2 (``models/encdec.py``, its audio front-end a stub:
+the batch carries frame embeddings).
 
-``build(cfg)`` raises ``NotImplementedError`` for encoder-decoder and
-front-end (vision, audio) configs (ROADMAP Queue 1 item 20).  ``ModelAPI.loss``
-is ``lm.lm_loss``; ``batch_spec`` and ``real_batch`` give a workload cell's
-inputs.  The dry run's abstract inputs (the reference's ``abstract_batch``)
-wait for item 20's ``launch/`` part.
+``build(cfg)`` raises ``NotImplementedError`` for a vision front-end
+(paligemma-3b; ROADMAP Queue 1 item 20).  ``ModelAPI.loss`` is
+``lm.lm_loss`` or ``encdec.encdec_loss``; ``batch_spec`` and ``real_batch``
+give a workload cell's inputs, an encoder-decoder's ``frames`` among them.
+The dry run's abstract inputs (the reference's ``abstract_batch``) wait
+for item 20's ``launch/`` part.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
 from ..device import resolve_device
-from . import lm
+from . import encdec, lm
 from .attention import UNPORTED
 from .layers import P, count_params, iter_specs
 
@@ -57,35 +60,31 @@ class ModelAPI:
         return total - routed + int(routed * m.top_k / m.n_experts)
 
 
-def _unsupported(cfg: ArchConfig) -> str | None:
-    for what, yes in (("encoder-decoder", cfg.enc_dec),
-                      (f"{cfg.frontend} front-end", cfg.frontend is not None)):
-        if yes:
-            return what
-    return None
-
-
 def build(cfg: ArchConfig) -> ModelAPI:
-    what = _unsupported(cfg)
-    if what is not None:
+    if cfg.frontend == "vision":
         raise NotImplementedError(
-            f"{cfg.name}: {what} models are not ported yet; the port builds the "
-            f"decoder-only LMs (attention, SSM and hybrid) only ({UNPORTED})")
-    specs = lm.lm_specs(cfg)
+            f"{cfg.name}: vision front-end models are not ported yet; the port builds "
+            f"the decoder-only LMs (attention, SSM and hybrid) and the encoder-decoder "
+            f"({UNPORTED})")
+    specs = encdec.encdec_specs(cfg) if cfg.enc_dec else lm.lm_specs(cfg)
+    init_fn, loss, prefill, decode, init_cache = (
+        (encdec.encdec_init, encdec.encdec_loss, encdec.encdec_prefill,
+         encdec.encdec_decode, encdec.encdec_init_cache) if cfg.enc_dec else
+        (lm.lm_init, lm.lm_loss, lm.lm_prefill, lm.lm_decode, lm.lm_init_cache))
 
     def init(seed: int = 0, device="cuda", dtype=None, generator=None):
         if generator is None:
             generator = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-        return lm.lm_init(cfg, generator, dtype)
+        return init_fn(cfg, generator, dtype)
 
     return ModelAPI(
         cfg=cfg,
         specs=specs,
         init=init,
-        loss=lambda p, b: lm.lm_loss(cfg, p, b),
-        prefill=lambda p, b, cache_len=None: lm.lm_prefill(cfg, p, b, cache_len),
-        decode_step=lambda p, t, pos, c: lm.lm_decode(cfg, p, t, pos, c),
-        init_cache=lambda batch, seq, dtype, device="cuda": lm.lm_init_cache(
+        loss=lambda p, b: loss(cfg, p, b),
+        prefill=lambda p, b, cache_len=None: prefill(cfg, p, b, cache_len),
+        decode_step=lambda p, t, pos, c: decode(cfg, p, t, pos, c),
+        init_cache=lambda batch, seq, dtype, device="cuda": init_cache(
             cfg, batch, seq, dtype, resolve_device(device)),
     )
 
@@ -94,26 +93,35 @@ def build(cfg: ArchConfig) -> ModelAPI:
 # Batch input specs per workload shape
 # ---------------------------------------------------------------------------
 def batch_spec(cfg: ArchConfig, shape: ShapeSpec) -> dict:
-    """Logical-axis specs for every model input of this workload cell (the
-    decoder-only LMs have no vision or audio front-end)."""
+    """Logical-axis specs for every model input of this workload cell: an
+    encoder-decoder's train and prefill batches also carry ``frames`` [B,
+    n_frontend_tokens, d_model] (the stub front-end's frame embeddings)."""
     B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        # one token + position; the cache is specced separately
+        return {"token": P((B,), ("batch",), "zeros"), "pos": P((), (), "zeros")}
+    out = {"tokens": P((B, S), ("batch", "seq"), "zeros")}
     if shape.kind == "train":
-        return {"tokens": P((B, S), ("batch", "seq"), "zeros"),
-                "labels": P((B, S), ("batch", "seq"), "zeros")}
-    if shape.kind == "prefill":
-        return {"tokens": P((B, S), ("batch", "seq"), "zeros")}
-    # decode: one token + position; the cache is specced separately
-    return {"token": P((B,), ("batch",), "zeros"), "pos": P((), (), "zeros")}
+        out["labels"] = P((B, S), ("batch", "seq"), "zeros")
+    if cfg.enc_dec:
+        out["frames"] = P((B, cfg.n_frontend_tokens, cfg.d_model), ("batch", "seq", None),
+                          "zeros")
+    return out
 
 
 def real_batch(cfg: ArchConfig, shape: ShapeSpec, generator: torch.Generator) -> dict:
-    """A random batch on the generator's device: token ids uniform in
-    [0, vocab_size) as int32, ``pos`` 0, drawn in the specs' order."""
+    """A random batch on the generator's device, drawn in the specs' order:
+    token ids uniform in [0, vocab_size) as int32, ``pos`` 0, ``frames``
+    standard normal in float32 cast to ``act_dtype``."""
     out = {}
+    dev = generator.device
     for name, s in batch_spec(cfg, shape).items():
         if name == "pos":
-            out[name] = torch.zeros((), dtype=torch.int32, device=generator.device)
+            out[name] = torch.zeros((), dtype=torch.int32, device=dev)
+        elif name == "frames":
+            out[name] = torch.randn(s.shape, generator=generator, device=dev).to(
+                getattr(torch, cfg.act_dtype))
         else:
             out[name] = torch.randint(0, cfg.vocab_size, s.shape, generator=generator,
-                                      dtype=torch.int32, device=generator.device)
+                                      dtype=torch.int32, device=dev)
     return out

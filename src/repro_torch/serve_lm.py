@@ -2,15 +2,18 @@
 (port of ``examples/serve_lm.py``).
 
 ``Server`` builds a decoder-only LM, attention (GQA or MLA, dense or MoE),
-SSM or hybrid (``models.registry``), on ``device`` (default ``"cuda"``; a
-host without CUDA raises unless the caller passes ``device="cpu"``), with
-weights drawn from an explicit ``torch.Generator`` seeded with ``seed``
-unless ``params`` are given.  ``generate`` runs the prefill (the
-hand-written flash-attention kernel on the card, in every attention layer)
-and then one decode step per new token, each token the argmax over the
-padded vocab, under ``torch.inference_mode()``; times end with
-``torch.cuda.synchronize()``.  The cache (KV entries and SSM states) is
-updated in place.
+SSM or hybrid, or the encoder-decoder (``models.registry``), on ``device``
+(default ``"cuda"``; a host without CUDA raises unless the caller passes
+``device="cpu"``), with weights drawn from an explicit ``torch.Generator``
+seeded with ``seed`` unless ``params`` are given.  ``generate`` hands the
+prefill the whole batch (an encoder-decoder's ``frames`` beside the
+prompt's ``tokens``; the hand-written flash-attention kernel on the card
+in every attention layer) and then runs one decode step per new token,
+the first at the prompt's length (frames are not decoder positions), each
+token the argmax over the padded vocab, under ``torch.inference_mode()``;
+times end with ``torch.cuda.synchronize()``.  The cache (KV entries, SSM
+states, the encoder frames' cross-attention keys and values) is updated
+in place.
 
 ``swap_adapter_rank_r`` applies a rank-1 adapter delta W += u vᵀ to a 2-D
 weight in place (the factorized update of F-IVM integration point #2,
@@ -61,10 +64,10 @@ class Server:
 
     @torch.inference_mode()
     def generate(self, batch: dict, n_new: int) -> GenerationResult:
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        inputs = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        tokens = inputs["tokens"]
         t0 = time.perf_counter()
-        logits, cache = self.api.prefill(self.params, {"tokens": tokens},
-                                         cache_len=self.cache_len)
+        logits, cache = self.api.prefill(self.params, inputs, cache_len=self.cache_len)
         tok = logits.argmax(dim=-1)
         self._sync()
         t1 = time.perf_counter()

@@ -2944,3 +2944,98 @@ def test_cuda_moe_layer_is_bitwise_repeatable_and_matches_cpu(cuda_device):
     y_cpu, _ = run("cpu")
     err = float((y1.cpu().float() - y_cpu.float()).abs().max())
     assert err <= 2.0 ** -6 * float(y_cpu.float().abs().max()), err
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder: cross-attention (non-causal, T ≠ Tk) on the card
+# ---------------------------------------------------------------------------
+#: (B, H, Hkv, T, Tk, D): seamless's decoder at its serving prompt against
+#: 1024 encoder frames, and unaligned query and key lengths either way
+CROSS_SHAPES = [(4, 16, 16, 128, 1024, 64), (1, 4, 2, 77, 300, 64), (1, 4, 4, 300, 77, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,H,Hkv,T,Tk,D", CROSS_SHAPES)
+def test_cuda_flash_cross_shapes_match_float64(cuda_device, B, H, Hkv, T, Tk, D, dtype):
+    """The wgmma (bf16) and tf32 (float32) routes non-causal with a query
+    length other than the key length, forward and backward, with and
+    without L, against the plain version in float64: the forward within
+    1e-5 of the largest output (float32) or one bf16 rounding of each
+    element, its L within 1e-6, o bitwise the same with L asked for; the
+    backward within E1's limits (1e-5 float32, 1e-2 bf16) of each output's
+    largest magnitude, two calls bitwise equal, given L and without; one
+    launch a call of the dtype's forward and backward kernels."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(T + Tk + D)
+    q, k, v, do = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                                device=cuda_device).to(dt)
+                   for s in ((B, H, T, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D), (B, H, T, D)))
+    fwd = tflash.KERNELS[tflash.variant(dt, D)]
+    bwd = tflash.BWD_KERNELS[tflash.bwd_variant(dt, D)]
+    n_f = fwd.launches
+    o = tflash.flash_attention(q, k, v, False)
+    o2, lse = tflash.flash_attention(q, k, v, False, return_lse=True)
+    torch.cuda.synchronize()
+    assert fwd.launches - n_f == 2
+    assert torch.equal(o, o2)
+    want = ref.flash_attention_ref(q.double(), k.double(), v.double(), causal=False)
+    err = (o.double() - want).abs()
+    scale = float(want.abs().max())
+    if dt == torch.float32:
+        assert float(err.max()) <= 1e-5 * scale
+    else:
+        assert bool((err <= 2.0 ** -8 * want.abs() + 1e-6 * scale).all())
+    want_lse = ref.flash_attention_lse_ref(q, k, v, causal=False)
+    assert float((lse[..., :T].cpu() - want_lse.cpu()).abs().max()) <= 1e-6 * float(
+        want_lse.abs().max())
+    wants = ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)), causal=False)
+    rtol = 1e-5 if dt == torch.float32 else 1e-2
+    for given in (lse, None):
+        n_b = bwd.launches
+        got = tflash.flash_attention_bwd(q, k, v, o, do, False, lse=given)
+        again = tflash.flash_attention_bwd(q, k, v, o, do, False, lse=given)
+        torch.cuda.synchronize()
+        assert bwd.launches - n_b == 2
+        for g, a, w, inp in zip(got, again, wants, (q, k, v)):
+            assert g.dtype == dt and g.shape == inp.shape
+            assert torch.equal(g, a)
+            assert float((g.double() - w).abs().max()) <= rtol * float(w.abs().max())
+
+
+def test_cuda_seamless_reduced_prefill_and_decode_match_cpu(cuda_device):
+    """The reduced seamless-m4t (2 encoder and 2 decoder layers, head dim
+    16: the mma kernel in each encoder layer and in each decoder layer's
+    self- and cross-attention, Tq 24 against Tk 16) on the card against
+    the same weights and frames on the CPU: a prompt of 24, then 3 decode
+    steps fed the same tokens; float32 logits and every cache leaf within
+    1e-5 of their largest magnitude; 6 mma launches in the prefill, none in
+    a decode step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.models import layers, registry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("seamless_m4t_large_v2").reduced()
+    api = registry.build(cfg)
+    params = api.init(seed=0, device="cpu")
+    on_card = layers.map_tree(lambda t: t.to(cuda_device), params)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 27))
+    frames = rng.standard_normal((2, cfg.n_frontend_tokens, cfg.d_model), dtype=np.float32)
+    outs = []
+    for p in (params, on_card):
+        before = {name: kern.launches for name, kern in tflash.KERNELS.items()}
+        logits, cache = api.prefill(p, {"tokens": toks[:, :24], "frames": frames}, 32)
+        prefill = {name: kern.launches - before[name] for name, kern in tflash.KERNELS.items()}
+        got = [logits]
+        for pos in range(24, 27):
+            logits, cache = api.decode_step(p, toks[:, pos], pos, cache)
+            got.append(logits)
+        total = {name: kern.launches - before[name] for name, kern in tflash.KERNELS.items()}
+        outs.append(got + [cache[c] for c in ("k", "v", "xk", "xv")])
+    assert prefill == total == {"wgmma": 0, "tf32": 0, "mma": 6}
+    for a, b in zip(*outs):
+        scale = float(a.abs().max())
+        assert float((b.cpu() - a).abs().max()) <= 1e-5 * scale

@@ -85,7 +85,7 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda():
         IVMEngine.build(q, db, var_order=synth.retailer_vo())
 
 
-@pytest.mark.parametrize("arch", ["paligemma_3b", "seamless_m4t_large_v2"])
+@pytest.mark.parametrize("arch", ["paligemma_3b"])
 def test_unported_lm_families_raise(arch):
     from repro_torch.configs.base import get_config
     from repro_torch.models import registry
@@ -93,6 +93,33 @@ def test_unported_lm_families_raise(arch):
     for cfg in (get_config(arch), get_config(arch).reduced()):
         with pytest.raises(NotImplementedError, match="Queue 1 item 20"):
             registry.build(cfg)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_seamless_builds_and_its_batches_carry_frames(reduced):
+    """seamless-m4t-large-v2 (the encoder-decoder) builds, full and reduced;
+    the reduced config's batches (``lm_data``, ``real_batch``) carry
+    ``frames`` [B, n_frontend_tokens, d_model] beside the tokens."""
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data import lm_data
+    from repro_torch.models import registry
+
+    cfg = get_config("seamless_m4t_large_v2")
+    cfg = cfg.reduced() if reduced else cfg
+    api = registry.build(cfg)
+    assert cfg.enc_dec and set(api.specs) >= {"enc_layers", "dec_layers", "frame_proj"}
+    assert api.n_params() == (242_432 if reduced else 2_036_459_520)
+    if not reduced:
+        return
+    shape = ShapeSpec("t", 12, 4, "train")
+    for batch in (lm_data._batch_for_step(cfg, shape, 0, 0, "cpu"),
+                  registry.real_batch(cfg, shape, torch.Generator().manual_seed(0))):
+        assert set(batch) == {"tokens", "labels", "frames"}
+        assert tuple(batch["frames"].shape) == (4, cfg.n_frontend_tokens, cfg.d_model)
+        assert batch["frames"].dtype == torch.float32
+    loss, _ = api.loss(api.init(seed=0, device="cpu"),
+                       lm_data._batch_for_step(cfg, shape, 0, 0, "cpu"))
+    assert bool(torch.isfinite(loss))
 
 
 def test_lm_loss_is_not_ported():
