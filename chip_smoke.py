@@ -296,6 +296,27 @@ Phases (any failed check raises, and the script exits non-zero):
      backward; cross shape Tq 24 against Tk 16): G4's float32 AdamW step
      against float64 (``train_step_check``), repeated bitwise, then a
      prefill of 24 tokens and 3 decode steps against float64.
+11. Path L, paligemma-3b, the VLM (``models/lm.py``: 256 stub patch
+    embeddings times ``vision_proj`` in front of the text, the prefix-LM
+    mask, head dim 256, 8 query heads over 1 KV head), after path K's
+    memory is released (``--vlm`` runs it alone, after E1's prefix rows):
+   - L1, float32 at full width and depth (2.51 B parameters), 2 × (256
+     patches + 64 tokens): prefill and two decode steps (at positions
+     P + T, …) against the same functions in float64, the logits and every
+     cache leaf; 18 ``flash_attention_tf32`` launches (256, 256) with the
+     prefix a prefill, none a decode step;
+   - L2, bf16 at full width and depth through ``Server.generate`` (4 ×
+     (256 + 128), 32 new, a cache of 416): 18 ``flash_attention_wgmma``
+     launches a prefill, none a decode step; prefill and decode ms,
+     tokens/s, peak bytes, idle share, the prefill's device ms by part
+     (``VLM_PARTS``), a second run's tokens equal;
+   - L3, the reduced config (head dim 16, 16 patches: the mma forward and
+     the SIMT backward with the prefix): G4's float32 AdamW step against
+     float64 (``train_step_check``), repeated bitwise, then a prefill of 16
+     patches + 24 tokens and 3 decode steps against float64.
+   E1 holds the prefix-LM rows (``vlm_attention_rows``): the forward at
+   VLM_FWD_CASES in both dtypes and the SIMT backward at L3's step shape,
+   each against float64 beside SDPA with an explicit boolean mask.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel with its numbers.  Imports nothing of JAX or the JAX package.
@@ -2347,11 +2368,14 @@ def flash_bwd_rows(rng, cases=BWD_CASES, path: str = "E1") -> list:
 
 def plain_attention(q, k, v, *, causal=True, prefix_len=None, window=None):
     """``models.attention.flash_attention`` by the plain version on any
-    device, in the inputs' dtype (float64 for the oracle); autograd
-    differentiates it."""
+    device, in the inputs' dtype (float64 for the oracle), with the
+    prefix-LM mask of ``prefix_len``; autograd differentiates it.  A window
+    raises, as ``flash_attention``'s does."""
     from repro_torch.kernels import ref
 
-    return ref.flash_attention_ref(q, k, v, causal=causal).to(q.dtype)
+    if window is not None:
+        raise NotImplementedError("plain_attention takes no window")
+    return ref.flash_attention_ref(q, k, v, causal=causal, prefix_len=prefix_len).to(q.dtype)
 
 
 def oracle_loss_and_grads(api, params, batch):
@@ -2640,19 +2664,21 @@ def train_resume_leg(kernels) -> dict:
 def train_phase(kernels, laps: Laps) -> dict:
     """Path E, LM training: E1 the backward kernel against its plain
     version and both directions at the cross-attention shape
-    (``cross_attention_rows``; comparison launches, not the path's), then with the counts
+    (``cross_attention_rows``) and under the prefix-LM mask
+    (``vlm_attention_rows``; comparison launches, not the path's), then with the counts
     reset before each leg E2 (one train step against float64), E3
     (llama3.2-1b at full size) and E4 (resume and the example)."""
     rows = flash_bwd_rows(np.random.default_rng(SEED))
     cross = cross_attention_rows(np.random.default_rng(SEED))
-    laps.lap("train E1 backward kernel, cross-attention shape")
+    vlm = vlm_attention_rows(np.random.default_rng(SEED))
+    laps.lap("train E1 backward kernel, cross-attention and prefix-LM shapes")
     legs = [train_step_leg(kernels)]
     laps.lap("train E2 step")
     legs.append(train_full_leg(kernels))
     laps.lap("train E3 llama3.2-1b")
     legs.append(train_resume_leg(kernels))
     laps.lap("train E4 resume, example")
-    return dict(rows=rows, cross=cross, legs=legs)
+    return dict(rows=rows, cross=cross, vlm=vlm, legs=legs)
 
 
 # ---------------------------------------------------------------------------
@@ -2748,9 +2774,11 @@ def float64_leg(cfg, prompts, kernels, expected: dict, label: str,
                 inputs: dict | None = None) -> dict:
     """Prefill and ``n_decode`` decode steps of ``cfg`` in float32 (weights
     from ``torch.Generator`` seed 0 on the card) into a cache of
-    ``cache_len`` (default T + n_decode), each step fed the argmax token;
-    ``inputs`` (an encoder-decoder's ``frames``) go to every prefill beside
-    the prompt.  The flash kernels must launch as ``expected`` in the
+    ``cache_len`` (default P + T + n_decode), each step fed the argmax
+    token; ``inputs`` (an encoder-decoder's ``frames``, a VLM's
+    ``patches``) go to every prefill beside the prompt.  A VLM's P patches
+    are positions of the sequence: its cache holds them and its decode
+    steps start at P + T (P = 0 otherwise).  The flash kernels must launch as ``expected`` in the
     prefill and not at all in the decode steps.  The oracle is the same
     model functions in float64 (``plain_attention``,
     ``plain_decode_attention``) fed the same tokens: logits and every leaf
@@ -2769,10 +2797,11 @@ def float64_leg(cfg, prompts, kernels, expected: dict, label: str,
     from repro_torch.models import moe, registry
     from torch.utils import _pytree as pytree
 
-    T = prompts.shape[1]
-    cache_len = cache_len or T + n_decode
-    api = registry.build(cfg)
     inputs = inputs or {}
+    T = prompts.shape[1]
+    start = T + (inputs["patches"].shape[1] if cfg.frontend == "vision" else 0)
+    cache_len = cache_len or start + n_decode
+    api = registry.build(cfg)
     routings: list = []
     route = moe.moe_route
 
@@ -2794,7 +2823,7 @@ def float64_leg(cfg, prompts, kernels, expected: dict, label: str,
             prefill_launches = read_launches(f"{label} prefill", kernels, expected)
             steps, toks = [logits], [logits.argmax(-1)]
             for i in range(n_decode):
-                logits, cache = api.decode_step(params, toks[-1], T + i, cache)
+                logits, cache = api.decode_step(params, toks[-1], start + i, cache)
                 steps.append(logits)
                 toks.append(logits.argmax(-1))
         torch.cuda.synchronize()
@@ -2825,7 +2854,7 @@ def float64_leg(cfg, prompts, kernels, expected: dict, label: str,
                                         cache_len=cache_len)
             wants = [want]
             for i in range(n_decode):
-                want, cache = api64.decode_step(params64, toks[i], T + i, cache)
+                want, cache = api64.decode_step(params64, toks[i], start + i, cache)
                 wants.append(want)
         if queue:
             raise AssertionError(f"{label}: {len(queue)} routings not replayed")
@@ -2965,6 +2994,9 @@ def serve_leg(kernels, cfg=None, path: str = "moe_serve",
     B, T, NEW = batch, prompt_len, new
     prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
     inputs = inputs or {}
+    # a VLM's patches are positions: its cache holds them, its decode starts
+    # at P + T
+    P = inputs["patches"].shape[1] if cfg.frontend == "vision" else 0
     flash = {"flash_attention_wgmma": attention_layers(cfg), "flash_attention": 0,
              "flash_attention_tf32": 0}
     torch.cuda.synchronize()
@@ -2973,7 +3005,7 @@ def serve_leg(kernels, cfg=None, path: str = "moe_serve",
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    server = Server(cfg, cache_len=T + NEW, seed=SEED, device="cuda")
+    server = Server(cfg, cache_len=P + T + NEW, seed=SEED, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
@@ -2995,17 +3027,17 @@ def serve_leg(kernels, cfg=None, path: str = "moe_serve",
     with torch.inference_mode():
         batch_in = {"tokens": prompts, **inputs}
         reset(kernels)
-        logits0, cache = api.prefill(params, batch_in, cache_len=T + NEW)
+        logits0, cache = api.prefill(params, batch_in, cache_len=P + T + NEW)
         split_launches = {"prefill": read_launches(f"{label} prefill", kernels, flash)}
         reset(kernels)
         tok = logits0.argmax(-1)
-        logits1, cache = api.decode_step(params, tok, T, cache)
+        logits1, cache = api.decode_step(params, tok, P + T, cache)
         split_launches["decode_step"] = read_launches(
             f"{label} decode step", kernels, dict.fromkeys(flash, 0))
         finite = bool(torch.isfinite(logits0).all()) and bool(torch.isfinite(logits1).all())
         again = np.stack([tok.cpu().numpy(), logits1.argmax(-1).cpu().numpy()], axis=1)
         tokens_equal = bool(np.array_equal(again, res.tokens[:, :2]))
-        state = {"tok": logits1.argmax(-1), "pos": T + 1, "cache": cache}
+        state = {"tok": logits1.argmax(-1), "pos": P + T + 1, "cache": cache}
 
         def decode_step():
             lg, state["cache"] = api.decode_step(params, state["tok"], state["pos"],
@@ -3014,7 +3046,7 @@ def serve_leg(kernels, cfg=None, path: str = "moe_serve",
             state["pos"] += 1
 
         def prefill():
-            api.prefill(params, batch_in, cache_len=T + NEW)
+            api.prefill(params, batch_in, cache_len=P + T + NEW)
 
         if mixers:
             profiles = {"decode": _busy(*device_events(decode_step, 16)),
@@ -3035,7 +3067,7 @@ def serve_leg(kernels, cfg=None, path: str = "moe_serve",
         path=path, arch=cfg.name, n_layers=cfg.n_layers, n_params=api.n_params(),
         n_active_params=api.n_active_params(), param_bytes=param_bytes,
         allocated_before_init=start, init_s=init_s, init_peak_bytes=init_peak, batch=B,
-        prompt_len=T, new_tokens=NEW, cache_len=T + NEW, prefill_ms=1e3 * res.prefill_s,
+        prompt_len=T, new_tokens=NEW, cache_len=P + T + NEW, prefill_ms=1e3 * res.prefill_s,
         decode_ms_per_step=1e3 * res.decode_s / (NEW - 1),
         decode_tokens_per_s=B * (NEW - 1) / res.decode_s,
         generate_tokens_per_s=res.tokens_per_s, max_memory_allocated=peak,
@@ -4169,6 +4201,292 @@ def encdec_phase(kernels, laps: Laps) -> dict:
                             n_decode=ENCDEC_K3_DECODE,
                             inputs={"frames": stub_frames(small, LM_REDUCED_B)}))
     laps.lap("K3 reduced seamless train step and decode")
+    return dict(legs=legs)
+
+
+# ---------------------------------------------------------------------------
+# Path L: paligemma-3b, the VLM (a prefix of stub patch embeddings)
+# ---------------------------------------------------------------------------
+VLM_ARCH = "paligemma_3b"
+#: L1: float32 at full width and depth (2.51 B parameters, 10.05 GB; the
+#: float64 oracle 20.1 GB), 2 × (256 patches + 64 text tokens), prefill and
+#: 2 decode steps against float64 within MOE_F32_RTOL, the cache leaves too
+VLM_L1_B, VLM_L1_T = 2, 64
+#: L2: bf16 through ``Server``, 4 × (256 patches + 128 tokens), 32 new
+#: tokens into a cache of 416
+VLM_L2_B, VLM_L2_T, VLM_L2_NEW = 4, 128, 32
+#: L3: the reduced config's prefill of 16 patches + 24 tokens and 3 decode
+#: steps against float64
+VLM_L3_T, VLM_L3_DECODE = 24, 3
+#: the ranges of L2's profiled prefill (``mixer_profile``): the patches'
+#: projection, the attention layers and the dense MLPs (``other``: the
+#: embedding, norms and logits)
+VLM_PARTS = (("vision", "lm", "_with_prefix"), ("attention", "attention", "gqa_forward"),
+             ("mlp", "blocks", "apply_mlp_part"))
+#: E1's prefix-LM forward rows: (B, H, Hkv, T, D, P), each in bf16 and
+#: float32: L2's attention shape, a long one past the host's share, the mask
+#: at D 64 (E3's shape) and on the mma route at the reduced paligemma's
+#: head dim
+VLM_FWD_CASES = ((4, 8, 1, 384, 256, 256), (1, 8, 1, 2048, 256, 256),
+                 (4, 32, 8, 1024, 64, 256), (2, 4, 1, 80, 16, 16))
+#: E1's SIMT backward with the prefix at L3's step shape (a microbatch of
+#: 2 × (16 patches + 48 tokens)), (B, H, Hkv, T, D, P)
+VLM_BWD_CASE = (2, 4, 1, 64, 16, 16)
+
+
+def stub_patches(cfg, batch: int) -> np.ndarray:
+    """Patch embeddings [batch, n_frontend_tokens, d_model], float32
+    standard normal from seed SEED + 2: the stub vision front-end's
+    output."""
+    return np.random.default_rng(SEED + 2).standard_normal(
+        (batch, cfg.n_frontend_tokens, cfg.d_model), dtype=np.float32)
+
+
+def prefix_pairs(T: int, P: int) -> int:
+    """The (query, key) pairs a head's prefix-LM mask keeps: row r sees
+    max(r, P − 1) + 1 keys."""
+    return sum(max(r, P - 1) + 1 for r in range(T))
+
+
+def ptxas_instance(kernel, marker: str) -> dict:
+    """Registers and spill bytes of the instance of ``kernel``'s library
+    whose mangled name holds ``marker``, from the build's ``-Xptxas -v``
+    log (empty where the log is missing)."""
+    import re
+
+    text = kernel.library_path().with_suffix(".log")
+    if not text.exists():
+        return {}
+    out, lines = {}, text.read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and marker in line:
+            for nxt in lines[i + 1:i + 6]:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt)
+                if m:
+                    out.update(spill_store_bytes=int(m[1]), spill_load_bytes=int(m[2]))
+                m = re.search(r"Used (\d+) registers", nxt)
+                if m:
+                    out["registers"] = int(m[1])
+                    break
+            break
+    return out
+
+
+def vlm_attention_rows(rng) -> dict:
+    """E1 at path L's attention: the forward with the prefix-LM mask at
+    VLM_FWD_CASES in bf16 and float32 (the route ``variant`` names: wgmma
+    and tf32 at D 256 and 64, mma at D 16, the SIMT kernel by name beside
+    the mma one) against the plain version in float64 (``check_flash``'s
+    gate), two calls bitwise, L (bf16 at the wgmma pairs) within 1e-6 of
+    the plain version's largest magnitude and o bitwise the call without;
+    events ms in turns beside SDPA with the mask as an explicit boolean
+    ``attn_mask`` (the yardstick; the port never calls it), device ms, the
+    plain version's ms and the bound (q, k, v read and o written once; QKᵀ
+    and PV over the pairs the mask keeps, ``prefix_pairs``, at the dtype's
+    rate; float32 rows also ``tc_bound_ms``, three TF32 products), the
+    instance's registers and spill bytes from ptxas.  Then the SIMT
+    backward with the prefix at VLM_BWD_CASE in both dtypes against
+    ``ref.flash_attention_bwd_ref`` in float64 within BWD_RTOL, two calls
+    bitwise, beside SDPA's backward with the mask.  Comparison launches,
+    not the path's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ref
+
+    exp_rate = EXP_PER_CLOCK_SM * torch.cuda.get_device_properties(0).multi_processor_count \
+        * sm_clock_hz()
+    forward = []
+    for B, H, Hkv, T, D, P in VLM_FWD_CASES:
+        mask = ref.attention_mask(T, T, True, P, "cuda")
+        pairs = B * H * prefix_pairs(T, P)
+        for dt in (torch.bfloat16, torch.float32):
+            q = normal(rng, (B, H, T, D)).to(dt)
+            k, v = (normal(rng, (B, Hkv, T, D)).to(dt) for _ in range(2))
+            kind = tflash.variant(dt, D)
+            name = tflash.KERNELS[kind].name
+            label = f"E1 prefix {name} {(B, H, Hkv, T, D)} P {P} {dt}"
+            got = tflash.flash_attention(q, k, v, prefix_len=P)
+            want = ref.flash_attention_ref(q.double(), k.double(), v.double(), prefix_len=P)
+            err, rel = check_flash(label, got, want, dt)
+            if not torch.equal(got, tflash.flash_attention(q, k, v, prefix_len=P)):
+                raise AssertionError(f"{label}: two calls differ")
+            extra = {}
+            if D in tflash.HEAD_DIMS:
+                extra["simt_max_abs_err"] = check_flash(
+                    f"{label} simt", tflash.launch("simt", q, k, v, prefix_len=P), want, dt)[0]
+            if tflash.lse_route(dt, D):
+                o, lse = tflash.flash_attention(q, k, v, return_lse=True, prefix_len=P)
+                if not torch.equal(o, got):
+                    raise AssertionError(f"{label}: o differs with L asked for")
+                want_lse = ref.flash_attention_lse_ref(q, k, v, prefix_len=P)
+                extra["lse_max_abs_err"] = float((lse[..., :T] - want_lse).abs().max())
+                if not extra["lse_max_abs_err"] <= 1e-6 * float(want_lse.abs().max()):
+                    raise AssertionError(f"{label}: L {extra['lse_max_abs_err']}")
+                del o, lse, want_lse
+            del got, want
+
+            def kernel():
+                tflash.flash_attention(q, k, v, prefix_len=P)
+
+            def library():
+                F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+            def simt():
+                tflash.launch("simt", q, k, v, prefix_len=P)
+
+            fns = {"kernel": kernel, "library": library}
+            try:  # the yardstick only: the port never calls SDPA
+                library()
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                del fns["library"]
+                extra["library_refused"] = str(e)[:300]
+            if D in tflash.HEAD_DIMS:
+                fns["simt"] = simt
+            times = time_in_turns(fns)
+            nbytes = q.element_size() * (2 * B * H * T * D + 2 * B * Hkv * T * D)
+            flops = 4 * pairs * D
+            bms, by = bound_ms(nbytes, flops,
+                               BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S)
+            if dt == torch.float32:
+                extra["tc_bound_ms"] = bound_ms(nbytes, 3 * flops, TF32_OPS_PER_S)[0]
+            if "simt" in times:
+                extra.update(simt_ms=times["simt"],
+                             simt_device_ms=kernel_device_ms(simt, FLASH_KERNEL_NAMES["simt"]))
+            marker = {"wgmma": f"ILi{D}ELi{D}ELb0E", "tf32": f"ILi{D}ELi{D}ELb0E",
+                      "mma": f"I{'f' if dt == torch.float32 else '13__nv_bfloat16'}"
+                             f"Li{D}ELi{D}E"}[kind]
+            row = dict(shape=dict(B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=str(dt).split(".")[1]),
+                       prefix_len=P, pairs_per_head=prefix_pairs(T, P), variant=kind,
+                       max_abs_err=err, rel_err=rel, kernel_ms=times["kernel"],
+                       device_ms=kernel_device_ms(kernel, FLASH_KERNEL_NAMES[kind]),
+                       plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, prefix_len=P),
+                                        reps=5, warmup=1),
+                       library_ms=times.get("library"),
+                       library_device_ms=all_device_ms(library) if "library" in times else None,
+                       bound_ms=bms, bound_by=by,
+                       ptxas=ptxas_instance(tflash.KERNELS[kind],
+                                            "flash_attention_mma_kernel" + marker
+                                            if kind == "mma" else
+                                            f"flash_attention_{kind}_kernel" + marker),
+                       **extra)
+            forward.append(row)
+            log({"kernel": name, "path": "E1 prefix", **row})
+            del q, k, v
+        del mask
+    backward = []
+    B, H, Hkv, T, D, P = VLM_BWD_CASE
+    mask = ref.attention_mask(T, T, True, P, "cuda")
+    pairs = B * H * prefix_pairs(T, P)
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q, k, v, do = (normal(rng, s).to(dt) for s in ((B, H, T, D), (B, Hkv, T, D),
+                                                       (B, Hkv, T, D), (B, H, T, D)))
+        o = tflash.flash_attention(q, k, v, prefix_len=P)
+        label = f"E1 prefix flash_attention_bwd {(B, H, Hkv, T, D)} P {P} {dtype}"
+        got = tflash.flash_attention_bwd(q, k, v, o, do, prefix_len=P)
+        again = tflash.flash_attention_bwd(q, k, v, o, do, prefix_len=P)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{label}: two calls differ")
+        want = ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)),
+                                           prefix_len=P)
+        errors = {n: rel_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        check_within(label, errors, dict.fromkeys(errors, BWD_RTOL[dtype]))
+        max_abs = max(float((g.double() - w).abs().max()) for g, w in zip(got, want))
+        del got, again, want
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        extra = {}
+        try:  # the yardstick only: the port never calls SDPA
+            out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+            torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            out = None
+            extra["library_refused"] = str(e)[:300]
+
+        def kernel():
+            tflash.flash_attention_bwd(q, k, v, o, do, prefix_len=P)
+
+        def library():
+            torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
+
+        times = time_in_turns({"kernel": kernel,
+                               **({"library": library} if out is not None else {})})
+        nbytes = q.element_size() * 2 * (B * H * T + B * Hkv * T) * 2 * D
+        peak = BF16_OPS_PER_S if dt == torch.bfloat16 else TF32_OPS_PER_S
+        bms, by = bound_ms(nbytes, 2 * pairs * 5 * D, peak)
+        row = dict(shape=dict(B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=dtype), causal=True,
+                   prefix_len=P, route="simt", errors=errors, max_abs_err=max_abs,
+                   limit=BWD_RTOL[dtype], bitwise_repeat=True, kernel_ms=times["kernel"],
+                   device_ms=bwd_device_ms(kernel),
+                   plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do,
+                                                                        prefix_len=P),
+                                    reps=5, warmup=1),
+                   library_ms=times.get("library"), bound_ms=bms, bound_by=by,
+                   bound_peak="bf16 tensor cores" if dt == torch.bfloat16
+                   else "TF32 tensor cores, one term",
+                   exp_bound_ms=1e3 * 2 * pairs / exp_rate, **extra)
+        backward.append(row)
+        log({"kernel": "flash_attention_bwd", "path": "E1 prefix", **row})
+        del q, k, v, do, o, qs, ks, vs, out
+    torch.cuda.empty_cache()
+    return dict(forward=forward, backward=backward)
+
+
+def vlm_phase(kernels, laps: Laps) -> dict:
+    """Path L, paligemma-3b (the VLM: 256 stub patch embeddings times
+    ``vision_proj`` in front of the text, the prefix-LM mask, head dim 256),
+    after path K's memory is released, with the counts reset before each
+    leg: L1 (float32 at full width and depth against float64, logits and
+    every cache leaf; the TF32 forward at (256, 256) with the prefix once a
+    layer a prefill, 18, none a decode step), L2 (serving at full width and
+    depth, bf16, the wgmma forward 18 times a prefill and none a decode
+    step; the prefill's device ms by part, ``VLM_PARTS``; a second run's
+    tokens equal), L3 (the reduced config, head dim 16 and 16 patches: an
+    AdamW step against float64, repeated bitwise, the mma forward and the
+    SIMT backward carrying the prefix, then a prefill and decode steps
+    against float64)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({"path": "vlm", "memory_allocated_at_start": torch.cuda.memory_allocated()})
+    none = {"flash_attention": 0, "flash_attention_tf32": 0, "flash_attention_wgmma": 0}
+    cfg = get_config(VLM_ARCH)
+    full32 = dataclasses.replace(cfg, act_dtype="float32", param_dtype="float32")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (VLM_L1_B, VLM_L1_T)).astype(np.int32)
+    legs = [float64_leg(full32, prompts, kernels,
+                        {**none, "flash_attention_tf32": attention_layers(cfg)},
+                        "vlm_float32", own_prefill=False,
+                        inputs={"patches": stub_patches(cfg, VLM_L1_B)})]
+    laps.lap("L1 paligemma float32 against float64")
+    legs.append(serve_leg(kernels, cfg, path="vlm_serve", label="L2 paligemma serving",
+                          mixers=VLM_PARTS, prompt_len=VLM_L2_T, batch=VLM_L2_B,
+                          new=VLM_L2_NEW, inputs={"patches": stub_patches(cfg, VLM_L2_B)},
+                          repeat=True))
+    laps.lap("L2 paligemma serving")
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = cfg.reduced()
+    n = attention_layers(small) * MLA_G4_MICRO
+    step = train_step_check(kernels, small, "L3 paligemma train step, float32",
+                            {**none, "flash_attention": 2 * n, "flash_attention_bwd": n,
+                             "flash_attention_bwd_tf32": 0, "flash_attention_bwd_wgmma": 0})
+    log({"path": "vlm_train_step", **step})
+    legs.append(step)
+    small_prompts = np.random.default_rng(SEED).integers(
+        0, small.vocab_size, (LM_REDUCED_B, VLM_L3_T)).astype(np.int32)
+    legs.append(float64_leg(small, small_prompts, kernels,
+                            {**none, "flash_attention": attention_layers(small)},
+                            "vlm_float32_reduced", own_prefill=True,
+                            n_decode=VLM_L3_DECODE,
+                            inputs={"patches": stub_patches(small, LM_REDUCED_B)}))
+    laps.lap("L3 reduced paligemma train step and decode")
     return dict(legs=legs)
 
 
@@ -7368,6 +7686,7 @@ def main() -> int:
     from repro_torch.kernels.cofactor_update import COFACTOR_UPDATE
     from repro_torch.kernels.hash_table import (HASH_INSERT, HASH_PROBE, ROUTE_LAUNCHES,
                                                 ROUTES)
+    from repro_torch.kernels import flash_attention as tflash
     from repro_torch.kernels.flash_attention import (FLASH_ATTENTION,
                                                      FLASH_ATTENTION_BWD,
                                                      FLASH_ATTENTION_BWD_TF32,
@@ -7517,6 +7836,9 @@ def main() -> int:
     # float64, K2 serving at full width and depth, K3 the reduced config's
     # train step and decode
     encdec = encdec_phase(kernels, laps)
+    # path L, the VLM paligemma-3b: L1 float32 against float64 at full width
+    # and depth, L2 serving, L3 the reduced config's train step and decode
+    vlm = vlm_phase(kernels, laps)
     # path D's float32 legs are the TF32 and mma flash kernels' paths
     # the housing legs' executor runs (capture and replay-only, or the
     # capacity segments) count beside their eager runs, and the chain
@@ -7531,7 +7853,7 @@ def main() -> int:
                     "launches_sparse")
         if key in run] + [leg["launches"] for leg in durable + integrity + serve] + [
         leg["launches"] for leg in train["legs"] + moe["legs"] + mla["legs"]
-        + ssm["legs"] + encdec["legs"]] + [
+        + ssm["legs"] + encdec["legs"] + vlm["legs"]] + [
         train["legs"][-1]["example"]["launches"]]
     launched = {k.name: sum(r.get(k.name, 0) for r in runs) for k in kernels}
     if not all(launched[k.name] for k in built):
@@ -7610,10 +7932,13 @@ def main() -> int:
         # E1 at path K's encoder, decoder-self and cross-attention shapes, with L
         cross_rows = [r for r in train["cross"]["forward"]
                       if name == f"flash_attention_{r['variant']}"]
+        # E1 under the prefix-LM mask (path L): D 256, 64 and the mma route
+        vlm_rows = [r for r in train["vlm"]["forward"]
+                    if name == tflash.KERNELS[r["variant"]].name]
         summary.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(launched[n] for n in entries.get(name, [name])),
-            max_abs_err=max(r["max_abs_err"] for r in rows[name] + cross_rows),
+            max_abs_err=max(r["max_abs_err"] for r in rows[name] + cross_rows + vlm_rows),
             ms=row["kernel_ms"], device_ms=row["device_ms"],
             plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
@@ -7626,12 +7951,14 @@ def main() -> int:
             **({"launches_by_route": {n.split(":")[1]: launched[n] for n in entries[name]}}
                if name in ("hash_insert", "hash_insert_targets") else {}),
             **({"mla": mla_rows} if mla_rows else {}),
-            **({"cross": cross_rows} if cross_rows else {})))
+            **({"cross": cross_rows} if cross_rows else {}),
+            **({"vlm": vlm_rows} if vlm_rows else {})))
     # the three backward routes: the wgmma route at BWD_MAIN and the tf32
     # route at BWD_MAIN_F32 (each with the SIMT route's time at its shape
     # beside it), the SIMT route at BWD_SIMT; each with path G's rows of
     # its route at MLA's head-dim pairs
-    bwd_rows = train["rows"] + mla["bwd_rows"] + train["cross"]["backward"]
+    bwd_rows = (train["rows"] + mla["bwd_rows"] + train["cross"]["backward"]
+                + train["vlm"]["backward"])
     for name, route, (B, H, Hkv, T, D, dtype, causal) in (
             ("flash_attention_bwd_wgmma", "wgmma", BWD_MAIN),
             ("flash_attention_bwd_tf32", "tf32", BWD_MAIN_F32),
@@ -7659,7 +7986,9 @@ def main() -> int:
                                    "simt_ms", "simt_device_ms") if k in row},
             cases=cases, mla=mla_rows,
             cross=[{k: r[k] for k in keys if k in r} for r in train["cross"]["backward"]
-                   if r["route"] == route]))
+                   if r["route"] == route],
+            vlm=[{k: r[k] for k in (*keys, "prefix_len") if k in r}
+                 for r in train["vlm"]["backward"] if r["route"] == route]))
     log({"kernels": summary})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
@@ -7669,8 +7998,8 @@ def main() -> int:
 
 def flash_main(run) -> int:
     """Builds the six flash kernels and calls ``run(kernels)``: the
-    ``--backward``, ``--ssm`` and ``--encdec`` runs of parts of the smoke; the whole
-    smoke runs without arguments."""
+    ``--backward``, ``--ssm``, ``--encdec`` and ``--vlm`` runs of parts of the
+    smoke; the whole smoke runs without arguments."""
     import torch
 
     if not torch.cuda.is_available():
@@ -7716,6 +8045,13 @@ def encdec_main(kernels) -> None:
     encdec_phase(kernels, Laps())
 
 
+def vlm_main(kernels) -> None:
+    """``python3 chip_smoke.py --vlm``: path L alone (``vlm_phase``), after
+    E1's prefix-LM rows (``vlm_attention_rows``), for work on the VLM."""
+    vlm_attention_rows(np.random.default_rng(SEED))
+    vlm_phase(kernels, Laps())
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--backward"]:
         sys.exit(flash_main(backward_main))
@@ -7723,6 +8059,8 @@ if __name__ == "__main__":
         sys.exit(flash_main(ssm_main))
     if sys.argv[1:2] == ["--encdec"]:
         sys.exit(flash_main(encdec_main))
+    if sys.argv[1:2] == ["--vlm"]:
+        sys.exit(flash_main(vlm_main))
     if sys.argv[1:2] == ["--durable-child"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
         sys.exit(durable_child(sys.argv[2]))

@@ -1,6 +1,9 @@
 // Causal flash attention on Hopper at small head dims: o = softmax(q kᵀ /
 // √D, causal) v for q [B, H, T, D], k [B, Hkv, Tk, D], v [B, Hkv, Tk, Dv]
-// and o [B, H, T, Dv], float32 or bfloat16.  Two kernels in one library:
+// and o [B, H, T, Dv], float32 or bfloat16, optionally under a prefix-LM
+// mask (prefix P: row r sees keys 0..max(r, P − 1), the reduced
+// paligemma-3b's 16 patch positions; tiles are visited up to max(last row,
+// P − 1) and masked past max(first row, P − 1)).  Two kernels in one library:
 // - flash_attention_mma_kernel, the one the wrapper takes at (D, Dv) ∈
 //   {(8, 8), (16, 16), (32, 32), (16, 8)}: warp-level tensor cores
 //   (mma.sync), each product sized by its own head dim (QKᵀ by D, PV and O
@@ -110,7 +113,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreadsFA)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
-                           int Tq, int Tk, float scale, int causal) {
+                           int Tq, int Tk, float scale, int causal, int prefix) {
   using L = Layout<D>;
   constexpr int P = L::kPitch;
   constexpr int PP = L::kPPitch;
@@ -147,7 +150,8 @@ __global__ void __launch_bounds__(kThreadsFA)
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
   }
 
-  const int q_last = min(q0 + kBlockQ, Tq) - 1;
+  // row r sees keys 0..max(r, prefix − 1) (causal; prefix 0: none)
+  const int q_last = max(min(q0 + kBlockQ, Tq) - 1, prefix - 1);
   int n_tiles = (Tk + kBlockK - 1) / kBlockK;
   if (causal) n_tiles = min(n_tiles, q_last / kBlockK + 1);
 
@@ -192,7 +196,7 @@ __global__ void __launch_bounds__(kThreadsFA)
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
         s[i][j] *= scale;
-        if (kpos >= Tk || (causal && kpos > qpos)) s[i][j] = kNegInf;
+        if (kpos >= Tk || (causal && kpos > max(qpos, prefix - 1))) s[i][j] = kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -251,7 +255,7 @@ __global__ void __launch_bounds__(kThreadsFA)
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                   int Hkv, int Tq, int Tk, int causal, cudaStream_t stream) {
+                   int Hkv, int Tq, int Tk, int causal, int prefix, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, D>;
   const size_t bytes = Layout<D>::kBytes;
   const cudaError_t err = repro::allow_smem(kernel, bytes);
@@ -261,20 +265,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid((Tq + kBlockQ - 1) / kBlockQ, B * H);
   kernel<<<grid, kThreadsFA, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Hkv, Tq, Tk, scale, causal);
+      static_cast<T*>(o), H, Hkv, Tq, Tk, scale, causal, prefix);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_dim(const void* q, const void* k, const void* v, void* o, int B,
-                       int H, int Hkv, int Tq, int Tk, int D, int causal,
+                       int H, int Hkv, int Tq, int Tk, int D, int causal, int prefix,
                        cudaStream_t stream) {
   switch (D) {
-    case 8: return launch<T, 8>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
-    case 16: return launch<T, 16>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+    case 8: return launch<T, 8>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, prefix, stream);
+    case 16: return launch<T, 16>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, prefix, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, prefix, stream);
+    case 64: return launch<T, 64>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, prefix, stream);
+    case 128: return launch<T, 128>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, prefix, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -411,7 +415,7 @@ template <typename T, int D, int DV>
 __global__ void __launch_bounds__(MmaCfg<T, D, DV>::kThreads, 2)
     flash_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
-                               int Tq, int Tk, float scale_log2, int causal) {
+                               int Tq, int Tk, float scale_log2, int causal, int prefix) {
   // scale_log2 = log₂e / √D: P = exp2(s·scale_log2 − m·scale_log2)
   using C = MmaCfg<T, D, DV>;
   extern __shared__ __align__(128) unsigned char smem_mma[];
@@ -430,7 +434,8 @@ __global__ void __launch_bounds__(MmaCfg<T, D, DV>::kThreads, 2)
   const char* vb = reinterpret_cast<const char*>(v + kvh * Tk * DV);
   const uint32_t sbase = repro::smem_u32(smem_mma);
 
-  const int q_last = min(q0 + C::kRows, Tq) - 1;
+  // row r sees keys 0..max(r, prefix − 1) (causal; prefix 0: none)
+  const int q_last = max(min(q0 + C::kRows, Tq) - 1, prefix - 1);
   int n_tiles = (Tk + kMmaKeys - 1) / kMmaKeys;
   if (causal) n_tiles = min(n_tiles, q_last / kMmaKeys + 1);
 
@@ -532,7 +537,7 @@ __global__ void __launch_bounds__(MmaCfg<T, D, DV>::kThreads, 2)
     const int k0 = t * kMmaKeys;
     // a warp whose rows are all past Tq, or all before the tile's first key
     // (causal), has nothing to add from it
-    if (kVariant == kNoCompute || w0 >= Tq || (causal && k0 > w0 + 15)) {
+    if (kVariant == kNoCompute || w0 >= Tq || (causal && k0 > max(w0 + 15, prefix - 1))) {
       if (kVariant == kNoCompute) l[0] = l[1] = 1.f;
       continue;
     }
@@ -577,13 +582,14 @@ __global__ void __launch_bounds__(MmaCfg<T, D, DV>::kThreads, 2)
     }
 
     // online softmax over the tile; masked scores are -1e30
-    if (k0 + kMmaKeys > Tk || (causal && k0 + kMmaKeys - 1 > w0)) {
+    if (k0 + kMmaKeys > Tk || (causal && k0 + kMmaKeys - 1 > max(w0, prefix - 1))) {
 #pragma unroll
       for (int nt = 0; nt < C::kNT; ++nt) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int key = k0 + 8 * nt + 2 * t4 + (i & 1);
-          if (key >= Tk || (causal && key > r0 + 8 * (i >> 1))) sc[nt][i] = kNegInf;
+          if (key >= Tk || (causal && key > max(r0 + 8 * (i >> 1), prefix - 1)))
+            sc[nt][i] = kNegInf;
         }
       }
     }
@@ -719,7 +725,7 @@ __global__ void __launch_bounds__(MmaCfg<T, D, DV>::kThreads, 2)
 
 template <typename T, int D, int DV>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H,
-                       int Hkv, int Tq, int Tk, int causal, cudaStream_t stream) {
+                       int Hkv, int Tq, int Tk, int causal, int prefix, cudaStream_t stream) {
   using C = MmaCfg<T, D, DV>;
   // the reference's 1.0 / (D ** 0.5), a double rounded to float
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
@@ -730,21 +736,21 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
   const dim3 grid((Tq + C::kRows - 1) / C::kRows, B * H);
   kernel<<<grid, C::kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Hkv, Tq, Tk, scale * kLog2e, causal);
+      static_cast<T*>(o), H, Hkv, Tq, Tk, scale * kLog2e, causal, prefix);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_mma_dim(const void* q, const void* k, const void* v, void* o, int B,
                            int H, int Hkv, int Tq, int Tk, int D, int Dv, int causal,
-                           cudaStream_t stream) {
+                           int prefix, cudaStream_t stream) {
   if (D == 16 && Dv == 8)  // the reduced MLA
-    return launch_mma<T, 16, 8>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+    return launch_mma<T, 16, 8>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, prefix, stream);
   if (Dv != D) return cudaErrorInvalidValue;
   switch (D) {
-    case 8: return launch_mma<T, 8, 8>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
-    case 16: return launch_mma<T, 16, 16>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
-    case 32: return launch_mma<T, 32, 32>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, stream);
+    case 8: return launch_mma<T, 8, 8>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, prefix, stream);
+    case 16: return launch_mma<T, 16, 16>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, prefix, stream);
+    case 32: return launch_mma<T, 32, 32>(q, k, v, o, B, H, Hkv, Tq, Tk, causal, prefix, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -754,25 +760,28 @@ cudaError_t launch_mma_dim(const void* q, const void* k, const void* v, void* o,
 // o [B, H, Tq, Dv] = attention of q [B, H, Tq, D] over k [B, Hkv, Tk, D]
 // and v [B, Hkv, Tk, Dv] (all contiguous, one dtype: 0 float32, 1 bfloat16;
 // k and v 16-byte aligned for the mma kernel's copies); causal: query i
-// sees keys 0..i (Tq == Tk).  simt = 0 takes the mma kernel ((D, Dv) ∈
+// sees keys 0..i (Tq == Tk), and with prefix P > 0 (causal only) keys
+// 0..max(i, P − 1), the prefix-LM mask.  simt = 0 takes the mma kernel ((D, Dv) ∈
 // {(8, 8), (16, 16), (32, 32), (16, 8)}), 1 the SIMT kernel (D = Dv ∈ {8,
 // 16, 32, 64, 128}).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* o, int B, int H, int Hkv, int Tq, int Tk,
-                                     int D, int Dv, int dtype, int causal, int simt,
-                                     cudaStream_t stream) {
+                                     int D, int Dv, int dtype, int causal, int prefix,
+                                     int simt, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk < 0 || simt < 0 ||
-      simt > 1 || (simt && Dv != D))
+      simt > 1 || (simt && Dv != D) || prefix < 0 || prefix > Tq ||
+      (prefix > 0 && (!causal || Tq != Tk)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (dtype == 0) {
-    err = simt ? launch_dim<float>(q, k, v, o, B, H, Hkv, Tq, Tk, D, causal, stream)
-               : launch_mma_dim<float>(q, k, v, o, B, H, Hkv, Tq, Tk, D, Dv, causal,
+    err = simt ? launch_dim<float>(q, k, v, o, B, H, Hkv, Tq, Tk, D, causal, prefix, stream)
+               : launch_mma_dim<float>(q, k, v, o, B, H, Hkv, Tq, Tk, D, Dv, causal, prefix,
                                        stream);
   } else if (dtype == 1) {
-    err = simt ? launch_dim<__nv_bfloat16>(q, k, v, o, B, H, Hkv, Tq, Tk, D, causal, stream)
+    err = simt ? launch_dim<__nv_bfloat16>(q, k, v, o, B, H, Hkv, Tq, Tk, D, causal, prefix,
+                                           stream)
                : launch_mma_dim<__nv_bfloat16>(q, k, v, o, B, H, Hkv, Tq, Tk, D, Dv, causal,
-                                               stream);
+                                               prefix, stream);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,4 +1,4 @@
-// The gradient of causal (or full) flash attention on Hopper: dQ, dK and dV
+// The gradient of causal (or full, or prefix-LM) flash attention on Hopper: dQ, dK and dV
 // of o = softmax(q kᵀ / √D) v for q [B, H, T, D], k [B, Hkv, Tk, D], v
 // [B, Hkv, Tk, Dv] and o, dO [B, H, T, Dv], float32 or bfloat16, (D, Dv) ∈
 // {(8, 8), (16, 16), (32, 32), (64, 64), (128, 128), (16, 8)}: (16, 8) is
@@ -152,7 +152,7 @@ __global__ void __launch_bounds__(kThreadsBwd)
                         const T* __restrict__ v, const T* __restrict__ o,
                         const T* __restrict__ dout, T* __restrict__ dq,
                         float* __restrict__ lse2, float* __restrict__ delta, int H, int Hkv,
-                        int Tq, int Tk, float scale, int causal) {
+                        int Tq, int Tk, float scale, int causal, int prefix) {
   constexpr int P = Rows<D>::kPitch;
   constexpr int PV = Rows<DV>::kPitch;
   constexpr int DJ = Rows<D>::kDJ;
@@ -201,7 +201,8 @@ __global__ void __launch_bounds__(kThreadsBwd)
     dl[i] = part;
   }
 
-  const int q_last = min(q0 + kTile, Tq) - 1;
+  // row r sees keys 0..max(r, prefix − 1) (causal; prefix 0: none)
+  const int q_last = max(min(q0 + kTile, Tq) - 1, prefix - 1);
   int n_tiles = (Tk + kTile - 1) / kTile;
   if (causal) n_tiles = min(n_tiles, q_last / kTile + 1);
 
@@ -226,7 +227,8 @@ __global__ void __launch_bounds__(kThreadsBwd)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        s[i][j] = (kpos >= Tk || (causal && kpos > qpos)) ? kNegInf : s[i][j] * c2;
+        s[i][j] = (kpos >= Tk || (causal && kpos > max(qpos, prefix - 1))) ? kNegInf
+                                                                           : s[i][j] * c2;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -274,7 +276,7 @@ __global__ void __launch_bounds__(kThreadsBwd)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool in = qpos < Tq && kpos < Tk && !(causal && kpos > qpos);
+        const bool in = qpos < Tq && kpos < Tk && !(causal && kpos > max(qpos, prefix - 1));
         const float p = in ? exp2f(s[i][j] * c2 - lrow[i]) : 0.f;
         Ss[(ty + 16 * i) * kSPitch + tx + 16 * j] = p * (dp[i][j] - dl[i]);
       }
@@ -317,7 +319,7 @@ __global__ void __launch_bounds__(kThreadsBwd)
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse2, const float* __restrict__ delta,
                           T* __restrict__ dk, T* __restrict__ dv, int H, int Hkv, int Tq,
-                          int Tk, float scale, int causal) {
+                          int Tk, float scale, int causal, int prefix) {
   constexpr int DJ = Rows<D>::kDJ;
   constexpr int DJV = Rows<DV>::kDJ;
   extern __shared__ float smem[];
@@ -354,8 +356,10 @@ __global__ void __launch_bounds__(kThreadsBwd)
 
   const int nq = (Tq + kTile - 1) / kTile;
   // causal: query i sees keys 0..i, so tiles of rows below k0 see none of
-  // these keys (the tiles are 64 rows and 64 keys, aligned at 0)
-  const int qt0 = causal ? kt : 0;
+  // these keys (the tiles are 64 rows and 64 keys, aligned at 0); with a
+  // prefix, rows below it see the keys below it, so a tile of such keys
+  // takes every query tile
+  const int qt0 = causal && k0 >= prefix ? kt : 0;
   for (int g = 0; g < G; ++g) {
     const long long row_base = (static_cast<long long>(b) * H + kvh * G + g) * Tq;
     for (int qt = qt0; qt < nq; ++qt) {
@@ -381,7 +385,7 @@ __global__ void __launch_bounds__(kThreadsBwd)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int kpos = k0 + tx + 16 * j;
-          const bool in = qpos < Tq && kpos < Tk && !(causal && kpos > qpos);
+          const bool in = qpos < Tq && kpos < Tk && !(causal && kpos > max(qpos, prefix - 1));
           const float p = in ? exp2f(s[i][j] * c2 - Ls[rr]) : 0.f;
           Ps[rr * kSPitch + tx + 16 * j] = p;
           ds[i][j] = p * (dp[i][j] - Ds[rr]);
@@ -422,7 +426,7 @@ template <typename T, int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, void* dq, void* dk, void* dv, float* lse2,
                    float* delta, int B, int H, int Hkv, int Tq, int Tk, int causal,
-                   cudaStream_t stream) {
+                   int prefix, cudaStream_t stream) {
   using L = Bwd<D, DV>;
   auto dq_kernel = flash_bwd_dq_kernel<T, D, DV>;
   auto dkv_kernel = flash_bwd_dkdv_kernel<T, D, DV>;
@@ -438,13 +442,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   const dim3 grid_q((Tq + kTile - 1) / kTile, B * H);
   dq_kernel<<<grid_q, kThreadsBwd, L::kDqBytes, stream>>>(
       qt, kt, vt, static_cast<const T*>(o), dot, static_cast<T*>(dq), lse2, delta, H, Hkv,
-      Tq, Tk, scale, causal);
+      Tq, Tk, scale, causal, prefix);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_k((Tk + kTile - 1) / kTile, B * Hkv);
   dkv_kernel<<<grid_k, kThreadsBwd, L::kDkvBytes, stream>>>(
       qt, kt, vt, dot, lse2, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Tq,
-      Tk, scale, causal);
+      Tk, scale, causal, prefix);
   return cudaGetLastError();
 }
 
@@ -452,11 +456,11 @@ template <typename T>
 cudaError_t launch_dim(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, void* dq, void* dk, void* dv, float* lse2,
                        float* delta, int B, int H, int Hkv, int Tq, int Tk, int D,
-                       int Dv, int causal, cudaStream_t stream) {
+                       int Dv, int causal, int prefix, cudaStream_t stream) {
 #define REPRO_BWD_CASE(DIM, DIMV)                                                    \
   if (D == DIM && Dv == DIMV)                                                        \
     return launch<T, DIM, DIMV>(q, k, v, o, dout, dq, dk, dv, lse2, delta, B, H, Hkv, \
-                                Tq, Tk, causal, stream);
+                                Tq, Tk, causal, prefix, stream);
   REPRO_BWD_CASE(8, 8)
   REPRO_BWD_CASE(16, 16)
   REPRO_BWD_CASE(32, 32)
@@ -469,27 +473,29 @@ cudaError_t launch_dim(const void* q, const void* k, const void* v, const void* 
 
 }  // namespace
 
-// dtype 0: float32, 1: bfloat16; (D, Dv) a pair above.  lse2 and delta are
-// float32 [B, H, Tq]
+// dtype 0: float32, 1: bfloat16; (D, Dv) a pair above; causal with prefix
+// P > 0 (Tq == Tk): row r sees keys 0..max(r, P − 1), the prefix-LM mask.
+// lse2 and delta are float32 [B, H, Tq]
 // scratch (the row logsumexp in base 2, and Δ), written by the first kernel
 // and read by the second.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, void* dq, void* dk,
                                          void* dv, void* lse2, void* delta, int B, int H,
                                          int Hkv, int Tq, int Tk, int D, int Dv,
-                                         int dtype, int causal, cudaStream_t stream) {
+                                         int dtype, int causal, int prefix,
+                                         cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 ||
-      (causal && Tq != Tk))
+      (causal && Tq != Tk) || prefix < 0 || prefix > Tq || (prefix > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   float* l = static_cast<float*>(lse2);
   float* dl = static_cast<float*>(delta);
   cudaError_t err;
   if (dtype == 0) {
     err = launch_dim<float>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, D, Dv,
-                            causal, stream);
+                            causal, prefix, stream);
   } else if (dtype == 1) {
     err = launch_dim<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk,
-                                    D, Dv, causal, stream);
+                                    D, Dv, causal, prefix, stream);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,7 +1,8 @@
 // Causal flash attention on Hopper's tensor cores in float32: o =
 // softmax(q kᵀ / √D, causal) v for q [B, H, T, D], k [B, Hkv, Tk, D], v
 // [B, Hkv, Tk, Dv] and o [B, H, T, Dv] in float32, (D, Dv) ∈ {(64, 64),
-// (128, 128), (192, 128)}.
+// (128, 128), (192, 128), (256, 256)}, optionally under paligemma-3b's
+// prefix-LM mask.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (Pallas
 // body _kernel) for float32 at the head dims of every full-size config the
@@ -78,7 +79,19 @@
 // (K 24, V 16) and a split slot 80 KB, so one of each fits (216 KB): the
 // TMA of tile t + 1 overlaps the consumer's work on tile t, its split
 // does not.  The split slots of K and Vᵀ are sized by D and Dv apart.
-// With a pointer for it (at D = Dv), a second instance of the kernel also
+// (256, 256), paligemma-3b: Q_hi and Q_lo in shared memory as at (192,
+// 128) (64 KB each), and K/V tiles of kN = 16 keys, one raw stage (32 KB)
+// and one split slot (64 KB): 224 KB.  A row of Vᵀ is then 16 keys, half a
+// 128-byte swizzled row, so Vᵀ rows d and d + 128 share one (kVtFold): the
+// PV wgmma of output columns 64·h .. reads rows (64·h) % 128 from byte
+// 64·(h / 2) of the row, in the same 128-byte swizzle as every operand.
+// S is m64n16k8 (32 k-steps, three terms); the consumer holds O (128
+// registers), S (8), a tile's P V (32) and P (16).
+// The prefix-LM mask (prefix P > 0, causal, Tq == Tk): row r sees keys
+// 0..max(r, P − 1).  A q tile visits the K/V tiles up to max(its last
+// row, P − 1); a warpgroup skips a tile past max(its last row, P − 1) and
+// masks one past max(its first row, P − 1) key by key.
+// With a pointer for it (at D = Dv ≤ 128), a second instance of the kernel also
 // writes each row's logsumexp in base 2, L = m·c + log₂(max(l, 1e-30)) with
 // c = log₂e / √D, into float32 [B·H, T rounded up to 128] (the rows of its
 // query tiles, past T too), so that the float32 backward need not compute
@@ -118,13 +131,17 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D, int DV>
 struct Cfg {
-  static constexpr int kN = 32;                  // keys of a K/V tile
+  static constexpr int kN = D == 256 ? 16 : 32;  // keys of a K/V tile
   static constexpr int kNC = D == 64 ? 2 : 1;    // consumer warpgroups
   static constexpr int kThreads = 128 * (1 + kNC);
   static constexpr int kBlockQ = 64 * kNC;       // query rows of a q tile
-  static constexpr bool kQhiSmem = D == 192;     // Q_hi from shared memory
+  static constexpr bool kQhiSmem = D >= 192;     // Q_hi from shared memory
   static constexpr int kTileK = kN * D * 4;      // bytes of one K tile
   static constexpr int kTileV = kN * DV * 4;     // bytes of one V or Vᵀ tile
+  // Vᵀ [Dv x kN] in rows of 32 floats (one 128-byte swizzled row): at kN =
+  // 16 row d % (Dv / 2) holds Vᵀ rows d and d + Dv / 2 side by side
+  static constexpr int kVtFold = kPanel / kN;
+  static constexpr int kVtRows = DV / kVtFold;
   // raw K/V stages (TMA) and split slots
   static constexpr int kRawStages = D == 64 && kVariant != kRing22 ? 3 : kQhiSmem ? 1 : 2;
   static constexpr int kSlots = kRawStages;
@@ -225,6 +242,19 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// d[8] (+)= A[64 x 8] · B[8 x 16]: A and B tf32, K-major in shared memory;
+// accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_tf32_ss_n16(float (&d)[8], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d[16] (+)= A[64 x 8] · B[8 x 32]: A and B tf32, K-major in shared memory;
 // accumulate = 0 overwrites d.
 __device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
@@ -237,6 +267,18 @@ __device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da, u
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// S (+)= Q Kᵀ over one k-step, both operands from shared memory, for a
+// K/V tile of N keys.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  if constexpr (N == 16) {
+    wgmma_tf32_ss_n16(d, da, db, accumulate);
+  } else {
+    wgmma_tf32_ss_n32(d, da, db, accumulate);
+  }
 }
 
 template <int N>
@@ -258,12 +300,14 @@ __device__ __forceinline__ uint32_t swz(int row, int col, int rows) {
 }
 
 // K/V tiles that query tile qt (of kBlockQ rows) visits: all of them, or
-// causally those up to the diagonal.
+// causally those up to the last key its last row sees (with a prefix of P
+// rows, row r sees keys 0..max(r, P − 1)).
 template <int D, int DV>
-__device__ __forceinline__ int kv_tiles(int qt, int Tq, int Tk, int causal) {
+__device__ __forceinline__ int kv_tiles(int qt, int Tq, int Tk, int causal, int prefix) {
   using C = Cfg<D, DV>;
   const int n = (Tk + C::kN - 1) / C::kN;
-  return causal ? min(n, (min((qt + 1) * C::kBlockQ, Tq) - 1) / C::kN + 1) : n;
+  const int last = max(min((qt + 1) * C::kBlockQ, Tq) - 1, prefix - 1);
+  return causal ? min(n, last / C::kN + 1) : n;
 }
 
 template <int D, int DV, bool kLse = false>
@@ -272,7 +316,7 @@ __global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
                                 const __grid_constant__ CUtensorMap vmap,
                                 const float* __restrict__ q, float* __restrict__ o, int H,
                                 int Hkv, int Tq, int Tk, float scale_log2, int causal,
-                                float* __restrict__ lse2, int Tpad) {
+                                int prefix, float* __restrict__ lse2, int Tpad) {
   // scale_log2 = log₂e / √D: P = exp2(s·scale_log2 − m·scale_log2)
   using C = Cfg<D, DV>;
   constexpr int kN = C::kN;
@@ -294,8 +338,9 @@ __global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
   const int b = bh / H;
   const int h = bh - b * H;
   const int kvh = b * Hkv + h / (H / Hkv);
-  const int n0 = kv_tiles<D, DV>(qt_heavy, Tq, Tk, causal);
-  const int n_total = n0 + (n_pass == 2 ? kv_tiles<D, DV>(qt_light, Tq, Tk, causal) : 0);
+  const int n0 = kv_tiles<D, DV>(qt_heavy, Tq, Tk, causal, prefix);
+  const int n_total =
+      n0 + (n_pass == 2 ? kv_tiles<D, DV>(qt_light, Tq, Tk, causal, prefix) : 0);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::kRawStages; ++s) {
@@ -362,7 +407,7 @@ __global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
         split_tf32(*reinterpret_cast<const float*>(rv + swz(key0 + 2, d, kN)), hi.y, lo.y);
         split_tf32(*reinterpret_cast<const float*>(rv + swz(key0 + 4, d, kN)), hi.z, lo.z);
         split_tf32(*reinterpret_cast<const float*>(rv + swz(key0 + 6, d, kN)), hi.w, lo.w);
-        const uint32_t off = swz(d, 4 * jq, DV);
+        const uint32_t off = swz(d % C::kVtRows, kN * (d / C::kVtRows) + 4 * jq, C::kVtRows);
         *reinterpret_cast<uint4*>(sp + 2 * C::kTileK + off) = hi;
         *reinterpret_cast<uint4*>(sp + 2 * C::kTileK + C::kTileV + off) = lo;
       }
@@ -392,7 +437,9 @@ __global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
     for (int pass = 0; pass < n_pass; ++pass) {
       const int qt = pass == 0 ? qt_heavy : qt_light;
       const int q0 = qt * C::kBlockQ + 64 * cw;  // this warpgroup's first row
-      const int n_tiles = kv_tiles<D, DV>(qt, Tq, Tk, causal);
+      const int n_tiles = kv_tiles<D, DV>(qt, Tq, Tk, causal, prefix);
+      // the last key this warpgroup's first and last rows see
+      const int seen_lo = max(q0, prefix - 1), seen_hi = max(q0 + 63, prefix - 1);
       const int r0 = q0 + 16 * warp + lane / 4;  // rows r0 and r0 + 8
       // every wgmma of the last pass has read Q_lo (a barrier of this
       // warpgroup's 128 threads)
@@ -432,7 +479,7 @@ __global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
         const int slot = it % C::kSlots;
         const int k0 = t * kN;
         mbar_wait(split_full(slot), (it / C::kSlots) & 1);
-        if (kVariant == kNoCompute || (causal && k0 > q0 + 63)) {  // wholly above its rows
+        if (kVariant == kNoCompute || (causal && k0 > seen_hi)) {  // wholly above its rows
           mbar_arrive(split_empty(slot));
           continue;
         }
@@ -448,9 +495,9 @@ __global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
         for (int kk = 0; kk < D / 8; ++kk) {
           const uint32_t off = (kk / 4) * kN * kRowBytes + (kk % 4) * 32;
           const uint32_t qoff = (kk / 4) * 64 * kRowBytes + (kk % 4) * 32;
-          wgmma_tf32_ss_n32(sc, smem_desc(qlo + qoff), smem_desc(khi + off), kk > 0);
+          wgmma_tf32_ss<kN>(sc, smem_desc(qlo + qoff), smem_desc(khi + off), kk > 0);
           if constexpr (C::kQhiSmem) {
-            wgmma_tf32_ss_n32(sc, smem_desc(qhi + qoff), smem_desc(klo + off), 1);
+            wgmma_tf32_ss<kN>(sc, smem_desc(qhi + qoff), smem_desc(klo + off), 1);
           } else {
             wgmma_tf32<kN>(sc, qh[kk], smem_desc(klo + off), 1);
           }
@@ -459,7 +506,7 @@ __global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
         for (int kk = 0; kk < D / 8; ++kk) {
           const uint32_t off = (kk / 4) * kN * kRowBytes + (kk % 4) * 32;
           if constexpr (C::kQhiSmem) {
-            wgmma_tf32_ss_n32(sc, smem_desc(qhi + (kk / 4) * 64 * kRowBytes + (kk % 4) * 32),
+            wgmma_tf32_ss<kN>(sc, smem_desc(qhi + (kk / 4) * 64 * kRowBytes + (kk % 4) * 32),
                               smem_desc(khi + off), 1);
           } else {
             wgmma_tf32<kN>(sc, qh[kk], smem_desc(khi + off), 1);
@@ -470,11 +517,12 @@ __global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
         fence_regs(sc);
 
         // online softmax over the tile; masked scores are -1e30
-        if (k0 + kN > Tk || (causal && k0 + kN - 1 > q0)) {
+        if (k0 + kN > Tk || (causal && k0 + kN - 1 > seen_lo)) {
 #pragma unroll
           for (int i = 0; i < kN / 2; ++i) {
             const int key = k0 + 8 * (i / 4) + c2 + (i & 1);
-            if (key >= Tk || (causal && key > r0 + 8 * ((i >> 1) & 1))) sc[i] = kNegInf;
+            const int row = r0 + 8 * ((i >> 1) & 1);
+            if (key >= Tk || (causal && key > max(row, prefix - 1))) sc[i] = kNegInf;
           }
         }
         float mx[2] = {m[0], m[1]};
@@ -518,7 +566,9 @@ __global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
         // tile's 3·kN / 8 products, not over every key of the row.
 #pragma unroll
         for (int half = 0; half < (kVariant == kNoPV ? 0 : DV / 64); ++half) {
-          const uint32_t hoff = half * 64 * kRowBytes;  // Vᵀ rows 64·half ..
+          // Vᵀ rows 64·half .. (at kN = 16 folded: C::kVtRows)
+          const uint32_t hoff = ((64 * half) % C::kVtRows) * kRowBytes +
+                                kN * 4 * ((64 * half) / C::kVtRows);
           if (kVariant == kOInTensorCores)
             for (int i = 0; i < 32; ++i) tile[i] *= alpha[(i >> 1) & 1];
           fence_regs(tile);
@@ -527,14 +577,14 @@ __global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
           wgmma_fence();
 #pragma unroll
           for (int g = 0; g < kN / 8; ++g) {
-            const uint32_t off = hoff + (g / 4) * DV * kRowBytes + (g % 4) * 32;
+            const uint32_t off = hoff + (g / 4) * C::kVtRows * kRowBytes + (g % 4) * 32;
             wgmma_tf32<64>(tile, pl[g], smem_desc(vhi + off),
                            kVariant == kOInTensorCores || g > 0);
             wgmma_tf32<64>(tile, ph[g], smem_desc(vlo + off), 1);
           }
 #pragma unroll
           for (int g = 0; g < kN / 8; ++g) {
-            const uint32_t off = hoff + (g / 4) * DV * kRowBytes + (g % 4) * 32;
+            const uint32_t off = hoff + (g / 4) * C::kVtRows * kRowBytes + (g % 4) * 32;
             wgmma_tf32<64>(tile, ph[g], smem_desc(vhi + off), 1);
           }
           wgmma_commit();
@@ -622,7 +672,8 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D, int 
 
 template <int D, int DV, bool kLse = false>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse2,
-                   int B, int H, int Hkv, int Tq, int Tk, int causal, cudaStream_t stream) {
+                   int B, int H, int Hkv, int Tq, int Tk, int causal, int prefix,
+                   cudaStream_t stream) {
   using C = Cfg<D, DV>;
   auto kernel = flash_attention_tf32_kernel<D, DV, kLse>;
   static bool allowed = false;
@@ -643,7 +694,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, flo
   // L's rows: Tq rounded up to 128, as the backward's scratch
   const int Tpad = (Tq + 127) / 128 * 128;
   kernel<<<grid, C::kThreads, C::kBytes, stream>>>(kmap, vmap, q, o, H, Hkv, Tq, Tk,
-                                                   scale * kLog2e, causal, lse2, Tpad);
+                                                   scale * kLog2e, causal, prefix, lse2, Tpad);
   return cudaGetLastError();
 }
 
@@ -651,17 +702,20 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, flo
 
 // o [B, H, Tq, Dv] = attention of q [B, H, Tq, D] over k [B, Hkv, Tk, D]
 // and v [B, Hkv, Tk, Dv], all contiguous float32 (k and v 16-byte aligned),
-// (D, Dv) ∈ {(64, 64), (128, 128), (192, 128)}; causal: query i sees keys
-// 0..i (Tq == Tk).  With no keys (Tk == 0) the output is zero, as 0 / 1e-30.
+// (D, Dv) ∈ {(64, 64), (128, 128), (192, 128), (256, 256)}; causal: query i
+// sees keys 0..i (Tq == Tk), and with prefix P > 0 (causal only) keys
+// 0..max(i, P − 1), the prefix-LM mask.  With no keys (Tk == 0) the output
+// is zero, as 0 / 1e-30.
 // lse2, null or (at (64, 64) and (128, 128) with Tk > 0 only) float32 [B·H,
 // Tq rounded up to 128], receives each row's logsumexp in base 2 (the rows
 // of the query tiles, so every row the backward reads).
 extern "C" int repro_flash_attention_tf32(const float* q, const float* k, const float* v,
                                           float* o, float* lse2, int B, int H, int Hkv,
                                           int Tq, int Tk, int D, int Dv, int causal,
-                                          cudaStream_t stream) {
+                                          int prefix, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk < 0 ||
-      (lse2 != nullptr && (D != Dv || Tk == 0)))
+      (lse2 != nullptr && (D != Dv || D > 128 || Tk == 0)) || prefix < 0 || prefix > Tq ||
+      (prefix > 0 && (!causal || Tq != Tk)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Tk == 0) {
     cudaMemsetAsync(o, 0, static_cast<size_t>(B) * H * Tq * Dv * 4, stream);
@@ -669,15 +723,17 @@ extern "C" int repro_flash_attention_tf32(const float* q, const float* k, const 
   }
   cudaError_t err;
   if (D == 64 && Dv == 64 && lse2 != nullptr) {
-    err = launch<64, 64, true>(q, k, v, o, lse2, B, H, Hkv, Tq, Tk, causal, stream);
+    err = launch<64, 64, true>(q, k, v, o, lse2, B, H, Hkv, Tq, Tk, causal, prefix, stream);
   } else if (D == 64 && Dv == 64) {
-    err = launch<64, 64>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, stream);
+    err = launch<64, 64>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, prefix, stream);
   } else if (D == 128 && Dv == 128 && lse2 != nullptr) {
-    err = launch<128, 128, true>(q, k, v, o, lse2, B, H, Hkv, Tq, Tk, causal, stream);
+    err = launch<128, 128, true>(q, k, v, o, lse2, B, H, Hkv, Tq, Tk, causal, prefix, stream);
   } else if (D == 128 && Dv == 128) {
-    err = launch<128, 128>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, stream);
+    err = launch<128, 128>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, prefix, stream);
   } else if (D == 192 && Dv == 128) {
-    err = launch<192, 128>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, stream);
+    err = launch<192, 128>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, prefix, stream);
+  } else if (D == 256 && Dv == 256) {
+    err = launch<256, 256>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, prefix, stream);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,11 +1,13 @@
 // Causal flash attention on Hopper's tensor cores: o = softmax(q kᵀ / √D,
 // causal) v for q [B, H, T, D], k [B, Hkv, Tk, D], v [B, Hkv, Tk, Dv] and
-// o [B, H, T, Dv] in bfloat16, (D, Dv) ∈ {(64, 64), (128, 128), (192, 128)}.
+// o [B, H, T, Dv] in bfloat16, (D, Dv) ∈ {(64, 64), (128, 128), (192, 128),
+// (256, 256)}, optionally under paligemma-3b's prefix-LM mask.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (Pallas
 // body _kernel), the prefill attention of every layer of the GQA models
 // and of deepseek-v3-671b's MLA (q and k of 128 + 64 columns, v of 128:
-// the reference's flash_attention_jnp takes Dv ≠ D), for bf16 at the head
+// the reference's flash_attention_jnp takes Dv ≠ D) and of paligemma-3b
+// (head dim 256, a prefix of 256 patch positions), for bf16 at the head
 // dims of every config the port builds.  float32 stays on
 // flash_attention_tf32.cu, the reduced configs' head dims on
 // flash_attention.cu.  It computes what the Pallas kernel computes: scores
@@ -91,6 +93,24 @@
 // without the warpgroups taking turns on named barriers; so was S of the
 // next tile issued behind this tile's PV.
 //
+// (256, 256), paligemma-3b.  Two Q tiles of 128 rows would be 128 KB and a
+// stage of 128 keys 128 KB: past the limit.  So the key tile is 64 keys
+// (Cfg::kBlockK), one Q tile stays resident (64 KB, loaded again for the
+// second pass as at (192, 128)) and two stages of 32 KB of K and 32 KB of V
+// make 192 KB.  S is m64n64 (D / 16 = 16 k-steps); a consumer's O is 64 ×
+// 256 float32, 128 registers a thread, so P is made k-step by k-step as at
+// (192, 128) (4 k-steps, the terms of two held) and PV is one m64n256k16
+// wgmma a term.  The 384-thread layout with setmaxnreg stays: the
+// consumers need O, S (32) and the held terms (24) beside the addresses.
+// With 64-key tiles a 128-row q tile crosses the diagonal in two tiles, so
+// the mask below applies to every tile past the first row's last key.
+// The prefix-LM mask (prefix P > 0, causal, Tq == Tk): row r sees keys
+// 0..max(r, P − 1), the reference's (k ≤ r) | (r < P & k < P).  A q tile
+// visits the K/V tiles up to max(its last row, P − 1), and a tile past
+// max(its first row, P − 1) is masked key by key; the heavy/light pairing
+// of q tiles is unchanged (every tile is still some block's), only less
+// even where a prefix makes the first tiles heavier.
+//
 // The tensor maps are encoded on the host for each call through
 // cuTensorMapEncodeTiled, found with cudaGetDriverEntryPoint, so the
 // library links no libcuda.
@@ -118,7 +138,6 @@ constexpr int kNoSoftmax = 3;   // P = S: no max, no exponentials
 constexpr int kNoCompute = 4;   // the tiles staged, nothing computed
 
 constexpr int kBlockQ = 128;     // query rows of a block, 64 per consumer
-constexpr int kBlockK = 128;     // keys of a K/V tile
 constexpr int kPanel = 64;       // bf16 columns of one 128-byte swizzled panel
 constexpr int kRowBytes = 128;   // bytes of one row of a panel
 constexpr int kThreadsWG = 384;  // producer warpgroup + two consumer warpgroups
@@ -131,10 +150,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D, int DV>
 struct Cfg {
+  static constexpr int kBlockK = D == 256 ? 64 : 128;  // keys of a K/V tile
+  static constexpr int kThreads = D == 192 ? kThreadsMla : kThreadsWG;
+  // P made and its PV wgmmas issued k-step by k-step (below)
+  static constexpr bool kStepwise = D >= 192;
   static constexpr int kStages = D == 64 ? 4 : 2;
   static constexpr int kPanels = D / kPanel;          // of Q and K
   static constexpr int kVPanels = DV / kPanel;        // of V
-  static constexpr int kQTiles = D == 192 ? 1 : 2;    // resident Q tiles
+  static constexpr int kQTiles = D >= 192 ? 1 : 2;    // resident Q tiles
   static constexpr int kQBytes = kBlockQ * D * 2;     // one Q tile
   static constexpr int kKBytes = kBlockK * D * 2;     // one K tile
   static constexpr int kVBytes = kBlockK * DV * 2;    // one V tile
@@ -234,6 +257,34 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[32] (+)= A[64 x 16] · B[16 x 64], A and B K-major in shared memory;
+// accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// S (+)= Q Kᵀ over one k-step for a K/V tile of N keys.
+template <int N>
+__device__ __forceinline__ void wgmma_s(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                        int accumulate) {
+  if constexpr (N == 64) {
+    wgmma_ss_n64(d, da, db, accumulate);
+  } else {
+    wgmma_ss_n128(d, da, db, accumulate);
+  }
+}
+
 // d[32] += A[64 x 16] · B[16 x 64], A in registers (bf16 pairs), B MN-major
 // in shared memory (transpose bit set).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
@@ -274,37 +325,78 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[128] += A[64 x 16] · B[16 x 256], A in registers (bf16 pairs), B MN-major
+// in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int DV>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (DV == 64) {
     wgmma_rs_n64(o, a, db);
-  } else {
+  } else if constexpr (DV == 128) {
     wgmma_rs_n128(o, a, db);
+  } else {
+    wgmma_rs_n256(o, a, db);
   }
 }
 
 using repro::bf16x2_high;
 
-// K/V tiles that q tile qt visits: all of them, or causally those up to the
-// diagonal.
-__device__ __forceinline__ int kv_tiles(int qt, int Tq, int Tk, int causal) {
-  const int n = (Tk + kBlockK - 1) / kBlockK;
-  return causal ? min(n, (min((qt + 1) * kBlockQ, Tq) - 1) / kBlockK + 1) : n;
+// K/V tiles of `block_k` keys that q tile qt visits: all of them, or
+// causally those up to the last key its last row sees (with a prefix of P
+// rows, row r sees keys 0..max(r, P − 1)).
+__device__ __forceinline__ int kv_tiles(int qt, int Tq, int Tk, int causal, int prefix,
+                                        int block_k) {
+  const int n = (Tk + block_k - 1) / block_k;
+  const int last = max(min((qt + 1) * kBlockQ, Tq) - 1, prefix - 1);
+  return causal ? min(n, last / block_k + 1) : n;
 }
 
 template <int D, int DV, bool kLse = false>
-__global__ void __launch_bounds__(D == 192 ? kThreadsMla : kThreadsWG, 1)
+__global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                  const __grid_constant__ CUtensorMap kmap,
                                  const __grid_constant__ CUtensorMap vmap,
                                  __nv_bfloat16* __restrict__ o, int H, int Hkv, int Tq,
-                                 int Tk, float scale_log2, int causal,
+                                 int Tk, float scale_log2, int causal, int prefix,
                                  float* __restrict__ lse2) {
   // scale_log2 = log₂e / √D: P = exp2(s·scale_log2 − m·scale_log2)
   using C = Cfg<D, DV>;
-  // (192, 128) builds each k-step's terms just before its PV wgmmas (below);
-  // the variants cut that instance only
+  constexpr int kBlockK = C::kBlockK;
+  // (192, 128) and (256, 256) build each k-step's terms just before its PV
+  // wgmmas (below); the variants cut the (192, 128) instance only
   constexpr bool kMla = D == 192;
   constexpr int kV = kMla ? kVariant : 0;
   constexpr int kT = kV == kOneTerm ? 1 : kTerms;  // bf16 terms of P
@@ -364,7 +456,8 @@ __global__ void __launch_bounds__(D == 192 ? kThreadsMla : kThreadsWG, 1)
           mbar_wait(q_free, 0);
           load_q(pass);
         }
-        const int n_tiles = kv_tiles(pass == 0 ? qt_heavy : qt_light, Tq, Tk, causal);
+        const int n_tiles =
+            kv_tiles(pass == 0 ? qt_heavy : qt_light, Tq, Tk, causal, prefix, kBlockK);
         for (int t = 0; t < n_tiles; ++t, ++it) {
           const int s = it % C::kStages;
           mbar_wait(empty(s), ((it / C::kStages) & 1) ^ 1);
@@ -394,7 +487,7 @@ __global__ void __launch_bounds__(D == 192 ? kThreadsMla : kThreadsWG, 1)
 
     for (int pass = 0; pass < n_pass; ++pass) {
       const int q0 = (pass == 0 ? qt_heavy : qt_light) * kBlockQ;
-      const int n_tiles = kv_tiles(q0 / kBlockQ, Tq, Tk, causal);
+      const int n_tiles = kv_tiles(q0 / kBlockQ, Tq, Tk, causal, prefix, kBlockK);
       const int r0 = q0 + 64 * cw + 16 * warp + lane / 4;  // rows r0 and r0 + 8
       const uint32_t sq_wg = sq + (pass % C::kQTiles) * C::kQBytes + cw * 64 * kRowBytes;
 #pragma unroll
@@ -423,7 +516,7 @@ __global__ void __launch_bounds__(D == 192 ? kThreadsMla : kThreadsWG, 1)
               smem_desc(sq_wg + (kk / 4) * kBlockQ * kRowBytes + off, 16, 1024);
           const uint64_t db = smem_desc(
               sk + s * C::kKBytes + (kk / 4) * kBlockK * kRowBytes + off, 16, 1024);
-          wgmma_ss_n128(sc, da, db, kk > 0);
+          wgmma_s<kBlockK>(sc, da, db, kk > 0);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -433,13 +526,20 @@ __global__ void __launch_bounds__(D == 192 ? kThreadsMla : kThreadsWG, 1)
         if (C::kQTiles == 1 && n_pass == 2 && pass == 0 && t == n_tiles - 1)
           mbar_arrive(q_free);
 
-        // online softmax over the tile; masked scores are -1e30
-        if (t == n_tiles - 1) {  // the only tile with masked keys
-          const int k0 = t * kBlockK;
+        // online softmax over the tile; masked scores are -1e30 (row r sees
+        // keys up to max(r, prefix − 1)).  With kBlockK = kBlockQ the last
+        // tile is the only one with masked keys (the tiles up to it end
+        // before the first row's own key or before key prefix − 1); with
+        // 64-key tiles every tile past the first row's last key is masked.
+        const int k0 = t * kBlockK;
+        if (kBlockK == kBlockQ
+                ? t == n_tiles - 1
+                : k0 + kBlockK > Tk || (causal && k0 + kBlockK - 1 > max(q0, prefix - 1))) {
+          const int last[2] = {max(r0, prefix - 1), max(r0 + 8, prefix - 1)};
 #pragma unroll
           for (int i = 0; i < kBlockK / 2; ++i) {
             const int key = k0 + 8 * (i / 4) + c2 + (i & 1);
-            if (key >= Tk || (causal && key > r0 + 8 * ((i >> 1) & 1))) sc[i] = kNegInf;
+            if (key >= Tk || (causal && key > last[(i >> 1) & 1])) sc[i] = kNegInf;
           }
         }
         float mx[2] = {m[0], m[1]};
@@ -459,7 +559,7 @@ __global__ void __launch_bounds__(D == 192 ? kThreadsMla : kThreadsWG, 1)
 #pragma unroll
         for (int i = 0; kSoftmax && i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
-        if constexpr (kMla) {
+        if constexpr (C::kStepwise) {
           // k-step by k-step: the step's probabilities, their sums and
           // terms, then its PV wgmmas, a commit group each, so the tensor
           // cores take step kk while the terms of step kk + 1 are made.  The
@@ -615,24 +715,26 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D, int 
 
 template <int D, int DV, bool kLse = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse2, int B,
-                   int H, int Hkv, int Tq, int Tk, int causal, cudaStream_t stream) {
+                   int H, int Hkv, int Tq, int Tk, int causal, int prefix,
+                   cudaStream_t stream) {
+  using C = Cfg<D, DV>;
   auto kernel = flash_attention_wgmma_kernel<D, DV, kLse>;
-  const size_t bytes = Cfg<D, DV>::kBytes;
+  const size_t bytes = C::kBytes;
   cudaError_t err = repro::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap qmap, kmap, vmap;
   if (!make_map(&qmap, encode, q, D, Tq, B * H, kBlockQ) ||
-      !make_map(&kmap, encode, k, D, Tk, B * Hkv, kBlockK) ||
-      !make_map(&vmap, encode, v, DV, Tk, B * Hkv, kBlockK))
+      !make_map(&kmap, encode, k, D, Tk, B * Hkv, C::kBlockK) ||
+      !make_map(&vmap, encode, v, DV, Tk, B * Hkv, C::kBlockK))
     return cudaErrorInvalidValue;
   // the reference's 1.0 / (D ** 0.5), a double rounded to float, in log₂ units
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   const dim3 grid(((Tq + kBlockQ - 1) / kBlockQ + 1) / 2, B * H);  // two q tiles a block
-  kernel<<<grid, D == 192 ? kThreadsMla : kThreadsWG, bytes, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), H, Hkv, Tq, Tk, scale * kLog2e,
-      causal, lse2);
+  kernel<<<grid, C::kThreads, bytes, stream>>>(qmap, kmap, vmap,
+                                               static_cast<__nv_bfloat16*>(o), H, Hkv, Tq,
+                                               Tk, scale * kLog2e, causal, prefix, lse2);
   return cudaGetLastError();
 }
 
@@ -640,16 +742,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 
 // o [B, H, Tq, Dv] = attention of q [B, H, Tq, D] over k [B, Hkv, Tk, D]
 // and v [B, Hkv, Tk, Dv], all contiguous bfloat16, (D, Dv) ∈ {(64, 64),
-// (128, 128), (192, 128)}; causal: query i sees keys 0..i (Tq == Tk).  With
-// no keys (Tk == 0) the output is zero, as 0 / 1e-30.  lse2, null or (with
-// Tk > 0 only) float32 [B·H, Tq rounded up to 128], receives each row's
-// logsumexp in base 2 (every row of the padded length).
+// (128, 128), (192, 128), (256, 256)}; causal: query i sees keys 0..i (Tq ==
+// Tk), and with prefix P > 0 (causal only) keys 0..max(i, P − 1), the
+// prefix-LM mask.  With no keys (Tk == 0) the output is zero, as 0 / 1e-30.
+// lse2, null or (with Tk > 0 only) float32 [B·H, Tq rounded up to 128],
+// receives each row's logsumexp in base 2 (every row of the padded length).
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
                                            void* o, void* lse2, int B, int H, int Hkv, int Tq,
-                                           int Tk, int D, int Dv, int causal,
+                                           int Tk, int D, int Dv, int causal, int prefix,
                                            cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk < 0 ||
-      (lse2 != nullptr && Tk == 0))
+      (lse2 != nullptr && Tk == 0) || prefix < 0 || prefix > Tq ||
+      (prefix > 0 && (!causal || Tq != Tk)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Tk == 0) {
     cudaMemsetAsync(o, 0, static_cast<size_t>(B) * H * Tq * Dv * 2, stream);
@@ -658,19 +762,24 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const v
   cudaError_t err;
   if (D == 64 && Dv == 64 && lse2 != nullptr) {
     err = launch<64, 64, true>(q, k, v, o, static_cast<float*>(lse2), B, H, Hkv, Tq, Tk,
-                               causal, stream);
+                               causal, prefix, stream);
   } else if (D == 64 && Dv == 64) {
-    err = launch<64, 64>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, stream);
+    err = launch<64, 64>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, prefix, stream);
   } else if (D == 128 && Dv == 128 && lse2 != nullptr) {
     err = launch<128, 128, true>(q, k, v, o, static_cast<float*>(lse2), B, H, Hkv, Tq, Tk,
-                                 causal, stream);
+                                 causal, prefix, stream);
   } else if (D == 128 && Dv == 128) {
-    err = launch<128, 128>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, stream);
+    err = launch<128, 128>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, prefix, stream);
   } else if (D == 192 && Dv == 128 && lse2 != nullptr) {
     err = launch<192, 128, true>(q, k, v, o, static_cast<float*>(lse2), B, H, Hkv, Tq, Tk,
-                                 causal, stream);
+                                 causal, prefix, stream);
   } else if (D == 192 && Dv == 128) {
-    err = launch<192, 128>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, stream);
+    err = launch<192, 128>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, prefix, stream);
+  } else if (D == 256 && Dv == 256 && lse2 != nullptr) {
+    err = launch<256, 256, true>(q, k, v, o, static_cast<float*>(lse2), B, H, Hkv, Tq, Tk,
+                                 causal, prefix, stream);
+  } else if (D == 256 && Dv == 256) {
+    err = launch<256, 256>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, prefix, stream);
   } else {
     err = cudaErrorInvalidValue;
   }

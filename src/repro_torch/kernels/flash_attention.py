@@ -6,18 +6,22 @@ attention of q [B, H, T, D] over k [B, Hkv, Tk, D] and v [B, Hkv, Tk, Dv],
 with scale 1/√D, masked scores at -1e30, running max, denominator and
 accumulator in float32, the denominator floored at 1e-30 and one rounding
 of the output [B, H, T, Dv] to q's dtype (float32 or bfloat16).  The head
-dims are a pair of ``PAIRS``: D = Dv ∈ {8, 16, 32, 64, 128}, or MLA's
+dims are a pair of ``PAIRS``: D = Dv ∈ {8, 16, 32, 64, 128, 256}, or MLA's
 (the reference's ``flash_attention_jnp`` takes Dv ≠ D): deepseek-v3-671b's
 (192, 128) and its reduced config's (16, 8).  GQA is by index: q-head h
 reads kv-head h // (H / Hkv), so K and V are never repeated in memory.
-Any T works; causal attention needs T == Tk (query i sees keys 0..i).  A
-CPU tensor takes the plain version (``ref``), cast to q's dtype; any other
-dtype, device or head-dim pair raises.
+Any T works; causal attention needs T == Tk (query i sees keys 0..i).
+``prefix_len`` P is paligemma-3b's prefix-LM mask (causal, T == Tk): row r
+sees keys 0..max(r, P − 1), the reference's ``prefix_lm_mask``; every
+forward kernel and the SIMT backward take it.  A CPU tensor takes the
+plain version (``ref``), cast to q's dtype; any other dtype, device or
+head-dim pair raises.
 
 Three kernels, chosen by :func:`variant` from the dtype and head dims alone:
 
-* ``csrc/flash_attention_wgmma.cu`` for bf16 at (64, 64), (128, 128) and
-  (192, 128), the head dims of every full-size config the port builds:
+* ``csrc/flash_attention_wgmma.cu`` for bf16 at (64, 64), (128, 128),
+  (192, 128) and (256, 256), the head dims of every full-size config the
+  port builds:
   tensor cores (wgmma) fed by TMA, with P split into three bf16 terms for
   PV (they sum to the float32 P exactly);
 * ``csrc/flash_attention_tf32.cu`` for float32 at the same pairs, the
@@ -40,8 +44,10 @@ function; its backward is :func:`flash_attention_bwd`, hand kernels with no
 Pallas original (the reference trains by ``jax.grad`` through
 ``flash_attention_jnp``): dQ, dK and dV, float32 accumulation, no atomics
 (two calls are bitwise equal), at every pair of ``BWD_PAIRS`` (those of
-``PAIRS``: MLA trains too).  Three routes, chosen by :func:`bwd_variant`
-from the dtype and head dims alone:
+``PAIRS`` but (256, 256), whose backward raises ``NotImplementedError``
+naming ``UNPORTED_BWD``: MLA trains, paligemma-3b's reduced config (head
+dim 16) too).  Three routes, chosen by :func:`bwd_variant` from the dtype
+and head dims alone:
 
 * ``csrc/flash_attention_bwd_wgmma.cu`` (``FLASH_ATTENTION_BWD_WGMMA``) for
   bf16 at (64, 64), (128, 128) and (192, 128), the training path of every
@@ -60,7 +66,8 @@ from the dtype and head dims alone:
 * ``csrc/flash_attention_bwd.cu`` (``FLASH_ATTENTION_BWD``) for every dtype
   at D = Dv ∈ {8, 16, 32} and MLA's reduced (16, 8): two SIMT float32
   kernels, P and dS never rounded (plain version
-  ``ref.flash_attention_bwd_ref``).
+  ``ref.flash_attention_bwd_ref``); the only route that takes a prefix
+  (the tensor-core routes raise ``NotImplementedError`` for one).
 
 :func:`bwd_launch` runs any of them by name; the SIMT route takes every
 dtype at every pair but (192, 128), so ``chip_smoke.py`` times it beside the
@@ -76,14 +83,14 @@ from . import ref
 from ._cuda import I32, PTR, CudaKernel, on_card, stream_handle
 
 FLASH_ATTENTION = CudaKernel("flash_attention.cu", "repro_flash_attention",
-                             [PTR] * 4 + [I32] * 10)
+                             [PTR] * 4 + [I32] * 11)
 FLASH_ATTENTION_WGMMA = CudaKernel("flash_attention_wgmma.cu",
-                                   "repro_flash_attention_wgmma", [PTR] * 5 + [I32] * 8)
+                                   "repro_flash_attention_wgmma", [PTR] * 5 + [I32] * 9)
 FLASH_ATTENTION_TF32 = CudaKernel("flash_attention_tf32.cu",
-                                  "repro_flash_attention_tf32", [PTR] * 5 + [I32] * 8)
+                                  "repro_flash_attention_tf32", [PTR] * 5 + [I32] * 9)
 FLASH_ATTENTION_BWD = CudaKernel("flash_attention_bwd.cu",
                                  "repro_flash_attention_bwd",
-                                 [PTR] * 10 + [I32] * 9)
+                                 [PTR] * 10 + [I32] * 10)
 FLASH_ATTENTION_BWD_WGMMA = CudaKernel("flash_attention_bwd_wgmma.cu",
                                        "repro_flash_attention_bwd_wgmma",
                                        [PTR] * 10 + [I32] * 9)
@@ -91,16 +98,22 @@ FLASH_ATTENTION_BWD_TF32 = CudaKernel("flash_attention_bwd_tf32.cu",
                                       "repro_flash_attention_bwd_tf32",
                                       [PTR] * 10 + [I32] * 9)
 
-#: head dims the kernels are compiled for with q, k and v of one head dim
+#: head dims the SIMT kernels are compiled for with q, k and v of one head dim
 HEAD_DIMS = (8, 16, 32, 64, 128)
-#: (q/k head dim, v head dim) pairs the forward kernels take: D = Dv, and
-#: MLA's (deepseek-v3-671b's 128 + 64 → 128, its reduced config's 8 + 8 → 8)
-PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((16, 8), (192, 128))
+#: (q/k head dim, v head dim) pairs the forward kernels take: D = Dv, MLA's
+#: (deepseek-v3-671b's 128 + 64 → 128, its reduced config's 8 + 8 → 8) and
+#: paligemma-3b's 256
+PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((16, 8), (192, 128), (256, 256))
 #: pairs of the wgmma forward kernels (wgmma: bf16, tf32: float32)
-WGMMA_PAIRS = ((64, 64), (128, 128), (192, 128))
-#: pairs the backward kernels take: every forward pair (the tensor-core
-#: backward kernels take WGMMA_PAIRS, as the forward's)
-BWD_PAIRS = PAIRS
+WGMMA_PAIRS = ((64, 64), (128, 128), (192, 128), (256, 256))
+#: forward pairs whose backward is not ported (NotImplementedError naming
+#: UNPORTED_BWD)
+UNPORTED_BWD_PAIRS = ((256, 256),)
+UNPORTED_BWD = "ROADMAP Queue 1 item 21"
+#: pairs the backward kernels take: every forward pair but
+#: UNPORTED_BWD_PAIRS (the tensor-core backward kernels take the others of
+#: WGMMA_PAIRS, as the forward's)
+BWD_PAIRS = tuple(p for p in PAIRS if p not in UNPORTED_BWD_PAIRS)
 #: pairs of the SIMT backward kernels: all but (192, 128)
 SIMT_BWD_PAIRS = tuple(p for p in BWD_PAIRS if p != (192, 128))
 #: the tensor-core backwards' L and Δ scratch has T rounded up to a multiple
@@ -108,8 +121,8 @@ SIMT_BWD_PAIRS = tuple(p for p in BWD_PAIRS if p != (192, 128))
 BWD_ROWS = 128
 #: pairs at which the forward kernel of each dtype writes L, each row's
 #: logsumexp in base 2, and the backward takes it in place of a pass of its
-#: own: the wgmma routes at every pair, the tf32 routes at D = Dv (their
-#: (192, 128) dq kernel still makes its own pass)
+#: own: the wgmma routes at every pair, the tf32 routes at (64, 64) and
+#: (128, 128) (their (192, 128) dq kernel still makes its own pass)
 LSE_PAIRS = {torch.bfloat16: WGMMA_PAIRS, torch.float32: ((64, 64), (128, 128))}
 #: dtype codes of ``csrc/flash_attention.cu``'s C entry
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -143,13 +156,21 @@ KERNELS = {"wgmma": FLASH_ATTENTION_WGMMA, "tf32": FLASH_ATTENTION_TF32,
            "mma": FLASH_ATTENTION}
 
 
+def unported_bwd(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet ({UNPORTED_BWD})")
+
+
 def bwd_variant(dtype: torch.dtype, head_dim: int, v_head_dim: int | None = None) -> str:
     """The backward route of (dtype, head_dim, v_head_dim) on the card
     (``v_head_dim`` defaults to ``head_dim``): at a pair of WGMMA_PAIRS
     ``"wgmma"`` (``FLASH_ATTENTION_BWD_WGMMA``) for bf16 and ``"tf32"``
     (``FLASH_ATTENTION_BWD_TF32``) for float32, else ``"simt"``
-    (``FLASH_ATTENTION_BWD``)."""
-    if (head_dim, head_dim if v_head_dim is None else v_head_dim) in WGMMA_PAIRS:
+    (``FLASH_ATTENTION_BWD``).  A pair of UNPORTED_BWD_PAIRS raises
+    ``NotImplementedError``."""
+    pair = (head_dim, head_dim if v_head_dim is None else v_head_dim)
+    if pair in UNPORTED_BWD_PAIRS:
+        raise unported_bwd(f"the backward at (D, Dv) = {pair}")
+    if pair in WGMMA_PAIRS:
         if dtype == torch.bfloat16:
             return "wgmma"
         if dtype == torch.float32:
@@ -165,9 +186,11 @@ BWD_PLAIN = {"wgmma": ref.flash_attention_bwd_bf16_ref,
              "simt": ref.flash_attention_bwd_ref}
 
 
-def _check(q, k, v, causal: bool) -> None:
+def _check(q, k, v, causal: bool, prefix_len=None) -> int:
     """Raise unless q [B, H, T, D], k [B, Hkv, Tk, D] and v [B, Hkv, Tk,
-    Dv] are what the kernels take."""
+    Dv] are what the kernels take, with ``prefix_len`` (a prefix-LM mask:
+    ``causal`` and T == Tk, ``ref.check_prefix``); returns the prefix
+    length, 0 for none."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"expected q [B,H,T,D], k [B,Hkv,Tk,D] and v [B,Hkv,Tk,Dv]; "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -177,6 +200,7 @@ def _check(q, k, v, causal: bool) -> None:
         raise ValueError(f"k and v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
     if causal and T != Tk:
         raise ValueError(f"causal attention needs T == Tk, got {T} and {Tk}")
+    prefix = ref.check_prefix(causal, T, Tk, prefix_len)
     if (D, v.shape[3]) not in PAIRS:
         raise ValueError(f"head dims (q/k {D}, v {v.shape[3]}) are not a pair the "
                          f"kernels take: {PAIRS}")
@@ -188,35 +212,44 @@ def _check(q, k, v, causal: bool) -> None:
         raise TypeError(f"q has dtype {q.dtype}, expected float32 or bfloat16")
     if on_card(q) and B * H > 65535:
         raise ValueError(f"B·H = {B * H} exceeds the grid's 65,535")
+    return prefix
 
 
-def flash_attention(q, k, v, causal: bool = True, return_lse: bool = False):
+def flash_attention(q, k, v, causal: bool = True, return_lse: bool = False,
+                    prefix_len=None):
     """q [B, H, T, D], k [B, Hkv, Tk, D], v [B, Hkv, Tk, Dv] -> [B, H, T,
     Dv] in q's dtype; with ``return_lse`` (where ``lse_route`` holds, Tk >
     0) the pair (o, L): L float32 [B, H, R], each row's logsumexp of the
     scaled, masked scores in base 2, R = T on the CPU (the plain version)
-    and T rounded up to BWD_ROWS on the card (rows past T finite)."""
-    _check(q, k, v, causal)
+    and T rounded up to BWD_ROWS on the card (rows past T finite).  With
+    ``prefix_len`` P (causal, T == Tk) row r sees keys 0..max(r, P − 1),
+    the reference's prefix-LM mask; every kernel takes it."""
+    prefix = _check(q, k, v, causal, prefix_len)
     if return_lse and not (lse_route(q.dtype, q.shape[3], v.shape[3]) and k.shape[2]):
         raise ValueError(f"no L from the forward of {q.dtype} at (D, Dv) = "
                          f"({q.shape[3]}, {v.shape[3]}) over {k.shape[2]} keys; "
                          f"it is given at {LSE_PAIRS.get(q.dtype, ())}")
     if not on_card(q):
-        o = ref.flash_attention_ref(q, k, v, causal=causal).to(q.dtype)
-        return (o, ref.flash_attention_lse_ref(q, k, v, causal=causal)) if return_lse else o
-    return launch(variant(q.dtype, q.shape[3], v.shape[3]), q, k, v, causal, return_lse)
+        o = ref.flash_attention_ref(q, k, v, causal=causal, prefix_len=prefix_len).to(q.dtype)
+        if return_lse:
+            return o, ref.flash_attention_lse_ref(q, k, v, causal=causal, prefix_len=prefix_len)
+        return o
+    return launch(variant(q.dtype, q.shape[3], v.shape[3]), q, k, v, causal, return_lse,
+                  prefix)
 
 
-def flash_attention_bwd(q, k, v, o, do, causal: bool = True, lse=None):
-    """(dq, dk, dv) of ``flash_attention(q, k, v, causal)`` whose output is
-    o [B, H, T, Dv], for the output gradient do [B, H, T, Dv]; each in q's
-    dtype and the shape of its input.  ``lse``, where ``lse_route`` holds,
-    is the forward's L (``flash_attention(..., return_lse=True)``): the
-    route then takes it in place of computing it.  CUDA tensors launch the
-    route ``bwd_variant`` names (one call); CPU tensors take that route's
-    plain version (``BWD_PLAIN``).  A pair outside ``BWD_PAIRS`` raises
-    (``_check``)."""
-    _check(q, k, v, causal)
+def flash_attention_bwd(q, k, v, o, do, causal: bool = True, lse=None, prefix_len=None):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal, prefix_len=...)``
+    whose output is o [B, H, T, Dv], for the output gradient do [B, H, T,
+    Dv]; each in q's dtype and the shape of its input.  ``lse``, where
+    ``lse_route`` holds, is the forward's L (``flash_attention(...,
+    return_lse=True)``): the route then takes it in place of computing it.
+    CUDA tensors launch the route ``bwd_variant`` names (one call); CPU
+    tensors take that route's plain version (``BWD_PLAIN``).  A pair
+    outside ``PAIRS`` raises ``ValueError`` (``_check``), one of
+    UNPORTED_BWD_PAIRS ``NotImplementedError``; so does a prefix on the
+    tensor-core routes (only the SIMT route takes one)."""
+    prefix = _check(q, k, v, causal, prefix_len)
     D, Dv = q.shape[3], v.shape[3]
     want = (*q.shape[:3], Dv)
     for name, t in (("o", o), ("do", do)):
@@ -226,10 +259,13 @@ def flash_attention_bwd(q, k, v, o, do, causal: bool = True, lse=None):
     if lse is not None:
         _check_lse(lse, q, D, Dv)
     kind = bwd_variant(q.dtype, D, Dv)
+    if prefix and kind != "simt":
+        raise unported_bwd(f"a prefix-LM mask on the {kind} backward")
     if not on_card(q):
         return tuple(g.to(q.dtype) for g in
-                     BWD_PLAIN[kind](q, k, v, o, do, causal=causal, lse=lse))
-    return bwd_launch(kind, q, k, v, o, do, causal, lse)
+                     BWD_PLAIN[kind](q, k, v, o, do, causal=causal, lse=lse,
+                                     prefix_len=prefix_len))
+    return bwd_launch(kind, q, k, v, o, do, causal, lse, prefix)
 
 
 def _check_lse(lse, q, D: int, Dv: int) -> None:
@@ -246,14 +282,20 @@ def _check_lse(lse, q, D: int, Dv: int) -> None:
                          f"expected contiguous {(B, H, rows)} float32 on {q.device}")
 
 
-def bwd_launch(kind: str, q, k, v, o, do, causal: bool = True, lse=None):
+def bwd_launch(kind: str, q, k, v, o, do, causal: bool = True, lse=None,
+               prefix_len: int = 0):
     """Launch the ``kind`` backward (a key of BWD_KERNELS) on CUDA tensors
     that ``flash_attention_bwd`` has checked, with the forward's L where it
-    is given.  The wrapper passes ``bwd_variant``'s choice;
-    ``chip_smoke.py`` also passes ``"simt"`` at the tensor-core routes'
-    shapes but (192, 128), to time them on the same inputs."""
+    is given and a prefix of ``prefix_len`` rows (the SIMT route only).
+    The wrapper passes ``bwd_variant``'s choice; ``chip_smoke.py`` also
+    passes ``"simt"`` at the tensor-core routes' shapes but (192, 128), to
+    time them on the same inputs."""
     B, H, T, D = q.shape
     Hkv, Tk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if (D, Dv) in UNPORTED_BWD_PAIRS:
+        raise unported_bwd(f"the backward at (D, Dv) = {(D, Dv)}")
+    if prefix_len and kind != "simt":
+        raise unported_bwd(f"a prefix-LM mask on the {kind} backward")
     if kind == "simt" and (D, Dv) not in SIMT_BWD_PAIRS:
         raise ValueError(f"the simt backward does not take (D, Dv) = ({D}, {Dv})")
     if kind != "simt" and bwd_variant(q.dtype, D, Dv) != kind:
@@ -280,7 +322,7 @@ def bwd_launch(kind: str, q, k, v, o, do, causal: bool = True, lse=None):
         BWD_KERNELS[kind].launch(*args, int(causal), int(lse is not None),
                                  stream_handle(q))
     else:
-        FLASH_ATTENTION_BWD.launch(*args, DTYPES[q.dtype], int(causal),
+        FLASH_ATTENTION_BWD.launch(*args, DTYPES[q.dtype], int(causal), int(prefix_len),
                                    stream_handle(q))
     return dq, dk, dv
 
@@ -288,38 +330,42 @@ def bwd_launch(kind: str, q, k, v, o, do, causal: bool = True, lse=None):
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` with its gradient: the forward launches the
     kernel ``variant`` names, as ``flash_attention`` does, and keeps q, k,
-    v, its output and, where ``lse_route`` holds, its L; the backward is
-    :func:`flash_attention_bwd`, given that L."""
+    v, its output, the prefix and, where ``lse_route`` holds, its L; the
+    backward is :func:`flash_attention_bwd`, given that L (which raises at
+    UNPORTED_BWD_PAIRS, and for a prefix on the tensor-core routes)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool = True):
+    def forward(ctx, q, k, v, causal: bool = True, prefix_len=None):
         lse = None
         if lse_route(q.dtype, q.shape[3], v.shape[3]) and k.shape[2]:
-            o, lse = flash_attention(q, k, v, causal, return_lse=True)
+            o, lse = flash_attention(q, k, v, causal, return_lse=True, prefix_len=prefix_len)
         else:
-            o = flash_attention(q, k, v, causal)
+            o = flash_attention(q, k, v, causal, prefix_len=prefix_len)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.prefix_len = causal, prefix_len
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, ctx.causal, lse)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, ctx.causal, lse, ctx.prefix_len)
+        return dq, dk, dv, None, None
 
 
-def launch(kind: str, q, k, v, causal: bool = True, return_lse: bool = False):
+def launch(kind: str, q, k, v, causal: bool = True, return_lse: bool = False,
+           prefix_len: int = 0):
     """Launch the ``kind`` kernel (a key of KERNELS, or ``"simt"``) on CUDA
-    tensors that ``flash_attention`` has checked; with ``return_lse`` (the
-    wgmma or tf32 kernel where ``lse_route`` holds) it returns (o, L).  The
-    wrapper passes ``variant``'s choice; ``chip_smoke.py`` also passes
-    ``"simt"`` (the SIMT kernel of ``FLASH_ATTENTION``, at any D = Dv), to
+    tensors that ``flash_attention`` has checked, with a prefix of
+    ``prefix_len`` rows (0: none); with ``return_lse`` (the wgmma or tf32
+    kernel where ``lse_route`` holds) it returns (o, L).  The wrapper
+    passes ``variant``'s choice; ``chip_smoke.py`` also passes ``"simt"``
+    (the SIMT kernel of ``FLASH_ATTENTION``, at D = Dv of HEAD_DIMS), to
     time the kernels on the same inputs."""
     B, H, T, D = q.shape
     Hkv, Tk, Dv = k.shape[1], k.shape[2], v.shape[3]
-    if kind == "simt" and Dv != D:
-        raise ValueError(f"the simt kernel takes D = Dv only, not ({D}, {Dv})")
+    if kind == "simt" and (Dv != D or D not in HEAD_DIMS):
+        raise ValueError(f"the simt kernel takes D = Dv in {HEAD_DIMS} only, "
+                         f"not ({D}, {Dv})")
     if kind != "simt" and variant(q.dtype, D, Dv) != kind:
         raise ValueError(f"the {kind} kernel does not take {q.dtype} at "
                          f"(D, Dv) = ({D}, {Dv})")
@@ -338,8 +384,8 @@ def launch(kind: str, q, k, v, causal: bool = True, return_lse: bool = False):
             Tk, D, Dv)
     if kind in ("wgmma", "tf32"):
         KERNELS[kind].launch(*args[:4], None if lse is None else lse.data_ptr(), *args[4:],
-                             int(causal), stream_handle(q))
+                             int(causal), int(prefix_len), stream_handle(q))
         return (o, lse) if return_lse else o
-    FLASH_ATTENTION.launch(*args, DTYPES[q.dtype], int(causal),
+    FLASH_ATTENTION.launch(*args, DTYPES[q.dtype], int(causal), int(prefix_len),
                            int(kind == "simt"), stream_handle(q))
     return o

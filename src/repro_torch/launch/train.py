@@ -5,8 +5,9 @@
 
     train_step(params, opt_state, batch) -> (params, opt_state, metrics)
 
-which splits the global batch into ``plan.n_microbatches`` microbatches
-and takes ``torch.autograd.grad`` of ``api.loss`` on each (gradient
+which splits the global batch (every input along its leading axis: an
+encoder-decoder's ``frames`` and a VLM's ``patches`` with the tokens) into
+``plan.n_microbatches`` microbatches and takes ``torch.autograd.grad`` of ``api.loss`` on each (gradient
 accumulation), so activation memory is bounded by one microbatch.  The
 gradients add into ``plan.accum_dtype`` buffers (float32, bf16 for the
 adafactor configs), are divided by the microbatch count and handed to

@@ -38,10 +38,15 @@
   the reduced config's) on the card, and autograd of the plain branch on
   the CPU, as the reference's ``jax.grad``.
 
-q-head h reads kv-head h // G (G = H / Hkv) on every path.  A window or a
-prefix-LM mask in ``flash_attention`` raises ``NotImplementedError`` (ROADMAP
-Queue 1 item 20): no entry point of the reference passes either to a
-prefill of the configs the port builds.
+q-head h reads kv-head h // G (G = H / Hkv) on every path.
+``flash_attention(..., prefix_len=P)`` is paligemma-3b's prefix-LM mask
+(the P patch positions attend to each other both ways, the rest is
+causal): the flash kernels take it on the card, both CPU branches as the
+reference's do (``layers.prefix_lm_mask`` in the plain branch, the tiles'
+``(q < P) & (k < P)`` in the chunked one); a prefix with ``causal=False``
+or T ≠ Tk raises ``ValueError``.  A window in ``flash_attention`` raises
+``NotImplementedError`` (ROADMAP Queue 1 item 20): no entry point of the
+reference passes one to a prefill.
 """
 from __future__ import annotations
 
@@ -49,7 +54,8 @@ import torch
 
 from ..kernels import flash_attention as _flash
 from ..kernels._cuda import on_card
-from .layers import P, apply_rope, at_least_f32, causal_mask, rms_norm
+from ..kernels import ref as _ref
+from .layers import P, apply_rope, at_least_f32, causal_mask, prefix_lm_mask, rms_norm
 
 NEG_INF = -1e30
 UNPORTED = "ROADMAP Queue 1 item 20"
@@ -111,9 +117,12 @@ def _plain_attention(q, k, v, mask, scale):
     return torch.einsum("bghst,bghtd->bghsd", p.to(v.dtype), v)
 
 
-def _chunked_attention(qg, kg, vg, causal, scale, block_q, block_k, out_dtype):
+def _chunked_attention(qg, kg, vg, causal, scale, block_q, block_k, out_dtype,
+                       prefix_len=0):
     """Online softmax over (block_q, block_k) tiles: qg [B,G,Hkv,S,D],
-    kg/vg [B,1,Hkv,Sk,D] -> [B,G,Hkv,S,Dv]; S and Sk are block multiples."""
+    kg/vg [B,1,Hkv,Sk,D] -> [B,G,Hkv,S,Dv]; S and Sk are block multiples.
+    With ``prefix_len`` P a tile's causal mask also lets positions below P
+    see each other, as the reference's ``mask |= (q < P) & (k < P)``."""
     S, Sk = qg.shape[3], kg.shape[3]
     outs = []
     for qi in range(S // block_q):
@@ -129,7 +138,8 @@ def _chunked_attention(qg, kg, vg, causal, scale, block_q, block_k, out_dtype):
             if causal:
                 q_pos = qi * block_q + torch.arange(block_q, device=qg.device)[:, None]
                 k_pos = kj * block_k + torch.arange(block_k, device=qg.device)[None, :]
-                s = torch.where(k_pos <= q_pos, s, NEG_INF)
+                mask = (k_pos <= q_pos) | ((q_pos < prefix_len) & (k_pos < prefix_len))
+                s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
@@ -150,31 +160,35 @@ def flash_attention(q, k, v, *, causal=True, prefix_len=None, window=None):
     accumulator in float32, as the Pallas kernel), through
     ``FlashAttentionFn`` when a gradient is asked for.  CPU tensors: the
     reference's plain masked branch, or its chunked branch when S·Sk exceeds
-    4096²/16 and S, Sk are multiples of BLOCK_Q, BLOCK_K."""
-    if prefix_len is not None:
-        raise unported("prefix-LM attention")
+    4096²/16 and S, Sk are multiples of BLOCK_Q, BLOCK_K.  ``prefix_len``
+    (causal, S == Sk): the prefix-LM mask on every branch."""
     if window is not None:
         raise unported("sliding-window attention")
+    B, H, S, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    prefix = _ref.check_prefix(causal, S, Sk, prefix_len)
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad)
     if on_card(q):
         if grad:
-            return _flash.FlashAttentionFn.apply(q, k, v, causal)
-        return _flash.flash_attention(q, k, v, causal=causal)
-    B, H, S, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+            return _flash.FlashAttentionFn.apply(q, k, v, causal, prefix_len)
+        return _flash.flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)
     Dv = v.shape[-1]
     G = H // Hkv
     scale = 1.0 / (D ** 0.5)
     qg = q.reshape(B, Hkv, G, S, D).transpose(1, 2)   # [B,G,Hkv,S,D]
     kg, vg = k[:, None], v[:, None]                    # [B,1,Hkv,Sk,D]
     if S * Sk <= 4096 * 4096 // 16 or S % BLOCK_Q or Sk % BLOCK_K:
-        mask = (causal_mask(S, Sk, device=q.device) if causal
-                else torch.ones((S, Sk), dtype=torch.bool, device=q.device))
+        if prefix_len is not None:
+            mask = prefix_lm_mask(S, Sk, prefix, device=q.device)
+        elif causal:
+            mask = causal_mask(S, Sk, device=q.device)
+        else:
+            mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
         out = _plain_attention(qg, kg, vg, mask, scale)
     else:
         out = _chunked_attention(qg, kg, vg, causal, scale, BLOCK_Q, BLOCK_K,
-                                 q.dtype)
+                                 q.dtype, prefix)
     return out.transpose(1, 2).reshape(B, H, S, Dv)
 
 
@@ -211,15 +225,17 @@ def _qkv(cfg, p, x):
     return q, k, v
 
 
-def gqa_forward(cfg, p, x, positions, *, causal=True, return_kv=False):
+def gqa_forward(cfg, p, x, positions, *, causal=True, prefix_len=None,
+                return_kv=False):
     """x [B,S,d] -> [B,S,d] (and the layer's k, v [B,KV,S,hd] with
     ``return_kv``).  Full-sequence (prefill), causal unless ``causal`` is
-    False (an encoder layer)."""
+    False (an encoder layer); ``prefix_len`` (a VLM's patch prefix) makes it
+    the prefix-LM mask."""
     q, k, v = _qkv(cfg, p, x)                      # [B,S,heads,hd]
     q = apply_rope(q, positions, cfg.rope_theta).transpose(1, 2)
     k = apply_rope(k, positions, cfg.rope_theta).transpose(1, 2)
     v = v.transpose(1, 2)
-    out = flash_attention(q, k, v, causal=causal)  # [B,H,S,hd]
+    out = flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)  # [B,H,S,hd]
     y = torch.einsum("bhsk,hkd->bsd", out, p["wo"])
     if return_kv:
         return y, (k, v)

@@ -72,17 +72,23 @@ def apply_mlp_part(cfg, bp, x):
     return x + y
 
 
-def apply_block(cfg, kind: str, bp, x, positions, *, state=None, return_kv=False):
+def apply_block(cfg, kind: str, bp, x, positions, *, prefix_len=None, state=None,
+                return_kv=False):
     """Full-sequence (causal) application from ``state`` (an SSM block's;
-    None: zeros).  Returns (x, new state): an attention layer's cache
-    entries (``{"k", "v"}`` or ``{"c_kv", "k_rope"}``) with ``return_kv``,
-    else None; an SSM block's final state always."""
+    None: zeros); ``prefix_len`` (a VLM's patch prefix) goes to GQA's
+    attention, as the reference's (its MLA takes none).  Returns (x, new
+    state): an attention layer's cache entries (``{"k", "v"}`` or
+    ``{"c_kv", "k_rope"}``) with ``return_kv``, else None; an SSM block's
+    final state always."""
     if kind == "attn":
         _check_attention(cfg)
         h = rms_norm(x, bp["ln1"], cfg.rms_eps)
         mla = cfg.attn_kind == "mla"
-        forward = attn.mla_forward if mla else attn.gqa_forward
-        out = forward(cfg, bp["attn"], h, positions, return_kv=return_kv)
+        if mla:
+            out = attn.mla_forward(cfg, bp["attn"], h, positions, return_kv=return_kv)
+        else:
+            out = attn.gqa_forward(cfg, bp["attn"], h, positions, prefix_len=prefix_len,
+                                   return_kv=return_kv)
         new_state = None
         if return_kv:
             y, (a, b) = out

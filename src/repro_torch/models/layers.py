@@ -187,6 +187,15 @@ def causal_mask(q_len: int, kv_len: int, q_offset: int = 0, device=None):
     return k_pos <= q_pos
 
 
+def prefix_lm_mask(q_len: int, kv_len: int, prefix_len: int, device=None):
+    """[q_len, kv_len] boolean mask: the first ``prefix_len`` positions
+    attend to each other both ways, the rest is causal."""
+    q_pos = torch.arange(q_len, device=device)[:, None]
+    k_pos = torch.arange(kv_len, device=device)[None, :]
+    return causal_mask(q_len, kv_len, device=device) | ((q_pos < prefix_len)
+                                                        & (k_pos < prefix_len))
+
+
 # ---------------------------------------------------------------------------
 # Cross entropy (padded-vocab aware)
 # ---------------------------------------------------------------------------

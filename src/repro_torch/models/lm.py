@@ -1,6 +1,8 @@
 """Decoder-only language model (port of ``repro.models.lm``: the attention
 decoders, GQA or MLA, dense or MoE; the SSM models (mLSTM and sLSTM
-blocks); the hybrids (Mamba blocks beside GQA layers)): the training loss
+blocks); the hybrids (Mamba blocks beside GQA layers); the VLM, whose stub
+vision front-end's patch embeddings times ``vision_proj`` go in front of
+the text as a prefix that attends to itself both ways): the training loss
 and the serving entry points.
 
 The parameters are the reference's tree (``lm_init``): nested dicts, each
@@ -15,7 +17,8 @@ layers; ``layer_params`` splits the stacked leaves along the periods with
 
 Entry points:
   * ``lm_loss``    — the masked mean cross entropy of a (tokens, labels)
-    batch over the padded vocab (labels < 0 masked), plus the MTP head's
+    batch (a VLM's: over the text positions after its ``patches``) over the
+    padded vocab (labels < 0 masked), plus the MTP head's
     loss when the config has one; the backbone runs under ``cfg.remat``
     (``"full"``: each period is recomputed in the backward pass,
     ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``,
@@ -23,7 +26,9 @@ Entry points:
   * ``lm_prefill`` — forward over a prompt: last-position logits over the
     padded vocab and the decode cache: each attention layer's entries
     (GQA's K/V, MLA's latent and rope key) fitted along their sequence
-    axis to the cache (``place``), each SSM layer's final state.
+    axis to the cache (``place``), each SSM layer's final state; a VLM's
+    cache holds its P patch positions before the T text positions, so its
+    first decode position is P + T.
   * ``lm_decode``  — one token against the cache at position ``pos``; the
     cache is updated in place (a hybrid's attention layers as ring buffers
     of ``cfg.sliding_window`` slots).
@@ -56,6 +61,8 @@ def lm_specs(cfg) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = P((d, cfg.padded_vocab), ("embed", "vocab"))
+    if cfg.frontend == "vision":
+        specs["vision_proj"] = P((d, d), ("embed", "embed2"))
     if cfg.mtp:
         specs["mtp"] = {
             "proj": P((2 * d, d), ("inner", "embed")),
@@ -129,19 +136,20 @@ def _full_init_states(cfg, batch: int, dtype, device):
     return per
 
 
-def lm_backbone(cfg, params, x, positions, *, collect_cache=False, init_states=None):
+def lm_backbone(cfg, params, x, positions, *, prefix_len=None, collect_cache=False,
+                init_states=None):
     """x [B,S,d] -> (h [B,S,d], caches or None); caches are
     ``{"sub<i>": entries}`` with each layer's cache entries (GQA ``{"k",
     "v"}``, MLA ``{"c_kv", "k_rope"}``, an SSM block's final state)
     stacked over periods.  ``init_states`` (``_full_init_states``) are the
-    SSM blocks' initial states."""
+    SSM blocks' initial states; ``prefix_len`` goes to every block."""
     per_sub: dict = {}
     h = x
     n = len(cfg.layer_pattern)
     states = [_period_states(init_states, p) for p in range(cfg.n_periods)]
     for idx, (bp, (i, kind)) in enumerate(zip(layer_params(cfg, params),
                                               _layer_kinds(cfg))):
-        h, st = apply_block(cfg, kind, bp, h, positions,
+        h, st = apply_block(cfg, kind, bp, h, positions, prefix_len=prefix_len,
                             state=states[idx // n].get(f"sub{i}"),
                             return_kv=collect_cache)
         if collect_cache:
@@ -153,31 +161,32 @@ def lm_backbone(cfg, params, x, positions, *, collect_cache=False, init_states=N
     return h, caches
 
 
-def _train_backbone(cfg, params, x, positions, init_states=None):
+def _train_backbone(cfg, params, x, positions, init_states=None, prefix_len=None):
     """x [B,S,d] -> h [B,S,d] under ``cfg.remat``: ``"full"`` runs each
     period inside ``torch.utils.checkpoint`` (non-reentrant), which keeps
     only the period's inputs (h and its blocks' initial SSM states) and
     recomputes its activations in the backward pass; ``"none"`` is the
-    plain loop."""
+    plain loop.  ``prefix_len`` goes to every block."""
     if cfg.remat not in ("full", "none"):
         raise unported(f"remat={cfg.remat!r} (selective checkpointing)")
     layers = layer_params(cfg, params)
     n = len(cfg.layer_pattern)
 
-    def period(h, states, p):
+    def period(h, states, p, prefix):
         for i, kind in enumerate(cfg.layer_pattern):
             h, _ = apply_block(cfg, kind, layers[p * n + i], h, positions,
-                               state=states.get(f"sub{i}"))
+                               prefix_len=prefix, state=states.get(f"sub{i}"))
         return h
 
     h = x
     for p in range(cfg.n_periods):
         states = _period_states(init_states, p)
         if cfg.remat == "full":
-            h = torch.utils.checkpoint.checkpoint(period, h, states, p, use_reentrant=False,
+            h = torch.utils.checkpoint.checkpoint(period, h, states, p, prefix_len,
+                                                  use_reentrant=False,
                                                   preserve_rng_state=False)
         else:
-            h = period(h, states, p)
+            h = period(h, states, p, prefix_len)
     return h
 
 
@@ -194,6 +203,17 @@ def _logits(cfg, params, h):
     return h @ w.to(h.dtype)
 
 
+def _with_prefix(cfg, params, batch, x):
+    """(x, prefix_len): a VLM's ``batch["patches"]`` [B, P, d] (numpy or a
+    tensor) cast to x's dtype, times ``vision_proj``, in front of the text
+    embeddings x [B, T, d], and P; other configs' x and None."""
+    if cfg.frontend != "vision":
+        return x, None
+    patches = torch.as_tensor(batch["patches"], device=x.device).to(x.dtype)
+    patches = patches @ params["vision_proj"]
+    return torch.cat([patches, x], dim=1), patches.shape[1]
+
+
 def _masked_mean(ce, labels):
     mask = (labels >= 0).to(torch.float32)
     return (ce * mask).sum() / mask.sum().clamp(min=1.0), mask.sum()
@@ -204,18 +224,21 @@ def _masked_mean(ce, labels):
 # ---------------------------------------------------------------------------
 def lm_loss(cfg, params, batch):
     """batch: tokens, labels [B, S] (numpy or tensors, moved to the
-    parameters' device); labels < 0 are masked.  Returns (loss, metrics):
-    a 0-d float32 loss (the mean cross entropy over unmasked positions,
-    plus 0.3 × the MTP loss when ``cfg.mtp``) and ``{"loss", "tokens"}``
-    (and ``"mtp_loss"``) as device tensors."""
+    parameters' device), and a VLM's patches [B, P, d] (the prefix: the
+    loss is over the S text positions); labels < 0 are masked.  Returns
+    (loss, metrics): a 0-d float32 loss (the mean cross entropy over
+    unmasked positions, plus 0.3 × the MTP loss when ``cfg.mtp``) and
+    ``{"loss", "tokens"}`` (and ``"mtp_loss"``) as device tensors."""
     dev = params["embed"].device
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     labels = torch.as_tensor(batch["labels"], device=dev).long()
-    x = _embed(cfg, params, tokens)
+    x, prefix_len = _with_prefix(cfg, params, batch, _embed(cfg, params, tokens))
     positions = torch.arange(x.shape[1], device=dev)[None, :]
     states = _full_init_states(cfg, x.shape[0], x.dtype, dev)
-    h = _train_backbone(cfg, params, x, positions, states)
+    h = _train_backbone(cfg, params, x, positions, states, prefix_len)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
+    if prefix_len:
+        h = h[:, prefix_len:]
     ce = softmax_cross_entropy(_logits(cfg, params, h), labels, cfg.vocab_size)
     loss, tokens_n = _masked_mean(ce, labels)
     metrics = {"loss": loss, "tokens": tokens_n}
@@ -273,16 +296,17 @@ def place(dst, src):
 
 def lm_prefill(cfg, params, batch, cache_len: int | None = None):
     """Forward over a prompt; returns (last-position logits [B, Vp], cache).
-    ``batch["tokens"]`` [B, S] (numpy or a tensor) goes to the parameters'
-    device."""
+    ``batch["tokens"]`` [B, T] (numpy or a tensor) goes to the parameters'
+    device; a VLM's ``batch["patches"]`` [B, P, d] go in front of it, so
+    the sequence (and the default ``cache_len``) is P + T."""
     dev = params["embed"].device
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
-    x = _embed(cfg, params, tokens)
+    x, prefix_len = _with_prefix(cfg, params, batch, _embed(cfg, params, tokens))
     B, S, _ = x.shape
     positions = torch.arange(S, device=dev)[None, :]
     states = _full_init_states(cfg, B, x.dtype, dev)
-    h, caches = lm_backbone(cfg, params, x, positions, collect_cache=True,
-                            init_states=states)
+    h, caches = lm_backbone(cfg, params, x, positions, prefix_len=prefix_len,
+                            collect_cache=True, init_states=states)
     h = rms_norm(h[:, -1], params["final_norm"], cfg.rms_eps)
     logits = _logits(cfg, params, h[:, None])[:, 0]
     full = lm_init_cache(cfg, B, cache_len or S, x.dtype, dev)

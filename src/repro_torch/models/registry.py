@@ -4,16 +4,18 @@ llama3.2-1b, llama3.2-3b, qwen2-1.5b, granite-3-2b; the MoE GQA
 moonshot-v1-16b-a3b; deepseek-v3-671b with MLA attention, MoE and the MTP
 head; the SSM xlstm-1.3b with mLSTM and sLSTM blocks; the hybrid
 jamba-v0.1-52b with Mamba blocks, a GQA layer a period with a
-sliding-window decode cache and the MoE MLP) and the encoder-decoder
-seamless-m4t-large-v2 (``models/encdec.py``, its audio front-end a stub:
-the batch carries frame embeddings).
+sliding-window decode cache and the MoE MLP; the VLM paligemma-3b, its
+vision front-end a stub: the batch carries patch embeddings, a prefix of
+the text) and the encoder-decoder seamless-m4t-large-v2
+(``models/encdec.py``, its audio front-end a stub: the batch carries frame
+embeddings).
 
-``build(cfg)`` raises ``NotImplementedError`` for a vision front-end
-(paligemma-3b; ROADMAP Queue 1 item 20).  ``ModelAPI.loss`` is
-``lm.lm_loss`` or ``encdec.encdec_loss``; ``batch_spec`` and ``real_batch``
-give a workload cell's inputs, an encoder-decoder's ``frames`` among them.
-The dry run's abstract inputs (the reference's ``abstract_batch``) wait
-for item 20's ``launch/`` part.
+``ModelAPI.loss`` is ``lm.lm_loss`` or ``encdec.encdec_loss``;
+``batch_spec`` and ``real_batch`` give a workload cell's inputs, an
+encoder-decoder's ``frames`` or a VLM's ``patches`` among them (a VLM cell
+of ``seq_len`` S holds S − n_frontend_tokens text tokens).  The dry run's
+abstract inputs (the reference's ``abstract_batch``) wait for ROADMAP
+Queue 1 item 20's ``launch/`` part.
 """
 from __future__ import annotations
 
@@ -26,7 +28,6 @@ import torch
 from ..configs.base import ArchConfig, ShapeSpec
 from ..device import resolve_device
 from . import encdec, lm
-from .attention import UNPORTED
 from .layers import P, count_params, iter_specs
 
 
@@ -61,11 +62,6 @@ class ModelAPI:
 
 
 def build(cfg: ArchConfig) -> ModelAPI:
-    if cfg.frontend == "vision":
-        raise NotImplementedError(
-            f"{cfg.name}: vision front-end models are not ported yet; the port builds "
-            f"the decoder-only LMs (attention, SSM and hybrid) and the encoder-decoder "
-            f"({UNPORTED})")
     specs = encdec.encdec_specs(cfg) if cfg.enc_dec else lm.lm_specs(cfg)
     init_fn, loss, prefill, decode, init_cache = (
         (encdec.encdec_init, encdec.encdec_loss, encdec.encdec_prefill,
@@ -93,32 +89,43 @@ def build(cfg: ArchConfig) -> ModelAPI:
 # Batch input specs per workload shape
 # ---------------------------------------------------------------------------
 def batch_spec(cfg: ArchConfig, shape: ShapeSpec) -> dict:
-    """Logical-axis specs for every model input of this workload cell: an
-    encoder-decoder's train and prefill batches also carry ``frames`` [B,
-    n_frontend_tokens, d_model] (the stub front-end's frame embeddings)."""
+    """Logical-axis specs for every model input of this workload cell: the
+    train and prefill batches of a VLM carry ``patches`` and an
+    encoder-decoder's ``frames``, each [B, n_frontend_tokens, d_model] (the
+    stub front-end's embeddings); a VLM's tokens are the ``_text_len`` of
+    the cell."""
     B, S = shape.global_batch, shape.seq_len
     if shape.kind == "decode":
         # one token + position; the cache is specced separately
         return {"token": P((B,), ("batch",), "zeros"), "pos": P((), (), "zeros")}
-    out = {"tokens": P((B, S), ("batch", "seq"), "zeros")}
+    out = {"tokens": P((B, _text_len(cfg, S)), ("batch", "seq"), "zeros")}
     if shape.kind == "train":
-        out["labels"] = P((B, S), ("batch", "seq"), "zeros")
+        out["labels"] = P((B, _text_len(cfg, S)), ("batch", "seq"), "zeros")
+    front = P((B, cfg.n_frontend_tokens, cfg.d_model), ("batch", "seq", None), "zeros")
+    if cfg.frontend == "vision":
+        out["patches"] = front
     if cfg.enc_dec:
-        out["frames"] = P((B, cfg.n_frontend_tokens, cfg.d_model), ("batch", "seq", None),
-                          "zeros")
+        out["frames"] = front
     return out
+
+
+def _text_len(cfg: ArchConfig, seq_len: int) -> int:
+    """VLM cells split seq_len into patch-prefix + text."""
+    if cfg.frontend == "vision":
+        return seq_len - cfg.n_frontend_tokens
+    return seq_len
 
 
 def real_batch(cfg: ArchConfig, shape: ShapeSpec, generator: torch.Generator) -> dict:
     """A random batch on the generator's device, drawn in the specs' order:
     token ids uniform in [0, vocab_size) as int32, ``pos`` 0, ``frames``
-    standard normal in float32 cast to ``act_dtype``."""
+    and ``patches`` standard normal in float32 cast to ``act_dtype``."""
     out = {}
     dev = generator.device
     for name, s in batch_spec(cfg, shape).items():
         if name == "pos":
             out[name] = torch.zeros((), dtype=torch.int32, device=dev)
-        elif name == "frames":
+        elif name in ("frames", "patches"):
             out[name] = torch.randn(s.shape, generator=generator, device=dev).to(
                 getattr(torch, cfg.act_dtype))
         else:

@@ -6,10 +6,12 @@ SSM or hybrid, or the encoder-decoder (``models.registry``), on ``device``
 (default ``"cuda"``; a host without CUDA raises unless the caller passes
 ``device="cpu"``), with weights drawn from an explicit ``torch.Generator``
 seeded with ``seed`` unless ``params`` are given.  ``generate`` hands the
-prefill the whole batch (an encoder-decoder's ``frames`` beside the
-prompt's ``tokens``; the hand-written flash-attention kernel on the card
-in every attention layer) and then runs one decode step per new token,
-the first at the prompt's length (frames are not decoder positions), each
+prefill the whole batch (an encoder-decoder's ``frames`` or a VLM's
+``patches`` beside the prompt's ``tokens``; the hand-written
+flash-attention kernel on the card in every attention layer) and then runs
+one decode step per new token, the first at the prompt's length (frames
+are not decoder positions; a VLM's patches are, so its first is P + T),
+each
 token the argmax over the padded vocab, under ``torch.inference_mode()``;
 times end with ``torch.cuda.synchronize()``.  The cache (KV entries, SSM
 states, the encoder frames' cross-attention keys and values) is updated
@@ -73,6 +75,8 @@ class Server:
         t1 = time.perf_counter()
         out = [tok]
         pos = tokens.shape[1]
+        if self.cfg.frontend == "vision":
+            pos += inputs["patches"].shape[1]
         for i in range(n_new - 1):
             logits, cache = self.api.decode_step(self.params, tok, pos + i, cache)
             tok = logits.argmax(dim=-1)

@@ -830,6 +830,148 @@ def test_cuda_flash_wgmma_mla_instance_spills_nothing(cuda_device):
         assert (r["local_stores"], r["local_loads"]) == (0, 0), r
 
 
+def _flash_gate(got, want, dt, what=""):
+    """float32 within 1e-5 of the largest output of the float64 plain
+    version; bf16 within one bf16 rounding of it."""
+    err = (got.double() - want).abs()
+    scale = float(want.abs().max())
+    if dt == torch.float32:
+        assert float(err.max()) <= 1e-5 * scale, (what, float(err.max()), scale)
+    else:
+        assert bool((err <= 2.0 ** -8 * want.abs() + 1e-6 * scale).all()), what
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,T,causal,prefix", [
+    (1, 8, 1, 77, True, None), (1, 4, 1, 300, False, None), (2, 8, 1, 384, True, 256),
+    (1, 8, 1, 1000, True, 256), (1, 4, 2, 257, True, 100), (1, 2, 1, 130, True, 130)])
+def test_cuda_flash_d256_matches_float64(cuda_device, B, H, Hkv, T, causal, prefix, dtype):
+    """paligemma-3b's head dim 256 on the wgmma (bf16) and tf32 (float32)
+    forward, causal, non-causal and under prefix-LM masks (P 256 at L2's
+    shape, an unaligned P 100, P = T), against the plain version in
+    float64: one launch of the route's kernel a call, two calls bitwise
+    equal; bf16 also with L (``return_lse``), o bitwise the call without."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(T + (prefix or 0))
+    q, k, v = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                            device=cuda_device).to(dt)
+               for s in ((B, H, T, 256), (B, Hkv, T, 256), (B, Hkv, T, 256)))
+    route = tflash.variant(dt, 256)
+    assert route == ("wgmma" if dt == torch.bfloat16 else "tf32")
+    before = {name: kern.launches for name, kern in tflash.KERNELS.items()}
+    got = tflash.flash_attention(q, k, v, causal=causal, prefix_len=prefix)
+    again = tflash.flash_attention(q, k, v, causal=causal, prefix_len=prefix)
+    torch.cuda.synchronize()
+    assert {name: kern.launches - before[name] for name, kern in tflash.KERNELS.items()} == {
+        name: 2 * int(name == route) for name in tflash.KERNELS}
+    assert torch.equal(got, again)
+    want = ref.flash_attention_ref(q.double(), k.double(), v.double(), causal=causal,
+                                   prefix_len=prefix)
+    _flash_gate(got, want, dt)
+    if tflash.lse_route(dt, 256):
+        o, lse = tflash.flash_attention(q, k, v, causal=causal, return_lse=True,
+                                        prefix_len=prefix)
+        assert torch.equal(o, got)
+        want_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal, prefix_len=prefix)
+        assert float((lse[..., :T] - want_lse).abs().max()) <= 1e-6 * float(
+            want_lse.abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,T,D,prefix", [
+    (2, 4, 1, 40, 16, 16), (2, 4, 2, 80, 16, 16), (1, 8, 2, 300, 16, 100),
+    (1, 8, 2, 300, 64, 100), (1, 4, 1, 257, 128, 200), (1, 4, 4, 77, 32, 77),
+    (2, 4, 4, 200, 192, 70)])
+def test_cuda_flash_prefix_matches_float64(cuda_device, B, H, Hkv, T, D, prefix, dtype):
+    """The prefix-LM mask on every forward route but D 256's (above): the
+    mma kernel at the reduced paligemma's (16, 16) and D 32, the SIMT kernel
+    by name beside it, the wgmma and tf32 kernels at D 64 and 128 and MLA's
+    (192, 128), against the plain version in float64."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    dt = getattr(torch, dtype)
+    Dv = 128 if D == 192 else D
+    rng = np.random.default_rng(T + D + prefix)
+    q, k, v = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                            device=cuda_device).to(dt)
+               for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, Dv)))
+    want = ref.flash_attention_ref(q.double(), k.double(), v.double(), prefix_len=prefix)
+    route = tflash.variant(dt, D, Dv)
+    kinds = (route, "simt") if D == Dv and D in tflash.HEAD_DIMS else (route,)
+    for kind in kinds:
+        kern = tflash.KERNELS.get(kind, tflash.FLASH_ATTENTION)
+        n = kern.launches
+        got = (tflash.flash_attention(q, k, v, prefix_len=prefix) if kind == route
+               else tflash.launch("simt", q, k, v, prefix_len=prefix))
+        torch.cuda.synchronize()
+        assert kern.launches == n + 1
+        _flash_gate(got, want, dt, kind)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,T,D,prefix", [(2, 4, 1, 40, 16, 16),
+                                                 (1, 4, 2, 200, 32, 100),
+                                                 (2, 2, 1, 130, 16, 64)])
+def test_cuda_flash_bwd_simt_with_prefix_matches_float64(cuda_device, B, H, Hkv, T, D,
+                                                         prefix, dtype):
+    """The SIMT backward (the reduced paligemma's training path) with the
+    prefix-LM mask against ``ref.flash_attention_bwd_ref`` in float64 on the
+    same inputs (o from the mma forward with the prefix): each gradient
+    within 1e-5 (float32) or 1e-2 (bf16) of its largest magnitude, two
+    calls bitwise equal, one launch a call; and through ``FlashAttentionFn``
+    as autograd runs it."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(T + D + prefix)
+    q, k, v = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                            device=cuda_device).to(dt)
+               for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+    do = torch.tensor(rng.standard_normal((B, H, T, D)).astype(np.float32),
+                      device=cuda_device).to(dt)
+    o = tflash.flash_attention(q, k, v, prefix_len=prefix)
+    assert tflash.bwd_variant(dt, D) == "simt"
+    n = tflash.FLASH_ATTENTION_BWD.launches
+    got = tflash.flash_attention_bwd(q, k, v, o, do, prefix_len=prefix)
+    again = tflash.flash_attention_bwd(q, k, v, o, do, prefix_len=prefix)
+    torch.cuda.synchronize()
+    assert tflash.FLASH_ATTENTION_BWD.launches == n + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)),
+                                       prefix_len=prefix)
+    tol = 1e-5 if dt == torch.float32 else 1e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert float((g.double() - w).abs().max()) <= tol * float(w.abs().max()), name
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    out = tflash.FlashAttentionFn.apply(qs, ks, vs, True, prefix)
+    for g, w in zip(torch.autograd.grad(out, (qs, ks, vs), do), got):
+        assert torch.equal(g, w)
+
+
+def test_cuda_flash_d256_and_prefix_refused_by_the_backward(cuda_device):
+    """(256, 256) has no backward on any route, and the tensor-core routes
+    take no prefix: each raises ``NotImplementedError`` before a launch,
+    also from ``FlashAttentionFn`` as autograd runs it."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    counts = [kern.launches for kern in tflash.BWD_KERNELS.values()]
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn((1, 2, 64, 256), device=cuda_device).to(dt)
+        for kind in ("wgmma", "tf32", "simt"):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 21"):
+                tflash.bwd_launch(kind, q, q, q, q, q)
+        qs = q.detach().requires_grad_()
+        out = tflash.FlashAttentionFn.apply(qs, q, q, True, None)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 21"):
+            torch.autograd.grad(out.sum(), qs)
+        q = torch.randn((1, 2, 64, 64), device=cuda_device).to(dt)
+        with pytest.raises(NotImplementedError, match="prefix-LM mask"):
+            tflash.flash_attention_bwd(q, q, q, q, q, prefix_len=8)
+    assert [kern.launches for kern in tflash.BWD_KERNELS.values()] == counts
+
+
 def test_cuda_flash_refuses_what_no_route_takes(cuda_device):
     """A pair no kernel takes, and the SIMT kernel by name at Dv ≠ D, raise
     before any launch."""
@@ -2454,7 +2596,7 @@ def test_cuda_flash_bwd_rejects_what_it_does_not_take(cuda_device):
         tflash.FLASH_ATTENTION_BWD.launch(
             q4.data_ptr(), k.data_ptr(), k.data_ptr(), q4.data_ptr(), q4.data_ptr(),
             q4.data_ptr(), k.data_ptr(), k.data_ptr(), lse.data_ptr(), lse.data_ptr(),
-            1, 2, 1, 4, 8, 16, 16, 0, 1, 0)
+            1, 2, 1, 4, 8, 16, 16, 0, 1, 0, 0)
     lse = t(2, tflash.BWD_ROWS)
     with pytest.raises(RuntimeError, match="repro_flash_attention_bwd_wgmma failed"):
         q4, k8 = t(1, 2, 4, 64, dtype=torch.bfloat16), t(1, 1, 8, 64, dtype=torch.bfloat16)

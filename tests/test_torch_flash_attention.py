@@ -155,7 +155,7 @@ def test_causal_attention_with_unequal_lengths_raises(T, Tk):
     assert out.shape == q.shape
 
 
-@pytest.mark.parametrize("kw", [{"window": 8}, {"prefix_len": 4}])
+@pytest.mark.parametrize("kw", [{"window": 8}])
 def test_unported_attention_raises(kw):
     q, k, v = map(torch.tensor, _qkv(4, 1, 2, 1, 16, 8))
     with pytest.raises(NotImplementedError, match="Queue 1 item 20"):

@@ -85,16 +85,6 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda():
         IVMEngine.build(q, db, var_order=synth.retailer_vo())
 
 
-@pytest.mark.parametrize("arch", ["paligemma_3b"])
-def test_unported_lm_families_raise(arch):
-    from repro_torch.configs.base import get_config
-    from repro_torch.models import registry
-
-    for cfg in (get_config(arch), get_config(arch).reduced()):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 20"):
-            registry.build(cfg)
-
-
 @pytest.mark.parametrize("reduced", [False, True])
 def test_seamless_builds_and_its_batches_carry_frames(reduced):
     """seamless-m4t-large-v2 (the encoder-decoder) builds, full and reduced;

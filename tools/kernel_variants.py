@@ -340,12 +340,12 @@ def flash_rows(libs) -> None:
             if VARIANTS[name][0] != FLASH_SRC:
                 continue
             fn = lib.repro_flash_attention_tf32
-            fn.argtypes = [P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32, P]
+            fn.argtypes = tflash.FLASH_ATTENTION_TF32.argtypes
             bufs[name] = torch.empty_like(q)
 
             def call(fn=fn, o=bufs[name], name=name):
-                rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv,
-                        T, T, D, D, int(causal), stream)
+                rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, B, H,
+                        Hkv, T, T, D, D, int(causal), 0, stream)
                 if rc:
                     raise RuntimeError(f"{name}: CUDA error {rc}")
                 return o
@@ -496,7 +496,7 @@ def mma_rows(libs) -> None:
                 continue
             o = torch.empty_like(q)
             args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv, T, T,
-                    D, D, tflash.DTYPES[dt], 1, 0, stream)
+                    D, D, tflash.DTYPES[dt], 1, 0, 0, stream)
             call = _c_call(lib, tflash.FLASH_ATTENTION, args, name)
             outs[name] = lambda call=call, o=o: (call(), o)[1]
         errors = {}
@@ -580,13 +580,14 @@ def _fwd_calls(libs, names, q, k, v, stream, kernel=None, argtypes=None) -> dict
     kernel = kernel or tflash.FLASH_ATTENTION_WGMMA
     argtypes = argtypes or kernel.argtypes
     no_lse = (None,) if argtypes[4] is ctypes.c_void_p else ()
+    no_prefix = (0,) if argtypes.count(ctypes.c_int) == 9 else ()
     B, H, T, D = q.shape
     Hkv, Dv = k.shape[1], v.shape[3]
     calls = {}
     for name in names:
         o = q.new_empty((B, H, T, Dv))
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *no_lse, B, H, Hkv,
-                T, T, D, Dv, 1, stream)
+                T, T, D, Dv, 1, *no_prefix, stream)
         call = _c_call(libs[name], kernel, args, name, argtypes)
         calls[name] = lambda call=call, o=o: (call(), o)[1]
     return calls
