@@ -500,11 +500,47 @@ def kernel_device_ms(fn, kernel: str, calls: int = 20):
     return sum(e.time_range.elapsed_us() for e in mine) / 1e3 / calls
 
 
-def all_device_ms(fn, calls: int = 20) -> float:
+def trace_kernels(fn, kernel: str, calls: int = 20) -> list:
+    """The kernel records of the profiler's exported trace (CUPTI's, with
+    each launch's ``grid`` and ``block``) whose names hold ``kernel``, in a
+    window of ``calls`` calls of ``fn`` opened and closed by marker kernels
+    as in ``device_events``: the first of up to WINDOWS windows that lists
+    some (else none).  The trace is written under the checkout's build/ and
+    removed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    path = Path(__file__).resolve().parent / "build" / "profiler_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    for _ in range(WINDOWS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(MARKER_CYCLES)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(MARKER_CYCLES)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        records = [e for e in json.loads(path.read_text())["traceEvents"]
+                   if e.get("cat") == "kernel" and kernel in e.get("name", "")]
+        path.unlink()
+        if records:
+            return records
+    return []
+
+
+def all_device_ms(fn, calls: int = 20):
     """Mean device time of every kernel and copy ``fn`` runs, per call (a
-    library call may take more than one kernel)."""
-    events, _ = device_events(fn, calls)
-    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / calls
+    library call may take more than one kernel), from the first of up to
+    WINDOWS windows that lists any device event (the profiler at times lists
+    none; see ``device_events``); None when none did."""
+    for _ in range(WINDOWS):
+        events, _ = device_events(fn, calls)
+        if events:
+            return sum(e.time_range.elapsed_us() for e in events) / 1e3 / calls
+    return None
 
 
 def bound_ms(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S
@@ -1070,8 +1106,9 @@ def flash_attention_rows(rng, rows: dict) -> None:
     2⁻⁸·|ref| + 1e-6·max|ref| of the float64 result.  Where the wrapper takes a
     tensor-core kernel (wgmma for bf16, tf32 for float32, at D 64/128; mma at
     D 8/16/32), the SIMT kernel is checked and timed on the same inputs
-    too, and the kernel, the SIMT kernel and SDPA are timed in turns.
-    float32 rows also carry ``tc_bound_ms``: the flops as three TF32
+    too, and the kernel, the SIMT kernel and SDPA are timed in turns; SDPA's
+    device ms (``library_device_ms``, every kernel of the call) beside its
+    events ms.  float32 rows also carry ``tc_bound_ms``: the flops as three TF32
     products at the tensor cores' rate (``bound_ms`` keeps the CUDA-core
     float32 rate).  Rows at D <= 32 carry ``exp_bound_ms``: the causal
     half's B·H·T(T + 1)/2 exponentials at EXP_PER_CLOCK_SM a clock on every
@@ -1138,7 +1175,7 @@ def flash_attention_rows(rng, rows: dict) -> None:
                 kernel_ms=times["kernel"],
                 device_ms=kernel_device_ms(kernel, FLASH_KERNEL_NAMES[kind]),
                 plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=10),
-                library_ms=times["library"],
+                library_ms=times["library"], library_device_ms=all_device_ms(library),
                 bound_ms=bms, bound_by=by, simt_ms=times["simt"],
                 simt_device_ms=kernel_device_ms(simt, FLASH_KERNEL_NAMES["simt"]), **extra)
             if "with_lse" in fns:
@@ -4284,7 +4321,9 @@ def vlm_attention_rows(rng) -> dict:
     plain version's ms and the bound (q, k, v read and o written once; QKᵀ
     and PV over the pairs the mask keeps, ``prefix_pairs``, at the dtype's
     rate; float32 rows also ``tc_bound_ms``, three TF32 products), the
-    instance's registers and spill bytes from ptxas.  Then the SIMT
+    instance's registers and spill bytes from ptxas, and on the wgmma route
+    the launch's grid and block count and the launches that the profiler's
+    trace lists of 20 calls (``trace_kernels``).  Then the SIMT
     backward with the prefix at VLM_BWD_CASE in both dtypes against
     ``ref.flash_attention_bwd_ref`` in float64 within BWD_RTOL, two calls
     bitwise, beside SDPA's backward with the mask.  Comparison launches,
@@ -4354,6 +4393,13 @@ def vlm_attention_rows(rng) -> dict:
             if "simt" in times:
                 extra.update(simt_ms=times["simt"],
                              simt_device_ms=kernel_device_ms(simt, FLASH_KERNEL_NAMES["simt"]))
+            if kind == "wgmma":  # each launch's grid, as the profiler's trace records it
+                records = trace_kernels(kernel, FLASH_KERNEL_NAMES[kind])
+                grids = sorted({tuple(r.get("args", {}).get("grid", ())) for r in records})
+                one = len(grids) == 1 and len(grids[0]) == 3
+                extra.update(grid=list(grids[0]) if one else [list(g) for g in grids],
+                             blocks=math.prod(grids[0]) if one else None,
+                             trace_launches=len(records))
             marker = {"wgmma": f"ILi{D}ELi{D}ELb0E", "tf32": f"ILi{D}ELi{D}ELb0E",
                       "mma": f"I{'f' if dt == torch.float32 else '13__nv_bfloat16'}"
                              f"Li{D}ELi{D}E"}[kind]

@@ -93,17 +93,9 @@
 // without the warpgroups taking turns on named barriers; so was S of the
 // next tile issued behind this tile's PV.
 //
-// (256, 256), paligemma-3b.  Two Q tiles of 128 rows would be 128 KB and a
-// stage of 128 keys 128 KB: past the limit.  So the key tile is 64 keys
-// (Cfg::kBlockK), one Q tile stays resident (64 KB, loaded again for the
-// second pass as at (192, 128)) and two stages of 32 KB of K and 32 KB of V
-// make 192 KB.  S is m64n64 (D / 16 = 16 k-steps); a consumer's O is 64 ×
-// 256 float32, 128 registers a thread, so P is made k-step by k-step as at
-// (192, 128) (4 k-steps, the terms of two held) and PV is one m64n256k16
-// wgmma a term.  The 384-thread layout with setmaxnreg stays: the
-// consumers need O, S (32) and the held terms (24) beside the addresses.
-// With 64-key tiles a 128-row q tile crosses the diagonal in two tiles, so
-// the mask below applies to every tile past the first row's last key.
+// (256, 256), paligemma-3b, has a block of its own (D256, d256_body
+// below): a consumer's O is 64 × 256 float32, 128 registers a thread, and
+// two Q tiles of 128 rows with a stage of 128 keys would be 256 KB.
 // The prefix-LM mask (prefix P > 0, causal, Tq == Tk): row r sees keys
 // 0..max(r, P − 1), the reference's (k ≤ r) | (r < P & k < P).  A q tile
 // visits the K/V tiles up to max(its last row, P − 1), and a tile past
@@ -124,7 +116,7 @@
 
 // Variants: 0 in the library; tools/kernel_variants.py builds the source
 // with REPRO_VARIANT set to one of the cuts below, to time what each part of
-// the (192, 128) instance costs (the other instances ignore it).
+// the (192, 128) and (256, 256) instances costs (the others ignore it).
 #ifndef REPRO_VARIANT
 #define REPRO_VARIANT 0
 #endif
@@ -136,6 +128,10 @@ constexpr int kNoPV = 1;        // S, the softmax and the split, no PV
 constexpr int kOneTerm = 2;     // P as one bf16 term: no split
 constexpr int kNoSoftmax = 3;   // P = S: no max, no exponentials
 constexpr int kNoCompute = 4;   // the tiles staged, nothing computed
+// (256, 256) only: the instance with L also writes clock64 stamps of block
+// (0, 0)'s consumers past L's rows in lse2 (D256::kStampTiles tiles ×
+// kStampPoints points a consumer, unsigned 64-bit), to time a tile's parts
+constexpr int kStamps = 5;
 
 constexpr int kBlockQ = 128;     // query rows of a block, 64 per consumer
 constexpr int kPanel = 64;       // bf16 columns of one 128-byte swizzled panel
@@ -148,16 +144,17 @@ constexpr int kTerms = 3;        // bf16 terms of P in the PV product
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// (D, Dv) ∈ {(64, 64), (128, 128), (192, 128)}; (256, 256) is D256's
 template <int D, int DV>
 struct Cfg {
-  static constexpr int kBlockK = D == 256 ? 64 : 128;  // keys of a K/V tile
+  static constexpr int kBlockK = 128;  // keys of a K/V tile
   static constexpr int kThreads = D == 192 ? kThreadsMla : kThreadsWG;
   // P made and its PV wgmmas issued k-step by k-step (below)
-  static constexpr bool kStepwise = D >= 192;
+  static constexpr bool kStepwise = D == 192;
   static constexpr int kStages = D == 64 ? 4 : 2;
   static constexpr int kPanels = D / kPanel;          // of Q and K
   static constexpr int kVPanels = DV / kPanel;        // of V
-  static constexpr int kQTiles = D >= 192 ? 1 : 2;    // resident Q tiles
+  static constexpr int kQTiles = D == 192 ? 1 : 2;    // resident Q tiles
   static constexpr int kQBytes = kBlockQ * D * 2;     // one Q tile
   static constexpr int kKBytes = kBlockK * D * 2;     // one K tile
   static constexpr int kVBytes = kBlockK * DV * 2;    // one V tile
@@ -274,17 +271,6 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// S (+)= Q Kᵀ over one k-step for a K/V tile of N keys.
-template <int N>
-__device__ __forceinline__ void wgmma_s(float (&d)[N / 2], uint64_t da, uint64_t db,
-                                        int accumulate) {
-  if constexpr (N == 64) {
-    wgmma_ss_n64(d, da, db, accumulate);
-  } else {
-    wgmma_ss_n128(d, da, db, accumulate);
-  }
-}
-
 // d[32] += A[64 x 16] · B[16 x 64], A in registers (bf16 pairs), B MN-major
 // in shared memory (transpose bit set).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
@@ -365,10 +351,8 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2], const uint32_t (&a)
                                          uint64_t db) {
   if constexpr (DV == 64) {
     wgmma_rs_n64(o, a, db);
-  } else if constexpr (DV == 128) {
-    wgmma_rs_n128(o, a, db);
   } else {
-    wgmma_rs_n256(o, a, db);
+    wgmma_rs_n128(o, a, db);
   }
 }
 
@@ -384,8 +368,9 @@ __device__ __forceinline__ int kv_tiles(int qt, int Tq, int Tk, int causal, int 
   return causal ? min(n, last / block_k + 1) : n;
 }
 
+// (at (256, 256) an explicit specialization below, whose block is D256's)
 template <int D, int DV, bool kLse = false>
-__global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
+__global__ void __launch_bounds__(D == 192 ? kThreadsMla : kThreadsWG, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                  const __grid_constant__ CUtensorMap kmap,
                                  const __grid_constant__ CUtensorMap vmap,
@@ -395,8 +380,8 @@ __global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
   // scale_log2 = log₂e / √D: P = exp2(s·scale_log2 − m·scale_log2)
   using C = Cfg<D, DV>;
   constexpr int kBlockK = C::kBlockK;
-  // (192, 128) and (256, 256) build each k-step's terms just before its PV
-  // wgmmas (below); the variants cut the (192, 128) instance only
+  // (192, 128) builds each k-step's terms just before its PV wgmmas
+  // (below); the variants cut the (192, 128) instance only here
   constexpr bool kMla = D == 192;
   constexpr int kV = kMla ? kVariant : 0;
   constexpr int kT = kV == kOneTerm ? 1 : kTerms;  // bf16 terms of P
@@ -516,7 +501,7 @@ __global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
               smem_desc(sq_wg + (kk / 4) * kBlockQ * kRowBytes + off, 16, 1024);
           const uint64_t db = smem_desc(
               sk + s * C::kKBytes + (kk / 4) * kBlockK * kRowBytes + off, 16, 1024);
-          wgmma_s<kBlockK>(sc, da, db, kk > 0);
+          wgmma_ss_n128(sc, da, db, kk > 0);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -527,14 +512,11 @@ __global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
           mbar_arrive(q_free);
 
         // online softmax over the tile; masked scores are -1e30 (row r sees
-        // keys up to max(r, prefix − 1)).  With kBlockK = kBlockQ the last
-        // tile is the only one with masked keys (the tiles up to it end
-        // before the first row's own key or before key prefix − 1); with
-        // 64-key tiles every tile past the first row's last key is masked.
+        // keys up to max(r, prefix − 1)).  The last tile is the only one
+        // with masked keys (the tiles up to it end before the first row's
+        // own key or before key prefix − 1).
         const int k0 = t * kBlockK;
-        if (kBlockK == kBlockQ
-                ? t == n_tiles - 1
-                : k0 + kBlockK > Tk || (causal && k0 + kBlockK - 1 > max(q0, prefix - 1))) {
+        if (t == n_tiles - 1) {
           const int last[2] = {max(r0, prefix - 1), max(r0 + 8, prefix - 1)};
 #pragma unroll
           for (int i = 0; i < kBlockK / 2; ++i) {
@@ -672,6 +654,384 @@ __global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// (256, 256): paligemma-3b's head dim, a block layout of its own
+// ---------------------------------------------------------------------------
+// A consumer warpgroup holds one unit's O (64 × 256 float32: 128 registers a
+// thread), S of a 64-key tile (32) and the P terms of two k-steps (24).
+// The block is a producer warpgroup and two consumer warpgroups, 384
+// threads; the roles branch on a warpgroup index that a shuffle from lane 0
+// makes warp-uniform, and setmaxnreg gives the producer 24 registers a
+// thread and the consumers 240: 24·128 + 240·256 = 64,512, the 168 a thread
+// that the launch gives 384 threads (setmaxnreg.inc takes only what a .dec
+// of the same block gave up: 32 for the producer hung the consumers).
+// - Units and grid.  A unit is 64 query rows of one q head.  The units of a
+//   KV head are u = g·n + i over its G = H / Hkv q heads g and n = 2·⌈T /
+//   128⌉ q tiles i (L's rows: a unit past T still writes L, and without L
+//   its stores are skipped).  Block x of KV head y takes units x and G·n −
+//   1 − x, a light one and a heavy one: causally their K/V tiles of 64 keys
+//   add up to about n + 1, so the blocks do like work, and there are G·n / 2
+//   of them a KV head (96 at paligemma-3b's prefill of 4 × 384, 128 at 1 ×
+//   2048).
+// - The two consumers.  Consumer h runs the heavy unit (nh tiles), consumer
+//   l the light one (nl ≤ nh tiles); tiles 0..nl − 1 are both units', so one
+//   load feeds both, and past them h runs on alone.  Each unit is computed
+//   whole by one consumer, every row's products and sums in the order of
+//   the 128-row layout before it, so o is the same with and without L.
+// - Shared memory, six 32 KB buffers: the two units' Q, two K slots and two
+//   V slots (192 KB).  Tile t takes K slot t % 2 and V slot t % 2; each
+//   consumer frees a slot on a barrier of its own (one arrival a warp), and
+//   the slot's next load waits for h, and for l where l read the tile.
+//   Producer lane b serves slot b (K0, K1, V0, V1), so no K load waits on a
+//   V slot.
+// - A consumer issues S(t + 1) right behind the PV wgmmas of tile t, so
+//   its tensor work runs on from PV(t) into S(t + 1); it stops only for
+//   the softmax's head of tile t + 1 (the mask, the row max, O rescaled),
+//   which the other consumer's wgmmas fill.  P is made k-step by k-step as
+//   at (192, 128): the step's exponentials, row sums and three terms, then
+//   its three m64n256k16 PV wgmmas as a commit group, the terms of two
+//   steps held.
+// What bounds it (clock stamps of the kStamps cut on an H100): a tile's
+// tensor work (S once, PV three times) is 2,048 cycles; two consumers
+// together took about 5,200 cycles for their two tiles, one alone about
+// 2,850 a tile.  At 1 × 2048 the heavy unit runs 28 of its 32 tiles alone,
+// so a block's time is mostly the heavy unit's.
+struct D256 {
+  static constexpr int kD = 256;
+  static constexpr int kRows = 64;      // query rows of a unit
+  static constexpr int kBlockK = 64;    // keys of a K/V tile
+  static constexpr int kThreads = 384;  // producer warpgroup + two consumers
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = 240;
+  static constexpr int kPanels = kD / kPanel;  // of Q, K and V
+  static constexpr int kTile = kRows * kD * 2;  // bytes of a Q, K or V tile (all 64 rows)
+  // buffers of a tile: Q_h, Q_l, K0, K1, V0, V1
+  static constexpr int kKOff = 2 * kTile;
+  static constexpr int kBarOff = kKOff + 4 * kTile;
+  // barriers: q[2] (heavy, light), full[4] (K0, K1, V0, V1), empty[2][4]
+  // (of h, of l); then slack to align the dynamic shared memory to 1024
+  // bytes
+  static constexpr int kBars = 2 + 4 + 2 * 4;
+  static constexpr size_t kBytes = kBarOff + kBars * 8 + 1024;
+  static_assert(kBytes <= 232448, "more shared memory than a block can have");
+  // kStamps: tiles stamped a consumer (the last row: start, loop end,
+  // end) and points a tile
+  static constexpr int kStampTiles = 64;
+  static constexpr int kStampPoints = 6;
+};
+
+// 64-row q tiles of a head: those of T rounded up to 128 (L's rows)
+__host__ __device__ __forceinline__ int d256_q_tiles(int Tq) { return 2 * ((Tq + 127) / 128); }
+
+// The launch's grid: a block a pair of units, G·n / 2 a KV head
+__host__ __forceinline__ dim3 d256_grid(int B, int H, int Hkv, int Tq) {
+  return dim3(H / Hkv * d256_q_tiles(Tq) / 2, B * Hkv);
+}
+
+// K/V tiles of 64 keys that q tile i (64 rows) visits: all of them, or
+// causally those up to the last key its last row sees
+__device__ __forceinline__ int d256_kv_tiles(int i, int Tq, int Tk, int causal, int prefix) {
+  constexpr int kK = D256::kBlockK;
+  const int n = (Tk + kK - 1) / kK;
+  const int last = max(min((i + 1) * D256::kRows, Tq) - 1, prefix - 1);
+  return causal ? min(n, last / kK + 1) : n;
+}
+
+// S = Q Kᵀ over one K tile of 64 keys (D / 16 k-steps), one commit group
+// The descriptors are a base's, plus each step's start in 16-byte units
+// (the address field, 14 bits, does not carry), made afresh each call so
+// that no 64-bit base is held across the tile loop beside O.
+__device__ __forceinline__ void d256_s(float (&sc)[32], uint32_t sq_wg, uint32_t sk_s) {
+  asm volatile("" : "+r"(sq_wg), "+r"(sk_s));
+  const uint64_t da0 = smem_desc(sq_wg, 16, 1024), db0 = smem_desc(sk_s, 16, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D256::kD / 16; ++kk) {
+    // 64 rows of 128 bytes a panel of Q and of K, 32 bytes a step in it
+    const uint64_t step = ((kk / 4) * D256::kRows * kRowBytes + (kk % 4) * 32) >> 4;
+    wgmma_ss_n64(sc, da0 + step, db0 + step, kk > 0);
+  }
+  wgmma_commit();
+}
+
+template <bool kLse>
+__device__ __forceinline__ void d256_body(const CUtensorMap* qmap, const CUtensorMap* kmap,
+                                          const CUtensorMap* vmap,
+                                          __nv_bfloat16* __restrict__ o, int H, int Hkv,
+                                          int Tq, int Tk, float scale_log2, int causal,
+                                          int prefix, float* __restrict__ lse2) {
+  using C = D256;
+  constexpr int kK = C::kBlockK;
+  constexpr int kT = kVariant == kOneTerm ? 1 : kTerms;  // bf16 terms of P
+  constexpr bool kSoftmax = kVariant != kNoSoftmax;
+  constexpr int kRing = 2;  // k-steps whose P terms are held
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base, bars = base + C::kBarOff;
+  // slot b: 0, 1 K slots; 2, 3 V slots; consumer c 0: h, 1: l
+  auto slot = [&](int i) { return base + C::kKOff + i * C::kTile; };
+  auto qbar = [&](int light) { return bars + 8u * light; };
+  auto full = [&](int b) { return bars + 8u * (2 + b); };
+  auto empty = [&](int c, int b) { return bars + 8u * (6 + 4 * c + b); };
+
+  // the block's units (above): ua < ub
+  const int n = d256_q_tiles(Tq);
+  const int ua = blockIdx.x;
+  const int ub = H / Hkv * n - 1 - blockIdx.x;
+  const int bkv = blockIdx.y;                   // b·Hkv + KV head
+  const int b = bkv / Hkv;
+  const int head0 = b * H + (bkv - b * Hkv) * (H / Hkv);  // unit u's q head: head0 + u / n
+  const int na = d256_kv_tiles(ua % n, Tq, Tk, causal, prefix);
+  const int nb = d256_kv_tiles(ub % n, Tq, Tk, causal, prefix);
+  const bool a_light = na <= nb;
+  const int u_h = a_light ? ub : ua, u_l = a_light ? ua : ub;
+  const int nh = max(na, nb), nl = min(na, nb);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar(0), 1);
+    mbar_init(qbar(1), 1);
+    for (int i = 0; i < 4; ++i) {
+      mbar_init(full(i), 1);
+      mbar_init(empty(0, i), 4);  // a warp each
+      mbar_init(empty(1, i), 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // producer: thread 0 loads both units' Q; then thread b serves slot b,
+    // its x-th load tile 2x + b % 2, each load once the consumers of the
+    // slot's last tile freed it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kProducerRegs));
+    if (threadIdx.x == 0) {
+      for (int light = 0; light < 2; ++light) {
+        const int u = light ? u_l : u_h;
+        mbar_expect_tx(qbar(light), C::kTile);
+        for (int p = 0; p < C::kPanels; ++p)
+          tma_load_3d(sq + light * C::kTile + p * C::kRows * kRowBytes, qmap, qbar(light),
+                      p * kPanel, (u % n) * C::kRows, head0 + u / n);
+      }
+    }
+    const int bf = threadIdx.x;
+    if (bf < 4) {
+      for (int x = 0, t = bf & 1; t < nh; ++x, t += 2) {
+        if (x > 0) {  // tile t − 2: h's, and l's where it is one of l's tiles
+          mbar_wait(empty(0, bf), (x - 1) & 1);
+          if (t - 2 < nl) mbar_wait(empty(1, bf), (x - 1) & 1);
+        }
+        mbar_expect_tx(full(bf), C::kTile);
+        for (int p = 0; p < C::kPanels; ++p)
+          tma_load_3d(slot(bf) + p * kK * kRowBytes, bf < 2 ? kmap : vmap, full(bf),
+                      p * kPanel, t * kK, bkv);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
+  const int w = wg - 1;  // 0: h, 1: l
+  const bool light = w == 1;
+  const int u = light ? u_l : u_h;
+  const int nt = light ? nl : nh;
+  // nt is never 0; but without a branch out right past setmaxnreg.inc
+  // ptxas held this code to the launch's 168 registers and spilled
+  if (nt == 0) return;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int c2 = 2 * (lane % 4);  // first column of each 8-column group
+  const int bh = head0 + u / n;
+  const int q0 = (u % n) * C::kRows;
+  const int r0 = q0 + 16 * warp + lane / 4;  // rows r0 and r0 + 8
+  const uint32_t sq_wg = sq + (light ? C::kTile : 0);
+  // Accumulator layout (m64nN, float32): element i of a thread lies in
+  // row r0 + 8·((i >> 1) & 1), column 8·(i / 4) + c2 + (i & 1).
+  float acc[C::kD / 2], sc[kK / 2];
+  uint32_t pr[kT][kRing][4];  // P's terms of kRing k-steps (below)
+  // kStamps: block (0, 0)'s consumer thread 0 stamps its tiles past L's
+  // B·H·n·64 rows
+  unsigned long long* stamps =
+      kVariant == kStamps && kLse && blockIdx.x == 0 && blockIdx.y == 0 && tid == 0
+          ? reinterpret_cast<unsigned long long*>(
+                lse2 + static_cast<long long>(gridDim.y / Hkv) * H * n * C::kRows) +
+                w * C::kStampTiles * C::kStampPoints
+          : nullptr;
+  auto stamp = [&](int row, int point) {
+    if (kVariant == kStamps && stamps != nullptr && row < C::kStampTiles)
+      stamps[row * C::kStampPoints + point] = clock64();
+  };
+  auto release = [&](uint32_t bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+  stamp(C::kStampTiles - 1, 0);
+#pragma unroll
+  for (int i = 0; i < C::kD / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kK / 2; ++i) sc[i] = 0.f;
+  // pinned here: else ptxas set them inside the first S's wgmma pipeline
+  // stage and serialized the kernel's wgmmas (its note C7515)
+  fence_regs(acc);
+  fence_regs(sc);
+  float m_r[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
+
+  mbar_wait(qbar(light), 0);
+  if (kVariant == kNoCompute) {
+    for (int t = 0; t < nt; ++t) {
+      mbar_wait(full(t & 1), (t >> 1) & 1);
+      release(empty(w, t & 1));
+      mbar_wait(full(2 + (t & 1)), (t >> 1) & 1);
+      release(empty(w, 2 + (t & 1)));
+    }
+  } else {
+    mbar_wait(full(0), 0);
+    d256_s(sc, sq_wg, slot(0));
+    for (int t = 0; t < nt; ++t) {
+      const int st = min(t, C::kStampTiles - 2);
+      // S(t) and PV(t − 1) are done: K(t) and V(t − 1) are read
+      stamp(st, 0);
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(acc);
+      fence_regs(pr);
+      stamp(st, 1);
+      release(empty(w, t & 1));
+      if (t > 0) release(empty(w, 2 + ((t - 1) & 1)));
+
+      // online softmax over the tile; masked scores are -1e30 (row r sees
+      // keys up to max(r, prefix − 1)): every tile past the first row's
+      // last key, or past Tk, has some
+      const int k0 = t * kK;
+      if (k0 + kK > Tk || (causal && k0 + kK - 1 > max(q0, prefix - 1))) {
+        const int last[2] = {max(r0, prefix - 1), max(r0 + 8, prefix - 1)};
+#pragma unroll
+        for (int i = 0; i < kK / 2; ++i) {
+          const int key = k0 + 8 * (i / 4) + c2 + (i & 1);
+          if (key >= Tk || (causal && key > last[(i >> 1) & 1])) sc[i] = kNegInf;
+        }
+      }
+      float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+      for (int i = 0; kSoftmax && i < kK / 2; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float alpha[2], mc[2];
+#pragma unroll
+      for (int r = 0; kSoftmax && r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2f((m_r[r] - mx[r]) * scale_log2);
+        m_r[r] = mx[r];
+        mc[r] = mx[r] * scale_log2;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; kSoftmax && i < C::kD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      stamp(st, 2);
+
+      // k-step by k-step: the step's probabilities, their sums and terms,
+      // then its PV wgmmas, a commit group each; step kk waits until step
+      // kk − kRing is done (wait_group kRing − 1) before it overwrites
+      // its terms
+      mbar_wait(full(2 + (t & 1)), (t >> 1) & 1);
+      stamp(st, 3);
+      const uint64_t dv = smem_desc(slot(2 + (t & 1)), kK * kRowBytes, 1024);
+#pragma unroll
+      for (int kk = 0; kk < kK / 16; ++kk) {
+        if (kk >= kRing) {
+          wgmma_wait<kRing - 1>();
+          fence_step(pr, kk % kRing);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 8 * kk + 2 * j;
+          float r0v = kSoftmax ? exp2f(fmaf(sc[i], scale_log2, -mc[j & 1])) : sc[i];
+          float r1v = kSoftmax ? exp2f(fmaf(sc[i + 1], scale_log2, -mc[j & 1])) : sc[i + 1];
+          l[j & 1] += r0v + r1v;
+#pragma unroll
+          for (int a = 0; a < kT; ++a) {
+            const uint32_t b0 = __float_as_uint(r0v), b1 = __float_as_uint(r1v);
+            pr[a][kk % kRing][j] = bf16x2_high(b0, b1);
+            r0v -= __uint_as_float(b0 & 0xffff0000u);  // exact
+            r1v -= __uint_as_float(b1 & 0xffff0000u);
+          }
+        }
+        fence_step(pr, kk % kRing);
+        wgmma_fence();
+        // O += Σ P_a V: 16 keys (two 1024-byte swizzle atoms, 2048 bytes:
+        // 128 in the descriptor's address field) a step; the leading byte
+        // offset steps between the 64-column panels of V
+#pragma unroll
+        for (int a = 0; a < (kVariant == kNoPV ? 0 : kT); ++a)
+          wgmma_rs_n256(acc, pr[a][kk % kRing], dv + kk * 16 * kRowBytes / 16);
+        wgmma_commit();
+      }
+      stamp(st, 4);
+      // S(t + 1) behind PV(t): every score of tile t is read
+      if (t + 1 < nt) {
+        mbar_wait(full((t + 1) & 1), ((t + 1) >> 1) & 1);
+        fence_regs(sc);
+        d256_s(sc, sq_wg, slot((t + 1) & 1));
+      }
+      stamp(st, 5);
+    }
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(pr);
+    release(empty(w, 2 + ((nt - 1) & 1)));
+  }
+  stamp(C::kStampTiles - 1, 1);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // the rows' sums, on every thread of the quad
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+  if constexpr (kLse) {  // every row of the unit: [B·H, n · 64]
+    if (lane % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        lse2[static_cast<long long>(bh) * n * C::kRows + r0 + 8 * r] =
+            m_r[r] * scale_log2 + log2f(l[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row < Tq) {
+      __nv_bfloat16* orow = o + (static_cast<long long>(bh) * Tq + row) * C::kD;
+#pragma unroll
+      for (int g = 0; g < C::kD / 8; ++g)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * g + c2) = __floats2bfloat162_rn(
+            acc[4 * g + 2 * r] / l[r], acc[4 * g + 2 * r + 1] / l[r]);
+    }
+  }
+  stamp(C::kStampTiles - 1, 2);
+}
+
+template <>
+__global__ void __launch_bounds__(D256::kThreads, 1)
+    flash_attention_wgmma_kernel<256, 256, false>(const __grid_constant__ CUtensorMap qmap,
+                                                  const __grid_constant__ CUtensorMap kmap,
+                                                  const __grid_constant__ CUtensorMap vmap,
+                                                  __nv_bfloat16* __restrict__ o, int H, int Hkv,
+                                                  int Tq, int Tk, float scale_log2, int causal,
+                                                  int prefix, float* __restrict__ lse2) {
+  d256_body<false>(&qmap, &kmap, &vmap, o, H, Hkv, Tq, Tk, scale_log2, causal, prefix, lse2);
+}
+
+template <>
+__global__ void __launch_bounds__(D256::kThreads, 1)
+    flash_attention_wgmma_kernel<256, 256, true>(const __grid_constant__ CUtensorMap qmap,
+                                                 const __grid_constant__ CUtensorMap kmap,
+                                                 const __grid_constant__ CUtensorMap vmap,
+                                                 __nv_bfloat16* __restrict__ o, int H, int Hkv,
+                                                 int Tq, int Tk, float scale_log2, int causal,
+                                                 int prefix, float* __restrict__ lse2) {
+  d256_body<true>(&qmap, &kmap, &vmap, o, H, Hkv, Tq, Tk, scale_log2, causal, prefix, lse2);
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave,
@@ -738,6 +1098,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   return cudaGetLastError();
 }
 
+// (256, 256): D256's block, 64-row Q boxes, a block a pair of units
+template <bool kLse>
+cudaError_t launch_d256(const void* q, const void* k, const void* v, void* o, float* lse2,
+                        int B, int H, int Hkv, int Tq, int Tk, int causal, int prefix,
+                        cudaStream_t stream) {
+  using C = D256;
+  auto kernel = flash_attention_wgmma_kernel<256, 256, kLse>;
+  cudaError_t err = repro::allow_smem(kernel, C::kBytes);
+  if (err != cudaSuccess) return err;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap qmap, kmap, vmap;
+  if (!make_map(&qmap, encode, q, C::kD, Tq, B * H, C::kRows) ||
+      !make_map(&kmap, encode, k, C::kD, Tk, B * Hkv, C::kBlockK) ||
+      !make_map(&vmap, encode, v, C::kD, Tk, B * Hkv, C::kBlockK))
+    return cudaErrorInvalidValue;
+  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(C::kD)));
+  kernel<<<d256_grid(B, H, Hkv, Tq), C::kThreads, C::kBytes, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), H, Hkv, Tq, Tk, scale * kLog2e, causal,
+      prefix, lse2);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // o [B, H, Tq, Dv] = attention of q [B, H, Tq, D] over k [B, Hkv, Tk, D]
@@ -776,10 +1159,10 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const v
   } else if (D == 192 && Dv == 128) {
     err = launch<192, 128>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, prefix, stream);
   } else if (D == 256 && Dv == 256 && lse2 != nullptr) {
-    err = launch<256, 256, true>(q, k, v, o, static_cast<float*>(lse2), B, H, Hkv, Tq, Tk,
-                                 causal, prefix, stream);
+    err = launch_d256<true>(q, k, v, o, static_cast<float*>(lse2), B, H, Hkv, Tq, Tk, causal,
+                            prefix, stream);
   } else if (D == 256 && Dv == 256) {
-    err = launch<256, 256>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, prefix, stream);
+    err = launch_d256<false>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, prefix, stream);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -830,6 +830,28 @@ def test_cuda_flash_wgmma_mla_instance_spills_nothing(cuda_device):
         assert (r["local_stores"], r["local_loads"]) == (0, 0), r
 
 
+def test_cuda_flash_d256_instances_spill_nothing(cuda_device):
+    """``tools/sass_report.py`` on ``flash_attention_wgmma.cu``: the bf16
+    (256, 256) kernel, without L and with it, stores and loads nothing in
+    local memory (its consumers hold O's 128 registers a thread past
+    setmaxnreg)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(root / "tools" / "sass_report.py"),
+                          "flash_attention_wgmma.cu"], capture_output=True, text=True,
+                         check=True).stdout
+    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    for flag in ("Lb0E", "Lb1E"):
+        mine = [r for r in rows
+                if f"flash_attention_wgmma_kernelILi256ELi256E{flag}" in r["function"]]
+        assert len(mine) == 1, (flag, rows)
+        assert (mine[0]["local_stores"], mine[0]["local_loads"]) == (0, 0), mine[0]
+
+
 def _flash_gate(got, want, dt, what=""):
     """float32 within 1e-5 of the largest output of the float64 plain
     version; bf16 within one bf16 rounding of it."""
@@ -844,13 +866,20 @@ def _flash_gate(got, want, dt, what=""):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,H,Hkv,T,causal,prefix", [
     (1, 8, 1, 77, True, None), (1, 4, 1, 300, False, None), (2, 8, 1, 384, True, 256),
-    (1, 8, 1, 1000, True, 256), (1, 4, 2, 257, True, 100), (1, 2, 1, 130, True, 130)])
+    (1, 8, 1, 1000, True, 256), (1, 4, 2, 257, True, 100), (1, 2, 1, 130, True, 130),
+    (2, 8, 1, 65, True, None), (1, 4, 1, 129, True, 100), (4, 8, 1, 2048, True, 256),
+    (1, 8, 2, 300, True, 100), (1, 3, 1, 150, False, None)])
 def test_cuda_flash_d256_matches_float64(cuda_device, B, H, Hkv, T, causal, prefix, dtype):
     """paligemma-3b's head dim 256 on the wgmma (bf16) and tf32 (float32)
     forward, causal, non-causal and under prefix-LM masks (P 256 at L2's
     shape, an unaligned P 100, P = T), against the plain version in
     float64: one launch of the route's kernel a call, two calls bitwise
-    equal; bf16 also with L (``return_lse``), o bitwise the call without."""
+    equal; bf16 also with L (``return_lse``), o bitwise the call without.
+    The bf16 kernel's schedule at its edges: a one-row last 64-row q tile
+    (T 65) and 128-row one (T 129, L's rows), several waves of blocks at
+    (4, 8, 1, 2048), q heads of two KV heads paired (Hkv 2 under H 8), and
+    units of 64 rows wholly past T (T 150 is 4 units a head, L's rows: the
+    last one writes L and stores nothing) over an odd count of heads."""
     from repro_torch.kernels import flash_attention as tflash
 
     dt = getattr(torch, dtype)

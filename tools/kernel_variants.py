@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where ``matvec``, ``flash_attention_tf32``, ``scatter_dedup``,
-``fused_chain``, ``gather_mul_scatter`` and ``flash_attention``'s mma kernel
-spend their time.
+``fused_chain``, ``gather_mul_scatter``, ``flash_attention``'s mma kernel and
+the wgmma and TF32 flash kernels' MLA and (256, 256) instances spend their
+time.
 
 Builds each kernel's source as it is and in variants that cut out or
 change one part of it, and times them in turns on the card (CUDA events,
@@ -128,9 +129,25 @@ every kernel instance of the four tensor-core sources against the
 parent's build (``sass_report`` lines; a (192, 128) instance that differs
 leaves its SASS diff under ``build/sass_diff/``).
 
+Section ``d256`` (``d256_rows``): the bf16 forward at (256, 256) with the
+prefix-LM mask (paligemma-3b) at ``chip_smoke.py``'s two VLM_FWD_CASES,
+(4, 8, 1, 384) and (1, 8, 1, 2048) with P 256: this tree's build without
+and with L, the parent's build (``--other ROOT``) and the cuts of
+D256_CUTS, device ms in turns beside SDPA's device ms with the mask as a
+boolean ``attn_mask``, events ms in turns, errors against float64
+(``check_flash``'s gate), L against the plain version's, two calls bitwise,
+o bitwise with L and to the parent's, the bound and each build's grid
+(from the profiler's trace, ``chip_smoke.trace_kernels``); before the shapes each build's (256, 256) ``sass_report`` lines (registers,
+spills), after each shape block (0, 0)'s clock stamps (the ``d256_stamps``
+build: the cycles of each part of a tile for each consumer), and after the
+shapes the other bf16 instances (D256_OTHERS) in turns against the
+parent's build and every instance's SASS against the parent's.  The cuts
+are ``fwd_no_pv``, ``fwd_no_split``, ``fwd_no_softmax`` and
+``fwd_no_compute``, as for MLA's instance (above).
+
 Run on a card from the repository root (all sections, or the ones
 named: ``matvec``, ``flash``, ``dedup``, ``gms``, ``mma``, ``mla``,
-``mla_bf16_bwd``, ``bwd_d64_d128``):
+``mla_bf16_bwd``, ``bwd_d64_d128``, ``d256``):
 
     python3 tools/kernel_variants.py [section ...] [--other ROOT]
 """
@@ -189,6 +206,7 @@ VARIANTS = {
     "fwd_no_split": (MLA_FWD_SRC, 2, False),
     "fwd_no_softmax": (MLA_FWD_SRC, 3, False),
     "fwd_no_compute": (MLA_FWD_SRC, 4, False),
+    "d256_stamps": (MLA_FWD_SRC, 5, True),
     "bwd_no_split": (MLA_BWD_SRC, 1, False),
     "bwd_no_compute": (MLA_BWD_SRC, 2, False),
     "bwd_dq_pass1": (MLA_BWD_SRC, 3, False),
@@ -217,14 +235,32 @@ BWD_D64_D128_CUTS = {
 PARENT_ARGTYPES: dict = {}
 #: flash shapes (B, H, Hkv, T, D, causal)
 FLASH_SHAPES = ((4, 32, 8, 1024, 64, True), (1, 8, 1, 1000, 64, False))
+#: section ``d256``: chip_smoke's two VLM_FWD_CASES at (256, 256), (B, H,
+#: Hkv, T, prefix): paligemma-3b's L2 prefill and a long one; the cuts it
+#: times (``fwd_*`` cut the (256, 256) instance too)
+D256_SHAPES = ((4, 8, 1, 384, 256), (1, 8, 1, 2048, 256))
+D256_CUTS = ("fwd_no_pv", "fwd_no_split", "fwd_no_softmax", "fwd_no_compute")
+#: the build whose L instance stamps block (0, 0)'s tiles (``_d256_stamps``)
+D256_STAMPS = "d256_stamps"
+#: section ``d256``: the other bf16 instances of the source, (B, H, Hkv, T,
+#: D, Dv), causal: E3's (64, 64), moonshot's (128, 128) and MLA's G2 prefill
+D256_OTHERS = ((4, 32, 8, 1024, 64, 64), (4, 16, 16, 1024, 128, 128),
+               (4, 128, 128, 1024, 192, 128))
+#: the parent builds of each section that takes ``--other``
+PARENT_BUILDS = {"mla": ("fwd", "bwd", "tf32", "bwd_wgmma"),
+                 "mla_bf16_bwd": ("fwd", "bwd", "tf32", "bwd_wgmma"),
+                 "bwd_d64_d128": ("fwd", "bwd", "tf32", "bwd_wgmma"),
+                 "d256": ("fwd",)}
 
 
-def build_all(names, other: Path | None = None) -> dict:
+def build_all(names, other: Path | None = None,
+              parents=("fwd", "bwd", "tf32", "bwd_wgmma")) -> dict:
     """Compile the variants (all nvcc processes at once) into
     build/kernels/variants/, and with ``other`` (a checkout's root) that
-    tree's MLA sources as ``parent_fwd``, ``parent_bwd`` and
-    ``parent_bwd_wgmma`` (and, with this tree's build of the same,
-    ``parent_tf32`` / ``this_tf32``); returns name -> loaded library."""
+    tree's tensor-core flash sources named in ``parents`` as ``parent_fwd``,
+    ``parent_bwd`` and ``parent_bwd_wgmma`` (and, with this tree's build of
+    the same, ``parent_tf32`` / ``this_tf32``); returns name -> loaded
+    library."""
     from repro_torch.kernels import _cuda
 
     out = _cuda.BUILD_DIR / "variants"
@@ -232,10 +268,13 @@ def build_all(names, other: Path | None = None) -> dict:
     csrc = {name: (_cuda.CSRC, *VARIANTS[name][:2]) for name in names}
     if other is not None:
         theirs = other / "src" / "repro_torch" / "kernels" / "csrc"
-        csrc.update(parent_fwd=(theirs, MLA_FWD_SRC, 0), parent_bwd=(theirs, MLA_BWD_SRC, 0),
-                    parent_tf32=(theirs, MLA_TF32_FWD_SRC, 0),
-                    this_tf32=(_cuda.CSRC, MLA_TF32_FWD_SRC, 0),
-                    parent_bwd_wgmma=(theirs, MLA_BF16_BWD_SRC, 0))
+        builds = {"fwd": dict(parent_fwd=(theirs, MLA_FWD_SRC, 0)),
+                  "bwd": dict(parent_bwd=(theirs, MLA_BWD_SRC, 0)),
+                  "tf32": dict(parent_tf32=(theirs, MLA_TF32_FWD_SRC, 0),
+                               this_tf32=(_cuda.CSRC, MLA_TF32_FWD_SRC, 0)),
+                  "bwd_wgmma": dict(parent_bwd_wgmma=(theirs, MLA_BF16_BWD_SRC, 0))}
+        for which in parents:
+            csrc.update(builds[which])
     jobs = {}
     for name, (root, source, number) in csrc.items():
         cmd = [_cuda.find_nvcc(), *_cuda.NVCC_FLAGS, f"-DREPRO_VARIANT={number}",
@@ -962,6 +1001,8 @@ def _sass_instances(libs) -> None:
                          ("parent_tf32", tflash.FLASH_ATTENTION_TF32),
                          ("parent_bwd_wgmma", tflash.FLASH_ATTENTION_BWD_WGMMA),
                          ("parent_bwd", tflash.FLASH_ATTENTION_BWD_TF32)):
+        if name not in libs:  # a section that built fewer of the parent's
+            continue
         kernel.library()
         theirs = by_instance(out / f"{name}.so")
         mine = by_instance(kernel.library_path())
@@ -978,6 +1019,189 @@ def _sass_instances(libs) -> None:
                           "parent_only": sorted(set(theirs) - set(mine)),
                           "this": {key: line for key, (line, _) in mine.items()}}),
               flush=True)
+
+
+def _d256_call(lib, name, q, k, v, P, stream, argtypes=None, lse=None):
+    """A call of a build's wgmma C entry at (256, 256) with the prefix P
+    (``argtypes`` where the build's entry takes others than this tree's;
+    with ``lse`` it also writes L there)."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    B, H, T, D = q.shape
+    o = q.new_empty((B, H, T, D))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, H, k.shape[1], T, T, D, D, 1, P,
+            stream)
+    call = _c_call(lib, tflash.FLASH_ATTENTION_WGMMA, args, name, argtypes)
+    return lambda: (call(), o)[1]
+
+
+def _d256_stamps(lib, q, k, v, P, stream) -> dict:
+    """Block (0, 0)'s clock64 stamps from the ``d256_stamps`` build (its
+    instance with L writes them past L's rows): the block's tile counts
+    (the light unit's ``nl``, the heavy one's ``nh``) and for each consumer the cycles of each part of a tile (``wait``: for S(t)
+    and PV(t − 1); ``head``: the mask, row max and O's rescale; ``v_wait``:
+    for V(t); ``pv``: the k-steps' terms and PV wgmmas; ``s_issue``: S(t +
+    1) issued; ``tile``: one tile to the next), medians over its tiles and
+    each tile's ``tile``, and from its start the end of its loop and its
+    end."""
+    import torch
+
+    B, H, T, D = q.shape
+    Hkv = k.shape[1]
+    rows = -(-T // 128) * 128
+    points = 2 * 64 * 6  # consumers × kStampTiles × kStampPoints
+    buf = torch.zeros(B * H * rows + 2 * points, dtype=torch.float32, device="cuda")
+    call = _d256_call(lib, D256_STAMPS, q, k, v, P, stream, lse=buf)
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    st = buf[B * H * rows:].view(torch.int64).view(2, 64, 6).cpu().numpy()
+    n = 2 * (-(-T // 128))  # the L instance's q tiles
+
+    def kv_tiles(i):
+        return min(-(-T // 64), max(min((i + 1) * 64, T) - 1, P - 1) // 64 + 1)
+
+    na, nb = kv_tiles(0), kv_tiles((H // Hkv * n - 1) % n)
+    nl, nh = min(na, nb), max(na, nb)
+    counts = (nh, nl)  # consumer h's tiles, l's
+    out = {"nl": nl, "nh": nh}
+    names = ("wait", "head", "v_wait", "pv", "s_issue")
+    for w, nt in enumerate(counts):
+        per = [{name: int(st[w, t, i + 1] - st[w, t, i]) for i, name in enumerate(names)}
+               for t in range(min(nt, 62))]
+        tiles = [int(st[w, t + 1, 0] - st[w, t, 0]) for t in range(min(nt, 62) - 1)]
+        out[f"consumer{w}"] = {
+            "tiles": nt,
+            "median_cycles": {key: float(np.median([x[key] for x in per])) for key in names},
+            "tile_cycles": tiles,
+            "from_start": {"loop_end": int(st[w, 63, 1] - st[w, 63, 0]),
+                           "end": int(st[w, 63, 2] - st[w, 63, 0])}}
+    return out
+
+
+def d256_rows(libs) -> None:
+    """Section ``d256``: the bf16 forward at (256, 256) with the prefix-LM
+    mask at D256_SHAPES (chip_smoke's VLM_FWD_CASES): this tree's build
+    without and with L, the parent's build (``--other``) and the cuts of
+    D256_CUTS, device ms in turns beside SDPA's device ms with the mask as a
+    boolean ``attn_mask`` (every kernel and copy of the call), events ms in
+    turns; errors against float64 (``check_flash``'s gate) for this tree's,
+    the parent's and the checked builds, this build's L against the plain
+    version's, two calls bitwise, o bitwise with L and to the parent's; the
+    bound (q, k, v read and o written once; QKᵀ and PV over the pairs the
+    mask keeps at the bf16 rate, and the kernel's own work, PV three times);
+    each build's grid and the launches of 20 calls, from the profiler's
+    trace (``chip_smoke.trace_kernels``); after each shape, block (0, 0)'s clock stamps from
+    the ``d256_stamps`` build (``_d256_stamps``).  Before the shapes, each
+    build's (256, 256) instances' ``sass_report`` lines (registers, local
+    memory); after them
+    the other bf16 instances (D256_OTHERS) in turns against the parent's
+    build, outputs bitwise, and with ``--other`` every instance of the
+    source against the parent's (``_sass_instances``)."""
+    import torch
+    import torch.nn.functional as F
+    from chip_smoke import (BF16_OPS_PER_S, HBM_BYTES_PER_S, all_device_ms, check_flash,
+                            prefix_pairs, trace_kernels)
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ref
+    from tools.sass_report import library_reports
+
+    stream = torch.cuda.current_stream().cuda_stream
+    parent = "parent_fwd" in libs
+    cuts = [n for n in D256_CUTS if n in libs]
+    kernel = tflash.FLASH_ATTENTION_WGMMA
+    kernel.library()
+    paths = {"this": kernel.library_path(),
+             **{n: _cuda.BUILD_DIR / "variants" / f"{n}.so"
+                for n in (["parent_fwd"] if parent else []) + cuts}}
+    print(json.dumps({"d256_sass": {
+        name: [r for r in library_reports(path) if "Li256ELi256E" in r["function"]]
+        for name, path in paths.items()}}), flush=True)
+    rng = np.random.default_rng(0)
+    for B, H, Hkv, T, P in D256_SHAPES:
+        q, k, v, _ = _qkv(rng, B, H, Hkv, T, 256, 256, torch.bfloat16)
+        mask = ref.attention_mask(T, T, True, P, "cuda")
+        fns = {"this": lambda: tflash.flash_attention(q, k, v, prefix_len=P),
+               "this_lse": lambda: tflash.flash_attention(q, k, v, return_lse=True,
+                                                          prefix_len=P)[0]}
+        if parent:
+            fns["parent"] = _d256_call(libs["parent_fwd"], "parent", q, k, v, P, stream,
+                                       PARENT_ARGTYPES["fwd"])
+        for name in cuts:
+            fns[name] = _d256_call(libs[name], name, q, k, v, P, stream)
+
+        def sdpa():
+            F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+        want = ref.flash_attention_ref(q.double(), k.double(), v.double(), prefix_len=P)
+        errors = {}
+        for name in ["this", "parent"] + [n for n in cuts if VARIANTS[n][2]]:
+            if name in fns:
+                got = fns[name]()
+                torch.cuda.synchronize()
+                errors[name] = check_flash(f"d256 {name} {(B, H, Hkv, T)} P {P}", got, want,
+                                           torch.bfloat16)[0]
+        del want
+        o, lse = tflash.flash_attention(q, k, v, return_lse=True, prefix_len=P)
+        want_lse = ref.flash_attention_lse_ref(q, k, v, prefix_len=P)
+        lse_err = float((lse[..., :T] - want_lse).abs().max())
+        if not lse_err <= 1e-6 * float(want_lse.abs().max()):
+            raise AssertionError(f"d256 {(B, H, Hkv, T)}: L {lse_err} from the plain version's")
+        first = fns["this"]()
+        bitwise = {"repeat": torch.equal(first, fns["this"]()),
+                   "with_lse": torch.equal(first, o)}
+        if parent:
+            bitwise["to_parent"] = torch.equal(first, fns["parent"]())
+        for name in cuts:
+            if VARIANTS[name][2]:
+                bitwise[f"{name}_to_this"] = torch.equal(first, fns[name]())
+        if not (bitwise["repeat"] and bitwise["with_lse"]):
+            raise AssertionError(f"d256 {(B, H, Hkv, T)}: {bitwise}")
+        del o, lse, want_lse, first
+        device = device_in_turns(fns, "flash_attention_wgmma")
+        device["sdpa"] = statistics.mean(all_device_ms(sdpa) for _ in range(2))
+        pairs = B * H * prefix_pairs(T, P)
+        nbytes = 2 * (2 * B * H * T * 256 + 2 * B * Hkv * T * 256)
+        bound = max(nbytes / HBM_BYTES_PER_S, 4 * pairs * 256 / BF16_OPS_PER_S)
+        grids = {}
+        for name in ("this", "this_lse", "parent"):
+            if name in fns:
+                records = trace_kernels(fns[name], "flash_attention_wgmma")
+                grids[name] = {"grids": sorted({tuple(r.get("args", {}).get("grid", ()))
+                                                 for r in records}),
+                               "launches": len(records)}
+        print(json.dumps({"kernel": "flash_attention_wgmma (256, 256)",
+                          "shape": [B, H, Hkv, T, 256, 256], "prefix_len": P,
+                          "dtype": "bfloat16", "device_ms": device,
+                          "events_ms": in_turns({**fns, "sdpa": sdpa}),
+                          "max_abs_err": errors, "lse_max_abs_err": lse_err,
+                          "bitwise": bitwise, "bound_ms": 1e3 * bound,
+                          "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                                       >= 4 * pairs * 256 / BF16_OPS_PER_S else "operations"),
+                          "kernel_work_ms": 1e3 * 8 * pairs * 256 / BF16_OPS_PER_S,
+                          "grid": grids}), flush=True)
+        if D256_STAMPS in libs:
+            print(json.dumps({"d256_stamps": [B, H, Hkv, T, 256, 256], "prefix_len": P,
+                              **_d256_stamps(libs[D256_STAMPS], q, k, v, P, stream)}),
+                  flush=True)
+        del q, k, v, mask, fns
+        torch.cuda.empty_cache()
+    for B, H, Hkv, T, D, Dv in D256_OTHERS:
+        q, k, v, _ = _qkv(rng, B, H, Hkv, T, D, Dv, torch.bfloat16)
+        fns = {"this": lambda: tflash.flash_attention(q, k, v)}
+        if parent:
+            fns["parent"] = _fwd_calls(libs, ["parent_fwd"], q, k, v, stream,
+                                       argtypes=PARENT_ARGTYPES["fwd"])["parent_fwd"]
+        same = torch.equal(fns["this"](), fns["parent"]()) if parent else None
+        print(json.dumps({"kernel": "flash_attention_wgmma", "shape": [B, H, Hkv, T, D, Dv],
+                          "dtype": "bfloat16",
+                          "device_ms": device_in_turns(fns, "flash_attention_wgmma"),
+                          "events_ms": in_turns(fns), "bitwise_to_parent": same}), flush=True)
+        del q, k, v, fns
+    if parent:
+        _sass_instances(libs)
 
 
 def mla_bf16_bwd_only(libs) -> None:
@@ -1010,18 +1234,22 @@ def main() -> int:
                 "mma": (mma_rows, (MMA_SRC,)),
                 "mla": (mla_rows, (MLA_FWD_SRC, MLA_BWD_SRC, MLA_BF16_BWD_SRC)),
                 "mla_bf16_bwd": (mla_bf16_bwd_only, (MLA_BF16_BWD_SRC,)),
-                "bwd_d64_d128": (bwd_d64_d128_rows, (MLA_BWD_SRC, MLA_BF16_BWD_SRC))}
+                "bwd_d64_d128": (bwd_d64_d128_rows, (MLA_BWD_SRC, MLA_BF16_BWD_SRC)),
+                "d256": (d256_rows, (MLA_FWD_SRC,))}
     chosen = args or list(sections)
     unknown = set(chosen) - set(sections)
     if unknown:
         raise SystemExit(f"kernel_variants: unknown sections {sorted(unknown)}; "
                          f"one of {sorted(sections)}")
     sources = {src for name in chosen for src in sections[name][1]}
-    names = [v for v, (src, _, _) in VARIANTS.items() if src in sources]
+    names = [v for v, (src, _, _) in VARIANTS.items()
+             if src in sources and ("d256" in chosen or not v.startswith("d256_"))]
     if chosen == ["bwd_d64_d128"]:  # its own cuts alone
         names = [v for cuts in BWD_D64_D128_CUTS.values() for v in cuts]
-    libs = build_all(names, other if {"mla", "mla_bf16_bwd", "bwd_d64_d128"} & set(chosen)
-                     else None)
+    if chosen == ["d256"]:
+        names = [*D256_CUTS, D256_STAMPS]
+    parents = sorted({b for name in chosen for b in PARENT_BUILDS.get(name, ())})
+    libs = build_all(names, other if parents else None, parents)
     for name in chosen:
         sections[name][0](libs)
     return 0
