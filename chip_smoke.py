@@ -3601,9 +3601,11 @@ def mla_grad_leg(kernels) -> dict:
     return out
 
 
-def train_step_check(kernels, cfg, label: str, expected_per_step: dict) -> dict:
+def train_step_check(kernels, cfg, label: str, expected_per_step: dict,
+                     batch_size: int = MLA_G4_B, seq: int = MLA_G4_T) -> dict:
     """E2's float32 check of a reduced config on the card:
-    ``make_train_step`` at MLA_G4_B × MLA_G4_T from ``lm_data`` in
+    ``make_train_step`` at ``batch_size`` × ``seq`` (MLA_G4_B × MLA_G4_T; a VLM's
+    ``seq`` counts its patches) from ``lm_data`` in
     MLA_G4_MICRO microbatches with float32 accumulators (a config's plan
     may accumulate in bf16, as its Adafactor memory plan does), with AdamW
     and with SGD at TRAIN_E2_SGD_LR (its update gives back the step's
@@ -3628,7 +3630,7 @@ def train_step_check(kernels, cfg, label: str, expected_per_step: dict) -> dict:
     from repro_torch.optim import adamw, sgd
     from torch.utils import _pytree as pytree
 
-    shape = ShapeSpec("check", MLA_G4_T, MLA_G4_B, "train")
+    shape = ShapeSpec("check", seq, batch_size, "train")
     api = registry.build(cfg)
     params = api.init(seed=SEED, device="cuda")
     batch = lm_data._batch_for_step(cfg, shape, SEED, 0, "cuda")
@@ -3689,7 +3691,7 @@ def train_step_check(kernels, cfg, label: str, expected_per_step: dict) -> dict:
               "grads": max(tree_errors(step_grads, grads64).values()),
               "params": max(tree_errors(adam_params, adamw_first_step64(
                   params, step_grads, lr)).values())}
-    step = dict(arch=cfg.name, batch=MLA_G4_B, seq=MLA_G4_T, n_microbatches=n_micro,
+    step = dict(arch=cfg.name, batch=batch_size, seq=seq, n_microbatches=n_micro,
                 loss=float(metrics["loss"]), loss_oracle=loss64,
                 grad_norm=float(metrics["grad_norm"]), grad_norm_oracle=norm64,
                 steps_equal_grad_norm=float(sgd_metrics["grad_norm"])
@@ -4269,6 +4271,26 @@ VLM_FWD_CASES = ((4, 8, 1, 384, 256, 256), (1, 8, 1, 2048, 256, 256),
 #: E1's SIMT backward with the prefix at L3's step shape (a microbatch of
 #: 2 × (16 patches + 48 tokens)), (B, H, Hkv, T, D, P)
 VLM_BWD_CASE = (2, 4, 1, 64, 16, 16)
+#: E1's tensor-core backwards with the prefix, each in bf16 and float32:
+#: L2's attention shape at (256, 256) (L4's bf16 microbatch) and the mask at
+#: D 64 (E3's shape, row 9n's), (B, H, Hkv, T, D, P)
+VLM_TC_BWD_CASES = ((4, 8, 1, 384, 256, 256), (4, 32, 8, 1024, 64, 256))
+#: L4(a): full width at 2 layers in float32, L1's batch 2 × (256 patches +
+#: 64 tokens) in 2 microbatches, against float64 (``train_step_check``)
+VLM_L4A_LAYERS, VLM_L4A_B, VLM_L4A_T = 2, VLM_L1_B, VLM_L1_T
+#: L4(b): full width, bf16, AdamW as configured, remat ``full``, through
+#: ``run_training``: L2's batch 4 × (256 patches + 128 tokens), steps timed
+#: after the first, then one profiled step and a step repeated bitwise
+VLM_L4B_B, VLM_L4B_T, VLM_L4B_STEPS = VLM_L2_B, VLM_L2_T, 4
+#: bytes a parameter of a bf16 AdamW step holds at its peak, from E3's peak
+#: on an H100 (llama3.2-1b: 41,168,235,008 B over 1,236,338,688 parameters,
+#: PERF.md): L4(b)'s depth reckoning
+E3_PEAK_BYTES_PER_PARAM = 41_168_235_008 / 1_236_338_688
+#: L4(b)'s step 0 loss (bf16, the kernels) against the same initial
+#: parameters and batch in float32 through ``plain_attention``, relative: a
+#: loss is a mean over the text positions of a forward rounded to bf16 at
+#: every layer (2⁻⁸ a rounding)
+VLM_L4B_LOSS0_RTOL = 1e-2
 
 
 def stub_patches(cfg, batch: int) -> np.ndarray:
@@ -4476,8 +4498,127 @@ def vlm_attention_rows(rng) -> dict:
         backward.append(row)
         log({"kernel": "flash_attention_bwd", "path": "E1 prefix", **row})
         del q, k, v, do, o, qs, ks, vs, out
+    backward.extend(vlm_tc_bwd_rows(rng, exp_rate))
     torch.cuda.empty_cache()
     return dict(forward=forward, backward=backward)
+
+
+#: the ptxas markers of each tensor-core backward route's instances at
+#: (256, 256) (L given, the dkdv kernel by part)
+D256_BWD_INSTANCES = {
+    "wgmma": ("flash_bwd_dq_wgmma_kernelILi256ELi256ELb1E",
+              "flash_bwd_dq_wgmma_kernelILi256ELi256ELb0E", "flash_bwd_dkdv_d256_kernel"),
+    "tf32": ("flash_bwd_dq_tf32_d256_kernelILb1E", "flash_bwd_dq_tf32_d256_kernelILb0E",
+             "flash_bwd_dkdv_tf32_d256_kernel")}
+
+
+def vlm_tc_bwd_rows(rng, exp_rate: float) -> list:
+    """E1's tensor-core backwards under the prefix-LM mask at
+    VLM_TC_BWD_CASES in bf16 (wgmma) and float32 (tf32), the route
+    ``bwd_variant`` names, given the forward's L as autograd runs it and
+    without (``no_lse``): each against ``ref.flash_attention_bwd_ref`` in
+    float64 within BWD_RTOL, two calls bitwise; events ms in turns beside
+    SDPA's backward with the mask as an explicit boolean ``attn_mask``
+    (the yardstick; the port never calls it), device ms by kernel, the
+    plain version's ms and the bound (the backward's five products over the
+    pairs the mask keeps, ``prefix_pairs``, at the dtype's tensor rate, one
+    TF32 term for float32, ``tc_bound_ms`` three; q, k, v, o, dO read and
+    dQ, dK, dV written once; ``exp_bound_ms`` the two exp2 passes given L);
+    at (256, 256) each instance's ptxas registers and spill bytes and each
+    kernel's grid from the profiler's trace.  Comparison launches, not the
+    path's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ref
+
+    rows = []
+    for B, H, Hkv, T, D, P in VLM_TC_BWD_CASES:
+        mask = ref.attention_mask(T, T, True, P, "cuda")
+        pairs = B * H * prefix_pairs(T, P)
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q, k, v, do = (normal(rng, s).to(dt) for s in ((B, H, T, D), (B, Hkv, T, D),
+                                                           (B, Hkv, T, D), (B, H, T, D)))
+            o, lse = tflash.flash_attention(q, k, v, return_lse=True, prefix_len=P)
+            route = tflash.bwd_variant(dt, D)
+            label = f"E1 prefix flash_attention_bwd {(B, H, Hkv, T, D)} P {P} {dtype} {route}"
+            want = ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)),
+                                               prefix_len=P)
+            checked = {}
+            for given in (lse, None):
+                got = tflash.flash_attention_bwd(q, k, v, o, do, lse=given, prefix_len=P)
+                again = tflash.flash_attention_bwd(q, k, v, o, do, lse=given, prefix_len=P)
+                what = label + (" given L" if given is not None else "")
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{what}: two calls differ")
+                errors = {n: rel_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+                check_within(what, errors, dict.fromkeys(errors, BWD_RTOL[dtype]))
+                checked[given is not None] = (
+                    errors, max(float((g.double() - w).abs().max()) for g, w in zip(got, want)))
+                del got, again
+            del want
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            extra = {}
+            try:  # the yardstick only: the port never calls SDPA
+                out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                     enable_gqa=True)
+                torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                out = None
+                extra["library_refused"] = str(e)[:300]
+
+            def kernel():
+                tflash.flash_attention_bwd(q, k, v, o, do, lse=lse, prefix_len=P)
+
+            def no_lse():
+                tflash.flash_attention_bwd(q, k, v, o, do, prefix_len=P)
+
+            def library():
+                torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
+
+            times = time_in_turns({"kernel": kernel, "no_lse": no_lse,
+                                   **({"library": library} if out is not None else {})})
+            nbytes = q.element_size() * 2 * (B * H * T + B * Hkv * T) * 2 * D
+            flops = 2 * pairs * 5 * D
+            peak = BF16_OPS_PER_S if dt == torch.bfloat16 else TF32_OPS_PER_S
+            bms, by = bound_ms(nbytes, flops, peak)
+            if dt == torch.float32:
+                extra["tc_bound_ms"] = bound_ms(nbytes, 3 * flops, peak)[0]
+            if D == 256:
+                lib = tflash.BWD_KERNELS[route]
+                extra["ptxas"] = {m: ptxas_instance(lib, m) for m in D256_BWD_INSTANCES[route]}
+                grids = {}
+                for r in trace_kernels(kernel, "flash_bwd", calls=5):
+                    grids.setdefault(r.get("name", "")[:60], set()).add(
+                        tuple(r.get("args", {}).get("grid", ())))
+                extra["grids"] = {n: [list(g) for g in sorted(gs)] for n, gs in grids.items()}
+            split, split_no_lse = {}, {}
+            row = dict(shape=dict(B=B, H=H, Hkv=Hkv, T=T, D=D, dtype=dtype), causal=True,
+                       prefix_len=P, pairs_per_head=prefix_pairs(T, P), route=route,
+                       errors=checked[True][0], max_abs_err=checked[True][1],
+                       limit=BWD_RTOL[dtype], bitwise_repeat=True, kernel_ms=times["kernel"],
+                       device_ms=bwd_device_ms(kernel, by_kernel=split), device_kernels=split,
+                       plain_ms=time_ms(lambda: tflash.BWD_PLAIN[route](
+                           q, k, v, o, do, prefix_len=P), reps=3, warmup=1),
+                       library_ms=times.get("library"),
+                       library_device_ms=all_device_ms(library, 5) if out is not None else None,
+                       bound_ms=bms, bound_by=by,
+                       bound_peak="bf16 tensor cores" if dt == torch.bfloat16
+                       else "TF32 tensor cores, one term",
+                       exp_bound_ms=1e3 * 2 * pairs / exp_rate,
+                       no_lse=dict(errors=checked[False][0], max_abs_err=checked[False][1],
+                                   bitwise_repeat=True, kernel_ms=times["no_lse"],
+                                   device_ms=bwd_device_ms(no_lse, by_kernel=split_no_lse),
+                                   device_kernels=split_no_lse),
+                       **extra)
+            rows.append(row)
+            log({"kernel": tflash.BWD_KERNELS[route].name, "path": "E1 prefix", **row})
+            del q, k, v, do, o, lse, qs, ks, vs, out
+        del mask
+        torch.cuda.empty_cache()
+    return rows
 
 
 def vlm_phase(kernels, laps: Laps) -> dict:
@@ -4492,7 +4633,11 @@ def vlm_phase(kernels, laps: Laps) -> dict:
     tokens equal), L3 (the reduced config, head dim 16 and 16 patches: an
     AdamW step against float64, repeated bitwise, the mma forward and the
     SIMT backward carrying the prefix, then a prefill and decode steps
-    against float64)."""
+    against float64), L4 (training at full width, after L2's memory is
+    released: (a) a float32 step at VLM_L4A_LAYERS layers against float64,
+    repeated bitwise, the tf32 forward twice and the tf32 backward once a
+    layer a microbatch, both at (256, 256) with the prefix; (b) bf16
+    ``run_training``, ``vlm_train_leg``)."""
     import dataclasses
 
     import torch
@@ -4533,7 +4678,169 @@ def vlm_phase(kernels, laps: Laps) -> dict:
                             n_decode=VLM_L3_DECODE,
                             inputs={"patches": stub_patches(small, LM_REDUCED_B)}))
     laps.lap("L3 reduced paligemma train step and decode")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(full32, n_layers=VLM_L4A_LAYERS)
+    n = attention_layers(cfg32) * MLA_G4_MICRO
+    step = train_step_check(kernels, cfg32, "L4(a) paligemma train step at full width, float32",
+                            {**none, "flash_attention_tf32": 2 * n,
+                             "flash_attention_bwd_tf32": n, "flash_attention_bwd": 0,
+                             "flash_attention_bwd_wgmma": 0},
+                            batch_size=VLM_L4A_B, seq=cfg.n_frontend_tokens + VLM_L4A_T)
+    step.update(path="vlm_train_check", layers=VLM_L4A_LAYERS)
+    log(step)
+    legs.append(step)
+    laps.lap("L4(a) paligemma float32 train step at full width against float64")
+    gc.collect()
+    torch.cuda.empty_cache()
+    legs.append(vlm_train_leg(kernels))
+    laps.lap("L4(b) paligemma bf16 training at full width")
     return dict(legs=legs)
+
+
+def leaf_checksums(tree) -> list:
+    """Each leaf's bit pattern summed as 64-bit integers, in chunks (no
+    copy of a whole leaf): equal checksums of two runs' trees stand for
+    bitwise equal leaves without holding both trees."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    out = []
+    for leaf in pytree.tree_leaves(tree):
+        if not isinstance(leaf, torch.Tensor):
+            out.append(leaf)
+            continue
+        flat = leaf.detach().reshape(-1)
+        bits = flat.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                          8: torch.int64}[flat.element_size()])
+        out.append(sum(int(bits[i:i + (1 << 24)].to(torch.int64).sum())
+                       for i in range(0, bits.numel(), 1 << 24)))
+    return out
+
+
+def vlm_train_leg(kernels) -> dict:
+    """L4(b): paligemma-3b at full width, bf16 parameters, AdamW as
+    configured, remat ``full``, through ``run_training`` for VLM_L4B_STEPS
+    steps of VLM_L4B_B × (256 patches + VLM_L4B_T tokens) (the plan's
+    microbatches): step ms and tokens/s (text and patch positions; host wall
+    of a step ended by reading its loss, the median of the steps after the
+    first), peak bytes, the flash launches a step (each layer's wgmma
+    forward twice a microbatch under remat, its wgmma backward once, both
+    at (256, 256) with the prefix), then one more step profiled (idle
+    share, top kernels, the backward's kernels), and one more step run twice
+    from one state: the loss, ``grad_norm`` and every leaf of the new
+    parameters and optimizer state bitwise equal (``leaf_checksums``).
+    Depth: full (18 layers) first; the reckoning from E3's peak bytes a
+    parameter (E3_PEAK_BYTES_PER_PARAM) against the card's memory gives the
+    most layers expected to fit, taken when the full depth runs out of
+    memory.  Gates: every loss finite, the last below the first, and step
+    0's within VLM_L4B_LOSS0_RTOL of the same initial parameters' loss on the
+    same batch in float32 through ``plain_attention`` (``loss0_float32``:
+    at init paligemma's loss is not near ln(vocab_size), as E3's is, so
+    that is no gate here)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data import lm_data
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.train import make_train_plan, make_train_step, run_training
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import registry
+    from repro_torch.optim import make_optimizer
+    from torch.utils import _pytree as pytree
+
+    full = get_config(VLM_ARCH)
+    seq = full.n_frontend_tokens + VLM_L4B_T
+    shape = ShapeSpec("l4", seq, VLM_L4B_B, "train")
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    def reckoned(layers: int) -> float:
+        cfg_ = dataclasses.replace(full, n_layers=layers)
+        return registry.build(cfg_).n_params() * E3_PEAK_BYTES_PER_PARAM
+
+    fit = max((n for n in range(1, full.n_layers + 1) if reckoned(n) <= total), default=1)
+    reckoning = dict(total_memory=total, bytes_per_param=E3_PEAK_BYTES_PER_PARAM,
+                     full_depth_bytes=reckoned(full.n_layers), layers_expected_to_fit=fit)
+    tried = []
+    for layers in sorted({full.n_layers, fit, max(fit - 2, 1)}, reverse=True):
+        cfg = dataclasses.replace(full, n_layers=layers)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset(kernels)
+        try:
+            params, history = run_training(cfg, steps=VLM_L4B_STEPS, batch_size=VLM_L4B_B,
+                                           seq_len=seq, seed=SEED, log_every=1, device="cuda")
+        except torch.cuda.OutOfMemoryError as e:
+            tried.append(dict(layers=layers, out_of_memory=str(e)[:200]))
+            continue
+        break
+    else:
+        raise AssertionError(f"L4(b): no depth fits: {tried}")
+    torch.cuda.synchronize()
+    plan = make_train_plan(cfg, shape, make_smoke_mesh())
+    per_step = attention_layers(cfg) * plan.n_microbatches
+    launches = read_launches("L4(b) paligemma bf16 training", kernels, {
+        "flash_attention_wgmma": 2 * per_step * VLM_L4B_STEPS,
+        "flash_attention_bwd_wgmma": per_step * VLM_L4B_STEPS, "flash_attention_bwd": 0,
+        "flash_attention_bwd_tf32": 0, "flash_attention": 0, "flash_attention_tf32": 0})
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in history]
+    step_s = statistics.median(h["time_s"] for h in history[1:])
+    api = registry.build(cfg)
+    cfg32 = dataclasses.replace(cfg, act_dtype="float32", param_dtype="float32")
+    with torch.no_grad(), swapped(tattn, "flash_attention", plain_attention):
+        params32 = pytree.tree_map(lambda t: t.float(), api.init(seed=SEED, device="cuda"))
+        loss32 = float(registry.build(cfg32).loss(
+            params32, lm_data._batch_for_step(cfg, shape, SEED, 0, "cuda"))[0])
+    del params32
+    opt = make_optimizer(cfg.optimizer, 3e-4)
+    state = opt.init(params)
+    batch = lm_data._batch_for_step(cfg, shape, SEED, VLM_L4B_STEPS, "cuda")
+    step_fn = make_train_step(cfg, api, opt, plan)
+    events, wall = device_events(lambda: step_fn(params, state, batch), 1)
+    profile = _busy(events, wall)
+    backward = {}
+    for e in events:
+        if "flash_bwd" in e.name:
+            ms, n = backward.get(e.name[:90], (0.0, 0))
+            backward[e.name[:90]] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    profile.update(backward_kernels={k: list(v) for k, v in backward.items()},
+                   backward_ms=sum(ms for ms, _ in backward.values()))
+    del events
+    sums = []
+    for _ in range(2):  # one state, two steps: only the second's checksums are kept beside
+        new, new_state, metrics = step_fn(params, state, batch)
+        sums.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                     leaf_checksums(new), leaf_checksums(new_state)))
+        del new, new_state, metrics
+    bitwise = sums[0] == sums[1]
+    del params, state
+    torch.cuda.empty_cache()
+    out = dict(path="vlm_train", arch=full.name, layers=cfg.n_layers, n_params=api.n_params(),
+               depth_reckoning=reckoning, depths_out_of_memory=tried, steps=VLM_L4B_STEPS,
+               batch=VLM_L4B_B, seq=seq, patches=full.n_frontend_tokens,
+               n_microbatches=plan.n_microbatches, losses=losses, loss0_float32=loss32,
+               ln_vocab=math.log(full.vocab_size), step_ms=1e3 * step_s,
+               step_ms_each=[1e3 * h["time_s"] for h in history],
+               tokens_per_s=VLM_L4B_B * seq / step_s, max_memory_allocated=peak,
+               flash_launches_per_step={
+                   "forward": launches["flash_attention_wgmma"] / VLM_L4B_STEPS,
+                   "backward": launches["flash_attention_bwd_wgmma"] / VLM_L4B_STEPS},
+               profile=profile, repeat_loss=sums[0][0], repeat_bitwise=bitwise,
+               launches=launches)
+    log(out)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"L4(b): a loss is not finite, or the last is not below "
+                             f"the first: {losses}")
+    if not abs(losses[0] - loss32) <= VLM_L4B_LOSS0_RTOL * abs(loss32):
+        raise AssertionError(f"L4(b): step 0 loss {losses[0]} is not within "
+                             f"{VLM_L4B_LOSS0_RTOL} of float32's {loss32}")
+    if not bitwise:
+        raise AssertionError("L4(b): two steps from one state differ")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -8033,8 +8340,11 @@ def main() -> int:
             cases=cases, mla=mla_rows,
             cross=[{k: r[k] for k in keys if k in r} for r in train["cross"]["backward"]
                    if r["route"] == route],
-            vlm=[{k: r[k] for k in (*keys, "prefix_len") if k in r}
-                 for r in train["vlm"]["backward"] if r["route"] == route]))
+            vlm=[{k: r[k] for k in (*keys, "prefix_len", "library_device_ms", "ptxas", "grids")
+                  if k in r}
+                 for r in train["vlm"]["backward"] if r["route"] == route],
+            **({"instances_d256": list(D256_BWD_INSTANCES[route])}
+               if route in D256_BWD_INSTANCES else {})))
     log({"kernels": summary})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

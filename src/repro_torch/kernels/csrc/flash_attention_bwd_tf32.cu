@@ -1,8 +1,11 @@
-// The gradient of causal (or full) flash attention on Hopper's TF32 tensor
-// cores: dQ, dK and dV of o = softmax(q kᵀ / √D) v for q [B, H, T, D], k
-// [B, Hkv, Tk, D], v [B, Hkv, Tk, Dv] and o, dO [B, H, T, Dv] in float32,
-// (D, Dv) ∈ {(64, 64), (128, 128), (192, 128)}: (192, 128) is
-// deepseek-v3-671b's MLA.
+// The gradient of causal (or full, or prefix-LM) flash attention on
+// Hopper's TF32 tensor cores: dQ, dK and dV of o = softmax(q kᵀ / √D) v for
+// q [B, H, T, D], k [B, Hkv, Tk, D], v [B, Hkv, Tk, Dv] and o, dO [B, H, T,
+// Dv] in float32, (D, Dv) ∈ {(64, 64), (128, 128), (192, 128), (256, 256)}:
+// (192, 128) is deepseek-v3-671b's MLA, (256, 256) paligemma-3b's.  The
+// prefix-LM mask (prefix P > 0) enters as in flash_attention_bwd_wgmma.cu:
+// the dq key walk to max(last row, P − 1), every query tile for a key tile
+// below P.
 //
 // Replaces: no Pallas kernel.  The reference trains by jax.grad through
 // flash_attention_jnp (src/repro/models/attention.py:76); the Pallas
@@ -69,7 +72,8 @@
 //   at a time.  It writes L and Δ to float32 scratch [B·H, T rounded up to
 //   128] (rows past T too: finite, and met only by zero rows of Q and dO).
 //   At D = Dv, given the forward's L in that scratch (the kLseIn
-//   instances), pass 1 and its K loads are left out and only Δ is written
+//   instances; at (256, 256) too, from the TF32 forward's <256, 256, true>),
+//   pass 1 and its K loads are left out and only Δ is written
 //   (a row past T reads 0 for L: the forward writes the rows of its own
 //   query tiles, which at D = 128 may stop short of the scratch's end).
 // - flash_bwd_dkdv_tf32_kernel (D = Dv), a block per (b·Hkv + kvh, tile of
@@ -332,6 +336,12 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Wait for all but the last N committed groups of wgmmas.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
 // Shared memory written by the generic proxy, read next by wgmma or
 // overwritten by TMA (the async proxy).
 __device__ __forceinline__ void proxy_fence() {
@@ -398,6 +408,19 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d[8] (+)= A[64 x 8] · B[8 x 16]: A tf32 in registers, B K-major in shared
+// memory; accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
@@ -589,7 +612,7 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
                              const float* __restrict__ o, const float* __restrict__ dout,
                              float* __restrict__ dq, float* __restrict__ lse2,
                              float* __restrict__ delta, int H, int Hkv, int Tq, int Tk,
-                             int Tpad, float scale, int causal) {
+                             int Tpad, float scale, int causal, int prefix) {
   using C = DqCfg<D, DV>;
   constexpr int kN = C::kN;
   constexpr int kV = kVariant;
@@ -614,9 +637,10 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
   const int h = bh - b * H;
   const int kvh = b * Hkv + h / (H / Hkv);
   const int q0 = qt * C::kRows;
-  // the key tiles of the block: all, or causally those up to its last row
+  // the key tiles of the block: all, or causally those up to the last key
+  // its last row sees (row r sees keys 0..max(r, prefix − 1))
   int n_kt = (Tk + kN - 1) / kN;
-  if (causal) n_kt = min(n_kt, (min(q0 + C::kRows, Tq) - 1) / kN + 1);
+  if (causal) n_kt = min(n_kt, max(min(q0 + C::kRows, Tq) - 1, prefix - 1) / kN + 1);
 
   if (threadIdx.x == 0) {
     mbar_init(res_land, 1);
@@ -744,13 +768,15 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
     }
     mbar_wait(res_ready, 0);
 
-    // masked scores of a key tile: keys past Tk, and causally past the row
+    // masked scores of a key tile: keys past Tk, and causally past the
+    // last key of the row (row r sees keys 0..max(r, prefix − 1))
     auto mask = [&](float (&sc)[kN / 2], int k0) {
-      if (k0 + kN <= Tk && !(causal && k0 + kN - 1 > wg_row0)) return;
+      if (k0 + kN <= Tk && !(causal && k0 + kN - 1 > max(wg_row0, prefix - 1))) return;
+      const int last[2] = {max(r0, prefix - 1), max(r0 + 8, prefix - 1)};
 #pragma unroll
       for (int i = 0; i < kN / 2; ++i) {
         const int key = k0 + 8 * (i / 4) + c2 + (i & 1);
-        if (key >= Tk || (causal && key > r0 + 8 * ((i >> 1) & 1))) sc[i] = kNegInf;
+        if (key >= Tk || (causal && key > last[(i >> 1) & 1])) sc[i] = kNegInf;
       }
     };
 
@@ -768,14 +794,15 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
       }
     } else {
       // pass 1: the row maximum (raw scores) and sum of exp2 over every key
-      // tile; a tile wholly above the warpgroup's rows adds nothing
+      // tile; a tile wholly past the last key of the warpgroup's rows adds
+      // nothing
       float m[2] = {kNegInf, kNegInf};
       float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
       for (int t = 0; t < n_kt; ++t, ++it) {
         const int s = kMla ? t & 1 : it % C::kSlots;
         const int k0 = t * kN;
         mbar_wait(full(s), (kMla ? t >> 1 : it / C::kSlots) & 1);
-        if (kV == kNoCompute || (causal && k0 > wg_row0 + 63)) {
+        if (kV == kNoCompute || (causal && k0 > max(wg_row0 + 63, prefix - 1))) {
           mbar_arrive(empty(s));
           continue;
         }
@@ -830,7 +857,7 @@ __global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
       const int k0 = t * kN;
       const int ub = n_kt / 2 + t;  // MLA: the tile's use of buffer 1's barriers (Kᵀ)
       mbar_wait(full(s), (kMla ? (n_kt + 1) / 2 + t : it / C::kSlots) & 1);
-      if (kV == kNoCompute || (causal && k0 > wg_row0 + 63)) {
+      if (kV == kNoCompute || (causal && k0 > max(wg_row0 + 63, prefix - 1))) {
         mbar_arrive(empty(s));
         if (kMla) {
           mbar_wait(full(1), ub & 1);
@@ -902,7 +929,7 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads, 1)
                                const __grid_constant__ CUtensorMap vmap,
                                const float* __restrict__ lse2, const float* __restrict__ delta,
                                float* __restrict__ dk, float* __restrict__ dv, int H, int Hkv,
-                               int Tq, int Tk, int Tpad, float scale, int causal) {
+                               int Tq, int Tk, int Tpad, float scale, int causal, int prefix) {
   using C = DkvCfg<D>;
   constexpr int kQ = C::kQ;
   extern __shared__ unsigned char smem_raw[];
@@ -923,9 +950,11 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads, 1)
   const int G = H / Hkv;
   const int k0 = kt * C::kKeys;
   const int nq = (Tq + kQ - 1) / kQ;
-  // causal: query i sees keys 0..i, so tiles of queries below k0 see none
-  // of these keys (tiles aligned at 0, kKeys a multiple of kQ)
-  const int qt0 = causal ? k0 / kQ : 0;
+  // causal: query i sees keys 0..max(i, prefix − 1), so tiles of queries
+  // below k0 see none of these keys when k0 >= prefix, and every query sees
+  // key k0 when it is below the prefix (tiles aligned at 0, kKeys a
+  // multiple of kQ)
+  const int qt0 = causal && k0 >= prefix ? k0 / kQ : 0;
   const int per_head = nq - qt0;
   const int n_it = G * per_head;
 
@@ -1037,13 +1066,16 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads, 1)
 
       // Pᵀ and dSᵀ in place: element i is key key0 + 8·((i >> 1) & 1)
       // against query q0 + 8·(i / 4) + c2 + (i & 1); causally a key past
-      // the query is 0
-      const bool masked = causal && q0 < k0 + 63;
+      // the query's last key, max(query, prefix − 1), is 0
+      const bool masked = causal && k0 + 63 > max(q0, prefix - 1);
 #pragma unroll
       for (int i = 0; i < kQ / 2; ++i) {
         const int col = 8 * (i / 4) + c2 + (i & 1);
         float pv = exp2f(fmaf(st[i], c, -ls[col]));
-        if (masked && key0 + 8 * ((i >> 1) & 1) > q0 + col) pv = 0.f;
+        if (masked) {  // a key below the prefix is seen by every query
+          const int key = key0 + 8 * ((i >> 1) & 1);
+          if ((key >= prefix ? key : -1) > q0 + col) pv = 0.f;
+        }
         dpt[i] = pv * (dpt[i] - dls[col]);
         st[i] = pv;
       }
@@ -1139,7 +1171,7 @@ __global__ void __launch_bounds__(MlaKvCfg<D, DV, true>::kThreads, 1)
                                    const float* __restrict__ lse2,
                                    const float* __restrict__ delta, float* __restrict__ dk,
                                    float* __restrict__ dv, int H, int Hkv, int Tq, int Tk,
-                                   int Tpad, float scale, int causal) {
+                                   int Tpad, float scale, int causal, int prefix) {
   if ((kVariant == kDkOnly && blockIdx.z == 1) || (kVariant == kDvOnly && blockIdx.z == 0))
     return;
   extern __shared__ unsigned char smem_raw[];
@@ -1165,9 +1197,9 @@ __global__ void __launch_bounds__(MlaKvCfg<D, DV, true>::kThreads, 1)
     const uint32_t tr_full = bars + 16u + 24u * C::kSlots, tr_empty = tr_full + 8;
     const int k0 = kt * C::kKeys;
     const int nq = (Tq + kQ - 1) / kQ;
-    // causal: query i sees keys 0..i, so tiles of queries below k0 see none
-    // of these keys (tiles aligned at 0, kKeys a multiple of kQ)
-    const int qt0 = causal ? k0 / kQ : 0;
+    // causal: every query tile where k0 is below the prefix, else those
+    // at or below the keys (as the dkdv kernel's)
+    const int qt0 = causal && k0 >= prefix ? k0 / kQ : 0;
     const int per_head = nq - qt0;
     const int n_it = G * per_head;
 
@@ -1301,13 +1333,16 @@ __global__ void __launch_bounds__(MlaKvCfg<D, DV, true>::kThreads, 1)
 
         // Pᵀ (part 1) or dSᵀ (part 0): element i is key key0 + 8·((i >> 1) &
         // 1) against query q0 + 8·(i / 4) + c2 + (i & 1); causally a key past
-        // the query is 0
-        const bool masked = causal && q0 < k0 + 63;
+        // the query's last key, max(query, prefix − 1), is 0
+        const bool masked = causal && k0 + 63 > max(q0, prefix - 1);
 #pragma unroll
         for (int i = 0; i < kQ / 2; ++i) {
           const int col = 8 * (i / 4) + c2 + (i & 1);
           float pv = exp2f(fmaf(st[i], c, -ls[col]));
-          if (masked && key0 + 8 * ((i >> 1) & 1) > q0 + col) pv = 0.f;
+          if (masked) {  // a key below the prefix is seen by every query
+            const int key = key0 + 8 * ((i >> 1) & 1);
+            if ((key >= prefix ? key : -1) > q0 + col) pv = 0.f;
+          }
           st[i] = kDk ? pv * (dpt[i] - dls[col]) : pv;
         }
         if (kDk) {  // Q, dO, L and Δ are read; Qᵀ is next
@@ -1360,6 +1395,580 @@ __global__ void __launch_bounds__(MlaKvCfg<D, DV, true>::kThreads, 1)
   }
 }
 
+// (256, 256), paligemma-3b.  Hi and lo copies of a 64-row operand at D 256
+// take 128 KB, so neither kernel splits its resident operands: they stay
+// as TMA lands them, and the score products take them as register-A
+// fragments, loaded and split k-step by k-step (scores_ra); only the
+// streamed tiles are split, by the producer, as at the other pairs.  A
+// block is the producer warpgroup and one consumer (256 threads: 255
+// registers a thread, no setmaxnreg), with one slot: the producer's copies
+// do not overlap the consumer's products.  A consumer that held all 256
+// columns of its sum (128 registers a thread) beside a product's tile, S,
+// dP and the fragments spilled (ptxas: 255 registers and 560–688 bytes of
+// spill stores), so each block takes 128 output columns (the half on
+// blockIdx.z) and computes its scores whole: S and dP twice as often.
+// - dq (Dq256), a block per (b·H + h, tile of 64 query rows, half): Q and
+//   dO raw (64 rows, 64 KB each); a slot of 16 keys, K_hi (K lands here),
+//   K_lo, V_hi (V lands), V_lo and Kᵀ_hi, Kᵀ_lo in rows of 16 positions (64
+//   bytes, the 64-byte swizzle), 16 KB each: 224 KB.  The consumer holds
+//   its half of dQ (64 registers), a quarter's product (32), S and dP (8
+//   each) and two k-steps' fragments (16).
+// - dkdv (Dkv256T), a block per (b·Hkv + kvh, tile of 64 keys, part):
+//   parts 0 and 1 the halves of dK (Sᵀ, dPᵀ, dSᵀ, dK += dSᵀ Q against Qᵀ),
+//   parts 2 and 3 those of dV (Sᵀ, Pᵀ, dV += Pᵀ dO against dOᵀ).  K raw and
+//   (dK) V raw, 64 KB each; a slot of 16 queries, Q_hi (Q lands), Q_lo,
+//   dO_hi (dO lands), dO_lo and Qᵀ (dK) or dOᵀ (dV) hi and lo in 64-byte
+//   rows, 16 KB each, with the tile's L and Δ: 225 KB.
+struct Dq256 {
+  static constexpr int kD = 256;
+  static constexpr int kThreads = 256;
+  static constexpr int kRows = 64;                 // query rows of a block
+  static constexpr int kN = 16;                    // keys of a K/V tile
+  static constexpr int kTrRow = kN * 4;            // bytes of a transposed row
+  static constexpr int kBig = kRows * kD * 4;      // raw Q or dO
+  static constexpr int kTile = kN * kD * 4;        // one K, V or Kᵀ copy
+  static constexpr int kDoOff = kBig;
+  static constexpr int kSlotOff = 2 * kBig;
+  static constexpr int kKhi = 0, kKlo = kTile, kVhi = 2 * kTile, kVlo = 3 * kTile;
+  static constexpr int kKThi = 4 * kTile, kKTlo = 5 * kTile;
+  static constexpr int kBarOff = kSlotOff + 6 * kTile;
+  // barriers: resident, land, full, empty; slack to align to 1024 bytes
+  static constexpr size_t kBytes = kBarOff + 8 * 4 + 1024;
+  static_assert(kBytes <= 232448, "more shared memory than a block can have");
+};
+
+struct Dkv256T {
+  static constexpr int kD = 256;
+  static constexpr int kThreads = 256;
+  static constexpr int kKeys = 64;                 // keys of a block
+  static constexpr int kQ = 16;                    // queries of a tile
+  static constexpr int kTrRow = kQ * 4;            // bytes of a transposed row
+  static constexpr int kBig = kKeys * kD * 4;      // raw K or V
+  static constexpr int kNat = kQ * kD * 4;         // one natural Q or dO copy
+  static constexpr int kTr = kD * kTrRow;          // one transposed copy
+  static constexpr int kQhi = 0, kQlo = kNat, kDOhi = 2 * kNat, kDOlo = 3 * kNat;
+  static constexpr int kThi = 4 * kNat, kTlo = 4 * kNat + kTr;
+  static constexpr int kStat = 4 * kNat + 2 * kTr;
+  static constexpr int kSlotBytes = (kStat + 2 * kQ * 4 + 1023) / 1024 * 1024;
+  static constexpr int kSlotOff = 2 * kBig;
+  static constexpr int kBarOff = kSlotOff + kSlotBytes;
+  static constexpr size_t kBytes = kBarOff + 8 * 4 + 1024;
+  static constexpr uint32_t kStageTx = 2 * kNat + 2 * kQ * 4;
+  static_assert(kBytes <= 232448, "more shared memory than a block can have");
+};
+
+__device__ __forceinline__ void fence_frag(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[j])::"memory");
+}
+
+// One float32 of shared memory at addr.
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+// A copy of x the compiler cannot see through (as opaque, for addresses).
+__device__ __forceinline__ uint32_t opaque32(uint32_t x) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(x));
+  return x;
+}
+
+// s[N / 2] = A · Bᵀ over D = 256 in three TF32 terms, as issue_scores
+// orders them (A_lo·B_hi and A_hi·B_lo over every k-step, then A_hi·B_hi:
+// the small terms enter the accumulator first): A rows rl and rl + 8 of a
+// raw tile at shared address araw (ARows rows a panel, TMA's layout) as
+// tf32 A fragments, split in registers (its hi made again for the second
+// run); B the N rows at bhi / blo of a tile the producer split, K-major in
+// 32-column panels.  Each k-step is a commit group, whose fragments are
+// held until the group two steps on is issued (wait_group 1); a step's
+// addresses and descriptors are made right before it (opaque), so none is
+// held across the tile loop; all groups are waited for before it returns.
+template <int N, int ARows>
+__device__ __forceinline__ void scores_ra(float (&s)[N / 2], uint32_t araw, int rl, int t,
+                                          uint32_t bhi, uint32_t blo) {
+  static_assert(N == 16, "16-row B tiles");
+  constexpr int kSteps = 256 / 8;
+  const uint64_t dbh = opaque(smem_desc(bhi)), dbl = opaque(smem_desc(blo));
+  // row rl, column t of the first panel; the swizzle's row term
+  const uint32_t a0 = araw + rl * kRowBytes + t * 4;
+  const int x = rl & 7;
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int step = 0; step < 2 * kSteps; ++step) {
+    const int kk = step % kSteps;
+    const bool cross = step < kSteps;  // the run of A_lo·B_hi and A_hi·B_lo
+    const int b = step & 1;
+    if (step >= 2) {  // the group of step − 2 read these
+      wgmma_wait<1>();
+      fence_frag(ah[b]);
+      fence_frag(al[b]);
+    }
+    // column 8kk + t + 4(j >> 1) of row rl + 8(j & 1): 16-byte chunk
+    // 2(kk % 4) + (j >> 1) of the row in panel kk / 4, swizzled
+    const uint32_t ap = opaque32(a0 + (kk / 4) * ARows * kRowBytes);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float v = lds_f32(ap + 8 * kRowBytes * (j & 1) +
+                              (((2 * (kk % 4) + (j >> 1)) ^ x) << 4));
+      if (cross) {
+        split_tf32(v, ah[b][j], al[b][j]);
+      } else {
+        ah[b][j] = repro::tf32_rna(v);
+      }
+    }
+    fence_frag(ah[b]);
+    fence_frag(al[b]);
+    wgmma_fence();
+    const uint32_t ob = ((kk / 4) * N * kRowBytes + (kk % 4) * 32) >> 4;
+    if (cross) {
+      wgmma_rs_n16(s, al[b], opaque(dbh + ob), step > 0);
+      wgmma_rs_n16(s, ah[b], opaque(dbl + ob), 1);
+    } else {
+      wgmma_rs_n16(s, ah[b], opaque(dbh + ob), 1);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait_all();
+  fence_regs(ah);
+  fence_regs(al);
+  fence_regs(s);
+}
+
+// acc[64] += A · B over output columns 128·half .., 64 at a time: the A
+// fragments ah / al of two k-steps (16 positions) against the transposed
+// copy at thi / tlo (64-byte rows), each quarter's product into a fresh
+// accumulator added once to the sum.
+__device__ __forceinline__ void frag_d256(float (&acc)[64], float (&tile)[32],
+                                          const uint32_t (&ah)[2][4], const uint32_t (&al)[2][4],
+                                          uint32_t thi, uint32_t tlo, int half) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t hoff = (2 * half + h) * 64 * 64;  // rows 64·(2·half + h) .. of the copy
+    fence_regs(tile);
+    wgmma_fence();
+    issue_frag<2, 64>(tile, ah, al, thi + hoff, tlo + hoff);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(tile);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[32 * h + i] += tile[i];
+  }
+}
+
+template <bool kLseIn>
+__global__ void __launch_bounds__(Dq256::kThreads, 1)
+    flash_bwd_dq_tf32_d256_kernel(const __grid_constant__ CUtensorMap qmap,
+                                  const __grid_constant__ CUtensorMap domap,
+                                  const __grid_constant__ CUtensorMap kmap,
+                                  const __grid_constant__ CUtensorMap vmap,
+                                  const float* __restrict__ o, const float* __restrict__ dout,
+                                  float* __restrict__ dq, float* __restrict__ lse2,
+                                  float* __restrict__ delta, int H, int Hkv, int Tq, int Tk,
+                                  int Tpad, float scale, int causal, int prefix) {
+  using C = Dq256;
+  constexpr int kN = C::kN;
+  constexpr int kV = kVariant;
+  constexpr int kPasses = kV == kDqPass1 ? 1 : 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* basep = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t bars = base + C::kBarOff;
+  const uint32_t resident = bars, land = bars + 8, full = bars + 16, empty = bars + 24;
+  const uint32_t sa = base + C::kSlotOff;
+  unsigned char* sp = basep + C::kSlotOff;
+
+  // heaviest causal tiles first; dQ's columns 128·half ..
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x;
+  const int half = blockIdx.z;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kvh = b * Hkv + h / (H / Hkv);
+  const int q0 = qt * C::kRows;
+  // the key tiles of the block: all, or causally those up to the last key
+  // its last row sees (row r sees keys 0..max(r, prefix − 1))
+  int n_kt = (Tk + kN - 1) / kN;
+  if (causal) n_kt = min(n_kt, max(min(q0 + C::kRows, Tq) - 1, prefix - 1) / kN + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(resident, 1);
+    mbar_init(land, 1);
+    mbar_init(full, 128);   // every producer thread, after its split
+    mbar_init(empty, 128);  // every consumer thread
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: Q and dO once (raw), then K tiles for pass 1 and K/V tiles
+    // for pass 2 through the slot, each split as it lands
+    const int p = threadIdx.x;
+    if (p == 0) {
+      mbar_expect_tx(resident, 2 * C::kBig);
+      for (int pn = 0; pn < C::kD / kPanel; ++pn) {
+        const uint32_t off = pn * C::kRows * kRowBytes;
+        tma_load_3d(base + off, &qmap, resident, pn * kPanel, q0, bh);
+        tma_load_3d(base + C::kDoOff + off, &domap, resident, pn * kPanel, q0, bh);
+      }
+    }
+    int use = 0;
+    for (int pass = kLseIn ? 1 : 0; pass < kPasses; ++pass) {
+      for (int t = 0; t < n_kt; ++t, ++use) {
+        mbar_wait(empty, (use & 1) ^ 1);
+        if (p == 0) {
+          mbar_expect_tx(land, C::kTile * (1 + pass));
+          for (int pn = 0; pn < C::kD / kPanel; ++pn) {
+            const uint32_t off = pn * kN * kRowBytes;
+            tma_load_3d(sa + C::kKhi + off, &kmap, land, pn * kPanel, t * kN, kvh);
+            if (pass) tma_load_3d(sa + C::kVhi + off, &vmap, land, pn * kPanel, t * kN, kvh);
+          }
+        }
+        mbar_wait(land, use & 1);
+        if (pass && kV != kNoSplit) {
+          transpose_split<C::kD, kN, C::kTrRow>(sp + C::kKhi, sp + C::kKThi, sp + C::kKTlo, p);
+          split_in_place(sp + C::kVhi, sp + C::kVlo, C::kTile, p);
+        }
+        bar_sync(1, 128);  // every read of the raw K is done
+        if (kV != kNoSplit) split_in_place(sp + C::kKhi, sp + C::kKlo, C::kTile, p);
+        proxy_fence();
+        mbar_arrive(full);
+      }
+    }
+    return;
+  }
+  const int tid = threadIdx.x - 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int c2 = 2 * (lane % 4);
+  const int rl = 16 * warp + lane / 4;  // the thread's rows of the block, and + 8
+  const int r0 = q0 + rl;
+  const float c = scale * kLog2e;  // raw scores to base-2 exponents
+
+  // Δ of rows r0 and r0 + 8 from global memory while Q and dO land
+  float dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    float part = 0.f;
+    if (row < Tq) {
+      const long long at = (static_cast<long long>(bh) * Tq + row) * C::kD;
+#pragma unroll 8
+      for (int g = 0; g < C::kD / 8; ++g) {
+        const float2 x = __ldg(reinterpret_cast<const float2*>(dout + at + 8 * g + c2));
+        const float2 y = __ldg(reinterpret_cast<const float2*>(o + at + 8 * g + c2));
+        part = fmaf(x.x, y.x, part);
+        part = fmaf(x.y, y.y, part);
+      }
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    dl[r] = part;
+  }
+
+  // masked scores of a key tile: keys past Tk, and causally past the last
+  // key of the row
+  auto mask = [&](float (&sc)[kN / 2], int k0) {
+    if (k0 + kN <= Tk && !(causal && k0 + kN - 1 > max(q0, prefix - 1))) return;
+    const int last[2] = {max(r0, prefix - 1), max(r0 + 8, prefix - 1)};
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) {
+      const int key = k0 + 8 * (i / 4) + c2 + (i & 1);
+      if (key >= Tk || (causal && key > last[(i >> 1) & 1])) sc[i] = kNegInf;
+    }
+  };
+
+  float sc[kN / 2], dp[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) sc[i] = dp[i] = 0.f;
+  fence_regs(sc);
+  fence_regs(dp);
+  mbar_wait(resident, 0);
+  int use = 0;
+  float lse[2];
+  if constexpr (kLseIn) {  // L of rows r0, r0 + 8 from the forward (rows past T: 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long at = static_cast<long long>(bh) * Tpad + r0 + 8 * r;
+      lse[r] = r0 + 8 * r < Tq ? lse2[at] : 0.f;
+      if (lane % 4 == 0 && half == 0) delta[at] = dl[r];
+    }
+  } else {
+    // pass 1: the row maximum (raw scores) and sum of exp2 over every key
+    // tile (both halves; the first writes L and Δ)
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
+    for (int t = 0; t < n_kt; ++t, ++use) {
+      mbar_wait(full, use & 1);
+      if (kV == kNoCompute) {
+        mbar_arrive(empty);
+        continue;
+      }
+      scores_ra<kN, C::kRows>(sc, base, rl, lane % 4, sa + C::kKhi, sa + C::kKlo);
+      mbar_arrive(empty);
+      mask(sc, t * kN);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float mc[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        l[r] *= exp2f((m[r] - mx[r]) * c);
+        m[r] = mx[r];
+        mc[r] = mx[r] * c;
+      }
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) l[(i >> 1) & 1] += exp2f(fmaf(sc[i], c, -mc[(i >> 1) & 1]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      lse[r] = m[r] * c + log2f(fmaxf(l[r], 1e-30f));
+      if (lane % 4 == 0 && half == 0) {
+        const long long at = static_cast<long long>(bh) * Tpad + r0 + 8 * r;
+        lse2[at] = lse[r];
+        delta[at] = dl[r];
+      }
+    }
+  }
+
+  // pass 2: S and dP, then P and dS in registers as the hi / lo A
+  // fragments of the half's dQ += dS K against Kᵀ, 64 columns at a time
+  float acc[C::kD / 4], tile[32];
+#pragma unroll
+  for (int i = 0; i < C::kD / 4; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) tile[i] = 0.f;
+  fence_regs(acc);
+  fence_regs(tile);
+  for (int t = 0; t < (kPasses == 2 ? n_kt : 0); ++t, ++use) {
+    mbar_wait(full, use & 1);
+    if (kV == kNoCompute) {
+      mbar_arrive(empty);
+      continue;
+    }
+    scores_ra<kN, C::kRows>(sc, base, rl, lane % 4, sa + C::kKhi, sa + C::kKlo);
+    scores_ra<kN, C::kRows>(dp, base + C::kDoOff, rl, lane % 4, sa + C::kVhi, sa + C::kVlo);
+    mask(sc, t * kN);
+    uint32_t dsh[kN / 8][4], dsl[kN / 8][4];
+#pragma unroll
+    for (int g = 0; g < kN / 8; ++g) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = frag_elem(g, j);
+        const int r = j & 1;  // (i >> 1) & 1
+        const float pv = exp2f(fmaf(sc[i], c, -lse[r]));
+        split_tf32(pv * (dp[i] - dl[r]), dsh[g][j], dsl[g][j]);
+      }
+    }
+    fence_regs(dsh);
+    fence_regs(dsl);
+    frag_d256(acc, tile, dsh, dsl, sa + C::kKThi, sa + C::kKTlo, half);
+    fence_regs(dsh);
+    fence_regs(dsl);
+    mbar_arrive(empty);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row < Tq) {
+      float* out = dq + (static_cast<long long>(bh) * Tq + row) * C::kD + 128 * half;
+#pragma unroll
+      for (int g = 0; g < C::kD / 16; ++g)
+        *reinterpret_cast<float2*>(out + 8 * g + c2) =
+            make_float2(acc[4 * g + 2 * r] * scale, acc[4 * g + 2 * r + 1] * scale);
+    }
+  }
+}
+
+template <bool kDk>
+__device__ __forceinline__ void dkdv_tf32_d256_body(const CUtensorMap* qmap,
+                                                    const CUtensorMap* domap,
+                                                    const CUtensorMap* kmap,
+                                                    const CUtensorMap* vmap,
+                                                    const float* __restrict__ lse2,
+                                                    const float* __restrict__ delta,
+                                                    float* __restrict__ out, int half, int H,
+                                                    int Hkv, int Tq, int Tk, int Tpad,
+                                                    float scale, int causal, int prefix) {
+  using C = Dkv256T;
+  constexpr int kQ = C::kQ;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* basep = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t bars = base + C::kBarOff;
+  const uint32_t resident = bars, land = bars + 8, full = bars + 16, empty = bars + 24;
+  const uint32_t sa = base + C::kSlotOff;
+  unsigned char* sp = basep + C::kSlotOff;
+
+  // the first key tiles see the most queries: first
+  const int kt = blockIdx.y;
+  const int bkv = blockIdx.x;
+  const int b = bkv / Hkv;
+  const int kvh = bkv - b * Hkv;
+  const int G = H / Hkv;
+  const int k0 = kt * C::kKeys;
+  const int nq = (Tq + kQ - 1) / kQ;
+  // as the dkdv kernel's: every query tile where k0 is below the prefix
+  const int qt0 = causal && k0 >= prefix ? k0 / kQ : 0;
+  const int per_head = nq - qt0;
+  const int n_it = G * per_head;
+
+  if (threadIdx.x == 0) {
+    mbar_init(resident, 1);
+    mbar_init(land, 1);
+    mbar_init(full, 128);
+    mbar_init(empty, 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: K (and for dK V) once, raw; then Q, dO, L and Δ of each
+    // query tile of each query head of the group, split as they land
+    const int p = threadIdx.x;
+    if (p == 0) {
+      mbar_expect_tx(resident, kDk ? 2 * C::kBig : C::kBig);
+      for (int pn = 0; pn < C::kD / kPanel; ++pn) {
+        const uint32_t off = pn * C::kKeys * kRowBytes;
+        tma_load_3d(base + off, kmap, resident, pn * kPanel, k0, bkv);
+        if (kDk) tma_load_3d(base + C::kBig + off, vmap, resident, pn * kPanel, k0, bkv);
+      }
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int g = it / per_head;
+      const int q0 = (qt0 + it - g * per_head) * kQ;
+      const int bh = b * H + kvh * G + g;
+      mbar_wait(empty, (it & 1) ^ 1);
+      if (p == 0) {
+        mbar_expect_tx(land, C::kStageTx);
+        for (int pn = 0; pn < C::kD / kPanel; ++pn) {
+          const uint32_t off = pn * kQ * kRowBytes;
+          tma_load_3d(sa + C::kQhi + off, qmap, land, pn * kPanel, q0, bh);
+          tma_load_3d(sa + C::kDOhi + off, domap, land, pn * kPanel, q0, bh);
+        }
+        const long long at = static_cast<long long>(bh) * Tpad + q0;
+        bulk_load(sa + C::kStat, lse2 + at, kQ * 4, land);
+        bulk_load(sa + C::kStat + kQ * 4, delta + at, kQ * 4, land);
+      }
+      mbar_wait(land, it & 1);
+      if (kVariant != kNoSplit) {
+        // dK: Qᵀ from the raw Q, then Q and dO split in place; dV: dOᵀ
+        // from the raw dO, Q split
+        transpose_split<C::kD, kQ, C::kTrRow>(sp + (kDk ? C::kQhi : C::kDOhi), sp + C::kThi,
+                                              sp + C::kTlo, p);
+        if (kDk) bar_sync(1, 128);  // every read of the raw Q is done
+        split_in_place(sp + C::kQhi, sp + C::kQlo, C::kNat, p);
+        if (kDk) split_in_place(sp + C::kDOhi, sp + C::kDOlo, C::kNat, p);
+      }
+      proxy_fence();
+      mbar_arrive(full);
+    }
+    return;
+  }
+  const int tid = threadIdx.x - 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int c2 = 2 * (lane % 4);
+  const int rl = 16 * warp + lane / 4;
+  const int key0 = k0 + rl;  // the thread's keys, and + 8
+  const float c = scale * kLog2e;
+  float acc[C::kD / 4], st[kQ / 2], dpt[kQ / 2], tile[32];  // the half's columns
+#pragma unroll
+  for (int i = 0; i < C::kD / 4; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) tile[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kQ / 2; ++i) st[i] = dpt[i] = 0.f;
+  fence_regs(acc);
+  fence_regs(tile);
+  fence_regs(st);
+  fence_regs(dpt);
+  mbar_wait(resident, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int g = it / per_head;
+    const int q0 = (qt0 + it - g * per_head) * kQ;
+    const float* ls = reinterpret_cast<const float*>(sp + C::kStat);
+    const float* dls = ls + kQ;
+    mbar_wait(full, it & 1);
+    if (kVariant == kNoCompute) {
+      mbar_arrive(empty);
+      continue;
+    }
+    scores_ra<kQ, C::kKeys>(st, base, rl, lane % 4, sa + C::kQhi, sa + C::kQlo);  // Sᵀ = K Qᵀ
+    if constexpr (kDk)
+      scores_ra<kQ, C::kKeys>(dpt, base + C::kBig, rl, lane % 4, sa + C::kDOhi,
+                              sa + C::kDOlo);  // dPᵀ = V dOᵀ
+
+    // Pᵀ (dV) or dSᵀ (dK): element i is key key0 + 8·((i >> 1) & 1) against
+    // query q0 + 8·(i / 4) + c2 + (i & 1); causally a key past the query's
+    // last key, max(query, prefix − 1), is 0
+    const bool masked = causal && k0 + C::kKeys - 1 > max(q0, prefix - 1);
+#pragma unroll
+    for (int i = 0; i < kQ / 2; ++i) {
+      const int col = 8 * (i / 4) + c2 + (i & 1);
+      float pv = exp2f(fmaf(st[i], c, -ls[col]));
+      if (masked) {  // a key below the prefix is seen by every query
+        const int key = key0 + 8 * ((i >> 1) & 1);
+        if ((key >= prefix ? key : -1) > q0 + col) pv = 0.f;
+      }
+      st[i] = kDk ? pv * (dpt[i] - dls[col]) : pv;
+    }
+    // dK += dSᵀ Q against Qᵀ, or dV += Pᵀ dO against dOᵀ
+    uint32_t ah[kQ / 8][4], al[kQ / 8][4];
+#pragma unroll
+    for (int g2 = 0; g2 < kQ / 8; ++g2)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) split_tf32(st[frag_elem(g2, j)], ah[g2][j], al[g2][j]);
+    fence_regs(ah);
+    fence_regs(al);
+    frag_d256(acc, tile, ah, al, sa + C::kThi, sa + C::kTlo, half);
+    fence_regs(ah);
+    fence_regs(al);
+    mbar_arrive(empty);
+  }
+
+  const float mul = kDk ? scale : 1.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key < Tk) {
+      float* row = out + (static_cast<long long>(bkv) * Tk + key) * C::kD + 128 * half;
+#pragma unroll
+      for (int g = 0; g < C::kD / 16; ++g)
+        *reinterpret_cast<float2*>(row + 8 * g + c2) =
+            make_float2(acc[4 * g + 2 * r] * mul, acc[4 * g + 2 * r + 1] * mul);
+    }
+  }
+}
+
+// The dkdv kernel at (256, 256) (Dkv256T): parts 0 and 1 (blockIdx.z) write
+// the halves of dK, parts 2 and 3 those of dV.
+__global__ void __launch_bounds__(Dkv256T::kThreads, 1)
+    flash_bwd_dkdv_tf32_d256_kernel(const __grid_constant__ CUtensorMap qmap,
+                                    const __grid_constant__ CUtensorMap domap,
+                                    const __grid_constant__ CUtensorMap kmap,
+                                    const __grid_constant__ CUtensorMap vmap,
+                                    const float* __restrict__ lse2,
+                                    const float* __restrict__ delta, float* __restrict__ dk,
+                                    float* __restrict__ dv, int H, int Hkv, int Tq, int Tk,
+                                    int Tpad, float scale, int causal, int prefix) {
+  const int half = blockIdx.z & 1;
+  if (blockIdx.z < 2) {
+    dkdv_tf32_d256_body<true>(&qmap, &domap, &kmap, &vmap, lse2, delta, dk, half, H, Hkv, Tq,
+                              Tk, Tpad, scale, causal, prefix);
+  } else {
+    dkdv_tf32_d256_body<false>(&qmap, &domap, &kmap, &vmap, lse2, delta, dv, half, H, Hkv, Tq,
+                               Tk, Tpad, scale, causal, prefix);
+  }
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave,
@@ -1404,7 +2013,7 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D, int 
 template <int D, int DV, bool kLseIn = false>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* o,
                    const float* dout, float* dq, float* dk, float* dv, float* lse2,
-                   float* delta, int B, int H, int Hkv, int Tq, int Tk, int causal,
+                   float* delta, int B, int H, int Hkv, int Tq, int Tk, int causal, int prefix,
                    cudaStream_t stream) {
   using Q = DqCfg<D, DV>;
   constexpr bool kMla = D != DV;
@@ -1449,7 +2058,8 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   const dim3 dq_grid = kVariant == kHeadMajorCut ? dim3(Tpad / Q::kRows, B * H)
                                                  : dim3(B * H, Tpad / Q::kRows);
   dq_kernel<<<dq_grid, Q::kThreads, Q::kBytes, stream>>>(
-      q_m, do_m, k_n, v_n, o, dout, dq, lse2, delta, H, Hkv, Tq, Tk, Tpad, scale, causal);
+      q_m, do_m, k_n, v_n, o, dout, dq, lse2, delta, H, Hkv, Tq, Tk, Tpad, scale, causal,
+      prefix);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // at MLA's pair a third grid dimension: part 0 writes dK, part 1 dV
@@ -1457,27 +2067,68 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   const dim3 dkv_grid = kVariant == kHeadMajorCut && !kMla ? dim3(n_kb, B * Hkv)
                                                            : dim3(B * Hkv, n_kb, kMla ? 2 : 1);
   dkv_kernel<<<dkv_grid, kKvThreads, kKvBytes, stream>>>(
-      q_n, do_n, k_m, v_m, lse2, delta, dk, dv, H, Hkv, Tq, Tk, Tpad, scale, causal);
+      q_n, do_n, k_m, v_m, lse2, delta, dk, dv, H, Hkv, Tq, Tk, Tpad, scale, causal, prefix);
+  return cudaGetLastError();
+}
+
+// (256, 256): Dq256's and Dkv256T's kernels, the dkdv grid by part
+template <bool kLseIn>
+cudaError_t launch_d256(const float* q, const float* k, const float* v, const float* o,
+                        const float* dout, float* dq, float* dk, float* dv, float* lse2,
+                        float* delta, int B, int H, int Hkv, int Tq, int Tk, int causal,
+                        int prefix, cudaStream_t stream) {
+  using Q = Dq256;
+  using K = Dkv256T;
+  auto dq_kernel = flash_bwd_dq_tf32_d256_kernel<kLseIn>;
+  cudaError_t err = repro::allow_smem(dq_kernel, Q::kBytes);
+  if (err == cudaSuccess) err = repro::allow_smem(flash_bwd_dkdv_tf32_d256_kernel, K::kBytes);
+  if (err != cudaSuccess) return err;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap q_m, do_m, k_n, v_n, q_n, do_n, k_m, v_m;
+  if (!make_map(&q_m, encode, q, Q::kD, Tq, B * H, Q::kRows) ||
+      !make_map(&do_m, encode, dout, Q::kD, Tq, B * H, Q::kRows) ||
+      !make_map(&k_n, encode, k, Q::kD, Tk, B * Hkv, Q::kN) ||
+      !make_map(&v_n, encode, v, Q::kD, Tk, B * Hkv, Q::kN) ||
+      !make_map(&q_n, encode, q, K::kD, Tq, B * H, K::kQ) ||
+      !make_map(&do_n, encode, dout, K::kD, Tq, B * H, K::kQ) ||
+      !make_map(&k_m, encode, k, K::kD, Tk, B * Hkv, K::kKeys) ||
+      !make_map(&v_m, encode, v, K::kD, Tk, B * Hkv, K::kKeys))
+    return cudaErrorInvalidValue;
+  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(Q::kD)));
+  const int Tpad = (Tq + kPadRows - 1) / kPadRows * kPadRows;
+  // every row of the scratch gets its L and Δ (blocks of 64 rows), each
+  // block half of dQ's columns
+  dq_kernel<<<dim3(B * H, Tpad / Q::kRows, 2), Q::kThreads, Q::kBytes, stream>>>(
+      q_m, do_m, k_n, v_n, o, dout, dq, lse2, delta, H, Hkv, Tq, Tk, Tpad, scale, causal,
+      prefix);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n_kb = (Tk + K::kKeys - 1) / K::kKeys;
+  flash_bwd_dkdv_tf32_d256_kernel<<<dim3(B * Hkv, n_kb, 4), K::kThreads, K::kBytes, stream>>>(
+      q_n, do_n, k_m, v_m, lse2, delta, dk, dv, H, Hkv, Tq, Tk, Tpad, scale, causal, prefix);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dQ, dK, dV of float32 attention, (D, Dv) ∈ {(64, 64), (128, 128), (192,
-// 128)}; every pointer 16-byte aligned, every tensor contiguous.  lse2 and
-// delta are float32 [B·H, Tpad] scratch, Tpad = Tq rounded up to 128 (the
-// row logsumexp in base 2, and Δ), written by the first kernel and read by
-// the second; with have_lse (at (64, 64) and (128, 128) only) lse2 holds the
+// 128), (256, 256)}; every pointer 16-byte aligned, every tensor contiguous.
+// lse2 and delta are float32 [B·H, Tpad] scratch, Tpad = Tq rounded up to
+// 128 (the row logsumexp in base 2, and Δ), written by the first kernel and
+// read by the second; with have_lse (at D = Dv only) lse2 holds the
 // forward's L already (flash_attention_tf32.cu) and is only read.  Causal
-// needs Tq == Tk.
+// needs Tq == Tk; with prefix P > 0 (causal only) query i sees keys
+// 0..max(i, P − 1), the prefix-LM mask.
 extern "C" int repro_flash_attention_bwd_tf32(const void* q, const void* k, const void* v,
                                               const void* o, const void* dout, void* dq,
                                               void* dk, void* dv, void* lse2, void* delta,
                                               int B, int H, int Hkv, int Tq, int Tk, int D,
-                                              int Dv, int causal, int have_lse,
+                                              int Dv, int causal, int prefix, int have_lse,
                                               cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 ||
-      (causal && Tq != Tk) || (have_lse && D != Dv))
+      (causal && Tq != Tk) || (have_lse && D != Dv) || prefix < 0 || prefix > Tq ||
+      (prefix > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* fq = static_cast<const float*>(q);
   const float* fk = static_cast<const float*>(k);
@@ -1490,21 +2141,17 @@ extern "C" int repro_flash_attention_bwd_tf32(const void* q, const void* k, cons
   float* l = static_cast<float*>(lse2);
   float* dl = static_cast<float*>(delta);
   cudaError_t err = cudaErrorInvalidValue;
-  if (D == 64 && Dv == 64 && have_lse)
-    err = launch<64, 64, true>(fq, fk, fv, fo, fdo, gq, gk, gv, l, dl, B, H, Hkv, Tq, Tk, causal,
-                               stream);
-  else if (D == 64 && Dv == 64)
-    err = launch<64, 64>(fq, fk, fv, fo, fdo, gq, gk, gv, l, dl, B, H, Hkv, Tq, Tk, causal,
-                         stream);
-  else if (D == 128 && Dv == 128 && have_lse)
-    err = launch<128, 128, true>(fq, fk, fv, fo, fdo, gq, gk, gv, l, dl, B, H, Hkv, Tq, Tk,
-                                 causal, stream);
+  auto run = [&](auto fn) {
+    err = fn(fq, fk, fv, fo, fdo, gq, gk, gv, l, dl, B, H, Hkv, Tq, Tk, causal, prefix, stream);
+  };
+  if (D == 64 && Dv == 64)
+    have_lse ? run(launch<64, 64, true>) : run(launch<64, 64>);
   else if (D == 128 && Dv == 128)
-    err = launch<128, 128>(fq, fk, fv, fo, fdo, gq, gk, gv, l, dl, B, H, Hkv, Tq, Tk, causal,
-                           stream);
+    have_lse ? run(launch<128, 128, true>) : run(launch<128, 128>);
   else if (D == 192 && Dv == 128)
-    err = launch<192, 128>(fq, fk, fv, fo, fdo, gq, gk, gv, l, dl, B, H, Hkv, Tq, Tk, causal,
-                           stream);
+    run(launch<192, 128>);
+  else if (D == 256 && Dv == 256)
+    have_lse ? run(launch_d256<true>) : run(launch_d256<false>);
   return static_cast<int>(err);
 }
 

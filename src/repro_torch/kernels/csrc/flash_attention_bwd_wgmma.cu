@@ -1,8 +1,9 @@
-// The gradient of causal (or full) flash attention on Hopper's tensor cores:
-// dQ, dK and dV of o = softmax(q kᵀ / √D) v for q [B, H, T, D], k [B, Hkv,
-// Tk, D], v [B, Hkv, Tk, Dv] and o, dO [B, H, T, Dv] in bfloat16, (D, Dv) ∈
-// {(64, 64), (128, 128), (192, 128)}: (192, 128) is deepseek-v3-671b's MLA
-// (q and k of 128 nope + 64 rope columns, v of 128).
+// The gradient of causal (or full, or prefix-LM) flash attention on Hopper's
+// tensor cores: dQ, dK and dV of o = softmax(q kᵀ / √D) v for q [B, H, T,
+// D], k [B, Hkv, Tk, D], v [B, Hkv, Tk, Dv] and o, dO [B, H, T, Dv] in
+// bfloat16, (D, Dv) ∈ {(64, 64), (128, 128), (192, 128), (256, 256)}: (192,
+// 128) is deepseek-v3-671b's MLA (q and k of 128 nope + 64 rope columns, v
+// of 128), (256, 256) paligemma-3b's (with its prefix of 256 patches).
 //
 // Replaces: no Pallas kernel.  The reference trains by jax.grad through
 // flash_attention_jnp (src/repro/models/attention.py:76); the Pallas
@@ -88,6 +89,18 @@
 // spilled (ptxas holds a 384-thread block's code to about 168 registers);
 // the two consumer warpgroups taking turns at issuing S and dP (named
 // barriers) measured no faster (PERF.md).
+// The prefix-LM mask (prefix P > 0, causal, Tq == Tk): row r sees keys
+// 0..max(r, P − 1), as the SIMT kernels (flash_attention_bwd.cu).  A dq
+// block walks the key tiles up to max(its last row, P − 1) and masks a tile
+// past max(its first row, P − 1) key by key; a dkdv key tile that starts
+// below P takes every query tile (its first key is seen by every query),
+// one at or past P those at or below its keys.  The tile orders stay
+// heaviest first: a q tile's work grows with its index, a key tile's falls.
+// With P = 0 every instance computes what it did before the mask.
+// (256, 256): a consumer's dQ (or dK, dV) of 256 columns is 128 registers
+// a thread, so the dq kernel there is one consumer warpgroup over 64 rows
+// (DqCfg) and the dkdv kernel one of its own by part (Dkv256): 256-thread
+// blocks, each thread up to 255 registers, no setmaxnreg.
 // Every output element is one warpgroup's accumulator in a fixed order: no
 // atomics, so two calls on the same inputs are bitwise equal.
 //
@@ -99,6 +112,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -120,7 +134,7 @@ constexpr int kNoSoftmax = 4;   // P = S: no max, no sum, no exponentials
 constexpr int kRegProbe = 5;    // dkdv: warpgroup A does all of the work alone
 constexpr int kHeadMajorCut = 6;  // D 64/128: a head's tiles on blockIdx.x too
 
-constexpr int kBlockM = 128;     // query rows of a dq block
+constexpr int kPadRows = 128;    // the L/Δ scratch rounds T up to a multiple of this
 constexpr int kBlockN = 64;      // keys of a dq K/V tile
 constexpr int kPanel = 64;       // bf16 columns of one 128-byte swizzled panel
 constexpr int kRowBytes = 128;   // bytes of one row of a panel
@@ -135,15 +149,24 @@ constexpr float kLog2e = 1.4426950408889634f;
 // S, dP and dS of 64 keys (80): built so, with two stages, ptxas held the
 // consumers to 165 registers and spilled (178 local stores), and the kernel
 // ran 1.6 times as long.  So the K/V tiles there are 32 keys: S, dP and dS
-// take 40 registers, a stage 20 KB, and five stages fit (212 KB).
+// take 40 registers, a stage 20 KB, and five stages fit (212 KB).  At (256,
+// 256) a consumer's dQ is 128 registers a thread and 128 resident rows of
+// Q, dO and O would be 192 KB, so a block is the producer and one consumer
+// warpgroup (256 threads: every thread may hold 255 registers, no
+// setmaxnreg) over 64 query rows: Q, dO and O 32 KB each, K/V tiles of 32
+// keys (32 KB a stage), four stages, 224 KB; the consumer holds dQ (128), S,
+// dP (16 each) and dS (8).
 template <int D, int DV>
 struct DqCfg {
-  static constexpr int kN = D == DV ? kBlockN : 32;     // keys of a K/V tile
-  static constexpr int kStages = D == 64 ? 4 : D == 128 ? 3 : 5;
+  static constexpr int kNC = D == 256 ? 1 : 2;          // consumer warpgroups
+  static constexpr int kThreads = 128 * (1 + kNC);
+  static constexpr int kRows = 64 * kNC;               // query rows of a block
+  static constexpr int kN = D == DV && D != 256 ? kBlockN : 32;  // keys of a K/V tile
+  static constexpr int kStages = D == 64 ? 4 : D == 128 ? 3 : D == 192 ? 5 : 4;
   static constexpr int kPanels = D / kPanel;
   static constexpr int kPanelsV = DV / kPanel;
-  static constexpr int kBigQ = kBlockM * D * 2;        // the resident Q
-  static constexpr int kBigV = kBlockM * DV * 2;       // the resident dO or O
+  static constexpr int kBigQ = kRows * D * 2;          // the resident Q
+  static constexpr int kBigV = kRows * DV * 2;         // the resident dO or O
   static constexpr int kTileK = kN * D * 2;            // one K tile
   static constexpr int kTileV = kN * DV * 2;           // one V tile
   static constexpr int kDoOff = kBigQ;
@@ -388,6 +411,41 @@ __device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[128] += A[64 x 16] · B[16 x 256], A in registers (bf16 pairs), B MN-major
+// in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // acc[N / 2] += A · B with B[16 x N] MN-major: the products into dQ, dK, dV
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&acc)[N / 2], const uint32_t (&a)[4],
@@ -396,8 +454,10 @@ __device__ __forceinline__ void wgmma_rs(float (&acc)[N / 2], const uint32_t (&a
     wgmma_rs_n64(acc, a, db);
   } else if constexpr (N == 128) {
     wgmma_rs_n128(acc, a, db);
-  } else {
+  } else if constexpr (N == 192) {
     wgmma_rs_n192(acc, a, db);
+  } else {
+    wgmma_rs_n256(acc, a, db);
   }
 }
 
@@ -460,7 +520,7 @@ __device__ __forceinline__ uint32_t swz(int row, int col, int rows) {
 // of an A fragment holds elements 8kk + 2j and 8kk + 2j + 1.
 
 template <int D, int DV, bool kLseIn = false>
-__global__ void __launch_bounds__(kThreadsWG, 1)
+__global__ void __launch_bounds__(DqCfg<D, DV>::kThreads, 1)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                               const __grid_constant__ CUtensorMap domap,
                               const __grid_constant__ CUtensorMap omap,
@@ -468,9 +528,10 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
                               const __grid_constant__ CUtensorMap vmap,
                               __nv_bfloat16* __restrict__ dq, float* __restrict__ lse2,
                               float* __restrict__ delta, int H, int Hkv, int Tq, int Tk,
-                              int Tpad, float scale, int causal) {
+                              int Tpad, float scale, int causal, int prefix) {
   using C = DqCfg<D, DV>;
   constexpr int kN = C::kN;
+  constexpr int kRows = C::kRows;
   constexpr int kV = kVariant;
   constexpr int kPasses = kV == kDqPass1 ? 1 : 2;
   extern __shared__ unsigned char smem_raw[];
@@ -492,15 +553,16 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
   const int b = bh / H;
   const int h = bh - b * H;
   const int kvh = b * Hkv + h / (H / Hkv);
-  const int q0 = qt * kBlockM;
-  // the key tiles of the block: all, or causally those up to its last row
+  const int q0 = qt * kRows;
+  // the key tiles of the block: all, or causally those up to the last key
+  // its last row sees (row r sees keys 0..max(r, prefix − 1))
   int n_kt = (Tk + kN - 1) / kN;
-  if (causal) n_kt = min(n_kt, (min(q0 + kBlockM, Tq) - 1) / kN + 1);
+  if (causal) n_kt = min(n_kt, max(min(q0 + kRows, Tq) - 1, prefix - 1) / kN + 1);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::kStages; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), 2 * 128);  // every consumer thread releases a stage
+      mbar_init(empty(s), C::kNC * 128);  // every consumer thread releases a stage
     }
     mbar_init(resident, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -510,11 +572,11 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
   if (threadIdx.x < 128) {
     // producer: Q, dO and O once, then K tiles for pass 1 (not when L is
     // given) and K/V tiles for pass 2 through one ring
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if constexpr (C::kNC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(resident, C::kBigQ + 2 * C::kBigV);
       for (int p = 0; p < C::kPanels; ++p) {  // Dv <= D: dO and O take the first panels
-        const uint32_t off = p * kBlockM * kRowBytes;
+        const uint32_t off = p * kRows * kRowBytes;
         tma_load_3d(sq + off, &qmap, resident, p * kPanel, q0, bh);
         if (p < C::kPanelsV) {
           tma_load_3d(sdo + off, &domap, resident, p * kPanel, q0, bh);
@@ -537,7 +599,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    if constexpr (C::kNC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int cw = threadIdx.x / 128 - 1;  // consumer: rows 64·cw .. of the block
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32;
@@ -559,7 +621,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
       float part = 0.f;
 #pragma unroll
       for (int g = 0; g < DV / 8; ++g) {
-        const uint32_t off = swz(rl + 8 * r, 8 * g + c2, kBlockM);
+        const uint32_t off = swz(rl + 8 * r, 8 * g + c2, kRows);
         const float2 x = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(basep + C::kDoOff + off));
         const float2 y = __bfloat1622float2(
@@ -572,13 +634,15 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
       dl[r] = part;
     }
 
-    // masked scores of a key tile: keys past Tk, and causally past the row
+    // masked scores of a key tile: keys past Tk, and causally past the
+    // last key of the row (row r sees keys 0..max(r, prefix − 1))
     auto mask = [&](float (&sc)[kN / 2], int k0) {
-      if (k0 + kN <= Tk && !(causal && k0 + kN - 1 > wg_row0)) return;
+      if (k0 + kN <= Tk && !(causal && k0 + kN - 1 > max(wg_row0, prefix - 1))) return;
+      const int last[2] = {max(r0, prefix - 1), max(r0 + 8, prefix - 1)};
 #pragma unroll
       for (int i = 0; i < kN / 2; ++i) {
         const int key = k0 + 8 * (i / 4) + c2 + (i & 1);
-        if (key >= Tk || (causal && key > r0 + 8 * ((i >> 1) & 1))) sc[i] = kNegInf;
+        if (key >= Tk || (causal && key > last[(i >> 1) & 1])) sc[i] = kNegInf;
       }
     };
 
@@ -606,7 +670,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
           continue;
         }
         wgmma_fence();
-        issue_dot<D, kN>(sc, sq_wg, kBlockM, sk + s * C::kTileK, kN);
+        issue_dot<D, kN>(sc, sq_wg, kRows, sk + s * C::kTileK, kN);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(sc);
@@ -645,6 +709,9 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
     float acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    // pinned here at D 256: else ptxas may set them inside the first
+    // product's wgmma pipeline stage and serialize the wgmmas (C7515)
+    if constexpr (D == 256) fence_regs(acc);
     for (int t = 0; kPasses == 2 && t < n_kt; ++t, ++it) {
       const int s = it % C::kStages;
       const uint32_t sks = sk + s * C::kTileK;
@@ -654,8 +721,8 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
         continue;
       }
       wgmma_fence();
-      issue_dot<D, kN>(sc, sq_wg, kBlockM, sks, kN);
-      issue_dot<DV, kN>(dp, sdo_wg, kBlockM, sv + s * C::kTileV, kN);
+      issue_dot<D, kN>(sc, sq_wg, kRows, sks, kN);
+      issue_dot<DV, kN>(dp, sdo_wg, kRows, sv + s * C::kTileV, kN);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
@@ -697,7 +764,10 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
   }
 }
 
-template <int D, int DV>
+// kPrefix: the instance that takes the prefix-LM mask; without it the
+// kernel's code is what it was before the mask (with the mask in it, the D
+// 64 instance took 10 % longer at P = 0, measured in turns on an H100)
+template <int D, int DV, bool kPrefix = false>
 __global__ void __launch_bounds__(kThreadsWG, 1)
     flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                 const __grid_constant__ CUtensorMap domap,
@@ -706,7 +776,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
                                 const float* __restrict__ lse2,
                                 const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                                 __nv_bfloat16* __restrict__ dv, int H, int Hkv, int Tq, int Tk,
-                                int Tpad, float scale, int causal) {
+                                int Tpad, float scale, int causal, int prefix) {
   using C = DkvCfg<D, DV>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -732,9 +802,11 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
   const int k0 = kt * C::kKeys;
   constexpr int kQ = C::kQ;
   const int nq = (Tq + kQ - 1) / kQ;
-  // causal: query i sees keys 0..i, so tiles of queries below k0 see none
-  // of these keys (tiles aligned at 0, kKeys a multiple of kQ)
-  const int qt0 = causal ? k0 / kQ : 0;
+  // causal: query i sees keys 0..max(i, prefix − 1), so tiles of queries
+  // below k0 see none of these keys when k0 >= prefix, and every query sees
+  // key k0 when it is below the prefix (tiles aligned at 0, kKeys a
+  // multiple of kQ)
+  const int qt0 = causal && (!kPrefix || k0 >= prefix) ? k0 / kQ : 0;
   const int per_head = nq - qt0;
   const int n_it = G * per_head;
 
@@ -827,8 +899,9 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
         fence_regs(dpt);
 
         // Pᵀ and dSᵀ: element i is key key0 + 8·((i >> 1) & 1) against query
-        // q0 + 8·(i / 4) + c2 + (i & 1); causally a key past the query is 0
-        const bool masked = causal && q0 < wg_key0 + 63;
+        // q0 + 8·(i / 4) + c2 + (i & 1); causally a key past the query's
+        // last key, max(query, prefix − 1), is 0
+        const bool masked = causal && wg_key0 + 63 > (kPrefix ? max(q0, prefix - 1) : q0);
         uint32_t pf[kQ / 16][4], dsf[kQ / 16][4];
 #pragma unroll
         for (int kk = 0; kk < kQ / 16; ++kk) {
@@ -842,8 +915,10 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
             float p1 = kVariant == kNoSoftmax ? st[i + 1] : exp2f(fmaf(st[i + 1], c, -lv.y));
             if (kVariant != kNoSoftmax && masked) {
               const int key = key0 + 8 * (j & 1);
-              if (key > q0 + col) p0 = 0.f;
-              if (key > q0 + col + 1) p1 = 0.f;
+              // a key below the prefix is seen by every query
+              const int kc = !kPrefix || key >= prefix ? key : -1;
+              if (kc > q0 + col) p0 = 0.f;
+              if (kc > q0 + col + 1) p1 = 0.f;
             }
             pf[kk][j] = pack_bf16(p0, p1);
             dsf[kk][j] = pack_bf16(p0 * (dpt[i] - dv2.x), p1 * (dpt[i + 1] - dv2.y));
@@ -970,11 +1045,11 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
 
           // Pᵀ, k-step by k-step: element i is key key0 + 8·((i >> 1) & 1)
           // against query q0 + 8·(i / 4) + c2 + (i & 1); causally a key past
-          // the query is 0.  Each step's eight floats go to B's slot as two
-          // float4s, in B's own layout (its thread tid holds the same
-          // elements of dPᵀ)
+          // the query's last key, max(query, prefix − 1), is 0.  Each step's
+          // eight floats go to B's slot as two float4s, in B's own layout
+          // (its thread tid holds the same elements of dPᵀ)
           constexpr bool kHand = !kAll && kV != kNoExchange;
-          const bool masked = causal && q0 < k0 + 63;
+          const bool masked = causal && k0 + 63 > (kPrefix ? max(q0, prefix - 1) : q0);
           const int slot = it & 1;
           if (kHand) mbar_wait(pfree(slot), ((it >> 1) & 1) ^ 1);
           uint32_t pf[kQ / 16][4], dsf[kQ / 16][4];
@@ -990,8 +1065,10 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
               float p1 = kV == kNoSoftmax ? st[i + 1] : exp2f(fmaf(st[i + 1], c, -lv.y));
               if (kV != kNoSoftmax && masked) {
                 const int key = key0 + 8 * (j & 1);
-                if (key > q0 + col) p0 = 0.f;
-                if (key > q0 + col + 1) p1 = 0.f;
+                // a key below the prefix is seen by every query
+                const int kc = !kPrefix || key >= prefix ? key : -1;
+                if (kc > q0 + col) p0 = 0.f;
+                if (kc > q0 + col + 1) p1 = 0.f;
               }
               p[2 * j] = p0;
               p[2 * j + 1] = p1;
@@ -1071,6 +1148,216 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
   }
 }
 
+// dkdv at (256, 256): a warpgroup's dK or dV of 64 keys is 128 registers a
+// thread, so a block of 256 threads (the producer warpgroup and one
+// consumer: every thread may hold 255 registers, no setmaxnreg) takes one
+// of them, by part (blockIdx.z): part 0 dK (Sᵀ, dPᵀ, dSᵀ, then dK += dSᵀ
+// Q), part 1 dV (Sᵀ, Pᵀ, then dV += Pᵀ dO).  K (and for dK V) of 64 keys
+// stay resident, 32 KB each; Q, dO and the tile's L and Δ stream in tiles
+// of 32 queries (32.25 KB a stage), four stages: 193 KB.  The consumer
+// holds its sums (128), Sᵀ and dPᵀ (16 each) and the A fragments (8).
+struct Dkv256 {
+  static constexpr int kD = 256;
+  static constexpr int kThreads = 256;
+  static constexpr int kKeys = 64;                 // keys of a block
+  static constexpr int kQ = 32;                    // queries of a tile
+  static constexpr int kStages = 4;
+  static constexpr int kPanels = kD / kPanel;
+  static constexpr int kBig = kKeys * kD * 2;      // the resident K or V
+  static constexpr int kTile = kQ * kD * 2;        // one Q or dO tile
+  static constexpr int kStatBytes = 2 * kQ * 4;    // L, then Δ, of a tile
+  static constexpr int kVOff = kBig;
+  static constexpr int kQOff = 2 * kBig;
+  static constexpr int kDoOff = kQOff + kStages * kTile;
+  static constexpr int kLOff = kDoOff + kStages * kTile;
+  static constexpr int kBarOff = kLOff + kStages * kStatBytes;
+  // barriers: full[kStages], empty[kStages], resident
+  static constexpr size_t kBytes = kBarOff + (2 * kStages + 1) * 8 + 1024;
+  static constexpr uint32_t kStageTx = 2 * kTile + kStatBytes;
+  static_assert(kBytes <= 232448, "more shared memory than a block can have");
+};
+
+template <bool kDk>
+__device__ __forceinline__ void dkdv_d256_body(const CUtensorMap* qmap, const CUtensorMap* domap,
+                                               const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                               const float* __restrict__ lse2,
+                                               const float* __restrict__ delta,
+                                               __nv_bfloat16* __restrict__ out, int H, int Hkv,
+                                               int Tq, int Tk, int Tpad, float scale, int causal,
+                                               int prefix) {
+  using C = Dkv256;
+  constexpr int kQ = C::kQ;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const unsigned char* basep = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t sk = base, sv = base + C::kVOff, sq = base + C::kQOff;
+  const uint32_t sdo = base + C::kDoOff, sl = base + C::kLOff;
+  const uint32_t bars = base + C::kBarOff;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (C::kStages + s); };
+  const uint32_t resident = bars + 8u * (2 * C::kStages);
+
+  // the first key tiles see the most queries: first
+  const int kt = blockIdx.y;
+  const int bkv = blockIdx.x;
+  const int b = bkv / Hkv;
+  const int kvh = bkv - b * Hkv;
+  const int G = H / Hkv;
+  const int k0 = kt * C::kKeys;
+  const int nq = (Tq + kQ - 1) / kQ;
+  // as the dkdv kernel's: every query tile where k0 is below the prefix
+  const int qt0 = causal && k0 >= prefix ? k0 / kQ : 0;
+  const int per_head = nq - qt0;
+  const int n_it = G * per_head;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 128);
+    }
+    mbar_init(resident, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: K (and for dK V) once, then Q, dO, L and Δ of each query
+    // tile of each query head of the group
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(resident, kDk ? 2 * C::kBig : C::kBig);
+      for (int p = 0; p < C::kPanels; ++p) {
+        const uint32_t off = p * C::kKeys * kRowBytes;
+        tma_load_3d(sk + off, kmap, resident, p * kPanel, k0, bkv);
+        if (kDk) tma_load_3d(sv + off, vmap, resident, p * kPanel, k0, bkv);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int g = it / per_head;
+        const int q0 = (qt0 + it - g * per_head) * kQ;
+        const int bh = b * H + kvh * G + g;
+        const int s = it % C::kStages;
+        mbar_wait(empty(s), ((it / C::kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), C::kStageTx);
+        for (int p = 0; p < C::kPanels; ++p) {
+          const uint32_t off = p * kQ * kRowBytes;
+          tma_load_3d(sq + s * C::kTile + off, qmap, full(s), p * kPanel, q0, bh);
+          tma_load_3d(sdo + s * C::kTile + off, domap, full(s), p * kPanel, q0, bh);
+        }
+        const long long at = static_cast<long long>(bh) * Tpad + q0;
+        bulk_load(sl + s * C::kStatBytes, lse2 + at, kQ * 4, full(s));
+        bulk_load(sl + s * C::kStatBytes + kQ * 4, delta + at, kQ * 4, full(s));
+      }
+    }
+    return;
+  }
+  const int tid = threadIdx.x - 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int c2 = 2 * (lane % 4);
+  const int key0 = k0 + 16 * warp + lane / 4;  // the thread's keys, and + 8
+  const float c = scale * kLog2e;
+  float acc[C::kD / 2], st[kQ / 2], dpt[kQ / 2];
+#pragma unroll
+  for (int i = 0; i < C::kD / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kQ / 2; ++i) st[i] = dpt[i] = 0.f;
+  // pinned here: else ptxas may set them inside the first product's wgmma
+  // pipeline stage and serialize the wgmmas (its note C7515)
+  fence_regs(acc);
+  fence_regs(st);
+  fence_regs(dpt);
+  mbar_wait(resident, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int g = it / per_head;
+    const int q0 = (qt0 + it - g * per_head) * kQ;
+    const int s = it % C::kStages;
+    const uint32_t sqs = sq + s * C::kTile;
+    const uint32_t sdos = sdo + s * C::kTile;
+    const float* ls = reinterpret_cast<const float*>(basep + C::kLOff + s * C::kStatBytes);
+    const float* dls = ls + kQ;
+    mbar_wait(full(s), (it / C::kStages) & 1);
+    wgmma_fence();
+    issue_dot<C::kD, kQ>(st, sk, C::kKeys, sqs, kQ);                // Sᵀ = K Qᵀ
+    if constexpr (kDk) issue_dot<C::kD, kQ>(dpt, sv, C::kKeys, sdos, kQ);  // dPᵀ = V dOᵀ
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // Pᵀ (dV) or dSᵀ = Pᵀ ∘ (dPᵀ − Δ) (dK) as the A fragments: element i is
+    // key key0 + 8·((i >> 1) & 1) against query q0 + 8·(i / 4) + c2 + (i &
+    // 1); causally a key past the query's last key, max(query, prefix −
+    // 1), is 0
+    const bool masked = causal && k0 + C::kKeys - 1 > max(q0, prefix - 1);
+    uint32_t af[kQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kQ / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 8 * kk + 2 * j;
+        const int col = 8 * (i / 4) + c2;
+        const float2 lv = *reinterpret_cast<const float2*>(ls + col);
+        float p0 = exp2f(fmaf(st[i], c, -lv.x));
+        float p1 = exp2f(fmaf(st[i + 1], c, -lv.y));
+        if (masked) {
+          const int key = key0 + 8 * (j & 1);
+          // a key below the prefix is seen by every query
+          const int kc = key >= prefix ? key : -1;
+          if (kc > q0 + col) p0 = 0.f;
+          if (kc > q0 + col + 1) p1 = 0.f;
+        }
+        if constexpr (kDk) {
+          const float2 dv2 = *reinterpret_cast<const float2*>(dls + col);
+          af[kk][j] = pack_bf16(p0 * (dpt[i] - dv2.x), p1 * (dpt[i + 1] - dv2.y));
+        } else {
+          af[kk][j] = pack_bf16(p0, p1);
+        }
+      }
+    }
+    fence_regs(acc);
+    fence_regs(af);
+    wgmma_fence();
+    issue_rs<C::kD, kQ>(acc, af, kDk ? sqs : sdos);  // dK += dSᵀ Q, or dV += Pᵀ dO
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(empty(s));
+  }
+
+  const float mul = kDk ? scale : 1.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key < Tk) {
+      __nv_bfloat16* row = out + (static_cast<long long>(bkv) * Tk + key) * C::kD;
+#pragma unroll
+      for (int g = 0; g < C::kD / 8; ++g)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * g + c2) =
+            __floats2bfloat162_rn(acc[4 * g + 2 * r] * mul, acc[4 * g + 2 * r + 1] * mul);
+    }
+  }
+}
+
+// The dkdv kernel at (256, 256) (Dkv256): a block per (b·Hkv + kvh, tile of
+// 64 keys, part), part 0 writing dK and part 1 dV.
+__global__ void __launch_bounds__(Dkv256::kThreads, 1)
+    flash_bwd_dkdv_d256_kernel(const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap domap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               const float* __restrict__ lse2, const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                               int H, int Hkv, int Tq, int Tk, int Tpad, float scale, int causal,
+                               int prefix) {
+  if (blockIdx.z == 0) {
+    dkdv_d256_body<true>(&qmap, &domap, &kmap, &vmap, lse2, delta, dk, H, Hkv, Tq, Tk, Tpad,
+                         scale, causal, prefix);
+  } else {
+    dkdv_d256_body<false>(&qmap, &domap, &kmap, &vmap, lse2, delta, dv, H, Hkv, Tq, Tk, Tpad,
+                          scale, causal, prefix);
+  }
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave,
@@ -1115,86 +1402,98 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D, int 
 template <int D, int DV, bool kLseIn = false>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, void* dq, void* dk, void* dv, float* lse2,
-                   float* delta, int B, int H, int Hkv, int Tq, int Tk, int causal,
+                   float* delta, int B, int H, int Hkv, int Tq, int Tk, int causal, int prefix,
                    cudaStream_t stream) {
   using Q = DqCfg<D, DV>;
-  using K = DkvCfg<D, DV>;
+  // at (256, 256) the dkdv kernel of its own, by part (Dkv256)
+  constexpr bool kD256 = D == 256;
+  using K = std::conditional_t<kD256, Dkv256, DkvCfg<D, DV>>;
+  constexpr int kKeys = K::kKeys;
+  constexpr int kQ = K::kQ;
+  constexpr int kKvThreads = kD256 ? Dkv256::kThreads : kThreadsWG;
+  constexpr size_t kKvBytes = K::kBytes;
   auto dq_kernel = flash_bwd_dq_wgmma_kernel<D, DV, kLseIn>;
-  auto dkv_kernel = flash_bwd_dkdv_wgmma_kernel<D, DV>;
+  auto dkv_kernel = [prefix] {
+    if constexpr (kD256) {
+      return flash_bwd_dkdv_d256_kernel;
+    } else {
+      return prefix > 0 ? flash_bwd_dkdv_wgmma_kernel<D, DV, true>
+                        : flash_bwd_dkdv_wgmma_kernel<D, DV, false>;
+    }
+  }();
   cudaError_t err = repro::allow_smem(dq_kernel, Q::kBytes);
-  if (err == cudaSuccess) err = repro::allow_smem(dkv_kernel, K::kBytes);
+  if (err == cudaSuccess) err = repro::allow_smem(dkv_kernel, kKvBytes);
   if (err != cudaSuccess) return err;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  // the dq kernel's maps: 128-row Q, dO and O tiles, kN-row K and V tiles;
+  // the dq kernel's maps: kRows-row Q, dO and O tiles, kN-row K and V tiles;
   // the dkdv kernel's: kKeys-row K and V tiles, kQ-row Q and dO tiles
   CUtensorMap q_m, do_m, o_m, k_n, v_n, q_n, do_n, k_m, v_m;
-  if (!make_map(&q_m, encode, q, D, Tq, B * H, kBlockM) ||
-      !make_map(&do_m, encode, dout, DV, Tq, B * H, kBlockM) ||
-      !make_map(&o_m, encode, o, DV, Tq, B * H, kBlockM) ||
+  if (!make_map(&q_m, encode, q, D, Tq, B * H, Q::kRows) ||
+      !make_map(&do_m, encode, dout, DV, Tq, B * H, Q::kRows) ||
+      !make_map(&o_m, encode, o, DV, Tq, B * H, Q::kRows) ||
       !make_map(&k_n, encode, k, D, Tk, B * Hkv, Q::kN) ||
       !make_map(&v_n, encode, v, DV, Tk, B * Hkv, Q::kN) ||
-      !make_map(&q_n, encode, q, D, Tq, B * H, K::kQ) ||
-      !make_map(&do_n, encode, dout, DV, Tq, B * H, K::kQ) ||
-      !make_map(&k_m, encode, k, D, Tk, B * Hkv, K::kKeys) ||
-      !make_map(&v_m, encode, v, DV, Tk, B * Hkv, K::kKeys))
+      !make_map(&q_n, encode, q, D, Tq, B * H, kQ) ||
+      !make_map(&do_n, encode, dout, DV, Tq, B * H, kQ) ||
+      !make_map(&k_m, encode, k, D, Tk, B * Hkv, kKeys) ||
+      !make_map(&v_m, encode, v, DV, Tk, B * Hkv, kKeys))
     return cudaErrorInvalidValue;
   // the reference's 1.0 / (D ** 0.5), a double rounded to float
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  const int n_qt = (Tq + kBlockM - 1) / kBlockM;
-  const int Tpad = n_qt * kBlockM;
+  // every row of the scratch gets its L and Δ (blocks of kRows rows)
+  const int Tpad = (Tq + kPadRows - 1) / kPadRows * kPadRows;
+  const int n_qt = Tpad / Q::kRows;
   // (192, 128): a head's tiles on blockIdx.x (in flight together)
   constexpr bool kHeadMajor = head_major<D, DV>();
-  const int n_kb = (Tk + K::kKeys - 1) / K::kKeys;
+  const int n_kb = (Tk + kKeys - 1) / kKeys;
   const dim3 dq_grid = kHeadMajor ? dim3(n_qt, B * H) : dim3(B * H, n_qt);
-  const dim3 dkv_grid = kHeadMajor ? dim3(n_kb, B * Hkv) : dim3(B * Hkv, n_kb);
-  dq_kernel<<<dq_grid, kThreadsWG, Q::kBytes, stream>>>(
+  const dim3 dkv_grid = kD256 ? dim3(B * Hkv, n_kb, 2)
+                        : kHeadMajor ? dim3(n_kb, B * Hkv) : dim3(B * Hkv, n_kb);
+  dq_kernel<<<dq_grid, Q::kThreads, Q::kBytes, stream>>>(
       q_m, do_m, o_m, k_n, v_n, static_cast<__nv_bfloat16*>(dq), lse2, delta, H, Hkv, Tq,
-      Tk, Tpad, scale, causal);
+      Tk, Tpad, scale, causal, prefix);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkv_kernel<<<dkv_grid, kThreadsWG, K::kBytes, stream>>>(
+  dkv_kernel<<<dkv_grid, kKvThreads, kKvBytes, stream>>>(
       q_n, do_n, k_m, v_m, lse2, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, Hkv, Tq, Tk, Tpad, scale, causal);
+      static_cast<__nv_bfloat16*>(dv), H, Hkv, Tq, Tk, Tpad, scale, causal, prefix);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dQ, dK, dV of bf16 attention, (D, Dv) ∈ {(64, 64), (128, 128), (192,
-// 128)}; every pointer 16-byte aligned, every tensor contiguous.  lse2 and
-// delta are float32 [B·H, Tpad], Tpad = Tq rounded up to 128 (the row
-// logsumexp in base 2, and Δ), written by the first kernel and read by the
-// second; with have_lse lse2 holds the forward's L already
-// (flash_attention_wgmma.cu) and is only read.  Causal needs Tq == Tk.
+// 128), (256, 256)}; every pointer 16-byte aligned, every tensor contiguous.
+// lse2 and delta are float32 [B·H, Tpad], Tpad = Tq rounded up to 128 (the
+// row logsumexp in base 2, and Δ), written by the first kernel and read by
+// the second; with have_lse lse2 holds the forward's L already
+// (flash_attention_wgmma.cu) and is only read.  Causal needs Tq == Tk; with
+// prefix P > 0 (causal only) query i sees keys 0..max(i, P − 1), the
+// prefix-LM mask.
 extern "C" int repro_flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
                                                const void* o, const void* dout, void* dq,
                                                void* dk, void* dv, void* lse2, void* delta,
                                                int B, int H, int Hkv, int Tq, int Tk, int D,
-                                               int Dv, int causal, int have_lse,
+                                               int Dv, int causal, int prefix, int have_lse,
                                                cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 || (causal && Tq != Tk))
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 ||
+      (causal && Tq != Tk) || prefix < 0 || prefix > Tq || (prefix > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   float* l = static_cast<float*>(lse2);
   float* dl = static_cast<float*>(delta);
   cudaError_t err = cudaErrorInvalidValue;
-  if (D == 64 && Dv == 64 && have_lse)
-    err = launch<64, 64, true>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, causal,
-                               stream);
-  else if (D == 64 && Dv == 64)
-    err = launch<64, 64>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, causal, stream);
-  else if (D == 128 && Dv == 128 && have_lse)
-    err = launch<128, 128, true>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk,
-                                 causal, stream);
+  auto run = [&](auto fn) {
+    err = fn(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, causal, prefix, stream);
+  };
+  if (D == 64 && Dv == 64)
+    have_lse ? run(launch<64, 64, true>) : run(launch<64, 64>);
   else if (D == 128 && Dv == 128)
-    err = launch<128, 128>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, causal,
-                           stream);
-  else if (D == 192 && Dv == 128 && have_lse)
-    err = launch<192, 128, true>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk,
-                                 causal, stream);
+    have_lse ? run(launch<128, 128, true>) : run(launch<128, 128>);
   else if (D == 192 && Dv == 128)
-    err = launch<192, 128>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, Hkv, Tq, Tk, causal,
-                           stream);
+    have_lse ? run(launch<192, 128, true>) : run(launch<192, 128>);
+  else if (D == 256 && Dv == 256)
+    have_lse ? run(launch<256, 256, true>) : run(launch<256, 256>);
   return static_cast<int>(err);
 }
 

@@ -91,7 +91,7 @@
 // 0..max(r, P − 1).  A q tile visits the K/V tiles up to max(its last
 // row, P − 1); a warpgroup skips a tile past max(its last row, P − 1) and
 // masks one past max(its first row, P − 1) key by key.
-// With a pointer for it (at D = Dv ≤ 128), a second instance of the kernel also
+// With a pointer for it (at D = Dv), a second instance of the kernel also
 // writes each row's logsumexp in base 2, L = m·c + log₂(max(l, 1e-30)) with
 // c = log₂e / √D, into float32 [B·H, T rounded up to 128] (the rows of its
 // query tiles, past T too), so that the float32 backward need not compute
@@ -706,7 +706,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, flo
 // sees keys 0..i (Tq == Tk), and with prefix P > 0 (causal only) keys
 // 0..max(i, P − 1), the prefix-LM mask.  With no keys (Tk == 0) the output
 // is zero, as 0 / 1e-30.
-// lse2, null or (at (64, 64) and (128, 128) with Tk > 0 only) float32 [B·H,
+// lse2, null or (at D = Dv with Tk > 0 only) float32 [B·H,
 // Tq rounded up to 128], receives each row's logsumexp in base 2 (the rows
 // of the query tiles, so every row the backward reads).
 extern "C" int repro_flash_attention_tf32(const float* q, const float* k, const float* v,
@@ -714,7 +714,7 @@ extern "C" int repro_flash_attention_tf32(const float* q, const float* k, const 
                                           int Tq, int Tk, int D, int Dv, int causal,
                                           int prefix, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk < 0 ||
-      (lse2 != nullptr && (D != Dv || D > 128 || Tk == 0)) || prefix < 0 || prefix > Tq ||
+      (lse2 != nullptr && (D != Dv || Tk == 0)) || prefix < 0 || prefix > Tq ||
       (prefix > 0 && (!causal || Tq != Tk)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Tk == 0) {
@@ -732,6 +732,8 @@ extern "C" int repro_flash_attention_tf32(const float* q, const float* k, const 
     err = launch<128, 128>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, prefix, stream);
   } else if (D == 192 && Dv == 128) {
     err = launch<192, 128>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, prefix, stream);
+  } else if (D == 256 && Dv == 256 && lse2 != nullptr) {
+    err = launch<256, 256, true>(q, k, v, o, lse2, B, H, Hkv, Tq, Tk, causal, prefix, stream);
   } else if (D == 256 && Dv == 256) {
     err = launch<256, 256>(q, k, v, o, nullptr, B, H, Hkv, Tq, Tk, causal, prefix, stream);
   } else {

@@ -13,7 +13,7 @@ reads kv-head h // (H / Hkv), so K and V are never repeated in memory.
 Any T works; causal attention needs T == Tk (query i sees keys 0..i).
 ``prefix_len`` P is paligemma-3b's prefix-LM mask (causal, T == Tk): row r
 sees keys 0..max(r, P − 1), the reference's ``prefix_lm_mask``; every
-forward kernel and the SIMT backward take it.  A CPU tensor takes the
+forward and backward kernel takes it.  A CPU tensor takes the
 plain version (``ref``), cast to q's dtype; any other dtype, device or
 head-dim pair raises.
 
@@ -43,37 +43,35 @@ The gradient: :class:`FlashAttentionFn` is the forward as an autograd
 function; its backward is :func:`flash_attention_bwd`, hand kernels with no
 Pallas original (the reference trains by ``jax.grad`` through
 ``flash_attention_jnp``): dQ, dK and dV, float32 accumulation, no atomics
-(two calls are bitwise equal), at every pair of ``BWD_PAIRS`` (those of
-``PAIRS`` but (256, 256), whose backward raises ``NotImplementedError``
-naming ``UNPORTED_BWD``: MLA trains, paligemma-3b's reduced config (head
-dim 16) too).  Three routes, chosen by :func:`bwd_variant` from the dtype
-and head dims alone:
+(two calls are bitwise equal), at every pair of ``PAIRS`` (``BWD_PAIRS``:
+every config trains, paligemma-3b at head dim 256 with its prefix too),
+each under the prefix-LM mask where one is given.  Three routes, chosen by
+:func:`bwd_variant` from the dtype and head dims alone:
 
 * ``csrc/flash_attention_bwd_wgmma.cu`` (``FLASH_ATTENTION_BWD_WGMMA``) for
-  bf16 at (64, 64), (128, 128) and (192, 128), the training path of every
-  full-size config: a dq and a dkdv kernel on tensor cores (wgmma) fed by
-  TMA, with P and dS rounded once to bf16 where they enter their products
-  (plain version ``ref.flash_attention_bwd_bf16_ref``); at every pair the
-  forward kernel also writes each row's logsumexp L (``LSE_PAIRS``) and
-  ``FlashAttentionFn`` hands it to this route, whose dq kernel then makes
-  one pass;
+  bf16 at (64, 64), (128, 128), (192, 128) and (256, 256), the training
+  path of every full-size config: a dq and a dkdv kernel on tensor cores
+  (wgmma) fed by TMA, with P and dS rounded once to bf16 where they enter
+  their products (plain version ``ref.flash_attention_bwd_bf16_ref``); at
+  every pair the forward kernel also writes each row's logsumexp L
+  (``LSE_PAIRS``) and ``FlashAttentionFn`` hands it to this route, whose
+  dq kernel then makes one pass;
 * ``csrc/flash_attention_bwd_tf32.cu`` (``FLASH_ATTENTION_BWD_TF32``) for
   float32 at the same pairs, the training path's precision check: the same
   products on the TF32 tensor cores, every product taken as three TF32
   terms (a_hi·b_hi + a_hi·b_lo + a_lo·b_hi, P and dS split too), float32
-  accuracy (plain version ``ref.flash_attention_bwd_ref``); at (64, 64)
-  and (128, 128) it takes the TF32 forward's L as the bf16 route does;
+  accuracy (plain version ``ref.flash_attention_bwd_ref``); at D = Dv it
+  takes the TF32 forward's L as the bf16 route does;
 * ``csrc/flash_attention_bwd.cu`` (``FLASH_ATTENTION_BWD``) for every dtype
   at D = Dv ∈ {8, 16, 32} and MLA's reduced (16, 8): two SIMT float32
   kernels, P and dS never rounded (plain version
-  ``ref.flash_attention_bwd_ref``); the only route that takes a prefix
-  (the tensor-core routes raise ``NotImplementedError`` for one).
+  ``ref.flash_attention_bwd_ref``).
 
 :func:`bwd_launch` runs any of them by name; the SIMT route takes every
-dtype at every pair but (192, 128), so ``chip_smoke.py`` times it beside the
-tensor-core routes.  ``models.attention.flash_attention`` takes the backward
-on CUDA tensors when a gradient is asked for; serving keeps the plain
-launch.
+dtype at every pair of ``SIMT_BWD_PAIRS`` (all but (192, 128) and (256,
+256)), so ``chip_smoke.py`` times it beside the tensor-core routes.
+``models.attention.flash_attention`` takes the backward on CUDA tensors
+when a gradient is asked for; serving keeps the plain launch.
 """
 from __future__ import annotations
 
@@ -93,10 +91,10 @@ FLASH_ATTENTION_BWD = CudaKernel("flash_attention_bwd.cu",
                                  [PTR] * 10 + [I32] * 10)
 FLASH_ATTENTION_BWD_WGMMA = CudaKernel("flash_attention_bwd_wgmma.cu",
                                        "repro_flash_attention_bwd_wgmma",
-                                       [PTR] * 10 + [I32] * 9)
+                                       [PTR] * 10 + [I32] * 10)
 FLASH_ATTENTION_BWD_TF32 = CudaKernel("flash_attention_bwd_tf32.cu",
                                       "repro_flash_attention_bwd_tf32",
-                                      [PTR] * 10 + [I32] * 9)
+                                      [PTR] * 10 + [I32] * 10)
 
 #: head dims the SIMT kernels are compiled for with q, k and v of one head dim
 HEAD_DIMS = (8, 16, 32, 64, 128)
@@ -106,24 +104,20 @@ HEAD_DIMS = (8, 16, 32, 64, 128)
 PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((16, 8), (192, 128), (256, 256))
 #: pairs of the wgmma forward kernels (wgmma: bf16, tf32: float32)
 WGMMA_PAIRS = ((64, 64), (128, 128), (192, 128), (256, 256))
-#: forward pairs whose backward is not ported (NotImplementedError naming
-#: UNPORTED_BWD)
-UNPORTED_BWD_PAIRS = ((256, 256),)
-UNPORTED_BWD = "ROADMAP Queue 1 item 21"
-#: pairs the backward kernels take: every forward pair but
-#: UNPORTED_BWD_PAIRS (the tensor-core backward kernels take the others of
-#: WGMMA_PAIRS, as the forward's)
-BWD_PAIRS = tuple(p for p in PAIRS if p not in UNPORTED_BWD_PAIRS)
-#: pairs of the SIMT backward kernels: all but (192, 128)
-SIMT_BWD_PAIRS = tuple(p for p in BWD_PAIRS if p != (192, 128))
+#: pairs the backward kernels take: every forward pair (the tensor-core
+#: backward kernels take WGMMA_PAIRS, as the forward's)
+BWD_PAIRS = PAIRS
+#: pairs of the SIMT backward kernels: all but (192, 128) and (256, 256)
+SIMT_BWD_PAIRS = tuple(p for p in BWD_PAIRS if p not in ((192, 128), (256, 256)))
 #: the tensor-core backwards' L and Δ scratch has T rounded up to a multiple
 #: of this (the wgmma route's dq tile)
 BWD_ROWS = 128
 #: pairs at which the forward kernel of each dtype writes L, each row's
 #: logsumexp in base 2, and the backward takes it in place of a pass of its
-#: own: the wgmma routes at every pair, the tf32 routes at (64, 64) and
-#: (128, 128) (their (192, 128) dq kernel still makes its own pass)
-LSE_PAIRS = {torch.bfloat16: WGMMA_PAIRS, torch.float32: ((64, 64), (128, 128))}
+#: own: the wgmma routes at every pair, the tf32 routes at D = Dv (their
+#: (192, 128) dq kernel still makes its own pass)
+LSE_PAIRS = {torch.bfloat16: WGMMA_PAIRS,
+             torch.float32: ((64, 64), (128, 128), (256, 256))}
 #: dtype codes of ``csrc/flash_attention.cu``'s C entry
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -156,20 +150,13 @@ KERNELS = {"wgmma": FLASH_ATTENTION_WGMMA, "tf32": FLASH_ATTENTION_TF32,
            "mma": FLASH_ATTENTION}
 
 
-def unported_bwd(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({UNPORTED_BWD})")
-
-
 def bwd_variant(dtype: torch.dtype, head_dim: int, v_head_dim: int | None = None) -> str:
     """The backward route of (dtype, head_dim, v_head_dim) on the card
     (``v_head_dim`` defaults to ``head_dim``): at a pair of WGMMA_PAIRS
     ``"wgmma"`` (``FLASH_ATTENTION_BWD_WGMMA``) for bf16 and ``"tf32"``
     (``FLASH_ATTENTION_BWD_TF32``) for float32, else ``"simt"``
-    (``FLASH_ATTENTION_BWD``).  A pair of UNPORTED_BWD_PAIRS raises
-    ``NotImplementedError``."""
+    (``FLASH_ATTENTION_BWD``)."""
     pair = (head_dim, head_dim if v_head_dim is None else v_head_dim)
-    if pair in UNPORTED_BWD_PAIRS:
-        raise unported_bwd(f"the backward at (D, Dv) = {pair}")
     if pair in WGMMA_PAIRS:
         if dtype == torch.bfloat16:
             return "wgmma"
@@ -245,10 +232,9 @@ def flash_attention_bwd(q, k, v, o, do, causal: bool = True, lse=None, prefix_le
     ``lse_route`` holds, is the forward's L (``flash_attention(...,
     return_lse=True)``): the route then takes it in place of computing it.
     CUDA tensors launch the route ``bwd_variant`` names (one call); CPU
-    tensors take that route's plain version (``BWD_PLAIN``).  A pair
-    outside ``PAIRS`` raises ``ValueError`` (``_check``), one of
-    UNPORTED_BWD_PAIRS ``NotImplementedError``; so does a prefix on the
-    tensor-core routes (only the SIMT route takes one)."""
+    tensors take that route's plain version (``BWD_PLAIN``).  Every route
+    takes ``prefix_len`` (the prefix-LM mask, as the forward).  A pair
+    outside ``PAIRS`` raises ``ValueError`` (``_check``)."""
     prefix = _check(q, k, v, causal, prefix_len)
     D, Dv = q.shape[3], v.shape[3]
     want = (*q.shape[:3], Dv)
@@ -259,8 +245,6 @@ def flash_attention_bwd(q, k, v, o, do, causal: bool = True, lse=None, prefix_le
     if lse is not None:
         _check_lse(lse, q, D, Dv)
     kind = bwd_variant(q.dtype, D, Dv)
-    if prefix and kind != "simt":
-        raise unported_bwd(f"a prefix-LM mask on the {kind} backward")
     if not on_card(q):
         return tuple(g.to(q.dtype) for g in
                      BWD_PLAIN[kind](q, k, v, o, do, causal=causal, lse=lse,
@@ -286,16 +270,12 @@ def bwd_launch(kind: str, q, k, v, o, do, causal: bool = True, lse=None,
                prefix_len: int = 0):
     """Launch the ``kind`` backward (a key of BWD_KERNELS) on CUDA tensors
     that ``flash_attention_bwd`` has checked, with the forward's L where it
-    is given and a prefix of ``prefix_len`` rows (the SIMT route only).
-    The wrapper passes ``bwd_variant``'s choice; ``chip_smoke.py`` also
-    passes ``"simt"`` at the tensor-core routes' shapes but (192, 128), to
-    time them on the same inputs."""
+    is given and a prefix of ``prefix_len`` rows (0: none).  The wrapper
+    passes ``bwd_variant``'s choice; ``chip_smoke.py`` also passes
+    ``"simt"`` at the tensor-core routes' shapes of SIMT_BWD_PAIRS, to time
+    them on the same inputs."""
     B, H, T, D = q.shape
     Hkv, Tk, Dv = k.shape[1], k.shape[2], v.shape[3]
-    if (D, Dv) in UNPORTED_BWD_PAIRS:
-        raise unported_bwd(f"the backward at (D, Dv) = {(D, Dv)}")
-    if prefix_len and kind != "simt":
-        raise unported_bwd(f"a prefix-LM mask on the {kind} backward")
     if kind == "simt" and (D, Dv) not in SIMT_BWD_PAIRS:
         raise ValueError(f"the simt backward does not take (D, Dv) = ({D}, {Dv})")
     if kind != "simt" and bwd_variant(q.dtype, D, Dv) != kind:
@@ -319,7 +299,7 @@ def bwd_launch(kind: str, q, k, v, o, do, causal: bool = True, lse=None,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse2.data_ptr(),
             delta.data_ptr(), B, H, Hkv, T, Tk, D, Dv)
     if kind != "simt":
-        BWD_KERNELS[kind].launch(*args, int(causal), int(lse is not None),
+        BWD_KERNELS[kind].launch(*args, int(causal), int(prefix_len), int(lse is not None),
                                  stream_handle(q))
     else:
         FLASH_ATTENTION_BWD.launch(*args, DTYPES[q.dtype], int(causal), int(prefix_len),
@@ -331,8 +311,7 @@ class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` with its gradient: the forward launches the
     kernel ``variant`` names, as ``flash_attention`` does, and keeps q, k,
     v, its output, the prefix and, where ``lse_route`` holds, its L; the
-    backward is :func:`flash_attention_bwd`, given that L (which raises at
-    UNPORTED_BWD_PAIRS, and for a prefix on the tensor-core routes)."""
+    backward is :func:`flash_attention_bwd`, given that L and the prefix."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True, prefix_len=None):

@@ -979,26 +979,85 @@ def test_cuda_flash_bwd_simt_with_prefix_matches_float64(cuda_device, B, H, Hkv,
         assert torch.equal(g, w)
 
 
-def test_cuda_flash_d256_and_prefix_refused_by_the_backward(cuda_device):
-    """(256, 256) has no backward on any route, and the tensor-core routes
-    take no prefix: each raises ``NotImplementedError`` before a launch,
-    also from ``FlashAttentionFn`` as autograd runs it."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,T,D,causal,prefix", [
+    (2, 8, 1, 384, 256, True, 256), (1, 4, 1, 77, 256, True, None),
+    (1, 4, 2, 257, 256, True, 100), (1, 2, 1, 130, 256, True, 130),
+    (1, 3, 1, 150, 256, False, None), (1, 8, 2, 300, 64, True, 100),
+    (1, 4, 1, 257, 128, True, 200), (2, 4, 4, 200, 192, True, 70)])
+def test_cuda_flash_bwd_d256_and_prefix_match_float64(cuda_device, B, H, Hkv, T, D, causal,
+                                                      prefix, dtype):
+    """The tensor-core backwards at paligemma-3b's (256, 256) (causal,
+    non-causal, the prefix-LM mask at L2's P 256, an unaligned P 100, P = T)
+    and with a prefix at D 64, 128 and MLA's (192, 128), given the
+    forward's L where ``lse_route`` holds and without it, against
+    ``ref.flash_attention_bwd_ref`` in float64: each gradient within 1e-5
+    (float32) or 1e-2 (bf16) of its largest magnitude, one launch of the
+    route's kernel a call, two calls bitwise equal; and through
+    ``FlashAttentionFn`` as autograd runs it, bitwise the call given L."""
     from repro_torch.kernels import flash_attention as tflash
 
-    counts = [kern.launches for kern in tflash.BWD_KERNELS.values()]
-    for dt in (torch.float32, torch.bfloat16):
-        q = torch.randn((1, 2, 64, 256), device=cuda_device).to(dt)
-        for kind in ("wgmma", "tf32", "simt"):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 21"):
-                tflash.bwd_launch(kind, q, q, q, q, q)
-        qs = q.detach().requires_grad_()
-        out = tflash.FlashAttentionFn.apply(qs, q, q, True, None)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 21"):
-            torch.autograd.grad(out.sum(), qs)
-        q = torch.randn((1, 2, 64, 64), device=cuda_device).to(dt)
-        with pytest.raises(NotImplementedError, match="prefix-LM mask"):
-            tflash.flash_attention_bwd(q, q, q, q, q, prefix_len=8)
-    assert [kern.launches for kern in tflash.BWD_KERNELS.values()] == counts
+    dt = getattr(torch, dtype)
+    Dv = 128 if D == 192 else D
+    rng = np.random.default_rng(T + D + (prefix or 0))
+    q, k, v, do = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                                device=cuda_device).to(dt)
+                   for s in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, Dv), (B, H, T, Dv)))
+    route = tflash.bwd_variant(dt, D, Dv)
+    assert route == ("wgmma" if dt == torch.bfloat16 else "tf32")
+    lse = None
+    if tflash.lse_route(dt, D, Dv):
+        o, lse = tflash.flash_attention(q, k, v, causal, return_lse=True, prefix_len=prefix)
+    else:
+        o = tflash.flash_attention(q, k, v, causal, prefix_len=prefix)
+    want = ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)), causal=causal,
+                                       prefix_len=prefix)
+    tol = 1e-5 if dt == torch.float32 else 1e-2
+    for given in ((lse, None) if lse is not None else (None,)):
+        before = {name: kern.launches for name, kern in tflash.BWD_KERNELS.items()}
+        got = tflash.flash_attention_bwd(q, k, v, o, do, causal, lse=given, prefix_len=prefix)
+        again = tflash.flash_attention_bwd(q, k, v, o, do, causal, lse=given,
+                                           prefix_len=prefix)
+        torch.cuda.synchronize()
+        assert {n: kern.launches - before[n] for n, kern in tflash.BWD_KERNELS.items()} == {
+            n: 2 * int(n == route) for n in tflash.BWD_KERNELS}
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = float((g.double() - w).abs().max())
+            assert err <= tol * float(w.abs().max()), (name, given is not None, err)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    out = tflash.FlashAttentionFn.apply(qs, ks, vs, causal, prefix)
+    for g, w in zip(torch.autograd.grad(out, (qs, ks, vs), do), got if lse is None else
+                    tflash.flash_attention_bwd(q, k, v, o, do, causal, lse=lse,
+                                               prefix_len=prefix)):
+        assert torch.equal(g, w)
+
+
+def test_cuda_flash_bwd_d256_instances_spill_nothing(cuda_device):
+    """``tools/sass_report.py`` on the two backward sources and the TF32
+    forward: the (256, 256) kernels (the bf16 dq kernel with and without
+    L and its dkdv kernel by part, the float32 ones, the TF32 forward that
+    writes L) store and load nothing in local memory."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(root / "tools" / "sass_report.py"),
+                          "flash_attention_bwd_wgmma.cu", "flash_attention_bwd_tf32.cu",
+                          "flash_attention_tf32.cu"], capture_output=True, text=True,
+                         check=True).stdout
+    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    for marker, n in (("flash_bwd_dq_wgmma_kernelILi256ELi256E", 2),
+                      ("flash_bwd_dkdv_d256_kernel", 1),
+                      ("flash_bwd_dq_tf32_d256_kernel", 2),
+                      ("flash_bwd_dkdv_tf32_d256_kernel", 1),
+                      ("flash_attention_tf32_kernelILi256ELi256ELb1E", 1)):
+        mine = [r for r in rows if marker in r["function"]]
+        assert len(mine) == n, (marker, rows)
+        for r in mine:
+            assert (r["local_stores"], r["local_loads"]) == (0, 0), r
 
 
 def test_cuda_flash_refuses_what_no_route_takes(cuda_device):
@@ -2822,7 +2881,8 @@ def test_cuda_flash_bwd_mla_with_lse_matches_float64(cuda_device, B, H, Hkv, T, 
 def test_cuda_flash_bwd_mla_instances_spill_nothing(cuda_device):
     """``tools/sass_report.py`` on the backward sources: the wgmma route's
     dq kernels at (192, 128) (with and without the forward's L) and its dkdv
-    kernel there (split by product), the tf32 route's dq kernel there and
+    kernels there (split by product; without and with the prefix-LM mask),
+    the tf32 route's dq kernel there and
     its ``flash_bwd_dkdv_tf32_mla_kernel``, and the SIMT route's float32 dq
     and dkdv kernels at (16, 8) store and load nothing in local memory.
     The SIMT route's bf16 instances at (16, 8) are left out: ptxas keeps 4
@@ -2842,7 +2902,7 @@ def test_cuda_flash_bwd_mla_instances_spill_nothing(cuda_device):
                          check=True).stdout
     rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
     wanted = (("flash_bwd_dq_wgmma_kernelILi192ELi128E", 2),
-              ("flash_bwd_dkdv_wgmma_kernelILi192ELi128E", 1),
+              ("flash_bwd_dkdv_wgmma_kernelILi192ELi128E", 2),
               ("flash_bwd_dq_tf32_kernelILi192ELi128E", 1),
               ("flash_bwd_dkdv_tf32_mla_kernelILi192ELi128E", 1),
               ("flash_bwd_dq_kernelIfLi16ELi8E", 1), ("flash_bwd_dkdv_kernelIfLi16ELi8E", 1))
@@ -2908,7 +2968,8 @@ def test_cuda_flash_bwd_with_lse_at_d64_d128_matches_float64(cuda_device, B, H, 
 def test_cuda_flash_d64_d128_instances_spill_nothing(cuda_device):
     """``tools/sass_report.py`` on the four tensor-core flash sources, at
     (64, 64) and (128, 128): the wgmma route's dq kernels given L and its
-    dkdv kernels (the D 128 one split by product), and the tf32 route's dq
+    dkdv kernels without and with the prefix-LM mask (the D 128 ones split
+    by product), and the tf32 route's dq
     kernels given L, store and load nothing in local memory; the forwards
     that write L (wgmma and tf32) keep in local memory what their no-L
     instances keep, no more (the bf16 forward at D 128 keeps 10 words there
@@ -2932,7 +2993,8 @@ def test_cuda_flash_d64_d128_instances_spill_nothing(cuda_device):
 
     for d in (64, 128):
         for kernel in (f"flash_bwd_dq_wgmma_kernelILi{d}ELi{d}ELb1E",
-                       f"flash_bwd_dkdv_wgmma_kernelILi{d}ELi{d}E",
+                       f"flash_bwd_dkdv_wgmma_kernelILi{d}ELi{d}ELb0E",
+                       f"flash_bwd_dkdv_wgmma_kernelILi{d}ELi{d}ELb1E",
                        f"flash_bwd_dq_tf32_kernelILi{d}ELi{d}ELb1E"):
             assert local(kernel) == (0, 0), kernel
         for kernel in ("flash_attention_wgmma_kernel", "flash_attention_tf32_kernel"):

@@ -17,8 +17,16 @@ jitted on the CPU.
   versions (``ref.flash_attention_ref``, the wrapper's CPU path and the
   SIMT route's plain backward against ``jax.vjp``), within 1e-6 of the
   largest magnitude (the backward 1e-5); the refusals: a prefix with
-  ``causal=False`` or T ≠ Tk (``ValueError``), a prefix on a tensor-core
-  backward route and the (256, 256) backward (``NotImplementedError``).
+  ``causal=False`` or T ≠ Tk (``ValueError``).
+* The tensor-core routes' plain backwards with a prefix, at (256, 256) and
+  D 64 in both dtypes, and ``FlashAttentionFn``'s gradient at (256, 256),
+  against ``jax.vjp`` (float32 within 1e-5; bf16, whose route rounds P and
+  dS and its outputs to bf16, within 1e-2, the card's gate); ``BWD_PAIRS``
+  is ``PAIRS`` and the SIMT route refuses D 256 (``ValueError``).
+* A narrow config of paligemma-3b's shape at head dim 256 (2 layers, 2
+  query heads over 1 KV head, the 256-patch prefix, the reduced vocab):
+  ``lm_loss`` and its gradient against ``jax.value_and_grad``, and a
+  2-microbatch ``make_train_step`` against the reference's.
 * ``lm_loss`` within 1e-5 and its gradient within 1e-4 of each leaf's
   largest magnitude, against ``jax.value_and_grad``, some labels < 0.
 * ``lm_prefill``'s logits (1e-5) and every cache leaf (1e-4), then 3
@@ -229,28 +237,142 @@ def test_prefix_refuses_non_causal_and_unequal_lengths(fn):
         call(q, k, v, prefix_len=17)
 
 
-def test_backward_refuses_d256_and_a_prefix_on_tensor_core_routes():
-    """(256, 256) has no backward (``bwd_variant``, ``flash_attention_bwd``
-    and ``bwd_launch`` raise on any device); a prefix on the wgmma or tf32
-    route raises; both name ROADMAP Queue 1 item 21."""
+#: the bf16 route's gate: P and dS enter their products rounded to bf16 and
+#: each gradient is rounded to bf16 (2⁻⁹ of a value)
+BF16_RTOL = 1e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,P", [(256, 24), (64, 20)])
+def test_tensor_core_plain_backward_with_prefix_matches_jax_vjp(D, P, dtype):
+    """``flash_attention_bwd`` on CPU tensors with a prefix, where
+    ``bwd_variant`` names a tensor-core route (tf32 for float32, wgmma for
+    bf16: plain versions ``ref.flash_attention_bwd_ref`` and
+    ``flash_attention_bwd_bf16_ref``), given the forward's L and without,
+    against ``jax.vjp`` of the reference's ``flash_attention_jnp`` on the
+    same (bf16-representable) inputs in float32."""
+    dt = getattr(torch, dtype)
+    q, k, v = qkv(D + P, 2, 4, 1, 40, D)
+    do = np.random.default_rng(D).standard_normal((2, 4, 40, D), dtype=np.float32)
+    q, k, v, do = (torch.as_tensor(x).to(dt).float().numpy() for x in (q, k, v, do))
+    _, vjp = jax.vjp(lambda a, b, c: rattn.flash_attention_jnp(a, b, c, prefix_len=P),
+                     *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.as_tensor(x).to(dt) for x in (q, k, v, do))
+    assert tflash.bwd_variant(dt, D) == ("tf32" if dt == torch.float32 else "wgmma")
+    o, lse = tflash.flash_attention(tq, tk, tv, return_lse=True, prefix_len=P)
+    rtol = RTOL if dt == torch.float32 else BF16_RTOL
+    for given in (lse, None):
+        got = tflash.flash_attention_bwd(tq, tk, tv, o, tdo, lse=given, prefix_len=P)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.dtype == dt
+            assert_close(g.float(), w, rtol, f"{name} given L: {given is not None}")
+
+
+def test_flash_attention_fn_gradient_at_d256_with_prefix_matches_jax_vjp():
+    """``FlashAttentionFn`` (the function autograd runs on the card) on CPU
+    tensors at (256, 256) with a prefix of 24 rows: its output and its
+    gradient (the tf32 route's plain backward given L) against
+    ``jax.vjp``."""
+    q, k, v = qkv(9, 2, 4, 1, 40, 256)
+    do = np.random.default_rng(10).standard_normal((2, 4, 40, 256), dtype=np.float32)
+    out, vjp = jax.vjp(lambda a, b, c: rattn.flash_attention_jnp(a, b, c, prefix_len=24),
+                       *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    xs = [torch.as_tensor(x).requires_grad_() for x in (q, k, v)]
+    got = tflash.FlashAttentionFn.apply(*xs, True, 24)
+    assert_close(got, out, FLASH_RTOL, "o")
+    grads = torch.autograd.grad(got, xs, torch.as_tensor(do))
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert_close(g, w, RTOL, name)
+
+
+def test_backward_pairs_and_the_simt_route_at_d256():
+    """Every forward pair has a backward (``BWD_PAIRS`` is ``PAIRS``): at
+    (256, 256) the wgmma route for bf16 and the tf32 route for float32,
+    both given L by the forward; the SIMT route has no (256, 256) instance
+    and ``bwd_launch("simt", ...)`` raises ``ValueError`` there, as at
+    (192, 128)."""
+    assert tflash.BWD_PAIRS == tflash.PAIRS
+    assert (256, 256) not in tflash.SIMT_BWD_PAIRS
+    assert tflash.bwd_variant(torch.bfloat16, 256) == "wgmma"
+    assert tflash.bwd_variant(torch.float32, 256) == "tf32"
+    assert tflash.lse_route(torch.bfloat16, 256) and tflash.lse_route(torch.float32, 256)
     for dt in (torch.float32, torch.bfloat16):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 21"):
-            tflash.bwd_variant(dt, 256)
-    assert (256, 256) in tflash.PAIRS and (256, 256) in tflash.WGMMA_PAIRS
-    assert (256, 256) not in tflash.BWD_PAIRS
-    assert tflash.variant(torch.bfloat16, 256) == "wgmma"
-    assert tflash.variant(torch.float32, 256) == "tf32"
-    q, k, v = (t.to(torch.bfloat16) for t in map(torch.as_tensor, qkv(6, 1, 2, 1, 8, 256)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 21"):
-        tflash.flash_attention_bwd(q, k, v, q, q)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 21"):
-        tflash.bwd_launch("simt", q, k, v, q, q)
-    q, k, v = map(torch.as_tensor, qkv(7, 1, 2, 1, 8, 64))
-    with pytest.raises(NotImplementedError, match="prefix-LM mask on the tf32"):
-        tflash.flash_attention_bwd(q, k, v, q, q, prefix_len=4)
-    with pytest.raises(NotImplementedError, match="prefix-LM mask on the wgmma"):
-        tflash.flash_attention_bwd(*(t.to(torch.bfloat16) for t in (q, k, v, q, q)),
-                                   prefix_len=4)
+        for D, Dv in ((256, 256), (192, 128)):
+            q, k = (torch.zeros((1, n, 8, D), dtype=dt) for n in (2, 1))
+            v, o = torch.zeros((1, 1, 8, Dv), dtype=dt), torch.zeros((1, 2, 8, Dv), dtype=dt)
+            with pytest.raises(ValueError, match="simt backward does not take"):
+                tflash.bwd_launch("simt", q, k, v, o, o, prefix_len=4)
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_d256():
+    """(reference api, port api, reference params, port params) of a narrow
+    config of paligemma-3b's shape at head dim 256: the reduced config with
+    2 query heads over 1 KV head of 256 and the full config's 256 patches."""
+    import dataclasses
+
+    kw = dict(n_heads=2, n_kv_heads=1, d_head=256,
+              n_frontend_tokens=get_config(ARCH).n_frontend_tokens)
+    rcfg = dataclasses.replace(ref_config(ARCH).reduced(), **kw)
+    cfg = dataclasses.replace(get_config(ARCH).reduced(), **kw)
+    rapi, api = rregistry.build(rcfg), registry.build(cfg)
+    tree = numpy_params(api.specs, seed=8)
+    return (rapi, api, jax.tree.map(jnp.asarray, tree),
+            convert.tree_from_numpy(tree, device="cpu"))
+
+
+def test_narrow_d256_loss_and_grads_match_reference():
+    """``lm_loss`` and its gradient through 2 layers at head dim 256 under
+    the 256-row prefix against ``jax.value_and_grad``, as the reduced
+    config's (above)."""
+    rapi, api, rp, tp = narrow_d256()
+    cfg = api.cfg
+    assert cfg.head_dim == 256 and cfg.n_frontend_tokens == 256
+    rng = np.random.default_rng(2)
+    labels = rng.integers(0, cfg.vocab_size, (B, 8)).astype(np.int32)
+    labels[0, :2] = -1
+    batch = {"tokens": tokens(cfg, (B, 8), seed=2), "labels": labels,
+             "patches": patches(cfg, seed=2)}
+    (r_loss, _), r_grads = jax.jit(jax.value_and_grad(
+        lambda p: rapi.loss(p, {k: jnp.asarray(v) for k, v in batch.items()}),
+        has_aux=True))(rp)
+    leaves, spec = pytree.tree_flatten(tp)
+    xs = [p.detach().requires_grad_() for p in leaves]
+    loss, _ = api.loss(pytree.tree_unflatten(xs, spec), batch)
+    grads = torch.autograd.grad(loss, xs)
+    assert_close(loss, r_loss, LOSS_RTOL, "loss")
+    want = jax.tree.leaves_with_path(r_grads)
+    assert len(want) == len(grads)
+    for g, (path, w) in zip(grads, want):
+        assert_close(g, w, GRAD_RTOL, jax.tree_util.keystr(path))
+
+
+def test_narrow_d256_train_step_in_two_microbatches_matches_reference():
+    """One step of 4 sequences (256 patches + 6 tokens) in 2 microbatches
+    at head dim 256, SGD with momentum, against the reference's, as the
+    reduced config's (below)."""
+    rapi, api, rp, tp = narrow_d256()
+    cfg = api.cfg
+    rng = np.random.default_rng(3)
+    batch = {"tokens": tokens(cfg, (4, 6), seed=3),
+             "labels": rng.integers(0, cfg.vocab_size, (4, 6)).astype(np.int32),
+             "patches": patches(cfg, seed=3, batch=4)}
+    ropt, opt = roptim.sgd(0.1, momentum=0.9), optimizers.sgd(0.1, momentum=0.9)
+    r_new, r_state, r_metrics = rtrain.make_train_step(
+        rapi.cfg, rapi, ropt, rtrain.TrainPlan(n_microbatches=2, accum_dtype=jnp.float32))(
+        rp, ropt.init(rp), {k: jnp.asarray(v) for k, v in batch.items()})
+    new, state, metrics = train.make_train_step(
+        cfg, api, opt, train.TrainPlan(n_microbatches=2, accum_dtype=torch.float32))(
+        tp, opt.init(tp), batch)
+    for k in ("loss", "grad_norm"):
+        assert_close(metrics[k], r_metrics[k], LOSS_RTOL, k)
+    for (path, w), g in zip(jax.tree.leaves_with_path(r_new), pytree.tree_leaves(new)):
+        assert_close(g, w, LOSS_RTOL, jax.tree_util.keystr(path))
+    for (path, w), g in zip(jax.tree.leaves_with_path(r_state["mu"]),
+                            pytree.tree_leaves(state["mu"])):
+        assert_close(g, w, GRAD_RTOL, jax.tree_util.keystr(path))
 
 
 def test_loss_and_grads_match_reference():

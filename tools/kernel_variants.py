@@ -145,9 +145,18 @@ parent's build and every instance's SASS against the parent's.  The cuts
 are ``fwd_no_pv``, ``fwd_no_split``, ``fwd_no_softmax`` and
 ``fwd_no_compute``, as for MLA's instance (above).
 
+Section ``d256_bwd`` (``d256_bwd_rows``): the attention backward at (256,
+256) with the prefix-LM mask in both routes at D256_BWD_SHAPES (P 256):
+given the forward's L and without, beside SDPA's backward with the mask as
+a boolean ``attn_mask``, dq and dkdv apart, errors against float64, two
+calls bitwise, the bounds and the (256, 256) instances' ``sass_report``
+lines; with ``--other`` the other backward instances (D256_BWD_OTHERS:
+E3's, moonshot's and MLA's shapes, no prefix) against the parent's build
+in turns, outputs bitwise, and every instance's SASS against the parent's.
+
 Run on a card from the repository root (all sections, or the ones
 named: ``matvec``, ``flash``, ``dedup``, ``gms``, ``mma``, ``mla``,
-``mla_bf16_bwd``, ``bwd_d64_d128``, ``d256``):
+``mla_bf16_bwd``, ``bwd_d64_d128``, ``d256``, ``d256_bwd``):
 
     python3 tools/kernel_variants.py [section ...] [--other ROOT]
 """
@@ -246,11 +255,20 @@ D256_STAMPS = "d256_stamps"
 #: D, Dv), causal: E3's (64, 64), moonshot's (128, 128) and MLA's G2 prefill
 D256_OTHERS = ((4, 32, 8, 1024, 64, 64), (4, 16, 16, 1024, 128, 128),
                (4, 128, 128, 1024, 192, 128))
+#: section ``d256_bwd``: the (256, 256) backward at chip_smoke's
+#: VLM_TC_BWD_CASES shape (paligemma-3b's L2 microbatch), (B, H, Hkv, T, P)
+D256_BWD_SHAPES = ((4, 8, 1, 384, 256),)
+#: section ``d256_bwd``: the other tensor-core backward instances, (B, H, Hkv,
+#: T, D, Dv), causal, with no prefix against the parent's build: E3's (64,
+#: 64), moonshot's (128, 128) and MLA's G3 (192, 128)
+D256_BWD_OTHERS = ((4, 32, 8, 1024, 64, 64), (4, 16, 16, 1024, 128, 128),
+                   (4, 128, 128, 1024, 192, 128))
 #: the parent builds of each section that takes ``--other``
 PARENT_BUILDS = {"mla": ("fwd", "bwd", "tf32", "bwd_wgmma"),
                  "mla_bf16_bwd": ("fwd", "bwd", "tf32", "bwd_wgmma"),
                  "bwd_d64_d128": ("fwd", "bwd", "tf32", "bwd_wgmma"),
-                 "d256": ("fwd",)}
+                 "d256": ("fwd",),
+                 "d256_bwd": ("fwd", "bwd", "tf32", "bwd_wgmma")}
 
 
 def build_all(names, other: Path | None = None,
@@ -637,13 +655,15 @@ def _bwd_calls(libs, names, q, k, v, o, do, stream, kernel=None, argtypes=None,
     """C-entry calls of the backward (``kernel``, by default the float32 one)
     in each library of ``names`` (whose entry takes ``argtypes``, by default
     the kernel's), given the forward's L ``lse`` where the entry takes it (a
-    ninth int, ``have_lse``)."""
+    ninth int, ``have_lse``), with no prefix where it takes one (a tenth int
+    before ``have_lse``)."""
     import torch
     from repro_torch.kernels import flash_attention as tflash
 
     kernel = kernel or tflash.FLASH_ATTENTION_BWD_TF32
     argtypes = argtypes or kernel.argtypes
-    have_lse = argtypes.count(ctypes.c_int) == 9
+    n_int = argtypes.count(ctypes.c_int)
+    have_lse = n_int >= 9
     B, H, T, D = q.shape
     Hkv, Dv = k.shape[1], v.shape[3]
     rows = -(-T // tflash.BWD_ROWS) * tflash.BWD_ROWS
@@ -655,6 +675,7 @@ def _bwd_calls(libs, names, q, k, v, o, do, stream, kernel=None, argtypes=None,
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse2.data_ptr(),
                 delta.data_ptr(), B, H, Hkv, T, T, D, Dv, 1,
+                *((0,) if n_int == 10 else ()),
                 *((int(lse is not None),) if have_lse else ()), stream)
         call = _c_call(libs[name], kernel, args, name, argtypes)
         calls[name] = lambda call=call, g=(dq, dk, dv): (call(), g)[1]
@@ -1204,6 +1225,117 @@ def d256_rows(libs) -> None:
         _sass_instances(libs)
 
 
+def d256_bwd_rows(libs) -> None:
+    """Section ``d256_bwd``: the attention backward at (256, 256) with the
+    prefix-LM mask (paligemma-3b) at D256_BWD_SHAPES in both routes (bf16
+    ``flash_attention_bwd_wgmma.cu``, float32 ``flash_attention_bwd_tf32.cu``):
+    this tree's build given the forward's L (as autograd runs it) and
+    without it, and SDPA's backward with the mask as a boolean
+    ``attn_mask``, device ms by kernel (dq, dkdv) in turns and events ms in
+    turns, errors against float64, two calls bitwise, the bounds (the five
+    products over the pairs the mask keeps at the dtype's tensor rate, one
+    TF32 term and three; the bytes; ``exp_bound_ms``) and the (256, 256)
+    instances' ``sass_report`` lines.  With ``--other`` then the other
+    instances at D256_BWD_OTHERS in both dtypes, with no prefix, this
+    tree's build (given L where ``lse_route`` holds) against the parent's
+    (given the same L), in turns (parent, this, this, parent), outputs
+    bitwise; and every instance of the four tensor-core sources against the
+    parent's build (``_sass_instances``)."""
+    import torch
+    import torch.nn.functional as F
+    from chip_smoke import (BF16_OPS_PER_S, EXP_PER_CLOCK_SM, TF32_OPS_PER_S, all_device_ms,
+                            prefix_pairs, sm_clock_hz)
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ref
+    from tools.sass_report import library_reports
+
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(0)
+    exp_rate = (EXP_PER_CLOCK_SM * torch.cuda.get_device_properties(0).multi_processor_count
+                * sm_clock_hz())
+    for B, H, Hkv, T, P in D256_BWD_SHAPES:
+        mask = ref.attention_mask(T, T, True, P, "cuda")
+        pairs = B * H * prefix_pairs(T, P)
+        for dt in (torch.bfloat16, torch.float32):
+            dtype = str(dt).split(".")[1]
+            bf16 = dt == torch.bfloat16
+            kernel = tflash.FLASH_ATTENTION_BWD_WGMMA if bf16 else tflash.FLASH_ATTENTION_BWD_TF32
+            q, k, v, do = _qkv(rng, B, H, Hkv, T, 256, 256, dt)
+            o, lse = tflash.flash_attention(q, k, v, return_lse=True, prefix_len=P)
+            want = ref.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)),
+                                               prefix_len=P)
+            bwd = {"shipped": lambda: tflash.flash_attention_bwd(q, k, v, o, do, lse=lse,
+                                                                 prefix_len=P),
+                   "shipped_no_lse": lambda: tflash.flash_attention_bwd(q, k, v, o, do,
+                                                                        prefix_len=P)}
+            errors = {}
+            for name, fn in bwd.items():
+                got = fn()
+                torch.cuda.synchronize()
+                errors[name] = {g: float((x.double() - w).abs().max() / w.abs().max())
+                                for g, x, w in zip(("dq", "dk", "dv"), got, want)}
+            del want
+            bitwise = {n: all(torch.equal(a, b) for a, b in zip(fn(), fn()))
+                       for n, fn in bwd.items()}
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+            def sdpa(out=out, qs=qs, ks=ks, vs=vs):
+                torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
+
+            device = _bwd_in_turns(bwd)
+            device["sdpa"] = statistics.mean(all_device_ms(sdpa, 5) for _ in range(2))
+            flops = 2 * pairs * 5 * 256
+            peak = BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S
+            nbytes = q.element_size() * 2 * (B * H * T + B * Hkv * T) * 2 * 256
+            bounds = {"products_ms": 1e3 * flops / peak, "bytes_ms": 1e3 * nbytes / 3.35e12,
+                      "exp_bound_ms": 1e3 * 2 * pairs / exp_rate}
+            if not bf16:
+                bounds["tc_bound_ms"] = 3 * bounds["products_ms"]
+            sass = [r for r in library_reports(kernel.library_path())
+                    if "flash_bwd" in r["function"]
+                    and ("256" in r["function"] or "d256" in r["function"])]
+            print(json.dumps({"kernel": kernel.name, "shape": [B, H, Hkv, T, 256],
+                              "prefix_len": P, "pairs_per_head": prefix_pairs(T, P),
+                              "dtype": dtype, "device_ms": device,
+                              "events_ms": in_turns({**bwd, "sdpa": sdpa}), "rel_err": errors,
+                              "bitwise_repeat": bitwise, "bounds": bounds, "sass": sass}),
+                  flush=True)
+            del q, k, v, o, do, lse, bwd, qs, ks, vs, out
+            torch.cuda.empty_cache()
+        del mask
+    if "parent_bwd_wgmma" not in libs:
+        return
+    for B, H, Hkv, T, D, Dv in D256_BWD_OTHERS:
+        for dt in (torch.bfloat16, torch.float32):
+            bf16 = dt == torch.bfloat16
+            kernel = tflash.FLASH_ATTENTION_BWD_WGMMA if bf16 else tflash.FLASH_ATTENTION_BWD_TF32
+            q, k, v, do = _qkv(rng, B, H, Hkv, T, D, Dv, dt)
+            lse = None
+            if tflash.lse_route(dt, D, Dv):
+                o, lse = tflash.flash_attention(q, k, v, return_lse=True)
+            else:
+                o = tflash.flash_attention(q, k, v)
+            name = "parent_bwd_wgmma" if bf16 else "parent_bwd"
+            bwd = {"this": lambda: tflash.flash_attention_bwd(q, k, v, o, do, lse=lse),
+                   "parent": _bwd_calls(libs, [name], q, k, v, o, do, stream, kernel,
+                                        PARENT_ARGTYPES["bwd_wgmma" if bf16 else "bwd_tf32"],
+                                        lse=lse)[name]}
+            same = all(torch.equal(a, b) for a, b in zip(bwd["this"](), bwd["parent"]()))
+            device = _bwd_in_turns({"parent": bwd["parent"], "this": bwd["this"]})
+            ratio = (device["this"]["total"] / device["parent"]["total"]
+                     if device["this"]["total"] and device["parent"]["total"] else None)
+            print(json.dumps({"kernel": kernel.name, "shape": [B, H, Hkv, T, D, Dv],
+                              "dtype": str(dt).split(".")[1], "lse_given": lse is not None,
+                              "bitwise_to_parent": same, "device_ms": device,
+                              "this_over_parent": ratio,
+                              "events_ms": in_turns({"parent": bwd["parent"],
+                                                     "this": bwd["this"]})}), flush=True)
+            del q, k, v, o, do, lse, bwd
+            torch.cuda.empty_cache()
+    _sass_instances(libs)
+
+
 def mla_bf16_bwd_only(libs) -> None:
     """Section ``mla_bf16_bwd``: ``mla_bf16_bwd_rows`` alone."""
     import torch
@@ -1235,7 +1367,8 @@ def main() -> int:
                 "mla": (mla_rows, (MLA_FWD_SRC, MLA_BWD_SRC, MLA_BF16_BWD_SRC)),
                 "mla_bf16_bwd": (mla_bf16_bwd_only, (MLA_BF16_BWD_SRC,)),
                 "bwd_d64_d128": (bwd_d64_d128_rows, (MLA_BWD_SRC, MLA_BF16_BWD_SRC)),
-                "d256": (d256_rows, (MLA_FWD_SRC,))}
+                "d256": (d256_rows, (MLA_FWD_SRC,)),
+                "d256_bwd": (d256_bwd_rows, (MLA_BWD_SRC, MLA_BF16_BWD_SRC))}
     chosen = args or list(sections)
     unknown = set(chosen) - set(sections)
     if unknown:
@@ -1248,6 +1381,8 @@ def main() -> int:
         names = [v for cuts in BWD_D64_D128_CUTS.values() for v in cuts]
     if chosen == ["d256"]:
         names = [*D256_CUTS, D256_STAMPS]
+    if chosen == ["d256_bwd"]:  # no cuts: the shipped builds and the parent's
+        names = []
     parents = sorted({b for name in chosen for b in PARENT_BUILDS.get(name, ())})
     libs = build_all(names, other if parents else None, parents)
     for name in chosen:
